@@ -1,0 +1,119 @@
+"""Vectorized safety checking (counterpart of ``paxos_tpu/check/safety.py``).
+
+The learner is omniscient: it sees every accept event and counts votes per
+(ballot, value) pair in a bounded K-slot table.  A second distinct chosen
+value counts as an agreement violation; :func:`acceptor_invariants` checks
+the acceptor-local invariants of honest acceptors every tick.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from paxos_tpu_torch.core.state import AcceptorState, LearnerState
+from paxos_tpu_torch.utils.bitops import popcount
+
+
+def first_true(mask: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Boolean mask selecting the first True along ``axis`` (all-False-safe)."""
+    n = mask.shape[axis]
+    shape = [1] * mask.dim()
+    shape[axis] = n
+    idx = torch.arange(n, dtype=torch.int32, device=mask.device).view(shape)
+    masked = torch.where(mask, idx, n)
+    first = masked.amin(dim=axis, keepdim=True)
+    return mask & (masked == first)
+
+
+def learner_observe(
+    learner: LearnerState,
+    ev_flag: torch.Tensor,  # (A, I) bool: acceptor a accepted this tick
+    ev_bal: torch.Tensor,  # (A, I) int32
+    ev_val: torch.Tensor,  # (A, I) int32
+    tick: torch.Tensor,  # () int32
+    quorum: int,
+) -> LearnerState:
+    """Fold this tick's accept events into the learner table."""
+    n_acc = ev_flag.shape[0]
+    lt_bal, lt_val, lt_mask = learner.lt_bal, learner.lt_val, learner.lt_mask
+    evictions = learner.evictions
+
+    pre_chosen_slots = popcount(lt_mask) >= quorum  # (K, I)
+
+    # At most one accept event per acceptor per tick, so a sequential fold
+    # over the small acceptor axis is exact: a second acceptor hitting a
+    # just-inserted pair matches it.
+    for a in range(n_acc):
+        b, v = ev_bal[a], ev_val[a]
+        f = ev_flag[a] & (b > 0)
+        match = (lt_bal == b[None]) & (lt_val == v[None]) & (b[None] > 0)
+        any_match = match.any(dim=0)
+        min_bal = lt_bal.amin(dim=0)  # empty slots (bal 0) win first
+        ins_slot = first_true(lt_bal == min_bal[None], axis=0)
+        can_insert = (min_bal == 0) | (b > min_bal)
+        do_insert = f & ~any_match & can_insert
+        missed = f & ~any_match & ~can_insert
+        bit = 1 << a
+
+        lt_mask = torch.where(match & f[None], lt_mask | bit, lt_mask)
+        ins = ins_slot & do_insert[None]
+        lt_bal = torch.where(ins, b[None], lt_bal)
+        lt_val = torch.where(ins, v[None], lt_val)
+        lt_mask = torch.where(ins, bit, lt_mask)
+        evictions = (
+            evictions
+            + missed.to(torch.int32)
+            + (do_insert & (min_bal != 0)).to(torch.int32)
+        )
+
+    chosen_slots = popcount(lt_mask) >= quorum
+    newly_chosen = chosen_slots & ~pre_chosen_slots
+    any_new = newly_chosen.any(dim=0)
+
+    # First newly chosen value (slot order: deterministic).
+    first_val = torch.where(first_true(newly_chosen, axis=0), lt_val, 0).sum(
+        dim=0, dtype=torch.int32
+    )
+    chosen_val = torch.where(
+        learner.chosen, learner.chosen_val, torch.where(any_new, first_val, 0)
+    )
+    chosen = learner.chosen | any_new
+    chosen_tick = torch.where(
+        learner.chosen,
+        learner.chosen_tick,
+        torch.where(any_new, tick.to(torch.int32), -1),
+    )
+
+    # Agreement: every newly chosen slot must carry THE chosen value.
+    viol = (newly_chosen & (lt_val != chosen_val[None]) & chosen[None]).sum(
+        dim=0, dtype=torch.int32
+    )
+    return dataclasses.replace(
+        learner,
+        lt_bal=lt_bal,
+        lt_val=lt_val,
+        lt_mask=lt_mask,
+        chosen=chosen,
+        chosen_val=chosen_val,
+        chosen_tick=chosen_tick,
+        violations=learner.violations + viol,
+        evictions=evictions,
+    )
+
+
+def acceptor_invariants(
+    old: AcceptorState, new: AcceptorState, honest: torch.Tensor
+) -> torch.Tensor:
+    """(I,) int32 count of per-tick acceptor-local invariant breaks.
+
+    - promise monotonicity: ``promised`` never decreases;
+    - acceptance bound: ``acc_bal <= promised`` after every transition;
+    - accepted pair consistency: a nil ballot never carries a value.
+    """
+    mono = new.promised < old.promised
+    bound = new.acc_bal > new.promised
+    nilpair = (new.acc_bal == 0) & (new.acc_val != 0)
+    bad = (mono | bound | nilpair) & honest
+    return bad.sum(dim=0, dtype=torch.int32)

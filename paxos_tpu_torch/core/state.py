@@ -1,0 +1,219 @@
+"""Struct-of-arrays role state (counterpart of ``paxos_tpu/core/state.py``).
+
+Every array is instance-minor: acceptors ``(A, I)``, proposers ``(P, I)``,
+learner tables ``(K, I)``, message slots ``(2, P, A, I)``.  Everything is
+int32 or bool; NIL ballots and values are 0.
+
+``leaves()`` returns the tensors in the reference's flatten order (flax
+field order, absent optional fields dropped), so a sha256 over the leaf
+bytes equals the reference's state digest.  The snapshot shadows and the
+observer planes of the reference are not ported yet.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import torch
+
+from paxos_tpu_torch.core.ballot import MAX_PROPOSERS, make_ballot
+from paxos_tpu_torch.core.messages import PREPARE, MsgBuf
+
+# Proposer phases
+P1 = 0  # prepare sent, collecting promises
+P2 = 1  # accept sent, collecting accepted
+DONE = 2  # proposer observed a quorum of Accepted for its ballot
+
+MAX_ACCEPTORS = 16  # voter-bitmask capacity
+
+
+def _zeros(shape, device, dtype=torch.int32) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+@dataclasses.dataclass
+class AcceptorState:
+    promised: torch.Tensor  # (A, I) int32 highest ballot promised
+    acc_bal: torch.Tensor  # (A, I) int32 ballot of last accepted proposal
+    acc_val: torch.Tensor  # (A, I) int32 value of last accepted proposal
+
+    @classmethod
+    def init(cls, n_inst: int, n_acc: int, device="cpu") -> "AcceptorState":
+        shape = (n_acc, n_inst)
+        return cls(*(_zeros(shape, device) for _ in range(3)))
+
+    def leaves(self) -> list:
+        return [self.promised, self.acc_bal, self.acc_val]
+
+
+@dataclasses.dataclass
+class ProposerState:
+    bal: torch.Tensor  # (P, I) int32 current ballot
+    phase: torch.Tensor  # (P, I) int32 in {P1, P2, DONE}
+    own_val: torch.Tensor  # (P, I) int32 value this proposer wants
+    prop_val: torch.Tensor  # (P, I) int32 value sent in phase 2
+    heard: torch.Tensor  # (P, I) int32 acceptor bitmask for current phase
+    best_bal: torch.Tensor  # (P, I) int32 highest prev-accepted ballot seen
+    best_val: torch.Tensor  # (P, I) int32 its value
+    timer: torch.Tensor  # (P, I) int32 ticks in phase (< 0: backoff)
+    decided_val: torch.Tensor  # (P, I) int32 value this proposer saw decided
+
+    @classmethod
+    def init(cls, n_inst: int, n_prop: int, device="cpu") -> "ProposerState":
+        shape = (n_prop, n_inst)
+        pid = (
+            torch.arange(n_prop, dtype=torch.int32, device=device)[:, None]
+            .expand(shape)
+            .contiguous()
+        )
+        return cls(
+            bal=make_ballot(torch.zeros_like(pid), pid),  # round 0
+            phase=_zeros(shape, device),  # P1
+            own_val=pid + 100,  # distinct per proposer so duels are observable
+            prop_val=_zeros(shape, device),
+            heard=_zeros(shape, device),
+            best_bal=_zeros(shape, device),
+            best_val=_zeros(shape, device),
+            timer=_zeros(shape, device),
+            decided_val=_zeros(shape, device),
+        )
+
+    def leaves(self) -> list:
+        return [
+            self.bal, self.phase, self.own_val, self.prop_val, self.heard,
+            self.best_bal, self.best_val, self.timer, self.decided_val,
+        ]
+
+
+@dataclasses.dataclass
+class LearnerState:
+    """Bounded per-instance table of (ballot, value) -> acceptor bitmask."""
+
+    lt_bal: torch.Tensor  # (K, I) int32
+    lt_val: torch.Tensor  # (K, I) int32
+    lt_mask: torch.Tensor  # (K, I) int32 acceptor bitmask
+    chosen: torch.Tensor  # (I,) bool
+    chosen_val: torch.Tensor  # (I,) int32 first chosen value
+    chosen_tick: torch.Tensor  # (I,) int32 tick of first choice (-1 if none)
+    violations: torch.Tensor  # (I,) int32 safety violations observed
+    evictions: torch.Tensor  # (I,) int32 table evictions
+
+    @classmethod
+    def init(cls, n_inst: int, k: int = 8, device="cpu") -> "LearnerState":
+        return cls(
+            lt_bal=_zeros((k, n_inst), device),
+            lt_val=_zeros((k, n_inst), device),
+            lt_mask=_zeros((k, n_inst), device),
+            chosen=_zeros((n_inst,), device, torch.bool),
+            chosen_val=_zeros((n_inst,), device),
+            chosen_tick=torch.full(
+                (n_inst,), -1, dtype=torch.int32, device=device
+            ),
+            violations=_zeros((n_inst,), device),
+            evictions=_zeros((n_inst,), device),
+        )
+
+    def leaves(self) -> list:
+        return [
+            self.lt_bal, self.lt_val, self.lt_mask, self.chosen,
+            self.chosen_val, self.chosen_tick, self.violations,
+            self.evictions,
+        ]
+
+
+@dataclasses.dataclass
+class PaxosState:
+    """Full simulator state for single-decree Paxos."""
+
+    acceptor: AcceptorState
+    proposer: ProposerState
+    learner: LearnerState
+    requests: MsgBuf  # proposer -> acceptor (PREPARE / ACCEPT)
+    replies: MsgBuf  # acceptor -> proposer (PROMISE / ACCEPTED)
+    tick: torch.Tensor  # () int32 global tick counter
+
+    @classmethod
+    def init(
+        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu"
+    ) -> "PaxosState":
+        if not 1 <= n_prop <= MAX_PROPOSERS:
+            raise ValueError(
+                f"n_prop={n_prop} exceeds ballot packing capacity {MAX_PROPOSERS}"
+            )
+        if not 1 <= n_acc <= MAX_ACCEPTORS:
+            raise ValueError(
+                f"n_acc={n_acc} exceeds voter bitmask capacity {MAX_ACCEPTORS}"
+            )
+        proposer = ProposerState.init(n_inst, n_prop, device)
+        # Every proposer opens with a phase-1 broadcast: PREPARE(bal) to all
+        # acceptors is in flight at tick 0.
+        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device)
+        requests.bal[PREPARE] = proposer.bal[:, None, :]
+        requests.present[PREPARE] = True
+        return cls(
+            acceptor=AcceptorState.init(n_inst, n_acc, device),
+            proposer=proposer,
+            learner=LearnerState.init(n_inst, k, device),
+            requests=requests,
+            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device),
+            tick=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def leaves(self) -> list:
+        """Tensors in the reference's flatten order (tick last)."""
+        return (
+            self.acceptor.leaves()
+            + self.proposer.leaves()
+            + self.learner.leaves()
+            + self.requests.leaves()
+            + self.replies.leaves()
+            + [self.tick]
+        )
+
+    def check_layout(self) -> None:
+        """Raise unless every leaf has the shape and dtype ``init`` gives
+        for this state's (n_inst, n_prop, n_acc, k_slots)."""
+        want = PaxosState.init(
+            self.n_inst, self.n_prop, self.n_acc, self.k_slots, device="meta"
+        )
+        for i, (leaf, ref) in enumerate(zip(self.leaves(), want.leaves())):
+            if leaf.shape != ref.shape or leaf.dtype != ref.dtype:
+                raise ValueError(
+                    f"state leaf {i}: {tuple(leaf.shape)} {leaf.dtype}, "
+                    f"expected {tuple(ref.shape)} {ref.dtype}"
+                )
+
+    def clone(self) -> "PaxosState":
+        """A deep copy on the same device (the fused kernel updates the
+        state it is given in place)."""
+        return copy.deepcopy(self)
+
+    @property
+    def n_inst(self) -> int:
+        return self.acceptor.promised.shape[1]
+
+    @property
+    def n_acc(self) -> int:
+        return self.acceptor.promised.shape[0]
+
+    @property
+    def n_prop(self) -> int:
+        return self.proposer.bal.shape[0]
+
+    @property
+    def k_slots(self) -> int:
+        return self.learner.lt_bal.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.acceptor.promised.device
+
+
+# Bytes of state each instance carries (bool leaves 1 byte, tick excluded):
+# the figure the fused kernel's memory bound is computed from.
+def state_bytes_per_lane(state: PaxosState) -> int:
+    return sum(
+        leaf.element_size() * (leaf.numel() // state.n_inst)
+        for leaf in state.leaves()[:-1]
+    )

@@ -1,0 +1,93 @@
+"""Typed run configs (counterpart of ``paxos_tpu/harness/config.py``).
+
+:class:`SimConfig` mirrors the reference's fields.  The observer planes
+(telemetry, coverage, exposure, margin, workload) are not ported: their
+fields exist so a config converts field for field, and default to None
+(off); :func:`paxos_tpu_torch.harness.run.run` rejects a config that sets
+one.  :meth:`SimConfig.fingerprint` equals the reference's for configs with
+every plane off.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import Optional
+
+from paxos_tpu_torch.faults.injector import FaultConfig
+
+# The reference's packed layout version for single-decree paxos: part of
+# its config fingerprint, kept so fingerprints agree across the packages.
+PAXOS_LAYOUT_VERSION = "paxos-packed-v4"
+
+OBSERVER_PLANES = ("telemetry", "coverage", "exposure", "margin", "workload")
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """One fuzzing run: protocol, topology, scale, faults, timing."""
+
+    n_inst: int = 1024
+    n_prop: int = 1
+    n_acc: int = 3
+    k_slots: int = 8
+    log_len: int = 8
+    seed: int = 0
+    protocol: str = "paxos"
+    fault: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    telemetry: Optional[dict] = None
+    coverage: Optional[dict] = None
+    exposure: Optional[dict] = None
+    margin: Optional[dict] = None
+    workload: Optional[dict] = None
+
+    def fingerprint(self) -> str:
+        d = dataclasses.asdict(self)
+        for plane in OBSERVER_PLANES:
+            if d[plane] is None:
+                del d[plane]
+        if self.protocol != "paxos":
+            raise NotImplementedError(
+                f"protocol {self.protocol!r} is not ported yet (ROADMAP queue "
+                "A slice 4)"
+            )
+        d["layout_version"] = PAXOS_LAYOUT_VERSION
+        blob = json.dumps(d, sort_keys=True).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def validate_pipeline_depth(depth) -> int:
+    """A dispatch-pipeline depth is an integer >= 1."""
+    if isinstance(depth, bool) or not isinstance(depth, int):
+        raise ValueError(f"pipeline depth must be an integer >= 1, got {depth!r}")
+    if depth < 1:
+        raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+    return depth
+
+
+def config1_no_faults(n_inst: int = 1024, seed: int = 0) -> SimConfig:
+    """Config 1: single-decree, 3 acceptors, 1 proposer, no faults."""
+    return SimConfig(n_inst=n_inst, n_prop=1, n_acc=3, seed=seed)
+
+
+def config2_dueling_drop(n_inst: int = 131_072, seed: int = 0) -> SimConfig:
+    """Config 2: 5 acceptors, 2 dueling proposers, 10% message drop."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        fault=FaultConfig(p_drop=0.1, p_idle=0.2, p_hold=0.2),
+    )
+
+
+def config4_byzantine(n_inst: int = 4096, seed: int = 0) -> SimConfig:
+    """Config 4: acceptor equivocation, to validate the checker."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        fault=FaultConfig(p_idle=0.2, p_hold=0.2, p_equiv=0.25),
+    )

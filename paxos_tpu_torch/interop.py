@@ -1,0 +1,64 @@
+"""State and fault-plan exchange with the reference package, as numpy.
+
+The reference's pytrees flatten to leaves in a fixed order (flax field
+order, absent optional fields dropped); the port's ``leaves()`` use the same
+order.  These functions take and return plain numpy arrays in that order,
+so the port needs nothing of the reference to read what it wrote.  This is
+how a sampled fault plan, or a state from a reference run, carries across.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from paxos_tpu_torch.core.messages import MsgBuf
+from paxos_tpu_torch.core.state import (
+    AcceptorState,
+    LearnerState,
+    PaxosState,
+    ProposerState,
+)
+from paxos_tpu_torch.faults.injector import FaultPlan
+
+# Leaves per sub-state of a single-decree PaxosState, in flatten order.
+_GROUPS = ((AcceptorState, 3), (ProposerState, 9), (LearnerState, 8),
+           (MsgBuf, 4), (MsgBuf, 4))
+N_STATE_LEAVES = sum(n for _, n in _GROUPS) + 1  # + the tick scalar
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype not in (np.int32, np.bool_):
+        raise ValueError(f"state leaves are int32 or bool, got {arr.dtype}")
+    return torch.from_numpy(np.array(arr, order="C", copy=True)).to(device)
+
+
+def state_from_numpy(leaves, device="cpu") -> PaxosState:
+    """A :class:`PaxosState` from the reference's flattened leaves."""
+    leaves = list(leaves)
+    if len(leaves) != N_STATE_LEAVES:
+        raise NotImplementedError(
+            f"state has {len(leaves)} leaves; the port holds the "
+            f"{N_STATE_LEAVES} of a single-decree state with every optional "
+            "plane off (snapshot shadows, delay stamps and observer planes: "
+            "ROADMAP queue A slice 5)"
+        )
+    tensors = [_tensor(leaf, device) for leaf in leaves]
+    parts, k = [], 0
+    for cls, n in _GROUPS:
+        parts.append(cls(*tensors[k : k + n]))
+        k += n
+    state = PaxosState(*parts, tick=tensors[k])
+    state.check_layout()
+    return state
+
+
+def state_to_numpy(state: PaxosState) -> list:
+    """The state's leaves as numpy arrays, in the reference's order."""
+    return [leaf.detach().cpu().numpy() for leaf in state.leaves()]
+
+
+def plan_from_numpy(leaves, device="cpu") -> FaultPlan:
+    """A :class:`FaultPlan` from the reference's flattened plan leaves."""
+    return FaultPlan.from_numpy(leaves, device)
