@@ -7,20 +7,26 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
 Phases (each raises on failure, so any failed phase exits non-zero):
 
-1. build the fused kernel from ``paxos_tpu_torch/kernels/csrc`` with nvcc;
-2. golden: config2 at 256 lanes, seed 7, 32 ticks through the kernel must
-   give the recorded state digest ``db6db6f40f16eb7b``;
-3. kernel vs plain: every kernel instantiation against the plain PyTorch
-   version on the card, byte for byte, config2 at 1<<20 lanes x 64 ticks;
-4. main path: the flagship campaign (config2, 1<<20 lanes, 4096 ticks,
-   chunk 64, pipeline depth 16) through ``run``, with launch counts; its
-   evictions must be the recorded ones, and each stream block that evicted
-   is replayed with the plain version on the card (same dispatches, same
-   ballot clamps) and must equal that block of the final state byte for
-   byte; then once more under torch.profiler for the device's busy and
-   idle time;
-5. checker: config4 with a fixed-seed equivocation plan must report
-   violations.
+1. build: the four kernels of ``paxos_tpu_torch/kernels/csrc``, one nvcc
+   each, all started together; each one's ``ptxas -v`` registers and spills;
+2. ceiling: the int32 probe (K6) against its plain version byte for byte,
+   then the card's int32 operation rate from two iteration counts, which
+   every fused kernel's operation bound divides by;
+3. golden: config2, Fast Paxos and Raft-core (config5) at 256 lanes, seed
+   7, 32 ticks through their kernels must give the recorded state digests;
+4. kernel vs plain: every kernel instantiation against the plain PyTorch
+   version on the card, byte for byte, including a per-tick ballot clamp
+   with a block offset, and at full width (1<<20 lanes x 64 ticks), timed;
+5. main paths: the flagship campaign (config2) and the config5 sweep's
+   Fast Paxos and Raft-core campaigns (1<<20 lanes, 4096 ticks, chunk 64,
+   pipeline depth 16) through ``run``, each with every launch count set to
+   0 before and read after; reports deterministic over 3 repeats, no
+   violations; the two lowest-numbered stream blocks that evicted must
+   equal, digest for digest, what the JAX package computes for them
+   (pinned in tests/test_torch_evictions.py); then once more under
+   torch.profiler for the device's busy and idle time;
+6. checker: config4's equivocation, an unsafe Fast Flexible Paxos quorum
+   triple, and Raft-core equivocation must each report violations.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -28,6 +34,7 @@ and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
@@ -39,30 +46,69 @@ from pathlib import Path
 import numpy as np
 import torch
 
-GOLDEN_CONFIG2 = "db6db6f40f16eb7b"  # config2, 256 lanes, seed 7, 32 ticks
+# Recorded state digests: 256 lanes, seed 7, 32 ticks (the JAX package's
+# tests/test_gray.py _GOLDEN_CTR).
+GOLDENS = {
+    "paxos": "db6db6f40f16eb7b",
+    "fastpaxos": "72beea3ccdacab94",
+    "raftcore": "eb285905571b709f",
+}
 FULL_LANES = 1 << 20
 MAIN_PATH_REPEATS = 3
 MAIN_TICKS, MAIN_CHUNK, MAIN_DEPTH = 4096, 64, 16
 # The flagship campaign (seed 0) fills one lane's 8-slot learner table:
-# lane 838 of stream block 963.  The plain version gives the same eviction.
+# lane 838 of stream block 963.
 MAIN_EVICTION_LANES = [986950]
+# Per main path: its total evictions, and for the two lowest-numbered
+# stream blocks that evicted, the evicting lanes inside the block and the
+# block's state digest after the campaign, as the JAX package computes
+# them (tests/test_torch_evictions.py holds the same numbers and checks
+# them against the JAX package).
+EVICTION_PINS = {
+    "paxos": (1, {963: ([838], "8c8a818261f3d84c")}),
+    "fastpaxos": (138, {5: ([862], "659e8267fff0c143"), 17: ([213], "0727753391be6bf5")}),
+    "raftcore": (0, {}),
+}
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and
 # int32 ALU throughput: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (an IMAD,
 # IADD3 or LOP3 instruction does two of the counted operations, so this
-# is an upper bound on the rate).
+# is an upper bound on the rate).  The bounds use the measured rate (K6);
+# the published-peak bound is printed beside them.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9 * 2
+# The int32 operation census of each tick (scripts/roofline.py tick_census,
+# in ROOFLINE.json), per protocol.
+CENSUS_CASES = {
+    "paxos": "config2-paxos",
+    "fastpaxos": "config5-fastpaxos",
+    "raftcore": "config5-raftcore",
+}
+KERNEL_SOURCE = "paxos_tpu_torch/kernels/csrc/{}.cu"
+# pl.pallas_call of the JAX package's fused engine (fused_chunk), which
+# each protocol binds through fused_fns; and the int32 probe.
+FUSED_PALLAS_CALL = "paxos_tpu/kernels/fused_tick.py:345"
+REPLACES = {
+    "paxos": FUSED_PALLAS_CALL + " (_kernel :201, packed_fns('paxos'))",
+    "fastpaxos": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('fastpaxos') :655)",
+    "raftcore": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('raftcore') :660)",
+}
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def digest(state) -> str:
+def digest(leaves) -> str:
     h = hashlib.sha256()
-    for leaf in state.leaves():
+    for leaf in leaves:
         h.update(leaf.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def block_leaves(state, blk: int, block: int = 1024) -> list:
+    """The leaves of stream block ``blk`` of ``state`` (tick included)."""
+    lo = blk * block
+    return [x[..., lo:lo + block].contiguous() if x.dim() else x for x in state.leaves()]
 
 
 def max_abs_err(a: list, b: list) -> int:
@@ -87,87 +133,169 @@ def timed(fn, reps: int = 1) -> tuple:
     return out, start.elapsed_time(end) / reps
 
 
-def tick_ops_per_lane() -> float:
-    """int32 operations per lane-tick of the unpacked config2 tick: the
-    ALU + reduction census of scripts/roofline.py (recorded in
-    ROOFLINE.json), without its packed-codec share, which the unpacked port
-    does not execute.  The census draws every mask of every slot, where the
-    kernel draws lazily, so it overcounts the kernel's operations."""
+def tick_ops_per_lane(protocol: str) -> float:
+    """int32 operations per lane-tick of the unpacked tick: the ALU +
+    reduction census of scripts/roofline.py (recorded in ROOFLINE.json),
+    without its packed-codec share, which the unpacked port does not
+    execute.  The census draws every mask of every slot, where the kernels
+    draw lazily, so it overcounts the kernels' operations."""
     cases = json.loads(Path("ROOFLINE.json").read_text())["cases"]
-    c = next(c for c in cases if c["case"] == "config2-paxos")
+    c = next(c for c in cases if c["case"] == CENSUS_CASES[protocol])
     return c["alu_per_lane_tick"] + c["reduce_per_lane_tick"] - c["codec_alu_per_lane_tick"]
 
 
-def phase_build() -> dict:
-    from paxos_tpu_torch.kernels import build
+def main_config(protocol: str, n_inst: int = FULL_LANES, seed: int = 0):
+    from paxos_tpu_torch.harness import config as C
 
+    if protocol == "paxos":
+        return C.config2_dueling_drop(n_inst, seed)
+    return C.config5_sweep(n_inst, seed)[("paxos", "fastpaxos", "raftcore").index(protocol)]
+
+
+def reset_launches() -> None:
+    from paxos_tpu_torch.kernels.fused_tick import FUSED_WRAPPERS
+    from paxos_tpu_torch.kernels.int32_ceiling import int32_ceiling
+
+    for wrapper in FUSED_WRAPPERS.values():
+        wrapper.launches = 0
+    int32_ceiling.launches = 0
+
+
+def read_launches() -> dict:
+    from paxos_tpu_torch.kernels.fused_tick import FUSED_WRAPPERS
+    from paxos_tpu_torch.kernels.int32_ceiling import int32_ceiling
+
+    out = {p: w.launches for p, w in FUSED_WRAPPERS.items()}
+    out["int32_ceiling"] = int32_ceiling.launches
+    return out
+
+
+def phase_build() -> dict:
+    """Build every kernel, one nvcc each, all started together."""
+    from paxos_tpu_torch.kernels import build
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS
+
+    names = [b.kernel for b in BINDINGS.values()] + ["int32_ceiling"]
     t0 = time.perf_counter()
-    build.build("fused_paxos_tick")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build.build, names))
     secs = time.perf_counter() - t0
-    report = build.ptxas_report("fused_paxos_tick")
+    log(f"build: {len(names)} kernels in {secs:.1f} s (nvcc, sm_90a, in parallel)")
     keys = ("entry function", "registers", "spill")
-    lines = [ln.strip() for ln in report.splitlines() if any(k in ln for k in keys)]
-    log(f"build: {secs:.1f} s (nvcc, sm_90a)")
-    for ln in lines:
-        log(f"ptxas: {ln}")
-    return {"build_s": secs, "ptxas": lines}
+    ptxas = {}
+    for name in names:
+        report = build.ptxas_report(name)
+        ptxas[name] = [ln.strip() for ln in report.splitlines() if any(k in ln for k in keys)]
+        for ln in ptxas[name]:
+            log(f"ptxas {name}: {ln}")
+    return {"build_s": secs, "ptxas": ptxas}
+
+
+def phase_ceiling() -> dict:
+    """K6 against its plain version at full size, then the int32 rate."""
+    from paxos_tpu_torch.kernels.int32_ceiling import (
+        ITERS,
+        OPS_PER_ITER,
+        SHAPE,
+        ceiling_reference,
+        int32_ceiling,
+        int32_ops_per_s,
+    )
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, SHAPE, dtype=np.int64).astype(np.int32)).cuda()
+    iters = ITERS[0]
+    plain, plain_ms = timed(lambda: ceiling_reference(x, iters))
+    int32_ceiling(x, iters)  # warm
+    kern, kern_ms = timed(lambda: int32_ceiling(x, iters), reps=5)
+    err = max_abs_err([kern], [plain])
+    log(f"ceiling: kernel vs plain {SHAPE} x {iters} iterations, max_abs_err {err}")
+    if err != 0:
+        raise AssertionError("int32_ceiling disagrees with its plain version")
+    rate = int32_ops_per_s()
+    n_ops = x.numel() * iters * OPS_PER_ITER
+    bytes_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(
+        f"ceiling: measured {rate:.4g} int32 op/s ({rate / INT32_OPS_PER_S:.3f} of the "
+        f"published-peak {INT32_OPS_PER_S:.4g}); kernel {kern_ms:.3f} ms, plain {plain_ms:.1f} ms"
+    )
+    return {
+        "ops_per_s": rate, "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, n_ops / rate * 1e3),
+        "bound_by": "operations" if n_ops / rate * 1e3 >= bytes_ms else "bytes",
+        "bound_ms_published_peak": max(bytes_ms, n_ops / INT32_OPS_PER_S * 1e3),
+        "shape": f"int32 {SHAPE} x {iters} iterations; rate from {ITERS[0]} and {ITERS[1]}",
+    }
 
 
 def phase_golden() -> None:
-    from paxos_tpu_torch.harness import config as C
     from paxos_tpu_torch.harness.run import init_plan, init_state
-    from paxos_tpu_torch.kernels.fused_tick import fit_block, fused_paxos_chunk
+    from paxos_tpu_torch.kernels.fused_tick import FUSED_WRAPPERS
 
-    cfg = C.config2_dueling_drop(256, 7)
-    state = init_state(cfg, "cuda")
-    block = fit_block(1024, 256)
-    state = fused_paxos_chunk(state, cfg.seed, init_plan(cfg, "cuda"), cfg.fault, 32, block=block)
-    got = digest(state)
-    log(f"golden: config2 256 lanes seed 7 32 ticks digest {got} (want {GOLDEN_CONFIG2})")
-    if got != GOLDEN_CONFIG2:
-        raise AssertionError(f"golden digest {got} != {GOLDEN_CONFIG2}")
+    for protocol, want in GOLDENS.items():
+        cfg = main_config(protocol, 256, 7)
+        state = init_state(cfg, "cuda")
+        state = FUSED_WRAPPERS[protocol](
+            state, cfg.seed, init_plan(cfg, "cuda"), cfg.fault, 32, block=256
+        )
+        got = digest(state.leaves())
+        log(f"golden: {protocol} 256 lanes seed 7 32 ticks digest {got} (want {want})")
+        if got != want:
+            raise AssertionError(f"{protocol} golden digest {got} != {want}")
 
 
-def equivocation_plan(n_inst: int, n_acc: int, n_prop: int, p: float, seed: int):
-    from paxos_tpu_torch.faults.injector import FaultPlan
+def fault_plan(n_inst: int, n_acc: int, n_prop: int, p_equiv: float, seed: int, p_crash: float = 0.0):
+    """A plan from a fixed numpy seed: equivocators with probability
+    ``p_equiv`` and, with probability ``p_crash``, a crash window in the
+    first 48 ticks."""
+    from paxos_tpu_torch.faults.injector import NEVER, FaultPlan
 
     plan = FaultPlan.none(n_inst, n_acc, n_prop, device="cuda")
     rng = np.random.default_rng(seed)
-    plan.equivocate = torch.from_numpy(rng.random((n_acc, n_inst)) < p).cuda()
+    plan.equivocate = torch.from_numpy(rng.random((n_acc, n_inst)) < p_equiv).cuda()
+    crash = rng.random((n_acc, n_inst)) < p_crash
+    start = rng.integers(0, 32, (n_acc, n_inst))
+    end = start + rng.integers(1, 17, (n_acc, n_inst))
+    plan.crash_start = torch.from_numpy(np.where(crash, start, NEVER).astype(np.int32)).cuda()
+    plan.crash_end = torch.from_numpy(np.where(crash, end, NEVER).astype(np.int32)).cuda()
     return plan
 
 
 def near_limit_state(cfg, rnd: int):
-    """``cfg``'s initial state with every proposer at ballot round ``rnd``
-    (and its PREPAREs in flight at that ballot)."""
+    """``cfg``'s initial state with every proposer in phase 1 at ballot
+    round ``rnd`` and its PREPARE (REQVOTE) broadcast in flight."""
     from paxos_tpu_torch.harness.run import init_state
 
     st = init_state(cfg, "cuda")
     pid = torch.arange(cfg.n_prop, dtype=torch.int32, device="cuda")[:, None]
     st.proposer.bal.copy_((rnd * 8 + pid + 1).expand_as(st.proposer.bal))
+    st.proposer.phase.zero_()
     st.requests.bal[0] = st.proposer.bal[:, None, :]
+    st.requests.present[0] = True
     return st
 
 
-def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, **kw) -> dict:
+def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, ceiling=None, **kw) -> dict:
     """Kernel vs plain on the card from the same initial state; ``kw`` are
-    the wrapper's ``blk0`` and ``clamp_per_tick``."""
+    the wrapper's ``blk0`` and ``clamp_per_tick``.  With ``reps``, also
+    the kernel's steady-state time and its bound (operations over the
+    measured ``ceiling`` and over the published peak)."""
     from paxos_tpu_torch.core.state import state_bytes_per_lane
     from paxos_tpu_torch.harness.run import init_state
-    from paxos_tpu_torch.kernels.fused_tick import fused_paxos_chunk, reference_chunk
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, reference_chunk
 
+    wrapper = FUSED_WRAPPERS[cfg.protocol]
     init = init_state(cfg, "cuda") if init is None else init
     plain, plain_ms = timed(
         lambda: reference_chunk(
             init, cfg.seed, plan, cfg.fault, n_ticks, blk_id=kw.get("blk0", 0),
             block=block, clamp_per_tick=kw.get("clamp_per_tick", False),
+            apply_fn=BINDINGS[cfg.protocol].apply_fn,
         )
     )
     st = init.clone()
     torch.cuda.synchronize()
-    kern, kern_ms = timed(
-        lambda: fused_paxos_chunk(st, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw)
-    )
+    kern, kern_ms = timed(lambda: wrapper(st, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw))
     err = max_abs_err(kern.leaves(), plain.leaves())
     log(f"{name}: {cfg.n_inst} lanes x {n_ticks} ticks, kernel vs plain max_abs_err {err}")
     if err != 0:
@@ -176,78 +304,94 @@ def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, **kw) -> di
     if reps:
         # Steady state: further chunks continuing from the compared state.
         _, out["ms"] = timed(
-            lambda: fused_paxos_chunk(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block),
-            reps,
+            lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block), reps
         )
         plan_bytes = sum(l.element_size() * l.numel() for l in (plan.crash_start, plan.crash_end, plan.equivocate))
         n_bytes = 2 * state_bytes_per_lane(init) * cfg.n_inst + plan_bytes
-        n_ops = tick_ops_per_lane() * cfg.n_inst * n_ticks
+        n_ops = tick_ops_per_lane(cfg.protocol) * cfg.n_inst * n_ticks
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+        ops_ms = n_ops / ceiling * 1e3
+        peak_ops_ms = n_ops / INT32_OPS_PER_S * 1e3
         out.update(
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            bytes_ms=bytes_ms, ops_ms=ops_ms, state_bytes_per_lane=state_bytes_per_lane(init),
+            bound_ms_published_peak=max(bytes_ms, peak_ops_ms),
+            bytes_ms=bytes_ms, ops_ms=ops_ms, ops_per_lane_tick=tick_ops_per_lane(cfg.protocol),
+            state_bytes_per_lane=state_bytes_per_lane(init),
         )
         log(
             f"{name}: kernel {out['ms']:.3f} ms/chunk (first {kern_ms:.3f}), plain "
             f"{plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}; bytes "
-            f"{bytes_ms:.3f} ms, int32 ops {ops_ms:.3f} ms)"
+            f"{bytes_ms:.3f} ms, int32 ops {ops_ms:.3f} ms at the measured rate, "
+            f"{peak_ops_ms:.3f} ms at the published peak)"
         )
     return out
 
 
-def phase_compare() -> dict:
+def phase_compare(ceiling: float) -> dict:
+    """Every instantiation against the plain version; the full-width
+    comparison of each fused kernel, timed, is returned per protocol."""
     from paxos_tpu_torch.harness import config as C
     from paxos_tpu_torch.harness.run import init_plan
 
     cfg1 = C.config1_no_faults(4096, 3)
-    compare("config1 (1,3,8)", cfg1, init_plan(cfg1, "cuda"), 64)
+    compare("paxos config1 (1,3,8)", cfg1, init_plan(cfg1, "cuda"), 64)
     cfg4 = C.config4_byzantine(4096, 5)
-    compare("config4 (2,5,8)", cfg4, equivocation_plan(4096, 5, 2, 0.25, 4), 300)
-    # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
-    # offset, which the main path does not take, from near-limit ballots.
-    cfgc = C.config2_dueling_drop(4096, 13)
-    compare(
-        "config2 per-tick clamp, blk0=5", cfgc, init_plan(cfgc, "cuda"), 96,
-        init=near_limit_state(cfgc, 4094), blk0=5, clamp_per_tick=True,
-    )
-    cfg2 = C.config2_dueling_drop(FULL_LANES, 7)
-    return compare("config2 full width", cfg2, init_plan(cfg2, "cuda"), 64, reps=5)
-
-
-def replay_block(cfg, state, blk: int) -> int:
-    """Stream block ``blk`` of the main path through the plain version on
-    the card, with the main path's dispatches and ballot clamps; returns
-    its max_abs_err against that block of the main path's ``state``."""
-    from paxos_tpu_torch.harness.run import init_plan, init_state
-    from paxos_tpu_torch.kernels.fused_tick import DEFAULT_BLOCK, reference_chunk, saturate_ballots
-
-    sub = dataclasses.replace(cfg, n_inst=DEFAULT_BLOCK)
-    st, plan = init_state(sub, state.device), init_plan(sub, state.device)
-    per_dispatch = MAIN_CHUNK * MAIN_DEPTH
-    assert MAIN_TICKS % per_dispatch == 0
-    for _ in range(MAIN_TICKS // per_dispatch):
-        st = saturate_ballots(st)
-        st = reference_chunk(
-            st, cfg.seed, plan, cfg.fault, per_dispatch, blk_id=blk, block=DEFAULT_BLOCK
+    compare("paxos config4 (2,5,8)", cfg4, fault_plan(4096, 5, 2, 0.25, 4), 300)
+    for protocol in ("fastpaxos", "raftcore"):
+        small = dataclasses.replace(main_config(protocol, 4096, 11), n_acc=3)
+        compare(
+            f"{protocol} (2,3,8) with crashes and equivocators", small,
+            fault_plan(4096, 3, 2, 0.25, 5, p_crash=0.3), 128,
         )
-        st = saturate_ballots(st)
-    lo = blk * DEFAULT_BLOCK
-    main = [x[..., lo:lo + DEFAULT_BLOCK] if x.dim() else x for x in state.leaves()]
-    return max_abs_err(main, st.leaves())
+    # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
+    # offset, which the main paths do not take, from near-limit ballots.
+    for protocol in ("paxos", "fastpaxos", "raftcore"):
+        cfgc = main_config(protocol, 4096, 13)
+        compare(
+            f"{protocol} per-tick clamp, blk0=5", cfgc, init_plan(cfgc, "cuda"), 96,
+            init=near_limit_state(cfgc, 4094), blk0=5, clamp_per_tick=True,
+        )
+    full = {}
+    for protocol in ("paxos", "fastpaxos", "raftcore"):
+        cfg = main_config(protocol, FULL_LANES, 7)
+        full[protocol] = compare(
+            f"{protocol} full width", cfg, init_plan(cfg, "cuda"), 64, reps=5, ceiling=ceiling
+        )
+    return full
 
 
-def phase_main_path() -> dict:
-    from paxos_tpu_torch.harness import config as C
+def check_evictions(protocol: str, report: dict, state) -> dict:
+    """The main path's evictions against the pins: total, the two
+    lowest-numbered evicting stream blocks, their lanes and digests."""
+    total, pinned = EVICTION_PINS[protocol]
+    lanes = torch.nonzero(state.learner.evictions).flatten().tolist()
+    blocks = sorted({lane // 1024 for lane in lanes})[:2]
+    found = {
+        blk: ([lane - blk * 1024 for lane in lanes if lane // 1024 == blk], digest(block_leaves(state, blk)))
+        for blk in blocks
+    }
+    log(
+        f"{protocol} main path: evictions {report['evictions']} on {len(lanes)} lanes in "
+        f"{len({lane // 1024 for lane in lanes})} stream blocks; lowest blocks {found}"
+    )
+    if report["evictions"] != total or found != pinned:
+        raise AssertionError(
+            f"{protocol} evictions {report['evictions']} {found}, pinned {total} {pinned}"
+        )
+    if protocol == "paxos" and lanes != MAIN_EVICTION_LANES:
+        raise AssertionError(f"evictions on lanes {lanes}, recorded {MAIN_EVICTION_LANES}")
+    return {str(blk): d for blk, (_, d) in found.items()}
+
+
+def phase_main_path(protocol: str) -> dict:
     from paxos_tpu_torch.harness.run import run
-    from paxos_tpu_torch.kernels.fused_tick import DEFAULT_BLOCK, fused_paxos_chunk
 
-    cfg = C.config2_dueling_drop(FULL_LANES, seed=0)
-    walls, launches, report, state = [], 0, None, None
+    cfg = main_config(protocol)
+    walls, launches, report, state = [], {}, None, None
     for _ in range(MAIN_PATH_REPEATS):
         torch.cuda.synchronize()
-        fused_paxos_chunk.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         rep_report, state = run(
             cfg, engine="fused", total_ticks=MAIN_TICKS, chunk=MAIN_CHUNK,
@@ -255,51 +399,39 @@ def phase_main_path() -> dict:
         )
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches = fused_paxos_chunk.launches
+        launches = read_launches()
         if report is not None and rep_report != report:
-            raise AssertionError(f"main path not deterministic: {rep_report} != {report}")
+            raise AssertionError(f"{protocol} main path not deterministic: {rep_report} != {report}")
         report = rep_report
     wall = sorted(walls)[len(walls) // 2]
-    log(f"main path report: {json.dumps(report)}")
+    log(f"{protocol} main path report: {json.dumps(report)}")
     rate = cfg.n_inst * MAIN_TICKS / wall
     log(
-        f"main path: median {wall:.4f} s wall of {[round(w, 4) for w in walls]}, "
-        f"{rate:.4g} quorum-rounds/s, {launches} kernel launches per run"
+        f"{protocol} main path: median {wall:.4f} s wall of {[round(w, 4) for w in walls]}, "
+        f"{rate:.4g} quorum-rounds/s, launches {launches}"
     )
     if report["ticks"] != MAIN_TICKS or not 0.0 <= report["chosen_frac"] <= 1.0:
         raise AssertionError(f"malformed report {report}")
     if report["violations"] != 0:
-        raise AssertionError(f"config2 must be safe: {report}")
-    if launches == 0:
-        raise AssertionError("the main path never launched the fused kernel")
-    lanes = torch.nonzero(state.learner.evictions).flatten().tolist()
-    log(f"main path: evictions {report['evictions']} on lanes {lanes[:16]}")
-    if report["evictions"] != len(MAIN_EVICTION_LANES) or lanes != MAIN_EVICTION_LANES:
-        raise AssertionError(f"evictions on lanes {lanes}, recorded {MAIN_EVICTION_LANES}")
-    replayed = {}
-    for blk in sorted({lane // DEFAULT_BLOCK for lane in lanes}):
-        t0 = time.perf_counter()
-        replayed[blk] = err = replay_block(cfg, state, blk)
-        log(
-            f"main path: stream block {blk} replayed by the plain version in "
-            f"{time.perf_counter() - t0:.1f} s, max_abs_err {err}"
-        )
-        if err != 0:
-            raise AssertionError(f"stream block {blk}: kernel disagrees with the plain version")
-    return {"launches": launches, "wall_s": wall, "walls_s": walls, "rounds_per_s": rate,
-            "evictions": report["evictions"], "replayed_blocks": replayed}
+        raise AssertionError(f"{protocol} main path must be safe: {report}")
+    if launches[protocol] == 0:
+        raise AssertionError(f"the {protocol} main path never launched its fused kernel")
+    if sum(launches.values()) != launches[protocol]:
+        raise AssertionError(f"the {protocol} main path launched other kernels: {launches}")
+    digests = check_evictions(protocol, report, state)
+    return {"launches": launches[protocol], "wall_s": wall, "walls_s": walls, "rounds_per_s": rate,
+            "report": report, "eviction_block_digests": digests}
 
 
-def phase_main_path_profile() -> dict:
+def phase_main_path_profile(protocol: str) -> dict:
     """The main path once more under torch.profiler: the fused kernel's
     share of device time and the device's idle share of the wall time
     (the profiler's own host cost inflates the wall a little)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paxos_tpu_torch.harness import config as C
     from paxos_tpu_torch.harness.run import run
 
-    cfg = C.config2_dueling_drop(FULL_LANES, seed=0)
+    cfg = main_config(protocol)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(cfg, total_ticks=MAIN_TICKS, chunk=MAIN_CHUNK, pipeline_depth=MAIN_DEPTH)
@@ -307,29 +439,40 @@ def phase_main_path_profile() -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in events)
-    kernel_us = sum(e.self_device_time_total for e in events if "fused_paxos_kernel" in e.key)
+    kernel_name = f"fused_{protocol}_kernel"
+    kernel_us = sum(e.self_device_time_total for e in events if kernel_name in e.key)
     out = {"wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6, "kernel_s": kernel_us / 1e6}
     if busy_us == 0:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"{protocol} profile: the profiler recorded no device time (not measured)")
         return out
     out["idle_share"] = 1.0 - busy_us / wall_us
     log(
-        f"profile: wall {out['wall_s']:.3f} s, device busy {out['device_busy_s']:.3f} s "
+        f"{protocol} profile: wall {out['wall_s']:.3f} s, device busy {out['device_busy_s']:.3f} s "
         f"(fused kernel {out['kernel_s']:.3f} s), device idle share {out['idle_share']:.4f}"
     )
     return out
 
 
-def phase_checker() -> None:
+def phase_checker() -> dict:
+    """Bug-injection configs must light up the safety checker."""
     from paxos_tpu_torch.harness import config as C
     from paxos_tpu_torch.harness.run import run
 
+    out = {}
     cfg = C.config4_byzantine(4096)
-    plan = equivocation_plan(cfg.n_inst, cfg.n_acc, cfg.n_prop, cfg.fault.p_equiv, 0)
-    report = run(cfg, total_ticks=300, plan=plan)
-    log(f"checker: config4 violations {report['violations']}")
-    if report["violations"] <= 0:
-        raise AssertionError("config4 equivocation must light up the safety checker")
+    plan = fault_plan(cfg.n_inst, cfg.n_acc, cfg.n_prop, cfg.fault.p_equiv, 0)
+    out["config4"] = run(cfg, total_ticks=300, plan=plan)["violations"]
+    # q1 + 2 * q_fast = 9 <= 2n: two values can be choosable in recovery.
+    out["fastpaxos config_ffp(3,3,3)"] = run(C.config_ffp(3, 3, 3, 8192, 1), total_ticks=256)["violations"]
+    cfg = main_config("raftcore", 4096, 0)
+    cfg = dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_equiv=0.5))
+    plan = fault_plan(cfg.n_inst, cfg.n_acc, cfg.n_prop, 0.5, 1)
+    out["raftcore p_equiv=0.5"] = run(cfg, total_ticks=300, plan=plan)["violations"]
+    for name, violations in out.items():
+        log(f"checker: {name} violations {violations}")
+        if violations <= 0:
+            raise AssertionError(f"{name} must light up the safety checker")
+    return out
 
 
 def card_line() -> str:
@@ -349,37 +492,64 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     built = phase_build()
+    ceiling = phase_ceiling()
     phase_golden()
-    full = phase_compare()
-    main_path = phase_main_path()
-    profiled = phase_main_path_profile()
-    phase_checker()
-    kernel = {
-        "name": "fused_paxos_tick",
+    full = phase_compare(ceiling["ops_per_s"])
+    main_paths = {p: phase_main_path(p) for p in ("paxos", "fastpaxos", "raftcore")}
+    profiles = {p: phase_main_path_profile(p) for p in main_paths}
+    checker = phase_checker()
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS
+
+    kernels = []
+    for protocol, mp in main_paths.items():
+        kernel, f = BINDINGS[protocol].kernel, full[protocol]
+        kernels.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": KERNEL_SOURCE.format(kernel),
+            "replaces": REPLACES[protocol],
+            "launches": mp["launches"],
+            "max_abs_err": f["max_abs_err"],
+            "tolerance": 0,  # int32/bool state: byte-identical to the plain version
+            "ms": f["ms"],
+            "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"],
+            "bound_ms_published_peak": f["bound_ms_published_peak"],
+            "library_ms": None,  # no single PyTorch call computes a tick
+            "shape": f"{protocol} {FULL_LANES} lanes x 64 ticks, block 1024",
+            "ops_per_lane_tick": f["ops_per_lane_tick"],
+            "state_bytes_per_lane": f["state_bytes_per_lane"],
+            "ptxas": built["ptxas"][kernel],
+            "main_path_wall_s": mp["wall_s"],
+            "main_path_walls_s": mp["walls_s"],
+            "main_path_rounds_per_s": mp["rounds_per_s"],
+            "main_path_report": mp["report"],
+            "main_path_eviction_block_digests": mp["eviction_block_digests"],
+            "main_path_profile": profiles[protocol],
+        })
+    kernels.append({
+        "name": "int32_ceiling",
         "route": "cuda",
-        "source": "paxos_tpu_torch/kernels/csrc/fused_paxos_tick.cu",
-        "replaces": "paxos_tpu/kernels/fused_tick.py:345",
-        "launches": main_path["launches"],
-        "max_abs_err": full["max_abs_err"],
-        "tolerance": 0,  # int32/bool state: byte-identical to the plain version
-        "ms": full["ms"],
-        "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"],
-        "bound_by": full["bound_by"],
-        "library_ms": None,
-        "shape": f"config2 {FULL_LANES} lanes x 64 ticks, block 1024",
-        "build_s": built["build_s"],
-        "ptxas": built["ptxas"],
-        "main_path_wall_s": main_path["wall_s"],
-        "main_path_walls_s": main_path["walls_s"],
-        "main_path_rounds_per_s": main_path["rounds_per_s"],
-        "main_path_evictions": main_path["evictions"],
-        "main_path_replayed_blocks_max_abs_err": main_path["replayed_blocks"],
-        "main_path_profile": profiled,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-    }
-    log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+        "source": KERNEL_SOURCE.format("int32_ceiling"),
+        "replaces": "scripts/roofline.py:207 (vpu_ceiling :180)",
+        "launches": 0,  # a measuring kernel: no main path launches it
+        "max_abs_err": ceiling["max_abs_err"],
+        "tolerance": 0,
+        "ms": ceiling["ms"],
+        "plain_ms": ceiling["plain_ms"],
+        "bound_ms": ceiling["bound_ms"],
+        "bound_by": ceiling["bound_by"],
+        "bound_ms_published_peak": ceiling["bound_ms_published_peak"],
+        "library_ms": None,  # no single PyTorch call computes the probe body
+        "shape": ceiling["shape"],
+        "int32_ops_per_s": ceiling["ops_per_s"],
+        "int32_ops_per_s_published_peak": INT32_OPS_PER_S,
+        "ptxas": built["ptxas"]["int32_ceiling"],
+    })
+    log(f"summary: checker {checker}; build {built['build_s']:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B; total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     device = {
         "platform": "gpu",

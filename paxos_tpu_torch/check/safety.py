@@ -3,7 +3,8 @@
 The learner is omniscient: it sees every accept event and counts votes per
 (ballot, value) pair in a bounded K-slot table.  A second distinct chosen
 value counts as an agreement violation; :func:`acceptor_invariants` checks
-the acceptor-local invariants of honest acceptors every tick.
+the acceptor-local invariants of honest acceptors every tick, and
+:func:`raft_voter_invariants` those of Raft-core's voters.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import dataclasses
 
 import torch
 
+from paxos_tpu_torch.core.ballot import ballot_round
 from paxos_tpu_torch.core.state import AcceptorState, LearnerState
 from paxos_tpu_torch.utils.bitops import popcount
 
@@ -34,13 +36,24 @@ def learner_observe(
     ev_val: torch.Tensor,  # (A, I) int32
     tick: torch.Tensor,  # () int32
     quorum: int,
+    fast_quorum: "int | None" = None,
 ) -> LearnerState:
-    """Fold this tick's accept events into the learner table."""
+    """Fold this tick's accept events into the learner table.
+
+    With ``fast_quorum`` set (Fast Paxos), a slot whose ballot is of round
+    0, the fast round, needs ``fast_quorum`` voters to be chosen; classic
+    rounds need ``quorum``.  Thresholds are recomputed from the table's
+    ballots before and after the fold."""
     n_acc = ev_flag.shape[0]
     lt_bal, lt_val, lt_mask = learner.lt_bal, learner.lt_val, learner.lt_mask
     evictions = learner.evictions
 
-    pre_chosen_slots = popcount(lt_mask) >= quorum  # (K, I)
+    def slot_quorum(bal: torch.Tensor):
+        if fast_quorum is None:
+            return quorum
+        return torch.where(ballot_round(bal) == 0, fast_quorum, quorum)
+
+    pre_chosen_slots = popcount(lt_mask) >= slot_quorum(lt_bal)  # (K, I)
 
     # At most one accept event per acceptor per tick, so a sequential fold
     # over the small acceptor axis is exact: a second acceptor hitting a
@@ -68,7 +81,7 @@ def learner_observe(
             + (do_insert & (min_bal != 0)).to(torch.int32)
         )
 
-    chosen_slots = popcount(lt_mask) >= quorum
+    chosen_slots = popcount(lt_mask) >= slot_quorum(lt_bal)
     newly_chosen = chosen_slots & ~pre_chosen_slots
     any_new = newly_chosen.any(dim=0)
 
@@ -116,4 +129,22 @@ def acceptor_invariants(
     bound = new.acc_bal > new.promised
     nilpair = (new.acc_bal == 0) & (new.acc_val != 0)
     bad = (mono | bound | nilpair) & honest
+    return bad.sum(dim=0, dtype=torch.int32)
+
+
+def raft_voter_invariants(old, new, honest: torch.Tensor) -> torch.Tensor:
+    """(I,) int32 count of per-tick Raft voter invariant breaks over
+    :class:`~paxos_tpu_torch.core.raft_state.VoterState` transitions
+    (honest voters only).
+
+    - vote-fence monotonicity: ``voted`` never decreases;
+    - entry bound: a stored entry's term never exceeds the vote fence;
+    - entry-term monotonicity: overwrites only by equal-or-higher terms;
+    - nil pair: an empty entry (term 0) never carries a value.
+    """
+    mono = new.voted < old.voted
+    bound = new.ent_term > new.voted
+    ent_mono = new.ent_term < old.ent_term
+    nilpair = (new.ent_term == 0) & (new.ent_val != 0)
+    bad = (mono | bound | ent_mono | nilpair) & honest
     return bad.sum(dim=0, dtype=torch.int32)

@@ -122,43 +122,22 @@ class LearnerState:
         ]
 
 
-@dataclasses.dataclass
-class PaxosState:
-    """Full simulator state for single-decree Paxos."""
-
-    acceptor: AcceptorState
-    proposer: ProposerState
-    learner: LearnerState
-    requests: MsgBuf  # proposer -> acceptor (PREPARE / ACCEPT)
-    replies: MsgBuf  # acceptor -> proposer (PROMISE / ACCEPTED)
-    tick: torch.Tensor  # () int32 global tick counter
-
-    @classmethod
-    def init(
-        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu"
-    ) -> "PaxosState":
-        if not 1 <= n_prop <= MAX_PROPOSERS:
-            raise ValueError(
-                f"n_prop={n_prop} exceeds ballot packing capacity {MAX_PROPOSERS}"
-            )
-        if not 1 <= n_acc <= MAX_ACCEPTORS:
-            raise ValueError(
-                f"n_acc={n_acc} exceeds voter bitmask capacity {MAX_ACCEPTORS}"
-            )
-        proposer = ProposerState.init(n_inst, n_prop, device)
-        # Every proposer opens with a phase-1 broadcast: PREPARE(bal) to all
-        # acceptors is in flight at tick 0.
-        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device)
-        requests.bal[PREPARE] = proposer.bal[:, None, :]
-        requests.present[PREPARE] = True
-        return cls(
-            acceptor=AcceptorState.init(n_inst, n_acc, device),
-            proposer=proposer,
-            learner=LearnerState.init(n_inst, k, device),
-            requests=requests,
-            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device),
-            tick=torch.zeros((), dtype=torch.int32, device=device),
+def check_topology(n_prop: int, n_acc: int) -> None:
+    """Raise unless the topology fits the ballot and voter-mask packing."""
+    if not 1 <= n_prop <= MAX_PROPOSERS:
+        raise ValueError(
+            f"n_prop={n_prop} exceeds ballot packing capacity {MAX_PROPOSERS}"
         )
+    if not 1 <= n_acc <= MAX_ACCEPTORS:
+        raise ValueError(
+            f"n_acc={n_acc} exceeds voter bitmask capacity {MAX_ACCEPTORS}"
+        )
+
+
+class LaneState:
+    """What every protocol's full state shares: the five sub-states
+    ``acceptor``, ``proposer``, ``learner``, ``requests``, ``replies`` and
+    the ``tick`` scalar, flattened in that order."""
 
     def leaves(self) -> list:
         """Tensors in the reference's flatten order (tick last)."""
@@ -174,7 +153,7 @@ class PaxosState:
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
         for this state's (n_inst, n_prop, n_acc, k_slots)."""
-        want = PaxosState.init(
+        want = type(self).init(
             self.n_inst, self.n_prop, self.n_acc, self.k_slots, device="meta"
         )
         for i, (leaf, ref) in enumerate(zip(self.leaves(), want.leaves())):
@@ -184,18 +163,18 @@ class PaxosState:
                     f"expected {tuple(ref.shape)} {ref.dtype}"
                 )
 
-    def clone(self) -> "PaxosState":
-        """A deep copy on the same device (the fused kernel updates the
-        state it is given in place)."""
+    def clone(self):
+        """A deep copy on the same device (the fused kernels update the
+        state they are given in place)."""
         return copy.deepcopy(self)
 
     @property
     def n_inst(self) -> int:
-        return self.acceptor.promised.shape[1]
+        return self.acceptor.leaves()[0].shape[1]
 
     @property
     def n_acc(self) -> int:
-        return self.acceptor.promised.shape[0]
+        return self.acceptor.leaves()[0].shape[0]
 
     @property
     def n_prop(self) -> int:
@@ -207,12 +186,44 @@ class PaxosState:
 
     @property
     def device(self) -> torch.device:
-        return self.acceptor.promised.device
+        return self.proposer.bal.device
+
+
+@dataclasses.dataclass
+class PaxosState(LaneState):
+    """Full simulator state for single-decree Paxos."""
+
+    acceptor: AcceptorState
+    proposer: ProposerState
+    learner: LearnerState
+    requests: MsgBuf  # proposer -> acceptor (PREPARE / ACCEPT)
+    replies: MsgBuf  # acceptor -> proposer (PROMISE / ACCEPTED)
+    tick: torch.Tensor  # () int32 global tick counter
+
+    @classmethod
+    def init(
+        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu"
+    ) -> "PaxosState":
+        check_topology(n_prop, n_acc)
+        proposer = ProposerState.init(n_inst, n_prop, device)
+        # Every proposer opens with a phase-1 broadcast: PREPARE(bal) to all
+        # acceptors is in flight at tick 0.
+        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device)
+        requests.bal[PREPARE] = proposer.bal[:, None, :]
+        requests.present[PREPARE] = True
+        return cls(
+            acceptor=AcceptorState.init(n_inst, n_acc, device),
+            proposer=proposer,
+            learner=LearnerState.init(n_inst, k, device),
+            requests=requests,
+            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device),
+            tick=torch.zeros((), dtype=torch.int32, device=device),
+        )
 
 
 # Bytes of state each instance carries (bool leaves 1 byte, tick excluded):
 # the figure the fused kernel's memory bound is computed from.
-def state_bytes_per_lane(state: PaxosState) -> int:
+def state_bytes_per_lane(state: LaneState) -> int:
     return sum(
         leaf.element_size() * (leaf.numel() // state.n_inst)
         for leaf in state.leaves()[:-1]

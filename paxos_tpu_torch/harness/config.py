@@ -17,9 +17,13 @@ from typing import Optional
 
 from paxos_tpu_torch.faults.injector import FaultConfig
 
-# The reference's packed layout version for single-decree paxos: part of
-# its config fingerprint, kept so fingerprints agree across the packages.
-PAXOS_LAYOUT_VERSION = "paxos-packed-v4"
+# The reference's packed layout version per protocol: part of its config
+# fingerprint, kept so fingerprints agree across the packages.
+LAYOUT_VERSIONS = {
+    "paxos": "paxos-packed-v4",
+    "fastpaxos": "fastpaxos-packed-v4",
+    "raftcore": "raftcore-packed-v4",
+}
 
 OBSERVER_PLANES = ("telemetry", "coverage", "exposure", "margin", "workload")
 
@@ -47,12 +51,12 @@ class SimConfig:
         for plane in OBSERVER_PLANES:
             if d[plane] is None:
                 del d[plane]
-        if self.protocol != "paxos":
+        if self.protocol not in LAYOUT_VERSIONS:
             raise NotImplementedError(
                 f"protocol {self.protocol!r} is not ported yet (ROADMAP queue "
                 "A slice 4)"
             )
-        d["layout_version"] = PAXOS_LAYOUT_VERSION
+        d["layout_version"] = LAYOUT_VERSIONS[self.protocol]
         blob = json.dumps(d, sort_keys=True).encode()
         return hashlib.sha256(blob).hexdigest()[:16]
 
@@ -90,4 +94,33 @@ def config4_byzantine(n_inst: int = 4096, seed: int = 0) -> SimConfig:
         n_acc=5,
         seed=seed,
         fault=FaultConfig(p_idle=0.2, p_hold=0.2, p_equiv=0.25),
+    )
+
+
+def config_ffp(
+    q1: int, q2: int, q_fast: int, n_inst: int = 16_384, seed: int = 0
+) -> SimConfig:
+    """Fast Flexible Paxos: explicit classic + fast quorums over 5 acceptors.
+
+    Safe iff ``q1 + q2 > 5`` and ``q1 + 2*q_fast > 10``; an unsafe triple is
+    a bug-injection mode that must light up the safety checker.
+    """
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        protocol="fastpaxos",
+        fault=FaultConfig(
+            p_idle=0.2, p_hold=0.2, p_drop=0.1, q1=q1, q2=q2, q_fast=q_fast
+        ),
+    )
+
+
+def config5_sweep(n_inst: int = 65_536, seed: int = 0) -> tuple:
+    """Config 5: Paxos vs Fast Paxos vs Raft-core under identical fault masks."""
+    fault = FaultConfig(p_drop=0.1, p_idle=0.2, p_hold=0.2)
+    return tuple(
+        SimConfig(n_inst=n_inst, n_prop=2, n_acc=5, seed=seed, protocol=p, fault=fault)
+        for p in ("paxos", "fastpaxos", "raftcore")
     )

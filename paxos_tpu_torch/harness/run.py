@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from paxos_tpu_torch.core.device import resolve_device
-from paxos_tpu_torch.core.state import DONE, PaxosState
+from paxos_tpu_torch.core.fp_state import FastPaxosState
+from paxos_tpu_torch.core.raft_state import RaftState
+from paxos_tpu_torch.core.state import DONE, LaneState, PaxosState
 from paxos_tpu_torch.faults.injector import FaultPlan
 from paxos_tpu_torch.harness.config import (
     OBSERVER_PLANES,
@@ -27,8 +29,13 @@ from paxos_tpu_torch.kernels.fused_tick import FUSED_CHUNKS, REPORT_BALLOT_LIMIT
 from paxos_tpu_torch.protocols.paxos import check_supported
 
 # Signed width of learner.chosen_tick in the reference's single-decree
-# packed layout: the campaign tick budget both packages accept.
+# packed layouts (paxos, fastpaxos, raftcore): the campaign tick budget
+# both packages accept.
 CHOSEN_TICK_BITS = 19
+
+# The ported protocols and their state types (summarize is shared: all
+# three use DONE = 2 and decided_val).
+STATE_TYPES = {"paxos": PaxosState, "fastpaxos": FastPaxosState, "raftcore": RaftState}
 
 # Plan knobs FaultPlan.none cannot reproduce: the reference samples them
 # with jax.random, so such a plan must be carried across (``plan=``).
@@ -44,7 +51,7 @@ class MeasurementCorrupted(RuntimeError):
 
 
 def _check_ported(cfg: SimConfig) -> None:
-    if cfg.protocol != "paxos":
+    if cfg.protocol not in STATE_TYPES:
         raise NotImplementedError(
             f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue A "
             "slice 4)"
@@ -76,7 +83,7 @@ def _check_packed_layout_bounds(cfg: SimConfig) -> None:
 
 def check_tick_budget(protocol: str, ticks: int) -> None:
     """Ticks per campaign must fit the reference's packed chosen_tick."""
-    if protocol != "paxos":
+    if protocol not in STATE_TYPES:
         raise NotImplementedError(
             f"protocol {protocol!r} is not ported yet (ROADMAP queue A slice 4)"
         )
@@ -89,10 +96,11 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
         )
 
 
-def init_state(cfg: SimConfig, device=None) -> PaxosState:
+def init_state(cfg: SimConfig, device=None) -> LaneState:
+    """The protocol's initial state, as the reference's ``init_state``."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
-    return PaxosState.init(
+    return STATE_TYPES[cfg.protocol].init(
         cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots,
         device=resolve_device(device),
     )
@@ -140,7 +148,7 @@ def make_advance_grouped(cfg: SimConfig, plan: FaultPlan, engine: str = "fused")
     return advance
 
 
-def all_chosen_flag(state: PaxosState) -> torch.Tensor:
+def all_chosen_flag(state: LaneState) -> torch.Tensor:
     """0-d bool device tensor: every lane's learner chose a value."""
     return state.learner.chosen.all()
 
@@ -151,7 +159,7 @@ _STATS = (
 )
 
 
-def summarize_device(state: PaxosState) -> tuple:
+def summarize_device(state: LaneState) -> tuple:
     """Device half of :func:`summarize`: one int64 vector of exact counts."""
     lrn, prop = state.learner, state.proposer
     chosen = lrn.chosen
@@ -205,7 +213,7 @@ def summarize_host(host: list, meta: dict) -> dict[str, Any]:
     return out
 
 
-def summarize(state: PaxosState) -> dict[str, Any]:
+def summarize(state: LaneState) -> dict[str, Any]:
     """Reduce the state to the report: device reductions, one transfer."""
     stats, meta = summarize_device(state)
     return summarize_host(stats.cpu().tolist(), meta)

@@ -12,19 +12,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paxos_tpu_torch.core.fp_state import FastPaxosState, FastProposerState
 from paxos_tpu_torch.core.messages import MsgBuf
+from paxos_tpu_torch.core.raft_state import CandidateState, RaftState, VoterState
 from paxos_tpu_torch.core.state import (
     AcceptorState,
+    LaneState,
     LearnerState,
     PaxosState,
     ProposerState,
 )
 from paxos_tpu_torch.faults.injector import FaultPlan
 
-# Leaves per sub-state of a single-decree PaxosState, in flatten order.
-_GROUPS = ((AcceptorState, 3), (ProposerState, 9), (LearnerState, 8),
-           (MsgBuf, 4), (MsgBuf, 4))
-N_STATE_LEAVES = sum(n for _, n in _GROUPS) + 1  # + the tick scalar
+# Per protocol: the state type and its sub-states with their leaf counts,
+# in flatten order (the tick scalar follows).
+_GROUPS = {
+    "paxos": (PaxosState, ((AcceptorState, 3), (ProposerState, 9))),
+    "fastpaxos": (FastPaxosState, ((AcceptorState, 3), (FastProposerState, 9))),
+    "raftcore": (RaftState, ((VoterState, 3), (CandidateState, 9))),
+}
+_SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
+N_STATE_LEAVES = 3 + 9 + sum(n for _, n in _SHARED) + 1  # + the tick scalar
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -34,8 +42,8 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C", copy=True)).to(device)
 
 
-def state_from_numpy(leaves, device="cpu") -> PaxosState:
-    """A :class:`PaxosState` from the reference's flattened leaves."""
+def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
+    """``protocol``'s state from the reference's flattened leaves."""
     leaves = list(leaves)
     if len(leaves) != N_STATE_LEAVES:
         raise NotImplementedError(
@@ -44,17 +52,20 @@ def state_from_numpy(leaves, device="cpu") -> PaxosState:
             "plane off (snapshot shadows, delay stamps and observer planes: "
             "ROADMAP queue A slice 5)"
         )
+    if protocol not in _GROUPS:
+        raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
+    state_cls, groups = _GROUPS[protocol]
     tensors = [_tensor(leaf, device) for leaf in leaves]
     parts, k = [], 0
-    for cls, n in _GROUPS:
+    for cls, n in groups + _SHARED:
         parts.append(cls(*tensors[k : k + n]))
         k += n
-    state = PaxosState(*parts, tick=tensors[k])
+    state = state_cls(*parts, tick=tensors[k])
     state.check_layout()
     return state
 
 
-def state_to_numpy(state: PaxosState) -> list:
+def state_to_numpy(state: LaneState) -> list:
     """The state's leaves as numpy arrays, in the reference's order."""
     return [leaf.detach().cpu().numpy() for leaf in state.leaves()]
 

@@ -2,7 +2,8 @@
 
 Each ``kernels/csrc/<name>.cu`` compiles on first use into a shared library
 with a plain C interface under ``build/`` at the repository root, named by
-a hash of the source so an edited source rebuilds.  Nothing is built when a
+a hash of the source and of the headers it includes (``#include "..."``,
+followed recursively), so an edited source or header rebuilds.  Nothing is built when a
 module is imported: only a kernel launch asks for its library.  The
 ``ptxas -v`` report (registers, spills) is kept beside the library.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,8 +36,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda/bin")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every local header it includes, in the order
+    first reached."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
 

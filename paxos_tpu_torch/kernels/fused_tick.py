@@ -1,30 +1,37 @@
 """Fused multi-tick engine (counterpart of ``paxos_tpu/kernels/fused_tick.py``).
 
-:func:`fused_paxos_chunk` advances every instance ``n_ticks`` ticks of
-``counter_masks`` + ``apply_tick``.  On a CUDA tensor it launches the
-hand-written kernel ``csrc/fused_paxos_tick.cu`` (one thread per instance,
-state resident in registers for the whole chunk, updated in place) or
-raises; on a CPU tensor it runs :func:`reference_chunk`, the plain PyTorch
-version.  :func:`paxos_chunk` is the engine's chunk function, as
+One engine, bound once per protocol: ``fused_<protocol>_chunk`` advances
+every instance ``n_ticks`` ticks of ``counter_masks`` + the protocol's
+tick.  On a CUDA tensor it launches the protocol's hand-written kernel
+``csrc/fused_<protocol>_tick.cu`` (one thread per instance, state resident
+in registers for the whole chunk, updated in place) or raises; on a CPU
+tensor it runs :func:`reference_chunk`, the plain PyTorch version.
+``FUSED_CHUNKS[protocol]`` is the engine's chunk function, as
 ``_make_chunk`` is in the reference: it clamps ballots at the chunk
 boundaries and switches to a per-tick clamp for very long chunks.
 
 Streams: per-tick masks are keyed by (seed, tick, stream block id), with
 ``block`` lanes per stream block (default 1024, the reference's default),
-so a campaign replays bit for bit across the two packages.
+so a campaign replays bit for bit across the two packages.  All three
+protocols draw from the single-decree stream ids.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Callable
 
 import torch
 
-from paxos_tpu_torch.core.state import PaxosState
+from paxos_tpu_torch.core.fp_state import FastPaxosState
+from paxos_tpu_torch.core.raft_state import RaftState
+from paxos_tpu_torch.core.state import LaneState, PaxosState
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels import counter_prng as cp
+from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
 from paxos_tpu_torch.protocols.paxos import apply_tick, check_supported, counter_masks
+from paxos_tpu_torch.protocols.raftcore import apply_tick_raft
 
 DEFAULT_BLOCK = 1024
 
@@ -37,9 +44,14 @@ BALLOT_GROWTH_PER_TICK = 16
 # grow a ballot past it, so the switch point stays the reference's.
 PROPOSER_BAL_BITS = 17
 
-# (n_prop, n_acc, k_slots) shapes the CUDA kernel is instantiated for:
-# config2/config4 and config1.
-KERNEL_SHAPES = ((2, 5, 8), (1, 3, 8))
+# (n_prop, n_acc, k_slots) shapes each CUDA kernel is instantiated for:
+# config2/config4/config5 and config1; (2, 3, 8) is the three-acceptor
+# shape the reference's own kernel tests run (tests/test_fused.py).
+KERNEL_SHAPES = {
+    "paxos": ((2, 5, 8), (1, 3, 8)),
+    "fastpaxos": ((2, 5, 8), (2, 3, 8)),
+    "raftcore": ((2, 5, 8), (2, 3, 8)),
+}
 
 # The report-time ``max_ballot >= limit`` threshold of single-decree Paxos.
 REPORT_BALLOT_LIMIT = (1 << 15) - 1
@@ -64,7 +76,7 @@ def ballot_hoist_safe_ticks() -> int:
     return headroom // BALLOT_GROWTH_PER_TICK
 
 
-def saturate_ballots(state: PaxosState) -> PaxosState:
+def saturate_ballots(state: LaneState) -> LaneState:
     """Pin ``proposer.bal`` at the report-time ballot limit (sticky, since
     ballots are monotone), so an overflowed campaign reads exactly the
     limit and the report's guard fires."""
@@ -75,7 +87,7 @@ def saturate_ballots(state: PaxosState) -> PaxosState:
 
 
 def reference_chunk(
-    state: PaxosState,
+    state: LaneState,
     seed: int,
     plan: FaultPlan,
     cfg: FaultConfig,
@@ -83,38 +95,59 @@ def reference_chunk(
     blk_id: int = 0,
     block: "int | None" = None,
     clamp_per_tick: bool = False,
-) -> PaxosState:
+    apply_fn: Callable = apply_tick,
+) -> LaneState:
     """The plain version: ``n_ticks`` ticks of the fused stream, unclamped
     by default like the reference's ``reference_chunk``.
 
-    ``block`` lanes form one stream block (default: all lanes, one block
-    with id ``blk_id``); lane ``i`` draws under block id
-    ``blk_id + i // block``, all blocks in one vectorised pass."""
+    ``apply_fn`` is the protocol's tick (default: single-decree Paxos);
+    every protocol draws its masks with ``counter_masks``.  ``block`` lanes
+    form one stream block (default: all lanes, one block with id
+    ``blk_id``); lane ``i`` draws under block id ``blk_id + i // block``,
+    all blocks in one vectorised pass."""
     n_inst = state.n_inst
     block = n_inst if block is None else block
     for _ in range(n_ticks):
         seeds = cp.lane_seeds(seed, state.tick, blk_id, n_inst, block)
         masks = counter_masks(cfg, seeds, state, block=block)
-        state = apply_tick(state, masks, plan, cfg)
+        state = apply_fn(state, masks, plan, cfg)
         if clamp_per_tick:
             state = saturate_ballots(state)
     return state
 
 
-# ---- The CUDA kernel -------------------------------------------------------
-
-_KERNEL = "fused_paxos_tick"
-_lib = None
+# ---- The CUDA kernels -----------------------------------------------------
 
 
-def _library():
-    """Build (first use only) and bind the kernel's C entry point."""
-    global _lib
-    if _lib is None:
+@dataclasses.dataclass(frozen=True)
+class Binding:
+    """One protocol bound to the engine: its tick, state and kernel."""
+
+    apply_fn: Callable
+    state_cls: type
+    kernel: str  # csrc/<kernel>.cu
+    entry: str  # its C entry point
+
+
+BINDINGS = {
+    "paxos": Binding(apply_tick, PaxosState, "fused_paxos_tick", "fused_paxos_launch"),
+    "fastpaxos": Binding(
+        apply_tick_fast, FastPaxosState, "fused_fastpaxos_tick", "fused_fastpaxos_launch"
+    ),
+    "raftcore": Binding(
+        apply_tick_raft, RaftState, "fused_raftcore_tick", "fused_raftcore_launch"
+    ),
+}
+_entries: dict = {}
+
+
+def _entry(protocol: str):
+    """Build (first use only) and bind a kernel's C entry point."""
+    if protocol not in _entries:
         from paxos_tpu_torch.kernels import build
 
-        lib = build.load(_KERNEL)
-        fn = lib.fused_paxos_launch
+        binding = BINDINGS[protocol]
+        fn = getattr(build.load(binding.kernel), binding.entry)
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
@@ -123,8 +156,8 @@ def _library():
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _entries[protocol] = fn
+    return _entries[protocol]
 
 
 def _knob(p: float) -> tuple:
@@ -140,8 +173,9 @@ def _kernel_params(
     cfg: FaultConfig, n_inst: int, n_acc: int, block: int, n_ticks: int,
     seed: int, blk0: int, clamp_per_tick: bool,
 ) -> list:
-    """The kernel's integer parameters, in the C entry point's order."""
-    from paxos_tpu_torch.kernels.quorum import majority
+    """The kernels' integer parameters, in the C entry points' order
+    (``Params`` in ``csrc/fused_common.cuh``)."""
+    from paxos_tpu_torch.kernels.quorum import fast_quorum, majority
 
     quorum = majority(n_acc)
     return [
@@ -150,15 +184,16 @@ def _kernel_params(
         cfg.q1 or quorum, cfg.q2 or quorum,
         *_knob(cfg.p_idle), *_knob(cfg.p_hold), *_knob(cfg.p_dup),
         *_knob(cfg.p_drop),
+        cfg.q_fast or fast_quorum(n_acc),
     ]
 
 
-def _check_cuda_inputs(state: PaxosState, plan: FaultPlan) -> None:
+def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan) -> None:
     shape = (state.n_prop, state.n_acc, state.k_slots)
-    if shape not in KERNEL_SHAPES:
+    if shape not in KERNEL_SHAPES[protocol]:
         raise ValueError(
-            f"the CUDA kernel is instantiated for (n_prop, n_acc, k_slots) in "
-            f"{KERNEL_SHAPES}, not {shape}"
+            f"the {protocol} CUDA kernel is instantiated for (n_prop, n_acc, "
+            f"k_slots) in {KERNEL_SHAPES[protocol]}, not {shape}"
         )
     state.check_layout()
     acc = (state.n_acc, state.n_inst)
@@ -173,36 +208,30 @@ def _check_cuda_inputs(state: PaxosState, plan: FaultPlan) -> None:
             raise ValueError("state and plan must be contiguous on one CUDA device")
 
 
-def fused_paxos_chunk(
-    state: PaxosState,
-    seed: int,
-    plan: FaultPlan,
-    cfg: FaultConfig,
-    n_ticks: int,
-    block: int = DEFAULT_BLOCK,
-    blk0: int = 0,
-    clamp_per_tick: bool = False,
-) -> PaxosState:
-    """Advance ``n_ticks`` ticks; ``block`` is the stream block.
-
-    CUDA: launches the kernel on the current stream, updating the state's
-    tensors in place (the input state is consumed) and returning it.  CPU:
-    the plain :func:`reference_chunk`.  There is no fallback between the
-    two: the device of the state decides."""
+def _fused_chunk(
+    protocol: str, wrapper: Callable, state: LaneState, seed: int,
+    plan: FaultPlan, cfg: FaultConfig, n_ticks: int, block: int, blk0: int,
+    clamp_per_tick: bool,
+) -> LaneState:
+    """One chunk of ``protocol``'s engine; a launch adds one to
+    ``wrapper.launches``."""
+    binding = BINDINGS[protocol]
+    if not isinstance(state, binding.state_cls):
+        raise TypeError(f"the {protocol} engine takes a {binding.state_cls.__name__}")
     check_supported(cfg)
     if state.n_inst % block:
         raise ValueError(f"block={block} does not divide n_inst={state.n_inst}")
     if state.device.type == "cpu":
         return reference_chunk(
             state, seed, plan, cfg, n_ticks, blk_id=blk0, block=block,
-            clamp_per_tick=clamp_per_tick,
+            clamp_per_tick=clamp_per_tick, apply_fn=binding.apply_fn,
         )
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    _check_cuda_inputs(state, plan)
+    _check_cuda_inputs(protocol, state, plan)
     if n_ticks == 0:
         return state
-    fn = _library().fused_paxos_launch
+    fn = _entry(protocol)
     leaves = state.leaves()[:-1]
     ptrs = (ctypes.c_void_p * len(leaves))(*(t.data_ptr() for t in leaves))
     plan_ptrs = (ctypes.c_void_p * 3)(
@@ -221,36 +250,99 @@ def fused_paxos_chunk(
             plan_ptrs, state.tick.data_ptr(), arr, len(params), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_paxos_tick launch failed: cudaError {rc}")
-    fused_paxos_chunk.launches += 1
+        raise RuntimeError(f"{binding.kernel} launch failed: cudaError {rc}")
+    wrapper.launches += 1
     state.tick.add_(n_ticks)  # every lane advanced by the same tick count
     return state
+
+
+def fused_paxos_chunk(
+    state: PaxosState, seed: int, plan: FaultPlan, cfg: FaultConfig,
+    n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
+    clamp_per_tick: bool = False,
+) -> PaxosState:
+    """Advance ``n_ticks`` ticks of Paxos; ``block`` is the stream block and
+    ``blk0`` the id of the first.
+
+    CUDA: launches ``csrc/fused_paxos_tick.cu`` on the current stream,
+    updating the state's tensors in place (the input state is consumed)
+    and returning it; ``.launches`` counts the launches.  CPU: the plain
+    :func:`reference_chunk`.  There is no fallback between the two: the
+    device of the state decides."""
+    return _fused_chunk(
+        "paxos", fused_paxos_chunk, state, seed, plan, cfg, n_ticks, block,
+        blk0, clamp_per_tick,
+    )
 
 
 fused_paxos_chunk.launches = 0
 
 
-def paxos_chunk(
-    state: PaxosState,
-    seed: int,
-    plan: FaultPlan,
-    cfg: FaultConfig,
-    n_ticks: int,
-) -> PaxosState:
-    """paxos on the fused engine: the chunk function both devices share.
-
-    The stream block is :data:`DEFAULT_BLOCK`, degraded by :func:`fit_block`
-    where it does not divide ``n_inst``.  Ballots are clamped at chunk entry
-    and exit; a chunk longer than :func:`ballot_hoist_safe_ticks` clamps
-    after every tick instead, as the reference's packed engine does."""
-    block = fit_block(DEFAULT_BLOCK, state.n_inst)
-    hoisted = n_ticks <= ballot_hoist_safe_ticks()
-    state = saturate_ballots(state)
-    state = fused_paxos_chunk(
-        state, seed, plan, cfg, n_ticks, block=block,
-        clamp_per_tick=not hoisted,
+def fused_fastpaxos_chunk(
+    state: FastPaxosState, seed: int, plan: FaultPlan, cfg: FaultConfig,
+    n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
+    clamp_per_tick: bool = False,
+) -> FastPaxosState:
+    """:func:`fused_paxos_chunk` for Fast Paxos (``csrc/fused_fastpaxos_tick.cu``)."""
+    return _fused_chunk(
+        "fastpaxos", fused_fastpaxos_chunk, state, seed, plan, cfg, n_ticks,
+        block, blk0, clamp_per_tick,
     )
-    return saturate_ballots(state) if hoisted else state
 
 
-FUSED_CHUNKS = {"paxos": paxos_chunk}
+fused_fastpaxos_chunk.launches = 0
+
+
+def fused_raftcore_chunk(
+    state: RaftState, seed: int, plan: FaultPlan, cfg: FaultConfig,
+    n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
+    clamp_per_tick: bool = False,
+) -> RaftState:
+    """:func:`fused_paxos_chunk` for Raft-core (``csrc/fused_raftcore_tick.cu``)."""
+    return _fused_chunk(
+        "raftcore", fused_raftcore_chunk, state, seed, plan, cfg, n_ticks,
+        block, blk0, clamp_per_tick,
+    )
+
+
+fused_raftcore_chunk.launches = 0
+
+FUSED_WRAPPERS = {
+    "paxos": fused_paxos_chunk,
+    "fastpaxos": fused_fastpaxos_chunk,
+    "raftcore": fused_raftcore_chunk,
+}
+
+
+def _make_chunk(protocol: str) -> Callable:
+    wrapper = FUSED_WRAPPERS[protocol]
+
+    def chunk(
+        state: LaneState, seed: int, plan: FaultPlan, cfg: FaultConfig,
+        n_ticks: int,
+    ) -> LaneState:
+        block = fit_block(DEFAULT_BLOCK, state.n_inst)
+        hoisted = n_ticks <= ballot_hoist_safe_ticks()
+        state = saturate_ballots(state)
+        state = wrapper(
+            state, seed, plan, cfg, n_ticks, block=block,
+            clamp_per_tick=not hoisted,
+        )
+        return saturate_ballots(state) if hoisted else state
+
+    chunk.__name__ = f"{protocol}_chunk"
+    chunk.__doc__ = (
+        f"{protocol} on the fused engine: the chunk function both devices "
+        "share.  The stream block is :data:`DEFAULT_BLOCK`, degraded by "
+        ":func:`fit_block` where it does not divide ``n_inst``.  Ballots "
+        "are clamped at chunk entry and exit; a chunk longer than "
+        ":func:`ballot_hoist_safe_ticks` clamps after every tick instead, "
+        "as the reference's packed engine does."
+    )
+    return chunk
+
+
+FUSED_CHUNKS = {protocol: _make_chunk(protocol) for protocol in FUSED_WRAPPERS}
+paxos_chunk = FUSED_CHUNKS["paxos"]
+fastpaxos_chunk = FUSED_CHUNKS["fastpaxos"]
+raftcore_chunk = FUSED_CHUNKS["raftcore"]

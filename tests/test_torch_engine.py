@@ -5,10 +5,9 @@ without Pallas; the port's ``reference_chunk`` (the plain version of its
 CUDA kernel) and chunk function must reproduce it bit for bit (tolerance 0:
 the state is all int32/bool), including across stream blocks and at the
 ballot limit.  The kernel itself runs only on a CUDA card
-(``test_kernel_matches_plain_on_cuda``).
+(tests/test_torch_cuda.py).
 """
 
-import dataclasses
 import functools
 import hashlib
 
@@ -16,7 +15,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from paxos_tpu.harness import config as JC
 from paxos_tpu.harness.run import MeasurementCorrupted as JMeasurementCorrupted
@@ -169,41 +167,3 @@ def test_fit_block_matches_interpret_floor(n):
     for block in (1024, 512, 128, 100, 3, n):
         want = jfused.fit_block(block, n, interpret=True, warn=False)
         assert tfused.fit_block(block, n) == want
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_cuda():
-    """The CUDA kernel against its plain version, byte for byte, on the
-    card: config2 and config1 from their initial states, and the golden."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fused kernel has no CPU mode")
-    for tcfg, ticks in ((TC.config2_dueling_drop(8192, 7), 96), (TC.config1_no_faults(4096, 1), 64)):
-        init = trun.init_state(tcfg, "cuda")
-        plan = trun.init_plan(tcfg, "cuda")
-        plain = tfused.reference_chunk(init, tcfg.seed, plan, tcfg.fault, ticks, block=1024)
-        before = tfused.fused_paxos_chunk.launches
-        kern = tfused.fused_paxos_chunk(init.clone(), tcfg.seed, plan, tcfg.fault, ticks, block=1024)
-        torch.cuda.synchronize()
-        assert tfused.fused_paxos_chunk.launches == before + 1
-        for a, b in zip(kern.leaves(), plain.leaves()):
-            assert torch.equal(a, b)
-    # Per-tick clamp and a block offset, from near-limit ballots.
-    jcfg, jst = _near_limit_leaves(4094)
-    cfg = TC.config2_dueling_drop(256, 3)
-    init = interop.state_from_numpy(_leaves(jst), device="cuda")
-    plan = trun.init_plan(cfg, "cuda")
-    plain = tfused.reference_chunk(
-        init, 3, plan, cfg.fault, 64, blk_id=2, block=128, clamp_per_tick=True
-    )
-    kern = tfused.fused_paxos_chunk(
-        init.clone(), 3, plan, cfg.fault, 64, block=128, blk0=2, clamp_per_tick=True
-    )
-    assert int(kern.proposer.bal.max()) == LIMIT
-    for a, b in zip(kern.leaves(), plain.leaves()):
-        assert torch.equal(a, b)
-    cfg = TC.config2_dueling_drop(256, 7)
-    st = tfused.fused_paxos_chunk(
-        trun.init_state(cfg, "cuda"), 7, trun.init_plan(cfg, "cuda"), cfg.fault, 32, block=256
-    )
-    assert _digest(st) == GOLDEN_CONFIG2
-    assert dataclasses.is_dataclass(st)

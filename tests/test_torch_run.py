@@ -118,7 +118,7 @@ def test_config_acceptance_matches_reference():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.run(TC.config2_dueling_drop(64), engine="xla", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.run(dataclasses.replace(TC.config2_dueling_drop(64), protocol="raftcore"), device="cpu")
+        trun.run(dataclasses.replace(TC.config2_dueling_drop(64), protocol="synchpaxos"), device="cpu")
 
 
 def test_run_without_device_raises_when_no_cuda():
@@ -139,8 +139,9 @@ for info in pkgutil.walk_packages(paxos_tpu_torch.__path__, "paxos_tpu_torch."):
     importlib.import_module(info.name)
 from paxos_tpu_torch.harness import config as C
 from paxos_tpu_torch.harness.run import run
-report = run(C.config2_dueling_drop(128, 1), total_ticks=16, device="cpu")
-assert report["ticks"] == 16 and report["violations"] == 0, report
+for cfg in (C.config2_dueling_drop(128, 1),) + C.config5_sweep(128, 1)[1:]:
+    report = run(cfg, total_ticks=16, device="cpu")
+    assert report["ticks"] == 16 and report["violations"] == 0, report
 print("ok")
 """
 
@@ -174,4 +175,6 @@ def test_no_module_of_the_port_imports_jax():
 
 def test_fused_chunk_registry_and_wrapper_counter():
     assert tfused.FUSED_CHUNKS["paxos"] is tfused.paxos_chunk
-    assert isinstance(tfused.fused_paxos_chunk.launches, int)
+    for protocol, wrapper in tfused.FUSED_WRAPPERS.items():
+        assert wrapper is getattr(tfused, f"fused_{protocol}_chunk")
+        assert isinstance(wrapper.launches, int)
