@@ -7,24 +7,27 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
 Phases (each raises on failure, so any failed phase exits non-zero):
 
-1. build: the four kernels of ``paxos_tpu_torch/kernels/csrc``, one nvcc
-   each, all started together; each one's ``ptxas -v`` registers and spills;
+1. build: the four kernels of ``paxos_tpu_torch/kernels/csrc`` and the
+   fused kernels' draw-counting builds, one nvcc each, all started
+   together; each kernel's ``ptxas -v`` registers and spills;
 2. ceiling: the int32 probe (K6) against its plain version byte for byte,
-   then the card's int32 operation rate from two iteration counts, which
-   every fused kernel's operation bound divides by;
+   then the card's int32 operation rate from two iteration counts, printed
+   beside the published peak that the bounds divide by;
 3. golden: config2, Fast Paxos and Raft-core (config5) at 256 lanes, seed
    7, 32 ticks through their kernels must give the recorded state digests;
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
-   with a block offset, and at full width (1<<20 lanes x 64 ticks), timed;
+   with a block offset, and at full width (1<<20 lanes x 64 ticks), timed,
+   with the counter-PRNG draws of the timed ticks counted by each kernel's
+   measuring build for its operation bound;
 5. main paths: the flagship campaign (config2) and the config5 sweep's
    Fast Paxos and Raft-core campaigns (1<<20 lanes, 4096 ticks, chunk 64,
    pipeline depth 16) through ``run``, each with every launch count set to
    0 before and read after; reports deterministic over 3 repeats, no
    violations; the two lowest-numbered stream blocks that evicted must
    equal, digest for digest, what the JAX package computes for them
-   (pinned in tests/test_torch_evictions.py); then once more under
-   torch.profiler for the device's busy and idle time;
+   (``EVICTION_PINS``, checked by tests/test_torch_evictions.py); then
+   once more under torch.profiler for the device's busy and idle time;
 6. checker: config4's equivocation, an unsafe Fast Flexible Paxos quorum
    triple, and Raft-core equivocation must each report violations.
 
@@ -72,8 +75,8 @@ EVICTION_PINS = {
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and
 # int32 ALU throughput: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (an IMAD,
 # IADD3 or LOP3 instruction does two of the counted operations, so this
-# is an upper bound on the rate).  The bounds use the measured rate (K6);
-# the published-peak bound is printed beside them.
+# is an upper bound on the rate).  The bounds divide by these; the rate
+# K6 measures is printed beside them.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9 * 2
 # The int32 operation census of each tick (scripts/roofline.py tick_census,
@@ -82,6 +85,16 @@ CENSUS_CASES = {
     "paxos": "config2-paxos",
     "fastpaxos": "config5-fastpaxos",
     "raftcore": "config5-raftcore",
+}
+# The census's share of counter_masks, which draws every mask element of
+# every tick, per protocol: (operations, mask elements) per lane-tick, as
+# scripts/roofline.py's census_jaxpr counts them (tests/test_torch_census.py
+# computes them with the JAX package).  The kernels draw lazily, so the
+# bound counts the draws a run makes at this cost per element instead.
+MASK_CENSUS = {
+    "paxos": (1228.064453125, 87.0),
+    "fastpaxos": (1228.064453125, 87.0),
+    "raftcore": (1228.064453125, 87.0),
 }
 KERNEL_SOURCE = "paxos_tpu_torch/kernels/csrc/{}.cu"
 # pl.pallas_call of the JAX package's fused engine (fused_chunk), which
@@ -133,15 +146,20 @@ def timed(fn, reps: int = 1) -> tuple:
     return out, start.elapsed_time(end) / reps
 
 
-def tick_ops_per_lane(protocol: str) -> float:
+def tick_ops_per_lane(protocol: str, draws_per_lane_tick: "float | None" = None) -> float:
     """int32 operations per lane-tick of the unpacked tick: the ALU +
     reduction census of scripts/roofline.py (recorded in ROOFLINE.json),
     without its packed-codec share, which the unpacked port does not
-    execute.  The census draws every mask of every slot, where the kernels
-    draw lazily, so it overcounts the kernels' operations."""
+    execute.  The census draws every mask element of every tick; given the
+    draws a kernel made per lane-tick, its mask share is counted for
+    those draws only, at the census's cost per element."""
     cases = json.loads(Path("ROOFLINE.json").read_text())["cases"]
     c = next(c for c in cases if c["case"] == CENSUS_CASES[protocol])
-    return c["alu_per_lane_tick"] + c["reduce_per_lane_tick"] - c["codec_alu_per_lane_tick"]
+    ops = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"] - c["codec_alu_per_lane_tick"]
+    if draws_per_lane_tick is None:
+        return ops
+    mask_ops, mask_elems = MASK_CENSUS[protocol]
+    return ops - mask_ops + draws_per_lane_tick * mask_ops / mask_elems
 
 
 def main_config(protocol: str, n_inst: int = FULL_LANES, seed: int = 0):
@@ -173,14 +191,16 @@ def read_launches() -> dict:
 def phase_build() -> dict:
     """Build every kernel, one nvcc each, all started together."""
     from paxos_tpu_torch.kernels import build
-    from paxos_tpu_torch.kernels.fused_tick import BINDINGS
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, COUNT_DRAWS
 
     names = [b.kernel for b in BINDINGS.values()] + ["int32_ceiling"]
+    builds = [(name, ()) for name in names] + [(b.kernel, COUNT_DRAWS) for b in BINDINGS.values()]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(build.build, names))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda nd: build.build(*nd), builds))
     secs = time.perf_counter() - t0
-    log(f"build: {len(names)} kernels in {secs:.1f} s (nvcc, sm_90a, in parallel)")
+    log(f"build: {len(names)} kernels and {len(BINDINGS)} draw-counting builds in {secs:.1f} s "
+        "(nvcc, sm_90a, in parallel)")
     keys = ("entry function", "registers", "spill")
     ptxas = {}
     for name in names:
@@ -215,15 +235,16 @@ def phase_ceiling() -> dict:
     rate = int32_ops_per_s()
     n_ops = x.numel() * iters * OPS_PER_ITER
     bytes_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
     log(
         f"ceiling: measured {rate:.4g} int32 op/s ({rate / INT32_OPS_PER_S:.3f} of the "
-        f"published-peak {INT32_OPS_PER_S:.4g}); kernel {kern_ms:.3f} ms, plain {plain_ms:.1f} ms"
+        f"published-peak {INT32_OPS_PER_S:.4g}); kernel {kern_ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {max(bytes_ms, ops_ms):.3f} ms at the published peak"
     )
     return {
         "ops_per_s": rate, "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, n_ops / rate * 1e3),
-        "bound_by": "operations" if n_ops / rate * 1e3 >= bytes_ms else "bytes",
-        "bound_ms_published_peak": max(bytes_ms, n_ops / INT32_OPS_PER_S * 1e3),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "shape": f"int32 {SHAPE} x {iters} iterations; rate from {ITERS[0]} and {ITERS[1]}",
     }
 
@@ -278,11 +299,18 @@ def near_limit_state(cfg, rnd: int):
 def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, ceiling=None, **kw) -> dict:
     """Kernel vs plain on the card from the same initial state; ``kw`` are
     the wrapper's ``blk0`` and ``clamp_per_tick``.  With ``reps``, also
-    the kernel's steady-state time and its bound (operations over the
-    measured ``ceiling`` and over the published peak)."""
+    the kernel's steady-state time over ``reps`` further chunks and their
+    bound: the bytes, and the operations of the census with the draws
+    those chunks make, over the published peak (and over the measured
+    ``ceiling`` beside it)."""
     from paxos_tpu_torch.core.state import state_bytes_per_lane
     from paxos_tpu_torch.harness.run import init_state
-    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, reference_chunk
+    from paxos_tpu_torch.kernels.fused_tick import (
+        BINDINGS,
+        FUSED_WRAPPERS,
+        draw_census,
+        reference_chunk,
+    )
 
     wrapper = FUSED_WRAPPERS[cfg.protocol]
     init = init_state(cfg, "cuda") if init is None else init
@@ -302,28 +330,42 @@ def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, ceiling=Non
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
     out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
     if reps:
+        # The draws of the timed chunks: the measuring build over the same
+        # ticks from a copy of the compared state, which must end where
+        # the timed chunks end.
+        counted = kern.clone()
+        draws = draw_census(cfg.protocol, counted, cfg.seed, plan, cfg.fault, reps * n_ticks, block=block)
         # Steady state: further chunks continuing from the compared state.
         _, out["ms"] = timed(
             lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block), reps
         )
+        if max_abs_err(counted.leaves(), kern.leaves()) != 0:
+            raise AssertionError(f"{name}: the draw-counting build took another path")
         plan_bytes = sum(l.element_size() * l.numel() for l in (plan.crash_start, plan.crash_end, plan.equivocate))
         n_bytes = 2 * state_bytes_per_lane(init) * cfg.n_inst + plan_bytes
-        n_ops = tick_ops_per_lane(cfg.protocol) * cfg.n_inst * n_ticks
+        draws_per_lane_tick = draws / (cfg.n_inst * reps * n_ticks)
+        ops_per_lane_tick = tick_ops_per_lane(cfg.protocol, draws_per_lane_tick)
+        n_ops = ops_per_lane_tick * cfg.n_inst * n_ticks
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / ceiling * 1e3
-        peak_ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+        measured_ops_ms = n_ops / ceiling * 1e3
         out.update(
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            bound_ms_published_peak=max(bytes_ms, peak_ops_ms),
-            bytes_ms=bytes_ms, ops_ms=ops_ms, ops_per_lane_tick=tick_ops_per_lane(cfg.protocol),
+            bound_ms_measured_rate=max(bytes_ms, measured_ops_ms),
+            bytes_ms=bytes_ms, ops_ms=ops_ms, ops_per_lane_tick=ops_per_lane_tick,
+            ops_per_lane_tick_all_masks=tick_ops_per_lane(cfg.protocol),
+            draws_per_lane_tick=draws_per_lane_tick,
             state_bytes_per_lane=state_bytes_per_lane(init),
         )
         log(
             f"{name}: kernel {out['ms']:.3f} ms/chunk (first {kern_ms:.3f}), plain "
             f"{plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}; bytes "
-            f"{bytes_ms:.3f} ms, int32 ops {ops_ms:.3f} ms at the measured rate, "
-            f"{peak_ops_ms:.3f} ms at the published peak)"
+            f"{bytes_ms:.3f} ms, int32 ops {ops_ms:.3f} ms at the published peak, "
+            f"{measured_ops_ms:.3f} ms at the measured rate); {draws_per_lane_tick:.3f} draws "
+            f"per lane-tick of {MASK_CENSUS[cfg.protocol][1]:g} mask elements, "
+            f"{ops_per_lane_tick:.1f} ops per lane-tick ({out['ops_per_lane_tick_all_masks']:.1f} "
+            "with every mask drawn)"
         )
     return out
 
@@ -419,8 +461,9 @@ def phase_main_path(protocol: str) -> dict:
     if sum(launches.values()) != launches[protocol]:
         raise AssertionError(f"the {protocol} main path launched other kernels: {launches}")
     digests = check_evictions(protocol, report, state)
-    return {"launches": launches[protocol], "wall_s": wall, "walls_s": walls, "rounds_per_s": rate,
-            "report": report, "eviction_block_digests": digests}
+    return {"launches": launches[protocol], "all_launches": launches, "wall_s": wall,
+            "walls_s": walls, "rounds_per_s": rate, "report": report,
+            "eviction_block_digests": digests}
 
 
 def phase_main_path_profile(protocol: str) -> dict:
@@ -515,10 +558,12 @@ def main() -> int:
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"],
-            "bound_ms_published_peak": f["bound_ms_published_peak"],
+            "bound_ms_measured_rate": f["bound_ms_measured_rate"],
             "library_ms": None,  # no single PyTorch call computes a tick
             "shape": f"{protocol} {FULL_LANES} lanes x 64 ticks, block 1024",
             "ops_per_lane_tick": f["ops_per_lane_tick"],
+            "ops_per_lane_tick_all_masks": f["ops_per_lane_tick_all_masks"],
+            "draws_per_lane_tick": f["draws_per_lane_tick"],
             "state_bytes_per_lane": f["state_bytes_per_lane"],
             "ptxas": built["ptxas"][kernel],
             "main_path_wall_s": mp["wall_s"],
@@ -528,19 +573,21 @@ def main() -> int:
             "main_path_eviction_block_digests": mp["eviction_block_digests"],
             "main_path_profile": profiles[protocol],
         })
+    # K6 measures the card; no main path launches it (each path's check
+    # above), so its count is read from the last main path's run.
+    k6_launches = main_paths["raftcore"]["all_launches"]["int32_ceiling"]
     kernels.append({
         "name": "int32_ceiling",
         "route": "cuda",
         "source": KERNEL_SOURCE.format("int32_ceiling"),
         "replaces": "scripts/roofline.py:207 (vpu_ceiling :180)",
-        "launches": 0,  # a measuring kernel: no main path launches it
+        "launches": k6_launches,
         "max_abs_err": ceiling["max_abs_err"],
         "tolerance": 0,
         "ms": ceiling["ms"],
         "plain_ms": ceiling["plain_ms"],
         "bound_ms": ceiling["bound_ms"],
         "bound_by": ceiling["bound_by"],
-        "bound_ms_published_peak": ceiling["bound_ms_published_peak"],
         "library_ms": None,  # no single PyTorch call computes the probe body
         "shape": ceiling["shape"],
         "int32_ops_per_s": ceiling["ops_per_s"],

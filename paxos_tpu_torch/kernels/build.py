@@ -6,6 +6,8 @@ a hash of the source and of the headers it includes (``#include "..."``,
 followed recursively), so an edited source or header rebuilds.  Nothing is built when a
 module is imported: only a kernel launch asks for its library.  The
 ``ptxas -v`` report (registers, spills) is kept beside the library.
+``defines`` build a variant of a source (``-D<NAME>``) into its own
+library, such as the fused kernels' draw-counting build.
 """
 
 from __future__ import annotations
@@ -52,22 +54,27 @@ def sources(name: str) -> list:
     return seen
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     digest = hashlib.sha256()
     for path in sources(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
+    digest.update(" ".join(_flags(defines)).encode())
+    variant = "".join(f"_{d.lower()}" for d in defines)
+    return BUILD_DIR / f"{name}{variant}_{digest.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -79,11 +86,11 @@ def build(name: str) -> Path:
     return out
 
 
-def ptxas_report(name: str) -> str:
+def ptxas_report(name: str, defines: tuple = ()) -> str:
     """The ``ptxas -v`` output recorded when ``name`` was built."""
-    path = library_path(name).with_suffix(".ptxas.txt")
+    path = library_path(name, defines).with_suffix(".ptxas.txt")
     return path.read_text() if path.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, defines)))

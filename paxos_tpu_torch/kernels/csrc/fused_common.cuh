@@ -8,6 +8,12 @@
 // state in registers for a whole chunk: every helper here is force-inlined
 // and every loop has compile-time bounds, so arrays stay in registers.
 //
+// A measuring build (nvcc -DFUSED_COUNT_DRAWS) also counts every counter-
+// PRNG draw a kernel makes, summed over lanes and ticks: the masks are drawn
+// lazily, so that count is the PRNG work a run's data needs, which an
+// operation census of the tick counts in place of drawing every mask.  The
+// timed build compiles none of it.
+//
 // Semantics follow the plain PyTorch version bit for bit:
 //  - random bits are uint32 (wrapping mul/add, logical shifts); Bernoulli
 //    masks are unsigned compares against host-rounded thresholds;
@@ -103,15 +109,21 @@ __device__ __forceinline__ uint32_t counter_bits(uint32_t seed, uint32_t stream,
   return x;
 }
 
-// bern(p) for a knob that is on: True w.p. p.
-__device__ __forceinline__ bool fires(const Knob& k, uint32_t seed, uint32_t stream, uint32_t pos) {
-  return k.mode == 2 || counter_bits(seed, stream, pos) < k.thr;
-}
+#ifdef FUSED_COUNT_DRAWS
+__device__ unsigned long long g_draws = 0;  // read and cleared by fused_draws()
+#endif
 
-// bern_not(p): True w.p. 1 - p, all True when the knob is off.
-__device__ __forceinline__ bool survives(const Knob& k, uint32_t seed, uint32_t stream, uint32_t pos) {
-  return k.mode == 0 || !fires(k, seed, stream, pos);
-}
+// One lane's count of counter_bits draws (empty unless FUSED_COUNT_DRAWS).
+struct DrawCount {
+#ifdef FUSED_COUNT_DRAWS
+  uint32_t n = 0;
+  __device__ __forceinline__ void add() { ++n; }
+  __device__ __forceinline__ void flush() const { atomicAdd(&g_draws, static_cast<unsigned long long>(n)); }
+#else
+  __device__ __forceinline__ void add() {}
+  __device__ __forceinline__ void flush() const {}
+#endif
+};
 
 template <typename T>
 __device__ __forceinline__ T load(const Leaves& L, int leaf, int row, int64_t n, int64_t i) {
@@ -136,18 +148,22 @@ __device__ __forceinline__ int32_t next_ballot(int32_t b, int32_t stride, int pi
 // One lane's counter stream for one tick.
 struct TickStream {
   uint32_t seed, block, lane;
+  DrawCount* draws;
 
   __device__ __forceinline__ uint32_t pos(int prefix) const {
     return static_cast<uint32_t>(prefix) * block + lane;
   }
   __device__ __forceinline__ uint32_t bits(uint32_t stream, int prefix) const {
+    draws->add();
     return counter_bits(seed, stream, pos(prefix));
   }
+  // bern(p) for a knob that is on: True w.p. p.
   __device__ __forceinline__ bool fires_at(const Knob& k, uint32_t stream, int prefix) const {
-    return fires(k, seed, stream, pos(prefix));
+    return k.mode == 2 || bits(stream, prefix) < k.thr;
   }
+  // bern_not(p): True w.p. 1 - p, all True when the knob is off.
   __device__ __forceinline__ bool survives_at(const Knob& k, uint32_t stream, int prefix) const {
-    return survives(k, seed, stream, pos(prefix));
+    return k.mode == 0 || !fires_at(k, stream, prefix);
   }
 };
 
@@ -378,3 +394,14 @@ inline unsigned grid_for(int64_t n_inst) {
 }
 
 }  // namespace
+
+#ifdef FUSED_COUNT_DRAWS
+// Copies the draw count of the launches since the last call to *out and
+// clears it; call after the launches are complete.  Returns a cudaError_t.
+extern "C" int fused_draws(unsigned long long* out) {
+  const cudaError_t rc = cudaMemcpyFromSymbol(out, g_draws, sizeof(*out));
+  if (rc != cudaSuccess) return rc;
+  const unsigned long long zero = 0;
+  return cudaMemcpyToSymbol(g_draws, &zero, sizeof(zero));
+}
+#endif

@@ -93,10 +93,11 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   const uint32_t lane = static_cast<uint32_t>(i % prm.block);
   const auto quorum_of = [](int32_t) { return kQuorum; };
 
+  DrawCount draws;
   for (int t = 0; t < prm.n_ticks; ++t) {
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
-                        static_cast<uint32_t>(prm.block), lane};
+                        static_cast<uint32_t>(prm.block), lane, &draws};
 
     // ---- Reply delivery (pre-tick buffer) and consume. ----
     uint32_t rp_next;
@@ -271,6 +272,8 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
   }
+
+  draws.flush();
 
   // ---- Store the lane's state once. ----
 #pragma unroll

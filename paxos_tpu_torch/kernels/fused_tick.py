@@ -9,6 +9,8 @@ tensor it runs :func:`reference_chunk`, the plain PyTorch version.
 ``FUSED_CHUNKS[protocol]`` is the engine's chunk function, as
 ``_make_chunk`` is in the reference: it clamps ballots at the chunk
 boundaries and switches to a per-tick clamp for very long chunks.
+:func:`draw_census` runs a kernel's measuring build, which also counts
+the counter-PRNG draws it makes.
 
 Streams: per-tick masks are keyed by (seed, tick, stream block id), with
 ``block`` lanes per stream block (default 1024, the reference's default),
@@ -140,14 +142,18 @@ BINDINGS = {
 }
 _entries: dict = {}
 
+# The measuring build of every fused kernel (csrc/fused_common.cuh): it
+# also counts the counter-PRNG draws the kernel makes.
+COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
 
-def _entry(protocol: str):
+
+def _entry(protocol: str, defines: tuple = ()):
     """Build (first use only) and bind a kernel's C entry point."""
-    if protocol not in _entries:
+    if (protocol, defines) not in _entries:
         from paxos_tpu_torch.kernels import build
 
         binding = BINDINGS[protocol]
-        fn = getattr(build.load(binding.kernel), binding.entry)
+        fn = getattr(build.load(binding.kernel, defines), binding.entry)
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
@@ -156,8 +162,8 @@ def _entry(protocol: str):
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _entries[protocol] = fn
-    return _entries[protocol]
+        _entries[protocol, defines] = fn
+    return _entries[protocol, defines]
 
 
 def _knob(p: float) -> tuple:
@@ -231,7 +237,21 @@ def _fused_chunk(
     _check_cuda_inputs(protocol, state, plan)
     if n_ticks == 0:
         return state
-    fn = _entry(protocol)
+    _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick)
+    wrapper.launches += 1
+    state.tick.add_(n_ticks)  # every lane advanced by the same tick count
+    return state
+
+
+def _launch(
+    protocol: str, state: LaneState, seed: int, plan: FaultPlan,
+    cfg: FaultConfig, n_ticks: int, block: int, blk0: int,
+    clamp_per_tick: bool, defines: tuple = (),
+) -> None:
+    """Launch ``protocol``'s kernel (the build ``defines`` name) on
+    checked inputs; raises if the launch fails."""
+    binding = BINDINGS[protocol]
+    fn = _entry(protocol, defines)
     leaves = state.leaves()[:-1]
     ptrs = (ctypes.c_void_p * len(leaves))(*(t.data_ptr() for t in leaves))
     plan_ptrs = (ctypes.c_void_p * 3)(
@@ -251,9 +271,39 @@ def _fused_chunk(
         )
     if rc != 0:
         raise RuntimeError(f"{binding.kernel} launch failed: cudaError {rc}")
-    wrapper.launches += 1
-    state.tick.add_(n_ticks)  # every lane advanced by the same tick count
-    return state
+
+
+def draw_census(
+    protocol: str, state: LaneState, seed: int, plan: FaultPlan,
+    cfg: FaultConfig, n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
+    clamp_per_tick: bool = False,
+) -> int:
+    """The counter-PRNG draws ``protocol``'s kernel makes over ``n_ticks``
+    ticks from ``state``, summed over lanes: one launch of its measuring
+    build, which advances ``state`` in place exactly as the wrapper would.
+    The kernels draw a mask only where it can change the outcome, so this
+    is the PRNG work the data needs.  CUDA tensors only; the wrapper's
+    ``.launches`` is left as it is."""
+    if state.device.type != "cuda":
+        raise ValueError("draw_census counts a CUDA kernel's draws: it needs a CUDA state")
+    if not isinstance(state, BINDINGS[protocol].state_cls):
+        raise TypeError(f"the {protocol} engine takes a {BINDINGS[protocol].state_cls.__name__}")
+    check_supported(cfg)
+    _check_cuda_inputs(protocol, state, plan)
+    _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick, COUNT_DRAWS)
+    state.tick.add_(n_ticks)
+    torch.cuda.synchronize(state.device)
+    from paxos_tpu_torch.kernels import build
+
+    read = build.load(BINDINGS[protocol].kernel, COUNT_DRAWS).fused_draws
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    read.restype = ctypes.c_int
+    out = ctypes.c_ulonglong()
+    with torch.cuda.device(state.device):
+        rc = read(ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"reading the draw count failed: cudaError {rc}")
+    return out.value
 
 
 def fused_paxos_chunk(
@@ -344,5 +394,3 @@ def _make_chunk(protocol: str) -> Callable:
 
 FUSED_CHUNKS = {protocol: _make_chunk(protocol) for protocol in FUSED_WRAPPERS}
 paxos_chunk = FUSED_CHUNKS["paxos"]
-fastpaxos_chunk = FUSED_CHUNKS["fastpaxos"]
-raftcore_chunk = FUSED_CHUNKS["raftcore"]

@@ -18,51 +18,33 @@ import hashlib
 import pytest
 import torch
 
+from chip_smoke import GOLDENS, MASK_CENSUS, main_config, near_limit_state
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
 
 LIMIT = (1 << 15) - 1
-# Recorded digests at 256 lanes, seed 7, 32 ticks (tests/test_gray.py).
-GOLDENS = {"paxos": "db6db6f40f16eb7b", "fastpaxos": "72beea3ccdacab94", "raftcore": "eb285905571b709f"}
-
-
-def _config(protocol, n, seed):
-    if protocol == "paxos":
-        return TC.config2_dueling_drop(n, seed)
-    return TC.config5_sweep(n, seed)[("paxos", "fastpaxos", "raftcore").index(protocol)]
+PROTOCOLS = ["paxos", "fastpaxos", "raftcore"]
 
 
 def _second_shape(protocol, n, seed):
     if protocol == "paxos":
         return TC.config1_no_faults(n, seed)  # (1, 3, 8)
-    return dataclasses.replace(_config(protocol, n, seed), n_acc=3)  # (2, 3, 8)
-
-
-def _near_limit(cfg, rnd):
-    """``cfg``'s initial state with every proposer in phase 1 at ballot
-    round ``rnd`` and its PREPARE (REQVOTE) broadcast in flight."""
-    st = trun.init_state(cfg, "cuda")
-    pid = torch.arange(cfg.n_prop, dtype=torch.int32, device="cuda")[:, None]
-    st.proposer.bal.copy_((rnd * 8 + pid + 1).expand_as(st.proposer.bal))
-    st.proposer.phase.zero_()
-    st.requests.bal[0] = st.proposer.bal[:, None, :]
-    st.requests.present[0] = True
-    return st
+    return dataclasses.replace(main_config(protocol, n, seed), n_acc=3)  # (2, 3, 8)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("protocol", ["paxos", "fastpaxos", "raftcore"])
+@pytest.mark.parametrize("protocol", PROTOCOLS)
 def test_kernel_matches_plain_on_cuda(protocol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     wrapper = tfused.FUSED_WRAPPERS[protocol]
     apply_fn = tfused.BINDINGS[protocol].apply_fn
-    big, small = _config(protocol, 8192, 7), _second_shape(protocol, 4096, 1)
+    big, small = main_config(protocol, 8192, 7), _second_shape(protocol, 4096, 1)
     cases = (
         (big, 96, None, {}),
         (small, 64, None, {}),
-        (big, 64, _near_limit(big, 4094), dict(blk0=2, clamp_per_tick=True)),
+        (big, 64, near_limit_state(big, 4094), dict(blk0=2, clamp_per_tick=True)),
     )
     for cfg, ticks, init, kw in cases:
         init = trun.init_state(cfg, "cuda") if init is None else init
@@ -79,9 +61,31 @@ def test_kernel_matches_plain_on_cuda(protocol):
             assert torch.equal(a, b)
         if kw:
             assert int(kern.proposer.bal.max()) == LIMIT
-    cfg = _config(protocol, 256, 7)
+    cfg = main_config(protocol, 256, 7)
     st = wrapper(trun.init_state(cfg, "cuda"), 7, trun.init_plan(cfg, "cuda"), cfg.fault, 32, block=256)
     h = hashlib.sha256()
     for leaf in st.leaves():
         h.update(leaf.cpu().numpy().tobytes())
     assert h.hexdigest()[:16] == GOLDENS[protocol]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", PROTOCOLS)
+def test_draw_census_build_follows_the_kernel(protocol):
+    """The draw-counting build advances the state as the kernel does, counts
+    no launch, and draws at most every mask element of every tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cfg = main_config(protocol, 8192, 5)
+    plan, ticks = trun.init_plan(cfg, "cuda"), 48
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    kern = wrapper(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
+    before = wrapper.launches
+    counted = trun.init_state(cfg, "cuda")
+    draws = tfused.draw_census(protocol, counted, cfg.seed, plan, cfg.fault, ticks)
+    assert wrapper.launches == before
+    for a, b in zip(counted.leaves(), kern.leaves(), strict=True):
+        assert torch.equal(a, b)
+    assert 0 < draws <= MASK_CENSUS[protocol][1] * cfg.n_inst * ticks
+    again = tfused.draw_census(protocol, trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
+    assert again == draws  # the count is cleared after every read

@@ -3,7 +3,7 @@
 ``chip_smoke.py`` runs each main path (config2 and the config5 sweep's Fast
 Paxos and Raft-core: 1<<20 lanes, seed 0, 4096 ticks) through the port's
 kernels on the card and checks the two lowest-numbered stream blocks that
-evicted against the digests pinned here.  This test computes those
+evicted against the digests it pins (``EVICTION_PINS``).  This test computes those
 digests with the JAX package's own ``reference_chunk``: one 1024-lane
 block at its stream block id, 4096 ticks straight.  The main path's ballot
 clamps at its dispatch boundaries are the identity while ballots stay
@@ -11,31 +11,25 @@ below the report limit, which the test asserts, so the two schedules are
 the same.  Raft-core's main path evicts nowhere, so it pins no block.
 """
 
-import ast
 import functools
 import hashlib
-from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 
+import chip_smoke
 from paxos_tpu.harness import config as JC
 from paxos_tpu.harness.run import init_plan as j_init_plan
 from paxos_tpu.harness.run import init_state as j_init_state
 from paxos_tpu.kernels.fused_tick import fused_fns, reference_chunk
 
-REPO = Path(__file__).resolve().parents[1]
 BLOCK, TICKS, LIMIT = 1024, 4096, (1 << 15) - 1
 
-# Per main path: total evictions on the card (chip_smoke.py), and for the
-# two lowest-numbered evicting stream blocks, the evicting lanes inside
-# the block and the block's final state digest.
-PINS = {
-    "paxos": (1, {963: ([838], "8c8a818261f3d84c")}),
-    "fastpaxos": (138, {5: ([862], "659e8267fff0c143"), 17: ([213], "0727753391be6bf5")}),
-    "raftcore": (0, {}),
-}
+# Per main path: total evictions on the card, and for the two
+# lowest-numbered evicting stream blocks, the evicting lanes inside the
+# block and the block's final state digest.
+PINS = chip_smoke.EVICTION_PINS
 
 
 def _config(protocol: str):
@@ -59,28 +53,10 @@ def _blocks_run(protocol: str):
     )
 
 
-def _smoke_constants() -> dict:
-    """chip_smoke.py's top-level constants, read without running it."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
-    out = {}
-    for node in tree.body:
-        if isinstance(node, ast.Assign):
-            try:
-                value = ast.literal_eval(node.value)
-            except ValueError:
-                continue
-            for target in node.targets:
-                names = target.elts if isinstance(target, ast.Tuple) else [target]
-                values = value if isinstance(target, ast.Tuple) else [value]
-                out.update({n.id: v for n, v in zip(names, values) if isinstance(n, ast.Name)})
-    return out
-
-
 def test_chip_smoke_pins_these_blocks():
-    smoke = _smoke_constants()
-    assert smoke["EVICTION_PINS"] == PINS
-    assert smoke["MAIN_EVICTION_LANES"] == [963 * BLOCK + 838]
-    assert smoke["MAIN_TICKS"] == TICKS
+    assert sorted(PINS) == ["fastpaxos", "paxos", "raftcore"]
+    assert chip_smoke.MAIN_EVICTION_LANES == [963 * BLOCK + 838]
+    assert chip_smoke.MAIN_TICKS == TICKS
 
 
 @pytest.mark.parametrize("protocol", [p for p, (_, blocks) in PINS.items() if blocks])

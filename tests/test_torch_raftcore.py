@@ -236,6 +236,5 @@ def test_engine_wrappers_take_their_own_state():
     with pytest.raises(TypeError, match="RaftState"):
         tfused.fused_raftcore_chunk(trun.init_state(TC.config5_sweep(64, 1)[1], "cpu"), 1, plan, tcfg.fault, 4)
     before = tfused.fused_raftcore_chunk.launches
-    out = tfused.raftcore_chunk(state, 1, plan, tcfg.fault, 4)
+    out = tfused.FUSED_CHUNKS["raftcore"](state, 1, plan, tcfg.fault, 4)
     assert int(out.tick) == 4 and tfused.fused_raftcore_chunk.launches == before
-    assert tfused.FUSED_CHUNKS["raftcore"] is tfused.raftcore_chunk
