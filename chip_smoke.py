@@ -7,29 +7,42 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
 Phases (each raises on failure, so any failed phase exits non-zero):
 
-1. build: the four kernels of ``paxos_tpu_torch/kernels/csrc`` and the
+1. build: the five kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
    together; each kernel's ``ptxas -v`` registers and spills;
 2. ceiling: the int32 probe (K6) against its plain version byte for byte,
    then the card's int32 operation rate from two iteration counts, printed
    beside the published peak that the bounds divide by;
 3. golden: config2, Fast Paxos and Raft-core (config5) at 256 lanes, seed
-   7, 32 ticks through their kernels must give the recorded state digests;
+   7, 32 ticks through their kernels must give the recorded state digests,
+   and config3 (Multi-Paxos) the digest the JAX package gives on this
+   script's numpy plan (``MP_GOLDEN``);
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
-   with a block offset, and at full width (1<<20 lanes x 64 ticks), timed,
-   with the counter-PRNG draws of the timed ticks counted by each kernel's
-   measuring build for its operation bound;
-5. main paths: the flagship campaign (config2) and the config5 sweep's
-   Fast Paxos and Raft-core campaigns (1<<20 lanes, 4096 ticks, chunk 64,
-   pipeline depth 16) through ``run``, each with every launch count set to
-   0 before and read after; reports deterministic over 3 repeats, no
-   violations; the two lowest-numbered stream blocks that evicted must
-   equal, digest for digest, what the JAX package computes for them
-   (``EVICTION_PINS``, checked by tests/test_torch_evictions.py); then
-   once more under torch.profiler for the device's busy and idle time;
+   with a block offset, Multi-Paxos long logs compacted between chunks,
+   and at full width (1<<20 lanes x 64 ticks) on each main path's config,
+   config3-long compacted after every chunk, timed, with the counter-PRNG
+   draws and slot-array touches of the timed ticks counted by each
+   kernel's measuring build for its operation bound;
+5. main paths: the flagship campaign (config2), the config5 sweep's Fast
+   Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
+   leader crash) and config3-long (a 256-slot log through a 16-slot
+   window, compacted after every chunk), at 1<<20 lanes, chunk 64,
+   pipeline depth 16 and 4096 ticks (config3-long 1024), through ``run``,
+   each with every launch count set to 0 before and read after; reports
+   deterministic over 3 repeats, no violations; the two lowest-numbered
+   stream blocks that evicted must equal, digest for digest, what the JAX
+   package computes for them (``EVICTION_PINS``, checked by
+   tests/test_torch_evictions.py); then once more under torch.profiler
+   for the device's busy and idle time;
 6. checker: config4's equivocation, an unsafe Fast Flexible Paxos quorum
-   triple, and Raft-core equivocation must each report violations.
+   triple, Raft-core equivocation and Multi-Paxos equivocation must each
+   report violations (Multi-Paxos: the count the JAX package gives,
+   ``MP_CHECKER_VIOLATIONS``).
+
+Configs with crash windows or equivocators run on plans drawn here from
+numpy (:func:`config_plan`): the config's own distribution, from another
+stream than the JAX package's ``FaultPlan.sample``.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -56,9 +69,41 @@ GOLDENS = {
     "fastpaxos": "72beea3ccdacab94",
     "raftcore": "eb285905571b709f",
 }
+# config3 at 256 lanes, seed 7, 32 ticks, block 256 on config_plan(cfg, 7)
+# (tests/test_torch_multipaxos.py computes it with the JAX package).
+MP_GOLDEN = "3e755a68b483cd90"
 FULL_LANES = 1 << 20
 MAIN_PATH_REPEATS = 3
 MAIN_TICKS, MAIN_CHUNK, MAIN_DEPTH = 4096, 64, 16
+LONG_TICKS = 1024  # config3-long: 16 compactions
+
+
+@dataclasses.dataclass(frozen=True)
+class MainPath:
+    """A main path: its protocol and ticks, its config (a function of
+    ``harness/config.py``, and the config's index where that returns a
+    sweep), and the census case (``ROOFLINE.json``) of its kernel's bound.
+    ``compact``: decided prefixes compact out after every chunk.  Every
+    path is also timed at full width, a path's kernel entry is the first
+    path of its protocol."""
+
+    protocol: str
+    ticks: int
+    config: str
+    census: str
+    sweep_index: "int | None" = None
+    compact: bool = False
+
+
+MAIN_PATHS = {
+    "paxos": MainPath("paxos", MAIN_TICKS, "config2_dueling_drop", "config2-paxos"),
+    "fastpaxos": MainPath("fastpaxos", MAIN_TICKS, "config5_sweep", "config5-fastpaxos", 1),
+    "raftcore": MainPath("raftcore", MAIN_TICKS, "config5_sweep", "config5-raftcore", 2),
+    "config3": MainPath("multipaxos", MAIN_TICKS, "config3_multipaxos", "config3-multipaxos"),
+    "config3long": MainPath(
+        "multipaxos", LONG_TICKS, "config3_long", "config3long-multipaxos", compact=True
+    ),
+}
 # The flagship campaign (seed 0) fills one lane's 8-slot learner table:
 # lane 838 of stream block 963.
 MAIN_EVICTION_LANES = [986950]
@@ -71,7 +116,16 @@ EVICTION_PINS = {
     "paxos": (1, {963: ([838], "8c8a818261f3d84c")}),
     "fastpaxos": (138, {5: ([862], "659e8267fff0c143"), 17: ([213], "0727753391be6bf5")}),
     "raftcore": (0, {}),
+    "config3": (0, {}),
+    "config3long": (0, {}),
 }
+# The state digest of stream block 0 after each Multi-Paxos main path, as
+# the JAX package computes it (tests/test_torch_evictions.py).
+MP_BLOCK0_DIGESTS = {"config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d"}
+# Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
+# ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
+# the count with the JAX package).
+MP_CHECKER_VIOLATIONS = 1043
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and
 # int32 ALU throughput: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (an IMAD,
 # IADD3 or LOP3 instruction does two of the counted operations, so this
@@ -79,22 +133,31 @@ EVICTION_PINS = {
 # K6 measures is printed beside them.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9 * 2
-# The int32 operation census of each tick (scripts/roofline.py tick_census,
-# in ROOFLINE.json), per protocol.
-CENSUS_CASES = {
-    "paxos": "config2-paxos",
-    "fastpaxos": "config5-fastpaxos",
-    "raftcore": "config5-raftcore",
-}
-# The census's share of counter_masks, which draws every mask element of
-# every tick, per protocol: (operations, mask elements) per lane-tick, as
-# scripts/roofline.py's census_jaxpr counts them (tests/test_torch_census.py
-# computes them with the JAX package).  The kernels draw lazily, so the
-# bound counts the draws a run makes at this cost per element instead.
+# Per census case of the int32 operation census of one tick
+# (scripts/roofline.py tick_census, in ROOFLINE.json), the shares that the
+# census counts for every element every tick and a kernel only where it
+# runs them; tests/test_torch_census.py computes both with the JAX package.
+# MASK_CENSUS: the share of counter_masks, which draws every mask element:
+# (operations, mask elements) per lane-tick, as census_jaxpr counts them.
+# The kernels draw lazily, so the bound counts the draws a run makes at
+# this cost per element instead.
 MASK_CENSUS = {
-    "paxos": (1228.064453125, 87.0),
-    "fastpaxos": (1228.064453125, 87.0),
-    "raftcore": (1228.064453125, 87.0),
+    "config2-paxos": (1228.064453125, 87.0),
+    "config5-fastpaxos": (1228.064453125, 87.0),
+    "config5-raftcore": (1228.064453125, 87.0),
+    "config3-multipaxos": (1261.3046875, 89.0),
+    "config3long-multipaxos": (1261.3046875, 89.0),
+}
+# SLOT_CENSUS (Multi-Paxos): the share of the slot-indexed arrays (log,
+# PROMISE payloads, recovery rows, learner table, chosen values and ticks),
+# which the vectorised tick rewrites whole every tick and K5 touches only
+# where the tick reads or writes a slot: (operations per lane-tick,
+# slot-array elements per lane).  The census is linear in the window
+# length, 528.125 operations per slot over 28 elements; the bound counts
+# the elements the measuring build touches at this cost per element.
+SLOT_CENSUS = {
+    "config3-multipaxos": (4225.0, 224.0),
+    "config3long-multipaxos": (8450.0, 448.0),
 }
 KERNEL_SOURCE = "paxos_tpu_torch/kernels/csrc/{}.cu"
 # pl.pallas_call of the JAX package's fused engine (fused_chunk), which
@@ -104,6 +167,7 @@ REPLACES = {
     "paxos": FUSED_PALLAS_CALL + " (_kernel :201, packed_fns('paxos'))",
     "fastpaxos": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('fastpaxos') :655)",
     "raftcore": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('raftcore') :660)",
+    "multipaxos": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('multipaxos') :670)",
 }
 
 
@@ -118,7 +182,7 @@ def digest(leaves) -> str:
     return h.hexdigest()[:16]
 
 
-def block_leaves(state, blk: int, block: int = 1024) -> list:
+def block_leaves(state, blk: int, block: int) -> list:
     """The leaves of stream block ``blk`` of ``state`` (tick included)."""
     lo = blk * block
     return [x[..., lo:lo + block].contiguous() if x.dim() else x for x in state.leaves()]
@@ -146,28 +210,38 @@ def timed(fn, reps: int = 1) -> tuple:
     return out, start.elapsed_time(end) / reps
 
 
-def tick_ops_per_lane(protocol: str, draws_per_lane_tick: "float | None" = None) -> float:
-    """int32 operations per lane-tick of the unpacked tick: the ALU +
-    reduction census of scripts/roofline.py (recorded in ROOFLINE.json),
-    without its packed-codec share, which the unpacked port does not
-    execute.  The census draws every mask element of every tick; given the
-    draws a kernel made per lane-tick, its mask share is counted for
-    those draws only, at the census's cost per element."""
+def tick_ops_per_lane(
+    case: str, draws_per_lane_tick: "float | None" = None,
+    touches_per_lane_tick: "float | None" = None,
+) -> float:
+    """int32 operations per lane-tick of the unpacked tick of census
+    ``case``: the ALU + reduction census of scripts/roofline.py (recorded
+    in ROOFLINE.json).  Its ``alu_per_lane_tick`` is already net of the
+    packed-codec share, which the unpacked port does not execute
+    (scripts/roofline.py:143-144 records ``(alu - codec_alu) / block``), so
+    nothing more is subtracted.  The census draws every mask element and
+    rewrites every slot-array element every tick; given the draws and the
+    slot-array touches a kernel made per lane-tick, those shares are
+    counted for what it made only, at the census's cost per element."""
     cases = json.loads(Path("ROOFLINE.json").read_text())["cases"]
-    c = next(c for c in cases if c["case"] == CENSUS_CASES[protocol])
-    ops = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"] - c["codec_alu_per_lane_tick"]
-    if draws_per_lane_tick is None:
-        return ops
-    mask_ops, mask_elems = MASK_CENSUS[protocol]
-    return ops - mask_ops + draws_per_lane_tick * mask_ops / mask_elems
+    c = next(c for c in cases if c["case"] == case)
+    ops = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"]
+    for per_lane_tick, share in (
+        (draws_per_lane_tick, MASK_CENSUS), (touches_per_lane_tick, SLOT_CENSUS)
+    ):
+        if per_lane_tick is not None and case in share:
+            share_ops, share_elems = share[case]
+            ops += per_lane_tick * share_ops / share_elems - share_ops
+    return ops
 
 
-def main_config(protocol: str, n_inst: int = FULL_LANES, seed: int = 0):
+def main_config(path: str, n_inst: int = FULL_LANES, seed: int = 0):
+    """The config of main path ``path`` (a key of ``MAIN_PATHS``)."""
     from paxos_tpu_torch.harness import config as C
 
-    if protocol == "paxos":
-        return C.config2_dueling_drop(n_inst, seed)
-    return C.config5_sweep(n_inst, seed)[("paxos", "fastpaxos", "raftcore").index(protocol)]
+    mp = MAIN_PATHS[path]
+    cfg = getattr(C, mp.config)(n_inst, seed)
+    return cfg if mp.sweep_index is None else cfg[mp.sweep_index]
 
 
 def reset_launches() -> None:
@@ -263,23 +337,64 @@ def phase_golden() -> None:
         log(f"golden: {protocol} 256 lanes seed 7 32 ticks digest {got} (want {want})")
         if got != want:
             raise AssertionError(f"{protocol} golden digest {got} != {want}")
+    cfg = main_config("config3", 256, 7)
+    state = FUSED_WRAPPERS["multipaxos"](
+        init_state(cfg, "cuda"), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
+    )
+    got = digest(state.leaves())
+    log(f"golden: multipaxos config3 256 lanes seed 7 32 ticks digest {got} (want {MP_GOLDEN})")
+    if got != MP_GOLDEN:
+        raise AssertionError(f"multipaxos golden digest {got} != {MP_GOLDEN}")
 
 
-def fault_plan(n_inst: int, n_acc: int, n_prop: int, p_equiv: float, seed: int, p_crash: float = 0.0):
+def fault_plan(
+    n_inst: int, n_acc: int, n_prop: int, p_equiv: float, seed: int, p_crash: float = 0.0,
+    p_crash_prop: float = 0.0, max_start: int = 32, max_len: int = 16, device="cuda",
+):
     """A plan from a fixed numpy seed: equivocators with probability
-    ``p_equiv`` and, with probability ``p_crash``, a crash window in the
-    first 48 ticks."""
+    ``p_equiv``; with probability ``p_crash`` per (acceptor, lane) and
+    ``p_crash_prop`` per (proposer, lane) a crash window starting in
+    U[0, max_start) and lasting U[1, max_len] ticks."""
     from paxos_tpu_torch.faults.injector import NEVER, FaultPlan
 
-    plan = FaultPlan.none(n_inst, n_acc, n_prop, device="cuda")
+    plan = FaultPlan.none(n_inst, n_acc, n_prop, device=device)
     rng = np.random.default_rng(seed)
-    plan.equivocate = torch.from_numpy(rng.random((n_acc, n_inst)) < p_equiv).cuda()
-    crash = rng.random((n_acc, n_inst)) < p_crash
-    start = rng.integers(0, 32, (n_acc, n_inst))
-    end = start + rng.integers(1, 17, (n_acc, n_inst))
-    plan.crash_start = torch.from_numpy(np.where(crash, start, NEVER).astype(np.int32)).cuda()
-    plan.crash_end = torch.from_numpy(np.where(crash, end, NEVER).astype(np.int32)).cuda()
+
+    def windows(shape, p):
+        crash = rng.random(shape) < p
+        start = rng.integers(0, max_start, shape)
+        end = start + rng.integers(1, max_len + 1, shape)
+        return (
+            torch.from_numpy(np.where(crash, start, NEVER).astype(np.int32)).to(device),
+            torch.from_numpy(np.where(crash, end, NEVER).astype(np.int32)).to(device),
+        )
+
+    plan.equivocate = torch.from_numpy(rng.random((n_acc, n_inst)) < p_equiv).to(device)
+    plan.crash_start, plan.crash_end = windows((n_acc, n_inst), p_crash)
+    if p_crash_prop > 0.0:
+        plan.pcrash_start, plan.pcrash_end = windows((n_prop, n_inst), p_crash_prop)
     return plan
+
+
+def config_plan(cfg, seed: int, device="cuda"):
+    """``cfg``'s own crash and equivocation distribution (the JAX package's
+    ``FaultPlan.sample``: starts U[0, crash_max_start), lengths
+    U[1, crash_max_len]) drawn from a numpy stream."""
+    f = cfg.fault
+    return fault_plan(
+        cfg.n_inst, cfg.n_acc, cfg.n_prop, f.p_equiv, seed, f.p_crash, f.p_crash_prop,
+        f.crash_max_start, f.crash_max_len, device,
+    )
+
+
+def main_plan(cfg, device="cuda"):
+    """A main path's plan: :func:`config_plan` at the config's seed where
+    the config samples crashes or equivocators, else None (``run`` builds
+    the fault-free plan itself, inside the timed window)."""
+    f = cfg.fault
+    if f.p_crash or f.p_crash_prop or f.p_equiv:
+        return config_plan(cfg, cfg.seed, device)
+    return None
 
 
 def near_limit_state(cfg, rnd: int):
@@ -296,55 +411,111 @@ def near_limit_state(cfg, rnd: int):
     return st
 
 
-def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, ceiling=None, **kw) -> dict:
-    """Kernel vs plain on the card from the same initial state; ``kw`` are
-    the wrapper's ``blk0`` and ``clamp_per_tick``.  With ``reps``, also
-    the kernel's steady-state time over ``reps`` further chunks and their
-    bound: the bytes, and the operations of the census with the draws
-    those chunks make, over the published peak (and over the measured
-    ``ceiling`` beside it)."""
-    from paxos_tpu_torch.core.state import state_bytes_per_lane
+def near_limit_state_mp(cfg, rnd: int, device="cuda"):
+    """``cfg``'s initial Multi-Paxos state with every proposer at ballot
+    round ``rnd`` and a lease timer past every election threshold, so
+    elections start at once and push ballots over the report limit."""
     from paxos_tpu_torch.harness.run import init_state
-    from paxos_tpu_torch.kernels.fused_tick import (
-        BINDINGS,
-        FUSED_WRAPPERS,
-        draw_census,
-        reference_chunk,
+
+    st = init_state(cfg, device)
+    pid = torch.arange(cfg.n_prop, dtype=torch.int32, device=device)[:, None]
+    st.proposer.bal.copy_((rnd * 8 + pid + 1).expand_as(st.proposer.bal))
+    st.proposer.lease_timer.fill_(cfg.fault.lease_len + 3 * cfg.n_prop + cfg.fault.backoff_max)
+    return st
+
+
+def plain_chunk(cfg, state, plan, n_ticks, block, blk0=0, clamp_per_tick=False):
+    """The plain version of ``cfg.protocol``'s kernel."""
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, reference_chunk
+
+    b = BINDINGS[cfg.protocol]
+    return reference_chunk(
+        state, cfg.seed, plan, cfg.fault, n_ticks, blk_id=blk0, block=block,
+        clamp_per_tick=clamp_per_tick, apply_fn=b.apply_fn, mask_fn=b.mask_fn,
+        ballot_limit=b.ballot_limit,
     )
 
+
+def compare(
+    name, cfg, plan, n_ticks, block=None, reps=0, init=None, ceiling=None, census=None,
+    compact=False, chunks=1, **kw,
+) -> dict:
+    """Kernel vs plain on the card from the same initial state over
+    ``chunks`` chunks of ``n_ticks``; ``kw`` are the wrapper's ``blk0``
+    and ``clamp_per_tick``; ``block`` defaults to the protocol's, ``plan``
+    (None) to the fault-free one.  ``compact``: the decided-prefix
+    compaction follows every chunk, as on a long log.  Times are of the
+    chunks alone.  With ``reps``, also the kernel's steady-state time over ``reps``
+    further chunks and their bound: the bytes, and the operations of
+    census ``census`` with the draws and slot-array touches those chunks
+    make, over the published peak (and over the measured ``ceiling``
+    beside it)."""
+    from paxos_tpu_torch.core.state import state_bytes_per_lane
+    from paxos_tpu_torch.harness.run import init_plan, init_state
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, draw_census
+    from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
+
+    def after(st):
+        return compact_mp_body(st)[0] if compact else st
+
     wrapper = FUSED_WRAPPERS[cfg.protocol]
+    block = BINDINGS[cfg.protocol].block if block is None else block
+    plan = init_plan(cfg, "cuda") if plan is None else plan
     init = init_state(cfg, "cuda") if init is None else init
-    plain, plain_ms = timed(
-        lambda: reference_chunk(
-            init, cfg.seed, plan, cfg.fault, n_ticks, blk_id=kw.get("blk0", 0),
-            block=block, clamp_per_tick=kw.get("clamp_per_tick", False),
-            apply_fn=BINDINGS[cfg.protocol].apply_fn,
+    plain, kern, plain_ms, kern_ms = init, init.clone(), 0.0, 0.0
+    for _ in range(chunks):
+        plain, t_plain = timed(lambda: plain_chunk(cfg, plain, plan, n_ticks, block, **kw))
+        torch.cuda.synchronize()
+        kern, t_kern = timed(
+            lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw)
         )
-    )
-    st = init.clone()
-    torch.cuda.synchronize()
-    kern, kern_ms = timed(lambda: wrapper(st, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw))
+        plain, kern = after(plain), after(kern)
+        plain_ms, kern_ms = plain_ms + t_plain, kern_ms + t_kern
     err = max_abs_err(kern.leaves(), plain.leaves())
-    log(f"{name}: {cfg.n_inst} lanes x {n_ticks} ticks, kernel vs plain max_abs_err {err}")
+    compacted = (
+        f", compacted after each (mean base {plain.base.float().mean().item():.2f} of "
+        f"{cfg.fault.log_total})" if compact else ""
+    )
+    log(f"{name}: {cfg.n_inst} lanes x {chunks} x {n_ticks} ticks{compacted}, "
+        f"kernel vs plain max_abs_err {err}")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
     out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
     if reps:
-        # The draws of the timed chunks: the measuring build over the same
-        # ticks from a copy of the compared state, which must end where
-        # the timed chunks end.
-        counted = kern.clone()
-        draws = draw_census(cfg.protocol, counted, cfg.seed, plan, cfg.fault, reps * n_ticks, block=block)
-        # Steady state: further chunks continuing from the compared state.
-        _, out["ms"] = timed(
-            lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block), reps
-        )
+        # The draws and touches of the timed chunks: the measuring build
+        # over the same ticks from a copy of the compared state, which must
+        # end where the timed chunks end.
+        counted, draws, touches = kern.clone(), 0, 0
+        for _ in range(reps if compact else 1):
+            d, t = draw_census(
+                cfg.protocol, counted, cfg.seed, plan, cfg.fault,
+                (1 if compact else reps) * n_ticks, block=block,
+            )
+            draws, touches, counted = draws + d, touches + t, after(counted)
+        # Steady state: further chunks continuing from the compared state;
+        # on a long log each chunk is timed alone and compacted after.
+        if compact:
+            chunk_ms, compact_ms = [], []
+            for _ in range(reps):
+                _, t = timed(lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block))
+                kern, c = timed(lambda: after(kern))
+                chunk_ms.append(t)
+                compact_ms.append(c)
+            out["ms"], out["compact_ms"] = sum(chunk_ms) / reps, sum(compact_ms) / reps
+        else:
+            _, out["ms"] = timed(
+                lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block), reps
+            )
         if max_abs_err(counted.leaves(), kern.leaves()) != 0:
             raise AssertionError(f"{name}: the draw-counting build took another path")
-        plan_bytes = sum(l.element_size() * l.numel() for l in (plan.crash_start, plan.crash_end, plan.equivocate))
+        read = ["crash_start", "crash_end", "equivocate"]
+        if cfg.protocol == "multipaxos":
+            read += ["pcrash_start", "pcrash_end"]
+        plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
         n_bytes = 2 * state_bytes_per_lane(init) * cfg.n_inst + plan_bytes
-        draws_per_lane_tick = draws / (cfg.n_inst * reps * n_ticks)
-        ops_per_lane_tick = tick_ops_per_lane(cfg.protocol, draws_per_lane_tick)
+        lane_ticks = cfg.n_inst * reps * n_ticks
+        draws_per_lane_tick, touches_per_lane_tick = draws / lane_ticks, touches / lane_ticks
+        ops_per_lane_tick = tick_ops_per_lane(census, draws_per_lane_tick, touches_per_lane_tick)
         n_ops = ops_per_lane_tick * cfg.n_inst * n_ticks
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / INT32_OPS_PER_S * 1e3
@@ -354,8 +525,9 @@ def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, ceiling=Non
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             bound_ms_measured_rate=max(bytes_ms, measured_ops_ms),
             bytes_ms=bytes_ms, ops_ms=ops_ms, ops_per_lane_tick=ops_per_lane_tick,
-            ops_per_lane_tick_all_masks=tick_ops_per_lane(cfg.protocol),
+            ops_per_lane_tick_census=tick_ops_per_lane(census),
             draws_per_lane_tick=draws_per_lane_tick,
+            slot_touches_per_lane_tick=touches_per_lane_tick,
             state_bytes_per_lane=state_bytes_per_lane(init),
         )
         log(
@@ -363,16 +535,19 @@ def compare(name, cfg, plan, n_ticks, block=1024, reps=0, init=None, ceiling=Non
             f"{plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}; bytes "
             f"{bytes_ms:.3f} ms, int32 ops {ops_ms:.3f} ms at the published peak, "
             f"{measured_ops_ms:.3f} ms at the measured rate); {draws_per_lane_tick:.3f} draws "
-            f"per lane-tick of {MASK_CENSUS[cfg.protocol][1]:g} mask elements, "
-            f"{ops_per_lane_tick:.1f} ops per lane-tick ({out['ops_per_lane_tick_all_masks']:.1f} "
-            "with every mask drawn)"
+            f"per lane-tick of {MASK_CENSUS[census][1]:g} mask elements, "
+            f"{touches_per_lane_tick:.3f} slot-array touches per lane-tick, "
+            f"{ops_per_lane_tick:.1f} ops per lane-tick ({out['ops_per_lane_tick_census']:.1f} "
+            "in the census)"
+            + (f"; compaction {out['compact_ms']:.3f} ms/chunk" if compact else "")
         )
     return out
 
 
 def phase_compare(ceiling: float) -> dict:
     """Every instantiation against the plain version; the full-width
-    comparison of each fused kernel, timed, is returned per protocol."""
+    comparison of each main path's kernel on its config, timed, is
+    returned per path."""
     from paxos_tpu_torch.harness import config as C
     from paxos_tpu_torch.harness.run import init_plan
 
@@ -394,103 +569,143 @@ def phase_compare(ceiling: float) -> dict:
             f"{protocol} per-tick clamp, blk0=5", cfgc, init_plan(cfgc, "cuda"), 96,
             init=near_limit_state(cfgc, 4094), blk0=5, clamp_per_tick=True,
         )
+    # K5: config3's (2,5,8,4), three acceptors with equivocators, the
+    # long-log windows (2,5,4,4) and (2,5,16,4) compacted between chunks,
+    # and near-limit ballots under the per-tick clamp (2047).
+    cfg3 = main_config("config3", 4096, 5)
+    compare("multipaxos config3 (2,5,8,4)", cfg3, config_plan(cfg3, 5), 300)
+    eq3 = dataclasses.replace(cfg3, n_acc=3, fault=dataclasses.replace(cfg3.fault, p_equiv=0.3))
+    compare("multipaxos (2,3,8,4) with equivocators", eq3, config_plan(eq3, 6), 200)
+    for window, log_total in ((4, 64), (16, 256)):
+        cfgl = C.config3_long(4096, 6, log_total=log_total, window=window)
+        compare(
+            f"multipaxos long log (2,5,{window},4)", cfgl, config_plan(cfgl, 6), 64,
+            compact=True, chunks=6,
+        )
+    cfgc = main_config("config3", 4096, 13)
+    compare(
+        "multipaxos per-tick clamp, blk0=5", cfgc, config_plan(cfgc, 13), 96,
+        init=near_limit_state_mp(cfgc, 254), blk0=5, clamp_per_tick=True,
+    )
     full = {}
-    for protocol in ("paxos", "fastpaxos", "raftcore"):
-        cfg = main_config(protocol, FULL_LANES, 7)
-        full[protocol] = compare(
-            f"{protocol} full width", cfg, init_plan(cfg, "cuda"), 64, reps=5, ceiling=ceiling
+    for path, mp in MAIN_PATHS.items():
+        cfg = main_config(path, FULL_LANES, 7)
+        full[path] = compare(
+            f"{path} full width", cfg, main_plan(cfg), 64, reps=5, ceiling=ceiling,
+            census=mp.census, compact=mp.compact,
         )
     return full
 
 
-def check_evictions(protocol: str, report: dict, state) -> dict:
+def check_evictions(path: str, report: dict, state) -> dict:
     """The main path's evictions against the pins: total, the two
     lowest-numbered evicting stream blocks, their lanes and digests."""
-    total, pinned = EVICTION_PINS[protocol]
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS
+
+    block = BINDINGS[MAIN_PATHS[path].protocol].block
+    total, pinned = EVICTION_PINS[path]
     lanes = torch.nonzero(state.learner.evictions).flatten().tolist()
-    blocks = sorted({lane // 1024 for lane in lanes})[:2]
+    blocks = sorted({lane // block for lane in lanes})[:2]
     found = {
-        blk: ([lane - blk * 1024 for lane in lanes if lane // 1024 == blk], digest(block_leaves(state, blk)))
+        blk: (
+            [lane - blk * block for lane in lanes if lane // block == blk],
+            digest(block_leaves(state, blk, block)),
+        )
         for blk in blocks
     }
     log(
-        f"{protocol} main path: evictions {report['evictions']} on {len(lanes)} lanes in "
-        f"{len({lane // 1024 for lane in lanes})} stream blocks; lowest blocks {found}"
+        f"{path} main path: evictions {report['evictions']} on {len(lanes)} lanes in "
+        f"{len({lane // block for lane in lanes})} stream blocks; lowest blocks {found}"
     )
     if report["evictions"] != total or found != pinned:
         raise AssertionError(
-            f"{protocol} evictions {report['evictions']} {found}, pinned {total} {pinned}"
+            f"{path} evictions {report['evictions']} {found}, pinned {total} {pinned}"
         )
-    if protocol == "paxos" and lanes != MAIN_EVICTION_LANES:
+    if path == "paxos" and lanes != MAIN_EVICTION_LANES:
         raise AssertionError(f"evictions on lanes {lanes}, recorded {MAIN_EVICTION_LANES}")
-    return {str(blk): d for blk, (_, d) in found.items()}
+    out = {str(blk): d for blk, (_, d) in found.items()}
+    if path in MP_BLOCK0_DIGESTS:
+        got = digest(block_leaves(state, 0, block))
+        log(f"{path} main path: stream block 0 digest {got} (want {MP_BLOCK0_DIGESTS[path]})")
+        if got != MP_BLOCK0_DIGESTS[path]:
+            raise AssertionError(f"{path} stream block 0 digest {got} != {MP_BLOCK0_DIGESTS[path]}")
+        out["0"] = got
+    return out
 
 
-def phase_main_path(protocol: str) -> dict:
+def run_main_path(path: str, plan, **kw):
+    """One campaign of main path ``path`` through ``run`` on ``plan``."""
     from paxos_tpu_torch.harness.run import run
 
-    cfg = main_config(protocol)
+    return run(
+        main_config(path), engine="fused", total_ticks=MAIN_PATHS[path].ticks, chunk=MAIN_CHUNK,
+        pipeline_depth=MAIN_DEPTH, plan=plan, **kw,
+    )
+
+
+def phase_main_path(path: str) -> dict:
+    protocol, ticks = MAIN_PATHS[path].protocol, MAIN_PATHS[path].ticks
+    cfg = main_config(path)
+    plan = main_plan(cfg)
     walls, launches, report, state = [], {}, None, None
     for _ in range(MAIN_PATH_REPEATS):
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        rep_report, state = run(
-            cfg, engine="fused", total_ticks=MAIN_TICKS, chunk=MAIN_CHUNK,
-            pipeline_depth=MAIN_DEPTH, return_state=True,
-        )
+        rep_report, state = run_main_path(path, plan, return_state=True)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches = read_launches()
         if report is not None and rep_report != report:
-            raise AssertionError(f"{protocol} main path not deterministic: {rep_report} != {report}")
+            raise AssertionError(f"{path} main path not deterministic: {rep_report} != {report}")
         report = rep_report
     wall = sorted(walls)[len(walls) // 2]
-    log(f"{protocol} main path report: {json.dumps(report)}")
-    rate = cfg.n_inst * MAIN_TICKS / wall
+    log(f"{path} main path report: {json.dumps(report)}")
+    rate = cfg.n_inst * ticks / wall
     log(
-        f"{protocol} main path: median {wall:.4f} s wall of {[round(w, 4) for w in walls]}, "
+        f"{path} main path: median {wall:.4f} s wall of {[round(w, 4) for w in walls]}, "
         f"{rate:.4g} quorum-rounds/s, launches {launches}"
     )
-    if report["ticks"] != MAIN_TICKS or not 0.0 <= report["chosen_frac"] <= 1.0:
+    if report["ticks"] != ticks or not 0.0 <= report["chosen_frac"] <= 1.0:
         raise AssertionError(f"malformed report {report}")
     if report["violations"] != 0:
-        raise AssertionError(f"{protocol} main path must be safe: {report}")
+        raise AssertionError(f"{path} main path must be safe: {report}")
     if launches[protocol] == 0:
-        raise AssertionError(f"the {protocol} main path never launched its fused kernel")
+        raise AssertionError(f"the {path} main path never launched its fused kernel")
     if sum(launches.values()) != launches[protocol]:
-        raise AssertionError(f"the {protocol} main path launched other kernels: {launches}")
-    digests = check_evictions(protocol, report, state)
+        raise AssertionError(f"the {path} main path launched other kernels: {launches}")
+    digests = check_evictions(path, report, state)
     return {"launches": launches[protocol], "all_launches": launches, "wall_s": wall,
             "walls_s": walls, "rounds_per_s": rate, "report": report,
             "eviction_block_digests": digests}
 
 
-def phase_main_path_profile(protocol: str) -> dict:
+def phase_main_path_profile(path: str) -> dict:
     """The main path once more under torch.profiler: the fused kernel's
     share of device time and the device's idle share of the wall time
     (the profiler's own host cost inflates the wall a little)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paxos_tpu_torch.harness.run import run
-
-    cfg = main_config(protocol)
+    protocol = MAIN_PATHS[path].protocol
+    plan = main_plan(main_config(path))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(cfg, total_ticks=MAIN_TICKS, chunk=MAIN_CHUNK, pipeline_depth=MAIN_DEPTH)
+        run_main_path(path, plan)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+    # Device-side events only: a PyTorch operator's own entry also carries
+    # the device time of the kernels it launched, which would count twice.
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     kernel_name = f"fused_{protocol}_kernel"
     kernel_us = sum(e.self_device_time_total for e in events if kernel_name in e.key)
     out = {"wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6, "kernel_s": kernel_us / 1e6}
     if busy_us == 0:
-        log(f"{protocol} profile: the profiler recorded no device time (not measured)")
+        log(f"{path} profile: the profiler recorded no device time (not measured)")
         return out
     out["idle_share"] = 1.0 - busy_us / wall_us
     log(
-        f"{protocol} profile: wall {out['wall_s']:.3f} s, device busy {out['device_busy_s']:.3f} s "
+        f"{path} profile: wall {out['wall_s']:.3f} s, device busy {out['device_busy_s']:.3f} s "
         f"(fused kernel {out['kernel_s']:.3f} s), device idle share {out['idle_share']:.4f}"
     )
     return out
@@ -511,11 +726,22 @@ def phase_checker() -> dict:
     cfg = dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_equiv=0.5))
     plan = fault_plan(cfg.n_inst, cfg.n_acc, cfg.n_prop, 0.5, 1)
     out["raftcore p_equiv=0.5"] = run(cfg, total_ticks=300, plan=plan)["violations"]
+    cfg = mp_checker_config()
+    mp = "multipaxos config3 p_equiv=0.4"
+    out[mp] = run(cfg, total_ticks=300, plan=config_plan(cfg, cfg.seed))["violations"]
     for name, violations in out.items():
         log(f"checker: {name} violations {violations}")
         if violations <= 0:
             raise AssertionError(f"{name} must light up the safety checker")
+    if out[mp] != MP_CHECKER_VIOLATIONS:
+        raise AssertionError(f"{mp}: {out[mp]} violations, the JAX package gives {MP_CHECKER_VIOLATIONS}")
     return out
+
+
+def mp_checker_config(n_inst: int = 1024):
+    """config3 at seed 3 with equivocating acceptors (p_equiv 0.4)."""
+    cfg = main_config("config3", n_inst, 3)
+    return dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_equiv=0.4))
 
 
 def card_line() -> str:
@@ -538,44 +764,56 @@ def main() -> int:
     ceiling = phase_ceiling()
     phase_golden()
     full = phase_compare(ceiling["ops_per_s"])
-    main_paths = {p: phase_main_path(p) for p in ("paxos", "fastpaxos", "raftcore")}
+    main_paths = {p: phase_main_path(p) for p in MAIN_PATHS}
     profiles = {p: phase_main_path_profile(p) for p in main_paths}
     checker = phase_checker()
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS
 
     kernels = []
-    for protocol, mp in main_paths.items():
-        kernel, f = BINDINGS[protocol].kernel, full[protocol]
-        kernels.append({
-            "name": kernel,
+    # Each fused kernel's entry: its first main path's full-width timing and
+    # run; a further path of the same kernel (config3-long) rides in it.
+    for protocol, binding in BINDINGS.items():
+        paths = [p for p, mp in MAIN_PATHS.items() if mp.protocol == protocol]
+        measured = {
+            path: {
+                **full[path],
+                "shape": f"{path} {FULL_LANES} lanes x 64 ticks, block {binding.block}"
+                + (", compacted after every chunk" if MAIN_PATHS[path].compact else ""),
+                "census": MAIN_PATHS[path].census,
+                "main_path_launches": main_paths[path]["launches"],
+                "main_path_wall_s": main_paths[path]["wall_s"],
+                "main_path_walls_s": main_paths[path]["walls_s"],
+                "main_path_rounds_per_s": main_paths[path]["rounds_per_s"],
+                "main_path_report": main_paths[path]["report"],
+                "main_path_eviction_block_digests": main_paths[path]["eviction_block_digests"],
+                "main_path_profile": profiles[path],
+            }
+            for path in paths
+        }
+        first = measured[paths[0]]
+        entry = {
+            "name": binding.kernel,
             "route": "cuda",
-            "source": KERNEL_SOURCE.format(kernel),
+            "source": KERNEL_SOURCE.format(binding.kernel),
             "replaces": REPLACES[protocol],
-            "launches": mp["launches"],
-            "max_abs_err": f["max_abs_err"],
+            "launches": first["main_path_launches"],
+            "max_abs_err": first["max_abs_err"],
             "tolerance": 0,  # int32/bool state: byte-identical to the plain version
-            "ms": f["ms"],
-            "plain_ms": f["plain_ms"],
-            "bound_ms": f["bound_ms"],
-            "bound_by": f["bound_by"],
-            "bound_ms_measured_rate": f["bound_ms_measured_rate"],
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a tick
-            "shape": f"{protocol} {FULL_LANES} lanes x 64 ticks, block 1024",
-            "ops_per_lane_tick": f["ops_per_lane_tick"],
-            "ops_per_lane_tick_all_masks": f["ops_per_lane_tick_all_masks"],
-            "draws_per_lane_tick": f["draws_per_lane_tick"],
-            "state_bytes_per_lane": f["state_bytes_per_lane"],
-            "ptxas": built["ptxas"][kernel],
-            "main_path_wall_s": mp["wall_s"],
-            "main_path_walls_s": mp["walls_s"],
-            "main_path_rounds_per_s": mp["rounds_per_s"],
-            "main_path_report": mp["report"],
-            "main_path_eviction_block_digests": mp["eviction_block_digests"],
-            "main_path_profile": profiles[protocol],
-        })
+            **first,  # the required keys above first, then the rest of the measurement
+            "ptxas": built["ptxas"][binding.kernel],
+        }
+        if len(paths) > 1:
+            entry["launches_by_path"] = {p: measured[p]["main_path_launches"] for p in paths}
+            entry.update({p: measured[p] for p in paths[1:]})
+        kernels.append(entry)
     # K6 measures the card; no main path launches it (each path's check
     # above), so its count is read from the last main path's run.
-    k6_launches = main_paths["raftcore"]["all_launches"]["int32_ceiling"]
+    k6_launches = main_paths["config3long"]["all_launches"]["int32_ceiling"]
     kernels.append({
         "name": "int32_ceiling",
         "route": "cuda",

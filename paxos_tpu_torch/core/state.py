@@ -150,6 +150,11 @@ class LaneState:
             + [self.tick]
         )
 
+    def lane_leaves(self) -> list:
+        """Every per-instance tensor (all but the tick), in flatten order:
+        the leaves a fused kernel reads and writes."""
+        return self.leaves()[:-1]
+
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
         for this state's (n_inst, n_prop, n_acc, k_slots)."""
@@ -226,5 +231,5 @@ class PaxosState(LaneState):
 def state_bytes_per_lane(state: LaneState) -> int:
     return sum(
         leaf.element_size() * (leaf.numel() // state.n_inst)
-        for leaf in state.leaves()[:-1]
+        for leaf in state.lane_leaves()
     )

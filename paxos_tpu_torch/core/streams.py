@@ -1,9 +1,11 @@
-"""Counter-PRNG stream ids (counterpart of ``SINGLE_DECREE.streams`` in
-``paxos_tpu/core/streams.py``).
+"""Counter-PRNG stream ids (counterpart of ``SINGLE_DECREE.streams`` and
+``MULTI_PAXOS.streams`` in ``paxos_tpu/core/streams.py``).
 
-Each mask of a single-decree tick draws from its own stream id; the ids are
-part of the schedule, so they must equal the reference's.  Streams 10 and
-up belong to the gray-failure and workload planes, which are not ported.
+Each mask of a tick draws from its own stream id; the ids are part of the
+schedule, so they must equal the reference's.  The single-decree ticks
+(paxos, fastpaxos, raftcore) share one allocation, Multi-Paxos has its
+own.  The gray-failure and workload streams are not ported (their knobs
+raise), apart from Multi-Paxos' CORRUPT id, listed for completeness.
 """
 
 SINGLE_DECREE_STREAMS = dict(
@@ -17,4 +19,19 @@ SINGLE_DECREE_STREAMS = dict(
     KEEP_P1=7,  # PREPARE-class drop
     KEEP_P2=8,  # ACCEPT-class drop
     BACKOFF=9,  # proposer retry backoff
+)
+
+MULTI_PAXOS_STREAMS = dict(
+    SEL=0,  # request-selection entropy
+    BUSY=1,  # acceptor idling (p_idle)
+    DUP_REQ=2,  # request duplication (p_dup)
+    PROM_DELIVER=3,  # promise holding (p_hold)
+    ACCD_DELIVER=4,  # accepted holding (p_hold)
+    KEEP_PROM=5,  # PROMISE drop (p_drop)
+    KEEP_ACCD=6,  # ACCEPTED drop
+    KEEP_PREP=7,  # PREPARE drop
+    KEEP_ACC=8,  # ACCEPT drop
+    JITTER=9,  # election-threshold jitter
+    BACKOFF=10,  # post-failure retreat
+    CORRUPT=13,  # in-flight corruption (p_corrupt, not ported)
 )

@@ -145,6 +145,10 @@ class FaultPlan:
         """(A, I) bool: acceptor is up at ``tick``."""
         return ~((self.crash_start <= tick) & (tick < self.crash_end))
 
+    def prop_alive(self, tick) -> torch.Tensor:
+        """(P, I) bool: proposer is up at ``tick``."""
+        return ~((self.pcrash_start <= tick) & (tick < self.pcrash_end))
+
     def recovering(self, tick) -> torch.Tensor:
         """(A, I) bool: acceptor comes back up exactly at ``tick``."""
         return self.crash_end == tick

@@ -23,6 +23,7 @@ LAYOUT_VERSIONS = {
     "paxos": "paxos-packed-v4",
     "fastpaxos": "fastpaxos-packed-v4",
     "raftcore": "raftcore-packed-v4",
+    "multipaxos": "multipaxos-packed-v4",
 }
 
 OBSERVER_PLANES = ("telemetry", "coverage", "exposure", "margin", "workload")
@@ -83,6 +84,59 @@ def config2_dueling_drop(n_inst: int = 131_072, seed: int = 0) -> SimConfig:
         n_acc=5,
         seed=seed,
         fault=FaultConfig(p_drop=0.1, p_idle=0.2, p_hold=0.2),
+    )
+
+
+def config3_multipaxos(n_inst: int = 1_048_576, seed: int = 0) -> SimConfig:
+    """Config 3: Multi-Paxos log replication, leader lease + leader crash
+    (5 acceptors, 2 proposers, an 8-slot log)."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        log_len=8,
+        k_slots=4,
+        seed=seed,
+        protocol="multipaxos",
+        fault=FaultConfig(
+            p_drop=0.05,
+            p_idle=0.1,
+            p_hold=0.1,
+            p_crash=0.1,
+            p_crash_prop=0.4,  # leader crash is the config's point
+            crash_max_start=150,
+            crash_max_len=40,
+            lease_len=24,
+        ),
+    )
+
+
+def config3_long(
+    n_inst: int = 262_144, seed: int = 0, log_total: int = 256, window: int = 16
+) -> SimConfig:
+    """Config 3-long: Multi-Paxos over a ``log_total``-slot log through a
+    ``window``-slot window; decided prefixes compact out after every chunk
+    (``protocols.multipaxos.compact_mp_body``).  Config 3's faults, with
+    crash windows spread over the longer run."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        log_len=window,
+        k_slots=4,
+        seed=seed,
+        protocol="multipaxos",
+        fault=FaultConfig(
+            p_drop=0.05,
+            p_idle=0.1,
+            p_hold=0.1,
+            p_crash=0.1,
+            p_crash_prop=0.4,
+            crash_max_start=2000,
+            crash_max_len=60,
+            lease_len=24,
+            log_total=log_total,
+        ),
     )
 
 

@@ -3,8 +3,11 @@
 ``run`` builds the state and fault plan on the device, advances the state
 through the fused engine in pipelined dispatches, and reduces the report on
 the device, so the whole report crosses to the host in one ``.cpu()``
-transfer.  Config acceptance (layout bounds, tick budget) matches the
-reference, so a campaign the port accepts replays on the reference too.
+transfer.  Config acceptance (layout bounds, value and tick budgets)
+matches the reference, so a campaign the port accepts replays on the
+reference too.  A long-log Multi-Paxos config (``fault.log_total > 0``)
+compacts decided prefixes out of the window after every chunk and reports
+its replication progress.
 """
 
 from __future__ import annotations
@@ -14,8 +17,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from paxos_tpu_torch.check.liveness import window_valid_mask
+from paxos_tpu_torch.core.ballot import MAX_PROPOSERS
 from paxos_tpu_torch.core.device import resolve_device
 from paxos_tpu_torch.core.fp_state import FastPaxosState
+from paxos_tpu_torch.core.mp_state import BV_SHIFT, MultiPaxosState
 from paxos_tpu_torch.core.raft_state import RaftState
 from paxos_tpu_torch.core.state import DONE, LaneState, PaxosState
 from paxos_tpu_torch.faults.injector import FaultPlan
@@ -25,17 +31,22 @@ from paxos_tpu_torch.harness.config import (
     validate_pipeline_depth,
 )
 from paxos_tpu_torch.harness.pipeline import pipelined_run
-from paxos_tpu_torch.kernels.fused_tick import FUSED_CHUNKS, REPORT_BALLOT_LIMIT
+from paxos_tpu_torch.kernels.fused_tick import FUSED_CHUNKS, report_ballot_limit
+from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
 from paxos_tpu_torch.protocols.paxos import check_supported
 
-# Signed width of learner.chosen_tick in the reference's single-decree
-# packed layouts (paxos, fastpaxos, raftcore): the campaign tick budget
-# both packages accept.
-CHOSEN_TICK_BITS = 19
+# Signed width of learner.chosen_tick in the reference's packed layouts:
+# the campaign tick budget both packages accept.
+CHOSEN_TICK_BITS = {"paxos": 19, "fastpaxos": 19, "raftcore": 19, "multipaxos": 18}
 
-# The ported protocols and their state types (summarize is shared: all
-# three use DONE = 2 and decided_val).
-STATE_TYPES = {"paxos": PaxosState, "fastpaxos": FastPaxosState, "raftcore": RaftState}
+# The ported protocols and their state types (the single-decree three share
+# DONE = 2 and decided_val in summarize).
+STATE_TYPES = {
+    "paxos": PaxosState,
+    "fastpaxos": FastPaxosState,
+    "raftcore": RaftState,
+    "multipaxos": MultiPaxosState,
+}
 
 # Plan knobs FaultPlan.none cannot reproduce: the reference samples them
 # with jax.random, so such a plan must be carried across (``plan=``).
@@ -79,6 +90,32 @@ def _check_packed_layout_bounds(cfg: SimConfig) -> None:
             "overflows the packed 13-bit signed proposer timer; keep the "
             "product <= 2048"
         )
+    if cfg.protocol == "multipaxos" and cfg.log_len >= 64:
+        raise ValueError(
+            f"log_len={cfg.log_len} overflows the packed 6-bit commit_idx "
+            "field; keep the window < 64 slots"
+        )
+
+
+def _check_value_budget(cfg: SimConfig) -> None:
+    """Multi-Paxos commands, own_slot_value(pid, global slot), must fit the
+    packed pair's value field and the reference's 13-bit packed value."""
+    top = max(cfg.fault.log_total, cfg.log_len)
+    max_val = MAX_PROPOSERS * 1000 + top
+    if max_val >= (1 << BV_SHIFT):
+        raise ValueError(
+            f"log_total={cfg.fault.log_total} overflows the packed (ballot, "
+            f"value) layout: own_slot_value can reach {max_val} >= "
+            f"2^{BV_SHIFT}; keep log_total <= "
+            f"{(1 << BV_SHIFT) - MAX_PROPOSERS * 1000 - 1}"
+        )
+    max_val = cfg.n_prop * 1000 + top
+    if max_val >= (1 << 13):
+        raise ValueError(
+            f"n_prop={cfg.n_prop} with log_total={cfg.fault.log_total} "
+            f"overflows the packed 13-bit value field: own_slot_value can "
+            f"reach {max_val} >= 2^13; shrink the log or the proposer count"
+        )
 
 
 def check_tick_budget(protocol: str, ticks: int) -> None:
@@ -87,10 +124,11 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
         raise NotImplementedError(
             f"protocol {protocol!r} is not ported yet (ROADMAP queue A slice 4)"
         )
-    cap = (1 << (CHOSEN_TICK_BITS - 1)) - 1
+    bits = CHOSEN_TICK_BITS[protocol]
+    cap = (1 << (bits - 1)) - 1
     if ticks > cap:
         raise ValueError(
-            f"tick budget {ticks} overflows the packed {CHOSEN_TICK_BITS}-bit "
+            f"tick budget {ticks} overflows the packed {bits}-bit "
             f"learner.chosen_tick field for {protocol}; keep ticks per "
             f"campaign <= {cap}"
         )
@@ -100,9 +138,15 @@ def init_state(cfg: SimConfig, device=None) -> LaneState:
     """The protocol's initial state, as the reference's ``init_state``."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
+    device = resolve_device(device)
+    if cfg.protocol == "multipaxos":
+        _check_value_budget(cfg)
+        return MultiPaxosState.init(
+            cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.log_len, k=cfg.k_slots,
+            lease_init=cfg.fault.lease_len, device=device,
+        )
     return STATE_TYPES[cfg.protocol].init(
-        cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots,
-        device=resolve_device(device),
+        cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots, device=device
     )
 
 
@@ -129,10 +173,15 @@ def make_advance(cfg: SimConfig, plan: FaultPlan, engine: str = "fused") -> Call
     return lambda state, n: grouped(state, n, 1)
 
 
-def make_advance_grouped(cfg: SimConfig, plan: FaultPlan, engine: str = "fused") -> Callable:
+def make_advance_grouped(
+    cfg: SimConfig, plan: FaultPlan, engine: str = "fused", compact: bool = False
+) -> Callable:
     """``advance(state, n_ticks, groups)``: ``groups`` chunks in one
-    dispatch, which for the fused engine is one chunk of n_ticks * groups
-    ticks (ticks are chunk-invariant)."""
+    dispatch.  Without ``compact`` that is one chunk of n_ticks * groups
+    ticks (ticks are chunk-invariant).  With ``compact`` (long-log
+    Multi-Paxos) every chunk of ``n_ticks`` is followed by the
+    decided-prefix compaction, so the compaction cadence is the chunk,
+    whatever the grouping."""
     if engine == "xla":
         raise NotImplementedError(
             "the XLA engine draws from jax.random and is not ported yet "
@@ -141,6 +190,16 @@ def make_advance_grouped(cfg: SimConfig, plan: FaultPlan, engine: str = "fused")
     if engine != "fused":
         raise ValueError(f"unknown engine: {engine!r}")
     chunk = FUSED_CHUNKS[cfg.protocol]
+    if compact:
+        if cfg.protocol != "multipaxos":
+            raise ValueError("decided-prefix compaction is a Multi-Paxos long-log mode")
+
+        def advance_compact(state, n, g=1):
+            for _ in range(g):
+                state = compact_mp_body(chunk(state, cfg.seed, plan, cfg.fault, n))[0]
+            return state
+
+        return advance_compact
 
     def advance(state, n, g=1):
         return chunk(state, cfg.seed, plan, cfg.fault, n * g)
@@ -149,22 +208,71 @@ def make_advance_grouped(cfg: SimConfig, plan: FaultPlan, engine: str = "fused")
 
 
 def all_chosen_flag(state: LaneState) -> torch.Tensor:
-    """0-d bool device tensor: every lane's learner chose a value."""
+    """0-d bool device tensor: every lane's learner chose a value (every
+    window slot, for Multi-Paxos)."""
     return state.learner.chosen.all()
+
+
+class LongLog:
+    """Chunk-boundary protocol of long-log Multi-Paxos: decided prefixes
+    compact out of the window after every chunk
+    (``make_advance_grouped(compact=True)``), a run is done when every
+    instance's ``base`` reached ``log_total``, and reports carry the
+    replication fields (:func:`summarize` with ``log_total``)."""
+
+    def __init__(self, cfg: SimConfig):
+        self.log_total = cfg.fault.log_total
+
+    def done_flag(self, state: MultiPaxosState) -> torch.Tensor:
+        """0-d bool device tensor: every instance replicated the whole log."""
+        return (state.base >= self.log_total).all()
+
+
+def make_longlog(cfg: SimConfig) -> "LongLog | None":
+    if cfg.protocol == "multipaxos" and cfg.fault.log_total > 0:
+        return LongLog(cfg)
+    return None
 
 
 _STATS = (
     "ticks", "n_chosen", "violations", "evictions", "choose_tick_sum",
-    "max_ballot", "n_decided", "proposer_disagree",
+    "max_ballot", "n_decided", "proposer_disagree", "slots_replicated",
+    "n_replicated",
 )
 
 
-def summarize_device(state: LaneState) -> tuple:
-    """Device half of :func:`summarize`: one int64 vector of exact counts."""
+def summarize_device(state: LaneState, log_total: int = 0) -> tuple:
+    """Device half of :func:`summarize`: one int64 vector of exact counts.
+
+    Multi-Paxos counts slots: ``chosen`` is (L, I), ``n_decided`` counts
+    lanes whose whole window is chosen, or with ``log_total`` the decided
+    slot-lanes (compacted prefix plus in-window chosen real slots)."""
     lrn, prop = state.learner, state.proposer
     chosen = lrn.chosen
-    done = prop.phase == DONE
     i64 = torch.int64
+    zero = torch.zeros((), dtype=i64, device=chosen.device)
+    n_inst = chosen.shape[-1]
+    if isinstance(state, MultiPaxosState):
+        base = state.base
+        if log_total > 0:
+            valid = window_valid_mask(chosen.shape, base, log_total)
+            n_decided = (chosen & valid).sum(dtype=i64)
+            decided_den = n_inst * log_total
+        else:
+            n_decided = chosen.all(dim=0).sum(dtype=i64)
+            decided_den = n_inst
+        disagree = zero
+        replicated = (base.sum(dtype=i64), (base >= log_total).sum(dtype=i64))
+    else:
+        done = prop.phase == DONE
+        n_decided = done.any(dim=0).sum(dtype=i64)
+        decided_den = n_inst
+        disagree = (
+            (done & chosen[None] & (prop.decided_val != lrn.chosen_val[None]))
+            .any(dim=0)
+            .sum(dtype=i64)
+        )
+        replicated = (zero, zero)
     stats = torch.stack([
         state.tick.to(i64),
         chosen.sum(dtype=i64),
@@ -172,12 +280,18 @@ def summarize_device(state: LaneState) -> tuple:
         lrn.evictions.sum(dtype=i64),
         torch.where(chosen, lrn.chosen_tick, 0).sum(dtype=i64),
         prop.bal.max().to(i64),
-        done.any(dim=0).sum(dtype=i64),
-        (done & chosen[None] & (prop.decided_val != lrn.chosen_val[None]))
-        .any(dim=0)
-        .sum(dtype=i64),
+        n_decided,
+        disagree,
+        *replicated,
     ])
-    meta = {"n_inst": chosen.shape[-1], "ballot_limit": REPORT_BALLOT_LIMIT}
+    mp = isinstance(state, MultiPaxosState)
+    meta = {
+        "n_inst": n_inst,
+        "n_chosen_den": chosen.numel(),
+        "decided_den": decided_den,
+        "ballot_limit": report_ballot_limit("multipaxos" if mp else "paxos"),
+        "log_total": log_total if mp else 0,
+    }
     return stats, meta
 
 
@@ -188,10 +302,17 @@ def summarize_host(host: list, meta: dict) -> dict[str, Any]:
     s = dict(zip(_STATS, (int(v) for v in host)))
     n = meta["n_inst"]
     f32 = np.float32
+    log_total = meta["log_total"]
+    if log_total:
+        # The reference adds the compacted prefix and the in-window slots
+        # as two float32 sums.
+        decided = f32(s["slots_replicated"]) + f32(s["n_decided"])
+    else:
+        decided = f32(s["n_decided"])
     out = {
         "n_inst": n,
         "ticks": s["ticks"],
-        "chosen_frac": float(f32(s["n_chosen"]) / f32(n)),
+        "chosen_frac": float(f32(s["n_chosen"]) / f32(meta["n_chosen_den"])),
         "violations": s["violations"],
         "evictions": s["evictions"],
         "mean_choose_tick": (
@@ -199,10 +320,14 @@ def summarize_host(host: list, meta: dict) -> dict[str, Any]:
             if s["n_chosen"]
             else -1.0
         ),
-        "decided_frac": float(f32(s["n_decided"]) / f32(n)),
+        "decided_frac": float(decided / f32(meta["decided_den"])),
         "proposer_disagree": s["proposer_disagree"],
     }
     out["checker_complete"] = out["evictions"] == 0
+    if log_total:
+        out["log_total"] = log_total
+        out["slots_replicated"] = s["slots_replicated"]
+        out["replicated_frac"] = float(f32(s["n_replicated"]) / f32(n))
     limit = meta["ballot_limit"]
     if s["max_ballot"] >= limit:
         raise MeasurementCorrupted(
@@ -213,9 +338,12 @@ def summarize_host(host: list, meta: dict) -> dict[str, Any]:
     return out
 
 
-def summarize(state: LaneState) -> dict[str, Any]:
-    """Reduce the state to the report: device reductions, one transfer."""
-    stats, meta = summarize_device(state)
+def summarize(state: LaneState, log_total: int = 0) -> dict[str, Any]:
+    """Reduce the state to the report: device reductions, one transfer.
+    ``log_total > 0`` (long-log Multi-Paxos) reports global replication
+    progress: ``decided_frac`` over the whole log, ``slots_replicated``
+    and ``replicated_frac``."""
+    stats, meta = summarize_device(state, log_total)
     return summarize_host(stats.cpu().tolist(), meta)
 
 
@@ -236,7 +364,9 @@ def run(
     ``device`` defaults to CUDA (and raises without a GPU); ``"cpu"`` runs
     the plain PyTorch versions.  ``plan`` overrides the fault-free plan:
     configs with crash, partition or equivocation knobs need one, carried
-    across from the reference with :mod:`paxos_tpu_torch.interop`.
+    across from the reference with :mod:`paxos_tpu_torch.interop`.  A
+    long-log Multi-Paxos config compacts after every ``chunk`` ticks, and
+    ``until_all_chosen`` then waits for the whole log to replicate.
     """
     depth = validate_pipeline_depth(pipeline_depth)
     check_tick_budget(cfg.protocol, max_ticks if until_all_chosen else total_ticks)
@@ -245,13 +375,16 @@ def run(
         plan = init_plan(cfg, state.device)
     else:
         plan = FaultPlan(*(leaf.to(state.device) for leaf in plan.leaves()))
-    advance = make_advance_grouped(cfg, plan, engine)
+    ll = make_longlog(cfg)
+    advance = make_advance_grouped(cfg, plan, engine, compact=bool(ll))
+    done_fn = None
+    if until_all_chosen:
+        done_fn = ll.done_flag if ll else all_chosen_flag
     budget = max_ticks if until_all_chosen else total_ticks
     state = pipelined_run(
-        state, advance, budget=budget, chunk=chunk, depth=depth,
-        done_fn=all_chosen_flag if until_all_chosen else None,
+        state, advance, budget=budget, chunk=chunk, depth=depth, done_fn=done_fn
     )
-    report = summarize(state)
+    report = summarize(state, log_total=cfg.fault.log_total)
     report["config_fingerprint"] = cfg.fingerprint()
     report["engine"] = engine
     if depth > 1:

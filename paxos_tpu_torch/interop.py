@@ -14,6 +14,14 @@ import torch
 
 from paxos_tpu_torch.core.fp_state import FastPaxosState, FastProposerState
 from paxos_tpu_torch.core.messages import MsgBuf
+from paxos_tpu_torch.core.mp_state import (
+    AcceptedBuf,
+    MPAcceptorState,
+    MPLearnerState,
+    MPProposerState,
+    MultiPaxosState,
+    PromiseBuf,
+)
 from paxos_tpu_torch.core.raft_state import CandidateState, RaftState, VoterState
 from paxos_tpu_torch.core.state import (
     AcceptorState,
@@ -24,15 +32,25 @@ from paxos_tpu_torch.core.state import (
 )
 from paxos_tpu_torch.faults.injector import FaultPlan
 
-# Per protocol: the state type and its sub-states with their leaf counts,
-# in flatten order (the tick scalar follows).
-_GROUPS = {
-    "paxos": (PaxosState, ((AcceptorState, 3), (ProposerState, 9))),
-    "fastpaxos": (FastPaxosState, ((AcceptorState, 3), (FastProposerState, 9))),
-    "raftcore": (RaftState, ((VoterState, 3), (CandidateState, 9))),
-}
+# Per protocol: the state type, its sub-states with their leaf counts in
+# flatten order, and the trailing scalar and per-lane leaves (the tick, and
+# Multi-Paxos' base).
 _SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
-N_STATE_LEAVES = 3 + 9 + sum(n for _, n in _SHARED) + 1  # + the tick scalar
+_GROUPS = {
+    "paxos": (PaxosState, ((AcceptorState, 3), (ProposerState, 9)) + _SHARED, ("tick",)),
+    "fastpaxos": (
+        FastPaxosState, ((AcceptorState, 3), (FastProposerState, 9)) + _SHARED, ("tick",)
+    ),
+    "raftcore": (RaftState, ((VoterState, 3), (CandidateState, 9)) + _SHARED, ("tick",)),
+    "multipaxos": (
+        MultiPaxosState,
+        (
+            (MPAcceptorState, 2), (MPProposerState, 8), (MPLearnerState, 7),
+            (MsgBuf, 4), (PromiseBuf, 3), (AcceptedBuf, 4),
+        ),
+        ("tick", "base"),
+    ),
+}
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -45,31 +63,33 @@ def _tensor(arr, device) -> torch.Tensor:
 def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
     """``protocol``'s state from the reference's flattened leaves."""
     leaves = list(leaves)
-    if len(leaves) != N_STATE_LEAVES:
-        raise NotImplementedError(
-            f"state has {len(leaves)} leaves; the port holds the "
-            f"{N_STATE_LEAVES} of a single-decree state with every optional "
-            "plane off (snapshot shadows, delay stamps and observer planes: "
-            "ROADMAP queue A slice 5)"
-        )
     if protocol not in _GROUPS:
         raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
-    state_cls, groups = _GROUPS[protocol]
+    state_cls, groups, tail = _GROUPS[protocol]
+    want = sum(n for _, n in groups) + len(tail)
+    if len(leaves) != want:
+        raise NotImplementedError(
+            f"state has {len(leaves)} leaves; the port holds the {want} of a "
+            f"{protocol} state with every optional plane off (snapshot "
+            "shadows, delay stamps and observer planes: ROADMAP queue A slice 5)"
+        )
     tensors = [_tensor(leaf, device) for leaf in leaves]
     parts, k = [], 0
-    for cls, n in groups + _SHARED:
+    for cls, n in groups:
         parts.append(cls(*tensors[k : k + n]))
         k += n
-    state = state_cls(*parts, tick=tensors[k])
+    state = state_cls(*parts, **dict(zip(tail, tensors[k:])))
     state.check_layout()
     return state
 
 
 def state_to_numpy(state: LaneState) -> list:
-    """The state's leaves as numpy arrays, in the reference's order."""
+    """The state's leaves as numpy arrays, in the reference's order (for
+    every protocol, Multi-Paxos included)."""
     return [leaf.detach().cpu().numpy() for leaf in state.leaves()]
 
 
 def plan_from_numpy(leaves, device="cpu") -> FaultPlan:
-    """A :class:`FaultPlan` from the reference's flattened plan leaves."""
+    """A :class:`FaultPlan` from the reference's flattened plan leaves
+    (crash windows, equivocators, proposer crash windows, partitions)."""
     return FaultPlan.from_numpy(leaves, device)

@@ -1,8 +1,8 @@
 // Shared pieces of the fused engine's kernels (fused_<protocol>_tick.cu):
-// the counter PRNG, the Bernoulli knobs, the state-leaf and parameter
-// layouts of the C entry points, and the per-lane building blocks that the
-// single-decree ticks have in common (reply delivery, request selection,
-// the learner table).
+// the counter PRNG, the Bernoulli knobs, the state-leaf, plan and parameter
+// layouts of the C entry points, request selection, and the per-lane
+// building blocks that the single-decree ticks have in common (reply
+// delivery, the learner table).
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
 // state in registers for a whole chunk: every helper here is force-inlined
@@ -11,7 +11,9 @@
 // A measuring build (nvcc -DFUSED_COUNT_DRAWS) also counts every counter-
 // PRNG draw a kernel makes, summed over lanes and ticks: the masks are drawn
 // lazily, so that count is the PRNG work a run's data needs, which an
-// operation census of the tick counts in place of drawing every mask.  The
+// operation census of the tick counts in place of drawing every mask.  A
+// kernel that keeps slot-indexed arrays in global memory (Multi-Paxos) also
+// counts the slot-array elements it touches, for the same reason.  The
 // timed build compiles none of it.
 //
 // Semantics follow the plain PyTorch version bit for bit:
@@ -29,8 +31,9 @@
 
 namespace {
 
-constexpr int kLeaves = 28;  // state leaves of every ported protocol, tick excluded
-constexpr int kParams = 20;
+constexpr int kLeaves = 28;     // state leaves of a single-decree protocol, tick excluded
+constexpr int kMaxLeaves = 32;  // room for every protocol's leaves
+constexpr int kParams = 22;
 constexpr int kThreads = 128;
 constexpr int32_t kInt32Min = -2147483647 - 1;
 constexpr int32_t kBallotLimit = (1 << 15) - 1;  // report-time ballot limit
@@ -51,13 +54,15 @@ enum SharedLeaf {
 };
 
 struct Leaves {
-  void* p[kLeaves];
+  void* p[kMaxLeaves];
 };
 
 struct Plan {
-  const int32_t* crash_start;  // (A, I)
-  const int32_t* crash_end;    // (A, I)
-  const uint8_t* equivocate;   // (A, I) bool
+  const int32_t* crash_start;   // (A, I)
+  const int32_t* crash_end;     // (A, I)
+  const uint8_t* equivocate;    // (A, I) bool
+  const int32_t* pcrash_start;  // (P, I) proposer crash window (Multi-Paxos)
+  const int32_t* pcrash_end;    // (P, I)
 };
 
 // A Bernoulli knob: mode 0 = off (mask absent), 1 = draw against thr,
@@ -80,6 +85,8 @@ struct Params {
   int32_t q1, q2;
   Knob idle, hold, dup, drop;
   int32_t q_fast;
+  int32_t lease_len;  // Multi-Paxos progress lease
+  int32_t log_total;  // Multi-Paxos global log length (0: the window is the log)
 };
 
 __host__ __device__ constexpr int bit_length(int x) {
@@ -110,17 +117,25 @@ __device__ __forceinline__ uint32_t counter_bits(uint32_t seed, uint32_t stream,
 }
 
 #ifdef FUSED_COUNT_DRAWS
-__device__ unsigned long long g_draws = 0;  // read and cleared by fused_draws()
+// Read and cleared by fused_draws(): counter_bits draws, slot-array touches.
+__device__ unsigned long long g_draws = 0, g_touches = 0;
 #endif
 
-// One lane's count of counter_bits draws (empty unless FUSED_COUNT_DRAWS).
+// One lane's count of counter_bits draws and of slot-array element touches
+// (an element read, written, or read and written back at one site of a
+// tick); empty unless FUSED_COUNT_DRAWS.
 struct DrawCount {
 #ifdef FUSED_COUNT_DRAWS
-  uint32_t n = 0;
+  uint32_t n = 0, touched = 0;
   __device__ __forceinline__ void add() { ++n; }
-  __device__ __forceinline__ void flush() const { atomicAdd(&g_draws, static_cast<unsigned long long>(n)); }
+  __device__ __forceinline__ void touch(uint32_t k) { touched += k; }
+  __device__ __forceinline__ void flush() const {
+    atomicAdd(&g_draws, static_cast<unsigned long long>(n));
+    atomicAdd(&g_touches, static_cast<unsigned long long>(touched));
+  }
 #else
   __device__ __forceinline__ void add() {}
+  __device__ __forceinline__ void touch(uint32_t) {}
   __device__ __forceinline__ void flush() const {}
 #endif
 };
@@ -166,6 +181,30 @@ struct TickStream {
     return k.mode == 0 || !fires_at(k, stream, prefix);
   }
 };
+
+// Request selection for acceptor a over a (2, P, A) request buffer whose
+// presence is the bitmask `present` (slot j = kp * A + a, kp = kind * P + p):
+// the present slot with the highest score (random bits, low bits replaced
+// by kp), or -1.  Draws one SEL element per present slot.
+template <int P, int A>
+__device__ __forceinline__ int select_request(const TickStream& ts, uint32_t present, int a) {
+  constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;
+  constexpr int32_t kScoreMask = ~((1 << kNbits) - 1);
+  int32_t fmax = kInt32Min;
+  int win = -1;
+#pragma unroll
+  for (int kp = 0; kp < 2 * P; ++kp) {
+    const int j = kp * A + a;
+    if ((present >> j) & 1u) {
+      const int32_t score = (static_cast<int32_t>(ts.bits(kSel, j)) & kScoreMask) | kp;
+      if (score > fmax) {
+        fmax = score;
+        win = kp;
+      }
+    }
+  }
+  return win;
+}
 
 // The two message buffers of a lane, slot j = (kind * P + p) * A + a, with
 // presence as bitmasks.
@@ -225,26 +264,10 @@ struct MsgBufs {
     return delivered;
   }
 
-  // Request selection for acceptor a: the present slot kp = kind * P + p
-  // with the highest score (random bits, low bits replaced by kp), or -1.
+  // Request selection for acceptor a (select_request).
   template <int P, int A>
   __device__ __forceinline__ int select(const TickStream& ts, int a) const {
-    constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;
-    constexpr int32_t kScoreMask = ~((1 << kNbits) - 1);
-    int32_t fmax = kInt32Min;
-    int win = -1;
-#pragma unroll
-    for (int kp = 0; kp < 2 * P; ++kp) {
-      const int j = kp * A + a;
-      if ((rq_present >> j) & 1u) {
-        const int32_t score = (static_cast<int32_t>(ts.bits(kSel, j)) & kScoreMask) | kp;
-        if (score > fmax) {
-          fmax = score;
-          win = kp;
-        }
-      }
-    }
-    return win;
+    return select_request<P, A>(ts, rq_present, a);
   }
 };
 
@@ -357,16 +380,18 @@ Knob knob(const long long* v) {
 }
 
 // Unpack a C entry point's arguments: `leaves` and `plan` are host arrays
-// of device pointers (kLeaves state leaves in flatten order; crash_start,
-// crash_end, equivocate); `params` holds kParams integers in the order of
-// the Python wrapper (_kernel_params).  Returns cudaSuccess or
-// cudaErrorInvalidValue.
-cudaError_t read_args(void** leaves, int n_leaves, void** plan, const long long* params,
-                      int n_params, Leaves* L, Plan* pl, Params* prm) {
-  if (n_leaves != kLeaves || n_params != kParams) return cudaErrorInvalidValue;
-  for (int j = 0; j < kLeaves; ++j) L->p[j] = leaves[j];
+// of device pointers (the protocol's `want_leaves` per-lane state leaves in
+// flatten order; crash_start, crash_end, equivocate, pcrash_start,
+// pcrash_end); `params` holds kParams integers in the order of the Python
+// wrapper (_kernel_params).  Returns cudaSuccess or cudaErrorInvalidValue.
+cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
+                      const long long* params, int n_params, Leaves* L, Plan* pl, Params* prm) {
+  if (n_leaves != want_leaves || want_leaves > kMaxLeaves || n_params != kParams)
+    return cudaErrorInvalidValue;
+  for (int j = 0; j < n_leaves; ++j) L->p[j] = leaves[j];
   *pl = Plan{static_cast<const int32_t*>(plan[0]), static_cast<const int32_t*>(plan[1]),
-             static_cast<const uint8_t*>(plan[2])};
+             static_cast<const uint8_t*>(plan[2]), static_cast<const int32_t*>(plan[3]),
+             static_cast<const int32_t*>(plan[4])};
   prm->n_inst = params[0];
   prm->block = static_cast<int32_t>(params[1]);
   prm->n_ticks = static_cast<int32_t>(params[2]);
@@ -383,6 +408,8 @@ cudaError_t read_args(void** leaves, int n_leaves, void** plan, const long long*
   prm->dup = knob(params + 15);
   prm->drop = knob(params + 17);
   prm->q_fast = static_cast<int32_t>(params[19]);
+  prm->lease_len = static_cast<int32_t>(params[20]);
+  prm->log_total = static_cast<int32_t>(params[21]);
   if (prm->n_inst <= 0 || prm->block <= 0 || prm->n_inst % prm->block != 0 || prm->backoff_n < 1)
     return cudaErrorInvalidValue;
   return cudaSuccess;
@@ -396,12 +423,15 @@ inline unsigned grid_for(int64_t n_inst) {
 }  // namespace
 
 #ifdef FUSED_COUNT_DRAWS
-// Copies the draw count of the launches since the last call to *out and
-// clears it; call after the launches are complete.  Returns a cudaError_t.
+// Copies the counts of the launches since the last call to out[0] (draws)
+// and out[1] (slot-array touches) and clears them; call after the launches
+// are complete.  Returns a cudaError_t.
 extern "C" int fused_draws(unsigned long long* out) {
-  const cudaError_t rc = cudaMemcpyFromSymbol(out, g_draws, sizeof(*out));
-  if (rc != cudaSuccess) return rc;
   const unsigned long long zero = 0;
-  return cudaMemcpyToSymbol(g_draws, &zero, sizeof(zero));
+  cudaError_t rc = cudaMemcpyFromSymbol(out, g_draws, sizeof(*out));
+  if (rc == cudaSuccess) rc = cudaMemcpyFromSymbol(out + 1, g_touches, sizeof(*out));
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_draws, &zero, sizeof(zero));
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_touches, &zero, sizeof(zero));
+  return rc;
 }
 #endif

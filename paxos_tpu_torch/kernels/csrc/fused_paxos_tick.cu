@@ -294,16 +294,18 @@ cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick, const
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh); `tick` is the device int32 tick scalar, read by the
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots); `tick` is the device int32 tick scalar, read by the
 // kernel and advanced by the caller.  Returns the launch's
 // cudaGetLastError().
-extern "C" int fused_paxos_launch(int n_prop, int n_acc, int k_slots, void** leaves, int n_leaves,
+extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                   void** plan, void* tick, const long long* params, int n_params,
                                   void* stream) {
+  if (n_dims != 3) return cudaErrorInvalidValue;
+  const int n_prop = dims[0], n_acc = dims[1], k_slots = dims[2];
   Leaves L;
   Plan pl;
   Params prm;
-  const cudaError_t bad = read_args(leaves, n_leaves, plan, params, n_params, &L, &pl, &prm);
+  const cudaError_t bad = read_args(leaves, n_leaves, kLeaves, plan, params, n_params, &L, &pl, &prm);
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);

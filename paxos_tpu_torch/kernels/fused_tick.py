@@ -10,12 +10,14 @@ tensor it runs :func:`reference_chunk`, the plain PyTorch version.
 ``_make_chunk`` is in the reference: it clamps ballots at the chunk
 boundaries and switches to a per-tick clamp for very long chunks.
 :func:`draw_census` runs a kernel's measuring build, which also counts
-the counter-PRNG draws it makes.
+the counter-PRNG draws it makes and the slot-array elements it touches.
 
 Streams: per-tick masks are keyed by (seed, tick, stream block id), with
-``block`` lanes per stream block (default 1024, the reference's default),
-so a campaign replays bit for bit across the two packages.  All three
-protocols draw from the single-decree stream ids.
+``block`` lanes per stream block, so a campaign replays bit for bit across
+the two packages.  The default block is the reference's per protocol:
+1024 for the single-decree protocols, which draw from the single-decree
+stream ids with ``counter_masks``, and 256 for Multi-Paxos, which draws
+from its own ids with ``mp_counter_masks``.
 """
 
 from __future__ import annotations
@@ -27,11 +29,13 @@ from typing import Callable
 import torch
 
 from paxos_tpu_torch.core.fp_state import FastPaxosState
+from paxos_tpu_torch.core.mp_state import MultiPaxosState
 from paxos_tpu_torch.core.raft_state import RaftState
 from paxos_tpu_torch.core.state import LaneState, PaxosState
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
+from paxos_tpu_torch.protocols.multipaxos import apply_tick_mp, mp_counter_masks
 from paxos_tpu_torch.protocols.paxos import apply_tick, check_supported, counter_masks
 from paxos_tpu_torch.protocols.raftcore import apply_tick_raft
 
@@ -41,18 +45,16 @@ DEFAULT_BLOCK = 1024
 # a ballot by less than 2 * MAX_PROPOSERS.
 BALLOT_GROWTH_PER_TICK = 16
 
-# Width of the reference's packed proposer.bal field (core/state.py
-# PAXOS_LAYOUT): the boundary-only clamp is exact only while a chunk cannot
-# grow a ballot past it, so the switch point stays the reference's.
-PROPOSER_BAL_BITS = 17
-
-# (n_prop, n_acc, k_slots) shapes each CUDA kernel is instantiated for:
-# config2/config4/config5 and config1; (2, 3, 8) is the three-acceptor
-# shape the reference's own kernel tests run (tests/test_fused.py).
+# Shapes each CUDA kernel is instantiated for: (n_prop, n_acc, k_slots) of
+# config2/config4/config5 and config1, and (2, 3, 8), the three-acceptor
+# shape the reference's own kernel tests run (tests/test_fused.py);
+# Multi-Paxos (n_prop, n_acc, log_len, k_slots) of config3, config3-long,
+# the reference tests' 4-slot window, and three acceptors.
 KERNEL_SHAPES = {
     "paxos": ((2, 5, 8), (1, 3, 8)),
     "fastpaxos": ((2, 5, 8), (2, 3, 8)),
     "raftcore": ((2, 5, 8), (2, 3, 8)),
+    "multipaxos": ((2, 5, 8, 4), (2, 5, 16, 4), (2, 5, 4, 4), (2, 3, 8, 4)),
 }
 
 # The report-time ``max_ballot >= limit`` threshold of single-decree Paxos.
@@ -71,20 +73,11 @@ def fit_block(block: int, n: int) -> int:
     return 1 << (b.bit_length() - 1)
 
 
-def ballot_hoist_safe_ticks() -> int:
-    """Largest chunk for which the boundary-only ballot clamp matches the
-    reference's packed engine: (2^17 - 1 - (2^15 - 1)) // 16 = 6144."""
-    headroom = (1 << PROPOSER_BAL_BITS) - 1 - REPORT_BALLOT_LIMIT
-    return headroom // BALLOT_GROWTH_PER_TICK
-
-
-def saturate_ballots(state: LaneState) -> LaneState:
-    """Pin ``proposer.bal`` at the report-time ballot limit (sticky, since
-    ballots are monotone), so an overflowed campaign reads exactly the
-    limit and the report's guard fires."""
-    prop = dataclasses.replace(
-        state.proposer, bal=torch.clamp(state.proposer.bal, max=REPORT_BALLOT_LIMIT)
-    )
+def saturate_ballots(state: LaneState, limit: int = REPORT_BALLOT_LIMIT) -> LaneState:
+    """Pin ``proposer.bal`` at the report-time ballot ``limit`` (sticky,
+    since ballots are monotone), so an overflowed campaign reads exactly
+    the limit and the report's guard fires."""
+    prop = dataclasses.replace(state.proposer, bal=torch.clamp(state.proposer.bal, max=limit))
     return dataclasses.replace(state, proposer=prop)
 
 
@@ -98,23 +91,26 @@ def reference_chunk(
     block: "int | None" = None,
     clamp_per_tick: bool = False,
     apply_fn: Callable = apply_tick,
+    mask_fn: Callable = counter_masks,
+    ballot_limit: int = REPORT_BALLOT_LIMIT,
 ) -> LaneState:
     """The plain version: ``n_ticks`` ticks of the fused stream, unclamped
     by default like the reference's ``reference_chunk``.
 
-    ``apply_fn`` is the protocol's tick (default: single-decree Paxos);
-    every protocol draws its masks with ``counter_masks``.  ``block`` lanes
-    form one stream block (default: all lanes, one block with id
-    ``blk_id``); lane ``i`` draws under block id ``blk_id + i // block``,
-    all blocks in one vectorised pass."""
+    ``apply_fn`` and ``mask_fn`` are the protocol's tick and mask sampler
+    (default: single-decree Paxos); ``clamp_per_tick`` pins ballots at
+    ``ballot_limit`` after every tick.  ``block`` lanes form one stream
+    block (default: all lanes, one block with id ``blk_id``); lane ``i``
+    draws under block id ``blk_id + i // block``, all blocks in one
+    vectorised pass."""
     n_inst = state.n_inst
     block = n_inst if block is None else block
     for _ in range(n_ticks):
         seeds = cp.lane_seeds(seed, state.tick, blk_id, n_inst, block)
-        masks = counter_masks(cfg, seeds, state, block=block)
+        masks = mask_fn(cfg, seeds, state, block=block)
         state = apply_fn(state, masks, plan, cfg)
         if clamp_per_tick:
-            state = saturate_ballots(state)
+            state = saturate_ballots(state, ballot_limit)
     return state
 
 
@@ -123,27 +119,64 @@ def reference_chunk(
 
 @dataclasses.dataclass(frozen=True)
 class Binding:
-    """One protocol bound to the engine: its tick, state and kernel."""
+    """One protocol bound to the engine: its tick, mask sampler, state and
+    kernel, its default stream block (stream-relevant: the reference's
+    ``fused_fns`` default), its report-time ballot limit, the width of
+    the reference's packed ``proposer.bal`` field, which sets how long a
+    chunk may run with the ballot clamp at its boundaries only, and the
+    state attributes its kernel is instantiated over (``KERNEL_SHAPES``)."""
 
     apply_fn: Callable
+    mask_fn: Callable
     state_cls: type
     kernel: str  # csrc/<kernel>.cu
     entry: str  # its C entry point
+    block: int = DEFAULT_BLOCK
+    ballot_limit: int = REPORT_BALLOT_LIMIT
+    proposer_bal_bits: int = 17  # core/state.py PAXOS_LAYOUT and kin
+    shape_fields: tuple = ("n_prop", "n_acc", "k_slots")
+
+    def kernel_shape(self, state: LaneState) -> tuple:
+        return tuple(getattr(state, f) for f in self.shape_fields)
 
 
 BINDINGS = {
-    "paxos": Binding(apply_tick, PaxosState, "fused_paxos_tick", "fused_paxos_launch"),
+    "paxos": Binding(apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch"),
     "fastpaxos": Binding(
-        apply_tick_fast, FastPaxosState, "fused_fastpaxos_tick", "fused_fastpaxos_launch"
+        apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
+        "fused_fastpaxos_launch",
     ),
     "raftcore": Binding(
-        apply_tick_raft, RaftState, "fused_raftcore_tick", "fused_raftcore_launch"
+        apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch"
+    ),
+    # core/mp_state.py MP_LAYOUT: an 11-bit report limit in a 12-bit field.
+    "multipaxos": Binding(
+        apply_tick_mp, mp_counter_masks, MultiPaxosState, "fused_multipaxos_tick",
+        "fused_multipaxos_launch", block=256, ballot_limit=(1 << 11) - 1,
+        proposer_bal_bits=12, shape_fields=("n_prop", "n_acc", "log_len", "k_slots"),
     ),
 }
 _entries: dict = {}
 
+
+def report_ballot_limit(protocol: str) -> int:
+    """The report-time ``max_ballot >= limit`` threshold of ``protocol``."""
+    return BINDINGS[protocol].ballot_limit
+
+
+def ballot_hoist_safe_ticks(protocol: str = "paxos") -> int:
+    """Largest chunk for which the boundary-only ballot clamp matches the
+    reference's packed engine: the packed field's headroom over the report
+    limit over the growth per tick, (2^17 - 1 - (2^15 - 1)) // 16 = 6144
+    for the single-decree protocols, (2^12 - 1 - (2^11 - 1)) // 16 = 128
+    for Multi-Paxos."""
+    b = BINDINGS[protocol]
+    headroom = (1 << b.proposer_bal_bits) - 1 - b.ballot_limit
+    return headroom // BALLOT_GROWTH_PER_TICK
+
 # The measuring build of every fused kernel (csrc/fused_common.cuh): it
-# also counts the counter-PRNG draws the kernel makes.
+# also counts the counter-PRNG draws the kernel makes and the slot-array
+# elements it touches.
 COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
 
 
@@ -155,7 +188,7 @@ def _entry(protocol: str, defines: tuple = ()):
         binding = BINDINGS[protocol]
         fn = getattr(build.load(binding.kernel, defines), binding.entry)
         fn.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
@@ -191,24 +224,34 @@ def _kernel_params(
         *_knob(cfg.p_idle), *_knob(cfg.p_hold), *_knob(cfg.p_dup),
         *_knob(cfg.p_drop),
         cfg.q_fast or fast_quorum(n_acc),
+        cfg.lease_len, cfg.log_total,
     ]
 
 
+# The plan leaves every kernel receives (the single-decree kernels ignore
+# the proposer crash windows).
+_PLAN_LEAVES = ("crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end")
+
+
 def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan) -> None:
-    shape = (state.n_prop, state.n_acc, state.k_slots)
+    shape = BINDINGS[protocol].kernel_shape(state)
     if shape not in KERNEL_SHAPES[protocol]:
         raise ValueError(
-            f"the {protocol} CUDA kernel is instantiated for (n_prop, n_acc, "
-            f"k_slots) in {KERNEL_SHAPES[protocol]}, not {shape}"
+            f"the {protocol} CUDA kernel is instantiated for the shapes "
+            f"{KERNEL_SHAPES[protocol]}, not {shape}"
         )
     state.check_layout()
-    acc = (state.n_acc, state.n_inst)
-    for leaf, dtype in (
-        (plan.crash_start, torch.int32), (plan.crash_end, torch.int32),
-        (plan.equivocate, torch.bool),
+    acc, prop = (state.n_acc, state.n_inst), (state.n_prop, state.n_inst)
+    for name, shape, dtype in (
+        ("crash_start", acc, torch.int32), ("crash_end", acc, torch.int32),
+        ("equivocate", acc, torch.bool), ("pcrash_start", prop, torch.int32),
+        ("pcrash_end", prop, torch.int32),
     ):
-        if leaf.shape != acc or leaf.dtype != dtype:
-            raise ValueError(f"plan leaf {tuple(leaf.shape)} {leaf.dtype}, expected {acc} {dtype}")
+        leaf = getattr(plan, name)
+        if leaf.shape != shape or leaf.dtype != dtype:
+            raise ValueError(
+                f"plan leaf {name} {tuple(leaf.shape)} {leaf.dtype}, expected {shape} {dtype}"
+            )
     for leaf in state.leaves() + plan.leaves():
         if leaf.device != state.device or not leaf.is_contiguous():
             raise ValueError("state and plan must be contiguous on one CUDA device")
@@ -231,6 +274,7 @@ def _fused_chunk(
         return reference_chunk(
             state, seed, plan, cfg, n_ticks, blk_id=blk0, block=block,
             clamp_per_tick=clamp_per_tick, apply_fn=binding.apply_fn,
+            mask_fn=binding.mask_fn, ballot_limit=binding.ballot_limit,
         )
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
@@ -252,11 +296,10 @@ def _launch(
     checked inputs; raises if the launch fails."""
     binding = BINDINGS[protocol]
     fn = _entry(protocol, defines)
-    leaves = state.leaves()[:-1]
+    leaves = state.lane_leaves()
     ptrs = (ctypes.c_void_p * len(leaves))(*(t.data_ptr() for t in leaves))
-    plan_ptrs = (ctypes.c_void_p * 3)(
-        plan.crash_start.data_ptr(), plan.crash_end.data_ptr(),
-        plan.equivocate.data_ptr(),
+    plan_ptrs = (ctypes.c_void_p * len(_PLAN_LEAVES))(
+        *(getattr(plan, name).data_ptr() for name in _PLAN_LEAVES)
     )
     params = _kernel_params(
         cfg, state.n_inst, state.n_acc, block, n_ticks, seed, blk0,
@@ -264,10 +307,12 @@ def _launch(
     )
     arr = (ctypes.c_longlong * len(params))(*params)
     stream = torch.cuda.current_stream(state.device).cuda_stream
+    shape = binding.kernel_shape(state)
+    dims = (ctypes.c_int * len(shape))(*shape)
     with torch.cuda.device(state.device):
         rc = fn(
-            state.n_prop, state.n_acc, state.k_slots, ptrs, len(leaves),
-            plan_ptrs, state.tick.data_ptr(), arr, len(params), stream,
+            dims, len(shape), ptrs, len(leaves), plan_ptrs,
+            state.tick.data_ptr(), arr, len(params), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{binding.kernel} launch failed: cudaError {rc}")
@@ -275,15 +320,19 @@ def _launch(
 
 def draw_census(
     protocol: str, state: LaneState, seed: int, plan: FaultPlan,
-    cfg: FaultConfig, n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
+    cfg: FaultConfig, n_ticks: int, block: "int | None" = None, blk0: int = 0,
     clamp_per_tick: bool = False,
-) -> int:
-    """The counter-PRNG draws ``protocol``'s kernel makes over ``n_ticks``
-    ticks from ``state``, summed over lanes: one launch of its measuring
-    build, which advances ``state`` in place exactly as the wrapper would.
-    The kernels draw a mask only where it can change the outcome, so this
-    is the PRNG work the data needs.  CUDA tensors only; the wrapper's
-    ``.launches`` is left as it is."""
+) -> tuple:
+    """(draws, slot touches): the counter-PRNG draws ``protocol``'s kernel
+    makes over ``n_ticks`` ticks from ``state``, and the slot-array elements
+    it reads or writes (Multi-Paxos; 0 for the single-decree kernels, whose
+    whole state sits in registers), summed over lanes and ticks: one launch
+    of its measuring build, which advances ``state`` in place exactly as
+    the wrapper would.  The kernels draw a mask, and touch a slot, only
+    where the outcome depends on it, so these are the PRNG and slot work
+    the data needs.  CUDA tensors only; the wrapper's ``.launches`` is left
+    as it is.  ``block`` defaults to the protocol's."""
+    block = BINDINGS[protocol].block if block is None else block
     if state.device.type != "cuda":
         raise ValueError("draw_census counts a CUDA kernel's draws: it needs a CUDA state")
     if not isinstance(state, BINDINGS[protocol].state_cls):
@@ -298,12 +347,12 @@ def draw_census(
     read = build.load(BINDINGS[protocol].kernel, COUNT_DRAWS).fused_draws
     read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     read.restype = ctypes.c_int
-    out = ctypes.c_ulonglong()
+    out = (ctypes.c_ulonglong * 2)()
     with torch.cuda.device(state.device):
-        rc = read(ctypes.byref(out))
+        rc = read(out)
     if rc != 0:
         raise RuntimeError(f"reading the draw count failed: cudaError {rc}")
-    return out.value
+    return out[0], out[1]
 
 
 def fused_paxos_chunk(
@@ -357,37 +406,57 @@ def fused_raftcore_chunk(
 
 fused_raftcore_chunk.launches = 0
 
+
+def fused_multipaxos_chunk(
+    state: MultiPaxosState, seed: int, plan: FaultPlan, cfg: FaultConfig,
+    n_ticks: int, block: int = BINDINGS["multipaxos"].block, blk0: int = 0,
+    clamp_per_tick: bool = False,
+) -> MultiPaxosState:
+    """:func:`fused_paxos_chunk` for Multi-Paxos
+    (``csrc/fused_multipaxos_tick.cu``); the default stream block is the
+    reference's 256, and the per-tick clamp pins ballots at 2047."""
+    return _fused_chunk(
+        "multipaxos", fused_multipaxos_chunk, state, seed, plan, cfg, n_ticks,
+        block, blk0, clamp_per_tick,
+    )
+
+
+fused_multipaxos_chunk.launches = 0
+
 FUSED_WRAPPERS = {
     "paxos": fused_paxos_chunk,
     "fastpaxos": fused_fastpaxos_chunk,
     "raftcore": fused_raftcore_chunk,
+    "multipaxos": fused_multipaxos_chunk,
 }
 
 
 def _make_chunk(protocol: str) -> Callable:
     wrapper = FUSED_WRAPPERS[protocol]
+    binding = BINDINGS[protocol]
 
     def chunk(
         state: LaneState, seed: int, plan: FaultPlan, cfg: FaultConfig,
         n_ticks: int,
     ) -> LaneState:
-        block = fit_block(DEFAULT_BLOCK, state.n_inst)
-        hoisted = n_ticks <= ballot_hoist_safe_ticks()
-        state = saturate_ballots(state)
+        block = fit_block(binding.block, state.n_inst)
+        hoisted = n_ticks <= ballot_hoist_safe_ticks(protocol)
+        state = saturate_ballots(state, binding.ballot_limit)
         state = wrapper(
             state, seed, plan, cfg, n_ticks, block=block,
             clamp_per_tick=not hoisted,
         )
-        return saturate_ballots(state) if hoisted else state
+        return saturate_ballots(state, binding.ballot_limit) if hoisted else state
 
     chunk.__name__ = f"{protocol}_chunk"
     chunk.__doc__ = (
         f"{protocol} on the fused engine: the chunk function both devices "
-        "share.  The stream block is :data:`DEFAULT_BLOCK`, degraded by "
+        f"share.  The stream block is {binding.block}, degraded by "
         ":func:`fit_block` where it does not divide ``n_inst``.  Ballots "
-        "are clamped at chunk entry and exit; a chunk longer than "
-        ":func:`ballot_hoist_safe_ticks` clamps after every tick instead, "
-        "as the reference's packed engine does."
+        f"are clamped at {binding.ballot_limit} at chunk entry and exit; a "
+        f"chunk longer than {ballot_hoist_safe_ticks(protocol)} ticks "
+        "clamps after every tick instead, as the reference's packed engine "
+        "does."
     )
     return chunk
 

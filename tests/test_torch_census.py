@@ -1,13 +1,25 @@
 """The operation census behind ``chip_smoke.py``'s kernel bounds.
 
 A fused kernel's operation bound counts the int32 work of one tick with
-``scripts/roofline.py``'s census (recorded in ``ROOFLINE.json``), with its
-mask share counted for the draws the kernel makes instead of for every
-mask element.  ``chip_smoke.MASK_CENSUS`` pins that share per protocol;
-this test recomputes it with the JAX package's ``counter_masks`` and the
-census's own counting rules.
+``scripts/roofline.py``'s census (recorded in ``ROOFLINE.json``), one case
+per main path.  The census counts the vectorised tick, which draws every
+mask element and (Multi-Paxos) rewrites every slot-array element every
+tick; the kernels draw a mask, and touch a slot, only where the outcome
+depends on it, so the bound counts those shares for what a kernel's
+measuring build counts, at the census's cost per element.
+``chip_smoke.MASK_CENSUS`` and ``chip_smoke.SLOT_CENSUS`` pin the shares
+per case; these tests recompute them with the JAX package: the mask share
+with ``counter_masks`` (Multi-Paxos: ``mp_counter_masks``) and the
+census's own counting rules, the slot share from the census of the same
+config at twice the window, since the census is linear in the window
+length.  All at the fused block the census is taken at, the protocol's
+default.  The recorded ``alu_per_lane_tick`` is already net of the packed
+codec's share (scripts/roofline.py records ``(alu - codec_alu) / block``),
+so with every mask drawn and every slot touched the count is the recorded
+ALU + reduction census.
 """
 
+import dataclasses
 import importlib.util
 import json
 from pathlib import Path
@@ -23,7 +35,13 @@ from paxos_tpu.harness.run import init_state as j_init_state
 from paxos_tpu.kernels.fused_tick import fused_fns
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCK = 1024  # the fused block the census is taken at
+# Census case -> the main path whose kernel's bound counts it.
+CASES = {mp.census: path for path, mp in chip_smoke.MAIN_PATHS.items()}
+
+
+def _block(case):
+    """The fused block the census is taken at: the protocol's default."""
+    return fused_fns(chip_smoke.MAIN_PATHS[CASES[case]].protocol)[2]
 
 
 def _roofline():
@@ -33,16 +51,17 @@ def _roofline():
     return module
 
 
-def _census_config(protocol):
-    if protocol == "paxos":
-        return JC.config2_dueling_drop(BLOCK)
-    return {c.protocol: c for c in JC.config5_sweep(BLOCK)}[protocol]
+def _census_config(case):
+    """The JAX package's config of ``case``'s main path, one block wide."""
+    mp = chip_smoke.MAIN_PATHS[CASES[case]]
+    cfg = getattr(JC, mp.config)(_block(case))
+    return cfg if mp.sweep_index is None else cfg[mp.sweep_index]
 
 
-@pytest.mark.parametrize("protocol", sorted(chip_smoke.MASK_CENSUS))
-def test_mask_census_matches_jax_counter_masks(protocol):
-    cfg = _census_config(protocol)
-    _, mask_fn, _ = fused_fns(protocol)
+@pytest.mark.parametrize("case", sorted(chip_smoke.MASK_CENSUS))
+def test_mask_census_matches_jax_counter_masks(case):
+    cfg = _census_config(case)
+    _, mask_fn, _ = fused_fns(cfg.protocol)
     state = j_init_state(cfg)
 
     def masks(st):
@@ -52,22 +71,77 @@ def test_mask_census_matches_jax_counter_masks(protocol):
         jax.make_jaxpr(masks)(state).jaxpr, {"alu": 0, "reduce": 0, "layout": 0}
     )
     elems = sum(int(np.prod(m.shape)) for m in jax.tree.leaves(jax.eval_shape(masks, state)))
-    ops = (counts["alu"] + counts["reduce"]) / BLOCK
-    assert chip_smoke.MASK_CENSUS[protocol] == (ops, elems / BLOCK)
+    block = _block(case)
+    ops = (counts["alu"] + counts["reduce"]) / block
+    assert chip_smoke.MASK_CENSUS[case] == (ops, elems / block)
+
+
+def _recorded():
+    return {c["case"]: c for c in json.loads((REPO / "ROOFLINE.json").read_text())["cases"]}
 
 
 def test_census_cases_are_recorded():
-    cases = {c["case"]: c for c in json.loads((REPO / "ROOFLINE.json").read_text())["cases"]}
-    for protocol, case in chip_smoke.CENSUS_CASES.items():
-        assert cases[case]["block"] == BLOCK
-        mask_ops, _ = chip_smoke.MASK_CENSUS[protocol]
-        assert 0 < mask_ops < chip_smoke.tick_ops_per_lane(protocol)
+    cases = _recorded()
+    assert sorted(CASES) == sorted(chip_smoke.MASK_CENSUS)
+    assert sorted(chip_smoke.SLOT_CENSUS) == sorted(
+        c for c, path in CASES.items() if chip_smoke.MAIN_PATHS[path].protocol == "multipaxos"
+    )
+    for case in CASES:
+        assert cases[case]["block"] == _block(case)
+        mask_ops, _ = chip_smoke.MASK_CENSUS[case]
+        slot_ops, _ = chip_smoke.SLOT_CENSUS.get(case, (0.0, 0.0))
+        assert 0 < mask_ops + slot_ops < chip_smoke.tick_ops_per_lane(case)
 
 
-@pytest.mark.parametrize("protocol", sorted(chip_smoke.MASK_CENSUS))
-def test_lazy_census_counts_the_draws(protocol):
-    """Every element drawn gives the census; no draw leaves its body."""
-    ops = chip_smoke.tick_ops_per_lane(protocol)
-    mask_ops, mask_elems = chip_smoke.MASK_CENSUS[protocol]
-    assert chip_smoke.tick_ops_per_lane(protocol, mask_elems) == pytest.approx(ops, rel=1e-12)
-    assert chip_smoke.tick_ops_per_lane(protocol, 0.0) == pytest.approx(ops - mask_ops, rel=1e-12)
+def _per_lane_tick(case, log_len):
+    """alu + reduce per lane-tick of ``case``'s config at window ``log_len``."""
+    cfg = dataclasses.replace(_census_config(case), log_len=log_len)
+    c = _roofline().tick_census(cfg, _block(case))
+    return c["alu_per_lane_tick"] + c["reduce_per_lane_tick"]
+
+
+def _slot_elems_per_lane(case, log_len):
+    cfg = dataclasses.replace(_census_config(case), log_len=log_len)
+    return sum(int(np.prod(x.shape)) for x in jax.tree.leaves(j_init_state(cfg))) / _block(case)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.SLOT_CENSUS))
+def test_slot_census_matches_jax_window_scaling(case):
+    """The slot share is what doubling the window adds: the census is linear
+    in the window length (checked at half the window too)."""
+    n_slots = _census_config(case).log_len
+    at = {ell: _per_lane_tick(case, ell) for ell in (n_slots // 2, n_slots, 2 * n_slots)}
+    c = _recorded()[case]
+    assert at[n_slots] == c["alu_per_lane_tick"] + c["reduce_per_lane_tick"]
+    slot_ops = at[2 * n_slots] - at[n_slots]
+    assert at[n_slots // 2] == at[n_slots] - slot_ops / 2
+    elems = _slot_elems_per_lane(case, 2 * n_slots) - _slot_elems_per_lane(case, n_slots)
+    assert chip_smoke.SLOT_CENSUS[case] == (slot_ops, elems)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.MASK_CENSUS))
+def test_every_mask_drawn_counts_alu_plus_reduce(case):
+    """The codec share is not subtracted a second time: with every mask
+    drawn and every slot touched the count is the recorded alu + reduce."""
+    c = _recorded()[case]
+    want = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"]
+    _, mask_elems = chip_smoke.MASK_CENSUS[case]
+    _, slot_elems = chip_smoke.SLOT_CENSUS.get(case, (0.0, 0.0))
+    assert chip_smoke.tick_ops_per_lane(case) == want
+    got = chip_smoke.tick_ops_per_lane(case, mask_elems, slot_elems)
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.MASK_CENSUS))
+def test_lazy_census_counts_the_draws(case):
+    """Every element drawn (touched) gives the census; no draw (touch)
+    leaves the rest of it."""
+    ops = chip_smoke.tick_ops_per_lane(case)
+    mask_ops, mask_elems = chip_smoke.MASK_CENSUS[case]
+    slot_ops, slot_elems = chip_smoke.SLOT_CENSUS.get(case, (0.0, 0.0))
+    assert chip_smoke.tick_ops_per_lane(case, mask_elems) == pytest.approx(ops, rel=1e-12)
+    assert chip_smoke.tick_ops_per_lane(case, 0.0) == pytest.approx(ops - mask_ops, rel=1e-12)
+    assert chip_smoke.tick_ops_per_lane(case, 0.0, 0.0) == pytest.approx(
+        ops - mask_ops - slot_ops, rel=1e-12
+    )
+    assert chip_smoke.tick_ops_per_lane(case, None, slot_elems) == pytest.approx(ops, rel=1e-12)

@@ -1,4 +1,4 @@
-"""The fused kernels (K1 to K3) against their plain versions on the card.
+"""The fused kernels (K1 to K3, K5) against their plain versions on the card.
 
 These tests need a CUDA GPU and skip without one; this module imports
 nothing of JAX, so it runs on a machine that has only the port's stack:
@@ -9,7 +9,10 @@ nothing of JAX, so it runs on a machine that has only the port's stack:
 kernel must equal its plain version byte for byte (tolerance 0: the state
 is all int32/bool) from its main configuration, from its second
 instantiated shape, and from near-limit ballots under the per-tick clamp
-with a nonzero block offset, and must reproduce the golden digest.
+with a nonzero block offset, and must reproduce the golden digest.  K5
+(Multi-Paxos) is held so at every instantiation: config3 with crash
+windows, three acceptors with equivocators, long-log windows of 4 and 16
+slots compacted between chunks, and near-limit ballots clamped at 2047.
 """
 
 import dataclasses
@@ -18,10 +21,23 @@ import hashlib
 import pytest
 import torch
 
-from chip_smoke import GOLDENS, MASK_CENSUS, main_config, near_limit_state
+from chip_smoke import (
+    GOLDENS,
+    MAIN_PATHS,
+    MASK_CENSUS,
+    MP_GOLDEN,
+    SLOT_CENSUS,
+    config_plan,
+    main_config,
+    main_plan,
+    near_limit_state,
+    near_limit_state_mp,
+    plain_chunk,
+)
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
+from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
 
 LIMIT = (1 << 15) - 1
 PROTOCOLS = ["paxos", "fastpaxos", "raftcore"]
@@ -69,23 +85,82 @@ def test_kernel_matches_plain_on_cuda(protocol):
     assert h.hexdigest()[:16] == GOLDENS[protocol]
 
 
+def _digest(state):
+    h = hashlib.sha256()
+    for leaf in state.leaves():
+        h.update(leaf.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _assert_same(a, b):
+    for x, y in zip(a.leaves(), b.leaves(), strict=True):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("protocol", PROTOCOLS)
-def test_draw_census_build_follows_the_kernel(protocol):
-    """The draw-counting build advances the state as the kernel does, counts
-    no launch, and draws at most every mask element of every tick."""
+def test_multipaxos_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
-    cfg = main_config(protocol, 8192, 5)
-    plan, ticks = trun.init_plan(cfg, "cuda"), 48
-    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    wrapper = tfused.fused_multipaxos_chunk
+    cfg = main_config("config3", 8192, 7)
+    eq3 = dataclasses.replace(cfg, n_acc=3, fault=dataclasses.replace(cfg.fault, p_equiv=0.3))
+    cases = (
+        (cfg, 160, None, {}),
+        (eq3, 128, None, {}),
+        (cfg, 96, near_limit_state_mp(cfg, 254), dict(blk0=2, clamp_per_tick=True)),
+    )
+    for c, ticks, init, kw in cases:
+        init = trun.init_state(c, "cuda") if init is None else init
+        plan = config_plan(c, c.seed + ticks)
+        plain = plain_chunk(c, init, plan, ticks, 256, **kw)
+        before = wrapper.launches
+        kern = wrapper(init.clone(), c.seed, plan, c.fault, ticks, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _assert_same(kern, plain)
+        if kw:
+            assert int(kern.proposer.bal.max()) == 2047
+    for window, log_total in ((4, 32), (16, 256)):
+        c = TC.config3_long(4096, 2, log_total=log_total, window=window)
+        plan = config_plan(c, 2)
+        plain = trun.init_state(c, "cuda")
+        kern = plain.clone()
+        for _ in range(5):
+            plain = compact_mp_body(plain_chunk(c, plain, plan, 48, 256))[0]
+            kern = compact_mp_body(wrapper(kern, c.seed, plan, c.fault, 48))[0]
+        _assert_same(kern, plain)
+        assert int(kern.base.max()) > 0
+    c = main_config("config3", 256, 7)
+    st = wrapper(trun.init_state(c, "cuda"), 7, config_plan(c, 7), c.fault, 32)
+    assert _digest(st) == MP_GOLDEN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", PROTOCOLS + ["config3", "config3long"])
+def test_draw_census_build_follows_the_kernel(path):
+    """The draw-counting build advances the state as the kernel does, counts
+    no launch, draws at most every mask element of every tick, and touches
+    slot arrays (Multi-Paxos only) at most as often as the census rewrites
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    mp = MAIN_PATHS[path]
+    cfg = main_config(path, 8192, 5)
+    plan, ticks = main_plan(cfg), 48
+    plan = trun.init_plan(cfg, "cuda") if plan is None else plan
+    wrapper = tfused.FUSED_WRAPPERS[mp.protocol]
     kern = wrapper(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
     before = wrapper.launches
     counted = trun.init_state(cfg, "cuda")
-    draws = tfused.draw_census(protocol, counted, cfg.seed, plan, cfg.fault, ticks)
+    draws, touches = tfused.draw_census(mp.protocol, counted, cfg.seed, plan, cfg.fault, ticks)
     assert wrapper.launches == before
     for a, b in zip(counted.leaves(), kern.leaves(), strict=True):
         assert torch.equal(a, b)
-    assert 0 < draws <= MASK_CENSUS[protocol][1] * cfg.n_inst * ticks
-    again = tfused.draw_census(protocol, trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
-    assert again == draws  # the count is cleared after every read
+    lane_ticks = cfg.n_inst * ticks
+    assert 0 < draws <= MASK_CENSUS[mp.census][1] * lane_ticks
+    if mp.protocol == "multipaxos":
+        assert 0 < touches <= SLOT_CENSUS[mp.census][1] * lane_ticks
+    else:
+        assert touches == 0  # the single-decree state sits in registers
+    again = tfused.draw_census(mp.protocol, trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
+    assert again == (draws, touches)  # the counts are cleared after every read

@@ -142,6 +142,10 @@ from paxos_tpu_torch.harness.run import run
 for cfg in (C.config2_dueling_drop(128, 1),) + C.config5_sweep(128, 1)[1:]:
     report = run(cfg, total_ticks=16, device="cpu")
     assert report["ticks"] == 16 and report["violations"] == 0, report
+import chip_smoke  # its numpy plans need nothing of JAX either
+for cfg in (C.config3_multipaxos(128, 1), C.config3_long(128, 1)):
+    report = run(cfg, total_ticks=16, plan=chip_smoke.config_plan(cfg, 1, "cpu"), device="cpu")
+    assert report["ticks"] == 16 and report["violations"] == 0, report
 print("ok")
 """
 
