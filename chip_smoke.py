@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
 Phases (each raises on failure, so any failed phase exits non-zero):
 
-1. build: the five kernels of ``paxos_tpu_torch/kernels/csrc`` and the
+1. build: the six kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
    together; each kernel's ``ptxas -v`` registers and spills;
 2. ceiling: the int32 probe (K6) against its plain version byte for byte,
@@ -15,20 +15,26 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    beside the published peak that the bounds divide by;
 3. golden: config2, Fast Paxos and Raft-core (config5) at 256 lanes, seed
    7, 32 ticks through their kernels must give the recorded state digests,
-   and config3 (Multi-Paxos) the digest the JAX package gives on this
-   script's numpy plan (``MP_GOLDEN``);
+   and config3 (Multi-Paxos) and config_delay_chaos (SynchPaxos) the
+   digests the JAX package gives on this script's numpy plans
+   (``MP_GOLDEN``, ``SP_GOLDEN``);
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
    with a block offset, Multi-Paxos long logs compacted between chunks,
+   SynchPaxos with and without delay stamps and with delta violated,
    and at full width (1<<20 lanes x 64 ticks) on each main path's config,
    config3-long compacted after every chunk, timed, with the counter-PRNG
-   draws and slot-array touches of the timed ticks counted by each
-   kernel's measuring build for its operation bound;
+   draws and slot-array (delay-stamp) touches of the timed ticks counted
+   by each kernel's measuring build for its operation bound; timed so
+   in the steady state and on the first chunk, where the lanes still
+   send (for K4 in the delta-violating regime too);
 5. main paths: the flagship campaign (config2), the config5 sweep's Fast
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
-   leader crash) and config3-long (a 256-slot log through a 16-slot
-   window, compacted after every chunk), at 1<<20 lanes, chunk 64,
-   pipeline depth 16 and 4096 ticks (config3-long 1024), through ``run``,
+   leader crash), config3-long (a 256-slot log through a 16-slot
+   window, compacted after every chunk) and SynchPaxos on
+   config_delay_chaos (bounded delay; its fast-path rate is printed), at
+   1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
+   1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
    deterministic over 3 repeats, no violations; the two lowest-numbered
    stream blocks that evicted must equal, digest for digest, what the JAX
@@ -38,11 +44,14 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 6. checker: config4's equivocation, an unsafe Fast Flexible Paxos quorum
    triple, Raft-core equivocation and Multi-Paxos equivocation must each
    report violations (Multi-Paxos: the count the JAX package gives,
-   ``MP_CHECKER_VIOLATIONS``).
+   ``MP_CHECKER_VIOLATIONS``), and SynchPaxos' planted ``sp_unsafe_fast``
+   bug proposer disagreements at the JAX package's count
+   (``SP_CHECKER_DISAGREE``).
 
-Configs with crash windows or equivocators run on plans drawn here from
-numpy (:func:`config_plan`): the config's own distribution, from another
-stream than the JAX package's ``FaultPlan.sample``.
+Configs with crash windows, equivocators or link delays run on plans
+drawn here from numpy (:func:`config_plan`): the config's own
+distribution, from another stream than the JAX package's
+``FaultPlan.sample``.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -72,6 +81,10 @@ GOLDENS = {
 # config3 at 256 lanes, seed 7, 32 ticks, block 256 on config_plan(cfg, 7)
 # (tests/test_torch_multipaxos.py computes it with the JAX package).
 MP_GOLDEN = "3e755a68b483cd90"
+# config_delay_chaos at 256 lanes, seed 7, 32 ticks, block 256 on
+# config_plan(cfg, 7) (tests/test_torch_synchpaxos.py computes it with the
+# JAX package).
+SP_GOLDEN = "01e6b169dab4d6cb"
 FULL_LANES = 1 << 20
 MAIN_PATH_REPEATS = 3
 MAIN_TICKS, MAIN_CHUNK, MAIN_DEPTH = 4096, 64, 16
@@ -83,7 +96,8 @@ class MainPath:
     """A main path: its protocol and ticks, its config (a function of
     ``harness/config.py``, and the config's index where that returns a
     sweep), and the census case (``ROOFLINE.json``) of its kernel's bound.
-    ``compact``: decided prefixes compact out after every chunk.  Every
+    ``compact``: decided prefixes compact out after every chunk.
+    ``fast_path``: the path's fast-path rate (SynchPaxos) is printed.  Every
     path is also timed at full width, a path's kernel entry is the first
     path of its protocol."""
 
@@ -93,6 +107,7 @@ class MainPath:
     census: str
     sweep_index: "int | None" = None
     compact: bool = False
+    fast_path: bool = False
 
 
 MAIN_PATHS = {
@@ -102,6 +117,9 @@ MAIN_PATHS = {
     "config3": MainPath("multipaxos", MAIN_TICKS, "config3_multipaxos", "config3-multipaxos"),
     "config3long": MainPath(
         "multipaxos", LONG_TICKS, "config3_long", "config3long-multipaxos", compact=True
+    ),
+    "synchpaxos": MainPath(
+        "synchpaxos", MAIN_TICKS, "config_delay_chaos", "delaychaos-synchpaxos", fast_path=True
     ),
 }
 # The flagship campaign (seed 0) fills one lane's 8-slot learner table:
@@ -118,14 +136,25 @@ EVICTION_PINS = {
     "raftcore": (0, {}),
     "config3": (0, {}),
     "config3long": (0, {}),
+    "synchpaxos": (4, {595: ([129], "3da7a9c3d5cad789"), 821: ([636], "f9da58d7938887dd")}),
 }
-# The state digest of stream block 0 after each Multi-Paxos main path, as
-# the JAX package computes it (tests/test_torch_evictions.py).
-MP_BLOCK0_DIGESTS = {"config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d"}
+# The state digest of stream block 0 after each Multi-Paxos main path and
+# the SynchPaxos one, as the JAX package computes it
+# (tests/test_torch_evictions.py).
+BLOCK0_DIGESTS = {
+    "config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d",
+    "synchpaxos": "77bdd097d024b69b",
+}
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
 # the count with the JAX package).
 MP_CHECKER_VIOLATIONS = 1043
+# SynchPaxos' planted bug (sp_unsafe_fast) under delta-violating delays
+# with p_drop 0.4, 1024 lanes, seed 3, over SP_CHECKER_TICKS ticks on
+# config_plan(cfg, 3): the proposer disagreements the JAX package's fused
+# reference reports (tests/test_torch_synchpaxos.py).
+SP_CHECKER_TICKS = 256
+SP_CHECKER_DISAGREE = 15
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and
 # int32 ALU throughput: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (an IMAD,
 # IADD3 or LOP3 instruction does two of the counted operations, so this
@@ -147,6 +176,19 @@ MASK_CENSUS = {
     "config5-raftcore": (1228.064453125, 87.0),
     "config3-multipaxos": (1261.3046875, 89.0),
     "config3long-multipaxos": (1261.3046875, 89.0),
+    "delaychaos-synchpaxos": (1883.078125, 147.0),
+}
+# Census cases that ROOFLINE.json does not hold, recorded here with the
+# same keys: scripts/roofline.py tick_census(config_delay_chaos(1024), 1024),
+# which gives the same figures for violate_delta
+# (tests/test_torch_census.py recomputes them with the JAX package).
+CENSUS_CASES = {
+    "delaychaos-synchpaxos": {
+        "case": "delaychaos-synchpaxos", "block": 1024,
+        "alu_per_lane_tick": 4887.126953125, "codec_alu_per_lane_tick": 881.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 516.0,
+        "unpacked_bytes_per_lane": 925.0,
+    },
 }
 # SLOT_CENSUS (Multi-Paxos): the share of the slot-indexed arrays (log,
 # PROMISE payloads, recovery rows, learner table, chosen values and ticks),
@@ -159,6 +201,20 @@ SLOT_CENSUS = {
     "config3-multipaxos": (4225.0, 224.0),
     "config3long-multipaxos": (8450.0, 448.0),
 }
+# STAMP_CENSUS (SynchPaxos with delay): the share of the delay stamps
+# (the stamp draw, the readiness compares and the stamp writes), which the
+# vectorised tick computes for all 40 stamp elements every tick and K4
+# only where it reads a stamp that may have come due or writes one: the
+# census of the config less that of the same config with p_delay 0, net
+# of the mask shares of both, (operations per lane-tick, stamp elements
+# per lane).
+STAMP_CENSUS = {
+    "delaychaos-synchpaxos": (820.015625, 40.0),
+}
+# Per census case, the share of the state elements a kernel touches in
+# global memory: the bound counts the touches its measuring build counts
+# at the census's cost per element.
+TOUCH_CENSUS = {**SLOT_CENSUS, **STAMP_CENSUS}
 KERNEL_SOURCE = "paxos_tpu_torch/kernels/csrc/{}.cu"
 # pl.pallas_call of the JAX package's fused engine (fused_chunk), which
 # each protocol binds through fused_fns; and the int32 probe.
@@ -168,6 +224,7 @@ REPLACES = {
     "fastpaxos": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('fastpaxos') :655)",
     "raftcore": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('raftcore') :660)",
     "multipaxos": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('multipaxos') :670)",
+    "synchpaxos": FUSED_PALLAS_CALL + " (_kernel :201, fused_fns('synchpaxos') :665)",
 }
 
 
@@ -216,18 +273,20 @@ def tick_ops_per_lane(
 ) -> float:
     """int32 operations per lane-tick of the unpacked tick of census
     ``case``: the ALU + reduction census of scripts/roofline.py (recorded
-    in ROOFLINE.json).  Its ``alu_per_lane_tick`` is already net of the
+    in ROOFLINE.json, or in ``CENSUS_CASES`` for a case it lacks).  Its
+    ``alu_per_lane_tick`` is already net of the
     packed-codec share, which the unpacked port does not execute
     (scripts/roofline.py:143-144 records ``(alu - codec_alu) / block``), so
     nothing more is subtracted.  The census draws every mask element and
-    rewrites every slot-array element every tick; given the draws and the
-    slot-array touches a kernel made per lane-tick, those shares are
-    counted for what it made only, at the census's cost per element."""
+    rewrites every slot-array element (computes every delay stamp) every
+    tick; given the draws and the slot-array (stamp) touches a kernel made
+    per lane-tick, those shares are counted for what it made only, at the
+    census's cost per element."""
     cases = json.loads(Path("ROOFLINE.json").read_text())["cases"]
-    c = next(c for c in cases if c["case"] == case)
+    c = CENSUS_CASES.get(case) or next(c for c in cases if c["case"] == case)
     ops = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"]
     for per_lane_tick, share in (
-        (draws_per_lane_tick, MASK_CENSUS), (touches_per_lane_tick, SLOT_CENSUS)
+        (draws_per_lane_tick, MASK_CENSUS), (touches_per_lane_tick, TOUCH_CENSUS)
     ):
         if per_lane_tick is not None and case in share:
             share_ops, share_elems = share[case]
@@ -345,16 +404,29 @@ def phase_golden() -> None:
     log(f"golden: multipaxos config3 256 lanes seed 7 32 ticks digest {got} (want {MP_GOLDEN})")
     if got != MP_GOLDEN:
         raise AssertionError(f"multipaxos golden digest {got} != {MP_GOLDEN}")
+    cfg = main_config("synchpaxos", 256, 7)
+    state = FUSED_WRAPPERS["synchpaxos"](
+        init_state(cfg, "cuda"), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
+    )
+    got = digest(state.leaves())
+    log(f"golden: synchpaxos config_delay_chaos 256 lanes seed 7 32 ticks digest {got} "
+        f"(want {SP_GOLDEN})")
+    if got != SP_GOLDEN:
+        raise AssertionError(f"synchpaxos golden digest {got} != {SP_GOLDEN}")
 
 
 def fault_plan(
     n_inst: int, n_acc: int, n_prop: int, p_equiv: float, seed: int, p_crash: float = 0.0,
     p_crash_prop: float = 0.0, max_start: int = 32, max_len: int = 16, device="cuda",
+    p_delay: float = 0.0, delay_max: int = 4,
 ):
     """A plan from a fixed numpy seed: equivocators with probability
     ``p_equiv``; with probability ``p_crash`` per (acceptor, lane) and
     ``p_crash_prop`` per (proposer, lane) a crash window starting in
-    U[0, max_start) and lasting U[1, max_len] ticks."""
+    U[0, max_start) and lasting U[1, max_len] ticks; with ``p_delay`` > 0,
+    each (proposer, acceptor, lane) link slow with probability ``p_delay``,
+    its latency cap drawn from U[1, delay_max], every other link's cap 0
+    (drawn last, so plans without delay are unchanged)."""
     from paxos_tpu_torch.faults.injector import NEVER, FaultPlan
 
     plan = FaultPlan.none(n_inst, n_acc, n_prop, device=device)
@@ -373,37 +445,43 @@ def fault_plan(
     plan.crash_start, plan.crash_end = windows((n_acc, n_inst), p_crash)
     if p_crash_prop > 0.0:
         plan.pcrash_start, plan.pcrash_end = windows((n_prop, n_inst), p_crash_prop)
+    if p_delay > 0.0:
+        edge = (n_prop, n_acc, n_inst)
+        slow = rng.random(edge) < p_delay
+        cap = rng.integers(1, max(delay_max, 1) + 1, edge)
+        plan.link_delay = torch.from_numpy(np.where(slow, cap, 0).astype(np.int32)).to(device)
     return plan
 
 
 def config_plan(cfg, seed: int, device="cuda"):
-    """``cfg``'s own crash and equivocation distribution (the JAX package's
-    ``FaultPlan.sample``: starts U[0, crash_max_start), lengths
-    U[1, crash_max_len]) drawn from a numpy stream."""
+    """``cfg``'s own crash, equivocation and link-delay distribution (the
+    JAX package's ``FaultPlan.sample``: starts U[0, crash_max_start),
+    lengths U[1, crash_max_len]; slow links with p ``p_delay``, caps
+    U[1, delay_max]) drawn from a numpy stream."""
     f = cfg.fault
     return fault_plan(
         cfg.n_inst, cfg.n_acc, cfg.n_prop, f.p_equiv, seed, f.p_crash, f.p_crash_prop,
-        f.crash_max_start, f.crash_max_len, device,
+        f.crash_max_start, f.crash_max_len, device, f.p_delay, f.delay_max,
     )
 
 
 def main_plan(cfg, device="cuda"):
     """A main path's plan: :func:`config_plan` at the config's seed where
-    the config samples crashes or equivocators, else None (``run`` builds
-    the fault-free plan itself, inside the timed window)."""
+    the config samples crashes, equivocators or link delays, else None
+    (``run`` builds the fault-free plan itself, inside the timed window)."""
     f = cfg.fault
-    if f.p_crash or f.p_crash_prop or f.p_equiv:
+    if f.p_crash or f.p_crash_prop or f.p_equiv or f.p_delay:
         return config_plan(cfg, cfg.seed, device)
     return None
 
 
-def near_limit_state(cfg, rnd: int):
+def near_limit_state(cfg, rnd: int, device="cuda"):
     """``cfg``'s initial state with every proposer in phase 1 at ballot
     round ``rnd`` and its PREPARE (REQVOTE) broadcast in flight."""
     from paxos_tpu_torch.harness.run import init_state
 
-    st = init_state(cfg, "cuda")
-    pid = torch.arange(cfg.n_prop, dtype=torch.int32, device="cuda")[:, None]
+    st = init_state(cfg, device)
+    pid = torch.arange(cfg.n_prop, dtype=torch.int32, device=device)[:, None]
     st.proposer.bal.copy_((rnd * 8 + pid + 1).expand_as(st.proposer.bal))
     st.proposer.phase.zero_()
     st.requests.bal[0] = st.proposer.bal[:, None, :]
@@ -438,7 +516,7 @@ def plain_chunk(cfg, state, plan, n_ticks, block, blk0=0, clamp_per_tick=False):
 
 def compare(
     name, cfg, plan, n_ticks, block=None, reps=0, init=None, ceiling=None, census=None,
-    compact=False, chunks=1, **kw,
+    compact=False, chunks=1, from_init=False, **kw,
 ) -> dict:
     """Kernel vs plain on the card from the same initial state over
     ``chunks`` chunks of ``n_ticks``; ``kw`` are the wrapper's ``blk0``
@@ -446,10 +524,12 @@ def compare(
     (None) to the fault-free one.  ``compact``: the decided-prefix
     compaction follows every chunk, as on a long log.  Times are of the
     chunks alone.  With ``reps``, also the kernel's steady-state time over ``reps``
-    further chunks and their bound: the bytes, and the operations of
-    census ``census`` with the draws and slot-array touches those chunks
-    make, over the published peak (and over the measured ``ceiling``
-    beside it)."""
+    further chunks (``from_init``: the compared chunk again, ``reps``
+    times from copies of the initial state, where the lanes still send)
+    and their bound: the bytes, and the operations of census ``census``
+    with the draws and slot-array (delay-stamp) touches those chunks make,
+    over the published peak (and over the measured ``ceiling`` beside
+    it)."""
     from paxos_tpu_torch.core.state import state_bytes_per_lane
     from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, draw_census
@@ -462,6 +542,7 @@ def compare(
     block = BINDINGS[cfg.protocol].block if block is None else block
     plan = init_plan(cfg, "cuda") if plan is None else plan
     init = init_state(cfg, "cuda") if init is None else init
+    start = init.clone() if from_init else None
     plain, kern, plain_ms, kern_ms = init, init.clone(), 0.0, 0.0
     for _ in range(chunks):
         plain, t_plain = timed(lambda: plain_chunk(cfg, plain, plan, n_ticks, block, **kw))
@@ -483,18 +564,35 @@ def compare(
     out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
     if reps:
         # The draws and touches of the timed chunks: the measuring build
-        # over the same ticks from a copy of the compared state, which must
-        # end where the timed chunks end.
-        counted, draws, touches = kern.clone(), 0, 0
-        for _ in range(reps if compact else 1):
-            d, t = draw_census(
-                cfg.protocol, counted, cfg.seed, plan, cfg.fault,
-                (1 if compact else reps) * n_ticks, block=block,
+        # over the same ticks from a copy of the compared state (of the
+        # initial state, from_init), which must end where the timed chunks
+        # end (where the compared chunk ended).
+        if from_init:
+            counted, timed_ticks = start.clone(), n_ticks
+            draws, touches = draw_census(
+                cfg.protocol, counted, cfg.seed, plan, cfg.fault, n_ticks, block=block
             )
-            draws, touches, counted = draws + d, touches + t, after(counted)
-        # Steady state: further chunks continuing from the compared state;
-        # on a long log each chunk is timed alone and compacted after.
-        if compact:
+        else:
+            counted, draws, touches, timed_ticks = kern.clone(), 0, 0, reps * n_ticks
+            for _ in range(reps if compact else 1):
+                d, t = draw_census(
+                    cfg.protocol, counted, cfg.seed, plan, cfg.fault,
+                    (1 if compact else reps) * n_ticks, block=block,
+                )
+                draws, touches, counted = draws + d, touches + t, after(counted)
+        # The timed chunks: the compared chunk again from copies of its
+        # initial state (from_init), or the steady state, further chunks
+        # continuing from the compared state; on a long log each chunk is
+        # timed alone and compacted after.
+        if from_init:
+            chunk_ms = []
+            for _ in range(reps):
+                st = start.clone()
+                chunk_ms.append(
+                    timed(lambda: wrapper(st, cfg.seed, plan, cfg.fault, n_ticks, block=block))[1]
+                )
+            out["ms"] = sum(chunk_ms) / reps
+        elif compact:
             chunk_ms, compact_ms = [], []
             for _ in range(reps):
                 _, t = timed(lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block))
@@ -511,9 +609,11 @@ def compare(
         read = ["crash_start", "crash_end", "equivocate"]
         if cfg.protocol == "multipaxos":
             read += ["pcrash_start", "pcrash_end"]
+        if plan.link_delay is not None:  # K4 reads the latency caps
+            read += ["link_delay"]
         plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
         n_bytes = 2 * state_bytes_per_lane(init) * cfg.n_inst + plan_bytes
-        lane_ticks = cfg.n_inst * reps * n_ticks
+        lane_ticks = cfg.n_inst * timed_ticks
         draws_per_lane_tick, touches_per_lane_tick = draws / lane_ticks, touches / lane_ticks
         ops_per_lane_tick = tick_ops_per_lane(census, draws_per_lane_tick, touches_per_lane_tick)
         n_ops = ops_per_lane_tick * cfg.n_inst * n_ticks
@@ -536,7 +636,7 @@ def compare(
             f"{bytes_ms:.3f} ms, int32 ops {ops_ms:.3f} ms at the published peak, "
             f"{measured_ops_ms:.3f} ms at the measured rate); {draws_per_lane_tick:.3f} draws "
             f"per lane-tick of {MASK_CENSUS[census][1]:g} mask elements, "
-            f"{touches_per_lane_tick:.3f} slot-array touches per lane-tick, "
+            f"{touches_per_lane_tick:.3f} slot-array (K4: delay-stamp) touches per lane-tick, "
             f"{ops_per_lane_tick:.1f} ops per lane-tick ({out['ops_per_lane_tick_census']:.1f} "
             "in the census)"
             + (f"; compaction {out['compact_ms']:.3f} ms/chunk" if compact else "")
@@ -561,12 +661,26 @@ def phase_compare(ceiling: float) -> dict:
             f"{protocol} (2,3,8) with crashes and equivocators", small,
             fault_plan(4096, 3, 2, 0.25, 5, p_crash=0.3), 128,
         )
+    # K4: config_delay_chaos's (2,5,8) with delay stamps in both regimes,
+    # the planted bug, (2,5,8) without stamps (SynchPaxos with delay off),
+    # and three acceptors with stamps.
+    for seed, violate in ((5, False), (6, True)):
+        cfgd = C.config_delay_chaos(4096, seed, violate_delta=violate)
+        compare(f"synchpaxos (2,5,8) stamped, violate_delta={violate}", cfgd,
+                config_plan(cfgd, seed), 200)
+    cfgu = sp_checker_config(4096)
+    compare("synchpaxos (2,5,8) sp_unsafe_fast", cfgu, config_plan(cfgu, 7), 200)
+    cfgo = sp_delay_off_config(4096, 8)
+    compare("synchpaxos (2,5,8) delay off, unstamped", cfgo, init_plan(cfgo, "cuda"), 200)
+    cfg3 = dataclasses.replace(C.config_delay_chaos(4096, 9), n_acc=3)
+    compare("synchpaxos (2,3,8) stamped", cfg3, config_plan(cfg3, 9), 200)
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
-    for protocol in ("paxos", "fastpaxos", "raftcore"):
+    for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
         cfgc = main_config(protocol, 4096, 13)
         compare(
-            f"{protocol} per-tick clamp, blk0=5", cfgc, init_plan(cfgc, "cuda"), 96,
+            f"{protocol} per-tick clamp, blk0=5", cfgc,
+            main_plan(cfgc) or init_plan(cfgc, "cuda"), 96,
             init=near_limit_state(cfgc, 4094), blk0=5, clamp_per_tick=True,
         )
     # K5: config3's (2,5,8,4), three acceptors with equivocators, the
@@ -594,6 +708,20 @@ def phase_compare(ceiling: float) -> dict:
             f"{path} full width", cfg, main_plan(cfg), 64, reps=5, ceiling=ceiling,
             census=mp.census, compact=mp.compact,
         )
+        # The first chunk, where the lanes still send (on a long log every
+        # chunk does, so the steady state above is that chunk already).
+        if not mp.compact:
+            full[path]["first_chunk"] = compare(
+                f"{path} full width, first chunk", cfg, main_plan(cfg), 64, reps=5,
+                ceiling=ceiling, census=mp.census, from_init=True,
+            )
+    # K4's busiest chunk: the first of the delta-violating regime, where the
+    # fast path misses its window and lanes fall back to classic rounds.
+    cfgv = C.config_delay_chaos(FULL_LANES, 7, violate_delta=True)
+    full["synchpaxos"]["first_chunk_violate_delta"] = compare(
+        "synchpaxos violate_delta full width, first chunk", cfgv, config_plan(cfgv, 7), 64,
+        reps=5, ceiling=ceiling, census=MAIN_PATHS["synchpaxos"].census, from_init=True,
+    )
     return full
 
 
@@ -624,11 +752,11 @@ def check_evictions(path: str, report: dict, state) -> dict:
     if path == "paxos" and lanes != MAIN_EVICTION_LANES:
         raise AssertionError(f"evictions on lanes {lanes}, recorded {MAIN_EVICTION_LANES}")
     out = {str(blk): d for blk, (_, d) in found.items()}
-    if path in MP_BLOCK0_DIGESTS:
+    if path in BLOCK0_DIGESTS:
         got = digest(block_leaves(state, 0, block))
-        log(f"{path} main path: stream block 0 digest {got} (want {MP_BLOCK0_DIGESTS[path]})")
-        if got != MP_BLOCK0_DIGESTS[path]:
-            raise AssertionError(f"{path} stream block 0 digest {got} != {MP_BLOCK0_DIGESTS[path]}")
+        log(f"{path} main path: stream block 0 digest {got} (want {BLOCK0_DIGESTS[path]})")
+        if got != BLOCK0_DIGESTS[path]:
+            raise AssertionError(f"{path} stream block 0 digest {got} != {BLOCK0_DIGESTS[path]}")
         out["0"] = got
     return out
 
@@ -668,16 +796,22 @@ def phase_main_path(path: str) -> dict:
     )
     if report["ticks"] != ticks or not 0.0 <= report["chosen_frac"] <= 1.0:
         raise AssertionError(f"malformed report {report}")
-    if report["violations"] != 0:
+    if report["violations"] != 0 or report["proposer_disagree"] != 0:
         raise AssertionError(f"{path} main path must be safe: {report}")
     if launches[protocol] == 0:
         raise AssertionError(f"the {path} main path never launched its fused kernel")
     if sum(launches.values()) != launches[protocol]:
         raise AssertionError(f"the {path} main path launched other kernels: {launches}")
     digests = check_evictions(path, report, state)
-    return {"launches": launches[protocol], "all_launches": launches, "wall_s": wall,
-            "walls_s": walls, "rounds_per_s": rate, "report": report,
-            "eviction_block_digests": digests}
+    out = {"launches": launches[protocol], "all_launches": launches, "wall_s": wall,
+           "walls_s": walls, "rounds_per_s": rate, "report": report,
+           "eviction_block_digests": digests}
+    if MAIN_PATHS[path].fast_path:
+        from paxos_tpu_torch.protocols.synchpaxos import fast_path_rate
+
+        out["fast_path_rate"] = fast_path_rate(state)
+        log(f"{path} main path: fast-path rate {out['fast_path_rate']}")
+    return out
 
 
 def phase_main_path_profile(path: str) -> dict:
@@ -735,7 +869,39 @@ def phase_checker() -> dict:
             raise AssertionError(f"{name} must light up the safety checker")
     if out[mp] != MP_CHECKER_VIOLATIONS:
         raise AssertionError(f"{mp}: {out[mp]} violations, the JAX package gives {MP_CHECKER_VIOLATIONS}")
+    # SynchPaxos' planted bug: the learner plane stays blind, the
+    # cross-proposer check must fire.
+    cfg = sp_checker_config()
+    sp = "synchpaxos sp_unsafe_fast violate_delta p_drop=0.4 proposer_disagree"
+    report = run(cfg, total_ticks=SP_CHECKER_TICKS, plan=config_plan(cfg, cfg.seed))
+    out[sp] = report["proposer_disagree"]
+    log(f"checker: {sp} {out[sp]} (violations {report['violations']})")
+    if out[sp] != SP_CHECKER_DISAGREE:
+        raise AssertionError(f"{sp}: {out[sp]}, the JAX package gives {SP_CHECKER_DISAGREE}")
     return out
+
+
+def sp_delay_off_config(n_inst: int, seed: int):
+    """SynchPaxos without delay (its state carries no stamps): loss, idling
+    and a short timeout."""
+    from paxos_tpu_torch.faults.injector import FaultConfig
+    from paxos_tpu_torch.harness.config import SimConfig
+
+    return SimConfig(
+        n_inst=n_inst, n_prop=2, n_acc=5, seed=seed, protocol="synchpaxos",
+        fault=FaultConfig(p_drop=0.25, p_idle=0.1, timeout=6, delta=3),
+    )
+
+
+def sp_checker_config(n_inst: int = 1024):
+    """config_delay_chaos at seed 3 with delta violated, the planted
+    sp_unsafe_fast bug and p_drop 0.4."""
+    from paxos_tpu_torch.harness import config as C
+
+    cfg = C.config_delay_chaos(n_inst, 3, violate_delta=True)
+    return dataclasses.replace(
+        cfg, fault=dataclasses.replace(cfg.fault, sp_unsafe_fast=True, p_drop=0.4)
+    )
 
 
 def mp_checker_config(n_inst: int = 1024):
@@ -785,6 +951,7 @@ def main() -> int:
                 "main_path_walls_s": main_paths[path]["walls_s"],
                 "main_path_rounds_per_s": main_paths[path]["rounds_per_s"],
                 "main_path_report": main_paths[path]["report"],
+                "main_path_fast_path_rate": main_paths[path].get("fast_path_rate"),
                 "main_path_eviction_block_digests": main_paths[path]["eviction_block_digests"],
                 "main_path_profile": profiles[path],
             }

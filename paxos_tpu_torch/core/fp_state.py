@@ -79,6 +79,8 @@ class FastProposerState:
 class FastPaxosState(LaneState):
     """Full simulator state for Fast Paxos."""
 
+    protocol = "fastpaxos"
+
     acceptor: AcceptorState
     proposer: FastProposerState
     learner: LearnerState

@@ -178,6 +178,8 @@ class AcceptedBuf:
 class MultiPaxosState(LaneState):
     """Full Multi-Paxos simulator state."""
 
+    protocol = "multipaxos"
+
     acceptor: MPAcceptorState
     proposer: MPProposerState
     learner: MPLearnerState

@@ -98,6 +98,8 @@ class CandidateState:
 class RaftState(LaneState):
     """Full simulator state for Raft-core."""
 
+    protocol = "raftcore"
+
     acceptor: VoterState  # named `acceptor` so summaries are uniform
     proposer: CandidateState  # likewise
     learner: LearnerState

@@ -137,7 +137,12 @@ def check_topology(n_prop: int, n_acc: int) -> None:
 class LaneState:
     """What every protocol's full state shares: the five sub-states
     ``acceptor``, ``proposer``, ``learner``, ``requests``, ``replies`` and
-    the ``tick`` scalar, flattened in that order."""
+    the ``tick`` scalar, flattened in that order.  ``protocol`` names the
+    tick that advances it; ``takes_stamps`` says whether its ``init``
+    allocates delay stamps (``delay=True``)."""
+
+    protocol = ""
+    takes_stamps = False
 
     def leaves(self) -> list:
         """Tensors in the reference's flatten order (tick last)."""
@@ -157,10 +162,20 @@ class LaneState:
 
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
-        for this state's (n_inst, n_prop, n_acc, k_slots)."""
+        for this state's (n_inst, n_prop, n_acc, k_slots), with delay stamps
+        where the request buffer carries them."""
+        stamped = {"delay": True} if self.requests.until is not None else {}
+        if stamped and not self.takes_stamps:
+            raise ValueError(
+                f"a {type(self).__name__} carries no delay stamps (MsgBuf.until)"
+            )
         want = type(self).init(
-            self.n_inst, self.n_prop, self.n_acc, self.k_slots, device="meta"
+            self.n_inst, self.n_prop, self.n_acc, self.k_slots, device="meta", **stamped
         )
+        if len(self.leaves()) != len(want.leaves()):
+            raise ValueError(
+                f"state has {len(self.leaves())} leaves, expected {len(want.leaves())}"
+            )
         for i, (leaf, ref) in enumerate(zip(self.leaves(), want.leaves())):
             if leaf.shape != ref.shape or leaf.dtype != ref.dtype:
                 raise ValueError(
@@ -193,10 +208,17 @@ class LaneState:
     def device(self) -> torch.device:
         return self.proposer.bal.device
 
+    @property
+    def stamped(self) -> int:
+        """1 when the message buffers carry delay stamps (``until``), else 0."""
+        return int(self.requests.until is not None)
+
 
 @dataclasses.dataclass
 class PaxosState(LaneState):
     """Full simulator state for single-decree Paxos."""
+
+    protocol = "paxos"
 
     acceptor: AcceptorState
     proposer: ProposerState

@@ -3,9 +3,11 @@
 
 Each mask of a tick draws from its own stream id; the ids are part of the
 schedule, so they must equal the reference's.  The single-decree ticks
-(paxos, fastpaxos, raftcore) share one allocation, Multi-Paxos has its
-own.  The gray-failure and workload streams are not ported (their knobs
-raise), apart from Multi-Paxos' CORRUPT id, listed for completeness.
+(paxos, fastpaxos, raftcore, synchpaxos) share one allocation, Multi-Paxos
+has its own.  Of the gray-failure streams only the bounded-delay draws
+(DELAY_BITS, LAT_BITS: ``p_delay``, SynchPaxos) are ported; the others and
+the workload streams are not (their knobs raise), apart from Multi-Paxos'
+CORRUPT id, listed for completeness.
 """
 
 SINGLE_DECREE_STREAMS = dict(
@@ -19,6 +21,8 @@ SINGLE_DECREE_STREAMS = dict(
     KEEP_P1=7,  # PREPARE-class drop
     KEEP_P2=8,  # ACCEPT-class drop
     BACKOFF=9,  # proposer retry backoff
+    DELAY_BITS=13,  # per-edge delay decision raw bits (p_delay)
+    LAT_BITS=14,  # per-edge sampled latency raw bits (delay_max)
 )
 
 MULTI_PAXOS_STREAMS = dict(

@@ -3,16 +3,19 @@
 :class:`FaultConfig` mirrors the reference's static knobs field for field,
 with the same defaults, so a config converts by ``dataclasses.asdict``.
 :class:`FaultPlan` holds the per-run crash windows, equivocation flags and
-partition sides.  The port does not sample plans yet (the reference draws
-them with ``jax.random``): :meth:`FaultPlan.none` is exact for configs with
-no crash, partition or equivocation knob, and any other plan is carried
-across from the reference as numpy arrays (:meth:`FaultPlan.from_numpy`).
-The gray-failure plan fields are not ported yet.
+partition sides, and the per-link latency caps of the bounded-delay channel
+(``link_delay``, present when ``p_delay > 0``).  The port does not sample
+plans yet (the reference draws them with ``jax.random``):
+:meth:`FaultPlan.none` is exact for configs with no crash, partition,
+equivocation or delay knob, and any other plan is carried across from the
+reference as numpy arrays (:meth:`FaultPlan.from_numpy`).  The other
+gray-failure plan fields are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,6 +84,16 @@ _BASE_FIELDS = (
     "part_start", "part_end", "aside", "pside",
 )
 _BOOL_FIELDS = frozenset({"equivocate", "aside", "pside"})
+# The reference's optional plan fields in flatten order, each with the knob
+# test that puts it in a sampled plan; of these only link_delay is ported.
+_OPTIONAL_FIELDS = (
+    ("part_dir", lambda f: f.p_asym > 0.0),
+    ("link_drop", lambda f: f.p_flaky > 0.0),
+    ("link_dup", lambda f: f.p_flaky > 0.0 and (f.p_dup > 0.0 or f.flaky_dup > 0.0)),
+    ("ptimeout", lambda f: f.timeout_skew > 0),
+    ("pboff", lambda f: f.backoff_skew > 1),
+    ("link_delay", lambda f: f.p_delay > 0.0),
+)
 
 
 @dataclasses.dataclass
@@ -96,12 +109,18 @@ class FaultPlan:
     part_end: torch.Tensor  # (I,) int32
     aside: torch.Tensor  # (A, I) bool acceptor's side of the cut
     pside: torch.Tensor  # (P, I) bool proposer's side of the cut
+    # (P, A, I) int32 per-link latency cap in ticks, 0 = the link never
+    # delays (p_delay); None when the config samples no delays.
+    link_delay: Optional[torch.Tensor] = None
 
     @classmethod
     def none(
-        cls, n_inst: int, n_acc: int, n_prop: int = 1, device="cpu"
+        cls, n_inst: int, n_acc: int, n_prop: int = 1, device="cpu",
+        cfg: "FaultConfig | None" = None,
     ) -> "FaultPlan":
-        """The fault-free plan."""
+        """The fault-free plan.  With ``cfg``, the fields its knobs gate on
+        are present but benign (``link_delay`` all 0), so the plan has the
+        structure of one the reference samples for ``cfg``."""
 
         def never(shape):
             return torch.full(shape, NEVER, dtype=torch.int32, device=device)
@@ -110,26 +129,44 @@ class FaultPlan:
             return torch.zeros(shape, dtype=torch.bool, device=device)
 
         acc, prop, lane = (n_acc, n_inst), (n_prop, n_inst), (n_inst,)
+        delay = cfg is not None and cfg.p_delay > 0.0
         return cls(
             crash_start=never(acc), crash_end=never(acc),
             equivocate=false(acc),
             pcrash_start=never(prop), pcrash_end=never(prop),
             part_start=never(lane), part_end=never(lane),
             aside=false(acc), pside=false(prop),
+            link_delay=(
+                torch.zeros((n_prop, n_acc, n_inst), dtype=torch.int32, device=device)
+                if delay else None
+            ),
         )
 
     @classmethod
-    def from_numpy(cls, leaves, device="cpu") -> "FaultPlan":
-        """A plan from the reference's plan leaves in flatten order."""
+    def from_numpy(cls, leaves, device="cpu", cfg: "FaultConfig | None" = None) -> "FaultPlan":
+        """A plan from the reference's plan leaves in flatten order.
+
+        The reference's optional fields follow the nine base fields, each
+        present when a knob of its config gates it on, so which field a
+        tenth leaf is (``part_dir`` and ``link_delay`` alike) comes from
+        ``cfg``; without it the plan has the base fields only."""
         leaves = list(leaves)
-        if len(leaves) != len(_BASE_FIELDS):
+        optional = [n for n, on in _OPTIONAL_FIELDS if cfg is not None and on(cfg)]
+        unported = [n for n in optional if n != "link_delay"]
+        if unported:
             raise NotImplementedError(
-                f"plan has {len(leaves)} leaves; only the {len(_BASE_FIELDS)} "
-                "base fields are ported (gray-failure plan fields: ROADMAP "
-                "queue A, slice 5 item 12)"
+                f"plan fields {unported} are not ported to paxos_tpu_torch yet "
+                "(gray-failure plan fields: ROADMAP queue A, slice 5 item 12)"
+            )
+        names = _BASE_FIELDS + tuple(optional)
+        if len(leaves) != len(names):
+            raise ValueError(
+                f"plan has {len(leaves)} leaves; a plan for this config has "
+                f"{len(names)} ({', '.join(names)}): pass the config (cfg=) "
+                "whose knobs gate the optional fields"
             )
         fields = {}
-        for name, leaf in zip(_BASE_FIELDS, leaves):
+        for name, leaf in zip(names, leaves):
             dtype = torch.bool if name in _BOOL_FIELDS else torch.int32
             arr = np.asarray(leaf)
             want = np.bool_ if dtype is torch.bool else np.int32
@@ -139,7 +176,15 @@ class FaultPlan:
         return cls(**fields)
 
     def leaves(self) -> list:
-        return [getattr(self, name) for name in _BASE_FIELDS]
+        """The reference's flatten order (absent optional fields dropped)."""
+        out = [getattr(self, name) for name in _BASE_FIELDS]
+        return out if self.link_delay is None else out + [self.link_delay]
+
+    def to(self, device) -> "FaultPlan":
+        return FaultPlan(**{
+            f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+        })
 
     def alive(self, tick) -> torch.Tensor:
         """(A, I) bool: acceptor is up at ``tick``."""

@@ -24,6 +24,7 @@ LAYOUT_VERSIONS = {
     "fastpaxos": "fastpaxos-packed-v4",
     "raftcore": "raftcore-packed-v4",
     "multipaxos": "multipaxos-packed-v4",
+    "synchpaxos": "synchpaxos-packed-v1",
 }
 
 OBSERVER_PLANES = ("telemetry", "coverage", "exposure", "margin", "workload")
@@ -177,4 +178,32 @@ def config5_sweep(n_inst: int = 65_536, seed: int = 0) -> tuple:
     return tuple(
         SimConfig(n_inst=n_inst, n_prop=2, n_acc=5, seed=seed, protocol=p, fault=fault)
         for p in ("paxos", "fastpaxos", "raftcore")
+    )
+
+
+def config_delay_chaos(
+    n_inst: int = 4096, seed: int = 0, violate_delta: bool = False
+) -> SimConfig:
+    """Bounded-delay chaos for SynchPaxos: per-link latency under loss.
+
+    A send is delayed w.p. ``p_delay`` by 1..``delay_max`` extra ticks,
+    capped per link by the plan's ``link_delay``.  The default cell keeps
+    latencies inside the synchrony window ``delta``, so the fast path still
+    lands; ``violate_delta`` sets the window below the latencies, so the
+    honest protocol must fall back safely (and the ``sp_unsafe_fast``
+    planted bug becomes catchable)."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        protocol="synchpaxos",
+        fault=FaultConfig(
+            p_drop=0.1,
+            p_idle=0.1,
+            p_delay=0.8 if violate_delta else 0.4,
+            delay_max=8 if violate_delta else 2,
+            delta=4 if violate_delta else 6,
+            timeout=8,
+        ),
     )

@@ -23,6 +23,7 @@ from paxos_tpu_torch.core.device import resolve_device
 from paxos_tpu_torch.core.fp_state import FastPaxosState
 from paxos_tpu_torch.core.mp_state import BV_SHIFT, MultiPaxosState
 from paxos_tpu_torch.core.raft_state import RaftState
+from paxos_tpu_torch.core.sp_state import SynchPaxosState
 from paxos_tpu_torch.core.state import DONE, LaneState, PaxosState
 from paxos_tpu_torch.faults.injector import FaultPlan
 from paxos_tpu_torch.harness.config import (
@@ -37,14 +38,17 @@ from paxos_tpu_torch.protocols.paxos import check_supported
 
 # Signed width of learner.chosen_tick in the reference's packed layouts:
 # the campaign tick budget both packages accept.
-CHOSEN_TICK_BITS = {"paxos": 19, "fastpaxos": 19, "raftcore": 19, "multipaxos": 18}
+CHOSEN_TICK_BITS = {
+    "paxos": 19, "fastpaxos": 19, "raftcore": 19, "synchpaxos": 19, "multipaxos": 18,
+}
 
-# The ported protocols and their state types (the single-decree three share
+# The ported protocols and their state types (the single-decree four share
 # DONE = 2 and decided_val in summarize).
 STATE_TYPES = {
     "paxos": PaxosState,
     "fastpaxos": FastPaxosState,
     "raftcore": RaftState,
+    "synchpaxos": SynchPaxosState,
     "multipaxos": MultiPaxosState,
 }
 
@@ -73,7 +77,7 @@ def _check_ported(cfg: SimConfig) -> None:
                 f"the {plane} plane is not ported yet (ROADMAP queue A slice 5 "
                 "item 13)"
             )
-    check_supported(cfg.fault)
+    check_supported(cfg.fault, cfg.protocol)
 
 
 def _check_packed_layout_bounds(cfg: SimConfig) -> None:
@@ -135,7 +139,8 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
 
 
 def init_state(cfg: SimConfig, device=None) -> LaneState:
-    """The protocol's initial state, as the reference's ``init_state``."""
+    """The protocol's initial state, as the reference's ``init_state``
+    (SynchPaxos with delay stamps when ``p_delay > 0``)."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
     device = resolve_device(device)
@@ -145,8 +150,9 @@ def init_state(cfg: SimConfig, device=None) -> LaneState:
             cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.log_len, k=cfg.k_slots,
             lease_init=cfg.fault.lease_len, device=device,
         )
+    stamped = {"delay": cfg.fault.p_delay > 0.0} if cfg.protocol == "synchpaxos" else {}
     return STATE_TYPES[cfg.protocol].init(
-        cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots, device=device
+        cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots, device=device, **stamped
     )
 
 
@@ -363,7 +369,7 @@ def run(
 
     ``device`` defaults to CUDA (and raises without a GPU); ``"cpu"`` runs
     the plain PyTorch versions.  ``plan`` overrides the fault-free plan:
-    configs with crash, partition or equivocation knobs need one, carried
+    configs with crash, equivocation or delay knobs need one, carried
     across from the reference with :mod:`paxos_tpu_torch.interop`.  A
     long-log Multi-Paxos config compacts after every ``chunk`` ticks, and
     ``until_all_chosen`` then waits for the whole log to replicate.
@@ -374,7 +380,7 @@ def run(
     if plan is None:
         plan = init_plan(cfg, state.device)
     else:
-        plan = FaultPlan(*(leaf.to(state.device) for leaf in plan.leaves()))
+        plan = plan.to(state.device)
     ll = make_longlog(cfg)
     advance = make_advance_grouped(cfg, plan, engine, compact=bool(ll))
     done_fn = None

@@ -23,6 +23,7 @@ from paxos_tpu_torch.core.mp_state import (
     PromiseBuf,
 )
 from paxos_tpu_torch.core.raft_state import CandidateState, RaftState, VoterState
+from paxos_tpu_torch.core.sp_state import SynchPaxosState
 from paxos_tpu_torch.core.state import (
     AcceptorState,
     LaneState,
@@ -30,14 +31,19 @@ from paxos_tpu_torch.core.state import (
     PaxosState,
     ProposerState,
 )
-from paxos_tpu_torch.faults.injector import FaultPlan
+from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 
 # Per protocol: the state type, its sub-states with their leaf counts in
 # flatten order, and the trailing scalar and per-lane leaves (the tick, and
-# Multi-Paxos' base).
+# Multi-Paxos' base).  SynchPaxos' buffers carry a fifth leaf, the delay
+# stamps, when its config delays sends (``_STAMPED``).
 _SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
+_STAMPED = ((LearnerState, 8), (MsgBuf, 5), (MsgBuf, 5))
 _GROUPS = {
     "paxos": (PaxosState, ((AcceptorState, 3), (ProposerState, 9)) + _SHARED, ("tick",)),
+    "synchpaxos": (
+        SynchPaxosState, ((AcceptorState, 3), (ProposerState, 9)) + _SHARED, ("tick",)
+    ),
     "fastpaxos": (
         FastPaxosState, ((AcceptorState, 3), (FastProposerState, 9)) + _SHARED, ("tick",)
     ),
@@ -61,17 +67,21 @@ def _tensor(arr, device) -> torch.Tensor:
 
 
 def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
-    """``protocol``'s state from the reference's flattened leaves."""
+    """``protocol``'s state from the reference's flattened leaves (a
+    SynchPaxos state with or without delay stamps: 31 or 29 leaves)."""
     leaves = list(leaves)
     if protocol not in _GROUPS:
         raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
     state_cls, groups, tail = _GROUPS[protocol]
+    if protocol == "synchpaxos" and len(leaves) == 31:
+        groups = groups[:2] + _STAMPED
     want = sum(n for _, n in groups) + len(tail)
     if len(leaves) != want:
         raise NotImplementedError(
             f"state has {len(leaves)} leaves; the port holds the {want} of a "
             f"{protocol} state with every optional plane off (snapshot "
-            "shadows, delay stamps and observer planes: ROADMAP queue A slice 5)"
+            "shadows, delay stamps outside SynchPaxos and observer planes: "
+            "ROADMAP queue A slice 5)"
         )
     tensors = [_tensor(leaf, device) for leaf in leaves]
     parts, k = [], 0
@@ -89,7 +99,10 @@ def state_to_numpy(state: LaneState) -> list:
     return [leaf.detach().cpu().numpy() for leaf in state.leaves()]
 
 
-def plan_from_numpy(leaves, device="cpu") -> FaultPlan:
+def plan_from_numpy(leaves, device="cpu", cfg: "FaultConfig | None" = None) -> FaultPlan:
     """A :class:`FaultPlan` from the reference's flattened plan leaves
-    (crash windows, equivocators, proposer crash windows, partitions)."""
-    return FaultPlan.from_numpy(leaves, device)
+    (crash windows, equivocators, proposer crash windows, partitions, and
+    the per-link latency caps of a plan sampled for ``cfg`` with
+    ``p_delay > 0``).  The reference's optional fields are told apart by
+    the knobs of ``cfg`` that gate them, not by the leaf count."""
+    return FaultPlan.from_numpy(leaves, device, cfg)

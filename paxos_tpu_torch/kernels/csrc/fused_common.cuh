@@ -2,7 +2,8 @@
 // the counter PRNG, the Bernoulli knobs, the state-leaf, plan and parameter
 // layouts of the C entry points, request selection, and the per-lane
 // building blocks that the single-decree ticks have in common (reply
-// delivery, the learner table).
+// delivery, the learner table, and the bounded-delay channel's stamps,
+// which only the SynchPaxos kernel reads).
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
 // state in registers for a whole chunk: every helper here is force-inlined
@@ -31,9 +32,11 @@
 
 namespace {
 
-constexpr int kLeaves = 28;     // state leaves of a single-decree protocol, tick excluded
-constexpr int kMaxLeaves = 32;  // room for every protocol's leaves
-constexpr int kParams = 22;
+constexpr int kLeaves = 28;        // state leaves of a single-decree protocol, tick excluded
+constexpr int kStampedLeaves = 30;  // the same with the two buffers' delay stamps
+constexpr int kMaxLeaves = 32;     // room for every protocol's leaves
+constexpr int kParams = 27;
+constexpr int32_t kInt32Max = 2147483647;
 constexpr int kThreads = 128;
 constexpr int32_t kInt32Min = -2147483647 - 1;
 constexpr int32_t kBallotLimit = (1 << 15) - 1;  // report-time ballot limit
@@ -42,15 +45,19 @@ constexpr int kMaxProposers = 8;                 // core/ballot.py
 // Stream ids (core/streams.py).
 constexpr uint32_t kSel = 0, kBusy = 1, kDeliver = 2, kDupReq = 3,
                    kDupRep = 4, kKeepProm = 5, kKeepAccd = 6, kKeepP1 = 7,
-                   kKeepP2 = 8, kBackoff = 9;
+                   kKeepP2 = 8, kBackoff = 9, kDelayBits = 13, kLatBits = 14;
 
 // The leaves every protocol shares, in flatten order after its 12 role
-// leaves (3 acceptor, 9 proposer): learner, requests, replies.
+// leaves (3 acceptor, 9 proposer): learner, requests, replies.  A state with
+// delay stamps has each buffer's `until` after its four leaves; its entry
+// point moves the two stamp leaves last (move_stamps_last), so these
+// indices hold for both layouts.
 enum SharedLeaf {
   kLtBal = 12, kLtVal, kLtMask, kChosen, kChosenVal, kChosenTick, kViolations,
   kEvictions,
   kRqBal, kRqV1, kRqV2, kRqPresent,
   kRpBal, kRpV1, kRpV2, kRpPresent,
+  kRqUntil, kRpUntil,
 };
 
 struct Leaves {
@@ -63,6 +70,7 @@ struct Plan {
   const uint8_t* equivocate;    // (A, I) bool
   const int32_t* pcrash_start;  // (P, I) proposer crash window (Multi-Paxos)
   const int32_t* pcrash_end;    // (P, I)
+  const int32_t* link_delay;    // (P, A, I) per-link latency cap (SynchPaxos), or null
 };
 
 // A Bernoulli knob: mode 0 = off (mask absent), 1 = draw against thr,
@@ -87,6 +95,10 @@ struct Params {
   int32_t q_fast;
   int32_t lease_len;  // Multi-Paxos progress lease
   int32_t log_total;  // Multi-Paxos global log length (0: the window is the log)
+  Knob delay;              // p_delay: mode 0 off, 1 draw (never "always")
+  int32_t delay_max;       // latency draw range, >= 1
+  int32_t delta;           // SynchPaxos synchrony window, >= 0
+  int32_t sp_unsafe_fast;  // SynchPaxos planted bug
 };
 
 __host__ __device__ constexpr int bit_length(int x) {
@@ -243,12 +255,12 @@ struct MsgBufs {
     }
   }
 
-  // Reply delivery: the replies not held this tick.  Returns them; the
-  // caller's `rp_next` becomes the presence after consuming them
-  // (duplicated replies stay).
+  // Reply delivery: the replies that have arrived (`ready`, the delay
+  // gate) and are not held this tick.  Returns them; the caller's `rp_next`
+  // becomes the presence after consuming them (duplicated replies stay).
   __device__ __forceinline__ uint32_t deliver(const Params& prm, const TickStream& ts,
-                                              uint32_t* rp_next) const {
-    uint32_t delivered = rp_present;
+                                              uint32_t* rp_next, uint32_t ready = ~0u) const {
+    uint32_t delivered = rp_present & ready;
     if (prm.hold.mode != 0) {
 #pragma unroll
       for (int j = 0; j < S; ++j)
@@ -270,6 +282,95 @@ struct MsgBufs {
     return select_request<P, A>(ts, rq_present, a);
   }
 };
+
+// The bounded-delay channel of a lane (transport.ready / send(until=) and
+// protocols.paxos.delay_stamps).  The stamps stay in global memory, in
+// place: a slot's stamp is written only when the slot is written and read
+// back only when it may have come due, so they come back byte for byte,
+// stale stamps of consumed slots included.  In registers: a bitmask per
+// buffer of the slots whose stamp is still ahead of the tick, and the
+// earliest such stamp; a slot is ready (deliverable, selectable) where its
+// bit is clear.  Every stamp read or written inside the tick loop counts
+// as a touch of the measuring build.
+template <int S>
+struct Stamps {
+  uint32_t rq_wait, rp_wait;
+  int32_t next_due;  // earliest stamp of a waiting slot; kInt32Max if none
+
+  __device__ __forceinline__ void load_from(const Leaves& L, int64_t n, int64_t i, int32_t tick) {
+    rq_wait = rp_wait = 0;
+    next_due = kInt32Max;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const int32_t uq = load<int32_t>(L, kRqUntil, j, n, i);
+      const int32_t up = load<int32_t>(L, kRpUntil, j, n, i);
+      if (uq > tick) {
+        rq_wait |= 1u << j;
+        next_due = min(next_due, uq);
+      }
+      if (up > tick) {
+        rp_wait |= 1u << j;
+        next_due = min(next_due, up);
+      }
+    }
+  }
+
+  // At the start of tick `tick` (readiness is tick >= until): release the
+  // waiting slots whose stamp has come.
+  __device__ __forceinline__ void refresh(const Leaves& L, int64_t n, int64_t i, int32_t tick,
+                                          DrawCount* draws) {
+    if (tick < next_due) return;
+    next_due = kInt32Max;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if ((rq_wait >> j) & 1u) {
+        draws->touch(1);
+        const int32_t u = load<int32_t>(L, kRqUntil, j, n, i);
+        if (u > tick) next_due = min(next_due, u); else rq_wait &= ~(1u << j);
+      }
+      if ((rp_wait >> j) & 1u) {
+        draws->touch(1);
+        const int32_t u = load<int32_t>(L, kRpUntil, j, n, i);
+        if (u > tick) next_due = min(next_due, u); else rp_wait &= ~(1u << j);
+      }
+    }
+  }
+
+  // Slot j of a buffer (leaf kRqUntil or kRpUntil) is written at `tick`
+  // with stamp u (0: deliverable at once).
+  __device__ __forceinline__ void write(const Leaves& L, int leaf, int j, int64_t n, int64_t i,
+                                        int32_t tick, int32_t u, DrawCount* draws) {
+    draws->touch(1);
+    store<int32_t>(L, leaf, j, n, i, u);
+    uint32_t& wait = leaf == kRqUntil ? rq_wait : rp_wait;
+    if (u > tick) {
+      wait |= 1u << j;
+      next_due = min(next_due, u);
+    } else {
+      wait &= ~(1u << j);
+    }
+  }
+};
+
+// The delay stamp of a send on edge (p, a) at `tick` (delay_stamps): kind
+// `kind` of direction `dir` (0 requests, 1 replies) draws at prefix
+// ((dir * 2 + kind) * P + p) * A + a.  tick + 1 + min(latency, cap) where
+// the link is slow (bit p * A + a of `slow`: cap > 0) and the delay draw
+// fires, else 0; the latency is 1 + (bits & 0x7FFFFFFF) % delay_max.  A
+// link that never delays draws nothing: its stamp is 0 whatever the draws.
+template <int P, int A>
+__device__ __forceinline__ int32_t delay_stamp(const Params& prm, const Plan& plan,
+                                               const TickStream& ts, uint32_t slow, int dir,
+                                               int kind, int p, int a, int64_t n, int64_t i,
+                                               int32_t tick) {
+  if (prm.delay.mode == 0 || !((slow >> (p * A + a)) & 1u)) return 0;
+  const int pos = ((dir * 2 + kind) * P + p) * A + a;
+  if (ts.bits(kDelayBits, pos) >= prm.delay.thr) return 0;
+  const uint32_t lat =
+      1u + (ts.bits(kLatBits, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
+  const int32_t cap = plan.link_delay[(p * A + a) * n + i];
+  return wrap_add(wrap_add(tick, 1), min(static_cast<int32_t>(lat), cap));
+}
 
 // The learner's bounded (ballot, value) -> voter-mask table of one lane.
 template <int K>
@@ -382,16 +483,20 @@ Knob knob(const long long* v) {
 // Unpack a C entry point's arguments: `leaves` and `plan` are host arrays
 // of device pointers (the protocol's `want_leaves` per-lane state leaves in
 // flatten order; crash_start, crash_end, equivocate, pcrash_start,
-// pcrash_end); `params` holds kParams integers in the order of the Python
-// wrapper (_kernel_params).  Returns cudaSuccess or cudaErrorInvalidValue.
+// pcrash_end, link_delay, the last null where the plan has none); `params`
+// holds kParams integers in the order of the Python wrapper
+// (_kernel_params).  A kernel that does not model the bounded delay
+// (`reads_delay` false) refuses p_delay.  Returns cudaSuccess or
+// cudaErrorInvalidValue.
 cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
-                      const long long* params, int n_params, Leaves* L, Plan* pl, Params* prm) {
+                      const long long* params, int n_params, Leaves* L, Plan* pl, Params* prm,
+                      bool reads_delay = false) {
   if (n_leaves != want_leaves || want_leaves > kMaxLeaves || n_params != kParams)
     return cudaErrorInvalidValue;
   for (int j = 0; j < n_leaves; ++j) L->p[j] = leaves[j];
   *pl = Plan{static_cast<const int32_t*>(plan[0]), static_cast<const int32_t*>(plan[1]),
              static_cast<const uint8_t*>(plan[2]), static_cast<const int32_t*>(plan[3]),
-             static_cast<const int32_t*>(plan[4])};
+             static_cast<const int32_t*>(plan[4]), static_cast<const int32_t*>(plan[5])};
   prm->n_inst = params[0];
   prm->block = static_cast<int32_t>(params[1]);
   prm->n_ticks = static_cast<int32_t>(params[2]);
@@ -410,9 +515,24 @@ cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
   prm->q_fast = static_cast<int32_t>(params[19]);
   prm->lease_len = static_cast<int32_t>(params[20]);
   prm->log_total = static_cast<int32_t>(params[21]);
-  if (prm->n_inst <= 0 || prm->block <= 0 || prm->n_inst % prm->block != 0 || prm->backoff_n < 1)
+  prm->delay = knob(params + 22);
+  prm->delay_max = static_cast<int32_t>(params[24]);
+  prm->delta = static_cast<int32_t>(params[25]);
+  prm->sp_unsafe_fast = static_cast<int32_t>(params[26]);
+  if (prm->n_inst <= 0 || prm->block <= 0 || prm->n_inst % prm->block != 0 || prm->backoff_n < 1 ||
+      prm->delay_max < 1 || prm->delta < 0 || prm->delay.mode == 2)
+    return cudaErrorInvalidValue;
+  if (prm->delay.mode != 0 && (!reads_delay || pl->link_delay == nullptr))
     return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// A stamped state's leaves arrive in flatten order, each buffer's `until`
+// after its four leaves; move the two stamp leaves last (SharedLeaf).
+void move_stamps_last(Leaves* L) {
+  void* rq_until = L->p[kRqBal + 4];
+  for (int j = kRqBal + 4; j < kRpUntil - 1; ++j) L->p[j] = L->p[j + 1];
+  L->p[kRqUntil] = rq_until;
 }
 
 // Grid size for one thread per lane.

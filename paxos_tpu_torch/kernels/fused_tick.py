@@ -18,6 +18,10 @@ the two packages.  The default block is the reference's per protocol:
 1024 for the single-decree protocols, which draw from the single-decree
 stream ids with ``counter_masks``, and 256 for Multi-Paxos, which draws
 from its own ids with ``mp_counter_masks``.
+
+Only the SynchPaxos kernel models the bounded-delay channel: it takes a
+state with or without ``until`` stamps (an instantiation each) and the
+plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
 """
 
 from __future__ import annotations
@@ -31,13 +35,15 @@ import torch
 from paxos_tpu_torch.core.fp_state import FastPaxosState
 from paxos_tpu_torch.core.mp_state import MultiPaxosState
 from paxos_tpu_torch.core.raft_state import RaftState
+from paxos_tpu_torch.core.sp_state import SynchPaxosState
 from paxos_tpu_torch.core.state import LaneState, PaxosState
-from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
+from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan, rate_threshold
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
 from paxos_tpu_torch.protocols.multipaxos import apply_tick_mp, mp_counter_masks
 from paxos_tpu_torch.protocols.paxos import apply_tick, check_supported, counter_masks
 from paxos_tpu_torch.protocols.raftcore import apply_tick_raft
+from paxos_tpu_torch.protocols.synchpaxos import apply_tick_sp
 
 DEFAULT_BLOCK = 1024
 
@@ -48,12 +54,15 @@ BALLOT_GROWTH_PER_TICK = 16
 # Shapes each CUDA kernel is instantiated for: (n_prop, n_acc, k_slots) of
 # config2/config4/config5 and config1, and (2, 3, 8), the three-acceptor
 # shape the reference's own kernel tests run (tests/test_fused.py);
+# SynchPaxos (n_prop, n_acc, k_slots, stamped) of config_delay_chaos (with
+# delay stamps) and of its delay-free runs, and three acceptors;
 # Multi-Paxos (n_prop, n_acc, log_len, k_slots) of config3, config3-long,
 # the reference tests' 4-slot window, and three acceptors.
 KERNEL_SHAPES = {
     "paxos": ((2, 5, 8), (1, 3, 8)),
     "fastpaxos": ((2, 5, 8), (2, 3, 8)),
     "raftcore": ((2, 5, 8), (2, 3, 8)),
+    "synchpaxos": ((2, 5, 8, 1), (2, 5, 8, 0), (2, 3, 8, 1)),
     "multipaxos": ((2, 5, 8, 4), (2, 5, 16, 4), (2, 5, 4, 4), (2, 3, 8, 4)),
 }
 
@@ -149,6 +158,12 @@ BINDINGS = {
     "raftcore": Binding(
         apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch"
     ),
+    # core/sp_state.py SP_LAYOUT: the single-decree widths; ``stamped`` (1
+    # when the buffers carry ``until``) picks the instantiation.
+    "synchpaxos": Binding(
+        apply_tick_sp, counter_masks, SynchPaxosState, "fused_synchpaxos_tick",
+        "fused_synchpaxos_launch", shape_fields=("n_prop", "n_acc", "k_slots", "stamped"),
+    ),
     # core/mp_state.py MP_LAYOUT: an 11-bit report limit in a 12-bit field.
     "multipaxos": Binding(
         apply_tick_mp, mp_counter_masks, MultiPaxosState, "fused_multipaxos_tick",
@@ -208,6 +223,14 @@ def _knob(p: float) -> tuple:
     return 1, cp.bern_threshold(p)
 
 
+def _delay_knob(p: float) -> tuple:
+    """(mode, uint32 threshold) of ``p_delay``: 0 off, 1 draw against the
+    reference's ``rate_threshold`` (float32-rounded; never "always")."""
+    if p <= 0.0:
+        return 0, 0
+    return 1, int(rate_threshold(p)) & cp.M32
+
+
 def _kernel_params(
     cfg: FaultConfig, n_inst: int, n_acc: int, block: int, n_ticks: int,
     seed: int, blk0: int, clamp_per_tick: bool,
@@ -225,15 +248,20 @@ def _kernel_params(
         *_knob(cfg.p_drop),
         cfg.q_fast or fast_quorum(n_acc),
         cfg.lease_len, cfg.log_total,
+        *_delay_knob(cfg.p_delay), max(cfg.delay_max, 1), max(cfg.delta, 0),
+        int(cfg.sp_unsafe_fast),
     ]
 
 
 # The plan leaves every kernel receives (the single-decree kernels ignore
-# the proposer crash windows).
-_PLAN_LEAVES = ("crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end")
+# the proposer crash windows; only SynchPaxos' reads link_delay, passed as
+# a null pointer when the plan has none).
+_PLAN_LEAVES = (
+    "crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end", "link_delay",
+)
 
 
-def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan) -> None:
+def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan, cfg: FaultConfig) -> None:
     shape = BINDINGS[protocol].kernel_shape(state)
     if shape not in KERNEL_SHAPES[protocol]:
         raise ValueError(
@@ -242,16 +270,21 @@ def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan) -> None
         )
     state.check_layout()
     acc, prop = (state.n_acc, state.n_inst), (state.n_prop, state.n_inst)
+    edge = (state.n_prop, state.n_acc, state.n_inst)
     for name, shape, dtype in (
         ("crash_start", acc, torch.int32), ("crash_end", acc, torch.int32),
         ("equivocate", acc, torch.bool), ("pcrash_start", prop, torch.int32),
-        ("pcrash_end", prop, torch.int32),
+        ("pcrash_end", prop, torch.int32), ("link_delay", edge, torch.int32),
     ):
         leaf = getattr(plan, name)
+        if leaf is None:
+            continue
         if leaf.shape != shape or leaf.dtype != dtype:
             raise ValueError(
                 f"plan leaf {name} {tuple(leaf.shape)} {leaf.dtype}, expected {shape} {dtype}"
             )
+    if cfg.p_delay > 0.0 and plan.link_delay is None:
+        raise ValueError("p_delay > 0 needs a plan with link_delay (the per-link latency caps)")
     for leaf in state.leaves() + plan.leaves():
         if leaf.device != state.device or not leaf.is_contiguous():
             raise ValueError("state and plan must be contiguous on one CUDA device")
@@ -267,7 +300,7 @@ def _fused_chunk(
     binding = BINDINGS[protocol]
     if not isinstance(state, binding.state_cls):
         raise TypeError(f"the {protocol} engine takes a {binding.state_cls.__name__}")
-    check_supported(cfg)
+    check_supported(cfg, protocol)
     if state.n_inst % block:
         raise ValueError(f"block={block} does not divide n_inst={state.n_inst}")
     if state.device.type == "cpu":
@@ -278,7 +311,7 @@ def _fused_chunk(
         )
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    _check_cuda_inputs(protocol, state, plan)
+    _check_cuda_inputs(protocol, state, plan, cfg)
     if n_ticks == 0:
         return state
     _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick)
@@ -298,9 +331,10 @@ def _launch(
     fn = _entry(protocol, defines)
     leaves = state.lane_leaves()
     ptrs = (ctypes.c_void_p * len(leaves))(*(t.data_ptr() for t in leaves))
-    plan_ptrs = (ctypes.c_void_p * len(_PLAN_LEAVES))(
-        *(getattr(plan, name).data_ptr() for name in _PLAN_LEAVES)
-    )
+    plan_ptrs = (ctypes.c_void_p * len(_PLAN_LEAVES))(*(
+        None if getattr(plan, name) is None else getattr(plan, name).data_ptr()
+        for name in _PLAN_LEAVES
+    ))
     params = _kernel_params(
         cfg, state.n_inst, state.n_acc, block, n_ticks, seed, blk0,
         clamp_per_tick,
@@ -337,8 +371,8 @@ def draw_census(
         raise ValueError("draw_census counts a CUDA kernel's draws: it needs a CUDA state")
     if not isinstance(state, BINDINGS[protocol].state_cls):
         raise TypeError(f"the {protocol} engine takes a {BINDINGS[protocol].state_cls.__name__}")
-    check_supported(cfg)
-    _check_cuda_inputs(protocol, state, plan)
+    check_supported(cfg, protocol)
+    _check_cuda_inputs(protocol, state, plan, cfg)
     _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick, COUNT_DRAWS)
     state.tick.add_(n_ticks)
     torch.cuda.synchronize(state.device)
@@ -423,10 +457,28 @@ def fused_multipaxos_chunk(
 
 fused_multipaxos_chunk.launches = 0
 
+
+def fused_synchpaxos_chunk(
+    state: SynchPaxosState, seed: int, plan: FaultPlan, cfg: FaultConfig,
+    n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
+    clamp_per_tick: bool = False,
+) -> SynchPaxosState:
+    """:func:`fused_paxos_chunk` for SynchPaxos
+    (``csrc/fused_synchpaxos_tick.cu``), on a state with or without delay
+    stamps; ``p_delay > 0`` needs a plan with ``link_delay``."""
+    return _fused_chunk(
+        "synchpaxos", fused_synchpaxos_chunk, state, seed, plan, cfg, n_ticks,
+        block, blk0, clamp_per_tick,
+    )
+
+
+fused_synchpaxos_chunk.launches = 0
+
 FUSED_WRAPPERS = {
     "paxos": fused_paxos_chunk,
     "fastpaxos": fused_fastpaxos_chunk,
     "raftcore": fused_raftcore_chunk,
+    "synchpaxos": fused_synchpaxos_chunk,
     "multipaxos": fused_multipaxos_chunk,
 }
 

@@ -29,7 +29,7 @@ from paxos_tpu_torch.core.messages import ACCEPT, ACCEPTED, PREPARE, PROMISE
 from paxos_tpu_torch.core.state import DONE, P1, P2
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels.quorum import fast_quorum, majority, quorum_reached
-from paxos_tpu_torch.protocols.paxos import TickMasks, check_supported
+from paxos_tpu_torch.protocols.paxos import TickMasks, check_no_stamps, check_supported
 from paxos_tpu_torch.transport import inmemory as net
 from paxos_tpu_torch.utils.bitops import popcount
 
@@ -38,7 +38,8 @@ def apply_tick_fast(
     state: FastPaxosState, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig
 ) -> FastPaxosState:
     """The pure Fast Paxos transition for one tick over pre-sampled masks."""
-    check_supported(cfg)
+    check_supported(cfg, "fastpaxos")
+    check_no_stamps(state, "fastpaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
     quorum = majority(n_acc)

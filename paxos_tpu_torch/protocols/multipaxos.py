@@ -81,7 +81,7 @@ class MPTickMasks:
 def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=None) -> MPTickMasks:
     """Draw a tick's masks from the counter PRNG (``tick_seed`` and
     ``block`` as in :func:`paxos_tpu_torch.protocols.paxos.counter_masks`)."""
-    check_supported(cfg)
+    check_supported(cfg, "multipaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
     slot = (2, n_prop, n_acc, n_inst)
@@ -111,7 +111,7 @@ def apply_tick_mp(
     state: MultiPaxosState, masks: MPTickMasks, plan: FaultPlan, cfg: FaultConfig
 ) -> MultiPaxosState:
     """The Multi-Paxos transition for one tick over pre-sampled masks."""
-    check_supported(cfg)
+    check_supported(cfg, "multipaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
     n_slots = state.log_len

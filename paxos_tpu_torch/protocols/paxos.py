@@ -8,8 +8,9 @@ CUDA kernel (``kernels/fused_tick``) replays them tick by tick.
 
 Ported knobs: ``p_drop``, ``p_dup``, ``p_idle``, ``p_hold``, ``timeout``,
 ``backoff_max``, ``ballot_stride``, ``q1``, ``q2``, and the plan's crash
-windows and equivocation flags.  Any other knob raises
-``NotImplementedError`` naming its ROADMAP item.
+windows and equivocation flags; for SynchPaxos also the bounded delay
+(``p_delay``, ``delay_max``: :func:`delay_stamps`) and ``sp_unsafe_fast``.
+Any other knob raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from paxos_tpu_torch.core.ballot import ballot_round, make_ballot
 from paxos_tpu_torch.core.messages import ACCEPT, ACCEPTED, PREPARE, PROMISE
 from paxos_tpu_torch.core.state import DONE, P1, P2, PaxosState
 from paxos_tpu_torch.core.streams import SINGLE_DECREE_STREAMS as S
-from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
+from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan, bits_below, rate_threshold
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
 from paxos_tpu_torch.transport import inmemory as net
@@ -41,19 +42,37 @@ _UNPORTED_KNOBS = {
     "backoff_skew": "queue A slice 5 item 12 (gray plan fields)",
     "stale_k": "queue A slice 5 item 12 (stale-snapshot recovery)",
     "amnesia": "queue A slice 5 item 12 (amnesia on recovery)",
-    "p_delay": "queue A slice 5 item 12 (bounded-delay link_delay)",
+}
+# Knobs only the SynchPaxos tick models so far.
+_SYNCHPAXOS_ONLY_KNOBS = {
+    "p_delay": "queue A slice 5 item 12 (bounded delay on the other ticks)",
+    "sp_unsafe_fast": "queue A item 10 (SynchPaxos' planted bug, read by no other tick)",
 }
 
 
-def check_supported(cfg: FaultConfig) -> None:
-    """Raise ``NotImplementedError`` for a knob the port does not model."""
+def check_supported(cfg: FaultConfig, protocol: str = "paxos") -> None:
+    """Raise ``NotImplementedError`` for a knob ``protocol``'s tick does
+    not model in the port."""
+    knobs = dict(_UNPORTED_KNOBS)
+    if protocol != "synchpaxos":
+        knobs.update(_SYNCHPAXOS_ONLY_KNOBS)
     default = FaultConfig()
-    for knob, item in _UNPORTED_KNOBS.items():
+    for knob, item in knobs.items():
         if getattr(cfg, knob) != getattr(default, knob):
             raise NotImplementedError(
                 f"FaultConfig.{knob}={getattr(cfg, knob)!r} is not ported to "
-                f"paxos_tpu_torch yet (ROADMAP {item})"
+                f"paxos_tpu_torch's {protocol} tick yet (ROADMAP {item})"
             )
+
+
+def check_no_stamps(state, protocol: str) -> None:
+    """Raise unless the state's buffers carry no delay stamps: only the
+    SynchPaxos tick reads ``until``."""
+    if state.requests.until is not None or state.replies.until is not None:
+        raise NotImplementedError(
+            f"the {protocol} tick does not read delay stamps (MsgBuf.until) yet "
+            f"(ROADMAP {_SYNCHPAXOS_ONLY_KNOBS['p_delay']})"
+        )
 
 
 @dataclasses.dataclass
@@ -70,6 +89,8 @@ class TickMasks:
     keep_p1: Optional[torch.Tensor]  # (P, A, I) bool PREPARE not dropped
     keep_p2: Optional[torch.Tensor]  # (P, A, I) bool ACCEPT not dropped
     backoff: torch.Tensor  # (P, I) int32 retry backoff draw
+    delay_bits: Optional[torch.Tensor] = None  # (2, 2, P, A, I) int32 (p_delay)
+    lat_bits: Optional[torch.Tensor] = None  # (2, 2, P, A, I) int32 latency draw
 
 
 def counter_masks(
@@ -79,9 +100,10 @@ def counter_masks(
 
     ``tick_seed`` is a scalar stream seed (one stream block covering every
     lane) or a per-lane ``(n_inst,)`` tensor from ``counter_prng.lane_seeds``
-    with ``block`` lanes per stream block.
+    with ``block`` lanes per stream block.  It refuses the knobs that the
+    tick of ``state``'s protocol does not model.
     """
-    check_supported(cfg)
+    check_supported(cfg, state.protocol)
     _, n_prop, n_acc, n_inst = state.requests.present.shape
     slot = (2, n_prop, n_acc, n_inst)
     edge = (n_prop, n_acc, n_inst)
@@ -102,7 +124,40 @@ def counter_masks(
             tick_seed, S["BACKOFF"], (n_prop, n_inst), max(cfg.backoff_max, 1),
             **kw,
         ),
+        delay_bits=(
+            cp.counter_bits(tick_seed, S["DELAY_BITS"], (2,) + slot, **kw)
+            if cfg.p_delay > 0.0 else None
+        ),
+        lat_bits=(
+            cp.counter_bits(tick_seed, S["LAT_BITS"], (2,) + slot, **kw)
+            if cfg.p_delay > 0.0 else None
+        ),
     )
+
+
+def delay_stamps(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> tuple:
+    """This tick's bounded-delay stamps (``p_delay``).
+
+    Each send edge is delayed with probability ``p_delay`` by a latency
+    ``1 + lat_bits % delay_max``, capped by the plan's per-link
+    ``link_delay`` (cap 0: the link never delays).  Returns ``(until_req,
+    until_rep)``, each (2, P, A, I) int32: the earliest delivery tick of a
+    send on that edge, 0 where it is deliverable at once; ``(None, None)``
+    when delay is off.
+    """
+    if cfg.p_delay <= 0.0:
+        return None, None
+    if plan.link_delay is None:
+        raise ValueError("p_delay > 0 needs a plan with link_delay (the per-link latency caps)")
+    # The sign bit is masked before the modulo, so the latency is in [1, delay_max].
+    lat = 1 + (masks.lat_bits & 0x7FFFFFFF) % max(cfg.delay_max, 1)
+    ext = torch.where(
+        bits_below(masks.delay_bits, rate_threshold(cfg.p_delay)),
+        torch.minimum(lat, plan.link_delay[None, None]),
+        0,
+    ).to(torch.int32)  # (2, 2, P, A, I); axis 0: 0 = requests, 1 = replies
+    until = torch.where(ext > 0, tick + 1 + ext, 0).to(torch.int32)
+    return until[0], until[1]
 
 
 def apply_tick(
@@ -110,6 +165,7 @@ def apply_tick(
 ) -> PaxosState:
     """The pure protocol transition for one tick over pre-sampled masks."""
     check_supported(cfg)
+    check_no_stamps(state, "paxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
     quorum = majority(n_acc)

@@ -29,7 +29,7 @@ from paxos_tpu_torch.core.raft_state import (
 )
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
-from paxos_tpu_torch.protocols.paxos import TickMasks, check_supported
+from paxos_tpu_torch.protocols.paxos import TickMasks, check_no_stamps, check_supported
 from paxos_tpu_torch.transport import inmemory as net
 
 
@@ -37,7 +37,8 @@ def apply_tick_raft(
     state: RaftState, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig
 ) -> RaftState:
     """The pure Raft-core transition for one tick over pre-sampled masks."""
-    check_supported(cfg)
+    check_supported(cfg, "raftcore")
+    check_no_stamps(state, "raftcore")
     n_acc, n_inst = state.acceptor.voted.shape
     n_prop = state.proposer.bal.shape[0]
     quorum = majority(n_acc)

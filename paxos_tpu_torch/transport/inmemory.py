@@ -2,8 +2,10 @@
 
 "In flight" means a populated slot of a :class:`MsgBuf`.  Requests: each
 (instance, acceptor) selects at most one present request per tick, by the
-highest random score.  Replies: delivered all at once, minus holds.  The
-functions are pure and take pre-sampled masks.
+highest random score.  Replies: delivered all at once, minus holds.  A
+buffer with ``until`` stamps (bounded delay) holds a slot back until its
+stamp's tick (:func:`ready`).  The functions are pure and take pre-sampled
+masks.
 """
 
 from __future__ import annotations
@@ -41,6 +43,14 @@ def select_from_scores(
     return sel
 
 
+def ready(buf: MsgBuf, tick) -> Optional[torch.Tensor]:
+    """(2, P, A, I) bool: the slot's delay window has passed (``tick >=
+    until``); None when the buffer carries no stamps (delay off)."""
+    if buf.until is None:
+        return None
+    return tick >= buf.until
+
+
 def send(
     buf: MsgBuf,
     kind: int,
@@ -49,11 +59,15 @@ def send(
     v1: torch.Tensor,
     v2: torch.Tensor,
     keep: Optional[torch.Tensor] = None,
+    until: Optional[torch.Tensor] = None,
 ) -> MsgBuf:
     """Write messages of ``kind`` into their slots (overwriting), minus drops.
 
     ``send_mask`` is (P, A, I); payloads broadcast against it; ``keep``
-    False = the send is dropped.
+    False = the send is dropped.  A buffer with stamps gets ``until`` (P,
+    A, I), the earliest delivery tick, on the written slots only, or 0
+    (deliverable at once) where no stamp is given; a buffer without stamps
+    ignores ``until``.
     """
     if keep is not None:
         send_mask = send_mask & keep
@@ -61,11 +75,15 @@ def send(
         torch.arange(buf.bal.shape[0], device=buf.bal.device) == kind
     ).view(-1, 1, 1, 1)
     write = kind_hot & send_mask[None]
+    new_until = buf.until
+    if buf.until is not None:
+        new_until = torch.where(write, 0 if until is None else until, buf.until)
     return MsgBuf(
         bal=torch.where(write, bal, buf.bal),
         v1=torch.where(write, v1, buf.v1),
         v2=torch.where(write, v2, buf.v2),
         present=buf.present | write,
+        until=new_until,
     )
 
 
@@ -75,4 +93,4 @@ def consume(
     """Clear slots processed this tick, except duplicated ones (``stay``)."""
     if stay is not None:
         taken = taken & ~stay
-    return MsgBuf(buf.bal, buf.v1, buf.v2, buf.present & ~taken)
+    return MsgBuf(buf.bal, buf.v1, buf.v2, buf.present & ~taken, buf.until)

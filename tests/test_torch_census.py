@@ -4,19 +4,23 @@ A fused kernel's operation bound counts the int32 work of one tick with
 ``scripts/roofline.py``'s census (recorded in ``ROOFLINE.json``), one case
 per main path.  The census counts the vectorised tick, which draws every
 mask element and (Multi-Paxos) rewrites every slot-array element every
-tick; the kernels draw a mask, and touch a slot, only where the outcome
-depends on it, so the bound counts those shares for what a kernel's
-measuring build counts, at the census's cost per element.
-``chip_smoke.MASK_CENSUS`` and ``chip_smoke.SLOT_CENSUS`` pin the shares
-per case; these tests recompute them with the JAX package: the mask share
-with ``counter_masks`` (Multi-Paxos: ``mp_counter_masks``) and the
-census's own counting rules, the slot share from the census of the same
-config at twice the window, since the census is linear in the window
-length.  All at the fused block the census is taken at, the protocol's
+tick, and (SynchPaxos with delay) computes every delay stamp every tick;
+the kernels draw a mask, and touch a slot or a stamp, only where the
+outcome depends on it, so the bound counts those shares for what a
+kernel's measuring build counts, at the census's cost per element.
+``chip_smoke.MASK_CENSUS``, ``chip_smoke.SLOT_CENSUS`` and
+``chip_smoke.STAMP_CENSUS`` pin the shares per case; these tests recompute
+them with the JAX package: the mask share with ``counter_masks``
+(Multi-Paxos: ``mp_counter_masks``) and the census's own counting rules,
+the slot share from the census of the same config at twice the window,
+since the census is linear in the window length, and the stamp share from
+the census of the same config with p_delay 0, net of both mask shares.  A case ``ROOFLINE.json`` lacks (SynchPaxos on config_delay_chaos)
+is recorded in ``chip_smoke.CENSUS_CASES`` and recomputed here with
+``tick_census``.  All at the fused block the census is taken at, the protocol's
 default.  The recorded ``alu_per_lane_tick`` is already net of the packed
 codec's share (scripts/roofline.py records ``(alu - codec_alu) / block``),
-so with every mask drawn and every slot touched the count is the recorded
-ALU + reduction census.
+so with every mask drawn and every slot (stamp) touched the count is the
+recorded ALU + reduction census.
 """
 
 import dataclasses
@@ -58,9 +62,9 @@ def _census_config(case):
     return cfg if mp.sweep_index is None else cfg[mp.sweep_index]
 
 
-@pytest.mark.parametrize("case", sorted(chip_smoke.MASK_CENSUS))
-def test_mask_census_matches_jax_counter_masks(case):
-    cfg = _census_config(case)
+def _mask_share(cfg):
+    """(operations, mask elements) per lane-tick of ``cfg``'s counter_masks,
+    ``cfg`` one block wide."""
     _, mask_fn, _ = fused_fns(cfg.protocol)
     state = j_init_state(cfg)
 
@@ -71,26 +75,39 @@ def test_mask_census_matches_jax_counter_masks(case):
         jax.make_jaxpr(masks)(state).jaxpr, {"alu": 0, "reduce": 0, "layout": 0}
     )
     elems = sum(int(np.prod(m.shape)) for m in jax.tree.leaves(jax.eval_shape(masks, state)))
-    block = _block(case)
-    ops = (counts["alu"] + counts["reduce"]) / block
-    assert chip_smoke.MASK_CENSUS[case] == (ops, elems / block)
+    return (counts["alu"] + counts["reduce"]) / cfg.n_inst, elems / cfg.n_inst
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.MASK_CENSUS))
+def test_mask_census_matches_jax_counter_masks(case):
+    assert chip_smoke.MASK_CENSUS[case] == _mask_share(_census_config(case))
+
+
+def _roofline_json():
+    return {c["case"]: c for c in json.loads((REPO / "ROOFLINE.json").read_text())["cases"]}
 
 
 def _recorded():
-    return {c["case"]: c for c in json.loads((REPO / "ROOFLINE.json").read_text())["cases"]}
+    """Every census case: ROOFLINE.json's and chip_smoke's own."""
+    return {**_roofline_json(), **chip_smoke.CENSUS_CASES}
 
 
 def test_census_cases_are_recorded():
     cases = _recorded()
+    assert not set(_roofline_json()) & set(chip_smoke.CENSUS_CASES)  # one source each
+    assert all(case in cases for case in CASES)
     assert sorted(CASES) == sorted(chip_smoke.MASK_CENSUS)
-    assert sorted(chip_smoke.SLOT_CENSUS) == sorted(
-        c for c, path in CASES.items() if chip_smoke.MAIN_PATHS[path].protocol == "multipaxos"
-    )
+    for share, protocol in ((chip_smoke.SLOT_CENSUS, "multipaxos"),
+                            (chip_smoke.STAMP_CENSUS, "synchpaxos")):
+        assert sorted(share) == sorted(
+            c for c, path in CASES.items() if chip_smoke.MAIN_PATHS[path].protocol == protocol
+        )
+    assert chip_smoke.TOUCH_CENSUS == {**chip_smoke.SLOT_CENSUS, **chip_smoke.STAMP_CENSUS}
     for case in CASES:
         assert cases[case]["block"] == _block(case)
         mask_ops, _ = chip_smoke.MASK_CENSUS[case]
-        slot_ops, _ = chip_smoke.SLOT_CENSUS.get(case, (0.0, 0.0))
-        assert 0 < mask_ops + slot_ops < chip_smoke.tick_ops_per_lane(case)
+        touch_ops, _ = chip_smoke.TOUCH_CENSUS.get(case, (0.0, 0.0))
+        assert 0 < mask_ops + touch_ops < chip_smoke.tick_ops_per_lane(case)
 
 
 def _per_lane_tick(case, log_len):
@@ -100,9 +117,13 @@ def _per_lane_tick(case, log_len):
     return c["alu_per_lane_tick"] + c["reduce_per_lane_tick"]
 
 
+def _elems_per_lane(cfg):
+    """State elements per lane of ``cfg``, one block wide."""
+    return sum(int(np.prod(x.shape)) for x in jax.tree.leaves(j_init_state(cfg))) / cfg.n_inst
+
+
 def _slot_elems_per_lane(case, log_len):
-    cfg = dataclasses.replace(_census_config(case), log_len=log_len)
-    return sum(int(np.prod(x.shape)) for x in jax.tree.leaves(j_init_state(cfg))) / _block(case)
+    return _elems_per_lane(dataclasses.replace(_census_config(case), log_len=log_len))
 
 
 @pytest.mark.parametrize("case", sorted(chip_smoke.SLOT_CENSUS))
@@ -122,13 +143,14 @@ def test_slot_census_matches_jax_window_scaling(case):
 @pytest.mark.parametrize("case", sorted(chip_smoke.MASK_CENSUS))
 def test_every_mask_drawn_counts_alu_plus_reduce(case):
     """The codec share is not subtracted a second time: with every mask
-    drawn and every slot touched the count is the recorded alu + reduce."""
+    drawn and every slot (stamp) touched the count is the recorded alu +
+    reduce."""
     c = _recorded()[case]
     want = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"]
     _, mask_elems = chip_smoke.MASK_CENSUS[case]
-    _, slot_elems = chip_smoke.SLOT_CENSUS.get(case, (0.0, 0.0))
+    _, touch_elems = chip_smoke.TOUCH_CENSUS.get(case, (0.0, 0.0))
     assert chip_smoke.tick_ops_per_lane(case) == want
-    got = chip_smoke.tick_ops_per_lane(case, mask_elems, slot_elems)
+    got = chip_smoke.tick_ops_per_lane(case, mask_elems, touch_elems)
     assert got == pytest.approx(want, rel=1e-12)
 
 
@@ -138,10 +160,46 @@ def test_lazy_census_counts_the_draws(case):
     leaves the rest of it."""
     ops = chip_smoke.tick_ops_per_lane(case)
     mask_ops, mask_elems = chip_smoke.MASK_CENSUS[case]
-    slot_ops, slot_elems = chip_smoke.SLOT_CENSUS.get(case, (0.0, 0.0))
+    touch_ops, touch_elems = chip_smoke.TOUCH_CENSUS.get(case, (0.0, 0.0))
     assert chip_smoke.tick_ops_per_lane(case, mask_elems) == pytest.approx(ops, rel=1e-12)
     assert chip_smoke.tick_ops_per_lane(case, 0.0) == pytest.approx(ops - mask_ops, rel=1e-12)
     assert chip_smoke.tick_ops_per_lane(case, 0.0, 0.0) == pytest.approx(
-        ops - mask_ops - slot_ops, rel=1e-12
+        ops - mask_ops - touch_ops, rel=1e-12
     )
-    assert chip_smoke.tick_ops_per_lane(case, None, slot_elems) == pytest.approx(ops, rel=1e-12)
+    assert chip_smoke.tick_ops_per_lane(case, None, touch_elems) == pytest.approx(ops, rel=1e-12)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.CENSUS_CASES))
+def test_chip_smoke_census_case_matches_jax_tick_census(case):
+    """The recorded case is scripts/roofline.py's tick_census of its main
+    path's config at the protocol's block; for config_delay_chaos the
+    delta-violating regime counts the same, so one case bounds both."""
+    cfg = _census_config(case)
+    want = chip_smoke.CENSUS_CASES[case]
+    got = _roofline().tick_census(cfg, _block(case))
+    for key in ("alu_per_lane_tick", "codec_alu_per_lane_tick", "reduce_per_lane_tick",
+                "state_bytes_per_lane", "unpacked_bytes_per_lane"):
+        assert got[key] == want[key], key
+    assert want["block"] == _block(case) and want["case"] == case
+    if cfg.protocol == "synchpaxos":
+        violate = JC.config_delay_chaos(_block(case), violate_delta=True)
+        again = _roofline().tick_census(violate, _block(case))
+        assert all(again[k] == got[k] for k in ("alu_per_lane_tick", "reduce_per_lane_tick"))
+
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.STAMP_CENSUS))
+def test_stamp_census_matches_jax_delay_off(case):
+    """The stamp share is what turning the delay on adds to the census
+    beyond the mask share of the delay draws, over the stamp elements the
+    state gains; the same in both delay regimes."""
+    block = _block(case)
+    for violate in (False, True):
+        on = JC.config_delay_chaos(block, violate_delta=violate)
+        off = dataclasses.replace(on, fault=dataclasses.replace(on.fault, p_delay=0.0))
+        net = {}
+        for name, cfg in (("on", on), ("off", off)):
+            c = _roofline().tick_census(cfg, block)
+            net[name] = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"] - _mask_share(cfg)[0]
+        elems = _elems_per_lane(on) - _elems_per_lane(off)
+        assert chip_smoke.STAMP_CENSUS[case] == (net["on"] - net["off"], elems)

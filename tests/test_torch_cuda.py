@@ -1,4 +1,4 @@
-"""The fused kernels (K1 to K3, K5) against their plain versions on the card.
+"""The fused kernels (K1 to K5) against their plain versions on the card.
 
 These tests need a CUDA GPU and skip without one; this module imports
 nothing of JAX, so it runs on a machine that has only the port's stack:
@@ -13,6 +13,10 @@ with a nonzero block offset, and must reproduce the golden digest.  K5
 (Multi-Paxos) is held so at every instantiation: config3 with crash
 windows, three acceptors with equivocators, long-log windows of 4 and 16
 slots compacted between chunks, and near-limit ballots clamped at 2047.
+K4 (SynchPaxos) is held so with and without delay stamps, with delta
+violated and the planted bug, at three acceptors and under the clamp; a
+plan without ``link_delay`` under ``p_delay > 0`` is refused, and the
+other kernels refuse ``p_delay``.
 """
 
 import dataclasses
@@ -27,12 +31,15 @@ from chip_smoke import (
     MASK_CENSUS,
     MP_GOLDEN,
     SLOT_CENSUS,
+    SP_GOLDEN,
     config_plan,
     main_config,
     main_plan,
     near_limit_state,
     near_limit_state_mp,
     plain_chunk,
+    sp_checker_config,
+    sp_delay_off_config,
 )
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
@@ -164,3 +171,78 @@ def test_draw_census_build_follows_the_kernel(path):
         assert touches == 0  # the single-decree state sits in registers
     again = tfused.draw_census(mp.protocol, trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
     assert again == (draws, touches)  # the counts are cleared after every read
+
+
+@pytest.mark.cuda
+def test_synchpaxos_kernel_matches_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.fused_synchpaxos_chunk
+    chaos = main_config("synchpaxos", 8192, 7)
+    three = dataclasses.replace(main_config("synchpaxos", 4096, 3), n_acc=3)
+    cases = (
+        (chaos, 128, None, {}),  # (2,5,8) with stamps
+        (TC.config_delay_chaos(4096, 4, violate_delta=True), 96, None, {}),
+        (sp_checker_config(4096), 96, None, {}),
+        (sp_delay_off_config(4096, 5), 96, None, {}),  # (2,5,8) without stamps
+        (three, 96, None, {}),  # (2,3,8) with stamps
+        (chaos, 64, near_limit_state(chaos, 4094), dict(blk0=2, clamp_per_tick=True)),
+    )
+    for c, ticks, init, kw in cases:
+        init = trun.init_state(c, "cuda") if init is None else init
+        assert init.stamped == int(c.fault.p_delay > 0)
+        plan = main_plan(c) or trun.init_plan(c, "cuda")
+        plain = plain_chunk(c, init, plan, ticks, 1024, **kw)
+        before = wrapper.launches
+        kern = wrapper(init.clone(), c.seed, plan, c.fault, ticks, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _assert_same(kern, plain)
+        if kw:
+            assert int(kern.proposer.bal.max()) == LIMIT
+    c = main_config("synchpaxos", 256, 7)
+    st = wrapper(trun.init_state(c, "cuda"), 7, config_plan(c, 7), c.fault, 32, block=256)
+    assert _digest(st) == SP_GOLDEN
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_model():
+    """K4 refuses a plan without link_delay under p_delay > 0, in the
+    wrapper and in its C entry point; K1 to K3 and K5 refuse p_delay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cfg = main_config("synchpaxos", 1024, 1)
+    bare = tfused.FaultPlan.none(1024, 5, 2, device="cuda")
+    with pytest.raises(ValueError, match="link_delay"):
+        tfused.fused_synchpaxos_chunk(trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tfused._launch("synchpaxos", trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8, 1024, 0, False)
+    for path in PROTOCOLS + ["config3"]:
+        c = main_config(path, 1024, 1)
+        delayed = dataclasses.replace(c.fault, p_delay=0.3)
+        protocol = MAIN_PATHS[path].protocol
+        plan = main_plan(c) or trun.init_plan(c, "cuda")
+        plan.link_delay = torch.ones((c.n_prop, c.n_acc, c.n_inst), dtype=torch.int32, device="cuda")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfused.FUSED_WRAPPERS[protocol](trun.init_state(c, "cuda"), 1, plan, delayed, 8)
+        block = tfused.BINDINGS[protocol].block
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tfused._launch(protocol, trun.init_state(c, "cuda"), 1, plan, delayed, 8, block, 0, False)
+
+
+@pytest.mark.cuda
+def test_synchpaxos_draw_census_build_follows_the_kernel():
+    """K4's measuring build advances the state as the kernel does and
+    counts its draws and its stamp touches (a refresh reads, a send writes,
+    at most 4 * 2PA a lane-tick)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cfg = main_config("synchpaxos", 8192, 5)
+    plan, ticks = main_plan(cfg), 48
+    kern = tfused.fused_synchpaxos_chunk(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
+    counted = trun.init_state(cfg, "cuda")
+    draws, touches = tfused.draw_census("synchpaxos", counted, cfg.seed, plan, cfg.fault, ticks)
+    _assert_same(counted, kern)
+    lane_ticks = cfg.n_inst * ticks
+    assert 0 < draws <= MASK_CENSUS[MAIN_PATHS["synchpaxos"].census][1] * lane_ticks
+    assert 0 < touches <= 4 * 2 * cfg.n_prop * cfg.n_acc * lane_ticks

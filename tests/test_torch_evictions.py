@@ -1,10 +1,12 @@
 """The main paths' evicting stream blocks, vouched for by the JAX package.
 
 ``chip_smoke.py`` runs each main path (config2, the config5 sweep's Fast
-Paxos and Raft-core, config3 and config3-long: 1<<20 lanes, seed 0, 4096
-ticks, config3-long 1024) through the port's kernels on the card and checks
-the two lowest-numbered stream blocks that evicted against the digests it
-pins (``EVICTION_PINS``).  This test computes those digests with the JAX
+Paxos and Raft-core, config3, config3-long and SynchPaxos on
+config_delay_chaos: 1<<20 lanes, seed 0, 4096 ticks, config3-long 1024)
+through the port's kernels on the card and checks the two lowest-numbered
+stream blocks that evicted against the digests it pins
+(``EVICTION_PINS``), and stream block 0 of the Multi-Paxos and SynchPaxos
+paths (``BLOCK0_DIGESTS``).  This test computes those digests with the JAX
 package's own ``reference_chunk``: one stream block (1024 lanes, 256 for
 Multi-Paxos, on the block's slice of chip_smoke's numpy plan) at its
 stream block id, the whole campaign straight (config3-long: compacted
@@ -103,13 +105,14 @@ def _mp_block_digest(path: str, blk: int):
 def test_multipaxos_blocks_match_jax_package(path):
     """Stream block 0 of each Multi-Paxos main path (chip_smoke pins its
     digest, evicting or not) and any evicting block it pins."""
-    want = {0: ([], chip_smoke.MP_BLOCK0_DIGESTS[path]), **PINS[path][1]}
+    want = {0: ([], chip_smoke.BLOCK0_DIGESTS[path]), **PINS[path][1]}
     for blk, pinned in want.items():
         assert _mp_block_digest(path, blk) == pinned, blk
 
 
 @pytest.mark.parametrize(
-    "protocol", [p for p, (_, blocks) in PINS.items() if blocks and chip_smoke.MAIN_PATHS[p].protocol != "multipaxos"]
+    "protocol",
+    [p for p, (_, blocks) in PINS.items() if blocks and p in ("paxos", "fastpaxos", "raftcore")],
 )
 def test_evicting_blocks_match_jax_package(protocol):
     cfg = _config(protocol)
@@ -126,3 +129,39 @@ def test_evicting_blocks_match_jax_package(protocol):
         for leaf in leaves:
             h.update(np.ascontiguousarray(leaf[b]).tobytes())
         assert h.hexdigest()[:16] == want, blk
+
+
+def _sp_blocks(blocks: list):
+    """Stream blocks ``blocks`` of the SynchPaxos main path, by the JAX
+    package, each on its slice of chip_smoke's numpy plan (one vmapped
+    run): per block, its evicting lanes and state digest."""
+    tcfg = chip_smoke.main_config("synchpaxos")
+    jcfg = JC.config_delay_chaos(BLOCK, 0)
+    full = [x.numpy() for x in chip_smoke.config_plan(tcfg, 0, "cpu").leaves()]
+    plans = jax.tree.unflatten(
+        jax.tree.structure(j_init_plan(jcfg)),
+        [np.stack([x[..., b * BLOCK:(b + 1) * BLOCK] for b in blocks]) for x in full],
+    )
+    apply_fn, mask_fn, _ = fused_fns("synchpaxos")
+    run = jax.jit(jax.vmap(
+        lambda st, plan, blk: reference_chunk(st, 0, plan, jcfg.fault, TICKS, apply_fn, mask_fn, blk_id=blk),
+        in_axes=(None, 0, 0),
+    ))
+    out = run(j_init_state(jcfg), plans, np.array(blocks, np.int32))
+    leaves = [np.asarray(x) for x in jax.tree.leaves(out)]
+    assert int(np.asarray(out.proposer.bal).max()) < LIMIT  # clamps were the identity
+    got = {}
+    for b, blk in enumerate(blocks):
+        h = hashlib.sha256()
+        for leaf in leaves:
+            h.update(np.ascontiguousarray(leaf[b]).tobytes())
+        got[blk] = (np.nonzero(np.asarray(out.learner.evictions)[b])[0].tolist(), h.hexdigest()[:16])
+    return got
+
+
+def test_synchpaxos_blocks_match_jax_package():
+    """Stream block 0 of the SynchPaxos main path (it evicts nowhere) and
+    the two lowest evicting blocks it pins, with their evicting lanes."""
+    assert chip_smoke.MAIN_PATHS["synchpaxos"].ticks == TICKS
+    want = {0: ([], chip_smoke.BLOCK0_DIGESTS["synchpaxos"]), **PINS["synchpaxos"][1]}
+    assert _sp_blocks(sorted(want)) == want

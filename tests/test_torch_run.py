@@ -117,8 +117,9 @@ def test_config_acceptance_matches_reference():
         trun.init_state(bad, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.run(TC.config2_dueling_drop(64), engine="xla", device="cpu")
+    cfg = TC.config2_dueling_drop(64)  # bounded delay: SynchPaxos only so far
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.run(dataclasses.replace(TC.config2_dueling_drop(64), protocol="synchpaxos"), device="cpu")
+        trun.run(dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_delay=0.2)), device="cpu")
 
 
 def test_run_without_device_raises_when_no_cuda():
@@ -143,7 +144,7 @@ for cfg in (C.config2_dueling_drop(128, 1),) + C.config5_sweep(128, 1)[1:]:
     report = run(cfg, total_ticks=16, device="cpu")
     assert report["ticks"] == 16 and report["violations"] == 0, report
 import chip_smoke  # its numpy plans need nothing of JAX either
-for cfg in (C.config3_multipaxos(128, 1), C.config3_long(128, 1)):
+for cfg in (C.config3_multipaxos(128, 1), C.config3_long(128, 1), C.config_delay_chaos(128, 1)):
     report = run(cfg, total_ticks=16, plan=chip_smoke.config_plan(cfg, 1, "cpu"), device="cpu")
     assert report["ticks"] == 16 and report["violations"] == 0, report
 print("ok")
