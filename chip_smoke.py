@@ -9,7 +9,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 
 1. build: the six kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
-   together; each kernel's ``ptxas -v`` registers and spills;
+   together; each kernel's ``ptxas -v`` registers and spills, and K5's
+   launch geometry per instantiation (lanes a CUDA block, staged rows,
+   shared bytes, blocks an SM holds);
 2. ceiling: the int32 probe (K6) against its plain version byte for byte,
    then the card's int32 operation rate from two iteration counts, printed
    beside the published peak that the bounds divide by;
@@ -27,7 +29,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    draws and slot-array (delay-stamp) touches of the timed ticks counted
    by each kernel's measuring build for its operation bound; timed so
    in the steady state and on the first chunk, where the lanes still
-   send (for K4 in the delta-violating regime too);
+   send (for K4 in the delta-violating regime too); K5's column load and
+   store alone on config3 and config3-long (a launch of 0 ticks);
 5. main paths: the flagship campaign (config2), the config5 sweep's Fast
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
@@ -342,6 +345,29 @@ def phase_build() -> dict:
         for ln in ptxas[name]:
             log(f"ptxas {name}: {ln}")
     return {"build_s": secs, "ptxas": ptxas}
+
+
+def phase_geometry() -> list:
+    """K5's launch geometry at every instantiation: lanes a CUDA block,
+    staged rows a lane, shared bytes a block, and the blocks one SM holds
+    (the card's occupancy query)."""
+    from paxos_tpu_torch.kernels.fused_tick import MP_STAGING, mp_blocks_per_sm
+
+    out = []
+    for shape, st in MP_STAGING.items():
+        blocks = mp_blocks_per_sm(shape)
+        out.append({
+            "shape": list(shape), "threads": st.threads, "stage_prom": st.stage_prom,
+            "staged_rows": st.rows, "smem_bytes": st.smem_bytes,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * st.threads // 32,
+        })
+        log(f"geometry multipaxos {shape}: {st.threads} lanes a block, {st.rows} staged rows "
+            f"a lane (PROMISE payloads {'staged' if st.stage_prom else 'in global memory'}), "
+            f"{st.smem_bytes} B shared a block, {blocks} blocks an SM "
+            f"({blocks * st.threads // 32} warps)")
+        if blocks < 1:
+            raise AssertionError(f"K5 {shape} at {st} fits no block on an SM")
+    return out
 
 
 def phase_ceiling() -> dict:
@@ -715,6 +741,8 @@ def phase_compare(ceiling: float) -> dict:
                 f"{path} full width, first chunk", cfg, main_plan(cfg), 64, reps=5,
                 ceiling=ceiling, census=mp.census, from_init=True,
             )
+    for path in ("config3", "config3long"):
+        full[path]["load_store_ms"] = time_load_store(path)
     # K4's busiest chunk: the first of the delta-violating regime, where the
     # fast path misses its window and lanes fall back to classic rounds.
     cfgv = C.config_delay_chaos(FULL_LANES, 7, violate_delta=True)
@@ -723,6 +751,34 @@ def phase_compare(ceiling: float) -> dict:
         reps=5, ceiling=ceiling, census=MAIN_PATHS["synchpaxos"].census, from_init=True,
     )
     return full
+
+
+def time_load_store(path: str, reps: int = 5) -> float:
+    """K5's column load and store alone, ms: a launch of 0 ticks on main
+    path ``path``'s config at full width from the state after one chunk
+    reads and writes every lane's state once and runs no tick, so the state
+    must come back byte for byte.  The launches go around the wrapper and
+    so are not counted."""
+    from paxos_tpu_torch.harness.run import init_state
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, _launch
+
+    cfg = main_config(path, FULL_LANES, 7)
+    block, plan = BINDINGS["multipaxos"].block, main_plan(cfg)
+    state = init_state(cfg, "cuda")
+    _launch("multipaxos", state, cfg.seed, plan, cfg.fault, MAIN_CHUNK, block, 0, False)
+    state.tick.add_(MAIN_CHUNK)
+    before = state.clone()
+
+    def load_store():
+        _launch("multipaxos", state, cfg.seed, plan, cfg.fault, 0, block, 0, False)
+
+    load_store()  # untimed: the first launch loads the kernel
+    _, ms = timed(load_store, reps)
+    if max_abs_err(state.leaves(), before.leaves()) != 0:
+        raise AssertionError(f"K5's 0-tick launch changed the {path} state")
+    log(f"{path} K5 column load and store alone (0 ticks): {ms:.3f} ms a launch "
+        f"(mean of {reps}), state unchanged")
+    return ms
 
 
 def check_evictions(path: str, report: dict, state) -> dict:
@@ -927,6 +983,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     built = phase_build()
+    geometry = phase_geometry()
     ceiling = phase_ceiling()
     phase_golden()
     full = phase_compare(ceiling["ops_per_s"])
@@ -977,6 +1034,8 @@ def main() -> int:
         if len(paths) > 1:
             entry["launches_by_path"] = {p: measured[p]["main_path_launches"] for p in paths}
             entry.update({p: measured[p] for p in paths[1:]})
+        if protocol == "multipaxos":
+            entry["instantiations"] = geometry  # threads, smem_bytes, blocks_per_sm each
         kernels.append(entry)
     # K6 measures the card; no main path launches it (each path's check
     # above), so its count is read from the last main path's run.

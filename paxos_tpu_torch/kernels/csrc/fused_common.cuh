@@ -6,14 +6,16 @@
 // which only the SynchPaxos kernel reads).
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
-// state in registers for a whole chunk: every helper here is force-inlined
-// and every loop has compile-time bounds, so arrays stay in registers.
+// state in registers for a whole chunk (the Multi-Paxos kernel keeps its
+// slot arrays in shared memory beside them): every helper here is
+// force-inlined and every loop has compile-time bounds, so arrays stay in
+// registers.
 //
 // A measuring build (nvcc -DFUSED_COUNT_DRAWS) also counts every counter-
 // PRNG draw a kernel makes, summed over lanes and ticks: the masks are drawn
 // lazily, so that count is the PRNG work a run's data needs, which an
 // operation census of the tick counts in place of drawing every mask.  A
-// kernel that keeps slot-indexed arrays in global memory (Multi-Paxos) also
+// kernel that keeps slot-indexed arrays out of registers (Multi-Paxos) also
 // counts the slot-array elements it touches, for the same reason.  The
 // timed build compiles none of it.
 //
@@ -535,9 +537,9 @@ void move_stamps_last(Leaves* L) {
   L->p[kRqUntil] = rq_until;
 }
 
-// Grid size for one thread per lane.
-inline unsigned grid_for(int64_t n_inst) {
-  return static_cast<unsigned>((n_inst + kThreads - 1) / kThreads);
+// Grid size for one thread per lane, `threads` lanes a block.
+inline unsigned grid_for(int64_t n_inst, int threads = kThreads) {
+  return static_cast<unsigned>((n_inst + threads - 1) / threads);
 }
 
 }  // namespace

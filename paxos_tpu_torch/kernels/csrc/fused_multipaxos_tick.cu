@@ -11,16 +11,29 @@
 // about 6800 int32 operations per lane-tick with every mask drawn, so at 64
 // ticks per chunk the kernel is bound by integer operations, not bytes.
 //
-// Design: one thread per instance (lane), as K1 to K3, but the state does
+// Design: one thread per instance (lane), as K1 to K4, but the state does
 // not fit in registers (about 350 32-bit words at 8 slots, 570 at 16), so
-// it is split by access pattern:
-//  - in registers for the whole chunk: the per-lane scalars (promises,
-//    the proposers' fields, the request buffer, the PROMISE ballots, the
-//    ACCEPTED buffer, the chosen-slot bitmask and the counters);
-//  - in global memory, read and written in place at [row * n_inst + lane]
-//    (instance-minor, so a warp's accesses coalesce): the slot-indexed
-//    arrays (acceptor log, PROMISE payloads, recovery arrays, the learner's
-//    per-slot tables, chosen values and ticks).
+// it is split by access pattern, and each part stays where it is for the
+// whole chunk:
+//  - registers: the per-lane scalars (promises, the proposers' fields, the
+//    request buffer, the PROMISE ballots, the ACCEPTED buffer, the
+//    chosen-slot bitmask and the counters);
+//  - shared memory: the slot-indexed arrays that a tick reads or writes at
+//    a data-dependent slot (acceptor log, recovery rows, the learner's
+//    per-slot tables, the voter masks packed four to a word, chosen values
+//    and ticks) and, where the occupancy allows, the PROMISE payloads
+//    (Staged; the instantiations' table K5_INSTANCES below).  Each
+//    thread owns one column of the block's buffer: its word r sits at
+//    smem[r * B + t], B the block's lane count (a multiple of 32), so a
+//    row picked by the lane's own slot falls in bank t % 32 and a warp's
+//    accesses are free of bank conflicts whatever slot each lane is on.
+//    The column is loaded once at the start of the chunk and stored once
+//    at its end, from and to [row * n_inst + lane] (one 128-B line per row
+//    across a warp).  A thread touches only its own column, so the kernel
+//    needs no barrier, and lanes past n_inst return at once;
+//  - global memory, in place: the PROMISE payloads where they are not
+//    staged, read and written in loops over the slots only (an election's
+//    copy and fold), so a warp's accesses coalesce.
 // A slot array is touched only where the tick reads or writes it: a PROMISE
 // payload when one is sent or delivered to a candidate, the learner rows of
 // the slots this tick's accept events hit, the recovery row a leader
@@ -28,13 +41,26 @@
 // branch costs more than a masked write on the TPU; on this card a per-lane
 // branch is cheap.
 //
+// What sets the pace on the card: a lane's tick is one long chain of
+// dependent integer operations and branches, so the time falls with the
+// warps an SM holds (at most 8 at 255 registers a thread) and with the
+// length of the chain, not with bytes.  Hence the packed voter masks (8
+// warps at a 16-slot window, where shared memory would allow 6), loops over
+// the slots that stay rolled (a row index costs nothing in shared memory,
+// and unrolled they made the code larger than the instruction cache), and
+// fewer, shorter draw sites: draws grouped where they are independent
+// (survivors, firing) with the knob's mode tested once, loops over the set
+// bits only (firing, select_present), and one reply draw an acceptor.
+//
 // Semantics follow the plain PyTorch version (protocols/multipaxos.py and
 // check/mp_safety.py) exactly; the PRNG, stream positions and argument
-// layout are in fused_common.cuh.
+// layout are in fused_common.cuh.  Stream positions are keyed by the global
+// lane index, whatever the CUDA block's size.
 //  - masks are drawn lazily, where they can change the outcome (the
 //    election jitter only when the lease timer sits inside the jitter's
 //    range); the result is the same as drawing them all.  The measuring
-//    build counts the draws and the slot-array elements each tick touches.
+//    build counts the draws and the slot-array elements each tick touches,
+//    wherever the element lives.
 //  - reply delivery and consume come first; candidates fold the pre-tick
 //    PROMISE payloads before this tick's PROMISEs overwrite them; PROMISE
 //    carries the log as it stood before this tick's accept write; the
@@ -58,6 +84,7 @@ constexpr int32_t kFollow = 0, kCandidate = 1, kLead = 2;
 constexpr int32_t kMpBallotLimit = (1 << 11) - 1;  // Multi-Paxos report-time limit
 constexpr int kMpLeaves = 29;                      // per-lane state leaves
 constexpr int32_t kValMask = 0xFFFF;               // bv_val of a packed pair
+constexpr int kMaxDevices = 64;                    // devices whose shared-memory limit is cached
 
 // Multi-Paxos stream ids (core/streams.py MULTI_PAXOS_STREAMS); SEL and
 // BUSY share the single-decree ids.
@@ -88,17 +115,186 @@ __device__ __forceinline__ int32_t pack_bv(int32_t bal, int32_t val) {
   return static_cast<int32_t>((static_cast<uint32_t>(bal) << 16) | static_cast<uint32_t>(val));
 }
 
-template <int P, int A, int LOG, int K>
-__global__ void __launch_bounds__(kThreads)
+// A lane's staged rows, in column order: each leaf's rows in the leaf's own
+// row order (the slot index minor), the PROMISE payloads last where PROM.
+// The learner's voter masks are acceptor bitmasks, below 2^A <= 2^8 in
+// every state the engine reaches, so the K <= 4 masks of a slot share one
+// word, mask k in bits [8k, 8k + 8): a slot's masks are read and written
+// at once, and the column is L * (K - 1) words shorter.  Mirrored by
+// fused_tick.mp_staged_rows.
+template <int P, int A, int LOG, int K, bool PROM>
+struct Staged {
+  static_assert(K <= 4 && A <= 8, "a slot's voter masks must fit one word");
+  static constexpr int kLog = 0;                        // acceptor.log (A, L)
+  static constexpr int kRecov = kLog + A * LOG;         // proposer.recov_bv (P, L)
+  static constexpr int kLtBv = kRecov + P * LOG;        // learner.lt_bv (L, K)
+  static constexpr int kLtMask = kLtBv + LOG * K;       // learner.lt_mask (L, K), packed
+  static constexpr int kChosenVal = kLtMask + LOG;      // learner.chosen_val (L)
+  static constexpr int kChosenTick = kChosenVal + LOG;  // learner.chosen_tick (L)
+  static constexpr int kPromBv = kChosenTick + LOG;     // promises.p_bv (P, A, L), if PROM
+  static constexpr int kRows = kPromBv + (PROM ? P * A * LOG : 0);
+};
+
+// The bits of `eligible` (bit a: prefix base + a, a < N) at which
+// bern_not(knob) survives: each draws once when the knob draws, all survive
+// when it is off, none when it always fires.  The knob's mode is tested
+// once, so the draws are independent of one another and may overlap.
+template <int N>
+__device__ __forceinline__ uint32_t survivors(const TickStream& ts, const Knob& k, uint32_t stream,
+                                              int base, uint32_t eligible) {
+  if (k.mode == 0) return eligible;
+  uint32_t out = 0;
+  if (k.mode == 1) {
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+      if ((eligible >> a) & 1u) out |= (ts.bits(stream, base + a) >= k.thr ? 1u : 0u) << a;
+  }
+  return out;
+}
+
+// The bits of `present` at which bern(knob) fires (prefix = bit index), the
+// knob on: one draw a set bit when it draws, all when it always fires.
+__device__ __forceinline__ uint32_t firing(const TickStream& ts, const Knob& k, uint32_t stream,
+                                           uint32_t present) {
+  if (k.mode == 2) return present;
+  uint32_t out = 0;
+  for (uint32_t m = present; m != 0; m &= m - 1) {
+    const int j = __ffs(m) - 1;
+    if (ts.bits(stream, j) < k.thr) out |= 1u << j;
+  }
+  return out;
+}
+
+// select_request for acceptor a, drawing over its present request slots
+// only: the scores are distinct (kp in the low bits), so the order of the
+// draws does not change the winner.
+template <int P, int A>
+__device__ __forceinline__ int select_present(const TickStream& ts, uint32_t present, int a) {
+  constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;
+  constexpr int32_t kScoreMask = ~((1 << kNbits) - 1);
+  uint32_t mine = 0;  // bit kp: slot kp * A + a is present
+#pragma unroll
+  for (int kp = 0; kp < 2 * P; ++kp) mine |= ((present >> (kp * A + a)) & 1u) << kp;
+  int32_t fmax = kInt32Min;
+  int win = -1;
+  for (uint32_t m = mine; m != 0; m &= m - 1) {
+    const int kp = __ffs(m) - 1;
+    const int32_t score = (static_cast<int32_t>(ts.bits(kSel, kp * A + a)) & kScoreMask) | kp;
+    if (score > fmax) {
+      fmax = score;
+      win = kp;
+    }
+  }
+  return win;
+}
+
+// One thread's column of the block's shared buffer: word r at p[r * B].
+template <int B>
+struct Column {
+  int32_t* p;  // the buffer + threadIdx.x
+  __device__ __forceinline__ int32_t& operator[](int r) const { return p[r * B]; }
+};
+
+// Rows [0, ROWS) of a leaf to (from) the column from row OFF on.
+template <int ROWS, int OFF, int B>
+__device__ __forceinline__ void load_rows(const Column<B>& col, const Leaves& L, int leaf,
+                                          int64_t n, int64_t i) {
+  const int32_t* g = static_cast<const int32_t*>(L.p[leaf]) + i;
+#pragma unroll 8
+  for (int r = 0; r < ROWS; ++r) col[OFF + r] = g[r * n];
+}
+
+template <int ROWS, int OFF, int B>
+__device__ __forceinline__ void store_rows(const Column<B>& col, const Leaves& L, int leaf,
+                                           int64_t n, int64_t i) {
+  int32_t* g = static_cast<int32_t*>(L.p[leaf]) + i;
+#pragma unroll 8
+  for (int r = 0; r < ROWS; ++r) g[r * n] = col[OFF + r];
+}
+
+// The (LOG, K) voter masks to (from) one packed word a slot from row OFF on.
+template <int LOG, int K, int OFF, int B>
+__device__ __forceinline__ void load_masks(const Column<B>& col, const Leaves& L, int leaf,
+                                           int64_t n, int64_t i) {
+  const int32_t* g = static_cast<const int32_t*>(L.p[leaf]) + i;
+#pragma unroll 4
+  for (int s = 0; s < LOG; ++s) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) w |= (static_cast<uint32_t>(g[(s * K + k) * n]) & 0xFFu) << (8 * k);
+    col[OFF + s] = static_cast<int32_t>(w);
+  }
+}
+
+template <int LOG, int K, int OFF, int B>
+__device__ __forceinline__ void store_masks(const Column<B>& col, const Leaves& L, int leaf,
+                                            int64_t n, int64_t i) {
+  int32_t* g = static_cast<int32_t*>(L.p[leaf]) + i;
+#pragma unroll 4
+  for (int s = 0; s < LOG; ++s) {
+    const uint32_t w = static_cast<uint32_t>(col[OFF + s]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) g[(s * K + k) * n] = static_cast<int32_t>((w >> (8 * k)) & 0xFFu);
+  }
+}
+
+template <int P, int A, int LOG, int K, int B, bool PROM>
+__device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& L, int64_t n,
+                                            int64_t i) {
+  using G = Staged<P, A, LOG, K, PROM>;
+  load_rows<A * LOG, G::kLog>(col, L, Mp::kLog, n, i);
+  load_rows<P * LOG, G::kRecov>(col, L, Mp::kRecov, n, i);
+  load_rows<LOG * K, G::kLtBv>(col, L, Mp::kLtBv, n, i);
+  load_masks<LOG, K, G::kLtMask>(col, L, Mp::kLtMask, n, i);
+  load_rows<LOG, G::kChosenVal>(col, L, Mp::kChosenVal, n, i);
+  load_rows<LOG, G::kChosenTick>(col, L, Mp::kChosenTick, n, i);
+  if constexpr (PROM) load_rows<P * A * LOG, G::kPromBv>(col, L, Mp::kPromBv, n, i);
+}
+
+template <int P, int A, int LOG, int K, int B, bool PROM>
+__device__ __forceinline__ void store_column(const Column<B>& col, const Leaves& L, int64_t n,
+                                             int64_t i) {
+  using G = Staged<P, A, LOG, K, PROM>;
+  store_rows<A * LOG, G::kLog>(col, L, Mp::kLog, n, i);
+  store_rows<P * LOG, G::kRecov>(col, L, Mp::kRecov, n, i);
+  store_rows<LOG * K, G::kLtBv>(col, L, Mp::kLtBv, n, i);
+  store_masks<LOG, K, G::kLtMask>(col, L, Mp::kLtMask, n, i);
+  store_rows<LOG, G::kChosenVal>(col, L, Mp::kChosenVal, n, i);
+  store_rows<LOG, G::kChosenTick>(col, L, Mp::kChosenTick, n, i);
+  if constexpr (PROM) store_rows<P * A * LOG, G::kPromBv>(col, L, Mp::kPromBv, n, i);
+}
+
+// Row `row` (= j * LOG + l) of the PROMISE payloads: in the column where
+// staged, else in place in global memory.
+template <int P, int A, int LOG, int K, int B, bool PROM>
+__device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves& L, int row,
+                                              int64_t n, int64_t i) {
+  if constexpr (PROM) {
+    return col[Staged<P, A, LOG, K, PROM>::kPromBv + row];
+  } else {
+    return at<int32_t>(L, Mp::kPromBv, row, n, i);
+  }
+}
+
+template <int P, int A, int LOG, int K, int B, bool PROM>
+__global__ void __launch_bounds__(B)
 fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
+  static_assert(B % 32 == 0, "a block is whole warps");
+  using G = Staged<P, A, LOG, K, PROM>;
   constexpr int S = 2 * P * A;  // request slots, index (kind * P + p) * A + a
   constexpr int E = P * A;      // reply slots, index p * A + a
   constexpr int kQuorum = A / 2 + 1;
   static_assert(S <= 32 && LOG <= 32 && K <= 32, "bitmasks must fit 32 bits");
+  extern __shared__ int32_t smem[];  // G::kRows * B words
 
   const int64_t n = prm.n_inst;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
+  const Column<B> col{smem + threadIdx.x};
+  load_column<P, A, LOG, K, B, PROM>(col, L, n, i);
+  auto prom_bv = [&](int row) -> int32_t& {
+    return prom_word<P, A, LOG, K, B, PROM>(col, L, row, n, i);
+  };
 
   // ---- Load the lane's register-resident state once. ----
   int32_t promised[A], crash_start[A], crash_end[A];
@@ -164,11 +360,8 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     // ---- Reply delivery decided and cleared before any new send. ----
     uint32_t prom_del = prom_present, accd_del = accd_present;
     if (prm.hold.mode != 0) {
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        if (((prom_del >> j) & 1u) && ts.fires_at(prm.hold, kPromDeliver, j)) prom_del &= ~(1u << j);
-        if (((accd_del >> j) & 1u) && ts.fires_at(prm.hold, kAccdDeliver, j)) accd_del &= ~(1u << j);
-      }
+      prom_del &= ~firing(ts, prm.hold, kPromDeliver, prom_present);
+      accd_del &= ~firing(ts, prm.hold, kAccdDeliver, accd_present);
     }
     prom_present &= ~prom_del;
     accd_present &= ~accd_del;
@@ -189,25 +382,28 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       heard[p] |= static_cast<int32_t>(pv);
       if (pv != 0) {
         draws.touch(LOG * (1 + __popc(pv)));  // recovery row, the voters' payloads
-#pragma unroll
+#pragma unroll 4
         for (int l = 0; l < LOG; ++l) {
-          int32_t r = at<int32_t>(L, Mp::kRecov, p * LOG + l, n, i);
+          int32_t r = col[G::kRecov + p * LOG + l];
 #pragma unroll
           for (int a = 0; a < A; ++a)
-            if ((pv >> a) & 1u) r = max(r, at<int32_t>(L, Mp::kPromBv, (p * A + a) * LOG + l, n, i));
-          at<int32_t>(L, Mp::kRecov, p * LOG + l, n, i) = r;
+            if ((pv >> a) & 1u) r = max(r, prom_bv((p * A + a) * LOG + l));
+          col[G::kRecov + p * LOG + l] = r;
         }
       }
     }
 
     // ---- Acceptor half-tick: at most one request per acceptor. ----
-    uint32_t rq_next = rq_present, ev_flag = 0;
+    uint32_t rq_next = rq_present, ev_flag = 0, alive = 0;
     int32_t ev_bal[A], ev_slot[A], ev_val[A];
 #pragma unroll
+    for (int a = 0; a < A; ++a) alive |= (!(crash_start[a] <= tick && tick < crash_end[a]) ? 1u : 0u) << a;
+    // The acceptors that take a request this tick: alive and not idle.
+    const uint32_t awake = survivors<A>(ts, prm.idle, kBusy, 0, alive);
+#pragma unroll
     for (int a = 0; a < A; ++a) {
-      const bool alive = !(crash_start[a] <= tick && tick < crash_end[a]);
       int sel = -1;
-      if (alive && ts.survives_at(prm.idle, kBusy, a)) sel = select_request<P, A>(ts, rq_present, a);
+      if ((awake >> a) & 1u) sel = select_present<P, A>(ts, rq_present, a);
       int32_t mb = 0, mv = 0, ms = 0;
 #pragma unroll
       for (int kp = 0; kp < 2 * P; ++kp) {
@@ -227,22 +423,26 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       int32_t pr = ok_prep_h ? mb : promised[a];
       if (ok_acc_h) pr = max(pr, mb);
 
-      // Replies to the selected sender (post-consume buffers).  A PROMISE
+      // Replies to the selected sender (post-consume buffers), edge
+      // rj = sender * A + a: one drop draw where a reply is due.  A PROMISE
       // carries the log before any accept write: an acceptor that takes a
       // PREPARE this tick writes no log slot.
+      const int rj = (is_prep ? sel : sel - P) * A + a;
+      const bool keep_prom = ok_prep && ts.survives_at(prm.drop, kMpKeepProm, rj);
+      const bool keep_accd = ok_acc && ts.survives_at(prm.drop, kMpKeepAccd, rj);
+      if (keep_prom) {
+        draws.touch(eq ? LOG : 2 * LOG);  // the payload, and the log it copies
+#pragma unroll 1
+        for (int l = 0; l < LOG; ++l) prom_bv(rj * LOG + l) = eq ? 0 : col[G::kLog + a * LOG + l];
+      }
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const int j = p * A + a;
-        if (sel == p && ok_prep && ts.survives_at(prm.drop, kMpKeepProm, j)) {
+        if (keep_prom && j == rj) {
           prom_present |= 1u << j;
           prom_bal[j] = mb;
-          draws.touch(eq ? LOG : 2 * LOG);  // the payload, and the log it copies
-#pragma unroll
-          for (int l = 0; l < LOG; ++l)
-            at<int32_t>(L, Mp::kPromBv, j * LOG + l, n, i) =
-                eq ? 0 : at<int32_t>(L, Mp::kLog, a * LOG + l, n, i);
         }
-        if (sel == P + p && ok_acc && ts.survives_at(prm.drop, kMpKeepAccd, j)) {
+        if (keep_accd && j == rj) {
           accd_present |= 1u << j;
           accd_bal[j] = mb;
           accd_slot[j] = ms;
@@ -250,7 +450,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         }
       }
       if (ok_acc && ms >= 0 && ms < LOG) {
-        at<int32_t>(L, Mp::kLog, a * LOG + ms, n, i) = pack_bv(mb, mv);
+        col[G::kLog + a * LOG + ms] = pack_bv(mb, mv);
         draws.touch(1);
       }
       // Consume the selected request unless it is duplicated.
@@ -276,7 +476,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       if (!(((ev_flag >> a) & 1u) && ev_bal[a] > 0 && s >= 0 && s < LOG)) continue;
       if ((chosen >> s) & 1u) {
         draws.touch(1);
-        if (ev_val[a] == at<int32_t>(L, Mp::kChosenVal, s, n, i)) continue;
+        if (ev_val[a] == col[G::kChosenVal + s]) continue;
       }
       fold |= 1u << a;
     }
@@ -289,10 +489,11 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       int32_t rbv[K], rmask[K];
       uint32_t pre = 0;
       draws.touch(2 * K);  // the slot's table rows, read and written back
+      const uint32_t masks = static_cast<uint32_t>(col[G::kLtMask + s]);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        rbv[k] = at<int32_t>(L, Mp::kLtBv, s * K + k, n, i);
-        rmask[k] = at<int32_t>(L, Mp::kLtMask, s * K + k, n, i);
+        rbv[k] = col[G::kLtBv + s * K + k];
+        rmask[k] = static_cast<int32_t>((masks >> (8 * k)) & 0xFFu);
         pre |= (__popc(static_cast<uint32_t>(rmask[k])) >= kQuorum ? 1u : 0u) << k;
       }
       // This slot's events, in acceptor order (earlier acceptors hit other
@@ -330,7 +531,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
           ++evictions;
         }
       }
-      uint32_t newly = 0;
+      uint32_t newly = 0, packed = 0;
       int32_t first_val = 0;
 #pragma unroll
       for (int k = K - 1; k >= 0; --k) {
@@ -338,19 +539,20 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
           newly |= 1u << k;
           first_val = rbv[k] & kValMask;
         }
-        at<int32_t>(L, Mp::kLtBv, s * K + k, n, i) = rbv[k];
-        at<int32_t>(L, Mp::kLtMask, s * K + k, n, i) = rmask[k];
+        col[G::kLtBv + s * K + k] = rbv[k];
+        packed |= static_cast<uint32_t>(rmask[k]) << (8 * k);
       }
+      col[G::kLtMask + s] = static_cast<int32_t>(packed);
       if (newly != 0) {
         int32_t cv = first_val;
         if ((chosen >> s) & 1u) {
-          cv = at<int32_t>(L, Mp::kChosenVal, s, n, i);
+          cv = col[G::kChosenVal + s];
           draws.touch(1);
         } else {
           draws.touch(2);
           chosen |= 1u << s;
-          at<int32_t>(L, Mp::kChosenVal, s, n, i) = first_val;
-          at<int32_t>(L, Mp::kChosenTick, s, n, i) = tick;
+          col[G::kChosenVal + s] = first_val;
+          col[G::kChosenTick + s] = tick;
         }
 #pragma unroll
         for (int k = 0; k < K; ++k)
@@ -403,8 +605,8 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       if (p1_done || slot_done || start_elec || cand_fail || demote) heard[p] = 0;
       if (start_elec) {
         draws.touch(LOG);
-#pragma unroll
-        for (int l = 0; l < LOG; ++l) at<int32_t>(L, Mp::kRecov, p * LOG + l, n, i) = 0;
+#pragma unroll 1
+        for (int l = 0; l < LOG; ++l) col[G::kRecov + p * LOG + l] = 0;
       }
       if (start_elec || p1_done || slot_done) lt = 0;
       if (cand_fail || demote) {
@@ -415,9 +617,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 
       // New candidates broadcast Prepare(b) once.
       if (start_elec) {
+        const uint32_t kept = survivors<A>(ts, prm.drop, kKeepPrep, p * A, (1u << A) - 1);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
-          if (ts.survives_at(prm.drop, kKeepPrep, p * A + a)) {
+          if ((kept >> a) & 1u) {
             const int j = (0 * P + p) * A + a;
             rq_bal[j] = bal_next;
             rq_v1[j] = 0;
@@ -432,13 +635,14 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
                            (prm.log_total == 0 || wrap_add(base, ci) < prm.log_total);
       if (is_lead) {
         const int32_t slot = min(ci, LOG - 1);
-        const int32_t rbv = slot >= 0 ? at<int32_t>(L, Mp::kRecov, p * LOG + slot, n, i) : 0;
+        const int32_t rbv = slot >= 0 ? col[G::kRecov + p * LOG + slot] : 0;
         draws.touch(slot >= 0 ? 1 : 0);
         // Commands are keyed by global slot: own_slot_value(pid, base + slot).
         const int32_t pval = rbv > 0 ? (rbv & kValMask) : (p + 1) * 1000 + wrap_add(base, slot);
+        const uint32_t kept = survivors<A>(ts, prm.drop, kKeepAcc, p * A, (1u << A) - 1);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
-          if (ts.survives_at(prm.drop, kKeepAcc, p * A + a)) {
+          if ((kept >> a) & 1u) {
             const int j = (1 * P + p) * A + a;
             rq_bal[j] = bal_next;
             rq_v1[j] = pval;
@@ -490,27 +694,96 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     at<int32_t>(L, Mp::kAccdSlot, j, n, i) = accd_slot[j];
     at<int32_t>(L, Mp::kAccdVal, j, n, i) = accd_val[j];
   }
+  store_column<P, A, LOG, K, B, PROM>(col, L, n, i);
 }
 
-template <int P, int A, int LOG, int K>
-cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick, const Params& prm,
-                   cudaStream_t stream) {
-  fused_multipaxos_kernel<P, A, LOG, K>
-      <<<grid_for(prm.n_inst), kThreads, 0, stream>>>(L, plan, tick, prm);
-  return cudaGetLastError();
+// Dynamic shared memory of `bytes` a block for `kernel` on the current
+// device: the limit is raised (and the carveout set to the most shared
+// memory) the first time a size is asked for on a device.  `allowed` is the
+// instantiation's own cache.  A refused request clears the runtime's
+// last error, so that it does not fail the next launch, and is returned.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev] == bytes) return cudaSuccess;
+  rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return rc;
+  }
+  allowed[dev] = bytes;
+  return cudaSuccess;
+}
+
+// One instantiation: its kernel with `smem` bytes of dynamic shared memory
+// a block (at least its staged rows'), ready to launch; `launch` runs it,
+// `occupancy` asks how many of its blocks an SM holds.
+template <int P, int A, int LOG, int K, int B, bool PROM>
+struct Inst {
+  static constexpr int kNeed = Staged<P, A, LOG, K, PROM>::kRows * B * 4;
+
+  static cudaError_t prepare(int smem) {
+    static int allowed[kMaxDevices] = {};
+    if (smem < kNeed) return cudaErrorInvalidValue;
+    return allow_smem(fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, smem, allowed);
+  }
+
+  static cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick,
+                            const Params& prm, int smem, cudaStream_t stream) {
+    const cudaError_t rc = prepare(smem);
+    if (rc != cudaSuccess) return rc;
+    fused_multipaxos_kernel<P, A, LOG, K, B, PROM>
+        <<<grid_for(prm.n_inst, B), B, smem, stream>>>(L, plan, tick, prm);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t occupancy(int smem, int* blocks_per_sm) {
+    const cudaError_t rc = prepare(smem);
+    if (rc != cudaSuccess) return rc;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, B, smem);
+  }
+};
+
+// The instantiations, (n_prop, n_acc, log_len, k_slots, B, PROM): one per
+// shape, at the geometry fused_tick.MP_STAGING gives it.
+#define K5_INSTANCES(X)          \
+  X(2, 5, 8, 4, 128, true)       \
+  X(2, 5, 16, 4, 128, false)     \
+  X(2, 5, 4, 4, 128, true)       \
+  X(2, 3, 8, 4, 128, true)
+
+// Calls `fn(Inst<...>{})` for the shape `dims` names
+// (n_prop, n_acc, log_len, k_slots), or returns cudaErrorInvalidValue.
+template <typename Fn>
+cudaError_t dispatch(const int* dims, Fn&& fn) {
+#define K5_MATCH(P_, A_, L_, K_, B_, S_)                                  \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_) \
+    return fn(Inst<P_, A_, L_, K_, B_, S_>{});
+  K5_INSTANCES(K5_MATCH)
+#undef K5_MATCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, log_len, k_slots); `tick` is
-// the device int32 tick scalar, read by the kernel and advanced by the
-// caller.  Returns the launch's cudaGetLastError().
+// fused_common.cuh; `dims` = n_prop, n_acc, log_len, k_slots, then the
+// dynamic shared bytes a block, fused_tick.MP_STAGING's); `tick` is the
+// device int32 tick scalar, read by the kernel and advanced by the caller.
+// Returns cudaSuccess or the first error: an unknown shape or too few
+// shared bytes (cudaErrorInvalidValue), a shared-memory request the card
+// refuses, or the launch's cudaGetLastError().
 extern "C" int fused_multipaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                        void** plan, void* tick, const long long* params,
                                        int n_params, void* stream) {
-  if (n_dims != 4) return cudaErrorInvalidValue;
-  const int n_prop = dims[0], n_acc = dims[1], log_len = dims[2], k_slots = dims[3];
+  if (n_dims != 5) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
@@ -519,12 +792,15 @@ extern "C" int fused_multipaxos_launch(const int* dims, int n_dims, void** leave
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_prop == 2 && n_acc == 5 && k_slots == 4) {
-    if (log_len == 8) return launch<2, 5, 8, 4>(L, pl, t, prm, s);
-    if (log_len == 16) return launch<2, 5, 16, 4>(L, pl, t, prm, s);
-    if (log_len == 4) return launch<2, 5, 4, 4>(L, pl, t, prm, s);
-  }
-  if (n_prop == 2 && n_acc == 3 && log_len == 8 && k_slots == 4)
-    return launch<2, 3, 8, 4>(L, pl, t, prm, s);
-  return cudaErrorInvalidValue;
+  const int smem = dims[4];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+}
+
+// The blocks of instantiation `dims` (as for fused_multipaxos_launch) that
+// one SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
+extern "C" int fused_multipaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
+  if (n_dims != 5) return cudaErrorInvalidValue;
+  const int smem = dims[4];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

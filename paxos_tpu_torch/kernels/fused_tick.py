@@ -4,7 +4,7 @@ One engine, bound once per protocol: ``fused_<protocol>_chunk`` advances
 every instance ``n_ticks`` ticks of ``counter_masks`` + the protocol's
 tick.  On a CUDA tensor it launches the protocol's hand-written kernel
 ``csrc/fused_<protocol>_tick.cu`` (one thread per instance, state resident
-in registers for the whole chunk, updated in place) or raises; on a CPU
+on chip for the whole chunk, updated in place) or raises; on a CPU
 tensor it runs :func:`reference_chunk`, the plain PyTorch version.
 ``FUSED_CHUNKS[protocol]`` is the engine's chunk function, as
 ``_make_chunk`` is in the reference: it clamps ballots at the chunk
@@ -22,6 +22,11 @@ from its own ids with ``mp_counter_masks``.
 Only the SynchPaxos kernel models the bounded-delay channel: it takes a
 state with or without ``until`` stamps (an instantiation each) and the
 plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
+
+The Multi-Paxos kernel keeps each lane's slot arrays in shared memory for
+the whole chunk; its launch geometry per instantiation (lanes a CUDA
+block, staged rows, shared bytes) is ``MP_STAGING``, which the kernel's
+instantiations mirror; the wrapper passes it the shared bytes.
 """
 
 from __future__ import annotations
@@ -68,6 +73,64 @@ KERNEL_SHAPES = {
 
 # The report-time ``max_ballot >= limit`` threshold of single-decree Paxos.
 REPORT_BALLOT_LIMIT = (1 << 15) - 1
+
+# The most shared memory one CUDA block of an H100 may use (227 KB).
+SMEM_PER_BLOCK_MAX = 232_448
+# The Multi-Paxos state leaves K5 keeps in shared memory for a whole chunk
+# (csrc/fused_multipaxos_tick.cu ``Staged``), in column order, and the
+# PROMISE payloads, which it stages where ``MpStaging.stage_prom``.  The
+# voter masks (acceptor bitmasks, under 2^8) of a slot share one word.
+MP_STAGED_LEAVES = (
+    "acceptor.log", "proposer.recov_bv", "learner.lt_bv", "learner.lt_mask",
+    "learner.chosen_val", "learner.chosen_tick",
+)
+MP_PROM_LEAF = "promises.p_bv"
+MP_PACKED_LEAF = "learner.lt_mask"
+MP_MASKS_PER_WORD = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class MpStaging:
+    """K5's launch geometry at one instantiation: ``threads`` lanes a CUDA
+    block (a multiple of 32), whether the PROMISE payloads are staged, the
+    int32 words of a lane's shared-memory column (``rows``: one per staged
+    slot-array element) and the block's dynamic shared memory,
+    ``rows * 4 * threads`` bytes."""
+
+    threads: int
+    stage_prom: bool
+    rows: int
+    smem_bytes: int
+
+
+def mp_staged_rows(n_prop: int, n_acc: int, log_len: int, k_slots: int, stage_prom: bool) -> int:
+    """Words of a lane's column: the log (A*L), the recovery rows (P*L), the
+    learner table's (ballot, value) pairs (L*K) and voter masks (L, a
+    slot's K <= 4 masks in one word), the chosen values and ticks (L
+    each), and the PROMISE payloads (P*A*L) where staged."""
+    if k_slots > MP_MASKS_PER_WORD:
+        raise ValueError(f"K5 packs at most {MP_MASKS_PER_WORD} voter masks a slot, not {k_slots}")
+    rows = (n_acc + n_prop + k_slots + 3) * log_len
+    return rows + (n_prop * n_acc * log_len if stage_prom else 0)
+
+
+def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
+    rows = mp_staged_rows(*shape, stage_prom)
+    return MpStaging(threads, stage_prom, rows, rows * 4 * threads)
+
+
+# K5's geometry per instantiation, which the wrapper passes to the kernel.
+# The tick is a long dependent chain a lane, so the warps an SM holds set
+# the pace; at 255 registers a thread it holds at most 8 (2 blocks of 128).
+# The payloads are staged where the SM still holds 8 warps; at
+# (2, 5, 16, 4) the 224 words without them allow 8, with them 4 (64 lanes
+# a block), which made the chunk slower (PERF.md, PR 5).
+MP_STAGING = {
+    (2, 5, 8, 4): _mp_staging((2, 5, 8, 4), 128, True),
+    (2, 5, 16, 4): _mp_staging((2, 5, 16, 4), 128, False),
+    (2, 5, 4, 4): _mp_staging((2, 5, 4, 4), 128, True),
+    (2, 3, 8, 4): _mp_staging((2, 3, 8, 4), 128, True),
+}
 
 
 def fit_block(block: int, n: int) -> int:
@@ -144,6 +207,9 @@ class Binding:
     ballot_limit: int = REPORT_BALLOT_LIMIT
     proposer_bal_bits: int = 17  # core/state.py PAXOS_LAYOUT and kin
     shape_fields: tuple = ("n_prop", "n_acc", "k_slots")
+    # Launch geometry per shape (MpStaging), whose shared bytes are passed
+    # after the shape; None: the kernel's own fixed geometry.
+    staging: "dict | None" = None
 
     def kernel_shape(self, state: LaneState) -> tuple:
         return tuple(getattr(state, f) for f in self.shape_fields)
@@ -169,6 +235,7 @@ BINDINGS = {
         apply_tick_mp, mp_counter_masks, MultiPaxosState, "fused_multipaxos_tick",
         "fused_multipaxos_launch", block=256, ballot_limit=(1 << 11) - 1,
         proposer_bal_bits=12, shape_fields=("n_prop", "n_acc", "log_len", "k_slots"),
+        staging=MP_STAGING,
     ),
 }
 _entries: dict = {}
@@ -326,7 +393,8 @@ def _launch(
     clamp_per_tick: bool, defines: tuple = (),
 ) -> None:
     """Launch ``protocol``'s kernel (the build ``defines`` name) on
-    checked inputs; raises if the launch fails."""
+    checked inputs, at the binding's geometry for the state's shape;
+    raises if the launch fails or is refused."""
     binding = BINDINGS[protocol]
     fn = _entry(protocol, defines)
     leaves = state.lane_leaves()
@@ -341,7 +409,7 @@ def _launch(
     )
     arr = (ctypes.c_longlong * len(params))(*params)
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    shape = binding.kernel_shape(state)
+    shape = _launch_dims(binding, binding.kernel_shape(state))
     dims = (ctypes.c_int * len(shape))(*shape)
     with torch.cuda.device(state.device):
         rc = fn(
@@ -350,6 +418,35 @@ def _launch(
         )
     if rc != 0:
         raise RuntimeError(f"{binding.kernel} launch failed: cudaError {rc}")
+
+
+def _launch_dims(binding: Binding, shape: tuple) -> tuple:
+    """The C entry point's ``dims``: the shape, then, where the kernel
+    takes a launch geometry, the shared bytes a block of the binding's
+    geometry for the shape (the shape fixes the rest)."""
+    if binding.staging is None:
+        return shape
+    return shape + (binding.staging[shape].smem_bytes,)
+
+
+def mp_blocks_per_sm(shape: tuple) -> int:
+    """Blocks of K5's instantiation ``shape`` (at ``MP_STAGING[shape]``)
+    that one SM of the current CUDA device holds at once:
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the geometry's
+    threads and shared bytes."""
+    from paxos_tpu_torch.kernels import build
+
+    binding = BINDINGS["multipaxos"]
+    fn = build.load(binding.kernel).fused_multipaxos_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    full = _launch_dims(binding, tuple(shape))
+    dims = (ctypes.c_int * len(full))(*full)
+    out = ctypes.c_int(0)
+    rc = fn(dims, len(full), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{binding.kernel} occupancy query failed: cudaError {rc}")
+    return out.value
 
 
 def draw_census(
@@ -447,8 +544,10 @@ def fused_multipaxos_chunk(
     clamp_per_tick: bool = False,
 ) -> MultiPaxosState:
     """:func:`fused_paxos_chunk` for Multi-Paxos
-    (``csrc/fused_multipaxos_tick.cu``); the default stream block is the
-    reference's 256, and the per-tick clamp pins ballots at 2047."""
+    (``csrc/fused_multipaxos_tick.cu``, at the geometry ``MP_STAGING``
+    gives the state's shape; a launch the card refuses raises); the
+    default stream block is the reference's 256, and the per-tick clamp
+    pins ballots at 2047."""
     return _fused_chunk(
         "multipaxos", fused_multipaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,

@@ -12,7 +12,9 @@ instantiated shape, and from near-limit ballots under the per-tick clamp
 with a nonzero block offset, and must reproduce the golden digest.  K5
 (Multi-Paxos) is held so at every instantiation: config3 with crash
 windows, three acceptors with equivocators, long-log windows of 4 and 16
-slots compacted between chunks, and near-limit ballots clamped at 2047.
+slots compacted between chunks, near-limit ballots clamped at 2047, and
+on lane counts no CUDA block divides; a shared-memory request the card
+refuses raises.
 K4 (SynchPaxos) is held so with and without delay stamps, with delta
 violated and the planted bug, at three acceptors and under the clamp; a
 plan without ``link_delay`` under ``p_delay > 0`` is refused, and the
@@ -140,6 +142,84 @@ def test_multipaxos_kernel_matches_plain_on_cuda():
     c = main_config("config3", 256, 7)
     st = wrapper(trun.init_state(c, "cuda"), 7, config_plan(c, 7), c.fault, 32)
     assert _digest(st) == MP_GOLDEN
+
+
+def _mp_shape_config(shape, n, seed):
+    """A Multi-Paxos config of K5's instantiation ``shape``: config3, three
+    acceptors with equivocators, or a long log through a 4- or 16-slot
+    window."""
+    n_prop, n_acc, log_len, _ = shape
+    if log_len == 8:
+        cfg = main_config("config3", n, seed)
+        if n_acc == 3:
+            cfg = dataclasses.replace(cfg, n_acc=3, fault=dataclasses.replace(cfg.fault, p_equiv=0.3))
+        return cfg
+    return TC.config3_long(n, seed, log_total=16 * log_len, window=log_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfused.KERNEL_SHAPES["multipaxos"])
+def test_multipaxos_kernel_ragged_grid_on_cuda(shape):
+    """K5 at every instantiation on 1000 lanes, which no CUDA block of its
+    geometry divides (the last block runs part full), with a stream block
+    of fit_block(256, 1000) = 8 lanes; long logs compacted between chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n = 1000
+    assert n % tfused.MP_STAGING[shape].threads != 0
+    cfg = _mp_shape_config(shape, n, 9)
+    block = tfused.fit_block(256, n)
+    plan = config_plan(cfg, 9)
+    plain = trun.init_state(cfg, "cuda")
+    kern = plain.clone()
+    long_log = cfg.fault.log_total > 0
+    for _ in range(3):
+        plain = plain_chunk(cfg, plain, plan, 64, block)
+        kern = tfused.fused_multipaxos_chunk(kern, cfg.seed, plan, cfg.fault, 64, block=block)
+        if long_log:
+            plain, kern = compact_mp_body(plain)[0], compact_mp_body(kern)[0]
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    if long_log:
+        assert int(kern.base.max()) > 0
+
+
+@pytest.mark.cuda
+def test_multipaxos_refused_launch_raises(monkeypatch):
+    """A shared-memory request the card refuses (over 227 KB a block), or
+    one too small for the staged rows, raises in the wrapper: the kernel
+    never ran, the state is as it was, no launch is counted, and the next
+    launch at the table's geometry runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cfg = main_config("config3", 1024, 3)
+    plan = config_plan(cfg, 3)
+    shape = (2, 5, 8, 4)
+    staging = tfused.MP_STAGING[shape]
+    state = trun.init_state(cfg, "cuda")
+    # advance once so that the refused launches would have something to change
+    state = tfused.fused_multipaxos_chunk(state, cfg.seed, plan, cfg.fault, 16)
+    before, launches = state.clone(), tfused.fused_multipaxos_chunk.launches
+    for smem in (tfused.SMEM_PER_BLOCK_MAX + 1024, staging.smem_bytes - 4):
+        monkeypatch.setitem(tfused.MP_STAGING, shape, dataclasses.replace(staging, smem_bytes=smem))
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tfused.fused_multipaxos_chunk(state, cfg.seed, plan, cfg.fault, 16)
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+        assert tfused.fused_multipaxos_chunk.launches == launches
+    monkeypatch.setitem(tfused.MP_STAGING, shape, staging)
+    kern = tfused.fused_multipaxos_chunk(state, cfg.seed, plan, cfg.fault, 16)
+    _assert_same(kern, plain_chunk(cfg, before, plan, 16, 256))
+
+
+@pytest.mark.cuda
+def test_multipaxos_geometry_fits_the_card():
+    """Every geometry of K5 lets an SM hold 8 warps, the most 255 registers
+    a thread allow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    for shape, staging in tfused.MP_STAGING.items():
+        assert tfused.mp_blocks_per_sm(shape) * staging.threads // 32 >= 8
 
 
 @pytest.mark.cuda
