@@ -9,9 +9,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 
 1. build: the six kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
-   together; each kernel's ``ptxas -v`` registers and spills, and K5's
-   launch geometry per instantiation (lanes a CUDA block, staged rows,
-   shared bytes, blocks an SM holds);
+   together, and K4's phase-clock build; each kernel's ``ptxas -v``
+   registers and spills, and K5's and K4's launch geometry per
+   instantiation (lanes a CUDA block, staged rows, shared bytes, blocks
+   an SM holds);
 2. ceiling: the int32 probe (K6) against its plain version byte for byte,
    then the card's int32 operation rate from two iteration counts, printed
    beside the published peak that the bounds divide by;
@@ -23,14 +24,18 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
    with a block offset, Multi-Paxos long logs compacted between chunks,
-   SynchPaxos with and without delay stamps and with delta violated,
-   and at full width (1<<20 lanes x 64 ticks) on each main path's config,
-   config3-long compacted after every chunk, timed, with the counter-PRNG
-   draws and slot-array (delay-stamp) touches of the timed ticks counted
-   by each kernel's measuring build for its operation bound; timed so
+   SynchPaxos with and without delay stamps, with delta violated, and
+   with duplicates, uneven quorums and a ballot stride, and at full width
+   (1<<20 lanes x 64 ticks) on each main path's config, config3-long
+   compacted after every chunk, timed, with the counter-PRNG
+   draws of the timed ticks counted by each kernel's measuring build for
+   its operation floor (``DRAW_OPS``; no kernel may beat its bound), and
+   its slot-array (delay-stamp) touches for the census estimate; timed so
    in the steady state and on the first chunk, where the lanes still
-   send (for K4 in the delta-violating regime too); K5's column load and
-   store alone on config3 and config3-long (a launch of 0 ticks);
+   send (for K4 in the delta-violating regime too), K4 with the split of
+   a lane's cycles by phase of the tick from its phase-clock build; the
+   column load and store alone (a launch of 0 ticks) of K5 on config3 and
+   config3-long and of K4;
 5. main paths: the flagship campaign (config2), the config5 sweep's Fast
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
@@ -98,7 +103,8 @@ LONG_TICKS = 1024  # config3-long: 16 compactions
 class MainPath:
     """A main path: its protocol and ticks, its config (a function of
     ``harness/config.py``, and the config's index where that returns a
-    sweep), and the census case (``ROOFLINE.json``) of its kernel's bound.
+    sweep), and the census case (``ROOFLINE.json``) of the estimate printed
+    beside its kernel's bound.
     ``compact``: decided prefixes compact out after every chunk.
     ``fast_path``: the path's fast-path rate (SynchPaxos) is printed.  Every
     path is also timed at full width, a path's kernel entry is the first
@@ -165,13 +171,27 @@ SP_CHECKER_DISAGREE = 15
 # K6 measures is printed beside them.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9 * 2
+# The int32 operations of one counter-PRNG draw (fused_common.cuh
+# counter_bits) with its launch-constant terms hoisted, and the compare
+# that makes it a mask bit: the position add, the seed xor, three
+# xor-shifts of two operations each, two multiplies and the compare
+# (tests/test_torch_census.py counts them in the source).  A kernel draws a
+# mask only where the outcome depends on it, so the draws its measuring
+# build counts are work the run's data needs: at DRAW_OPS each they are
+# the operation floor of a fused kernel's bound.  The rest of a tick's
+# work depends on the data in ways that no count here bounds from below;
+# the census of the vectorised tick (tick_ops_per_lane) is printed beside
+# the bound, and is no floor (a kernel skips the arms and slots a tick
+# does not reach).
+DRAW_OPS = 11
+# The census estimate printed beside each fused kernel's bound.
 # Per census case of the int32 operation census of one tick
 # (scripts/roofline.py tick_census, in ROOFLINE.json), the shares that the
 # census counts for every element every tick and a kernel only where it
 # runs them; tests/test_torch_census.py computes both with the JAX package.
 # MASK_CENSUS: the share of counter_masks, which draws every mask element:
 # (operations, mask elements) per lane-tick, as census_jaxpr counts them.
-# The kernels draw lazily, so the bound counts the draws a run makes at
+# The kernels draw lazily, so the estimate counts the draws a run makes at
 # this cost per element instead.
 MASK_CENSUS = {
     "config2-paxos": (1228.064453125, 87.0),
@@ -198,8 +218,8 @@ CENSUS_CASES = {
 # which the vectorised tick rewrites whole every tick and K5 touches only
 # where the tick reads or writes a slot: (operations per lane-tick,
 # slot-array elements per lane).  The census is linear in the window
-# length, 528.125 operations per slot over 28 elements; the bound counts
-# the elements the measuring build touches at this cost per element.
+# length, 528.125 operations per slot over 28 elements; the estimate
+# counts the elements the measuring build touches at this cost per element.
 SLOT_CENSUS = {
     "config3-multipaxos": (4225.0, 224.0),
     "config3long-multipaxos": (8450.0, 448.0),
@@ -215,8 +235,8 @@ STAMP_CENSUS = {
     "delaychaos-synchpaxos": (820.015625, 40.0),
 }
 # Per census case, the share of the state elements a kernel touches in
-# global memory: the bound counts the touches its measuring build counts
-# at the census's cost per element.
+# global memory: the estimate counts the touches its measuring build
+# counts at the census's cost per element.
 TOUCH_CENSUS = {**SLOT_CENSUS, **STAMP_CENSUS}
 KERNEL_SOURCE = "paxos_tpu_torch/kernels/csrc/{}.cu"
 # pl.pallas_call of the JAX package's fused engine (fused_chunk), which
@@ -327,16 +347,20 @@ def read_launches() -> dict:
 def phase_build() -> dict:
     """Build every kernel, one nvcc each, all started together."""
     from paxos_tpu_torch.kernels import build
-    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, COUNT_DRAWS
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, COUNT_DRAWS, PHASE_CLOCKS, PHASES
 
     names = [b.kernel for b in BINDINGS.values()] + ["int32_ceiling"]
-    builds = [(name, ()) for name in names] + [(b.kernel, COUNT_DRAWS) for b in BINDINGS.values()]
+    builds = (
+        [(name, ()) for name in names]
+        + [(b.kernel, COUNT_DRAWS) for b in BINDINGS.values()]
+        + [(BINDINGS[p].kernel, PHASE_CLOCKS) for p in PHASES]
+    )
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda nd: build.build(*nd), builds))
     secs = time.perf_counter() - t0
-    log(f"build: {len(names)} kernels and {len(BINDINGS)} draw-counting builds in {secs:.1f} s "
-        "(nvcc, sm_90a, in parallel)")
+    log(f"build: {len(names)} kernels, {len(BINDINGS)} draw-counting and {len(PHASES)} "
+        f"phase-clock builds in {secs:.1f} s (nvcc, sm_90a, in parallel)")
     keys = ("entry function", "registers", "spill")
     ptxas = {}
     for name in names:
@@ -347,26 +371,35 @@ def phase_build() -> dict:
     return {"build_s": secs, "ptxas": ptxas}
 
 
-def phase_geometry() -> list:
-    """K5's launch geometry at every instantiation: lanes a CUDA block,
+def phase_geometry() -> dict:
+    """The launch geometry of the kernels that stage a column per lane in
+    shared memory (K5, K4) at every instantiation: lanes a CUDA block,
     staged rows a lane, shared bytes a block, and the blocks one SM holds
-    (the card's occupancy query)."""
-    from paxos_tpu_torch.kernels.fused_tick import MP_STAGING, mp_blocks_per_sm
+    (the card's occupancy query); K4 must hold the blocks its registers are
+    capped for."""
+    from paxos_tpu_torch.kernels.fused_tick import MP_STAGING, SP_STAGING, blocks_per_sm
 
-    out = []
-    for shape, st in MP_STAGING.items():
-        blocks = mp_blocks_per_sm(shape)
-        out.append({
-            "shape": list(shape), "threads": st.threads, "stage_prom": st.stage_prom,
-            "staged_rows": st.rows, "smem_bytes": st.smem_bytes,
-            "blocks_per_sm": blocks, "warps_per_sm": blocks * st.threads // 32,
-        })
-        log(f"geometry multipaxos {shape}: {st.threads} lanes a block, {st.rows} staged rows "
-            f"a lane (PROMISE payloads {'staged' if st.stage_prom else 'in global memory'}), "
-            f"{st.smem_bytes} B shared a block, {blocks} blocks an SM "
-            f"({blocks * st.threads // 32} warps)")
-        if blocks < 1:
-            raise AssertionError(f"K5 {shape} at {st} fits no block on an SM")
+    out = {"multipaxos": [], "synchpaxos": []}
+    for protocol, table in (("multipaxos", MP_STAGING), ("synchpaxos", SP_STAGING)):
+        for shape, st in table.items():
+            blocks = blocks_per_sm(protocol, shape)
+            row = {
+                "shape": list(shape), "threads": st.threads, "staged_rows": st.rows,
+                "smem_bytes": st.smem_bytes, "blocks_per_sm": blocks,
+                "warps_per_sm": blocks * st.threads // 32,
+            }
+            if protocol == "multipaxos":
+                row["stage_prom"] = st.stage_prom
+                what = f"PROMISE payloads {'staged' if st.stage_prom else 'in global memory'}"
+            else:
+                row["min_blocks"] = st.min_blocks
+                what = f"registers capped for {st.min_blocks} blocks"
+            out[protocol].append(row)
+            log(f"geometry {protocol} {shape}: {st.threads} lanes a block, {st.rows} staged rows "
+                f"a lane ({what}), {st.smem_bytes} B shared a block, {blocks} blocks an SM "
+                f"({blocks * st.threads // 32} warps)")
+            if blocks < (st.min_blocks if protocol == "synchpaxos" else 1):
+                raise AssertionError(f"{protocol} {shape} at {st}: {blocks} blocks an SM")
     return out
 
 
@@ -552,13 +585,16 @@ def compare(
     chunks alone.  With ``reps``, also the kernel's steady-state time over ``reps``
     further chunks (``from_init``: the compared chunk again, ``reps``
     times from copies of the initial state, where the lanes still send)
-    and their bound: the bytes, and the operations of census ``census``
-    with the draws and slot-array (delay-stamp) touches those chunks make,
-    over the published peak (and over the measured ``ceiling`` beside
-    it)."""
+    and their bound: the larger of the bytes and the draws those chunks
+    make at ``DRAW_OPS`` each over the published peak (over the measured
+    ``ceiling`` beside it), which the timed chunks must not beat; the
+    operations of census ``census``, with the draws and slot-array
+    (delay-stamp) touches counted, beside it; for a kernel with a
+    phase-clock build (K4), where a lane's cycles go over those chunks
+    (:func:`phase_split`)."""
     from paxos_tpu_torch.core.state import state_bytes_per_lane
     from paxos_tpu_torch.harness.run import init_plan, init_state
-    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, draw_census
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, PHASES, draw_census
     from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
 
     def after(st):
@@ -589,6 +625,14 @@ def compare(
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
     out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
     if reps:
+        # Where a lane's cycles go over the timed chunks (K4): the
+        # phase-clock build from a copy of their first state, launch for
+        # launch, which must end where they end.
+        if cfg.protocol in PHASES:
+            clocked = (start if from_init else kern).clone()
+            out["phase_split"] = phase_split(
+                name, cfg, clocked, plan, n_ticks, 1 if from_init else reps, block
+            )
         # The draws and touches of the timed chunks: the measuring build
         # over the same ticks from a copy of the compared state (of the
         # initial state, from_init), which must end where the timed chunks
@@ -632,6 +676,8 @@ def compare(
             )
         if max_abs_err(counted.leaves(), kern.leaves()) != 0:
             raise AssertionError(f"{name}: the draw-counting build took another path")
+        if cfg.protocol in PHASES and max_abs_err(clocked.leaves(), kern.leaves()) != 0:
+            raise AssertionError(f"{name}: the phase-clock build took another path")
         read = ["crash_start", "crash_end", "equivocate"]
         if cfg.protocol == "multipaxos":
             read += ["pcrash_start", "pcrash_end"]
@@ -641,16 +687,19 @@ def compare(
         n_bytes = 2 * state_bytes_per_lane(init) * cfg.n_inst + plan_bytes
         lane_ticks = cfg.n_inst * timed_ticks
         draws_per_lane_tick, touches_per_lane_tick = draws / lane_ticks, touches / lane_ticks
-        ops_per_lane_tick = tick_ops_per_lane(census, draws_per_lane_tick, touches_per_lane_tick)
-        n_ops = ops_per_lane_tick * cfg.n_inst * n_ticks
+        ops_per_lane_tick = draws_per_lane_tick * DRAW_OPS
+        census_per_lane_tick = tick_ops_per_lane(census, draws_per_lane_tick, touches_per_lane_tick)
+        lane_chunk = cfg.n_inst * n_ticks
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
-        measured_ops_ms = n_ops / ceiling * 1e3
+        ops_ms = ops_per_lane_tick * lane_chunk / INT32_OPS_PER_S * 1e3
+        measured_ops_ms = ops_per_lane_tick * lane_chunk / ceiling * 1e3
         out.update(
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             bound_ms_measured_rate=max(bytes_ms, measured_ops_ms),
             bytes_ms=bytes_ms, ops_ms=ops_ms, ops_per_lane_tick=ops_per_lane_tick,
+            census_ms=census_per_lane_tick * lane_chunk / INT32_OPS_PER_S * 1e3,
+            census_ops_per_lane_tick=census_per_lane_tick,
             ops_per_lane_tick_census=tick_ops_per_lane(census),
             draws_per_lane_tick=draws_per_lane_tick,
             slot_touches_per_lane_tick=touches_per_lane_tick,
@@ -659,14 +708,38 @@ def compare(
         log(
             f"{name}: kernel {out['ms']:.3f} ms/chunk (first {kern_ms:.3f}), plain "
             f"{plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}; bytes "
-            f"{bytes_ms:.3f} ms, int32 ops {ops_ms:.3f} ms at the published peak, "
+            f"{bytes_ms:.3f} ms, draw ops {ops_ms:.3f} ms at the published peak, "
             f"{measured_ops_ms:.3f} ms at the measured rate); {draws_per_lane_tick:.3f} draws "
             f"per lane-tick of {MASK_CENSUS[census][1]:g} mask elements, "
-            f"{touches_per_lane_tick:.3f} slot-array (K4: delay-stamp) touches per lane-tick, "
-            f"{ops_per_lane_tick:.1f} ops per lane-tick ({out['ops_per_lane_tick_census']:.1f} "
-            "in the census)"
+            f"{touches_per_lane_tick:.3f} slot-array (K4: delay-stamp) touches per lane-tick; "
+            f"census {out['census_ms']:.3f} ms at the published peak, no floor "
+            f"({census_per_lane_tick:.1f} ops per lane-tick, "
+            f"{out['ops_per_lane_tick_census']:.1f} with every mask drawn)"
             + (f"; compaction {out['compact_ms']:.3f} ms/chunk" if compact else "")
         )
+        if out["ms"] < out["bound_ms"]:
+            raise AssertionError(f"{name}: {out['ms']:.3f} ms beats its bound, which is no floor")
+    return out
+
+
+def phase_split(name, cfg, state, plan, n_ticks, launches, block) -> dict:
+    """Where a lane's cycles go: the kernel's phase-clock build over
+    ``launches`` chunks of ``n_ticks`` from ``state`` (advanced in place),
+    as cycles a lane-tick (the column load and store spread over the
+    chunk's ticks) and each phase's share of them."""
+    from paxos_tpu_torch.kernels.fused_tick import phase_clocks
+
+    total = {}
+    for _ in range(launches):
+        clocks = phase_clocks(cfg.protocol, state, cfg.seed, plan, cfg.fault, n_ticks, block=block)
+        total = {k: total.get(k, 0) + v for k, v in clocks.items()}
+    cycles = sum(total.values())
+    out = {
+        "cycles_per_lane_tick": cycles / (cfg.n_inst * n_ticks * launches),
+        "share": {k: v / cycles for k, v in total.items()},
+    }
+    log(f"{name}: phase clocks {out['cycles_per_lane_tick']:.1f} cycles a lane-tick: "
+        + ", ".join(f"{k} {v:.1%}" for k, v in out["share"].items()))
     return out
 
 
@@ -700,6 +773,10 @@ def phase_compare(ceiling: float) -> dict:
     compare("synchpaxos (2,5,8) delay off, unstamped", cfgo, init_plan(cfgo, "cuda"), 200)
     cfg3 = dataclasses.replace(C.config_delay_chaos(4096, 9), n_acc=3)
     compare("synchpaxos (2,3,8) stamped", cfg3, config_plan(cfg3, 9), 200)
+    # The knobs no main path sets: duplicated requests and replies, uneven
+    # quorums, and a ballot stride with a longer backoff.
+    for name, cfgk in sp_knob_configs(4096, 10).items():
+        compare(f"synchpaxos (2,5,8) stamped, {name}", cfgk, config_plan(cfgk, 10), 200)
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
@@ -741,7 +818,7 @@ def phase_compare(ceiling: float) -> dict:
                 f"{path} full width, first chunk", cfg, main_plan(cfg), 64, reps=5,
                 ceiling=ceiling, census=mp.census, from_init=True,
             )
-    for path in ("config3", "config3long"):
+    for path in ("config3", "config3long", "synchpaxos"):
         full[path]["load_store_ms"] = time_load_store(path)
     # K4's busiest chunk: the first of the delta-violating regime, where the
     # fast path misses its window and lanes fall back to classic rounds.
@@ -754,29 +831,30 @@ def phase_compare(ceiling: float) -> dict:
 
 
 def time_load_store(path: str, reps: int = 5) -> float:
-    """K5's column load and store alone, ms: a launch of 0 ticks on main
-    path ``path``'s config at full width from the state after one chunk
-    reads and writes every lane's state once and runs no tick, so the state
-    must come back byte for byte.  The launches go around the wrapper and
-    so are not counted."""
-    from paxos_tpu_torch.harness.run import init_state
+    """A kernel's column load and store alone, ms: a launch of 0 ticks on
+    main path ``path``'s config at full width from the state after one
+    chunk reads and writes every lane's state once (K4: what it stores)
+    and runs no tick, so the state must come back byte for byte.  The
+    launches go around the wrapper and so are not counted."""
+    from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, _launch
 
     cfg = main_config(path, FULL_LANES, 7)
-    block, plan = BINDINGS["multipaxos"].block, main_plan(cfg)
+    protocol = MAIN_PATHS[path].protocol
+    block, plan = BINDINGS[protocol].block, main_plan(cfg) or init_plan(cfg, "cuda")
     state = init_state(cfg, "cuda")
-    _launch("multipaxos", state, cfg.seed, plan, cfg.fault, MAIN_CHUNK, block, 0, False)
+    _launch(protocol, state, cfg.seed, plan, cfg.fault, MAIN_CHUNK, block, 0, False)
     state.tick.add_(MAIN_CHUNK)
     before = state.clone()
 
     def load_store():
-        _launch("multipaxos", state, cfg.seed, plan, cfg.fault, 0, block, 0, False)
+        _launch(protocol, state, cfg.seed, plan, cfg.fault, 0, block, 0, False)
 
     load_store()  # untimed: the first launch loads the kernel
     _, ms = timed(load_store, reps)
     if max_abs_err(state.leaves(), before.leaves()) != 0:
-        raise AssertionError(f"K5's 0-tick launch changed the {path} state")
-    log(f"{path} K5 column load and store alone (0 ticks): {ms:.3f} ms a launch "
+        raise AssertionError(f"the {path} kernel's 0-tick launch changed the state")
+    log(f"{path} column load and store alone (0 ticks): {ms:.3f} ms a launch "
         f"(mean of {reps}), state unchanged")
     return ms
 
@@ -949,6 +1027,23 @@ def sp_delay_off_config(n_inst: int, seed: int):
     )
 
 
+def sp_knob_configs(n_inst: int, seed: int) -> dict:
+    """config_delay_chaos with each knob its main path leaves at its
+    default: p_dup 0.2, q1/q2 = 2/4, ballot_stride 3 with backoff_max 3."""
+    from paxos_tpu_torch.harness import config as C
+
+    cfg = C.config_delay_chaos(n_inst, seed)
+    knobs = {
+        "p_dup 0.2": dict(p_dup=0.2),
+        "q1/q2 2/4": dict(q1=2, q2=4),
+        "ballot_stride 3, backoff_max 3": dict(ballot_stride=3, backoff_max=3),
+    }
+    return {
+        name: dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, **kv))
+        for name, kv in knobs.items()
+    }
+
+
 def sp_checker_config(n_inst: int = 1024):
     """config_delay_chaos at seed 3 with delta violated, the planted
     sp_unsafe_fast bug and p_drop 0.4."""
@@ -1034,8 +1129,8 @@ def main() -> int:
         if len(paths) > 1:
             entry["launches_by_path"] = {p: measured[p]["main_path_launches"] for p in paths}
             entry.update({p: measured[p] for p in paths[1:]})
-        if protocol == "multipaxos":
-            entry["instantiations"] = geometry  # threads, smem_bytes, blocks_per_sm each
+        if protocol in geometry:
+            entry["instantiations"] = geometry[protocol]  # threads, smem_bytes, blocks_per_sm each
         kernels.append(entry)
     # K6 measures the card; no main path launches it (each path's check
     # above), so its count is read from the last main path's run.

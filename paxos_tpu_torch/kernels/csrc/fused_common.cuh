@@ -1,22 +1,23 @@
 // Shared pieces of the fused engine's kernels (fused_<protocol>_tick.cu):
 // the counter PRNG, the Bernoulli knobs, the state-leaf, plan and parameter
 // layouts of the C entry points, request selection, and the per-lane
-// building blocks that the single-decree ticks have in common (reply
-// delivery, the learner table, and the bounded-delay channel's stamps,
-// which only the SynchPaxos kernel reads).
+// building blocks that the single-decree ticks have in common (the message
+// buffers with reply delivery, and the learner table), and the shared-memory
+// column and launch of the kernels that keep one per lane.
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
-// state in registers for a whole chunk (the Multi-Paxos kernel keeps its
-// slot arrays in shared memory beside them): every helper here is
-// force-inlined and every loop has compile-time bounds, so arrays stay in
-// registers.
+// state in registers for a whole chunk (the Multi-Paxos and SynchPaxos
+// kernels keep their slot-indexed arrays in shared memory beside them):
+// every helper here is force-inlined and every loop has compile-time
+// bounds, so arrays stay in registers.
 //
 // A measuring build (nvcc -DFUSED_COUNT_DRAWS) also counts every counter-
 // PRNG draw a kernel makes, summed over lanes and ticks: the masks are drawn
 // lazily, so that count is the PRNG work a run's data needs, which an
 // operation census of the tick counts in place of drawing every mask.  A
-// kernel that keeps slot-indexed arrays out of registers (Multi-Paxos) also
-// counts the slot-array elements it touches, for the same reason.  The
+// kernel that keeps slot-indexed arrays out of registers also counts the
+// elements it touches (Multi-Paxos its slot arrays, SynchPaxos its delay
+// stamps), for the same reason.  The
 // timed build compiles none of it.
 //
 // Semantics follow the plain PyTorch version bit for bit:
@@ -285,95 +286,6 @@ struct MsgBufs {
   }
 };
 
-// The bounded-delay channel of a lane (transport.ready / send(until=) and
-// protocols.paxos.delay_stamps).  The stamps stay in global memory, in
-// place: a slot's stamp is written only when the slot is written and read
-// back only when it may have come due, so they come back byte for byte,
-// stale stamps of consumed slots included.  In registers: a bitmask per
-// buffer of the slots whose stamp is still ahead of the tick, and the
-// earliest such stamp; a slot is ready (deliverable, selectable) where its
-// bit is clear.  Every stamp read or written inside the tick loop counts
-// as a touch of the measuring build.
-template <int S>
-struct Stamps {
-  uint32_t rq_wait, rp_wait;
-  int32_t next_due;  // earliest stamp of a waiting slot; kInt32Max if none
-
-  __device__ __forceinline__ void load_from(const Leaves& L, int64_t n, int64_t i, int32_t tick) {
-    rq_wait = rp_wait = 0;
-    next_due = kInt32Max;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      const int32_t uq = load<int32_t>(L, kRqUntil, j, n, i);
-      const int32_t up = load<int32_t>(L, kRpUntil, j, n, i);
-      if (uq > tick) {
-        rq_wait |= 1u << j;
-        next_due = min(next_due, uq);
-      }
-      if (up > tick) {
-        rp_wait |= 1u << j;
-        next_due = min(next_due, up);
-      }
-    }
-  }
-
-  // At the start of tick `tick` (readiness is tick >= until): release the
-  // waiting slots whose stamp has come.
-  __device__ __forceinline__ void refresh(const Leaves& L, int64_t n, int64_t i, int32_t tick,
-                                          DrawCount* draws) {
-    if (tick < next_due) return;
-    next_due = kInt32Max;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      if ((rq_wait >> j) & 1u) {
-        draws->touch(1);
-        const int32_t u = load<int32_t>(L, kRqUntil, j, n, i);
-        if (u > tick) next_due = min(next_due, u); else rq_wait &= ~(1u << j);
-      }
-      if ((rp_wait >> j) & 1u) {
-        draws->touch(1);
-        const int32_t u = load<int32_t>(L, kRpUntil, j, n, i);
-        if (u > tick) next_due = min(next_due, u); else rp_wait &= ~(1u << j);
-      }
-    }
-  }
-
-  // Slot j of a buffer (leaf kRqUntil or kRpUntil) is written at `tick`
-  // with stamp u (0: deliverable at once).
-  __device__ __forceinline__ void write(const Leaves& L, int leaf, int j, int64_t n, int64_t i,
-                                        int32_t tick, int32_t u, DrawCount* draws) {
-    draws->touch(1);
-    store<int32_t>(L, leaf, j, n, i, u);
-    uint32_t& wait = leaf == kRqUntil ? rq_wait : rp_wait;
-    if (u > tick) {
-      wait |= 1u << j;
-      next_due = min(next_due, u);
-    } else {
-      wait &= ~(1u << j);
-    }
-  }
-};
-
-// The delay stamp of a send on edge (p, a) at `tick` (delay_stamps): kind
-// `kind` of direction `dir` (0 requests, 1 replies) draws at prefix
-// ((dir * 2 + kind) * P + p) * A + a.  tick + 1 + min(latency, cap) where
-// the link is slow (bit p * A + a of `slow`: cap > 0) and the delay draw
-// fires, else 0; the latency is 1 + (bits & 0x7FFFFFFF) % delay_max.  A
-// link that never delays draws nothing: its stamp is 0 whatever the draws.
-template <int P, int A>
-__device__ __forceinline__ int32_t delay_stamp(const Params& prm, const Plan& plan,
-                                               const TickStream& ts, uint32_t slow, int dir,
-                                               int kind, int p, int a, int64_t n, int64_t i,
-                                               int32_t tick) {
-  if (prm.delay.mode == 0 || !((slow >> (p * A + a)) & 1u)) return 0;
-  const int pos = ((dir * 2 + kind) * P + p) * A + a;
-  if (ts.bits(kDelayBits, pos) >= prm.delay.thr) return 0;
-  const uint32_t lat =
-      1u + (ts.bits(kLatBits, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
-  const int32_t cap = plan.link_delay[(p * A + a) * n + i];
-  return wrap_add(wrap_add(tick, 1), min(static_cast<int32_t>(lat), cap));
-}
-
 // The learner's bounded (ballot, value) -> voter-mask table of one lane.
 template <int K>
 struct Learner {
@@ -541,6 +453,71 @@ void move_stamps_last(Leaves* L) {
 inline unsigned grid_for(int64_t n_inst, int threads = kThreads) {
   return static_cast<unsigned>((n_inst + threads - 1) / threads);
 }
+
+// The kernels that keep a column per lane in shared memory (Multi-Paxos,
+// SynchPaxos).
+
+constexpr int kMaxDevices = 64;  // devices whose shared-memory limit is cached
+
+// One thread's column of the block's shared buffer: word r at p[r * B].
+template <int B>
+struct Column {
+  int32_t* p;  // the buffer + threadIdx.x
+  __device__ __forceinline__ int32_t& operator[](int r) const { return p[r * B]; }
+};
+
+// Dynamic shared memory of `bytes` a block for `kernel` on the current
+// device: the limit is raised (and the carveout set to the most shared
+// memory) the first time a size is asked for on a device.  `allowed` is the
+// kernel's own cache.  A refused request clears the runtime's last error,
+// so that it does not fail the next launch, and is returned.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev] == bytes) return cudaSuccess;
+  rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return rc;
+  }
+  allowed[dev] = bytes;
+  return cudaSuccess;
+}
+
+using TickKernel = void (*)(Leaves, Plan, const int32_t*, Params);
+
+// One instantiation of such a kernel, B lanes a block, with `smem` bytes of
+// dynamic shared memory a block (at least NEED, its staged rows'):
+// `launch` runs it over prm.n_inst lanes, `occupancy` asks how many of its
+// blocks an SM holds.
+template <TickKernel KERNEL, int B, int NEED>
+struct SmemInst {
+  static cudaError_t prepare(int smem) {
+    static int allowed[kMaxDevices] = {};
+    if (smem < NEED) return cudaErrorInvalidValue;
+    return allow_smem(KERNEL, smem, allowed);
+  }
+
+  static cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick,
+                            const Params& prm, int smem, cudaStream_t stream) {
+    const cudaError_t rc = prepare(smem);
+    if (rc != cudaSuccess) return rc;
+    KERNEL<<<grid_for(prm.n_inst, B), B, smem, stream>>>(L, plan, tick, prm);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t occupancy(int smem, int* blocks_per_sm) {
+    const cudaError_t rc = prepare(smem);
+    if (rc != cudaSuccess) return rc;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, KERNEL, B, smem);
+  }
+};
 
 }  // namespace
 

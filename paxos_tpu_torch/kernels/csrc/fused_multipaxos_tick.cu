@@ -84,7 +84,6 @@ constexpr int32_t kFollow = 0, kCandidate = 1, kLead = 2;
 constexpr int32_t kMpBallotLimit = (1 << 11) - 1;  // Multi-Paxos report-time limit
 constexpr int kMpLeaves = 29;                      // per-lane state leaves
 constexpr int32_t kValMask = 0xFFFF;               // bv_val of a packed pair
-constexpr int kMaxDevices = 64;                    // devices whose shared-memory limit is cached
 
 // Multi-Paxos stream ids (core/streams.py MULTI_PAXOS_STREAMS); SEL and
 // BUSY share the single-decree ids.
@@ -187,13 +186,6 @@ __device__ __forceinline__ int select_present(const TickStream& ts, uint32_t pre
   }
   return win;
 }
-
-// One thread's column of the block's shared buffer: word r at p[r * B].
-template <int B>
-struct Column {
-  int32_t* p;  // the buffer + threadIdx.x
-  __device__ __forceinline__ int32_t& operator[](int r) const { return p[r * B]; }
-};
 
 // Rows [0, ROWS) of a leaf to (from) the column from row OFF on.
 template <int ROWS, int OFF, int B>
@@ -697,59 +689,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   store_column<P, A, LOG, K, B, PROM>(col, L, n, i);
 }
 
-// Dynamic shared memory of `bytes` a block for `kernel` on the current
-// device: the limit is raised (and the carveout set to the most shared
-// memory) the first time a size is asked for on a device.  `allowed` is the
-// instantiation's own cache.  A refused request clears the runtime's
-// last error, so that it does not fail the next launch, and is returned.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int (&allowed)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return rc;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (allowed[dev] == bytes) return cudaSuccess;
-  rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (rc == cudaSuccess)
-    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-  if (rc != cudaSuccess) {
-    cudaGetLastError();
-    return rc;
-  }
-  allowed[dev] = bytes;
-  return cudaSuccess;
-}
-
-// One instantiation: its kernel with `smem` bytes of dynamic shared memory
-// a block (at least its staged rows'), ready to launch; `launch` runs it,
-// `occupancy` asks how many of its blocks an SM holds.
+// One instantiation, ready to launch (SmemInst in fused_common.cuh).
 template <int P, int A, int LOG, int K, int B, bool PROM>
-struct Inst {
-  static constexpr int kNeed = Staged<P, A, LOG, K, PROM>::kRows * B * 4;
-
-  static cudaError_t prepare(int smem) {
-    static int allowed[kMaxDevices] = {};
-    if (smem < kNeed) return cudaErrorInvalidValue;
-    return allow_smem(fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, smem, allowed);
-  }
-
-  static cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick,
-                            const Params& prm, int smem, cudaStream_t stream) {
-    const cudaError_t rc = prepare(smem);
-    if (rc != cudaSuccess) return rc;
-    fused_multipaxos_kernel<P, A, LOG, K, B, PROM>
-        <<<grid_for(prm.n_inst, B), B, smem, stream>>>(L, plan, tick, prm);
-    return cudaGetLastError();
-  }
-
-  static cudaError_t occupancy(int smem, int* blocks_per_sm) {
-    const cudaError_t rc = prepare(smem);
-    if (rc != cudaSuccess) return rc;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, B, smem);
-  }
-};
+using Inst = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, B,
+                      Staged<P, A, LOG, K, PROM>::kRows * B * 4>;
 
 // The instantiations, (n_prop, n_acc, log_len, k_slots, B, PROM): one per
 // shape, at the geometry fused_tick.MP_STAGING gives it.

@@ -24,9 +24,12 @@ state with or without ``until`` stamps (an instantiation each) and the
 plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
 
 The Multi-Paxos kernel keeps each lane's slot arrays in shared memory for
-the whole chunk; its launch geometry per instantiation (lanes a CUDA
-block, staged rows, shared bytes) is ``MP_STAGING``, which the kernel's
-instantiations mirror; the wrapper passes it the shared bytes.
+the whole chunk, and the SynchPaxos kernel its message payloads, delay
+stamps and learner table; their launch geometry per instantiation (lanes
+a CUDA block, staged rows, shared bytes) is ``MP_STAGING`` and
+``SP_STAGING``, which the kernels' instantiations mirror; the wrapper
+passes them the shared bytes.  :func:`phase_clocks` runs K4's phase-clock
+build, which splits a lane's cycles by phase of the tick.
 """
 
 from __future__ import annotations
@@ -133,6 +136,62 @@ MP_STAGING = {
 }
 
 
+# The SynchPaxos state leaves K4 keeps in shared memory for a whole chunk
+# (csrc/fused_synchpaxos_tick.cu ``SpStaged``), in column order, each with
+# the message kinds it stages (None: every row of the leaf); the stamps only
+# where the state carries them.  The kinds a leaf does not stage are those
+# the tick only ever writes as 0 (``SP_ZERO_WORDS``): they get no row, and
+# the column store writes 0 to them in the slots the chunk wrote.
+SP_STAGED_LEAVES = (
+    ("requests.bal", (0, 1)), ("requests.v1", (1,)), ("replies.bal", (0, 1)),
+    ("replies.v1", (0, 1)), ("replies.v2", (0,)),
+    ("requests.until", (0, 1)), ("replies.until", (0, 1)),
+    ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
+)
+# PREPARE's v1, every request's v2, ACCEPTED's v2 (protocols/synchpaxos.py).
+SP_ZERO_WORDS = (("requests.v1", (0,)), ("requests.v2", (0, 1)), ("replies.v2", (1,)))
+
+
+@dataclasses.dataclass(frozen=True)
+class SpStaging:
+    """K4's launch geometry at one instantiation: ``threads`` lanes a CUDA
+    block (a multiple of 32), the int32 words of a lane's shared-memory
+    column (``rows``), the block's dynamic shared memory
+    (``rows * 4 * threads`` bytes), and ``min_blocks``, the blocks an SM is
+    to hold, which caps a thread's registers (``__launch_bounds__``)."""
+
+    threads: int
+    rows: int
+    smem_bytes: int
+    min_blocks: int
+
+
+def sp_staged_rows(n_prop: int, n_acc: int, k_slots: int, stamped: int) -> int:
+    """Words of a lane's column: the request ballots (2PA) and ACCEPT
+    values (PA), the reply ballots and first payloads (2PA each) and PROMISE
+    second payloads (PA), the stamps of both buffers (2PA each) where
+    stamped, and the learner table (3K)."""
+    e = n_prop * n_acc
+    return 8 * e + (4 * e if stamped else 0) + 3 * k_slots
+
+
+def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> SpStaging:
+    rows = sp_staged_rows(*shape)
+    return SpStaging(threads, rows, rows * 4 * threads, min_blocks)
+
+
+# K4's geometry per instantiation, which the wrapper passes to the kernel.
+# As K5's, the tick is a long dependent chain a lane, so the warps an SM
+# holds set the pace: 3 blocks of 128 lanes (12 warps), which caps a
+# thread at 168 registers; the stamped (2, 5, 8) column (144 words, the
+# learner table included) leaves room for no fourth block.
+SP_STAGING = {
+    (2, 5, 8, 1): _sp_staging((2, 5, 8, 1), 128, 3),
+    (2, 5, 8, 0): _sp_staging((2, 5, 8, 0), 128, 3),
+    (2, 3, 8, 1): _sp_staging((2, 3, 8, 1), 128, 3),
+}
+
+
 def fit_block(block: int, n: int) -> int:
     """A stream block that divides ``n``: the request if it does, else the
     largest power of two <= the request that divides ``n``.
@@ -207,8 +266,8 @@ class Binding:
     ballot_limit: int = REPORT_BALLOT_LIMIT
     proposer_bal_bits: int = 17  # core/state.py PAXOS_LAYOUT and kin
     shape_fields: tuple = ("n_prop", "n_acc", "k_slots")
-    # Launch geometry per shape (MpStaging), whose shared bytes are passed
-    # after the shape; None: the kernel's own fixed geometry.
+    # Launch geometry per shape (MpStaging, SpStaging), whose shared bytes
+    # are passed after the shape; None: the kernel's own fixed geometry.
     staging: "dict | None" = None
 
     def kernel_shape(self, state: LaneState) -> tuple:
@@ -229,6 +288,7 @@ BINDINGS = {
     "synchpaxos": Binding(
         apply_tick_sp, counter_masks, SynchPaxosState, "fused_synchpaxos_tick",
         "fused_synchpaxos_launch", shape_fields=("n_prop", "n_acc", "k_slots", "stamped"),
+        staging=SP_STAGING,
     ),
     # core/mp_state.py MP_LAYOUT: an 11-bit report limit in a 12-bit field.
     "multipaxos": Binding(
@@ -260,6 +320,15 @@ def ballot_hoist_safe_ticks(protocol: str = "paxos") -> int:
 # also counts the counter-PRNG draws the kernel makes and the slot-array
 # elements it touches.
 COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
+# The phase-clock build (K4 only): clock64() cycles per phase of the tick,
+# in the order of the kernel's ``Phase`` enum.
+PHASE_CLOCKS = ("FUSED_PHASE_CLOCKS",)
+PHASES = {
+    "synchpaxos": (
+        "column load", "stamp refresh", "reply delivery", "proposer fold",
+        "acceptor half-tick", "learner", "proposer sends", "column store",
+    ),
+}
 
 
 def _entry(protocol: str, defines: tuple = ()):
@@ -429,15 +498,17 @@ def _launch_dims(binding: Binding, shape: tuple) -> tuple:
     return shape + (binding.staging[shape].smem_bytes,)
 
 
-def mp_blocks_per_sm(shape: tuple) -> int:
-    """Blocks of K5's instantiation ``shape`` (at ``MP_STAGING[shape]``)
-    that one SM of the current CUDA device holds at once:
+def blocks_per_sm(protocol: str, shape: tuple) -> int:
+    """Blocks of ``protocol``'s instantiation ``shape`` (at the binding's
+    staging geometry) that one SM of the current CUDA device holds at once:
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the geometry's
     threads and shared bytes."""
     from paxos_tpu_torch.kernels import build
 
-    binding = BINDINGS["multipaxos"]
-    fn = build.load(binding.kernel).fused_multipaxos_occupancy
+    binding = BINDINGS[protocol]
+    if binding.staging is None:
+        raise ValueError(f"the {protocol} kernel has no staging geometry")
+    fn = getattr(build.load(binding.kernel), f"fused_{protocol}_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     full = _launch_dims(binding, tuple(shape))
@@ -449,6 +520,38 @@ def mp_blocks_per_sm(shape: tuple) -> int:
     return out.value
 
 
+def _measure(
+    protocol: str, defines: tuple, reader: str, n_out: int, state: LaneState, seed: int,
+    plan: FaultPlan, cfg: FaultConfig, n_ticks: int, block: "int | None", blk0: int,
+    clamp_per_tick: bool,
+) -> list:
+    """One launch of ``protocol``'s measuring build ``defines``, which
+    advances ``state`` in place exactly as the wrapper would, then its
+    ``n_out`` counters as its C ``reader`` returns (and clears) them.  CUDA
+    tensors only; the wrapper's ``.launches`` is left as it is."""
+    block = BINDINGS[protocol].block if block is None else block
+    if state.device.type != "cuda":
+        raise ValueError("a measuring build counts on the card: it needs a CUDA state")
+    if not isinstance(state, BINDINGS[protocol].state_cls):
+        raise TypeError(f"the {protocol} engine takes a {BINDINGS[protocol].state_cls.__name__}")
+    check_supported(cfg, protocol)
+    _check_cuda_inputs(protocol, state, plan, cfg)
+    _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick, defines)
+    state.tick.add_(n_ticks)
+    torch.cuda.synchronize(state.device)
+    from paxos_tpu_torch.kernels import build
+
+    read = getattr(build.load(BINDINGS[protocol].kernel, defines), reader)
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    read.restype = ctypes.c_int
+    out = (ctypes.c_ulonglong * n_out)()
+    with torch.cuda.device(state.device):
+        rc = read(out)
+    if rc != 0:
+        raise RuntimeError(f"reading {reader} failed: cudaError {rc}")
+    return list(out)
+
+
 def draw_census(
     protocol: str, state: LaneState, seed: int, plan: FaultPlan,
     cfg: FaultConfig, n_ticks: int, block: "int | None" = None, blk0: int = 0,
@@ -456,34 +559,38 @@ def draw_census(
 ) -> tuple:
     """(draws, slot touches): the counter-PRNG draws ``protocol``'s kernel
     makes over ``n_ticks`` ticks from ``state``, and the slot-array elements
-    it reads or writes (Multi-Paxos; 0 for the single-decree kernels, whose
-    whole state sits in registers), summed over lanes and ticks: one launch
-    of its measuring build, which advances ``state`` in place exactly as
-    the wrapper would.  The kernels draw a mask, and touch a slot, only
-    where the outcome depends on it, so these are the PRNG and slot work
-    the data needs.  CUDA tensors only; the wrapper's ``.launches`` is left
-    as it is.  ``block`` defaults to the protocol's."""
-    block = BINDINGS[protocol].block if block is None else block
-    if state.device.type != "cuda":
-        raise ValueError("draw_census counts a CUDA kernel's draws: it needs a CUDA state")
-    if not isinstance(state, BINDINGS[protocol].state_cls):
-        raise TypeError(f"the {protocol} engine takes a {BINDINGS[protocol].state_cls.__name__}")
-    check_supported(cfg, protocol)
-    _check_cuda_inputs(protocol, state, plan, cfg)
-    _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick, COUNT_DRAWS)
-    state.tick.add_(n_ticks)
-    torch.cuda.synchronize(state.device)
-    from paxos_tpu_torch.kernels import build
+    it reads or writes (Multi-Paxos; SynchPaxos: the delay stamps; 0 for
+    the other single-decree kernels, whose whole state sits in registers),
+    summed over lanes and ticks: one launch of its measuring build
+    (``_measure``).  The kernels draw a mask, and touch a slot, only where
+    the outcome depends on it, so these are the PRNG and slot work the data
+    needs.  ``block`` defaults to the protocol's."""
+    draws, touches = _measure(
+        protocol, COUNT_DRAWS, "fused_draws", 2, state, seed, plan, cfg, n_ticks, block, blk0,
+        clamp_per_tick,
+    )
+    return draws, touches
 
-    read = build.load(BINDINGS[protocol].kernel, COUNT_DRAWS).fused_draws
-    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    read.restype = ctypes.c_int
-    out = (ctypes.c_ulonglong * 2)()
-    with torch.cuda.device(state.device):
-        rc = read(out)
-    if rc != 0:
-        raise RuntimeError(f"reading the draw count failed: cudaError {rc}")
-    return out[0], out[1]
+
+def phase_clocks(
+    protocol: str, state: LaneState, seed: int, plan: FaultPlan,
+    cfg: FaultConfig, n_ticks: int, block: "int | None" = None, blk0: int = 0,
+    clamp_per_tick: bool = False,
+) -> dict:
+    """Where a lane's cycles go: ``clock64()`` cycles per phase of the tick
+    (``PHASES[protocol]``, in the tick's order), summed over lanes and over
+    ``n_ticks`` ticks from ``state``, from one launch of the kernel's
+    phase-clock build (``_measure``).  A lane's cycles include the time the
+    SM gives other warps, so the split says where a lane waits, not what
+    the SM executes."""
+    phases = PHASES.get(protocol)
+    if phases is None:
+        raise ValueError(f"the {protocol} kernel has no phase-clock build (PHASES: {sorted(PHASES)})")
+    cycles = _measure(
+        protocol, PHASE_CLOCKS, "fused_phase_clocks", len(phases), state, seed, plan, cfg,
+        n_ticks, block, blk0, clamp_per_tick,
+    )
+    return dict(zip(phases, cycles, strict=True))
 
 
 def fused_paxos_chunk(
@@ -563,8 +670,10 @@ def fused_synchpaxos_chunk(
     clamp_per_tick: bool = False,
 ) -> SynchPaxosState:
     """:func:`fused_paxos_chunk` for SynchPaxos
-    (``csrc/fused_synchpaxos_tick.cu``), on a state with or without delay
-    stamps; ``p_delay > 0`` needs a plan with ``link_delay``."""
+    (``csrc/fused_synchpaxos_tick.cu``, at the geometry ``SP_STAGING``
+    gives the state's shape; a launch the card refuses raises), on a state
+    with or without delay stamps; ``p_delay > 0`` needs a plan with
+    ``link_delay``."""
     return _fused_chunk(
         "synchpaxos", fused_synchpaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,

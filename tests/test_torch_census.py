@@ -1,12 +1,15 @@
-"""The operation census behind ``chip_smoke.py``'s kernel bounds.
+"""The operation counts behind ``chip_smoke.py``'s kernel bounds.
 
-A fused kernel's operation bound counts the int32 work of one tick with
+A fused kernel's operation floor is the counter-PRNG draws its measuring
+build counts at ``chip_smoke.DRAW_OPS`` each, the operations of
+``counter_bits``.  Beside the bound ``chip_smoke.py`` prints an estimate
+that is no floor: it counts the int32 work of one tick with
 ``scripts/roofline.py``'s census (recorded in ``ROOFLINE.json``), one case
 per main path.  The census counts the vectorised tick, which draws every
 mask element and (Multi-Paxos) rewrites every slot-array element every
 tick, and (SynchPaxos with delay) computes every delay stamp every tick;
 the kernels draw a mask, and touch a slot or a stamp, only where the
-outcome depends on it, so the bound counts those shares for what a
+outcome depends on it, so the estimate counts those shares for what a
 kernel's measuring build counts, at the census's cost per element.
 ``chip_smoke.MASK_CENSUS``, ``chip_smoke.SLOT_CENSUS`` and
 ``chip_smoke.STAMP_CENSUS`` pin the shares per case; these tests recompute
@@ -26,6 +29,7 @@ recorded ALU + reduction census.
 import dataclasses
 import importlib.util
 import json
+import re
 from pathlib import Path
 
 import jax
@@ -39,7 +43,7 @@ from paxos_tpu.harness.run import init_state as j_init_state
 from paxos_tpu.kernels.fused_tick import fused_fns
 
 REPO = Path(__file__).resolve().parents[1]
-# Census case -> the main path whose kernel's bound counts it.
+# Census case -> the main path whose kernel's estimate counts it.
 CASES = {mp.census: path for path, mp in chip_smoke.MAIN_PATHS.items()}
 
 
@@ -173,7 +177,7 @@ def test_lazy_census_counts_the_draws(case):
 def test_chip_smoke_census_case_matches_jax_tick_census(case):
     """The recorded case is scripts/roofline.py's tick_census of its main
     path's config at the protocol's block; for config_delay_chaos the
-    delta-violating regime counts the same, so one case bounds both."""
+    delta-violating regime counts the same, so one case serves both."""
     cfg = _census_config(case)
     want = chip_smoke.CENSUS_CASES[case]
     got = _roofline().tick_census(cfg, _block(case))
@@ -203,3 +207,14 @@ def test_stamp_census_matches_jax_delay_off(case):
             net[name] = c["alu_per_lane_tick"] + c["reduce_per_lane_tick"] - _mask_share(cfg)[0]
         elems = _elems_per_lane(on) - _elems_per_lane(off)
         assert chip_smoke.STAMP_CENSUS[case] == (net["on"] - net["off"], elems)
+
+
+def test_draw_ops_count_the_counter_hash():
+    """``DRAW_OPS`` is the arithmetic of ``counter_bits`` less its three
+    launch-constant terms (the stream's offset and its multiple, the seed's
+    product), plus the compare that makes the draw a mask bit."""
+    src = (REPO / "paxos_tpu_torch/kernels/csrc/fused_common.cuh").read_text()
+    body = re.search(r"uint32_t counter_bits\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    ops = re.findall(r"\^=|\*=|>>|\+|\*", body)
+    assert len(ops) == 13
+    assert len(ops) - 3 + 1 == chip_smoke.DRAW_OPS

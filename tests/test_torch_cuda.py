@@ -16,9 +16,12 @@ slots compacted between chunks, near-limit ballots clamped at 2047, and
 on lane counts no CUDA block divides; a shared-memory request the card
 refuses raises.
 K4 (SynchPaxos) is held so with and without delay stamps, with delta
-violated and the planted bug, at three acceptors and under the clamp; a
-plan without ``link_delay`` under ``p_delay > 0`` is refused, and the
-other kernels refuse ``p_delay``.
+violated and the planted bug, with duplicates, uneven quorums and a ballot
+stride, at three acceptors, under the clamp and on lane counts no CUDA
+block divides; its geometry holds 12 warps an SM, a shared-memory request
+the card refuses raises, and its phase-clock build advances the state as
+the kernel does.  A plan without ``link_delay`` under ``p_delay > 0`` is
+refused, and the other kernels refuse ``p_delay``.
 """
 
 import dataclasses
@@ -42,6 +45,7 @@ from chip_smoke import (
     plain_chunk,
     sp_checker_config,
     sp_delay_off_config,
+    sp_knob_configs,
 )
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
@@ -219,7 +223,7 @@ def test_multipaxos_geometry_fits_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for shape, staging in tfused.MP_STAGING.items():
-        assert tfused.mp_blocks_per_sm(shape) * staging.threads // 32 >= 8
+        assert tfused.blocks_per_sm("multipaxos", shape) * staging.threads // 32 >= 8
 
 
 @pytest.mark.cuda
@@ -267,6 +271,8 @@ def test_synchpaxos_kernel_matches_plain_on_cuda():
         (sp_delay_off_config(4096, 5), 96, None, {}),  # (2,5,8) without stamps
         (three, 96, None, {}),  # (2,3,8) with stamps
         (chaos, 64, near_limit_state(chaos, 4094), dict(blk0=2, clamp_per_tick=True)),
+        # p_dup 0.2, q1/q2 = 2/4, ballot_stride 3 with backoff_max 3
+        *((c, 96, None, {}) for c in sp_knob_configs(4096, 10).values()),
     )
     for c, ticks, init, kw in cases:
         init = trun.init_state(c, "cuda") if init is None else init
@@ -283,6 +289,88 @@ def test_synchpaxos_kernel_matches_plain_on_cuda():
     c = main_config("synchpaxos", 256, 7)
     st = wrapper(trun.init_state(c, "cuda"), 7, config_plan(c, 7), c.fault, 32, block=256)
     assert _digest(st) == SP_GOLDEN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfused.KERNEL_SHAPES["synchpaxos"])
+def test_synchpaxos_kernel_ragged_grid_on_cuda(shape):
+    """K4 at every instantiation on 1000 lanes, which no CUDA block of its
+    geometry divides (the last block runs part full), with a stream block
+    of fit_block(1024, 1000) = 8 lanes, over three chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n = 1000
+    assert n % tfused.SP_STAGING[shape].threads != 0
+    n_prop, n_acc, _, stamped = shape
+    cfg = TC.config_delay_chaos(n, 9, violate_delta=True) if stamped else sp_delay_off_config(n, 9)
+    cfg = dataclasses.replace(cfg, n_acc=n_acc)
+    block = tfused.fit_block(1024, n)
+    plan = main_plan(cfg) or trun.init_plan(cfg, "cuda")
+    plain = trun.init_state(cfg, "cuda")
+    assert tfused.BINDINGS["synchpaxos"].kernel_shape(plain) == shape
+    kern = plain.clone()
+    for _ in range(3):
+        plain = plain_chunk(cfg, plain, plan, 64, block)
+        kern = tfused.fused_synchpaxos_chunk(kern, cfg.seed, plan, cfg.fault, 64, block=block)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+
+
+@pytest.mark.cuda
+def test_synchpaxos_refused_launch_raises(monkeypatch):
+    """A shared-memory request the card refuses (over 227 KB a block), or
+    one too small for K4's staged rows, raises in the wrapper: the kernel
+    never ran, the state is as it was, no launch is counted, and the next
+    launch at the table's geometry runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cfg = main_config("synchpaxos", 1024, 3)
+    plan = main_plan(cfg)
+    shape = (2, 5, 8, 1)
+    staging = tfused.SP_STAGING[shape]
+    state = tfused.fused_synchpaxos_chunk(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 16)
+    before, launches = state.clone(), tfused.fused_synchpaxos_chunk.launches
+    for smem in (tfused.SMEM_PER_BLOCK_MAX + 1024, staging.smem_bytes - 4):
+        monkeypatch.setitem(tfused.SP_STAGING, shape, dataclasses.replace(staging, smem_bytes=smem))
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tfused.fused_synchpaxos_chunk(state, cfg.seed, plan, cfg.fault, 16)
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+        assert tfused.fused_synchpaxos_chunk.launches == launches
+    monkeypatch.setitem(tfused.SP_STAGING, shape, staging)
+    kern = tfused.fused_synchpaxos_chunk(state, cfg.seed, plan, cfg.fault, 16)
+    _assert_same(kern, plain_chunk(cfg, before, plan, 16, 1024))
+
+
+@pytest.mark.cuda
+def test_synchpaxos_geometry_fits_the_card():
+    """Every geometry of K4 lets an SM hold the blocks its registers are
+    capped for: 12 warps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    for shape, staging in tfused.SP_STAGING.items():
+        blocks = tfused.blocks_per_sm("synchpaxos", shape)
+        assert blocks >= staging.min_blocks and blocks * staging.threads // 32 >= 12
+
+
+@pytest.mark.cuda
+def test_synchpaxos_phase_clocks_follow_the_kernel():
+    """K4's phase-clock build advances the state as the kernel does,
+    counts no launch, and splits a lane's cycles over every phase."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cfg = TC.config_delay_chaos(8192, 5, violate_delta=True)
+    plan, ticks = main_plan(cfg), 48
+    kern = tfused.fused_synchpaxos_chunk(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
+    before = tfused.fused_synchpaxos_chunk.launches
+    clocked = trun.init_state(cfg, "cuda")
+    cycles = tfused.phase_clocks("synchpaxos", clocked, cfg.seed, plan, cfg.fault, ticks)
+    assert tfused.fused_synchpaxos_chunk.launches == before
+    _assert_same(clocked, kern)
+    assert tuple(cycles) == tfused.PHASES["synchpaxos"]
+    assert all(c > 0 for c in cycles.values())
+    again = tfused.phase_clocks("synchpaxos", trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
+    assert sum(again.values()) < 2 * sum(cycles.values())  # cleared after every read
 
 
 @pytest.mark.cuda

@@ -127,4 +127,4 @@ def test_occupancy_query_needs_the_kernel_build(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tfused.mp_blocks_per_sm((2, 5, 8, 4))
+        tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4))

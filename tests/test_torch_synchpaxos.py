@@ -11,8 +11,9 @@ config fingerprint, the state and plan exchange, a multi-block stream and
 int32/bool; the report's float32 fractions to a relative 1e-6).  The
 golden digest and the checker count that ``chip_smoke.py`` pins for K4
 are computed here with the JAX package.  JAX helpers are jitted once per
-config and shape.  The CUDA kernel's own tests need a card and live in
-tests/test_torch_cuda.py.
+config and shape (the chunk's tick count is traced), and a JAX plan is
+built from its leaves, not sampled again for its structure.  The CUDA
+kernel's own tests need a card and live in tests/test_torch_cuda.py.
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
+from _torch_jax import jax_plan_of
 from paxos_tpu.core.messages import MsgBuf as JMsgBuf
 from paxos_tpu.faults.injector import FaultConfig as JFaultConfig
 from paxos_tpu.harness import config as JC
@@ -169,11 +171,19 @@ def jax_tick(fault):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_chunk(fault, n_ticks):
+def _jax_chunk(fault):
     apply_fn, mask_fn, _ = fused_fns("synchpaxos")
     return jax.jit(
-        lambda st, seed, plan, blk: j_reference_chunk(st, seed, plan, fault, n_ticks, apply_fn, mask_fn, blk_id=blk)
+        lambda st, seed, plan, blk, n_ticks: j_reference_chunk(
+            st, seed, plan, fault, n_ticks, apply_fn, mask_fn, blk_id=blk
+        )
     )
+
+
+def jax_chunk(fault, n_ticks):
+    """The JAX package's fused reference over ``n_ticks`` ticks: one
+    compile per config and shape, whatever the tick count."""
+    return lambda st, seed, plan, blk: _jax_chunk(fault)(st, seed, plan, blk, n_ticks)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -291,7 +301,7 @@ def test_multiblock_stream_matches_per_block_reference():
     jcfg, tcfg = _chaos(n, seed)
     jplan, plan_leaves = _jax_plan(jcfg)
     small = _chaos(block, seed)[0]
-    plan_def = jax.tree.structure(j_init_plan(small))
+    plan_def = jax.tree.structure(jplan)  # the plan's structure, whatever its lanes
     js = j_init_state(small)
     per_block = []
     for b in range(4):
@@ -348,7 +358,8 @@ def test_chip_smoke_golden_and_checker_pins_match_jax_package():
     tcfg = chip_smoke.main_config("synchpaxos", 256, 7)
     plan = chip_smoke.config_plan(tcfg, 7, "cpu")
     jcfg = JC.config_delay_chaos(256, 7)
-    jplan = jax.tree.unflatten(jax.tree.structure(j_init_plan(jcfg)), [jnp.asarray(x.numpy()) for x in plan.leaves()])
+    jplan = jax_plan_of(plan)
+    assert jax.tree.structure(jplan) == jax.tree.structure(_jax_plan(jcfg)[0])
     jstate = jax_chunk(jcfg.fault, 32)(j_init_state(jcfg), 7, jplan, 0)
     assert _digest([_np(x) for x in jax.tree.leaves(jstate)]) == chip_smoke.SP_GOLDEN
     tstate = tfused.fused_synchpaxos_chunk(trun.init_state(tcfg, "cpu"), 7, plan, tcfg.fault, 32, block=256)
@@ -360,8 +371,7 @@ def test_chip_smoke_golden_and_checker_pins_match_jax_package():
     jcfg = JC.config_delay_chaos(tcfg.n_inst, tcfg.seed, True)
     jcfg = dataclasses.replace(jcfg, fault=dataclasses.replace(jcfg.fault, sp_unsafe_fast=True, p_drop=0.4))
     assert dataclasses.asdict(jcfg.fault) == dataclasses.asdict(tcfg.fault)
-    jplan = jax.tree.unflatten(jax.tree.structure(j_init_plan(jcfg)), [jnp.asarray(x.numpy()) for x in plan.leaves()])
-    report = j_summarize(jax_chunk(jcfg.fault, ticks)(j_init_state(jcfg), tcfg.seed, jplan, 0))
+    report = j_summarize(jax_chunk(jcfg.fault, ticks)(j_init_state(jcfg), tcfg.seed, jax_plan_of(plan), 0))
     assert report["proposer_disagree"] == chip_smoke.SP_CHECKER_DISAGREE > 0
     assert report["violations"] == 0
 
