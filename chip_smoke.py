@@ -9,10 +9,11 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 
 1. build: the six kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
-   together, and K4's phase-clock build; each kernel's ``ptxas -v``
-   registers and spills, and K5's and K4's launch geometry per
-   instantiation (lanes a CUDA block, staged rows, shared bytes, blocks
-   an SM holds);
+   together, and the phase-clock builds of K2, K3 and K4; each kernel's
+   ``ptxas -v`` registers and spills, and the launch geometry per
+   instantiation of the kernels that stage a column per lane in shared
+   memory (K2 to K5: lanes a CUDA block, staged rows, shared bytes,
+   blocks an SM holds);
 2. ceiling: the int32 probe (K6) against its plain version byte for byte,
    then the card's int32 operation rate from two iteration counts, printed
    beside the published peak that the bounds divide by;
@@ -25,17 +26,19 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    version on the card, byte for byte, including a per-tick ballot clamp
    with a block offset, Multi-Paxos long logs compacted between chunks,
    SynchPaxos with and without delay stamps, with delta violated, and
-   with duplicates, uneven quorums and a ballot stride, and at full width
+   with duplicates, uneven quorums and a ballot stride, Fast Paxos and
+   Raft-core with duplicates and a ballot stride (Fast Paxos also with
+   uneven quorums), and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
    draws of the timed ticks counted by each kernel's measuring build for
    its operation floor (``DRAW_OPS``; no kernel may beat its bound), and
    its slot-array (delay-stamp) touches for the census estimate; timed so
    in the steady state and on the first chunk, where the lanes still
-   send (for K4 in the delta-violating regime too), K4 with the split of
-   a lane's cycles by phase of the tick from its phase-clock build; the
-   column load and store alone (a launch of 0 ticks) of K5 on config3 and
-   config3-long and of K4;
+   send (for K4 in the delta-violating regime too), K2, K3 and K4 with
+   the split of a lane's cycles by phase of the tick from their
+   phase-clock builds; the column load and store alone (a launch of 0
+   ticks) of K2, K3, K4, and K5 on config3 and config3-long;
 5. main paths: the flagship campaign (config2), the config5 sweep's Fast
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
@@ -373,14 +376,20 @@ def phase_build() -> dict:
 
 def phase_geometry() -> dict:
     """The launch geometry of the kernels that stage a column per lane in
-    shared memory (K5, K4) at every instantiation: lanes a CUDA block,
-    staged rows a lane, shared bytes a block, and the blocks one SM holds
-    (the card's occupancy query); K4 must hold the blocks its registers are
-    capped for."""
-    from paxos_tpu_torch.kernels.fused_tick import MP_STAGING, SP_STAGING, blocks_per_sm
+    shared memory (K5, K4, K2, K3) at every instantiation: lanes a CUDA
+    block, staged rows a lane, shared bytes a block, and the blocks one SM
+    holds (the card's occupancy query); K2 to K4 must hold the blocks their
+    registers are capped for."""
+    from paxos_tpu_torch.kernels.fused_tick import (
+        FR_STAGING,
+        MP_STAGING,
+        SP_STAGING,
+        blocks_per_sm,
+    )
 
-    out = {"multipaxos": [], "synchpaxos": []}
-    for protocol, table in (("multipaxos", MP_STAGING), ("synchpaxos", SP_STAGING)):
+    tables = {"multipaxos": MP_STAGING, "synchpaxos": SP_STAGING, **FR_STAGING}
+    out = {protocol: [] for protocol in tables}
+    for protocol, table in tables.items():
         for shape, st in table.items():
             blocks = blocks_per_sm(protocol, shape)
             row = {
@@ -398,7 +407,7 @@ def phase_geometry() -> dict:
             log(f"geometry {protocol} {shape}: {st.threads} lanes a block, {st.rows} staged rows "
                 f"a lane ({what}), {st.smem_bytes} B shared a block, {blocks} blocks an SM "
                 f"({blocks * st.threads // 32} warps)")
-            if blocks < (st.min_blocks if protocol == "synchpaxos" else 1):
+            if blocks < (1 if protocol == "multipaxos" else st.min_blocks):
                 raise AssertionError(f"{protocol} {shape} at {st}: {blocks} blocks an SM")
     return out
 
@@ -590,8 +599,8 @@ def compare(
     ``ceiling`` beside it), which the timed chunks must not beat; the
     operations of census ``census``, with the draws and slot-array
     (delay-stamp) touches counted, beside it; for a kernel with a
-    phase-clock build (K4), where a lane's cycles go over those chunks
-    (:func:`phase_split`)."""
+    phase-clock build (K2, K3, K4), where a lane's cycles go over those
+    chunks (:func:`phase_split`)."""
     from paxos_tpu_torch.core.state import state_bytes_per_lane
     from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, PHASES, draw_census
@@ -625,7 +634,7 @@ def compare(
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
     out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
     if reps:
-        # Where a lane's cycles go over the timed chunks (K4): the
+        # Where a lane's cycles go over the timed chunks (K2 to K4): the
         # phase-clock build from a copy of their first state, launch for
         # launch, which must end where they end.
         if cfg.protocol in PHASES:
@@ -777,6 +786,9 @@ def phase_compare(ceiling: float) -> dict:
     # quorums, and a ballot stride with a longer backoff.
     for name, cfgk in sp_knob_configs(4096, 10).items():
         compare(f"synchpaxos (2,5,8) stamped, {name}", cfgk, config_plan(cfgk, 10), 200)
+    for protocol in ("fastpaxos", "raftcore"):
+        for name, cfgk in fr_knob_configs(protocol, 4096, 10).items():
+            compare(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
@@ -818,7 +830,7 @@ def phase_compare(ceiling: float) -> dict:
                 f"{path} full width, first chunk", cfg, main_plan(cfg), 64, reps=5,
                 ceiling=ceiling, census=mp.census, from_init=True,
             )
-    for path in ("config3", "config3long", "synchpaxos"):
+    for path in ("fastpaxos", "raftcore", "config3", "config3long", "synchpaxos"):
         full[path]["load_store_ms"] = time_load_store(path)
     # K4's busiest chunk: the first of the delta-violating regime, where the
     # fast path misses its window and lanes fall back to classic rounds.
@@ -833,8 +845,8 @@ def phase_compare(ceiling: float) -> dict:
 def time_load_store(path: str, reps: int = 5) -> float:
     """A kernel's column load and store alone, ms: a launch of 0 ticks on
     main path ``path``'s config at full width from the state after one
-    chunk reads and writes every lane's state once (K4: what it stores)
-    and runs no tick, so the state must come back byte for byte.  The
+    chunk reads and writes every lane's state once (K2 to K4: what they
+    store) and runs no tick, so the state must come back byte for byte.  The
     launches go around the wrapper and so are not counted."""
     from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, _launch
@@ -1038,6 +1050,25 @@ def sp_knob_configs(n_inst: int, seed: int) -> dict:
         "q1/q2 2/4": dict(q1=2, q2=4),
         "ballot_stride 3, backoff_max 3": dict(ballot_stride=3, backoff_max=3),
     }
+    return {
+        name: dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, **kv))
+        for name, kv in knobs.items()
+    }
+
+
+def fr_knob_configs(protocol: str, n_inst: int, seed: int) -> dict:
+    """config5's Fast Paxos or Raft-core cell with each knob its main path
+    leaves at its default: p_dup 0.2, ballot_stride 3 with backoff_max 3,
+    and for Fast Paxos q1/q2/q_fast = 4/2/4 (a safe triple of
+    ``config_ffp``); Raft-core's quorums are majorities, so it takes no
+    q1/q2."""
+    cfg = main_config(protocol, n_inst, seed)
+    knobs = {
+        "p_dup 0.2": dict(p_dup=0.2),
+        "ballot_stride 3, backoff_max 3": dict(ballot_stride=3, backoff_max=3),
+    }
+    if protocol == "fastpaxos":
+        knobs["q1/q2/q_fast 4/2/4"] = dict(q1=4, q2=2, q_fast=4)
     return {
         name: dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, **kv))
         for name, kv in knobs.items()

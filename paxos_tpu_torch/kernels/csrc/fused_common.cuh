@@ -2,14 +2,18 @@
 // the counter PRNG, the Bernoulli knobs, the state-leaf, plan and parameter
 // layouts of the C entry points, request selection, and the per-lane
 // building blocks that the single-decree ticks have in common (the message
-// buffers with reply delivery, and the learner table), and the shared-memory
-// column and launch of the kernels that keep one per lane.
+// buffers with reply delivery, and the learner table), the shared-memory
+// column and launch of the kernels that keep one per lane, the rolled
+// selection, fenced row copy and message column of the single-decree
+// kernels that do (namespace sd), and the phase clocks.
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
-// state in registers for a whole chunk (the Multi-Paxos and SynchPaxos
-// kernels keep their slot-indexed arrays in shared memory beside them):
-// every helper here is force-inlined and every loop has compile-time
-// bounds, so arrays stay in registers.
+// scalars in registers for a whole chunk (the Multi-Paxos kernel keeps its
+// slot-indexed arrays in shared memory beside them, the Fast Paxos,
+// Raft-core and SynchPaxos kernels their message payloads and learner
+// table): every helper here is force-inlined and every loop over a
+// register array has compile-time bounds, so those arrays stay in
+// registers.
 //
 // A measuring build (nvcc -DFUSED_COUNT_DRAWS) also counts every counter-
 // PRNG draw a kernel makes, summed over lanes and ticks: the masks are drawn
@@ -455,7 +459,7 @@ inline unsigned grid_for(int64_t n_inst, int threads = kThreads) {
 }
 
 // The kernels that keep a column per lane in shared memory (Multi-Paxos,
-// SynchPaxos).
+// SynchPaxos, Fast Paxos, Raft-core).
 
 constexpr int kMaxDevices = 64;  // devices whose shared-memory limit is cached
 
@@ -519,6 +523,245 @@ struct SmemInst {
   }
 };
 
+// The phase-clock measuring build (nvcc -DFUSED_PHASE_CLOCKS) of a kernel
+// whose tick has N phases (K2, K3, K4): a lane sums the clock64() cycles
+// between consecutive phase boundaries (its own cycles, which include the
+// time other warps hold the SM) and adds them to g_phase at the end; empty
+// in every other build.
+constexpr int kMaxPhases = 8;  // fused_tick.PHASE_SLOTS
+
+#ifdef FUSED_PHASE_CLOCKS
+// Read and cleared by fused_phase_clocks(): clock64() cycles per phase,
+// summed over lanes and ticks.
+__device__ unsigned long long g_phase[kMaxPhases];
+#endif
+
+template <int N>
+struct PhaseClock {
+  static_assert(N <= kMaxPhases, "g_phase holds kMaxPhases phases");
+#ifdef FUSED_PHASE_CLOCKS
+  long long t;
+  uint32_t sum[N];
+  // clock64() exists in device code only; nvcc's host pass sees 0.
+  __device__ __forceinline__ static long long now() {
+#ifdef __CUDA_ARCH__
+    return clock64();
+#else
+    return 0;
+#endif
+  }
+  __device__ __forceinline__ PhaseClock() : t(now()), sum{} {}
+  __device__ __forceinline__ void mark(int k) {
+    const long long now = PhaseClock::now();
+    sum[k] += static_cast<uint32_t>(now - t);
+    t = now;
+  }
+  __device__ __forceinline__ void flush() const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) atomicAdd(&g_phase[k], static_cast<unsigned long long>(sum[k]));
+  }
+#else
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush() const {}
+#endif
+};
+
+// The rolled and fenced building blocks of the single-decree kernels that
+// keep a column per lane (K2, K3, K4); K5 keeps its own copies
+// (fused_multipaxos_tick.cu).
+namespace sd {
+
+// select_request for acceptor a, drawing over its present request slots
+// only: the scores are distinct (kp in the low bits), so the order of the
+// draws does not change the winner.
+template <int P, int A>
+__device__ __forceinline__ int select_present(const TickStream& ts, uint32_t present, int a) {
+  constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;
+  constexpr int32_t kScoreMask = ~((1 << kNbits) - 1);
+  uint32_t mine = 0;  // bit kp: slot kp * A + a is present
+#pragma unroll
+  for (int kp = 0; kp < 2 * P; ++kp) mine |= ((present >> (kp * A + a)) & 1u) << kp;
+  int32_t fmax = kInt32Min;
+  int win = -1;
+  for (uint32_t m = mine; m != 0; m &= m - 1) {
+    const int kp = __ffs(m) - 1;
+    const int32_t score = (static_cast<int32_t>(ts.bits(kSel, kp * A + a)) & kScoreMask) | kp;
+    if (score > fmax) {
+      fmax = score;
+      win = kp;
+    }
+  }
+  return win;
+}
+
+// ROWS rows of a leaf from its row FROM on, to (from) the column from row
+// OFF on, UNROLL rows at a time (0: all).  A load ends with a compiler
+// fence, so that one leaf's loads are in flight at a time: without it the
+// compiler issues all the column's loads at once and spills the registers
+// they need.
+template <int ROWS, int FROM, int OFF, int UNROLL = 0, int B>
+__device__ __forceinline__ void load_rows(const Column<B>& col, const Leaves& L, int leaf,
+                                          int64_t n, int64_t i) {
+  const int32_t* g = static_cast<const int32_t*>(L.p[leaf]) + i;
+#pragma unroll (UNROLL > 0 ? UNROLL : ROWS)
+  for (int r = 0; r < ROWS; ++r) col[OFF + r] = g[(FROM + r) * n];
+  asm volatile("" ::: "memory");
+}
+
+template <int ROWS, int FROM, int OFF, int B>
+__device__ __forceinline__ void store_rows(const Column<B>& col, const Leaves& L, int leaf,
+                                           int64_t n, int64_t i) {
+  int32_t* g = static_cast<int32_t*>(L.p[leaf]) + i;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) g[(FROM + r) * n] = col[OFF + r];
+}
+
+// A Fast Paxos or Raft-core lane's staged rows, in column order (mirrored
+// by fused_tick.FR_STAGED_LEAVES).  Slot j = (kind * P + p) * A + a of a
+// buffer, E = P * A slots a kind.  A request's v1 is staged for every slot
+// where RV_V1 (Raft-core: a REQVOTE carries the candidate's entry term),
+// else for the kind-1 slots only; a reply's v2 for the kind-0 slots only
+// (row j).  The words the tick only ever writes as 0 get no row
+// (fused_tick.FR_ZERO_WORDS).  SynchPaxos keeps its own layout, with the
+// stamps (SpStaged).
+template <int P, int A, int K, bool RV_V1>
+struct SdStaged {
+  static constexpr int S = 2 * P * A, E = P * A;
+  static constexpr int kRqV1From = RV_V1 ? 0 : E;     // the first slot whose v1 is staged
+  static constexpr int kRqBal = 0;                     // requests.bal (2, P, A)
+  static constexpr int kRqV1 = kRqBal + S;             // requests.v1 from slot kRqV1From
+  static constexpr int kRpBal = kRqV1 + S - kRqV1From;  // replies.bal (2, P, A)
+  static constexpr int kRpV1 = kRpBal + S;             // replies.v1 (2, P, A)
+  static constexpr int kRpV2 = kRpV1 + S;              // replies.v2, kind 0
+  static constexpr int kLtBal = kRpV2 + E;             // learner.lt_bal (K)
+  static constexpr int kLtVal = kLtBal + K;            // learner.lt_val (K)
+  static constexpr int kLtMask = kLtVal + K;           // learner.lt_mask (K)
+  static constexpr int kRows = kLtMask + K;
+  // The row of slot j's request v1 (j >= kRqV1From).
+  __host__ __device__ static constexpr int rq_v1(int j) { return kRqV1 + j - kRqV1From; }
+};
+
+// Rows of a leaf that the column copy of a kernel held to MIN_BLOCKS
+// blocks an SM has in flight (load_column's UNROLL): all of them (0), but
+// 8 at 4 blocks, whose 128 registers a thread a whole leaf overran (K2's
+// (2,5,8) spilled 16 B in its prologue), while K3's whole-leaf copy ran
+// 0.1 ms faster a chunk at 3 blocks (PERF.md §6).
+template <int MIN_BLOCKS>
+constexpr int kCopyUnroll = MIN_BLOCKS > 3 ? 8 : 0;
+
+// The column at the start of the chunk: every staged row, UNROLL rows of a
+// leaf at a time (load_rows).
+template <int P, int A, int K, bool RV_V1, int UNROLL, int B>
+__device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& L, int64_t n,
+                                            int64_t i) {
+  using G = SdStaged<P, A, K, RV_V1>;
+  load_rows<G::S, 0, G::kRqBal, UNROLL>(col, L, kRqBal, n, i);
+  load_rows<G::S - G::kRqV1From, G::kRqV1From, G::kRqV1, UNROLL>(col, L, kRqV1, n, i);
+  load_rows<G::S, 0, G::kRpBal, UNROLL>(col, L, kRpBal, n, i);
+  load_rows<G::S, 0, G::kRpV1, UNROLL>(col, L, kRpV1, n, i);
+  load_rows<G::E, 0, G::kRpV2, UNROLL>(col, L, kRpV2, n, i);
+  load_rows<K, 0, G::kLtBal, UNROLL>(col, L, kLtBal, n, i);
+  load_rows<K, 0, G::kLtVal, UNROLL>(col, L, kLtVal, n, i);
+  load_rows<K, 0, G::kLtMask, UNROLL>(col, L, kLtMask, n, i);
+}
+
+// The column at the end of the chunk: the slots of each buffer that the
+// chunk wrote (bitmasks rq_written, rp_written) with their zero-only words
+// as 0, and the learner table if an accept event reached it.
+template <int P, int A, int K, bool RV_V1, int B>
+__device__ __forceinline__ void store_column(const Column<B>& col, const Leaves& L, int64_t n,
+                                             int64_t i, uint32_t rq_written, uint32_t rp_written,
+                                             bool lt_written) {
+  using G = SdStaged<P, A, K, RV_V1>;
+  for (uint32_t m = rq_written; m != 0; m &= m - 1) {
+    const int j = __ffs(m) - 1;
+    store<int32_t>(L, kRqBal, j, n, i, col[G::kRqBal + j]);
+    store<int32_t>(L, kRqV1, j, n, i, j >= G::kRqV1From ? col[G::rq_v1(j)] : 0);
+    store<int32_t>(L, kRqV2, j, n, i, 0);
+  }
+  for (uint32_t m = rp_written; m != 0; m &= m - 1) {
+    const int j = __ffs(m) - 1;
+    store<int32_t>(L, kRpBal, j, n, i, col[G::kRpBal + j]);
+    store<int32_t>(L, kRpV1, j, n, i, col[G::kRpV1 + j]);
+    store<int32_t>(L, kRpV2, j, n, i, j < G::E ? col[G::kRpV2 + j] : 0);
+  }
+  if (lt_written) {
+    store_rows<K, 0, G::kLtBal>(col, L, kLtBal, n, i);
+    store_rows<K, 0, G::kLtVal>(col, L, kLtVal, n, i);
+    store_rows<K, 0, G::kLtMask>(col, L, kLtMask, n, i);
+  }
+}
+
+// The learner's scalars of a lane whose (ballot, value, voters) table sits
+// in the column from row ROW on (ballots, then values, then voter masks).
+template <int K, int ROW>
+struct ColumnLearner {
+  bool chosen;
+  int32_t chosen_val, chosen_tick, violations, evictions;
+
+  __device__ __forceinline__ void load_from(const Leaves& L, int64_t n, int64_t i) {
+    chosen = load<uint8_t>(L, kChosen, 0, n, i) != 0;
+    chosen_val = load<int32_t>(L, kChosenVal, 0, n, i);
+    chosen_tick = load<int32_t>(L, kChosenTick, 0, n, i);
+    violations = load<int32_t>(L, kViolations, 0, n, i);
+    evictions = load<int32_t>(L, kEvictions, 0, n, i);
+  }
+
+  __device__ __forceinline__ void store_to(const Leaves& L, int64_t n, int64_t i) const {
+    store<uint8_t>(L, kChosen, 0, n, i, chosen ? 1 : 0);
+    store<int32_t>(L, kChosenVal, 0, n, i, chosen_val);
+    store<int32_t>(L, kChosenTick, 0, n, i, chosen_tick);
+    store<int32_t>(L, kViolations, 0, n, i, violations);
+    store<int32_t>(L, kEvictions, 0, n, i, evictions);
+  }
+
+  // Learner::observe on the table in the column.  An event folds where it
+  // carries a ballot; a tick without one leaves the table as it is, and
+  // the fold's other writes reduce to the scalars'.  A tick with one copies
+  // the table to registers for the fold and back; returns whether it did.
+  template <int A, int B, typename QuorumOf>
+  __device__ __forceinline__ bool observe(const Column<B>& col, uint32_t ev_flag,
+                                          const int32_t (&ev_bal)[A], const int32_t (&ev_val)[A],
+                                          int32_t tick, int extra_viol, QuorumOf quorum_of) {
+    uint32_t folds = 0;
+#pragma unroll
+    for (int a = 0; a < A; ++a) folds |= (((ev_flag >> a) & 1u) && ev_bal[a] > 0 ? 1u : 0u) << a;
+    if (folds == 0) {
+      chosen_val = chosen ? chosen_val : 0;
+      chosen_tick = chosen ? chosen_tick : -1;
+      violations = wrap_add(violations, extra_viol);
+      return false;
+    }
+    Learner<K> lrn;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lrn.bal[k] = col[ROW + k];
+      lrn.val[k] = col[ROW + K + k];
+      lrn.mask[k] = col[ROW + 2 * K + k];
+    }
+    lrn.chosen = chosen;
+    lrn.chosen_val = chosen_val;
+    lrn.chosen_tick = chosen_tick;
+    lrn.violations = violations;
+    lrn.evictions = evictions;
+    lrn.template observe<A>(ev_flag, ev_bal, ev_val, tick, extra_viol, quorum_of);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      col[ROW + k] = lrn.bal[k];
+      col[ROW + K + k] = lrn.val[k];
+      col[ROW + 2 * K + k] = lrn.mask[k];
+    }
+    chosen = lrn.chosen;
+    chosen_val = lrn.chosen_val;
+    chosen_tick = lrn.chosen_tick;
+    violations = lrn.violations;
+    evictions = lrn.evictions;
+    return true;
+  }
+};
+
+}  // namespace sd
+
 }  // namespace
 
 #ifdef FUSED_COUNT_DRAWS
@@ -531,6 +774,19 @@ extern "C" int fused_draws(unsigned long long* out) {
   if (rc == cudaSuccess) rc = cudaMemcpyFromSymbol(out + 1, g_touches, sizeof(*out));
   if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_draws, &zero, sizeof(zero));
   if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_touches, &zero, sizeof(zero));
+  return rc;
+}
+#endif
+
+#ifdef FUSED_PHASE_CLOCKS
+// Copies the per-phase cycle sums of the launches since the last call to
+// out[0..kMaxPhases) (fused_draws' signature; a kernel with fewer phases
+// leaves the rest 0) and clears them; call after the launches are
+// complete.  Returns a cudaError_t.
+extern "C" int fused_phase_clocks(unsigned long long* out) {
+  const unsigned long long zero[kMaxPhases] = {};
+  cudaError_t rc = cudaMemcpyFromSymbol(out, g_phase, sizeof(zero));
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
   return rc;
 }
 #endif

@@ -6,17 +6,43 @@
 // pl.pallas_call), the Pallas kernel that keeps a block of instances'
 // state resident in VMEM for a whole chunk.
 //
-// Design: K1's (fused_paxos_tick.cu).  One thread per lane loads the lane's
-// state into registers once, runs all n_ticks ticks and stores once, in
-// place; the PRNG, reply delivery, request selection and the learner table
-// are the shared helpers of fused_common.cuh.
+// Bound on this card: ~773 B/lane of state moved once each way per chunk,
+// against a few thousand int32 operations per lane-tick; but a lane's tick
+// is one long chain of dependent integer operations and branches, so the
+// time falls with the warps an SM holds and with the code on the chain,
+// and both bounds are far below it.
 //
-// Bound on this card: ~773 B/lane of state moved twice per chunk against a
-// few thousand int32 operations per lane-tick, so at 64 ticks per chunk it
-// is bound by integer operations, not bytes.  Fast Paxos adds the P x P
-// recovery masks (rep_mask) to the live state, so (2,5,8) spills a little
-// more than K1 (ptxas -v); packing the state and tuning occupancy are
-// later work.
+// Design: K4's (fused_synchpaxos_tick.cu) without the delay stamps.  One
+// thread per instance (lane), the state split by access pattern so that a
+// thread's registers allow 12 warps an SM (16 at (2,5,8), whose column
+// leaves room for a fourth block), each part where it stays for the whole
+// chunk:
+//  - registers: the role scalars, the P x P recovery masks (rep_mask), the
+//    learner's scalars, the presence bitmasks of both buffers, and a
+//    bitmask per buffer of the slots the chunk wrote;
+//  - shared memory, a column per lane (word r at smem[r * B + t], B the
+//    block's lane count; sd::SdStaged in fused_common.cuh): the message
+//    payloads a tick reads and the learner's (ballot, value, voters) table.
+//    A dynamic index (the selected request, a reply's slot) is one shared
+//    load or store, where in registers it was a chain of selects;
+//  - no row at all: the payload words the tick only ever writes as 0 (a
+//    PREPARE's v1, every request's v2, an ACCEPTED's v2;
+//    protocols/fastpaxos.py).
+// The column is loaded once at the start of the chunk from
+// [row * n_inst + lane].  At the end the kernel stores only the slots the
+// chunk wrote (their staged words, 0 to their zero-only words), the
+// learner table if an accept event reached it, and every presence byte:
+// the state comes back byte for byte, stale payloads of consumed slots
+// included.  A thread touches only its own column, so the kernel needs no
+// barrier, and lanes past n_inst return at once.
+//
+// The code on the chain is short: the sites that draw are rolled loops over
+// set bits (delivery's hold and dup draws over the delivered slots, the
+// selection over an acceptor's present slots, sd::select_present, the
+// sends over the acceptors only for a proposer that sends), and the fold
+// visits a proposer's delivered slots only.  Every draw is keyed by its
+// position, so the order of the draws changes nothing, and a mask is drawn
+// only where the outcome depends on it, as in K1.
 //
 // What differs from the Paxos tick (protocols/fastpaxos.py):
 //  - acceptors vote at most once per ballot (the revote rule);
@@ -37,6 +63,17 @@ namespace {
 constexpr int32_t kP1 = 0, kP2 = 1, kDone = 2, kFast = 3;
 constexpr int32_t kValueBase = 100;  // proposer p proposes kValueBase + p
 
+using sd::ColumnLearner;
+using sd::select_present;
+using sd::SdStaged;
+
+// The tick's phases in order, as the phase-clock build splits a lane's
+// cycles (fused_tick.PHASES["fastpaxos"]).
+enum Phase {
+  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
+  kPhases,
+};
+
 // The role leaves in the reference's flatten order; the learner and the
 // message buffers follow (SharedLeaf).
 enum Leaf {
@@ -45,16 +82,24 @@ enum Leaf {
   kDecidedVal,
 };
 
-template <int P, int A, int K>
-__global__ void __launch_bounds__(kThreads)
+template <int P, int A, int K, int B, int MIN_BLOCKS>
+__global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
-  constexpr int S = 2 * P * A;  // message slots per buffer, index (kind*P + p)*A + a
+  static_assert(B % 32 == 0, "a block is whole warps");
+  using G = SdStaged<P, A, K, false>;
+  constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
+  static_assert(S <= 32, "slot presence must fit one 32-bit mask");
+  constexpr uint32_t kAccs = (1u << A) - 1;
+  extern __shared__ int32_t smem[];  // G::kRows * B words
 
   const int64_t n = prm.n_inst;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
+  PhaseClock<kPhases> clk;
+  const Column<B> col{smem + threadIdx.x};
+  sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>>(col, L, n, i);
 
-  // ---- Load the lane's state once. ----
+  // ---- Load the lane's register-resident state once. ----
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
   uint32_t equiv = 0;
 #pragma unroll
@@ -81,15 +126,22 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
 #pragma unroll
     for (int v = 0; v < P; ++v) rep_mask[p][v] = load<int32_t>(L, kRepMask, p * P + v, n, i);
   }
-  Learner<K> lrn;
+  ColumnLearner<K, G::kLtBal> lrn;
   lrn.load_from(L, n, i);
-  MsgBufs<S> m;
-  m.load_from(L, n, i);
+  uint32_t rq_present = 0, rp_present = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    rq_present |= (load<uint8_t>(L, kRqPresent, j, n, i) != 0 ? 1u : 0u) << j;
+    rp_present |= (load<uint8_t>(L, kRpPresent, j, n, i) != 0 ? 1u : 0u) << j;
+  }
+  uint32_t rq_written = 0, rp_written = 0;  // the slots the chunk wrote
+  bool lt_written = false;                  // an accept event reached the learner table
 
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
   const uint32_t lane = static_cast<uint32_t>(i % prm.block);
   const auto quorum_of = [&](int32_t b) { return ballot_round(b) == 0 ? prm.q_fast : prm.q2; };
+  clk.mark(kPhLoad);
 
   DrawCount draws;
   for (int t = 0; t < prm.n_ticks; ++t) {
@@ -97,38 +149,60 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
 
-    // ---- Reply delivery (pre-tick buffer) and consume. ----
-    uint32_t rp_next;
-    const uint32_t delivered = m.deliver(prm, ts, &rp_next);
+    // ---- Reply delivery (pre-tick buffer): the replies not held this
+    //      tick; consumed unless duplicated. ----
+    uint32_t delivered = rp_present;
+    if (prm.hold.mode != 0) {
+      for (uint32_t m = delivered; m != 0; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        if (ts.fires_at(prm.hold, kDeliver, j)) delivered &= ~(1u << j);
+      }
+    }
+    uint32_t taken = delivered;
+    if (prm.dup.mode != 0) {
+      for (uint32_t m = delivered; m != 0; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        if (ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
+      }
+    }
+    uint32_t rp_next = rp_present & ~taken;
+    clk.mark(kPhDeliver);
 
     // ---- Proposer fold over the pre-tick replies. ----
-    uint32_t p1_done = 0, expired = 0;
+    uint32_t p1_done = 0, expired = 0;  // proposers that send ACCEPT / PREPARE
     int32_t old_bal[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int32_t cur = bal[p];
       int32_t h = heard[p];
       int32_t bb = best_bal[p];
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const int j0 = (0 * P + p) * A + a;  // PROMISE slot
-        const int j1 = (1 * P + p) * A + a;  // ACCEPTED slot
-        const bool prom_ok = ((delivered >> j0) & 1u) && m.rp_bal[j0] == cur && phase[p] == kP1;
-        const bool accd_ok = ((delivered >> j1) & 1u) && m.rp_bal[j1] == cur &&
-                             (phase[p] == kP2 || phase[p] == kFast);
-        if (prom_ok || accd_ok) h |= 1 << a;
-        // Recovery fold: the PROMISE's prev-accepted (ballot, value).
-        const int32_t pb = m.rp_v1[j0], pv = m.rp_v2[j0];
-        const bool valid = prom_ok && pb > 0 && pv >= kValueBase && pv < kValueBase + P;
-        if (valid && pb > bb) {
-#pragma unroll
-          for (int v = 0; v < P; ++v) rep_mask[p][v] = 0;
-          bb = pb;
+      // ACCEPTED in P2 or FAST at the current ballot.
+      if (phase[p] == kP2 || phase[p] == kFast) {
+        for (uint32_t m = (delivered >> ((P + p) * A)) & kAccs; m != 0; m &= m - 1) {
+          const int a = __ffs(m) - 1;
+          if (col[G::kRpBal + (P + p) * A + a] == cur) h |= 1 << a;
         }
-        if (valid && pb == bb) {
+      }
+      // PROMISE in P1 at the current ballot, folding its prev-accepted
+      // (ballot, value) into rep_mask in acceptor order.
+      if (phase[p] == kP1) {
+        for (uint32_t m = (delivered >> (p * A)) & kAccs; m != 0; m &= m - 1) {
+          const int a = __ffs(m) - 1;
+          const int j0 = p * A + a;
+          if (col[G::kRpBal + j0] != cur) continue;
+          h |= 1 << a;
+          const int32_t pb = col[G::kRpV1 + j0], pv = col[G::kRpV2 + j0];
+          if (!(pb > 0 && pv >= kValueBase && pv < kValueBase + P)) continue;
+          if (pb > bb) {
 #pragma unroll
-          for (int v = 0; v < P; ++v)
-            if (pv - kValueBase == v) rep_mask[p][v] |= 1 << a;
+            for (int v = 0; v < P; ++v) rep_mask[p][v] = 0;
+            bb = pb;
+          }
+          if (pb == bb) {
+#pragma unroll
+            for (int v = 0; v < P; ++v)
+              if (pv - kValueBase == v) rep_mask[p][v] |= 1 << a;
+          }
         }
       }
 
@@ -189,9 +263,11 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       p1_done |= (p1 ? 1u : 0u) << p;
       expired |= (exp ? 1u : 0u) << p;
     }
+    clk.mark(kPhFold);
 
     // ---- Acceptor half-tick: select at most one request per acceptor. ----
-    uint32_t rq_next = m.rq_present;
+    uint32_t rq_next = rq_present;
+    uint32_t rp_sent = 0;  // the reply slots written this tick
     uint32_t ev_flag = 0;
     int32_t ev_bal[A], ev_val[A];
     int inv_viol = 0;
@@ -199,19 +275,15 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     for (int a = 0; a < A; ++a) {
       const bool alive = !(crash_start[a] <= tick && tick < crash_end[a]);
       const bool busy = ts.survives_at(prm.idle, kBusy, a);
-      const int win = m.template select<P, A>(ts, a);
+      const int win = select_present<P, A>(ts, rq_present, a);
       const int sel = (win >= 0 && busy && alive) ? win : -1;
 
-      int32_t mb = 0, mv = 0;
-#pragma unroll
-      for (int kp = 0; kp < 2 * P; ++kp) {
-        if (kp == sel) {
-          mb = m.rq_bal[kp * A + a];
-          mv = m.rq_v1[kp * A + a];
-        }
-      }
+      // The selected request's ballot, and an ACCEPT's value (a PREPARE's
+      // v1 is 0, and only an accepting acceptor reads it).
       const bool is_prep = sel >= 0 && sel < P;
       const bool is_acc = sel >= P;
+      const int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
+      const int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
       const bool eq = (equiv >> a) & 1u;
       const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
       const bool ok_prep_h = is_prep && !eq && mb > pr_old;
@@ -226,23 +298,20 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       const int32_t ab = ok_acc ? mb : ab_old;
       const int32_t av = ok_acc ? mv : av_old;
 
-      // Replies to the selected sender's slot (post-consume buffer).
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (sel == p && ok_prep && ts.survives_at(prm.drop, kKeepProm, p * A + a)) {
-          const int jr = (0 * P + p) * A + a;
-          m.rp_bal[jr] = mb;
-          m.rp_v1[jr] = eq ? 0 : ab_old;
-          m.rp_v2[jr] = eq ? 0 : av_old;
-          rp_next |= 1u << jr;
-        }
-        if (sel == P + p && ok_acc && ts.survives_at(prm.drop, kKeepAccd, p * A + a)) {
-          const int jr = (1 * P + p) * A + a;
-          m.rp_bal[jr] = mb;
-          m.rp_v1[jr] = mv;
-          m.rp_v2[jr] = 0;
-          rp_next |= 1u << jr;
-        }
+      // The reply into the selected sender's slot (post-consume buffer):
+      // PROMISE for proposer sel, ACCEPTED for proposer sel - P.
+      if (ok_prep && ts.survives_at(prm.drop, kKeepProm, sel * A + a)) {
+        const int jr = sel * A + a;
+        col[G::kRpBal + jr] = mb;
+        col[G::kRpV1 + jr] = eq ? 0 : ab_old;
+        col[G::kRpV2 + jr] = eq ? 0 : av_old;
+        rp_sent |= 1u << jr;
+      }
+      if (ok_acc && ts.survives_at(prm.drop, kKeepAccd, (sel - P) * A + a)) {
+        const int jr = sel * A + a;
+        col[G::kRpBal + jr] = mb;
+        col[G::kRpV1 + jr] = mv;
+        rp_sent |= 1u << jr;
       }
       // Consume the selected request unless it is duplicated.
       if (sel >= 0) {
@@ -260,34 +329,41 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       ev_bal[a] = mb;
       ev_val[a] = mv;
     }
-    m.rp_present = rp_next;
-    m.rq_present = rq_next;
+    rp_present = rp_next | rp_sent;
+    rp_written |= rp_sent;
+    rq_present = rq_next;
+    clk.mark(kPhAcceptor);
 
     // ---- Learner: fast-quorum-aware thresholds per slot. ----
-    lrn.template observe<A>(ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of);
+    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
+      lt_written = true;
+    clk.mark(kPhLearner);
 
     // ---- Proposer sends into the consumed request buffer. ----
+    uint32_t rq_sent = 0;  // the request slots written this tick
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        if (((p1_done >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
-          const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, recovery value)
-          m.rq_bal[j] = old_bal[p];
-          m.rq_v1[j] = prop_val[p];
-          m.rq_v2[j] = 0;
-          m.rq_present |= 1u << j;
-        }
-        if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
-          const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
-          m.rq_bal[j] = bal[p];
-          m.rq_v1[j] = 0;
-          m.rq_v2[j] = 0;
-          m.rq_present |= 1u << j;
+      if ((p1_done | expired) >> p & 1u) {
+#pragma unroll 1
+        for (int a = 0; a < A; ++a) {
+          if (((p1_done >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
+            const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, recovery value)
+            col[G::kRqBal + j] = old_bal[p];
+            col[G::rq_v1(j)] = prop_val[p];
+            rq_sent |= 1u << j;
+          }
+          if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
+            const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
+            col[G::kRqBal + j] = bal[p];
+            rq_sent |= 1u << j;
+          }
         }
       }
       if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
+    rq_present |= rq_sent;
+    rq_written |= rq_sent;
+    clk.mark(kPhSends);
   }
 
   draws.flush();
@@ -312,27 +388,52 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     for (int v = 0; v < P; ++v) store<int32_t>(L, kRepMask, p * P + v, n, i, rep_mask[p][v]);
   }
   lrn.store_to(L, n, i);
-  m.store_to(L, n, i);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
+    store<uint8_t>(L, kRpPresent, j, n, i, ((rp_present >> j) & 1u) ? 1 : 0);
+  }
+  sd::store_column<P, A, K, false, B>(col, L, n, i, rq_written, rp_written, lt_written);
+  clk.mark(kPhStore);
+  clk.flush();
 }
 
-template <int P, int A, int K>
-cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick, const Params& prm,
-                   cudaStream_t stream) {
-  fused_fastpaxos_kernel<P, A, K><<<grid_for(prm.n_inst), kThreads, 0, stream>>>(L, plan, tick, prm);
-  return cudaGetLastError();
+// One instantiation, ready to launch (SmemInst in fused_common.cuh).
+template <int P, int A, int K, int B, int MIN_BLOCKS>
+using Inst = SmemInst<fused_fastpaxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
+                      SdStaged<P, A, K, false>::kRows * B * 4>;
+
+// The instantiations, (n_prop, n_acc, k_slots, B, MIN_BLOCKS): one per
+// shape, at the geometry fused_tick.FR_STAGING["fastpaxos"] gives it;
+// MIN_BLOCKS, the blocks an SM is to hold, caps a thread's registers.
+#define K2_INSTANCES(X) \
+  X(2, 5, 8, 128, 4)    \
+  X(2, 3, 8, 128, 3)
+
+// Calls `fn(Inst<...>{})` for the shape `dims` names (n_prop, n_acc,
+// k_slots), or returns cudaErrorInvalidValue.
+template <typename Fn>
+cudaError_t dispatch(const int* dims, Fn&& fn) {
+#define K2_MATCH(P_, A_, K_, B_, M_) \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_) return fn(Inst<P_, A_, K_, B_, M_>{});
+  K2_INSTANCES(K2_MATCH)
+#undef K2_MATCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots); `tick` is the device int32 tick scalar, read by the
-// kernel and advanced by the caller.  Returns the launch's
-// cudaGetLastError().
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, then the dynamic
+// shared bytes a block, fused_tick.FR_STAGING's); `tick` is the device
+// int32 tick scalar, read by the kernel and advanced by the caller.
+// Returns cudaSuccess or the first error: an unknown shape or too few
+// shared bytes (cudaErrorInvalidValue), a shared-memory request the card
+// refuses, or the launch's cudaGetLastError().
 extern "C" int fused_fastpaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                       void** plan, void* tick, const long long* params, int n_params,
                                       void* stream) {
-  if (n_dims != 3) return cudaErrorInvalidValue;
-  const int n_prop = dims[0], n_acc = dims[1], k_slots = dims[2];
+  if (n_dims != 4) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
@@ -340,7 +441,15 @@ extern "C" int fused_fastpaxos_launch(const int* dims, int n_dims, void** leaves
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_prop == 2 && n_acc == 5 && k_slots == 8) return launch<2, 5, 8>(L, pl, t, prm, s);
-  if (n_prop == 2 && n_acc == 3 && k_slots == 8) return launch<2, 3, 8>(L, pl, t, prm, s);
-  return cudaErrorInvalidValue;
+  const int smem = dims[3];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+}
+
+// The blocks of instantiation `dims` (as for fused_fastpaxos_launch) that
+// one SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
+extern "C" int fused_fastpaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
+  if (n_dims != 4) return cudaErrorInvalidValue;
+  const int smem = dims[3];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

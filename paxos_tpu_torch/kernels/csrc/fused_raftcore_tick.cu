@@ -6,16 +6,44 @@
 // pl.pallas_call), the Pallas kernel that keeps a block of instances'
 // state resident in VMEM for a whole chunk.
 //
-// Design: K1's (fused_paxos_tick.cu).  One thread per lane loads the lane's
-// state into registers once, runs all n_ticks ticks and stores once, in
-// place; the PRNG, reply delivery, request selection and the learner table
-// are the shared helpers of fused_common.cuh.
+// Bound on this card: ~765 B/lane of state moved once each way per chunk,
+// against a few thousand int32 operations per lane-tick; but a lane's tick
+// is one long chain of dependent integer operations and branches, so the
+// time falls with the warps an SM holds and with the code on the chain,
+// and both bounds are far below it.  The leader's APPEND re-broadcast
+// draws A drop masks per leader per tick, which K1 draws only on a phase
+// change, so its sends are the heaviest of the single-decree ticks.
 //
-// Bound on this card: ~765 B/lane of state moved twice per chunk against a
-// few thousand int32 operations per lane-tick, so at 64 ticks per chunk it
-// is bound by integer operations, not bytes.  The leader's APPEND
-// re-broadcast draws A drop masks per leader per tick, which K1 draws only
-// on a phase change.
+// Design: K4's (fused_synchpaxos_tick.cu) without the delay stamps, as K2
+// (fused_fastpaxos_tick.cu).  One thread per instance (lane), the state
+// split by access pattern so that a thread's registers allow 12 warps an
+// SM, each part where it stays for the whole chunk:
+//  - registers: the role scalars, the learner's scalars, the presence
+//    bitmasks of both buffers, and a bitmask per buffer of the slots the
+//    chunk wrote;
+//  - shared memory, a column per lane (word r at smem[r * B + t], B the
+//    block's lane count; sd::SdStaged in fused_common.cuh): the message
+//    payloads a tick reads (a REQVOTE's v1, the candidate's entry term, and
+//    a VOTE's v2 among them) and the learner's (ballot, value, voters)
+//    table.  A dynamic index (the selected request, a reply's slot) is one
+//    shared load or store, where in registers it was a chain of selects;
+//  - no row at all: the payload words the tick only ever writes as 0
+//    (every request's v2, an ACK's v2; protocols/raftcore.py).
+// The column is loaded once at the start of the chunk from
+// [row * n_inst + lane].  At the end the kernel stores only the slots the
+// chunk wrote (their staged words, 0 to their zero-only words), the
+// learner table if an accept event reached it, and every presence byte:
+// the state comes back byte for byte, stale payloads of consumed slots
+// included.  A thread touches only its own column, so the kernel needs no
+// barrier, and lanes past n_inst return at once.
+//
+// The code on the chain is short: the sites that draw are rolled loops over
+// set bits (delivery's hold and dup draws over the delivered slots, the
+// selection over a voter's present slots, sd::select_present, the sends
+// over the voters only for a leader or a timed-out candidate), and the
+// vote fold visits a candidate's delivered slots only.  Every draw is keyed
+// by its position, so the order of the draws changes nothing, and a mask is
+// drawn only where the outcome depends on it, as in K1.
 //
 // What differs from the Paxos tick (protocols/raftcore.py), with the
 // message roles REQVOTE/APPEND (requests) and VOTE/ACK (replies):
@@ -23,8 +51,7 @@
 //    candidate whose entry term is at least their own (the election
 //    restriction); appends raise the fence;
 //  - every REQVOTE is answered, grant or denial, with v1 = 2 * entry term
-//    + granted, a non-negative payload, so the candidate's // 2 and % 2
-//    are a shift and a mask;
+//    + granted, so the candidate's // 2 and % 2 are a shift and a mask;
 //  - a candidate adopts the highest-term entry it hears (value by a max);
 //    a leader re-sends APPEND to every voter on every tick while LEAD;
 //    REQVOTE carries the candidate's entry term;
@@ -39,6 +66,17 @@ constexpr int32_t kCand = 0, kLead = 1, kDone = 2;
 // Message kinds: REQVOTE/VOTE = 0, APPEND/ACK = 1.
 constexpr int kReqVote = 0, kAppend = 1, kVote = 0, kAck = 1;
 
+using sd::ColumnLearner;
+using sd::select_present;
+using sd::SdStaged;
+
+// The tick's phases in order, as the phase-clock build splits a lane's
+// cycles (fused_tick.PHASES["raftcore"]).
+enum Phase {
+  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
+  kPhases,
+};
+
 // The role leaves in the reference's flatten order; the learner and the
 // message buffers follow (SharedLeaf).
 enum Leaf {
@@ -47,17 +85,25 @@ enum Leaf {
   kDecidedVal,
 };
 
-template <int P, int A, int K>
-__global__ void __launch_bounds__(kThreads)
+template <int P, int A, int K, int B, int MIN_BLOCKS>
+__global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
-  constexpr int S = 2 * P * A;  // message slots per buffer, index (kind*P + p)*A + a
+  static_assert(B % 32 == 0, "a block is whole warps");
+  using G = SdStaged<P, A, K, true>;
+  constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
+  static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr int kQuorum = A / 2 + 1;
+  constexpr uint32_t kVoters = (1u << A) - 1;
+  extern __shared__ int32_t smem[];  // G::kRows * B words
 
   const int64_t n = prm.n_inst;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
+  PhaseClock<kPhases> clk;
+  const Column<B> col{smem + threadIdx.x};
+  sd::load_column<P, A, K, true, sd::kCopyUnroll<MIN_BLOCKS>>(col, L, n, i);
 
-  // ---- Load the lane's state once. ----
+  // ---- Load the lane's register-resident state once. ----
   int32_t voted[A], ent_term[A], ent_val[A], crash_start[A], crash_end[A];
   uint32_t equiv = 0;
 #pragma unroll
@@ -83,15 +129,22 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     timer[p] = load<int32_t>(L, kTimer, p, n, i);
     decided_val[p] = load<int32_t>(L, kDecidedVal, p, n, i);
   }
-  Learner<K> lrn;
+  ColumnLearner<K, G::kLtBal> lrn;
   lrn.load_from(L, n, i);
-  MsgBufs<S> m;
-  m.load_from(L, n, i);
+  uint32_t rq_present = 0, rp_present = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    rq_present |= (load<uint8_t>(L, kRqPresent, j, n, i) != 0 ? 1u : 0u) << j;
+    rp_present |= (load<uint8_t>(L, kRpPresent, j, n, i) != 0 ? 1u : 0u) << j;
+  }
+  uint32_t rq_written = 0, rp_written = 0;  // the slots the chunk wrote
+  bool lt_written = false;                  // an accept event reached the learner table
 
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
   const uint32_t lane = static_cast<uint32_t>(i % prm.block);
   const auto quorum_of = [](int32_t) { return kQuorum; };
+  clk.mark(kPhLoad);
 
   DrawCount draws;
   for (int t = 0; t < prm.n_ticks; ++t) {
@@ -99,38 +152,72 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
 
-    // ---- Reply delivery (pre-tick buffer) and consume. ----
-    uint32_t rp_next;
-    const uint32_t delivered = m.deliver(prm, ts, &rp_next);
+    // ---- Reply delivery (pre-tick buffer): the replies not held this
+    //      tick; consumed unless duplicated. ----
+    uint32_t delivered = rp_present;
+    if (prm.hold.mode != 0) {
+      for (uint32_t m = delivered; m != 0; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        if (ts.fires_at(prm.hold, kDeliver, j)) delivered &= ~(1u << j);
+      }
+    }
+    uint32_t taken = delivered;
+    if (prm.dup.mode != 0) {
+      for (uint32_t m = delivered; m != 0; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        if (ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
+      }
+    }
+    uint32_t rp_next = rp_present & ~taken;
+    clk.mark(kPhDeliver);
 
     // ---- Candidate fold over the pre-tick replies. ----
-    uint32_t leading = 0, expired = 0;
+    uint32_t leading = 0, expired = 0;  // proposers that send APPEND / REQVOTE
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int32_t cur = bal[p];
       int32_t h = heard[p];
-      uint32_t vote_ok = 0;
-      int32_t rep_t[A];
-      int32_t cand_t = kInt32Min;
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const int j0 = (kVote * P + p) * A + a;
-        const int j1 = (kAck * P + p) * A + a;
-        const bool v_ok = ((delivered >> j0) & 1u) && m.rp_bal[j0] == cur && phase[p] == kCand;
-        const bool granted = v_ok && (m.rp_v1[j0] & 1) == 1;
-        const bool ack_ok = ((delivered >> j1) & 1u) && m.rp_bal[j1] == cur && phase[p] == kLead;
-        if (granted || ack_ok) h |= 1 << a;
-        vote_ok |= (v_ok ? 1u : 0u) << a;
-        rep_t[a] = v_ok ? (m.rp_v1[j0] >> 1) : 0;  // floor division by 2
-        cand_t = max(cand_t, rep_t[a]);
+      // ACK in LEAD at the current term.
+      if (phase[p] == kLead) {
+        for (uint32_t m = (delivered >> ((kAck * P + p) * A)) & kVoters; m != 0; m &= m - 1) {
+          const int a = __ffs(m) - 1;
+          if (col[G::kRpBal + (kAck * P + p) * A + a] == cur) h |= 1 << a;
+        }
       }
-      int32_t cand_v = kInt32Min;
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const bool top = rep_t[a] == cand_t && ((vote_ok >> a) & 1u);
-        cand_v = max(cand_v, top ? m.rp_v2[(kVote * P + p) * A + a] : 0);
+      // VOTE in CAND at the current term: a granted one counts, and every
+      // one reports its voter's entry.  The entry adopted is the highest
+      // term's (the reference's max over every voter, 0 for one whose VOTE
+      // does not count), its value the max over that term's voters (0
+      // likewise); the value is read only where it is taken.
+      uint32_t vote_ok = 0;
+      int32_t cand_t = 0, cand_v = 0;
+      if (phase[p] == kCand) {
+        int32_t t_max = kInt32Min;
+        for (uint32_t m = (delivered >> ((kVote * P + p) * A)) & kVoters; m != 0; m &= m - 1) {
+          const int a = __ffs(m) - 1;
+          const int j0 = (kVote * P + p) * A + a;
+          if (col[G::kRpBal + j0] != cur) continue;
+          const int32_t v1 = col[G::kRpV1 + j0];
+          if ((v1 & 1) == 1) h |= 1 << a;
+          vote_ok |= 1u << a;
+          t_max = max(t_max, v1 >> 1);  // floor division by 2
+        }
+        cand_t = vote_ok == kVoters ? t_max : max(t_max, 0);
       }
       const bool upgrade = cand_t > c_term[p];
+      if (upgrade && vote_ok != 0) {
+        uint32_t top = 0;
+        cand_v = kInt32Min;
+        for (uint32_t m = vote_ok; m != 0; m &= m - 1) {
+          const int a = __ffs(m) - 1;
+          const int j0 = (kVote * P + p) * A + a;
+          if ((col[G::kRpV1 + j0] >> 1) == cand_t) {
+            top |= 1u << a;
+            cand_v = max(cand_v, col[G::kRpV2 + j0]);
+          }
+        }
+        if (top != kVoters) cand_v = max(cand_v, 0);
+      }
       int32_t et = upgrade ? cand_t : c_term[p];
       int32_t ev = upgrade ? cand_v : c_val[p];
 
@@ -168,9 +255,11 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       leading |= (ph == kLead ? 1u : 0u) << p;
       expired |= (exp ? 1u : 0u) << p;
     }
+    clk.mark(kPhFold);
 
     // ---- Voter half-tick: select at most one request per voter. ----
-    uint32_t rq_next = m.rq_present;
+    uint32_t rq_next = rq_present;
+    uint32_t rp_sent = 0;  // the reply slots written this tick
     uint32_t ev_flag = 0;
     int32_t ev_bal[A], ev_val[A];
     int inv_viol = 0;
@@ -178,19 +267,15 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     for (int a = 0; a < A; ++a) {
       const bool alive = !(crash_start[a] <= tick && tick < crash_end[a]);
       const bool busy = ts.survives_at(prm.idle, kBusy, a);
-      const int win = m.template select<P, A>(ts, a);
+      const int win = select_present<P, A>(ts, rq_present, a);
       const int sel = (win >= 0 && busy && alive) ? win : -1;
 
-      int32_t mb = 0, mv = 0;
-#pragma unroll
-      for (int kp = 0; kp < 2 * P; ++kp) {
-        if (kp == sel) {
-          mb = m.rq_bal[kp * A + a];
-          mv = m.rq_v1[kp * A + a];
-        }
-      }
+      // The selected request: its term, and its v1 (a REQVOTE's entry
+      // term, an APPEND's value).
       const bool is_rv = sel >= 0 && sel < P;
       const bool is_ap = sel >= P;
+      const int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
+      const int32_t mv = sel >= 0 ? col[G::rq_v1(sel * A + a)] : 0;
       const bool eq = (equiv >> a) & 1u;
       const int32_t vo_old = voted[a], et_old = ent_term[a], ev_old = ent_val[a];
       // One vote per term plus the election restriction; equivocators
@@ -206,26 +291,23 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       const int32_t et = ok_ap ? mb : et_old;
       const int32_t ev = ok_ap ? mv : ev_old;
 
-      // Replies to the selected sender's slot (post-consume buffer): every
-      // REQVOTE is answered with the pre-update entry; accepted APPENDs
-      // are acknowledged.
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (sel == kReqVote * P + p && ts.survives_at(prm.drop, kKeepProm, p * A + a)) {
-          const int jr = (kVote * P + p) * A + a;
-          m.rp_bal[jr] = mb;
-          m.rp_v1[jr] = wrap_add(static_cast<int32_t>(static_cast<uint32_t>(eq ? 0 : et_old) * 2u),
-                                 grant ? 1 : 0);
-          m.rp_v2[jr] = eq ? 0 : ev_old;
-          rp_next |= 1u << jr;
-        }
-        if (sel == kAppend * P + p && ok_ap && ts.survives_at(prm.drop, kKeepAccd, p * A + a)) {
-          const int jr = (kAck * P + p) * A + a;
-          m.rp_bal[jr] = mb;
-          m.rp_v1[jr] = mv;
-          m.rp_v2[jr] = 0;
-          rp_next |= 1u << jr;
-        }
+      // The reply into the selected sender's slot (post-consume buffer):
+      // every REQVOTE is answered with the pre-update entry (VOTE for
+      // candidate sel); accepted APPENDs are acknowledged (ACK for leader
+      // sel - P).
+      if (is_rv && ts.survives_at(prm.drop, kKeepProm, sel * A + a)) {
+        const int jr = sel * A + a;
+        col[G::kRpBal + jr] = mb;
+        col[G::kRpV1 + jr] = wrap_add(
+            static_cast<int32_t>(static_cast<uint32_t>(eq ? 0 : et_old) * 2u), grant ? 1 : 0);
+        col[G::kRpV2 + jr] = eq ? 0 : ev_old;
+        rp_sent |= 1u << jr;
+      }
+      if (ok_ap && ts.survives_at(prm.drop, kKeepAccd, (sel - P) * A + a)) {
+        const int jr = sel * A + a;
+        col[G::kRpBal + jr] = mb;
+        col[G::kRpV1 + jr] = mv;
+        rp_sent |= 1u << jr;
       }
       // Consume the selected request unless it is duplicated.
       if (sel >= 0) {
@@ -243,34 +325,42 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       ev_bal[a] = mb;
       ev_val[a] = mv;
     }
-    m.rp_present = rp_next;
-    m.rq_present = rq_next;
+    rp_present = rp_next | rp_sent;
+    rp_written |= rp_sent;
+    rq_present = rq_next;
+    clk.mark(kPhAcceptor);
 
     // ---- Learner: append-accept events, majority commit. ----
-    lrn.template observe<A>(ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of);
+    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
+      lt_written = true;
+    clk.mark(kPhLearner);
 
     // ---- Candidate sends into the consumed request buffer. ----
+    uint32_t rq_sent = 0;  // the request slots written this tick
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        if (((leading >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
-          const int j = (kAppend * P + p) * A + a;  // APPEND(term, value), every tick
-          m.rq_bal[j] = bal[p];
-          m.rq_v1[j] = prop_val[p];
-          m.rq_v2[j] = 0;
-          m.rq_present |= 1u << j;
-        }
-        if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
-          const int j = (kReqVote * P + p) * A + a;  // REQVOTE(next term, entry term)
-          m.rq_bal[j] = bal[p];
-          m.rq_v1[j] = c_term[p];
-          m.rq_v2[j] = 0;
-          m.rq_present |= 1u << j;
+      if ((leading | expired) >> p & 1u) {
+#pragma unroll 1
+        for (int a = 0; a < A; ++a) {
+          if (((leading >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
+            const int j = (kAppend * P + p) * A + a;  // APPEND(term, value), every tick
+            col[G::kRqBal + j] = bal[p];
+            col[G::rq_v1(j)] = prop_val[p];
+            rq_sent |= 1u << j;
+          }
+          if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
+            const int j = (kReqVote * P + p) * A + a;  // REQVOTE(next term, entry term)
+            col[G::kRqBal + j] = bal[p];
+            col[G::rq_v1(j)] = c_term[p];
+            rq_sent |= 1u << j;
+          }
         }
       }
       if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
+    rq_present |= rq_sent;
+    rq_written |= rq_sent;
+    clk.mark(kPhSends);
   }
 
   draws.flush();
@@ -294,27 +384,52 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     store<int32_t>(L, kDecidedVal, p, n, i, decided_val[p]);
   }
   lrn.store_to(L, n, i);
-  m.store_to(L, n, i);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
+    store<uint8_t>(L, kRpPresent, j, n, i, ((rp_present >> j) & 1u) ? 1 : 0);
+  }
+  sd::store_column<P, A, K, true, B>(col, L, n, i, rq_written, rp_written, lt_written);
+  clk.mark(kPhStore);
+  clk.flush();
 }
 
-template <int P, int A, int K>
-cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick, const Params& prm,
-                   cudaStream_t stream) {
-  fused_raftcore_kernel<P, A, K><<<grid_for(prm.n_inst), kThreads, 0, stream>>>(L, plan, tick, prm);
-  return cudaGetLastError();
+// One instantiation, ready to launch (SmemInst in fused_common.cuh).
+template <int P, int A, int K, int B, int MIN_BLOCKS>
+using Inst = SmemInst<fused_raftcore_kernel<P, A, K, B, MIN_BLOCKS>, B,
+                      SdStaged<P, A, K, true>::kRows * B * 4>;
+
+// The instantiations, (n_prop, n_acc, k_slots, B, MIN_BLOCKS): one per
+// shape, at the geometry fused_tick.FR_STAGING["raftcore"] gives it;
+// MIN_BLOCKS, the blocks an SM is to hold, caps a thread's registers.
+#define K3_INSTANCES(X) \
+  X(2, 5, 8, 128, 3)    \
+  X(2, 3, 8, 128, 3)
+
+// Calls `fn(Inst<...>{})` for the shape `dims` names (n_prop, n_acc,
+// k_slots), or returns cudaErrorInvalidValue.
+template <typename Fn>
+cudaError_t dispatch(const int* dims, Fn&& fn) {
+#define K3_MATCH(P_, A_, K_, B_, M_) \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_) return fn(Inst<P_, A_, K_, B_, M_>{});
+  K3_INSTANCES(K3_MATCH)
+#undef K3_MATCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots); `tick` is the device int32 tick scalar, read by the
-// kernel and advanced by the caller.  Returns the launch's
-// cudaGetLastError().
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, then the dynamic
+// shared bytes a block, fused_tick.FR_STAGING's); `tick` is the device
+// int32 tick scalar, read by the kernel and advanced by the caller.
+// Returns cudaSuccess or the first error: an unknown shape or too few
+// shared bytes (cudaErrorInvalidValue), a shared-memory request the card
+// refuses, or the launch's cudaGetLastError().
 extern "C" int fused_raftcore_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                      void** plan, void* tick, const long long* params, int n_params,
                                      void* stream) {
-  if (n_dims != 3) return cudaErrorInvalidValue;
-  const int n_prop = dims[0], n_acc = dims[1], k_slots = dims[2];
+  if (n_dims != 4) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
@@ -322,7 +437,15 @@ extern "C" int fused_raftcore_launch(const int* dims, int n_dims, void** leaves,
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_prop == 2 && n_acc == 5 && k_slots == 8) return launch<2, 5, 8>(L, pl, t, prm, s);
-  if (n_prop == 2 && n_acc == 3 && k_slots == 8) return launch<2, 3, 8>(L, pl, t, prm, s);
-  return cudaErrorInvalidValue;
+  const int smem = dims[3];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+}
+
+// The blocks of instantiation `dims` (as for fused_raftcore_launch) that
+// one SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
+extern "C" int fused_raftcore_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
+  if (n_dims != 4) return cudaErrorInvalidValue;
+  const int smem = dims[3];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

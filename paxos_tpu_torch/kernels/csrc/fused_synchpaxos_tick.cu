@@ -73,49 +73,16 @@ namespace {
 // Proposer phases (core/state.py, core/sp_state.py).
 constexpr int32_t kP1 = 0, kP2 = 1, kDone = 2, kFast = 3;
 
+using sd::ColumnLearner;
+using sd::load_rows;
+using sd::select_present;
+using sd::store_rows;
+
 // The tick's phases in order, as the phase-clock build splits a lane's
 // cycles (fused_tick.PHASES["synchpaxos"]).
 enum Phase {
   kPhLoad, kPhRefresh, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
   kPhases,
-};
-
-#ifdef FUSED_PHASE_CLOCKS
-// Read and cleared by fused_phase_clocks(): clock64() cycles per phase,
-// summed over lanes and ticks.
-__device__ unsigned long long g_phase[kPhases];
-#endif
-
-// The phase-clock measuring build (nvcc -DFUSED_PHASE_CLOCKS): a lane sums
-// the clock64() cycles between consecutive phase boundaries (its own
-// cycles, which include the time other warps hold the SM) and adds them
-// to g_phase at the end; empty in every other build.
-struct PhaseClock {
-#ifdef FUSED_PHASE_CLOCKS
-  long long t;
-  uint32_t sum[kPhases];
-  // clock64() exists in device code only; nvcc's host pass sees 0.
-  __device__ __forceinline__ static long long now() {
-#ifdef __CUDA_ARCH__
-    return clock64();
-#else
-    return 0;
-#endif
-  }
-  __device__ __forceinline__ PhaseClock() : t(now()), sum{} {}
-  __device__ __forceinline__ void mark(int k) {
-    const long long now = PhaseClock::now();
-    sum[k] += static_cast<uint32_t>(now - t);
-    t = now;
-  }
-  __device__ __forceinline__ void flush() const {
-#pragma unroll
-    for (int k = 0; k < kPhases; ++k) atomicAdd(&g_phase[k], static_cast<unsigned long long>(sum[k]));
-  }
-#else
-  __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void flush() const {}
-#endif
 };
 
 // The role leaves in the reference's flatten order; the learner and the
@@ -145,27 +112,6 @@ struct SpStaged {
   static constexpr int kLtMask = kLtVal + K;                     // learner.lt_mask (K)
   static constexpr int kRows = kLtMask + K;
 };
-
-// ROWS rows of a leaf from its row FROM on, to (from) the column from row
-// OFF on.  A load ends with a compiler fence, so that one leaf's loads are
-// in flight at a time: without it the compiler issues all the column's
-// loads at once and spills the registers they need.
-template <int ROWS, int FROM, int OFF, int B>
-__device__ __forceinline__ void load_rows(const Column<B>& col, const Leaves& L, int leaf,
-                                          int64_t n, int64_t i) {
-  const int32_t* g = static_cast<const int32_t*>(L.p[leaf]) + i;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) col[OFF + r] = g[(FROM + r) * n];
-  asm volatile("" ::: "memory");
-}
-
-template <int ROWS, int FROM, int OFF, int B>
-__device__ __forceinline__ void store_rows(const Column<B>& col, const Leaves& L, int leaf,
-                                           int64_t n, int64_t i) {
-  int32_t* g = static_cast<int32_t*>(L.p[leaf]) + i;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) g[(FROM + r) * n] = col[OFF + r];
-}
 
 // The column at the start of the chunk: every staged row.
 template <int P, int A, int K, bool STAMPED, int B>
@@ -310,29 +256,6 @@ struct Channel {
   }
 };
 
-// select_request for acceptor a, drawing over its present request slots
-// only: the scores are distinct (kp in the low bits), so the order of the
-// draws does not change the winner.
-template <int P, int A>
-__device__ __forceinline__ int select_present(const TickStream& ts, uint32_t present, int a) {
-  constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;
-  constexpr int32_t kScoreMask = ~((1 << kNbits) - 1);
-  uint32_t mine = 0;  // bit kp: slot kp * A + a is present
-#pragma unroll
-  for (int kp = 0; kp < 2 * P; ++kp) mine |= ((present >> (kp * A + a)) & 1u) << kp;
-  int32_t fmax = kInt32Min;
-  int win = -1;
-  for (uint32_t m = mine; m != 0; m &= m - 1) {
-    const int kp = __ffs(m) - 1;
-    const int32_t score = (static_cast<int32_t>(ts.bits(kSel, kp * A + a)) & kScoreMask) | kp;
-    if (score > fmax) {
-      fmax = score;
-      win = kp;
-    }
-  }
-  return win;
-}
-
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
@@ -345,7 +268,7 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
-  PhaseClock clk;
+  PhaseClock<kPhases> clk;
   const Column<B> col{smem + threadIdx.x};
   load_column<P, A, K, STAMPED, B>(col, L, n, i);
 
@@ -375,11 +298,8 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     timer[p] = load<int32_t>(L, kTimer, p, n, i);
     decided_val[p] = load<int32_t>(L, kDecidedVal, p, n, i);
   }
-  bool chosen = load<uint8_t>(L, kChosen, 0, n, i) != 0;
-  int32_t chosen_val = load<int32_t>(L, kChosenVal, 0, n, i);
-  int32_t chosen_tick = load<int32_t>(L, kChosenTick, 0, n, i);
-  int32_t violations = load<int32_t>(L, kViolations, 0, n, i);
-  int32_t evictions = load<int32_t>(L, kEvictions, 0, n, i);
+  ColumnLearner<K, G::kLtBal> lrn;
+  lrn.load_from(L, n, i);
   uint32_t rq_present = 0, rp_present = 0;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -576,42 +496,8 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     clk.mark(kPhAcceptor);
 
     // ---- Learner: fold accept events into the (ballot, value) table. ----
-    // An event folds where it carries a ballot.  A tick without one leaves
-    // the table as it is, and the fold's other writes reduce to these.
-    uint32_t folds = 0;
-#pragma unroll
-    for (int a = 0; a < A; ++a) folds |= (((ev_flag >> a) & 1u) && ev_bal[a] > 0 ? 1u : 0u) << a;
-    if (folds == 0) {
-      chosen_val = chosen ? chosen_val : 0;
-      chosen_tick = chosen ? chosen_tick : -1;
-      violations = wrap_add(violations, inv_viol);
-    } else {
-      Learner<K> lrn;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        lrn.bal[k] = col[G::kLtBal + k];
-        lrn.val[k] = col[G::kLtVal + k];
-        lrn.mask[k] = col[G::kLtMask + k];
-      }
-      lrn.chosen = chosen;
-      lrn.chosen_val = chosen_val;
-      lrn.chosen_tick = chosen_tick;
-      lrn.violations = violations;
-      lrn.evictions = evictions;
-      lrn.template observe<A>(ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        col[G::kLtBal + k] = lrn.bal[k];
-        col[G::kLtVal + k] = lrn.val[k];
-        col[G::kLtMask + k] = lrn.mask[k];
-      }
-      chosen = lrn.chosen;
-      chosen_val = lrn.chosen_val;
-      chosen_tick = lrn.chosen_tick;
-      violations = lrn.violations;
-      evictions = lrn.evictions;
+    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
       lt_written = true;
-    }
     clk.mark(kPhLearner);
 
     // ---- Proposer sends into the consumed request buffer, then their
@@ -664,11 +550,7 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     store<int32_t>(L, kTimer, p, n, i, timer[p]);
     store<int32_t>(L, kDecidedVal, p, n, i, decided_val[p]);
   }
-  store<uint8_t>(L, kChosen, 0, n, i, chosen ? 1 : 0);
-  store<int32_t>(L, kChosenVal, 0, n, i, chosen_val);
-  store<int32_t>(L, kChosenTick, 0, n, i, chosen_tick);
-  store<int32_t>(L, kViolations, 0, n, i, violations);
-  store<int32_t>(L, kEvictions, 0, n, i, evictions);
+  lrn.store_to(L, n, i);
 #pragma unroll
   for (int j = 0; j < S; ++j) {
     store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
@@ -741,15 +623,3 @@ extern "C" int fused_synchpaxos_occupancy(const int* dims, int n_dims, int* bloc
   const int smem = dims[4];
   return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }
-
-#ifdef FUSED_PHASE_CLOCKS
-// Copies the per-phase cycle sums of the launches since the last call to
-// out[0..kPhases) (fused_draws' signature) and clears them; call after the
-// launches are complete.  Returns a cudaError_t.
-extern "C" int fused_phase_clocks(unsigned long long* out) {
-  const unsigned long long zero[kPhases] = {};
-  cudaError_t rc = cudaMemcpyFromSymbol(out, g_phase, sizeof(zero));
-  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
-  return rc;
-}
-#endif

@@ -24,12 +24,14 @@ state with or without ``until`` stamps (an instantiation each) and the
 plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
 
 The Multi-Paxos kernel keeps each lane's slot arrays in shared memory for
-the whole chunk, and the SynchPaxos kernel its message payloads, delay
-stamps and learner table; their launch geometry per instantiation (lanes
-a CUDA block, staged rows, shared bytes) is ``MP_STAGING`` and
-``SP_STAGING``, which the kernels' instantiations mirror; the wrapper
-passes them the shared bytes.  :func:`phase_clocks` runs K4's phase-clock
-build, which splits a lane's cycles by phase of the tick.
+the whole chunk, the SynchPaxos kernel its message payloads, delay stamps
+and learner table, and the Fast Paxos and Raft-core kernels their message
+payloads and learner table; their launch geometry per instantiation
+(lanes a CUDA block, staged rows, shared bytes) is ``MP_STAGING``,
+``SP_STAGING`` and ``FR_STAGING``, which the kernels' instantiations
+mirror; the wrapper passes them the shared bytes.  :func:`phase_clocks`
+runs the phase-clock build of K2, K3 or K4, which splits a lane's cycles
+by phase of the tick.
 """
 
 from __future__ import annotations
@@ -153,10 +155,10 @@ SP_ZERO_WORDS = (("requests.v1", (0,)), ("requests.v2", (0, 1)), ("replies.v2", 
 
 
 @dataclasses.dataclass(frozen=True)
-class SpStaging:
-    """K4's launch geometry at one instantiation: ``threads`` lanes a CUDA
-    block (a multiple of 32), the int32 words of a lane's shared-memory
-    column (``rows``), the block's dynamic shared memory
+class ColumnStaging:
+    """The launch geometry of K2, K3 or K4 at one instantiation: ``threads``
+    lanes a CUDA block (a multiple of 32), the int32 words of a lane's
+    shared-memory column (``rows``), the block's dynamic shared memory
     (``rows * 4 * threads`` bytes), and ``min_blocks``, the blocks an SM is
     to hold, which caps a thread's registers (``__launch_bounds__``)."""
 
@@ -175,9 +177,9 @@ def sp_staged_rows(n_prop: int, n_acc: int, k_slots: int, stamped: int) -> int:
     return 8 * e + (4 * e if stamped else 0) + 3 * k_slots
 
 
-def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> SpStaging:
+def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
     rows = sp_staged_rows(*shape)
-    return SpStaging(threads, rows, rows * 4 * threads, min_blocks)
+    return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
 # K4's geometry per instantiation, which the wrapper passes to the kernel.
@@ -189,6 +191,63 @@ SP_STAGING = {
     (2, 5, 8, 1): _sp_staging((2, 5, 8, 1), 128, 3),
     (2, 5, 8, 0): _sp_staging((2, 5, 8, 0), 128, 3),
     (2, 3, 8, 1): _sp_staging((2, 3, 8, 1), 128, 3),
+}
+
+
+# The Fast Paxos and Raft-core state leaves K2 and K3 keep in shared memory
+# for a whole chunk (``sd::SdStaged`` in csrc/fused_common.cuh), in column
+# order, each with the message kinds it stages (None: every row of the
+# leaf), as ``SP_STAGED_LEAVES`` without the stamps.  Raft-core stages
+# every request's v1: a REQVOTE carries the candidate's entry term.
+FR_STAGED_LEAVES = {
+    "fastpaxos": (
+        ("requests.bal", (0, 1)), ("requests.v1", (1,)), ("replies.bal", (0, 1)),
+        ("replies.v1", (0, 1)), ("replies.v2", (0,)),
+        ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
+    ),
+    "raftcore": (
+        ("requests.bal", (0, 1)), ("requests.v1", (0, 1)), ("replies.bal", (0, 1)),
+        ("replies.v1", (0, 1)), ("replies.v2", (0,)),
+        ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
+    ),
+}
+# The words each tick only ever writes as 0: Fast Paxos a PREPARE's v1,
+# every request's v2 and an ACCEPTED's v2 (protocols/fastpaxos.py),
+# Raft-core every request's v2 and an ACK's v2 (protocols/raftcore.py).
+FR_ZERO_WORDS = {
+    "fastpaxos": (("requests.v1", (0,)), ("requests.v2", (0, 1)), ("replies.v2", (1,))),
+    "raftcore": (("requests.v2", (0, 1)), ("replies.v2", (1,))),
+}
+
+
+def fr_staged_rows(protocol: str, n_prop: int, n_acc: int, k_slots: int) -> int:
+    """Words of a K2 or K3 lane's column: the request ballots (2PA) and
+    staged values (PA, Raft-core 2PA), the reply ballots and first payloads
+    (2PA each) and kind-0 second payloads (PA), and the learner table
+    (3K)."""
+    e = n_prop * n_acc
+    return (9 if protocol == "raftcore" else 8) * e + 3 * k_slots
+
+
+def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
+    rows = fr_staged_rows(protocol, *shape)
+    return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
+
+
+# K2's and K3's geometry per instantiation, which the wrapper passes to the
+# kernel: K4's, 3 blocks of 128 lanes (12 warps) an SM, which caps a thread
+# at 168 registers; K2's (2, 5, 8) column (104 words) leaves room for a
+# fourth block (16 warps, 128 registers), which made its main path 12%
+# faster (PERF.md §6).  K3's (114 words) does not.
+FR_STAGING = {
+    "fastpaxos": {
+        (2, 5, 8): _fr_staging("fastpaxos", (2, 5, 8), 128, 4),
+        (2, 3, 8): _fr_staging("fastpaxos", (2, 3, 8), 128, 3),
+    },
+    "raftcore": {
+        (2, 5, 8): _fr_staging("raftcore", (2, 5, 8), 128, 3),
+        (2, 3, 8): _fr_staging("raftcore", (2, 3, 8), 128, 3),
+    },
 }
 
 
@@ -266,7 +325,7 @@ class Binding:
     ballot_limit: int = REPORT_BALLOT_LIMIT
     proposer_bal_bits: int = 17  # core/state.py PAXOS_LAYOUT and kin
     shape_fields: tuple = ("n_prop", "n_acc", "k_slots")
-    # Launch geometry per shape (MpStaging, SpStaging), whose shared bytes
+    # Launch geometry per shape (MpStaging, ColumnStaging), whose shared bytes
     # are passed after the shape; None: the kernel's own fixed geometry.
     staging: "dict | None" = None
 
@@ -278,10 +337,11 @@ BINDINGS = {
     "paxos": Binding(apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch"),
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
-        "fused_fastpaxos_launch",
+        "fused_fastpaxos_launch", staging=FR_STAGING["fastpaxos"],
     ),
     "raftcore": Binding(
-        apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch"
+        apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch",
+        staging=FR_STAGING["raftcore"],
     ),
     # core/sp_state.py SP_LAYOUT: the single-decree widths; ``stamped`` (1
     # when the buffers carry ``until``) picks the instantiation.
@@ -320,10 +380,21 @@ def ballot_hoist_safe_ticks(protocol: str = "paxos") -> int:
 # also counts the counter-PRNG draws the kernel makes and the slot-array
 # elements it touches.
 COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
-# The phase-clock build (K4 only): clock64() cycles per phase of the tick,
-# in the order of the kernel's ``Phase`` enum.
+# The phase-clock build (K2, K3, K4): clock64() cycles per phase of the
+# tick, in the order of the kernel's ``Phase`` enum; its reader returns
+# PHASE_SLOTS counters (``kMaxPhases`` in csrc/fused_common.cuh), those past
+# a kernel's phases 0.
 PHASE_CLOCKS = ("FUSED_PHASE_CLOCKS",)
+PHASE_SLOTS = 8
 PHASES = {
+    "fastpaxos": (
+        "column load", "reply delivery", "proposer fold", "acceptor half-tick",
+        "learner", "proposer sends", "column store",
+    ),
+    "raftcore": (
+        "column load", "reply delivery", "candidate fold", "voter half-tick",
+        "learner", "candidate sends", "column store",
+    ),
     "synchpaxos": (
         "column load", "stamp refresh", "reply delivery", "proposer fold",
         "acceptor half-tick", "learner", "proposer sends", "column store",
@@ -560,7 +631,7 @@ def draw_census(
     """(draws, slot touches): the counter-PRNG draws ``protocol``'s kernel
     makes over ``n_ticks`` ticks from ``state``, and the slot-array elements
     it reads or writes (Multi-Paxos; SynchPaxos: the delay stamps; 0 for
-    the other single-decree kernels, whose whole state sits in registers),
+    the other single-decree kernels, which count none),
     summed over lanes and ticks: one launch of its measuring build
     (``_measure``).  The kernels draw a mask, and touch a slot, only where
     the outcome depends on it, so these are the PRNG and slot work the data
@@ -587,10 +658,12 @@ def phase_clocks(
     if phases is None:
         raise ValueError(f"the {protocol} kernel has no phase-clock build (PHASES: {sorted(PHASES)})")
     cycles = _measure(
-        protocol, PHASE_CLOCKS, "fused_phase_clocks", len(phases), state, seed, plan, cfg,
+        protocol, PHASE_CLOCKS, "fused_phase_clocks", PHASE_SLOTS, state, seed, plan, cfg,
         n_ticks, block, blk0, clamp_per_tick,
     )
-    return dict(zip(phases, cycles, strict=True))
+    if any(cycles[len(phases):]):
+        raise RuntimeError(f"the {protocol} kernel clocked phases past its {len(phases)}")
+    return dict(zip(phases, cycles[:len(phases)], strict=True))
 
 
 def fused_paxos_chunk(
@@ -620,7 +693,9 @@ def fused_fastpaxos_chunk(
     n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
     clamp_per_tick: bool = False,
 ) -> FastPaxosState:
-    """:func:`fused_paxos_chunk` for Fast Paxos (``csrc/fused_fastpaxos_tick.cu``)."""
+    """:func:`fused_paxos_chunk` for Fast Paxos (``csrc/fused_fastpaxos_tick.cu``,
+    at the geometry ``FR_STAGING["fastpaxos"]`` gives the state's shape; a
+    launch the card refuses raises)."""
     return _fused_chunk(
         "fastpaxos", fused_fastpaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,
@@ -635,7 +710,9 @@ def fused_raftcore_chunk(
     n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
     clamp_per_tick: bool = False,
 ) -> RaftState:
-    """:func:`fused_paxos_chunk` for Raft-core (``csrc/fused_raftcore_tick.cu``)."""
+    """:func:`fused_paxos_chunk` for Raft-core (``csrc/fused_raftcore_tick.cu``,
+    at the geometry ``FR_STAGING["raftcore"]`` gives the state's shape; a
+    launch the card refuses raises)."""
     return _fused_chunk(
         "raftcore", fused_raftcore_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,

@@ -20,8 +20,12 @@ violated and the planted bug, with duplicates, uneven quorums and a ballot
 stride, at three acceptors, under the clamp and on lane counts no CUDA
 block divides; its geometry holds 12 warps an SM, a shared-memory request
 the card refuses raises, and its phase-clock build advances the state as
-the kernel does.  A plan without ``link_delay`` under ``p_delay > 0`` is
-refused, and the other kernels refuse ``p_delay``.
+the kernel does.  K2 and K3 (Fast Paxos, Raft-core), which keep their
+payloads and learner table in a shared-memory column too, are held so on
+duplicates and a ballot stride (Fast Paxos also on uneven quorums), at
+every instantiation on lane counts no CUDA block divides, with the same
+geometry, refusal and phase-clock checks.  A plan without ``link_delay``
+under ``p_delay > 0`` is refused, and the other kernels refuse ``p_delay``.
 """
 
 import dataclasses
@@ -38,6 +42,8 @@ from chip_smoke import (
     SLOT_CENSUS,
     SP_GOLDEN,
     config_plan,
+    fault_plan,
+    fr_knob_configs,
     main_config,
     main_plan,
     near_limit_state,
@@ -414,3 +420,116 @@ def test_synchpaxos_draw_census_build_follows_the_kernel():
     lane_ticks = cfg.n_inst * ticks
     assert 0 < draws <= MASK_CENSUS[MAIN_PATHS["synchpaxos"].census][1] * lane_ticks
     assert 0 < touches <= 4 * 2 * cfg.n_prop * cfg.n_acc * lane_ticks
+
+
+FR = ["fastpaxos", "raftcore"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", FR)
+def test_fr_kernel_matches_plain_on_knobs(protocol):
+    """K2 and K3 on the knobs no main path sets (``fr_knob_configs``):
+    duplicated requests and replies, a ballot stride with a longer backoff,
+    and for Fast Paxos q1/q2/q_fast = 4/2/4, over two chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    for cfg in fr_knob_configs(protocol, 4096, 10).values():
+        plan = trun.init_plan(cfg, "cuda")
+        plain = trun.init_state(cfg, "cuda")
+        kern = plain.clone()
+        for _ in range(2):
+            plain = plain_chunk(cfg, plain, plan, 96, 1024)
+            before = wrapper.launches
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, 96)
+            assert wrapper.launches == before + 1
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "protocol,shape", [(p, shape) for p in FR for shape in tfused.KERNEL_SHAPES[p]]
+)
+def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
+    """K2 and K3 at every instantiation on 1000 lanes, which no CUDA block of
+    their geometry divides (the last block runs part full), with a stream
+    block of fit_block(1024, 1000) = 8 lanes, crashes and equivocators,
+    over three chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n = 1000
+    assert n % tfused.FR_STAGING[protocol][shape].threads != 0
+    n_prop, n_acc, _ = shape
+    cfg = dataclasses.replace(main_config(protocol, n, 9), n_acc=n_acc)
+    block = tfused.fit_block(1024, n)
+    plan = fault_plan(n, n_acc, n_prop, 0.2, 9, p_crash=0.2)
+    plain = trun.init_state(cfg, "cuda")
+    assert tfused.BINDINGS[protocol].kernel_shape(plain) == shape
+    kern = plain.clone()
+    for _ in range(3):
+        plain = plain_chunk(cfg, plain, plan, 64, block)
+        kern = tfused.FUSED_WRAPPERS[protocol](kern, cfg.seed, plan, cfg.fault, 64, block=block)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", FR)
+def test_fr_refused_launch_raises(protocol, monkeypatch):
+    """A shared-memory request the card refuses (over 227 KB a block), or
+    one too small for the staged rows, raises in the wrapper: the kernel
+    never ran, the state is as it was, no launch is counted, and the next
+    launch at the table's geometry runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    cfg = main_config(protocol, 1024, 3)
+    plan = trun.init_plan(cfg, "cuda")
+    table = tfused.FR_STAGING[protocol]
+    shape = (2, 5, 8)
+    staging = table[shape]
+    state = wrapper(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 16)
+    before, launches = state.clone(), wrapper.launches
+    for smem in (tfused.SMEM_PER_BLOCK_MAX + 1024, staging.smem_bytes - 4):
+        monkeypatch.setitem(table, shape, dataclasses.replace(staging, smem_bytes=smem))
+        with pytest.raises(RuntimeError, match="cudaError"):
+            wrapper(state, cfg.seed, plan, cfg.fault, 16)
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+        assert wrapper.launches == launches
+    monkeypatch.setitem(table, shape, staging)
+    kern = wrapper(state, cfg.seed, plan, cfg.fault, 16)
+    _assert_same(kern, plain_chunk(cfg, before, plan, 16, 1024))
+
+
+@pytest.mark.cuda
+def test_fr_geometry_fits_the_card():
+    """Every geometry of K2 and K3 lets an SM hold the blocks its registers
+    are capped for: 12 warps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    for protocol in FR:
+        for shape, staging in tfused.FR_STAGING[protocol].items():
+            blocks = tfused.blocks_per_sm(protocol, shape)
+            assert blocks >= staging.min_blocks and blocks * staging.threads // 32 >= 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", FR)
+def test_fr_phase_clocks_follow_the_kernel(protocol):
+    """The phase-clock build of K2 and K3 advances the state as the kernel
+    does, counts no launch, and splits a lane's cycles over every phase."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    cfg = main_config(protocol, 8192, 5)
+    plan, ticks = trun.init_plan(cfg, "cuda"), 48
+    kern = wrapper(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
+    before = wrapper.launches
+    clocked = trun.init_state(cfg, "cuda")
+    cycles = tfused.phase_clocks(protocol, clocked, cfg.seed, plan, cfg.fault, ticks)
+    assert wrapper.launches == before
+    _assert_same(clocked, kern)
+    assert tuple(cycles) == tfused.PHASES[protocol]
+    assert all(c > 0 for c in cycles.values())

@@ -1,0 +1,228 @@
+"""K2's and K3's shared-memory staging and phase clocks (no GPU needed).
+
+The Fast Paxos and Raft-core kernels keep each lane's message payloads and
+learner table in a shared-memory column for a whole chunk;
+``fused_tick.FR_STAGING`` is their launch geometry per instantiation that
+the wrapper passes to them (lanes a CUDA block, staged rows, shared bytes,
+the blocks an SM is to hold).  The rows are held against the port's own
+``FastPaxosState`` and ``RaftState`` leaf shapes, the geometry against the
+card's limits, the table against the instantiations of
+``csrc/fused_fastpaxos_tick.cu`` and ``csrc/fused_raftcore_tick.cu`` and
+the column order of ``sd::load_column`` in ``csrc/fused_common.cuh``, the
+words left out of the column against the plain ticks, which must only ever
+write them as 0, and the phase lists against the kernels.
+"""
+
+import math
+import re
+
+import pytest
+import torch
+
+import chip_smoke
+from paxos_tpu_torch.core.fp_state import FastPaxosState
+from paxos_tpu_torch.core.raft_state import RaftState
+from paxos_tpu_torch.harness import run as trun
+from paxos_tpu_torch.kernels import build
+from paxos_tpu_torch.kernels import fused_tick as tfused
+
+FR = ("fastpaxos", "raftcore")
+STATES = {"fastpaxos": FastPaxosState, "raftcore": RaftState}
+SOURCES = {p: (build.CSRC / f"{tfused.BINDINGS[p].kernel}.cu").read_text() for p in FR}
+COMMON = (build.CSRC / "fused_common.cuh").read_text()
+TABLES = [(p, shape, st) for p in FR for shape, st in tfused.FR_STAGING[p].items()]
+IDS = [f"{p}-" + "-".join(map(str, shape)) for p, shape, _ in TABLES]
+SM_SHARED_BYTES = 233_472  # an H100 SM's shared memory
+BLOCK_RESERVED_BYTES = 1024  # reserved by the runtime for each resident block
+SM_THREADS_MAX = 2048
+INSTANCES = {"fastpaxos": "K2_INSTANCES", "raftcore": "K3_INSTANCES"}
+
+
+def _leaf(state, path):
+    obj = state
+    for name in path.split("."):
+        obj = getattr(obj, name)
+    return obj
+
+
+def _state(protocol, shape):
+    n_prop, n_acc, k_slots = shape
+    return STATES[protocol].init(3, n_prop, n_acc, k_slots)
+
+
+def _rows(state, path, kinds):
+    """Words a lane of a leaf (instance-minor) in the column: the product of
+    its other dims, or of the message kinds staged."""
+    shape = _leaf(state, path).shape[:-1]
+    return math.prod(shape) if kinds is None else len(kinds) * math.prod(shape[1:])
+
+
+@pytest.mark.parametrize("protocol,shape,staging", TABLES, ids=IDS)
+def test_staged_rows_match_the_state_leaves(protocol, shape, staging):
+    state = _state(protocol, shape)
+    staged = tfused.FR_STAGED_LEAVES[protocol]
+    rows = sum(_rows(state, path, kinds) for path, kinds in staged)
+    assert staging.rows == rows == tfused.fr_staged_rows(protocol, *shape)
+    assert staging.smem_bytes == rows * 4 * staging.threads
+    assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX == 232_448
+    assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
+    # The SM holds the blocks the registers are capped for: 12 warps or more.
+    assert staging.min_blocks * (staging.smem_bytes + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    assert staging.min_blocks * staging.threads <= SM_THREADS_MAX
+    assert staging.min_blocks * staging.threads // 32 >= 12
+    for path, _ in staged:
+        assert _leaf(state, path).dtype == torch.int32
+    assert 2 * shape[0] * shape[1] <= 32  # a buffer's presence fits one bitmask
+
+
+@pytest.mark.parametrize("protocol", FR)
+def test_zero_words_and_staged_kinds_cover_every_payload_once(protocol):
+    """Each (payload leaf, kind) is staged or zero-only, never both."""
+    covered = []
+    for path, kinds in tfused.FR_STAGED_LEAVES[protocol] + tfused.FR_ZERO_WORDS[protocol]:
+        if path.split(".")[1] in ("bal", "v1", "v2"):
+            covered += [(path, k) for k in kinds]
+    want = [(f"{buf}.{f}", k) for buf in ("requests", "replies") for f in ("bal", "v1", "v2") for k in (0, 1)]
+    assert sorted(covered) == sorted(want)
+
+
+def _zero_words(state, protocol):
+    """The zero-only words of ``state``, as (leaf path, kind, tensor)."""
+    return [
+        (path, k, _leaf(state, path)[k])
+        for path, kinds in tfused.FR_ZERO_WORDS[protocol] for k in kinds
+    ]
+
+
+@pytest.mark.parametrize("protocol", FR)
+def test_zero_words_are_only_ever_written_as_zero(protocol):
+    """The words the kernels keep no row for: the plain tick never reads
+    them where the result depends on it, and writes them only as 0.  From
+    a mid-run state with those words set to noise, 24 ticks of the plain
+    version give every other leaf exactly as from the same state with them
+    0, and each such word ends as its noise (never written) or 0."""
+    cfg = chip_smoke.main_config(protocol, 256, 3)
+    plan = chip_smoke.fault_plan(256, cfg.n_acc, cfg.n_prop, 0.2, 3, p_crash=0.2, device="cpu")
+    clean = chip_smoke.plain_chunk(cfg, trun.init_state(cfg, "cpu"), plan, 8, 256)
+    for _, _, word in _zero_words(clean, protocol):
+        word.zero_()
+    noisy = clean.clone()
+    gen = torch.Generator().manual_seed(3)
+    noise = []
+    for _, _, word in _zero_words(noisy, protocol):
+        word.copy_(torch.randint(1, 1000, word.shape, generator=gen, dtype=torch.int32))
+        noise.append(word.clone())
+    clean = chip_smoke.plain_chunk(cfg, clean, plan, 24, 256)
+    noisy = chip_smoke.plain_chunk(cfg, noisy, plan, 24, 256)
+    written = 0
+    for (path, k, got), before in zip(_zero_words(noisy, protocol), noise, strict=True):
+        assert ((got == before) | (got == 0)).all(), (path, k)
+        written += int((got == 0).sum())
+        got.zero_()
+    assert written > 0  # the ticks did write some of them
+    for a, b in zip(noisy.leaves(), clean.leaves(), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("protocol", FR)
+def test_every_instantiation_has_a_geometry(protocol):
+    assert tuple(tfused.FR_STAGING[protocol]) == tfused.KERNEL_SHAPES[protocol]
+    assert tfused.BINDINGS[protocol].staging is tfused.FR_STAGING[protocol]
+
+
+def _instances(protocol):
+    """``K2_INSTANCES`` / ``K3_INSTANCES`` of the .cu, in order:
+    (P, A, K, B, MIN) each."""
+    listed = re.search(rf"#define {INSTANCES[protocol]}\(X\)(.*?)\n\n", SOURCES[protocol], re.S).group(1)
+    return [tuple(map(int, x)) for x in re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", listed)]
+
+
+@pytest.mark.parametrize("protocol", FR)
+def test_source_instantiates_the_table(protocol):
+    """The .cu lists exactly the table's geometries, one per shape, and the
+    C entry points take the shape and the shared bytes (4 ``dims``)."""
+    want = [shape + (st.threads, st.min_blocks) for shape, st in tfused.FR_STAGING[protocol].items()]
+    got = _instances(protocol)
+    assert sorted(got) == sorted(want)
+    shapes = [inst[:3] for inst in got]
+    assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES[protocol])
+    src = SOURCES[protocol]
+    assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_)" in src
+    assert src.count("n_dims != 4") == 2 and src.count("const int smem = dims[3];") == 2
+    rv_v1 = "true" if protocol == "raftcore" else "false"
+    assert f"using G = SdStaged<P, A, K, {rv_v1}>;" in src
+    assert f"SdStaged<P, A, K, {rv_v1}>::kRows * B * 4" in src
+
+
+@pytest.mark.parametrize("protocol", FR)
+def test_source_column_order_matches_the_leaves(protocol):
+    """``sd::load_column`` stages the leaves in the table's order, each with
+    the rows its leaf (its staged kinds) has a lane, from the leaf's first
+    staged row; ``SdStaged``'s offsets follow the same order."""
+    names = {
+        "kRqBal": "requests.bal", "kRqV1": "requests.v1", "kRpBal": "replies.bal",
+        "kRpV1": "replies.v1", "kRpV2": "replies.v2", "kLtBal": "learner.lt_bal",
+        "kLtVal": "learner.lt_val", "kLtMask": "learner.lt_mask",
+    }
+    body = re.search(r"void load_column\(.*?\n}\n", COMMON[COMMON.index("namespace sd {"):], re.S).group(0)
+    calls = re.findall(r"load_rows<([^,]+), ([^,]+), G::(\w+), UNROLL>\(col, L, (\w+), n, i\)", body)
+    staged = tfused.FR_STAGED_LEAVES[protocol]
+    assert [names[leaf] for *_, leaf in calls] == [path for path, _ in staged]
+    assert [off for _, _, off, _ in calls] == [leaf for *_, leaf in calls]
+    kinds = dict(staged)
+    for shape in tfused.FR_STAGING[protocol]:
+        state = _state(protocol, shape)
+        s, e = 2 * shape[0] * shape[1], shape[0] * shape[1]
+        v1_from = 0 if protocol == "raftcore" else e
+        env = {"0": 0, "G::S": s, "G::E": e, "K": shape[2], "G::kRqV1From": v1_from,
+               "G::S - G::kRqV1From": s - v1_from}
+        offset = 0
+        for rows, first, _, leaf in calls:
+            path = names[leaf]
+            assert env[rows] == _rows(state, path, kinds[path])
+            start = 0 if kinds[path] is None else kinds[path][0] * e
+            assert env[first] == start
+            offset += env[rows]
+        assert offset == tfused.FR_STAGING[protocol][shape].rows
+
+
+@pytest.mark.parametrize("protocol", FR)
+def test_phase_names_match_the_kernel(protocol):
+    """``PHASES[protocol]`` names the .cu's ``Phase`` enum, in order, the
+    tick marks every phase once, and the reader's slots hold them all."""
+    src = SOURCES[protocol]
+    body = re.search(r"enum Phase \{(.*?)\};", src, re.S).group(1)
+    phases = [p.strip() for p in body.replace("\n", " ").split(",") if p.strip()]
+    assert phases[-1] == "kPhases"
+    assert len(phases[:-1]) == len(tfused.PHASES[protocol])
+    for phase in phases[:-1]:
+        assert src.count(f"clk.mark({phase});") == 1
+    assert "PhaseClock<kPhases> clk;" in src
+    assert f"constexpr int kMaxPhases = {tfused.PHASE_SLOTS};" in COMMON
+    assert all(len(p) <= tfused.PHASE_SLOTS for p in tfused.PHASES.values())
+
+
+def test_launch_dims_carry_the_geometry():
+    for protocol in FR:
+        binding = tfused.BINDINGS[protocol]
+        for shape, staging in tfused.FR_STAGING[protocol].items():
+            assert tfused._launch_dims(binding, shape) == shape + (staging.smem_bytes,)
+
+
+def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
+    """The occupancy query builds and asks the kernel's own library: without
+    nvcc it raises, with no estimate to fall back on; the phase clocks
+    count on the card only."""
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    for protocol in FR:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tfused.blocks_per_sm(protocol, (2, 5, 8))
+        cfg = chip_smoke.main_config(protocol, 64, 1)
+        state = trun.init_state(cfg, "cpu")
+        with pytest.raises(ValueError, match="CUDA state"):
+            tfused.phase_clocks(protocol, state, 1, trun.init_plan(cfg, "cpu"), cfg.fault, 8)
