@@ -9,11 +9,11 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 
 1. build: the six kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
-   together, and the phase-clock builds of K2, K3 and K4; each kernel's
+   together, and the phase-clock builds of K1 to K4; each kernel's
    ``ptxas -v`` registers and spills, and the launch geometry per
-   instantiation of the kernels that stage a column per lane in shared
-   memory (K2 to K5: lanes a CUDA block, staged rows, shared bytes,
-   blocks an SM holds);
+   instantiation of the kernels, each of which stages a column per lane
+   in shared memory (K1 to K5: lanes a CUDA block, staged rows, shared
+   bytes, blocks an SM holds);
 2. ceiling: the int32 probe (K6) against its plain version byte for byte,
    then the card's int32 operation rate from two iteration counts, printed
    beside the published peak that the bounds divide by;
@@ -24,21 +24,22 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    (``MP_GOLDEN``, ``SP_GOLDEN``);
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
-   with a block offset, Multi-Paxos long logs compacted between chunks,
+   with a block offset, config4's equivocators with and without crash
+   windows, Multi-Paxos long logs compacted between chunks,
    SynchPaxos with and without delay stamps, with delta violated, and
-   with duplicates, uneven quorums and a ballot stride, Fast Paxos and
-   Raft-core with duplicates and a ballot stride (Fast Paxos also with
-   uneven quorums), and at full width
+   with duplicates, uneven quorums and a ballot stride, Paxos, Fast Paxos
+   and Raft-core with duplicates and a ballot stride (Paxos and Fast Paxos
+   also with uneven quorums), and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
    draws of the timed ticks counted by each kernel's measuring build for
    its operation floor (``DRAW_OPS``; no kernel may beat its bound), and
    its slot-array (delay-stamp) touches for the census estimate; timed so
    in the steady state and on the first chunk, where the lanes still
-   send (for K4 in the delta-violating regime too), K2, K3 and K4 with
-   the split of a lane's cycles by phase of the tick from their
-   phase-clock builds; the column load and store alone (a launch of 0
-   ticks) of K2, K3, K4, and K5 on config3 and config3-long;
+   send (for K4 in the delta-violating regime too), K1 to K4 with the
+   split of a lane's cycles by phase of the tick from their phase-clock
+   builds; the column load and store alone (a launch of 0 ticks) of K1 to
+   K4, and K5 on config3 and config3-long;
 5. main paths: the flagship campaign (config2), the config5 sweep's Fast
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
@@ -375,11 +376,11 @@ def phase_build() -> dict:
 
 
 def phase_geometry() -> dict:
-    """The launch geometry of the kernels that stage a column per lane in
-    shared memory (K5, K4, K2, K3) at every instantiation: lanes a CUDA
-    block, staged rows a lane, shared bytes a block, and the blocks one SM
-    holds (the card's occupancy query); K2 to K4 must hold the blocks their
-    registers are capped for."""
+    """The launch geometry of the kernels, each of which stages a column
+    per lane in shared memory (K5, K4, K1, K2, K3), at every
+    instantiation: lanes a CUDA block, staged rows a lane, shared bytes a
+    block, and the blocks one SM holds (the card's occupancy query); K1 to
+    K4 must hold the blocks their registers are capped for."""
     from paxos_tpu_torch.kernels.fused_tick import (
         FR_STAGING,
         MP_STAGING,
@@ -594,12 +595,14 @@ def compare(
     chunks alone.  With ``reps``, also the kernel's steady-state time over ``reps``
     further chunks (``from_init``: the compared chunk again, ``reps``
     times from copies of the initial state, where the lanes still send)
-    and their bound: the larger of the bytes and the draws those chunks
-    make at ``DRAW_OPS`` each over the published peak (over the measured
+    and their bound: the larger of the bytes those chunks need (but for a
+    lane K1 settles, :func:`settled_lanes`, each lane's state read and
+    written once) and the draws they make at ``DRAW_OPS`` each over the
+    published peak (over the measured
     ``ceiling`` beside it), which the timed chunks must not beat; the
     operations of census ``census``, with the draws and slot-array
     (delay-stamp) touches counted, beside it; for a kernel with a
-    phase-clock build (K2, K3, K4), where a lane's cycles go over those
+    phase-clock build (K1 to K4), where a lane's cycles go over those
     chunks (:func:`phase_split`)."""
     from paxos_tpu_torch.core.state import state_bytes_per_lane
     from paxos_tpu_torch.harness.run import init_plan, init_state
@@ -634,7 +637,7 @@ def compare(
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
     out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
     if reps:
-        # Where a lane's cycles go over the timed chunks (K2 to K4): the
+        # Where a lane's cycles go over the timed chunks (K1 to K4): the
         # phase-clock build from a copy of their first state, launch for
         # launch, which must end where they end.
         if cfg.protocol in PHASES:
@@ -693,7 +696,14 @@ def compare(
         if plan.link_delay is not None:  # K4 reads the latency caps
             read += ["link_delay"]
         plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
-        n_bytes = 2 * state_bytes_per_lane(init) * cfg.n_inst + plan_bytes
+        # Each lane's state read and written once, its plan read once; but a
+        # lane K1 settles at the timed chunks' entry (counted on their last
+        # state, where the most are) needs only settled_lane_bytes read.
+        settled = 0
+        if cfg.protocol == "paxos":
+            settled = int(settled_lanes(start if from_init else kern).sum())
+        lane_bytes = 2 * state_bytes_per_lane(init) + plan_bytes / cfg.n_inst
+        n_bytes = (cfg.n_inst - settled) * lane_bytes + settled * settled_lane_bytes(init)
         lane_ticks = cfg.n_inst * timed_ticks
         draws_per_lane_tick, touches_per_lane_tick = draws / lane_ticks, touches / lane_ticks
         ops_per_lane_tick = draws_per_lane_tick * DRAW_OPS
@@ -712,13 +722,14 @@ def compare(
             ops_per_lane_tick_census=tick_ops_per_lane(census),
             draws_per_lane_tick=draws_per_lane_tick,
             slot_touches_per_lane_tick=touches_per_lane_tick,
-            state_bytes_per_lane=state_bytes_per_lane(init),
+            state_bytes_per_lane=state_bytes_per_lane(init), settled_lanes=settled,
         )
         log(
             f"{name}: kernel {out['ms']:.3f} ms/chunk (first {kern_ms:.3f}), plain "
             f"{plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}; bytes "
-            f"{bytes_ms:.3f} ms, draw ops {ops_ms:.3f} ms at the published peak, "
-            f"{measured_ops_ms:.3f} ms at the measured rate); {draws_per_lane_tick:.3f} draws "
+            f"{bytes_ms:.3f} ms with {settled} lanes settled, draw ops {ops_ms:.3f} ms at "
+            f"the published peak, {measured_ops_ms:.3f} ms at the measured rate); "
+            f"{draws_per_lane_tick:.3f} draws "
             f"per lane-tick of {MASK_CENSUS[census][1]:g} mask elements, "
             f"{touches_per_lane_tick:.3f} slot-array (K4: delay-stamp) touches per lane-tick; "
             f"census {out['census_ms']:.3f} ms at the published peak, no floor "
@@ -729,6 +740,28 @@ def compare(
         if out["ms"] < out["bound_ms"]:
             raise AssertionError(f"{name}: {out['ms']:.3f} ms beats its bound, which is no floor")
     return out
+
+
+def settled_lanes(state) -> torch.Tensor:
+    """(I,) bool: the Paxos lanes that K1 settles at a chunk's entry, every
+    proposer done (with ``best_bal`` >= 0) and no message in flight.  A
+    settled lane stays so, and a chunk changes none of its state but the
+    learner's scalars; K1 loads no column word for it."""
+    prop = state.proposer
+    return (
+        ((prop.phase == 2) & (prop.best_bal >= 0)).all(0)
+        & ~state.requests.present.flatten(0, 2).any(0)
+        & ~state.replies.present.flatten(0, 2).any(0)
+    )
+
+
+def settled_lane_bytes(state) -> int:
+    """The bytes a chunk must read of a settled Paxos lane, and it need
+    write none: the words that say it is settled (phases, best ballots,
+    presence), those its invariant check reads (the acceptor leaves and the
+    equivocation bits), and whether its learner has chosen."""
+    p, a = state.n_prop, state.n_acc
+    return 4 * 2 * p + 2 * (2 * p * a) + 4 * 3 * a + a + 1
 
 
 def phase_split(name, cfg, state, plan, n_ticks, launches, block) -> dict:
@@ -763,6 +796,10 @@ def phase_compare(ceiling: float) -> dict:
     compare("paxos config1 (1,3,8)", cfg1, init_plan(cfg1, "cuda"), 64)
     cfg4 = C.config4_byzantine(4096, 5)
     compare("paxos config4 (2,5,8)", cfg4, fault_plan(4096, 5, 2, 0.25, 4), 300)
+    compare(
+        "paxos config4 (2,5,8) with crashes", cfg4,
+        fault_plan(4096, 5, 2, 0.25, 4, p_crash=0.3), 300,
+    )
     for protocol in ("fastpaxos", "raftcore"):
         small = dataclasses.replace(main_config(protocol, 4096, 11), n_acc=3)
         compare(
@@ -786,7 +823,7 @@ def phase_compare(ceiling: float) -> dict:
     # quorums, and a ballot stride with a longer backoff.
     for name, cfgk in sp_knob_configs(4096, 10).items():
         compare(f"synchpaxos (2,5,8) stamped, {name}", cfgk, config_plan(cfgk, 10), 200)
-    for protocol in ("fastpaxos", "raftcore"):
+    for protocol in ("paxos", "fastpaxos", "raftcore"):
         for name, cfgk in fr_knob_configs(protocol, 4096, 10).items():
             compare(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
@@ -830,7 +867,7 @@ def phase_compare(ceiling: float) -> dict:
                 f"{path} full width, first chunk", cfg, main_plan(cfg), 64, reps=5,
                 ceiling=ceiling, census=mp.census, from_init=True,
             )
-    for path in ("fastpaxos", "raftcore", "config3", "config3long", "synchpaxos"):
+    for path in ("paxos", "fastpaxos", "raftcore", "config3", "config3long", "synchpaxos"):
         full[path]["load_store_ms"] = time_load_store(path)
     # K4's busiest chunk: the first of the delta-violating regime, where the
     # fast path misses its window and lanes fall back to classic rounds.
@@ -845,8 +882,9 @@ def phase_compare(ceiling: float) -> dict:
 def time_load_store(path: str, reps: int = 5) -> float:
     """A kernel's column load and store alone, ms: a launch of 0 ticks on
     main path ``path``'s config at full width from the state after one
-    chunk reads and writes every lane's state once (K2 to K4: what they
-    store) and runs no tick, so the state must come back byte for byte.  The
+    chunk reads and writes every lane's state once (K1 to K4: what they
+    store; K1 no column of a lane it settles) and runs no tick, so the
+    state must come back byte for byte.  The
     launches go around the wrapper and so are not counted."""
     from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, _launch
@@ -1057,16 +1095,22 @@ def sp_knob_configs(n_inst: int, seed: int) -> dict:
 
 
 def fr_knob_configs(protocol: str, n_inst: int, seed: int) -> dict:
-    """config5's Fast Paxos or Raft-core cell with each knob its main path
-    leaves at its default: p_dup 0.2, ballot_stride 3 with backoff_max 3,
-    and for Fast Paxos q1/q2/q_fast = 4/2/4 (a safe triple of
+    """config2's Paxos cell or config5's Fast Paxos or Raft-core cell with
+    each knob its main path leaves at its default: p_dup 0.2, ballot_stride
+    3 with backoff_max 3 (Paxos also with timeout 5), for Paxos q1/q2 =
+    2/4 and 4/2, and for Fast Paxos q1/q2/q_fast = 4/2/4 (a safe triple of
     ``config_ffp``); Raft-core's quorums are majorities, so it takes no
     q1/q2."""
     cfg = main_config(protocol, n_inst, seed)
-    knobs = {
-        "p_dup 0.2": dict(p_dup=0.2),
-        "ballot_stride 3, backoff_max 3": dict(ballot_stride=3, backoff_max=3),
-    }
+    knobs = {"p_dup 0.2": dict(p_dup=0.2)}
+    if protocol == "paxos":
+        knobs["ballot_stride 3, backoff_max 3, timeout 5"] = dict(
+            ballot_stride=3, backoff_max=3, timeout=5
+        )
+        knobs["q1/q2 2/4"] = dict(q1=2, q2=4)
+        knobs["q1/q2 4/2"] = dict(q1=4, q2=2)
+    else:
+        knobs["ballot_stride 3, backoff_max 3"] = dict(ballot_stride=3, backoff_max=3)
     if protocol == "fastpaxos":
         knobs["q1/q2/q_fast 4/2/4"] = dict(q1=4, q2=2, q_fast=4)
     return {

@@ -21,7 +21,7 @@ import dataclasses
 import torch
 
 from paxos_tpu_torch.core.messages import MsgBuf
-from paxos_tpu_torch.core.state import LaneState, check_topology
+from paxos_tpu_torch.core.state import LaneState, check_leaves, check_topology, init_layout
 
 # Proposer phases
 FOLLOW = 0  # passive: watching progress, lease ticking
@@ -228,16 +228,12 @@ class MultiPaxosState(LaneState):
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
         for this state's (n_inst, n_prop, n_acc, log_len, k_slots)."""
-        want = type(self).init(
-            self.n_inst, self.n_prop, self.n_acc, self.log_len, self.k_slots,
-            device="meta",
+        check_leaves(
+            self.leaves(),
+            init_layout(
+                type(self), self.n_inst, self.n_prop, self.n_acc, self.log_len, self.k_slots
+            ),
         )
-        for i, (leaf, ref) in enumerate(zip(self.leaves(), want.leaves(), strict=True)):
-            if leaf.shape != ref.shape or leaf.dtype != ref.dtype:
-                raise ValueError(
-                    f"state leaf {i}: {tuple(leaf.shape)} {leaf.dtype}, "
-                    f"expected {tuple(ref.shape)} {ref.dtype}"
-                )
 
     @property
     def log_len(self) -> int:

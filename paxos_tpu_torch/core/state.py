@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 
 import torch
 
@@ -134,6 +135,27 @@ def check_topology(n_prop: int, n_acc: int) -> None:
         )
 
 
+@functools.lru_cache(maxsize=64)
+def init_layout(cls, *args, **kw) -> tuple:
+    """(shape, dtype) of every leaf ``cls.init(*args, **kw)`` gives, built
+    once per argument list on the meta device, so that checking a state
+    against it (a fused kernel's wrapper does before every launch) runs no
+    tensor op."""
+    return tuple((x.shape, x.dtype) for x in cls.init(*args, device="meta", **kw).leaves())
+
+
+def check_leaves(leaves: list, want: tuple) -> None:
+    """Raise unless ``leaves`` match the (shape, dtype) list ``want``."""
+    if len(leaves) != len(want):
+        raise ValueError(f"state has {len(leaves)} leaves, expected {len(want)}")
+    for i, (leaf, (shape, dtype)) in enumerate(zip(leaves, want)):
+        if leaf.shape != shape or leaf.dtype != dtype:
+            raise ValueError(
+                f"state leaf {i}: {tuple(leaf.shape)} {leaf.dtype}, "
+                f"expected {tuple(shape)} {dtype}"
+            )
+
+
 class LaneState:
     """What every protocol's full state shares: the five sub-states
     ``acceptor``, ``proposer``, ``learner``, ``requests``, ``replies`` and
@@ -169,19 +191,10 @@ class LaneState:
             raise ValueError(
                 f"a {type(self).__name__} carries no delay stamps (MsgBuf.until)"
             )
-        want = type(self).init(
-            self.n_inst, self.n_prop, self.n_acc, self.k_slots, device="meta", **stamped
+        check_leaves(
+            self.leaves(),
+            init_layout(type(self), self.n_inst, self.n_prop, self.n_acc, self.k_slots, **stamped),
         )
-        if len(self.leaves()) != len(want.leaves()):
-            raise ValueError(
-                f"state has {len(self.leaves())} leaves, expected {len(want.leaves())}"
-            )
-        for i, (leaf, ref) in enumerate(zip(self.leaves(), want.leaves())):
-            if leaf.shape != ref.shape or leaf.dtype != ref.dtype:
-                raise ValueError(
-                    f"state leaf {i}: {tuple(leaf.shape)} {leaf.dtype}, "
-                    f"expected {tuple(ref.shape)} {ref.dtype}"
-                )
 
     def clone(self):
         """A deep copy on the same device (the fused kernels update the

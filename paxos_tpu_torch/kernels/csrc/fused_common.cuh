@@ -1,19 +1,17 @@
 // Shared pieces of the fused engine's kernels (fused_<protocol>_tick.cu):
 // the counter PRNG, the Bernoulli knobs, the state-leaf, plan and parameter
-// layouts of the C entry points, request selection, and the per-lane
-// building blocks that the single-decree ticks have in common (the message
-// buffers with reply delivery, and the learner table), the shared-memory
-// column and launch of the kernels that keep one per lane, the rolled
-// selection, fenced row copy and message column of the single-decree
-// kernels that do (namespace sd), and the phase clocks.
+// layouts of the C entry points, the learner table that the single-decree
+// ticks have in common, the shared-memory column and launch of the kernels
+// that keep one per lane, the rolled selection, fenced row copy, message
+// column and column learner of the single-decree kernels (namespace sd),
+// and the phase clocks.
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
 // scalars in registers for a whole chunk (the Multi-Paxos kernel keeps its
-// slot-indexed arrays in shared memory beside them, the Fast Paxos,
-// Raft-core and SynchPaxos kernels their message payloads and learner
-// table): every helper here is force-inlined and every loop over a
-// register array has compile-time bounds, so those arrays stay in
-// registers.
+// slot-indexed arrays in shared memory beside them, the single-decree
+// kernels their message payloads and learner table): every helper here is
+// force-inlined and every loop over a register array has compile-time
+// bounds, so those arrays stay in registers.
 //
 // A measuring build (nvcc -DFUSED_COUNT_DRAWS) also counts every counter-
 // PRNG draw a kernel makes, summed over lanes and ticks: the masks are drawn
@@ -44,7 +42,6 @@ constexpr int kStampedLeaves = 30;  // the same with the two buffers' delay stam
 constexpr int kMaxLeaves = 32;     // room for every protocol's leaves
 constexpr int kParams = 27;
 constexpr int32_t kInt32Max = 2147483647;
-constexpr int kThreads = 128;
 constexpr int32_t kInt32Min = -2147483647 - 1;
 constexpr int32_t kBallotLimit = (1 << 15) - 1;  // report-time ballot limit
 constexpr int kMaxProposers = 8;                 // core/ballot.py
@@ -201,129 +198,13 @@ struct TickStream {
   }
 };
 
-// Request selection for acceptor a over a (2, P, A) request buffer whose
-// presence is the bitmask `present` (slot j = kp * A + a, kp = kind * P + p):
-// the present slot with the highest score (random bits, low bits replaced
-// by kp), or -1.  Draws one SEL element per present slot.
-template <int P, int A>
-__device__ __forceinline__ int select_request(const TickStream& ts, uint32_t present, int a) {
-  constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;
-  constexpr int32_t kScoreMask = ~((1 << kNbits) - 1);
-  int32_t fmax = kInt32Min;
-  int win = -1;
-#pragma unroll
-  for (int kp = 0; kp < 2 * P; ++kp) {
-    const int j = kp * A + a;
-    if ((present >> j) & 1u) {
-      const int32_t score = (static_cast<int32_t>(ts.bits(kSel, j)) & kScoreMask) | kp;
-      if (score > fmax) {
-        fmax = score;
-        win = kp;
-      }
-    }
-  }
-  return win;
-}
-
-// The two message buffers of a lane, slot j = (kind * P + p) * A + a, with
-// presence as bitmasks.
-template <int S>
-struct MsgBufs {
-  static_assert(S <= 32, "slot presence must fit one 32-bit mask");
-  int32_t rq_bal[S], rq_v1[S], rq_v2[S], rp_bal[S], rp_v1[S], rp_v2[S];
-  uint32_t rq_present, rp_present;
-
-  __device__ __forceinline__ void load_from(const Leaves& L, int64_t n, int64_t i) {
-    rq_present = rp_present = 0;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      rq_bal[j] = load<int32_t>(L, kRqBal, j, n, i);
-      rq_v1[j] = load<int32_t>(L, kRqV1, j, n, i);
-      rq_v2[j] = load<int32_t>(L, kRqV2, j, n, i);
-      rq_present |= (load<uint8_t>(L, kRqPresent, j, n, i) != 0 ? 1u : 0u) << j;
-      rp_bal[j] = load<int32_t>(L, kRpBal, j, n, i);
-      rp_v1[j] = load<int32_t>(L, kRpV1, j, n, i);
-      rp_v2[j] = load<int32_t>(L, kRpV2, j, n, i);
-      rp_present |= (load<uint8_t>(L, kRpPresent, j, n, i) != 0 ? 1u : 0u) << j;
-    }
-  }
-
-  __device__ __forceinline__ void store_to(const Leaves& L, int64_t n, int64_t i) const {
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      store<int32_t>(L, kRqBal, j, n, i, rq_bal[j]);
-      store<int32_t>(L, kRqV1, j, n, i, rq_v1[j]);
-      store<int32_t>(L, kRqV2, j, n, i, rq_v2[j]);
-      store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
-      store<int32_t>(L, kRpBal, j, n, i, rp_bal[j]);
-      store<int32_t>(L, kRpV1, j, n, i, rp_v1[j]);
-      store<int32_t>(L, kRpV2, j, n, i, rp_v2[j]);
-      store<uint8_t>(L, kRpPresent, j, n, i, ((rp_present >> j) & 1u) ? 1 : 0);
-    }
-  }
-
-  // Reply delivery: the replies that have arrived (`ready`, the delay
-  // gate) and are not held this tick.  Returns them; the caller's `rp_next`
-  // becomes the presence after consuming them (duplicated replies stay).
-  __device__ __forceinline__ uint32_t deliver(const Params& prm, const TickStream& ts,
-                                              uint32_t* rp_next, uint32_t ready = ~0u) const {
-    uint32_t delivered = rp_present & ready;
-    if (prm.hold.mode != 0) {
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        if (((delivered >> j) & 1u) && ts.fires_at(prm.hold, kDeliver, j)) delivered &= ~(1u << j);
-    }
-    uint32_t taken = delivered;
-    if (prm.dup.mode != 0) {
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        if (((taken >> j) & 1u) && ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
-    }
-    *rp_next = rp_present & ~taken;
-    return delivered;
-  }
-
-  // Request selection for acceptor a (select_request).
-  template <int P, int A>
-  __device__ __forceinline__ int select(const TickStream& ts, int a) const {
-    return select_request<P, A>(ts, rq_present, a);
-  }
-};
-
-// The learner's bounded (ballot, value) -> voter-mask table of one lane.
+// The learner's bounded (ballot, value) -> voter-mask table of one lane,
+// in registers for the fold of a tick (sd::ColumnLearner).
 template <int K>
 struct Learner {
   int32_t bal[K], val[K], mask[K];
   bool chosen;
   int32_t chosen_val, chosen_tick, violations, evictions;
-
-  __device__ __forceinline__ void load_from(const Leaves& L, int64_t n, int64_t i) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      bal[k] = load<int32_t>(L, kLtBal, k, n, i);
-      val[k] = load<int32_t>(L, kLtVal, k, n, i);
-      mask[k] = load<int32_t>(L, kLtMask, k, n, i);
-    }
-    chosen = load<uint8_t>(L, kChosen, 0, n, i) != 0;
-    chosen_val = load<int32_t>(L, kChosenVal, 0, n, i);
-    chosen_tick = load<int32_t>(L, kChosenTick, 0, n, i);
-    violations = load<int32_t>(L, kViolations, 0, n, i);
-    evictions = load<int32_t>(L, kEvictions, 0, n, i);
-  }
-
-  __device__ __forceinline__ void store_to(const Leaves& L, int64_t n, int64_t i) const {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      store<int32_t>(L, kLtBal, k, n, i, bal[k]);
-      store<int32_t>(L, kLtVal, k, n, i, val[k]);
-      store<int32_t>(L, kLtMask, k, n, i, mask[k]);
-    }
-    store<uint8_t>(L, kChosen, 0, n, i, chosen ? 1 : 0);
-    store<int32_t>(L, kChosenVal, 0, n, i, chosen_val);
-    store<int32_t>(L, kChosenTick, 0, n, i, chosen_tick);
-    store<int32_t>(L, kViolations, 0, n, i, violations);
-    store<int32_t>(L, kEvictions, 0, n, i, evictions);
-  }
 
   // learner_observe: fold this tick's accept events (acceptor a accepted
   // (ev_bal[a], ev_val[a]) where bit a of ev_flag is set) in acceptor
@@ -454,12 +335,11 @@ void move_stamps_last(Leaves* L) {
 }
 
 // Grid size for one thread per lane, `threads` lanes a block.
-inline unsigned grid_for(int64_t n_inst, int threads = kThreads) {
+inline unsigned grid_for(int64_t n_inst, int threads) {
   return static_cast<unsigned>((n_inst + threads - 1) / threads);
 }
 
-// The kernels that keep a column per lane in shared memory (Multi-Paxos,
-// SynchPaxos, Fast Paxos, Raft-core).
+// The kernels that keep a column per lane in shared memory (all five).
 
 constexpr int kMaxDevices = 64;  // devices whose shared-memory limit is cached
 
@@ -524,7 +404,7 @@ struct SmemInst {
 };
 
 // The phase-clock measuring build (nvcc -DFUSED_PHASE_CLOCKS) of a kernel
-// whose tick has N phases (K2, K3, K4): a lane sums the clock64() cycles
+// whose tick has N phases (K1 to K4): a lane sums the clock64() cycles
 // between consecutive phase boundaries (its own cycles, which include the
 // time other warps hold the SM) and adds them to g_phase at the end; empty
 // in every other build.
@@ -566,14 +446,17 @@ struct PhaseClock {
 #endif
 };
 
-// The rolled and fenced building blocks of the single-decree kernels that
-// keep a column per lane (K2, K3, K4); K5 keeps its own copies
+// The rolled and fenced building blocks of the single-decree kernels, each
+// of which keeps a column per lane (K1 to K4); K5 keeps its own copies
 // (fused_multipaxos_tick.cu).
 namespace sd {
 
-// select_request for acceptor a, drawing over its present request slots
-// only: the scores are distinct (kp in the low bits), so the order of the
-// draws does not change the winner.
+// Request selection for acceptor a over a (2, P, A) request buffer whose
+// presence is the bitmask `present` (slot j = kp * A + a, kp = kind * P +
+// p), as the plain select_from_scores: the present slot with the highest
+// score (random bits, low bits replaced by kp), or -1.  It draws one SEL
+// element per present slot only: the scores are distinct (kp in the low
+// bits), so the order of the draws does not change the winner.
 template <int P, int A>
 __device__ __forceinline__ int select_present(const TickStream& ts, uint32_t present, int a) {
   constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;
@@ -616,9 +499,9 @@ __device__ __forceinline__ void store_rows(const Column<B>& col, const Leaves& L
   for (int r = 0; r < ROWS; ++r) g[(FROM + r) * n] = col[OFF + r];
 }
 
-// A Fast Paxos or Raft-core lane's staged rows, in column order (mirrored
-// by fused_tick.FR_STAGED_LEAVES).  Slot j = (kind * P + p) * A + a of a
-// buffer, E = P * A slots a kind.  A request's v1 is staged for every slot
+// A Paxos, Fast Paxos or Raft-core lane's staged rows, in column order
+// (mirrored by fused_tick.FR_STAGED_LEAVES).  Slot j = (kind * P + p) * A +
+// a of a buffer, E = P * A slots a kind.  A request's v1 is staged for every slot
 // where RV_V1 (Raft-core: a REQVOTE carries the candidate's entry term),
 // else for the kind-1 slots only; a reply's v2 for the kind-0 slots only
 // (row j).  The words the tick only ever writes as 0 get no row
@@ -715,6 +598,14 @@ struct ColumnLearner {
     store<int32_t>(L, kEvictions, 0, n, i, evictions);
   }
 
+  // A tick without an accept event: the table stays as it is, and the
+  // fold's other writes reduce to the scalars'.
+  __device__ __forceinline__ void quiet(int extra_viol) {
+    chosen_val = chosen ? chosen_val : 0;
+    chosen_tick = chosen ? chosen_tick : -1;
+    violations = wrap_add(violations, extra_viol);
+  }
+
   // Learner::observe on the table in the column.  An event folds where it
   // carries a ballot; a tick without one leaves the table as it is, and
   // the fold's other writes reduce to the scalars'.  A tick with one copies
@@ -727,9 +618,7 @@ struct ColumnLearner {
 #pragma unroll
     for (int a = 0; a < A; ++a) folds |= (((ev_flag >> a) & 1u) && ev_bal[a] > 0 ? 1u : 0u) << a;
     if (folds == 0) {
-      chosen_val = chosen ? chosen_val : 0;
-      chosen_tick = chosen ? chosen_tick : -1;
-      violations = wrap_add(violations, extra_viol);
+      quiet(extra_viol);
       return false;
     }
     Learner<K> lrn;

@@ -164,9 +164,10 @@ __device__ __forceinline__ uint32_t firing(const TickStream& ts, const Knob& k, 
   return out;
 }
 
-// select_request for acceptor a, drawing over its present request slots
-// only: the scores are distinct (kp in the low bits), so the order of the
-// draws does not change the winner.
+// Request selection for acceptor a (the plain select_from_scores),
+// drawing over its present request slots only: the scores are distinct
+// (kp in the low bits), so the order of the draws does not change the
+// winner.
 template <int P, int A>
 __device__ __forceinline__ int select_present(const TickStream& ts, uint32_t present, int a) {
   constexpr int kNbits = bit_length(2 * P - 1) > 1 ? bit_length(2 * P - 1) : 1;

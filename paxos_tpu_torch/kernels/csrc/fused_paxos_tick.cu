@@ -5,26 +5,52 @@
 // tick (packed_fns("paxos")), the Pallas kernel that keeps a block of
 // instances' state resident in VMEM for a whole chunk.
 //
-// Design: one thread per instance (lane).  Every reduction of a tick stays
-// inside one lane (the reference's lane-independence theorem,
-// analysis/flow.py), so a thread loads its lane's state once into
-// registers, runs all n_ticks ticks, and stores once.  Every array is
-// instance-minor, so the loads and stores of a warp are coalesced.  The
-// state is updated in place: the counterpart of the reference's buffer
-// donation (the caller's input state is consumed).
+// Bound on this card: ~765 B/lane of state moved once each way per chunk
+// (a settled lane, below, needs 122 B read at (2,5,8)), against a few
+// thousand int32 operations per lane-tick; but a lane's tick
+// is one long chain of dependent integer operations and branches, so the
+// time falls with the warps an SM holds and with the code on the chain,
+// and both bounds are far below it.
 //
-// Bound on this card: per chunk the kernel must move each state byte twice
-// (~765 B/lane unpacked, about 0.5 ms per 1<<20 lanes at 3.35 TB/s) but it
-// executes a few thousand int32 operations per lane-tick, so at 64 ticks
-// per chunk it is bound by integer operations, not bytes.  This first
-// version keeps the state unpacked (~190 live 32-bit values per thread),
-// which spills; packing the state into the reference's 32-bit words and
-// tuning occupancy are later work.
+// Design: K2's (fused_fastpaxos_tick.cu), whose message layout Paxos
+// shares.  One thread per instance (lane), the state split by access
+// pattern so that a thread's registers allow 16 warps an SM, each part
+// where it stays for the whole chunk:
+//  - registers: the role scalars, the crash windows and equivocation bits,
+//    the learner's scalars, the presence bitmasks of both buffers, and a
+//    bitmask per buffer of the slots the chunk wrote;
+//  - shared memory, a column per lane (word r at smem[r * B + t], B the
+//    block's lane count; sd::SdStaged in fused_common.cuh): the message
+//    payloads a tick reads and the learner's (ballot, value, voters) table.
+//    A dynamic index (the selected request, a reply's slot) is one shared
+//    load or store, where in registers it was a chain of selects;
+//  - no row at all: the payload words the tick only ever writes as 0 (a
+//    PREPARE's v1, every request's v2, an ACCEPTED's v2;
+//    protocols/paxos.py).
+// The column is loaded once at the start of the chunk from
+// [row * n_inst + lane].  At the end the kernel stores only the slots the
+// chunk wrote (their staged words, 0 to their zero-only words), the
+// learner table if an accept event reached it, and every presence byte:
+// the state comes back byte for byte, stale payloads of consumed slots
+// included.  A thread touches only its own column, so the kernel needs no
+// barrier, and lanes past n_inst return at once.
+//
+// The code on the chain is short: the sites that draw are rolled loops over
+// set bits (delivery's hold and dup draws over the delivered slots, the
+// selection over an acceptor's present slots, sd::select_present, the
+// sends over the acceptors only for a proposer that sends), the fold
+// visits a proposer's delivered slots only, and an acceptor with nothing
+// to select (crashed this tick, or no request present) is skipped before
+// its idle mask is drawn.  Every draw is keyed by its position, so the
+// order of the draws changes nothing, and a mask is drawn only where the
+// outcome depends on it.  A settled lane (every proposer done, nothing in
+// flight), whose ticks change nothing but the learner's scalars, gets the
+// rest of the chunk at once, and a lane settled at entry no column load:
+// a decided campaign's chunk costs little more than its scalars' loads
+// and stores.
 //
 // Semantics follow the plain PyTorch version (protocols/paxos.py) exactly;
 // the PRNG, stream positions and argument layout are in fused_common.cuh.
-//  - masks that a tick only ANDs in are drawn lazily, where they can change
-//    the outcome; the result is the same as drawing them all.
 //  - reply delivery and consume precede the acceptor's new replies;
 //    proposers fold the pre-tick reply payloads; requests are consumed
 //    before the proposers send; ACCEPT carries the old ballot, PREPARE the
@@ -37,6 +63,17 @@ namespace {
 // Proposer phases (core/state.py).
 constexpr int32_t kP1 = 0, kP2 = 1, kDone = 2;
 
+using sd::ColumnLearner;
+using sd::select_present;
+using sd::SdStaged;
+
+// The tick's phases in order, as the phase-clock build splits a lane's
+// cycles (fused_tick.PHASES["paxos"]).
+enum Phase {
+  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
+  kPhases,
+};
+
 // The role leaves in the reference's flatten order; the learner and the
 // message buffers follow (SharedLeaf).
 enum Leaf {
@@ -45,18 +82,63 @@ enum Leaf {
   kDecidedVal,
 };
 
-template <int P, int A, int K>
-__global__ void __launch_bounds__(kThreads)
+// An acceptor's state breaks an acceptor-local invariant on its own: its
+// accepted ballot above its promise, or a nil ballot with a value.
+__device__ __forceinline__ bool breaks_alone(int32_t pr, int32_t ab, int32_t av) {
+  return ab > pr || (ab == 0 && av != 0);
+}
+
+template <int P, int A, int K, int B, int MIN_BLOCKS>
+__global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
-  constexpr int S = 2 * P * A;  // message slots per buffer, index (kind*P + p)*A + a
+  static_assert(B % 32 == 0, "a block is whole warps");
+  using G = SdStaged<P, A, K, false>;
+  constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
+  static_assert(S <= 32, "slot presence must fit one 32-bit mask");
+  constexpr uint32_t kAccs = (1u << A) - 1;
+  extern __shared__ int32_t smem[];  // G::kRows * B words
 
   const int64_t n = prm.n_inst;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
+  PhaseClock<kPhases> clk;
 
-  // ---- Load the lane's state once. ----
+  // ---- Load the lane's register-resident state once: first what says
+  //      whether the lane is settled (below), whose column no tick reads,
+  //      so that it is not loaded. ----
+  int32_t bal[P], phase[P], own_val[P], prop_val[P], heard[P], best_bal[P], best_val[P],
+      timer[P], decided_val[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    phase[p] = load<int32_t>(L, kPhase, p, n, i);
+    best_bal[p] = load<int32_t>(L, kBestBal, p, n, i);
+  }
+  uint32_t rq_present = 0, rp_present = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    rq_present |= (load<uint8_t>(L, kRqPresent, j, n, i) != 0 ? 1u : 0u) << j;
+    rp_present |= (load<uint8_t>(L, kRpPresent, j, n, i) != 0 ? 1u : 0u) << j;
+  }
+  // A settled lane: every proposer done (with best_bal >= 0, as in every
+  // state the ticks reach) and no message in flight.  Each of its ticks
+  // draws nothing, reads no column word and changes nothing but the
+  // learner's scalars (ColumnLearner::quiet, with the invariant breaks of
+  // the unchanged acceptors) and, under the per-tick clamp, the ballots.
+  const auto settled = [&] {
+    bool s = rq_present == 0 && rp_present == 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) s = s && phase[p] == kDone && best_bal[p] >= 0;
+    return s;
+  };
+  const Column<B> col{smem + threadIdx.x};
+  if (!settled()) sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>>(col, L, n, i);
+
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
   uint32_t equiv = 0;
+  // The honest acceptors whose state, left as it is, breaks an invariant:
+  // the plain tick counts each of them every tick it does not change it
+  // (none, from any state the ticks reach).
+  uint32_t bad_alone = 0;
 #pragma unroll
   for (int a = 0; a < A; ++a) {
     promised[a] = load<int32_t>(L, kPromised, a, n, i);
@@ -64,68 +146,137 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     acc_val[a] = load<int32_t>(L, kAccVal, a, n, i);
     crash_start[a] = plan.crash_start[a * n + i];
     crash_end[a] = plan.crash_end[a * n + i];
-    equiv |= (plan.equivocate[a * n + i] != 0 ? 1u : 0u) << a;
+    const bool eq = plan.equivocate[a * n + i] != 0;
+    equiv |= (eq ? 1u : 0u) << a;
+    bad_alone |= (!eq && breaks_alone(promised[a], acc_bal[a], acc_val[a]) ? 1u : 0u) << a;
   }
-  int32_t bal[P], phase[P], own_val[P], prop_val[P], heard[P], best_bal[P],
-      best_val[P], timer[P], decided_val[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     bal[p] = load<int32_t>(L, kBal, p, n, i);
-    phase[p] = load<int32_t>(L, kPhase, p, n, i);
     own_val[p] = load<int32_t>(L, kOwnVal, p, n, i);
     prop_val[p] = load<int32_t>(L, kPropVal, p, n, i);
     heard[p] = load<int32_t>(L, kHeard, p, n, i);
-    best_bal[p] = load<int32_t>(L, kBestBal, p, n, i);
     best_val[p] = load<int32_t>(L, kBestVal, p, n, i);
     timer[p] = load<int32_t>(L, kTimer, p, n, i);
     decided_val[p] = load<int32_t>(L, kDecidedVal, p, n, i);
   }
-  Learner<K> lrn;
+  ColumnLearner<K, G::kLtBal> lrn;
   lrn.load_from(L, n, i);
-  MsgBufs<S> m;
-  m.load_from(L, n, i);
+  uint32_t rq_written = 0, rp_written = 0;  // the slots the chunk wrote
+  bool lt_written = false;                  // an accept event reached the learner table
 
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
   const uint32_t lane = static_cast<uint32_t>(i % prm.block);
   const auto quorum_of = [&](int32_t) { return prm.q2; };
+  clk.mark(kPhLoad);
 
   DrawCount draws;
   for (int t = 0; t < prm.n_ticks; ++t) {
+    // ---- A settled lane: the rest of the chunk at once. ----
+    if (settled()) {
+      const uint32_t rest = static_cast<uint32_t>(prm.n_ticks - t);
+      lrn.quiet(static_cast<int>(rest * static_cast<uint32_t>(__popc(bad_alone))));
+      if (prm.clamp_per_tick) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+      }
+      break;
+    }
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
 
-    // ---- Reply delivery (pre-tick buffer) and consume. ----
-    uint32_t rp_next;
-    const uint32_t delivered = m.deliver(prm, ts, &rp_next);
+    // ---- Reply delivery (pre-tick buffer): the replies not held this
+    //      tick; consumed unless duplicated. ----
+    uint32_t delivered = rp_present;
+    if (prm.hold.mode != 0) {
+      for (uint32_t m = delivered; m != 0; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        if (ts.fires_at(prm.hold, kDeliver, j)) delivered &= ~(1u << j);
+      }
+    }
+    uint32_t taken = delivered;
+    if (prm.dup.mode != 0) {
+      for (uint32_t m = delivered; m != 0; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        if (ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
+      }
+    }
+    const uint32_t rp_next = rp_present & ~taken;
+    clk.mark(kPhDeliver);
 
     // ---- Proposer fold over the pre-tick replies. ----
-    uint32_t p1_done = 0, expired = 0;
+    uint32_t p1_done = 0, expired = 0;  // proposers that send ACCEPT / PREPARE
     int32_t old_bal[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int32_t cur = bal[p];
       int32_t h = heard[p];
-      int32_t prev[A];
-      int32_t cand_bal = kInt32Min;
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const int j0 = (0 * P + p) * A + a;  // PROMISE slot
-        const int j1 = (1 * P + p) * A + a;  // ACCEPTED slot
-        const bool prom_ok = ((delivered >> j0) & 1u) && m.rp_bal[j0] == cur && phase[p] == kP1;
-        const bool accd_ok = ((delivered >> j1) & 1u) && m.rp_bal[j1] == cur && phase[p] == kP2;
-        if (prom_ok || accd_ok) h |= 1 << a;
-        prev[a] = prom_ok ? m.rp_v1[j0] : 0;
-        cand_bal = max(cand_bal, prev[a]);
+      int32_t bb = best_bal[p], bv = best_val[p];
+      // ACCEPTED in P2 at the current ballot.
+      if (phase[p] == kP2) {
+        for (uint32_t m = (delivered >> ((P + p) * A)) & kAccs; m != 0; m &= m - 1) {
+          const int a = __ffs(m) - 1;
+          if (col[G::kRpBal + (P + p) * A + a] == cur) h |= 1 << a;
+        }
       }
-      int32_t cand_val = kInt32Min;
-#pragma unroll
-      for (int a = 0; a < A; ++a)
-        cand_val = max(cand_val, prev[a] == cand_bal ? m.rp_v2[(0 * P + p) * A + a] : 0);
-      const bool upgrade = cand_bal > best_bal[p];
-      int32_t bb = upgrade ? cand_bal : best_bal[p];
-      int32_t bv = upgrade ? cand_val : best_val[p];
+      // PROMISE in P1 at the current ballot (a valid promise): the highest
+      // previously-accepted ballot cb among them, the largest value
+      // reported with it, and how many report it.
+      int32_t cb = kInt32Min, cv = kInt32Min;
+      int n_cb = 0;
+      if (phase[p] == kP1) {
+        for (uint32_t m = (delivered >> (p * A)) & kAccs; m != 0; m &= m - 1) {
+          const int a = __ffs(m) - 1;
+          const int j0 = p * A + a;
+          if (col[G::kRpBal + j0] != cur) continue;
+          h |= 1 << a;
+          const int32_t pb = col[G::kRpV1 + j0];
+          if (pb >= cb) {
+            const int32_t pv = col[G::kRpV2 + j0];
+            cv = pb > cb ? pv : max(cv, pv);
+            n_cb = pb > cb ? 1 : n_cb + 1;
+            cb = pb;
+          }
+        }
+      }
+      // The plain fold takes its max over every acceptor, in every phase,
+      // with 0 for a slot that holds no valid promise (stale payloads
+      // included): the candidate ballot is max(cb, 0 if a slot is not
+      // valid), its value the max of the values of the slots at it, and 0
+      // where a slot is not at it.  Where cb > 0 that is cb, and cv with a
+      // 0 unless all A valid promises report cb: the delivered slots
+      // suffice.  Otherwise the candidate is at most 0 and can upgrade only
+      // a negative best_bal, which no state the ticks reach holds (it starts
+      // at 0 and takes only a candidate above it, or 0 on expiry); for such
+      // a state the fold runs over every slot, as the plain one does.
+      if (cb > 0) {
+        if (cb > bb) {
+          bb = cb;
+          bv = n_cb == A ? cv : max(cv, 0);
+        }
+      } else if (bb < 0) {
+        int32_t fb = kInt32Min;
+#pragma unroll 1
+        for (int a = 0; a < A; ++a) {
+          const int j0 = p * A + a;
+          const bool ok = phase[p] == kP1 && ((delivered >> j0) & 1u) && col[G::kRpBal + j0] == cur;
+          fb = max(fb, ok ? col[G::kRpV1 + j0] : 0);
+        }
+        if (fb > bb) {
+          int32_t fv = kInt32Min;
+#pragma unroll 1
+          for (int a = 0; a < A; ++a) {
+            const int j0 = p * A + a;
+            const bool ok =
+                phase[p] == kP1 && ((delivered >> j0) & 1u) && col[G::kRpBal + j0] == cur;
+            fv = max(fv, (ok ? col[G::kRpV1 + j0] : 0) == fb ? col[G::kRpV2 + j0] : 0);
+          }
+          bb = fb;
+          bv = fv;
+        }
+      }
 
       const int votes = __popc(static_cast<uint32_t>(h));
       const bool p1 = phase[p] == kP1 && votes >= prm.q1;
@@ -138,8 +289,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       if (p1) ph = kP2;
       if (p2) ph = kDone;
       if (exp) ph = kP1;
-      const int32_t pv = p1 ? v_by_p1 : prop_val[p];
       if (p2) decided_val[p] = prop_val[p];
+      const int32_t pv = p1 ? v_by_p1 : prop_val[p];
       if (p1 || exp) h = 0;
       if (exp) {
         bb = 0;
@@ -161,68 +312,74 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       p1_done |= (p1 ? 1u : 0u) << p;
       expired |= (exp ? 1u : 0u) << p;
     }
+    clk.mark(kPhFold);
 
     // ---- Acceptor half-tick: select at most one request per acceptor. ----
-    uint32_t rq_next = m.rq_present;
+    // Only an acceptor alive this tick with a request present can select
+    // one; the others are skipped before their idle mask is drawn, and
+    // contribute what the plain tick gives them: no reply, no consume, no
+    // accept event, their state as it is, and its invariant check
+    // (bad_alone).
+    uint32_t asked = 0;
+#pragma unroll
+    for (int kp = 0; kp < 2 * P; ++kp) asked |= (rq_present >> (kp * A)) & kAccs;
+    uint32_t visit = 0;
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+      visit |= (crash_start[a] <= tick && tick < crash_end[a] ? 0u : 1u) << a;
+    visit &= asked;
+    uint32_t rq_next = rq_present;
+    uint32_t rp_sent = 0;  // the reply slots written this tick
     uint32_t ev_flag = 0;
+    uint32_t acted = 0;    // the acceptors that selected a request
     int32_t ev_bal[A], ev_val[A];
     int inv_viol = 0;
 #pragma unroll
     for (int a = 0; a < A; ++a) {
-      const bool alive = !(crash_start[a] <= tick && tick < crash_end[a]);
-      const bool busy = ts.survives_at(prm.idle, kBusy, a);
-      const int win = m.template select<P, A>(ts, a);
-      const int sel = (win >= 0 && busy && alive) ? win : -1;
+      ev_bal[a] = 0;
+      ev_val[a] = 0;
+      if (!((visit >> a) & 1u) || !ts.survives_at(prm.idle, kBusy, a)) continue;
+      const int sel = select_present<P, A>(ts, rq_present, a);  // a request is present
+      acted |= 1u << a;
 
-      int32_t mb = 0, mv = 0;
-#pragma unroll
-      for (int kp = 0; kp < 2 * P; ++kp) {
-        if (kp == sel) {
-          mb = m.rq_bal[kp * A + a];
-          mv = m.rq_v1[kp * A + a];
-        }
-      }
-      const bool is_prep = sel >= 0 && sel < P;
-      const bool is_acc = sel >= P;
+      // The selected request's ballot, and an ACCEPT's value (a PREPARE's
+      // v1 is 0, and only an accepting acceptor reads it).
+      const bool is_prep = sel < P;
+      const bool is_acc = !is_prep;
+      const int32_t mb = col[G::kRqBal + sel * A + a];
+      const int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
       const bool eq = (equiv >> a) & 1u;
-      const bool ok_prep_h = is_prep && !eq && mb > promised[a];
+      const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
+      const bool ok_prep_h = is_prep && !eq && mb > pr_old;
       const bool ok_prep = ok_prep_h || (is_prep && eq);
-      const bool ok_acc_h = is_acc && !eq && mb >= promised[a];
+      const bool ok_acc_h = is_acc && !eq && mb >= pr_old;
       const bool ok_acc = ok_acc_h || (is_acc && eq);
 
-      const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
       int32_t pr = ok_prep_h ? mb : pr_old;
       if (ok_acc_h) pr = max(pr, mb);
       const int32_t ab = ok_acc ? mb : ab_old;
       const int32_t av = ok_acc ? mv : av_old;
 
-      // Replies to the selected sender's slot (post-consume buffer).
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (sel == p && ok_prep && ts.survives_at(prm.drop, kKeepProm, p * A + a)) {
-          const int jr = (0 * P + p) * A + a;
-          m.rp_bal[jr] = mb;
-          m.rp_v1[jr] = eq ? 0 : ab_old;
-          m.rp_v2[jr] = eq ? 0 : av_old;
-          rp_next |= 1u << jr;
-        }
-        if (sel == P + p && ok_acc && ts.survives_at(prm.drop, kKeepAccd, p * A + a)) {
-          const int jr = (1 * P + p) * A + a;
-          m.rp_bal[jr] = mb;
-          m.rp_v1[jr] = mv;
-          m.rp_v2[jr] = 0;
-          rp_next |= 1u << jr;
-        }
+      // The reply into the selected sender's slot (post-consume buffer):
+      // PROMISE for proposer sel, ACCEPTED for proposer sel - P.
+      const int jr = sel * A + a;
+      if (ok_prep && ts.survives_at(prm.drop, kKeepProm, jr)) {
+        col[G::kRpBal + jr] = mb;
+        col[G::kRpV1 + jr] = eq ? 0 : ab_old;
+        col[G::kRpV2 + jr] = eq ? 0 : av_old;
+        rp_sent |= 1u << jr;
+      }
+      if (ok_acc && ts.survives_at(prm.drop, kKeepAccd, jr - P * A)) {
+        col[G::kRpBal + jr] = mb;
+        col[G::kRpV1 + jr] = mv;
+        rp_sent |= 1u << jr;
       }
       // Consume the selected request unless it is duplicated.
-      if (sel >= 0) {
-        const int j = sel * A + a;
-        if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kDupReq, j))) rq_next &= ~(1u << j);
-      }
+      if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kDupReq, jr))) rq_next &= ~(1u << jr);
 
       // Acceptor-local invariants (honest acceptors only).
-      const bool bad = pr < pr_old || ab > pr || (ab == 0 && av != 0);
-      if (bad && !eq) ++inv_viol;
+      if (!eq && (pr < pr_old || breaks_alone(pr, ab, av))) ++inv_viol;
+      bad_alone = (bad_alone & ~(1u << a)) | ((!eq && breaks_alone(pr, ab, av) ? 1u : 0u) << a);
       promised[a] = pr;
       acc_bal[a] = ab;
       acc_val[a] = av;
@@ -230,34 +387,42 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       ev_bal[a] = mb;
       ev_val[a] = mv;
     }
-    m.rp_present = rp_next;
-    m.rq_present = rq_next;
+    inv_viol += __popc(bad_alone & ~acted);
+    rp_present = rp_next | rp_sent;
+    rp_written |= rp_sent;
+    rq_present = rq_next;
+    clk.mark(kPhAcceptor);
 
     // ---- Learner: fold accept events into the (ballot, value) table. ----
-    lrn.template observe<A>(ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of);
+    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
+      lt_written = true;
+    clk.mark(kPhLearner);
 
     // ---- Proposer sends into the consumed request buffer. ----
+    uint32_t rq_sent = 0;  // the request slots written this tick
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        if (((p1_done >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
-          const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
-          m.rq_bal[j] = old_bal[p];
-          m.rq_v1[j] = prop_val[p];
-          m.rq_v2[j] = 0;
-          m.rq_present |= 1u << j;
-        }
-        if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
-          const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
-          m.rq_bal[j] = bal[p];
-          m.rq_v1[j] = 0;
-          m.rq_v2[j] = 0;
-          m.rq_present |= 1u << j;
+      if ((p1_done | expired) >> p & 1u) {
+#pragma unroll 1
+        for (int a = 0; a < A; ++a) {
+          if (((p1_done >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
+            const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
+            col[G::kRqBal + j] = old_bal[p];
+            col[G::rq_v1(j)] = prop_val[p];
+            rq_sent |= 1u << j;
+          }
+          if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
+            const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
+            col[G::kRqBal + j] = bal[p];
+            rq_sent |= 1u << j;
+          }
         }
       }
       if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
+    rq_present |= rq_sent;
+    rq_written |= rq_sent;
+    clk.mark(kPhSends);
   }
 
   draws.flush();
@@ -281,27 +446,52 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     store<int32_t>(L, kDecidedVal, p, n, i, decided_val[p]);
   }
   lrn.store_to(L, n, i);
-  m.store_to(L, n, i);
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
+    store<uint8_t>(L, kRpPresent, j, n, i, ((rp_present >> j) & 1u) ? 1 : 0);
+  }
+  sd::store_column<P, A, K, false, B>(col, L, n, i, rq_written, rp_written, lt_written);
+  clk.mark(kPhStore);
+  clk.flush();
 }
 
-template <int P, int A, int K>
-cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick, const Params& prm,
-                   cudaStream_t stream) {
-  fused_paxos_kernel<P, A, K><<<grid_for(prm.n_inst), kThreads, 0, stream>>>(L, plan, tick, prm);
-  return cudaGetLastError();
+// One instantiation, ready to launch (SmemInst in fused_common.cuh).
+template <int P, int A, int K, int B, int MIN_BLOCKS>
+using Inst = SmemInst<fused_paxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
+                      SdStaged<P, A, K, false>::kRows * B * 4>;
+
+// The instantiations, (n_prop, n_acc, k_slots, B, MIN_BLOCKS): one per
+// shape, at the geometry fused_tick.FR_STAGING["paxos"] gives it;
+// MIN_BLOCKS, the blocks an SM is to hold, caps a thread's registers.
+#define K1_INSTANCES(X) \
+  X(2, 5, 8, 128, 4)    \
+  X(1, 3, 8, 128, 4)
+
+// Calls `fn(Inst<...>{})` for the shape `dims` names (n_prop, n_acc,
+// k_slots), or returns cudaErrorInvalidValue.
+template <typename Fn>
+cudaError_t dispatch(const int* dims, Fn&& fn) {
+#define K1_MATCH(P_, A_, K_, B_, M_) \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_) return fn(Inst<P_, A_, K_, B_, M_>{});
+  K1_INSTANCES(K1_MATCH)
+#undef K1_MATCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots); `tick` is the device int32 tick scalar, read by the
-// kernel and advanced by the caller.  Returns the launch's
-// cudaGetLastError().
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, then the dynamic
+// shared bytes a block, fused_tick.FR_STAGING's); `tick` is the device
+// int32 tick scalar, read by the kernel and advanced by the caller.
+// Returns cudaSuccess or the first error: an unknown shape or too few
+// shared bytes (cudaErrorInvalidValue), a shared-memory request the card
+// refuses, or the launch's cudaGetLastError().
 extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                   void** plan, void* tick, const long long* params, int n_params,
                                   void* stream) {
-  if (n_dims != 3) return cudaErrorInvalidValue;
-  const int n_prop = dims[0], n_acc = dims[1], k_slots = dims[2];
+  if (n_dims != 4) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
@@ -309,7 +499,15 @@ extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, in
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_prop == 2 && n_acc == 5 && k_slots == 8) return launch<2, 5, 8>(L, pl, t, prm, s);
-  if (n_prop == 1 && n_acc == 3 && k_slots == 8) return launch<1, 3, 8>(L, pl, t, prm, s);
-  return cudaErrorInvalidValue;
+  const int smem = dims[3];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+}
+
+// The blocks of instantiation `dims` (as for fused_paxos_launch) that one
+// SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
+extern "C" int fused_paxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
+  if (n_dims != 4) return cudaErrorInvalidValue;
+  const int smem = dims[3];
+  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

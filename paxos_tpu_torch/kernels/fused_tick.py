@@ -23,15 +23,15 @@ Only the SynchPaxos kernel models the bounded-delay channel: it takes a
 state with or without ``until`` stamps (an instantiation each) and the
 plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
 
-The Multi-Paxos kernel keeps each lane's slot arrays in shared memory for
-the whole chunk, the SynchPaxos kernel its message payloads, delay stamps
-and learner table, and the Fast Paxos and Raft-core kernels their message
-payloads and learner table; their launch geometry per instantiation
-(lanes a CUDA block, staged rows, shared bytes) is ``MP_STAGING``,
-``SP_STAGING`` and ``FR_STAGING``, which the kernels' instantiations
-mirror; the wrapper passes them the shared bytes.  :func:`phase_clocks`
-runs the phase-clock build of K2, K3 or K4, which splits a lane's cycles
-by phase of the tick.
+Every kernel keeps part of each lane's state in shared memory for the
+whole chunk: the Multi-Paxos kernel its slot arrays, the SynchPaxos kernel
+its message payloads, delay stamps and learner table, and the Paxos, Fast
+Paxos and Raft-core kernels their message payloads and learner table;
+their launch geometry per instantiation (lanes a CUDA block, staged rows,
+shared bytes) is ``MP_STAGING``, ``SP_STAGING`` and ``FR_STAGING``, which
+the kernels' instantiations mirror; the wrapper passes them the shared
+bytes.  :func:`phase_clocks` runs the phase-clock build of K1 to K4, which
+splits a lane's cycles by phase of the tick.
 """
 
 from __future__ import annotations
@@ -156,7 +156,7 @@ SP_ZERO_WORDS = (("requests.v1", (0,)), ("requests.v2", (0, 1)), ("replies.v2", 
 
 @dataclasses.dataclass(frozen=True)
 class ColumnStaging:
-    """The launch geometry of K2, K3 or K4 at one instantiation: ``threads``
+    """The launch geometry of K1 to K4 at one instantiation: ``threads``
     lanes a CUDA block (a multiple of 32), the int32 words of a lane's
     shared-memory column (``rows``), the block's dynamic shared memory
     (``rows * 4 * threads`` bytes), and ``min_blocks``, the blocks an SM is
@@ -194,34 +194,40 @@ SP_STAGING = {
 }
 
 
-# The Fast Paxos and Raft-core state leaves K2 and K3 keep in shared memory
-# for a whole chunk (``sd::SdStaged`` in csrc/fused_common.cuh), in column
-# order, each with the message kinds it stages (None: every row of the
-# leaf), as ``SP_STAGED_LEAVES`` without the stamps.  Raft-core stages
-# every request's v1: a REQVOTE carries the candidate's entry term.
+# The Paxos, Fast Paxos and Raft-core state leaves K1, K2 and K3 keep in
+# shared memory for a whole chunk (``sd::SdStaged`` in
+# csrc/fused_common.cuh), in column order, each with the message kinds it
+# stages (None: every row of the leaf), as ``SP_STAGED_LEAVES`` without the
+# stamps.  Paxos shares Fast Paxos's message layout; Raft-core stages every
+# request's v1: a REQVOTE carries the candidate's entry term.
+_PAXOS_STAGED_LEAVES = (
+    ("requests.bal", (0, 1)), ("requests.v1", (1,)), ("replies.bal", (0, 1)),
+    ("replies.v1", (0, 1)), ("replies.v2", (0,)),
+    ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
+)
 FR_STAGED_LEAVES = {
-    "fastpaxos": (
-        ("requests.bal", (0, 1)), ("requests.v1", (1,)), ("replies.bal", (0, 1)),
-        ("replies.v1", (0, 1)), ("replies.v2", (0,)),
-        ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
-    ),
+    "paxos": _PAXOS_STAGED_LEAVES,
+    "fastpaxos": _PAXOS_STAGED_LEAVES,
     "raftcore": (
         ("requests.bal", (0, 1)), ("requests.v1", (0, 1)), ("replies.bal", (0, 1)),
         ("replies.v1", (0, 1)), ("replies.v2", (0,)),
         ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
     ),
 }
-# The words each tick only ever writes as 0: Fast Paxos a PREPARE's v1,
-# every request's v2 and an ACCEPTED's v2 (protocols/fastpaxos.py),
-# Raft-core every request's v2 and an ACK's v2 (protocols/raftcore.py).
+# The words each tick only ever writes as 0: Paxos and Fast Paxos a
+# PREPARE's v1, every request's v2 and an ACCEPTED's v2
+# (protocols/paxos.py, protocols/fastpaxos.py), Raft-core every request's
+# v2 and an ACK's v2 (protocols/raftcore.py).
+_PAXOS_ZERO_WORDS = (("requests.v1", (0,)), ("requests.v2", (0, 1)), ("replies.v2", (1,)))
 FR_ZERO_WORDS = {
-    "fastpaxos": (("requests.v1", (0,)), ("requests.v2", (0, 1)), ("replies.v2", (1,))),
+    "paxos": _PAXOS_ZERO_WORDS,
+    "fastpaxos": _PAXOS_ZERO_WORDS,
     "raftcore": (("requests.v2", (0, 1)), ("replies.v2", (1,))),
 }
 
 
 def fr_staged_rows(protocol: str, n_prop: int, n_acc: int, k_slots: int) -> int:
-    """Words of a K2 or K3 lane's column: the request ballots (2PA) and
+    """Words of a K1, K2 or K3 lane's column: the request ballots (2PA) and
     staged values (PA, Raft-core 2PA), the reply ballots and first payloads
     (2PA each) and kind-0 second payloads (PA), and the learner table
     (3K)."""
@@ -234,12 +240,17 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
-# K2's and K3's geometry per instantiation, which the wrapper passes to the
-# kernel: K4's, 3 blocks of 128 lanes (12 warps) an SM, which caps a thread
-# at 168 registers; K2's (2, 5, 8) column (104 words) leaves room for a
-# fourth block (16 warps, 128 registers), which made its main path 12%
-# faster (PERF.md §6).  K3's (114 words) does not.
+# K1's, K2's and K3's geometry per instantiation, which the wrapper passes
+# to the kernel: K4's, 3 blocks of 128 lanes (12 warps) an SM, which caps a
+# thread at 168 registers; K2's (2, 5, 8) column (104 words) leaves room
+# for a fourth block (16 warps, 128 registers), which made its main path
+# 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's columns (104
+# and 48 words) take 4 blocks at both shapes.
 FR_STAGING = {
+    "paxos": {
+        (2, 5, 8): _fr_staging("paxos", (2, 5, 8), 128, 4),
+        (1, 3, 8): _fr_staging("paxos", (1, 3, 8), 128, 4),
+    },
     "fastpaxos": {
         (2, 5, 8): _fr_staging("fastpaxos", (2, 5, 8), 128, 4),
         (2, 3, 8): _fr_staging("fastpaxos", (2, 3, 8), 128, 3),
@@ -334,7 +345,10 @@ class Binding:
 
 
 BINDINGS = {
-    "paxos": Binding(apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch"),
+    "paxos": Binding(
+        apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch",
+        staging=FR_STAGING["paxos"],
+    ),
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
         "fused_fastpaxos_launch", staging=FR_STAGING["fastpaxos"],
@@ -380,13 +394,17 @@ def ballot_hoist_safe_ticks(protocol: str = "paxos") -> int:
 # also counts the counter-PRNG draws the kernel makes and the slot-array
 # elements it touches.
 COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
-# The phase-clock build (K2, K3, K4): clock64() cycles per phase of the
+# The phase-clock build (K1 to K4): clock64() cycles per phase of the
 # tick, in the order of the kernel's ``Phase`` enum; its reader returns
 # PHASE_SLOTS counters (``kMaxPhases`` in csrc/fused_common.cuh), those past
 # a kernel's phases 0.
 PHASE_CLOCKS = ("FUSED_PHASE_CLOCKS",)
 PHASE_SLOTS = 8
 PHASES = {
+    "paxos": (
+        "column load", "reply delivery", "proposer fold", "acceptor half-tick",
+        "learner", "proposer sends", "column store",
+    ),
     "fastpaxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
         "learner", "proposer sends", "column store",
@@ -674,11 +692,12 @@ def fused_paxos_chunk(
     """Advance ``n_ticks`` ticks of Paxos; ``block`` is the stream block and
     ``blk0`` the id of the first.
 
-    CUDA: launches ``csrc/fused_paxos_tick.cu`` on the current stream,
-    updating the state's tensors in place (the input state is consumed)
-    and returning it; ``.launches`` counts the launches.  CPU: the plain
-    :func:`reference_chunk`.  There is no fallback between the two: the
-    device of the state decides."""
+    CUDA: launches ``csrc/fused_paxos_tick.cu`` on the current stream, at
+    the geometry ``FR_STAGING["paxos"]`` gives the state's shape, updating
+    the state's tensors in place (the input state is consumed) and
+    returning it; ``.launches`` counts the launches; a launch the card
+    refuses raises.  CPU: the plain :func:`reference_chunk`.  There is no
+    fallback between the two: the device of the state decides."""
     return _fused_chunk(
         "paxos", fused_paxos_chunk, state, seed, plan, cfg, n_ticks, block,
         blk0, clamp_per_tick,

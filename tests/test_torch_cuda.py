@@ -24,8 +24,11 @@ the kernel does.  K2 and K3 (Fast Paxos, Raft-core), which keep their
 payloads and learner table in a shared-memory column too, are held so on
 duplicates and a ballot stride (Fast Paxos also on uneven quorums), at
 every instantiation on lane counts no CUDA block divides, with the same
-geometry, refusal and phase-clock checks.  A plan without ``link_delay``
-under ``p_delay > 0`` is refused, and the other kernels refuse ``p_delay``.
+geometry, refusal and phase-clock checks, and so is K1 (Paxos), which
+keeps its payloads and learner table in the same column, on duplicates, a
+ballot stride with a shorter timeout and uneven quorums.  A plan without
+``link_delay`` under ``p_delay > 0`` is refused, and the other kernels
+refuse ``p_delay``.
 """
 
 import dataclasses
@@ -422,15 +425,16 @@ def test_synchpaxos_draw_census_build_follows_the_kernel():
     assert 0 < touches <= 4 * 2 * cfg.n_prop * cfg.n_acc * lane_ticks
 
 
-FR = ["fastpaxos", "raftcore"]
+FR = ["paxos", "fastpaxos", "raftcore"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("protocol", FR)
 def test_fr_kernel_matches_plain_on_knobs(protocol):
-    """K2 and K3 on the knobs no main path sets (``fr_knob_configs``):
-    duplicated requests and replies, a ballot stride with a longer backoff,
-    and for Fast Paxos q1/q2/q_fast = 4/2/4, over two chunks."""
+    """K1, K2 and K3 on the knobs no main path sets (``fr_knob_configs``):
+    duplicated requests and replies, a ballot stride with a longer backoff
+    (K1 also with timeout 5), for Paxos q1/q2 = 2/4 and 4/2 and for Fast
+    Paxos q1/q2/q_fast = 4/2/4, over two chunks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     wrapper = tfused.FUSED_WRAPPERS[protocol]
@@ -452,7 +456,7 @@ def test_fr_kernel_matches_plain_on_knobs(protocol):
     "protocol,shape", [(p, shape) for p in FR for shape in tfused.KERNEL_SHAPES[p]]
 )
 def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
-    """K2 and K3 at every instantiation on 1000 lanes, which no CUDA block of
+    """K1, K2 and K3 at every instantiation on 1000 lanes, which no CUDA block of
     their geometry divides (the last block runs part full), with a stream
     block of fit_block(1024, 1000) = 8 lanes, crashes and equivocators,
     over three chunks."""
@@ -461,7 +465,7 @@ def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
     n = 1000
     assert n % tfused.FR_STAGING[protocol][shape].threads != 0
     n_prop, n_acc, _ = shape
-    cfg = dataclasses.replace(main_config(protocol, n, 9), n_acc=n_acc)
+    cfg = dataclasses.replace(main_config(protocol, n, 9), n_prop=n_prop, n_acc=n_acc)
     block = tfused.fit_block(1024, n)
     plan = fault_plan(n, n_acc, n_prop, 0.2, 9, p_crash=0.2)
     plain = trun.init_state(cfg, "cuda")
@@ -505,8 +509,8 @@ def test_fr_refused_launch_raises(protocol, monkeypatch):
 
 @pytest.mark.cuda
 def test_fr_geometry_fits_the_card():
-    """Every geometry of K2 and K3 lets an SM hold the blocks its registers
-    are capped for: 12 warps."""
+    """Every geometry of K1, K2 and K3 lets an SM hold the blocks its
+    registers are capped for: 12 warps or more."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for protocol in FR:
@@ -518,7 +522,7 @@ def test_fr_geometry_fits_the_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("protocol", FR)
 def test_fr_phase_clocks_follow_the_kernel(protocol):
-    """The phase-clock build of K2 and K3 advances the state as the kernel
+    """The phase-clock build of K1, K2 and K3 advances the state as the kernel
     does, counts no launch, and splits a lane's cycles over every phase."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")

@@ -1,18 +1,25 @@
-"""K2's and K3's shared-memory staging and phase clocks (no GPU needed).
+"""K1's, K2's and K3's shared-memory staging and phase clocks (no GPU
+needed).
 
-The Fast Paxos and Raft-core kernels keep each lane's message payloads and
-learner table in a shared-memory column for a whole chunk;
+The Paxos, Fast Paxos and Raft-core kernels keep each lane's message
+payloads and learner table in a shared-memory column for a whole chunk;
 ``fused_tick.FR_STAGING`` is their launch geometry per instantiation that
 the wrapper passes to them (lanes a CUDA block, staged rows, shared bytes,
 the blocks an SM is to hold).  The rows are held against the port's own
-``FastPaxosState`` and ``RaftState`` leaf shapes, the geometry against the
-card's limits, the table against the instantiations of
-``csrc/fused_fastpaxos_tick.cu`` and ``csrc/fused_raftcore_tick.cu`` and
-the column order of ``sd::load_column`` in ``csrc/fused_common.cuh``, the
-words left out of the column against the plain ticks, which must only ever
-write them as 0, and the phase lists against the kernels.
+``PaxosState``, ``FastPaxosState`` and ``RaftState`` leaf shapes, the
+geometry against the card's limits, the table against the instantiations
+of ``csrc/fused_paxos_tick.cu``, ``csrc/fused_fastpaxos_tick.cu`` and
+``csrc/fused_raftcore_tick.cu`` and the column order of
+``sd::load_column`` in ``csrc/fused_common.cuh``, the words left out of
+the column against the plain ticks, which must only ever write them as 0,
+and the phase lists against the kernels.  K1's fold reads a proposer's
+delivered PROMISE slots only, which equals the plain fold over every slot
+where ``best_bal`` is not negative: the plain tick keeps it so.  K1
+applies a chunk to a settled lane at once: the plain tick leaves such a
+lane as it is.
 """
 
+import dataclasses
 import math
 import re
 
@@ -22,12 +29,13 @@ import torch
 import chip_smoke
 from paxos_tpu_torch.core.fp_state import FastPaxosState
 from paxos_tpu_torch.core.raft_state import RaftState
+from paxos_tpu_torch.core.state import PaxosState
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import build
 from paxos_tpu_torch.kernels import fused_tick as tfused
 
-FR = ("fastpaxos", "raftcore")
-STATES = {"fastpaxos": FastPaxosState, "raftcore": RaftState}
+FR = ("paxos", "fastpaxos", "raftcore")
+STATES = {"paxos": PaxosState, "fastpaxos": FastPaxosState, "raftcore": RaftState}
 SOURCES = {p: (build.CSRC / f"{tfused.BINDINGS[p].kernel}.cu").read_text() for p in FR}
 COMMON = (build.CSRC / "fused_common.cuh").read_text()
 TABLES = [(p, shape, st) for p in FR for shape, st in tfused.FR_STAGING[p].items()]
@@ -35,7 +43,7 @@ IDS = [f"{p}-" + "-".join(map(str, shape)) for p, shape, _ in TABLES]
 SM_SHARED_BYTES = 233_472  # an H100 SM's shared memory
 BLOCK_RESERVED_BYTES = 1024  # reserved by the runtime for each resident block
 SM_THREADS_MAX = 2048
-INSTANCES = {"fastpaxos": "K2_INSTANCES", "raftcore": "K3_INSTANCES"}
+INSTANCES = {"paxos": "K1_INSTANCES", "fastpaxos": "K2_INSTANCES", "raftcore": "K3_INSTANCES"}
 
 
 def _leaf(state, path):
@@ -131,8 +139,8 @@ def test_every_instantiation_has_a_geometry(protocol):
 
 
 def _instances(protocol):
-    """``K2_INSTANCES`` / ``K3_INSTANCES`` of the .cu, in order:
-    (P, A, K, B, MIN) each."""
+    """``K1_INSTANCES`` / ``K2_INSTANCES`` / ``K3_INSTANCES`` of the .cu,
+    in order: (P, A, K, B, MIN) each."""
     listed = re.search(rf"#define {INSTANCES[protocol]}\(X\)(.*?)\n\n", SOURCES[protocol], re.S).group(1)
     return [tuple(map(int, x)) for x in re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", listed)]
 
@@ -226,3 +234,50 @@ def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
         state = trun.init_state(cfg, "cpu")
         with pytest.raises(ValueError, match="CUDA state"):
             tfused.phase_clocks(protocol, state, 1, trun.init_plan(cfg, "cpu"), cfg.fault, 8)
+
+
+@pytest.mark.parametrize("path", ["paxos", "config4"])
+def test_plain_paxos_tick_keeps_best_bal_non_negative(path):
+    """The argument behind K1's rolled fold: ``proposer.best_bal`` starts at
+    0 and takes only a candidate ballot above it, or 0 on expiry, so the
+    plain tick never makes it negative.  Tick by tick on config2 (drops,
+    holds, idling) and config4 (equivocators, crash windows) with
+    duplicates, over many expiries and phase-1 upgrades."""
+    from paxos_tpu_torch.harness import config as C
+
+    if path == "paxos":
+        cfg = chip_smoke.main_config("paxos", 512, 4)
+    else:
+        cfg = C.config4_byzantine(512, 4)
+    cfg = dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_dup=0.1, timeout=4))
+    plan = chip_smoke.fault_plan(
+        512, cfg.n_acc, cfg.n_prop, cfg.fault.p_equiv, 4, p_crash=0.2, device="cpu"
+    )
+    state = trun.init_state(cfg, "cpu")
+    upgraded = 0
+    for _ in range(96):
+        before = state.proposer.best_bal.clone()
+        state = chip_smoke.plain_chunk(cfg, state, plan, 1, 512)
+        assert int(state.proposer.best_bal.min()) >= 0
+        upgraded += int((state.proposer.best_bal > before).sum())
+    assert upgraded > 0  # the fold did adopt previously-accepted ballots
+
+
+def test_plain_paxos_tick_leaves_a_settled_lane_as_it_is():
+    """The argument behind K1's settled lanes (``chip_smoke.settled_lanes``:
+    every proposer done, nothing in flight), which it applies a chunk to at
+    once and whose column it does not load: on config2 after 96 ticks,
+    most lanes are settled, and 16 more ticks of the plain tick leave them
+    settled and every leaf of theirs as it was (the learner's scalars
+    included: a settled lane of a reachable state has chosen and breaks no
+    invariant)."""
+    cfg = chip_smoke.main_config("paxos", 512, 6)
+    plan = trun.init_plan(cfg, "cpu")
+    state = chip_smoke.plain_chunk(cfg, trun.init_state(cfg, "cpu"), plan, 96, 512)
+    settled = chip_smoke.settled_lanes(state)
+    assert settled.float().mean() > 0.5
+    after = chip_smoke.plain_chunk(cfg, state.clone(), plan, 16, 512)
+    assert chip_smoke.settled_lanes(after)[settled].all()
+    for a, b in zip(after.lane_leaves(), state.lane_leaves(), strict=True):
+        assert torch.equal(a[..., settled], b[..., settled])
+    assert chip_smoke.settled_lane_bytes(state) == 122  # (2, 5, 8): 16 + 40 + 60 + 5 + 1

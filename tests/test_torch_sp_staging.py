@@ -10,6 +10,7 @@ and the table against the instantiations, the column order and the phase
 list of ``csrc/fused_synchpaxos_tick.cu``.
 """
 
+import dataclasses
 import math
 import re
 
@@ -160,8 +161,10 @@ def test_launch_dims_carry_the_geometry():
 
 def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
     """The occupancy query builds and asks the kernel's own library:
-    without nvcc it raises, with no estimate to fall back on; the phase
-    clocks exist for K4 only and count on the card only."""
+    without nvcc it raises, with no estimate to fall back on, and a binding
+    without a geometry (chip_ab.py's, for a kernel source whose C entry
+    takes no shared bytes) has none to ask for; the phase clocks exist for
+    K1 to K4 only and count on the card only."""
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -170,11 +173,14 @@ def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
         tfused.blocks_per_sm("synchpaxos", (2, 5, 8, 1))
+    monkeypatch.setitem(
+        tfused.BINDINGS, "paxos", dataclasses.replace(tfused.BINDINGS["paxos"], staging=None)
+    )
     with pytest.raises(ValueError, match="no staging"):
         tfused.blocks_per_sm("paxos", (2, 5, 8))
     cfg = TC.config_delay_chaos(64, 1)
     state = trun.init_state(cfg, "cpu")
     with pytest.raises(ValueError, match="phase-clock"):
-        tfused.phase_clocks("paxos", state, 1, None, cfg.fault, 8)
+        tfused.phase_clocks("multipaxos", state, 1, None, cfg.fault, 8)
     with pytest.raises(ValueError, match="CUDA state"):
         tfused.phase_clocks("synchpaxos", state, 1, None, cfg.fault, 8)
