@@ -25,7 +25,9 @@ config (``chip_smoke.MAIN_PATHS``) through ``chip_smoke``'s own functions:
 
 The path ``ceiling`` times K6 (``phase_ceiling``) instead.  A source whose
 C entry takes no shared bytes (a kernel before its column redesign) is
-launched without them.  Prints the card's name and power limit, then as
+launched without them; sources from before K1's gray-failure and partition
+arms get the parameters and plan leaves their ``fused_common.cuh`` reads
+(``kParams``, ``kPlanLeaves``) and K1's default instantiations only.  Prints the card's name and power limit, then as
 its last line one JSON object of every measurement.
 """
 
@@ -35,28 +37,51 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import re
 import sys
 from pathlib import Path
 
 import chip_smoke as cs
 
 
+# The wrapper's own parameter list, plan leaves and instantiated shapes,
+# which use_sources cuts down to what an older source reads.
+_WRAPPER = {}
+
+
 def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
     """Point the build at ``csrc`` and the bindings at what its sources
     take: the shared bytes in ``dims`` where the C entry reads them, a
-    phase-clock build where the kernel marks its phases."""
+    phase-clock build where the kernel marks its phases, the parameters
+    and plan leaves its ``fused_common.cuh`` reads, and K1's arms
+    instantiation where its source has one."""
     from paxos_tpu_torch.kernels import build, int32_ceiling
     from paxos_tpu_torch.kernels import fused_tick as tf
 
+    if not _WRAPPER:
+        _WRAPPER.update(
+            params=tf._kernel_params, plan=tf._PLAN_LEAVES, shapes=dict(tf.KERNEL_SHAPES)
+        )
+    common = (csrc / "fused_common.cuh").read_text()
+    n_params = int(re.search(r"constexpr int kParams = (\d+);", common).group(1))
+    found = re.search(r"constexpr int kPlanLeaves = (\d+);", common)
+    n_plan = int(found.group(1)) if found else 6
+    tf._kernel_params = lambda *a: _WRAPPER["params"](*a)[:n_params]
+    tf._PLAN_LEAVES = _WRAPPER["plan"][:n_plan]
+    tf.KERNEL_SHAPES.update(_WRAPPER["shapes"])
     build.CSRC = csrc
     tf._entries.clear()
     int32_ceiling._fn = None
     for protocol, binding in bindings.items():
         src = (csrc / f"{binding.kernel}.cu").read_text()
         staged = "const int smem = dims[" in src
-        tf.BINDINGS[protocol] = dataclasses.replace(
-            binding, staging=binding.staging if staged else None
-        )
+        staging = binding.staging if staged else None
+        if binding.arms is not None and "dims[3] == R_" not in src:
+            # A K1 without the arms: its default instantiations, keyed by shape.
+            staging = staging and {k[:3]: v for k, v in staging.items() if k[3] == 0}
+            tf.KERNEL_SHAPES[protocol] = tuple(k[:3] for k in _WRAPPER["shapes"][protocol] if k[3] == 0)
+            binding = dataclasses.replace(binding, arms=None)
+        tf.BINDINGS[protocol] = dataclasses.replace(binding, staging=staging)
         if protocol in phases and "clk.mark(" in src:
             tf.PHASES[protocol] = phases[protocol]
         else:

@@ -29,7 +29,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    SynchPaxos with and without delay stamps, with delta violated, and
    with duplicates, uneven quorums and a ballot stride, Paxos, Fast Paxos
    and Raft-core with duplicates and a ballot stride (Paxos and Fast Paxos
-   also with uneven quorums), and at full width
+   also with uneven quorums), K1's gray-failure and partition arms on
+   each knob alone and on the configs that set them
+   (:func:`gray_knob_configs`), and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
    draws of the timed ticks counted by each kernel's measuring build for
@@ -43,8 +45,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 5. main paths: the flagship campaign (config2), the config5 sweep's Fast
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
-   window, compacted after every chunk) and SynchPaxos on
-   config_delay_chaos (bounded delay; its fast-path rate is printed), at
+   window, compacted after every chunk), SynchPaxos on
+   config_delay_chaos (bounded delay; its fast-path rate is printed) and
+   Paxos on config_gray_chaos (one-way partitions, flaky links, timer
+   skew: K1's arms instantiation), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -58,12 +62,14 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    report violations (Multi-Paxos: the count the JAX package gives,
    ``MP_CHECKER_VIOLATIONS``), and SynchPaxos' planted ``sp_unsafe_fast``
    bug proposer disagreements at the JAX package's count
-   (``SP_CHECKER_DISAGREE``).
+   (``SP_CHECKER_DISAGREE``); and Paxos' bug injections, payload
+   corruption, stale-snapshot recovery and unsafe Flexible Paxos quorums,
+   must each report violations.
 
-Configs with crash windows, equivocators or link delays run on plans
-drawn here from numpy (:func:`config_plan`): the config's own
-distribution, from another stream than the JAX package's
-``FaultPlan.sample``.
+Configs with crash windows, equivocators, link delays, partitions or the
+gray-failure plan fields run on plans drawn here from numpy
+(:func:`config_plan`): the config's own distribution, from another stream
+than the JAX package's ``FaultPlan.sample``.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -121,6 +127,9 @@ class MainPath:
     sweep_index: "int | None" = None
     compact: bool = False
     fast_path: bool = False
+    # Chunks of the full-width comparison: more than 1 compares a chunk
+    # from a state past the initial one too.
+    compare_chunks: int = 1
 
 
 MAIN_PATHS = {
@@ -133,6 +142,9 @@ MAIN_PATHS = {
     ),
     "synchpaxos": MainPath(
         "synchpaxos", MAIN_TICKS, "config_delay_chaos", "delaychaos-synchpaxos", fast_path=True
+    ),
+    "graychaos": MainPath(
+        "paxos", MAIN_TICKS, "config_gray_chaos", "graychaos-paxos", compare_chunks=2
     ),
 }
 # The flagship campaign (seed 0) fills one lane's 8-slot learner table:
@@ -150,13 +162,14 @@ EVICTION_PINS = {
     "config3": (0, {}),
     "config3long": (0, {}),
     "synchpaxos": (4, {595: ([129], "3da7a9c3d5cad789"), 821: ([636], "f9da58d7938887dd")}),
+    "graychaos": (56, {90: ([430], "45f077b32e2cf14b"), 104: ([582], "f732a5e3e62d60a0")}),
 }
-# The state digest of stream block 0 after each Multi-Paxos main path and
-# the SynchPaxos one, as the JAX package computes it
+# The state digest of stream block 0 after each Multi-Paxos main path, the
+# SynchPaxos one and the gray-chaos one, as the JAX package computes it
 # (tests/test_torch_evictions.py).
 BLOCK0_DIGESTS = {
     "config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d",
-    "synchpaxos": "77bdd097d024b69b",
+    "synchpaxos": "77bdd097d024b69b", "graychaos": "92c059e4a486f4a2",
 }
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
@@ -204,10 +217,12 @@ MASK_CENSUS = {
     "config3-multipaxos": (1261.3046875, 89.0),
     "config3long-multipaxos": (1261.3046875, 89.0),
     "delaychaos-synchpaxos": (1883.078125, 147.0),
+    "graychaos-paxos": (1578.056640625, 127.0),
 }
 # Census cases that ROOFLINE.json does not hold, recorded here with the
 # same keys: scripts/roofline.py tick_census(config_delay_chaos(1024), 1024),
-# which gives the same figures for violate_delta
+# which gives the same figures for violate_delta, and
+# tick_census(config_gray_chaos(1024), 1024)
 # (tests/test_torch_census.py recomputes them with the JAX package).
 CENSUS_CASES = {
     "delaychaos-synchpaxos": {
@@ -215,6 +230,12 @@ CENSUS_CASES = {
         "alu_per_lane_tick": 4887.126953125, "codec_alu_per_lane_tick": 881.0,
         "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 516.0,
         "unpacked_bytes_per_lane": 925.0,
+    },
+    "graychaos-paxos": {
+        "case": "graychaos-paxos", "block": 1024,
+        "alu_per_lane_tick": 4054.0888671875, "codec_alu_per_lane_tick": 881.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 356.0,
+        "unpacked_bytes_per_lane": 765.0,
     },
 }
 # SLOT_CENSUS (Multi-Paxos): the share of the slot-indexed arrays (log,
@@ -487,7 +508,7 @@ def phase_golden() -> None:
 def fault_plan(
     n_inst: int, n_acc: int, n_prop: int, p_equiv: float, seed: int, p_crash: float = 0.0,
     p_crash_prop: float = 0.0, max_start: int = 32, max_len: int = 16, device="cuda",
-    p_delay: float = 0.0, delay_max: int = 4,
+    p_delay: float = 0.0, delay_max: int = 4, gray=None,
 ):
     """A plan from a fixed numpy seed: equivocators with probability
     ``p_equiv``; with probability ``p_crash`` per (acceptor, lane) and
@@ -495,7 +516,9 @@ def fault_plan(
     U[0, max_start) and lasting U[1, max_len] ticks; with ``p_delay`` > 0,
     each (proposer, acceptor, lane) link slow with probability ``p_delay``,
     its latency cap drawn from U[1, delay_max], every other link's cap 0
-    (drawn last, so plans without delay are unchanged)."""
+    (drawn last, so plans without delay are unchanged); and with ``gray``
+    (a FaultConfig) the partition and gray-failure fields its knobs need,
+    drawn after all of those (:func:`gray_plan_fields`)."""
     from paxos_tpu_torch.faults.injector import NEVER, FaultPlan
 
     plan = FaultPlan.none(n_inst, n_acc, n_prop, device=device)
@@ -519,27 +542,81 @@ def fault_plan(
         slow = rng.random(edge) < p_delay
         cap = rng.integers(1, max(delay_max, 1) + 1, edge)
         plan.link_delay = torch.from_numpy(np.where(slow, cap, 0).astype(np.int32)).to(device)
+    if gray is not None:
+        for name, value in gray_plan_fields(rng, gray, n_inst, n_acc, n_prop).items():
+            setattr(plan, name, torch.from_numpy(value).to(device))
     return plan
 
 
+def gray_plan_fields(rng, f, n_inst: int, n_acc: int, n_prop: int) -> dict:
+    """The partition and gray-failure plan fields that the knobs of
+    FaultConfig ``f`` need, drawn from ``rng`` with the JAX package's
+    ``FaultPlan.sample`` distribution: with ``p_part`` a partition window
+    per lane with probability ``p_part`` (start U[0, part_max_start),
+    length U[1, part_max_len]) and a fair side for every acceptor and
+    proposer; with ``p_asym`` the cut one-way with probability ``p_asym``,
+    cutting requests or replies alike (``part_dir`` 1 or 2, else 0); with
+    ``p_flaky`` each link flaky with probability ``p_flaky``, its drop rate
+    U[0, 1) * ``flaky_drop`` and, where duplication is live, its dup rate
+    U[0, 1) * ``flaky_dup`` (healthy links: ``p_drop``, ``p_dup``), as
+    thresholds through the port's ``rate_threshold``; with ``timeout_skew``
+    an extra timeout U[0, timeout_skew] per proposer and lane, with
+    ``backoff_skew`` a backoff multiplier U[1, backoff_skew]."""
+    from paxos_tpu_torch.faults.injector import NEVER, links_dup, rate_threshold
+
+    out = {}
+    lane, edge, prop = (n_inst,), (n_prop, n_acc, n_inst), (n_prop, n_inst)
+    if f.p_part > 0.0:
+        parts = rng.random(lane) < f.p_part
+        start = rng.integers(0, max(f.part_max_start, 1), lane)
+        end = np.minimum(start + rng.integers(1, max(f.part_max_len, 1) + 1, lane), NEVER - 1)
+        out["part_start"] = np.where(parts, start, NEVER).astype(np.int32)
+        out["part_end"] = np.where(parts, end, NEVER).astype(np.int32)
+        out["aside"] = rng.random((n_acc, n_inst)) < 0.5
+        out["pside"] = rng.random(prop) < 0.5
+    if f.p_asym > 0.0:
+        one_way = rng.random(lane) < f.p_asym
+        cut_req = rng.random(lane) < 0.5
+        out["part_dir"] = np.where(one_way, np.where(cut_req, 1, 2), 0).astype(np.int32)
+    if f.p_flaky > 0.0:
+        flaky = rng.random(edge) < f.p_flaky
+
+        def thresholds(top, base):
+            rate = np.where(flaky, rng.random(edge, dtype=np.float32) * np.float32(top), np.float32(base))
+            return rate_threshold(torch.from_numpy(rate.astype(np.float32))).numpy()
+
+        out["link_drop"] = thresholds(f.flaky_drop, f.p_drop)
+        if links_dup(f):
+            out["link_dup"] = thresholds(f.flaky_dup, f.p_dup)
+    if f.timeout_skew > 0:
+        out["ptimeout"] = rng.integers(0, f.timeout_skew + 1, prop).astype(np.int32)
+    if f.backoff_skew > 1:
+        out["pboff"] = rng.integers(1, f.backoff_skew + 1, prop).astype(np.int32)
+    return out
+
+
 def config_plan(cfg, seed: int, device="cuda"):
-    """``cfg``'s own crash, equivocation and link-delay distribution (the
-    JAX package's ``FaultPlan.sample``: starts U[0, crash_max_start),
-    lengths U[1, crash_max_len]; slow links with p ``p_delay``, caps
-    U[1, delay_max]) drawn from a numpy stream."""
+    """``cfg``'s own plan distribution (the JAX package's
+    ``FaultPlan.sample``: crash starts U[0, crash_max_start), lengths
+    U[1, crash_max_len]; slow links with p ``p_delay``, caps
+    U[1, delay_max]; the partition and gray-failure fields of
+    :func:`gray_plan_fields`) drawn from a numpy stream."""
     f = cfg.fault
     return fault_plan(
         cfg.n_inst, cfg.n_acc, cfg.n_prop, f.p_equiv, seed, f.p_crash, f.p_crash_prop,
-        f.crash_max_start, f.crash_max_len, device, f.p_delay, f.delay_max,
+        f.crash_max_start, f.crash_max_len, device, f.p_delay, f.delay_max, gray=f,
     )
 
 
 def main_plan(cfg, device="cuda"):
     """A main path's plan: :func:`config_plan` at the config's seed where
-    the config samples crashes, equivocators or link delays, else None
-    (``run`` builds the fault-free plan itself, inside the timed window)."""
-    f = cfg.fault
-    if f.p_crash or f.p_crash_prop or f.p_equiv or f.p_delay:
+    the config has a knob whose plan is sampled (crashes, equivocators,
+    link delays, partitions, one-way cuts, flaky links, timer skew), else
+    None (``run`` builds the fault-free plan itself, inside the timed
+    window)."""
+    from paxos_tpu_torch.harness.run import sampled_plan_knobs
+
+    if sampled_plan_knobs(cfg.fault):
         return config_plan(cfg, cfg.seed, device)
     return None
 
@@ -695,6 +772,8 @@ def compare(
             read += ["pcrash_start", "pcrash_end"]
         if plan.link_delay is not None:  # K4 reads the latency caps
             read += ["link_delay"]
+        if cfg.protocol == "paxos":  # K1's arms read the partition and gray leaves
+            read += k1_gray_plan_reads(cfg.fault, plan)
         plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
         # Each lane's state read and written once, its plan read once; but a
         # lane K1 settles at the timed chunks' entry (counted on their last
@@ -740,6 +819,16 @@ def compare(
         if out["ms"] < out["bound_ms"]:
             raise AssertionError(f"{name}: {out['ms']:.3f} ms beats its bound, which is no floor")
     return out
+
+
+def k1_gray_plan_reads(fault, plan) -> list:
+    """The partition and gray-failure plan leaves K1's arms read for
+    ``fault``: the partition windows and sides where ``p_part`` > 0, and
+    the optional fields its knobs put in the plan."""
+    from paxos_tpu_torch.faults.injector import optional_fields
+
+    reads = ["part_start", "part_end", "aside", "pside"] if fault.p_part > 0.0 else []
+    return reads + [n for n in optional_fields(fault) if n != "link_delay"]
 
 
 def settled_lanes(state) -> torch.Tensor:
@@ -826,6 +915,10 @@ def phase_compare(ceiling: float) -> dict:
     for protocol in ("paxos", "fastpaxos", "raftcore"):
         for name, cfgk in fr_knob_configs(protocol, 4096, 10).items():
             compare(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
+    # K1's gray-failure and partition arms: each knob alone and the
+    # configs that set them, over two chunks.
+    for name, cfgk in gray_knob_configs(4096, 12).items():
+        compare(f"paxos (2,5,8) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
@@ -858,7 +951,7 @@ def phase_compare(ceiling: float) -> dict:
         cfg = main_config(path, FULL_LANES, 7)
         full[path] = compare(
             f"{path} full width", cfg, main_plan(cfg), 64, reps=5, ceiling=ceiling,
-            census=mp.census, compact=mp.compact,
+            census=mp.census, compact=mp.compact, chunks=mp.compare_chunks,
         )
         # The first chunk, where the lanes still send (on a long log every
         # chunk does, so the steady state above is that chunk already).
@@ -867,7 +960,7 @@ def phase_compare(ceiling: float) -> dict:
                 f"{path} full width, first chunk", cfg, main_plan(cfg), 64, reps=5,
                 ceiling=ceiling, census=mp.census, from_init=True,
             )
-    for path in ("paxos", "fastpaxos", "raftcore", "config3", "config3long", "synchpaxos"):
+    for path in MAIN_PATHS:
         full[path]["load_store_ms"] = time_load_store(path)
     # K4's busiest chunk: the first of the delta-violating regime, where the
     # fast path misses its window and lanes fall back to classic rounds.
@@ -1062,7 +1155,32 @@ def phase_checker() -> dict:
     log(f"checker: {sp} {out[sp]} (violations {report['violations']})")
     if out[sp] != SP_CHECKER_DISAGREE:
         raise AssertionError(f"{sp}: {out[sp]}, the JAX package gives {SP_CHECKER_DISAGREE}")
+    # Paxos' bug injections on K1's arms (config_flex on its default
+    # instantiation; sizes in paxos_checker_cases).
+    for name, cfg, ticks in paxos_checker_cases():
+        report = run(cfg, total_ticks=ticks, plan=main_plan(cfg))
+        out[name] = report["violations"]
+        log(f"checker: {name} violations {out[name]}")
+        if out[name] <= 0:
+            raise AssertionError(f"{name} must light up the safety checker")
     return out
+
+
+def paxos_checker_cases() -> list:
+    """(name, config, ticks) of Paxos' bug injections that the checker must
+    catch, each on its numpy plan: payload corruption at 1024 lanes over
+    256 ticks and the unsafe Flexible Paxos quorums 2/2 at 8192 lanes over
+    256 ticks (the JAX package's pin sizes), and stale-snapshot recovery at
+    65536 lanes over 256 ticks: on Paxos alone it breaks agreement on a
+    few lanes in ten thousand (none at the JAX package's 4096-lane pin,
+    which sums Paxos and Fast Paxos)."""
+    from paxos_tpu_torch.harness import config as C
+
+    return [
+        ("paxos config_corrupt", C.config_corrupt(1024, 0), 256),
+        ("paxos config_stale", C.config_stale(65536, 0), 256),
+        ("paxos config_flex(2,2)", C.config_flex(2, 2, 8192, 11), 256),
+    ]
 
 
 def sp_delay_off_config(n_inst: int, seed: int):
@@ -1119,6 +1237,44 @@ def fr_knob_configs(protocol: str, n_inst: int, seed: int) -> dict:
     }
 
 
+def gray_knob_configs(n_inst: int, seed: int) -> dict:
+    """The knob cases of K1's gray-failure and partition arms: each knob of
+    ``config_gray_chaos`` alone on the config's own base (idling, holds,
+    p_dup 0.05): a two-way partition, a one-way one, flaky links without
+    and with duplication, timeout skew and backoff skew; then
+    ``config_gray_chaos`` itself, ``config_partition``, ``config_corrupt``,
+    ``config_stale``, amnesia (``config_stale`` with stale_k 0 and
+    amnesia on) and ``config_flex(4, 2)``."""
+    from paxos_tpu_torch.harness import config as C
+
+    chaos = C.config_gray_chaos(n_inst, seed)
+    off = dict(p_part=0.0, p_asym=0.0, p_flaky=0.0, timeout_skew=0, backoff_skew=0)
+    knobs = {
+        "p_part two-way": dict(p_part=0.5),
+        "p_asym": dict(p_part=0.5, p_asym=0.7),
+        "p_flaky without dup": dict(p_flaky=0.4, flaky_dup=0.0, p_dup=0.0),
+        "p_flaky with dup": dict(p_flaky=0.4),
+        "timeout_skew 6": dict(timeout_skew=6),
+        "backoff_skew 3": dict(backoff_skew=3),
+    }
+    out = {
+        name: dataclasses.replace(chaos, fault=dataclasses.replace(chaos.fault, **{**off, **kv}))
+        for name, kv in knobs.items()
+    }
+    stale = C.config_stale(n_inst, seed)
+    out.update({
+        "config_gray_chaos": chaos,
+        "config_partition": C.config_partition(n_inst, seed),
+        "config_corrupt": C.config_corrupt(n_inst, seed),
+        "config_stale": stale,
+        "amnesia": dataclasses.replace(
+            stale, fault=dataclasses.replace(stale.fault, stale_k=0, amnesia=True)
+        ),
+        "config_flex(4, 2)": C.config_flex(4, 2, n_inst, seed),
+    })
+    return out
+
+
 def sp_checker_config(n_inst: int = 1024):
     """config_delay_chaos at seed 3 with delta violated, the planted
     sp_unsafe_fast bug and p_drop 0.4."""
@@ -1134,6 +1290,15 @@ def mp_checker_config(n_inst: int = 1024):
     """config3 at seed 3 with equivocating acceptors (p_equiv 0.4)."""
     cfg = main_config("config3", n_inst, 3)
     return dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_equiv=0.4))
+
+
+def arms_ptxas(lines: list) -> list:
+    """The ``ptxas`` lines of K1's arms instantiation (the entry function
+    that takes a ``Gray``, and the two lines after it)."""
+    for k, line in enumerate(lines):
+        if "entry function" in line and "fused_paxos_kernel" in line and "Gray" in line:
+            return lines[k:k + 3]
+    raise AssertionError("no ptxas report of K1's arms instantiation")
 
 
 def card_line() -> str:
@@ -1204,6 +1369,8 @@ def main() -> int:
         if len(paths) > 1:
             entry["launches_by_path"] = {p: measured[p]["main_path_launches"] for p in paths}
             entry.update({p: measured[p] for p in paths[1:]})
+        if protocol == "paxos":  # the graychaos path runs K1's arms instantiation
+            entry["graychaos"]["ptxas"] = arms_ptxas(built["ptxas"][binding.kernel])
         if protocol in geometry:
             entry["instantiations"] = geometry[protocol]  # threads, smem_bytes, blocks_per_sm each
         kernels.append(entry)

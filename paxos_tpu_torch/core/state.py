@@ -6,8 +6,9 @@ int32 or bool; NIL ballots and values are 0.
 
 ``leaves()`` returns the tensors in the reference's flatten order (flax
 field order, absent optional fields dropped), so a sha256 over the leaf
-bytes equals the reference's state digest.  The snapshot shadows and the
-observer planes of the reference are not ported yet.
+bytes equals the reference's state digest.  A Paxos state run with
+``stale_k > 0`` carries the acceptors' snapshot shadows, as the reference's
+does; the observer planes of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,14 +39,20 @@ class AcceptorState:
     promised: torch.Tensor  # (A, I) int32 highest ballot promised
     acc_bal: torch.Tensor  # (A, I) int32 ballot of last accepted proposal
     acc_val: torch.Tensor  # (A, I) int32 value of last accepted proposal
+    # Stale-snapshot shadows (FaultConfig.stale_k): the durable image a
+    # recovering acceptor rolls back to; None unless the knob is on.
+    snap_promised: "torch.Tensor | None" = None  # (A, I) int32
+    snap_bal: "torch.Tensor | None" = None  # (A, I) int32
+    snap_val: "torch.Tensor | None" = None  # (A, I) int32
 
     @classmethod
-    def init(cls, n_inst: int, n_acc: int, device="cpu") -> "AcceptorState":
+    def init(cls, n_inst: int, n_acc: int, device="cpu", stale: bool = False) -> "AcceptorState":
         shape = (n_acc, n_inst)
-        return cls(*(_zeros(shape, device) for _ in range(3)))
+        return cls(*(_zeros(shape, device) for _ in range(6 if stale else 3)))
 
     def leaves(self) -> list:
-        return [self.promised, self.acc_bal, self.acc_val]
+        snaps = [self.snap_promised, self.snap_bal, self.snap_val]
+        return [self.promised, self.acc_bal, self.acc_val] + [x for x in snaps if x is not None]
 
 
 @dataclasses.dataclass
@@ -161,10 +168,12 @@ class LaneState:
     ``acceptor``, ``proposer``, ``learner``, ``requests``, ``replies`` and
     the ``tick`` scalar, flattened in that order.  ``protocol`` names the
     tick that advances it; ``takes_stamps`` says whether its ``init``
-    allocates delay stamps (``delay=True``)."""
+    allocates delay stamps (``delay=True``), ``takes_snapshots`` whether
+    it allocates the acceptors' snapshot shadows (``stale=True``)."""
 
     protocol = ""
     takes_stamps = False
+    takes_snapshots = False
 
     def leaves(self) -> list:
         """Tensors in the reference's flatten order (tick last)."""
@@ -185,15 +194,20 @@ class LaneState:
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
         for this state's (n_inst, n_prop, n_acc, k_slots), with delay stamps
-        where the request buffer carries them."""
-        stamped = {"delay": True} if self.requests.until is not None else {}
-        if stamped and not self.takes_stamps:
+        where the request buffer carries them and snapshot shadows where
+        the acceptors carry them."""
+        kw = {"delay": True} if self.requests.until is not None else {}
+        if kw and not self.takes_stamps:
             raise ValueError(
                 f"a {type(self).__name__} carries no delay stamps (MsgBuf.until)"
             )
+        if self.snapshots:
+            if not self.takes_snapshots:
+                raise ValueError(f"a {type(self).__name__} carries no snapshot shadows")
+            kw["stale"] = True
         check_leaves(
             self.leaves(),
-            init_layout(type(self), self.n_inst, self.n_prop, self.n_acc, self.k_slots, **stamped),
+            init_layout(type(self), self.n_inst, self.n_prop, self.n_acc, self.k_slots, **kw),
         )
 
     def clone(self):
@@ -226,12 +240,18 @@ class LaneState:
         """1 when the message buffers carry delay stamps (``until``), else 0."""
         return int(self.requests.until is not None)
 
+    @property
+    def snapshots(self) -> bool:
+        """Whether the acceptors carry snapshot shadows (``stale_k > 0``)."""
+        return getattr(self.acceptor, "snap_promised", None) is not None
+
 
 @dataclasses.dataclass
 class PaxosState(LaneState):
     """Full simulator state for single-decree Paxos."""
 
     protocol = "paxos"
+    takes_snapshots = True
 
     acceptor: AcceptorState
     proposer: ProposerState
@@ -242,8 +262,11 @@ class PaxosState(LaneState):
 
     @classmethod
     def init(
-        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu"
+        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu",
+        stale: bool = False,
     ) -> "PaxosState":
+        """The initial state; ``stale`` allocates the acceptors' snapshot
+        shadows (``stale_k > 0``)."""
         check_topology(n_prop, n_acc)
         proposer = ProposerState.init(n_inst, n_prop, device)
         # Every proposer opens with a phase-1 broadcast: PREPARE(bal) to all
@@ -252,7 +275,7 @@ class PaxosState(LaneState):
         requests.bal[PREPARE] = proposer.bal[:, None, :]
         requests.present[PREPARE] = True
         return cls(
-            acceptor=AcceptorState.init(n_inst, n_acc, device),
+            acceptor=AcceptorState.init(n_inst, n_acc, device, stale),
             proposer=proposer,
             learner=LearnerState.init(n_inst, k, device),
             requests=requests,

@@ -4,10 +4,12 @@
 Each mask of a tick draws from its own stream id; the ids are part of the
 schedule, so they must equal the reference's.  The single-decree ticks
 (paxos, fastpaxos, raftcore, synchpaxos) share one allocation, Multi-Paxos
-has its own.  Of the gray-failure streams only the bounded-delay draws
-(DELAY_BITS, LAT_BITS: ``p_delay``, SynchPaxos) are ported; the others and
-the workload streams are not (their knobs raise), apart from Multi-Paxos'
-CORRUPT id, listed for completeness.
+has its own.  Of the gray-failure streams the per-link loss and
+duplication bits and the corruption mask (LINK_BITS, DUP_BITS, CORRUPT:
+``p_flaky``, ``p_corrupt``) are ported for Paxos, and the bounded-delay
+draws (DELAY_BITS, LAT_BITS: ``p_delay``) for SynchPaxos; the workload
+streams are not (their plane raises), and Multi-Paxos' CORRUPT id is listed
+for completeness.
 """
 
 SINGLE_DECREE_STREAMS = dict(
@@ -21,6 +23,9 @@ SINGLE_DECREE_STREAMS = dict(
     KEEP_P1=7,  # PREPARE-class drop
     KEEP_P2=8,  # ACCEPT-class drop
     BACKOFF=9,  # proposer retry backoff
+    LINK_BITS=10,  # per-link loss raw bits (p_flaky)
+    DUP_BITS=11,  # per-link duplication raw bits (p_flaky + dup)
+    CORRUPT=12,  # in-flight corruption mask (p_corrupt)
     DELAY_BITS=13,  # per-edge delay decision raw bits (p_delay)
     LAT_BITS=14,  # per-edge sampled latency raw bits (delay_max)
 )

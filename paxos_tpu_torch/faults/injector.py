@@ -3,13 +3,16 @@
 :class:`FaultConfig` mirrors the reference's static knobs field for field,
 with the same defaults, so a config converts by ``dataclasses.asdict``.
 :class:`FaultPlan` holds the per-run crash windows, equivocation flags and
-partition sides, and the per-link latency caps of the bounded-delay channel
-(``link_delay``, present when ``p_delay > 0``).  The port does not sample
-plans yet (the reference draws them with ``jax.random``):
-:meth:`FaultPlan.none` is exact for configs with no crash, partition,
-equivocation or delay knob, and any other plan is carried across from the
-reference as numpy arrays (:meth:`FaultPlan.from_numpy`).  The other
-gray-failure plan fields are not ported yet.
+partition windows and sides, and the reference's optional gray-failure
+fields, each present when a knob gates it on: the one-way cut direction
+(``part_dir``, ``p_asym``), the per-link loss and duplication thresholds
+(``link_drop``, ``link_dup``, ``p_flaky``), the per-proposer timer skew
+(``ptimeout``, ``pboff``) and the per-link latency caps of the
+bounded-delay channel (``link_delay``, ``p_delay``).  The port does not
+sample plans yet (the reference draws them with ``jax.random``):
+:meth:`FaultPlan.none` is exact for configs with no plan knob, and any
+other plan is carried across from the reference as numpy arrays
+(:meth:`FaultPlan.from_numpy`).
 """
 
 from __future__ import annotations
@@ -37,6 +40,11 @@ def bits_below(bits: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
     """True where uint32(bits) < uint32(threshold), both int32 bit patterns
     (sign-flip unsigned compare)."""
     return (bits ^ INT32_MIN) < (threshold ^ INT32_MIN)
+
+
+def links_dup(cfg: "FaultConfig") -> bool:
+    """Per-link duplication is live: flaky links exist and some dup rate > 0."""
+    return cfg.p_flaky > 0.0 and (cfg.p_dup > 0.0 or cfg.flaky_dup > 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +93,22 @@ _BASE_FIELDS = (
 )
 _BOOL_FIELDS = frozenset({"equivocate", "aside", "pside"})
 # The reference's optional plan fields in flatten order, each with the knob
-# test that puts it in a sampled plan; of these only link_delay is ported.
+# test that puts it in a sampled plan.
 _OPTIONAL_FIELDS = (
     ("part_dir", lambda f: f.p_asym > 0.0),
     ("link_drop", lambda f: f.p_flaky > 0.0),
-    ("link_dup", lambda f: f.p_flaky > 0.0 and (f.p_dup > 0.0 or f.flaky_dup > 0.0)),
+    ("link_dup", links_dup),
     ("ptimeout", lambda f: f.timeout_skew > 0),
     ("pboff", lambda f: f.backoff_skew > 1),
     ("link_delay", lambda f: f.p_delay > 0.0),
 )
+OPTIONAL_FIELDS = tuple(name for name, _ in _OPTIONAL_FIELDS)
+
+
+def optional_fields(cfg: "FaultConfig") -> list:
+    """The optional plan fields a plan sampled for ``cfg`` holds, in
+    flatten order."""
+    return [name for name, on in _OPTIONAL_FIELDS if on(cfg)]
 
 
 @dataclasses.dataclass
@@ -109,8 +124,18 @@ class FaultPlan:
     part_end: torch.Tensor  # (I,) int32
     aside: torch.Tensor  # (A, I) bool acceptor's side of the cut
     pside: torch.Tensor  # (P, I) bool proposer's side of the cut
+    # The gray-failure fields, None when the knob that gates them is off.
+    # (I,) int32 cut direction: 0 two-way, 1 only requests P->A cut, 2 only
+    # replies A->P cut (p_asym).
+    part_dir: Optional[torch.Tensor] = None
+    # (P, A, I) int32 per-link drop and duplication thresholds, uint32 in
+    # int32 bit patterns (p_flaky; link_dup also needs a dup rate > 0).
+    link_drop: Optional[torch.Tensor] = None
+    link_dup: Optional[torch.Tensor] = None
+    ptimeout: Optional[torch.Tensor] = None  # (P, I) int32 extra timeout ticks
+    pboff: Optional[torch.Tensor] = None  # (P, I) int32 backoff multiplier >= 1
     # (P, A, I) int32 per-link latency cap in ticks, 0 = the link never
-    # delays (p_delay); None when the config samples no delays.
+    # delays (p_delay).
     link_delay: Optional[torch.Tensor] = None
 
     @classmethod
@@ -119,8 +144,10 @@ class FaultPlan:
         cfg: "FaultConfig | None" = None,
     ) -> "FaultPlan":
         """The fault-free plan.  With ``cfg``, the fields its knobs gate on
-        are present but benign (``link_delay`` all 0), so the plan has the
-        structure of one the reference samples for ``cfg``."""
+        are present but benign (no cut direction, every link at the uniform
+        ``p_drop`` / ``p_dup`` threshold, no skew, ``link_delay`` all 0), so
+        the plan has the structure of one the reference samples for
+        ``cfg``."""
 
         def never(shape):
             return torch.full(shape, NEVER, dtype=torch.int32, device=device)
@@ -128,18 +155,27 @@ class FaultPlan:
         def false(shape):
             return torch.zeros(shape, dtype=torch.bool, device=device)
 
+        def full(shape, value):
+            return torch.full(shape, int(value), dtype=torch.int32, device=device)
+
         acc, prop, lane = (n_acc, n_inst), (n_prop, n_inst), (n_inst,)
-        delay = cfg is not None and cfg.p_delay > 0.0
+        edge = (n_prop, n_acc, n_inst)
+        benign = {
+            "part_dir": lambda f: full(lane, 0),
+            "link_drop": lambda f: full(edge, rate_threshold(f.p_drop)),
+            "link_dup": lambda f: full(edge, rate_threshold(f.p_dup)),
+            "ptimeout": lambda f: full(prop, 0),
+            "pboff": lambda f: full(prop, 1),
+            "link_delay": lambda f: full(edge, 0),
+        }
+        gray = {name: benign[name](cfg) for name in (optional_fields(cfg) if cfg else ())}
         return cls(
             crash_start=never(acc), crash_end=never(acc),
             equivocate=false(acc),
             pcrash_start=never(prop), pcrash_end=never(prop),
             part_start=never(lane), part_end=never(lane),
             aside=false(acc), pside=false(prop),
-            link_delay=(
-                torch.zeros((n_prop, n_acc, n_inst), dtype=torch.int32, device=device)
-                if delay else None
-            ),
+            **gray,
         )
 
     @classmethod
@@ -147,18 +183,12 @@ class FaultPlan:
         """A plan from the reference's plan leaves in flatten order.
 
         The reference's optional fields follow the nine base fields, each
-        present when a knob of its config gates it on, so which field a
-        tenth leaf is (``part_dir`` and ``link_delay`` alike) comes from
-        ``cfg``; without it the plan has the base fields only."""
+        present when a knob of its config gates it on, so which fields the
+        leaves past the ninth are (a tenth leaf may be ``part_dir`` or
+        ``link_delay`` alike) comes from ``cfg``; without it the plan has
+        the base fields only."""
         leaves = list(leaves)
-        optional = [n for n, on in _OPTIONAL_FIELDS if cfg is not None and on(cfg)]
-        unported = [n for n in optional if n != "link_delay"]
-        if unported:
-            raise NotImplementedError(
-                f"plan fields {unported} are not ported to paxos_tpu_torch yet "
-                "(gray-failure plan fields: ROADMAP queue A, slice 5 item 12)"
-            )
-        names = _BASE_FIELDS + tuple(optional)
+        names = _BASE_FIELDS + tuple(optional_fields(cfg) if cfg else ())
         if len(leaves) != len(names):
             raise ValueError(
                 f"plan has {len(leaves)} leaves; a plan for this config has "
@@ -177,8 +207,8 @@ class FaultPlan:
 
     def leaves(self) -> list:
         """The reference's flatten order (absent optional fields dropped)."""
-        out = [getattr(self, name) for name in _BASE_FIELDS]
-        return out if self.link_delay is None else out + [self.link_delay]
+        names = _BASE_FIELDS + OPTIONAL_FIELDS
+        return [getattr(self, n) for n in names if getattr(self, n) is not None]
 
     def to(self, device) -> "FaultPlan":
         return FaultPlan(**{
@@ -189,6 +219,21 @@ class FaultPlan:
     def alive(self, tick) -> torch.Tensor:
         """(A, I) bool: acceptor is up at ``tick``."""
         return ~((self.crash_start <= tick) & (tick < self.crash_end))
+
+    def link_ok(self, tick, direction: "str | None" = None) -> torch.Tensor:
+        """(P, A, I) bool: the proposer<->acceptor link delivers at ``tick``.
+
+        False only inside the lane's partition window for pairs on opposite
+        sides of the cut.  ``direction`` (``"req"``: proposer -> acceptor,
+        ``"rep"``: acceptor -> proposer) reads a one-way cut from
+        ``part_dir``: 1 cuts requests only, 2 replies only, 0 both; without
+        a direction or a ``part_dir`` the cut is two-way."""
+        cut = (self.part_start <= tick) & (tick < self.part_end)  # (I,)
+        if direction is not None and self.part_dir is not None:
+            spares = 2 if direction == "req" else 1
+            cut = cut & (self.part_dir != spares)
+        same = self.pside[:, None] == self.aside[None]  # (P, A, I)
+        return same | ~cut[None, None]
 
     def prop_alive(self, tick) -> torch.Tensor:
         """(P, I) bool: proposer is up at ``tick``."""

@@ -207,3 +207,100 @@ def config_delay_chaos(
             timeout=8,
         ),
     )
+
+
+def config_partition(n_inst: int = 65_536, seed: int = 0) -> SimConfig:
+    """Network partitions: per-instance bipartition windows, drop and duels.
+    Messages crossing the cut stall until the partition heals
+    (``FaultPlan.link_ok``)."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        fault=FaultConfig(
+            p_drop=0.05,
+            p_idle=0.1,
+            p_hold=0.1,
+            p_part=0.8,
+            part_max_start=40,
+            part_max_len=30,
+        ),
+    )
+
+
+def config_gray_chaos(n_inst: int = 65_536, seed: int = 0) -> SimConfig:
+    """Gray-failure chaos: one-way cuts (``p_asym``), per-link loss and
+    duplication rates (``p_flaky``, ``flaky_drop``, ``flaky_dup``) and
+    per-proposer timeout and backoff skew, all at once.  Chaos, not a bug:
+    safety must hold at any length, and lanes decide once the cuts heal."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        fault=FaultConfig(
+            p_idle=0.1,
+            p_hold=0.1,
+            p_dup=0.05,
+            p_part=0.5,
+            part_max_start=40,
+            part_max_len=30,
+            p_asym=0.7,
+            p_flaky=0.4,
+            flaky_drop=0.4,
+            flaky_dup=0.2,
+            timeout_skew=6,
+            backoff_skew=3,
+        ),
+    )
+
+
+def config_corrupt(n_inst: int = 4096, seed: int = 0) -> SimConfig:
+    """Bug injection: in-flight payload corruption (``p_corrupt``).  An
+    ACCEPT's value flips a bit and a PREPARE's ballot moves up one between
+    send and process, so acceptors vote for values nobody proposed, which
+    the agreement checker must flag."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        fault=FaultConfig(p_drop=0.1, p_idle=0.2, p_hold=0.2, p_corrupt=0.2, timeout=6),
+    )
+
+
+def config_stale(n_inst: int = 4096, seed: int = 0) -> SimConfig:
+    """Bug injection: stale-snapshot recovery (amnesia generalized).  A
+    crashed acceptor recovers to its image as of the last multiple of
+    ``stale_k`` ticks, losing up to ``stale_k`` ticks of promises and
+    accepts; the checker must flag the consequences."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        fault=FaultConfig(
+            p_drop=0.1,
+            p_idle=0.1,
+            p_hold=0.1,
+            timeout=6,
+            stale_k=8,
+            p_crash=0.4,
+            crash_max_start=60,
+            crash_max_len=20,
+        ),
+    )
+
+
+def config_flex(q1: int, q2: int, n_inst: int = 16_384, seed: int = 0) -> SimConfig:
+    """Flexible Paxos: explicit phase-1 / phase-2 quorums over 5 acceptors.
+    Safe iff ``q1 + q2 > 5``; an unsafe pair is a bug-injection mode the
+    checker must catch."""
+    return SimConfig(
+        n_inst=n_inst,
+        n_prop=2,
+        n_acc=5,
+        seed=seed,
+        fault=FaultConfig(p_idle=0.2, p_hold=0.2, q1=q1, q2=q2),
+    )

@@ -54,10 +54,17 @@ STATE_TYPES = {
 
 # Plan knobs FaultPlan.none cannot reproduce: the reference samples them
 # with jax.random, so such a plan must be carried across (``plan=``).
+# (p_corrupt reads no plan field: FaultPlan.none serves it.)
 _SAMPLED_PLAN_KNOBS = (
     "p_crash", "p_crash_prop", "p_part", "p_equiv", "p_asym", "p_flaky",
-    "p_corrupt", "timeout_skew", "backoff_skew", "stale_k", "p_delay",
+    "timeout_skew", "backoff_skew", "stale_k", "p_delay",
 )
+
+
+def sampled_plan_knobs(fault) -> list:
+    """The knobs of ``fault`` whose plan the reference samples, so that
+    :func:`init_plan` cannot build it."""
+    return [k for k in _SAMPLED_PLAN_KNOBS if getattr(fault, k)]
 
 
 class MeasurementCorrupted(RuntimeError):
@@ -140,7 +147,8 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
 
 def init_state(cfg: SimConfig, device=None) -> LaneState:
     """The protocol's initial state, as the reference's ``init_state``
-    (SynchPaxos with delay stamps when ``p_delay > 0``)."""
+    (SynchPaxos with delay stamps when ``p_delay > 0``, Paxos with the
+    acceptors' snapshot shadows when ``stale_k > 0``)."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
     device = resolve_device(device)
@@ -150,16 +158,20 @@ def init_state(cfg: SimConfig, device=None) -> LaneState:
             cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.log_len, k=cfg.k_slots,
             lease_init=cfg.fault.lease_len, device=device,
         )
-    stamped = {"delay": cfg.fault.p_delay > 0.0} if cfg.protocol == "synchpaxos" else {}
+    kw = {}
+    if cfg.protocol == "synchpaxos":
+        kw["delay"] = cfg.fault.p_delay > 0.0
+    if cfg.protocol == "paxos":
+        kw["stale"] = cfg.fault.stale_k > 0
     return STATE_TYPES[cfg.protocol].init(
-        cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots, device=device, **stamped
+        cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots, device=device, **kw
     )
 
 
 def init_plan(cfg: SimConfig, device=None) -> FaultPlan:
     """The fault-free plan, exact when no plan knob is on; otherwise the
     plan must come from the reference (``run(..., plan=...)``)."""
-    on = [k for k in _SAMPLED_PLAN_KNOBS if getattr(cfg.fault, k)]
+    on = sampled_plan_knobs(cfg.fault)
     if on:
         raise ValueError(
             f"FaultConfig knobs {on} need a sampled fault plan, which the port "
@@ -370,7 +382,10 @@ def run(
     ``device`` defaults to CUDA (and raises without a GPU); ``"cpu"`` runs
     the plain PyTorch versions.  ``plan`` overrides the fault-free plan:
     configs with crash, equivocation or delay knobs need one, carried
-    across from the reference with :mod:`paxos_tpu_torch.interop`.  A
+    across from the reference with :mod:`paxos_tpu_torch.interop`, and so
+    do the gray-failure and partition configs of Paxos
+    (``config_partition``, ``config_gray_chaos``, ``config_corrupt``,
+    ``config_stale``).  A
     long-log Multi-Paxos config compacts after every ``chunk`` ticks, and
     ``until_all_chosen`` then waits for the whole log to replicate.
     """

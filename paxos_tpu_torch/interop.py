@@ -36,7 +36,8 @@ from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 # Per protocol: the state type, its sub-states with their leaf counts in
 # flatten order, and the trailing scalar and per-lane leaves (the tick, and
 # Multi-Paxos' base).  SynchPaxos' buffers carry a fifth leaf, the delay
-# stamps, when its config delays sends (``_STAMPED``).
+# stamps, when its config delays sends (``_STAMPED``); Paxos' acceptors
+# carry three more, the snapshot shadows, when its config has stale_k > 0.
 _SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
 _STAMPED = ((LearnerState, 8), (MsgBuf, 5), (MsgBuf, 5))
 _GROUPS = {
@@ -68,20 +69,23 @@ def _tensor(arr, device) -> torch.Tensor:
 
 def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
     """``protocol``'s state from the reference's flattened leaves (a
-    SynchPaxos state with or without delay stamps: 31 or 29 leaves)."""
+    SynchPaxos state with or without delay stamps: 31 or 29 leaves; a
+    Paxos state with or without snapshot shadows: 32 or 29)."""
     leaves = list(leaves)
     if protocol not in _GROUPS:
         raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
     state_cls, groups, tail = _GROUPS[protocol]
     if protocol == "synchpaxos" and len(leaves) == 31:
         groups = groups[:2] + _STAMPED
+    if protocol == "paxos" and len(leaves) == 32:
+        groups = ((AcceptorState, 6),) + groups[1:]
     want = sum(n for _, n in groups) + len(tail)
     if len(leaves) != want:
         raise NotImplementedError(
             f"state has {len(leaves)} leaves; the port holds the {want} of a "
             f"{protocol} state with every optional plane off (snapshot "
-            "shadows, delay stamps outside SynchPaxos and observer planes: "
-            "ROADMAP queue A slice 5)"
+            "shadows outside Paxos, delay stamps outside SynchPaxos and "
+            "observer planes: ROADMAP queue A slice 5)"
         )
     tensors = [_tensor(leaf, device) for leaf in leaves]
     parts, k = [], 0
@@ -102,7 +106,8 @@ def state_to_numpy(state: LaneState) -> list:
 def plan_from_numpy(leaves, device="cpu", cfg: "FaultConfig | None" = None) -> FaultPlan:
     """A :class:`FaultPlan` from the reference's flattened plan leaves
     (crash windows, equivocators, proposer crash windows, partitions, and
-    the per-link latency caps of a plan sampled for ``cfg`` with
-    ``p_delay > 0``).  The reference's optional fields are told apart by
-    the knobs of ``cfg`` that gate them, not by the leaf count."""
+    the optional fields of a plan sampled for ``cfg``: the cut direction,
+    the per-link loss and duplication thresholds, the timer skew and the
+    per-link latency caps).  The reference's optional fields are told apart
+    by the knobs of ``cfg`` that gate them, not by the leaf count."""
     return FaultPlan.from_numpy(leaves, device, cfg)

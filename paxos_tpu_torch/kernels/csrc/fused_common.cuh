@@ -40,7 +40,8 @@ namespace {
 constexpr int kLeaves = 28;        // state leaves of a single-decree protocol, tick excluded
 constexpr int kStampedLeaves = 30;  // the same with the two buffers' delay stamps
 constexpr int kMaxLeaves = 32;     // room for every protocol's leaves
-constexpr int kParams = 27;
+constexpr int kParams = 37;
+constexpr int kPlanLeaves = 15;
 constexpr int32_t kInt32Max = 2147483647;
 constexpr int32_t kInt32Min = -2147483647 - 1;
 constexpr int32_t kBallotLimit = (1 << 15) - 1;  // report-time ballot limit
@@ -49,7 +50,8 @@ constexpr int kMaxProposers = 8;                 // core/ballot.py
 // Stream ids (core/streams.py).
 constexpr uint32_t kSel = 0, kBusy = 1, kDeliver = 2, kDupReq = 3,
                    kDupRep = 4, kKeepProm = 5, kKeepAccd = 6, kKeepP1 = 7,
-                   kKeepP2 = 8, kBackoff = 9, kDelayBits = 13, kLatBits = 14;
+                   kKeepP2 = 8, kBackoff = 9, kLinkBits = 10, kDupBits = 11,
+                   kCorrupt = 12, kDelayBits = 13, kLatBits = 14;
 
 // The leaves every protocol shares, in flatten order after its 12 role
 // leaves (3 acceptor, 9 proposer): learner, requests, replies.  A state with
@@ -103,6 +105,37 @@ struct Params {
   int32_t delay_max;       // latency draw range, >= 1
   int32_t delta;           // SynchPaxos synchrony window, >= 0
   int32_t sp_unsafe_fast;  // SynchPaxos planted bug
+};
+
+// The gray-failure and partition arms of K1 (fused_paxos_tick.cu): their
+// knobs and plan leaves, a separate kernel argument of K1's arms
+// instantiation only, so that Plan and Params, which every kernel takes,
+// stay as they are.  An optional plan leaf is null where the plan has none.
+struct Gray {
+  Knob corrupt;            // p_corrupt
+  int32_t stale_k;         // snapshot period of stale recovery, 0 off
+  int32_t amnesia;         // a recovering acceptor forgets its state
+  int32_t partition;       // p_part > 0: cut links stall
+  int32_t asym;            // p_asym > 0: part_dir makes a cut one-way
+  int32_t flaky;           // p_flaky > 0: per-link drop thresholds replace p_drop
+  int32_t flaky_dup;       // ... and per-link dup thresholds p_dup (links_dup)
+  int32_t timeout_skew;    // timeout_skew > 0: ptimeout extends each timeout
+  int32_t backoff_skew;    // backoff_skew > 1: pboff multiplies each backoff
+  const int32_t* part_start;  // (I,) partition window
+  const int32_t* part_end;    // (I,)
+  const uint8_t* aside;       // (A, I) bool acceptor's side of the cut
+  const uint8_t* pside;       // (P, I) bool proposer's side of the cut
+  const int32_t* part_dir;    // (I,) 0 two-way, 1 requests cut, 2 replies cut (p_asym), or null
+  const int32_t* link_drop;   // (P, A, I) uint32 drop threshold (p_flaky), or null
+  const int32_t* link_dup;    // (P, A, I) uint32 dup threshold (p_flaky + dup), or null
+  const int32_t* ptimeout;    // (P, I) extra timeout ticks (timeout_skew), or null
+  const int32_t* pboff;       // (P, I) backoff multiplier (backoff_skew), or null
+
+  // Whether a knob of the arms is on.
+  bool on() const {
+    return corrupt.mode != 0 || stale_k != 0 || amnesia != 0 || partition != 0 || asym != 0 ||
+           flaky != 0 || flaky_dup != 0 || timeout_skew != 0 || backoff_skew != 0;
+  }
 };
 
 __host__ __device__ constexpr int bit_length(int x) {
@@ -196,6 +229,12 @@ struct TickStream {
   __device__ __forceinline__ bool survives_at(const Knob& k, uint32_t stream, int prefix) const {
     return k.mode == 0 || !fires_at(k, stream, prefix);
   }
+  // bits_below(raw bits, thr): a per-link threshold (a uint32 in an int32
+  // bit pattern, compared without sign); a 0 threshold never fires, and
+  // is not drawn.
+  __device__ __forceinline__ bool below_at(int32_t thr, uint32_t stream, int prefix) const {
+    return thr != 0 && bits(stream, prefix) < static_cast<uint32_t>(thr);
+  }
 };
 
 // The learner's bounded (ballot, value) -> voter-mask table of one lane,
@@ -281,21 +320,24 @@ Knob knob(const long long* v) {
 
 // Unpack a C entry point's arguments: `leaves` and `plan` are host arrays
 // of device pointers (the protocol's `want_leaves` per-lane state leaves in
-// flatten order; crash_start, crash_end, equivocate, pcrash_start,
-// pcrash_end, link_delay, the last null where the plan has none); `params`
-// holds kParams integers in the order of the Python wrapper
-// (_kernel_params).  A kernel that does not model the bounded delay
-// (`reads_delay` false) refuses p_delay.  Returns cudaSuccess or
-// cudaErrorInvalidValue.
+// flatten order; kPlanLeaves plan leaves: crash_start, crash_end,
+// equivocate, pcrash_start, pcrash_end, link_delay, then Gray's
+// part_start to pboff, each optional one null where the plan has none);
+// `params` holds kParams integers in the order of the Python wrapper
+// (_kernel_params), Gray's knobs last.  A kernel that does not model the
+// bounded delay (`reads_delay` false) refuses p_delay; one that does not
+// model the gray-failure and partition arms (`gray` null) refuses their
+// knobs, and a knob of theirs on needs its plan leaves.  Returns
+// cudaSuccess or cudaErrorInvalidValue.
 cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
                       const long long* params, int n_params, Leaves* L, Plan* pl, Params* prm,
-                      bool reads_delay = false) {
+                      bool reads_delay = false, Gray* gray = nullptr) {
   if (n_leaves != want_leaves || want_leaves > kMaxLeaves || n_params != kParams)
     return cudaErrorInvalidValue;
   for (int j = 0; j < n_leaves; ++j) L->p[j] = leaves[j];
-  *pl = Plan{static_cast<const int32_t*>(plan[0]), static_cast<const int32_t*>(plan[1]),
-             static_cast<const uint8_t*>(plan[2]), static_cast<const int32_t*>(plan[3]),
-             static_cast<const int32_t*>(plan[4]), static_cast<const int32_t*>(plan[5])};
+  const auto i32 = [&](int k) { return static_cast<const int32_t*>(plan[k]); };
+  const auto u8 = [&](int k) { return static_cast<const uint8_t*>(plan[k]); };
+  *pl = Plan{i32(0), i32(1), u8(2), i32(3), i32(4), i32(5)};
   prm->n_inst = params[0];
   prm->block = static_cast<int32_t>(params[1]);
   prm->n_ticks = static_cast<int32_t>(params[2]);
@@ -318,11 +360,23 @@ cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
   prm->delay_max = static_cast<int32_t>(params[24]);
   prm->delta = static_cast<int32_t>(params[25]);
   prm->sp_unsafe_fast = static_cast<int32_t>(params[26]);
+  const auto flag = [&](int k) { return static_cast<int32_t>(params[k]); };
+  const Gray g{knob(params + 27), flag(29), flag(30), flag(31), flag(32), flag(33), flag(34),
+               flag(35), flag(36), i32(6), i32(7), u8(8), u8(9), i32(10), i32(11), i32(12),
+               i32(13), i32(14)};
   if (prm->n_inst <= 0 || prm->block <= 0 || prm->n_inst % prm->block != 0 || prm->backoff_n < 1 ||
-      prm->delay_max < 1 || prm->delta < 0 || prm->delay.mode == 2)
+      prm->delay_max < 1 || prm->delta < 0 || prm->delay.mode == 2 || g.stale_k < 0)
     return cudaErrorInvalidValue;
   if (prm->delay.mode != 0 && (!reads_delay || pl->link_delay == nullptr))
     return cudaErrorInvalidValue;
+  if (g.on() && gray == nullptr) return cudaErrorInvalidValue;
+  if ((g.partition && (g.part_start == nullptr || g.part_end == nullptr || g.aside == nullptr ||
+                       g.pside == nullptr)) ||
+      (g.asym && g.part_dir == nullptr) || (g.flaky && g.link_drop == nullptr) ||
+      (g.flaky_dup && (!g.flaky || g.link_dup == nullptr)) ||
+      (g.timeout_skew && g.ptimeout == nullptr) || (g.backoff_skew && g.pboff == nullptr))
+    return cudaErrorInvalidValue;
+  if (gray != nullptr) *gray = g;
   return cudaSuccess;
 }
 
@@ -374,13 +428,12 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int (&allowed)[kMaxDevices]) {
   return cudaSuccess;
 }
 
-using TickKernel = void (*)(Leaves, Plan, const int32_t*, Params);
-
-// One instantiation of such a kernel, B lanes a block, with `smem` bytes of
-// dynamic shared memory a block (at least NEED, its staged rows'):
-// `launch` runs it over prm.n_inst lanes, `occupancy` asks how many of its
-// blocks an SM holds.
-template <TickKernel KERNEL, int B, int NEED>
+// One instantiation of such a kernel (a `__global__` function of Leaves,
+// Plan, the tick pointer, Params and any further arguments), B lanes a
+// block, with `smem` bytes of dynamic shared memory a block (at least NEED,
+// its staged rows'): `launch` runs it over prm.n_inst lanes, `occupancy`
+// asks how many of its blocks an SM holds.
+template <auto KERNEL, int B, int NEED>
 struct SmemInst {
   static cudaError_t prepare(int smem) {
     static int allowed[kMaxDevices] = {};
@@ -388,11 +441,12 @@ struct SmemInst {
     return allow_smem(KERNEL, smem, allowed);
   }
 
+  template <typename... More>
   static cudaError_t launch(const Leaves& L, const Plan& plan, const int32_t* tick,
-                            const Params& prm, int smem, cudaStream_t stream) {
+                            const Params& prm, int smem, cudaStream_t stream, const More&... more) {
     const cudaError_t rc = prepare(smem);
     if (rc != cudaSuccess) return rc;
-    KERNEL<<<grid_for(prm.n_inst, B), B, smem, stream>>>(L, plan, tick, prm);
+    KERNEL<<<grid_for(prm.n_inst, B), B, smem, stream>>>(L, plan, tick, prm, more...);
     return cudaGetLastError();
   }
 

@@ -49,12 +49,30 @@
 // a decided campaign's chunk costs little more than its scalars' loads
 // and stores.
 //
+// The gray-failure and partition arms (partition cuts, one-way cuts,
+// per-link loss and duplication thresholds, payload corruption, timer skew,
+// stale-snapshot recovery and amnesia) compile into an instantiation of
+// their own (ARMS, at (2,5,8), the shape of every config that sets them),
+// which the C entry picks when a knob of theirs is on; the default
+// instantiations compile none of their code.  Each arm keeps to the
+// design above: a cut masks the selected request and the delivered replies
+// after the draws that select them, which are keyed by position, so they
+// are made as before; the per-link draws (LINK_BITS where a message is
+// sent, DUP_BITS where one is delivered or selected) and the corruption
+// draw (an acceptor that processes a request) are made only at the site
+// that reads them, each per-link threshold read from the plan there; the
+// snapshot shadows stay in global memory, read on a recovery tick and
+// written on a snapshot tick, and a settled lane still takes its restores
+// and snapshots, one tick at a time.
+//
 // Semantics follow the plain PyTorch version (protocols/paxos.py) exactly;
 // the PRNG, stream positions and argument layout are in fused_common.cuh.
 //  - reply delivery and consume precede the acceptor's new replies;
 //    proposers fold the pre-tick reply payloads; requests are consumed
 //    before the proposers send; ACCEPT carries the old ballot, PREPARE the
 //    next one; chosen_tick is the pre-increment tick.
+
+#include <type_traits>
 
 #include "fused_common.cuh"
 
@@ -81,6 +99,10 @@ enum Leaf {
   kBal, kPhase, kOwnVal, kPropVal, kHeard, kBestBal, kBestVal, kTimer,
   kDecidedVal,
 };
+// A state with snapshot shadows (stale_k > 0) has them after the acceptor
+// leaves; the C entry moves them last (move_snapshots_last).
+constexpr int kSnapLeaves = kLeaves + 3;
+enum SnapLeaf { kSnapPromised = kLeaves, kSnapBal, kSnapVal };
 
 // An acceptor's state breaks an acceptor-local invariant on its own: its
 // accepted ballot above its promise, or a nil ballot with a value.
@@ -88,12 +110,25 @@ __device__ __forceinline__ bool breaks_alone(int32_t pr, int32_t ab, int32_t av)
   return ab > pr || (ab == 0 && av != 0);
 }
 
-template <int P, int A, int K, int B, int MIN_BLOCKS>
+// x mod k for k > 0, in [0, k) (the plain tick's floor modulo).
+__device__ __forceinline__ int32_t floor_mod(int32_t x, int32_t k) {
+  const int32_t m = x % k;
+  return m < 0 ? m + k : m;
+}
+
+// The kernel; `Arms` is empty for the default instantiation, whose
+// signature and code are those of K1 without the arms, and `Gray` for the
+// arms instantiation (ARMS), which takes the arms' knobs and plan leaves.
+template <int P, int A, int K, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
-fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
+fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
+                   Arms... arms) {
+  constexpr bool ARMS = sizeof...(Arms) > 0;
+  const Gray gray{arms...};
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, false>;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
+  constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr uint32_t kAccs = (1u << A) - 1;
   extern __shared__ int32_t smem[];  // G::kRows * B words
@@ -165,16 +200,84 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   uint32_t rq_written = 0, rp_written = 0;  // the slots the chunk wrote
   bool lt_written = false;                  // an accept event reached the learner table
 
+  // ---- The arms' per-lane plan: the partition window, the links that
+  //      cross the cut, the cut's direction, the timeout skew. ----
+  int32_t part_start = kInt32Max, part_end = kInt32Max, part_dir = 0;
+  uint32_t cross = 0;  // bit e: proposer and acceptor of edge e on opposite sides
+  int32_t ptimeout[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) ptimeout[p] = 0;
+  if constexpr (ARMS) {
+    if (gray.partition) {
+      part_start = gray.part_start[i];
+      part_end = gray.part_end[i];
+      if (gray.asym) part_dir = gray.part_dir[i];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        cross |= (gray.pside[(e / A) * n + i] != gray.aside[(e % A) * n + i] ? 1u : 0u) << e;
+    }
+    if (gray.timeout_skew) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) ptimeout[p] = gray.ptimeout[p * n + i];
+    }
+  }
+
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
   const uint32_t lane = static_cast<uint32_t>(i % prm.block);
   const auto quorum_of = [&](int32_t) { return prm.q2; };
+
+  // Stale-snapshot recovery (stale_k) or amnesia at `tick`, before the
+  // acceptor half-tick: an acceptor recovering this tick restores its
+  // snapshot (is wiped), and on a snapshot tick every acceptor's snapshot
+  // takes its state after the restore; the restored acceptors' invariant
+  // breaks are recomputed.
+  const auto recover = [&](int32_t tick) {
+    if constexpr (ARMS) {
+      if (gray.stale_k > 0) {
+        const bool snap = floor_mod(tick, gray.stale_k) == 0;
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          if (crash_end[a] == tick) {
+            promised[a] = load<int32_t>(L, kSnapPromised, a, n, i);
+            acc_bal[a] = load<int32_t>(L, kSnapBal, a, n, i);
+            acc_val[a] = load<int32_t>(L, kSnapVal, a, n, i);
+            const bool bad = !((equiv >> a) & 1u) && breaks_alone(promised[a], acc_bal[a], acc_val[a]);
+            bad_alone = (bad_alone & ~(1u << a)) | ((bad ? 1u : 0u) << a);
+          }
+          if (snap) {
+            store<int32_t>(L, kSnapPromised, a, n, i, promised[a]);
+            store<int32_t>(L, kSnapBal, a, n, i, acc_bal[a]);
+            store<int32_t>(L, kSnapVal, a, n, i, acc_val[a]);
+          }
+        }
+      } else if (gray.amnesia) {
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          if (crash_end[a] == tick) {
+            promised[a] = acc_bal[a] = acc_val[a] = 0;
+            bad_alone &= ~(1u << a);  // a nil pair breaks nothing
+          }
+        }
+      }
+    }
+  };
   clk.mark(kPhLoad);
 
   DrawCount draws;
   for (int t = 0; t < prm.n_ticks; ++t) {
-    // ---- A settled lane: the rest of the chunk at once. ----
+    // ---- A settled lane: the rest of the chunk at once (under stale
+    //      recovery or amnesia, one tick at a time: its acceptors still
+    //      restore and snapshot). ----
     if (settled()) {
+      if constexpr (ARMS) {
+        if (gray.stale_k > 0 || gray.amnesia) {
+          for (; t < prm.n_ticks; ++t) {
+            recover(wrap_add(tick0, t));
+            lrn.quiet(__popc(bad_alone));
+          }
+        }
+      }
       const uint32_t rest = static_cast<uint32_t>(prm.n_ticks - t);
       lrn.quiet(static_cast<int>(rest * static_cast<uint32_t>(__popc(bad_alone))));
       if (prm.clamp_per_tick) {
@@ -186,10 +289,21 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    recover(tick);
 
-    // ---- Reply delivery (pre-tick buffer): the replies not held this
-    //      tick; consumed unless duplicated. ----
+    // The links cut this tick, per direction (bit e: edge e).
+    uint32_t cut_req = 0, cut_rep = 0;
+    if constexpr (ARMS) {
+      if (part_start <= tick && tick < part_end) {
+        cut_req = part_dir != 2 ? cross : 0;  // part_dir 2 spares requests
+        cut_rep = part_dir != 1 ? cross : 0;  // part_dir 1 spares replies
+      }
+    }
+
+    // ---- Reply delivery (pre-tick buffer): the replies on a link not cut
+    //      and not held this tick; consumed unless duplicated. ----
     uint32_t delivered = rp_present;
+    if constexpr (ARMS) delivered &= ~(cut_rep | (cut_rep << E));
     if (prm.hold.mode != 0) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
@@ -197,7 +311,14 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
     }
     uint32_t taken = delivered;
-    if (prm.dup.mode != 0) {
+    if (ARMS && gray.flaky) {
+      if (gray.flaky_dup) {
+        for (uint32_t m = delivered; m != 0; m &= m - 1) {
+          const int j = __ffs(m) - 1;
+          if (ts.below_at(gray.link_dup[(j % E) * n + i], kDupBits, S + j)) taken &= ~(1u << j);
+        }
+      }
+    } else if (prm.dup.mode != 0) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
         if (ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
@@ -283,7 +404,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       const bool p2 = phase[p] == kP2 && votes >= prm.q2;
       const int32_t v_by_p1 = bb > 0 ? bv : own_val[p];
       int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
-      const bool exp = phase[p] != kDone && !p1 && !p2 && tm > prm.timeout;
+      const int32_t timeout = ARMS ? wrap_add(prm.timeout, ptimeout[p]) : prm.timeout;
+      const bool exp = phase[p] != kDone && !p1 && !p2 && tm > timeout;
 
       int32_t ph = phase[p];
       if (p1) ph = kP2;
@@ -299,7 +421,9 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       if (p1) tm = 0;
       if (exp) {
         const uint32_t r = ts.bits(kBackoff, p) & 0x7FFFFFFFu;
-        tm = -static_cast<int32_t>(r % static_cast<uint32_t>(prm.backoff_n));
+        uint32_t backoff = r % static_cast<uint32_t>(prm.backoff_n);
+        if (ARMS && gray.backoff_skew) backoff *= static_cast<uint32_t>(gray.pboff[p * n + i]);
+        tm = -static_cast<int32_t>(backoff);
       }
       old_bal[p] = cur;
       bal[p] = exp ? next_ballot(cur, prm.stride, p) : cur;
@@ -340,14 +464,22 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       ev_val[a] = 0;
       if (!((visit >> a) & 1u) || !ts.survives_at(prm.idle, kBusy, a)) continue;
       const int sel = select_present<P, A>(ts, rq_present, a);  // a request is present
+      // A request on a cut link stays in flight: the acceptor processes
+      // nothing this tick.
+      if (ARMS && ((cut_req >> ((sel * A + a) % E)) & 1u)) continue;
       acted |= 1u << a;
 
       // The selected request's ballot, and an ACCEPT's value (a PREPARE's
-      // v1 is 0, and only an accepting acceptor reads it).
+      // v1 is 0, and only an accepting acceptor reads it); a corrupted
+      // ACCEPT's value flips a bit, a corrupted PREPARE's ballot moves up.
       const bool is_prep = sel < P;
       const bool is_acc = !is_prep;
-      const int32_t mb = col[G::kRqBal + sel * A + a];
-      const int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
+      int32_t mb = col[G::kRqBal + sel * A + a];
+      int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
+      if (ARMS && gray.corrupt.mode != 0 && ts.fires_at(gray.corrupt, kCorrupt, a)) {
+        if (is_acc) mv ^= 64;
+        else mb = wrap_add(mb, 1);
+      }
       const bool eq = (equiv >> a) & 1u;
       const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
       const bool ok_prep_h = is_prep && !eq && mb > pr_old;
@@ -361,21 +493,32 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       const int32_t av = ok_acc ? mv : av_old;
 
       // The reply into the selected sender's slot (post-consume buffer):
-      // PROMISE for proposer sel, ACCEPTED for proposer sel - P.
+      // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
+      // link drops it against its own threshold.
       const int jr = sel * A + a;
-      if (ok_prep && ts.survives_at(prm.drop, kKeepProm, jr)) {
+      const auto kept = [&](uint32_t stream, int kind, int e) {
+        if (ARMS && gray.flaky) return !ts.below_at(gray.link_drop[e * n + i], kLinkBits, kind * E + e);
+        return ts.survives_at(prm.drop, stream, e);
+      };
+      if (ok_prep && kept(kKeepProm, 0, jr)) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_acc && ts.survives_at(prm.drop, kKeepAccd, jr - P * A)) {
+      if (ok_acc && kept(kKeepAccd, 1, jr - P * A)) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
         rp_sent |= 1u << jr;
       }
-      // Consume the selected request unless it is duplicated.
-      if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kDupReq, jr))) rq_next &= ~(1u << jr);
+      // Consume the selected request unless it is duplicated (on a flaky
+      // link, against its own threshold).
+      if (ARMS && gray.flaky) {
+        if (!(gray.flaky_dup && ts.below_at(gray.link_dup[(jr % E) * n + i], kDupBits, jr)))
+          rq_next &= ~(1u << jr);
+      } else if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kDupReq, jr))) {
+        rq_next &= ~(1u << jr);
+      }
 
       // Acceptor-local invariants (honest acceptors only).
       if (!eq && (pr < pr_old || breaks_alone(pr, ab, av))) ++inv_viol;
@@ -405,13 +548,18 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       if ((p1_done | expired) >> p & 1u) {
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
-          if (((p1_done >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
+          const int e = p * A + a;
+          const auto kept = [&](uint32_t stream, int kind) {
+            if (ARMS && gray.flaky) return !ts.below_at(gray.link_drop[e * n + i], kLinkBits, kind * E + e);
+            return ts.survives_at(prm.drop, stream, e);
+          };
+          if (((p1_done >> p) & 1u) && kept(kKeepP2, 3)) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
             col[G::kRqBal + j] = old_bal[p];
             col[G::rq_v1(j)] = prop_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
+          if (((expired >> p) & 1u) && kept(kKeepP1, 2)) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
             rq_sent |= 1u << j;
@@ -456,58 +604,92 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   clk.flush();
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh).
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): the
+// arms instantiation's kernel takes a Gray after Params.
+template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
+struct InstOf {
+  using type = SmemInst<fused_paxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
+                        SdStaged<P, A, K, false>::kRows * B * 4>;
+};
 template <int P, int A, int K, int B, int MIN_BLOCKS>
-using Inst = SmemInst<fused_paxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
-                      SdStaged<P, A, K, false>::kRows * B * 4>;
+struct InstOf<P, A, K, true, B, MIN_BLOCKS> {
+  using type = SmemInst<fused_paxos_kernel<P, A, K, B, MIN_BLOCKS, Gray>, B,
+                        SdStaged<P, A, K, false>::kRows * B * 4>;
+};
+template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, ARMS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, B, MIN_BLOCKS): one per
-// shape, at the geometry fused_tick.FR_STAGING["paxos"] gives it;
-// MIN_BLOCKS, the blocks an SM is to hold, caps a thread's registers.
-#define K1_INSTANCES(X) \
-  X(2, 5, 8, 128, 4)    \
-  X(1, 3, 8, 128, 4)
+// The instantiations, (n_prop, n_acc, k_slots, ARMS, B, MIN_BLOCKS): one per
+// shape and arms flag, at the geometry fused_tick.FR_STAGING["paxos"] gives
+// it; MIN_BLOCKS, the blocks an SM is to hold, caps a thread's registers.
+#define K1_INSTANCES(X)   \
+  X(2, 5, 8, 0, 128, 4)   \
+  X(1, 3, 8, 0, 128, 4)   \
+  X(2, 5, 8, 1, 128, 3)
 
-// Calls `fn(Inst<...>{})` for the shape `dims` names (n_prop, n_acc,
-// k_slots), or returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
+// instantiation `dims` names (n_prop, n_acc, k_slots, arms), or returns
+// cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K1_MATCH(P_, A_, K_, B_, M_) \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_) return fn(Inst<P_, A_, K_, B_, M_>{});
+#define K1_MATCH(P_, A_, K_, R_, B_, M_)                                     \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_) \
+    return fn(Inst<P_, A_, K_, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
   K1_INSTANCES(K1_MATCH)
 #undef K1_MATCH
   return cudaErrorInvalidValue;
 }
 
+// A state with snapshot shadows arrives with them after the three acceptor
+// leaves (flatten order); move them last (SnapLeaf).
+void move_snapshots_last(Leaves* L) {
+  void* snaps[3] = {L->p[3], L->p[4], L->p[5]};
+  for (int j = 3; j < kLeaves; ++j) L->p[j] = L->p[j + 3];
+  for (int k = 0; k < 3; ++k) L->p[kLeaves + k] = snaps[k];
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, then the dynamic
-// shared bytes a block, fused_tick.FR_STAGING's); `tick` is the device
-// int32 tick scalar, read by the kernel and advanced by the caller.
-// Returns cudaSuccess or the first error: an unknown shape or too few
-// shared bytes (cudaErrorInvalidValue), a shared-memory request the card
-// refuses, or the launch's cudaGetLastError().
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, arms (1: the
+// instantiation with the gray-failure and partition arms, which a knob of
+// theirs needs), then the dynamic shared bytes a block,
+// fused_tick.FR_STAGING's); the state's leaves are 28, or 31 with snapshot
+// shadows, which stale_k > 0 needs; `tick` is the device int32 tick
+// scalar, read by the kernel and advanced by the caller.  Returns
+// cudaSuccess or the first error: an unknown instantiation, a knob on
+// without its arms, stale_k without snapshots or too few shared bytes
+// (cudaErrorInvalidValue), a shared-memory request the card refuses, or
+// the launch's cudaGetLastError().
 extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                   void** plan, void* tick, const long long* params, int n_params,
                                   void* stream) {
-  if (n_dims != 4) return cudaErrorInvalidValue;
+  if (n_dims != 5) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
-  const cudaError_t bad = read_args(leaves, n_leaves, kLeaves, plan, params, n_params, &L, &pl, &prm);
+  const bool snapshots = n_leaves == kSnapLeaves;
+  Gray gray;
+  const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? kSnapLeaves : kLeaves, plan,
+                                    params, n_params, &L, &pl, &prm, false, &gray);
   if (bad != cudaSuccess) return bad;
+  const bool arms = dims[3] != 0;
+  if (gray.on() != arms || (gray.stale_k > 0 && !snapshots)) return cudaErrorInvalidValue;
+  if (snapshots) move_snapshots_last(&L);
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[3];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+  const int smem = dims[4];
+  return dispatch(dims, [&](auto inst, auto with_arms) {
+    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
+    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  });
 }
 
 // The blocks of instantiation `dims` (as for fused_paxos_launch) that one
 // SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_paxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 4) return cudaErrorInvalidValue;
-  const int smem = dims[3];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 5) return cudaErrorInvalidValue;
+  const int smem = dims[4];
+  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

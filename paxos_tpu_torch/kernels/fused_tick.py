@@ -22,6 +22,12 @@ from its own ids with ``mp_counter_masks``.
 Only the SynchPaxos kernel models the bounded-delay channel: it takes a
 state with or without ``until`` stamps (an instantiation each) and the
 plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
+Only the Paxos kernel models the gray-failure and partition arms
+(``protocols.paxos.GRAY_KNOBS``), in an instantiation of its own that the
+wrapper picks when a knob of theirs is on (the fourth field of its
+``KERNEL_SHAPES``, ``arms``); it reads the plan's partition and gray leaves
+and, under ``stale_k``, the state's snapshot shadows.  The other kernels
+refuse those knobs.
 
 Every kernel keeps part of each lane's state in shared memory for the
 whole chunk: the Multi-Paxos kernel its slot arrays, the SynchPaxos kernel
@@ -47,7 +53,13 @@ from paxos_tpu_torch.core.mp_state import MultiPaxosState
 from paxos_tpu_torch.core.raft_state import RaftState
 from paxos_tpu_torch.core.sp_state import SynchPaxosState
 from paxos_tpu_torch.core.state import LaneState, PaxosState
-from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan, rate_threshold
+from paxos_tpu_torch.faults.injector import (
+    FaultConfig,
+    FaultPlan,
+    links_dup,
+    optional_fields,
+    rate_threshold,
+)
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
 from paxos_tpu_torch.protocols.multipaxos import apply_tick_mp, mp_counter_masks
@@ -63,13 +75,15 @@ BALLOT_GROWTH_PER_TICK = 16
 
 # Shapes each CUDA kernel is instantiated for: (n_prop, n_acc, k_slots) of
 # config2/config4/config5 and config1, and (2, 3, 8), the three-acceptor
-# shape the reference's own kernel tests run (tests/test_fused.py);
+# shape the reference's own kernel tests run (tests/test_fused.py); Paxos
+# (n_prop, n_acc, k_slots, arms) with arms 1 (the gray-failure and
+# partition arms) at (2, 5, 8), the shape of every config that sets them;
 # SynchPaxos (n_prop, n_acc, k_slots, stamped) of config_delay_chaos (with
 # delay stamps) and of its delay-free runs, and three acceptors;
 # Multi-Paxos (n_prop, n_acc, log_len, k_slots) of config3, config3-long,
 # the reference tests' 4-slot window, and three acceptors.
 KERNEL_SHAPES = {
-    "paxos": ((2, 5, 8), (1, 3, 8)),
+    "paxos": ((2, 5, 8, 0), (1, 3, 8, 0), (2, 5, 8, 1)),
     "fastpaxos": ((2, 5, 8), (2, 3, 8)),
     "raftcore": ((2, 5, 8), (2, 3, 8)),
     "synchpaxos": ((2, 5, 8, 1), (2, 5, 8, 0), (2, 3, 8, 1)),
@@ -236,7 +250,7 @@ def fr_staged_rows(protocol: str, n_prop: int, n_acc: int, k_slots: int) -> int:
 
 
 def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
-    rows = fr_staged_rows(protocol, *shape)
+    rows = fr_staged_rows(protocol, *shape[:3])
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
@@ -245,11 +259,14 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # thread at 168 registers; K2's (2, 5, 8) column (104 words) leaves room
 # for a fourth block (16 warps, 128 registers), which made its main path
 # 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's columns (104
-# and 48 words) take 4 blocks at both shapes.
+# and 48 words) take 4 blocks at both shapes; its arms instantiation keeps
+# the same column (the snapshot shadows stay in global memory), and its
+# registers are capped for 3 blocks.
 FR_STAGING = {
     "paxos": {
-        (2, 5, 8): _fr_staging("paxos", (2, 5, 8), 128, 4),
-        (1, 3, 8): _fr_staging("paxos", (1, 3, 8), 128, 4),
+        (2, 5, 8, 0): _fr_staging("paxos", (2, 5, 8), 128, 4),
+        (1, 3, 8, 0): _fr_staging("paxos", (1, 3, 8), 128, 4),
+        (2, 5, 8, 1): _fr_staging("paxos", (2, 5, 8), 128, 3),
     },
     "fastpaxos": {
         (2, 5, 8): _fr_staging("fastpaxos", (2, 5, 8), 128, 4),
@@ -325,7 +342,9 @@ class Binding:
     ``fused_fns`` default), its report-time ballot limit, the width of
     the reference's packed ``proposer.bal`` field, which sets how long a
     chunk may run with the ballot clamp at its boundaries only, and the
-    state attributes its kernel is instantiated over (``KERNEL_SHAPES``)."""
+    state attributes its kernel is instantiated over (``KERNEL_SHAPES``),
+    followed, where ``arms`` is given, by ``arms(cfg)``: the instantiation
+    the config's knobs need."""
 
     apply_fn: Callable
     mask_fn: Callable
@@ -339,15 +358,36 @@ class Binding:
     # Launch geometry per shape (MpStaging, ColumnStaging), whose shared bytes
     # are passed after the shape; None: the kernel's own fixed geometry.
     staging: "dict | None" = None
+    arms: "Callable | None" = None
 
-    def kernel_shape(self, state: LaneState) -> tuple:
-        return tuple(getattr(state, f) for f in self.shape_fields)
+    def kernel_shape(self, state: LaneState, cfg: "FaultConfig | None" = None) -> tuple:
+        shape = tuple(getattr(state, f) for f in self.shape_fields)
+        if self.arms is None:
+            return shape
+        return shape + (self.arms(cfg or FaultConfig()),)
+
+
+def _gray_params(cfg: FaultConfig) -> list:
+    """The gray-failure and partition parameters of the kernels, in the C
+    entry points' order (``Params`` in ``csrc/fused_common.cuh``): the
+    corruption knob, stale_k, then a flag per arm."""
+    return [
+        *_knob(cfg.p_corrupt), max(cfg.stale_k, 0), int(cfg.amnesia), int(cfg.p_part > 0.0),
+        int(cfg.p_asym > 0.0), int(cfg.p_flaky > 0.0), int(links_dup(cfg)),
+        int(cfg.timeout_skew > 0), int(cfg.backoff_skew > 1),
+    ]
+
+
+def k1_arms(cfg: FaultConfig) -> int:
+    """1 when ``cfg`` turns on an arm of K1's gray-failure and partition
+    instantiation, else 0 (the default instantiation)."""
+    return int(any(_gray_params(cfg)))
 
 
 BINDINGS = {
     "paxos": Binding(
         apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch",
-        staging=FR_STAGING["paxos"],
+        staging=FR_STAGING["paxos"], arms=k1_arms,
     ),
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
@@ -474,32 +514,41 @@ def _kernel_params(
         cfg.q_fast or fast_quorum(n_acc),
         cfg.lease_len, cfg.log_total,
         *_delay_knob(cfg.p_delay), max(cfg.delay_max, 1), max(cfg.delta, 0),
-        int(cfg.sp_unsafe_fast),
+        int(cfg.sp_unsafe_fast), *_gray_params(cfg),
     ]
 
 
-# The plan leaves every kernel receives (the single-decree kernels ignore
-# the proposer crash windows; only SynchPaxos' reads link_delay, passed as
-# a null pointer when the plan has none).
+# The plan leaves every kernel receives, in ``Plan``'s order
+# (csrc/fused_common.cuh), each optional one passed as a null pointer when
+# the plan has none: the single-decree kernels ignore the proposer crash
+# windows, only SynchPaxos' reads link_delay, and only Paxos' the
+# partition and gray leaves after it.
 _PLAN_LEAVES = (
     "crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end", "link_delay",
+    "part_start", "part_end", "aside", "pside", "part_dir", "link_drop", "link_dup",
+    "ptimeout", "pboff",
 )
 
 
 def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan, cfg: FaultConfig) -> None:
-    shape = BINDINGS[protocol].kernel_shape(state)
+    shape = BINDINGS[protocol].kernel_shape(state, cfg)
     if shape not in KERNEL_SHAPES[protocol]:
         raise ValueError(
             f"the {protocol} CUDA kernel is instantiated for the shapes "
             f"{KERNEL_SHAPES[protocol]}, not {shape}"
         )
     state.check_layout()
-    acc, prop = (state.n_acc, state.n_inst), (state.n_prop, state.n_inst)
-    edge = (state.n_prop, state.n_acc, state.n_inst)
+    n_inst = state.n_inst
+    acc, prop, lane = (state.n_acc, n_inst), (state.n_prop, n_inst), (n_inst,)
+    edge = (state.n_prop, state.n_acc, n_inst)
     for name, shape, dtype in (
         ("crash_start", acc, torch.int32), ("crash_end", acc, torch.int32),
         ("equivocate", acc, torch.bool), ("pcrash_start", prop, torch.int32),
         ("pcrash_end", prop, torch.int32), ("link_delay", edge, torch.int32),
+        ("part_start", lane, torch.int32), ("part_end", lane, torch.int32),
+        ("aside", acc, torch.bool), ("pside", prop, torch.bool), ("part_dir", lane, torch.int32),
+        ("link_drop", edge, torch.int32), ("link_dup", edge, torch.int32),
+        ("ptimeout", prop, torch.int32), ("pboff", prop, torch.int32),
     ):
         leaf = getattr(plan, name)
         if leaf is None:
@@ -508,8 +557,11 @@ def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan, cfg: Fa
             raise ValueError(
                 f"plan leaf {name} {tuple(leaf.shape)} {leaf.dtype}, expected {shape} {dtype}"
             )
-    if cfg.p_delay > 0.0 and plan.link_delay is None:
-        raise ValueError("p_delay > 0 needs a plan with link_delay (the per-link latency caps)")
+    for name in optional_fields(cfg):
+        if getattr(plan, name) is None:
+            raise ValueError(f"the config's knobs need a plan with {name}")
+    if cfg.stale_k > 0 and not state.snapshots:
+        raise ValueError("stale_k > 0 needs a state with snapshot shadows (stale=True)")
     for leaf in state.leaves() + plan.leaves():
         if leaf.device != state.device or not leaf.is_contiguous():
             raise ValueError("state and plan must be contiguous on one CUDA device")
@@ -567,7 +619,7 @@ def _launch(
     )
     arr = (ctypes.c_longlong * len(params))(*params)
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    shape = _launch_dims(binding, binding.kernel_shape(state))
+    shape = _launch_dims(binding, binding.kernel_shape(state, cfg))
     dims = (ctypes.c_int * len(shape))(*shape)
     with torch.cuda.device(state.device):
         rc = fn(
@@ -647,7 +699,10 @@ def draw_census(
     clamp_per_tick: bool = False,
 ) -> tuple:
     """(draws, slot touches): the counter-PRNG draws ``protocol``'s kernel
-    makes over ``n_ticks`` ticks from ``state``, and the slot-array elements
+    makes over ``n_ticks`` ticks from ``state`` (K1's gray draws included:
+    LINK_BITS where a flaky link sends, DUP_BITS where it delivers or
+    selects, CORRUPT where an acceptor processes a request), and the
+    slot-array elements
     it reads or writes (Multi-Paxos; SynchPaxos: the delay stamps; 0 for
     the other single-decree kernels, which count none),
     summed over lanes and ticks: one launch of its measuring build
@@ -696,8 +751,10 @@ def fused_paxos_chunk(
     the geometry ``FR_STAGING["paxos"]`` gives the state's shape, updating
     the state's tensors in place (the input state is consumed) and
     returning it; ``.launches`` counts the launches; a launch the card
-    refuses raises.  CPU: the plain :func:`reference_chunk`.  There is no
-    fallback between the two: the device of the state decides."""
+    refuses raises.  A config with a gray-failure or partition knob on runs
+    the kernel's arms instantiation (``k1_arms``), on a plan with the
+    leaves its knobs need.  CPU: the plain :func:`reference_chunk`.  There
+    is no fallback between the two: the device of the state decides."""
     return _fused_chunk(
         "paxos", fused_paxos_chunk, state, seed, plan, cfg, n_ticks, block,
         blk0, clamp_per_tick,

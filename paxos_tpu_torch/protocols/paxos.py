@@ -8,9 +8,12 @@ CUDA kernel (``kernels/fused_tick``) replays them tick by tick.
 
 Ported knobs: ``p_drop``, ``p_dup``, ``p_idle``, ``p_hold``, ``timeout``,
 ``backoff_max``, ``ballot_stride``, ``q1``, ``q2``, and the plan's crash
-windows and equivocation flags; for SynchPaxos also the bounded delay
-(``p_delay``, ``delay_max``: :func:`delay_stamps`) and ``sp_unsafe_fast``.
-Any other knob raises ``NotImplementedError`` naming its ROADMAP item.
+windows and equivocation flags; for Paxos also the gray-failure and
+partition arms (``p_part`` with ``p_asym``, ``p_flaky``, ``p_corrupt``,
+``timeout_skew``, ``backoff_skew``, ``stale_k``, ``amnesia``); for
+SynchPaxos the bounded delay (``p_delay``, ``delay_max``:
+:func:`delay_stamps`) and ``sp_unsafe_fast``.  Any other knob raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,27 +28,28 @@ from paxos_tpu_torch.core.ballot import ballot_round, make_ballot
 from paxos_tpu_torch.core.messages import ACCEPT, ACCEPTED, PREPARE, PROMISE
 from paxos_tpu_torch.core.state import DONE, P1, P2, PaxosState
 from paxos_tpu_torch.core.streams import SINGLE_DECREE_STREAMS as S
-from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan, bits_below, rate_threshold
+from paxos_tpu_torch.faults.injector import (
+    FaultConfig,
+    FaultPlan,
+    bits_below,
+    links_dup,
+    rate_threshold,
+)
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
 from paxos_tpu_torch.transport import inmemory as net
 
-# Knobs of the reference's tick that the port does not implement yet, with
-# the ROADMAP item that ports them.  A knob counts as on when it differs
-# from its FaultConfig default.
-_UNPORTED_KNOBS = {
-    "p_part": "queue A slice 5 item 12 (partition windows)",
-    "p_asym": "queue A slice 5 item 12 (gray plan fields)",
-    "p_flaky": "queue A slice 5 item 12 (gray plan fields)",
-    "p_corrupt": "queue A slice 5 item 12 (gray plan fields)",
-    "timeout_skew": "queue A slice 5 item 12 (gray plan fields)",
-    "backoff_skew": "queue A slice 5 item 12 (gray plan fields)",
-    "stale_k": "queue A slice 5 item 12 (stale-snapshot recovery)",
-    "amnesia": "queue A slice 5 item 12 (amnesia on recovery)",
-}
+# The gray-failure and partition knobs, which only the Paxos tick (and K1)
+# models so far; the other ticks raise, naming the ROADMAP item that ports
+# them.  A knob counts as on when it differs from its FaultConfig default.
+GRAY_KNOBS = (
+    "p_part", "p_asym", "p_flaky", "p_corrupt", "timeout_skew", "backoff_skew", "stale_k",
+    "amnesia",
+)
+_GRAY_ITEM = "queue B1 item 12 (the gray-failure and partition arms)"
 # Knobs only the SynchPaxos tick models so far.
 _SYNCHPAXOS_ONLY_KNOBS = {
-    "p_delay": "queue A slice 5 item 12 (bounded delay on the other ticks)",
+    "p_delay": "queue B1 item 12 (bounded delay on the other ticks)",
     "sp_unsafe_fast": "queue A item 10 (SynchPaxos' planted bug, read by no other tick)",
 }
 
@@ -53,7 +57,7 @@ _SYNCHPAXOS_ONLY_KNOBS = {
 def check_supported(cfg: FaultConfig, protocol: str = "paxos") -> None:
     """Raise ``NotImplementedError`` for a knob ``protocol``'s tick does
     not model in the port."""
-    knobs = dict(_UNPORTED_KNOBS)
+    knobs = {} if protocol == "paxos" else dict.fromkeys(GRAY_KNOBS, _GRAY_ITEM)
     if protocol != "synchpaxos":
         knobs.update(_SYNCHPAXOS_ONLY_KNOBS)
     default = FaultConfig()
@@ -89,6 +93,14 @@ class TickMasks:
     keep_p1: Optional[torch.Tensor]  # (P, A, I) bool PREPARE not dropped
     keep_p2: Optional[torch.Tensor]  # (P, A, I) bool ACCEPT not dropped
     backoff: torch.Tensor  # (P, I) int32 retry backoff draw
+    # Gray failures (None unless the knob is on).  With p_flaky > 0 the
+    # keep_*/dup_* masks above are None and delivery is decided by these
+    # raw bits against the plan's per-link thresholds (apply_tick).
+    link_bits: Optional[torch.Tensor] = None  # (4, P, A, I) int32: sends of
+    #   kind 0 PROMISE, 1 ACCEPTED, 2 PREPARE, 3 ACCEPT
+    dup_bits: Optional[torch.Tensor] = None  # (2, 2, P, A, I) int32: axis 0
+    #   0 requests, 1 replies
+    corrupt: Optional[torch.Tensor] = None  # (A, I) bool payload perturbed
     delay_bits: Optional[torch.Tensor] = None  # (2, 2, P, A, I) int32 (p_delay)
     lat_bits: Optional[torch.Tensor] = None  # (2, 2, P, A, I) int32 latency draw
 
@@ -101,29 +113,44 @@ def counter_masks(
     ``tick_seed`` is a scalar stream seed (one stream block covering every
     lane) or a per-lane ``(n_inst,)`` tensor from ``counter_prng.lane_seeds``
     with ``block`` lanes per stream block.  It refuses the knobs that the
-    tick of ``state``'s protocol does not model.
+    tick of ``state``'s protocol does not model.  With ``p_flaky > 0`` the
+    uniform drop and duplication masks are not drawn: the per-link raw bits
+    take their place.
     """
     check_supported(cfg, state.protocol)
     _, n_prop, n_acc, n_inst = state.requests.present.shape
     slot = (2, n_prop, n_acc, n_inst)
     edge = (n_prop, n_acc, n_inst)
     kw = dict(block=block, device=state.device)
+    flaky = cfg.p_flaky > 0.0
+
+    def uniform(draw, stream, shape, p):
+        return None if flaky else draw(tick_seed, S[stream], shape, p, **kw)
+
     return TickMasks(
         sel_score=cp.counter_bits(tick_seed, S["SEL"], slot, **kw),
         busy=cp.bern_not(
             tick_seed, S["BUSY"], (1, 1, n_acc, n_inst), cfg.p_idle, **kw
         ),
         deliver=cp.bern_not(tick_seed, S["DELIVER"], slot, cfg.p_hold, **kw),
-        dup_req=cp.bern(tick_seed, S["DUP_REQ"], slot, cfg.p_dup, **kw),
-        dup_rep=cp.bern(tick_seed, S["DUP_REP"], slot, cfg.p_dup, **kw),
-        keep_prom=cp.bern_not(tick_seed, S["KEEP_PROM"], edge, cfg.p_drop, **kw),
-        keep_accd=cp.bern_not(tick_seed, S["KEEP_ACCD"], edge, cfg.p_drop, **kw),
-        keep_p1=cp.bern_not(tick_seed, S["KEEP_P1"], edge, cfg.p_drop, **kw),
-        keep_p2=cp.bern_not(tick_seed, S["KEEP_P2"], edge, cfg.p_drop, **kw),
+        dup_req=uniform(cp.bern, "DUP_REQ", slot, cfg.p_dup),
+        dup_rep=uniform(cp.bern, "DUP_REP", slot, cfg.p_dup),
+        keep_prom=uniform(cp.bern_not, "KEEP_PROM", edge, cfg.p_drop),
+        keep_accd=uniform(cp.bern_not, "KEEP_ACCD", edge, cfg.p_drop),
+        keep_p1=uniform(cp.bern_not, "KEEP_P1", edge, cfg.p_drop),
+        keep_p2=uniform(cp.bern_not, "KEEP_P2", edge, cfg.p_drop),
         backoff=cp.randint(
             tick_seed, S["BACKOFF"], (n_prop, n_inst), max(cfg.backoff_max, 1),
             **kw,
         ),
+        link_bits=(
+            cp.counter_bits(tick_seed, S["LINK_BITS"], (4,) + edge, **kw) if flaky else None
+        ),
+        dup_bits=(
+            cp.counter_bits(tick_seed, S["DUP_BITS"], (2,) + slot, **kw)
+            if links_dup(cfg) else None
+        ),
+        corrupt=cp.bern(tick_seed, S["CORRUPT"], (n_acc, n_inst), cfg.p_corrupt, **kw),
         delay_bits=(
             cp.counter_bits(tick_seed, S["DELAY_BITS"], (2,) + slot, **kw)
             if cfg.p_delay > 0.0 else None
@@ -176,19 +203,81 @@ def apply_tick(
     alive = plan.alive(state.tick)  # (A, I)
     equiv = plan.equivocate  # (A, I)
 
+    if cfg.stale_k > 0:
+        # Bug injection: a recovering acceptor restores the snapshot of the
+        # last multiple of stale_k ticks, before acc_pre (the checker flags
+        # the consequences, not the rollback), and the snapshot refreshes
+        # after the restore.
+        if not state.snapshots:
+            raise ValueError("stale_k > 0 needs a state with snapshot shadows (stale=True)")
+        rec = plan.recovering(state.tick)
+        acc = dataclasses.replace(
+            acc,
+            promised=torch.where(rec, acc.snap_promised, acc.promised),
+            acc_bal=torch.where(rec, acc.snap_bal, acc.acc_bal),
+            acc_val=torch.where(rec, acc.snap_val, acc.acc_val),
+        )
+        snap = state.tick % cfg.stale_k == 0
+        acc = dataclasses.replace(
+            acc,
+            snap_promised=torch.where(snap, acc.promised, acc.snap_promised),
+            snap_bal=torch.where(snap, acc.acc_bal, acc.snap_bal),
+            snap_val=torch.where(snap, acc.acc_val, acc.snap_val),
+        )
+    elif cfg.amnesia:  # bug injection: a recovering acceptor forgets its state
+        rec = plan.recovering(state.tick)
+        acc = dataclasses.replace(
+            acc,
+            promised=torch.where(rec, 0, acc.promised),
+            acc_bal=torch.where(rec, 0, acc.acc_bal),
+            acc_val=torch.where(rec, 0, acc.acc_val),
+        )
+    acc_pre = acc
+
+    # Partition cuts (p_part): a one-way cut (p_asym) blocks one direction.
+    # A cut stalls messages in flight; nothing is lost.
+    link_req = link_rep = None
+    if cfg.p_part > 0.0:
+        if cfg.p_asym > 0.0:
+            link_req = plan.link_ok(state.tick, "req")  # (P, A, I)
+            link_rep = plan.link_ok(state.tick, "rep")
+        else:
+            link_req = link_rep = plan.link_ok(state.tick)
+
+    # Per-link loss and duplication (p_flaky): this tick's raw bits against
+    # the plan's per-link thresholds; p_flaky 0 is the uniform case.
+    if cfg.p_flaky > 0.0:
+        keep_prom, keep_accd, keep_p1, keep_p2 = (
+            ~bits_below(masks.link_bits[k], plan.link_drop) for k in range(4)
+        )
+        dup_req = dup_rep = None
+        if masks.dup_bits is not None:
+            dup_req = bits_below(masks.dup_bits[0], plan.link_dup[None])
+            dup_rep = bits_below(masks.dup_bits[1], plan.link_dup[None])
+    else:
+        keep_prom, keep_accd = masks.keep_prom, masks.keep_accd
+        keep_p1, keep_p2 = masks.keep_p1, masks.keep_p2
+        dup_req, dup_rep = masks.dup_req, masks.dup_rep
+
     # Reply delivery is decided (and delivered slots cleared) BEFORE the
     # acceptor half-tick writes new replies; proposers read payloads from
     # the pre-tick buffer.
     delivered = state.replies.present
     if masks.deliver is not None:
         delivered = delivered & masks.deliver
-    replies = net.consume(state.replies, delivered, stay=masks.dup_rep)
+    if link_rep is not None:  # cut replies stay in flight
+        delivered = delivered & link_rep[None]
+    replies = net.consume(state.replies, delivered, stay=dup_rep)
 
     # ---- Acceptor half-tick: select one request per (instance, acceptor) ----
+    # A request on a cut link still takes part in the selection; the cut
+    # masks the selected slot after it.
     sel = net.select_from_scores(
         state.requests.present, masks.sel_score, masks.busy
     )
     sel = sel & alive[None, None]  # crashed acceptors process nothing
+    if link_req is not None:  # cut requests stay in flight
+        sel = sel & link_req[None]
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=torch.int32)
@@ -197,6 +286,12 @@ def apply_tick(
     msg_val = gather(state.requests.v1)  # (A, I) ACCEPT payload
     is_prep = sel[PREPARE].any(dim=0)
     is_acc = sel[ACCEPT].any(dim=0)
+
+    if cfg.p_corrupt > 0.0:
+        # Bug injection: the payload is perturbed between send and process:
+        # an ACCEPT's value flips a bit, a PREPARE's ballot moves up one.
+        msg_val = torch.where(masks.corrupt & is_acc, msg_val ^ 64, msg_val)
+        msg_bal = torch.where(masks.corrupt & is_prep, msg_bal + 1, msg_bal)
 
     # PREPARE(b): honest promise iff b > promised; equivocators "promise"
     # unconditionally, never record it, and hide their accepted pair.
@@ -217,15 +312,15 @@ def apply_tick(
         replies, PROMISE,
         send_mask=sel[PREPARE] & ok_prep[None],
         bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
-        keep=masks.keep_prom,
+        keep=keep_prom,
     )
     replies = net.send(
         replies, ACCEPTED,
         send_mask=sel[ACCEPT] & ok_acc[None],
         bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
-        keep=masks.keep_accd,
+        keep=keep_accd,
     )
-    requests = net.consume(state.requests, sel, stay=masks.dup_req)
+    requests = net.consume(state.requests, sel, stay=dup_req)
     acc_new = dataclasses.replace(
         acc, promised=promised, acc_bal=acc_bal, acc_val=acc_val
     )
@@ -234,7 +329,7 @@ def apply_tick(
     learner = learner_observe(
         state.learner, ok_acc, msg_bal, msg_val, state.tick, q2
     )
-    inv_viol = acceptor_invariants(acc, acc_new, honest=~equiv)
+    inv_viol = acceptor_invariants(acc_pre, acc_new, honest=~equiv)
     learner = dataclasses.replace(
         learner, violations=learner.violations + inv_viol
     )
@@ -277,7 +372,11 @@ def apply_tick(
     v_chosen_by_p1 = torch.where(best_bal > 0, best_val, prop.own_val)
 
     timer = torch.where(prop.phase == DONE, prop.timer, prop.timer + 1)
-    expired = (prop.phase != DONE) & ~p1_done & ~p2_done & (timer > cfg.timeout)
+    # Timer skew (timeout_skew, backoff_skew): per-proposer extra patience
+    # and backoff multipliers from the plan.
+    timeout = cfg.timeout + plan.ptimeout if cfg.timeout_skew > 0 else cfg.timeout
+    backoff = masks.backoff * plan.pboff if cfg.backoff_skew > 1 else masks.backoff
+    expired = (prop.phase != DONE) & ~p1_done & ~p2_done & (timer > timeout)
     pid = torch.arange(n_prop, dtype=torch.int32, device=state.device)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
 
@@ -291,7 +390,7 @@ def apply_tick(
     best_bal = torch.where(expired, 0, best_bal)
     best_val = torch.where(expired, 0, best_val)
     timer = torch.where(p1_done, 0, timer)
-    timer = torch.where(expired, -masks.backoff, timer)
+    timer = torch.where(expired, -backoff, timer)
 
     # Emit: ACCEPT broadcast on phase-1 completion (old ballot), PREPARE
     # broadcast on retry (next ballot).
@@ -300,13 +399,13 @@ def apply_tick(
         requests, ACCEPT,
         send_mask=p1_done[:, None].expand(n_prop, n_acc, n_inst),
         bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=masks.keep_p2,
+        keep=keep_p2,
     )
     requests = net.send(
         requests, PREPARE,
         send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=zeros, v2=zeros,
-        keep=masks.keep_p1,
+        keep=keep_p1,
     )
     prop = dataclasses.replace(
         prop,

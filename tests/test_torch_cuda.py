@@ -26,9 +26,12 @@ duplicates and a ballot stride (Fast Paxos also on uneven quorums), at
 every instantiation on lane counts no CUDA block divides, with the same
 geometry, refusal and phase-clock checks, and so is K1 (Paxos), which
 keeps its payloads and learner table in the same column, on duplicates, a
-ballot stride with a shorter timeout and uneven quorums.  A plan without
+ballot stride with a shorter timeout and uneven quorums, and whose arms
+instantiation is held so on every gray-failure and partition knob alone
+and on the configs that set them (``gray_knob_configs``).  A plan without
 ``link_delay`` under ``p_delay > 0`` is refused, and the other kernels
-refuse ``p_delay``.
+refuse ``p_delay``; K2 to K5 refuse the gray knobs, and K1 a gray knob
+that reaches an instantiation without its arms.
 """
 
 import dataclasses
@@ -38,6 +41,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    BLOCK0_DIGESTS,
     GOLDENS,
     MAIN_PATHS,
     MASK_CENSUS,
@@ -47,6 +51,7 @@ from chip_smoke import (
     config_plan,
     fault_plan,
     fr_knob_configs,
+    gray_knob_configs,
     main_config,
     main_plan,
     near_limit_state,
@@ -464,12 +469,15 @@ def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     n = 1000
     assert n % tfused.FR_STAGING[protocol][shape].threads != 0
-    n_prop, n_acc, _ = shape
+    n_prop, n_acc = shape[:2]
     cfg = dataclasses.replace(main_config(protocol, n, 9), n_prop=n_prop, n_acc=n_acc)
+    if shape[3:] == (1,):  # K1's arms: config_gray_chaos's knobs on this plan
+        gray = gray_knob_configs(n, 9)["config_gray_chaos"].fault
+        cfg = dataclasses.replace(cfg, fault=gray)
     block = tfused.fit_block(1024, n)
-    plan = fault_plan(n, n_acc, n_prop, 0.2, 9, p_crash=0.2)
+    plan = fault_plan(n, n_acc, n_prop, 0.2, 9, p_crash=0.2, gray=cfg.fault)
     plain = trun.init_state(cfg, "cuda")
-    assert tfused.BINDINGS[protocol].kernel_shape(plain) == shape
+    assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == shape
     kern = plain.clone()
     for _ in range(3):
         plain = plain_chunk(cfg, plain, plan, 64, block)
@@ -491,7 +499,7 @@ def test_fr_refused_launch_raises(protocol, monkeypatch):
     cfg = main_config(protocol, 1024, 3)
     plan = trun.init_plan(cfg, "cuda")
     table = tfused.FR_STAGING[protocol]
-    shape = (2, 5, 8)
+    shape = next(k for k in table if k[:3] == (2, 5, 8))  # K1's default (2, 5, 8, 0)
     staging = table[shape]
     state = wrapper(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 16)
     before, launches = state.clone(), wrapper.launches
@@ -537,3 +545,75 @@ def test_fr_phase_clocks_follow_the_kernel(protocol):
     _assert_same(clocked, kern)
     assert tuple(cycles) == tfused.PHASES[protocol]
     assert all(c > 0 for c in cycles.values())
+
+
+@pytest.mark.cuda
+def test_paxos_gray_arms_match_plain_on_cuda():
+    """K1's arms instantiation against the plain tick on every gray-failure
+    and partition knob alone (a two-way and a one-way partition, flaky
+    links without and with duplication, timeout and backoff skew) and on
+    config_gray_chaos, config_partition, config_corrupt, config_stale,
+    amnesia and config_flex(4, 2) (the default instantiation), over two
+    chunks on chip_smoke's numpy plans, and the gray-chaos block-0 digest
+    after a whole campaign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.fused_paxos_chunk
+    for name, cfg in gray_knob_configs(4096, 12).items():
+        plan = config_plan(cfg, 12)
+        plain = trun.init_state(cfg, "cuda")
+        kern = plain.clone()
+        for _ in range(2):
+            plain = plain_chunk(cfg, plain, plan, 96, 1024)
+            before = wrapper.launches
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, 96)
+            assert wrapper.launches == before + 1, name
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+    cfg = main_config("graychaos")
+    small = dataclasses.replace(cfg, n_inst=1024)
+    full = main_plan(cfg)
+    plan = tfused.FaultPlan(**{
+        f.name: None if getattr(full, f.name) is None else getattr(full, f.name)[..., :1024].contiguous()
+        for f in dataclasses.fields(full)
+    })
+    st = trun.init_state(small, "cuda")
+    for _ in range(64):
+        st = tfused.paxos_chunk(st, 0, plan, small.fault, 64)
+    assert _digest(st) == BLOCK0_DIGESTS["graychaos"]
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_gray_knobs_they_do_not_model():
+    """K2 to K5 refuse the gray-failure and partition knobs, in the
+    wrapper (ROADMAP item 12) and in their C entry points; K1 refuses them
+    in its C entry on its default instantiation, at a shape without an arms
+    instantiation (the wrapper), and stale_k on a state without snapshot
+    shadows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    gray = gray_knob_configs(1024, 1)["config_gray_chaos"]
+    for path in PROTOCOLS[1:] + ["config3", "synchpaxos"]:
+        c = main_config(path, 1024, 1)
+        protocol = MAIN_PATHS[path].protocol
+        plan = config_plan(dataclasses.replace(c, fault=gray.fault), 1)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tfused.FUSED_WRAPPERS[protocol](trun.init_state(c, "cuda"), 1, plan, gray.fault, 8)
+        block = tfused.BINDINGS[protocol].block
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tfused._launch(protocol, trun.init_state(c, "cuda"), 1, plan, gray.fault, 8, block, 0, False)
+    plan = config_plan(gray, 1)
+    binding = tfused.BINDINGS["paxos"]
+    tfused.BINDINGS["paxos"] = dataclasses.replace(binding, arms=lambda cfg: 0)
+    try:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tfused._launch("paxos", trun.init_state(gray, "cuda"), 1, plan, gray.fault, 8, 1024, 0, False)
+    finally:
+        tfused.BINDINGS["paxos"] = binding
+    small = dataclasses.replace(gray, n_prop=1, n_acc=3)
+    with pytest.raises(ValueError, match="instantiated"):
+        tfused.fused_paxos_chunk(trun.init_state(small, "cuda"), 1, config_plan(small, 1), small.fault, 8)
+    stale = gray_knob_configs(1024, 1)["config_stale"]
+    bare = trun.init_state(dataclasses.replace(stale, fault=gray.fault), "cuda")
+    with pytest.raises(ValueError, match="snapshot"):
+        tfused.fused_paxos_chunk(bare, 1, config_plan(stale, 1), stale.fault, 8)

@@ -16,7 +16,12 @@ and the phase lists against the kernels.  K1's fold reads a proposer's
 delivered PROMISE slots only, which equals the plain fold over every slot
 where ``best_bal`` is not negative: the plain tick keeps it so.  K1
 applies a chunk to a settled lane at once: the plain tick leaves such a
-lane as it is.
+lane as it is, but for its acceptors' restores and snapshots under
+stale-snapshot recovery or amnesia, which K1's arms instantiation applies
+to a settled lane tick by tick.  K1's instantiations are keyed by shape
+and arms flag, ``(n_prop, n_acc, k_slots, arms)``: the arms
+instantiation keeps the default's column and caps its registers for 3
+blocks.
 """
 
 import dataclasses
@@ -33,6 +38,7 @@ from paxos_tpu_torch.core.state import PaxosState
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import build
 from paxos_tpu_torch.kernels import fused_tick as tfused
+from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 FR = ("paxos", "fastpaxos", "raftcore")
 STATES = {"paxos": PaxosState, "fastpaxos": FastPaxosState, "raftcore": RaftState}
@@ -54,7 +60,7 @@ def _leaf(state, path):
 
 
 def _state(protocol, shape):
-    n_prop, n_acc, k_slots = shape
+    n_prop, n_acc, k_slots = shape[:3]  # K1's fourth field is its arms flag
     return STATES[protocol].init(3, n_prop, n_acc, k_slots)
 
 
@@ -70,7 +76,7 @@ def test_staged_rows_match_the_state_leaves(protocol, shape, staging):
     state = _state(protocol, shape)
     staged = tfused.FR_STAGED_LEAVES[protocol]
     rows = sum(_rows(state, path, kinds) for path, kinds in staged)
-    assert staging.rows == rows == tfused.fr_staged_rows(protocol, *shape)
+    assert staging.rows == rows == tfused.fr_staged_rows(protocol, *shape[:3])
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX == 232_448
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -140,9 +146,9 @@ def test_every_instantiation_has_a_geometry(protocol):
 
 def _instances(protocol):
     """``K1_INSTANCES`` / ``K2_INSTANCES`` / ``K3_INSTANCES`` of the .cu,
-    in order: (P, A, K, B, MIN) each."""
+    in order: (P, A, K, B, MIN) each, K1's (P, A, K, ARMS, B, MIN)."""
     listed = re.search(rf"#define {INSTANCES[protocol]}\(X\)(.*?)\n\n", SOURCES[protocol], re.S).group(1)
-    return [tuple(map(int, x)) for x in re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", listed)]
+    return [tuple(map(int, x.split(", "))) for x in re.findall(r"X\(([\d, ]+)\)", listed)]
 
 
 @pytest.mark.parametrize("protocol", FR)
@@ -152,11 +158,16 @@ def test_source_instantiates_the_table(protocol):
     want = [shape + (st.threads, st.min_blocks) for shape, st in tfused.FR_STAGING[protocol].items()]
     got = _instances(protocol)
     assert sorted(got) == sorted(want)
-    shapes = [inst[:3] for inst in got]
+    n_key = len(tfused.KERNEL_SHAPES[protocol][0])  # K1: the shape and its arms flag
+    shapes = [inst[:n_key] for inst in got]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES[protocol])
     src = SOURCES[protocol]
-    assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_)" in src
-    assert src.count("n_dims != 4") == 2 and src.count("const int smem = dims[3];") == 2
+    if protocol == "paxos":
+        assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_)" in src
+        assert src.count("n_dims != 5") == 2 and src.count("const int smem = dims[4];") == 2
+    else:
+        assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_)" in src
+        assert src.count("n_dims != 4") == 2 and src.count("const int smem = dims[3];") == 2
     rv_v1 = "true" if protocol == "raftcore" else "false"
     assert f"using G = SdStaged<P, A, K, {rv_v1}>;" in src
     assert f"SdStaged<P, A, K, {rv_v1}>::kRows * B * 4" in src
@@ -281,3 +292,63 @@ def test_plain_paxos_tick_leaves_a_settled_lane_as_it_is():
     for a, b in zip(after.lane_leaves(), state.lane_leaves(), strict=True):
         assert torch.equal(a[..., settled], b[..., settled])
     assert chip_smoke.settled_lane_bytes(state) == 122  # (2, 5, 8): 16 + 40 + 60 + 5 + 1
+
+
+def test_k1_arms_geometry_is_pinned():
+    """K1's arms instantiation: the default's 104-word column at ``(2,5,8)``
+    (the snapshot shadows stay in global memory), 128 lanes, registers
+    capped for 3 blocks (12 warps); the default instantiations keep 4
+    blocks.  The wrapper picks it exactly when a gray-failure or partition
+    knob is on."""
+    table = tfused.FR_STAGING["paxos"]
+    assert tuple(table) == ((2, 5, 8, 0), (1, 3, 8, 0), (2, 5, 8, 1))
+    arms, default = table[(2, 5, 8, 1)], table[(2, 5, 8, 0)]
+    assert (arms.threads, arms.rows, arms.smem_bytes, arms.min_blocks) == (128, 104, 53248, 3)
+    assert (default.rows, default.min_blocks, table[(1, 3, 8, 0)].min_blocks) == (104, 4, 4)
+    binding = tfused.BINDINGS["paxos"]
+    state = PaxosState.init(4, 2, 5, 8)
+    assert binding.kernel_shape(state) == (2, 5, 8, 0)
+    for name, cfg in chip_smoke.gray_knob_configs(64, 1).items():
+        arms_on = int(name != "config_flex(4, 2)")
+        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, arms_on), name
+    assert tfused._launch_dims(binding, (2, 5, 8, 1)) == (2, 5, 8, 1, 53248)
+
+
+@pytest.mark.parametrize("name", ["config_stale", "amnesia"])
+def test_plain_paxos_tick_changes_a_settled_lane_only_by_recovery(name):
+    """The argument behind K1's settled lanes under stale-snapshot recovery
+    and amnesia, whose arms instantiation runs a settled lane's remaining
+    ticks one at a time with only the restores, the snapshots and the
+    learner's invariant count: on the config after 40 ticks most lanes are
+    settled, many with an acceptor recovering later in the chunk; 64 more
+    ticks of the plain tick leave them settled and change nothing of theirs
+    but the acceptors (and their snapshots), some of them; a wiped
+    acceptor ends at 0 and a snapshot holds the state; the learner counts
+    no invariant break."""
+    cfg = chip_smoke.gray_knob_configs(1024, 11)[name]
+    plan = chip_smoke.config_plan(cfg, 11, "cpu")
+    state = chip_smoke.plain_chunk(cfg, trun.init_state(cfg, "cpu"), plan, 40, 1024)
+    settled = chip_smoke.settled_lanes(state)
+    recovering = ((plan.crash_end >= 40) & (plan.crash_end < 104)).any(0)
+    assert settled.float().mean() > 0.5 and int((settled & recovering).sum()) > 100
+    after = chip_smoke.plain_chunk(cfg, state.clone(), plan, 64, 1024)
+    assert chip_smoke.settled_lanes(after)[settled].all()
+    acc_leaves = len(state.acceptor.leaves())
+    for k, (a, b) in enumerate(zip(after.lane_leaves(), state.lane_leaves(), strict=True)):
+        if k >= acc_leaves:  # every leaf but the acceptors' is as it was
+            assert torch.equal(a[..., settled], b[..., settled]), k
+    acc = after.acceptor
+    changed = torch.zeros_like(settled)
+    for a, b in zip(acc.leaves(), state.acceptor.leaves(), strict=True):
+        changed |= ~(a == b).all(0) & settled
+    assert changed.any()  # the chunk did restore (wipe) or snapshot settled lanes
+    if name == "amnesia":  # only a recovery changes a settled lane
+        assert not (changed & ~recovering).any()
+    assert int(after.learner.violations[settled].sum()) == int(state.learner.violations[settled].sum())
+    if name == "amnesia":  # a recovered acceptor of a settled lane is wiped
+        wiped = (plan.crash_end >= 40) & (plan.crash_end < 104) & settled[None]
+        assert (acc.promised[wiped] == 0).all() and (acc.acc_val[wiped] == 0).all()
+    else:  # the snapshot of tick 96 took the state, and a later restore gives it back
+        for snap, cur in ((acc.snap_promised, acc.promised), (acc.snap_bal, acc.acc_bal),
+                          (acc.snap_val, acc.acc_val)):
+            assert torch.equal(snap[:, settled], cur[:, settled])

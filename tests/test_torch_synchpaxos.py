@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from _torch_jax import jax_plan_of
+from _torch_jax import jax_plan_of, one_torch_thread  # noqa: F401  (autouse)
 from paxos_tpu.core.messages import MsgBuf as JMsgBuf
 from paxos_tpu.faults.injector import FaultConfig as JFaultConfig
 from paxos_tpu.harness import config as JC
@@ -285,7 +285,7 @@ def test_init_state_fingerprint_and_exchange_match():
     assert plan.link_delay.shape == (2, 5, N) and int(plan.link_delay.max()) == 2
     with pytest.raises(ValueError, match="cfg="):
         interop.plan_from_numpy(plan_leaves)
-    with pytest.raises(NotImplementedError, match="part_dir"):
+    with pytest.raises(ValueError, match="part_dir"):  # a config with p_asym wants 11 leaves
         interop.plan_from_numpy(plan_leaves, cfg=dataclasses.replace(tcfg.fault, p_asym=0.5))
     with pytest.raises(ValueError, match="plan="):
         trun.init_plan(tcfg, "cpu")

@@ -28,6 +28,7 @@ from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.kernels import counter_prng as tcp
 from paxos_tpu_torch.protocols import paxos as tpaxos
 from paxos_tpu_torch.transport import inmemory as tnet
+from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 N = 256
 CONFIGS = {
@@ -240,12 +241,27 @@ def test_interop_round_trip_and_init_state_match():
 
 
 def test_unported_knobs_raise():
+    """The Paxos tick models the gray-failure and partition knobs; the
+    bounded delay still raises there, and the gray knobs raise on the
+    ticks that share its mask sampler (Fast Paxos, Raft-core, SynchPaxos),
+    naming ROADMAP item 12."""
     import dataclasses
+
+    from paxos_tpu_torch.core.fp_state import FastPaxosState
+    from paxos_tpu_torch.core.raft_state import RaftState
+    from paxos_tpu_torch.core.sp_state import SynchPaxosState
 
     cfg = TC.config2_dueling_drop(64)
     state = interop.state_from_numpy(random_state_leaves(np.random.default_rng(1), 2, 5, 8, 64))
+    others = [cls.init(64, 2, 5, 8) for cls in (FastPaxosState, RaftState, SynchPaxosState)]
     for knob, value in (("p_part", 0.5), ("p_flaky", 0.1), ("stale_k", 8), ("amnesia", True),
                         ("p_delay", 0.2), ("timeout_skew", 3), ("p_corrupt", 0.1)):
         bad = dataclasses.replace(cfg.fault, **{knob: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpaxos.counter_masks(bad, 1, state)
+        if knob == "p_delay":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tpaxos.counter_masks(bad, 1, state)
+            continue
+        tpaxos.counter_masks(bad, 1, state)
+        for other in others:
+            with pytest.raises(NotImplementedError, match="ROADMAP .*item 12"):
+                tpaxos.counter_masks(bad, 1, other)
