@@ -25,9 +25,10 @@ config (``chip_smoke.MAIN_PATHS``) through ``chip_smoke``'s own functions:
 
 The path ``ceiling`` times K6 (``phase_ceiling``) instead.  A source whose
 C entry takes no shared bytes (a kernel before its column redesign) is
-launched without them; sources from before K1's gray-failure and partition
+launched without them; sources from before the gray-failure and partition
 arms get the parameters and plan leaves their ``fused_common.cuh`` reads
-(``kParams``, ``kPlanLeaves``) and K1's default instantiations only.  Prints the card's name and power limit, then as
+(``kParams``, ``kPlanLeaves``), and a kernel without its arms its default
+instantiations only.  Prints the card's name and power limit, then as
 its last line one JSON object of every measurement.
 """
 
@@ -53,8 +54,8 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
     """Point the build at ``csrc`` and the bindings at what its sources
     take: the shared bytes in ``dims`` where the C entry reads them, a
     phase-clock build where the kernel marks its phases, the parameters
-    and plan leaves its ``fused_common.cuh`` reads, and K1's arms
-    instantiation where its source has one."""
+    and plan leaves its ``fused_common.cuh`` reads, and the arms
+    instantiations of K1 to K3 where their sources have them."""
     from paxos_tpu_torch.kernels import build, int32_ceiling
     from paxos_tpu_torch.kernels import fused_tick as tf
 
@@ -77,7 +78,7 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
         staged = "const int smem = dims[" in src
         staging = binding.staging if staged else None
         if binding.arms is not None and "dims[3] == R_" not in src:
-            # A K1 without the arms: its default instantiations, keyed by shape.
+            # A kernel without the arms: its default instantiations, keyed by shape.
             staging = staging and {k[:3]: v for k, v in staging.items() if k[3] == 0}
             tf.KERNEL_SHAPES[protocol] = tuple(k[:3] for k in _WRAPPER["shapes"][protocol] if k[3] == 0)
             binding = dataclasses.replace(binding, arms=None)

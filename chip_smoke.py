@@ -29,9 +29,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    SynchPaxos with and without delay stamps, with delta violated, and
    with duplicates, uneven quorums and a ballot stride, Paxos, Fast Paxos
    and Raft-core with duplicates and a ballot stride (Paxos and Fast Paxos
-   also with uneven quorums), K1's gray-failure and partition arms on
-   each knob alone and on the configs that set them
-   (:func:`gray_knob_configs`), and at full width
+   also with uneven quorums), the gray-failure and partition arms of K1,
+   K2 and K3 on each knob alone and on the configs that set them (K2 and
+   K3 also on every knob at once; :func:`gray_knob_configs`), and at full
+   width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
    draws of the timed ticks counted by each kernel's measuring build for
@@ -46,9 +47,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
    window, compacted after every chunk), SynchPaxos on
-   config_delay_chaos (bounded delay; its fast-path rate is printed) and
-   Paxos on config_gray_chaos (one-way partitions, flaky links, timer
-   skew: K1's arms instantiation), at
+   config_delay_chaos (bounded delay; its fast-path rate is printed), and
+   config_gray_chaos's fault config (one-way partitions, flaky links, timer
+   skew) on Paxos, Fast Paxos and Raft-core (the arms instantiations of
+   K1, K2 and K3), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -62,17 +64,23 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    report violations (Multi-Paxos: the count the JAX package gives,
    ``MP_CHECKER_VIOLATIONS``), and SynchPaxos' planted ``sp_unsafe_fast``
    bug proposer disagreements at the JAX package's count
-   (``SP_CHECKER_DISAGREE``); and Paxos' bug injections, payload
+   (``SP_CHECKER_DISAGREE``); Paxos' bug injections, payload
    corruption, stale-snapshot recovery and unsafe Flexible Paxos quorums,
-   must each report violations.
+   must each report violations; and payload corruption and stale-snapshot
+   recovery on Fast Paxos and Raft-core (K2's and K3's arms) the
+   violations of the plain tick and of the JAX package
+   (``FR_CHECKER_VIOLATIONS``), stale recovery's summed over Paxos and
+   Fast Paxos as the JAX package's pin sums it (``STALE_SUM``).
 
 Configs with crash windows, equivocators, link delays, partitions or the
 gray-failure plan fields run on plans drawn here from numpy
 (:func:`config_plan`): the config's own distribution, from another stream
 than the JAX package's ``FaultPlan.sample``.
 
-Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
-and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
+Prints one ``{"kernels": [...]}`` line (an entry per main path: its
+kernel's instantiation on the path's config), the card's name and power
+limit, and last the ``{"ok": true, "device": ...}`` line.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -113,8 +121,10 @@ LONG_TICKS = 1024  # config3-long: 16 compactions
 class MainPath:
     """A main path: its protocol and ticks, its config (a function of
     ``harness/config.py``, and the config's index where that returns a
-    sweep), and the census case (``ROOFLINE.json``) of the estimate printed
-    beside its kernel's bound.
+    sweep; ``fault``: the config function whose fault config replaces the
+    config's, as the JAX package's audit puts a fault config on every
+    protocol), and the census case (``ROOFLINE.json``) of the estimate
+    printed beside its kernel's bound.
     ``compact``: decided prefixes compact out after every chunk.
     ``fast_path``: the path's fast-path rate (SynchPaxos) is printed.  Every
     path is also timed at full width, a path's kernel entry is the first
@@ -130,6 +140,7 @@ class MainPath:
     # Chunks of the full-width comparison: more than 1 compares a chunk
     # from a state past the initial one too.
     compare_chunks: int = 1
+    fault: "str | None" = None
 
 
 MAIN_PATHS = {
@@ -145,6 +156,14 @@ MAIN_PATHS = {
     ),
     "graychaos": MainPath(
         "paxos", MAIN_TICKS, "config_gray_chaos", "graychaos-paxos", compare_chunks=2
+    ),
+    "graychaos-fastpaxos": MainPath(
+        "fastpaxos", MAIN_TICKS, "config5_sweep", "graychaos-fastpaxos", 1, compare_chunks=2,
+        fault="config_gray_chaos",
+    ),
+    "graychaos-raftcore": MainPath(
+        "raftcore", MAIN_TICKS, "config5_sweep", "graychaos-raftcore", 2, compare_chunks=2,
+        fault="config_gray_chaos",
     ),
 }
 # The flagship campaign (seed 0) fills one lane's 8-slot learner table:
@@ -163,13 +182,19 @@ EVICTION_PINS = {
     "config3long": (0, {}),
     "synchpaxos": (4, {595: ([129], "3da7a9c3d5cad789"), 821: ([636], "f9da58d7938887dd")}),
     "graychaos": (56, {90: ([430], "45f077b32e2cf14b"), 104: ([582], "f732a5e3e62d60a0")}),
+    "graychaos-fastpaxos": (
+        336, {1: ([161], "31978ee56bdbb58a"), 6: ([576, 747], "c2630ba35a33c636")}
+    ),
+    "graychaos-raftcore": (0, {}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
-# SynchPaxos one and the gray-chaos one, as the JAX package computes it
-# (tests/test_torch_evictions.py).
+# SynchPaxos one and the three gray-chaos ones, as the JAX package computes
+# it (tests/test_torch_evictions.py, tests/test_torch_gray_evictions.py,
+# tests/test_torch_fr_gray_pins.py).
 BLOCK0_DIGESTS = {
     "config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d",
     "synchpaxos": "77bdd097d024b69b", "graychaos": "92c059e4a486f4a2",
+    "graychaos-fastpaxos": "1be08342ba47756d", "graychaos-raftcore": "8e15a5b6acc869d0",
 }
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
@@ -181,6 +206,22 @@ MP_CHECKER_VIOLATIONS = 1043
 # reference reports (tests/test_torch_synchpaxos.py).
 SP_CHECKER_TICKS = 256
 SP_CHECKER_DISAGREE = 15
+# The bug injections on Fast Paxos and Raft-core (the arms of K2 and K3):
+# (config, protocol, lanes, seed, ticks) -> the violations the JAX
+# package's fused stream gives on config_plan(cfg, seed), a stream block of
+# 1024 lanes at a time (tests/test_torch_fr_gray_pins.py computes them):
+# payload corruption at the JAX package's pin size, stale-snapshot recovery
+# at its tests/test_gray.py pin (4096 lanes, seed 3, 192 ticks), which sums
+# Paxos and Fast Paxos (STALE_SUM).  Raft-core's stale recovery breaks
+# agreement at this size in neither package.
+FR_CHECKER_VIOLATIONS = {
+    ("config_corrupt", "fastpaxos", 1024, 0, 256): 45,
+    ("config_corrupt", "raftcore", 1024, 0, 256): 514,
+    ("config_stale", "paxos", 4096, 3, 192): 0,
+    ("config_stale", "fastpaxos", 4096, 3, 192): 27,
+    ("config_stale", "raftcore", 4096, 3, 192): 0,
+}
+STALE_SUM = 27  # config_stale(4096, 3) over 192 ticks: Paxos plus Fast Paxos
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and
 # int32 ALU throughput: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (an IMAD,
 # IADD3 or LOP3 instruction does two of the counted operations, so this
@@ -218,11 +259,14 @@ MASK_CENSUS = {
     "config3long-multipaxos": (1261.3046875, 89.0),
     "delaychaos-synchpaxos": (1883.078125, 147.0),
     "graychaos-paxos": (1578.056640625, 127.0),
+    "graychaos-fastpaxos": (1578.056640625, 127.0),
+    "graychaos-raftcore": (1578.056640625, 127.0),
 }
 # Census cases that ROOFLINE.json does not hold, recorded here with the
 # same keys: scripts/roofline.py tick_census(config_delay_chaos(1024), 1024),
 # which gives the same figures for violate_delta, and
-# tick_census(config_gray_chaos(1024), 1024)
+# tick_census(config_gray_chaos(1024), 1024) on Paxos, and on Fast Paxos and
+# Raft-core (config5's cells with config_gray_chaos's fault config)
 # (tests/test_torch_census.py recomputes them with the JAX package).
 CENSUS_CASES = {
     "delaychaos-synchpaxos": {
@@ -234,6 +278,18 @@ CENSUS_CASES = {
     "graychaos-paxos": {
         "case": "graychaos-paxos", "block": 1024,
         "alu_per_lane_tick": 4054.0888671875, "codec_alu_per_lane_tick": 881.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 356.0,
+        "unpacked_bytes_per_lane": 765.0,
+    },
+    "graychaos-fastpaxos": {
+        "case": "graychaos-fastpaxos", "block": 1024,
+        "alu_per_lane_tick": 4590.1142578125, "codec_alu_per_lane_tick": 865.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 372.0,
+        "unpacked_bytes_per_lane": 773.0,
+    },
+    "graychaos-raftcore": {
+        "case": "graychaos-raftcore", "block": 1024,
+        "alu_per_lane_tick": 4261.0927734375, "codec_alu_per_lane_tick": 881.0,
         "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 356.0,
         "unpacked_bytes_per_lane": 765.0,
     },
@@ -348,7 +404,10 @@ def main_config(path: str, n_inst: int = FULL_LANES, seed: int = 0):
 
     mp = MAIN_PATHS[path]
     cfg = getattr(C, mp.config)(n_inst, seed)
-    return cfg if mp.sweep_index is None else cfg[mp.sweep_index]
+    cfg = cfg if mp.sweep_index is None else cfg[mp.sweep_index]
+    if mp.fault is not None:
+        cfg = dataclasses.replace(cfg, fault=getattr(C, mp.fault)(n_inst, seed).fault)
+    return cfg
 
 
 def reset_launches() -> None:
@@ -685,6 +744,7 @@ def compare(
     from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, PHASES, draw_census
     from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
+    from paxos_tpu_torch.protocols.paxos import GRAY_PROTOCOLS
 
     def after(st):
         return compact_mp_body(st)[0] if compact else st
@@ -772,8 +832,8 @@ def compare(
             read += ["pcrash_start", "pcrash_end"]
         if plan.link_delay is not None:  # K4 reads the latency caps
             read += ["link_delay"]
-        if cfg.protocol == "paxos":  # K1's arms read the partition and gray leaves
-            read += k1_gray_plan_reads(cfg.fault, plan)
+        if cfg.protocol in GRAY_PROTOCOLS:  # the arms read the partition and gray leaves
+            read += gray_plan_reads(cfg.fault)
         plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
         # Each lane's state read and written once, its plan read once; but a
         # lane K1 settles at the timed chunks' entry (counted on their last
@@ -821,10 +881,10 @@ def compare(
     return out
 
 
-def k1_gray_plan_reads(fault, plan) -> list:
-    """The partition and gray-failure plan leaves K1's arms read for
-    ``fault``: the partition windows and sides where ``p_part`` > 0, and
-    the optional fields its knobs put in the plan."""
+def gray_plan_reads(fault) -> list:
+    """The partition and gray-failure plan leaves the arms of K1, K2 and K3
+    read for ``fault``: the partition windows and sides where ``p_part`` >
+    0, and the optional fields its knobs put in the plan."""
     from paxos_tpu_torch.faults.injector import optional_fields
 
     reads = ["part_start", "part_end", "aside", "pside"] if fault.p_part > 0.0 else []
@@ -880,6 +940,7 @@ def phase_compare(ceiling: float) -> dict:
     returned per path."""
     from paxos_tpu_torch.harness import config as C
     from paxos_tpu_torch.harness.run import init_plan
+    from paxos_tpu_torch.protocols.paxos import GRAY_PROTOCOLS
 
     cfg1 = C.config1_no_faults(4096, 3)
     compare("paxos config1 (1,3,8)", cfg1, init_plan(cfg1, "cuda"), 64)
@@ -915,10 +976,11 @@ def phase_compare(ceiling: float) -> dict:
     for protocol in ("paxos", "fastpaxos", "raftcore"):
         for name, cfgk in fr_knob_configs(protocol, 4096, 10).items():
             compare(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
-    # K1's gray-failure and partition arms: each knob alone and the
-    # configs that set them, over two chunks.
-    for name, cfgk in gray_knob_configs(4096, 12).items():
-        compare(f"paxos (2,5,8) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
+    # The gray-failure and partition arms of K1, K2 and K3: each knob
+    # alone and the configs that set them, over two chunks.
+    for protocol in GRAY_PROTOCOLS:
+        for name, cfgk in gray_knob_configs(4096, 12, protocol).items():
+            compare(f"{protocol} (2,5,8) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
@@ -1125,7 +1187,7 @@ def phase_main_path_profile(path: str) -> dict:
 def phase_checker() -> dict:
     """Bug-injection configs must light up the safety checker."""
     from paxos_tpu_torch.harness import config as C
-    from paxos_tpu_torch.harness.run import run
+    from paxos_tpu_torch.harness.run import init_plan, init_state, run
 
     out = {}
     cfg = C.config4_byzantine(4096)
@@ -1163,7 +1225,37 @@ def phase_checker() -> dict:
         log(f"checker: {name} violations {out[name]}")
         if out[name] <= 0:
             raise AssertionError(f"{name} must light up the safety checker")
+    # Fast Paxos' and Raft-core's bug injections on K2's and K3's arms (and
+    # Paxos' stale case of the JAX package's summed pin): the kernel through
+    # run, the plain tick on the card and the JAX package must agree.
+    counts = {}
+    for key, want in FR_CHECKER_VIOLATIONS.items():
+        cfg, ticks = fr_checker_config(*key[:4]), key[4]
+        plan = main_plan(cfg) or init_plan(cfg, "cuda")
+        counts[key] = run(cfg, total_ticks=ticks, plan=plan)["violations"]
+        plain = plain_chunk(cfg, init_state(cfg, "cuda"), plan, ticks, 1024)
+        plain_viol = int(plain.learner.violations.sum())
+        label = "{1} {0}({2}, {3}) {4} ticks".format(*key)
+        out[label] = counts[key]
+        log(f"checker: {label} violations {counts[key]} (plain tick {plain_viol}, JAX package {want})")
+        if counts[key] != plain_viol or counts[key] != want:
+            raise AssertionError(f"{label}: kernel {counts[key]}, plain {plain_viol}, the JAX package gives {want}")
+    stale = sum(v for (name, protocol, *_), v in counts.items()
+                if name == "config_stale" and protocol in ("paxos", "fastpaxos"))
+    out["config_stale(4096, 3) 192 ticks, Paxos plus Fast Paxos"] = stale
+    log(f"checker: config_stale(4096, 3) over 192 ticks, Paxos plus Fast Paxos: {stale} violations "
+        f"(the JAX package's sum {STALE_SUM})")
+    if stale != STALE_SUM or stale <= 0:
+        raise AssertionError(f"stale sum {stale}, the JAX package gives {STALE_SUM}")
     return out
+
+
+def fr_checker_config(name: str, protocol: str, n_inst: int, seed: int):
+    """Bug-injection config ``name`` of ``harness/config.py`` on
+    ``protocol``'s tick (``FR_CHECKER_VIOLATIONS``)."""
+    from paxos_tpu_torch.harness import config as C
+
+    return dataclasses.replace(getattr(C, name)(n_inst, seed), protocol=protocol)
 
 
 def paxos_checker_cases() -> list:
@@ -1237,16 +1329,39 @@ def fr_knob_configs(protocol: str, n_inst: int, seed: int) -> dict:
     }
 
 
-def gray_knob_configs(n_inst: int, seed: int) -> dict:
-    """The knob cases of K1's gray-failure and partition arms: each knob of
-    ``config_gray_chaos`` alone on the config's own base (idling, holds,
-    p_dup 0.05): a two-way partition, a one-way one, flaky links without
-    and with duplication, timeout skew and backoff skew; then
+# Every gray-failure and partition knob at once, with crash windows: the
+# JAX package's fused-kernel case (tests/test_gray.py
+# test_fused_matches_reference_under_gray), put on config5's cells.
+GRAY_ALL = dict(
+    p_part=0.5, part_max_start=20, part_max_len=12, p_asym=0.7, p_flaky=0.4, flaky_drop=0.4,
+    flaky_dup=0.2, p_dup=0.05, timeout_skew=4, backoff_skew=3, p_corrupt=0.05, stale_k=8,
+    p_crash=0.2, crash_max_start=20, crash_max_len=8,
+)
+
+
+def gray_knob_configs(n_inst: int, seed: int, protocol: str = "paxos") -> dict:
+    """The knob cases of the gray-failure and partition arms of K1
+    (Paxos), K2 (Fast Paxos) or K3 (Raft-core), each on ``protocol``'s
+    tick: each knob of ``config_gray_chaos`` alone on the config's own base
+    (idling, holds, p_dup 0.05): a two-way partition, a one-way one, flaky
+    links without and with duplication, timeout skew and backoff skew; then
     ``config_gray_chaos`` itself, ``config_partition``, ``config_corrupt``,
-    ``config_stale``, amnesia (``config_stale`` with stale_k 0 and
-    amnesia on) and ``config_flex(4, 2)``."""
+    ``config_stale`` (stale_k with crash windows), amnesia
+    (``config_stale`` with stale_k 0 and amnesia on); for Paxos
+    ``config_flex(4, 2)``, for Fast Paxos and Raft-core every knob at once
+    on the config5 cell (``GRAY_ALL``)."""
     from paxos_tpu_torch.harness import config as C
 
+    if protocol != "paxos":
+        cell = main_config(protocol, n_inst, seed)
+        out = {
+            name: dataclasses.replace(cfg, protocol=protocol)
+            for name, cfg in gray_knob_configs(n_inst, seed).items() if name != "config_flex(4, 2)"
+        }
+        out["every gray knob"] = dataclasses.replace(
+            cell, fault=dataclasses.replace(cell.fault, **GRAY_ALL)
+        )
+        return out
     chaos = C.config_gray_chaos(n_inst, seed)
     off = dict(p_part=0.0, p_asym=0.0, p_flaky=0.0, timeout_skew=0, backoff_skew=0)
     knobs = {
@@ -1292,13 +1407,13 @@ def mp_checker_config(n_inst: int = 1024):
     return dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_equiv=0.4))
 
 
-def arms_ptxas(lines: list) -> list:
-    """The ``ptxas`` lines of K1's arms instantiation (the entry function
-    that takes a ``Gray``, and the two lines after it)."""
+def arms_ptxas(lines: list, protocol: str) -> list:
+    """The ``ptxas`` lines of ``protocol``'s arms instantiation (K1 to K3:
+    the entry function that takes a ``Gray``, and the two lines after it)."""
     for k, line in enumerate(lines):
-        if "entry function" in line and "fused_paxos_kernel" in line and "Gray" in line:
+        if "entry function" in line and f"fused_{protocol}_kernel" in line and "Gray" in line:
             return lines[k:k + 3]
-    raise AssertionError("no ptxas report of K1's arms instantiation")
+    raise AssertionError(f"no ptxas report of the {protocol} kernel's arms instantiation")
 
 
 def card_line() -> str:
@@ -1325,54 +1440,51 @@ def main() -> int:
     main_paths = {p: phase_main_path(p) for p in MAIN_PATHS}
     profiles = {p: phase_main_path_profile(p) for p in main_paths}
     checker = phase_checker()
+    from paxos_tpu_torch.harness.run import init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS
 
     kernels = []
-    # Each fused kernel's entry: its first main path's full-width timing and
-    # run; a further path of the same kernel (config3-long) rides in it.
-    for protocol, binding in BINDINGS.items():
-        paths = [p for p, mp in MAIN_PATHS.items() if mp.protocol == protocol]
-        measured = {
-            path: {
-                **full[path],
-                "shape": f"{path} {FULL_LANES} lanes x 64 ticks, block {binding.block}"
-                + (", compacted after every chunk" if MAIN_PATHS[path].compact else ""),
-                "census": MAIN_PATHS[path].census,
-                "main_path_launches": main_paths[path]["launches"],
-                "main_path_wall_s": main_paths[path]["wall_s"],
-                "main_path_walls_s": main_paths[path]["walls_s"],
-                "main_path_rounds_per_s": main_paths[path]["rounds_per_s"],
-                "main_path_report": main_paths[path]["report"],
-                "main_path_fast_path_rate": main_paths[path].get("fast_path_rate"),
-                "main_path_eviction_block_digests": main_paths[path]["eviction_block_digests"],
-                "main_path_profile": profiles[path],
-            }
-            for path in paths
-        }
-        first = measured[paths[0]]
+    # One entry per main path: its kernel's instantiation on the path's
+    # config, with the path's full-width timing and run; a kernel's first
+    # path names the kernel, a further one (config3-long, a gray-chaos path
+    # on an arms instantiation) is named after its path.
+    for path, mp in MAIN_PATHS.items():
+        binding = BINDINGS[mp.protocol]
+        first = next(p for p, m in MAIN_PATHS.items() if m.protocol == mp.protocol) == path
+        cfg = main_config(path, 256)
+        shape = binding.kernel_shape(init_state(cfg, "cpu"), cfg.fault)
+        measured = full[path]
+        ptxas = built["ptxas"][binding.kernel]
         entry = {
-            "name": binding.kernel,
+            "name": binding.kernel if first else f"{binding.kernel}[{path}]",
             "route": "cuda",
             "source": KERNEL_SOURCE.format(binding.kernel),
-            "replaces": REPLACES[protocol],
-            "launches": first["main_path_launches"],
-            "max_abs_err": first["max_abs_err"],
+            "replaces": REPLACES[mp.protocol],
+            "launches": main_paths[path]["launches"],
+            "max_abs_err": measured["max_abs_err"],
             "tolerance": 0,  # int32/bool state: byte-identical to the plain version
-            "ms": first["ms"],
-            "plain_ms": first["plain_ms"],
-            "bound_ms": first["bound_ms"],
-            "bound_by": first["bound_by"],
+            "ms": measured["ms"],
+            "plain_ms": measured["plain_ms"],
+            "bound_ms": measured["bound_ms"],
+            "bound_by": measured["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a tick
-            **first,  # the required keys above first, then the rest of the measurement
-            "ptxas": built["ptxas"][binding.kernel],
+            **measured,  # the required keys above first, then the rest of the measurement
+            "path": path,
+            "instantiation": list(shape),
+            "shape": f"{path} {FULL_LANES} lanes x 64 ticks, block {binding.block}"
+            + (", compacted after every chunk" if mp.compact else ""),
+            "census": mp.census,
+            "main_path_wall_s": main_paths[path]["wall_s"],
+            "main_path_walls_s": main_paths[path]["walls_s"],
+            "main_path_rounds_per_s": main_paths[path]["rounds_per_s"],
+            "main_path_report": main_paths[path]["report"],
+            "main_path_fast_path_rate": main_paths[path].get("fast_path_rate"),
+            "main_path_eviction_block_digests": main_paths[path]["eviction_block_digests"],
+            "main_path_profile": profiles[path],
+            "ptxas": arms_ptxas(ptxas, mp.protocol) if binding.arms and shape[3] else ptxas,
         }
-        if len(paths) > 1:
-            entry["launches_by_path"] = {p: measured[p]["main_path_launches"] for p in paths}
-            entry.update({p: measured[p] for p in paths[1:]})
-        if protocol == "paxos":  # the graychaos path runs K1's arms instantiation
-            entry["graychaos"]["ptxas"] = arms_ptxas(built["ptxas"][binding.kernel])
-        if protocol in geometry:
-            entry["instantiations"] = geometry[protocol]  # threads, smem_bytes, blocks_per_sm each
+        if first and mp.protocol in geometry:
+            entry["instantiations"] = geometry[mp.protocol]  # threads, smem_bytes, blocks_per_sm each
         kernels.append(entry)
     # K6 measures the card; no main path launches it (each path's check
     # above), so its count is read from the last main path's run.

@@ -6,7 +6,8 @@ carries ``rep_mask`` (P, V=P, I), the per-value acceptor bitmask at the
 highest accepted ballot seen in recovery, in place of Paxos' single
 ``best_val``.  The fast round is round 0: every proposer shares the ballot
 ``make_ballot(0, 0)`` and its ``Accept(fast_bal, own_val)`` broadcast is in
-flight at tick 0.
+flight at tick 0.  A state run with ``stale_k > 0`` carries the acceptors'
+snapshot shadows, as the reference's does.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ class FastPaxosState(LaneState):
     """Full simulator state for Fast Paxos."""
 
     protocol = "fastpaxos"
+    takes_snapshots = True
 
     acceptor: AcceptorState
     proposer: FastProposerState
@@ -90,8 +92,11 @@ class FastPaxosState(LaneState):
 
     @classmethod
     def init(
-        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu"
+        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu",
+        stale: bool = False,
     ) -> "FastPaxosState":
+        """The initial state; ``stale`` allocates the acceptors' snapshot
+        shadows (``stale_k > 0``)."""
         check_topology(n_prop, n_acc)
         proposer = FastProposerState.init(n_inst, n_prop, device)
         # The fast round is in flight at tick 0: every proposer's
@@ -101,7 +106,7 @@ class FastPaxosState(LaneState):
         requests.v1[ACCEPT] = proposer.own_val[:, None, :]
         requests.present[ACCEPT] = True
         return cls(
-            acceptor=AcceptorState.init(n_inst, n_acc, device),
+            acceptor=AcceptorState.init(n_inst, n_acc, device, stale),
             proposer=proposer,
             learner=LearnerState.init(n_inst, k, device),
             requests=requests,

@@ -5,7 +5,8 @@ Voters with single-slot logs and candidates with terms, over the same
 candidates/leaders, acceptor lanes are voters that also store the
 replicated entry.  Terms are packed ballots, so "one vote per term" is
 "grant only terms strictly above the last granted one", and the election
-restriction is an integer compare.
+restriction is an integer compare.  A state run with ``stale_k > 0``
+carries the voters' snapshot shadows, as the reference's does.
 """
 
 from __future__ import annotations
@@ -46,13 +47,21 @@ class VoterState:
     voted: torch.Tensor  # (A, I) int32 packed term; 0 = none yet
     ent_term: torch.Tensor  # (A, I) int32 term of the stored entry; 0 = empty
     ent_val: torch.Tensor  # (A, I) int32 stored entry value
+    # Stale-snapshot shadows (FaultConfig.stale_k); None unless the knob is on.
+    snap_voted: "torch.Tensor | None" = None  # (A, I) int32
+    snap_term: "torch.Tensor | None" = None  # (A, I) int32
+    snap_val: "torch.Tensor | None" = None  # (A, I) int32
+
+    # (durable field, its snapshot shadow) pairs (protocols.paxos.recover).
+    SNAPSHOT = (("voted", "snap_voted"), ("ent_term", "snap_term"), ("ent_val", "snap_val"))
 
     @classmethod
-    def init(cls, n_inst: int, n_acc: int, device="cpu") -> "VoterState":
-        return cls(*(_zeros((n_acc, n_inst), device) for _ in range(3)))
+    def init(cls, n_inst: int, n_acc: int, device="cpu", stale: bool = False) -> "VoterState":
+        return cls(*(_zeros((n_acc, n_inst), device) for _ in range(6 if stale else 3)))
 
     def leaves(self) -> list:
-        return [self.voted, self.ent_term, self.ent_val]
+        snaps = [self.snap_voted, self.snap_term, self.snap_val]
+        return [self.voted, self.ent_term, self.ent_val] + [x for x in snaps if x is not None]
 
 
 @dataclasses.dataclass
@@ -99,6 +108,7 @@ class RaftState(LaneState):
     """Full simulator state for Raft-core."""
 
     protocol = "raftcore"
+    takes_snapshots = True
 
     acceptor: VoterState  # named `acceptor` so summaries are uniform
     proposer: CandidateState  # likewise
@@ -109,8 +119,11 @@ class RaftState(LaneState):
 
     @classmethod
     def init(
-        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu"
+        cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu",
+        stale: bool = False,
     ) -> "RaftState":
+        """The initial state; ``stale`` allocates the voters' snapshot
+        shadows (``stale_k > 0``)."""
         check_topology(n_prop, n_acc)
         proposer = CandidateState.init(n_inst, n_prop, device)
         # Every candidate opens with a RequestVote broadcast in flight.
@@ -118,7 +131,7 @@ class RaftState(LaneState):
         requests.bal[REQVOTE] = proposer.bal[:, None, :]
         requests.present[REQVOTE] = True
         return cls(
-            acceptor=VoterState.init(n_inst, n_acc, device),
+            acceptor=VoterState.init(n_inst, n_acc, device, stale),
             proposer=proposer,
             learner=LearnerState.init(n_inst, k, device),
             requests=requests,

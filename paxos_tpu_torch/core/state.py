@@ -6,9 +6,10 @@ int32 or bool; NIL ballots and values are 0.
 
 ``leaves()`` returns the tensors in the reference's flatten order (flax
 field order, absent optional fields dropped), so a sha256 over the leaf
-bytes equals the reference's state digest.  A Paxos state run with
-``stale_k > 0`` carries the acceptors' snapshot shadows, as the reference's
-does; the observer planes of the reference are not ported yet.
+bytes equals the reference's state digest.  A Paxos, Fast Paxos or
+Raft-core state run with ``stale_k > 0`` carries the acceptors' snapshot
+shadows, as the reference's does; the observer planes of the reference are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +45,10 @@ class AcceptorState:
     snap_promised: "torch.Tensor | None" = None  # (A, I) int32
     snap_bal: "torch.Tensor | None" = None  # (A, I) int32
     snap_val: "torch.Tensor | None" = None  # (A, I) int32
+
+    # (durable field, its snapshot shadow) pairs: what stale recovery
+    # restores and refreshes (protocols.paxos.recover).
+    SNAPSHOT = (("promised", "snap_promised"), ("acc_bal", "snap_bal"), ("acc_val", "snap_val"))
 
     @classmethod
     def init(cls, n_inst: int, n_acc: int, device="cpu", stale: bool = False) -> "AcceptorState":
@@ -243,7 +248,8 @@ class LaneState:
     @property
     def snapshots(self) -> bool:
         """Whether the acceptors carry snapshot shadows (``stale_k > 0``)."""
-        return getattr(self.acceptor, "snap_promised", None) is not None
+        pairs = getattr(self.acceptor, "SNAPSHOT", ())
+        return bool(pairs) and getattr(self.acceptor, pairs[0][1]) is not None
 
 
 @dataclasses.dataclass

@@ -293,6 +293,44 @@ def config_stale(n_inst: int = 4096, seed: int = 0) -> SimConfig:
     )
 
 
+def apply_fault_overrides(cfg: SimConfig, overrides) -> SimConfig:
+    """Apply generic ``key=value`` fault-knob overrides to a config.
+
+    The CLI's ``--fault`` escape hatch: any :class:`FaultConfig` field by
+    name, value coerced to the field's current type (bool fields accept
+    true/false/1/0).  Unknown keys raise ``ValueError`` listing the valid
+    knobs, so a typo'd knob fails loudly instead of silently fuzzing the
+    wrong space.
+    """
+    if not overrides:
+        return cfg
+    valid = {f.name for f in dataclasses.fields(FaultConfig)}
+    patch = {}
+    for item in overrides:
+        key, sep, raw = item.partition("=")
+        if not sep:
+            raise ValueError(f"fault override must be key=value, got {item!r}")
+        if key not in valid:
+            raise ValueError(
+                f"unknown fault knob {key!r}; valid: {', '.join(sorted(valid))}"
+            )
+        cur = getattr(cfg.fault, key)
+        if isinstance(cur, bool):
+            if raw.lower() not in {"true", "false", "1", "0"}:
+                raise ValueError(f"{key} is a flag; use {key}=true/false")
+            val: object = raw.lower() in {"true", "1"}
+        elif isinstance(cur, int):
+            val = int(raw)
+        elif isinstance(cur, float):
+            val = float(raw)
+        else:
+            val = raw
+        patch[key] = val
+    return dataclasses.replace(
+        cfg, fault=dataclasses.replace(cfg.fault, **patch)
+    )
+
+
 def config_flex(q1: int, q2: int, n_inst: int = 16_384, seed: int = 0) -> SimConfig:
     """Flexible Paxos: explicit phase-1 / phase-2 quorums over 5 acceptors.
     Safe iff ``q1 + q2 > 5``; an unsafe pair is a bug-injection mode the

@@ -147,8 +147,9 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
 
 def init_state(cfg: SimConfig, device=None) -> LaneState:
     """The protocol's initial state, as the reference's ``init_state``
-    (SynchPaxos with delay stamps when ``p_delay > 0``, Paxos with the
-    acceptors' snapshot shadows when ``stale_k > 0``)."""
+    (SynchPaxos with delay stamps when ``p_delay > 0``; Paxos, Fast Paxos
+    and Raft-core with the acceptors' (voters') snapshot shadows when
+    ``stale_k > 0``)."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
     device = resolve_device(device)
@@ -161,7 +162,7 @@ def init_state(cfg: SimConfig, device=None) -> LaneState:
     kw = {}
     if cfg.protocol == "synchpaxos":
         kw["delay"] = cfg.fault.p_delay > 0.0
-    if cfg.protocol == "paxos":
+    if STATE_TYPES[cfg.protocol].takes_snapshots:
         kw["stale"] = cfg.fault.stale_k > 0
     return STATE_TYPES[cfg.protocol].init(
         cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.k_slots, device=device, **kw

@@ -3,8 +3,9 @@
 // layouts of the C entry points, the learner table that the single-decree
 // ticks have in common, the shared-memory column and launch of the kernels
 // that keep one per lane, the rolled selection, fenced row copy, message
-// column and column learner of the single-decree kernels (namespace sd),
-// and the phase clocks.
+// column and column learner of the single-decree kernels and the pieces of
+// K1's to K3's gray-failure and partition arms (namespace sd), and the
+// phase clocks.
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
 // scalars in registers for a whole chunk (the Multi-Paxos kernel keeps its
@@ -107,10 +108,11 @@ struct Params {
   int32_t sp_unsafe_fast;  // SynchPaxos planted bug
 };
 
-// The gray-failure and partition arms of K1 (fused_paxos_tick.cu): their
-// knobs and plan leaves, a separate kernel argument of K1's arms
-// instantiation only, so that Plan and Params, which every kernel takes,
-// stay as they are.  An optional plan leaf is null where the plan has none.
+// The gray-failure and partition arms of K1 to K3 (fused_paxos_tick.cu,
+// fused_fastpaxos_tick.cu, fused_raftcore_tick.cu): their knobs and plan
+// leaves, a separate kernel argument of their arms instantiations only, so
+// that Plan and Params, which every kernel takes, stay as they are.  An
+// optional plan leaf is null where the plan has none.
 struct Gray {
   Knob corrupt;            // p_corrupt
   int32_t stale_k;         // snapshot period of stale recovery, 0 off
@@ -144,6 +146,12 @@ __host__ __device__ constexpr int bit_length(int x) {
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+
+// x mod k for k > 0, in [0, k) (the plain ticks' floor modulo).
+__device__ __forceinline__ int32_t floor_mod(int32_t x, int32_t k) {
+  const int32_t m = x % k;
+  return m < 0 ? m + k : m;
 }
 
 __device__ __forceinline__ uint32_t mix32(uint32_t seed, uint32_t tick, uint32_t blk) {
@@ -377,6 +385,37 @@ cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
       (g.timeout_skew && g.ptimeout == nullptr) || (g.backoff_skew && g.pboff == nullptr))
     return cudaErrorInvalidValue;
   if (gray != nullptr) *gray = g;
+  return cudaSuccess;
+}
+
+// A Paxos, Fast Paxos or Raft-core state with snapshot shadows (stale_k >
+// 0) arrives with them after the three acceptor (voter) leaves, in flatten
+// order; its entry point moves them last (move_snapshots_last), so that
+// SharedLeaf's indices hold, and the shadows of the three durable fields
+// are these.
+constexpr int kSnapLeaves = kLeaves + 3;
+enum SnapLeaf { kSnap0 = kLeaves, kSnap1, kSnap2 };
+
+void move_snapshots_last(Leaves* L) {
+  void* snaps[3] = {L->p[3], L->p[4], L->p[5]};
+  for (int j = 3; j < kLeaves; ++j) L->p[j] = L->p[j + 3];
+  for (int k = 0; k < 3; ++k) L->p[kLeaves + k] = snaps[k];
+}
+
+// read_args for a kernel with an arms instantiation (K1 to K3): the state's
+// leaves are kLeaves, or kSnapLeaves with snapshot shadows (moved last);
+// `arms` is the instantiation the wrapper picked, which must be the arms'
+// exactly when a knob of theirs is on, and stale_k needs the shadows.
+// Returns cudaSuccess or cudaErrorInvalidValue.
+cudaError_t read_gray_args(bool arms, void** leaves, int n_leaves, void** plan,
+                           const long long* params, int n_params, Leaves* L, Plan* pl,
+                           Params* prm, Gray* gray) {
+  const bool snapshots = n_leaves == kSnapLeaves;
+  const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? kSnapLeaves : kLeaves, plan,
+                                    params, n_params, L, pl, prm, false, gray);
+  if (bad != cudaSuccess) return bad;
+  if (gray->on() != arms || (gray->stale_k > 0 && !snapshots)) return cudaErrorInvalidValue;
+  if (snapshots) move_snapshots_last(L);
   return cudaSuccess;
 }
 
@@ -702,6 +741,147 @@ struct ColumnLearner {
     return true;
   }
 };
+
+// ---- The gray-failure and partition arms of K1 to K3 (Gray): what an arms
+// instantiation does at each site of the tick, where the default
+// instantiations compile none of it (ARMS false).  Messages on edge e = p
+// * A + a; a buffer's slot j is on edge j % E. ----
+
+// A lane's partition window, the links that cross its cut, the cut's
+// direction and the proposers' timeout skew, read once a chunk.
+template <int P, int A>
+struct GrayLane {
+  static constexpr int E = P * A;
+  int32_t part_start = kInt32Max, part_end = kInt32Max, part_dir = 0;
+  uint32_t cross = 0;  // bit e: proposer and acceptor of edge e on opposite sides
+  int32_t ptimeout[P];
+
+  __device__ __forceinline__ void load(const Gray& gray, int64_t n, int64_t i) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) ptimeout[p] = 0;
+    if (gray.partition) {
+      part_start = gray.part_start[i];
+      part_end = gray.part_end[i];
+      if (gray.asym) part_dir = gray.part_dir[i];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        cross |= (gray.pside[(e / A) * n + i] != gray.aside[(e % A) * n + i] ? 1u : 0u) << e;
+    }
+    if (gray.timeout_skew) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) ptimeout[p] = gray.ptimeout[p * n + i];
+    }
+  }
+
+  // The edges cut at `tick`, per direction (bit e): a message on a cut
+  // edge stays in flight.  part_dir 1 cuts requests only, 2 replies only.
+  __device__ __forceinline__ void cuts(int32_t tick, uint32_t& cut_req, uint32_t& cut_rep) const {
+    cut_req = cut_rep = 0;
+    if (part_start <= tick && tick < part_end) {
+      cut_req = part_dir != 2 ? cross : 0;
+      cut_rep = part_dir != 1 ? cross : 0;
+    }
+  }
+
+  // Proposer p's timeout with its skew (0 without timeout_skew).
+  __device__ __forceinline__ int32_t timeout(int32_t base, int p) const {
+    return wrap_add(base, ptimeout[p]);
+  }
+};
+
+// Proposer p's backoff from its draw `r` (BACKOFF's bits, sign masked):
+// r mod backoff_n, times the plan's multiplier under backoff_skew.
+template <bool ARMS>
+__device__ __forceinline__ int32_t backoff_of(uint32_t r, const Params& prm, const Gray& gray,
+                                              int p, int64_t n, int64_t i) {
+  uint32_t backoff = r % static_cast<uint32_t>(prm.backoff_n);
+  if (ARMS && gray.backoff_skew) backoff *= static_cast<uint32_t>(gray.pboff[p * n + i]);
+  return -static_cast<int32_t>(backoff);
+}
+
+// Whether a message of kind `kind` (0 PROMISE / VOTE, 1 ACCEPTED / ACK, 2
+// PREPARE / REQVOTE, 3 ACCEPT / APPEND: LINK_BITS' axis) sent on edge e is
+// kept: on a flaky link against the link's own drop threshold, else the
+// uniform p_drop mask of `stream`.
+template <bool ARMS, int E>
+__device__ __forceinline__ bool kept(const TickStream& ts, const Params& prm, const Gray& gray,
+                                     uint32_t stream, int kind, int e, int64_t n, int64_t i) {
+  if (ARMS && gray.flaky) return !ts.below_at(gray.link_drop[e * n + i], kLinkBits, kind * E + e);
+  return ts.survives_at(prm.drop, stream, e);
+}
+
+// Whether duplication is live: the flaky links' dup thresholds, or p_dup.
+template <bool ARMS>
+__device__ __forceinline__ bool dup_live(const Params& prm, const Gray& gray) {
+  if (ARMS && gray.flaky) return gray.flaky_dup != 0;
+  return prm.dup.mode != 0;
+}
+
+// Whether slot j of buffer `buf` (0 requests, selected; 1 replies,
+// delivered) is duplicated, so that it stays: on a flaky link against the
+// link's own dup threshold (DUP_BITS), else the uniform p_dup mask of
+// `stream`.  Call only where dup_live.
+template <bool ARMS, int S, int E>
+__device__ __forceinline__ bool duplicated(const TickStream& ts, const Params& prm,
+                                           const Gray& gray, uint32_t stream, int buf, int j,
+                                           int64_t n, int64_t i) {
+  if (ARMS && gray.flaky) return ts.below_at(gray.link_dup[(j % E) * n + i], kDupBits, buf * S + j);
+  return ts.fires_at(prm.dup, stream, j);
+}
+
+// Payload corruption (p_corrupt) of the request acceptor a processes this
+// tick, drawn only there: a kind-1 request's v1 (an ACCEPT's or APPEND's
+// value) flips a bit, a kind-0 request's ballot (a PREPARE's or REQVOTE's)
+// moves up one.
+template <bool ARMS>
+__device__ __forceinline__ void corrupt(const TickStream& ts, const Gray& gray, int a,
+                                        bool kind1, int32_t& mb, int32_t& mv) {
+  if (ARMS && gray.corrupt.mode != 0 && ts.fires_at(gray.corrupt, kCorrupt, a)) {
+    if (kind1) mv ^= 64;
+    else mb = wrap_add(mb, 1);
+  }
+}
+
+// Stale-snapshot recovery (stale_k) or amnesia at `tick`, before the
+// acceptor half-tick: an acceptor (voter) recovering this tick (its crash
+// ends at `tick`) restores its three durable fields f0, f1, f2 from their
+// snapshot shadows in global memory (SnapLeaf), or forgets them, and on a
+// snapshot tick every acceptor's shadows take its fields after the
+// restore; `restored(a)` follows each restore.  The shadows are read on a
+// recovery tick and written on a snapshot tick only.
+template <bool ARMS, int A, typename Restored>
+__device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32_t tick,
+                                        const int32_t (&crash_end)[A], int32_t (&f0)[A],
+                                        int32_t (&f1)[A], int32_t (&f2)[A], int64_t n, int64_t i,
+                                        Restored restored) {
+  if constexpr (ARMS) {
+    if (gray.stale_k > 0) {
+      const bool snap = floor_mod(tick, gray.stale_k) == 0;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        if (crash_end[a] == tick) {
+          f0[a] = load<int32_t>(L, kSnap0, a, n, i);
+          f1[a] = load<int32_t>(L, kSnap1, a, n, i);
+          f2[a] = load<int32_t>(L, kSnap2, a, n, i);
+          restored(a);
+        }
+        if (snap) {
+          store<int32_t>(L, kSnap0, a, n, i, f0[a]);
+          store<int32_t>(L, kSnap1, a, n, i, f1[a]);
+          store<int32_t>(L, kSnap2, a, n, i, f2[a]);
+        }
+      }
+    } else if (gray.amnesia) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        if (crash_end[a] == tick) {
+          f0[a] = f1[a] = f2[a] = 0;
+          restored(a);
+        }
+      }
+    }
+  }
+}
 
 }  // namespace sd
 

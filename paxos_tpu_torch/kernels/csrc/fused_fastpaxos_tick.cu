@@ -44,6 +44,22 @@
 // position, so the order of the draws changes nothing, and a mask is drawn
 // only where the outcome depends on it, as in K1.
 //
+// The gray-failure and partition arms (partition cuts, one-way cuts,
+// per-link loss and duplication thresholds, payload corruption, timer skew,
+// stale-snapshot recovery and amnesia) compile into an instantiation of
+// their own (ARMS, at (2,5,8), the shape of every config that sets them),
+// which the C entry picks when a knob of theirs is on, as K1's do
+// (fused_paxos_tick.cu), through the pieces the three kernels share
+// (sd::GrayLane, sd::recover and the other helpers in fused_common.cuh);
+// the default instantiations compile none of their code.  A cut masks the
+// delivered replies and the selected request after the draws that select
+// them, so those draws are made as before; the per-link draws (LINK_BITS
+// where a message is sent, DUP_BITS where one is delivered or selected) and
+// the corruption draw (an acceptor that processes a request) are made only at
+// the site that reads them; the snapshot shadows stay in global memory,
+// read on a recovery tick and written on a snapshot tick, the restore
+// coming before the tick's invariant check.
+//
 // What differs from the Paxos tick (protocols/fastpaxos.py):
 //  - acceptors vote at most once per ballot (the revote rule);
 //  - the learner's threshold is per slot: q_fast for a fast-round ballot
@@ -54,6 +70,8 @@
 //    order, and adopts the first choosable value (cnt + unheard >= q_fast)
 //    when the highest reported ballot is of the fast round;
 //  - fast_done decides own_val.
+
+#include <type_traits>
 
 #include "fused_common.cuh"
 
@@ -82,12 +100,20 @@ enum Leaf {
   kDecidedVal,
 };
 
-template <int P, int A, int K, int B, int MIN_BLOCKS>
+// The kernel; `Arms` is empty for the default instantiations, whose
+// signature and code are those of the kernel without the arms, and `Gray`
+// for the arms instantiation (ARMS), which takes the arms' knobs and plan
+// leaves.
+template <int P, int A, int K, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
-fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
+fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
+                       Arms... arms) {
+  constexpr bool ARMS = sizeof...(Arms) > 0;
+  const Gray gray{arms...};
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, false>;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
+  constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr uint32_t kAccs = (1u << A) - 1;
   extern __shared__ int32_t smem[];  // G::kRows * B words
@@ -136,6 +162,10 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
   }
   uint32_t rq_written = 0, rp_written = 0;  // the slots the chunk wrote
   bool lt_written = false;                  // an accept event reached the learner table
+  // The arms' per-lane plan: the partition window, the links that cross the
+  // cut, the cut's direction, the timeout skew.
+  sd::GrayLane<P, A> glane;
+  if constexpr (ARMS) glane.load(gray, n, i);
 
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
@@ -148,10 +178,17 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // Stale-snapshot recovery or amnesia (the arms), before the acceptor
+    // half-tick and its invariant check.
+    sd::recover<ARMS, A>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [](int) {});
+    // The links cut this tick, per direction (bit e: edge e).
+    uint32_t cut_req = 0, cut_rep = 0;
+    if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
 
-    // ---- Reply delivery (pre-tick buffer): the replies not held this
-    //      tick; consumed unless duplicated. ----
+    // ---- Reply delivery (pre-tick buffer): the replies on a link not cut
+    //      and not held this tick; consumed unless duplicated. ----
     uint32_t delivered = rp_present;
+    if constexpr (ARMS) delivered &= ~(cut_rep | (cut_rep << E));
     if (prm.hold.mode != 0) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
@@ -159,10 +196,10 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       }
     }
     uint32_t taken = delivered;
-    if (prm.dup.mode != 0) {
+    if (sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        if (ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
+        if (sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i)) taken &= ~(1u << j);
       }
     }
     uint32_t rp_next = rp_present & ~taken;
@@ -233,7 +270,8 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
           bb > 0 ? (ballot_round(bb) == 0 ? v_fast : kValueBase + pick_classic) : own_val[p];
 
       int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
-      const bool exp = phase[p] != kDone && !p1 && !p2 && !fast_done && tm > prm.timeout;
+      const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
+      const bool exp = phase[p] != kDone && !p1 && !p2 && !fast_done && tm > timeout;
 
       int32_t ph = phase[p];
       if (p1) ph = kP2;
@@ -250,8 +288,7 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       }
       if (p1) tm = 0;
       if (exp) {
-        const uint32_t r = ts.bits(kBackoff, p) & 0x7FFFFFFFu;
-        tm = -static_cast<int32_t>(r % static_cast<uint32_t>(prm.backoff_n));
+        tm = sd::backoff_of<ARMS>(ts.bits(kBackoff, p) & 0x7FFFFFFFu, prm, gray, p, n, i);
       }
       old_bal[p] = cur;
       bal[p] = exp ? next_ballot(cur, prm.stride, p) : cur;
@@ -276,14 +313,19 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       const bool alive = !(crash_start[a] <= tick && tick < crash_end[a]);
       const bool busy = ts.survives_at(prm.idle, kBusy, a);
       const int win = select_present<P, A>(ts, rq_present, a);
-      const int sel = (win >= 0 && busy && alive) ? win : -1;
+      int sel = (win >= 0 && busy && alive) ? win : -1;
+      // A request on a cut link stays in flight: the acceptor processes
+      // nothing this tick.
+      if (ARMS && sel >= 0 && ((cut_req >> ((sel * A + a) % E)) & 1u)) sel = -1;
 
       // The selected request's ballot, and an ACCEPT's value (a PREPARE's
-      // v1 is 0, and only an accepting acceptor reads it).
+      // v1 is 0, and only an accepting acceptor reads it); a corrupted
+      // ACCEPT's value flips a bit, a corrupted PREPARE's ballot moves up.
       const bool is_prep = sel >= 0 && sel < P;
       const bool is_acc = sel >= P;
-      const int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
-      const int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
+      int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
+      int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
+      if (sel >= 0) sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
       const bool eq = (equiv >> a) & 1u;
       const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
       const bool ok_prep_h = is_prep && !eq && mb > pr_old;
@@ -299,24 +341,28 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       const int32_t av = ok_acc ? mv : av_old;
 
       // The reply into the selected sender's slot (post-consume buffer):
-      // PROMISE for proposer sel, ACCEPTED for proposer sel - P.
-      if (ok_prep && ts.survives_at(prm.drop, kKeepProm, sel * A + a)) {
+      // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
+      // link drops it against its own threshold.
+      if (ok_prep && sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, sel * A + a, n, i)) {
         const int jr = sel * A + a;
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_acc && ts.survives_at(prm.drop, kKeepAccd, (sel - P) * A + a)) {
+      if (ok_acc && sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, (sel - P) * A + a, n, i)) {
         const int jr = sel * A + a;
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
         rp_sent |= 1u << jr;
       }
-      // Consume the selected request unless it is duplicated.
+      // Consume the selected request unless it is duplicated (on a flaky
+      // link, against its own threshold).
       if (sel >= 0) {
         const int j = sel * A + a;
-        if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kDupReq, j))) rq_next &= ~(1u << j);
+        if (!(sd::dup_live<ARMS>(prm, gray) &&
+              sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, j, n, i)))
+          rq_next &= ~(1u << j);
       }
 
       // Acceptor-local invariants (honest acceptors only).
@@ -346,13 +392,13 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       if ((p1_done | expired) >> p & 1u) {
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
-          if (((p1_done >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
+          if (((p1_done >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, p * A + a, n, i)) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, recovery value)
             col[G::kRqBal + j] = old_bal[p];
             col[G::rq_v1(j)] = prop_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
+          if (((expired >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, p * A + a, n, i)) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
             rq_sent |= 1u << j;
@@ -398,24 +444,39 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
   clk.flush();
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh).
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): the
+// arms instantiation's kernel takes a Gray after Params.
+template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
+struct InstOf {
+  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
+                        SdStaged<P, A, K, false>::kRows * B * 4>;
+};
 template <int P, int A, int K, int B, int MIN_BLOCKS>
-using Inst = SmemInst<fused_fastpaxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
-                      SdStaged<P, A, K, false>::kRows * B * 4>;
+struct InstOf<P, A, K, true, B, MIN_BLOCKS> {
+  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, B, MIN_BLOCKS, Gray>, B,
+                        SdStaged<P, A, K, false>::kRows * B * 4>;
+};
+template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, ARMS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, B, MIN_BLOCKS): one per
-// shape, at the geometry fused_tick.FR_STAGING["fastpaxos"] gives it;
-// MIN_BLOCKS, the blocks an SM is to hold, caps a thread's registers.
+// The instantiations, (n_prop, n_acc, k_slots, ARMS, B, MIN_BLOCKS): one per
+// shape and arms flag, at the geometry fused_tick.FR_STAGING["fastpaxos"]
+// gives it; MIN_BLOCKS, the blocks an SM is to hold, caps a thread's
+// registers.  The arms run at (2,5,8), the shape of every config that sets
+// them.
 #define K2_INSTANCES(X) \
-  X(2, 5, 8, 128, 4)    \
-  X(2, 3, 8, 128, 3)
+  X(2, 5, 8, 0, 128, 4)   \
+  X(2, 3, 8, 0, 128, 3)   \
+  X(2, 5, 8, 1, 128, 3)
 
-// Calls `fn(Inst<...>{})` for the shape `dims` names (n_prop, n_acc,
-// k_slots), or returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
+// instantiation `dims` names (n_prop, n_acc, k_slots, arms), or returns
+// cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K2_MATCH(P_, A_, K_, B_, M_) \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_) return fn(Inst<P_, A_, K_, B_, M_>{});
+#define K2_MATCH(P_, A_, K_, R_, B_, M_)                                     \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_) \
+    return fn(Inst<P_, A_, K_, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
   K2_INSTANCES(K2_MATCH)
 #undef K2_MATCH
   return cudaErrorInvalidValue;
@@ -424,32 +485,41 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, then the dynamic
-// shared bytes a block, fused_tick.FR_STAGING's); `tick` is the device
-// int32 tick scalar, read by the kernel and advanced by the caller.
-// Returns cudaSuccess or the first error: an unknown shape or too few
-// shared bytes (cudaErrorInvalidValue), a shared-memory request the card
-// refuses, or the launch's cudaGetLastError().
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, arms (1: the
+// instantiation with the gray-failure and partition arms, which a knob of
+// theirs needs), then the dynamic shared bytes a block,
+// fused_tick.FR_STAGING's); the state's leaves are 28, or 31 with snapshot
+// shadows, which stale_k > 0 needs; `tick` is the device int32 tick
+// scalar, read by the kernel and advanced by the caller.  Returns
+// cudaSuccess or the first error: an unknown instantiation, a knob on
+// without its arms or its arms without a knob, stale_k without snapshots
+// or too few shared bytes (cudaErrorInvalidValue), a shared-memory request
+// the card refuses, or the launch's cudaGetLastError().
 extern "C" int fused_fastpaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                       void** plan, void* tick, const long long* params, int n_params,
                                       void* stream) {
-  if (n_dims != 4) return cudaErrorInvalidValue;
+  if (n_dims != 5) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
-  const cudaError_t bad = read_args(leaves, n_leaves, kLeaves, plan, params, n_params, &L, &pl, &prm);
+  Gray gray;
+  const cudaError_t bad =
+      read_gray_args(dims[3] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray);
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[3];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+  const int smem = dims[4];
+  return dispatch(dims, [&](auto inst, auto with_arms) {
+    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
+    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  });
 }
 
 // The blocks of instantiation `dims` (as for fused_fastpaxos_launch) that
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_fastpaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 4) return cudaErrorInvalidValue;
-  const int smem = dims[3];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 5) return cudaErrorInvalidValue;
+  const int smem = dims[4];
+  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

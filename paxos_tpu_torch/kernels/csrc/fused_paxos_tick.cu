@@ -54,7 +54,9 @@
 // stale-snapshot recovery and amnesia) compile into an instantiation of
 // their own (ARMS, at (2,5,8), the shape of every config that sets them),
 // which the C entry picks when a knob of theirs is on; the default
-// instantiations compile none of their code.  Each arm keeps to the
+// instantiations compile none of their code.  K2 and K3 share the arms'
+// pieces (sd::GrayLane, sd::recover and the other helpers in
+// fused_common.cuh).  Each arm keeps to the
 // design above: a cut masks the selected request and the delivered replies
 // after the draws that select them, which are keyed by position, so they
 // are made as before; the per-link draws (LINK_BITS where a message is
@@ -99,21 +101,10 @@ enum Leaf {
   kBal, kPhase, kOwnVal, kPropVal, kHeard, kBestBal, kBestVal, kTimer,
   kDecidedVal,
 };
-// A state with snapshot shadows (stale_k > 0) has them after the acceptor
-// leaves; the C entry moves them last (move_snapshots_last).
-constexpr int kSnapLeaves = kLeaves + 3;
-enum SnapLeaf { kSnapPromised = kLeaves, kSnapBal, kSnapVal };
-
 // An acceptor's state breaks an acceptor-local invariant on its own: its
 // accepted ballot above its promise, or a nil ballot with a value.
 __device__ __forceinline__ bool breaks_alone(int32_t pr, int32_t ab, int32_t av) {
   return ab > pr || (ab == 0 && av != 0);
-}
-
-// x mod k for k > 0, in [0, k) (the plain tick's floor modulo).
-__device__ __forceinline__ int32_t floor_mod(int32_t x, int32_t k) {
-  const int32_t m = x % k;
-  return m < 0 ? m + k : m;
 }
 
 // The kernel; `Arms` is empty for the default instantiation, whose
@@ -202,25 +193,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 
   // ---- The arms' per-lane plan: the partition window, the links that
   //      cross the cut, the cut's direction, the timeout skew. ----
-  int32_t part_start = kInt32Max, part_end = kInt32Max, part_dir = 0;
-  uint32_t cross = 0;  // bit e: proposer and acceptor of edge e on opposite sides
-  int32_t ptimeout[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) ptimeout[p] = 0;
-  if constexpr (ARMS) {
-    if (gray.partition) {
-      part_start = gray.part_start[i];
-      part_end = gray.part_end[i];
-      if (gray.asym) part_dir = gray.part_dir[i];
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        cross |= (gray.pside[(e / A) * n + i] != gray.aside[(e % A) * n + i] ? 1u : 0u) << e;
-    }
-    if (gray.timeout_skew) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) ptimeout[p] = gray.ptimeout[p * n + i];
-    }
-  }
+  sd::GrayLane<P, A> glane;
+  if constexpr (ARMS) glane.load(gray, n, i);
 
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
@@ -233,34 +207,10 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   // takes its state after the restore; the restored acceptors' invariant
   // breaks are recomputed.
   const auto recover = [&](int32_t tick) {
-    if constexpr (ARMS) {
-      if (gray.stale_k > 0) {
-        const bool snap = floor_mod(tick, gray.stale_k) == 0;
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          if (crash_end[a] == tick) {
-            promised[a] = load<int32_t>(L, kSnapPromised, a, n, i);
-            acc_bal[a] = load<int32_t>(L, kSnapBal, a, n, i);
-            acc_val[a] = load<int32_t>(L, kSnapVal, a, n, i);
-            const bool bad = !((equiv >> a) & 1u) && breaks_alone(promised[a], acc_bal[a], acc_val[a]);
-            bad_alone = (bad_alone & ~(1u << a)) | ((bad ? 1u : 0u) << a);
-          }
-          if (snap) {
-            store<int32_t>(L, kSnapPromised, a, n, i, promised[a]);
-            store<int32_t>(L, kSnapBal, a, n, i, acc_bal[a]);
-            store<int32_t>(L, kSnapVal, a, n, i, acc_val[a]);
-          }
-        }
-      } else if (gray.amnesia) {
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          if (crash_end[a] == tick) {
-            promised[a] = acc_bal[a] = acc_val[a] = 0;
-            bad_alone &= ~(1u << a);  // a nil pair breaks nothing
-          }
-        }
-      }
-    }
+    sd::recover<ARMS, A>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [&](int a) {
+      const bool bad = !((equiv >> a) & 1u) && breaks_alone(promised[a], acc_bal[a], acc_val[a]);
+      bad_alone = (bad_alone & ~(1u << a)) | ((bad ? 1u : 0u) << a);
+    });
   };
   clk.mark(kPhLoad);
 
@@ -293,12 +243,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
-    if constexpr (ARMS) {
-      if (part_start <= tick && tick < part_end) {
-        cut_req = part_dir != 2 ? cross : 0;  // part_dir 2 spares requests
-        cut_rep = part_dir != 1 ? cross : 0;  // part_dir 1 spares replies
-      }
-    }
+    if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
 
     // ---- Reply delivery (pre-tick buffer): the replies on a link not cut
     //      and not held this tick; consumed unless duplicated. ----
@@ -311,17 +256,10 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
     }
     uint32_t taken = delivered;
-    if (ARMS && gray.flaky) {
-      if (gray.flaky_dup) {
-        for (uint32_t m = delivered; m != 0; m &= m - 1) {
-          const int j = __ffs(m) - 1;
-          if (ts.below_at(gray.link_dup[(j % E) * n + i], kDupBits, S + j)) taken &= ~(1u << j);
-        }
-      }
-    } else if (prm.dup.mode != 0) {
+    if (sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        if (ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
+        if (sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i)) taken &= ~(1u << j);
       }
     }
     const uint32_t rp_next = rp_present & ~taken;
@@ -404,7 +342,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       const bool p2 = phase[p] == kP2 && votes >= prm.q2;
       const int32_t v_by_p1 = bb > 0 ? bv : own_val[p];
       int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
-      const int32_t timeout = ARMS ? wrap_add(prm.timeout, ptimeout[p]) : prm.timeout;
+      const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
       const bool exp = phase[p] != kDone && !p1 && !p2 && tm > timeout;
 
       int32_t ph = phase[p];
@@ -420,10 +358,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
       if (p1) tm = 0;
       if (exp) {
-        const uint32_t r = ts.bits(kBackoff, p) & 0x7FFFFFFFu;
-        uint32_t backoff = r % static_cast<uint32_t>(prm.backoff_n);
-        if (ARMS && gray.backoff_skew) backoff *= static_cast<uint32_t>(gray.pboff[p * n + i]);
-        tm = -static_cast<int32_t>(backoff);
+        tm = sd::backoff_of<ARMS>(ts.bits(kBackoff, p) & 0x7FFFFFFFu, prm, gray, p, n, i);
       }
       old_bal[p] = cur;
       bal[p] = exp ? next_ballot(cur, prm.stride, p) : cur;
@@ -476,10 +411,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       const bool is_acc = !is_prep;
       int32_t mb = col[G::kRqBal + sel * A + a];
       int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
-      if (ARMS && gray.corrupt.mode != 0 && ts.fires_at(gray.corrupt, kCorrupt, a)) {
-        if (is_acc) mv ^= 64;
-        else mb = wrap_add(mb, 1);
-      }
+      sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
       const bool eq = (equiv >> a) & 1u;
       const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
       const bool ok_prep_h = is_prep && !eq && mb > pr_old;
@@ -496,29 +428,22 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
       // link drops it against its own threshold.
       const int jr = sel * A + a;
-      const auto kept = [&](uint32_t stream, int kind, int e) {
-        if (ARMS && gray.flaky) return !ts.below_at(gray.link_drop[e * n + i], kLinkBits, kind * E + e);
-        return ts.survives_at(prm.drop, stream, e);
-      };
-      if (ok_prep && kept(kKeepProm, 0, jr)) {
+      if (ok_prep && sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, jr, n, i)) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_acc && kept(kKeepAccd, 1, jr - P * A)) {
+      if (ok_acc && sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, jr - E, n, i)) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
         rp_sent |= 1u << jr;
       }
       // Consume the selected request unless it is duplicated (on a flaky
       // link, against its own threshold).
-      if (ARMS && gray.flaky) {
-        if (!(gray.flaky_dup && ts.below_at(gray.link_dup[(jr % E) * n + i], kDupBits, jr)))
-          rq_next &= ~(1u << jr);
-      } else if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kDupReq, jr))) {
+      if (!(sd::dup_live<ARMS>(prm, gray) &&
+            sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, jr, n, i)))
         rq_next &= ~(1u << jr);
-      }
 
       // Acceptor-local invariants (honest acceptors only).
       if (!eq && (pr < pr_old || breaks_alone(pr, ab, av))) ++inv_viol;
@@ -549,17 +474,13 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
           const int e = p * A + a;
-          const auto kept = [&](uint32_t stream, int kind) {
-            if (ARMS && gray.flaky) return !ts.below_at(gray.link_drop[e * n + i], kLinkBits, kind * E + e);
-            return ts.survives_at(prm.drop, stream, e);
-          };
-          if (((p1_done >> p) & 1u) && kept(kKeepP2, 3)) {
+          if (((p1_done >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, e, n, i)) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
             col[G::kRqBal + j] = old_bal[p];
             col[G::rq_v1(j)] = prop_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && kept(kKeepP1, 2)) {
+          if (((expired >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, e, n, i)) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
             rq_sent |= 1u << j;
@@ -640,14 +561,6 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
-// A state with snapshot shadows arrives with them after the three acceptor
-// leaves (flatten order); move them last (SnapLeaf).
-void move_snapshots_last(Leaves* L) {
-  void* snaps[3] = {L->p[3], L->p[4], L->p[5]};
-  for (int j = 3; j < kLeaves; ++j) L->p[j] = L->p[j + 3];
-  for (int k = 0; k < 3; ++k) L->p[kLeaves + k] = snaps[k];
-}
-
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_args in
@@ -668,14 +581,10 @@ extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, in
   Leaves L;
   Plan pl;
   Params prm;
-  const bool snapshots = n_leaves == kSnapLeaves;
   Gray gray;
-  const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? kSnapLeaves : kLeaves, plan,
-                                    params, n_params, &L, &pl, &prm, false, &gray);
+  const cudaError_t bad =
+      read_gray_args(dims[3] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray);
   if (bad != cudaSuccess) return bad;
-  const bool arms = dims[3] != 0;
-  if (gray.on() != arms || (gray.stale_k > 0 && !snapshots)) return cudaErrorInvalidValue;
-  if (snapshots) move_snapshots_last(&L);
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
   const int smem = dims[4];

@@ -22,12 +22,13 @@ from its own ids with ``mp_counter_masks``.
 Only the SynchPaxos kernel models the bounded-delay channel: it takes a
 state with or without ``until`` stamps (an instantiation each) and the
 plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
-Only the Paxos kernel models the gray-failure and partition arms
-(``protocols.paxos.GRAY_KNOBS``), in an instantiation of its own that the
-wrapper picks when a knob of theirs is on (the fourth field of its
-``KERNEL_SHAPES``, ``arms``); it reads the plan's partition and gray leaves
-and, under ``stale_k``, the state's snapshot shadows.  The other kernels
-refuse those knobs.
+Only the Paxos, Fast Paxos and Raft-core kernels model the gray-failure
+and partition arms (``protocols.paxos.GRAY_KNOBS``), each in an
+instantiation of its own that the wrapper picks when a knob of theirs is
+on (the fourth field of their ``KERNEL_SHAPES``, ``arms``:
+:func:`gray_arms`); it reads the plan's partition and gray leaves and,
+under ``stale_k``, the state's snapshot shadows.  The other kernels refuse
+those knobs.
 
 Every kernel keeps part of each lane's state in shared memory for the
 whole chunk: the Multi-Paxos kernel its slot arrays, the SynchPaxos kernel
@@ -73,19 +74,19 @@ DEFAULT_BLOCK = 1024
 # a ballot by less than 2 * MAX_PROPOSERS.
 BALLOT_GROWTH_PER_TICK = 16
 
-# Shapes each CUDA kernel is instantiated for: (n_prop, n_acc, k_slots) of
-# config2/config4/config5 and config1, and (2, 3, 8), the three-acceptor
-# shape the reference's own kernel tests run (tests/test_fused.py); Paxos
-# (n_prop, n_acc, k_slots, arms) with arms 1 (the gray-failure and
-# partition arms) at (2, 5, 8), the shape of every config that sets them;
+# Shapes each CUDA kernel is instantiated for: (n_prop, n_acc, k_slots,
+# arms) of config2/config4/config5 and config1, and (2, 3, 8), the
+# three-acceptor shape the reference's own kernel tests run
+# (tests/test_fused.py), with arms 1 (the gray-failure and partition arms)
+# at (2, 5, 8), the shape of every config that sets them;
 # SynchPaxos (n_prop, n_acc, k_slots, stamped) of config_delay_chaos (with
 # delay stamps) and of its delay-free runs, and three acceptors;
 # Multi-Paxos (n_prop, n_acc, log_len, k_slots) of config3, config3-long,
 # the reference tests' 4-slot window, and three acceptors.
 KERNEL_SHAPES = {
     "paxos": ((2, 5, 8, 0), (1, 3, 8, 0), (2, 5, 8, 1)),
-    "fastpaxos": ((2, 5, 8), (2, 3, 8)),
-    "raftcore": ((2, 5, 8), (2, 3, 8)),
+    "fastpaxos": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
+    "raftcore": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
     "synchpaxos": ((2, 5, 8, 1), (2, 5, 8, 0), (2, 3, 8, 1)),
     "multipaxos": ((2, 5, 8, 4), (2, 5, 16, 4), (2, 5, 4, 4), (2, 3, 8, 4)),
 }
@@ -259,9 +260,9 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # thread at 168 registers; K2's (2, 5, 8) column (104 words) leaves room
 # for a fourth block (16 warps, 128 registers), which made its main path
 # 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's columns (104
-# and 48 words) take 4 blocks at both shapes; its arms instantiation keeps
-# the same column (the snapshot shadows stay in global memory), and its
-# registers are capped for 3 blocks.
+# and 48 words) take 4 blocks at both shapes.  Each arms instantiation
+# keeps its default's column (the snapshot shadows stay in global memory),
+# and its registers are capped for 3 blocks.
 FR_STAGING = {
     "paxos": {
         (2, 5, 8, 0): _fr_staging("paxos", (2, 5, 8), 128, 4),
@@ -269,12 +270,14 @@ FR_STAGING = {
         (2, 5, 8, 1): _fr_staging("paxos", (2, 5, 8), 128, 3),
     },
     "fastpaxos": {
-        (2, 5, 8): _fr_staging("fastpaxos", (2, 5, 8), 128, 4),
-        (2, 3, 8): _fr_staging("fastpaxos", (2, 3, 8), 128, 3),
+        (2, 5, 8, 0): _fr_staging("fastpaxos", (2, 5, 8), 128, 4),
+        (2, 3, 8, 0): _fr_staging("fastpaxos", (2, 3, 8), 128, 3),
+        (2, 5, 8, 1): _fr_staging("fastpaxos", (2, 5, 8), 128, 3),
     },
     "raftcore": {
-        (2, 5, 8): _fr_staging("raftcore", (2, 5, 8), 128, 3),
-        (2, 3, 8): _fr_staging("raftcore", (2, 3, 8), 128, 3),
+        (2, 5, 8, 0): _fr_staging("raftcore", (2, 5, 8), 128, 3),
+        (2, 3, 8, 0): _fr_staging("raftcore", (2, 3, 8), 128, 3),
+        (2, 5, 8, 1): _fr_staging("raftcore", (2, 5, 8), 128, 3),
     },
 }
 
@@ -378,24 +381,24 @@ def _gray_params(cfg: FaultConfig) -> list:
     ]
 
 
-def k1_arms(cfg: FaultConfig) -> int:
-    """1 when ``cfg`` turns on an arm of K1's gray-failure and partition
-    instantiation, else 0 (the default instantiation)."""
+def gray_arms(cfg: FaultConfig) -> int:
+    """1 when ``cfg`` turns on an arm of the gray-failure and partition
+    instantiation of K1, K2 or K3, else 0 (the default instantiation)."""
     return int(any(_gray_params(cfg)))
 
 
 BINDINGS = {
     "paxos": Binding(
         apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch",
-        staging=FR_STAGING["paxos"], arms=k1_arms,
+        staging=FR_STAGING["paxos"], arms=gray_arms,
     ),
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
-        "fused_fastpaxos_launch", staging=FR_STAGING["fastpaxos"],
+        "fused_fastpaxos_launch", staging=FR_STAGING["fastpaxos"], arms=gray_arms,
     ),
     "raftcore": Binding(
         apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch",
-        staging=FR_STAGING["raftcore"],
+        staging=FR_STAGING["raftcore"], arms=gray_arms,
     ),
     # core/sp_state.py SP_LAYOUT: the single-decree widths; ``stamped`` (1
     # when the buffers carry ``until``) picks the instantiation.
@@ -521,8 +524,9 @@ def _kernel_params(
 # The plan leaves every kernel receives, in ``Plan``'s order
 # (csrc/fused_common.cuh), each optional one passed as a null pointer when
 # the plan has none: the single-decree kernels ignore the proposer crash
-# windows, only SynchPaxos' reads link_delay, and only Paxos' the
-# partition and gray leaves after it.
+# windows, only SynchPaxos' reads link_delay, and only the arms
+# instantiations of Paxos', Fast Paxos' and Raft-core's the partition and
+# gray leaves after it.
 _PLAN_LEAVES = (
     "crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end", "link_delay",
     "part_start", "part_end", "aside", "pside", "part_dir", "link_drop", "link_dup",
@@ -699,9 +703,10 @@ def draw_census(
     clamp_per_tick: bool = False,
 ) -> tuple:
     """(draws, slot touches): the counter-PRNG draws ``protocol``'s kernel
-    makes over ``n_ticks`` ticks from ``state`` (K1's gray draws included:
-    LINK_BITS where a flaky link sends, DUP_BITS where it delivers or
-    selects, CORRUPT where an acceptor processes a request), and the
+    makes over ``n_ticks`` ticks from ``state`` (the gray draws of K1 to
+    K3's arms included: LINK_BITS where a flaky link sends, DUP_BITS where
+    it delivers or selects, CORRUPT where an acceptor processes a
+    request), and the
     slot-array elements
     it reads or writes (Multi-Paxos; SynchPaxos: the delay stamps; 0 for
     the other single-decree kernels, which count none),
@@ -752,8 +757,8 @@ def fused_paxos_chunk(
     the state's tensors in place (the input state is consumed) and
     returning it; ``.launches`` counts the launches; a launch the card
     refuses raises.  A config with a gray-failure or partition knob on runs
-    the kernel's arms instantiation (``k1_arms``), on a plan with the
-    leaves its knobs need.  CPU: the plain :func:`reference_chunk`.  There
+    the kernel's arms instantiation (:func:`gray_arms`), on a plan with the
+    leaves its knobs need; so do Fast Paxos and Raft-core.  CPU: the plain :func:`reference_chunk`.  There
     is no fallback between the two: the device of the state decides."""
     return _fused_chunk(
         "paxos", fused_paxos_chunk, state, seed, plan, cfg, n_ticks, block,

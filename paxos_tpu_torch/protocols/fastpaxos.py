@@ -13,7 +13,10 @@ transport and fault machinery as single-decree Paxos; what differs:
 - the learner applies the per-round-kind threshold
   (``learner_observe(..., fast_quorum=...)``).
 
-Observer planes and unported knobs are absent, as in the Paxos tick.
+The gray-failure and partition arms are the Paxos tick's (stale-snapshot
+restore and amnesia, cuts, flaky links, corruption, timer skew), through
+the pieces the three ticks share.  Observer planes and unported knobs are
+absent, as in the Paxos tick.
 """
 
 from __future__ import annotations
@@ -29,7 +32,17 @@ from paxos_tpu_torch.core.messages import ACCEPT, ACCEPTED, PREPARE, PROMISE
 from paxos_tpu_torch.core.state import DONE, P1, P2
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels.quorum import fast_quorum, majority, quorum_reached
-from paxos_tpu_torch.protocols.paxos import TickMasks, check_no_stamps, check_supported
+from paxos_tpu_torch.protocols.paxos import (
+    TickMasks,
+    check_no_stamps,
+    check_supported,
+    corrupt,
+    deliver,
+    gray_links,
+    recover,
+    select,
+    skewed_timers,
+)
 from paxos_tpu_torch.transport import inmemory as net
 from paxos_tpu_torch.utils.bitops import popcount
 
@@ -48,18 +61,13 @@ def apply_tick_fast(
     fquorum = cfg.q_fast or fast_quorum(n_acc)
     dev = state.device
 
-    acc = state.acceptor
-    alive = plan.alive(state.tick)  # (A, I)
     equiv = plan.equivocate  # (A, I)
-
-    delivered = state.replies.present
-    if masks.deliver is not None:
-        delivered = delivered & masks.deliver
-    replies = net.consume(state.replies, delivered, stay=masks.dup_rep)
+    acc = recover(state.acceptor, state, plan, cfg)
+    links = gray_links(masks, plan, cfg, state.tick)
+    delivered, replies = deliver(state, masks, links)
 
     # ---- Acceptor half-tick ----
-    sel = net.select_from_scores(state.requests.present, masks.sel_score, masks.busy)
-    sel = sel & alive[None, None]
+    sel = select(state, masks, plan, links)
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=torch.int32)
@@ -68,6 +76,7 @@ def apply_tick_fast(
     msg_val = gather(state.requests.v1)  # (A, I)
     is_prep = sel[PREPARE].any(dim=0)
     is_acc = sel[ACCEPT].any(dim=0)
+    msg_bal, msg_val = corrupt(masks, cfg, msg_bal, msg_val, is_prep, is_acc)
 
     ok_prep_h = is_prep & ~equiv & (msg_bal > acc.promised)
     ok_prep = ok_prep_h | (is_prep & equiv)
@@ -88,15 +97,15 @@ def apply_tick_fast(
         replies, PROMISE,
         send_mask=sel[PREPARE] & ok_prep[None],
         bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
-        keep=masks.keep_prom,
+        keep=links.keep_prom,
     )
     replies = net.send(
         replies, ACCEPTED,
         send_mask=sel[ACCEPT] & ok_acc[None],
         bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
-        keep=masks.keep_accd,
+        keep=links.keep_accd,
     )
-    requests = net.consume(state.requests, sel, stay=masks.dup_req)
+    requests = net.consume(state.requests, sel, stay=links.dup_req)
     acc_new = dataclasses.replace(acc, promised=promised, acc_bal=acc_bal, acc_val=acc_val)
 
     # ---- Learner / safety checker (fast-quorum-aware thresholds) ----
@@ -161,7 +170,8 @@ def apply_tick_fast(
     v_recover = torch.where(best_bal > 0, torch.where(is_fast_k, v_fast, pick_classic), prop.own_val)
 
     timer = torch.where(prop.phase == DONE, prop.timer, prop.timer + 1)
-    expired = (prop.phase != DONE) & ~p1_done & ~p2_done & ~fast_done & (timer > cfg.timeout)
+    timeout, backoff = skewed_timers(masks, plan, cfg)
+    expired = (prop.phase != DONE) & ~p1_done & ~p2_done & ~fast_done & (timer > timeout)
     pid = torch.arange(n_prop, dtype=torch.int32, device=dev)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
 
@@ -176,7 +186,7 @@ def apply_tick_fast(
     best_bal = torch.where(expired, 0, best_bal)
     rep_mask = torch.where(expired[:, None], 0, rep_mask)
     timer = torch.where(p1_done, 0, timer)
-    timer = torch.where(expired, -masks.backoff, timer)
+    timer = torch.where(expired, -backoff, timer)
 
     # Emit: classic ACCEPT on phase-1 completion, PREPARE on retry.
     zeros = torch.zeros((n_prop, 1, n_inst), dtype=torch.int32, device=dev)
@@ -184,13 +194,13 @@ def apply_tick_fast(
         requests, ACCEPT,
         send_mask=p1_done[:, None].expand(n_prop, n_acc, n_inst),
         bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=masks.keep_p2,
+        keep=links.keep_p2,
     )
     requests = net.send(
         requests, PREPARE,
         send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=zeros, v2=zeros,
-        keep=masks.keep_p1,
+        keep=links.keep_p1,
     )
     prop = dataclasses.replace(
         prop,

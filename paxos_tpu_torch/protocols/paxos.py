@@ -8,12 +8,14 @@ CUDA kernel (``kernels/fused_tick``) replays them tick by tick.
 
 Ported knobs: ``p_drop``, ``p_dup``, ``p_idle``, ``p_hold``, ``timeout``,
 ``backoff_max``, ``ballot_stride``, ``q1``, ``q2``, and the plan's crash
-windows and equivocation flags; for Paxos also the gray-failure and
-partition arms (``p_part`` with ``p_asym``, ``p_flaky``, ``p_corrupt``,
-``timeout_skew``, ``backoff_skew``, ``stale_k``, ``amnesia``); for
-SynchPaxos the bounded delay (``p_delay``, ``delay_max``:
-:func:`delay_stamps`) and ``sp_unsafe_fast``.  Any other knob raises
-``NotImplementedError`` naming its ROADMAP item.
+windows and equivocation flags; for Paxos, Fast Paxos and Raft-core also
+the gray-failure and partition arms (``p_part`` with ``p_asym``,
+``p_flaky``, ``p_corrupt``, ``timeout_skew``, ``backoff_skew``,
+``stale_k``, ``amnesia``), whose pieces the three ticks share
+(:func:`recover`, :func:`gray_links`, :func:`deliver`, :func:`select`,
+:func:`corrupt`, :func:`skewed_timers`); for SynchPaxos the bounded delay
+(``p_delay``, ``delay_max``: :func:`delay_stamps`) and ``sp_unsafe_fast``.
+Any other knob raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,13 +41,15 @@ from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
 from paxos_tpu_torch.transport import inmemory as net
 
-# The gray-failure and partition knobs, which only the Paxos tick (and K1)
-# models so far; the other ticks raise, naming the ROADMAP item that ports
-# them.  A knob counts as on when it differs from its FaultConfig default.
+# The gray-failure and partition knobs, which the Paxos, Fast Paxos and
+# Raft-core ticks (and K1 to K3) model so far; the other ticks raise, naming
+# the ROADMAP item that ports them.  A knob counts as on when it differs
+# from its FaultConfig default.
 GRAY_KNOBS = (
     "p_part", "p_asym", "p_flaky", "p_corrupt", "timeout_skew", "backoff_skew", "stale_k",
     "amnesia",
 )
+GRAY_PROTOCOLS = ("paxos", "fastpaxos", "raftcore")
 _GRAY_ITEM = "queue B1 item 12 (the gray-failure and partition arms)"
 # Knobs only the SynchPaxos tick models so far.
 _SYNCHPAXOS_ONLY_KNOBS = {
@@ -57,7 +61,7 @@ _SYNCHPAXOS_ONLY_KNOBS = {
 def check_supported(cfg: FaultConfig, protocol: str = "paxos") -> None:
     """Raise ``NotImplementedError`` for a knob ``protocol``'s tick does
     not model in the port."""
-    knobs = {} if protocol == "paxos" else dict.fromkeys(GRAY_KNOBS, _GRAY_ITEM)
+    knobs = {} if protocol in GRAY_PROTOCOLS else dict.fromkeys(GRAY_KNOBS, _GRAY_ITEM)
     if protocol != "synchpaxos":
         knobs.update(_SYNCHPAXOS_ONLY_KNOBS)
     default = FaultConfig()
@@ -187,6 +191,124 @@ def delay_stamps(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> t
     return until[0], until[1]
 
 
+def recover(acc, state, plan: FaultPlan, cfg: FaultConfig):
+    """Stale-snapshot recovery (``stale_k``) or amnesia of ``acc``, the
+    acceptors (Raft-core: voters) of ``state``, before the tick's acceptor
+    half-tick and its invariant check (bug injections: the checker flags
+    the consequences, not the rollback).  An acceptor recovering this tick
+    restores the snapshot of the last multiple of stale_k ticks (forgets
+    its state), and on a snapshot tick the snapshot takes the state after
+    the restore; the durable fields and their shadows are
+    ``type(acc).SNAPSHOT``'s."""
+    pairs = type(acc).SNAPSHOT
+    if cfg.stale_k > 0:
+        if not state.snapshots:
+            raise ValueError("stale_k > 0 needs a state with snapshot shadows (stale=True)")
+        rec = plan.recovering(state.tick)
+        acc = dataclasses.replace(acc, **{
+            live: torch.where(rec, getattr(acc, snap), getattr(acc, live)) for live, snap in pairs
+        })
+        due = state.tick % cfg.stale_k == 0
+        acc = dataclasses.replace(acc, **{
+            snap: torch.where(due, getattr(acc, live), getattr(acc, snap)) for live, snap in pairs
+        })
+    elif cfg.amnesia:
+        rec = plan.recovering(state.tick)
+        acc = dataclasses.replace(acc, **{
+            live: torch.where(rec, 0, getattr(acc, live)) for live, _ in pairs
+        })
+    return acc
+
+
+@dataclasses.dataclass
+class Links:
+    """A tick's link faults: the partition cuts (None without ``p_part``;
+    (P, A, I) bool, True where the link delivers) per direction, and the
+    drop and duplication masks of the sends and deliveries, each None where
+    its fault is off.  Raft-core's roles: keep_prom VOTE, keep_accd ACK,
+    keep_p1 REQVOTE, keep_p2 APPEND."""
+
+    link_req: Optional[torch.Tensor]
+    link_rep: Optional[torch.Tensor]
+    keep_prom: Optional[torch.Tensor]
+    keep_accd: Optional[torch.Tensor]
+    keep_p1: Optional[torch.Tensor]
+    keep_p2: Optional[torch.Tensor]
+    dup_req: Optional[torch.Tensor]
+    dup_rep: Optional[torch.Tensor]
+
+
+def gray_links(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> Links:
+    """The link faults at ``tick``: partition cuts (``p_part``; one-way
+    with ``p_asym``), which stall messages in flight and lose nothing; and
+    with ``p_flaky`` the per-link loss and duplication, this tick's raw
+    bits against the plan's per-link thresholds, in place of the uniform
+    masks (p_flaky 0 is the uniform case)."""
+    link_req = link_rep = None
+    if cfg.p_part > 0.0:
+        if cfg.p_asym > 0.0:
+            link_req = plan.link_ok(tick, "req")  # (P, A, I)
+            link_rep = plan.link_ok(tick, "rep")
+        else:
+            link_req = link_rep = plan.link_ok(tick)
+    if cfg.p_flaky <= 0.0:
+        return Links(
+            link_req, link_rep, masks.keep_prom, masks.keep_accd, masks.keep_p1, masks.keep_p2,
+            masks.dup_req, masks.dup_rep,
+        )
+    keeps = [~bits_below(masks.link_bits[k], plan.link_drop) for k in range(4)]
+    dup_req = dup_rep = None
+    if masks.dup_bits is not None:
+        dup_req = bits_below(masks.dup_bits[0], plan.link_dup[None])
+        dup_rep = bits_below(masks.dup_bits[1], plan.link_dup[None])
+    return Links(link_req, link_rep, *keeps, dup_req, dup_rep)
+
+
+def deliver(state, masks: TickMasks, links: Links) -> tuple:
+    """(delivered, replies): the replies delivered this tick, those not
+    held and not on a cut link, and the reply buffer with them consumed
+    unless duplicated.  Delivery is decided (and delivered slots cleared)
+    BEFORE the acceptor half-tick writes new replies; proposers read
+    payloads from the pre-tick buffer."""
+    delivered = state.replies.present
+    if masks.deliver is not None:
+        delivered = delivered & masks.deliver
+    if links.link_rep is not None:  # cut replies stay in flight
+        delivered = delivered & links.link_rep[None]
+    return delivered, net.consume(state.replies, delivered, stay=links.dup_rep)
+
+
+def select(state, masks: TickMasks, plan: FaultPlan, links: Links) -> torch.Tensor:
+    """(2, P, A, I) bool: the request each acceptor processes this tick,
+    one at most.  A request on a cut link still takes part in the
+    selection; the cut masks the selected slot after it, as a crash does."""
+    sel = net.select_from_scores(state.requests.present, masks.sel_score, masks.busy)
+    sel = sel & plan.alive(state.tick)[None, None]  # crashed acceptors process nothing
+    if links.link_req is not None:  # cut requests stay in flight
+        sel = sel & links.link_req[None]
+    return sel
+
+
+def corrupt(masks: TickMasks, cfg: FaultConfig, msg_bal, msg_v1, is_kind0, is_kind1) -> tuple:
+    """(msg_bal, msg_v1) after payload corruption (``p_corrupt``, a bug
+    injection), between send and process: a kind-1 request's v1 (an
+    ACCEPT's or APPEND's value) flips a bit, a kind-0 request's ballot (a
+    PREPARE's or REQVOTE's) moves up one."""
+    if cfg.p_corrupt > 0.0:
+        msg_v1 = torch.where(masks.corrupt & is_kind1, msg_v1 ^ 64, msg_v1)
+        msg_bal = torch.where(masks.corrupt & is_kind0, msg_bal + 1, msg_bal)
+    return msg_bal, msg_v1
+
+
+def skewed_timers(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig) -> tuple:
+    """(timeout, backoff): the timeout and this tick's backoff draw with
+    the plan's per-proposer timer skew (``timeout_skew``: extra patience,
+    ``backoff_skew``: a backoff multiplier)."""
+    timeout = cfg.timeout + plan.ptimeout if cfg.timeout_skew > 0 else cfg.timeout
+    backoff = masks.backoff * plan.pboff if cfg.backoff_skew > 1 else masks.backoff
+    return timeout, backoff
+
+
 def apply_tick(
     state: PaxosState, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig
 ) -> PaxosState:
@@ -199,85 +321,14 @@ def apply_tick(
     q1 = cfg.q1 or quorum
     q2 = cfg.q2 or quorum
 
-    acc = state.acceptor
-    alive = plan.alive(state.tick)  # (A, I)
     equiv = plan.equivocate  # (A, I)
-
-    if cfg.stale_k > 0:
-        # Bug injection: a recovering acceptor restores the snapshot of the
-        # last multiple of stale_k ticks, before acc_pre (the checker flags
-        # the consequences, not the rollback), and the snapshot refreshes
-        # after the restore.
-        if not state.snapshots:
-            raise ValueError("stale_k > 0 needs a state with snapshot shadows (stale=True)")
-        rec = plan.recovering(state.tick)
-        acc = dataclasses.replace(
-            acc,
-            promised=torch.where(rec, acc.snap_promised, acc.promised),
-            acc_bal=torch.where(rec, acc.snap_bal, acc.acc_bal),
-            acc_val=torch.where(rec, acc.snap_val, acc.acc_val),
-        )
-        snap = state.tick % cfg.stale_k == 0
-        acc = dataclasses.replace(
-            acc,
-            snap_promised=torch.where(snap, acc.promised, acc.snap_promised),
-            snap_bal=torch.where(snap, acc.acc_bal, acc.snap_bal),
-            snap_val=torch.where(snap, acc.acc_val, acc.snap_val),
-        )
-    elif cfg.amnesia:  # bug injection: a recovering acceptor forgets its state
-        rec = plan.recovering(state.tick)
-        acc = dataclasses.replace(
-            acc,
-            promised=torch.where(rec, 0, acc.promised),
-            acc_bal=torch.where(rec, 0, acc.acc_bal),
-            acc_val=torch.where(rec, 0, acc.acc_val),
-        )
+    acc = recover(state.acceptor, state, plan, cfg)
     acc_pre = acc
-
-    # Partition cuts (p_part): a one-way cut (p_asym) blocks one direction.
-    # A cut stalls messages in flight; nothing is lost.
-    link_req = link_rep = None
-    if cfg.p_part > 0.0:
-        if cfg.p_asym > 0.0:
-            link_req = plan.link_ok(state.tick, "req")  # (P, A, I)
-            link_rep = plan.link_ok(state.tick, "rep")
-        else:
-            link_req = link_rep = plan.link_ok(state.tick)
-
-    # Per-link loss and duplication (p_flaky): this tick's raw bits against
-    # the plan's per-link thresholds; p_flaky 0 is the uniform case.
-    if cfg.p_flaky > 0.0:
-        keep_prom, keep_accd, keep_p1, keep_p2 = (
-            ~bits_below(masks.link_bits[k], plan.link_drop) for k in range(4)
-        )
-        dup_req = dup_rep = None
-        if masks.dup_bits is not None:
-            dup_req = bits_below(masks.dup_bits[0], plan.link_dup[None])
-            dup_rep = bits_below(masks.dup_bits[1], plan.link_dup[None])
-    else:
-        keep_prom, keep_accd = masks.keep_prom, masks.keep_accd
-        keep_p1, keep_p2 = masks.keep_p1, masks.keep_p2
-        dup_req, dup_rep = masks.dup_req, masks.dup_rep
-
-    # Reply delivery is decided (and delivered slots cleared) BEFORE the
-    # acceptor half-tick writes new replies; proposers read payloads from
-    # the pre-tick buffer.
-    delivered = state.replies.present
-    if masks.deliver is not None:
-        delivered = delivered & masks.deliver
-    if link_rep is not None:  # cut replies stay in flight
-        delivered = delivered & link_rep[None]
-    replies = net.consume(state.replies, delivered, stay=dup_rep)
+    links = gray_links(masks, plan, cfg, state.tick)
+    delivered, replies = deliver(state, masks, links)
 
     # ---- Acceptor half-tick: select one request per (instance, acceptor) ----
-    # A request on a cut link still takes part in the selection; the cut
-    # masks the selected slot after it.
-    sel = net.select_from_scores(
-        state.requests.present, masks.sel_score, masks.busy
-    )
-    sel = sel & alive[None, None]  # crashed acceptors process nothing
-    if link_req is not None:  # cut requests stay in flight
-        sel = sel & link_req[None]
+    sel = select(state, masks, plan, links)
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=torch.int32)
@@ -286,12 +337,7 @@ def apply_tick(
     msg_val = gather(state.requests.v1)  # (A, I) ACCEPT payload
     is_prep = sel[PREPARE].any(dim=0)
     is_acc = sel[ACCEPT].any(dim=0)
-
-    if cfg.p_corrupt > 0.0:
-        # Bug injection: the payload is perturbed between send and process:
-        # an ACCEPT's value flips a bit, a PREPARE's ballot moves up one.
-        msg_val = torch.where(masks.corrupt & is_acc, msg_val ^ 64, msg_val)
-        msg_bal = torch.where(masks.corrupt & is_prep, msg_bal + 1, msg_bal)
+    msg_bal, msg_val = corrupt(masks, cfg, msg_bal, msg_val, is_prep, is_acc)
 
     # PREPARE(b): honest promise iff b > promised; equivocators "promise"
     # unconditionally, never record it, and hide their accepted pair.
@@ -312,15 +358,15 @@ def apply_tick(
         replies, PROMISE,
         send_mask=sel[PREPARE] & ok_prep[None],
         bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
-        keep=keep_prom,
+        keep=links.keep_prom,
     )
     replies = net.send(
         replies, ACCEPTED,
         send_mask=sel[ACCEPT] & ok_acc[None],
         bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
-        keep=keep_accd,
+        keep=links.keep_accd,
     )
-    requests = net.consume(state.requests, sel, stay=dup_req)
+    requests = net.consume(state.requests, sel, stay=links.dup_req)
     acc_new = dataclasses.replace(
         acc, promised=promised, acc_bal=acc_bal, acc_val=acc_val
     )
@@ -372,10 +418,7 @@ def apply_tick(
     v_chosen_by_p1 = torch.where(best_bal > 0, best_val, prop.own_val)
 
     timer = torch.where(prop.phase == DONE, prop.timer, prop.timer + 1)
-    # Timer skew (timeout_skew, backoff_skew): per-proposer extra patience
-    # and backoff multipliers from the plan.
-    timeout = cfg.timeout + plan.ptimeout if cfg.timeout_skew > 0 else cfg.timeout
-    backoff = masks.backoff * plan.pboff if cfg.backoff_skew > 1 else masks.backoff
+    timeout, backoff = skewed_timers(masks, plan, cfg)
     expired = (prop.phase != DONE) & ~p1_done & ~p2_done & (timer > timeout)
     pid = torch.arange(n_prop, dtype=torch.int32, device=state.device)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
@@ -399,13 +442,13 @@ def apply_tick(
         requests, ACCEPT,
         send_mask=p1_done[:, None].expand(n_prop, n_acc, n_inst),
         bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=keep_p2,
+        keep=links.keep_p2,
     )
     requests = net.send(
         requests, PREPARE,
         send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=zeros, v2=zeros,
-        keep=keep_p1,
+        keep=links.keep_p1,
     )
     prop = dataclasses.replace(
         prop,

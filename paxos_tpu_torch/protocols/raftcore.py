@@ -5,8 +5,11 @@ append/ack replication of one log entry, over the same masks, transport
 and fault machinery as single-decree Paxos.  Mask roles map onto Paxos'
 ``TickMasks`` fields: keep_prom -> VOTE, keep_accd -> ACK, keep_p1 ->
 REQVOTE, keep_p2 -> APPEND.  All quorums are majorities (``q1``/``q2`` do
-not apply).  Observer planes and unported knobs are absent, as in the Paxos
-tick.
+not apply).  The gray-failure and partition arms are the Paxos tick's,
+through the pieces the three ticks share: stale recovery restores the
+voters' (voted, entry term, entry value), and corruption flips an APPEND's
+value and moves a REQVOTE's term up one.  Observer planes and unported
+knobs are absent, as in the Paxos tick.
 """
 
 from __future__ import annotations
@@ -29,7 +32,17 @@ from paxos_tpu_torch.core.raft_state import (
 )
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
-from paxos_tpu_torch.protocols.paxos import TickMasks, check_no_stamps, check_supported
+from paxos_tpu_torch.protocols.paxos import (
+    TickMasks,
+    check_no_stamps,
+    check_supported,
+    corrupt,
+    deliver,
+    gray_links,
+    recover,
+    select,
+    skewed_timers,
+)
 from paxos_tpu_torch.transport import inmemory as net
 
 
@@ -44,18 +57,13 @@ def apply_tick_raft(
     quorum = majority(n_acc)
     dev = state.device
 
-    voter = state.acceptor
-    alive = plan.alive(state.tick)  # (A, I)
     equiv = plan.equivocate  # (A, I)
-
-    delivered = state.replies.present
-    if masks.deliver is not None:
-        delivered = delivered & masks.deliver
-    replies = net.consume(state.replies, delivered, stay=masks.dup_rep)
+    voter = recover(state.acceptor, state, plan, cfg)
+    links = gray_links(masks, plan, cfg, state.tick)
+    delivered, replies = deliver(state, masks, links)
 
     # ---- Voter half-tick: select one request per (instance, voter) ----
-    sel = net.select_from_scores(state.requests.present, masks.sel_score, masks.busy)
-    sel = sel & alive[None, None]
+    sel = select(state, masks, plan, links)
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=torch.int32)
@@ -64,6 +72,7 @@ def apply_tick_raft(
     msg_v1 = gather(state.requests.v1)  # (A, I): REQVOTE cand_last / APPEND value
     is_rv = sel[REQVOTE].any(dim=0)
     is_ap = sel[APPEND].any(dim=0)
+    msg_bal, msg_v1 = corrupt(masks, cfg, msg_bal, msg_v1, is_rv, is_ap)
 
     # RequestVote: one vote per term + election restriction.  Equivocators
     # grant everything and hide their entry.
@@ -88,15 +97,15 @@ def apply_tick_raft(
         bal=msg_bal[None],
         v1=(vote_payload_t * 2 + grant.to(torch.int32))[None],
         v2=vote_payload_v[None],
-        keep=masks.keep_prom,
+        keep=links.keep_prom,
     )
     replies = net.send(
         replies, ACK,
         send_mask=sel[APPEND] & ok_ap[None],
         bal=msg_bal[None], v1=msg_v1[None], v2=torch.zeros_like(msg_v1)[None],
-        keep=masks.keep_accd,
+        keep=links.keep_accd,
     )
-    requests = net.consume(state.requests, sel, stay=masks.dup_req)
+    requests = net.consume(state.requests, sel, stay=links.dup_req)
     voter_new = dataclasses.replace(voter, voted=voted, ent_term=ent_term, ent_val=ent_val)
 
     # ---- Learner / safety checker (append-accept events, majority commit) ----
@@ -141,7 +150,8 @@ def apply_tick_raft(
     committed = (cand.phase == LEAD) & quorum_reached(heard, quorum)
 
     timer = torch.where(cand.phase == DONE, cand.timer, cand.timer + 1)
-    expired = (cand.phase != DONE) & ~elected & ~committed & (timer > cfg.timeout)
+    timeout, backoff = skewed_timers(masks, plan, cfg)
+    expired = (cand.phase != DONE) & ~elected & ~committed & (timer > timeout)
     pid = torch.arange(n_prop, dtype=torch.int32, device=dev)[:, None]
     new_bal = make_ballot(ballot_round(cand.bal) + cfg.ballot_stride, pid)
 
@@ -158,7 +168,7 @@ def apply_tick_raft(
     bal_next = torch.where(expired, new_bal, cand.bal)
     heard = torch.where(elected | expired, 0, heard)
     timer = torch.where(elected, 0, timer)
-    timer = torch.where(expired, -masks.backoff, timer)
+    timer = torch.where(expired, -backoff, timer)
 
     # Emit: leaders re-broadcast AppendEntries every tick; expired
     # candidates broadcast RequestVote at the next term with their entry term.
@@ -167,13 +177,13 @@ def apply_tick_raft(
         requests, APPEND,
         send_mask=(phase == LEAD)[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=masks.keep_p2,
+        keep=links.keep_p2,
     )
     requests = net.send(
         requests, REQVOTE,
         send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=ent_term_c[:, None], v2=zeros,
-        keep=masks.keep_p1,
+        keep=links.keep_p1,
     )
     cand = dataclasses.replace(
         cand,

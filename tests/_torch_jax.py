@@ -1,6 +1,8 @@
 """Helpers that the port's tests share to carry values into the JAX package."""
 
 import dataclasses
+import os
+from pathlib import Path
 
 import jax.numpy as jnp
 import pytest
@@ -28,3 +30,37 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+def _pin_threads(cores: set) -> None:
+    """Set the CPU affinity of every thread of this process (Linux: the
+    tasks under /proc/self/task) to ``cores``."""
+    for task in Path("/proc/self/task").iterdir():
+        try:
+            os.sched_setaffinity(int(task.name), cores)
+        except OSError:  # a thread that ended meanwhile, or one the system will not move
+            pass
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_core():
+    """Hold a test module that compiles and runs many JAX cases to one core
+    (autouse where a module imports it; each pytest-xdist worker its own
+    core, by its number), restored after.
+    XLA spreads a compile or a vmapped run over every core of the machine,
+    and the suite's other workers need them: under that load the JAX
+    package's tests/test_fused.py::test_fused_segmented_multipaxos_longlog_compact
+    can deadlock (ROADMAP C4).  New threads inherit the pin from the thread
+    that starts them.  Without per-thread affinity (not Linux) it does
+    nothing."""
+    if not hasattr(os, "sched_setaffinity") or not Path("/proc/self/task").is_dir():
+        yield
+        return
+    allowed = os.sched_getaffinity(0)
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0").removeprefix("gw")
+    cores = sorted(allowed)
+    _pin_threads({cores[int(worker) % len(cores) if worker.isdigit() else 0]})
+    try:
+        yield
+    finally:
+        _pin_threads(allowed)

@@ -63,7 +63,10 @@ def _census_config(case):
     """The JAX package's config of ``case``'s main path, one block wide."""
     mp = chip_smoke.MAIN_PATHS[CASES[case]]
     cfg = getattr(JC, mp.config)(_block(case))
-    return cfg if mp.sweep_index is None else cfg[mp.sweep_index]
+    cfg = cfg if mp.sweep_index is None else cfg[mp.sweep_index]
+    if mp.fault is not None:  # the path's fault config on the config's cell
+        cfg = dataclasses.replace(cfg, fault=getattr(JC, mp.fault)(_block(case)).fault)
+    return cfg
 
 
 def _mask_share(cfg):

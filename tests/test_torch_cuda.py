@@ -26,12 +26,15 @@ duplicates and a ballot stride (Fast Paxos also on uneven quorums), at
 every instantiation on lane counts no CUDA block divides, with the same
 geometry, refusal and phase-clock checks, and so is K1 (Paxos), which
 keeps its payloads and learner table in the same column, on duplicates, a
-ballot stride with a shorter timeout and uneven quorums, and whose arms
-instantiation is held so on every gray-failure and partition knob alone
-and on the configs that set them (``gray_knob_configs``).  A plan without
-``link_delay`` under ``p_delay > 0`` is refused, and the other kernels
-refuse ``p_delay``; K2 to K5 refuse the gray knobs, and K1 a gray knob
-that reaches an instantiation without its arms.
+ballot stride with a shorter timeout and uneven quorums.  The arms
+instantiations of K1, K2 and K3 are held so on every gray-failure and
+partition knob alone and on the configs that set them
+(``gray_knob_configs``; K2 and K3 also on every knob at once), and give the
+gray-chaos main paths' block-0 digests.  A plan without ``link_delay``
+under ``p_delay > 0`` is refused, and the other kernels refuse
+``p_delay``; K4 and K5 refuse the gray knobs, and K1 to K3 a gray knob
+that reaches an instantiation without its arms, an arms instantiation
+without a knob, and stale_k on a state without snapshot shadows.
 """
 
 import dataclasses
@@ -585,15 +588,15 @@ def test_paxos_gray_arms_match_plain_on_cuda():
 
 @pytest.mark.cuda
 def test_kernels_refuse_gray_knobs_they_do_not_model():
-    """K2 to K5 refuse the gray-failure and partition knobs, in the
+    """K4 and K5 refuse the gray-failure and partition knobs, in the
     wrapper (ROADMAP item 12) and in their C entry points; K1 refuses them
     in its C entry on its default instantiation, at a shape without an arms
     instantiation (the wrapper), and stale_k on a state without snapshot
-    shadows."""
+    shadows (K2 and K3 likewise: test_fr_arms_refuse_mismatched_launches)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     gray = gray_knob_configs(1024, 1)["config_gray_chaos"]
-    for path in PROTOCOLS[1:] + ["config3", "synchpaxos"]:
+    for path in ["config3", "synchpaxos"]:
         c = main_config(path, 1024, 1)
         protocol = MAIN_PATHS[path].protocol
         plan = config_plan(dataclasses.replace(c, fault=gray.fault), 1)
@@ -617,3 +620,87 @@ def test_kernels_refuse_gray_knobs_they_do_not_model():
     bare = trun.init_state(dataclasses.replace(stale, fault=gray.fault), "cuda")
     with pytest.raises(ValueError, match="snapshot"):
         tfused.fused_paxos_chunk(bare, 1, config_plan(stale, 1), stale.fault, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
+def test_fr_gray_arms_match_plain_on_cuda(protocol):
+    """K2's and K3's arms instantiations against the plain tick on every
+    gray-failure and partition knob alone (a two-way and a one-way
+    partition, flaky links without and with duplication, timeout and
+    backoff skew), on config_gray_chaos, config_partition, config_corrupt,
+    config_stale (stale_k with crashes), amnesia and every knob at once,
+    over two chunks on chip_smoke's numpy plans; and the gray-chaos main
+    path's block-0 digest after a whole campaign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    for name, cfg in gray_knob_configs(4096, 12, protocol).items():
+        plan = config_plan(cfg, 12)
+        plain = trun.init_state(cfg, "cuda")
+        assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == (2, 5, 8, 1), name
+        kern = plain.clone()
+        for _ in range(2):
+            plain = plain_chunk(cfg, plain, plan, 96, 1024)
+            before = wrapper.launches
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, 96)
+            assert wrapper.launches == before + 1, name
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+    path = f"graychaos-{protocol}"
+    cfg = main_config(path)
+    small = dataclasses.replace(cfg, n_inst=1024)
+    full = main_plan(cfg)
+    plan = tfused.FaultPlan(**{
+        f.name: None if getattr(full, f.name) is None else getattr(full, f.name)[..., :1024].contiguous()
+        for f in dataclasses.fields(full)
+    })
+    st = trun.init_state(small, "cuda")
+    for _ in range(64):
+        st = tfused.FUSED_CHUNKS[protocol](st, 0, plan, small.fault, 64)
+    assert _digest(st) == BLOCK0_DIGESTS[path]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["paxos", "fastpaxos", "raftcore"])
+def test_fr_arms_refuse_mismatched_launches(protocol):
+    """K1, K2 and K3 refuse, in their C entries, a gray knob on an
+    instantiation without its arms and an arms instantiation with no knob
+    on; stale_k on a state without snapshot shadows in the wrapper and in
+    the C entry; a shape without an arms instantiation in the wrapper.  No
+    refused launch changes the state or counts.  The arms geometry holds 3
+    blocks (12 warps) an SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    gray = gray_knob_configs(1024, 1, protocol)["config_gray_chaos"]
+    plain_cfg = dataclasses.replace(gray, fault=main_config(protocol, 1024, 1).fault)
+    binding = tfused.BINDINGS[protocol]
+    launches = wrapper.launches
+    for cfg, arms in ((gray, 0), (plain_cfg, 1)):
+        state = trun.init_state(cfg, "cuda")
+        before = state.clone()
+        tfused.BINDINGS[protocol] = dataclasses.replace(binding, arms=lambda f, arms=arms: arms)
+        try:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tfused._launch(protocol, state, 1, config_plan(gray, 1), cfg.fault, 8, 1024, 0, False)
+        finally:
+            tfused.BINDINGS[protocol] = binding
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+    stale = gray_knob_configs(1024, 1, protocol)["config_stale"]
+    bare = trun.init_state(dataclasses.replace(stale, fault=gray.fault), "cuda")
+    assert not bare.snapshots
+    with pytest.raises(ValueError, match="snapshot"):
+        wrapper(bare, 1, config_plan(stale, 1), stale.fault, 8)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tfused._launch(protocol, bare, 1, config_plan(stale, 1), stale.fault, 8, 1024, 0, False)
+    small = dataclasses.replace(gray, n_acc=3) if protocol != "paxos" else dataclasses.replace(
+        gray, n_prop=1, n_acc=3
+    )
+    with pytest.raises(ValueError, match="instantiated"):
+        wrapper(trun.init_state(small, "cuda"), 1, config_plan(small, 1), small.fault, 8)
+    assert wrapper.launches == launches
+    staging = tfused.FR_STAGING[protocol][(2, 5, 8, 1)]
+    assert staging.min_blocks == 3
+    assert tfused.blocks_per_sm(protocol, (2, 5, 8, 1)) >= 3

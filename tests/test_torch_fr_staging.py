@@ -60,7 +60,7 @@ def _leaf(state, path):
 
 
 def _state(protocol, shape):
-    n_prop, n_acc, k_slots = shape[:3]  # K1's fourth field is its arms flag
+    n_prop, n_acc, k_slots = shape[:3]  # the fourth field is the arms flag
     return STATES[protocol].init(3, n_prop, n_acc, k_slots)
 
 
@@ -146,28 +146,25 @@ def test_every_instantiation_has_a_geometry(protocol):
 
 def _instances(protocol):
     """``K1_INSTANCES`` / ``K2_INSTANCES`` / ``K3_INSTANCES`` of the .cu,
-    in order: (P, A, K, B, MIN) each, K1's (P, A, K, ARMS, B, MIN)."""
+    in order: (P, A, K, ARMS, B, MIN) each."""
     listed = re.search(rf"#define {INSTANCES[protocol]}\(X\)(.*?)\n\n", SOURCES[protocol], re.S).group(1)
     return [tuple(map(int, x.split(", "))) for x in re.findall(r"X\(([\d, ]+)\)", listed)]
 
 
 @pytest.mark.parametrize("protocol", FR)
 def test_source_instantiates_the_table(protocol):
-    """The .cu lists exactly the table's geometries, one per shape, and the
-    C entry points take the shape and the shared bytes (4 ``dims``)."""
+    """The .cu lists exactly the table's geometries, one per shape and arms
+    flag, and the C entry points take the shape, the arms flag and the
+    shared bytes (5 ``dims``)."""
     want = [shape + (st.threads, st.min_blocks) for shape, st in tfused.FR_STAGING[protocol].items()]
     got = _instances(protocol)
     assert sorted(got) == sorted(want)
-    n_key = len(tfused.KERNEL_SHAPES[protocol][0])  # K1: the shape and its arms flag
+    n_key = len(tfused.KERNEL_SHAPES[protocol][0])  # the shape and its arms flag
     shapes = [inst[:n_key] for inst in got]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES[protocol])
     src = SOURCES[protocol]
-    if protocol == "paxos":
-        assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_)" in src
-        assert src.count("n_dims != 5") == 2 and src.count("const int smem = dims[4];") == 2
-    else:
-        assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_)" in src
-        assert src.count("n_dims != 4") == 2 and src.count("const int smem = dims[3];") == 2
+    assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_)" in src
+    assert src.count("n_dims != 5") == 2 and src.count("const int smem = dims[4];") == 2
     rv_v1 = "true" if protocol == "raftcore" else "false"
     assert f"using G = SdStaged<P, A, K, {rv_v1}>;" in src
     assert f"SdStaged<P, A, K, {rv_v1}>::kRows * B * 4" in src

@@ -126,21 +126,23 @@ def test_plan_leaves_round_trip_every_optional_subset(subset):
 
 @pytest.mark.parametrize("protocol", ["paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos"])
 def test_check_supported_takes_the_gray_knobs_on_paxos_only(protocol):
-    """Each gray-failure and partition knob is legal on the Paxos tick and
-    raises on the four others, naming ROADMAP item 12; ``run`` refuses it
-    on them too, before any state is built."""
+    """Each gray-failure and partition knob is legal on the Paxos, Fast
+    Paxos and Raft-core ticks and raises on SynchPaxos and Multi-Paxos,
+    naming ROADMAP item 12; ``run`` refuses it on those two too, before any
+    state is built."""
+    assert tpaxos.GRAY_PROTOCOLS == ("paxos", "fastpaxos", "raftcore")
     for knob in tpaxos.GRAY_KNOBS:
         default = getattr(FaultConfig(), knob)
         value = True if isinstance(default, bool) else (8 if isinstance(default, int) else 0.3)
         cfg = dataclasses.replace(FaultConfig(), **{knob: value})
-        if protocol == "paxos":
+        if protocol in tpaxos.GRAY_PROTOCOLS:
             tpaxos.check_supported(cfg, protocol)
             continue
         with pytest.raises(NotImplementedError, match="item 12"):
             tpaxos.check_supported(cfg, protocol)
     base = chip_smoke.main_config({"multipaxos": "config3"}.get(protocol, protocol), 64, 1)
     gray = dataclasses.replace(base, fault=dataclasses.replace(base.fault, p_corrupt=0.1))
-    if protocol != "paxos":
+    if protocol not in tpaxos.GRAY_PROTOCOLS:
         with pytest.raises(NotImplementedError, match="item 12"):
             trun.run(gray, total_ticks=8, device="cpu", plan=FaultPlan.none(64, base.n_acc, base.n_prop))
 
@@ -148,7 +150,7 @@ def test_check_supported_takes_the_gray_knobs_on_paxos_only(protocol):
 def test_snapshot_shadows_carry_across():
     """A stale_k state has the snapshot shadows after the acceptor leaves,
     as the JAX package's; ``state_from_numpy`` takes it back, and only a
-    Paxos state may carry them."""
+    Paxos, Fast Paxos or Raft-core state may carry them."""
     jcfg, tcfg = JC.config_stale(64, 1), chip_smoke.gray_knob_configs(64, 1)["config_stale"]
     leaves = _np_leaves(j_init_state(jcfg))
     assert len(leaves) == 32
@@ -157,7 +159,7 @@ def test_snapshot_shadows_carry_across():
     for w, g in zip(leaves, interop.state_to_numpy(trun.init_state(tcfg, "cpu")), strict=True):
         np.testing.assert_array_equal(w, g)
     with pytest.raises(NotImplementedError):
-        interop.state_from_numpy(leaves, protocol="fastpaxos")
+        interop.state_from_numpy(leaves, protocol="synchpaxos")
     bare = trun.init_state(dataclasses.replace(tcfg, fault=FaultConfig()), "cpu")
     with pytest.raises(ValueError, match="snapshot"):
         tfused.reference_chunk(bare, 1, chip_smoke.config_plan(tcfg, 1, "cpu"), tcfg.fault, 1)

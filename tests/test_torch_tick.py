@@ -241,10 +241,10 @@ def test_interop_round_trip_and_init_state_match():
 
 
 def test_unported_knobs_raise():
-    """The Paxos tick models the gray-failure and partition knobs; the
-    bounded delay still raises there, and the gray knobs raise on the
-    ticks that share its mask sampler (Fast Paxos, Raft-core, SynchPaxos),
-    naming ROADMAP item 12."""
+    """The Paxos, Fast Paxos and Raft-core ticks model the gray-failure
+    and partition knobs; the bounded delay still raises on Paxos, and the
+    gray knobs raise on the other tick that shares its mask sampler
+    (SynchPaxos), naming ROADMAP item 12."""
     import dataclasses
 
     from paxos_tpu_torch.core.fp_state import FastPaxosState
@@ -253,7 +253,8 @@ def test_unported_knobs_raise():
 
     cfg = TC.config2_dueling_drop(64)
     state = interop.state_from_numpy(random_state_leaves(np.random.default_rng(1), 2, 5, 8, 64))
-    others = [cls.init(64, 2, 5, 8) for cls in (FastPaxosState, RaftState, SynchPaxosState)]
+    gray = [cls.init(64, 2, 5, 8) for cls in (FastPaxosState, RaftState)]
+    others = [SynchPaxosState.init(64, 2, 5, 8)]
     for knob, value in (("p_part", 0.5), ("p_flaky", 0.1), ("stale_k", 8), ("amnesia", True),
                         ("p_delay", 0.2), ("timeout_skew", 3), ("p_corrupt", 0.1)):
         bad = dataclasses.replace(cfg.fault, **{knob: value})
@@ -262,6 +263,8 @@ def test_unported_knobs_raise():
                 tpaxos.counter_masks(bad, 1, state)
             continue
         tpaxos.counter_masks(bad, 1, state)
+        for ported in gray:
+            tpaxos.counter_masks(bad, 1, ported)
         for other in others:
             with pytest.raises(NotImplementedError, match="ROADMAP .*item 12"):
                 tpaxos.counter_masks(bad, 1, other)
