@@ -55,7 +55,7 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
     take: the shared bytes in ``dims`` where the C entry reads them, a
     phase-clock build where the kernel marks its phases, the parameters
     and plan leaves its ``fused_common.cuh`` reads, and the arms
-    instantiations of K1 to K3 where their sources have them."""
+    instantiations of K1 to K3 and K5 where their sources have them."""
     from paxos_tpu_torch.kernels import build, int32_ceiling
     from paxos_tpu_torch.kernels import fused_tick as tf
 
@@ -77,10 +77,13 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
         src = (csrc / f"{binding.kernel}.cu").read_text()
         staged = "const int smem = dims[" in src
         staging = binding.staging if staged else None
-        if binding.arms is not None and "dims[3] == R_" not in src:
-            # A kernel without the arms: its default instantiations, keyed by shape.
-            staging = staging and {k[:3]: v for k, v in staging.items() if k[3] == 0}
-            tf.KERNEL_SHAPES[protocol] = tuple(k[:3] for k in _WRAPPER["shapes"][protocol] if k[3] == 0)
+        if binding.arms is not None and not re.search(r"dims\[\d\] == R_", src):
+            # A kernel without the arms: its default instantiations, keyed
+            # by shape (the arms flag is the key's last field).
+            staging = staging and {k[:-1]: v for k, v in staging.items() if k[-1] == 0}
+            tf.KERNEL_SHAPES[protocol] = tuple(
+                k[:-1] for k in _WRAPPER["shapes"][protocol] if k[-1] == 0
+            )
             binding = dataclasses.replace(binding, arms=None)
         tf.BINDINGS[protocol] = dataclasses.replace(binding, staging=staging)
         if protocol in phases and "clk.mark(" in src:

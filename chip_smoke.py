@@ -29,10 +29,12 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    SynchPaxos with and without delay stamps, with delta violated, and
    with duplicates, uneven quorums and a ballot stride, Paxos, Fast Paxos
    and Raft-core with duplicates and a ballot stride (Paxos and Fast Paxos
-   also with uneven quorums), the gray-failure and partition arms of K1,
-   K2 and K3 on each knob alone and on the configs that set them (K2 and
-   K3 also on every knob at once; :func:`gray_knob_configs`), and at full
-   width
+   also with uneven quorums), Multi-Paxos with duplicates, uneven quorums
+   and a ballot stride (:func:`mp_knob_configs`), the gray-failure and
+   partition arms of K1, K2, K3 and K5 on each knob alone and on the
+   configs that set them (K2, K3 and K5 also on every knob at once;
+   :func:`gray_knob_configs`; K5 also on the JAX package's own two cases
+   of tests/test_gray.py), and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
    draws of the timed ticks counted by each kernel's measuring build for
@@ -49,8 +51,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    window, compacted after every chunk), SynchPaxos on
    config_delay_chaos (bounded delay; its fast-path rate is printed), and
    config_gray_chaos's fault config (one-way partitions, flaky links, timer
-   skew) on Paxos, Fast Paxos and Raft-core (the arms instantiations of
-   K1, K2 and K3), at
+   skew) on Paxos, Fast Paxos, Raft-core and config3's Multi-Paxos cell (the
+   arms instantiations of K1, K2, K3 and K5; the last through
+   ``run(..., liveness=True)``, its liveness block printed), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -70,7 +73,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    recovery on Fast Paxos and Raft-core (K2's and K3's arms) the
    violations of the plain tick and of the JAX package
    (``FR_CHECKER_VIOLATIONS``), stale recovery's summed over Paxos and
-   Fast Paxos as the JAX package's pin sums it (``STALE_SUM``).
+   Fast Paxos as the JAX package's pin sums it (``STALE_SUM``), and so on
+   config3's cell (K5's arms, ``MP_GRAY_CHECKER_VIOLATIONS``).
 
 Configs with crash windows, equivocators, link delays, partitions or the
 gray-failure plan fields run on plans drawn here from numpy
@@ -126,9 +130,10 @@ class MainPath:
     protocol), and the census case (``ROOFLINE.json``) of the estimate
     printed beside its kernel's bound.
     ``compact``: decided prefixes compact out after every chunk.
-    ``fast_path``: the path's fast-path rate (SynchPaxos) is printed.  Every
-    path is also timed at full width, a path's kernel entry is the first
-    path of its protocol."""
+    ``fast_path``: the path's fast-path rate (SynchPaxos) is printed.
+    ``liveness``: the path runs through ``run(..., liveness=True)``, and its
+    liveness block is printed.  Every path is also timed at full width, a
+    path's kernel entry is the first path of its protocol."""
 
     protocol: str
     ticks: int
@@ -141,6 +146,7 @@ class MainPath:
     # from a state past the initial one too.
     compare_chunks: int = 1
     fault: "str | None" = None
+    liveness: bool = False
 
 
 MAIN_PATHS = {
@@ -165,7 +171,13 @@ MAIN_PATHS = {
         "raftcore", MAIN_TICKS, "config5_sweep", "graychaos-raftcore", 2, compare_chunks=2,
         fault="config_gray_chaos",
     ),
+    "graychaos-multipaxos": MainPath(
+        "multipaxos", MAIN_TICKS, "config3_multipaxos", "graychaos-multipaxos",
+        compare_chunks=2, fault="config_gray_chaos", liveness=True,
+    ),
 }
+# The report keys of the liveness block (harness.run.summarize(liveness=)).
+LIVENESS_KEYS = ("decided_by_curve", "chosen_tick_hist", "hist_bin_width", "stuck_lanes")
 # The flagship campaign (seed 0) fills one lane's 8-slot learner table:
 # lane 838 of stream block 963.
 MAIN_EVICTION_LANES = [986950]
@@ -186,15 +198,17 @@ EVICTION_PINS = {
         336, {1: ([161], "31978ee56bdbb58a"), 6: ([576, 747], "c2630ba35a33c636")}
     ),
     "graychaos-raftcore": (0, {}),
+    "graychaos-multipaxos": (0, {}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
-# SynchPaxos one and the three gray-chaos ones, as the JAX package computes
+# SynchPaxos one and the four gray-chaos ones, as the JAX package computes
 # it (tests/test_torch_evictions.py, tests/test_torch_gray_evictions.py,
-# tests/test_torch_fr_gray_pins.py).
+# tests/test_torch_fr_gray_evictions.py, tests/test_torch_mp_gray_pins.py).
 BLOCK0_DIGESTS = {
     "config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d",
     "synchpaxos": "77bdd097d024b69b", "graychaos": "92c059e4a486f4a2",
     "graychaos-fastpaxos": "1be08342ba47756d", "graychaos-raftcore": "8e15a5b6acc869d0",
+    "graychaos-multipaxos": "3488379663f97567",
 }
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
@@ -222,6 +236,16 @@ FR_CHECKER_VIOLATIONS = {
     ("config_stale", "raftcore", 4096, 3, 192): 0,
 }
 STALE_SUM = 27  # config_stale(4096, 3) over 192 ticks: Paxos plus Fast Paxos
+# The same bug injections' fault configs on config3's cell (K5's arms):
+# (config, lanes, seed, ticks) -> the violations the JAX package's fused
+# stream gives on config_plan(cfg, seed), a stream block of 256 lanes at a
+# time (tests/test_torch_mp_gray.py computes them), at
+# FR_CHECKER_VIOLATIONS' sizes.  Stale recovery breaks no agreement of
+# Multi-Paxos at that size in either package.
+MP_GRAY_CHECKER_VIOLATIONS = {
+    ("config_corrupt", 1024, 0, 256): 1517,
+    ("config_stale", 4096, 3, 192): 0,
+}
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and
 # int32 ALU throughput: 132 SMs x 64 INT32 lanes x 1.98 GHz x 2 (an IMAD,
 # IADD3 or LOP3 instruction does two of the counted operations, so this
@@ -261,12 +285,14 @@ MASK_CENSUS = {
     "graychaos-paxos": (1578.056640625, 127.0),
     "graychaos-fastpaxos": (1578.056640625, 127.0),
     "graychaos-raftcore": (1578.056640625, 127.0),
+    "graychaos-multipaxos": (1371.265625, 109.0),
 }
 # Census cases that ROOFLINE.json does not hold, recorded here with the
 # same keys: scripts/roofline.py tick_census(config_delay_chaos(1024), 1024),
 # which gives the same figures for violate_delta, and
-# tick_census(config_gray_chaos(1024), 1024) on Paxos, and on Fast Paxos and
-# Raft-core (config5's cells with config_gray_chaos's fault config)
+# tick_census(config_gray_chaos(1024), 1024) on Paxos, on Fast Paxos and
+# Raft-core (config5's cells with config_gray_chaos's fault config), and
+# at 256 on Multi-Paxos (config3's cell with it)
 # (tests/test_torch_census.py recomputes them with the JAX package).
 CENSUS_CASES = {
     "delaychaos-synchpaxos": {
@@ -293,6 +319,12 @@ CENSUS_CASES = {
         "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 356.0,
         "unpacked_bytes_per_lane": 765.0,
     },
+    "graychaos-multipaxos": {
+        "case": "graychaos-multipaxos", "block": 256,
+        "alu_per_lane_tick": 6373.4375, "codec_alu_per_lane_tick": 3474.0,
+        "reduce_per_lane_tick": 912.0, "state_bytes_per_lane": 904.0,
+        "unpacked_bytes_per_lane": 1400.0,
+    },
 }
 # SLOT_CENSUS (Multi-Paxos): the share of the slot-indexed arrays (log,
 # PROMISE payloads, recovery rows, learner table, chosen values and ticks),
@@ -304,6 +336,7 @@ CENSUS_CASES = {
 SLOT_CENSUS = {
     "config3-multipaxos": (4225.0, 224.0),
     "config3long-multipaxos": (8450.0, 448.0),
+    "graychaos-multipaxos": (4225.0, 224.0),
 }
 # STAMP_CENSUS (SynchPaxos with delay): the share of the delay stamps
 # (the stamp draw, the readiness compares and the stamp writes), which the
@@ -882,9 +915,9 @@ def compare(
 
 
 def gray_plan_reads(fault) -> list:
-    """The partition and gray-failure plan leaves the arms of K1, K2 and K3
-    read for ``fault``: the partition windows and sides where ``p_part`` >
-    0, and the optional fields its knobs put in the plan."""
+    """The partition and gray-failure plan leaves the arms of K1, K2, K3
+    and K5 read for ``fault``: the partition windows and sides where
+    ``p_part`` > 0, and the optional fields its knobs put in the plan."""
     from paxos_tpu_torch.faults.injector import optional_fields
 
     reads = ["part_start", "part_end", "aside", "pside"] if fault.p_part > 0.0 else []
@@ -902,6 +935,15 @@ def settled_lanes(state) -> torch.Tensor:
         & ~state.requests.present.flatten(0, 2).any(0)
         & ~state.replies.present.flatten(0, 2).any(0)
     )
+
+
+def resending_lanes(state) -> torch.Tensor:
+    """(I,) bool: the Multi-Paxos lanes whose whole window is chosen and
+    that still have a leader below the window's end, which re-sends its
+    slot's ACCEPT every tick (a leader is demoted only while the log is not
+    full)."""
+    prop = state.proposer
+    return state.learner.chosen.all(0) & ((prop.phase == 2) & (prop.commit_idx < state.log_len)).any(0)
 
 
 def settled_lane_bytes(state) -> int:
@@ -939,7 +981,8 @@ def phase_compare(ceiling: float) -> dict:
     comparison of each main path's kernel on its config, timed, is
     returned per path."""
     from paxos_tpu_torch.harness import config as C
-    from paxos_tpu_torch.harness.run import init_plan
+    from paxos_tpu_torch.harness.run import init_plan, init_state
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS
     from paxos_tpu_torch.protocols.paxos import GRAY_PROTOCOLS
 
     cfg1 = C.config1_no_faults(4096, 3)
@@ -976,11 +1019,26 @@ def phase_compare(ceiling: float) -> dict:
     for protocol in ("paxos", "fastpaxos", "raftcore"):
         for name, cfgk in fr_knob_configs(protocol, 4096, 10).items():
             compare(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
-    # The gray-failure and partition arms of K1, K2 and K3: each knob
+    # The gray-failure and partition arms of K1, K2, K3 and K5: each knob
     # alone and the configs that set them, over two chunks.
     for protocol in GRAY_PROTOCOLS:
         for name, cfgk in gray_knob_configs(4096, 12, protocol).items():
-            compare(f"{protocol} (2,5,8) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
+            shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
+            compare(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
+    # K5's arms on the JAX package's own fused-kernel cases
+    # (tests/test_gray.py): every gray knob with crash windows on config3 at
+    # 64 lanes, seed 5, 24 ticks in one stream block, and flaky links at
+    # zero rates (the uniform case through the per-link path), 128 lanes,
+    # seed 9.
+    every = main_config("config3", 64, 5)
+    every = dataclasses.replace(every, fault=dataclasses.replace(every.fault, **GRAY_ALL))
+    compare("multipaxos (2,5,8,4,1) test_gray every gray knob", every, config_plan(every, 5), 24,
+            block=64)
+    zero = main_config("config3", 128, 9)
+    zero = dataclasses.replace(zero, fault=dataclasses.replace(
+        zero.fault, p_drop=0.0, p_dup=0.0, p_flaky=0.5, flaky_drop=0.0, flaky_dup=0.0))
+    compare("multipaxos (2,5,8,4,1) test_gray zero-rate flaky links", zero, config_plan(zero, 9),
+            64, block=128)
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
@@ -1008,6 +1066,10 @@ def phase_compare(ceiling: float) -> dict:
         "multipaxos per-tick clamp, blk0=5", cfgc, config_plan(cfgc, 13), 96,
         init=near_limit_state_mp(cfgc, 254), blk0=5, clamp_per_tick=True,
     )
+    # The knobs no main path sets (duplicated requests, uneven quorums, a
+    # ballot stride with a shorter backoff and timeout), crash windows off.
+    for name, cfgk in mp_knob_configs(4096, 10).items():
+        compare(f"multipaxos (2,5,8,4) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
     full = {}
     for path, mp in MAIN_PATHS.items():
         cfg = main_config(path, FULL_LANES, 7)
@@ -1106,7 +1168,7 @@ def run_main_path(path: str, plan, **kw):
 
     return run(
         main_config(path), engine="fused", total_ticks=MAIN_PATHS[path].ticks, chunk=MAIN_CHUNK,
-        pipeline_depth=MAIN_DEPTH, plan=plan, **kw,
+        pipeline_depth=MAIN_DEPTH, plan=plan, liveness=MAIN_PATHS[path].liveness, **kw,
     )
 
 
@@ -1145,6 +1207,15 @@ def phase_main_path(path: str) -> dict:
     out = {"launches": launches[protocol], "all_launches": launches, "wall_s": wall,
            "walls_s": walls, "rounds_per_s": rate, "report": report,
            "eviction_block_digests": digests}
+    if protocol == "multipaxos":
+        out["resending_lanes"] = int(resending_lanes(state).sum())
+        log(f"{path} main path: {out['resending_lanes']} lanes with every slot chosen still have "
+            "a leader re-sending its slot's ACCEPT")
+    if MAIN_PATHS[path].liveness:
+        out["liveness"] = {k: report[k] for k in LIVENESS_KEYS}
+        log(f"{path} main path liveness: {json.dumps(out['liveness'])}")
+        if report["stuck_lanes"] != report["chosen_tick_hist"][-1]:
+            raise AssertionError(f"{path}: stuck lanes outside the histogram's last bin")
     if MAIN_PATHS[path].fast_path:
         from paxos_tpu_torch.protocols.synchpaxos import fast_path_rate
 
@@ -1240,6 +1311,19 @@ def phase_checker() -> dict:
         log(f"checker: {label} violations {counts[key]} (plain tick {plain_viol}, JAX package {want})")
         if counts[key] != plain_viol or counts[key] != want:
             raise AssertionError(f"{label}: kernel {counts[key]}, plain {plain_viol}, the JAX package gives {want}")
+    # The same on config3's cell, K5's arms against its plain tick (stream
+    # blocks of 256 lanes) and the JAX package.
+    for key, want in MP_GRAY_CHECKER_VIOLATIONS.items():
+        cfg, ticks = mp_gray_checker_config(*key[:3]), key[3]
+        plan = main_plan(cfg) or init_plan(cfg, "cuda")
+        got = run(cfg, total_ticks=ticks, plan=plan)["violations"]
+        plain = plain_chunk(cfg, init_state(cfg, "cuda"), plan, ticks, 256)
+        plain_viol = int(plain.learner.violations.sum())
+        label = "multipaxos {0}({1}, {2}) {3} ticks".format(*key)
+        out[label] = got
+        log(f"checker: {label} violations {got} (plain tick {plain_viol}, JAX package {want})")
+        if got != plain_viol or got != want:
+            raise AssertionError(f"{label}: kernel {got}, plain {plain_viol}, the JAX package gives {want}")
     stale = sum(v for (name, protocol, *_), v in counts.items()
                 if name == "config_stale" and protocol in ("paxos", "fastpaxos"))
     out["config_stale(4096, 3) 192 ticks, Paxos plus Fast Paxos"] = stale
@@ -1341,17 +1425,30 @@ GRAY_ALL = dict(
 
 def gray_knob_configs(n_inst: int, seed: int, protocol: str = "paxos") -> dict:
     """The knob cases of the gray-failure and partition arms of K1
-    (Paxos), K2 (Fast Paxos) or K3 (Raft-core), each on ``protocol``'s
-    tick: each knob of ``config_gray_chaos`` alone on the config's own base
-    (idling, holds, p_dup 0.05): a two-way partition, a one-way one, flaky
-    links without and with duplication, timeout skew and backoff skew; then
-    ``config_gray_chaos`` itself, ``config_partition``, ``config_corrupt``,
-    ``config_stale`` (stale_k with crash windows), amnesia
-    (``config_stale`` with stale_k 0 and amnesia on); for Paxos
+    (Paxos), K2 (Fast Paxos), K3 (Raft-core) or K5 (Multi-Paxos), each on
+    ``protocol``'s tick: each knob of ``config_gray_chaos`` alone on the
+    config's own base (idling, holds, p_dup 0.05): a two-way partition, a
+    one-way one, flaky links without and with duplication, timeout skew and
+    backoff skew; then ``config_gray_chaos`` itself, ``config_partition``,
+    ``config_corrupt``, ``config_stale`` (stale_k with crash windows),
+    amnesia (``config_stale`` with stale_k 0 and amnesia on); for Paxos
     ``config_flex(4, 2)``, for Fast Paxos and Raft-core every knob at once
-    on the config5 cell (``GRAY_ALL``)."""
+    on the config5 cell (``GRAY_ALL``).  Multi-Paxos takes each case's fault
+    config on config3's cell (K5 packs at most 4 voter masks a slot, and
+    the Paxos configs' learner tables have 8 rows), and every knob at once
+    on it."""
     from paxos_tpu_torch.harness import config as C
 
+    if protocol == "multipaxos":
+        cell = main_config("config3", n_inst, seed)
+        out = {
+            name: dataclasses.replace(cell, fault=cfg.fault)
+            for name, cfg in gray_knob_configs(n_inst, seed).items() if name != "config_flex(4, 2)"
+        }
+        out["every gray knob"] = dataclasses.replace(
+            cell, fault=dataclasses.replace(cell.fault, **GRAY_ALL)
+        )
+        return out
     if protocol != "paxos":
         cell = main_config(protocol, n_inst, seed)
         out = {
@@ -1407,9 +1504,38 @@ def mp_checker_config(n_inst: int = 1024):
     return dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_equiv=0.4))
 
 
+def mp_gray_checker_config(name: str, n_inst: int, seed: int):
+    """Bug-injection config ``name`` of ``harness/config.py``'s fault config
+    on config3's cell (``MP_GRAY_CHECKER_VIOLATIONS``)."""
+    from paxos_tpu_torch.harness import config as C
+
+    return dataclasses.replace(
+        main_config("config3", n_inst, seed), fault=getattr(C, name)(n_inst, seed).fault
+    )
+
+
+def mp_knob_configs(n_inst: int, seed: int) -> dict:
+    """config3's cell without its crash windows, with each knob its main
+    path leaves at its default: p_dup 0.2, q1/q2 = 2/4 (which the
+    Multi-Paxos tick reads nowhere: its quorums are majorities), and
+    ballot_stride 3 with backoff_max 3 and timeout 5."""
+    cfg = main_config("config3", n_inst, seed)
+    cfg = dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_crash=0.0, p_crash_prop=0.0))
+    knobs = {
+        "p_dup 0.2": dict(p_dup=0.2),
+        "q1/q2 2/4": dict(q1=2, q2=4),
+        "ballot_stride 3, backoff_max 3, timeout 5": dict(ballot_stride=3, backoff_max=3, timeout=5),
+    }
+    return {
+        name: dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, **kv))
+        for name, kv in knobs.items()
+    }
+
+
 def arms_ptxas(lines: list, protocol: str) -> list:
-    """The ``ptxas`` lines of ``protocol``'s arms instantiation (K1 to K3:
-    the entry function that takes a ``Gray``, and the two lines after it)."""
+    """The ``ptxas`` lines of ``protocol``'s arms instantiation (K1 to K3,
+    K5: the entry function that takes a ``Gray``, and the two lines after
+    it)."""
     for k, line in enumerate(lines):
         if "entry function" in line and f"fused_{protocol}_kernel" in line and "Gray" in line:
             return lines[k:k + 3]
@@ -1481,7 +1607,7 @@ def main() -> int:
             "main_path_fast_path_rate": main_paths[path].get("fast_path_rate"),
             "main_path_eviction_block_digests": main_paths[path]["eviction_block_digests"],
             "main_path_profile": profiles[path],
-            "ptxas": arms_ptxas(ptxas, mp.protocol) if binding.arms and shape[3] else ptxas,
+            "ptxas": arms_ptxas(ptxas, mp.protocol) if binding.arms and shape[-1] else ptxas,
         }
         if first and mp.protocol in geometry:
             entry["instantiations"] = geometry[mp.protocol]  # threads, smem_bytes, blocks_per_sm each

@@ -10,8 +10,10 @@ integer order is (ballot, value) order and 0 is the NIL pair.
 
 ``leaves()`` follows the reference's flatten order (acceptor, proposer,
 learner, requests, promises, accepted, tick, base), so a sha256 over the
-leaf bytes equals the reference's state digest.  The snapshot shadows,
-delay stamps and observer planes are not ported.
+leaf bytes equals the reference's state digest.  A state run with
+``stale_k > 0`` carries the acceptors' snapshot shadows of ``promised``
+and the slot log, as the reference's does; the delay stamps and observer
+planes are not ported.
 """
 
 from __future__ import annotations
@@ -53,13 +55,23 @@ def _zeros(shape, device, dtype=torch.int32) -> torch.Tensor:
 class MPAcceptorState:
     promised: torch.Tensor  # (A, I) int32: one promise covers every slot
     log: torch.Tensor  # (A, L, I) int32 packed accepted (ballot, value) per slot
+    # Stale-snapshot shadows (FaultConfig.stale_k); None unless the knob is on.
+    snap_promised: "torch.Tensor | None" = None  # (A, I) int32
+    snap_log: "torch.Tensor | None" = None  # (A, L, I) int32
+
+    # (durable field, its snapshot shadow) pairs (protocols.paxos.recover).
+    SNAPSHOT = (("promised", "snap_promised"), ("log", "snap_log"))
 
     @classmethod
-    def init(cls, n_inst: int, n_acc: int, log_len: int, device="cpu") -> "MPAcceptorState":
-        return cls(_zeros((n_acc, n_inst), device), _zeros((n_acc, log_len, n_inst), device))
+    def init(
+        cls, n_inst: int, n_acc: int, log_len: int, device="cpu", stale: bool = False
+    ) -> "MPAcceptorState":
+        shapes = ((n_acc, n_inst), (n_acc, log_len, n_inst))
+        return cls(*(_zeros(shape, device) for shape in shapes * (2 if stale else 1)))
 
     def leaves(self) -> list:
-        return [self.promised, self.log]
+        snaps = [self.snap_promised, self.snap_log]
+        return [self.promised, self.log] + [x for x in snaps if x is not None]
 
 
 @dataclasses.dataclass
@@ -179,6 +191,7 @@ class MultiPaxosState(LaneState):
     """Full Multi-Paxos simulator state."""
 
     protocol = "multipaxos"
+    takes_snapshots = True
 
     acceptor: MPAcceptorState
     proposer: MPProposerState
@@ -194,11 +207,13 @@ class MultiPaxosState(LaneState):
     @classmethod
     def init(
         cls, n_inst: int, n_prop: int, n_acc: int, log_len: int = 8, k: int = 4,
-        lease_init: int = 0, device="cpu",
+        lease_init: int = 0, device="cpu", stale: bool = False,
     ) -> "MultiPaxosState":
+        """The initial state; ``stale`` allocates the acceptors' snapshot
+        shadows (``stale_k > 0``)."""
         check_topology(n_prop, n_acc)
         return cls(
-            acceptor=MPAcceptorState.init(n_inst, n_acc, log_len, device),
+            acceptor=MPAcceptorState.init(n_inst, n_acc, log_len, device, stale),
             proposer=MPProposerState.init(n_inst, n_prop, log_len, lease_init, device),
             learner=MPLearnerState.init(n_inst, log_len, k, device),
             requests=MsgBuf.empty(n_inst, n_prop, n_acc, device),
@@ -227,11 +242,14 @@ class MultiPaxosState(LaneState):
 
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
-        for this state's (n_inst, n_prop, n_acc, log_len, k_slots)."""
+        for this state's (n_inst, n_prop, n_acc, log_len, k_slots), with
+        snapshot shadows where the acceptors carry them."""
+        kw = {"stale": True} if self.snapshots else {}
         check_leaves(
             self.leaves(),
             init_layout(
-                type(self), self.n_inst, self.n_prop, self.n_acc, self.log_len, self.k_slots
+                type(self), self.n_inst, self.n_prop, self.n_acc, self.log_len, self.k_slots,
+                **kw,
             ),
         )
 

@@ -6,10 +6,9 @@ schedule, so they must equal the reference's.  The single-decree ticks
 (paxos, fastpaxos, raftcore, synchpaxos) share one allocation, Multi-Paxos
 has its own.  Of the gray-failure streams the per-link loss and
 duplication bits and the corruption mask (LINK_BITS, DUP_BITS, CORRUPT:
-``p_flaky``, ``p_corrupt``) are ported for Paxos, and the bounded-delay
-draws (DELAY_BITS, LAT_BITS: ``p_delay``) for SynchPaxos; the workload
-streams are not (their plane raises), and Multi-Paxos' CORRUPT id is listed
-for completeness.
+``p_flaky``, ``p_corrupt``) are ported for both allocations, and the
+bounded-delay draws (DELAY_BITS, LAT_BITS: ``p_delay``) for SynchPaxos;
+the workload streams are not (their plane raises).
 """
 
 SINGLE_DECREE_STREAMS = dict(
@@ -42,5 +41,7 @@ MULTI_PAXOS_STREAMS = dict(
     KEEP_ACC=8,  # ACCEPT drop
     JITTER=9,  # election-threshold jitter
     BACKOFF=10,  # post-failure retreat
-    CORRUPT=13,  # in-flight corruption (p_corrupt, not ported)
+    LINK_BITS=11,  # per-link loss raw bits (p_flaky)
+    DUP_BITS=12,  # per-link duplication raw bits (p_flaky + dup)
+    CORRUPT=13,  # in-flight corruption mask (p_corrupt)
 )

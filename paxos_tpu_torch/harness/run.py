@@ -17,7 +17,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from paxos_tpu_torch.check.liveness import window_valid_mask
+from paxos_tpu_torch.check.liveness import liveness_device, liveness_host, window_valid_mask
 from paxos_tpu_torch.core.ballot import MAX_PROPOSERS
 from paxos_tpu_torch.core.device import resolve_device
 from paxos_tpu_torch.core.fp_state import FastPaxosState
@@ -147,9 +147,9 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
 
 def init_state(cfg: SimConfig, device=None) -> LaneState:
     """The protocol's initial state, as the reference's ``init_state``
-    (SynchPaxos with delay stamps when ``p_delay > 0``; Paxos, Fast Paxos
-    and Raft-core with the acceptors' (voters') snapshot shadows when
-    ``stale_k > 0``)."""
+    (SynchPaxos with delay stamps when ``p_delay > 0``; Paxos, Fast Paxos,
+    Raft-core and Multi-Paxos with the acceptors' (voters') snapshot
+    shadows when ``stale_k > 0``)."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
     device = resolve_device(device)
@@ -157,7 +157,7 @@ def init_state(cfg: SimConfig, device=None) -> LaneState:
         _check_value_budget(cfg)
         return MultiPaxosState.init(
             cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.log_len, k=cfg.k_slots,
-            lease_init=cfg.fault.lease_len, device=device,
+            lease_init=cfg.fault.lease_len, device=device, stale=cfg.fault.stale_k > 0,
         )
     kw = {}
     if cfg.protocol == "synchpaxos":
@@ -260,8 +260,10 @@ _STATS = (
 )
 
 
-def summarize_device(state: LaneState, log_total: int = 0) -> tuple:
-    """Device half of :func:`summarize`: one int64 vector of exact counts.
+def summarize_device(state: LaneState, liveness: bool = False, log_total: int = 0) -> tuple:
+    """Device half of :func:`summarize`: one int64 vector of exact counts,
+    and with ``liveness`` the liveness block's counts after them
+    (:func:`paxos_tpu_torch.check.liveness.liveness_device`).
 
     Multi-Paxos counts slots: ``chosen`` is (L, I), ``n_decided`` counts
     lanes whose whole window is chosen, or with ``log_total`` the decided
@@ -310,7 +312,13 @@ def summarize_device(state: LaneState, log_total: int = 0) -> tuple:
         "decided_den": decided_den,
         "ballot_limit": report_ballot_limit("multipaxos" if mp else "paxos"),
         "log_total": log_total if mp else 0,
+        "liveness": liveness,
     }
+    if liveness:
+        block = liveness_device(
+            lrn, state.tick, base=state.base if mp else None, log_total=log_total
+        )
+        stats = torch.cat([stats, block])
     return stats, meta
 
 
@@ -318,7 +326,7 @@ def summarize_host(host: list, meta: dict) -> dict[str, Any]:
     """Format the fetched counts; the fractions are float32 like the
     reference's reductions.  Raises :class:`MeasurementCorrupted` when a
     ballot reached the report-time limit."""
-    s = dict(zip(_STATS, (int(v) for v in host)))
+    s = dict(zip(_STATS, (int(v) for v in host[: len(_STATS)])))
     n = meta["n_inst"]
     f32 = np.float32
     log_total = meta["log_total"]
@@ -354,15 +362,22 @@ def summarize_host(host: list, meta: dict) -> dict[str, Any]:
             "ballot compares are no longer trustworthy for this campaign; "
             "shorten the campaign"
         )
+    if meta["liveness"]:
+        out.update(liveness_host(host[len(_STATS):], s["ticks"], log_total > 0))
     return out
 
 
-def summarize(state: LaneState, log_total: int = 0) -> dict[str, Any]:
+def summarize(state: LaneState, liveness: bool = False, log_total: int = 0) -> dict[str, Any]:
     """Reduce the state to the report: device reductions, one transfer.
+    ``liveness`` appends the decided-by curve, the decision-latency
+    histogram and the stuck-lane count
+    (:func:`paxos_tpu_torch.check.liveness.liveness_host`).
     ``log_total > 0`` (long-log Multi-Paxos) reports global replication
     progress: ``decided_frac`` over the whole log, ``slots_replicated``
-    and ``replicated_frac``."""
-    stats, meta = summarize_device(state, log_total)
+    and ``replicated_frac``; it makes the liveness block window-relative
+    (``slots_compacted``, and the never-decidable tail rows of the window
+    masked out)."""
+    stats, meta = summarize_device(state, liveness=liveness, log_total=log_total)
     return summarize_host(stats.cpu().tolist(), meta)
 
 
@@ -377,18 +392,21 @@ def run(
     pipeline_depth: int = 1,
     plan: "FaultPlan | None" = None,
     device=None,
+    liveness: bool = False,
 ):
     """Init, advance in pipelined chunks, return the report.
 
     ``device`` defaults to CUDA (and raises without a GPU); ``"cpu"`` runs
     the plain PyTorch versions.  ``plan`` overrides the fault-free plan:
-    configs with crash, equivocation or delay knobs need one, carried
-    across from the reference with :mod:`paxos_tpu_torch.interop`, and so
-    do the gray-failure and partition configs of Paxos
-    (``config_partition``, ``config_gray_chaos``, ``config_corrupt``,
-    ``config_stale``).  A
+    the configs whose knobs the reference samples a plan for need one
+    (:func:`sampled_plan_knobs`: crash windows, equivocators, link delays,
+    and the gray-failure and partition configs ``config_partition``,
+    ``config_gray_chaos`` and ``config_stale`` on any protocol that takes
+    them), carried across from the reference with
+    :mod:`paxos_tpu_torch.interop` or drawn from the same distribution.  A
     long-log Multi-Paxos config compacts after every ``chunk`` ticks, and
     ``until_all_chosen`` then waits for the whole log to replicate.
+    ``liveness`` adds the liveness block to the report (:func:`summarize`).
     """
     depth = validate_pipeline_depth(pipeline_depth)
     check_tick_budget(cfg.protocol, max_ticks if until_all_chosen else total_ticks)
@@ -406,7 +424,7 @@ def run(
     state = pipelined_run(
         state, advance, budget=budget, chunk=chunk, depth=depth, done_fn=done_fn
     )
-    report = summarize(state, log_total=cfg.fault.log_total)
+    report = summarize(state, liveness=liveness, log_total=cfg.fault.log_total)
     report["config_fingerprint"] = cfg.fingerprint()
     report["engine"] = engine
     if depth > 1:

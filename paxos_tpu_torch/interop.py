@@ -37,8 +37,9 @@ from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 # flatten order, and the trailing scalar and per-lane leaves (the tick, and
 # Multi-Paxos' base).  SynchPaxos' buffers carry a fifth leaf, the delay
 # stamps, when its config delays sends (``_STAMPED``); the acceptors of
-# Paxos, Fast Paxos and Raft-core carry three more, the snapshot shadows,
-# when its config has stale_k > 0 (``_SNAPSHOTS``).
+# Paxos, Fast Paxos, Raft-core and Multi-Paxos carry their snapshot shadows
+# (one more leaf per durable field, ``SNAPSHOT``) when its config has
+# stale_k > 0.
 _SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
 _STAMPED = ((LearnerState, 8), (MsgBuf, 5), (MsgBuf, 5))
 _GROUPS = {
@@ -68,29 +69,28 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C", copy=True)).to(device)
 
 
-_SNAPSHOTS = ("paxos", "fastpaxos", "raftcore")
-
-
 def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
     """``protocol``'s state from the reference's flattened leaves (a
     SynchPaxos state with or without delay stamps: 31 or 29 leaves; a
     Paxos, Fast Paxos or Raft-core state with or without snapshot shadows:
-    32 or 29)."""
+    32 or 29; a Multi-Paxos state with or without them: 32 or 30)."""
     leaves = list(leaves)
     if protocol not in _GROUPS:
         raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
     state_cls, groups, tail = _GROUPS[protocol]
     if protocol == "synchpaxos" and len(leaves) == 31:
         groups = groups[:2] + _STAMPED
-    if protocol in _SNAPSHOTS and len(leaves) == 32:
-        groups = ((groups[0][0], 6),) + groups[1:]
+    acc_cls, n_acc_leaves = groups[0]
+    snaps = len(getattr(acc_cls, "SNAPSHOT", ()))
+    if state_cls.takes_snapshots and len(leaves) == sum(n for _, n in groups) + len(tail) + snaps:
+        groups = ((acc_cls, n_acc_leaves + snaps),) + groups[1:]
     want = sum(n for _, n in groups) + len(tail)
     if len(leaves) != want:
         raise NotImplementedError(
             f"state has {len(leaves)} leaves; the port holds the {want} of a "
             f"{protocol} state with every optional plane off (snapshot "
-            "shadows outside Paxos, Fast Paxos and Raft-core, delay stamps "
-            "outside SynchPaxos and observer planes: ROADMAP queue A slice 5)"
+            "shadows on SynchPaxos, delay stamps outside SynchPaxos and "
+            "observer planes: ROADMAP queue A slice 5)"
         )
     tensors = [_tensor(leaf, device) for leaf in leaves]
     parts, k = [], 0

@@ -4,8 +4,8 @@
 // ticks have in common, the shared-memory column and launch of the kernels
 // that keep one per lane, the rolled selection, fenced row copy, message
 // column and column learner of the single-decree kernels and the pieces of
-// K1's to K3's gray-failure and partition arms (namespace sd), and the
-// phase clocks.
+// the gray-failure and partition arms of K1 to K3 and K5 (namespace sd),
+// and the phase clocks.
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
 // scalars in registers for a whole chunk (the Multi-Paxos kernel keeps its
@@ -108,9 +108,9 @@ struct Params {
   int32_t sp_unsafe_fast;  // SynchPaxos planted bug
 };
 
-// The gray-failure and partition arms of K1 to K3 (fused_paxos_tick.cu,
-// fused_fastpaxos_tick.cu, fused_raftcore_tick.cu): their knobs and plan
-// leaves, a separate kernel argument of their arms instantiations only, so
+// The gray-failure and partition arms of K1 to K3 and K5
+// (fused_paxos_tick.cu, fused_fastpaxos_tick.cu, fused_raftcore_tick.cu,
+// fused_multipaxos_tick.cu): their knobs and plan leaves, a separate kernel argument of their arms instantiations only, so
 // that Plan and Params, which every kernel takes, stay as they are.  An
 // optional plan leaf is null where the plan has none.
 struct Gray {
@@ -392,30 +392,38 @@ cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
 // 0) arrives with them after the three acceptor (voter) leaves, in flatten
 // order; its entry point moves them last (move_snapshots_last), so that
 // SharedLeaf's indices hold, and the shadows of the three durable fields
-// are these.
+// are these.  A Multi-Paxos state carries two, after its two acceptor
+// leaves, moved after its own leaves alike.
 constexpr int kSnapLeaves = kLeaves + 3;
 enum SnapLeaf { kSnap0 = kLeaves, kSnap1, kSnap2 };
+constexpr int kMaxSnaps = 3;
 
-void move_snapshots_last(Leaves* L) {
-  void* snaps[3] = {L->p[3], L->p[4], L->p[5]};
-  for (int j = 3; j < kLeaves; ++j) L->p[j] = L->p[j + 3];
-  for (int k = 0; k < 3; ++k) L->p[kLeaves + k] = snaps[k];
+// Moves the n_snaps shadow leaves at index `at` after the state's other
+// n_base leaves.
+void move_snapshots_last(Leaves* L, int n_base = kLeaves, int at = 3, int n_snaps = 3) {
+  void* snaps[kMaxSnaps];
+  for (int k = 0; k < n_snaps; ++k) snaps[k] = L->p[at + k];
+  for (int j = at; j < n_base; ++j) L->p[j] = L->p[j + n_snaps];
+  for (int k = 0; k < n_snaps; ++k) L->p[n_base + k] = snaps[k];
 }
 
-// read_args for a kernel with an arms instantiation (K1 to K3): the state's
-// leaves are kLeaves, or kSnapLeaves with snapshot shadows (moved last);
-// `arms` is the instantiation the wrapper picked, which must be the arms'
-// exactly when a knob of theirs is on, and stale_k needs the shadows.
-// Returns cudaSuccess or cudaErrorInvalidValue.
+// read_args for a kernel with an arms instantiation (K1 to K3, K5): the
+// state's leaves are n_base (K1 to K3: kLeaves), or n_base + n_snaps with
+// the snapshot shadows at index `at` (moved last); `arms` is the
+// instantiation the wrapper picked, which must be the arms' exactly when a
+// knob of theirs is on, and stale_k needs the shadows.  Returns
+// cudaSuccess or cudaErrorInvalidValue.
 cudaError_t read_gray_args(bool arms, void** leaves, int n_leaves, void** plan,
                            const long long* params, int n_params, Leaves* L, Plan* pl,
-                           Params* prm, Gray* gray) {
-  const bool snapshots = n_leaves == kSnapLeaves;
-  const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? kSnapLeaves : kLeaves, plan,
+                           Params* prm, Gray* gray, int n_base = kLeaves, int at = 3,
+                           int n_snaps = 3) {
+  if (n_snaps > kMaxSnaps) return cudaErrorInvalidValue;
+  const bool snapshots = n_leaves == n_base + n_snaps;
+  const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? n_base + n_snaps : n_base, plan,
                                     params, n_params, L, pl, prm, false, gray);
   if (bad != cudaSuccess) return bad;
   if (gray->on() != arms || (gray->stale_k > 0 && !snapshots)) return cudaErrorInvalidValue;
-  if (snapshots) move_snapshots_last(L);
+  if (snapshots) move_snapshots_last(L, n_base, at, n_snaps);
   return cudaSuccess;
 }
 
@@ -742,10 +750,11 @@ struct ColumnLearner {
   }
 };
 
-// ---- The gray-failure and partition arms of K1 to K3 (Gray): what an arms
-// instantiation does at each site of the tick, where the default
+// ---- The gray-failure and partition arms of K1 to K3 and K5 (Gray): what
+// an arms instantiation does at each site of the tick, where the default
 // instantiations compile none of it (ARMS false).  Messages on edge e = p
-// * A + a; a buffer's slot j is on edge j % E. ----
+// * A + a; a buffer's slot j is on edge j % E.  The stream ids default to
+// the single-decree ones; K5 passes Multi-Paxos'. ----
 
 // A lane's partition window, the links that cross its cut, the cut's
 // direction and the proposers' timeout skew, read once a chunk.
@@ -789,24 +798,32 @@ struct GrayLane {
   }
 };
 
+// Proposer p's backoff draw `backoff`, times the plan's multiplier under
+// backoff_skew.
+template <bool ARMS>
+__device__ __forceinline__ uint32_t skewed_backoff(uint32_t backoff, const Gray& gray, int p,
+                                                   int64_t n, int64_t i) {
+  if (ARMS && gray.backoff_skew) backoff *= static_cast<uint32_t>(gray.pboff[p * n + i]);
+  return backoff;
+}
+
 // Proposer p's backoff from its draw `r` (BACKOFF's bits, sign masked):
 // r mod backoff_n, times the plan's multiplier under backoff_skew.
 template <bool ARMS>
 __device__ __forceinline__ int32_t backoff_of(uint32_t r, const Params& prm, const Gray& gray,
                                               int p, int64_t n, int64_t i) {
-  uint32_t backoff = r % static_cast<uint32_t>(prm.backoff_n);
-  if (ARMS && gray.backoff_skew) backoff *= static_cast<uint32_t>(gray.pboff[p * n + i]);
-  return -static_cast<int32_t>(backoff);
+  return -static_cast<int32_t>(
+      skewed_backoff<ARMS>(r % static_cast<uint32_t>(prm.backoff_n), gray, p, n, i));
 }
 
 // Whether a message of kind `kind` (0 PROMISE / VOTE, 1 ACCEPTED / ACK, 2
 // PREPARE / REQVOTE, 3 ACCEPT / APPEND: LINK_BITS' axis) sent on edge e is
-// kept: on a flaky link against the link's own drop threshold, else the
-// uniform p_drop mask of `stream`.
-template <bool ARMS, int E>
+// kept: on a flaky link against the link's own drop threshold (LINK, the
+// protocol's LINK_BITS stream), else the uniform p_drop mask of `stream`.
+template <bool ARMS, int E, uint32_t LINK = kLinkBits>
 __device__ __forceinline__ bool kept(const TickStream& ts, const Params& prm, const Gray& gray,
                                      uint32_t stream, int kind, int e, int64_t n, int64_t i) {
-  if (ARMS && gray.flaky) return !ts.below_at(gray.link_drop[e * n + i], kLinkBits, kind * E + e);
+  if (ARMS && gray.flaky) return !ts.below_at(gray.link_drop[e * n + i], LINK, kind * E + e);
   return ts.survives_at(prm.drop, stream, e);
 }
 
@@ -819,24 +836,24 @@ __device__ __forceinline__ bool dup_live(const Params& prm, const Gray& gray) {
 
 // Whether slot j of buffer `buf` (0 requests, selected; 1 replies,
 // delivered) is duplicated, so that it stays: on a flaky link against the
-// link's own dup threshold (DUP_BITS), else the uniform p_dup mask of
-// `stream`.  Call only where dup_live.
-template <bool ARMS, int S, int E>
+// link's own dup threshold (DUP, the protocol's DUP_BITS stream), else the
+// uniform p_dup mask of `stream`.  Call only where dup_live.
+template <bool ARMS, int S, int E, uint32_t DUP = kDupBits>
 __device__ __forceinline__ bool duplicated(const TickStream& ts, const Params& prm,
                                            const Gray& gray, uint32_t stream, int buf, int j,
                                            int64_t n, int64_t i) {
-  if (ARMS && gray.flaky) return ts.below_at(gray.link_dup[(j % E) * n + i], kDupBits, buf * S + j);
+  if (ARMS && gray.flaky) return ts.below_at(gray.link_dup[(j % E) * n + i], DUP, buf * S + j);
   return ts.fires_at(prm.dup, stream, j);
 }
 
 // Payload corruption (p_corrupt) of the request acceptor a processes this
-// tick, drawn only there: a kind-1 request's v1 (an ACCEPT's or APPEND's
-// value) flips a bit, a kind-0 request's ballot (a PREPARE's or REQVOTE's)
-// moves up one.
-template <bool ARMS>
+// tick, drawn only there (CORRUPT, the protocol's stream): a kind-1
+// request's v1 (an ACCEPT's or APPEND's value) flips a bit, a kind-0
+// request's ballot (a PREPARE's or REQVOTE's) moves up one.
+template <bool ARMS, uint32_t CORRUPT = kCorrupt>
 __device__ __forceinline__ void corrupt(const TickStream& ts, const Gray& gray, int a,
                                         bool kind1, int32_t& mb, int32_t& mv) {
-  if (ARMS && gray.corrupt.mode != 0 && ts.fires_at(gray.corrupt, kCorrupt, a)) {
+  if (ARMS && gray.corrupt.mode != 0 && ts.fires_at(gray.corrupt, CORRUPT, a)) {
     if (kind1) mv ^= 64;
     else mb = wrap_add(mb, 1);
   }
@@ -844,43 +861,55 @@ __device__ __forceinline__ void corrupt(const TickStream& ts, const Gray& gray, 
 
 // Stale-snapshot recovery (stale_k) or amnesia at `tick`, before the
 // acceptor half-tick: an acceptor (voter) recovering this tick (its crash
-// ends at `tick`) restores its three durable fields f0, f1, f2 from their
-// snapshot shadows in global memory (SnapLeaf), or forgets them, and on a
-// snapshot tick every acceptor's shadows take its fields after the
-// restore; `restored(a)` follows each restore.  The shadows are read on a
-// recovery tick and written on a snapshot tick only.
-template <bool ARMS, int A, typename Restored>
-__device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32_t tick,
-                                        const int32_t (&crash_end)[A], int32_t (&f0)[A],
-                                        int32_t (&f1)[A], int32_t (&f2)[A], int64_t n, int64_t i,
-                                        Restored restored) {
+// ends at `tick`) restores its durable fields from their snapshot shadows
+// in global memory (`restore(a)`), or forgets them (`forget(a)`), and on a
+// snapshot tick every acceptor's shadows take its fields after the restore
+// (`snapshot(a)`).  The shadows are read on a recovery tick and written on
+// a snapshot tick only.
+template <bool ARMS, int A, typename Restore, typename Snapshot, typename Forget>
+__device__ __forceinline__ void recover_with(const Gray& gray, int32_t tick,
+                                             const int32_t (&crash_end)[A], Restore restore,
+                                             Snapshot snapshot, Forget forget) {
   if constexpr (ARMS) {
     if (gray.stale_k > 0) {
       const bool snap = floor_mod(tick, gray.stale_k) == 0;
 #pragma unroll
       for (int a = 0; a < A; ++a) {
-        if (crash_end[a] == tick) {
-          f0[a] = load<int32_t>(L, kSnap0, a, n, i);
-          f1[a] = load<int32_t>(L, kSnap1, a, n, i);
-          f2[a] = load<int32_t>(L, kSnap2, a, n, i);
-          restored(a);
-        }
-        if (snap) {
-          store<int32_t>(L, kSnap0, a, n, i, f0[a]);
-          store<int32_t>(L, kSnap1, a, n, i, f1[a]);
-          store<int32_t>(L, kSnap2, a, n, i, f2[a]);
-        }
+        if (crash_end[a] == tick) restore(a);
+        if (snap) snapshot(a);
       }
     } else if (gray.amnesia) {
 #pragma unroll
-      for (int a = 0; a < A; ++a) {
-        if (crash_end[a] == tick) {
-          f0[a] = f1[a] = f2[a] = 0;
-          restored(a);
-        }
-      }
+      for (int a = 0; a < A; ++a)
+        if (crash_end[a] == tick) forget(a);
     }
   }
+}
+
+// recover_with for K1 to K3: an acceptor's three durable fields f0, f1, f2
+// and their shadows (SnapLeaf); `restored(a)` follows each restore.
+template <bool ARMS, int A, typename Restored>
+__device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32_t tick,
+                                        const int32_t (&crash_end)[A], int32_t (&f0)[A],
+                                        int32_t (&f1)[A], int32_t (&f2)[A], int64_t n, int64_t i,
+                                        Restored restored) {
+  recover_with<ARMS, A>(
+      gray, tick, crash_end,
+      [&](int a) {
+        f0[a] = load<int32_t>(L, kSnap0, a, n, i);
+        f1[a] = load<int32_t>(L, kSnap1, a, n, i);
+        f2[a] = load<int32_t>(L, kSnap2, a, n, i);
+        restored(a);
+      },
+      [&](int a) {
+        store<int32_t>(L, kSnap0, a, n, i, f0[a]);
+        store<int32_t>(L, kSnap1, a, n, i, f1[a]);
+        store<int32_t>(L, kSnap2, a, n, i, f2[a]);
+      },
+      [&](int a) {
+        f0[a] = f1[a] = f2[a] = 0;
+        restored(a);
+      });
 }
 
 }  // namespace sd

@@ -74,6 +74,24 @@
 //    to 0 and -1: in every state the engine reaches they already hold
 //    those values.
 //  - the per-tick clamp pins proposer ballots at 2047, the report limit.
+//
+// The gray-failure and partition arms (partition cuts, one-way cuts,
+// per-link loss and duplication thresholds, payload corruption, timer skew,
+// stale-snapshot recovery and amnesia) compile into an instantiation of
+// their own (ARMS, at (2,5,8,4), config3's shape), which the C entry picks
+// when a knob of theirs is on; the default instantiations compile none of
+// their code.  They follow K1 to K3's (the pieces in fused_common.cuh, sd::,
+// with Multi-Paxos' stream ids): a cut masks the delivered replies and the
+// selected request after the draws that select them, which are keyed by
+// position, so they are made as before; LINK_BITS (where a message is
+// sent), DUP_BITS (where a request is selected) and CORRUPT (where an
+// acceptor processes a request) are drawn only at the site that reads
+// them, each per-link threshold read from the plan there; the snapshot
+// shadows of promised and the slot log stay in global memory, read on a
+// recovery tick and written on a snapshot tick, the log's from and to the
+// lane's column.
+
+#include <type_traits>
 
 #include "fused_common.cuh"
 
@@ -88,9 +106,12 @@ constexpr int32_t kValMask = 0xFFFF;               // bv_val of a packed pair
 // Multi-Paxos stream ids (core/streams.py MULTI_PAXOS_STREAMS); SEL and
 // BUSY share the single-decree ids.
 constexpr uint32_t kMpDupReq = 2, kPromDeliver = 3, kAccdDeliver = 4, kMpKeepProm = 5,
-                   kMpKeepAccd = 6, kKeepPrep = 7, kKeepAcc = 8, kJitter = 9, kMpBackoff = 10;
+                   kMpKeepAccd = 6, kKeepPrep = 7, kKeepAcc = 8, kJitter = 9, kMpBackoff = 10,
+                   kMpLinkBits = 11, kMpDupBits = 12, kMpCorrupt = 13;
 
-// The state leaves in the reference's flatten order, tick excluded.
+// The state leaves in the reference's flatten order, tick excluded; a
+// state with snapshot shadows (stale_k) has them after the two acceptor
+// leaves, and the C entry moves them last (read_gray_args).
 struct Mp {
   enum Leaf : int {
     kPromised, kLog,
@@ -100,8 +121,10 @@ struct Mp {
     kPromPresent, kPromBal, kPromBv,
     kAccdPresent, kAccdBal, kAccdSlot, kAccdVal,
     kBase,
+    kSnapPromised, kSnapLog,  // (A) and (A, L), with snapshot shadows only
   };
 };
+constexpr int kMpSnapAt = Mp::kLog + 1, kMpSnaps = 2;  // where the shadows arrive, and how many
 
 // Element (row, lane) of a state leaf in global memory.
 template <typename T>
@@ -162,6 +185,24 @@ __device__ __forceinline__ uint32_t firing(const TickStream& ts, const Knob& k, 
     if (ts.bits(stream, j) < k.thr) out |= 1u << j;
   }
   return out;
+}
+
+// The acceptors that keep proposer p's broadcast of kind `kind` (2
+// PREPARE, 3 ACCEPT: LINK_BITS' axis): on flaky links each against its own
+// drop threshold, else the uniform p_drop mask of `stream`.
+template <bool ARMS, int P, int A>
+__device__ __forceinline__ uint32_t sends_kept(const TickStream& ts, const Params& prm,
+                                               const Gray& gray, uint32_t stream, int kind, int p,
+                                               int64_t n, int64_t i) {
+  if (ARMS && gray.flaky) {
+    uint32_t out = 0;
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+      out |= (sd::kept<ARMS, P * A, kMpLinkBits>(ts, prm, gray, stream, kind, p * A + a, n, i)
+                  ? 1u : 0u) << a;
+    return out;
+  }
+  return survivors<A>(ts, prm.drop, stream, p * A, (1u << A) - 1);
 }
 
 // Request selection for acceptor a (the plain select_from_scores),
@@ -269,9 +310,15 @@ __device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves
   }
 }
 
-template <int P, int A, int LOG, int K, int B, bool PROM>
+// The kernel; `Arms` is empty for the default instantiations, whose
+// signature and code are those of K5 without the arms, and `Gray` for the
+// arms instantiation (ARMS), which takes the arms' knobs and plan leaves.
+template <int P, int A, int LOG, int K, int B, bool PROM, typename... Arms>
 __global__ void __launch_bounds__(B)
-fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
+fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
+                        Arms... arms) {
+  constexpr bool ARMS = sizeof...(Arms) > 0;
+  const Gray gray{arms...};
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = Staged<P, A, LOG, K, PROM>;
   constexpr int S = 2 * P * A;  // request slots, index (kind * P + p) * A + a
@@ -339,6 +386,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     accd_val[j] = at<int32_t>(L, Mp::kAccdVal, j, n, i);
   }
   const int32_t base = at<int32_t>(L, Mp::kBase, 0, n, i);
+  // The arms: the lane's partition window, the links that cross its cut,
+  // the cut's direction, the timeout skew.
+  sd::GrayLane<P, A> glane;
+  if constexpr (ARMS) glane.load(gray, n, i);
 
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
@@ -350,11 +401,20 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
 
-    // ---- Reply delivery decided and cleared before any new send. ----
+    // The links cut this tick, per direction (bit e: edge e).
+    uint32_t cut_req = 0, cut_rep = 0;
+    if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
+
+    // ---- Reply delivery decided and cleared before any new send; a reply
+    //      on a cut link stays in flight. ----
     uint32_t prom_del = prom_present, accd_del = accd_present;
+    if constexpr (ARMS) {
+      prom_del &= ~cut_rep;
+      accd_del &= ~cut_rep;
+    }
     if (prm.hold.mode != 0) {
-      prom_del &= ~firing(ts, prm.hold, kPromDeliver, prom_present);
-      accd_del &= ~firing(ts, prm.hold, kAccdDeliver, accd_present);
+      prom_del &= ~firing(ts, prm.hold, kPromDeliver, prom_del);
+      accd_del &= ~firing(ts, prm.hold, kAccdDeliver, accd_del);
     }
     prom_present &= ~prom_del;
     accd_present &= ~accd_del;
@@ -386,6 +446,31 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       }
     }
 
+    // ---- Stale-snapshot recovery or amnesia of promised and the slot log
+    //      (the column's rows), before the acceptor half-tick. ----
+    sd::recover_with<ARMS, A>(
+        gray, tick, crash_end,
+        [&](int a) {
+          draws.touch(2 * LOG);  // the log's shadow, read into the log
+          promised[a] = at<int32_t>(L, Mp::kSnapPromised, a, n, i);
+#pragma unroll 1
+          for (int l = 0; l < LOG; ++l)
+            col[G::kLog + a * LOG + l] = at<int32_t>(L, Mp::kSnapLog, a * LOG + l, n, i);
+        },
+        [&](int a) {
+          draws.touch(2 * LOG);  // the log, read into its shadow
+          at<int32_t>(L, Mp::kSnapPromised, a, n, i) = promised[a];
+#pragma unroll 1
+          for (int l = 0; l < LOG; ++l)
+            at<int32_t>(L, Mp::kSnapLog, a * LOG + l, n, i) = col[G::kLog + a * LOG + l];
+        },
+        [&](int a) {
+          draws.touch(LOG);
+          promised[a] = 0;
+#pragma unroll 1
+          for (int l = 0; l < LOG; ++l) col[G::kLog + a * LOG + l] = 0;
+        });
+
     // ---- Acceptor half-tick: at most one request per acceptor. ----
     uint32_t rq_next = rq_present, ev_flag = 0, alive = 0;
     int32_t ev_bal[A], ev_slot[A], ev_val[A];
@@ -397,6 +482,11 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     for (int a = 0; a < A; ++a) {
       int sel = -1;
       if ((awake >> a) & 1u) sel = select_present<P, A>(ts, rq_present, a);
+      // A request on a cut link stays in flight: the acceptor processes
+      // nothing this tick.
+      if constexpr (ARMS) {
+        if (sel >= 0 && ((cut_req >> ((sel * A + a) % E)) & 1u)) sel = -1;
+      }
       int32_t mb = 0, mv = 0, ms = 0;
 #pragma unroll
       for (int kp = 0; kp < 2 * P; ++kp) {
@@ -408,6 +498,11 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       }
       const bool is_prep = sel >= 0 && sel < P;
       const bool is_acc = sel >= P;
+      // A corrupted ACCEPT's value flips a bit, a corrupted PREPARE's
+      // ballot moves up one.
+      if constexpr (ARMS) {
+        if (sel >= 0) sd::corrupt<ARMS, kMpCorrupt>(ts, gray, a, is_acc, mb, mv);
+      }
       const bool eq = (equiv >> a) & 1u;
       const bool ok_prep_h = is_prep && !eq && mb > promised[a];
       const bool ok_prep = ok_prep_h || (is_prep && eq);
@@ -417,12 +512,15 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       if (ok_acc_h) pr = max(pr, mb);
 
       // Replies to the selected sender (post-consume buffers), edge
-      // rj = sender * A + a: one drop draw where a reply is due.  A PROMISE
-      // carries the log before any accept write: an acceptor that takes a
-      // PREPARE this tick writes no log slot.
+      // rj = sender * A + a: one drop draw where a reply is due (on a flaky
+      // link against its own threshold).  A PROMISE carries the log before
+      // any accept write: an acceptor that takes a PREPARE this tick writes
+      // no log slot.
       const int rj = (is_prep ? sel : sel - P) * A + a;
-      const bool keep_prom = ok_prep && ts.survives_at(prm.drop, kMpKeepProm, rj);
-      const bool keep_accd = ok_acc && ts.survives_at(prm.drop, kMpKeepAccd, rj);
+      const bool keep_prom =
+          ok_prep && sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepProm, 0, rj, n, i);
+      const bool keep_accd =
+          ok_acc && sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepAccd, 1, rj, n, i);
       if (keep_prom) {
         draws.touch(eq ? LOG : 2 * LOG);  // the payload, and the log it copies
 #pragma unroll 1
@@ -446,10 +544,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         col[G::kLog + a * LOG + ms] = pack_bv(mb, mv);
         draws.touch(1);
       }
-      // Consume the selected request unless it is duplicated.
+      // Consume the selected request unless it is duplicated (on a flaky
+      // link, against its own threshold).
       if (sel >= 0) {
         const int j = sel * A + a;
-        if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kMpDupReq, j))) rq_next &= ~(1u << j);
+        if (!(sd::dup_live<ARMS>(prm, gray) &&
+              sd::duplicated<ARMS, S, E, kMpDupBits>(ts, prm, gray, kMpDupReq, 0, j, n, i)))
+          rq_next &= ~(1u << j);
       }
       promised[a] = pr;
       ev_flag |= (ok_acc ? 1u : 0u) << a;
@@ -582,7 +683,8 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         }
       }
       const int32_t ct = ph == kCandidate ? wrap_add(cand_timer[p], 1) : 0;
-      const bool cand_fail = ph == kCandidate && ct > prm.timeout && !p1_done;
+      const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
+      const bool cand_fail = ph == kCandidate && ct > timeout && !p1_done;
       const bool demote = ph == kLead && lease_out && !slot_done && !log_full;
 
       // Phase writes in precedence order: the last one wins.
@@ -603,14 +705,16 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       }
       if (start_elec || p1_done || slot_done) lt = 0;
       if (cand_fail || demote) {
-        // Retreat below the election threshold (the timer may go negative).
+        // Retreat below the election threshold (the timer may go negative),
+        // stretched by the backoff skew.
         const uint32_t r = ts.bits(kMpBackoff, p) & 0x7FFFFFFFu;
-        lt = prm.lease_len - static_cast<int32_t>(r % static_cast<uint32_t>(2 * prm.backoff_n));
+        lt = prm.lease_len - static_cast<int32_t>(sd::skewed_backoff<ARMS>(
+                                 r % static_cast<uint32_t>(2 * prm.backoff_n), gray, p, n, i));
       }
 
       // New candidates broadcast Prepare(b) once.
       if (start_elec) {
-        const uint32_t kept = survivors<A>(ts, prm.drop, kKeepPrep, p * A, (1u << A) - 1);
+        const uint32_t kept = sends_kept<ARMS, P, A>(ts, prm, gray, kKeepPrep, 2, p, n, i);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
           if ((kept >> a) & 1u) {
@@ -632,7 +736,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         draws.touch(slot >= 0 ? 1 : 0);
         // Commands are keyed by global slot: own_slot_value(pid, base + slot).
         const int32_t pval = rbv > 0 ? (rbv & kValMask) : (p + 1) * 1000 + wrap_add(base, slot);
-        const uint32_t kept = survivors<A>(ts, prm.drop, kKeepAcc, p * A, (1u << A) - 1);
+        const uint32_t kept = sends_kept<ARMS, P, A>(ts, prm, gray, kKeepAcc, 3, p, n, i);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
           if ((kept >> a) & 1u) {
@@ -690,26 +794,38 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   store_column<P, A, LOG, K, B, PROM>(col, L, n, i);
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh).
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): the
+// arms instantiation's kernel takes a Gray after Params.
+template <int P, int A, int LOG, int K, bool ARMS, int B, bool PROM>
+struct InstOf {
+  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, B,
+                        Staged<P, A, LOG, K, PROM>::kRows * B * 4>;
+};
 template <int P, int A, int LOG, int K, int B, bool PROM>
-using Inst = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, B,
-                      Staged<P, A, LOG, K, PROM>::kRows * B * 4>;
+struct InstOf<P, A, LOG, K, true, B, PROM> {
+  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, B, PROM, Gray>, B,
+                        Staged<P, A, LOG, K, PROM>::kRows * B * 4>;
+};
+template <int P, int A, int LOG, int K, bool ARMS, int B, bool PROM>
+using Inst = typename InstOf<P, A, LOG, K, ARMS, B, PROM>::type;
 
-// The instantiations, (n_prop, n_acc, log_len, k_slots, B, PROM): one per
-// shape, at the geometry fused_tick.MP_STAGING gives it.
+// The instantiations, (n_prop, n_acc, log_len, k_slots, ARMS, B, PROM): one
+// per shape and arms flag, at the geometry fused_tick.MP_STAGING gives it.
 #define K5_INSTANCES(X)          \
-  X(2, 5, 8, 4, 128, true)       \
-  X(2, 5, 16, 4, 128, false)     \
-  X(2, 5, 4, 4, 128, true)       \
-  X(2, 3, 8, 4, 128, true)
+  X(2, 5, 8, 4, 0, 128, true)    \
+  X(2, 5, 16, 4, 0, 128, false)  \
+  X(2, 5, 4, 4, 0, 128, true)    \
+  X(2, 3, 8, 4, 0, 128, true)    \
+  X(2, 5, 8, 4, 1, 128, true)
 
-// Calls `fn(Inst<...>{})` for the shape `dims` names
-// (n_prop, n_acc, log_len, k_slots), or returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
+// instantiation `dims` names (n_prop, n_acc, log_len, k_slots, arms), or
+// returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K5_MATCH(P_, A_, L_, K_, B_, S_)                                  \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_) \
-    return fn(Inst<P_, A_, L_, K_, B_, S_>{});
+#define K5_MATCH(P_, A_, L_, K_, R_, B_, S_)                                                  \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_ && dims[4] == R_) \
+    return fn(Inst<P_, A_, L_, K_, R_ != 0, B_, S_>{}, std::bool_constant<R_ != 0>{});
   K5_INSTANCES(K5_MATCH)
 #undef K5_MATCH
   return cudaErrorInvalidValue;
@@ -717,34 +833,42 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 
 }  // namespace
 
-// C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, log_len, k_slots, then the
-// dynamic shared bytes a block, fused_tick.MP_STAGING's); `tick` is the
-// device int32 tick scalar, read by the kernel and advanced by the caller.
-// Returns cudaSuccess or the first error: an unknown shape or too few
-// shared bytes (cudaErrorInvalidValue), a shared-memory request the card
-// refuses, or the launch's cudaGetLastError().
+// C entry point, loaded with ctypes (arguments: read_gray_args in
+// fused_common.cuh; `dims` = n_prop, n_acc, log_len, k_slots, arms (1: the
+// instantiation with the gray-failure and partition arms, which a knob of
+// theirs needs), then the dynamic shared bytes a block,
+// fused_tick.MP_STAGING's); the state's leaves are 29, or 31 with snapshot
+// shadows, which stale_k > 0 needs; `tick` is the device int32 tick
+// scalar, read by the kernel and advanced by the caller.  Returns
+// cudaSuccess or the first error: an unknown instantiation, a knob on
+// without its arms, stale_k without snapshots or too few shared bytes
+// (cudaErrorInvalidValue), a shared-memory request the card refuses, or
+// the launch's cudaGetLastError().
 extern "C" int fused_multipaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                        void** plan, void* tick, const long long* params,
                                        int n_params, void* stream) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
+  if (n_dims != 6) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
-  const cudaError_t bad =
-      read_args(leaves, n_leaves, kMpLeaves, plan, params, n_params, &L, &pl, &prm);
+  Gray gray;
+  const cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params,
+                                         &L, &pl, &prm, &gray, kMpLeaves, kMpSnapAt, kMpSnaps);
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[4];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+  const int smem = dims[5];
+  return dispatch(dims, [&](auto inst, auto with_arms) {
+    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
+    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  });
 }
 
 // The blocks of instantiation `dims` (as for fused_multipaxos_launch) that
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_multipaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
-  const int smem = dims[4];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 6) return cudaErrorInvalidValue;
+  const int smem = dims[5];
+  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

@@ -22,13 +22,13 @@ from its own ids with ``mp_counter_masks``.
 Only the SynchPaxos kernel models the bounded-delay channel: it takes a
 state with or without ``until`` stamps (an instantiation each) and the
 plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
-Only the Paxos, Fast Paxos and Raft-core kernels model the gray-failure
-and partition arms (``protocols.paxos.GRAY_KNOBS``), each in an
-instantiation of its own that the wrapper picks when a knob of theirs is
-on (the fourth field of their ``KERNEL_SHAPES``, ``arms``:
+The Paxos, Fast Paxos, Raft-core and Multi-Paxos kernels model the
+gray-failure and partition arms (``protocols.paxos.GRAY_KNOBS``), each in
+an instantiation of its own that the wrapper picks when a knob of theirs
+is on (the last field of their ``KERNEL_SHAPES``, ``arms``:
 :func:`gray_arms`); it reads the plan's partition and gray leaves and,
-under ``stale_k``, the state's snapshot shadows.  The other kernels refuse
-those knobs.
+under ``stale_k``, the state's snapshot shadows.  The SynchPaxos kernel
+refuses those knobs.
 
 Every kernel keeps part of each lane's state in shared memory for the
 whole chunk: the Multi-Paxos kernel its slot arrays, the SynchPaxos kernel
@@ -81,14 +81,17 @@ BALLOT_GROWTH_PER_TICK = 16
 # at (2, 5, 8), the shape of every config that sets them;
 # SynchPaxos (n_prop, n_acc, k_slots, stamped) of config_delay_chaos (with
 # delay stamps) and of its delay-free runs, and three acceptors;
-# Multi-Paxos (n_prop, n_acc, log_len, k_slots) of config3, config3-long,
-# the reference tests' 4-slot window, and three acceptors.
+# Multi-Paxos (n_prop, n_acc, log_len, k_slots, arms) of config3,
+# config3-long, the reference tests' 4-slot window, and three acceptors,
+# with arms 1 at config3's (2, 5, 8, 4).
 KERNEL_SHAPES = {
     "paxos": ((2, 5, 8, 0), (1, 3, 8, 0), (2, 5, 8, 1)),
     "fastpaxos": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
     "raftcore": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
     "synchpaxos": ((2, 5, 8, 1), (2, 5, 8, 0), (2, 3, 8, 1)),
-    "multipaxos": ((2, 5, 8, 4), (2, 5, 16, 4), (2, 5, 4, 4), (2, 3, 8, 4)),
+    "multipaxos": (
+        (2, 5, 8, 4, 0), (2, 5, 16, 4, 0), (2, 5, 4, 4, 0), (2, 3, 8, 4, 0), (2, 5, 8, 4, 1),
+    ),
 }
 
 # The report-time ``max_ballot >= limit`` threshold of single-decree Paxos.
@@ -135,21 +138,24 @@ def mp_staged_rows(n_prop: int, n_acc: int, log_len: int, k_slots: int, stage_pr
 
 
 def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
-    rows = mp_staged_rows(*shape, stage_prom)
+    rows = mp_staged_rows(*shape[:4], stage_prom)
     return MpStaging(threads, stage_prom, rows, rows * 4 * threads)
 
 
-# K5's geometry per instantiation, which the wrapper passes to the kernel.
-# The tick is a long dependent chain a lane, so the warps an SM holds set
-# the pace; at 255 registers a thread it holds at most 8 (2 blocks of 128).
-# The payloads are staged where the SM still holds 8 warps; at
-# (2, 5, 16, 4) the 224 words without them allow 8, with them 4 (64 lanes
-# a block), which made the chunk slower (PERF.md, PR 5).
+# K5's geometry per instantiation (n_prop, n_acc, log_len, k_slots, arms),
+# which the wrapper passes to the kernel.  The tick is a long dependent
+# chain a lane, so the warps an SM holds set the pace; at 255 registers a
+# thread it holds at most 8 (2 blocks of 128).  The payloads are staged
+# where the SM still holds 8 warps; at (2, 5, 16, 4) the 224 words without
+# them allow 8, with them 4 (64 lanes a block), which made the chunk slower
+# (PERF.md §6).  The arms instantiation keeps its default's column (the
+# snapshot shadows stay in global memory).
 MP_STAGING = {
-    (2, 5, 8, 4): _mp_staging((2, 5, 8, 4), 128, True),
-    (2, 5, 16, 4): _mp_staging((2, 5, 16, 4), 128, False),
-    (2, 5, 4, 4): _mp_staging((2, 5, 4, 4), 128, True),
-    (2, 3, 8, 4): _mp_staging((2, 3, 8, 4), 128, True),
+    (2, 5, 8, 4, 0): _mp_staging((2, 5, 8, 4), 128, True),
+    (2, 5, 16, 4, 0): _mp_staging((2, 5, 16, 4), 128, False),
+    (2, 5, 4, 4, 0): _mp_staging((2, 5, 4, 4), 128, True),
+    (2, 3, 8, 4, 0): _mp_staging((2, 3, 8, 4), 128, True),
+    (2, 5, 8, 4, 1): _mp_staging((2, 5, 8, 4), 128, True),
 }
 
 
@@ -383,7 +389,8 @@ def _gray_params(cfg: FaultConfig) -> list:
 
 def gray_arms(cfg: FaultConfig) -> int:
     """1 when ``cfg`` turns on an arm of the gray-failure and partition
-    instantiation of K1, K2 or K3, else 0 (the default instantiation)."""
+    instantiation of K1, K2, K3 or K5, else 0 (the default
+    instantiation)."""
     return int(any(_gray_params(cfg)))
 
 
@@ -412,7 +419,7 @@ BINDINGS = {
         apply_tick_mp, mp_counter_masks, MultiPaxosState, "fused_multipaxos_tick",
         "fused_multipaxos_launch", block=256, ballot_limit=(1 << 11) - 1,
         proposer_bal_bits=12, shape_fields=("n_prop", "n_acc", "log_len", "k_slots"),
-        staging=MP_STAGING,
+        staging=MP_STAGING, arms=gray_arms,
     ),
 }
 _entries: dict = {}
@@ -525,8 +532,9 @@ def _kernel_params(
 # (csrc/fused_common.cuh), each optional one passed as a null pointer when
 # the plan has none: the single-decree kernels ignore the proposer crash
 # windows, only SynchPaxos' reads link_delay, and only the arms
-# instantiations of Paxos', Fast Paxos' and Raft-core's the partition and
-# gray leaves after it.
+# instantiations of Paxos', Fast Paxos', Raft-core's and Multi-Paxos' the
+# partition and gray leaves after it (the per-link ones (P, A, I) and the
+# skew (P, I) at the state's own n_prop and n_acc).
 _PLAN_LEAVES = (
     "crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end", "link_delay",
     "part_start", "part_end", "aside", "pside", "part_dir", "link_drop", "link_dup",
@@ -704,12 +712,11 @@ def draw_census(
 ) -> tuple:
     """(draws, slot touches): the counter-PRNG draws ``protocol``'s kernel
     makes over ``n_ticks`` ticks from ``state`` (the gray draws of K1 to
-    K3's arms included: LINK_BITS where a flaky link sends, DUP_BITS where
-    it delivers or selects, CORRUPT where an acceptor processes a
-    request), and the
-    slot-array elements
-    it reads or writes (Multi-Paxos; SynchPaxos: the delay stamps; 0 for
-    the other single-decree kernels, which count none),
+    K3's and K5's arms included: LINK_BITS where a flaky link sends,
+    DUP_BITS where it delivers or selects, CORRUPT where an acceptor
+    processes a request), and the slot-array elements it reads or writes
+    (Multi-Paxos, the snapshot shadows of its log included; SynchPaxos: the
+    delay stamps; 0 for the other single-decree kernels, which count none),
     summed over lanes and ticks: one launch of its measuring build
     (``_measure``).  The kernels draw a mask, and touch a slot, only where
     the outcome depends on it, so these are the PRNG and slot work the data
@@ -758,8 +765,9 @@ def fused_paxos_chunk(
     returning it; ``.launches`` counts the launches; a launch the card
     refuses raises.  A config with a gray-failure or partition knob on runs
     the kernel's arms instantiation (:func:`gray_arms`), on a plan with the
-    leaves its knobs need; so do Fast Paxos and Raft-core.  CPU: the plain :func:`reference_chunk`.  There
-    is no fallback between the two: the device of the state decides."""
+    leaves its knobs need; so do Fast Paxos, Raft-core and Multi-Paxos.
+    CPU: the plain :func:`reference_chunk`.  There is no fallback between
+    the two: the device of the state decides."""
     return _fused_chunk(
         "paxos", fused_paxos_chunk, state, seed, plan, cfg, n_ticks, block,
         blk0, clamp_per_tick,
@@ -812,7 +820,8 @@ def fused_multipaxos_chunk(
     (``csrc/fused_multipaxos_tick.cu``, at the geometry ``MP_STAGING``
     gives the state's shape; a launch the card refuses raises); the
     default stream block is the reference's 256, and the per-tick clamp
-    pins ballots at 2047."""
+    pins ballots at 2047.  A gray-failure or partition knob runs the
+    arms instantiation at config3's shape only; any other shape raises."""
     return _fused_chunk(
         "multipaxos", fused_multipaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,

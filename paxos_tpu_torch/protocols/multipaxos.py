@@ -21,8 +21,10 @@ commutative reply folds at the proposers), extended with:
 :func:`compact_mp_body` moves decided prefixes out of the window (long-log
 mode, between chunks).  All three are plain PyTorch; the first two are the
 plain version of the fused CUDA kernel ``csrc/fused_multipaxos_tick.cu``.
-The observer planes and the gray, delay, stale-snapshot and amnesia knobs
-are not ported (:func:`paxos_tpu_torch.protocols.paxos.check_supported`).
+The gray-failure and partition knobs (``protocols.paxos.GRAY_KNOBS``) are
+ported, with the pieces the single-decree ticks share; the observer planes
+and the bounded delay are not
+(:func:`paxos_tpu_torch.protocols.paxos.check_supported`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from paxos_tpu_torch.core.mp_state import (
     FOLLOW,
     LEAD,
     AcceptedBuf,
-    MPAcceptorState,
     MPLearnerState,
     MPProposerState,
     MultiPaxosState,
@@ -49,10 +50,16 @@ from paxos_tpu_torch.core.mp_state import (
     pack_bv,
 )
 from paxos_tpu_torch.core.streams import MULTI_PAXOS_STREAMS as S
-from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
+from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan, bits_below, links_dup
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
-from paxos_tpu_torch.protocols.paxos import check_supported
+from paxos_tpu_torch.protocols.paxos import (
+    check_supported,
+    corrupt,
+    partition_cuts,
+    recover,
+    skewed_timers,
+)
 from paxos_tpu_torch.transport import inmemory as net
 
 
@@ -76,11 +83,20 @@ class MPTickMasks:
     keep_acc: Optional[torch.Tensor]  # (P, A, I) bool ACCEPT not dropped
     jitter: torch.Tensor  # (P, I) int32 election-threshold jitter
     backoff: torch.Tensor  # (P, I) int32 post-failure retreat
+    # Gray failures (None unless the knob is on).  With p_flaky > 0 the
+    # keep_* and dup_req masks above are None and delivery is decided by
+    # these raw bits against the plan's per-link thresholds.
+    link_bits: Optional[torch.Tensor] = None  # (4, P, A, I) int32: sends of
+    #   kind 0 PROMISE, 1 ACCEPTED, 2 PREPARE, 3 ACCEPT
+    dup_bits: Optional[torch.Tensor] = None  # (2, P, A, I) int32 request dup
+    corrupt: Optional[torch.Tensor] = None  # (A, I) bool payload perturbed
 
 
 def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=None) -> MPTickMasks:
     """Draw a tick's masks from the counter PRNG (``tick_seed`` and
-    ``block`` as in :func:`paxos_tpu_torch.protocols.paxos.counter_masks`)."""
+    ``block`` as in :func:`paxos_tpu_torch.protocols.paxos.counter_masks`).
+    With ``p_flaky > 0`` the uniform drop and duplication masks are not
+    drawn: the per-link raw bits take their place."""
     check_supported(cfg, "multipaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
@@ -88,18 +104,28 @@ def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=
     edge = (n_prop, n_acc, n_inst)
     kw = dict(block=block, device=state.device)
     n_jitter = max(cfg.backoff_max, 1)
+    flaky = cfg.p_flaky > 0.0
+
+    def uniform(draw, stream, shape, p):
+        return None if flaky else draw(tick_seed, S[stream], shape, p, **kw)
+
     return MPTickMasks(
         sel_score=cp.counter_bits(tick_seed, S["SEL"], slot, **kw),
         busy=cp.bern_not(tick_seed, S["BUSY"], (1, 1, n_acc, n_inst), cfg.p_idle, **kw),
-        dup_req=cp.bern(tick_seed, S["DUP_REQ"], slot, cfg.p_dup, **kw),
+        dup_req=uniform(cp.bern, "DUP_REQ", slot, cfg.p_dup),
         prom_deliver=cp.bern_not(tick_seed, S["PROM_DELIVER"], edge, cfg.p_hold, **kw),
         accd_deliver=cp.bern_not(tick_seed, S["ACCD_DELIVER"], edge, cfg.p_hold, **kw),
-        keep_prom=cp.bern_not(tick_seed, S["KEEP_PROM"], edge, cfg.p_drop, **kw),
-        keep_accd=cp.bern_not(tick_seed, S["KEEP_ACCD"], edge, cfg.p_drop, **kw),
-        keep_prep=cp.bern_not(tick_seed, S["KEEP_PREP"], edge, cfg.p_drop, **kw),
-        keep_acc=cp.bern_not(tick_seed, S["KEEP_ACC"], edge, cfg.p_drop, **kw),
+        keep_prom=uniform(cp.bern_not, "KEEP_PROM", edge, cfg.p_drop),
+        keep_accd=uniform(cp.bern_not, "KEEP_ACCD", edge, cfg.p_drop),
+        keep_prep=uniform(cp.bern_not, "KEEP_PREP", edge, cfg.p_drop),
+        keep_acc=uniform(cp.bern_not, "KEEP_ACC", edge, cfg.p_drop),
         jitter=cp.randint(tick_seed, S["JITTER"], (n_prop, n_inst), n_jitter, **kw),
         backoff=cp.randint(tick_seed, S["BACKOFF"], (n_prop, n_inst), 2 * n_jitter, **kw),
+        link_bits=(
+            cp.counter_bits(tick_seed, S["LINK_BITS"], (4,) + edge, **kw) if flaky else None
+        ),
+        dup_bits=cp.counter_bits(tick_seed, S["DUP_BITS"], slot, **kw) if links_dup(cfg) else None,
+        corrupt=cp.bern(tick_seed, S["CORRUPT"], (n_acc, n_inst), cfg.p_corrupt, **kw),
     )
 
 
@@ -119,20 +145,40 @@ def apply_tick_mp(
     dev = state.device
     i32 = torch.int32
 
-    acc, prop = state.acceptor, state.proposer
+    prop = state.proposer
     alive = plan.alive(state.tick)  # (A, I)
     p_alive = plan.prop_alive(state.tick)  # (P, I)
     equiv = plan.equivocate  # (A, I)
+    # Stale-snapshot recovery or amnesia of promised and the whole slot log.
+    acc = recover(state.acceptor, state, plan, cfg)
 
-    # ---- Reply delivery decided and cleared before any new send ----
-    prom_del = _and(state.promises.present, masks.prom_deliver)
-    accd_del = _and(state.accepted.present, masks.accd_deliver)
+    # ---- Link faults: partition cuts, and per-link loss and duplication
+    #      on flaky links (kinds 0 PROMISE, 1 ACCEPTED, 2 PREPARE, 3
+    #      ACCEPT) in place of the uniform masks ----
+    link_req, link_rep = partition_cuts(plan, cfg, state.tick)
+    if cfg.p_flaky > 0.0:
+        keep_prom, keep_accd, keep_prep, keep_acc = (
+            ~bits_below(masks.link_bits[k], plan.link_drop) for k in range(4)
+        )
+        dup_req = None
+        if masks.dup_bits is not None:
+            dup_req = bits_below(masks.dup_bits, plan.link_dup[None])
+    else:
+        keep_prom, keep_accd = masks.keep_prom, masks.keep_accd
+        keep_prep, keep_acc, dup_req = masks.keep_prep, masks.keep_acc, masks.dup_req
+
+    # ---- Reply delivery decided and cleared before any new send; a cut
+    #      link's replies stay in flight ----
+    prom_del = _and(_and(state.promises.present, masks.prom_deliver), link_rep)
+    accd_del = _and(_and(state.accepted.present, masks.accd_deliver), link_rep)
     promises = dataclasses.replace(state.promises, present=state.promises.present & ~prom_del)
     accepted = dataclasses.replace(state.accepted, present=state.accepted.present & ~accd_del)
 
-    # ---- Acceptor half-tick ----
+    # ---- Acceptor half-tick; a cut link's requests stay in flight ----
     sel = net.select_from_scores(state.requests.present, masks.sel_score, masks.busy)
     sel = sel & alive[None, None]
+    if link_req is not None:
+        sel = sel & link_req[None]
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=i32)
@@ -142,6 +188,7 @@ def apply_tick_mp(
     msg_slot = gather(state.requests.v2)
     is_prep = sel[PREPARE].any(dim=0)
     is_acc = sel[ACCEPT].any(dim=0)
+    msg_bal, msg_val = corrupt(masks, cfg, msg_bal, msg_val, is_prep, is_acc)
 
     ok_prep_h = is_prep & ~equiv & (msg_bal > acc.promised)
     ok_prep = ok_prep_h | (is_prep & equiv)
@@ -156,22 +203,22 @@ def apply_tick_mp(
 
     # PROMISE carries the log as it stood before this tick's accept write;
     # equivocators send a zeroed payload.
-    prom_send = _and(sel[PREPARE] & ok_prep[None], masks.keep_prom)  # (P, A, I)
+    prom_send = _and(sel[PREPARE] & ok_prep[None], keep_prom)  # (P, A, I)
     payload_bv = torch.where(equiv[:, None], 0, acc.log)  # (A, L, I)
     promises = PromiseBuf(
         present=promises.present | prom_send,
         bal=torch.where(prom_send, msg_bal[None], promises.bal),
         p_bv=torch.where(prom_send[:, :, None], payload_bv[None], promises.p_bv),
     )
-    accd_send = _and(sel[ACCEPT] & ok_acc[None], masks.keep_accd)
+    accd_send = _and(sel[ACCEPT] & ok_acc[None], keep_accd)
     accepted = AcceptedBuf(
         present=accepted.present | accd_send,
         bal=torch.where(accd_send, msg_bal[None], accepted.bal),
         slot=torch.where(accd_send, msg_slot[None], accepted.slot),
         val=torch.where(accd_send, msg_val[None], accepted.val),
     )
-    requests = net.consume(state.requests, sel, stay=masks.dup_req)
-    acc = MPAcceptorState(promised=promised, log=log)
+    requests = net.consume(state.requests, sel, stay=dup_req)
+    acc = dataclasses.replace(acc, promised=promised, log=log)
 
     # ---- Learner / checker ----
     learner = mp_learner_observe(
@@ -218,8 +265,9 @@ def apply_tick_mp(
     )
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
 
+    timeout, backoff = skewed_timers(masks, plan, cfg)
     candidate_timer = torch.where(prop.phase == CANDIDATE, prop.candidate_timer + 1, 0)
-    cand_fail = (prop.phase == CANDIDATE) & (candidate_timer > cfg.timeout) & ~p1_done
+    cand_fail = (prop.phase == CANDIDATE) & (candidate_timer > timeout) & ~p1_done
     demote = (prop.phase == LEAD) & lease_out & ~slot_done & ~log_full
 
     # Phase writes in precedence order: the last one wins.
@@ -236,7 +284,7 @@ def apply_tick_mp(
     lease_timer = torch.where(start_elec | p1_done | slot_done, 0, lease_timer)
     # A failed candidacy or demotion retreats below the election threshold
     # by a random backoff (the timer may go negative).
-    lease_timer = torch.where(cand_fail | demote, cfg.lease_len - masks.backoff, lease_timer)
+    lease_timer = torch.where(cand_fail | demote, cfg.lease_len - backoff, lease_timer)
     candidate_timer = torch.where(start_elec, 0, candidate_timer)
 
     # ---- Emit: new candidates broadcast Prepare(b) once ----
@@ -245,7 +293,7 @@ def apply_tick_mp(
     requests = net.send(
         requests, PREPARE,
         send_mask=(start_elec & p_alive)[:, None].expand(edge),
-        bal=bal_next[:, None], v1=zeros, v2=zeros, keep=masks.keep_prep,
+        bal=bal_next[:, None], v1=zeros, v2=zeros, keep=keep_prep,
     )
     # Leaders re-broadcast the current slot's Accept every tick.
     is_lead = (phase == LEAD) & p_alive & (commit_idx < n_slots)
@@ -260,7 +308,7 @@ def apply_tick_mp(
     requests = net.send(
         requests, ACCEPT,
         send_mask=is_lead[:, None].expand(edge),
-        bal=bal_next[:, None], v1=pval[:, None], v2=ci[:, None], keep=masks.keep_acc,
+        bal=bal_next[:, None], v1=pval[:, None], v2=ci[:, None], keep=keep_acc,
     )
 
     prop = MPProposerState(
@@ -328,7 +376,7 @@ def compact_mp_body(state: MultiPaxosState):
     accd_slot = state.accepted.slot - shift[None, None]
 
     out = MultiPaxosState(
-        acceptor=MPAcceptorState(promised=acc.promised, log=_shift_slots(acc.log, shift, 1)),
+        acceptor=dataclasses.replace(acc, log=_shift_slots(acc.log, shift, 1)),
         proposer=dataclasses.replace(
             prop,
             commit_idx=dec(prop.commit_idx),

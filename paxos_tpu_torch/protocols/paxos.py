@@ -8,13 +8,15 @@ CUDA kernel (``kernels/fused_tick``) replays them tick by tick.
 
 Ported knobs: ``p_drop``, ``p_dup``, ``p_idle``, ``p_hold``, ``timeout``,
 ``backoff_max``, ``ballot_stride``, ``q1``, ``q2``, and the plan's crash
-windows and equivocation flags; for Paxos, Fast Paxos and Raft-core also
-the gray-failure and partition arms (``p_part`` with ``p_asym``,
-``p_flaky``, ``p_corrupt``, ``timeout_skew``, ``backoff_skew``,
-``stale_k``, ``amnesia``), whose pieces the three ticks share
-(:func:`recover`, :func:`gray_links`, :func:`deliver`, :func:`select`,
-:func:`corrupt`, :func:`skewed_timers`); for SynchPaxos the bounded delay
-(``p_delay``, ``delay_max``: :func:`delay_stamps`) and ``sp_unsafe_fast``.
+windows and equivocation flags; for Paxos, Fast Paxos, Raft-core and
+Multi-Paxos also the gray-failure and partition arms (``p_part`` with
+``p_asym``, ``p_flaky``, ``p_corrupt``, ``timeout_skew``,
+``backoff_skew``, ``stale_k``, ``amnesia``), whose pieces the four ticks
+share (:func:`recover`, :func:`partition_cuts`, :func:`gray_links`,
+:func:`deliver`, :func:`select`, :func:`corrupt`, :func:`skewed_timers`;
+Multi-Paxos, whose buffers differ, takes the first two and the last
+two); for SynchPaxos the bounded delay (``p_delay``, ``delay_max``:
+:func:`delay_stamps`) and ``sp_unsafe_fast``.
 Any other knob raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -41,19 +43,19 @@ from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
 from paxos_tpu_torch.transport import inmemory as net
 
-# The gray-failure and partition knobs, which the Paxos, Fast Paxos and
-# Raft-core ticks (and K1 to K3) model so far; the other ticks raise, naming
-# the ROADMAP item that ports them.  A knob counts as on when it differs
-# from its FaultConfig default.
+# The gray-failure and partition knobs, which the Paxos, Fast Paxos,
+# Raft-core and Multi-Paxos ticks (and K1 to K3 and K5) model so far; the
+# SynchPaxos tick raises, naming the ROADMAP item that ports them.  A knob
+# counts as on when it differs from its FaultConfig default.
 GRAY_KNOBS = (
     "p_part", "p_asym", "p_flaky", "p_corrupt", "timeout_skew", "backoff_skew", "stale_k",
     "amnesia",
 )
-GRAY_PROTOCOLS = ("paxos", "fastpaxos", "raftcore")
-_GRAY_ITEM = "queue B1 item 12 (the gray-failure and partition arms)"
+GRAY_PROTOCOLS = ("paxos", "fastpaxos", "raftcore", "multipaxos")
+_GRAY_ITEM = "queue A item 12b (the gray-failure and partition arms of SynchPaxos)"
 # Knobs only the SynchPaxos tick models so far.
 _SYNCHPAXOS_ONLY_KNOBS = {
-    "p_delay": "queue B1 item 12 (bounded delay on the other ticks)",
+    "p_delay": "queue A item 12c (bounded delay on the other ticks)",
     "sp_unsafe_fast": "queue A item 10 (SynchPaxos' planted bug, read by no other tick)",
 }
 
@@ -191,6 +193,12 @@ def delay_stamps(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> t
     return until[0], until[1]
 
 
+def _per_acceptor(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An (A, I) mask viewed against an acceptor field ``x`` of shape (A,
+    ..., I): Multi-Paxos' slot log is (A, L, I)."""
+    return mask.view(mask.shape[:1] + (1,) * (x.dim() - 2) + mask.shape[1:])
+
+
 def recover(acc, state, plan: FaultPlan, cfg: FaultConfig):
     """Stale-snapshot recovery (``stale_k``) or amnesia of ``acc``, the
     acceptors (Raft-core: voters) of ``state``, before the tick's acceptor
@@ -199,14 +207,18 @@ def recover(acc, state, plan: FaultPlan, cfg: FaultConfig):
     restores the snapshot of the last multiple of stale_k ticks (forgets
     its state), and on a snapshot tick the snapshot takes the state after
     the restore; the durable fields and their shadows are
-    ``type(acc).SNAPSHOT``'s."""
+    ``type(acc).SNAPSHOT``'s (Multi-Paxos: ``promised`` and the whole slot
+    log)."""
     pairs = type(acc).SNAPSHOT
     if cfg.stale_k > 0:
         if not state.snapshots:
             raise ValueError("stale_k > 0 needs a state with snapshot shadows (stale=True)")
         rec = plan.recovering(state.tick)
         acc = dataclasses.replace(acc, **{
-            live: torch.where(rec, getattr(acc, snap), getattr(acc, live)) for live, snap in pairs
+            live: torch.where(
+                _per_acceptor(rec, getattr(acc, live)), getattr(acc, snap), getattr(acc, live)
+            )
+            for live, snap in pairs
         })
         due = state.tick % cfg.stale_k == 0
         acc = dataclasses.replace(acc, **{
@@ -215,7 +227,8 @@ def recover(acc, state, plan: FaultPlan, cfg: FaultConfig):
     elif cfg.amnesia:
         rec = plan.recovering(state.tick)
         acc = dataclasses.replace(acc, **{
-            live: torch.where(rec, 0, getattr(acc, live)) for live, _ in pairs
+            live: torch.where(_per_acceptor(rec, getattr(acc, live)), 0, getattr(acc, live))
+            for live, _ in pairs
         })
     return acc
 
@@ -238,19 +251,25 @@ class Links:
     dup_rep: Optional[torch.Tensor]
 
 
+def partition_cuts(plan: FaultPlan, cfg: FaultConfig, tick) -> tuple:
+    """(link_req, link_rep): the partition cuts at ``tick`` (``p_part``;
+    one-way with ``p_asym``), (P, A, I) bool, True where the link
+    delivers requests (replies); (None, None) without ``p_part``."""
+    if cfg.p_part <= 0.0:
+        return None, None
+    if cfg.p_asym > 0.0:
+        return plan.link_ok(tick, "req"), plan.link_ok(tick, "rep")
+    link = plan.link_ok(tick)
+    return link, link
+
+
 def gray_links(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> Links:
-    """The link faults at ``tick``: partition cuts (``p_part``; one-way
-    with ``p_asym``), which stall messages in flight and lose nothing; and
-    with ``p_flaky`` the per-link loss and duplication, this tick's raw
-    bits against the plan's per-link thresholds, in place of the uniform
-    masks (p_flaky 0 is the uniform case)."""
-    link_req = link_rep = None
-    if cfg.p_part > 0.0:
-        if cfg.p_asym > 0.0:
-            link_req = plan.link_ok(tick, "req")  # (P, A, I)
-            link_rep = plan.link_ok(tick, "rep")
-        else:
-            link_req = link_rep = plan.link_ok(tick)
+    """The link faults at ``tick``: partition cuts (:func:`partition_cuts`),
+    which stall messages in flight and lose nothing; and with ``p_flaky``
+    the per-link loss and duplication, this tick's raw bits against the
+    plan's per-link thresholds, in place of the uniform masks (p_flaky 0 is
+    the uniform case)."""
+    link_req, link_rep = partition_cuts(plan, cfg, tick)
     if cfg.p_flaky <= 0.0:
         return Links(
             link_req, link_rep, masks.keep_prom, masks.keep_accd, masks.keep_p1, masks.keep_p2,

@@ -30,11 +30,15 @@ ballot stride with a shorter timeout and uneven quorums.  The arms
 instantiations of K1, K2 and K3 are held so on every gray-failure and
 partition knob alone and on the configs that set them
 (``gray_knob_configs``; K2 and K3 also on every knob at once), and give the
-gray-chaos main paths' block-0 digests.  A plan without ``link_delay``
-under ``p_delay > 0`` is refused, and the other kernels refuse
-``p_delay``; K4 and K5 refuse the gray knobs, and K1 to K3 a gray knob
-that reaches an instantiation without its arms, an arms instantiation
-without a knob, and stale_k on a state without snapshot shadows.
+gray-chaos main paths' block-0 digests; so is K5's, on config3's cell, on
+every knob at once and on the JAX package's own two cases, and K5 on the
+knobs its main paths leave at their defaults (p_dup, q1/q2, a ballot
+stride).  A plan without ``link_delay`` under ``p_delay > 0`` is refused,
+and the other kernels refuse ``p_delay``; K4 refuses the gray knobs, and
+K1 to K3 and K5 a gray knob that reaches an instantiation without its
+arms, an arms instantiation without a knob, and stale_k on a state
+without snapshot shadows; K5 a gray config at a shape without its arms
+(config_gray_chaos's own 8-row learner table).
 """
 
 import dataclasses
@@ -48,6 +52,7 @@ from chip_smoke import (
     GOLDENS,
     MAIN_PATHS,
     MASK_CENSUS,
+    GRAY_ALL,
     MP_GOLDEN,
     SLOT_CENSUS,
     SP_GOLDEN,
@@ -57,6 +62,7 @@ from chip_smoke import (
     gray_knob_configs,
     main_config,
     main_plan,
+    mp_knob_configs,
     near_limit_state,
     near_limit_state_mp,
     plain_chunk,
@@ -167,9 +173,11 @@ def test_multipaxos_kernel_matches_plain_on_cuda():
 
 def _mp_shape_config(shape, n, seed):
     """A Multi-Paxos config of K5's instantiation ``shape``: config3, three
-    acceptors with equivocators, or a long log through a 4- or 16-slot
-    window."""
-    n_prop, n_acc, log_len, _ = shape
+    acceptors with equivocators, a long log through a 4- or 16-slot
+    window, or (the arms) the gray-chaos main path's config."""
+    n_prop, n_acc, log_len, _, arms = shape
+    if arms:
+        return main_config("graychaos-multipaxos", n, seed)
     if log_len == 8:
         cfg = main_config("config3", n, seed)
         if n_acc == 3:
@@ -215,7 +223,7 @@ def test_multipaxos_refused_launch_raises(monkeypatch):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     cfg = main_config("config3", 1024, 3)
     plan = config_plan(cfg, 3)
-    shape = (2, 5, 8, 4)
+    shape = (2, 5, 8, 4, 0)
     staging = tfused.MP_STAGING[shape]
     state = trun.init_state(cfg, "cuda")
     # advance once so that the refused launches would have something to change
@@ -588,15 +596,16 @@ def test_paxos_gray_arms_match_plain_on_cuda():
 
 @pytest.mark.cuda
 def test_kernels_refuse_gray_knobs_they_do_not_model():
-    """K4 and K5 refuse the gray-failure and partition knobs, in the
-    wrapper (ROADMAP item 12) and in their C entry points; K1 refuses them
-    in its C entry on its default instantiation, at a shape without an arms
+    """K4 refuses the gray-failure and partition knobs, in the wrapper
+    (ROADMAP item 12) and in its C entry point; K1 refuses them in its C
+    entry on its default instantiation, at a shape without an arms
     instantiation (the wrapper), and stale_k on a state without snapshot
-    shadows (K2 and K3 likewise: test_fr_arms_refuse_mismatched_launches)."""
+    shadows (K2, K3 and K5 likewise: test_fr_arms_refuse_mismatched_launches,
+    test_mp_arms_refuse_mismatched_launches)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     gray = gray_knob_configs(1024, 1)["config_gray_chaos"]
-    for path in ["config3", "synchpaxos"]:
+    for path in ["synchpaxos"]:
         c = main_config(path, 1024, 1)
         protocol = MAIN_PATHS[path].protocol
         plan = config_plan(dataclasses.replace(c, fault=gray.fault), 1)
@@ -704,3 +713,116 @@ def test_fr_arms_refuse_mismatched_launches(protocol):
     staging = tfused.FR_STAGING[protocol][(2, 5, 8, 1)]
     assert staging.min_blocks == 3
     assert tfused.blocks_per_sm(protocol, (2, 5, 8, 1)) >= 3
+
+
+@pytest.mark.cuda
+def test_mp_gray_arms_match_plain_on_cuda():
+    """K5's arms instantiation against the plain tick on every gray-failure
+    and partition knob alone on config3's cell (a two-way and a one-way
+    partition, flaky links without and with duplication, timeout and
+    backoff skew), on config_gray_chaos's, config_partition's,
+    config_corrupt's and config_stale's fault configs, amnesia and every
+    knob at once, over two chunks on chip_smoke's numpy plans; on the JAX
+    package's own cases (tests/test_gray.py: every knob with crash windows
+    at 64 lanes, seed 5, 24 ticks in one stream block; flaky links at zero
+    rates, 128 lanes, seed 9); and the gray-chaos main path's block-0
+    digest after a whole campaign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.fused_multipaxos_chunk
+    cases = [(cfg, 96, 2, 256) for cfg in gray_knob_configs(4096, 12, "multipaxos").values()]
+    every = main_config("config3", 64, 5)
+    every = dataclasses.replace(every, fault=dataclasses.replace(every.fault, **GRAY_ALL))
+    zero = main_config("config3", 128, 9)
+    zero = dataclasses.replace(zero, fault=dataclasses.replace(
+        zero.fault, p_drop=0.0, p_dup=0.0, p_flaky=0.5, flaky_drop=0.0, flaky_dup=0.0))
+    cases += [(every, 24, 1, 64), (zero, 64, 1, 128)]
+    for cfg, ticks, chunks, block in cases:
+        plan = config_plan(cfg, cfg.seed)
+        plain = trun.init_state(cfg, "cuda")
+        assert tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault) == (2, 5, 8, 4, 1)
+        kern = plain.clone()
+        for _ in range(chunks):
+            plain = plain_chunk(cfg, plain, plan, ticks, block)
+            before = wrapper.launches
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, ticks, block=block)
+            assert wrapper.launches == before + 1
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+    cfg = main_config("graychaos-multipaxos")
+    small = dataclasses.replace(cfg, n_inst=256)
+    full = main_plan(cfg)
+    plan = tfused.FaultPlan(**{
+        f.name: None if getattr(full, f.name) is None else getattr(full, f.name)[..., :256].contiguous()
+        for f in dataclasses.fields(full)
+    })
+    st = trun.init_state(small, "cuda")
+    for _ in range(64):
+        st = tfused.FUSED_CHUNKS["multipaxos"](st, 0, plan, small.fault, 64)
+    assert _digest(st) == BLOCK0_DIGESTS["graychaos-multipaxos"]
+
+
+@pytest.mark.cuda
+def test_mp_arms_refuse_mismatched_launches():
+    """K5 refuses, in its C entry, a gray knob on an instantiation without
+    its arms and an arms instantiation with no knob on; stale_k on a state
+    without snapshot shadows in the wrapper and in the C entry; and in the
+    wrapper a gray config at a shape without an arms instantiation, such as
+    config_gray_chaos's own 8-row learner table, which K5 does not pack:
+    it raises, and runs no plain tick instead.  No refused launch changes
+    the state or counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.fused_multipaxos_chunk
+    gray = gray_knob_configs(1024, 1, "multipaxos")["config_gray_chaos"]
+    plain_cfg = main_config("config3", 1024, 1)
+    binding = tfused.BINDINGS["multipaxos"]
+    launches = wrapper.launches
+    for cfg, arms in ((gray, 0), (plain_cfg, 1)):
+        state = trun.init_state(cfg, "cuda")
+        before = state.clone()
+        tfused.BINDINGS["multipaxos"] = dataclasses.replace(binding, arms=lambda f, arms=arms: arms)
+        try:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tfused._launch("multipaxos", state, 1, config_plan(gray, 1), cfg.fault, 8, 256, 0, False)
+        finally:
+            tfused.BINDINGS["multipaxos"] = binding
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+    stale = gray_knob_configs(1024, 1, "multipaxos")["config_stale"]
+    bare = trun.init_state(dataclasses.replace(stale, fault=gray.fault), "cuda")
+    assert not bare.snapshots
+    with pytest.raises(ValueError, match="snapshot"):
+        wrapper(bare, 1, config_plan(stale, 1), stale.fault, 8)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tfused._launch("multipaxos", bare, 1, config_plan(stale, 1), stale.fault, 8, 256, 0, False)
+    for small in (
+        dataclasses.replace(gray, n_acc=3),
+        dataclasses.replace(gray, k_slots=8),
+        dataclasses.replace(TC.config_gray_chaos(1024, 1), protocol="multipaxos"),
+    ):
+        state = trun.init_state(small, "cuda")
+        before = state.clone()
+        with pytest.raises(ValueError, match="instantiated"):
+            wrapper(state, 1, config_plan(small, 1), small.fault, 8)
+        _assert_same(state, before)
+    assert wrapper.launches == launches
+    assert tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 1)) >= 2
+
+
+@pytest.mark.cuda
+def test_mp_knobs_match_plain_on_cuda():
+    """K5 against the plain tick on the knobs no main path sets (ROADMAP
+    C1): config3's cell without crash windows, with p_dup 0.2, with q1/q2
+    2/4, and with ballot_stride 3, backoff_max 3 and timeout 5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    for cfg in mp_knob_configs(4096, 10).values():
+        plan = trun.init_plan(cfg, "cuda")
+        plain = trun.init_state(cfg, "cuda")
+        kern = plain.clone()
+        for _ in range(2):
+            plain = plain_chunk(cfg, plain, plan, 100, 256)
+            kern = tfused.fused_multipaxos_chunk(kern, cfg.seed, plan, cfg.fault, 100)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)

@@ -26,7 +26,7 @@ from paxos_tpu_torch import interop
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN_CONFIG2 = "db6db6f40f16eb7b"  # tests/test_gray.py _GOLDEN_CTR["config2"]
 LIMIT = (1 << 15) - 1

@@ -37,7 +37,7 @@ from paxos_tpu_torch.kernels import counter_prng as tcp
 from paxos_tpu_torch.kernels import fused_tick as tfused
 from paxos_tpu_torch.protocols import paxos as tpaxos
 from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 N = 256
 GOLDEN = "72beea3ccdacab94"  # tests/test_gray.py _GOLDEN_CTR["fastpaxos"]

@@ -38,7 +38,7 @@ from paxos_tpu_torch.core.state import PaxosState
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import build
 from paxos_tpu_torch.kernels import fused_tick as tfused
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 FR = ("paxos", "fastpaxos", "raftcore")
 STATES = {"paxos": PaxosState, "fastpaxos": FastPaxosState, "raftcore": RaftState}

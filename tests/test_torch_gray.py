@@ -31,7 +31,7 @@ from paxos_tpu.kernels.fused_tick import reference_chunk as j_reference_chunk
 from paxos_tpu_torch import interop
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 N, TICKS, SEED = 512, 96, 12
 CONFIGS = chip_smoke.gray_knob_configs(N, SEED)

@@ -18,6 +18,7 @@ import jax
 import numpy as np
 
 import chip_smoke
+from _torch_jax import one_core  # noqa: F401  (autouse: one core)
 from paxos_tpu.harness import config as JC
 from paxos_tpu.harness.run import init_plan as j_init_plan
 from paxos_tpu.harness.run import init_state as j_init_state

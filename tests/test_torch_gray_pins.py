@@ -28,7 +28,7 @@ from paxos_tpu.harness.run import init_plan as j_init_plan
 from paxos_tpu_torch import interop
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness.run import run
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 
 def _configs(name):

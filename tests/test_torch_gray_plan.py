@@ -10,7 +10,8 @@ package samples for a config lighting any subset of the optional fields
 the config, and ``FaultPlan.none(cfg=)`` must have the JAX package's
 benign leaves; a ``stale_k`` state carries the snapshot shadows as the
 JAX package's does; and ``check_supported`` must take every gray knob on
-the Paxos tick and refuse it, naming ROADMAP item 12, on the four others.
+the Paxos, Fast Paxos, Raft-core and Multi-Paxos ticks and refuse it,
+naming ROADMAP item 12, on SynchPaxos.
 """
 
 import dataclasses
@@ -31,7 +32,7 @@ from paxos_tpu_torch.faults.injector import OPTIONAL_FIELDS, FaultConfig, FaultP
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
 from paxos_tpu_torch.protocols import paxos as tpaxos
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 
 def _np_leaves(tree):
@@ -127,10 +128,10 @@ def test_plan_leaves_round_trip_every_optional_subset(subset):
 @pytest.mark.parametrize("protocol", ["paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos"])
 def test_check_supported_takes_the_gray_knobs_on_paxos_only(protocol):
     """Each gray-failure and partition knob is legal on the Paxos, Fast
-    Paxos and Raft-core ticks and raises on SynchPaxos and Multi-Paxos,
-    naming ROADMAP item 12; ``run`` refuses it on those two too, before any
-    state is built."""
-    assert tpaxos.GRAY_PROTOCOLS == ("paxos", "fastpaxos", "raftcore")
+    Paxos, Raft-core and Multi-Paxos ticks and raises on SynchPaxos, naming
+    ROADMAP item 12; ``run`` refuses it there too, before any state is
+    built."""
+    assert tpaxos.GRAY_PROTOCOLS == ("paxos", "fastpaxos", "raftcore", "multipaxos")
     for knob in tpaxos.GRAY_KNOBS:
         default = getattr(FaultConfig(), knob)
         value = True if isinstance(default, bool) else (8 if isinstance(default, int) else 0.3)

@@ -25,7 +25,7 @@ from paxos_tpu_torch import interop
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 FLOAT_FIELDS = ("chosen_frac", "mean_choose_tick", "decided_frac", "replicated_frac")
 

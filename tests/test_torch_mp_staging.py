@@ -6,7 +6,10 @@ per instantiation that the wrapper passes to it (lanes a CUDA block, staged
 rows, shared bytes).  The rows are held against the port's own
 ``MultiPaxosState`` leaf shapes, the geometry against the card's limits,
 and the table against the instantiations and the column order of
-``csrc/fused_multipaxos_tick.cu``.
+``csrc/fused_multipaxos_tick.cu``.  A table key is (n_prop, n_acc,
+log_len, k_slots, arms): the gray-failure and partition arms are an
+instantiation of their own at config3's shape, with its default's
+column.
 """
 
 import dataclasses
@@ -42,11 +45,11 @@ def _rows(state, path):
 
 @pytest.mark.parametrize("shape,staging", TABLES, ids=IDS)
 def test_staged_rows_match_the_state_leaves(shape, staging):
-    n_prop, n_acc, log_len, k_slots = shape
+    n_prop, n_acc, log_len, k_slots, _ = shape
     state = MultiPaxosState.init(3, n_prop, n_acc, log_len, k_slots)
     leaves = tfused.MP_STAGED_LEAVES + ((tfused.MP_PROM_LEAF,) if staging.stage_prom else ())
     rows = sum(_rows(state, path) for path in leaves)
-    assert staging.rows == rows == tfused.mp_staged_rows(*shape, staging.stage_prom)
+    assert staging.rows == rows == tfused.mp_staged_rows(*shape[:4], staging.stage_prom)
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -57,15 +60,19 @@ def test_staged_rows_match_the_state_leaves(shape, staging):
 
 def test_every_instantiation_has_a_geometry():
     assert tuple(tfused.MP_STAGING) == tfused.KERNEL_SHAPES["multipaxos"]
+    # The arms instantiation: config3's shape, its default's column.
+    assert [k for k in tfused.MP_STAGING if k[-1]] == [(2, 5, 8, 4, 1)]
+    assert tfused.MP_STAGING[(2, 5, 8, 4, 1)] == tfused.MP_STAGING[(2, 5, 8, 4, 0)]
 
 
 def _instances():
-    """``K5_INSTANCES`` of the .cu, in order: (P, A, L, K, B, PROM) each."""
+    """``K5_INSTANCES`` of the .cu, in order: (P, A, L, K, ARMS, B, PROM)
+    each."""
     listed = re.search(r"#define K5_INSTANCES\(X\)(.*?)\n\n", SOURCE, re.S).group(1)
     return [
-        (int(p), int(a), int(l), int(k), int(b), s == "true")
-        for p, a, l, k, b, s in re.findall(
-            r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (true|false)\)", listed
+        (int(p), int(a), int(l), int(k), int(r), int(b), s == "true")
+        for p, a, l, k, r, b, s in re.findall(
+            r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (true|false)\)", listed
         )
     ]
 
@@ -77,12 +84,15 @@ def test_source_instantiates_the_table():
 
 
 def test_source_instantiates_each_shape_once():
-    """The C entry point picks the instantiation by the shape alone, so no
-    shape may have two geometries."""
-    shapes = [inst[:4] for inst in _instances()]
+    """The C entry point picks the instantiation by the shape and the arms
+    flag alone, so no shape may have two geometries."""
+    shapes = [inst[:5] for inst in _instances()]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES["multipaxos"])
-    assert "dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_)" in SOURCE
-    assert "n_dims != 5" in SOURCE and "const int smem = dims[4];" in SOURCE
+    assert (
+        "dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_ && dims[4] == R_)"
+        in SOURCE
+    )
+    assert "n_dims != 6" in SOURCE and "const int smem = dims[5];" in SOURCE
 
 
 def test_source_column_order_matches_the_leaves():
@@ -101,7 +111,7 @@ def test_source_column_order_matches_the_leaves():
         assert [off for _, _, off, _ in calls] == [leaf for _, _, _, leaf in calls]
         assert [kind for kind, _, _, leaf in calls if names[leaf] == tfused.MP_PACKED_LEAF] == ["masks"]
         for shape, _ in TABLES:
-            n_prop, n_acc, log_len, k_slots = shape
+            n_prop, n_acc, log_len, k_slots, _ = shape
             state = MultiPaxosState.init(3, n_prop, n_acc, log_len, k_slots)
             env = {"P": n_prop, "A": n_acc, "LOG": log_len, "K": k_slots}
             for kind, args, _, leaf in calls:
@@ -130,4 +140,4 @@ def test_occupancy_query_needs_the_kernel_build(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4))
+        tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 0))

@@ -36,7 +36,7 @@ from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import counter_prng as tcp
 from paxos_tpu_torch.kernels import fused_tick as tfused
 from paxos_tpu_torch.protocols.multipaxos import apply_tick_mp, mp_counter_masks
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = "4b6525460815d9c5"  # tests/test_gray.py _GOLDEN_CTR["config3"]
 N = 256

@@ -20,7 +20,7 @@ from paxos_tpu_torch.faults import injector as tinj
 from paxos_tpu_torch.kernels import counter_prng as tcp
 from paxos_tpu_torch.kernels import quorum as tquorum
 from paxos_tpu_torch.utils import bitops as tbitops
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 RNG_SEED = 20261016
 

@@ -28,7 +28,7 @@ from paxos_tpu_torch import interop
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FLOAT_FIELDS = ("chosen_frac", "mean_choose_tick", "decided_frac")

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 
 import chip_smoke
-from _torch_jax import jax_plan_of, one_torch_thread  # noqa: F401  (autouse)
+from _torch_jax import jax_plan_of, one_core, one_torch_thread  # noqa: F401  (autouse)
 from paxos_tpu.harness import config as JC
 from paxos_tpu.harness.run import init_state as _jax_init_state
 from paxos_tpu.kernels.fused_tick import fused_fns

@@ -27,7 +27,7 @@ from paxos_tpu.kernels.fused_tick import reference_chunk as j_reference_chunk
 from paxos_tpu_torch import interop
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 N, TICKS = 256, 96
 FLOAT_FIELDS = ("chosen_frac", "mean_choose_tick", "decided_frac")

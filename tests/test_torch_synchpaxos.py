@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from _torch_jax import jax_plan_of, one_torch_thread  # noqa: F401  (autouse)
+from _torch_jax import jax_plan_of, one_core, one_torch_thread  # noqa: F401  (autouse)
 from paxos_tpu.core.messages import MsgBuf as JMsgBuf
 from paxos_tpu.faults.injector import FaultConfig as JFaultConfig
 from paxos_tpu.harness import config as JC

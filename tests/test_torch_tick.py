@@ -28,7 +28,7 @@ from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.kernels import counter_prng as tcp
 from paxos_tpu_torch.protocols import paxos as tpaxos
 from paxos_tpu_torch.transport import inmemory as tnet
-from _torch_jax import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+from _torch_jax import one_core, one_torch_thread  # noqa: F401  (autouse)
 
 N = 256
 CONFIGS = {
