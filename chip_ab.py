@@ -27,8 +27,9 @@ The path ``ceiling`` times K6 (``phase_ceiling``) instead.  A source whose
 C entry takes no shared bytes (a kernel before its column redesign) is
 launched without them; sources from before the gray-failure and partition
 arms get the parameters and plan leaves their ``fused_common.cuh`` reads
-(``kParams``, ``kPlanLeaves``), and a kernel without its arms its default
-instantiations only.  Prints the card's name and power limit, then as
+(``kParams``, ``kPlanLeaves``), a kernel without its arms its default
+instantiations only, and a K1 without its bounded-delay channel its
+unstamped ones only.  Prints the card's name and power limit, then as
 its last line one JSON object of every measurement.
 """
 
@@ -54,8 +55,9 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
     """Point the build at ``csrc`` and the bindings at what its sources
     take: the shared bytes in ``dims`` where the C entry reads them, a
     phase-clock build where the kernel marks its phases, the parameters
-    and plan leaves its ``fused_common.cuh`` reads, and the arms
-    instantiations of K1 to K3 and K5 where their sources have them."""
+    and plan leaves its ``fused_common.cuh`` reads, the arms instantiations
+    where a kernel's source has them, and K1's stamped ones where its source
+    has them."""
     from paxos_tpu_torch.kernels import build, int32_ceiling
     from paxos_tpu_torch.kernels import fused_tick as tf
 
@@ -77,12 +79,25 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
         src = (csrc / f"{binding.kernel}.cu").read_text()
         staged = "const int smem = dims[" in src
         staging = binding.staging if staged else None
+        if "stamped" in binding.shape_fields and not re.search(r"dims\[\d\]( != 0\))? == S_", src):
+            # A kernel without the stamps flag (K1 before its bounded-delay
+            # channel): its unstamped instantiations, keyed without the flag.
+            at = binding.shape_fields.index("stamped")
+            staging = staging and {
+                k[:at] + k[at + 1:]: v for k, v in staging.items() if k[at] == 0
+            }
+            tf.KERNEL_SHAPES[protocol] = tuple(
+                k[:at] + k[at + 1:] for k in _WRAPPER["shapes"][protocol] if k[at] == 0
+            )
+            binding = dataclasses.replace(
+                binding, shape_fields=tuple(f for f in binding.shape_fields if f != "stamped")
+            )
         if binding.arms is not None and not re.search(r"dims\[\d\] == R_", src):
             # A kernel without the arms: its default instantiations, keyed
             # by shape (the arms flag is the key's last field).
             staging = staging and {k[:-1]: v for k, v in staging.items() if k[-1] == 0}
             tf.KERNEL_SHAPES[protocol] = tuple(
-                k[:-1] for k in _WRAPPER["shapes"][protocol] if k[-1] == 0
+                k[:-1] for k in tf.KERNEL_SHAPES[protocol] if k[-1] == 0
             )
             binding = dataclasses.replace(binding, arms=None)
         tf.BINDINGS[protocol] = dataclasses.replace(binding, staging=staging)

@@ -31,10 +31,13 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    and Raft-core with duplicates and a ballot stride (Paxos and Fast Paxos
    also with uneven quorums), Multi-Paxos with duplicates, uneven quorums
    and a ballot stride (:func:`mp_knob_configs`), the gray-failure and
-   partition arms of K1, K2, K3 and K5 on each knob alone and on the
-   configs that set them (K2, K3 and K5 also on every knob at once;
-   :func:`gray_knob_configs`; K5 also on the JAX package's own two cases
-   of tests/test_gray.py), and at full width
+   partition arms of K1 to K5 on each knob alone and on the configs that
+   set them (K2 to K5 also on every knob at once, K4's with its stamps,
+   and K4 on delay across a cut in every lane; :func:`gray_knob_configs`;
+   K5 also on the JAX package's own two cases of tests/test_gray.py), K1's
+   bounded-delay channel on config_delay_chaos in both regimes, with drops
+   and duplicates, across a cut, and with every gray knob
+   (:func:`delay_knob_configs`), and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
    draws of the timed ticks counted by each kernel's measuring build for
@@ -49,18 +52,21 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
    window, compacted after every chunk), SynchPaxos on
-   config_delay_chaos (bounded delay; its fast-path rate is printed), and
+   config_delay_chaos (bounded delay; its fast-path rate is printed),
    config_gray_chaos's fault config (one-way partitions, flaky links, timer
-   skew) on Paxos, Fast Paxos, Raft-core and config3's Multi-Paxos cell (the
-   arms instantiations of K1, K2, K3 and K5; the last through
-   ``run(..., liveness=True)``, its liveness block printed), at
+   skew) on Paxos, Fast Paxos, Raft-core, config3's Multi-Paxos cell and
+   config_delay_chaos's SynchPaxos cell (the arms instantiations of K1 to
+   K5; the last two through ``run(..., liveness=True)``, their liveness
+   blocks printed), and config_delay_chaos on Paxos (K1's stamped
+   instantiation), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
    deterministic over 3 repeats, no violations; the two lowest-numbered
    stream blocks that evicted must equal, digest for digest, what the JAX
    package computes for them (``EVICTION_PINS``, checked by
-   tests/test_torch_evictions.py); then once more under torch.profiler
+   tests/test_torch_evictions.py and the files named there), and so must
+   stream block 0 of most paths (``BLOCK0_DIGESTS``); then once more under torch.profiler
    for the device's busy and idle time;
 6. checker: config4's equivocation, an unsafe Fast Flexible Paxos quorum
    triple, Raft-core equivocation and Multi-Paxos equivocation must each
@@ -70,11 +76,12 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    (``SP_CHECKER_DISAGREE``); Paxos' bug injections, payload
    corruption, stale-snapshot recovery and unsafe Flexible Paxos quorums,
    must each report violations; and payload corruption and stale-snapshot
-   recovery on Fast Paxos and Raft-core (K2's and K3's arms) the
-   violations of the plain tick and of the JAX package
-   (``FR_CHECKER_VIOLATIONS``), stale recovery's summed over Paxos and
-   Fast Paxos as the JAX package's pin sums it (``STALE_SUM``), and so on
-   config3's cell (K5's arms, ``MP_GRAY_CHECKER_VIOLATIONS``).
+   recovery on Fast Paxos, Raft-core
+   and SynchPaxos (K2's, K3's and K4's arms) the violations of the plain
+   tick and of the JAX package (``FR_CHECKER_VIOLATIONS``), stale
+   recovery's summed over Paxos and Fast Paxos as the JAX package's pin
+   sums it (``STALE_SUM``), and so on config3's cell (K5's arms,
+   ``MP_GRAY_CHECKER_VIOLATIONS``).
 
 Configs with crash windows, equivocators, link delays, partitions or the
 gray-failure plan fields run on plans drawn here from numpy
@@ -125,10 +132,10 @@ LONG_TICKS = 1024  # config3-long: 16 compactions
 class MainPath:
     """A main path: its protocol and ticks, its config (a function of
     ``harness/config.py``, and the config's index where that returns a
-    sweep; ``fault``: the config function whose fault config replaces the
-    config's, as the JAX package's audit puts a fault config on every
-    protocol), and the census case (``ROOFLINE.json``) of the estimate
-    printed beside its kernel's bound.
+    sweep, run on the path's protocol; ``fault``: the config function whose
+    fault config replaces the config's, as the JAX package's audit puts a
+    fault config on every protocol), and the census case (``ROOFLINE.json``)
+    of the estimate printed beside its kernel's bound.
     ``compact``: decided prefixes compact out after every chunk.
     ``fast_path``: the path's fast-path rate (SynchPaxos) is printed.
     ``liveness``: the path runs through ``run(..., liveness=True)``, and its
@@ -175,6 +182,13 @@ MAIN_PATHS = {
         "multipaxos", MAIN_TICKS, "config3_multipaxos", "graychaos-multipaxos",
         compare_chunks=2, fault="config_gray_chaos", liveness=True,
     ),
+    "graychaos-synchpaxos": MainPath(
+        "synchpaxos", MAIN_TICKS, "config_delay_chaos", "graychaos-synchpaxos", fast_path=True,
+        compare_chunks=2, fault="config_gray_chaos", liveness=True,
+    ),
+    "delaychaos-paxos": MainPath(
+        "paxos", MAIN_TICKS, "config_delay_chaos", "delaychaos-paxos", compare_chunks=2,
+    ),
 }
 # The report keys of the liveness block (harness.run.summarize(liveness=)).
 LIVENESS_KEYS = ("decided_by_curve", "chosen_tick_hist", "hist_bin_width", "stuck_lanes")
@@ -199,16 +213,22 @@ EVICTION_PINS = {
     ),
     "graychaos-raftcore": (0, {}),
     "graychaos-multipaxos": (0, {}),
+    "graychaos-synchpaxos": (
+        52, {138: ([769], "87311d95168824ae"), 188: ([479], "9025712b1c6682d1")}
+    ),
+    "delaychaos-paxos": (1, {709: ([162], "252e7af2de48f22d")}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
-# SynchPaxos one and the four gray-chaos ones, as the JAX package computes
-# it (tests/test_torch_evictions.py, tests/test_torch_gray_evictions.py,
-# tests/test_torch_fr_gray_evictions.py, tests/test_torch_mp_gray_pins.py).
+# SynchPaxos ones, the gray-chaos ones and delaychaos-paxos, as the JAX
+# package computes it (tests/test_torch_evictions.py,
+# tests/test_torch_gray_evictions.py, tests/test_torch_fr_gray_evictions.py,
+# tests/test_torch_mp_gray_pins.py, tests/test_torch_delay_gray_pins.py).
 BLOCK0_DIGESTS = {
     "config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d",
     "synchpaxos": "77bdd097d024b69b", "graychaos": "92c059e4a486f4a2",
     "graychaos-fastpaxos": "1be08342ba47756d", "graychaos-raftcore": "8e15a5b6acc869d0",
-    "graychaos-multipaxos": "3488379663f97567",
+    "graychaos-multipaxos": "3488379663f97567", "graychaos-synchpaxos": "ec7f809a37d50f00",
+    "delaychaos-paxos": "7b1972db532f308e",
 }
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
@@ -220,20 +240,23 @@ MP_CHECKER_VIOLATIONS = 1043
 # reference reports (tests/test_torch_synchpaxos.py).
 SP_CHECKER_TICKS = 256
 SP_CHECKER_DISAGREE = 15
-# The bug injections on Fast Paxos and Raft-core (the arms of K2 and K3):
+# The bug injections on Fast Paxos, Raft-core and SynchPaxos (the arms of
+# K2, K3 and K4):
 # (config, protocol, lanes, seed, ticks) -> the violations the JAX
 # package's fused stream gives on config_plan(cfg, seed), a stream block of
 # 1024 lanes at a time (tests/test_torch_fr_gray_pins.py computes them):
 # payload corruption at the JAX package's pin size, stale-snapshot recovery
 # at its tests/test_gray.py pin (4096 lanes, seed 3, 192 ticks), which sums
-# Paxos and Fast Paxos (STALE_SUM).  Raft-core's stale recovery breaks
-# agreement at this size in neither package.
+# Paxos and Fast Paxos (STALE_SUM).  Raft-core's and SynchPaxos' stale
+# recovery breaks agreement at this size in neither package.
 FR_CHECKER_VIOLATIONS = {
     ("config_corrupt", "fastpaxos", 1024, 0, 256): 45,
     ("config_corrupt", "raftcore", 1024, 0, 256): 514,
+    ("config_corrupt", "synchpaxos", 1024, 0, 256): 109,
     ("config_stale", "paxos", 4096, 3, 192): 0,
     ("config_stale", "fastpaxos", 4096, 3, 192): 27,
     ("config_stale", "raftcore", 4096, 3, 192): 0,
+    ("config_stale", "synchpaxos", 4096, 3, 192): 0,
 }
 STALE_SUM = 27  # config_stale(4096, 3) over 192 ticks: Paxos plus Fast Paxos
 # The same bug injections' fault configs on config3's cell (K5's arms):
@@ -286,13 +309,16 @@ MASK_CENSUS = {
     "graychaos-fastpaxos": (1578.056640625, 127.0),
     "graychaos-raftcore": (1578.056640625, 127.0),
     "graychaos-multipaxos": (1371.265625, 109.0),
+    "graychaos-synchpaxos": (1578.056640625, 127.0),
+    "delaychaos-paxos": (1883.078125, 147.0),
 }
 # Census cases that ROOFLINE.json does not hold, recorded here with the
-# same keys: scripts/roofline.py tick_census(config_delay_chaos(1024), 1024),
-# which gives the same figures for violate_delta, and
-# tick_census(config_gray_chaos(1024), 1024) on Paxos, on Fast Paxos and
-# Raft-core (config5's cells with config_gray_chaos's fault config), and
-# at 256 on Multi-Paxos (config3's cell with it)
+# same keys: scripts/roofline.py tick_census(config_delay_chaos(1024), 1024)
+# on SynchPaxos, which gives the same figures for violate_delta, and on
+# Paxos, and tick_census(config_gray_chaos(1024), 1024) on Paxos, on Fast
+# Paxos, Raft-core and SynchPaxos (config5's cells and config_delay_chaos's
+# with config_gray_chaos's fault config), and at 256 on Multi-Paxos
+# (config3's cell with it)
 # (tests/test_torch_census.py recomputes them with the JAX package).
 CENSUS_CASES = {
     "delaychaos-synchpaxos": {
@@ -325,6 +351,18 @@ CENSUS_CASES = {
         "reduce_per_lane_tick": 912.0, "state_bytes_per_lane": 904.0,
         "unpacked_bytes_per_lane": 1400.0,
     },
+    "graychaos-synchpaxos": {
+        "case": "graychaos-synchpaxos", "block": 1024,
+        "alu_per_lane_tick": 4218.0888671875, "codec_alu_per_lane_tick": 881.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 356.0,
+        "unpacked_bytes_per_lane": 765.0,
+    },
+    "delaychaos-paxos": {
+        "case": "delaychaos-paxos", "block": 1024,
+        "alu_per_lane_tick": 4703.1259765625, "codec_alu_per_lane_tick": 881.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 516.0,
+        "unpacked_bytes_per_lane": 925.0,
+    },
 }
 # SLOT_CENSUS (Multi-Paxos): the share of the slot-indexed arrays (log,
 # PROMISE payloads, recovery rows, learner table, chosen values and ticks),
@@ -338,15 +376,16 @@ SLOT_CENSUS = {
     "config3long-multipaxos": (8450.0, 448.0),
     "graychaos-multipaxos": (4225.0, 224.0),
 }
-# STAMP_CENSUS (SynchPaxos with delay): the share of the delay stamps
-# (the stamp draw, the readiness compares and the stamp writes), which the
-# vectorised tick computes for all 40 stamp elements every tick and K4
-# only where it reads a stamp that may have come due or writes one: the
-# census of the config less that of the same config with p_delay 0, net
-# of the mask shares of both, (operations per lane-tick, stamp elements
-# per lane).
+# STAMP_CENSUS (SynchPaxos and Paxos with delay): the share of the delay
+# stamps (the stamp draw, the readiness compares and the stamp writes),
+# which the vectorised tick computes for all 40 stamp elements every tick
+# and K4 and K1 only where they read a stamp that may have come due or
+# write one: the census of the config less that of the same config with
+# p_delay 0, net of the mask shares of both, (operations per lane-tick,
+# stamp elements per lane).
 STAMP_CENSUS = {
     "delaychaos-synchpaxos": (820.015625, 40.0),
+    "delaychaos-paxos": (800.015625, 40.0),
 }
 # Per census case, the share of the state elements a kernel touches in
 # global memory: the estimate counts the touches its measuring build
@@ -438,6 +477,8 @@ def main_config(path: str, n_inst: int = FULL_LANES, seed: int = 0):
     mp = MAIN_PATHS[path]
     cfg = getattr(C, mp.config)(n_inst, seed)
     cfg = cfg if mp.sweep_index is None else cfg[mp.sweep_index]
+    if cfg.protocol != mp.protocol:  # a config function of another protocol, on this one
+        cfg = dataclasses.replace(cfg, protocol=mp.protocol)
     if mp.fault is not None:
         cfg = dataclasses.replace(cfg, fault=getattr(C, mp.fault)(n_inst, seed).fault)
     return cfg
@@ -777,7 +818,6 @@ def compare(
     from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, PHASES, draw_census
     from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
-    from paxos_tpu_torch.protocols.paxos import GRAY_PROTOCOLS
 
     def after(st):
         return compact_mp_body(st)[0] if compact else st
@@ -863,10 +903,9 @@ def compare(
         read = ["crash_start", "crash_end", "equivocate"]
         if cfg.protocol == "multipaxos":
             read += ["pcrash_start", "pcrash_end"]
-        if plan.link_delay is not None:  # K4 reads the latency caps
+        if plan.link_delay is not None:  # K1's and K4's stamped instantiations read the caps
             read += ["link_delay"]
-        if cfg.protocol in GRAY_PROTOCOLS:  # the arms read the partition and gray leaves
-            read += gray_plan_reads(cfg.fault)
+        read += gray_plan_reads(cfg.fault)  # the arms read the partition and gray leaves
         plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
         # Each lane's state read and written once, its plan read once; but a
         # lane K1 settles at the timed chunks' entry (counted on their last
@@ -915,8 +954,8 @@ def compare(
 
 
 def gray_plan_reads(fault) -> list:
-    """The partition and gray-failure plan leaves the arms of K1, K2, K3
-    and K5 read for ``fault``: the partition windows and sides where
+    """The partition and gray-failure plan leaves the arms of K1 to K5
+    read for ``fault``: the partition windows and sides where
     ``p_part`` > 0, and the optional fields its knobs put in the plan."""
     from paxos_tpu_torch.faults.injector import optional_fields
 
@@ -1019,12 +1058,17 @@ def phase_compare(ceiling: float) -> dict:
     for protocol in ("paxos", "fastpaxos", "raftcore"):
         for name, cfgk in fr_knob_configs(protocol, 4096, 10).items():
             compare(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
-    # The gray-failure and partition arms of K1, K2, K3 and K5: each knob
-    # alone and the configs that set them, over two chunks.
+    # The gray-failure and partition arms of K1 to K5: each knob alone and
+    # the configs that set them, over two chunks.
     for protocol in GRAY_PROTOCOLS:
         for name, cfgk in gray_knob_configs(4096, 12, protocol).items():
             shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
             compare(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
+    # K1's bounded-delay channel (its stamped instantiations), over two
+    # chunks.
+    for name, cfgk in delay_knob_configs(4096, 14).items():
+        shape = ",".join(map(str, BINDINGS["paxos"].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
+        compare(f"paxos ({shape}) {name}", cfgk, config_plan(cfgk, cfgk.seed), 96, chunks=2)
     # K5's arms on the JAX package's own fused-kernel cases
     # (tests/test_gray.py): every gray knob with crash windows on config3 at
     # 64 lanes, seed 5, 24 ticks in one stream block, and flaky links at
@@ -1436,9 +1480,23 @@ def gray_knob_configs(n_inst: int, seed: int, protocol: str = "paxos") -> dict:
     on the config5 cell (``GRAY_ALL``).  Multi-Paxos takes each case's fault
     config on config3's cell (K5 packs at most 4 voter masks a slot, and
     the Paxos configs' learner tables have 8 rows), and every knob at once
-    on it."""
+    on it.  SynchPaxos (K4) takes each case's fault config on its own cell
+    (``config_delay_chaos``'s, without its delay: unstamped), then every
+    knob at once on that cell with its delay (stamped), and the delay
+    composed with a partition in every lane (:func:`delay_cut_config`)."""
     from paxos_tpu_torch.harness import config as C
 
+    if protocol == "synchpaxos":
+        cell = main_config("synchpaxos", n_inst, seed)
+        out = {
+            name: dataclasses.replace(cell, fault=cfg.fault)
+            for name, cfg in gray_knob_configs(n_inst, seed).items() if name != "config_flex(4, 2)"
+        }
+        out["every gray knob, stamped"] = dataclasses.replace(
+            cell, fault=dataclasses.replace(cell.fault, **GRAY_ALL)
+        )
+        out["delay across a cut, stamped"] = delay_cut_config("synchpaxos", n_inst, seed)
+        return out
     if protocol == "multipaxos":
         cell = main_config("config3", n_inst, seed)
         out = {
@@ -1487,6 +1545,53 @@ def gray_knob_configs(n_inst: int, seed: int, protocol: str = "paxos") -> dict:
     return out
 
 
+def delay_config(protocol: str, n_inst: int, seed: int, **knobs):
+    """The JAX package's tests/test_delay.py ``delay_cfg``: 2 proposers, 5
+    acceptors, p_delay 0.6 and delay_max 3 unless ``knobs`` say otherwise,
+    every other knob at its default."""
+    from paxos_tpu_torch.faults.injector import FaultConfig
+    from paxos_tpu_torch.harness.config import SimConfig
+
+    knobs = {"p_delay": 0.6, "delay_max": 3, **knobs}
+    return SimConfig(
+        n_inst=n_inst, n_prop=2, n_acc=5, seed=seed, protocol=protocol, fault=FaultConfig(**knobs)
+    )
+
+
+def delay_cut_config(protocol: str, n_inst: int, seed: int):
+    """Delay across a partition in every lane, loss off
+    (tests/test_delay.py ``test_delay_conservation_across_cut_and_heal``):
+    every message is delivered in the end, so every lane decides."""
+    return delay_config(
+        protocol, n_inst, seed, p_part=1.0, part_max_start=8, part_max_len=8, timeout=6
+    )
+
+
+def delay_knob_configs(n_inst: int, seed: int) -> dict:
+    """The cases of K1's bounded-delay channel (its stamped
+    instantiations): ``config_delay_chaos`` on Paxos in both delay regimes,
+    delay with drops and duplicates (tests/test_delay.py
+    ``test_delay_composes_with_drop_safely``, its own seed 1), delay across a
+    cut in every lane (:func:`delay_cut_config`), and every gray knob at
+    once on the flagship cell with p_delay 0.4 (the last two on the arms)."""
+    from paxos_tpu_torch.harness import config as C
+
+    flag = main_config("paxos", n_inst, seed)
+    return {
+        "config_delay_chaos": main_config("delaychaos-paxos", n_inst, seed),
+        "config_delay_chaos violate_delta": dataclasses.replace(
+            C.config_delay_chaos(n_inst, seed, violate_delta=True), protocol="paxos"
+        ),
+        "delay with drops and duplicates": delay_config(
+            "paxos", n_inst, 1, p_drop=0.15, p_dup=0.1, p_delay=0.5, delay_max=4, timeout=6
+        ),
+        "delay across a cut": delay_cut_config("paxos", n_inst, seed),
+        "every gray knob, p_delay 0.4": dataclasses.replace(
+            flag, fault=dataclasses.replace(flag.fault, **GRAY_ALL, p_delay=0.4)
+        ),
+    }
+
+
 def sp_checker_config(n_inst: int = 1024):
     """config_delay_chaos at seed 3 with delta violated, the planted
     sp_unsafe_fast bug and p_drop 0.4."""
@@ -1533,13 +1638,26 @@ def mp_knob_configs(n_inst: int, seed: int) -> dict:
 
 
 def arms_ptxas(lines: list, protocol: str) -> list:
-    """The ``ptxas`` lines of ``protocol``'s arms instantiation (K1 to K3,
+    """The ``ptxas`` lines of ``protocol``'s arms instantiation (K2, K3,
     K5: the entry function that takes a ``Gray``, and the two lines after
     it)."""
     for k, line in enumerate(lines):
         if "entry function" in line and f"fused_{protocol}_kernel" in line and "Gray" in line:
             return lines[k:k + 3]
     raise AssertionError(f"no ptxas report of the {protocol} kernel's arms instantiation")
+
+
+def instantiation_ptxas(lines: list, protocol: str, shape: tuple) -> list:
+    """The ``ptxas`` lines of the instantiation ``shape`` of K1 or K4
+    (``(n_prop, n_acc, k_slots, stamped, arms)``): the entry function whose
+    mangled template arguments start with the shape and the stamps flag,
+    with a ``Gray`` exactly where ``arms``."""
+    p, a, k, stamped, arms = shape
+    head = f"fused_{protocol}_kernelILi{p}ELi{a}ELi{k}ELb{stamped}E"
+    for j, line in enumerate(lines):
+        if "entry function" in line and head in line and ("Gray" in line) == bool(arms):
+            return lines[j:j + 3]
+    raise AssertionError(f"no ptxas report of the {protocol} kernel's instantiation {shape}")
 
 
 def card_line() -> str:
@@ -1607,7 +1725,10 @@ def main() -> int:
             "main_path_fast_path_rate": main_paths[path].get("fast_path_rate"),
             "main_path_eviction_block_digests": main_paths[path]["eviction_block_digests"],
             "main_path_profile": profiles[path],
-            "ptxas": arms_ptxas(ptxas, mp.protocol) if binding.arms and shape[-1] else ptxas,
+            "ptxas": (
+                instantiation_ptxas(ptxas, mp.protocol, shape) if "stamped" in binding.shape_fields
+                else arms_ptxas(ptxas, mp.protocol) if binding.arms and shape[-1] else ptxas
+            ),
         }
         if first and mp.protocol in geometry:
             entry["instantiations"] = geometry[mp.protocol]  # threads, smem_bytes, blocks_per_sm each

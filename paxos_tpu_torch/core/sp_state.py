@@ -9,8 +9,9 @@ with nothing in flight and send their first PREPARE after ``timeout``.
 
 The state reuses the classic role dataclasses and the :class:`MsgBuf` wire
 format; only the init differs.  With ``delay=True`` (``p_delay > 0``) both
-buffers carry ``until`` stamps, so the state has 30 per-lane leaves instead
-of 28.
+buffers carry ``until`` stamps, and with ``stale=True`` (``stale_k > 0``)
+the acceptors their snapshot shadows, so the state has 30, 31 or 33
+per-lane leaves instead of 28.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ class SynchPaxosState(LaneState):
 
     protocol = "synchpaxos"
     takes_stamps = True
+    takes_snapshots = True
 
     acceptor: AcceptorState
     proposer: ProposerState
@@ -60,7 +62,7 @@ class SynchPaxosState(LaneState):
     @classmethod
     def init(
         cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu",
-        delay: bool = False,
+        delay: bool = False, stale: bool = False,
     ) -> "SynchPaxosState":
         check_topology(n_prop, n_acc)
         proposer = ProposerState.init(n_inst, n_prop, device)
@@ -70,7 +72,7 @@ class SynchPaxosState(LaneState):
         proposer.phase[0] = FAST
         proposer.phase[1:] = P1
         return cls(
-            acceptor=AcceptorState.init(n_inst, n_acc, device),
+            acceptor=AcceptorState.init(n_inst, n_acc, device, stale),
             proposer=proposer,
             learner=LearnerState.init(n_inst, k, device),
             requests=MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay),

@@ -6,10 +6,11 @@ int32 or bool; NIL ballots and values are 0.
 
 ``leaves()`` returns the tensors in the reference's flatten order (flax
 field order, absent optional fields dropped), so a sha256 over the leaf
-bytes equals the reference's state digest.  A Paxos, Fast Paxos or
-Raft-core state run with ``stale_k > 0`` carries the acceptors' snapshot
-shadows, as the reference's does; the observer planes of the reference are
-not ported yet.
+bytes equals the reference's state digest.  A Paxos, Fast Paxos,
+Raft-core or SynchPaxos state run with ``stale_k > 0`` carries the
+acceptors' snapshot shadows, and a Paxos or SynchPaxos state run with
+``p_delay > 0`` its buffers' delay stamps, as the reference's does; the
+observer planes of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -257,6 +258,7 @@ class PaxosState(LaneState):
     """Full simulator state for single-decree Paxos."""
 
     protocol = "paxos"
+    takes_stamps = True
     takes_snapshots = True
 
     acceptor: AcceptorState
@@ -269,15 +271,16 @@ class PaxosState(LaneState):
     @classmethod
     def init(
         cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu",
-        stale: bool = False,
+        stale: bool = False, delay: bool = False,
     ) -> "PaxosState":
         """The initial state; ``stale`` allocates the acceptors' snapshot
-        shadows (``stale_k > 0``)."""
+        shadows (``stale_k > 0``), ``delay`` both buffers' delay stamps
+        (``p_delay > 0``; the opening PREPAREs are deliverable at once)."""
         check_topology(n_prop, n_acc)
         proposer = ProposerState.init(n_inst, n_prop, device)
         # Every proposer opens with a phase-1 broadcast: PREPARE(bal) to all
         # acceptors is in flight at tick 0.
-        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device)
+        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay)
         requests.bal[PREPARE] = proposer.bal[:, None, :]
         requests.present[PREPARE] = True
         return cls(
@@ -285,7 +288,7 @@ class PaxosState(LaneState):
             proposer=proposer,
             learner=LearnerState.init(n_inst, k, device),
             requests=requests,
-            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device),
+            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay),
             tick=torch.zeros((), dtype=torch.int32, device=device),
         )
 

@@ -147,9 +147,9 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
 
 def init_state(cfg: SimConfig, device=None) -> LaneState:
     """The protocol's initial state, as the reference's ``init_state``
-    (SynchPaxos with delay stamps when ``p_delay > 0``; Paxos, Fast Paxos,
-    Raft-core and Multi-Paxos with the acceptors' (voters') snapshot
-    shadows when ``stale_k > 0``)."""
+    (Paxos and SynchPaxos with delay stamps when ``p_delay > 0``; every
+    protocol with the acceptors' (voters') snapshot shadows when ``stale_k
+    > 0``)."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
     device = resolve_device(device)
@@ -160,7 +160,7 @@ def init_state(cfg: SimConfig, device=None) -> LaneState:
             lease_init=cfg.fault.lease_len, device=device, stale=cfg.fault.stale_k > 0,
         )
     kw = {}
-    if cfg.protocol == "synchpaxos":
+    if STATE_TYPES[cfg.protocol].takes_stamps:
         kw["delay"] = cfg.fault.p_delay > 0.0
     if STATE_TYPES[cfg.protocol].takes_snapshots:
         kw["stale"] = cfg.fault.stale_k > 0

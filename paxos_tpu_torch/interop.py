@@ -35,13 +35,12 @@ from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 
 # Per protocol: the state type, its sub-states with their leaf counts in
 # flatten order, and the trailing scalar and per-lane leaves (the tick, and
-# Multi-Paxos' base).  SynchPaxos' buffers carry a fifth leaf, the delay
-# stamps, when its config delays sends (``_STAMPED``); the acceptors of
-# Paxos, Fast Paxos, Raft-core and Multi-Paxos carry their snapshot shadows
-# (one more leaf per durable field, ``SNAPSHOT``) when its config has
-# stale_k > 0.
+# Multi-Paxos' base).  The buffers of a state type that takes stamps
+# (Paxos, SynchPaxos) carry a fifth leaf, the delay stamps, when its config
+# delays sends; the acceptors of every protocol carry their snapshot
+# shadows (one more leaf per durable field, ``SNAPSHOT``) when its config
+# has stale_k > 0.
 _SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
-_STAMPED = ((LearnerState, 8), (MsgBuf, 5), (MsgBuf, 5))
 _GROUPS = {
     "paxos": (PaxosState, ((AcceptorState, 3), (ProposerState, 9)) + _SHARED, ("tick",)),
     "synchpaxos": (
@@ -70,28 +69,30 @@ def _tensor(arr, device) -> torch.Tensor:
 
 
 def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
-    """``protocol``'s state from the reference's flattened leaves (a
-    SynchPaxos state with or without delay stamps: 31 or 29 leaves; a
-    Paxos, Fast Paxos or Raft-core state with or without snapshot shadows:
-    32 or 29; a Multi-Paxos state with or without them: 32 or 30)."""
+    """``protocol``'s state from the reference's flattened leaves: a Paxos
+    or SynchPaxos state with or without delay stamps and snapshot shadows
+    (29, 31 with stamps, 32 with shadows, 34 with both); a Fast Paxos or
+    Raft-core state with or without shadows (29 or 32); a Multi-Paxos state
+    with or without them (30 or 32)."""
     leaves = list(leaves)
     if protocol not in _GROUPS:
         raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
     state_cls, groups, tail = _GROUPS[protocol]
-    if protocol == "synchpaxos" and len(leaves) == 31:
-        groups = groups[:2] + _STAMPED
     acc_cls, n_acc_leaves = groups[0]
-    snaps = len(getattr(acc_cls, "SNAPSHOT", ()))
-    if state_cls.takes_snapshots and len(leaves) == sum(n for _, n in groups) + len(tail) + snaps:
-        groups = ((acc_cls, n_acc_leaves + snaps),) + groups[1:]
-    want = sum(n for _, n in groups) + len(tail)
-    if len(leaves) != want:
+    snaps = len(acc_cls.SNAPSHOT) if state_cls.takes_snapshots else 0
+    stamps = sum(cls is MsgBuf for cls, _ in groups) if state_cls.takes_stamps else 0
+    base = sum(n for _, n in groups) + len(tail)
+    layouts = {base + s + t: (s, t) for s in {0, snaps} for t in {0, stamps}}
+    if len(leaves) not in layouts:
         raise NotImplementedError(
-            f"state has {len(leaves)} leaves; the port holds the {want} of a "
-            f"{protocol} state with every optional plane off (snapshot "
-            "shadows on SynchPaxos, delay stamps outside SynchPaxos and "
-            "observer planes: ROADMAP queue A slice 5)"
+            f"state has {len(leaves)} leaves; the port holds a {protocol} state of "
+            f"{sorted(layouts)} (delay stamps outside Paxos and SynchPaxos: ROADMAP "
+            "queue A item 12c; observer planes: queue A slice 5)"
         )
+    s, t = layouts[len(leaves)]
+    groups = ((acc_cls, n_acc_leaves + s),) + tuple(
+        (cls, n + (cls is MsgBuf and t > 0)) for cls, n in groups[1:]
+    )
     tensors = [_tensor(leaf, device) for leaf in leaves]
     parts, k = [], 0
     for cls, n in groups:

@@ -3,9 +3,9 @@
 // layouts of the C entry points, the learner table that the single-decree
 // ticks have in common, the shared-memory column and launch of the kernels
 // that keep one per lane, the rolled selection, fenced row copy, message
-// column and column learner of the single-decree kernels and the pieces of
-// the gray-failure and partition arms of K1 to K3 and K5 (namespace sd),
-// and the phase clocks.
+// column, column learner and bounded-delay channel of the single-decree
+// kernels and the pieces of the gray-failure and partition arms of K1 to
+// K5 (namespace sd), and the phase clocks.
 //
 // Every kernel runs one thread per instance (lane) and keeps the lane's
 // scalars in registers for a whole chunk (the Multi-Paxos kernel keeps its
@@ -19,8 +19,8 @@
 // lazily, so that count is the PRNG work a run's data needs, which an
 // operation census of the tick counts in place of drawing every mask.  A
 // kernel that keeps slot-indexed arrays out of registers also counts the
-// elements it touches (Multi-Paxos its slot arrays, SynchPaxos its delay
-// stamps), for the same reason.  The
+// elements it touches (Multi-Paxos its slot arrays, Paxos and SynchPaxos
+// their delay stamps), for the same reason.  The
 // timed build compiles none of it.
 //
 // Semantics follow the plain PyTorch version bit for bit:
@@ -40,7 +40,7 @@ namespace {
 
 constexpr int kLeaves = 28;        // state leaves of a single-decree protocol, tick excluded
 constexpr int kStampedLeaves = 30;  // the same with the two buffers' delay stamps
-constexpr int kMaxLeaves = 32;     // room for every protocol's leaves
+constexpr int kMaxLeaves = 33;     // room for every protocol's leaves, stamps and shadows
 constexpr int kParams = 37;
 constexpr int kPlanLeaves = 15;
 constexpr int32_t kInt32Max = 2147483647;
@@ -77,7 +77,7 @@ struct Plan {
   const uint8_t* equivocate;    // (A, I) bool
   const int32_t* pcrash_start;  // (P, I) proposer crash window (Multi-Paxos)
   const int32_t* pcrash_end;    // (P, I)
-  const int32_t* link_delay;    // (P, A, I) per-link latency cap (SynchPaxos), or null
+  const int32_t* link_delay;    // (P, A, I) per-link latency cap (p_delay), or null
 };
 
 // A Bernoulli knob: mode 0 = off (mask absent), 1 = draw against thr,
@@ -108,8 +108,8 @@ struct Params {
   int32_t sp_unsafe_fast;  // SynchPaxos planted bug
 };
 
-// The gray-failure and partition arms of K1 to K3 and K5
-// (fused_paxos_tick.cu, fused_fastpaxos_tick.cu, fused_raftcore_tick.cu,
+// The gray-failure and partition arms of K1 to K5 (fused_paxos_tick.cu,
+// fused_fastpaxos_tick.cu, fused_raftcore_tick.cu, fused_synchpaxos_tick.cu,
 // fused_multipaxos_tick.cu): their knobs and plan leaves, a separate kernel argument of their arms instantiations only, so
 // that Plan and Params, which every kernel takes, stay as they are.  An
 // optional plan leaf is null where the plan has none.
@@ -388,14 +388,14 @@ cudaError_t read_args(void** leaves, int n_leaves, int want_leaves, void** plan,
   return cudaSuccess;
 }
 
-// A Paxos, Fast Paxos or Raft-core state with snapshot shadows (stale_k >
-// 0) arrives with them after the three acceptor (voter) leaves, in flatten
-// order; its entry point moves them last (move_snapshots_last), so that
-// SharedLeaf's indices hold, and the shadows of the three durable fields
-// are these.  A Multi-Paxos state carries two, after its two acceptor
+// A single-decree state with snapshot shadows (stale_k > 0) arrives with
+// them after the three acceptor (voter) leaves, in flatten order; its entry
+// point moves them after the state's other leaves (move_snapshots_last), so
+// that SharedLeaf's indices hold, and the shadows of the three durable
+// fields are at kSnap0 + 0..2: kLeaves, or kStampedLeaves in a state with
+// delay stamps.  A Multi-Paxos state carries two, after its two acceptor
 // leaves, moved after its own leaves alike.
-constexpr int kSnapLeaves = kLeaves + 3;
-enum SnapLeaf { kSnap0 = kLeaves, kSnap1, kSnap2 };
+constexpr int kSnap0 = kLeaves;
 constexpr int kMaxSnaps = 3;
 
 // Moves the n_snaps shadow leaves at index `at` after the state's other
@@ -407,32 +407,36 @@ void move_snapshots_last(Leaves* L, int n_base = kLeaves, int at = 3, int n_snap
   for (int k = 0; k < n_snaps; ++k) L->p[n_base + k] = snaps[k];
 }
 
-// read_args for a kernel with an arms instantiation (K1 to K3, K5): the
-// state's leaves are n_base (K1 to K3: kLeaves), or n_base + n_snaps with
-// the snapshot shadows at index `at` (moved last); `arms` is the
-// instantiation the wrapper picked, which must be the arms' exactly when a
-// knob of theirs is on, and stale_k needs the shadows.  Returns
-// cudaSuccess or cudaErrorInvalidValue.
-cudaError_t read_gray_args(bool arms, void** leaves, int n_leaves, void** plan,
-                           const long long* params, int n_params, Leaves* L, Plan* pl,
-                           Params* prm, Gray* gray, int n_base = kLeaves, int at = 3,
-                           int n_snaps = 3) {
-  if (n_snaps > kMaxSnaps) return cudaErrorInvalidValue;
-  const bool snapshots = n_leaves == n_base + n_snaps;
-  const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? n_base + n_snaps : n_base, plan,
-                                    params, n_params, L, pl, prm, false, gray);
-  if (bad != cudaSuccess) return bad;
-  if (gray->on() != arms || (gray->stale_k > 0 && !snapshots)) return cudaErrorInvalidValue;
-  if (snapshots) move_snapshots_last(L, n_base, at, n_snaps);
-  return cudaSuccess;
-}
-
 // A stamped state's leaves arrive in flatten order, each buffer's `until`
 // after its four leaves; move the two stamp leaves last (SharedLeaf).
 void move_stamps_last(Leaves* L) {
   void* rq_until = L->p[kRqBal + 4];
   for (int j = kRqBal + 4; j < kRpUntil - 1; ++j) L->p[j] = L->p[j + 1];
   L->p[kRqUntil] = rq_until;
+}
+
+// read_args for a kernel with an arms instantiation (K1 to K5): the
+// state's leaves are n_base (K1 to K4: kLeaves), plus the two delay stamps
+// where `stamped` (K1, K4), plus n_snaps snapshot shadows at index `at`,
+// which move after the rest, then the stamps last (move_stamps_last);
+// `arms` is the instantiation the wrapper picked, which must be the arms'
+// exactly when a knob of theirs is on, stale_k needs the shadows, and
+// p_delay a stamped instantiation.  Returns cudaSuccess or
+// cudaErrorInvalidValue.
+cudaError_t read_gray_args(bool arms, void** leaves, int n_leaves, void** plan,
+                           const long long* params, int n_params, Leaves* L, Plan* pl,
+                           Params* prm, Gray* gray, int n_base = kLeaves, int at = 3,
+                           int n_snaps = 3, bool stamped = false) {
+  if (n_snaps > kMaxSnaps) return cudaErrorInvalidValue;
+  const int n_state = n_base + (stamped ? kStampedLeaves - kLeaves : 0);
+  const bool snapshots = n_leaves == n_state + n_snaps;
+  const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? n_state + n_snaps : n_state,
+                                    plan, params, n_params, L, pl, prm, stamped, gray);
+  if (bad != cudaSuccess) return bad;
+  if (gray->on() != arms || (gray->stale_k > 0 && !snapshots)) return cudaErrorInvalidValue;
+  if (snapshots) move_snapshots_last(L, n_state, at, n_snaps);
+  if (stamped) move_stamps_last(L);
+  return cudaSuccess;
 }
 
 // Grid size for one thread per lane, `threads` lanes a block.
@@ -600,15 +604,15 @@ __device__ __forceinline__ void store_rows(const Column<B>& col, const Leaves& L
   for (int r = 0; r < ROWS; ++r) g[(FROM + r) * n] = col[OFF + r];
 }
 
-// A Paxos, Fast Paxos or Raft-core lane's staged rows, in column order
-// (mirrored by fused_tick.FR_STAGED_LEAVES).  Slot j = (kind * P + p) * A +
-// a of a buffer, E = P * A slots a kind.  A request's v1 is staged for every slot
-// where RV_V1 (Raft-core: a REQVOTE carries the candidate's entry term),
-// else for the kind-1 slots only; a reply's v2 for the kind-0 slots only
-// (row j).  The words the tick only ever writes as 0 get no row
-// (fused_tick.FR_ZERO_WORDS).  SynchPaxos keeps its own layout, with the
-// stamps (SpStaged).
-template <int P, int A, int K, bool RV_V1>
+// A single-decree lane's staged rows, in column order (mirrored by
+// fused_tick.FR_STAGED_LEAVES and SP_STAGED_LEAVES).  Slot j = (kind * P +
+// p) * A + a of a buffer, E = P * A slots a kind.  A request's v1 is staged
+// for every slot where RV_V1 (Raft-core: a REQVOTE carries the candidate's
+// entry term), else for the kind-1 slots only; a reply's v2 for the kind-0
+// slots only (row j); both buffers' delay stamps where STAMPED (Paxos and
+// SynchPaxos with p_delay).  The words the tick only ever writes as 0 get
+// no row (fused_tick.FR_ZERO_WORDS, SP_ZERO_WORDS).
+template <int P, int A, int K, bool RV_V1, bool STAMPED = false>
 struct SdStaged {
   static constexpr int S = 2 * P * A, E = P * A;
   static constexpr int kRqV1From = RV_V1 ? 0 : E;     // the first slot whose v1 is staged
@@ -617,7 +621,9 @@ struct SdStaged {
   static constexpr int kRpBal = kRqV1 + S - kRqV1From;  // replies.bal (2, P, A)
   static constexpr int kRpV1 = kRpBal + S;             // replies.v1 (2, P, A)
   static constexpr int kRpV2 = kRpV1 + S;              // replies.v2, kind 0
-  static constexpr int kLtBal = kRpV2 + E;             // learner.lt_bal (K)
+  static constexpr int kRqUntil = kRpV2 + E;                     // requests.until, if STAMPED
+  static constexpr int kRpUntil = kRqUntil + (STAMPED ? S : 0);  // replies.until, if STAMPED
+  static constexpr int kLtBal = kRpUntil + (STAMPED ? S : 0);    // learner.lt_bal (K)
   static constexpr int kLtVal = kLtBal + K;            // learner.lt_val (K)
   static constexpr int kLtMask = kLtVal + K;           // learner.lt_mask (K)
   static constexpr int kRows = kLtMask + K;
@@ -635,15 +641,19 @@ constexpr int kCopyUnroll = MIN_BLOCKS > 3 ? 8 : 0;
 
 // The column at the start of the chunk: every staged row, UNROLL rows of a
 // leaf at a time (load_rows).
-template <int P, int A, int K, bool RV_V1, int UNROLL, int B>
+template <int P, int A, int K, bool RV_V1, int UNROLL, int B, bool STAMPED = false>
 __device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& L, int64_t n,
                                             int64_t i) {
-  using G = SdStaged<P, A, K, RV_V1>;
+  using G = SdStaged<P, A, K, RV_V1, STAMPED>;
   load_rows<G::S, 0, G::kRqBal, UNROLL>(col, L, kRqBal, n, i);
   load_rows<G::S - G::kRqV1From, G::kRqV1From, G::kRqV1, UNROLL>(col, L, kRqV1, n, i);
   load_rows<G::S, 0, G::kRpBal, UNROLL>(col, L, kRpBal, n, i);
   load_rows<G::S, 0, G::kRpV1, UNROLL>(col, L, kRpV1, n, i);
   load_rows<G::E, 0, G::kRpV2, UNROLL>(col, L, kRpV2, n, i);
+  if constexpr (STAMPED) {
+    load_rows<G::S, 0, G::kRqUntil, UNROLL>(col, L, kRqUntil, n, i);
+    load_rows<G::S, 0, G::kRpUntil, UNROLL>(col, L, kRpUntil, n, i);
+  }
   load_rows<K, 0, G::kLtBal, UNROLL>(col, L, kLtBal, n, i);
   load_rows<K, 0, G::kLtVal, UNROLL>(col, L, kLtVal, n, i);
   load_rows<K, 0, G::kLtMask, UNROLL>(col, L, kLtMask, n, i);
@@ -651,23 +661,26 @@ __device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& 
 
 // The column at the end of the chunk: the slots of each buffer that the
 // chunk wrote (bitmasks rq_written, rp_written) with their zero-only words
-// as 0, and the learner table if an accept event reached it.
-template <int P, int A, int K, bool RV_V1, int B>
+// as 0 and their stamps where STAMPED, and the learner table if an accept
+// event reached it.
+template <int P, int A, int K, bool RV_V1, int B, bool STAMPED = false>
 __device__ __forceinline__ void store_column(const Column<B>& col, const Leaves& L, int64_t n,
                                              int64_t i, uint32_t rq_written, uint32_t rp_written,
                                              bool lt_written) {
-  using G = SdStaged<P, A, K, RV_V1>;
+  using G = SdStaged<P, A, K, RV_V1, STAMPED>;
   for (uint32_t m = rq_written; m != 0; m &= m - 1) {
     const int j = __ffs(m) - 1;
     store<int32_t>(L, kRqBal, j, n, i, col[G::kRqBal + j]);
     store<int32_t>(L, kRqV1, j, n, i, j >= G::kRqV1From ? col[G::rq_v1(j)] : 0);
     store<int32_t>(L, kRqV2, j, n, i, 0);
+    if constexpr (STAMPED) store<int32_t>(L, kRqUntil, j, n, i, col[G::kRqUntil + j]);
   }
   for (uint32_t m = rp_written; m != 0; m &= m - 1) {
     const int j = __ffs(m) - 1;
     store<int32_t>(L, kRpBal, j, n, i, col[G::kRpBal + j]);
     store<int32_t>(L, kRpV1, j, n, i, col[G::kRpV1 + j]);
     store<int32_t>(L, kRpV2, j, n, i, j < G::E ? col[G::kRpV2 + j] : 0);
+    if constexpr (STAMPED) store<int32_t>(L, kRpUntil, j, n, i, col[G::kRpUntil + j]);
   }
   if (lt_written) {
     store_rows<K, 0, G::kLtBal>(col, L, kLtBal, n, i);
@@ -750,7 +763,104 @@ struct ColumnLearner {
   }
 };
 
-// ---- The gray-failure and partition arms of K1 to K3 and K5 (Gray): what
+// The bounded-delay channel of a lane (transport.ready / send(until=) and
+// protocols.paxos.delay_stamps) over the stamps in its column (SdStaged
+// with STAMPED; K1's and K4's stamped instantiations): per buffer a bitmask
+// of the slots whose stamp is still ahead of the tick, and the earliest
+// such stamp; a slot is ready (deliverable, selectable) where its bit is
+// clear.  The plan's latency caps are read once as the links whose cap is
+// above 0 (`slow`, the only links a send can be delayed on), and a cap
+// again only where a send on its link is delayed.  Every stamp read or
+// written counts as a touch.
+template <int P, int A, int K, bool RV_V1, int B>
+struct Channel {
+  using G = SdStaged<P, A, K, RV_V1, true>;
+  uint32_t rq_wait = 0, rp_wait = 0;
+  int32_t next_due = kInt32Max;  // earliest stamp of a waiting slot; kInt32Max if none
+  uint32_t slow = 0;
+
+  __device__ __forceinline__ void load(const Column<B>& col, const Params& prm, const Plan& plan,
+                                       int64_t n, int64_t i, int32_t tick) {
+#pragma unroll
+    for (int j = 0; j < G::S; ++j) {
+      const int32_t uq = col[G::kRqUntil + j], up = col[G::kRpUntil + j];
+      if (uq > tick) {
+        rq_wait |= 1u << j;
+        next_due = min(next_due, uq);
+      }
+      if (up > tick) {
+        rp_wait |= 1u << j;
+        next_due = min(next_due, up);
+      }
+    }
+    if (prm.delay.mode == 0) return;
+#pragma unroll
+    for (int e = 0; e < G::E; ++e) slow |= (plan.link_delay[e * n + i] > 0 ? 1u : 0u) << e;
+  }
+
+  // At the start of tick `tick` (readiness is tick >= until): release the
+  // waiting slots whose stamp has come.
+  __device__ __forceinline__ void refresh(const Column<B>& col, int32_t tick, DrawCount* draws) {
+    if (tick < next_due) return;
+    next_due = kInt32Max;
+    for (uint32_t m = rq_wait; m != 0; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      draws->touch(1);
+      const int32_t u = col[G::kRqUntil + j];
+      if (u > tick) next_due = min(next_due, u); else rq_wait &= ~(1u << j);
+    }
+    for (uint32_t m = rp_wait; m != 0; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      draws->touch(1);
+      const int32_t u = col[G::kRpUntil + j];
+      if (u > tick) next_due = min(next_due, u); else rp_wait &= ~(1u << j);
+    }
+  }
+
+  // The delay stamp of a send on edge (p, a) at `tick` (delay_stamps): kind
+  // `kind` of direction `dir` (0 requests, 1 replies) draws at prefix
+  // ((dir * 2 + kind) * P + p) * A + a.  tick + 1 + min(latency, cap) where
+  // the link is slow and the delay draw fires, else 0; the latency is
+  // 1 + (bits & 0x7FFFFFFF) % delay_max.  A link that never delays draws
+  // nothing: its stamp is 0 whatever the draws.
+  __device__ __forceinline__ int32_t stamp(const Params& prm, const Plan& plan,
+                                           const TickStream& ts, int dir, int kind, int p, int a,
+                                           int64_t n, int64_t i, int32_t tick) const {
+    const int e = p * A + a;
+    if (prm.delay.mode == 0 || !((slow >> e) & 1u)) return 0;
+    const int pos = ((dir * 2 + kind) * P + p) * A + a;
+    if (ts.bits(kDelayBits, pos) >= prm.delay.thr) return 0;
+    const uint32_t lat =
+        1u + (ts.bits(kLatBits, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
+    const int32_t cap = plan.link_delay[e * n + i];
+    return wrap_add(wrap_add(tick, 1), min(static_cast<int32_t>(lat), cap));
+  }
+
+  // The slots `sent` of direction `dir`'s buffer (stamps from row `row`,
+  // G::kRqUntil or G::kRpUntil; waiting slots `wait`), written at `tick`:
+  // each gets its stamp (0: deliverable at once).  The stamp draws are keyed
+  // by the slot, so one rolled loop serves every send site of a buffer.
+  __device__ __forceinline__ void stamp_sends(const Column<B>& col, int row, uint32_t& wait,
+                                              int dir, uint32_t sent, const Params& prm,
+                                              const Plan& plan, const TickStream& ts, int64_t n,
+                                              int64_t i, int32_t tick, DrawCount* draws) {
+    for (uint32_t m = sent; m != 0; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      const int e = j % G::E;
+      const int32_t u = stamp(prm, plan, ts, dir, j / G::E, e / A, e % A, n, i, tick);
+      draws->touch(1);
+      col[row + j] = u;
+      if (u > tick) {
+        wait |= 1u << j;
+        next_due = min(next_due, u);
+      } else {
+        wait &= ~(1u << j);
+      }
+    }
+  }
+};
+
+// ---- The gray-failure and partition arms of K1 to K5 (Gray): what
 // an arms instantiation does at each site of the tick, where the default
 // instantiations compile none of it (ARMS false).  Messages on edge e = p
 // * A + a; a buffer's slot j is on edge j % E.  The stream ids default to
@@ -886,9 +996,10 @@ __device__ __forceinline__ void recover_with(const Gray& gray, int32_t tick,
   }
 }
 
-// recover_with for K1 to K3: an acceptor's three durable fields f0, f1, f2
-// and their shadows (SnapLeaf); `restored(a)` follows each restore.
-template <bool ARMS, int A, typename Restored>
+// recover_with for K1 to K4: an acceptor's three durable fields f0, f1, f2
+// and their shadows at leaves SNAP + 0..2 (kSnap0, or kStampedLeaves in a
+// stamped state); `restored(a)` follows each restore.
+template <bool ARMS, int A, int SNAP = kSnap0, typename Restored>
 __device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32_t tick,
                                         const int32_t (&crash_end)[A], int32_t (&f0)[A],
                                         int32_t (&f1)[A], int32_t (&f2)[A], int64_t n, int64_t i,
@@ -896,15 +1007,15 @@ __device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32
   recover_with<ARMS, A>(
       gray, tick, crash_end,
       [&](int a) {
-        f0[a] = load<int32_t>(L, kSnap0, a, n, i);
-        f1[a] = load<int32_t>(L, kSnap1, a, n, i);
-        f2[a] = load<int32_t>(L, kSnap2, a, n, i);
+        f0[a] = load<int32_t>(L, SNAP, a, n, i);
+        f1[a] = load<int32_t>(L, SNAP + 1, a, n, i);
+        f2[a] = load<int32_t>(L, SNAP + 2, a, n, i);
         restored(a);
       },
       [&](int a) {
-        store<int32_t>(L, kSnap0, a, n, i, f0[a]);
-        store<int32_t>(L, kSnap1, a, n, i, f1[a]);
-        store<int32_t>(L, kSnap2, a, n, i, f2[a]);
+        store<int32_t>(L, SNAP, a, n, i, f0[a]);
+        store<int32_t>(L, SNAP + 1, a, n, i, f1[a]);
+        store<int32_t>(L, SNAP + 2, a, n, i, f2[a]);
       },
       [&](int a) {
         f0[a] = f1[a] = f2[a] = 0;

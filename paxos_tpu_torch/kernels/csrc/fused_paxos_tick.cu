@@ -67,6 +67,20 @@
 // written on a snapshot tick, and a settled lane still takes its restores
 // and snapshots, one tick at a time.
 //
+// The bounded-delay channel (p_delay: delay stamps on every send, readiness
+// gates on delivery and request selection) compiles into the stamped
+// instantiations (STAMPED, at (2,5,8), without and with the arms), for a
+// state whose buffers carry `until` stamps: K4's design, whose pieces the
+// two kernels share (the stamp rows of sd::SdStaged and sd::Channel in
+// fused_common.cuh).  The stamps sit in the lane's column, the slots still
+// waiting for theirs in a bitmask per buffer, and a tick's sends are
+// stamped by one rolled loop per buffer.  Both levers stay exact: a lane
+// with a message in flight, waiting or not, is never settled (the test
+// reads presence), and an acceptor's "nothing to select" skip, like the
+// selection itself and the delivery loop, reads the slots that have
+// arrived only.  A cut (ARMS) masks after the readiness gate and never
+// touches a stamp.
+//
 // Semantics follow the plain PyTorch version (protocols/paxos.py) exactly;
 // the PRNG, stream positions and argument layout are in fused_common.cuh.
 //  - reply delivery and consume precede the acceptor's new replies;
@@ -107,17 +121,20 @@ __device__ __forceinline__ bool breaks_alone(int32_t pr, int32_t ab, int32_t av)
   return ab > pr || (ab == 0 && av != 0);
 }
 
-// The kernel; `Arms` is empty for the default instantiation, whose
+// The kernel; `Arms` is empty for the default instantiations, whose
 // signature and code are those of K1 without the arms, and `Gray` for the
-// arms instantiation (ARMS), which takes the arms' knobs and plan leaves.
-template <int P, int A, int K, int B, int MIN_BLOCKS, typename... Arms>
+// arms instantiations (ARMS), which take the arms' knobs and plan leaves.
+// STAMPED: the state's buffers carry delay stamps.
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                    Arms... arms) {
   constexpr bool ARMS = sizeof...(Arms) > 0;
   const Gray gray{arms...};
   static_assert(B % 32 == 0, "a block is whole warps");
-  using G = SdStaged<P, A, K, false>;
+  using G = SdStaged<P, A, K, false, STAMPED>;
+  // The snapshot shadows' first leaf (after the stamps in a stamped state).
+  constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
   constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
@@ -157,7 +174,12 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     return s;
   };
   const Column<B> col{smem + threadIdx.x};
-  if (!settled()) sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>>(col, L, n, i);
+  // The bounded-delay channel's waiting slots (STAMPED), as the column.
+  sd::Channel<P, A, K, false, B> ch;
+  if (!settled()) {
+    sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>, B, STAMPED>(col, L, n, i);
+    if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
+  }
 
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
   uint32_t equiv = 0;
@@ -207,7 +229,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   // takes its state after the restore; the restored acceptors' invariant
   // breaks are recomputed.
   const auto recover = [&](int32_t tick) {
-    sd::recover<ARMS, A>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [&](int a) {
+    sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [&](int a) {
       const bool bad = !((equiv >> a) & 1u) && breaks_alone(promised[a], acc_bal[a], acc_val[a]);
       bad_alone = (bad_alone & ~(1u << a)) | ((bad ? 1u : 0u) << a);
     });
@@ -240,14 +262,19 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
     recover(tick);
+    // The slots whose stamp has come (STAMPED): a slot waiting for its
+    // stamp is neither delivered nor selected.
+    if constexpr (STAMPED) ch.refresh(col, tick, &draws);
+    const uint32_t rq_ready = rq_present & (STAMPED ? ~ch.rq_wait : ~0u);
 
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
 
-    // ---- Reply delivery (pre-tick buffer): the replies on a link not cut
-    //      and not held this tick; consumed unless duplicated. ----
-    uint32_t delivered = rp_present;
+    // ---- Reply delivery (pre-tick buffer): the replies that have arrived,
+    //      on a link not cut and not held this tick; consumed unless
+    //      duplicated. ----
+    uint32_t delivered = rp_present & (STAMPED ? ~ch.rp_wait : ~0u);
     if constexpr (ARMS) delivered &= ~(cut_rep | (cut_rep << E));
     if (prm.hold.mode != 0) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
@@ -374,14 +401,14 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     clk.mark(kPhFold);
 
     // ---- Acceptor half-tick: select at most one request per acceptor. ----
-    // Only an acceptor alive this tick with a request present can select
-    // one; the others are skipped before their idle mask is drawn, and
-    // contribute what the plain tick gives them: no reply, no consume, no
-    // accept event, their state as it is, and its invariant check
-    // (bad_alone).
+    // Only an acceptor alive this tick with a request present (and arrived)
+    // can select one; the others are skipped before their idle mask is
+    // drawn, and contribute what the plain tick gives them: no reply, no
+    // consume, no accept event, their state as it is, and its invariant
+    // check (bad_alone).
     uint32_t asked = 0;
 #pragma unroll
-    for (int kp = 0; kp < 2 * P; ++kp) asked |= (rq_present >> (kp * A)) & kAccs;
+    for (int kp = 0; kp < 2 * P; ++kp) asked |= (rq_ready >> (kp * A)) & kAccs;
     uint32_t visit = 0;
 #pragma unroll
     for (int a = 0; a < A; ++a)
@@ -398,7 +425,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       ev_bal[a] = 0;
       ev_val[a] = 0;
       if (!((visit >> a) & 1u) || !ts.survives_at(prm.idle, kBusy, a)) continue;
-      const int sel = select_present<P, A>(ts, rq_present, a);  // a request is present
+      const int sel = select_present<P, A>(ts, rq_ready, a);  // a request has arrived
       // A request on a cut link stays in flight: the acceptor processes
       // nothing this tick.
       if (ARMS && ((cut_req >> ((sel * A + a) % E)) & 1u)) continue;
@@ -456,6 +483,10 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       ev_val[a] = mv;
     }
     inv_viol += __popc(bad_alone & ~acted);
+    // The replies' delay stamps (the stamp draws are keyed by the slot, so
+    // one rolled loop serves every reply site).
+    if constexpr (STAMPED)
+      ch.stamp_sends(col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
     rp_present = rp_next | rp_sent;
     rp_written |= rp_sent;
     rq_present = rq_next;
@@ -466,7 +497,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       lt_written = true;
     clk.mark(kPhLearner);
 
-    // ---- Proposer sends into the consumed request buffer. ----
+    // ---- Proposer sends into the consumed request buffer, then their
+    //      delay stamps (STAMPED). ----
     uint32_t rq_sent = 0;  // the request slots written this tick
 #pragma unroll
     for (int p = 0; p < P; ++p) {
@@ -489,6 +521,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
       if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
+    if constexpr (STAMPED)
+      ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
     rq_present |= rq_sent;
     rq_written |= rq_sent;
     clk.mark(kPhSends);
@@ -520,42 +554,45 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
     store<uint8_t>(L, kRpPresent, j, n, i, ((rp_present >> j) & 1u) ? 1 : 0);
   }
-  sd::store_column<P, A, K, false, B>(col, L, n, i, rq_written, rp_written, lt_written);
+  sd::store_column<P, A, K, false, B, STAMPED>(col, L, n, i, rq_written, rp_written, lt_written);
   clk.mark(kPhStore);
   clk.flush();
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh): the
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): an
 // arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
+template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
 struct InstOf {
-  using type = SmemInst<fused_paxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
-                        SdStaged<P, A, K, false>::kRows * B * 4>;
+  using type = SmemInst<fused_paxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
+                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
 };
-template <int P, int A, int K, int B, int MIN_BLOCKS>
-struct InstOf<P, A, K, true, B, MIN_BLOCKS> {
-  using type = SmemInst<fused_paxos_kernel<P, A, K, B, MIN_BLOCKS, Gray>, B,
-                        SdStaged<P, A, K, false>::kRows * B * 4>;
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, true, B, MIN_BLOCKS> {
+  using type = SmemInst<fused_paxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>, B,
+                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
 };
-template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
-using Inst = typename InstOf<P, A, K, ARMS, B, MIN_BLOCKS>::type;
+template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, STAMPED, ARMS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, ARMS, B, MIN_BLOCKS): one per
-// shape and arms flag, at the geometry fused_tick.FR_STAGING["paxos"] gives
-// it; MIN_BLOCKS, the blocks an SM is to hold, caps a thread's registers.
-#define K1_INSTANCES(X)   \
-  X(2, 5, 8, 0, 128, 4)   \
-  X(1, 3, 8, 0, 128, 4)   \
-  X(2, 5, 8, 1, 128, 3)
+// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, B,
+// MIN_BLOCKS): one per shape, stamps and arms flag, at the geometry
+// fused_tick.FR_STAGING["paxos"] gives it; MIN_BLOCKS, the blocks an SM is
+// to hold, caps a thread's registers.
+#define K1_INSTANCES(X)      \
+  X(2, 5, 8, 0, 0, 128, 4)   \
+  X(1, 3, 8, 0, 0, 128, 4)   \
+  X(2, 5, 8, 0, 1, 128, 3)   \
+  X(2, 5, 8, 1, 0, 128, 3)   \
+  X(2, 5, 8, 1, 1, 128, 3)
 
 // Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, k_slots, arms), or returns
-// cudaErrorInvalidValue.
+// instantiation `dims` names (n_prop, n_acc, k_slots, stamped, arms), or
+// returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K1_MATCH(P_, A_, K_, R_, B_, M_)                                     \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_) \
-    return fn(Inst<P_, A_, K_, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
+#define K1_MATCH(P_, A_, K_, S_, R_, B_, M_)                                                \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_) \
+    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
   K1_INSTANCES(K1_MATCH)
 #undef K1_MATCH
   return cudaErrorInvalidValue;
@@ -563,31 +600,34 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 
 }  // namespace
 
-// C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, arms (1: the
-// instantiation with the gray-failure and partition arms, which a knob of
-// theirs needs), then the dynamic shared bytes a block,
-// fused_tick.FR_STAGING's); the state's leaves are 28, or 31 with snapshot
-// shadows, which stale_k > 0 needs; `tick` is the device int32 tick
-// scalar, read by the kernel and advanced by the caller.  Returns
-// cudaSuccess or the first error: an unknown instantiation, a knob on
-// without its arms, stale_k without snapshots or too few shared bytes
-// (cudaErrorInvalidValue), a shared-memory request the card refuses, or
-// the launch's cudaGetLastError().
+// C entry point, loaded with ctypes (arguments: read_gray_args in
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped (1: the
+// state's buffers carry delay stamps, which p_delay > 0 needs), arms (1:
+// the instantiation with the gray-failure and partition arms, which a knob
+// of theirs needs), then the dynamic shared bytes a block,
+// fused_tick.FR_STAGING's); the state's leaves are 28, 30 with the stamps,
+// and 3 more with snapshot shadows, which stale_k > 0 needs; `tick` is the
+// device int32 tick scalar, read by the kernel and advanced by the caller.
+// Returns cudaSuccess or the first error: an unknown instantiation, a leaf
+// count that is not its state's (a stamped state on an unstamped one), a
+// knob on without its arms, p_delay without the stamps or the plan's
+// link_delay, or too few shared bytes (cudaErrorInvalidValue), a
+// shared-memory request the card refuses, or the launch's
+// cudaGetLastError().
 extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                   void** plan, void* tick, const long long* params, int n_params,
                                   void* stream) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
+  if (n_dims != 6) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
-  const cudaError_t bad =
-      read_gray_args(dims[3] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray);
+  const cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params,
+                                         &L, &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[4];
+  const int smem = dims[5];
   return dispatch(dims, [&](auto inst, auto with_arms) {
     if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
     else return decltype(inst)::launch(L, pl, t, prm, smem, s);
@@ -598,7 +638,7 @@ extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, in
 // SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_paxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
-  const int smem = dims[4];
+  if (n_dims != 6) return cudaErrorInvalidValue;
+  const int smem = dims[5];
   return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

@@ -23,7 +23,8 @@
 //    still ahead of the tick with the earliest such stamp, the slow-link
 //    mask, and a bitmask per buffer of the slots the chunk wrote;
 //  - shared memory, a column per lane (word r at smem[r * B + t], B the
-//    block's lane count, as K5 keeps its slot windows; SpStaged below): the
+//    block's lane count, as K5 keeps its slot windows; sd::SdStaged in
+//    fused_common.cuh, whose stamp rows K1's stamped instantiations share): the
 //    message payloads a tick reads, the delay stamps and the learner's
 //    (ballot, value, voters) table.  A dynamic index (the selected request,
 //    a reply's slot, a waiting stamp) is one shared load or store, where in
@@ -45,8 +46,8 @@
 // operations and the time falls with the warps an SM holds, and with the
 // code on the chain.  So the sites that draw or stamp are few and rolled:
 // a tick's sends write their payloads and collect their slots, and one
-// rolled loop per buffer then stamps them (the stamp draws are keyed by the
-// slot, so the order of the stamps changes nothing); an acceptor's request
+// rolled loop per buffer then stamps them (sd::Channel; the stamp draws are
+// keyed by the slot, so the order of the stamps changes nothing); an acceptor's request
 // is selected over its present slots only (select_present); the proposers'
 // sends loop over the acceptors only for a proposer that sends.  Unrolled,
 // the fourteen stamp sites and the selection made a steady chunk 1.6 times
@@ -65,6 +66,23 @@
 // delay and latency draws, made only for a send on a slow link.  The
 // measuring build counts every stamp read or written inside the tick loop
 // as a touch.
+//
+// The gray-failure and partition arms (partition cuts, one-way cuts,
+// per-link loss and duplication thresholds, payload corruption, timer skew,
+// stale-snapshot recovery and amnesia) compile into instantiations of their
+// own at (2,5,8), without and with the stamps, as K1's to K3's and K5's:
+// the kernel takes a trailing `Gray` that the default instantiations do
+// not, and the pieces are K1's (sd::GrayLane, sd::recover, sd::kept,
+// sd::duplicated, sd::corrupt, sd::backoff_of).  A cut masks the selected
+// request and the delivered replies after the draws that select them and
+// after the readiness gate, so it stalls a stamped message as it stalls
+// any other and never touches a stamp (delay and cuts lose nothing); the
+// per-link and corruption draws are made only at the site that reads them;
+// the snapshot shadows stay in global memory; the timeout skew moves the
+// classic deadline only (FAST's stays delta), the backoff skew scales the
+// expiry backoff.
+
+#include <type_traits>
 
 #include "fused_common.cuh"
 
@@ -74,9 +92,8 @@ namespace {
 constexpr int32_t kP1 = 0, kP2 = 1, kDone = 2, kFast = 3;
 
 using sd::ColumnLearner;
-using sd::load_rows;
+using sd::SdStaged;
 using sd::select_present;
-using sd::store_rows;
 
 // The tick's phases in order, as the phase-clock build splits a lane's
 // cycles (fused_tick.PHASES["synchpaxos"]).
@@ -93,175 +110,21 @@ enum Leaf {
   kDecidedVal,
 };
 
-// A lane's staged rows, in column order (mirrored by
-// fused_tick.SP_STAGED_LEAVES).  Slot j = (kind * P + p) * A + a of a
-// buffer, E = P * A slots a kind: a request's v1 is staged for the ACCEPT
-// slots only (row j - E), a reply's v2 for the PROMISE slots only (row j).
-template <int P, int A, int K, bool STAMPED>
-struct SpStaged {
-  static constexpr int S = 2 * P * A, E = P * A;
-  static constexpr int kRqBal = 0;                               // requests.bal (2, P, A)
-  static constexpr int kRqV1 = kRqBal + S;                       // requests.v1, ACCEPT
-  static constexpr int kRpBal = kRqV1 + E;                       // replies.bal (2, P, A)
-  static constexpr int kRpV1 = kRpBal + S;                       // replies.v1 (2, P, A)
-  static constexpr int kRpV2 = kRpV1 + S;                        // replies.v2, PROMISE
-  static constexpr int kRqUntil = kRpV2 + E;                     // requests.until, if STAMPED
-  static constexpr int kRpUntil = kRqUntil + (STAMPED ? S : 0);  // replies.until, if STAMPED
-  static constexpr int kLtBal = kRpUntil + (STAMPED ? S : 0);    // learner.lt_bal (K)
-  static constexpr int kLtVal = kLtBal + K;                      // learner.lt_val (K)
-  static constexpr int kLtMask = kLtVal + K;                     // learner.lt_mask (K)
-  static constexpr int kRows = kLtMask + K;
-};
-
-// The column at the start of the chunk: every staged row.
-template <int P, int A, int K, bool STAMPED, int B>
-__device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& L, int64_t n,
-                                            int64_t i) {
-  using G = SpStaged<P, A, K, STAMPED>;
-  load_rows<G::S, 0, G::kRqBal>(col, L, kRqBal, n, i);
-  load_rows<G::E, G::E, G::kRqV1>(col, L, kRqV1, n, i);
-  load_rows<G::S, 0, G::kRpBal>(col, L, kRpBal, n, i);
-  load_rows<G::S, 0, G::kRpV1>(col, L, kRpV1, n, i);
-  load_rows<G::E, 0, G::kRpV2>(col, L, kRpV2, n, i);
-  if constexpr (STAMPED) {
-    load_rows<G::S, 0, G::kRqUntil>(col, L, kRqUntil, n, i);
-    load_rows<G::S, 0, G::kRpUntil>(col, L, kRpUntil, n, i);
-  }
-  load_rows<K, 0, G::kLtBal>(col, L, kLtBal, n, i);
-  load_rows<K, 0, G::kLtVal>(col, L, kLtVal, n, i);
-  load_rows<K, 0, G::kLtMask>(col, L, kLtMask, n, i);
-}
-
-// The column at the end of the chunk: the slots of each buffer that the
-// chunk wrote (bitmasks rq_written, rp_written) with their zero-only words
-// as 0, and the learner table if an accept event reached it.
-template <int P, int A, int K, bool STAMPED, int B>
-__device__ __forceinline__ void store_column(const Column<B>& col, const Leaves& L, int64_t n,
-                                             int64_t i, uint32_t rq_written, uint32_t rp_written,
-                                             bool lt_written) {
-  using G = SpStaged<P, A, K, STAMPED>;
-  for (uint32_t m = rq_written; m != 0; m &= m - 1) {
-    const int j = __ffs(m) - 1;
-    store<int32_t>(L, kRqBal, j, n, i, col[G::kRqBal + j]);
-    store<int32_t>(L, kRqV1, j, n, i, j >= G::E ? col[G::kRqV1 + j - G::E] : 0);
-    store<int32_t>(L, kRqV2, j, n, i, 0);
-    if constexpr (STAMPED) store<int32_t>(L, kRqUntil, j, n, i, col[G::kRqUntil + j]);
-  }
-  for (uint32_t m = rp_written; m != 0; m &= m - 1) {
-    const int j = __ffs(m) - 1;
-    store<int32_t>(L, kRpBal, j, n, i, col[G::kRpBal + j]);
-    store<int32_t>(L, kRpV1, j, n, i, col[G::kRpV1 + j]);
-    store<int32_t>(L, kRpV2, j, n, i, j < G::E ? col[G::kRpV2 + j] : 0);
-    if constexpr (STAMPED) store<int32_t>(L, kRpUntil, j, n, i, col[G::kRpUntil + j]);
-  }
-  if (lt_written) {
-    store_rows<K, 0, G::kLtBal>(col, L, kLtBal, n, i);
-    store_rows<K, 0, G::kLtVal>(col, L, kLtVal, n, i);
-    store_rows<K, 0, G::kLtMask>(col, L, kLtMask, n, i);
-  }
-}
-
-// The bounded-delay channel of a lane (transport.ready / send(until=) and
-// protocols.paxos.delay_stamps) over the stamps in the column: per buffer a
-// bitmask of the slots whose stamp is still ahead of the tick, and the
-// earliest such stamp; a slot is ready (deliverable, selectable) where its
-// bit is clear.  The plan's latency caps are read once as the links whose
-// cap is above 0 (`slow`, the only links a send can be delayed on), and a
-// cap again only where a send on its link is delayed.  Every stamp read or
-// written counts as a touch.
-template <int P, int A, int K, bool STAMPED, int B>
-struct Channel {
-  using G = SpStaged<P, A, K, STAMPED>;
-  uint32_t rq_wait = 0, rp_wait = 0;
-  int32_t next_due = kInt32Max;  // earliest stamp of a waiting slot; kInt32Max if none
-  uint32_t slow = 0;
-
-  __device__ __forceinline__ void load(const Column<B>& col, const Params& prm, const Plan& plan,
-                                       int64_t n, int64_t i, int32_t tick) {
-#pragma unroll
-    for (int j = 0; j < G::S; ++j) {
-      const int32_t uq = col[G::kRqUntil + j], up = col[G::kRpUntil + j];
-      if (uq > tick) {
-        rq_wait |= 1u << j;
-        next_due = min(next_due, uq);
-      }
-      if (up > tick) {
-        rp_wait |= 1u << j;
-        next_due = min(next_due, up);
-      }
-    }
-    if (prm.delay.mode == 0) return;
-#pragma unroll
-    for (int e = 0; e < G::E; ++e) slow |= (plan.link_delay[e * n + i] > 0 ? 1u : 0u) << e;
-  }
-
-  // At the start of tick `tick` (readiness is tick >= until): release the
-  // waiting slots whose stamp has come.
-  __device__ __forceinline__ void refresh(const Column<B>& col, int32_t tick, DrawCount* draws) {
-    if (tick < next_due) return;
-    next_due = kInt32Max;
-    for (uint32_t m = rq_wait; m != 0; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      draws->touch(1);
-      const int32_t u = col[G::kRqUntil + j];
-      if (u > tick) next_due = min(next_due, u); else rq_wait &= ~(1u << j);
-    }
-    for (uint32_t m = rp_wait; m != 0; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      draws->touch(1);
-      const int32_t u = col[G::kRpUntil + j];
-      if (u > tick) next_due = min(next_due, u); else rp_wait &= ~(1u << j);
-    }
-  }
-
-  // The delay stamp of a send on edge (p, a) at `tick` (delay_stamps): kind
-  // `kind` of direction `dir` (0 requests, 1 replies) draws at prefix
-  // ((dir * 2 + kind) * P + p) * A + a.  tick + 1 + min(latency, cap) where
-  // the link is slow and the delay draw fires, else 0; the latency is
-  // 1 + (bits & 0x7FFFFFFF) % delay_max.  A link that never delays draws
-  // nothing: its stamp is 0 whatever the draws.
-  __device__ __forceinline__ int32_t stamp(const Params& prm, const Plan& plan,
-                                           const TickStream& ts, int dir, int kind, int p, int a,
-                                           int64_t n, int64_t i, int32_t tick) const {
-    const int e = p * A + a;
-    if (prm.delay.mode == 0 || !((slow >> e) & 1u)) return 0;
-    const int pos = ((dir * 2 + kind) * P + p) * A + a;
-    if (ts.bits(kDelayBits, pos) >= prm.delay.thr) return 0;
-    const uint32_t lat =
-        1u + (ts.bits(kLatBits, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
-    const int32_t cap = plan.link_delay[e * n + i];
-    return wrap_add(wrap_add(tick, 1), min(static_cast<int32_t>(lat), cap));
-  }
-
-  // The slots `sent` of direction `dir`'s buffer (stamps from row `row`,
-  // kRqUntil or kRpUntil; waiting slots `wait`), written at `tick`: each
-  // gets its stamp (0: deliverable at once).  Slot j = (kind * P + p) * A + a.
-  __device__ __forceinline__ void stamp_sends(const Column<B>& col, int row, uint32_t& wait,
-                                              int dir, uint32_t sent, const Params& prm,
-                                              const Plan& plan, const TickStream& ts, int64_t n,
-                                              int64_t i, int32_t tick, DrawCount* draws) {
-    for (uint32_t m = sent; m != 0; m &= m - 1) {
-      const int j = __ffs(m) - 1;
-      const int e = j % G::E;
-      const int32_t u = stamp(prm, plan, ts, dir, j / G::E, e / A, e % A, n, i, tick);
-      draws->touch(1);
-      col[row + j] = u;
-      if (u > tick) {
-        wait |= 1u << j;
-        next_due = min(next_due, u);
-      } else {
-        wait &= ~(1u << j);
-      }
-    }
-  }
-};
-
-template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+// The kernel; `Arms` is empty for the default instantiations, whose
+// signature and code are those of K4 without the arms, and `Gray` for the
+// arms instantiations (ARMS), which take the arms' knobs and plan leaves.
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
-fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm) {
+fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
+                        Arms... arms) {
+  constexpr bool ARMS = sizeof...(Arms) > 0;
+  const Gray gray{arms...};
   static_assert(B % 32 == 0, "a block is whole warps");
-  using G = SpStaged<P, A, K, STAMPED>;
+  using G = SdStaged<P, A, K, false, STAMPED>;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
+  constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
+  // The snapshot shadows' first leaf (after the stamps in a stamped state).
+  constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   extern __shared__ int32_t smem[];  // G::kRows * B words
 
@@ -270,7 +133,7 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   if (i >= n) return;
   PhaseClock<kPhases> clk;
   const Column<B> col{smem + threadIdx.x};
-  load_column<P, A, K, STAMPED, B>(col, L, n, i);
+  sd::load_column<P, A, K, false, 0, B, STAMPED>(col, L, n, i);
 
   // ---- Load the lane's register-resident state once. ----
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
@@ -310,8 +173,13 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   bool lt_written = false;                  // an accept event reached the learner table
 
   const int32_t tick0 = *tick_ptr;
-  Channel<P, A, K, STAMPED, B> ch;
+  sd::Channel<P, A, K, false, B> ch;
   if constexpr (STAMPED) ch.load(col, prm, plan, n, i, tick0);
+
+  // ---- The arms' per-lane plan: the partition window, the links that
+  //      cross the cut, the cut's direction, the timeout skew. ----
+  sd::GrayLane<P, A> glane;
+  if constexpr (ARMS) glane.load(gray, n, i);
   clk.mark(kPhLoad);
 
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
@@ -323,13 +191,22 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // Stale-snapshot recovery or amnesia, before the acceptor half-tick
+    // (the restored state is the one the invariant check starts from).
+    sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i,
+                               [](int) {});
     if constexpr (STAMPED) ch.refresh(col, tick, &draws);
     const uint32_t rq_ready = rq_present & (STAMPED ? ~ch.rq_wait : ~0u);
+    // The links cut this tick, per direction (bit e: edge e).
+    uint32_t cut_req = 0, cut_rep = 0;
+    if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
     clk.mark(kPhRefresh);
 
-    // ---- Reply delivery (pre-tick buffer): the replies that have arrived
-    //      and are not held; consumed unless duplicated. ----
+    // ---- Reply delivery (pre-tick buffer): the replies that have arrived,
+    //      are on a link not cut and are not held; consumed unless
+    //      duplicated (on a flaky link, against its own threshold). ----
     uint32_t delivered = rp_present & (STAMPED ? ~ch.rp_wait : ~0u);
+    if constexpr (ARMS) delivered &= ~(cut_rep | (cut_rep << E));
     if (prm.hold.mode != 0) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
@@ -337,10 +214,10 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       }
     }
     uint32_t taken = delivered;
-    if (prm.dup.mode != 0) {
+    if (sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        if (ts.fires_at(prm.dup, kDupRep, j)) taken &= ~(1u << j);
+        if (sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i)) taken &= ~(1u << j);
       }
     }
     uint32_t rp_next = rp_present & ~taken;
@@ -388,7 +265,9 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const bool p1 = phase[p] == kP1 && votes >= prm.q1;
       const bool p2 = phase[p] == kP2 && votes >= prm.q2;
       const int32_t v_by_p1 = bb > 0 ? bv : own_val[p];
-      const int32_t deadline = fast ? prm.delta : prm.timeout;
+      // FAST's deadline is delta; the timeout skew moves the classic one.
+      const int32_t deadline =
+          fast ? prm.delta : (ARMS ? glane.timeout(prm.timeout, p) : prm.timeout);
       const bool exp = phase[p] != kDone && !p1 && !p2 && !fast_done && tm > deadline;
       // The round-0 broadcast: FAST at the pre-tick timer 0 (never with p1).
       const bool kick = fast && timer[p] == 0;
@@ -407,8 +286,7 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       }
       if (p1) tm = 0;
       if (exp) {
-        const uint32_t r = ts.bits(kBackoff, p) & 0x7FFFFFFFu;
-        tm = -static_cast<int32_t>(r % static_cast<uint32_t>(prm.backoff_n));
+        tm = sd::backoff_of<ARMS>(ts.bits(kBackoff, p) & 0x7FFFFFFFu, prm, gray, p, n, i);
       }
       old_bal[p] = cur;
       accept_val[p] = kick ? own_val[p] : pv;
@@ -435,14 +313,19 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const bool alive = !(crash_start[a] <= tick && tick < crash_end[a]);
       const bool busy = ts.survives_at(prm.idle, kBusy, a);
       const int win = select_present<P, A>(ts, rq_ready, a);
-      const int sel = (win >= 0 && busy && alive) ? win : -1;
+      int sel = (win >= 0 && busy && alive) ? win : -1;
+      // A request on a cut link stays in flight: the acceptor processes
+      // nothing this tick.
+      if (ARMS && sel >= 0 && ((cut_req >> ((sel * A + a) % E)) & 1u)) sel = -1;
 
       // The selected request's ballot, and an ACCEPT's value (a PREPARE's
-      // v1 is 0, and only an accepting acceptor reads it).
+      // v1 is 0, and only an accepting acceptor reads it); a corrupted
+      // ACCEPT's value flips a bit, a corrupted PREPARE's ballot moves up.
       const bool is_prep = sel >= 0 && sel < P;
       const bool is_acc = sel >= P;
-      const int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
-      const int32_t mv = is_acc ? col[G::kRqV1 + (sel - P) * A + a] : 0;
+      int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
+      int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
+      if (sel >= 0) sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
       const bool eq = (equiv >> a) & 1u;
       const bool ok_prep_h = is_prep && !eq && mb > promised[a];
       const bool ok_prep = ok_prep_h || (is_prep && eq);
@@ -456,25 +339,25 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const int32_t av = ok_acc ? mv : av_old;
 
       // The reply into the selected sender's slot (post-consume buffer):
-      // PROMISE for proposer sel, ACCEPTED for proposer sel - P.
-      if (ok_prep && ts.survives_at(prm.drop, kKeepProm, sel * A + a)) {
-        const int jr = sel * A + a;
+      // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
+      // link drops it against its own threshold.
+      const int jr = sel * A + a;
+      if (ok_prep && sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, jr, n, i)) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_acc && ts.survives_at(prm.drop, kKeepAccd, (sel - P) * A + a)) {
-        const int jr = sel * A + a;
+      if (ok_acc && sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, jr - E, n, i)) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
         rp_sent |= 1u << jr;
       }
-      // Consume the selected request unless it is duplicated.
-      if (sel >= 0) {
-        const int j = sel * A + a;
-        if (!(prm.dup.mode != 0 && ts.fires_at(prm.dup, kDupReq, j))) rq_next &= ~(1u << j);
-      }
+      // Consume the selected request unless it is duplicated (on a flaky
+      // link, against its own threshold).
+      if (sel >= 0 && !(sd::dup_live<ARMS>(prm, gray) &&
+                        sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, jr, n, i)))
+        rq_next &= ~(1u << jr);
 
       // Acceptor-local invariants (honest acceptors only).
       const bool bad = pr < pr_old || ab > pr || (ab == 0 && av != 0);
@@ -508,13 +391,14 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       if ((accept | expired) >> p & 1u) {
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
-          if (((accept >> p) & 1u) && ts.survives_at(prm.drop, kKeepP2, p * A + a)) {
+          const int e = p * A + a;
+          if (((accept >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, e, n, i)) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, own or phase-1 value)
             col[G::kRqBal + j] = old_bal[p];
-            col[G::kRqV1 + p * A + a] = accept_val[p];
+            col[G::rq_v1(j)] = accept_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && ts.survives_at(prm.drop, kKeepP1, p * A + a)) {
+          if (((expired >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, e, n, i)) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
             rq_sent |= 1u << j;
@@ -556,31 +440,45 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
     store<uint8_t>(L, kRpPresent, j, n, i, ((rp_present >> j) & 1u) ? 1 : 0);
   }
-  store_column<P, A, K, STAMPED, B>(col, L, n, i, rq_written, rp_written, lt_written);
+  sd::store_column<P, A, K, false, B, STAMPED>(col, L, n, i, rq_written, rp_written, lt_written);
   clk.mark(kPhStore);
   clk.flush();
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh).
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): an
+// arms instantiation's kernel takes a Gray after Params.
+template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+struct InstOf {
+  using type = SmemInst<fused_synchpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
+                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+};
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
-using Inst = SmemInst<fused_synchpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
-                      SpStaged<P, A, K, STAMPED>::kRows * B * 4>;
+struct InstOf<P, A, K, STAMPED, true, B, MIN_BLOCKS> {
+  using type = SmemInst<fused_synchpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>, B,
+                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+};
+template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, STAMPED, ARMS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, stamped, B, MIN_BLOCKS): one
-// per shape, at the geometry fused_tick.SP_STAGING gives it; MIN_BLOCKS, the
-// blocks an SM is to hold, caps a thread's registers.
+// The instantiations, (n_prop, n_acc, k_slots, stamped, arms, B,
+// MIN_BLOCKS): one per shape, stamps and arms flag, at the geometry
+// fused_tick.SP_STAGING gives it; MIN_BLOCKS, the blocks an SM is to hold,
+// caps a thread's registers.
 #define K4_INSTANCES(X)          \
-  X(2, 5, 8, true, 128, 3)       \
-  X(2, 5, 8, false, 128, 3)      \
-  X(2, 3, 8, true, 128, 3)
+  X(2, 5, 8, 1, 0, 128, 3)       \
+  X(2, 5, 8, 0, 0, 128, 3)       \
+  X(2, 3, 8, 1, 0, 128, 3)       \
+  X(2, 5, 8, 0, 1, 128, 3)       \
+  X(2, 5, 8, 1, 1, 128, 3)
 
-// Calls `fn(Inst<...>{})` for the shape `dims` names
-// (n_prop, n_acc, k_slots, stamped), or returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
+// instantiation `dims` names (n_prop, n_acc, k_slots, stamped, arms), or
+// returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K4_MATCH(P_, A_, K_, S_, B_, M_)                                              \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && (dims[3] != 0) == S_) \
-    return fn(Inst<P_, A_, K_, S_, B_, M_>{});
+#define K4_MATCH(P_, A_, K_, S_, R_, B_, M_)                                                \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_) \
+    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
   K4_INSTANCES(K4_MATCH)
 #undef K4_MATCH
   return cudaErrorInvalidValue;
@@ -588,38 +486,44 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 
 }  // namespace
 
-// C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped, where stamped
-// is 1 when the state's buffers carry delay stamps (30 leaves, else 28),
-// then the dynamic shared bytes a block, fused_tick.SP_STAGING's); `tick`
-// is the device int32 tick scalar, read by the kernel and advanced by the
-// caller.  p_delay > 0 needs the plan's link_delay.  Returns cudaSuccess or
-// the first error: an unknown shape or too few shared bytes
+// C entry point, loaded with ctypes (arguments: read_gray_args in
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped, arms, where
+// stamped is 1 when the state's buffers carry delay stamps (30 leaves, else
+// 28; 3 more with snapshot shadows, which stale_k > 0 needs) and arms 1 for
+// the instantiation with the gray-failure and partition arms, which a knob
+// of theirs needs, then the dynamic shared bytes a block,
+// fused_tick.SP_STAGING's); `tick` is the device int32 tick scalar, read by
+// the kernel and advanced by the caller.  p_delay > 0 needs a stamped
+// instantiation and the plan's link_delay.  Returns cudaSuccess or the
+// first error: an unknown instantiation, a leaf count that is not its
+// state's, a knob on without its arms or too few shared bytes
 // (cudaErrorInvalidValue), a shared-memory request the card refuses, or
 // the launch's cudaGetLastError().
 extern "C" int fused_synchpaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                        void** plan, void* tick, const long long* params,
                                        int n_params, void* stream) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
-  const int stamped = dims[3];
+  if (n_dims != 6) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
-  const cudaError_t bad = read_args(leaves, n_leaves, stamped ? kStampedLeaves : kLeaves, plan,
-                                    params, n_params, &L, &pl, &prm, true);
+  Gray gray;
+  const cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params,
+                                         &L, &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
   if (bad != cudaSuccess) return bad;
-  if (stamped) move_stamps_last(&L);
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[4];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::launch(L, pl, t, prm, smem, s); });
+  const int smem = dims[5];
+  return dispatch(dims, [&](auto inst, auto with_arms) {
+    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
+    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  });
 }
 
 // The blocks of instantiation `dims` (as for fused_synchpaxos_launch) that
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_synchpaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
-  const int smem = dims[4];
-  return dispatch(dims, [&](auto inst) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 6) return cudaErrorInvalidValue;
+  const int smem = dims[5];
+  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

@@ -19,16 +19,16 @@ the two packages.  The default block is the reference's per protocol:
 stream ids with ``counter_masks``, and 256 for Multi-Paxos, which draws
 from its own ids with ``mp_counter_masks``.
 
-Only the SynchPaxos kernel models the bounded-delay channel: it takes a
-state with or without ``until`` stamps (an instantiation each) and the
-plan's ``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
-The Paxos, Fast Paxos, Raft-core and Multi-Paxos kernels model the
-gray-failure and partition arms (``protocols.paxos.GRAY_KNOBS``), each in
-an instantiation of its own that the wrapper picks when a knob of theirs
-is on (the last field of their ``KERNEL_SHAPES``, ``arms``:
-:func:`gray_arms`); it reads the plan's partition and gray leaves and,
-under ``stale_k``, the state's snapshot shadows.  The SynchPaxos kernel
-refuses those knobs.
+The Paxos and SynchPaxos kernels model the bounded-delay channel: each
+takes a state with or without ``until`` stamps (an instantiation each, the
+``stamped`` field of their ``KERNEL_SHAPES``) and the plan's
+``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
+Every fused kernel models the gray-failure and partition arms
+(``protocols.paxos.GRAY_KNOBS``), in an instantiation of its own that the
+wrapper picks when a knob of theirs is on (the last field of the
+``KERNEL_SHAPES``, ``arms``: :func:`gray_arms`); it reads the plan's
+partition and gray leaves and, under ``stale_k``, the state's snapshot
+shadows.
 
 Every kernel keeps part of each lane's state in shared memory for the
 whole chunk: the Multi-Paxos kernel its slot arrays, the SynchPaxos kernel
@@ -74,21 +74,26 @@ DEFAULT_BLOCK = 1024
 # a ballot by less than 2 * MAX_PROPOSERS.
 BALLOT_GROWTH_PER_TICK = 16
 
-# Shapes each CUDA kernel is instantiated for: (n_prop, n_acc, k_slots,
-# arms) of config2/config4/config5 and config1, and (2, 3, 8), the
+# Shapes each CUDA kernel is instantiated for: Fast Paxos and Raft-core
+# (n_prop, n_acc, k_slots, arms) of config5 and (2, 3, 8), the
 # three-acceptor shape the reference's own kernel tests run
 # (tests/test_fused.py), with arms 1 (the gray-failure and partition arms)
-# at (2, 5, 8), the shape of every config that sets them;
-# SynchPaxos (n_prop, n_acc, k_slots, stamped) of config_delay_chaos (with
-# delay stamps) and of its delay-free runs, and three acceptors;
+# at (2, 5, 8), the shape of every config that sets them; Paxos
+# (n_prop, n_acc, k_slots, stamped, arms) of config2/config4 and config1,
+# with stamped 1 (delay stamps, p_delay > 0) at (2, 5, 8) without and
+# with the arms, and arms 1 at (2, 5, 8);
+# SynchPaxos (n_prop, n_acc, k_slots, stamped, arms) of
+# config_delay_chaos (with delay stamps) and of its delay-free runs, three
+# acceptors, and the arms at (2, 5, 8) without stamps (config_gray_chaos)
+# and with them;
 # Multi-Paxos (n_prop, n_acc, log_len, k_slots, arms) of config3,
 # config3-long, the reference tests' 4-slot window, and three acceptors,
 # with arms 1 at config3's (2, 5, 8, 4).
 KERNEL_SHAPES = {
-    "paxos": ((2, 5, 8, 0), (1, 3, 8, 0), (2, 5, 8, 1)),
+    "paxos": ((2, 5, 8, 0, 0), (1, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1)),
     "fastpaxos": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
     "raftcore": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
-    "synchpaxos": ((2, 5, 8, 1), (2, 5, 8, 0), (2, 3, 8, 1)),
+    "synchpaxos": ((2, 5, 8, 1, 0), (2, 5, 8, 0, 0), (2, 3, 8, 1, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 1)),
     "multipaxos": (
         (2, 5, 8, 4, 0), (2, 5, 16, 4, 0), (2, 5, 4, 4, 0), (2, 3, 8, 4, 0), (2, 5, 8, 4, 1),
     ),
@@ -160,7 +165,7 @@ MP_STAGING = {
 
 
 # The SynchPaxos state leaves K4 keeps in shared memory for a whole chunk
-# (csrc/fused_synchpaxos_tick.cu ``SpStaged``), in column order, each with
+# (``sd::SdStaged`` in csrc/fused_common.cuh), in column order, each with
 # the message kinds it stages (None: every row of the leaf); the stamps only
 # where the state carries them.  The kinds a leaf does not stage are those
 # the tick only ever writes as 0 (``SP_ZERO_WORDS``): they get no row, and
@@ -199,7 +204,7 @@ def sp_staged_rows(n_prop: int, n_acc: int, k_slots: int, stamped: int) -> int:
 
 
 def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
-    rows = sp_staged_rows(*shape)
+    rows = sp_staged_rows(*shape[:4])  # the arms (the key's fifth field) add no row
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
@@ -207,28 +212,22 @@ def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
 # As K5's, the tick is a long dependent chain a lane, so the warps an SM
 # holds set the pace: 3 blocks of 128 lanes (12 warps), which caps a
 # thread at 168 registers; the stamped (2, 5, 8) column (144 words, the
-# learner table included) leaves room for no fourth block.
-SP_STAGING = {
-    (2, 5, 8, 1): _sp_staging((2, 5, 8, 1), 128, 3),
-    (2, 5, 8, 0): _sp_staging((2, 5, 8, 0), 128, 3),
-    (2, 3, 8, 1): _sp_staging((2, 3, 8, 1), 128, 3),
-}
+# learner table included) leaves room for no fourth block.  The arms
+# instantiations keep their default's column (the snapshot shadows stay in
+# global memory).
+SP_STAGING = {shape: _sp_staging(shape, 128, 3) for shape in KERNEL_SHAPES["synchpaxos"]}
 
 
 # The Paxos, Fast Paxos and Raft-core state leaves K1, K2 and K3 keep in
 # shared memory for a whole chunk (``sd::SdStaged`` in
 # csrc/fused_common.cuh), in column order, each with the message kinds it
-# stages (None: every row of the leaf), as ``SP_STAGED_LEAVES`` without the
-# stamps.  Paxos shares Fast Paxos's message layout; Raft-core stages every
-# request's v1: a REQVOTE carries the candidate's entry term.
-_PAXOS_STAGED_LEAVES = (
-    ("requests.bal", (0, 1)), ("requests.v1", (1,)), ("replies.bal", (0, 1)),
-    ("replies.v1", (0, 1)), ("replies.v2", (0,)),
-    ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
-)
+# stages (None: every row of the leaf): Paxos ``SP_STAGED_LEAVES`` (the
+# stamps only where the state carries them), Fast Paxos the same without
+# the stamps; Raft-core stages every request's v1: a REQVOTE carries the
+# candidate's entry term.
 FR_STAGED_LEAVES = {
-    "paxos": _PAXOS_STAGED_LEAVES,
-    "fastpaxos": _PAXOS_STAGED_LEAVES,
+    "paxos": SP_STAGED_LEAVES,
+    "fastpaxos": tuple(x for x in SP_STAGED_LEAVES if not x[0].endswith(".until")),
     "raftcore": (
         ("requests.bal", (0, 1)), ("requests.v1", (0, 1)), ("replies.bal", (0, 1)),
         ("replies.v1", (0, 1)), ("replies.v2", (0,)),
@@ -247,17 +246,20 @@ FR_ZERO_WORDS = {
 }
 
 
-def fr_staged_rows(protocol: str, n_prop: int, n_acc: int, k_slots: int) -> int:
+def fr_staged_rows(
+    protocol: str, n_prop: int, n_acc: int, k_slots: int, stamped: int = 0
+) -> int:
     """Words of a K1, K2 or K3 lane's column: the request ballots (2PA) and
     staged values (PA, Raft-core 2PA), the reply ballots and first payloads
-    (2PA each) and kind-0 second payloads (PA), and the learner table
-    (3K)."""
+    (2PA each) and kind-0 second payloads (PA), the stamps of both buffers
+    (2PA each) where stamped (Paxos), and the learner table (3K)."""
     e = n_prop * n_acc
-    return (9 if protocol == "raftcore" else 8) * e + 3 * k_slots
+    return (9 if protocol == "raftcore" else 8) * e + (4 * e if stamped else 0) + 3 * k_slots
 
 
 def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
-    rows = fr_staged_rows(protocol, *shape[:3])
+    stamped = shape[3] if protocol == "paxos" else 0  # K1's key: (P, A, K, stamped, arms)
+    rows = fr_staged_rows(protocol, *shape[:3], stamped)
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
@@ -265,15 +267,18 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # to the kernel: K4's, 3 blocks of 128 lanes (12 warps) an SM, which caps a
 # thread at 168 registers; K2's (2, 5, 8) column (104 words) leaves room
 # for a fourth block (16 warps, 128 registers), which made its main path
-# 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's columns (104
-# and 48 words) take 4 blocks at both shapes.  Each arms instantiation
-# keeps its default's column (the snapshot shadows stay in global memory),
-# and its registers are capped for 3 blocks.
+# 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's unstamped
+# columns (104 and 48 words) take 4 blocks at both shapes; its stamped
+# (2, 5, 8) column (144 words, 72 KiB a block) leaves room for 3.  Each arms
+# instantiation keeps its default's column (the snapshot shadows stay in
+# global memory), and its registers are capped for 3 blocks.
 FR_STAGING = {
     "paxos": {
-        (2, 5, 8, 0): _fr_staging("paxos", (2, 5, 8), 128, 4),
-        (1, 3, 8, 0): _fr_staging("paxos", (1, 3, 8), 128, 4),
-        (2, 5, 8, 1): _fr_staging("paxos", (2, 5, 8), 128, 3),
+        (2, 5, 8, 0, 0): _fr_staging("paxos", (2, 5, 8, 0), 128, 4),
+        (1, 3, 8, 0, 0): _fr_staging("paxos", (1, 3, 8, 0), 128, 4),
+        (2, 5, 8, 0, 1): _fr_staging("paxos", (2, 5, 8, 0), 128, 3),
+        (2, 5, 8, 1, 0): _fr_staging("paxos", (2, 5, 8, 1), 128, 3),
+        (2, 5, 8, 1, 1): _fr_staging("paxos", (2, 5, 8, 1), 128, 3),
     },
     "fastpaxos": {
         (2, 5, 8, 0): _fr_staging("fastpaxos", (2, 5, 8), 128, 4),
@@ -389,15 +394,18 @@ def _gray_params(cfg: FaultConfig) -> list:
 
 def gray_arms(cfg: FaultConfig) -> int:
     """1 when ``cfg`` turns on an arm of the gray-failure and partition
-    instantiation of K1, K2, K3 or K5, else 0 (the default
+    instantiation of K1 to K5, else 0 (the default
     instantiation)."""
     return int(any(_gray_params(cfg)))
 
 
 BINDINGS = {
+    # ``stamped`` (1 when the buffers carry ``until``) and the arms pick
+    # the instantiation.
     "paxos": Binding(
         apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch",
-        staging=FR_STAGING["paxos"], arms=gray_arms,
+        shape_fields=("n_prop", "n_acc", "k_slots", "stamped"), staging=FR_STAGING["paxos"],
+        arms=gray_arms,
     ),
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
@@ -407,12 +415,11 @@ BINDINGS = {
         apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch",
         staging=FR_STAGING["raftcore"], arms=gray_arms,
     ),
-    # core/sp_state.py SP_LAYOUT: the single-decree widths; ``stamped`` (1
-    # when the buffers carry ``until``) picks the instantiation.
+    # core/sp_state.py SP_LAYOUT: the single-decree widths; as Paxos.
     "synchpaxos": Binding(
         apply_tick_sp, counter_masks, SynchPaxosState, "fused_synchpaxos_tick",
         "fused_synchpaxos_launch", shape_fields=("n_prop", "n_acc", "k_slots", "stamped"),
-        staging=SP_STAGING,
+        staging=SP_STAGING, arms=gray_arms,
     ),
     # core/mp_state.py MP_LAYOUT: an 11-bit report limit in a 12-bit field.
     "multipaxos": Binding(
@@ -531,10 +538,10 @@ def _kernel_params(
 # The plan leaves every kernel receives, in ``Plan``'s order
 # (csrc/fused_common.cuh), each optional one passed as a null pointer when
 # the plan has none: the single-decree kernels ignore the proposer crash
-# windows, only SynchPaxos' reads link_delay, and only the arms
-# instantiations of Paxos', Fast Paxos', Raft-core's and Multi-Paxos' the
-# partition and gray leaves after it (the per-link ones (P, A, I) and the
-# skew (P, I) at the state's own n_prop and n_acc).
+# windows, only the stamped instantiations of Paxos' and SynchPaxos' read
+# link_delay, and only the arms instantiations the partition and gray
+# leaves after it (the per-link ones (P, A, I) and the skew (P, I) at the
+# state's own n_prop and n_acc).
 _PLAN_LEAVES = (
     "crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end", "link_delay",
     "part_start", "part_end", "aside", "pside", "part_dir", "link_drop", "link_dup",
@@ -765,7 +772,9 @@ def fused_paxos_chunk(
     returning it; ``.launches`` counts the launches; a launch the card
     refuses raises.  A config with a gray-failure or partition knob on runs
     the kernel's arms instantiation (:func:`gray_arms`), on a plan with the
-    leaves its knobs need; so do Fast Paxos, Raft-core and Multi-Paxos.
+    leaves its knobs need; so do Fast Paxos, Raft-core, SynchPaxos and
+    Multi-Paxos.  A state with delay stamps runs a stamped instantiation,
+    and ``p_delay > 0`` needs a plan with ``link_delay``; so does SynchPaxos.
     CPU: the plain :func:`reference_chunk`.  There is no fallback between
     the two: the device of the state decides."""
     return _fused_chunk(
@@ -840,7 +849,8 @@ def fused_synchpaxos_chunk(
     (``csrc/fused_synchpaxos_tick.cu``, at the geometry ``SP_STAGING``
     gives the state's shape; a launch the card refuses raises), on a state
     with or without delay stamps; ``p_delay > 0`` needs a plan with
-    ``link_delay``."""
+    ``link_delay``.  A gray-failure or partition knob runs an arms
+    instantiation at ``(2, 5, 8)``, stamped or not."""
     return _fused_chunk(
         "synchpaxos", fused_synchpaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,

@@ -8,16 +8,17 @@ CUDA kernel (``kernels/fused_tick``) replays them tick by tick.
 
 Ported knobs: ``p_drop``, ``p_dup``, ``p_idle``, ``p_hold``, ``timeout``,
 ``backoff_max``, ``ballot_stride``, ``q1``, ``q2``, and the plan's crash
-windows and equivocation flags; for Paxos, Fast Paxos, Raft-core and
-Multi-Paxos also the gray-failure and partition arms (``p_part`` with
-``p_asym``, ``p_flaky``, ``p_corrupt``, ``timeout_skew``,
-``backoff_skew``, ``stale_k``, ``amnesia``), whose pieces the four ticks
-share (:func:`recover`, :func:`partition_cuts`, :func:`gray_links`,
-:func:`deliver`, :func:`select`, :func:`corrupt`, :func:`skewed_timers`;
-Multi-Paxos, whose buffers differ, takes the first two and the last
-two); for SynchPaxos the bounded delay (``p_delay``, ``delay_max``:
-:func:`delay_stamps`) and ``sp_unsafe_fast``.
-Any other knob raises ``NotImplementedError`` naming its ROADMAP item.
+windows and equivocation flags; for every tick also the gray-failure and
+partition arms (``p_part`` with ``p_asym``, ``p_flaky``, ``p_corrupt``,
+``timeout_skew``, ``backoff_skew``, ``stale_k``, ``amnesia``), whose
+pieces the ticks share (:func:`recover`, :func:`partition_cuts`,
+:func:`gray_links`, :func:`deliver`, :func:`select`, :func:`corrupt`,
+:func:`skewed_timers`; Multi-Paxos, whose buffers differ, takes the first
+two and the last two); for Paxos and SynchPaxos the bounded delay
+(``p_delay``, ``delay_max``: :func:`delay_stamps` on the sends, the
+readiness gates in :func:`deliver` and :func:`select`), for SynchPaxos
+``sp_unsafe_fast``.  Any other knob raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,32 +44,31 @@ from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
 from paxos_tpu_torch.transport import inmemory as net
 
-# The gray-failure and partition knobs, which the Paxos, Fast Paxos,
-# Raft-core and Multi-Paxos ticks (and K1 to K3 and K5) model so far; the
-# SynchPaxos tick raises, naming the ROADMAP item that ports them.  A knob
-# counts as on when it differs from its FaultConfig default.
+# The gray-failure and partition knobs, which every tick (and each of K1 to
+# K5, in an arms instantiation) models.  A knob counts as on when it
+# differs from its FaultConfig default.
 GRAY_KNOBS = (
     "p_part", "p_asym", "p_flaky", "p_corrupt", "timeout_skew", "backoff_skew", "stale_k",
     "amnesia",
 )
-GRAY_PROTOCOLS = ("paxos", "fastpaxos", "raftcore", "multipaxos")
-_GRAY_ITEM = "queue A item 12b (the gray-failure and partition arms of SynchPaxos)"
-# Knobs only the SynchPaxos tick models so far.
-_SYNCHPAXOS_ONLY_KNOBS = {
-    "p_delay": "queue A item 12c (bounded delay on the other ticks)",
-    "sp_unsafe_fast": "queue A item 10 (SynchPaxos' planted bug, read by no other tick)",
+GRAY_PROTOCOLS = ("paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos")
+# Knobs only some ticks model so far: the ticks that do, and the ROADMAP
+# item that ports the knob to the others.
+_DELAY_ITEM = "queue A item 12c (bounded delay on the Fast Paxos, Raft-core and Multi-Paxos ticks)"
+_PARTIAL_KNOBS = {
+    "p_delay": (("paxos", "synchpaxos"), _DELAY_ITEM),
+    "sp_unsafe_fast": (
+        ("synchpaxos",), "queue A item 10 (SynchPaxos' planted bug, read by no other tick)"
+    ),
 }
 
 
 def check_supported(cfg: FaultConfig, protocol: str = "paxos") -> None:
     """Raise ``NotImplementedError`` for a knob ``protocol``'s tick does
     not model in the port."""
-    knobs = {} if protocol in GRAY_PROTOCOLS else dict.fromkeys(GRAY_KNOBS, _GRAY_ITEM)
-    if protocol != "synchpaxos":
-        knobs.update(_SYNCHPAXOS_ONLY_KNOBS)
     default = FaultConfig()
-    for knob, item in knobs.items():
-        if getattr(cfg, knob) != getattr(default, knob):
+    for knob, (protocols, item) in _PARTIAL_KNOBS.items():
+        if protocol not in protocols and getattr(cfg, knob) != getattr(default, knob):
             raise NotImplementedError(
                 f"FaultConfig.{knob}={getattr(cfg, knob)!r} is not ported to "
                 f"paxos_tpu_torch's {protocol} tick yet (ROADMAP {item})"
@@ -76,12 +76,12 @@ def check_supported(cfg: FaultConfig, protocol: str = "paxos") -> None:
 
 
 def check_no_stamps(state, protocol: str) -> None:
-    """Raise unless the state's buffers carry no delay stamps: only the
-    SynchPaxos tick reads ``until``."""
+    """Raise unless the state's buffers carry no delay stamps: the Fast
+    Paxos, Raft-core and Multi-Paxos ticks do not read ``until`` yet."""
     if state.requests.until is not None or state.replies.until is not None:
         raise NotImplementedError(
             f"the {protocol} tick does not read delay stamps (MsgBuf.until) yet "
-            f"(ROADMAP {_SYNCHPAXOS_ONLY_KNOBS['p_delay']})"
+            f"(ROADMAP {_DELAY_ITEM})"
         )
 
 
@@ -193,6 +193,12 @@ def delay_stamps(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> t
     return until[0], until[1]
 
 
+def kind_until(until: Optional[torch.Tensor], kind: int) -> Optional[torch.Tensor]:
+    """Kind ``kind``'s (P, A, I) stamps of :func:`delay_stamps`' per-buffer
+    ``until``, or None when delay is off."""
+    return None if until is None else until[kind]
+
+
 def _per_acceptor(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """An (A, I) mask viewed against an acceptor field ``x`` of shape (A,
     ..., I): Multi-Paxos' slot log is (A, L, I)."""
@@ -285,13 +291,18 @@ def gray_links(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> Lin
 
 def deliver(state, masks: TickMasks, links: Links) -> tuple:
     """(delivered, replies): the replies delivered this tick, those not
-    held and not on a cut link, and the reply buffer with them consumed
-    unless duplicated.  Delivery is decided (and delivered slots cleared)
-    BEFORE the acceptor half-tick writes new replies; proposers read
-    payloads from the pre-tick buffer."""
+    held, arrived (a stamped buffer's ``tick >= until``) and not on a cut
+    link, and the reply buffer with them consumed unless duplicated.
+    Delivery is decided (and delivered slots cleared) BEFORE the acceptor
+    half-tick writes new replies; proposers read payloads from the pre-tick
+    buffer.  A reply still delayed or cut stays in flight: delay and cuts
+    lose nothing."""
     delivered = state.replies.present
     if masks.deliver is not None:
         delivered = delivered & masks.deliver
+    ready = net.ready(state.replies, state.tick)
+    if ready is not None:  # delayed replies have not arrived yet
+        delivered = delivered & ready
     if links.link_rep is not None:  # cut replies stay in flight
         delivered = delivered & links.link_rep[None]
     return delivered, net.consume(state.replies, delivered, stay=links.dup_rep)
@@ -299,9 +310,14 @@ def deliver(state, masks: TickMasks, links: Links) -> tuple:
 
 def select(state, masks: TickMasks, plan: FaultPlan, links: Links) -> torch.Tensor:
     """(2, P, A, I) bool: the request each acceptor processes this tick,
-    one at most.  A request on a cut link still takes part in the
-    selection; the cut masks the selected slot after it, as a crash does."""
-    sel = net.select_from_scores(state.requests.present, masks.sel_score, masks.busy)
+    one at most, among those arrived (a stamped buffer's ``tick >=
+    until``).  A request on a cut link still takes part in the selection;
+    the cut masks the selected slot after it, as a crash does."""
+    present = state.requests.present
+    ready = net.ready(state.requests, state.tick)
+    if ready is not None:  # delayed requests have not arrived yet
+        present = present & ready
+    sel = net.select_from_scores(present, masks.sel_score, masks.busy)
     sel = sel & plan.alive(state.tick)[None, None]  # crashed acceptors process nothing
     if links.link_req is not None:  # cut requests stay in flight
         sel = sel & links.link_req[None]
@@ -333,7 +349,6 @@ def apply_tick(
 ) -> PaxosState:
     """The pure protocol transition for one tick over pre-sampled masks."""
     check_supported(cfg)
-    check_no_stamps(state, "paxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
     quorum = majority(n_acc)
@@ -344,6 +359,7 @@ def apply_tick(
     acc = recover(state.acceptor, state, plan, cfg)
     acc_pre = acc
     links = gray_links(masks, plan, cfg, state.tick)
+    until_req, until_rep = delay_stamps(masks, plan, cfg, state.tick)
     delivered, replies = deliver(state, masks, links)
 
     # ---- Acceptor half-tick: select one request per (instance, acceptor) ----
@@ -377,13 +393,13 @@ def apply_tick(
         replies, PROMISE,
         send_mask=sel[PREPARE] & ok_prep[None],
         bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
-        keep=links.keep_prom,
+        keep=links.keep_prom, until=kind_until(until_rep, PROMISE),
     )
     replies = net.send(
         replies, ACCEPTED,
         send_mask=sel[ACCEPT] & ok_acc[None],
         bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
-        keep=links.keep_accd,
+        keep=links.keep_accd, until=kind_until(until_rep, ACCEPTED),
     )
     requests = net.consume(state.requests, sel, stay=links.dup_req)
     acc_new = dataclasses.replace(
@@ -461,13 +477,13 @@ def apply_tick(
         requests, ACCEPT,
         send_mask=p1_done[:, None].expand(n_prop, n_acc, n_inst),
         bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=links.keep_p2,
+        keep=links.keep_p2, until=kind_until(until_req, ACCEPT),
     )
     requests = net.send(
         requests, PREPARE,
         send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=zeros, v2=zeros,
-        keep=links.keep_p1,
+        keep=links.keep_p1, until=kind_until(until_req, PREPARE),
     )
     prop = dataclasses.replace(
         prop,

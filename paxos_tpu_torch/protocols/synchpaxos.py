@@ -15,9 +15,13 @@ bounded-delay window ``FaultConfig.delta`` (see :mod:`paxos_tpu_torch.core.sp_st
 Acceptors, learner and checker are classic Paxos'.  The bounded-delay
 channel is the transport's: sends carry :func:`delay_stamps`' ``until``
 stamps, and a slot is delivered (a request selected) only once ``tick >=
-until``.  Masks come from :func:`paxos_tpu_torch.protocols.paxos.counter_masks`.
-The observer planes are absent and the other gray knobs raise, as in the
-Paxos tick.
+until``.  The gray-failure and partition arms are the Paxos tick's shared
+pieces (:func:`recover`, :func:`gray_links`, :func:`deliver`,
+:func:`select`, :func:`corrupt`, :func:`skewed_timers`): a cut stalls a
+message, stamped or not, and the timeout skew moves the classic deadline
+only (FAST's stays ``delta``).  Masks come from
+:func:`paxos_tpu_torch.protocols.paxos.counter_masks`.  The observer planes
+are absent, as in the Paxos tick.
 """
 
 from __future__ import annotations
@@ -33,7 +37,18 @@ from paxos_tpu_torch.core.sp_state import FAST, SynchPaxosState, sync_ballot
 from paxos_tpu_torch.core.state import DONE, P1, P2
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
-from paxos_tpu_torch.protocols.paxos import TickMasks, check_supported, delay_stamps
+from paxos_tpu_torch.protocols.paxos import (
+    TickMasks,
+    check_supported,
+    corrupt,
+    delay_stamps,
+    deliver,
+    gray_links,
+    kind_until,
+    recover,
+    select,
+    skewed_timers,
+)
 from paxos_tpu_torch.transport import inmemory as net
 from paxos_tpu_torch.utils.bitops import popcount
 
@@ -51,28 +66,16 @@ def apply_tick_sp(
     delta = max(cfg.delta, 0)
     dev = state.device
 
-    acc = state.acceptor
-    alive = plan.alive(state.tick)  # (A, I)
     equiv = plan.equivocate  # (A, I)
+    acc = recover(state.acceptor, state, plan, cfg)
+    links = gray_links(masks, plan, cfg, state.tick)
 
-    # Send stamps and readiness gates of the bounded-delay channel.
+    # Send stamps; the readiness gates are deliver's and select's.
     until_req, until_rep = delay_stamps(masks, plan, cfg, state.tick)
-    rdy_req = net.ready(state.requests, state.tick)
-    rdy_rep = net.ready(state.replies, state.tick)
-
-    delivered = state.replies.present
-    if masks.deliver is not None:
-        delivered = delivered & masks.deliver
-    if rdy_rep is not None:  # delayed replies have not arrived yet
-        delivered = delivered & rdy_rep
-    replies = net.consume(state.replies, delivered, stay=masks.dup_rep)
+    delivered, replies = deliver(state, masks, links)
 
     # ---- Acceptor half-tick (classic Paxos) ----
-    req_present = state.requests.present
-    if rdy_req is not None:  # delayed requests have not arrived yet
-        req_present = req_present & rdy_req
-    sel = net.select_from_scores(req_present, masks.sel_score, masks.busy)
-    sel = sel & alive[None, None]
+    sel = select(state, masks, plan, links)
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=torch.int32)
@@ -81,6 +84,7 @@ def apply_tick_sp(
     msg_val = gather(state.requests.v1)  # (A, I)
     is_prep = sel[PREPARE].any(dim=0)
     is_acc = sel[ACCEPT].any(dim=0)
+    msg_bal, msg_val = corrupt(masks, cfg, msg_bal, msg_val, is_prep, is_acc)
 
     ok_prep_h = is_prep & ~equiv & (msg_bal > acc.promised)
     ok_prep = ok_prep_h | (is_prep & equiv)
@@ -98,17 +102,15 @@ def apply_tick_sp(
         replies, PROMISE,
         send_mask=sel[PREPARE] & ok_prep[None],
         bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
-        keep=masks.keep_prom,
-        until=None if until_rep is None else until_rep[PROMISE],
+        keep=links.keep_prom, until=kind_until(until_rep, PROMISE),
     )
     replies = net.send(
         replies, ACCEPTED,
         send_mask=sel[ACCEPT] & ok_acc[None],
         bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
-        keep=masks.keep_accd,
-        until=None if until_rep is None else until_rep[ACCEPTED],
+        keep=links.keep_accd, until=kind_until(until_rep, ACCEPTED),
     )
-    requests = net.consume(state.requests, sel, stay=masks.dup_req)
+    requests = net.consume(state.requests, sel, stay=links.dup_req)
     acc_new = dataclasses.replace(acc, promised=promised, acc_bal=acc_bal, acc_val=acc_val)
 
     # ---- Learner / safety checker ----
@@ -157,8 +159,9 @@ def apply_tick_sp(
     p2_done = (prop.phase == P2) & quorum_reached(heard, q2)
     v_chosen_by_p1 = torch.where(best_bal > 0, best_val, prop.own_val)
 
-    # FAST's deadline is the window delta, not the classic timeout.
-    deadline = torch.where(prop.phase == FAST, delta, cfg.timeout)
+    # FAST's deadline is the window delta, not the (skewed) classic timeout.
+    timeout, backoff = skewed_timers(masks, plan, cfg)
+    deadline = torch.where(prop.phase == FAST, delta, timeout)
     expired = (prop.phase != DONE) & ~p1_done & ~p2_done & ~fast_done & (timer > deadline)
     pid = torch.arange(n_prop, dtype=torch.int32, device=dev)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
@@ -174,7 +177,7 @@ def apply_tick_sp(
     best_bal = torch.where(expired, 0, best_bal)
     best_val = torch.where(expired, 0, best_val)
     timer = torch.where(p1_done, 0, timer)
-    timer = torch.where(expired, -masks.backoff, timer)
+    timer = torch.where(expired, -backoff, timer)
 
     # Emit: the leader's round-0 broadcast at its pre-tick timer 0 in FAST
     # (disjoint from p1_done, so both ACCEPT sends compose), the classic
@@ -182,25 +185,24 @@ def apply_tick_sp(
     zeros = torch.zeros((n_prop, 1, n_inst), dtype=torch.int32, device=dev)
     fast_kick = (prop.phase == FAST) & (prop.timer == 0)
     edges = (n_prop, n_acc, n_inst)
-    until_acc = None if until_req is None else until_req[ACCEPT]
+    until_acc = kind_until(until_req, ACCEPT)
     requests = net.send(
         requests, ACCEPT,
         send_mask=fast_kick[:, None].expand(edges),
         bal=prop.bal[:, None], v1=prop.own_val[:, None], v2=zeros,
-        keep=masks.keep_p2, until=until_acc,
+        keep=links.keep_p2, until=until_acc,
     )
     requests = net.send(
         requests, ACCEPT,
         send_mask=p1_done[:, None].expand(edges),
         bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=masks.keep_p2, until=until_acc,
+        keep=links.keep_p2, until=until_acc,
     )
     requests = net.send(
         requests, PREPARE,
         send_mask=expired[:, None].expand(edges),
         bal=bal_next[:, None], v1=zeros, v2=zeros,
-        keep=masks.keep_p1,
-        until=None if until_req is None else until_req[PREPARE],
+        keep=links.keep_p1, until=kind_until(until_req, PREPARE),
     )
     prop = dataclasses.replace(
         prop,

@@ -4,11 +4,22 @@ import dataclasses
 import os
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from paxos_tpu.faults.injector import FaultPlan as JFaultPlan
+from paxos_tpu.harness import config as JC
+from paxos_tpu.harness.run import init_plan as j_init_plan
+from paxos_tpu.harness.run import init_state as j_init_state
+from paxos_tpu.kernels.fused_tick import fused_fns
+from paxos_tpu.kernels.fused_tick import reference_chunk as j_reference_chunk
+from paxos_tpu_torch import interop
+from paxos_tpu_torch.harness import run as trun
+from paxos_tpu_torch.kernels import fused_tick as tfused
 
 
 def jax_plan_of(tplan):
@@ -18,6 +29,58 @@ def jax_plan_of(tplan):
         f.name: None if getattr(tplan, f.name) is None else jnp.asarray(getattr(tplan, f.name).numpy())
         for f in dataclasses.fields(tplan)
     })
+
+
+def _np_leaves(tree):
+    return [np.asarray(x) for x in jax.tree.leaves(tree)]
+
+
+def jax_config(tcfg):
+    """The JAX package's SimConfig with ``tcfg``'s fields."""
+    return dataclasses.replace(
+        JC.config2_dueling_drop(tcfg.n_inst, tcfg.seed),
+        protocol=tcfg.protocol, n_prop=tcfg.n_prop, n_acc=tcfg.n_acc, k_slots=tcfg.k_slots,
+        fault=JC.FaultConfig(**dataclasses.asdict(tcfg.fault)),
+    )
+
+
+def check_against_jax(tcfg, ticks, jax_plan: bool):
+    """``tcfg``'s plain tick (the port's ``reference_chunk``) against the
+    JAX package's ``reference_chunk`` with ``fused_fns``, leaf for leaf,
+    over ``ticks`` ticks from the same initial state, on the plan the JAX
+    package samples (``jax_plan``) or on chip_smoke's numpy plan; returns
+    the final state's leaves."""
+    jcfg = jax_config(tcfg)
+    assert jcfg.fingerprint() == tcfg.fingerprint()
+    state = trun.init_state(tcfg, "cpu")
+    assert state.snapshots == (tcfg.fault.stale_k > 0)
+    assert state.stamped == (tcfg.fault.p_delay > 0)
+    jstate = j_init_state(jcfg)
+    init = _np_leaves(jstate)
+    for w, g in zip(init, interop.state_to_numpy(state), strict=True):
+        np.testing.assert_array_equal(w, g)
+    if jax_plan:
+        with jax.threefry_partitionable(False):
+            jplan = j_init_plan(jcfg)
+        plan = interop.plan_from_numpy(_np_leaves(jplan), cfg=tcfg.fault)
+    else:
+        plan = chip_smoke.config_plan(tcfg, tcfg.seed, "cpu")
+        jplan = jax_plan_of(plan)
+    apply_fn, mask_fn, _ = fused_fns(tcfg.protocol)
+    want = jax.jit(
+        lambda st, pl: j_reference_chunk(st, tcfg.seed, pl, jcfg.fault, ticks, apply_fn, mask_fn)
+    )(jstate, jplan)
+    got = tfused.reference_chunk(
+        state, tcfg.seed, plan, tcfg.fault, ticks, apply_fn=tfused.BINDINGS[tcfg.protocol].apply_fn
+    )
+    want, got = _np_leaves(want), interop.state_to_numpy(got)
+    assert len(want) == len(got) == len(init)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert w.dtype == g.dtype and w.shape == g.shape, i
+        np.testing.assert_array_equal(w, g, err_msg=f"leaf {i}")
+    # The case reaches its arm: the run moved the state.
+    assert not all((a == b).all() for a, b in zip(got, init))
+    return got
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,18 +27,21 @@ every instantiation on lane counts no CUDA block divides, with the same
 geometry, refusal and phase-clock checks, and so is K1 (Paxos), which
 keeps its payloads and learner table in the same column, on duplicates, a
 ballot stride with a shorter timeout and uneven quorums.  The arms
-instantiations of K1, K2 and K3 are held so on every gray-failure and
+instantiations of K1 to K4 are held so on every gray-failure and
 partition knob alone and on the configs that set them
-(``gray_knob_configs``; K2 and K3 also on every knob at once), and give the
-gray-chaos main paths' block-0 digests; so is K5's, on config3's cell, on
-every knob at once and on the JAX package's own two cases, and K5 on the
-knobs its main paths leave at their defaults (p_dup, q1/q2, a ballot
-stride).  A plan without ``link_delay`` under ``p_delay > 0`` is refused,
-and the other kernels refuse ``p_delay``; K4 refuses the gray knobs, and
-K1 to K3 and K5 a gray knob that reaches an instantiation without its
-arms, an arms instantiation without a knob, and stale_k on a state
-without snapshot shadows; K5 a gray config at a shape without its arms
-(config_gray_chaos's own 8-row learner table).
+(``gray_knob_configs``; K2 to K4 also on every knob at once, K4's with its
+stamps), and give the gray-chaos main paths' block-0 digests; so is K5's,
+on config3's cell, on every knob at once and on the JAX package's own two
+cases, and K5 on the knobs its main paths leave at their defaults (p_dup,
+q1/q2, a ballot stride).  K1's stamped instantiations (its bounded-delay
+channel) are held so on ``delay_knob_configs`` and give the
+delaychaos-paxos block-0 digest.  A plan without ``link_delay`` under
+``p_delay > 0`` is refused by K1 and K4, a stamped state on an unstamped
+instantiation and p_delay on an unstamped one by K1, and the other
+kernels refuse ``p_delay``; K1 to K5 refuse a gray knob that reaches an
+instantiation without its arms, an arms instantiation without a knob, and
+stale_k on a state without snapshot shadows; K5 a gray config at a shape
+without its arms (config_gray_chaos's own 8-row learner table).
 """
 
 import dataclasses
@@ -56,7 +59,9 @@ from chip_smoke import (
     MP_GOLDEN,
     SLOT_CENSUS,
     SP_GOLDEN,
+    STAMP_CENSUS,
     config_plan,
+    delay_knob_configs,
     fault_plan,
     fr_knob_configs,
     gray_knob_configs,
@@ -252,12 +257,13 @@ def test_multipaxos_geometry_fits_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", PROTOCOLS + ["config3", "config3long"])
+@pytest.mark.parametrize("path", PROTOCOLS + ["config3", "config3long", "delaychaos-paxos"])
 def test_draw_census_build_follows_the_kernel(path):
     """The draw-counting build advances the state as the kernel does, counts
     no launch, draws at most every mask element of every tick, and touches
-    slot arrays (Multi-Paxos only) at most as often as the census rewrites
-    them."""
+    slot arrays (Multi-Paxos) at most as often as the census rewrites them
+    and delay stamps (K1's stamped instantiation) at most 4 * 2PA a
+    lane-tick."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     mp = MAIN_PATHS[path]
@@ -276,6 +282,8 @@ def test_draw_census_build_follows_the_kernel(path):
     assert 0 < draws <= MASK_CENSUS[mp.census][1] * lane_ticks
     if mp.protocol == "multipaxos":
         assert 0 < touches <= SLOT_CENSUS[mp.census][1] * lane_ticks
+    elif mp.census in STAMP_CENSUS:
+        assert 0 < touches <= 4 * 2 * cfg.n_prop * cfg.n_acc * lane_ticks
     else:
         assert touches == 0  # the single-decree state sits in registers
     again = tfused.draw_census(mp.protocol, trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
@@ -326,13 +334,17 @@ def test_synchpaxos_kernel_ragged_grid_on_cuda(shape):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     n = 1000
     assert n % tfused.SP_STAGING[shape].threads != 0
-    n_prop, n_acc, _, stamped = shape
-    cfg = TC.config_delay_chaos(n, 9, violate_delta=True) if stamped else sp_delay_off_config(n, 9)
+    n_prop, n_acc, _, stamped, arms = shape
+    if arms:  # K4's arms: every knob at once with the stamps, else config_gray_chaos's
+        name = "every gray knob, stamped" if stamped else "config_gray_chaos"
+        cfg = gray_knob_configs(n, 9, "synchpaxos")[name]
+    else:
+        cfg = TC.config_delay_chaos(n, 9, violate_delta=True) if stamped else sp_delay_off_config(n, 9)
     cfg = dataclasses.replace(cfg, n_acc=n_acc)
     block = tfused.fit_block(1024, n)
     plan = main_plan(cfg) or trun.init_plan(cfg, "cuda")
     plain = trun.init_state(cfg, "cuda")
-    assert tfused.BINDINGS["synchpaxos"].kernel_shape(plain) == shape
+    assert tfused.BINDINGS["synchpaxos"].kernel_shape(plain, cfg.fault) == shape
     kern = plain.clone()
     for _ in range(3):
         plain = plain_chunk(cfg, plain, plan, 64, block)
@@ -351,7 +363,7 @@ def test_synchpaxos_refused_launch_raises(monkeypatch):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     cfg = main_config("synchpaxos", 1024, 3)
     plan = main_plan(cfg)
-    shape = (2, 5, 8, 1)
+    shape = (2, 5, 8, 1, 0)
     staging = tfused.SP_STAGING[shape]
     state = tfused.fused_synchpaxos_chunk(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 16)
     before, launches = state.clone(), tfused.fused_synchpaxos_chunk.launches
@@ -400,17 +412,43 @@ def test_synchpaxos_phase_clocks_follow_the_kernel():
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_model():
-    """K4 refuses a plan without link_delay under p_delay > 0, in the
-    wrapper and in its C entry point; K1 to K3 and K5 refuse p_delay."""
+    """K4 and K1 refuse a plan without link_delay under p_delay > 0, in the
+    wrapper and in their C entry points; K1's C entry refuses p_delay on an
+    unstamped instantiation and a stamped state on one; K2, K3 and K5
+    refuse p_delay."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
-    cfg = main_config("synchpaxos", 1024, 1)
     bare = tfused.FaultPlan.none(1024, 5, 2, device="cuda")
-    with pytest.raises(ValueError, match="link_delay"):
-        tfused.fused_synchpaxos_chunk(trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8)
+    for path in ("synchpaxos", "delaychaos-paxos"):
+        cfg = main_config(path, 1024, 1)
+        protocol = MAIN_PATHS[path].protocol
+        with pytest.raises(ValueError, match="link_delay"):
+            tfused.FUSED_WRAPPERS[protocol](trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tfused._launch(protocol, trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8, 1024, 0, False)
+    cfg = main_config("delaychaos-paxos", 1024, 1)
+    plan = main_plan(cfg)
+    unstamped = trun.init_state(main_config("paxos", 1024, 1), "cuda")
+    before = unstamped.clone()
     with pytest.raises(RuntimeError, match="cudaError"):
-        tfused._launch("synchpaxos", trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8, 1024, 0, False)
-    for path in PROTOCOLS + ["config3"]:
+        tfused._launch("paxos", unstamped, 1, plan, cfg.fault, 8, 1024, 0, False)
+    _assert_same(unstamped, before)
+    binding = tfused.BINDINGS["paxos"]
+    # A binding that keys a stamped state to the unstamped instantiation.
+    tfused.BINDINGS["paxos"] = dataclasses.replace(
+        binding, shape_fields=("n_prop", "n_acc", "k_slots", "snapshots")
+    )
+    try:
+        stamped = trun.init_state(cfg, "cuda")
+        before = stamped.clone()
+        assert tfused.BINDINGS["paxos"].kernel_shape(stamped, cfg.fault) == (2, 5, 8, 0, 0)
+        nodelay = dataclasses.replace(cfg.fault, p_delay=0.0)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tfused._launch("paxos", stamped, 1, plan, nodelay, 8, 1024, 0, False)
+        _assert_same(stamped, before)
+    finally:
+        tfused.BINDINGS["paxos"] = binding
+    for path in ["fastpaxos", "raftcore", "config3"]:
         c = main_config(path, 1024, 1)
         delayed = dataclasses.replace(c.fault, p_delay=0.3)
         protocol = MAIN_PATHS[path].protocol
@@ -482,11 +520,18 @@ def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
     assert n % tfused.FR_STAGING[protocol][shape].threads != 0
     n_prop, n_acc = shape[:2]
     cfg = dataclasses.replace(main_config(protocol, n, 9), n_prop=n_prop, n_acc=n_acc)
-    if shape[3:] == (1,):  # K1's arms: config_gray_chaos's knobs on this plan
+    stamped = protocol == "paxos" and shape[3] == 1  # K1's key: (P, A, K, stamped, arms)
+    if stamped:  # K1's channel: config_delay_chaos, or every gray knob with p_delay
+        name = "every gray knob, p_delay 0.4" if shape[-1] else "config_delay_chaos"
+        cfg = dataclasses.replace(cfg, fault=delay_knob_configs(n, 9)[name].fault)
+    elif shape[-1] == 1:  # the arms: config_gray_chaos's knobs on this plan
         gray = gray_knob_configs(n, 9)["config_gray_chaos"].fault
         cfg = dataclasses.replace(cfg, fault=gray)
     block = tfused.fit_block(1024, n)
-    plan = fault_plan(n, n_acc, n_prop, 0.2, 9, p_crash=0.2, gray=cfg.fault)
+    plan = fault_plan(
+        n, n_acc, n_prop, 0.2, 9, p_crash=0.2, p_delay=cfg.fault.p_delay,
+        delay_max=cfg.fault.delay_max, gray=cfg.fault,
+    )
     plain = trun.init_state(cfg, "cuda")
     assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == shape
     kern = plain.clone()
@@ -596,24 +641,47 @@ def test_paxos_gray_arms_match_plain_on_cuda():
 
 @pytest.mark.cuda
 def test_kernels_refuse_gray_knobs_they_do_not_model():
-    """K4 refuses the gray-failure and partition knobs, in the wrapper
-    (ROADMAP item 12) and in its C entry point; K1 refuses them in its C
-    entry on its default instantiation, at a shape without an arms
-    instantiation (the wrapper), and stale_k on a state without snapshot
-    shadows (K2, K3 and K5 likewise: test_fr_arms_refuse_mismatched_launches,
-    test_mp_arms_refuse_mismatched_launches)."""
+    """K4 refuses, in its C entry, a gray knob on an instantiation without
+    its arms (stamped or not), an arms instantiation with no knob on, and
+    stale_k on a state without snapshot shadows (in the wrapper too), and
+    a shape without an arms instantiation in the wrapper; K1 refuses the
+    gray knobs in its C entry on its default instantiation, at a shape
+    without an arms instantiation (the wrapper), and stale_k on a state
+    without snapshot shadows (K2, K3 and K5 likewise:
+    test_fr_arms_refuse_mismatched_launches,
+    test_mp_arms_refuse_mismatched_launches).  No refused launch changes
+    the state or counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     gray = gray_knob_configs(1024, 1)["config_gray_chaos"]
-    for path in ["synchpaxos"]:
-        c = main_config(path, 1024, 1)
-        protocol = MAIN_PATHS[path].protocol
-        plan = config_plan(dataclasses.replace(c, fault=gray.fault), 1)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tfused.FUSED_WRAPPERS[protocol](trun.init_state(c, "cuda"), 1, plan, gray.fault, 8)
-        block = tfused.BINDINGS[protocol].block
-        with pytest.raises(RuntimeError, match="cudaError"):
-            tfused._launch(protocol, trun.init_state(c, "cuda"), 1, plan, gray.fault, 8, block, 0, False)
+    sp_cases = gray_knob_configs(1024, 1, "synchpaxos")
+    sp_binding, wrapper = tfused.BINDINGS["synchpaxos"], tfused.fused_synchpaxos_chunk
+    launches = wrapper.launches
+    for cfg, arms in (
+        (sp_cases["config_gray_chaos"], 0), (sp_cases["every gray knob, stamped"], 0),
+        (main_config("synchpaxos", 1024, 1), 1),
+    ):
+        state = trun.init_state(cfg, "cuda")
+        before = state.clone()
+        tfused.BINDINGS["synchpaxos"] = dataclasses.replace(sp_binding, arms=lambda f, arms=arms: arms)
+        try:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tfused._launch("synchpaxos", state, 1, config_plan(cfg, 1), cfg.fault, 8, 1024, 0, False)
+        finally:
+            tfused.BINDINGS["synchpaxos"] = sp_binding
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+    stale = sp_cases["config_stale"]
+    bare = trun.init_state(dataclasses.replace(stale, fault=gray.fault), "cuda")
+    assert not bare.snapshots
+    with pytest.raises(ValueError, match="snapshot"):
+        wrapper(bare, 1, config_plan(stale, 1), stale.fault, 8)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tfused._launch("synchpaxos", bare, 1, config_plan(stale, 1), stale.fault, 8, 1024, 0, False)
+    three = dataclasses.replace(sp_cases["every gray knob, stamped"], n_acc=3)
+    with pytest.raises(ValueError, match="instantiated"):
+        wrapper(trun.init_state(three, "cuda"), 1, config_plan(three, 1), three.fault, 8)
+    assert wrapper.launches == launches
     plan = config_plan(gray, 1)
     binding = tfused.BINDINGS["paxos"]
     tfused.BINDINGS["paxos"] = dataclasses.replace(binding, arms=lambda cfg: 0)
@@ -710,9 +778,10 @@ def test_fr_arms_refuse_mismatched_launches(protocol):
     with pytest.raises(ValueError, match="instantiated"):
         wrapper(trun.init_state(small, "cuda"), 1, config_plan(small, 1), small.fault, 8)
     assert wrapper.launches == launches
-    staging = tfused.FR_STAGING[protocol][(2, 5, 8, 1)]
+    arms_shape = (2, 5, 8, 0, 1) if protocol == "paxos" else (2, 5, 8, 1)
+    staging = tfused.FR_STAGING[protocol][arms_shape]
     assert staging.min_blocks == 3
-    assert tfused.blocks_per_sm(protocol, (2, 5, 8, 1)) >= 3
+    assert tfused.blocks_per_sm(protocol, arms_shape) >= 3
 
 
 @pytest.mark.cuda
@@ -826,3 +895,81 @@ def test_mp_knobs_match_plain_on_cuda():
             kern = tfused.fused_multipaxos_chunk(kern, cfg.seed, plan, cfg.fault, 100)
         torch.cuda.synchronize()
         _assert_same(kern, plain)
+
+
+def _block0_digest(path, n, chunks=64):
+    """Stream block 0 of main path ``path`` on its kernel: the first ``n``
+    lanes of its config and its plan, over ``chunks`` chunks of 64 ticks
+    through the engine's chunk function."""
+    protocol = MAIN_PATHS[path].protocol
+    cfg = main_config(path)
+    small = dataclasses.replace(cfg, n_inst=n)
+    full = main_plan(cfg)
+    plan = tfused.FaultPlan(**{
+        f.name: None if getattr(full, f.name) is None else getattr(full, f.name)[..., :n].contiguous()
+        for f in dataclasses.fields(full)
+    })
+    st = trun.init_state(small, "cuda")
+    for _ in range(chunks):
+        st = tfused.FUSED_CHUNKS[protocol](st, 0, plan, small.fault, 64)
+    return _digest(st)
+
+
+def _match_over_chunks(protocol, cases, ticks=96, chunks=2):
+    """Each config of ``cases`` (name: config) on ``protocol``'s kernel
+    against the plain tick over ``chunks`` chunks on chip_smoke's numpy
+    plan, one launch counted a chunk; returns the instantiations run."""
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    shapes = set()
+    for name, cfg in cases.items():
+        plan = config_plan(cfg, cfg.seed)
+        plain = trun.init_state(cfg, "cuda")
+        shapes.add(tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault))
+        kern = plain.clone()
+        for _ in range(chunks):
+            plain = plain_chunk(cfg, plain, plan, ticks, 1024)
+            before = wrapper.launches
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, ticks)
+            assert wrapper.launches == before + 1, name
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+    return shapes
+
+
+@pytest.mark.cuda
+def test_sp_gray_arms_match_plain_on_cuda():
+    """K4's arms instantiations against the plain tick on every gray-failure
+    and partition knob alone on config_delay_chaos's cell (unstamped), on
+    config_gray_chaos's, config_partition's, config_corrupt's and
+    config_stale's fault configs and amnesia, on every knob at once with the
+    delay and on the delay across a cut in every lane (stamped), over two
+    chunks on chip_smoke's numpy plans; and the graychaos-synchpaxos main
+    path's block-0 digest after a whole campaign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    shapes = _match_over_chunks("synchpaxos", gray_knob_configs(4096, 12, "synchpaxos"))
+    assert shapes == {(2, 5, 8, 0, 1), (2, 5, 8, 1, 1)}
+    assert _block0_digest("graychaos-synchpaxos", 1024) == BLOCK0_DIGESTS["graychaos-synchpaxos"]
+
+
+@pytest.mark.cuda
+def test_paxos_delay_matches_plain_on_cuda():
+    """K1's stamped instantiations (its bounded-delay channel) against the
+    plain tick on config_delay_chaos in both delay regimes, delay with drops
+    and duplicates, delay across a cut in every lane and every gray knob
+    with p_delay 0.4 (the last two on the arms), over two chunks; the
+    per-tick clamp with a block offset from near-limit ballots; and the
+    delaychaos-paxos main path's block-0 digest after a whole campaign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    shapes = _match_over_chunks("paxos", delay_knob_configs(4096, 14))
+    assert shapes == {(2, 5, 8, 1, 0), (2, 5, 8, 1, 1)}
+    cfg = main_config("delaychaos-paxos", 4096, 13)
+    plan = main_plan(cfg)
+    init = near_limit_state(cfg, 4094)
+    assert init.stamped == 1
+    plain = plain_chunk(cfg, init, plan, 96, 1024, blk0=5, clamp_per_tick=True)
+    kern = tfused.fused_paxos_chunk(init.clone(), cfg.seed, plan, cfg.fault, 96, blk0=5, clamp_per_tick=True)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    assert _block0_digest("delaychaos-paxos", 1024) == BLOCK0_DIGESTS["delaychaos-paxos"]

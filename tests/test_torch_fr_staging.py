@@ -18,10 +18,11 @@ where ``best_bal`` is not negative: the plain tick keeps it so.  K1
 applies a chunk to a settled lane at once: the plain tick leaves such a
 lane as it is, but for its acceptors' restores and snapshots under
 stale-snapshot recovery or amnesia, which K1's arms instantiation applies
-to a settled lane tick by tick.  K1's instantiations are keyed by shape
-and arms flag, ``(n_prop, n_acc, k_slots, arms)``: the arms
-instantiation keeps the default's column and caps its registers for 3
-blocks.
+to a settled lane tick by tick.  K1's instantiations are keyed by shape,
+stamps and arms flag, ``(n_prop, n_acc, k_slots, stamped, arms)``: an
+arms instantiation keeps its default's column and caps its registers for
+3 blocks, and a stamped one stages both buffers' delay stamps too (144
+words at ``(2,5,8)``, 3 blocks).
 """
 
 import dataclasses
@@ -59,9 +60,25 @@ def _leaf(state, path):
     return obj
 
 
+def _stamped(protocol, shape):
+    """Whether instantiation ``shape`` stages the delay stamps: K1's key is
+    (P, A, K, stamped, arms), K2's and K3's (P, A, K, arms)."""
+    return protocol == "paxos" and shape[3] == 1
+
+
 def _state(protocol, shape):
-    n_prop, n_acc, k_slots = shape[:3]  # the fourth field is the arms flag
-    return STATES[protocol].init(3, n_prop, n_acc, k_slots)
+    n_prop, n_acc, k_slots = shape[:3]  # then the stamps (K1) and the arms flag
+    kw = {"delay": True} if _stamped(protocol, shape) else {}
+    return STATES[protocol].init(3, n_prop, n_acc, k_slots, **kw)
+
+
+def _staged(protocol, shape):
+    """(leaf, kinds) of FR_STAGED_LEAVES that the instantiation stages: the
+    stamps of a stamped state only."""
+    return [
+        (path, kinds) for path, kinds in tfused.FR_STAGED_LEAVES[protocol]
+        if _stamped(protocol, shape) or not path.endswith(".until")
+    ]
 
 
 def _rows(state, path, kinds):
@@ -74,9 +91,11 @@ def _rows(state, path, kinds):
 @pytest.mark.parametrize("protocol,shape,staging", TABLES, ids=IDS)
 def test_staged_rows_match_the_state_leaves(protocol, shape, staging):
     state = _state(protocol, shape)
-    staged = tfused.FR_STAGED_LEAVES[protocol]
+    staged = _staged(protocol, shape)
     rows = sum(_rows(state, path, kinds) for path, kinds in staged)
-    assert staging.rows == rows == tfused.fr_staged_rows(protocol, *shape[:3])
+    assert staging.rows == rows == tfused.fr_staged_rows(
+        protocol, *shape[:3], _stamped(protocol, shape)
+    )
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX == 232_448
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -146,7 +165,8 @@ def test_every_instantiation_has_a_geometry(protocol):
 
 def _instances(protocol):
     """``K1_INSTANCES`` / ``K2_INSTANCES`` / ``K3_INSTANCES`` of the .cu,
-    in order: (P, A, K, ARMS, B, MIN) each."""
+    in order: (P, A, K, ARMS, B, MIN) each, K1's (P, A, K, STAMPED, ARMS, B,
+    MIN)."""
     listed = re.search(rf"#define {INSTANCES[protocol]}\(X\)(.*?)\n\n", SOURCES[protocol], re.S).group(1)
     return [tuple(map(int, x.split(", "))) for x in re.findall(r"X\(([\d, ]+)\)", listed)]
 
@@ -154,8 +174,9 @@ def _instances(protocol):
 @pytest.mark.parametrize("protocol", FR)
 def test_source_instantiates_the_table(protocol):
     """The .cu lists exactly the table's geometries, one per shape and arms
-    flag, and the C entry points take the shape, the arms flag and the
-    shared bytes (5 ``dims``)."""
+    flag (K1: and stamps flag), and the C entry points take the shape, the
+    stamps flag (K1), the arms flag and the shared bytes (5 ``dims``, K1's
+    6)."""
     want = [shape + (st.threads, st.min_blocks) for shape, st in tfused.FR_STAGING[protocol].items()]
     got = _instances(protocol)
     assert sorted(got) == sorted(want)
@@ -163,6 +184,12 @@ def test_source_instantiates_the_table(protocol):
     shapes = [inst[:n_key] for inst in got]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES[protocol])
     src = SOURCES[protocol]
+    if protocol == "paxos":
+        assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in src
+        assert src.count("n_dims != 6") == 2 and src.count("const int smem = dims[5];") == 2
+        assert "using G = SdStaged<P, A, K, false, STAMPED>;" in src
+        assert "SdStaged<P, A, K, false, STAMPED>::kRows * B * 4" in src
+        return
     assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_)" in src
     assert src.count("n_dims != 5") == 2 and src.count("const int smem = dims[4];") == 2
     rv_v1 = "true" if protocol == "raftcore" else "false"
@@ -174,16 +201,21 @@ def test_source_instantiates_the_table(protocol):
 def test_source_column_order_matches_the_leaves(protocol):
     """``sd::load_column`` stages the leaves in the table's order, each with
     the rows its leaf (its staged kinds) has a lane, from the leaf's first
-    staged row; ``SdStaged``'s offsets follow the same order."""
+    staged row, the stamps of a stamped state only; ``SdStaged``'s offsets
+    follow the same order."""
     names = {
         "kRqBal": "requests.bal", "kRqV1": "requests.v1", "kRpBal": "replies.bal",
-        "kRpV1": "replies.v1", "kRpV2": "replies.v2", "kLtBal": "learner.lt_bal",
+        "kRpV1": "replies.v1", "kRpV2": "replies.v2", "kRqUntil": "requests.until",
+        "kRpUntil": "replies.until", "kLtBal": "learner.lt_bal",
         "kLtVal": "learner.lt_val", "kLtMask": "learner.lt_mask",
     }
     body = re.search(r"void load_column\(.*?\n}\n", COMMON[COMMON.index("namespace sd {"):], re.S).group(0)
     calls = re.findall(r"load_rows<([^,]+), ([^,]+), G::(\w+), UNROLL>\(col, L, (\w+), n, i\)", body)
     staged = tfused.FR_STAGED_LEAVES[protocol]
-    assert [names[leaf] for *_, leaf in calls] == [path for path, _ in staged]
+    stamps = [path for path, _ in staged if path.endswith(".until")]
+    assert [names[leaf] for *_, leaf in calls if names[leaf] in stamps or "until" not in names[leaf]] == [
+        path for path, _ in staged
+    ]
     assert [off for _, _, off, _ in calls] == [leaf for *_, leaf in calls]
     kinds = dict(staged)
     for shape in tfused.FR_STAGING[protocol]:
@@ -195,6 +227,8 @@ def test_source_column_order_matches_the_leaves(protocol):
         offset = 0
         for rows, first, _, leaf in calls:
             path = names[leaf]
+            if (path, kinds.get(path)) not in _staged(protocol, shape):
+                continue  # the stamps of a stamped state only
             assert env[rows] == _rows(state, path, kinds[path])
             start = 0 if kinds[path] is None else kinds[path][0] * e
             assert env[first] == start
@@ -296,19 +330,31 @@ def test_k1_arms_geometry_is_pinned():
     (the snapshot shadows stay in global memory), 128 lanes, registers
     capped for 3 blocks (12 warps); the default instantiations keep 4
     blocks.  The wrapper picks it exactly when a gray-failure or partition
-    knob is on."""
+    knob is on.  The stamped instantiations (p_delay, K1's bounded-delay
+    channel) stage the stamps too: 144 words, 72 KiB a block, 3 blocks, with
+    and without the arms."""
     table = tfused.FR_STAGING["paxos"]
-    assert tuple(table) == ((2, 5, 8, 0), (1, 3, 8, 0), (2, 5, 8, 1))
-    arms, default = table[(2, 5, 8, 1)], table[(2, 5, 8, 0)]
+    assert tuple(table) == (
+        (2, 5, 8, 0, 0), (1, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1)
+    )
+    arms, default = table[(2, 5, 8, 0, 1)], table[(2, 5, 8, 0, 0)]
     assert (arms.threads, arms.rows, arms.smem_bytes, arms.min_blocks) == (128, 104, 53248, 3)
-    assert (default.rows, default.min_blocks, table[(1, 3, 8, 0)].min_blocks) == (104, 4, 4)
+    assert (default.rows, default.min_blocks, table[(1, 3, 8, 0, 0)].min_blocks) == (104, 4, 4)
+    for key in ((2, 5, 8, 1, 0), (2, 5, 8, 1, 1)):
+        st = table[key]
+        assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (128, 144, 73728, 3)
     binding = tfused.BINDINGS["paxos"]
     state = PaxosState.init(4, 2, 5, 8)
-    assert binding.kernel_shape(state) == (2, 5, 8, 0)
+    assert binding.kernel_shape(state) == (2, 5, 8, 0, 0)
     for name, cfg in chip_smoke.gray_knob_configs(64, 1).items():
         arms_on = int(name != "config_flex(4, 2)")
-        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, arms_on), name
-    assert tfused._launch_dims(binding, (2, 5, 8, 1)) == (2, 5, 8, 1, 53248)
+        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, 0, arms_on), name
+    stamped = PaxosState.init(4, 2, 5, 8, delay=True)
+    for name, cfg in chip_smoke.delay_knob_configs(64, 1).items():
+        arms_on = int(name in ("delay across a cut", "every gray knob, p_delay 0.4"))
+        assert binding.kernel_shape(stamped, cfg.fault) == (2, 5, 8, 1, arms_on), name
+    assert tfused._launch_dims(binding, (2, 5, 8, 0, 1)) == (2, 5, 8, 0, 1, 53248)
+    assert tfused._launch_dims(binding, (2, 5, 8, 1, 0)) == (2, 5, 8, 1, 0, 73728)
 
 
 @pytest.mark.parametrize("name", ["config_stale", "amnesia"])

@@ -127,31 +127,28 @@ def test_plan_leaves_round_trip_every_optional_subset(subset):
 
 @pytest.mark.parametrize("protocol", ["paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos"])
 def test_check_supported_takes_the_gray_knobs_on_paxos_only(protocol):
-    """Each gray-failure and partition knob is legal on the Paxos, Fast
-    Paxos, Raft-core and Multi-Paxos ticks and raises on SynchPaxos, naming
-    ROADMAP item 12; ``run`` refuses it there too, before any state is
-    built."""
-    assert tpaxos.GRAY_PROTOCOLS == ("paxos", "fastpaxos", "raftcore", "multipaxos")
+    """Each gray-failure and partition knob is legal on every tick: the
+    Paxos, Fast Paxos, Raft-core, Multi-Paxos and, since ROADMAP item 12b,
+    SynchPaxos ones; ``run`` takes it on each, and the one knob that
+    stays refused on some ticks, p_delay, is no gray knob."""
+    assert tpaxos.GRAY_PROTOCOLS == ("paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos")
+    assert "p_delay" not in tpaxos.GRAY_KNOBS
     for knob in tpaxos.GRAY_KNOBS:
         default = getattr(FaultConfig(), knob)
         value = True if isinstance(default, bool) else (8 if isinstance(default, int) else 0.3)
-        cfg = dataclasses.replace(FaultConfig(), **{knob: value})
-        if protocol in tpaxos.GRAY_PROTOCOLS:
-            tpaxos.check_supported(cfg, protocol)
-            continue
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tpaxos.check_supported(cfg, protocol)
+        tpaxos.check_supported(dataclasses.replace(FaultConfig(), **{knob: value}), protocol)
     base = chip_smoke.main_config({"multipaxos": "config3"}.get(protocol, protocol), 64, 1)
     gray = dataclasses.replace(base, fault=dataclasses.replace(base.fault, p_corrupt=0.1))
-    if protocol not in tpaxos.GRAY_PROTOCOLS:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            trun.run(gray, total_ticks=8, device="cpu", plan=FaultPlan.none(64, base.n_acc, base.n_prop))
+    plan = chip_smoke.config_plan(gray, 1, "cpu")
+    report = trun.run(gray, total_ticks=8, device="cpu", plan=plan)
+    assert report["ticks"] == 8
 
 
 def test_snapshot_shadows_carry_across():
     """A stale_k state has the snapshot shadows after the acceptor leaves,
-    as the JAX package's; ``state_from_numpy`` takes it back, and only a
-    Paxos, Fast Paxos or Raft-core state may carry them."""
+    as the JAX package's; ``state_from_numpy`` takes it back, a SynchPaxos
+    state with them too (since ROADMAP item 12b), and a leaf count that is
+    no state's layout raises."""
     jcfg, tcfg = JC.config_stale(64, 1), chip_smoke.gray_knob_configs(64, 1)["config_stale"]
     leaves = _np_leaves(j_init_state(jcfg))
     assert len(leaves) == 32
@@ -159,8 +156,14 @@ def test_snapshot_shadows_carry_across():
     assert state.snapshots and len(state.acceptor.leaves()) == 6
     for w, g in zip(leaves, interop.state_to_numpy(trun.init_state(tcfg, "cpu")), strict=True):
         np.testing.assert_array_equal(w, g)
+    sp_cfg = chip_smoke.gray_knob_configs(64, 1, "synchpaxos")["config_stale"]
+    sp_leaves = _np_leaves(j_init_state(dataclasses.replace(jcfg, protocol="synchpaxos")))
+    sp = interop.state_from_numpy(sp_leaves, protocol="synchpaxos")
+    assert sp.snapshots and not sp.stamped and len(sp.acceptor.leaves()) == 6
+    for w, g in zip(sp_leaves, interop.state_to_numpy(trun.init_state(sp_cfg, "cpu")), strict=True):
+        np.testing.assert_array_equal(w, g)
     with pytest.raises(NotImplementedError):
-        interop.state_from_numpy(leaves, protocol="synchpaxos")
+        interop.state_from_numpy(leaves[:-2], protocol="synchpaxos")
     bare = trun.init_state(dataclasses.replace(tcfg, fault=FaultConfig()), "cpu")
     with pytest.raises(ValueError, match="snapshot"):
         tfused.reference_chunk(bare, 1, chip_smoke.config_plan(tcfg, 1, "cpu"), tcfg.fault, 1)

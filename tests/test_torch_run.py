@@ -118,8 +118,11 @@ def test_config_acceptance_matches_reference():
         trun.init_state(bad, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.run(TC.config2_dueling_drop(64), engine="xla", device="cpu")
-    cfg = TC.config2_dueling_drop(64)  # bounded delay: SynchPaxos only so far
+    cfg = TC.config5_sweep(64, 1)[1]  # bounded delay: Paxos and SynchPaxos only so far
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trun.run(dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_delay=0.2)), device="cpu")
+    cfg = TC.config2_dueling_drop(64)  # Paxos takes the delay, on the plan the reference samples
+    with pytest.raises(ValueError, match="sampled fault plan"):
         trun.run(dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_delay=0.2)), device="cpu")
 
 

@@ -6,8 +6,12 @@ learner table in a shared-memory column for a whole chunk;
 the wrapper passes to it (lanes a CUDA block, staged rows, shared bytes,
 the blocks an SM is to hold).  The rows are held against the port's own
 ``SynchPaxosState`` leaf shapes, the geometry against the card's limits,
-and the table against the instantiations, the column order and the phase
-list of ``csrc/fused_synchpaxos_tick.cu``.
+and the table against the instantiations and the phase list of
+``csrc/fused_synchpaxos_tick.cu`` and the column order of
+``sd::load_column`` in ``csrc/fused_common.cuh``, which K1's stamped
+instantiations share.  The instantiations are keyed by shape, stamps and
+arms flag, ``(n_prop, n_acc, k_slots, stamped, arms)``; an arms
+instantiation keeps its default's column.
 """
 
 import dataclasses
@@ -24,6 +28,7 @@ from paxos_tpu_torch.kernels import build
 from paxos_tpu_torch.kernels import fused_tick as tfused
 
 SOURCE = (build.CSRC / "fused_synchpaxos_tick.cu").read_text()
+COMMON = (build.CSRC / "fused_common.cuh").read_text()
 TABLES = list(tfused.SP_STAGING.items())
 IDS = ["-".join(map(str, shape)) for shape, _ in TABLES]
 SM_SHARED_BYTES = 233_472  # an H100 SM's shared memory
@@ -39,7 +44,7 @@ def _leaf(state, path):
 
 
 def _state(shape):
-    n_prop, n_acc, k_slots, stamped = shape
+    n_prop, n_acc, k_slots, stamped, _ = shape  # the fifth field is the arms flag
     return SynchPaxosState.init(3, n_prop, n_acc, k_slots, delay=bool(stamped))
 
 
@@ -62,7 +67,7 @@ def _rows(state, path, kinds):
 def test_staged_rows_match_the_state_leaves(shape, staging):
     state = _state(shape)
     rows = sum(_rows(state, path, kinds) for path, kinds in _staged(shape))
-    assert staging.rows == rows == tfused.sp_staged_rows(*shape)
+    assert staging.rows == rows == tfused.sp_staged_rows(*shape[:4])
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -90,14 +95,10 @@ def test_every_instantiation_has_a_geometry():
 
 
 def _instances():
-    """``K4_INSTANCES`` of the .cu, in order: (P, A, K, stamped, B, MIN) each."""
+    """``K4_INSTANCES`` of the .cu, in order: (P, A, K, stamped, arms, B,
+    MIN) each."""
     listed = re.search(r"#define K4_INSTANCES\(X\)(.*?)\n\n", SOURCE, re.S).group(1)
-    return [
-        (int(p), int(a), int(k), int(s == "true"), int(b), int(m))
-        for p, a, k, s, b, m in re.findall(
-            r"X\((\d+), (\d+), (\d+), (true|false), (\d+), (\d+)\)", listed
-        )
-    ]
+    return [tuple(map(int, x.split(", "))) for x in re.findall(r"X\(([\d, ]+)\)", listed)]
 
 
 def test_source_instantiates_the_table():
@@ -107,32 +108,37 @@ def test_source_instantiates_the_table():
 
 
 def test_source_instantiates_each_shape_once():
-    """The C entry point picks the instantiation by the shape alone, so no
-    shape may have two geometries."""
-    shapes = [inst[:4] for inst in _instances()]
+    """The C entry point picks the instantiation by the shape, stamps and
+    arms flag alone, so none may have two geometries."""
+    shapes = [inst[:5] for inst in _instances()]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES["synchpaxos"])
-    assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && (dims[3] != 0) == S_)" in SOURCE
-    assert SOURCE.count("n_dims != 5") == 2 and SOURCE.count("const int smem = dims[4];") == 2
+    assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in SOURCE
+    assert SOURCE.count("n_dims != 6") == 2 and SOURCE.count("const int smem = dims[5];") == 2
+    assert "using G = SdStaged<P, A, K, false, STAMPED>;" in SOURCE
+    assert "SdStaged<P, A, K, false, STAMPED>::kRows * B * 4" in SOURCE
 
 
 def test_source_column_order_matches_the_leaves():
-    """``load_column`` stages the leaves in the table's order, each with the
-    rows its leaf (its staged kinds) has a lane, from the leaf's first
-    staged row."""
+    """``sd::load_column`` stages the leaves in the table's order, each with
+    the rows its leaf (its staged kinds) has a lane, from the leaf's first
+    staged row, the stamps of a stamped state only; ``SdStaged``'s offsets
+    follow the same order."""
     names = {
         "kRqBal": "requests.bal", "kRqV1": "requests.v1", "kRpBal": "replies.bal",
         "kRpV1": "replies.v1", "kRpV2": "replies.v2", "kRqUntil": "requests.until",
         "kRpUntil": "replies.until", "kLtBal": "learner.lt_bal", "kLtVal": "learner.lt_val",
         "kLtMask": "learner.lt_mask",
     }
-    body = re.search(r"void load_column\(.*?\n}\n", SOURCE, re.S).group(0)
-    calls = re.findall(r"load_rows<([^,]+), ([^,]+), G::(\w+)>\(col, L, (\w+), n, i\)", body)
+    assert "sd::load_column<P, A, K, false, 0, B, STAMPED>(col, L, n, i);" in SOURCE
+    body = re.search(r"void load_column\(.*?\n}\n", COMMON[COMMON.index("namespace sd {"):], re.S).group(0)
+    calls = re.findall(r"load_rows<([^,]+), ([^,]+), G::(\w+), UNROLL>\(col, L, (\w+), n, i\)", body)
     assert [names[leaf] for *_, leaf in calls] == [path for path, _ in tfused.SP_STAGED_LEAVES]
     assert [off for _, _, off, _ in calls] == [leaf for *_, leaf in calls]
     kinds = dict(tfused.SP_STAGED_LEAVES)
     for shape, _ in TABLES:
         state = _state(shape)
-        env = {"G::S": 2 * shape[0] * shape[1], "G::E": shape[0] * shape[1], "K": shape[2]}
+        e = shape[0] * shape[1]
+        env = {"G::S": 2 * e, "G::E": e, "K": shape[2], "G::kRqV1From": e, "G::S - G::kRqV1From": e}
         for rows, first, _, leaf in calls:
             path = names[leaf]
             if (path, kinds[path]) not in _staged(shape):
@@ -172,7 +178,7 @@ def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tfused.blocks_per_sm("synchpaxos", (2, 5, 8, 1))
+        tfused.blocks_per_sm("synchpaxos", (2, 5, 8, 1, 0))
     monkeypatch.setitem(
         tfused.BINDINGS, "paxos", dataclasses.replace(tfused.BINDINGS["paxos"], staging=None)
     )

@@ -377,19 +377,38 @@ def test_chip_smoke_golden_and_checker_pins_match_jax_package():
 
 
 def test_other_ticks_refuse_delay():
-    """Only the SynchPaxos tick models the bounded delay: the other ticks
-    raise on p_delay, on sp_unsafe_fast and on a state with stamps."""
-    state = interop.state_from_numpy(random_state_leaves(np.random.default_rng(2), 2, 5, 8, 64, True),
-                                     protocol="synchpaxos")
+    """The SynchPaxos and Paxos ticks model the bounded delay; the Fast
+    Paxos and Raft-core ticks raise on p_delay and on a state with stamps,
+    naming ROADMAP item 12c, and every tick but SynchPaxos' raises on
+    sp_unsafe_fast.  The Paxos tick takes a stamped state and p_delay: a
+    stamped slot waits as in the SynchPaxos tick, and ``run`` asks for the
+    sampled plan the delay needs."""
+    from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
+    from paxos_tpu_torch.protocols.raftcore import apply_tick_raft
+
+    leaves = random_state_leaves(np.random.default_rng(2), 2, 5, 8, 64, True)
+    state = interop.state_from_numpy(leaves, protocol="synchpaxos")
     assert state.stamped == 1
     masks = tpaxos.counter_masks(TC.config_delay_chaos(64).fault, 1, state)
     plan = tfused.FaultPlan.none(64, 5, 2)
-    for knob, value in (("p_delay", 0.2), ("sp_unsafe_fast", True)):
-        bad = dataclasses.replace(TC.config2_dueling_drop(64).fault, **{knob: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpaxos.apply_tick(state, masks, plan, bad)
-    with pytest.raises(NotImplementedError, match="until"):
-        tpaxos.apply_tick(state, masks, plan, TC.config2_dueling_drop(64).fault)
+    paxos = interop.state_from_numpy(leaves, protocol="paxos")
+    assert paxos.stamped == 1
+    bug = dataclasses.replace(TC.config2_dueling_drop(64).fault, sp_unsafe_fast=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP .*item 10"):
+        tpaxos.apply_tick(paxos, masks, plan, bug)
+    delayed = dataclasses.replace(TC.config2_dueling_drop(64).fault, p_delay=0.2)
+    for apply_fn in (apply_tick_fast, apply_tick_raft):
+        with pytest.raises(NotImplementedError, match="ROADMAP .*item 12c"):
+            apply_fn(paxos, masks, plan, delayed)
+        with pytest.raises(NotImplementedError, match="until"):
+            apply_fn(paxos, masks, plan, TC.config2_dueling_drop(64).fault)
+    # A stamped Paxos state: slots whose stamp is ahead of the tick wait.
+    out = tpaxos.apply_tick(paxos, masks, plan, TC.config2_dueling_drop(64).fault)
+    waiting = paxos.requests.present & (paxos.requests.until > paxos.tick)
+    assert waiting.any() and (out.requests.present | ~waiting).all()
     cfg = TC.config2_dueling_drop(64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sampled fault plan"):
         trun.run(dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_delay=0.3)), device="cpu")
+    fp = TC.config5_sweep(64, 1)[1]
+    with pytest.raises(NotImplementedError, match="ROADMAP .*item 12c"):
+        trun.run(dataclasses.replace(fp, fault=dataclasses.replace(fp.fault, p_delay=0.3)), device="cpu")
