@@ -28,9 +28,13 @@ C entry takes no shared bytes (a kernel before its column redesign) is
 launched without them; sources from before the gray-failure and partition
 arms get the parameters and plan leaves their ``fused_common.cuh`` reads
 (``kParams``, ``kPlanLeaves``), a kernel without its arms its default
-instantiations only, and a K1 without its bounded-delay channel its
-unstamped ones only.  Prints the card's name and power limit, then as
-its last line one JSON object of every measurement.
+instantiations only, and a kernel without its bounded-delay channel its
+unstamped ones only.  A source whose instantiation table
+(``K1_INSTANCES`` to ``K3_INSTANCES``, ``K5_INSTANCES``) lists another
+geometry than the wrapper's (lanes a block, blocks an SM, PROMISE payloads
+staged or not) is launched at its own (:func:`table_staging`), so that two
+geometries of one kernel compare in one call.  Prints the card's name and
+power limit, then as its last line one JSON object of every measurement.
 """
 
 from __future__ import annotations
@@ -49,6 +53,34 @@ import chip_smoke as cs
 # The wrapper's own parameter list, plan leaves and instantiated shapes,
 # which use_sources cuts down to what an older source reads.
 _WRAPPER = {}
+# The instantiation table of each kernel whose geometry a source may change.
+_TABLES = {"paxos": "K1", "fastpaxos": "K2", "raftcore": "K3", "multipaxos": "K5"}
+
+
+def table_staging(protocol: str, src: str, staging: dict) -> dict:
+    """``staging`` (the wrapper's geometry of ``protocol``'s kernel) with
+    each instantiation at the lanes a block, blocks an SM (K1 to K3) or
+    PROMISE staging (K5) that the source's table lists, where the table has
+    this commit's fields: ``X(P, A, K, STAMPED, ARMS, B, MIN_BLOCKS)``,
+    K5's ``X(P, A, L, K, STAMPED, ARMS, B, PROM)``."""
+    from paxos_tpu_torch.kernels import fused_tick as tf
+
+    found = re.search(rf"#define {_TABLES[protocol]}_INSTANCES\(X\)(.*?)\n\n", src, re.S)
+    if found is None:
+        return staging
+    rows = re.findall(r"X\(([\w, ]+)\)", found.group(1))
+    out = dict(staging)
+    for row in rows:
+        fields = [f.strip() for f in row.split(",")]
+        if protocol == "multipaxos" and len(fields) == 8:
+            key, threads, prom = tuple(map(int, fields[:6])), int(fields[6]), fields[7] == "true"
+            if key in out:
+                out[key] = tf._mp_staging(key[:5], threads, prom)
+        elif protocol != "multipaxos" and len(fields) == 7:
+            key, threads, blocks = tuple(map(int, fields[:5])), int(fields[5]), int(fields[6])
+            if key in out:
+                out[key] = tf._fr_staging(protocol, key, threads, blocks)
+    return out
 
 
 def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
@@ -100,6 +132,8 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
                 k[:-1] for k in tf.KERNEL_SHAPES[protocol] if k[-1] == 0
             )
             binding = dataclasses.replace(binding, arms=None)
+        if staging and protocol in _TABLES:
+            staging = table_staging(protocol, src, staging)
         tf.BINDINGS[protocol] = dataclasses.replace(binding, staging=staging)
         if protocol in phases and "clk.mark(" in src:
             tf.PHASES[protocol] = phases[protocol]

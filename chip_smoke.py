@@ -34,9 +34,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    partition arms of K1 to K5 on each knob alone and on the configs that
    set them (K2 to K5 also on every knob at once, K4's with its stamps,
    and K4 on delay across a cut in every lane; :func:`gray_knob_configs`;
-   K5 also on the JAX package's own two cases of tests/test_gray.py), K1's
-   bounded-delay channel on config_delay_chaos in both regimes, with drops
-   and duplicates, across a cut, and with every gray knob
+   K5 also on the JAX package's own two cases of tests/test_gray.py), the
+   bounded-delay channel of K1, K2, K3 and K5 on config_delay_chaos (K5:
+   its fault config on config3's cell) in both regimes, with drops and
+   duplicates, across a cut, and with every gray knob
    (:func:`delay_knob_configs`), and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
@@ -57,8 +58,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    skew) on Paxos, Fast Paxos, Raft-core, config3's Multi-Paxos cell and
    config_delay_chaos's SynchPaxos cell (the arms instantiations of K1 to
    K5; the last two through ``run(..., liveness=True)``, their liveness
-   blocks printed), and config_delay_chaos on Paxos (K1's stamped
-   instantiation), at
+   blocks printed), and config_delay_chaos on Paxos, Fast Paxos and
+   Raft-core and its fault config on config3's Multi-Paxos cell (the
+   stamped instantiations of K1, K2, K3 and K5; the last through
+   ``run(..., liveness=True)``), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -189,6 +192,16 @@ MAIN_PATHS = {
     "delaychaos-paxos": MainPath(
         "paxos", MAIN_TICKS, "config_delay_chaos", "delaychaos-paxos", compare_chunks=2,
     ),
+    "delaychaos-fastpaxos": MainPath(
+        "fastpaxos", MAIN_TICKS, "config_delay_chaos", "delaychaos-fastpaxos", compare_chunks=2,
+    ),
+    "delaychaos-raftcore": MainPath(
+        "raftcore", MAIN_TICKS, "config_delay_chaos", "delaychaos-raftcore", compare_chunks=2,
+    ),
+    "delaychaos-multipaxos": MainPath(
+        "multipaxos", MAIN_TICKS, "config3_multipaxos", "delaychaos-multipaxos",
+        compare_chunks=2, fault="config_delay_chaos", liveness=True,
+    ),
 }
 # The report keys of the liveness block (harness.run.summarize(liveness=)).
 LIVENESS_KEYS = ("decided_by_curve", "chosen_tick_hist", "hist_bin_width", "stuck_lanes")
@@ -217,18 +230,25 @@ EVICTION_PINS = {
         52, {138: ([769], "87311d95168824ae"), 188: ([479], "9025712b1c6682d1")}
     ),
     "delaychaos-paxos": (1, {709: ([162], "252e7af2de48f22d")}),
+    "delaychaos-fastpaxos": (
+        136, {16: ([517], "3a8fda3a396da1a3"), 18: ([620], "11184a3d14ece49d")}
+    ),
+    "delaychaos-raftcore": (0, {}),
+    "delaychaos-multipaxos": (0, {}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
-# SynchPaxos ones, the gray-chaos ones and delaychaos-paxos, as the JAX
+# SynchPaxos ones, the gray-chaos ones and the delay-chaos ones, as the JAX
 # package computes it (tests/test_torch_evictions.py,
 # tests/test_torch_gray_evictions.py, tests/test_torch_fr_gray_evictions.py,
-# tests/test_torch_mp_gray_pins.py, tests/test_torch_delay_gray_pins.py).
+# tests/test_torch_mp_gray_pins.py, tests/test_torch_delay_gray_pins.py,
+# tests/test_torch_delay_pins.py).
 BLOCK0_DIGESTS = {
     "config3": "883d8be41b65a537", "config3long": "42961f14b71b0d5d",
     "synchpaxos": "77bdd097d024b69b", "graychaos": "92c059e4a486f4a2",
     "graychaos-fastpaxos": "1be08342ba47756d", "graychaos-raftcore": "8e15a5b6acc869d0",
     "graychaos-multipaxos": "3488379663f97567", "graychaos-synchpaxos": "ec7f809a37d50f00",
-    "delaychaos-paxos": "7b1972db532f308e",
+    "delaychaos-paxos": "7b1972db532f308e", "delaychaos-fastpaxos": "2c4b187ef8be3555",
+    "delaychaos-raftcore": "dc97be812c0ca2bb", "delaychaos-multipaxos": "a87821b69a0cc584",
 }
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
@@ -311,14 +331,17 @@ MASK_CENSUS = {
     "graychaos-multipaxos": (1371.265625, 109.0),
     "graychaos-synchpaxos": (1578.056640625, 127.0),
     "delaychaos-paxos": (1883.078125, 147.0),
+    "delaychaos-fastpaxos": (1883.078125, 147.0),
+    "delaychaos-raftcore": (1883.078125, 147.0),
+    "delaychaos-multipaxos": (1881.3359375, 149.0),
 }
 # Census cases that ROOFLINE.json does not hold, recorded here with the
 # same keys: scripts/roofline.py tick_census(config_delay_chaos(1024), 1024)
 # on SynchPaxos, which gives the same figures for violate_delta, and on
-# Paxos, and tick_census(config_gray_chaos(1024), 1024) on Paxos, on Fast
-# Paxos, Raft-core and SynchPaxos (config5's cells and config_delay_chaos's
-# with config_gray_chaos's fault config), and at 256 on Multi-Paxos
-# (config3's cell with it)
+# Paxos, Fast Paxos and Raft-core, and tick_census(config_gray_chaos(1024),
+# 1024) on Paxos, on Fast Paxos, Raft-core and SynchPaxos (config5's cells
+# and config_delay_chaos's with config_gray_chaos's fault config), and at
+# 256 on Multi-Paxos (config3's cell with either's fault config)
 # (tests/test_torch_census.py recomputes them with the JAX package).
 CENSUS_CASES = {
     "delaychaos-synchpaxos": {
@@ -363,6 +386,24 @@ CENSUS_CASES = {
         "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 516.0,
         "unpacked_bytes_per_lane": 925.0,
     },
+    "delaychaos-fastpaxos": {
+        "case": "delaychaos-fastpaxos", "block": 1024,
+        "alu_per_lane_tick": 5239.1513671875, "codec_alu_per_lane_tick": 865.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 532.0,
+        "unpacked_bytes_per_lane": 933.0,
+    },
+    "delaychaos-raftcore": {
+        "case": "delaychaos-raftcore", "block": 1024,
+        "alu_per_lane_tick": 4910.1298828125, "codec_alu_per_lane_tick": 881.0,
+        "reduce_per_lane_tick": 277.0, "state_bytes_per_lane": 516.0,
+        "unpacked_bytes_per_lane": 925.0,
+    },
+    "delaychaos-multipaxos": {
+        "case": "delaychaos-multipaxos", "block": 256,
+        "alu_per_lane_tick": 7297.5625, "codec_alu_per_lane_tick": 3474.0,
+        "reduce_per_lane_tick": 912.0, "state_bytes_per_lane": 1064.0,
+        "unpacked_bytes_per_lane": 1560.0,
+    },
 }
 # SLOT_CENSUS (Multi-Paxos): the share of the slot-indexed arrays (log,
 # PROMISE payloads, recovery rows, learner table, chosen values and ticks),
@@ -375,22 +416,30 @@ SLOT_CENSUS = {
     "config3-multipaxos": (4225.0, 224.0),
     "config3long-multipaxos": (8450.0, 448.0),
     "graychaos-multipaxos": (4225.0, 224.0),
+    "delaychaos-multipaxos": (4225.0, 224.0),
 }
-# STAMP_CENSUS (SynchPaxos and Paxos with delay): the share of the delay
-# stamps (the stamp draw, the readiness compares and the stamp writes),
-# which the vectorised tick computes for all 40 stamp elements every tick
-# and K4 and K1 only where they read a stamp that may have come due or
-# write one: the census of the config less that of the same config with
-# p_delay 0, net of the mask shares of both, (operations per lane-tick,
-# stamp elements per lane).
+# STAMP_CENSUS (every protocol with delay): the share of the delay stamps
+# (the stamp draw, the readiness compares and the stamp writes), which the
+# vectorised tick computes for all 40 stamp elements every tick and the
+# kernels only where they read a stamp that may have come due or write
+# one: the census of the config less that of the same config with p_delay
+# 0, net of the mask shares of both, (operations per lane-tick, stamp
+# elements per lane).
 STAMP_CENSUS = {
     "delaychaos-synchpaxos": (820.015625, 40.0),
     "delaychaos-paxos": (800.015625, 40.0),
+    "delaychaos-fastpaxos": (800.015625, 40.0),
+    "delaychaos-raftcore": (800.015625, 40.0),
+    "delaychaos-multipaxos": (780.0546875, 40.0),
 }
-# Per census case, the share of the state elements a kernel touches in
-# global memory: the estimate counts the touches its measuring build
-# counts at the census's cost per element.
-TOUCH_CENSUS = {**SLOT_CENSUS, **STAMP_CENSUS}
+# Per census case, the share of the state elements a kernel touches
+# outside its registers: the estimate counts the touches its measuring
+# build counts at the census's cost per element, the slot arrays' and
+# the stamps' summed where a case has both (K5 counts both in one count).
+TOUCH_CENSUS = {
+    case: tuple(map(sum, zip(*(d[case] for d in (SLOT_CENSUS, STAMP_CENSUS) if case in d))))
+    for case in {**SLOT_CENSUS, **STAMP_CENSUS}
+}
 KERNEL_SOURCE = "paxos_tpu_torch/kernels/csrc/{}.cu"
 # pl.pallas_call of the JAX package's fused engine (fused_chunk), which
 # each protocol binds through fused_fns; and the int32 probe.
@@ -903,7 +952,7 @@ def compare(
         read = ["crash_start", "crash_end", "equivocate"]
         if cfg.protocol == "multipaxos":
             read += ["pcrash_start", "pcrash_end"]
-        if plan.link_delay is not None:  # K1's and K4's stamped instantiations read the caps
+        if plan.link_delay is not None:  # the stamped instantiations read the caps
             read += ["link_delay"]
         read += gray_plan_reads(cfg.fault)  # the arms read the partition and gray leaves
         plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
@@ -942,7 +991,7 @@ def compare(
             f"the published peak, {measured_ops_ms:.3f} ms at the measured rate); "
             f"{draws_per_lane_tick:.3f} draws "
             f"per lane-tick of {MASK_CENSUS[census][1]:g} mask elements, "
-            f"{touches_per_lane_tick:.3f} slot-array (K4: delay-stamp) touches per lane-tick; "
+            f"{touches_per_lane_tick:.3f} slot-array and delay-stamp touches per lane-tick; "
             f"census {out['census_ms']:.3f} ms at the published peak, no floor "
             f"({census_per_lane_tick:.1f} ops per lane-tick, "
             f"{out['ops_per_lane_tick_census']:.1f} with every mask drawn)"
@@ -1064,11 +1113,12 @@ def phase_compare(ceiling: float) -> dict:
         for name, cfgk in gray_knob_configs(4096, 12, protocol).items():
             shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
             compare(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
-    # K1's bounded-delay channel (its stamped instantiations), over two
-    # chunks.
-    for name, cfgk in delay_knob_configs(4096, 14).items():
-        shape = ",".join(map(str, BINDINGS["paxos"].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
-        compare(f"paxos ({shape}) {name}", cfgk, config_plan(cfgk, cfgk.seed), 96, chunks=2)
+    # The bounded-delay channel of K1, K2, K3 and K5 (their stamped
+    # instantiations), over two chunks.
+    for protocol in ("paxos", "fastpaxos", "raftcore", "multipaxos"):
+        for name, cfgk in delay_knob_configs(4096, 14, protocol).items():
+            shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
+            compare(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, cfgk.seed), 96, chunks=2)
     # K5's arms on the JAX package's own fused-kernel cases
     # (tests/test_gray.py): every gray knob with crash windows on config3 at
     # 64 lanes, seed 5, 24 ticks in one stream block, and flaky links at
@@ -1567,25 +1617,34 @@ def delay_cut_config(protocol: str, n_inst: int, seed: int):
     )
 
 
-def delay_knob_configs(n_inst: int, seed: int) -> dict:
-    """The cases of K1's bounded-delay channel (its stamped
-    instantiations): ``config_delay_chaos`` on Paxos in both delay regimes,
-    delay with drops and duplicates (tests/test_delay.py
-    ``test_delay_composes_with_drop_safely``, its own seed 1), delay across a
-    cut in every lane (:func:`delay_cut_config`), and every gray knob at
-    once on the flagship cell with p_delay 0.4 (the last two on the arms)."""
+def delay_knob_configs(n_inst: int, seed: int, protocol: str = "paxos") -> dict:
+    """The cases of the bounded-delay channel of K1, K2, K3 or K5 (their
+    stamped instantiations), each on ``protocol``'s tick:
+    ``config_delay_chaos`` in both delay regimes, delay with drops and
+    duplicates (tests/test_delay.py ``test_delay_composes_with_drop_safely``,
+    its own seed 1), delay across a cut in every lane
+    (:func:`delay_cut_config`), and every gray knob at once on the
+    protocol's main cell (config2's, config5's) with p_delay 0.4 (the last
+    two on the arms).  Multi-Paxos takes each case's fault config on
+    config3's cell (K5 packs at most 4 voter masks a slot)."""
     from paxos_tpu_torch.harness import config as C
 
-    flag = main_config("paxos", n_inst, seed)
+    if protocol == "multipaxos":
+        cell = main_config("config3", n_inst, seed)
+        return {
+            name: dataclasses.replace(cell, fault=cfg.fault)
+            for name, cfg in delay_knob_configs(n_inst, seed, "fastpaxos").items()
+        }
+    flag = main_config(protocol, n_inst, seed)
     return {
-        "config_delay_chaos": main_config("delaychaos-paxos", n_inst, seed),
+        "config_delay_chaos": main_config(f"delaychaos-{protocol}", n_inst, seed),
         "config_delay_chaos violate_delta": dataclasses.replace(
-            C.config_delay_chaos(n_inst, seed, violate_delta=True), protocol="paxos"
+            C.config_delay_chaos(n_inst, seed, violate_delta=True), protocol=protocol
         ),
         "delay with drops and duplicates": delay_config(
-            "paxos", n_inst, 1, p_drop=0.15, p_dup=0.1, p_delay=0.5, delay_max=4, timeout=6
+            protocol, n_inst, 1, p_drop=0.15, p_dup=0.1, p_delay=0.5, delay_max=4, timeout=6
         ),
-        "delay across a cut": delay_cut_config("paxos", n_inst, seed),
+        "delay across a cut": delay_cut_config(protocol, n_inst, seed),
         "every gray knob, p_delay 0.4": dataclasses.replace(
             flag, fault=dataclasses.replace(flag.fault, **GRAY_ALL, p_delay=0.4)
         ),
@@ -1637,23 +1696,14 @@ def mp_knob_configs(n_inst: int, seed: int) -> dict:
     }
 
 
-def arms_ptxas(lines: list, protocol: str) -> list:
-    """The ``ptxas`` lines of ``protocol``'s arms instantiation (K2, K3,
-    K5: the entry function that takes a ``Gray``, and the two lines after
-    it)."""
-    for k, line in enumerate(lines):
-        if "entry function" in line and f"fused_{protocol}_kernel" in line and "Gray" in line:
-            return lines[k:k + 3]
-    raise AssertionError(f"no ptxas report of the {protocol} kernel's arms instantiation")
-
-
 def instantiation_ptxas(lines: list, protocol: str, shape: tuple) -> list:
-    """The ``ptxas`` lines of the instantiation ``shape`` of K1 or K4
-    (``(n_prop, n_acc, k_slots, stamped, arms)``): the entry function whose
-    mangled template arguments start with the shape and the stamps flag,
-    with a ``Gray`` exactly where ``arms``."""
-    p, a, k, stamped, arms = shape
-    head = f"fused_{protocol}_kernelILi{p}ELi{a}ELi{k}ELb{stamped}E"
+    """The ``ptxas`` lines of the instantiation ``shape`` of K1 to K5
+    (``(n_prop, n_acc, k_slots, stamped, arms)``, K5's with the log length
+    before k_slots): the entry function whose mangled template arguments
+    start with the shape and the stamps flag, with a ``Gray`` exactly where
+    ``arms``."""
+    *dims, stamped, arms = shape
+    head = f"fused_{protocol}_kernelI" + "".join(f"Li{d}E" for d in dims) + f"Lb{stamped}E"
     for j, line in enumerate(lines):
         if "entry function" in line and head in line and ("Gray" in line) == bool(arms):
             return lines[j:j + 3]
@@ -1725,10 +1775,7 @@ def main() -> int:
             "main_path_fast_path_rate": main_paths[path].get("fast_path_rate"),
             "main_path_eviction_block_digests": main_paths[path]["eviction_block_digests"],
             "main_path_profile": profiles[path],
-            "ptxas": (
-                instantiation_ptxas(ptxas, mp.protocol, shape) if "stamped" in binding.shape_fields
-                else arms_ptxas(ptxas, mp.protocol) if binding.arms and shape[-1] else ptxas
-            ),
+            "ptxas": instantiation_ptxas(ptxas, mp.protocol, shape),
         }
         if first and mp.protocol in geometry:
             entry["instantiations"] = geometry[mp.protocol]  # threads, smem_bytes, blocks_per_sm each

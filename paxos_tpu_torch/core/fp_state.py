@@ -7,7 +7,8 @@ highest accepted ballot seen in recovery, in place of Paxos' single
 ``best_val``.  The fast round is round 0: every proposer shares the ballot
 ``make_ballot(0, 0)`` and its ``Accept(fast_bal, own_val)`` broadcast is in
 flight at tick 0.  A state run with ``stale_k > 0`` carries the acceptors'
-snapshot shadows, as the reference's does.
+snapshot shadows, and one run with ``p_delay > 0`` its buffers' delay
+stamps, as the reference's does.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ class FastPaxosState(LaneState):
     """Full simulator state for Fast Paxos."""
 
     protocol = "fastpaxos"
+    takes_stamps = True
     takes_snapshots = True
 
     acceptor: AcceptorState
@@ -93,15 +95,17 @@ class FastPaxosState(LaneState):
     @classmethod
     def init(
         cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu",
-        stale: bool = False,
+        stale: bool = False, delay: bool = False,
     ) -> "FastPaxosState":
         """The initial state; ``stale`` allocates the acceptors' snapshot
-        shadows (``stale_k > 0``)."""
+        shadows (``stale_k > 0``), ``delay`` both buffers' delay stamps
+        (``p_delay > 0``; the fast round's ACCEPTs are deliverable at
+        once)."""
         check_topology(n_prop, n_acc)
         proposer = FastProposerState.init(n_inst, n_prop, device)
         # The fast round is in flight at tick 0: every proposer's
         # Accept(fast_bal, own_val) broadcast occupies its ACCEPT slots.
-        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device)
+        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay)
         requests.bal[ACCEPT] = proposer.bal[:, None, :]
         requests.v1[ACCEPT] = proposer.own_val[:, None, :]
         requests.present[ACCEPT] = True
@@ -110,6 +114,6 @@ class FastPaxosState(LaneState):
             proposer=proposer,
             learner=LearnerState.init(n_inst, k, device),
             requests=requests,
-            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device),
+            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay),
             tick=torch.zeros((), dtype=torch.int32, device=device),
         )

@@ -12,8 +12,9 @@ integer order is (ballot, value) order and 0 is the NIL pair.
 learner, requests, promises, accepted, tick, base), so a sha256 over the
 leaf bytes equals the reference's state digest.  A state run with
 ``stale_k > 0`` carries the acceptors' snapshot shadows of ``promised``
-and the slot log, as the reference's does; the delay stamps and observer
-planes are not ported.
+and the slot log, and one run with ``p_delay > 0`` the delay stamps of its
+three buffers (``until``), as the reference's does; the observer planes
+are not ported.
 """
 
 from __future__ import annotations
@@ -149,18 +150,26 @@ class PromiseBuf:
     present: torch.Tensor  # (P, A, I) bool
     bal: torch.Tensor  # (P, A, I) int32: the promised ballot
     p_bv: torch.Tensor  # (P, A, L, I) int32 packed accepted pair per slot
+    # Bounded-delay stamp (p_delay): the first tick the slot may be
+    # delivered, 0 = at once; None when delay is off (MsgBuf.until).
+    until: "torch.Tensor | None" = None  # (P, A, I) int32
 
     @classmethod
-    def empty(cls, n_inst: int, n_prop: int, n_acc: int, log_len: int, device="cpu") -> "PromiseBuf":
+    def empty(
+        cls, n_inst: int, n_prop: int, n_acc: int, log_len: int, device="cpu",
+        delay: bool = False,
+    ) -> "PromiseBuf":
         edge = (n_prop, n_acc, n_inst)
         return cls(
             present=_zeros(edge, device, torch.bool),
             bal=_zeros(edge, device),
             p_bv=_zeros((n_prop, n_acc, log_len, n_inst), device),
+            until=_zeros(edge, device) if delay else None,
         )
 
     def leaves(self) -> list:
-        return [self.present, self.bal, self.p_bv]
+        out = [self.present, self.bal, self.p_bv]
+        return out if self.until is None else out + [self.until]
 
 
 @dataclasses.dataclass
@@ -171,19 +180,24 @@ class AcceptedBuf:
     bal: torch.Tensor  # (P, A, I) int32
     slot: torch.Tensor  # (P, A, I) int32
     val: torch.Tensor  # (P, A, I) int32
+    until: "torch.Tensor | None" = None  # (P, A, I) int32 delay stamp (p_delay)
 
     @classmethod
-    def empty(cls, n_inst: int, n_prop: int, n_acc: int, device="cpu") -> "AcceptedBuf":
+    def empty(
+        cls, n_inst: int, n_prop: int, n_acc: int, device="cpu", delay: bool = False
+    ) -> "AcceptedBuf":
         edge = (n_prop, n_acc, n_inst)
         return cls(
             present=_zeros(edge, device, torch.bool),
             bal=_zeros(edge, device),
             slot=_zeros(edge, device),
             val=_zeros(edge, device),
+            until=_zeros(edge, device) if delay else None,
         )
 
     def leaves(self) -> list:
-        return [self.present, self.bal, self.slot, self.val]
+        out = [self.present, self.bal, self.slot, self.val]
+        return out if self.until is None else out + [self.until]
 
 
 @dataclasses.dataclass
@@ -191,6 +205,7 @@ class MultiPaxosState(LaneState):
     """Full Multi-Paxos simulator state."""
 
     protocol = "multipaxos"
+    takes_stamps = True
     takes_snapshots = True
 
     acceptor: MPAcceptorState
@@ -207,18 +222,19 @@ class MultiPaxosState(LaneState):
     @classmethod
     def init(
         cls, n_inst: int, n_prop: int, n_acc: int, log_len: int = 8, k: int = 4,
-        lease_init: int = 0, device="cpu", stale: bool = False,
+        lease_init: int = 0, device="cpu", stale: bool = False, delay: bool = False,
     ) -> "MultiPaxosState":
         """The initial state; ``stale`` allocates the acceptors' snapshot
-        shadows (``stale_k > 0``)."""
+        shadows (``stale_k > 0``), ``delay`` the three buffers' delay stamps
+        (``p_delay > 0``)."""
         check_topology(n_prop, n_acc)
         return cls(
             acceptor=MPAcceptorState.init(n_inst, n_acc, log_len, device, stale),
             proposer=MPProposerState.init(n_inst, n_prop, log_len, lease_init, device),
             learner=MPLearnerState.init(n_inst, log_len, k, device),
-            requests=MsgBuf.empty(n_inst, n_prop, n_acc, device),
-            promises=PromiseBuf.empty(n_inst, n_prop, n_acc, log_len, device),
-            accepted=AcceptedBuf.empty(n_inst, n_prop, n_acc, device),
+            requests=MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay),
+            promises=PromiseBuf.empty(n_inst, n_prop, n_acc, log_len, device, delay=delay),
+            accepted=AcceptedBuf.empty(n_inst, n_prop, n_acc, device, delay=delay),
             tick=torch.zeros((), dtype=torch.int32, device=device),
             base=_zeros((n_inst,), device),
         )
@@ -243,8 +259,11 @@ class MultiPaxosState(LaneState):
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
         for this state's (n_inst, n_prop, n_acc, log_len, k_slots), with
-        snapshot shadows where the acceptors carry them."""
+        delay stamps where the request buffer carries them and snapshot
+        shadows where the acceptors carry them."""
         kw = {"stale": True} if self.snapshots else {}
+        if self.stamped:
+            kw["delay"] = True
         check_leaves(
             self.leaves(),
             init_layout(

@@ -6,7 +6,8 @@ candidates/leaders, acceptor lanes are voters that also store the
 replicated entry.  Terms are packed ballots, so "one vote per term" is
 "grant only terms strictly above the last granted one", and the election
 restriction is an integer compare.  A state run with ``stale_k > 0``
-carries the voters' snapshot shadows, as the reference's does.
+carries the voters' snapshot shadows, and one run with ``p_delay > 0`` its
+buffers' delay stamps, as the reference's does.
 """
 
 from __future__ import annotations
@@ -108,6 +109,7 @@ class RaftState(LaneState):
     """Full simulator state for Raft-core."""
 
     protocol = "raftcore"
+    takes_stamps = True
     takes_snapshots = True
 
     acceptor: VoterState  # named `acceptor` so summaries are uniform
@@ -120,14 +122,15 @@ class RaftState(LaneState):
     @classmethod
     def init(
         cls, n_inst: int, n_prop: int, n_acc: int, k: int = 8, device="cpu",
-        stale: bool = False,
+        stale: bool = False, delay: bool = False,
     ) -> "RaftState":
         """The initial state; ``stale`` allocates the voters' snapshot
-        shadows (``stale_k > 0``)."""
+        shadows (``stale_k > 0``), ``delay`` both buffers' delay stamps
+        (``p_delay > 0``; the opening REQVOTEs are deliverable at once)."""
         check_topology(n_prop, n_acc)
         proposer = CandidateState.init(n_inst, n_prop, device)
         # Every candidate opens with a RequestVote broadcast in flight.
-        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device)
+        requests = MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay)
         requests.bal[REQVOTE] = proposer.bal[:, None, :]
         requests.present[REQVOTE] = True
         return cls(
@@ -135,6 +138,6 @@ class RaftState(LaneState):
             proposer=proposer,
             learner=LearnerState.init(n_inst, k, device),
             requests=requests,
-            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device),
+            replies=MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay),
             tick=torch.zeros((), dtype=torch.int32, device=device),
         )

@@ -8,9 +8,9 @@ int32 or bool; NIL ballots and values are 0.
 field order, absent optional fields dropped), so a sha256 over the leaf
 bytes equals the reference's state digest.  A Paxos, Fast Paxos,
 Raft-core or SynchPaxos state run with ``stale_k > 0`` carries the
-acceptors' snapshot shadows, and a Paxos or SynchPaxos state run with
-``p_delay > 0`` its buffers' delay stamps, as the reference's does; the
-observer planes of the reference are not ported yet.
+acceptors' snapshot shadows, and one run with ``p_delay > 0`` its buffers'
+delay stamps, as the reference's does; the observer planes of the
+reference are not ported yet.
 """
 
 from __future__ import annotations

@@ -6,9 +6,9 @@ schedule, so they must equal the reference's.  The single-decree ticks
 (paxos, fastpaxos, raftcore, synchpaxos) share one allocation, Multi-Paxos
 has its own.  Of the gray-failure streams the per-link loss and
 duplication bits and the corruption mask (LINK_BITS, DUP_BITS, CORRUPT:
-``p_flaky``, ``p_corrupt``) are ported for both allocations, and the
-bounded-delay draws (DELAY_BITS, LAT_BITS: ``p_delay``) for SynchPaxos;
-the workload streams are not (their plane raises).
+``p_flaky``, ``p_corrupt``) and the bounded-delay draws (DELAY_BITS,
+LAT_BITS: ``p_delay``) are ported for both allocations; the workload
+streams are not (their plane raises).
 """
 
 SINGLE_DECREE_STREAMS = dict(
@@ -44,4 +44,6 @@ MULTI_PAXOS_STREAMS = dict(
     LINK_BITS=11,  # per-link loss raw bits (p_flaky)
     DUP_BITS=12,  # per-link duplication raw bits (p_flaky + dup)
     CORRUPT=13,  # in-flight corruption mask (p_corrupt)
+    DELAY_BITS=14,  # per-edge delay decision raw bits (p_delay)
+    LAT_BITS=15,  # per-edge sampled latency raw bits (delay_max)
 )

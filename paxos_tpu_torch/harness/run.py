@@ -147,9 +147,8 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
 
 def init_state(cfg: SimConfig, device=None) -> LaneState:
     """The protocol's initial state, as the reference's ``init_state``
-    (Paxos and SynchPaxos with delay stamps when ``p_delay > 0``; every
-    protocol with the acceptors' (voters') snapshot shadows when ``stale_k
-    > 0``)."""
+    (with its buffers' delay stamps when ``p_delay > 0``, and the
+    acceptors' (voters') snapshot shadows when ``stale_k > 0``)."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
     device = resolve_device(device)
@@ -158,6 +157,7 @@ def init_state(cfg: SimConfig, device=None) -> LaneState:
         return MultiPaxosState.init(
             cfg.n_inst, cfg.n_prop, cfg.n_acc, cfg.log_len, k=cfg.k_slots,
             lease_init=cfg.fault.lease_len, device=device, stale=cfg.fault.stale_k > 0,
+            delay=cfg.fault.p_delay > 0.0,
         )
     kw = {}
     if STATE_TYPES[cfg.protocol].takes_stamps:

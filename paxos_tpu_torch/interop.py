@@ -35,11 +35,13 @@ from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 
 # Per protocol: the state type, its sub-states with their leaf counts in
 # flatten order, and the trailing scalar and per-lane leaves (the tick, and
-# Multi-Paxos' base).  The buffers of a state type that takes stamps
-# (Paxos, SynchPaxos) carry a fifth leaf, the delay stamps, when its config
+# Multi-Paxos' base).  Every message buffer (``_BUFFERS``: the two
+# ``MsgBuf`` of a single-decree state, Multi-Paxos' requests, PROMISEs and
+# ACCEPTEDs) carries one more leaf, its delay stamps, when the config
 # delays sends; the acceptors of every protocol carry their snapshot
 # shadows (one more leaf per durable field, ``SNAPSHOT``) when its config
 # has stale_k > 0.
+_BUFFERS = (MsgBuf, PromiseBuf, AcceptedBuf)
 _SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
 _GROUPS = {
     "paxos": (PaxosState, ((AcceptorState, 3), (ProposerState, 9)) + _SHARED, ("tick",)),
@@ -69,29 +71,28 @@ def _tensor(arr, device) -> torch.Tensor:
 
 
 def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
-    """``protocol``'s state from the reference's flattened leaves: a Paxos
-    or SynchPaxos state with or without delay stamps and snapshot shadows
-    (29, 31 with stamps, 32 with shadows, 34 with both); a Fast Paxos or
-    Raft-core state with or without shadows (29 or 32); a Multi-Paxos state
-    with or without them (30 or 32)."""
+    """``protocol``'s state from the reference's flattened leaves, with or
+    without delay stamps and snapshot shadows: a single-decree state (Paxos,
+    Fast Paxos, Raft-core, SynchPaxos) of 29 leaves, 31 with stamps, 32 with
+    shadows, 34 with both; a Multi-Paxos state of 30, 33 with stamps, 32
+    with shadows, 35 with both."""
     leaves = list(leaves)
     if protocol not in _GROUPS:
         raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
     state_cls, groups, tail = _GROUPS[protocol]
     acc_cls, n_acc_leaves = groups[0]
     snaps = len(acc_cls.SNAPSHOT) if state_cls.takes_snapshots else 0
-    stamps = sum(cls is MsgBuf for cls, _ in groups) if state_cls.takes_stamps else 0
+    stamps = sum(cls in _BUFFERS for cls, _ in groups)
     base = sum(n for _, n in groups) + len(tail)
     layouts = {base + s + t: (s, t) for s in {0, snaps} for t in {0, stamps}}
     if len(leaves) not in layouts:
         raise NotImplementedError(
             f"state has {len(leaves)} leaves; the port holds a {protocol} state of "
-            f"{sorted(layouts)} (delay stamps outside Paxos and SynchPaxos: ROADMAP "
-            "queue A item 12c; observer planes: queue A slice 5)"
+            f"{sorted(layouts)} (observer planes: ROADMAP queue A slice 5)"
         )
     s, t = layouts[len(leaves)]
     groups = ((acc_cls, n_acc_leaves + s),) + tuple(
-        (cls, n + (cls is MsgBuf and t > 0)) for cls, n in groups[1:]
+        (cls, n + (cls in _BUFFERS and t > 0)) for cls, n in groups[1:]
     )
     tensors = [_tensor(leaf, device) for leaf in leaves]
     parts, k = [], 0

@@ -19,9 +19,8 @@
 // lazily, so that count is the PRNG work a run's data needs, which an
 // operation census of the tick counts in place of drawing every mask.  A
 // kernel that keeps slot-indexed arrays out of registers also counts the
-// elements it touches (Multi-Paxos its slot arrays, Paxos and SynchPaxos
-// their delay stamps), for the same reason.  The
-// timed build compiles none of it.
+// elements it touches (Multi-Paxos its slot arrays, every kernel its delay
+// stamps), for the same reason.  The timed build compiles none of it.
 //
 // Semantics follow the plain PyTorch version bit for bit:
 //  - random bits are uint32 (wrapping mul/add, logical shifts); Bernoulli
@@ -40,7 +39,7 @@ namespace {
 
 constexpr int kLeaves = 28;        // state leaves of a single-decree protocol, tick excluded
 constexpr int kStampedLeaves = 30;  // the same with the two buffers' delay stamps
-constexpr int kMaxLeaves = 33;     // room for every protocol's leaves, stamps and shadows
+constexpr int kMaxLeaves = 34;     // room for every protocol's leaves, stamps and shadows
 constexpr int kParams = 37;
 constexpr int kPlanLeaves = 15;
 constexpr int32_t kInt32Max = 2147483647;
@@ -54,11 +53,11 @@ constexpr uint32_t kSel = 0, kBusy = 1, kDeliver = 2, kDupReq = 3,
                    kKeepP2 = 8, kBackoff = 9, kLinkBits = 10, kDupBits = 11,
                    kCorrupt = 12, kDelayBits = 13, kLatBits = 14;
 
-// The leaves every protocol shares, in flatten order after its 12 role
-// leaves (3 acceptor, 9 proposer): learner, requests, replies.  A state with
-// delay stamps has each buffer's `until` after its four leaves; its entry
-// point moves the two stamp leaves last (move_stamps_last), so these
-// indices hold for both layouts.
+// The leaves every single-decree protocol shares, in flatten order after
+// its 12 role leaves (3 acceptor, 9 proposer): learner, requests, replies.
+// A state with delay stamps has each buffer's `until` after its four
+// leaves; its entry point moves the two stamp leaves last (move_last, at
+// kSdStampAt), so these indices hold for both layouts.
 enum SharedLeaf {
   kLtBal = 12, kLtVal, kLtMask, kChosen, kChosenVal, kChosenTick, kViolations,
   kEvictions,
@@ -407,35 +406,46 @@ void move_snapshots_last(Leaves* L, int n_base = kLeaves, int at = 3, int n_snap
   for (int k = 0; k < n_snaps; ++k) L->p[n_base + k] = snaps[k];
 }
 
-// A stamped state's leaves arrive in flatten order, each buffer's `until`
-// after its four leaves; move the two stamp leaves last (SharedLeaf).
-void move_stamps_last(Leaves* L) {
-  void* rq_until = L->p[kRqBal + 4];
-  for (int j = kRqBal + 4; j < kRpUntil - 1; ++j) L->p[j] = L->p[j + 1];
-  L->p[kRqUntil] = rq_until;
+// Moves the N leaves at the ascending indices `at` of the first n after the
+// others, in their order.
+template <int N>
+void move_last(Leaves* L, int n, const int (&at)[N]) {
+  void* moved[N];
+  int k = 0, w = 0;
+  for (int j = 0; j < n; ++j) {
+    if (k < N && j == at[k]) moved[k++] = L->p[j];
+    else L->p[w++] = L->p[j];
+  }
+  for (k = 0; k < N; ++k) L->p[w++] = moved[k];
 }
 
+// Where a stamped single-decree state's two stamp leaves arrive in flatten
+// order: each buffer's `until` after its four leaves (requests, replies).
+constexpr int kSdStampAt[2] = {kRqBal + 4, kRpUntil};
+
 // read_args for a kernel with an arms instantiation (K1 to K5): the
-// state's leaves are n_base (K1 to K4: kLeaves), plus the two delay stamps
-// where `stamped` (K1, K4), plus n_snaps snapshot shadows at index `at`,
-// which move after the rest, then the stamps last (move_stamps_last);
-// `arms` is the instantiation the wrapper picked, which must be the arms'
-// exactly when a knob of theirs is on, stale_k needs the shadows, and
-// p_delay a stamped instantiation.  Returns cudaSuccess or
-// cudaErrorInvalidValue.
+// state's leaves are n_base (K1 to K4: kLeaves), plus the delay stamps
+// where `stamped`, which arrive at the N indices `stamp_at` (K1 to K4:
+// kSdStampAt), plus n_snaps snapshot shadows at index `at`, which move
+// after the rest, then the stamps last (move_last); `arms` is the
+// instantiation the wrapper picked, which must be the arms' exactly when a
+// knob of theirs is on, stale_k needs the shadows, and p_delay a stamped
+// instantiation.  Returns cudaSuccess or cudaErrorInvalidValue.
+template <int N = 2>
 cudaError_t read_gray_args(bool arms, void** leaves, int n_leaves, void** plan,
                            const long long* params, int n_params, Leaves* L, Plan* pl,
                            Params* prm, Gray* gray, int n_base = kLeaves, int at = 3,
-                           int n_snaps = 3, bool stamped = false) {
+                           int n_snaps = 3, bool stamped = false,
+                           const int (&stamp_at)[N] = kSdStampAt) {
   if (n_snaps > kMaxSnaps) return cudaErrorInvalidValue;
-  const int n_state = n_base + (stamped ? kStampedLeaves - kLeaves : 0);
+  const int n_state = n_base + (stamped ? N : 0);
   const bool snapshots = n_leaves == n_state + n_snaps;
   const cudaError_t bad = read_args(leaves, n_leaves, snapshots ? n_state + n_snaps : n_state,
                                     plan, params, n_params, L, pl, prm, stamped, gray);
   if (bad != cudaSuccess) return bad;
   if (gray->on() != arms || (gray->stale_k > 0 && !snapshots)) return cudaErrorInvalidValue;
   if (snapshots) move_snapshots_last(L, n_state, at, n_snaps);
-  if (stamped) move_stamps_last(L);
+  if (stamped) move_last(L, n_state, stamp_at);
   return cudaSuccess;
 }
 
@@ -764,17 +774,25 @@ struct ColumnLearner {
 };
 
 // The bounded-delay channel of a lane (transport.ready / send(until=) and
-// protocols.paxos.delay_stamps) over the stamps in its column (SdStaged
-// with STAMPED; K1's and K4's stamped instantiations): per buffer a bitmask
-// of the slots whose stamp is still ahead of the tick, and the earliest
-// such stamp; a slot is ready (deliverable, selectable) where its bit is
-// clear.  The plan's latency caps are read once as the links whose cap is
-// above 0 (`slow`, the only links a send can be delayed on), and a cap
-// again only where a send on its link is delayed.  Every stamp read or
-// written counts as a touch.
-template <int P, int A, int K, bool RV_V1, int B>
+// protocols.paxos.delay_stamps) over the stamps in its column, the 2PA
+// request stamps from row RQ_ROW and the 2PA reply stamps from row RP_ROW
+// (SdStaged with STAMPED in the stamped instantiations of K1 to K4; K5's
+// column, whose reply stamps are its PROMISEs' then its ACCEPTEDs'): per
+// buffer a bitmask of the slots whose stamp is still ahead of the tick, and
+// the earliest such stamp; a slot is ready (deliverable, selectable) where
+// its bit is clear.  The plan's latency caps are read once as the links
+// whose cap is above 0 (`slow`, the only links a send can be delayed on),
+// and a cap again only where a send on its link is delayed.  Every stamp
+// read or written counts as a touch.  The stamp draws of a request of kind
+// k sit at kind REQ_KIND + k of the draws' kind axis, those of a reply at
+// 2 - REQ_KIND + k (the single-decree ticks: requests first; Multi-Paxos:
+// replies first), on the streams DELAY and LAT.
+template <int P, int A, int B, int RQ_ROW, int RP_ROW, uint32_t DELAY = kDelayBits,
+          uint32_t LAT = kLatBits, int REQ_KIND = 0>
 struct Channel {
-  using G = SdStaged<P, A, K, RV_V1, true>;
+  struct G {
+    static constexpr int S = 2 * P * A, E = P * A, kRqUntil = RQ_ROW, kRpUntil = RP_ROW;
+  };
   uint32_t rq_wait = 0, rp_wait = 0;
   int32_t next_due = kInt32Max;  // earliest stamp of a waiting slot; kInt32Max if none
   uint32_t slow = 0;
@@ -819,8 +837,9 @@ struct Channel {
 
   // The delay stamp of a send on edge (p, a) at `tick` (delay_stamps): kind
   // `kind` of direction `dir` (0 requests, 1 replies) draws at prefix
-  // ((dir * 2 + kind) * P + p) * A + a.  tick + 1 + min(latency, cap) where
-  // the link is slow and the delay draw fires, else 0; the latency is
+  // (axis kind * P + p) * A + a (the axis kind: REQ_KIND + kind for a
+  // request, 2 - REQ_KIND + kind for a reply).  tick + 1 + min(latency, cap)
+  // where the link is slow and the delay draw fires, else 0; the latency is
   // 1 + (bits & 0x7FFFFFFF) % delay_max.  A link that never delays draws
   // nothing: its stamp is 0 whatever the draws.
   __device__ __forceinline__ int32_t stamp(const Params& prm, const Plan& plan,
@@ -828,10 +847,10 @@ struct Channel {
                                            int64_t n, int64_t i, int32_t tick) const {
     const int e = p * A + a;
     if (prm.delay.mode == 0 || !((slow >> e) & 1u)) return 0;
-    const int pos = ((dir * 2 + kind) * P + p) * A + a;
-    if (ts.bits(kDelayBits, pos) >= prm.delay.thr) return 0;
+    const int pos = (((dir == 0 ? REQ_KIND : 2 - REQ_KIND) + kind) * P + p) * A + a;
+    if (ts.bits(DELAY, pos) >= prm.delay.thr) return 0;
     const uint32_t lat =
-        1u + (ts.bits(kLatBits, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
+        1u + (ts.bits(LAT, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
     const int32_t cap = plan.link_delay[e * n + i];
     return wrap_add(wrap_add(tick, 1), min(static_cast<int32_t>(lat), cap));
   }

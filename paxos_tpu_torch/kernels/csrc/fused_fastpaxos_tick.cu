@@ -60,6 +60,17 @@
 // read on a recovery tick and written on a snapshot tick, the restore
 // coming before the tick's invariant check.
 //
+// The bounded-delay channel (p_delay: delay stamps on every send, readiness
+// gates on delivery and request selection) compiles into the stamped
+// instantiations (STAMPED, at (2,5,8), without and with the arms), for a
+// state whose buffers carry `until` stamps, as K1's (fused_paxos_tick.cu):
+// the stamp rows of sd::SdStaged and sd::Channel in fused_common.cuh.  The
+// stamps sit in the lane's column, the slots still waiting for theirs in a
+// bitmask per buffer, refreshed at the tick's start, and a tick's sends are
+// stamped by one rolled loop per buffer; delivery and the selection read
+// the slots that have arrived only.  A cut (ARMS) masks after the readiness
+// gate and never touches a stamp.
+//
 // What differs from the Paxos tick (protocols/fastpaxos.py):
 //  - acceptors vote at most once per ballot (the revote rule);
 //  - the learner's threshold is per slot: q_fast for a fast-round ballot
@@ -104,14 +115,16 @@ enum Leaf {
 // signature and code are those of the kernel without the arms, and `Gray`
 // for the arms instantiation (ARMS), which takes the arms' knobs and plan
 // leaves.
-template <int P, int A, int K, int B, int MIN_BLOCKS, typename... Arms>
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                        Arms... arms) {
   constexpr bool ARMS = sizeof...(Arms) > 0;
   const Gray gray{arms...};
   static_assert(B % 32 == 0, "a block is whole warps");
-  using G = SdStaged<P, A, K, false>;
+  using G = SdStaged<P, A, K, false, STAMPED>;
+  // The snapshot shadows' first leaf (after the stamps in a stamped state).
+  constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
   constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
@@ -123,7 +136,10 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
   if (i >= n) return;
   PhaseClock<kPhases> clk;
   const Column<B> col{smem + threadIdx.x};
-  sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>>(col, L, n, i);
+  sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>, B, STAMPED>(col, L, n, i);
+  // The bounded-delay channel's waiting slots (STAMPED), as the column.
+  sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;
+  if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
 
   // ---- Load the lane's register-resident state once. ----
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
@@ -180,14 +196,18 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
                         static_cast<uint32_t>(prm.block), lane, &draws};
     // Stale-snapshot recovery or amnesia (the arms), before the acceptor
     // half-tick and its invariant check.
-    sd::recover<ARMS, A>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [](int) {});
+    sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [](int) {});
+    // The slots whose stamp has come (STAMPED): a slot waiting for its
+    // stamp is neither delivered nor selected.
+    if constexpr (STAMPED) ch.refresh(col, tick, &draws);
+    const uint32_t rq_ready = rq_present & (STAMPED ? ~ch.rq_wait : ~0u);
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
 
     // ---- Reply delivery (pre-tick buffer): the replies on a link not cut
     //      and not held this tick; consumed unless duplicated. ----
-    uint32_t delivered = rp_present;
+    uint32_t delivered = rp_present & (STAMPED ? ~ch.rp_wait : ~0u);
     if constexpr (ARMS) delivered &= ~(cut_rep | (cut_rep << E));
     if (prm.hold.mode != 0) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
@@ -312,7 +332,7 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     for (int a = 0; a < A; ++a) {
       const bool alive = !(crash_start[a] <= tick && tick < crash_end[a]);
       const bool busy = ts.survives_at(prm.idle, kBusy, a);
-      const int win = select_present<P, A>(ts, rq_present, a);
+      const int win = select_present<P, A>(ts, rq_ready, a);  // a request has arrived
       int sel = (win >= 0 && busy && alive) ? win : -1;
       // A request on a cut link stays in flight: the acceptor processes
       // nothing this tick.
@@ -375,6 +395,10 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       ev_bal[a] = mb;
       ev_val[a] = mv;
     }
+    // The replies' delay stamps (the stamp draws are keyed by the slot, so
+    // one rolled loop serves every reply site).
+    if constexpr (STAMPED)
+      ch.stamp_sends(col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
     rp_present = rp_next | rp_sent;
     rp_written |= rp_sent;
     rq_present = rq_next;
@@ -407,6 +431,8 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       }
       if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
+    if constexpr (STAMPED)
+      ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
     rq_present |= rq_sent;
     rq_written |= rq_sent;
     clk.mark(kPhSends);
@@ -439,44 +465,47 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     store<uint8_t>(L, kRqPresent, j, n, i, ((rq_present >> j) & 1u) ? 1 : 0);
     store<uint8_t>(L, kRpPresent, j, n, i, ((rp_present >> j) & 1u) ? 1 : 0);
   }
-  sd::store_column<P, A, K, false, B>(col, L, n, i, rq_written, rp_written, lt_written);
+  sd::store_column<P, A, K, false, B, STAMPED>(col, L, n, i, rq_written, rp_written, lt_written);
   clk.mark(kPhStore);
   clk.flush();
 }
 
 // One instantiation, ready to launch (SmemInst in fused_common.cuh): the
 // arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
+template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
 struct InstOf {
-  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, B, MIN_BLOCKS>, B,
-                        SdStaged<P, A, K, false>::kRows * B * 4>;
+  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
+                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
 };
-template <int P, int A, int K, int B, int MIN_BLOCKS>
-struct InstOf<P, A, K, true, B, MIN_BLOCKS> {
-  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, B, MIN_BLOCKS, Gray>, B,
-                        SdStaged<P, A, K, false>::kRows * B * 4>;
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, true, B, MIN_BLOCKS> {
+  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>, B,
+                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
 };
-template <int P, int A, int K, bool ARMS, int B, int MIN_BLOCKS>
-using Inst = typename InstOf<P, A, K, ARMS, B, MIN_BLOCKS>::type;
+template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, STAMPED, ARMS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, ARMS, B, MIN_BLOCKS): one per
-// shape and arms flag, at the geometry fused_tick.FR_STAGING["fastpaxos"]
-// gives it; MIN_BLOCKS, the blocks an SM is to hold, caps a thread's
-// registers.  The arms run at (2,5,8), the shape of every config that sets
-// them.
-#define K2_INSTANCES(X) \
-  X(2, 5, 8, 0, 128, 4)   \
-  X(2, 3, 8, 0, 128, 3)   \
-  X(2, 5, 8, 1, 128, 3)
+// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, B,
+// MIN_BLOCKS): one per shape, stamps and arms flag, at the geometry
+// fused_tick.FR_STAGING["fastpaxos"] gives it; MIN_BLOCKS, the blocks an SM
+// is to hold, caps a thread's registers.  The arms and the stamps run at
+// (2,5,8), the shape of every config that sets them; the stamped column
+// (144 words) leaves room for 3 blocks.
+#define K2_INSTANCES(X)      \
+  X(2, 5, 8, 0, 0, 128, 4)   \
+  X(2, 3, 8, 0, 0, 128, 3)   \
+  X(2, 5, 8, 0, 1, 128, 3)   \
+  X(2, 5, 8, 1, 0, 128, 3)   \
+  X(2, 5, 8, 1, 1, 128, 3)
 
 // Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, k_slots, arms), or returns
-// cudaErrorInvalidValue.
+// instantiation `dims` names (n_prop, n_acc, k_slots, stamped, arms), or
+// returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K2_MATCH(P_, A_, K_, R_, B_, M_)                                     \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_) \
-    return fn(Inst<P_, A_, K_, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
+#define K2_MATCH(P_, A_, K_, S_, R_, B_, M_)                                                \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_) \
+    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
   K2_INSTANCES(K2_MATCH)
 #undef K2_MATCH
   return cudaErrorInvalidValue;
@@ -484,31 +513,35 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 
 }  // namespace
 
-// C entry point, loaded with ctypes (arguments: read_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, arms (1: the
-// instantiation with the gray-failure and partition arms, which a knob of
-// theirs needs), then the dynamic shared bytes a block,
-// fused_tick.FR_STAGING's); the state's leaves are 28, or 31 with snapshot
-// shadows, which stale_k > 0 needs; `tick` is the device int32 tick
-// scalar, read by the kernel and advanced by the caller.  Returns
-// cudaSuccess or the first error: an unknown instantiation, a knob on
-// without its arms or its arms without a knob, stale_k without snapshots
-// or too few shared bytes (cudaErrorInvalidValue), a shared-memory request
-// the card refuses, or the launch's cudaGetLastError().
+// C entry point, loaded with ctypes (arguments: read_gray_args in
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped (1: the
+// state's buffers carry delay stamps, which p_delay > 0 needs), arms (1:
+// the instantiation with the gray-failure and partition arms, which a knob
+// of theirs needs), then the dynamic shared bytes a block,
+// fused_tick.FR_STAGING's); the state's leaves are 28, 30 with the stamps,
+// and 3 more with snapshot shadows, which stale_k > 0 needs; `tick` is the
+// device int32 tick scalar, read by the kernel and advanced by the caller.
+// Returns cudaSuccess or the first error: an unknown instantiation, a leaf
+// count that is not its state's (a stamped state on an unstamped one), a
+// knob on without its arms or its arms without a knob, stale_k without
+// snapshots, p_delay without the stamps or the plan's link_delay, or too
+// few shared bytes (cudaErrorInvalidValue), a shared-memory request the
+// card refuses, or the launch's cudaGetLastError().
 extern "C" int fused_fastpaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                       void** plan, void* tick, const long long* params, int n_params,
                                       void* stream) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
+  if (n_dims != 6) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
   const cudaError_t bad =
-      read_gray_args(dims[3] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray);
+      read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray,
+                     kLeaves, 3, 3, dims[3] != 0);
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[4];
+  const int smem = dims[5];
   return dispatch(dims, [&](auto inst, auto with_arms) {
     if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
     else return decltype(inst)::launch(L, pl, t, prm, smem, s);
@@ -519,7 +552,7 @@ extern "C" int fused_fastpaxos_launch(const int* dims, int n_dims, void** leaves
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_fastpaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 5) return cudaErrorInvalidValue;
-  const int smem = dims[4];
+  if (n_dims != 6) return cudaErrorInvalidValue;
+  const int smem = dims[5];
   return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

@@ -90,6 +90,21 @@
 // shadows of promised and the slot log stay in global memory, read on a
 // recovery tick and written on a snapshot tick, the log's from and to the
 // lane's column.
+//
+// The bounded-delay channel (p_delay: delay stamps on every send, readiness
+// gates on PROMISE and ACCEPTED delivery and on the request selection)
+// compiles into the stamped instantiations (STAMPED, at (2,5,8,4), without
+// and with the arms), for a state whose three buffers carry `until`
+// stamps: K1's design (sd::Channel in fused_common.cuh), with Multi-Paxos'
+// stream ids and kind order (0 PROMISE, 1 ACCEPTED, 2 PREPARE, 3 ACCEPT).
+// The 4PA stamps of a lane (the requests' 2PA, then the PROMISEs' and the
+// ACCEPTEDs' PA each) join its column; the slots still waiting for theirs
+// sit in a bitmask per direction (the replies' PROMISEs first), refreshed
+// at the tick's start, and a tick's sends are stamped by one rolled loop a
+// direction, at exactly the plain tick's send sites: a leader's ACCEPT,
+// re-sent every tick, takes a new stamp every tick.  To keep 2 blocks of
+// 128 lanes an SM with the stamps in the column, the stamped
+// instantiations leave the PROMISE payloads in global memory (Staged).
 
 #include <type_traits>
 
@@ -101,17 +116,23 @@ namespace {
 constexpr int32_t kFollow = 0, kCandidate = 1, kLead = 2;
 constexpr int32_t kMpBallotLimit = (1 << 11) - 1;  // Multi-Paxos report-time limit
 constexpr int kMpLeaves = 29;                      // per-lane state leaves
+constexpr int kMpStampedLeaves = 32;               // the same with the three buffers' stamps
 constexpr int32_t kValMask = 0xFFFF;               // bv_val of a packed pair
 
 // Multi-Paxos stream ids (core/streams.py MULTI_PAXOS_STREAMS); SEL and
 // BUSY share the single-decree ids.
 constexpr uint32_t kMpDupReq = 2, kPromDeliver = 3, kAccdDeliver = 4, kMpKeepProm = 5,
                    kMpKeepAccd = 6, kKeepPrep = 7, kKeepAcc = 8, kJitter = 9, kMpBackoff = 10,
-                   kMpLinkBits = 11, kMpDupBits = 12, kMpCorrupt = 13;
+                   kMpLinkBits = 11, kMpDupBits = 12, kMpCorrupt = 13, kMpDelayBits = 14,
+                   kMpLatBits = 15;
 
 // The state leaves in the reference's flatten order, tick excluded; a
-// state with snapshot shadows (stale_k) has them after the two acceptor
-// leaves, and the C entry moves them last (read_gray_args).
+// state with delay stamps has each buffer's `until` after its own leaves
+// (at kMpStampAt), and one with snapshot shadows (stale_k: promised (A),
+// the log (A, L)) has them after the two acceptor leaves; the C entry
+// moves the shadows after the rest, then the stamps last (read_gray_args),
+// so the stamps sit at kRqUntil on and the shadows at kMpLeaves, or at
+// kMpStampedLeaves in a stamped state.
 struct Mp {
   enum Leaf : int {
     kPromised, kLog,
@@ -121,10 +142,12 @@ struct Mp {
     kPromPresent, kPromBal, kPromBv,
     kAccdPresent, kAccdBal, kAccdSlot, kAccdVal,
     kBase,
-    kSnapPromised, kSnapLog,  // (A) and (A, L), with snapshot shadows only
+    kRqUntil, kPromUntil, kAccdUntil,  // (2, P, A), (P, A), (P, A), with stamps only
   };
 };
 constexpr int kMpSnapAt = Mp::kLog + 1, kMpSnaps = 2;  // where the shadows arrive, and how many
+// Where a stamped state's three stamp leaves arrive in flatten order.
+constexpr int kMpStampAt[3] = {Mp::kRqPresent + 1, Mp::kPromBv + 2, Mp::kAccdVal + 3};
 
 // Element (row, lane) of a state leaf in global memory.
 template <typename T>
@@ -138,13 +161,14 @@ __device__ __forceinline__ int32_t pack_bv(int32_t bal, int32_t val) {
 }
 
 // A lane's staged rows, in column order: each leaf's rows in the leaf's own
-// row order (the slot index minor), the PROMISE payloads last where PROM.
+// row order (the slot index minor), the three buffers' delay stamps where
+// STAMPED, the PROMISE payloads last where PROM.
 // The learner's voter masks are acceptor bitmasks, below 2^A <= 2^8 in
 // every state the engine reaches, so the K <= 4 masks of a slot share one
 // word, mask k in bits [8k, 8k + 8): a slot's masks are read and written
 // at once, and the column is L * (K - 1) words shorter.  Mirrored by
 // fused_tick.mp_staged_rows.
-template <int P, int A, int LOG, int K, bool PROM>
+template <int P, int A, int LOG, int K, bool STAMPED, bool PROM>
 struct Staged {
   static_assert(K <= 4 && A <= 8, "a slot's voter masks must fit one word");
   static constexpr int kLog = 0;                        // acceptor.log (A, L)
@@ -153,7 +177,10 @@ struct Staged {
   static constexpr int kLtMask = kLtBv + LOG * K;       // learner.lt_mask (L, K), packed
   static constexpr int kChosenVal = kLtMask + LOG;      // learner.chosen_val (L)
   static constexpr int kChosenTick = kChosenVal + LOG;  // learner.chosen_tick (L)
-  static constexpr int kPromBv = kChosenTick + LOG;     // promises.p_bv (P, A, L), if PROM
+  static constexpr int kRqUntil = kChosenTick + LOG;    // requests.until (2, P, A), if STAMPED
+  static constexpr int kPromUntil = kRqUntil + (STAMPED ? 2 * P * A : 0);  // promises.until (P, A)
+  static constexpr int kAccdUntil = kPromUntil + (STAMPED ? P * A : 0);    // accepted.until (P, A)
+  static constexpr int kPromBv = kAccdUntil + (STAMPED ? P * A : 0);  // promises.p_bv (P, A, L), if PROM
   static constexpr int kRows = kPromBv + (PROM ? P * A * LOG : 0);
 };
 
@@ -272,39 +299,49 @@ __device__ __forceinline__ void store_masks(const Column<B>& col, const Leaves& 
   }
 }
 
-template <int P, int A, int LOG, int K, int B, bool PROM>
+template <int P, int A, int LOG, int K, int B, bool STAMPED, bool PROM>
 __device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& L, int64_t n,
                                             int64_t i) {
-  using G = Staged<P, A, LOG, K, PROM>;
+  using G = Staged<P, A, LOG, K, STAMPED, PROM>;
   load_rows<A * LOG, G::kLog>(col, L, Mp::kLog, n, i);
   load_rows<P * LOG, G::kRecov>(col, L, Mp::kRecov, n, i);
   load_rows<LOG * K, G::kLtBv>(col, L, Mp::kLtBv, n, i);
   load_masks<LOG, K, G::kLtMask>(col, L, Mp::kLtMask, n, i);
   load_rows<LOG, G::kChosenVal>(col, L, Mp::kChosenVal, n, i);
   load_rows<LOG, G::kChosenTick>(col, L, Mp::kChosenTick, n, i);
+  if constexpr (STAMPED) {
+    load_rows<2 * P * A, G::kRqUntil>(col, L, Mp::kRqUntil, n, i);
+    load_rows<P * A, G::kPromUntil>(col, L, Mp::kPromUntil, n, i);
+    load_rows<P * A, G::kAccdUntil>(col, L, Mp::kAccdUntil, n, i);
+  }
   if constexpr (PROM) load_rows<P * A * LOG, G::kPromBv>(col, L, Mp::kPromBv, n, i);
 }
 
-template <int P, int A, int LOG, int K, int B, bool PROM>
+template <int P, int A, int LOG, int K, int B, bool STAMPED, bool PROM>
 __device__ __forceinline__ void store_column(const Column<B>& col, const Leaves& L, int64_t n,
                                              int64_t i) {
-  using G = Staged<P, A, LOG, K, PROM>;
+  using G = Staged<P, A, LOG, K, STAMPED, PROM>;
   store_rows<A * LOG, G::kLog>(col, L, Mp::kLog, n, i);
   store_rows<P * LOG, G::kRecov>(col, L, Mp::kRecov, n, i);
   store_rows<LOG * K, G::kLtBv>(col, L, Mp::kLtBv, n, i);
   store_masks<LOG, K, G::kLtMask>(col, L, Mp::kLtMask, n, i);
   store_rows<LOG, G::kChosenVal>(col, L, Mp::kChosenVal, n, i);
   store_rows<LOG, G::kChosenTick>(col, L, Mp::kChosenTick, n, i);
+  if constexpr (STAMPED) {
+    store_rows<2 * P * A, G::kRqUntil>(col, L, Mp::kRqUntil, n, i);
+    store_rows<P * A, G::kPromUntil>(col, L, Mp::kPromUntil, n, i);
+    store_rows<P * A, G::kAccdUntil>(col, L, Mp::kAccdUntil, n, i);
+  }
   if constexpr (PROM) store_rows<P * A * LOG, G::kPromBv>(col, L, Mp::kPromBv, n, i);
 }
 
 // Row `row` (= j * LOG + l) of the PROMISE payloads: in the column where
 // staged, else in place in global memory.
-template <int P, int A, int LOG, int K, int B, bool PROM>
+template <int P, int A, int LOG, int K, int B, bool STAMPED, bool PROM>
 __device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves& L, int row,
                                               int64_t n, int64_t i) {
   if constexpr (PROM) {
-    return col[Staged<P, A, LOG, K, PROM>::kPromBv + row];
+    return col[Staged<P, A, LOG, K, STAMPED, PROM>::kPromBv + row];
   } else {
     return at<int32_t>(L, Mp::kPromBv, row, n, i);
   }
@@ -312,15 +349,18 @@ __device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves
 
 // The kernel; `Arms` is empty for the default instantiations, whose
 // signature and code are those of K5 without the arms, and `Gray` for the
-// arms instantiation (ARMS), which takes the arms' knobs and plan leaves.
-template <int P, int A, int LOG, int K, int B, bool PROM, typename... Arms>
+// arms instantiations (ARMS), which take the arms' knobs and plan leaves.
+// STAMPED: the state's buffers carry delay stamps.
+template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM, typename... Arms>
 __global__ void __launch_bounds__(B)
 fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                         Arms... arms) {
   constexpr bool ARMS = sizeof...(Arms) > 0;
   const Gray gray{arms...};
   static_assert(B % 32 == 0, "a block is whole warps");
-  using G = Staged<P, A, LOG, K, PROM>;
+  using G = Staged<P, A, LOG, K, STAMPED, PROM>;
+  // The snapshot shadows' first leaf (after the stamps in a stamped state).
+  constexpr int SNAP = STAMPED ? kMpStampedLeaves : kMpLeaves;
   constexpr int S = 2 * P * A;  // request slots, index (kind * P + p) * A + a
   constexpr int E = P * A;      // reply slots, index p * A + a
   constexpr int kQuorum = A / 2 + 1;
@@ -331,10 +371,14 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
   const Column<B> col{smem + threadIdx.x};
-  load_column<P, A, LOG, K, B, PROM>(col, L, n, i);
+  load_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
   auto prom_bv = [&](int row) -> int32_t& {
-    return prom_word<P, A, LOG, K, B, PROM>(col, L, row, n, i);
+    return prom_word<P, A, LOG, K, B, STAMPED, PROM>(col, L, row, n, i);
   };
+  // The bounded-delay channel's waiting slots (STAMPED), as the column: the
+  // replies' slot j < E is PROMISE j, E + j ACCEPTED j.
+  sd::Channel<P, A, B, G::kRqUntil, G::kPromUntil, kMpDelayBits, kMpLatBits, 2> ch;
+  if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
 
   // ---- Load the lane's register-resident state once. ----
   int32_t promised[A], crash_start[A], crash_end[A];
@@ -400,14 +444,22 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // The slots whose stamp has come (STAMPED): a slot waiting for its
+    // stamp is neither delivered nor selected.
+    if constexpr (STAMPED) ch.refresh(col, tick, &draws);
+    const uint32_t rq_ready = rq_present & (STAMPED ? ~ch.rq_wait : ~0u);
 
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
 
     // ---- Reply delivery decided and cleared before any new send; a reply
-    //      on a cut link stays in flight. ----
+    //      still delayed, or on a cut link, stays in flight. ----
     uint32_t prom_del = prom_present, accd_del = accd_present;
+    if constexpr (STAMPED) {
+      prom_del &= ~ch.rp_wait;
+      accd_del &= ~(ch.rp_wait >> E);
+    }
     if constexpr (ARMS) {
       prom_del &= ~cut_rep;
       accd_del &= ~cut_rep;
@@ -452,17 +504,17 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         gray, tick, crash_end,
         [&](int a) {
           draws.touch(2 * LOG);  // the log's shadow, read into the log
-          promised[a] = at<int32_t>(L, Mp::kSnapPromised, a, n, i);
+          promised[a] = at<int32_t>(L, SNAP, a, n, i);
 #pragma unroll 1
           for (int l = 0; l < LOG; ++l)
-            col[G::kLog + a * LOG + l] = at<int32_t>(L, Mp::kSnapLog, a * LOG + l, n, i);
+            col[G::kLog + a * LOG + l] = at<int32_t>(L, SNAP + 1, a * LOG + l, n, i);
         },
         [&](int a) {
           draws.touch(2 * LOG);  // the log, read into its shadow
-          at<int32_t>(L, Mp::kSnapPromised, a, n, i) = promised[a];
+          at<int32_t>(L, SNAP, a, n, i) = promised[a];
 #pragma unroll 1
           for (int l = 0; l < LOG; ++l)
-            at<int32_t>(L, Mp::kSnapLog, a * LOG + l, n, i) = col[G::kLog + a * LOG + l];
+            at<int32_t>(L, SNAP + 1, a * LOG + l, n, i) = col[G::kLog + a * LOG + l];
         },
         [&](int a) {
           draws.touch(LOG);
@@ -473,6 +525,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 
     // ---- Acceptor half-tick: at most one request per acceptor. ----
     uint32_t rq_next = rq_present, ev_flag = 0, alive = 0;
+    uint32_t rp_sent = 0;  // the reply slots written this tick (PROMISE j, ACCEPTED E + j)
     int32_t ev_bal[A], ev_slot[A], ev_val[A];
 #pragma unroll
     for (int a = 0; a < A; ++a) alive |= (!(crash_start[a] <= tick && tick < crash_end[a]) ? 1u : 0u) << a;
@@ -481,7 +534,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       int sel = -1;
-      if ((awake >> a) & 1u) sel = select_present<P, A>(ts, rq_present, a);
+      if ((awake >> a) & 1u) sel = select_present<P, A>(ts, rq_ready, a);  // an arrived request
       // A request on a cut link stays in flight: the acceptor processes
       // nothing this tick.
       if constexpr (ARMS) {
@@ -521,6 +574,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
           ok_prep && sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepProm, 0, rj, n, i);
       const bool keep_accd =
           ok_acc && sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepAccd, 1, rj, n, i);
+      if constexpr (STAMPED) {
+        if (keep_prom) rp_sent |= 1u << rj;
+        if (keep_accd) rp_sent |= 1u << (E + rj);
+      }
       if (keep_prom) {
         draws.touch(eq ? LOG : 2 * LOG);  // the payload, and the log it copies
 #pragma unroll 1
@@ -559,6 +616,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       ev_val[a] = mv;
     }
     rq_present = rq_next;
+    // The replies' delay stamps (the stamp draws are keyed by the slot, so
+    // one rolled loop serves both reply sites).
+    if constexpr (STAMPED)
+      ch.stamp_sends(col, G::kPromUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
 
     // ---- Learner: fold the accept events into the per-slot tables. ----
     // The events that reach the fold: in the window, with a ballot, and
@@ -657,6 +718,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     const int32_t chosen_count = __popc(chosen);
 
     // ---- Proposer half-tick. ----
+    uint32_t rq_sent = 0;  // the request slots written this tick
     const bool log_full = chosen_count >= LOG ||
                           (prm.log_total != 0 && wrap_add(base, chosen_count) >= prm.log_total);
 #pragma unroll
@@ -723,6 +785,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
             rq_v1[j] = 0;
             rq_v2[j] = 0;
             rq_present |= 1u << j;
+            rq_sent |= 1u << j;
           }
         }
       }
@@ -745,6 +808,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
             rq_v1[j] = pval;
             rq_v2[j] = slot;
             rq_present |= 1u << j;
+            rq_sent |= 1u << j;
           }
         }
       }
@@ -754,6 +818,9 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       lease_timer[p] = lt;
       cand_timer[p] = start_elec ? 0 : ct;
     }
+    // The requests' delay stamps.
+    if constexpr (STAMPED)
+      ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
   }
 
   draws.flush();
@@ -791,41 +858,45 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     at<int32_t>(L, Mp::kAccdSlot, j, n, i) = accd_slot[j];
     at<int32_t>(L, Mp::kAccdVal, j, n, i) = accd_val[j];
   }
-  store_column<P, A, LOG, K, B, PROM>(col, L, n, i);
+  store_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh): the
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): an
 // arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int LOG, int K, bool ARMS, int B, bool PROM>
+template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, int B, bool PROM>
 struct InstOf {
-  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, B, PROM>, B,
-                        Staged<P, A, LOG, K, PROM>::kRows * B * 4>;
+  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, STAMPED, B, PROM>, B,
+                        Staged<P, A, LOG, K, STAMPED, PROM>::kRows * B * 4>;
 };
-template <int P, int A, int LOG, int K, int B, bool PROM>
-struct InstOf<P, A, LOG, K, true, B, PROM> {
-  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, B, PROM, Gray>, B,
-                        Staged<P, A, LOG, K, PROM>::kRows * B * 4>;
+template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM>
+struct InstOf<P, A, LOG, K, STAMPED, true, B, PROM> {
+  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, STAMPED, B, PROM, Gray>, B,
+                        Staged<P, A, LOG, K, STAMPED, PROM>::kRows * B * 4>;
 };
-template <int P, int A, int LOG, int K, bool ARMS, int B, bool PROM>
-using Inst = typename InstOf<P, A, LOG, K, ARMS, B, PROM>::type;
+template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, int B, bool PROM>
+using Inst = typename InstOf<P, A, LOG, K, STAMPED, ARMS, B, PROM>::type;
 
-// The instantiations, (n_prop, n_acc, log_len, k_slots, ARMS, B, PROM): one
-// per shape and arms flag, at the geometry fused_tick.MP_STAGING gives it.
-#define K5_INSTANCES(X)          \
-  X(2, 5, 8, 4, 0, 128, true)    \
-  X(2, 5, 16, 4, 0, 128, false)  \
-  X(2, 5, 4, 4, 0, 128, true)    \
-  X(2, 3, 8, 4, 0, 128, true)    \
-  X(2, 5, 8, 4, 1, 128, true)
+// The instantiations, (n_prop, n_acc, log_len, k_slots, STAMPED, ARMS, B,
+// PROM): one per shape, stamps and arms flag, at the geometry
+// fused_tick.MP_STAGING gives it.
+#define K5_INSTANCES(X)             \
+  X(2, 5, 8, 4, 0, 0, 128, true)    \
+  X(2, 5, 16, 4, 0, 0, 128, false)  \
+  X(2, 5, 4, 4, 0, 0, 128, true)    \
+  X(2, 3, 8, 4, 0, 0, 128, true)    \
+  X(2, 5, 8, 4, 0, 1, 128, true)    \
+  X(2, 5, 8, 4, 1, 0, 128, false)   \
+  X(2, 5, 8, 4, 1, 1, 128, false)
 
 // Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, log_len, k_slots, arms), or
-// returns cudaErrorInvalidValue.
+// instantiation `dims` names (n_prop, n_acc, log_len, k_slots, stamped,
+// arms), or returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K5_MATCH(P_, A_, L_, K_, R_, B_, S_)                                                  \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_ && dims[4] == R_) \
-    return fn(Inst<P_, A_, L_, K_, R_ != 0, B_, S_>{}, std::bool_constant<R_ != 0>{});
+#define K5_MATCH(P_, A_, L_, K_, S_, R_, B_, G_)                                        \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_ && dims[4] == S_ && \
+      dims[5] == R_)                                                                     \
+    return fn(Inst<P_, A_, L_, K_, S_ != 0, R_ != 0, B_, G_>{}, std::bool_constant<R_ != 0>{});
   K5_INSTANCES(K5_MATCH)
 #undef K5_MATCH
   return cudaErrorInvalidValue;
@@ -834,30 +905,35 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_gray_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, log_len, k_slots, arms (1: the
-// instantiation with the gray-failure and partition arms, which a knob of
-// theirs needs), then the dynamic shared bytes a block,
-// fused_tick.MP_STAGING's); the state's leaves are 29, or 31 with snapshot
-// shadows, which stale_k > 0 needs; `tick` is the device int32 tick
-// scalar, read by the kernel and advanced by the caller.  Returns
-// cudaSuccess or the first error: an unknown instantiation, a knob on
-// without its arms, stale_k without snapshots or too few shared bytes
-// (cudaErrorInvalidValue), a shared-memory request the card refuses, or
-// the launch's cudaGetLastError().
+// fused_common.cuh; `dims` = n_prop, n_acc, log_len, k_slots, stamped (1:
+// the state's buffers carry delay stamps, which p_delay > 0 needs), arms
+// (1: the instantiation with the gray-failure and partition arms, which a
+// knob of theirs needs), then the dynamic shared bytes a block,
+// fused_tick.MP_STAGING's); the state's leaves are 29, 32 with the stamps,
+// and 2 more with snapshot shadows, which stale_k > 0 needs; `tick` is the
+// device int32 tick scalar, read by the kernel and advanced by the caller.
+// Returns cudaSuccess or the first error: an unknown instantiation (a
+// stamped state at a shape other than (2,5,8,4)), a leaf count that is not
+// its state's (a stamped state on an unstamped one), a knob on without its
+// arms, stale_k without snapshots, p_delay without the stamps or the plan's
+// link_delay, or too few shared bytes (cudaErrorInvalidValue), a
+// shared-memory request the card refuses, or the launch's
+// cudaGetLastError().
 extern "C" int fused_multipaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                        void** plan, void* tick, const long long* params,
                                        int n_params, void* stream) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
+  if (n_dims != 7) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
-  const cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params,
-                                         &L, &pl, &prm, &gray, kMpLeaves, kMpSnapAt, kMpSnaps);
+  const cudaError_t bad =
+      read_gray_args(dims[5] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray,
+                     kMpLeaves, kMpSnapAt, kMpSnaps, dims[4] != 0, kMpStampAt);
   if (bad != cudaSuccess) return bad;
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[5];
+  const int smem = dims[6];
   return dispatch(dims, [&](auto inst, auto with_arms) {
     if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
     else return decltype(inst)::launch(L, pl, t, prm, smem, s);
@@ -868,7 +944,7 @@ extern "C" int fused_multipaxos_launch(const int* dims, int n_dims, void** leave
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_multipaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
-  const int smem = dims[5];
+  if (n_dims != 7) return cudaErrorInvalidValue;
+  const int smem = dims[6];
   return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
 }

@@ -175,7 +175,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   };
   const Column<B> col{smem + threadIdx.x};
   // The bounded-delay channel's waiting slots (STAMPED), as the column.
-  sd::Channel<P, A, K, false, B> ch;
+  sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;
   if (!settled()) {
     sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>, B, STAMPED>(col, L, n, i);
     if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);

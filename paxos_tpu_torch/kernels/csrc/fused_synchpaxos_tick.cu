@@ -173,7 +173,7 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   bool lt_written = false;                  // an accept event reached the learner table
 
   const int32_t tick0 = *tick_ptr;
-  sd::Channel<P, A, K, false, B> ch;
+  sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;
   if constexpr (STAMPED) ch.load(col, prm, plan, n, i, tick0);
 
   // ---- The arms' per-lane plan: the partition window, the links that

@@ -19,11 +19,10 @@ the two packages.  The default block is the reference's per protocol:
 stream ids with ``counter_masks``, and 256 for Multi-Paxos, which draws
 from its own ids with ``mp_counter_masks``.
 
-The Paxos and SynchPaxos kernels model the bounded-delay channel: each
-takes a state with or without ``until`` stamps (an instantiation each, the
-``stamped`` field of their ``KERNEL_SHAPES``) and the plan's
-``link_delay`` when ``p_delay > 0``; the other kernels refuse both.
-Every fused kernel models the gray-failure and partition arms
+Every fused kernel models the bounded-delay channel: each takes a state
+with or without ``until`` stamps (an instantiation each, the ``stamped``
+field of its ``KERNEL_SHAPES``) and the plan's ``link_delay`` when
+``p_delay > 0``.  Every fused kernel models the gray-failure and partition arms
 (``protocols.paxos.GRAY_KNOBS``), in an instantiation of its own that the
 wrapper picks when a knob of theirs is on (the last field of the
 ``KERNEL_SHAPES``, ``arms``: :func:`gray_arms`); it reads the plan's
@@ -31,9 +30,9 @@ partition and gray leaves and, under ``stale_k``, the state's snapshot
 shadows.
 
 Every kernel keeps part of each lane's state in shared memory for the
-whole chunk: the Multi-Paxos kernel its slot arrays, the SynchPaxos kernel
-its message payloads, delay stamps and learner table, and the Paxos, Fast
-Paxos and Raft-core kernels their message payloads and learner table;
+whole chunk: the Multi-Paxos kernel its slot arrays, and the
+single-decree kernels their message payloads and learner table; each its
+delay stamps where the state carries them;
 their launch geometry per instantiation (lanes a CUDA block, staged rows,
 shared bytes) is ``MP_STAGING``, ``SP_STAGING`` and ``FR_STAGING``, which
 the kernels' instantiations mirror; the wrapper passes them the shared
@@ -74,28 +73,28 @@ DEFAULT_BLOCK = 1024
 # a ballot by less than 2 * MAX_PROPOSERS.
 BALLOT_GROWTH_PER_TICK = 16
 
-# Shapes each CUDA kernel is instantiated for: Fast Paxos and Raft-core
-# (n_prop, n_acc, k_slots, arms) of config5 and (2, 3, 8), the
-# three-acceptor shape the reference's own kernel tests run
-# (tests/test_fused.py), with arms 1 (the gray-failure and partition arms)
-# at (2, 5, 8), the shape of every config that sets them; Paxos
-# (n_prop, n_acc, k_slots, stamped, arms) of config2/config4 and config1,
-# with stamped 1 (delay stamps, p_delay > 0) at (2, 5, 8) without and
-# with the arms, and arms 1 at (2, 5, 8);
-# SynchPaxos (n_prop, n_acc, k_slots, stamped, arms) of
+# Shapes each CUDA kernel is instantiated for, the last two fields of each
+# ``stamped`` (1: delay stamps, p_delay > 0) and ``arms`` (1: the
+# gray-failure and partition arms): Paxos, Fast Paxos and Raft-core
+# (n_prop, n_acc, k_slots, stamped, arms) of config2/config4 or config5,
+# and config1 (Paxos) or (2, 3, 8), the three-acceptor shape the
+# reference's own kernel tests run (tests/test_fused.py), with the arms
+# and the stamps at (2, 5, 8), the shape of every config that sets them,
+# each without and with the other; SynchPaxos the same of
 # config_delay_chaos (with delay stamps) and of its delay-free runs, three
 # acceptors, and the arms at (2, 5, 8) without stamps (config_gray_chaos)
-# and with them;
-# Multi-Paxos (n_prop, n_acc, log_len, k_slots, arms) of config3,
-# config3-long, the reference tests' 4-slot window, and three acceptors,
-# with arms 1 at config3's (2, 5, 8, 4).
+# and with them; Multi-Paxos (n_prop, n_acc, log_len, k_slots, stamped,
+# arms) of config3, config3-long, the reference tests' 4-slot window, and
+# three acceptors, with the arms and the stamps at config3's (2, 5, 8, 4).
+_SD_SHAPES = ((2, 5, 8, 0, 0), (2, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1))
 KERNEL_SHAPES = {
     "paxos": ((2, 5, 8, 0, 0), (1, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1)),
-    "fastpaxos": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
-    "raftcore": ((2, 5, 8, 0), (2, 3, 8, 0), (2, 5, 8, 1)),
+    "fastpaxos": _SD_SHAPES,
+    "raftcore": _SD_SHAPES,
     "synchpaxos": ((2, 5, 8, 1, 0), (2, 5, 8, 0, 0), (2, 3, 8, 1, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 1)),
     "multipaxos": (
-        (2, 5, 8, 4, 0), (2, 5, 16, 4, 0), (2, 5, 4, 4, 0), (2, 3, 8, 4, 0), (2, 5, 8, 4, 1),
+        (2, 5, 8, 4, 0, 0), (2, 5, 16, 4, 0, 0), (2, 5, 4, 4, 0, 0), (2, 3, 8, 4, 0, 0),
+        (2, 5, 8, 4, 0, 1), (2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1),
     ),
 }
 
@@ -105,13 +104,15 @@ REPORT_BALLOT_LIMIT = (1 << 15) - 1
 # The most shared memory one CUDA block of an H100 may use (227 KB).
 SMEM_PER_BLOCK_MAX = 232_448
 # The Multi-Paxos state leaves K5 keeps in shared memory for a whole chunk
-# (csrc/fused_multipaxos_tick.cu ``Staged``), in column order, and the
+# (csrc/fused_multipaxos_tick.cu ``Staged``), in column order, the delay
+# stamps where the state carries them (``MP_STAMP_LEAVES``), and the
 # PROMISE payloads, which it stages where ``MpStaging.stage_prom``.  The
 # voter masks (acceptor bitmasks, under 2^8) of a slot share one word.
 MP_STAGED_LEAVES = (
     "acceptor.log", "proposer.recov_bv", "learner.lt_bv", "learner.lt_mask",
     "learner.chosen_val", "learner.chosen_tick",
 )
+MP_STAMP_LEAVES = ("requests.until", "promises.until", "accepted.until")
 MP_PROM_LEAF = "promises.p_bv"
 MP_PACKED_LEAF = "learner.lt_mask"
 MP_MASKS_PER_WORD = 4
@@ -122,8 +123,8 @@ class MpStaging:
     """K5's launch geometry at one instantiation: ``threads`` lanes a CUDA
     block (a multiple of 32), whether the PROMISE payloads are staged, the
     int32 words of a lane's shared-memory column (``rows``: one per staged
-    slot-array element) and the block's dynamic shared memory,
-    ``rows * 4 * threads`` bytes."""
+    slot-array element and delay stamp) and the block's dynamic shared
+    memory, ``rows * 4 * threads`` bytes."""
 
     threads: int
     stage_prom: bool
@@ -131,36 +132,45 @@ class MpStaging:
     smem_bytes: int
 
 
-def mp_staged_rows(n_prop: int, n_acc: int, log_len: int, k_slots: int, stage_prom: bool) -> int:
+def mp_staged_rows(
+    n_prop: int, n_acc: int, log_len: int, k_slots: int, stamped: int, stage_prom: bool
+) -> int:
     """Words of a lane's column: the log (A*L), the recovery rows (P*L), the
     learner table's (ballot, value) pairs (L*K) and voter masks (L, a
     slot's K <= 4 masks in one word), the chosen values and ticks (L
-    each), and the PROMISE payloads (P*A*L) where staged."""
+    each), the stamps of the three buffers (2PA + PA + PA) where stamped,
+    and the PROMISE payloads (P*A*L) where staged."""
     if k_slots > MP_MASKS_PER_WORD:
         raise ValueError(f"K5 packs at most {MP_MASKS_PER_WORD} voter masks a slot, not {k_slots}")
-    rows = (n_acc + n_prop + k_slots + 3) * log_len
+    rows = (n_acc + n_prop + k_slots + 3) * log_len + (4 * n_prop * n_acc if stamped else 0)
     return rows + (n_prop * n_acc * log_len if stage_prom else 0)
 
 
 def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
-    rows = mp_staged_rows(*shape[:4], stage_prom)
+    rows = mp_staged_rows(*shape[:5], stage_prom)  # the arms (the key's last field) add no row
     return MpStaging(threads, stage_prom, rows, rows * 4 * threads)
 
 
-# K5's geometry per instantiation (n_prop, n_acc, log_len, k_slots, arms),
-# which the wrapper passes to the kernel.  The tick is a long dependent
-# chain a lane, so the warps an SM holds set the pace; at 255 registers a
-# thread it holds at most 8 (2 blocks of 128).  The payloads are staged
-# where the SM still holds 8 warps; at (2, 5, 16, 4) the 224 words without
-# them allow 8, with them 4 (64 lanes a block), which made the chunk slower
-# (PERF.md §6).  The arms instantiation keeps its default's column (the
-# snapshot shadows stay in global memory).
+# K5's geometry per instantiation (n_prop, n_acc, log_len, k_slots,
+# stamped, arms), which the wrapper passes to the kernel.  The tick is a
+# long dependent chain a lane, so the warps an SM holds set the pace; at
+# 255 registers a thread it holds at most 8 (2 blocks of 128).  The
+# payloads are staged where the SM still holds 8 warps; at (2, 5, 16, 4)
+# the 224 words without them allow 8, with them 4 (64 lanes a block),
+# which made the chunk slower (PERF.md §6).  The stamps (40 words) join
+# the column; at (2, 5, 8, 4) with them, the payloads move to global
+# memory as at (2, 5, 16, 4): the 152 words left take 2 blocks of 128 (8
+# warps), where staging everything (232 words) allows 2 blocks of 96 (6
+# warps; PERF.md §6 times both).  The arms instantiations keep their
+# default's column (the snapshot shadows stay in global memory).
 MP_STAGING = {
-    (2, 5, 8, 4, 0): _mp_staging((2, 5, 8, 4), 128, True),
-    (2, 5, 16, 4, 0): _mp_staging((2, 5, 16, 4), 128, False),
-    (2, 5, 4, 4, 0): _mp_staging((2, 5, 4, 4), 128, True),
-    (2, 3, 8, 4, 0): _mp_staging((2, 3, 8, 4), 128, True),
-    (2, 5, 8, 4, 1): _mp_staging((2, 5, 8, 4), 128, True),
+    (2, 5, 8, 4, 0, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
+    (2, 5, 16, 4, 0, 0): _mp_staging((2, 5, 16, 4, 0), 128, False),
+    (2, 5, 4, 4, 0, 0): _mp_staging((2, 5, 4, 4, 0), 128, True),
+    (2, 3, 8, 4, 0, 0): _mp_staging((2, 3, 8, 4, 0), 128, True),
+    (2, 5, 8, 4, 0, 1): _mp_staging((2, 5, 8, 4, 0), 128, True),
+    (2, 5, 8, 4, 1, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
+    (2, 5, 8, 4, 1, 1): _mp_staging((2, 5, 8, 4, 1), 128, False),
 }
 
 
@@ -221,16 +231,16 @@ SP_STAGING = {shape: _sp_staging(shape, 128, 3) for shape in KERNEL_SHAPES["sync
 # The Paxos, Fast Paxos and Raft-core state leaves K1, K2 and K3 keep in
 # shared memory for a whole chunk (``sd::SdStaged`` in
 # csrc/fused_common.cuh), in column order, each with the message kinds it
-# stages (None: every row of the leaf): Paxos ``SP_STAGED_LEAVES`` (the
-# stamps only where the state carries them), Fast Paxos the same without
-# the stamps; Raft-core stages every request's v1: a REQVOTE carries the
-# candidate's entry term.
+# stages (None: every row of the leaf), the stamps only where the state
+# carries them: Paxos and Fast Paxos ``SP_STAGED_LEAVES``; Raft-core stages
+# every request's v1: a REQVOTE carries the candidate's entry term.
 FR_STAGED_LEAVES = {
     "paxos": SP_STAGED_LEAVES,
-    "fastpaxos": tuple(x for x in SP_STAGED_LEAVES if not x[0].endswith(".until")),
+    "fastpaxos": SP_STAGED_LEAVES,
     "raftcore": (
         ("requests.bal", (0, 1)), ("requests.v1", (0, 1)), ("replies.bal", (0, 1)),
         ("replies.v1", (0, 1)), ("replies.v2", (0,)),
+        ("requests.until", (0, 1)), ("replies.until", (0, 1)),
         ("learner.lt_bal", None), ("learner.lt_val", None), ("learner.lt_mask", None),
     ),
 }
@@ -252,14 +262,13 @@ def fr_staged_rows(
     """Words of a K1, K2 or K3 lane's column: the request ballots (2PA) and
     staged values (PA, Raft-core 2PA), the reply ballots and first payloads
     (2PA each) and kind-0 second payloads (PA), the stamps of both buffers
-    (2PA each) where stamped (Paxos), and the learner table (3K)."""
+    (2PA each) where stamped, and the learner table (3K)."""
     e = n_prop * n_acc
     return (9 if protocol == "raftcore" else 8) * e + (4 * e if stamped else 0) + 3 * k_slots
 
 
 def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
-    stamped = shape[3] if protocol == "paxos" else 0  # K1's key: (P, A, K, stamped, arms)
-    rows = fr_staged_rows(protocol, *shape[:3], stamped)
+    rows = fr_staged_rows(protocol, *shape[:4])  # the key: (P, A, K, stamped, arms)
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
@@ -268,27 +277,36 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # thread at 168 registers; K2's (2, 5, 8) column (104 words) leaves room
 # for a fourth block (16 warps, 128 registers), which made its main path
 # 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's unstamped
-# columns (104 and 48 words) take 4 blocks at both shapes; its stamped
-# (2, 5, 8) column (144 words, 72 KiB a block) leaves room for 3.  Each arms
-# instantiation keeps its default's column (the snapshot shadows stay in
-# global memory), and its registers are capped for 3 blocks.
+# columns (104 and 48 words) take 4 blocks at both shapes.  The stamped
+# (2, 5, 8) columns of K1 and K2 (144 words, 72 KiB a block) leave room for
+# 3.  K3's (154 words) leaves room for 2 blocks of 128 lanes (8 warps) or
+# 11 of 32 (11 warps, 184 registers a thread at most): on
+# delaychaos-raftcore's steady chunk 128 x 2 ran 4.108 and 4.132 ms, 96 x
+# 3 3.791 and 3.746, 32 x 11 3.448 and 3.473 (one call, PERF.md §6), so K3
+# stamped takes 32 x 11.  Each arms instantiation keeps its default's
+# column (the snapshot shadows stay in global memory), and its registers
+# are capped for its default's blocks (the unstamped arms: 3).
 FR_STAGING = {
     "paxos": {
-        (2, 5, 8, 0, 0): _fr_staging("paxos", (2, 5, 8, 0), 128, 4),
-        (1, 3, 8, 0, 0): _fr_staging("paxos", (1, 3, 8, 0), 128, 4),
-        (2, 5, 8, 0, 1): _fr_staging("paxos", (2, 5, 8, 0), 128, 3),
-        (2, 5, 8, 1, 0): _fr_staging("paxos", (2, 5, 8, 1), 128, 3),
-        (2, 5, 8, 1, 1): _fr_staging("paxos", (2, 5, 8, 1), 128, 3),
+        (2, 5, 8, 0, 0): _fr_staging("paxos", (2, 5, 8, 0, 0), 128, 4),
+        (1, 3, 8, 0, 0): _fr_staging("paxos", (1, 3, 8, 0, 0), 128, 4),
+        (2, 5, 8, 0, 1): _fr_staging("paxos", (2, 5, 8, 0, 1), 128, 3),
+        (2, 5, 8, 1, 0): _fr_staging("paxos", (2, 5, 8, 1, 0), 128, 3),
+        (2, 5, 8, 1, 1): _fr_staging("paxos", (2, 5, 8, 1, 1), 128, 3),
     },
     "fastpaxos": {
-        (2, 5, 8, 0): _fr_staging("fastpaxos", (2, 5, 8), 128, 4),
-        (2, 3, 8, 0): _fr_staging("fastpaxos", (2, 3, 8), 128, 3),
-        (2, 5, 8, 1): _fr_staging("fastpaxos", (2, 5, 8), 128, 3),
+        (2, 5, 8, 0, 0): _fr_staging("fastpaxos", (2, 5, 8, 0, 0), 128, 4),
+        (2, 3, 8, 0, 0): _fr_staging("fastpaxos", (2, 3, 8, 0, 0), 128, 3),
+        (2, 5, 8, 0, 1): _fr_staging("fastpaxos", (2, 5, 8, 0, 1), 128, 3),
+        (2, 5, 8, 1, 0): _fr_staging("fastpaxos", (2, 5, 8, 1, 0), 128, 3),
+        (2, 5, 8, 1, 1): _fr_staging("fastpaxos", (2, 5, 8, 1, 1), 128, 3),
     },
     "raftcore": {
-        (2, 5, 8, 0): _fr_staging("raftcore", (2, 5, 8), 128, 3),
-        (2, 3, 8, 0): _fr_staging("raftcore", (2, 3, 8), 128, 3),
-        (2, 5, 8, 1): _fr_staging("raftcore", (2, 5, 8), 128, 3),
+        (2, 5, 8, 0, 0): _fr_staging("raftcore", (2, 5, 8, 0, 0), 128, 3),
+        (2, 3, 8, 0, 0): _fr_staging("raftcore", (2, 3, 8, 0, 0), 128, 3),
+        (2, 5, 8, 0, 1): _fr_staging("raftcore", (2, 5, 8, 0, 1), 128, 3),
+        (2, 5, 8, 1, 0): _fr_staging("raftcore", (2, 5, 8, 1, 0), 32, 11),
+        (2, 5, 8, 1, 1): _fr_staging("raftcore", (2, 5, 8, 1, 1), 32, 11),
     },
 }
 
@@ -409,11 +427,13 @@ BINDINGS = {
     ),
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
-        "fused_fastpaxos_launch", staging=FR_STAGING["fastpaxos"], arms=gray_arms,
+        "fused_fastpaxos_launch", shape_fields=("n_prop", "n_acc", "k_slots", "stamped"),
+        staging=FR_STAGING["fastpaxos"], arms=gray_arms,
     ),
     "raftcore": Binding(
         apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch",
-        staging=FR_STAGING["raftcore"], arms=gray_arms,
+        shape_fields=("n_prop", "n_acc", "k_slots", "stamped"), staging=FR_STAGING["raftcore"],
+        arms=gray_arms,
     ),
     # core/sp_state.py SP_LAYOUT: the single-decree widths; as Paxos.
     "synchpaxos": Binding(
@@ -425,7 +445,7 @@ BINDINGS = {
     "multipaxos": Binding(
         apply_tick_mp, mp_counter_masks, MultiPaxosState, "fused_multipaxos_tick",
         "fused_multipaxos_launch", block=256, ballot_limit=(1 << 11) - 1,
-        proposer_bal_bits=12, shape_fields=("n_prop", "n_acc", "log_len", "k_slots"),
+        proposer_bal_bits=12, shape_fields=("n_prop", "n_acc", "log_len", "k_slots", "stamped"),
         staging=MP_STAGING, arms=gray_arms,
     ),
 }
@@ -538,9 +558,8 @@ def _kernel_params(
 # The plan leaves every kernel receives, in ``Plan``'s order
 # (csrc/fused_common.cuh), each optional one passed as a null pointer when
 # the plan has none: the single-decree kernels ignore the proposer crash
-# windows, only the stamped instantiations of Paxos' and SynchPaxos' read
-# link_delay, and only the arms instantiations the partition and gray
-# leaves after it (the per-link ones (P, A, I) and the skew (P, I) at the
+# windows, only the stamped instantiations read link_delay, and only the
+# arms instantiations the partition and gray leaves after it (the per-link ones (P, A, I) and the skew (P, I) at the
 # state's own n_prop and n_acc).
 _PLAN_LEAVES = (
     "crash_start", "crash_end", "equivocate", "pcrash_start", "pcrash_end", "link_delay",
@@ -721,9 +740,10 @@ def draw_census(
     makes over ``n_ticks`` ticks from ``state`` (the gray draws of K1 to
     K3's and K5's arms included: LINK_BITS where a flaky link sends,
     DUP_BITS where it delivers or selects, CORRUPT where an acceptor
-    processes a request), and the slot-array elements it reads or writes
-    (Multi-Paxos, the snapshot shadows of its log included; SynchPaxos: the
-    delay stamps; 0 for the other single-decree kernels, which count none),
+    processes a request), and the state elements it touches: the slot-array
+    elements Multi-Paxos reads or writes (the snapshot shadows of its log
+    included), and every kernel's delay stamps of a stamped state (0 for an
+    unstamped single-decree one, which counts none),
     summed over lanes and ticks: one launch of its measuring build
     (``_measure``).  The kernels draw a mask, and touch a slot, only where
     the outcome depends on it, so these are the PRNG and slot work the data
@@ -774,7 +794,8 @@ def fused_paxos_chunk(
     the kernel's arms instantiation (:func:`gray_arms`), on a plan with the
     leaves its knobs need; so do Fast Paxos, Raft-core, SynchPaxos and
     Multi-Paxos.  A state with delay stamps runs a stamped instantiation,
-    and ``p_delay > 0`` needs a plan with ``link_delay``; so does SynchPaxos.
+    and ``p_delay > 0`` needs a plan with ``link_delay``; so do the other
+    four.
     CPU: the plain :func:`reference_chunk`.  There is no fallback between
     the two: the device of the state decides."""
     return _fused_chunk(
@@ -829,8 +850,9 @@ def fused_multipaxos_chunk(
     (``csrc/fused_multipaxos_tick.cu``, at the geometry ``MP_STAGING``
     gives the state's shape; a launch the card refuses raises); the
     default stream block is the reference's 256, and the per-tick clamp
-    pins ballots at 2047.  A gray-failure or partition knob runs the
-    arms instantiation at config3's shape only; any other shape raises."""
+    pins ballots at 2047.  A gray-failure or partition knob, or a state
+    with delay stamps, runs its instantiation at config3's shape only; any
+    other shape raises."""
     return _fused_chunk(
         "multipaxos", fused_multipaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,

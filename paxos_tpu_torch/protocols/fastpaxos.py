@@ -14,9 +14,9 @@ transport and fault machinery as single-decree Paxos; what differs:
   (``learner_observe(..., fast_quorum=...)``).
 
 The gray-failure and partition arms are the Paxos tick's (stale-snapshot
-restore and amnesia, cuts, flaky links, corruption, timer skew), through
-the pieces the three ticks share.  Observer planes and unported knobs are
-absent, as in the Paxos tick.
+restore and amnesia, cuts, flaky links, corruption, timer skew), and so is
+the bounded delay (stamped sends, readiness gates), through the pieces the
+three ticks share.  Observer planes are absent, as in the Paxos tick.
 """
 
 from __future__ import annotations
@@ -34,11 +34,12 @@ from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels.quorum import fast_quorum, majority, quorum_reached
 from paxos_tpu_torch.protocols.paxos import (
     TickMasks,
-    check_no_stamps,
     check_supported,
     corrupt,
+    delay_stamps,
     deliver,
     gray_links,
+    kind_until,
     recover,
     select,
     skewed_timers,
@@ -52,7 +53,6 @@ def apply_tick_fast(
 ) -> FastPaxosState:
     """The pure Fast Paxos transition for one tick over pre-sampled masks."""
     check_supported(cfg, "fastpaxos")
-    check_no_stamps(state, "fastpaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
     quorum = majority(n_acc)
@@ -64,6 +64,7 @@ def apply_tick_fast(
     equiv = plan.equivocate  # (A, I)
     acc = recover(state.acceptor, state, plan, cfg)
     links = gray_links(masks, plan, cfg, state.tick)
+    until_req, until_rep = delay_stamps(masks, plan, cfg, state.tick)
     delivered, replies = deliver(state, masks, links)
 
     # ---- Acceptor half-tick ----
@@ -97,13 +98,13 @@ def apply_tick_fast(
         replies, PROMISE,
         send_mask=sel[PREPARE] & ok_prep[None],
         bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
-        keep=links.keep_prom,
+        keep=links.keep_prom, until=kind_until(until_rep, PROMISE),
     )
     replies = net.send(
         replies, ACCEPTED,
         send_mask=sel[ACCEPT] & ok_acc[None],
         bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
-        keep=links.keep_accd,
+        keep=links.keep_accd, until=kind_until(until_rep, ACCEPTED),
     )
     requests = net.consume(state.requests, sel, stay=links.dup_req)
     acc_new = dataclasses.replace(acc, promised=promised, acc_bal=acc_bal, acc_val=acc_val)
@@ -194,13 +195,13 @@ def apply_tick_fast(
         requests, ACCEPT,
         send_mask=p1_done[:, None].expand(n_prop, n_acc, n_inst),
         bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=links.keep_p2,
+        keep=links.keep_p2, until=kind_until(until_req, ACCEPT),
     )
     requests = net.send(
         requests, PREPARE,
         send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=zeros, v2=zeros,
-        keep=links.keep_p1,
+        keep=links.keep_p1, until=kind_until(until_req, PREPARE),
     )
     prop = dataclasses.replace(
         prop,

@@ -22,8 +22,11 @@ commutative reply folds at the proposers), extended with:
 mode, between chunks).  All three are plain PyTorch; the first two are the
 plain version of the fused CUDA kernel ``csrc/fused_multipaxos_tick.cu``.
 The gray-failure and partition knobs (``protocols.paxos.GRAY_KNOBS``) are
-ported, with the pieces the single-decree ticks share; the observer planes
-and the bounded delay are not
+ported, with the pieces the single-decree ticks share, and so is the
+bounded delay (``p_delay``: ``protocols.paxos.send_stamps`` on the four
+sends, the readiness gates on PROMISE and ACCEPTED delivery and on the
+request selection, over the ``until`` stamps of the three buffers); the
+observer planes are not
 (:func:`paxos_tpu_torch.protocols.paxos.check_supported`).
 """
 
@@ -58,6 +61,7 @@ from paxos_tpu_torch.protocols.paxos import (
     corrupt,
     partition_cuts,
     recover,
+    send_stamps,
     skewed_timers,
 )
 from paxos_tpu_torch.transport import inmemory as net
@@ -90,6 +94,9 @@ class MPTickMasks:
     #   kind 0 PROMISE, 1 ACCEPTED, 2 PREPARE, 3 ACCEPT
     dup_bits: Optional[torch.Tensor] = None  # (2, P, A, I) int32 request dup
     corrupt: Optional[torch.Tensor] = None  # (A, I) bool payload perturbed
+    # Bounded delay (None unless p_delay > 0), link_bits' kind axis.
+    delay_bits: Optional[torch.Tensor] = None  # (4, P, A, I) int32 delay draw
+    lat_bits: Optional[torch.Tensor] = None  # (4, P, A, I) int32 latency draw
 
 
 def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=None) -> MPTickMasks:
@@ -126,7 +133,24 @@ def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=
         ),
         dup_bits=cp.counter_bits(tick_seed, S["DUP_BITS"], slot, **kw) if links_dup(cfg) else None,
         corrupt=cp.bern(tick_seed, S["CORRUPT"], (n_acc, n_inst), cfg.p_corrupt, **kw),
+        delay_bits=(
+            cp.counter_bits(tick_seed, S["DELAY_BITS"], (4,) + edge, **kw)
+            if cfg.p_delay > 0.0 else None
+        ),
+        lat_bits=(
+            cp.counter_bits(tick_seed, S["LAT_BITS"], (4,) + edge, **kw)
+            if cfg.p_delay > 0.0 else None
+        ),
     )
+
+
+def _stamped(until: Optional[torch.Tensor], sent: torch.Tensor, stamps: Optional[torch.Tensor]):
+    """A buffer's ``until`` after a send ``sent`` (P, A, I) stamped with
+    ``stamps`` (0, deliverable at once, where delay is off); None for a
+    buffer without stamps."""
+    if until is None:
+        return None
+    return torch.where(sent, 0 if stamps is None else stamps, until)
 
 
 def _and(mask: torch.Tensor, other: Optional[torch.Tensor]) -> torch.Tensor:
@@ -167,15 +191,27 @@ def apply_tick_mp(
         keep_prom, keep_accd = masks.keep_prom, masks.keep_accd
         keep_prep, keep_acc, dup_req = masks.keep_prep, masks.keep_acc, masks.dup_req
 
-    # ---- Reply delivery decided and cleared before any new send; a cut
-    #      link's replies stay in flight ----
-    prom_del = _and(_and(state.promises.present, masks.prom_deliver), link_rep)
-    accd_del = _and(_and(state.accepted.present, masks.accd_deliver), link_rep)
+    # ---- Bounded delay: this tick's send stamps (kinds 0 PROMISE, 1
+    #      ACCEPTED, 2 PREPARE, 3 ACCEPT) ----
+    stamps = None
+    if cfg.p_delay > 0.0:
+        stamps = send_stamps(masks.delay_bits, masks.lat_bits, plan, cfg, state.tick)
+
+    def kind(k):
+        return None if stamps is None else stamps[k]
+
+    # ---- Reply delivery decided and cleared before any new send; a reply
+    #      still delayed, or on a cut link, stays in flight ----
+    prom_del = _and(_and(state.promises.present, masks.prom_deliver), net.ready(state.promises, state.tick))
+    accd_del = _and(_and(state.accepted.present, masks.accd_deliver), net.ready(state.accepted, state.tick))
+    prom_del, accd_del = _and(prom_del, link_rep), _and(accd_del, link_rep)
     promises = dataclasses.replace(state.promises, present=state.promises.present & ~prom_del)
     accepted = dataclasses.replace(state.accepted, present=state.accepted.present & ~accd_del)
 
-    # ---- Acceptor half-tick; a cut link's requests stay in flight ----
-    sel = net.select_from_scores(state.requests.present, masks.sel_score, masks.busy)
+    # ---- Acceptor half-tick over the requests that have arrived; a cut
+    #      link's requests stay in flight ----
+    req_present = _and(state.requests.present, net.ready(state.requests, state.tick))
+    sel = net.select_from_scores(req_present, masks.sel_score, masks.busy)
     sel = sel & alive[None, None]
     if link_req is not None:
         sel = sel & link_req[None]
@@ -209,6 +245,7 @@ def apply_tick_mp(
         present=promises.present | prom_send,
         bal=torch.where(prom_send, msg_bal[None], promises.bal),
         p_bv=torch.where(prom_send[:, :, None], payload_bv[None], promises.p_bv),
+        until=_stamped(promises.until, prom_send, kind(0)),
     )
     accd_send = _and(sel[ACCEPT] & ok_acc[None], keep_accd)
     accepted = AcceptedBuf(
@@ -216,6 +253,7 @@ def apply_tick_mp(
         bal=torch.where(accd_send, msg_bal[None], accepted.bal),
         slot=torch.where(accd_send, msg_slot[None], accepted.slot),
         val=torch.where(accd_send, msg_val[None], accepted.val),
+        until=_stamped(accepted.until, accd_send, kind(1)),
     )
     requests = net.consume(state.requests, sel, stay=dup_req)
     acc = dataclasses.replace(acc, promised=promised, log=log)
@@ -293,7 +331,7 @@ def apply_tick_mp(
     requests = net.send(
         requests, PREPARE,
         send_mask=(start_elec & p_alive)[:, None].expand(edge),
-        bal=bal_next[:, None], v1=zeros, v2=zeros, keep=keep_prep,
+        bal=bal_next[:, None], v1=zeros, v2=zeros, keep=keep_prep, until=kind(2),
     )
     # Leaders re-broadcast the current slot's Accept every tick.
     is_lead = (phase == LEAD) & p_alive & (commit_idx < n_slots)
@@ -308,7 +346,7 @@ def apply_tick_mp(
     requests = net.send(
         requests, ACCEPT,
         send_mask=is_lead[:, None].expand(edge),
-        bal=bal_next[:, None], v1=pval[:, None], v2=ci[:, None], keep=keep_acc,
+        bal=bal_next[:, None], v1=pval[:, None], v2=ci[:, None], keep=keep_acc, until=kind(3),
     )
 
     prop = MPProposerState(
@@ -395,7 +433,7 @@ def compact_mp_body(state: MultiPaxosState):
             violations=lrn.violations,
             evictions=lrn.evictions,
         ),
-        requests=MsgBuf(bal=req.bal, v1=req.v1, v2=v2, present=present),
+        requests=MsgBuf(bal=req.bal, v1=req.v1, v2=v2, present=present, until=req.until),
         promises=dataclasses.replace(
             state.promises, present=state.promises.present & (shift == 0)
         ),

@@ -14,11 +14,11 @@ partition arms (``p_part`` with ``p_asym``, ``p_flaky``, ``p_corrupt``,
 pieces the ticks share (:func:`recover`, :func:`partition_cuts`,
 :func:`gray_links`, :func:`deliver`, :func:`select`, :func:`corrupt`,
 :func:`skewed_timers`; Multi-Paxos, whose buffers differ, takes the first
-two and the last two); for Paxos and SynchPaxos the bounded delay
-(``p_delay``, ``delay_max``: :func:`delay_stamps` on the sends, the
-readiness gates in :func:`deliver` and :func:`select`), for SynchPaxos
-``sp_unsafe_fast``.  Any other knob raises ``NotImplementedError`` naming
-its ROADMAP item.
+two and the last two); for every tick the bounded delay (``p_delay``,
+``delay_max``: :func:`delay_stamps` on the sends, the readiness gates in
+:func:`deliver` and :func:`select`; Multi-Paxos takes :func:`send_stamps`
+over its own buffers), for SynchPaxos ``sp_unsafe_fast``.  Any other knob raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,11 +52,9 @@ GRAY_KNOBS = (
     "amnesia",
 )
 GRAY_PROTOCOLS = ("paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos")
-# Knobs only some ticks model so far: the ticks that do, and the ROADMAP
-# item that ports the knob to the others.
-_DELAY_ITEM = "queue A item 12c (bounded delay on the Fast Paxos, Raft-core and Multi-Paxos ticks)"
+# Knobs only some ticks model: the ticks that do, and the ROADMAP item that
+# speaks for the others.
 _PARTIAL_KNOBS = {
-    "p_delay": (("paxos", "synchpaxos"), _DELAY_ITEM),
     "sp_unsafe_fast": (
         ("synchpaxos",), "queue A item 10 (SynchPaxos' planted bug, read by no other tick)"
     ),
@@ -73,16 +71,6 @@ def check_supported(cfg: FaultConfig, protocol: str = "paxos") -> None:
                 f"FaultConfig.{knob}={getattr(cfg, knob)!r} is not ported to "
                 f"paxos_tpu_torch's {protocol} tick yet (ROADMAP {item})"
             )
-
-
-def check_no_stamps(state, protocol: str) -> None:
-    """Raise unless the state's buffers carry no delay stamps: the Fast
-    Paxos, Raft-core and Multi-Paxos ticks do not read ``until`` yet."""
-    if state.requests.until is not None or state.replies.until is not None:
-        raise NotImplementedError(
-            f"the {protocol} tick does not read delay stamps (MsgBuf.until) yet "
-            f"(ROADMAP {_DELAY_ITEM})"
-        )
 
 
 @dataclasses.dataclass
@@ -168,28 +156,33 @@ def counter_masks(
     )
 
 
-def delay_stamps(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> tuple:
-    """This tick's bounded-delay stamps (``p_delay``).
+def send_stamps(delay_bits, lat_bits, plan: FaultPlan, cfg: FaultConfig, tick) -> torch.Tensor:
+    """The bounded-delay stamps (``p_delay``) of this tick's sends, from its
+    raw delay and latency draws, each (..., P, A, I) over send kinds.
 
     Each send edge is delayed with probability ``p_delay`` by a latency
     ``1 + lat_bits % delay_max``, capped by the plan's per-link
-    ``link_delay`` (cap 0: the link never delays).  Returns ``(until_req,
-    until_rep)``, each (2, P, A, I) int32: the earliest delivery tick of a
-    send on that edge, 0 where it is deliverable at once; ``(None, None)``
-    when delay is off.
+    ``link_delay`` (cap 0: the link never delays).  The stamp is the
+    earliest delivery tick of a send on that edge, 0 where it is
+    deliverable at once (int32, the draws' shape).
     """
-    if cfg.p_delay <= 0.0:
-        return None, None
     if plan.link_delay is None:
         raise ValueError("p_delay > 0 needs a plan with link_delay (the per-link latency caps)")
     # The sign bit is masked before the modulo, so the latency is in [1, delay_max].
-    lat = 1 + (masks.lat_bits & 0x7FFFFFFF) % max(cfg.delay_max, 1)
+    lat = 1 + (lat_bits & 0x7FFFFFFF) % max(cfg.delay_max, 1)
     ext = torch.where(
-        bits_below(masks.delay_bits, rate_threshold(cfg.p_delay)),
-        torch.minimum(lat, plan.link_delay[None, None]),
-        0,
-    ).to(torch.int32)  # (2, 2, P, A, I); axis 0: 0 = requests, 1 = replies
-    until = torch.where(ext > 0, tick + 1 + ext, 0).to(torch.int32)
+        bits_below(delay_bits, rate_threshold(cfg.p_delay)), torch.minimum(lat, plan.link_delay), 0
+    ).to(torch.int32)
+    return torch.where(ext > 0, tick + 1 + ext, 0).to(torch.int32)
+
+
+def delay_stamps(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> tuple:
+    """This tick's bounded-delay stamps (:func:`send_stamps`) per buffer:
+    ``(until_req, until_rep)``, each (2, P, A, I) int32, or ``(None,
+    None)`` when delay is off."""
+    if cfg.p_delay <= 0.0:
+        return None, None
+    until = send_stamps(masks.delay_bits, masks.lat_bits, plan, cfg, tick)  # axis 0: requests, replies
     return until[0], until[1]
 
 

@@ -8,8 +8,9 @@ REQVOTE, keep_p2 -> APPEND.  All quorums are majorities (``q1``/``q2`` do
 not apply).  The gray-failure and partition arms are the Paxos tick's,
 through the pieces the three ticks share: stale recovery restores the
 voters' (voted, entry term, entry value), and corruption flips an APPEND's
-value and moves a REQVOTE's term up one.  Observer planes and unported
-knobs are absent, as in the Paxos tick.
+value and moves a REQVOTE's term up one.  The bounded delay is the Paxos
+tick's too (stamped sends, readiness gates).  Observer planes are absent,
+as in the Paxos tick.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
 from paxos_tpu_torch.protocols.paxos import (
     TickMasks,
-    check_no_stamps,
     check_supported,
     corrupt,
+    delay_stamps,
     deliver,
     gray_links,
+    kind_until,
     recover,
     select,
     skewed_timers,
@@ -51,7 +53,6 @@ def apply_tick_raft(
 ) -> RaftState:
     """The pure Raft-core transition for one tick over pre-sampled masks."""
     check_supported(cfg, "raftcore")
-    check_no_stamps(state, "raftcore")
     n_acc, n_inst = state.acceptor.voted.shape
     n_prop = state.proposer.bal.shape[0]
     quorum = majority(n_acc)
@@ -60,6 +61,7 @@ def apply_tick_raft(
     equiv = plan.equivocate  # (A, I)
     voter = recover(state.acceptor, state, plan, cfg)
     links = gray_links(masks, plan, cfg, state.tick)
+    until_req, until_rep = delay_stamps(masks, plan, cfg, state.tick)
     delivered, replies = deliver(state, masks, links)
 
     # ---- Voter half-tick: select one request per (instance, voter) ----
@@ -97,13 +99,13 @@ def apply_tick_raft(
         bal=msg_bal[None],
         v1=(vote_payload_t * 2 + grant.to(torch.int32))[None],
         v2=vote_payload_v[None],
-        keep=links.keep_prom,
+        keep=links.keep_prom, until=kind_until(until_rep, VOTE),
     )
     replies = net.send(
         replies, ACK,
         send_mask=sel[APPEND] & ok_ap[None],
         bal=msg_bal[None], v1=msg_v1[None], v2=torch.zeros_like(msg_v1)[None],
-        keep=links.keep_accd,
+        keep=links.keep_accd, until=kind_until(until_rep, ACK),
     )
     requests = net.consume(state.requests, sel, stay=links.dup_req)
     voter_new = dataclasses.replace(voter, voted=voted, ent_term=ent_term, ent_val=ent_val)
@@ -177,13 +179,13 @@ def apply_tick_raft(
         requests, APPEND,
         send_mask=(phase == LEAD)[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=links.keep_p2,
+        keep=links.keep_p2, until=kind_until(until_req, APPEND),
     )
     requests = net.send(
         requests, REQVOTE,
         send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=ent_term_c[:, None], v2=zeros,
-        keep=links.keep_p1,
+        keep=links.keep_p1, until=kind_until(until_req, REQVOTE),
     )
     cand = dataclasses.replace(
         cand,

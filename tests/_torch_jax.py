@@ -1,6 +1,7 @@
 """Helpers that the port's tests share to carry values into the JAX package."""
 
 import dataclasses
+import hashlib
 import os
 from pathlib import Path
 
@@ -80,6 +81,122 @@ def check_against_jax(tcfg, ticks, jax_plan: bool):
         np.testing.assert_array_equal(w, g, err_msg=f"leaf {i}")
     # The case reaches its arm: the run moved the state.
     assert not all((a == b).all() for a, b in zip(got, init))
+    return got
+
+
+def mp_jax_config(tcfg):
+    """The JAX package's SimConfig with ``tcfg``'s fields."""
+    return dataclasses.replace(
+        JC.config3_multipaxos(tcfg.n_inst, tcfg.seed),
+        n_prop=tcfg.n_prop, n_acc=tcfg.n_acc, log_len=tcfg.log_len, k_slots=tcfg.k_slots,
+        fault=JC.FaultConfig(**dataclasses.asdict(tcfg.fault)),
+    )
+
+
+def check_mp_against_jax(tcfg, ticks, jax_plan: bool, block=None):
+    """The plain Multi-Paxos tick against the JAX package over ``ticks`` ticks in
+    stream blocks of ``block`` lanes (default: one block), on the plan the
+    JAX package samples (``jax_plan``) or on chip_smoke's numpy plan;
+    returns the port's final state."""
+    jcfg = mp_jax_config(tcfg)
+    assert jcfg.fingerprint() == tcfg.fingerprint()
+    state = trun.init_state(tcfg, "cpu")
+    assert state.snapshots == (tcfg.fault.stale_k > 0)
+    assert state.stamped == (tcfg.fault.p_delay > 0)
+    jstate = j_init_state(jcfg)
+    init = _np_leaves(jstate)
+    for w, g in zip(init, interop.state_to_numpy(state), strict=True):
+        np.testing.assert_array_equal(w, g)
+    if jax_plan:
+        with jax.threefry_partitionable(False):
+            jplan = j_init_plan(jcfg)
+        plan = interop.plan_from_numpy(_np_leaves(jplan), cfg=tcfg.fault)
+    else:
+        plan = chip_smoke.config_plan(tcfg, tcfg.seed, "cpu")
+        jplan = jax_plan_of(plan)
+    apply_fn, mask_fn, _ = fused_fns("multipaxos")
+    jblock = block or tcfg.n_inst
+    want = jax.jit(jax.vmap(
+        lambda st, pl, blk: j_reference_chunk(
+            st, tcfg.seed, pl, jcfg.fault, ticks, apply_fn, mask_fn, blk_id=blk
+        ),
+        in_axes=(0, 0, 0), out_axes=0,
+    ))(*split_blocks(jstate, jplan, tcfg.n_inst, jblock))
+    binding = tfused.BINDINGS["multipaxos"]
+    got = tfused.reference_chunk(
+        state, tcfg.seed, plan, tcfg.fault, ticks, block=block,
+        apply_fn=binding.apply_fn, mask_fn=binding.mask_fn,
+    )
+    want, got_leaves = merge_blocks(want), interop.state_to_numpy(got)
+    assert len(want) == len(got_leaves) == len(init)
+    for i, (w, g) in enumerate(zip(want, got_leaves)):
+        assert w.dtype == g.dtype and w.shape == g.shape, i
+        np.testing.assert_array_equal(w, g, err_msg=f"leaf {i}")
+    # The case reaches its arm: the run moved the state.
+    assert not all((a == b).all() for a, b in zip(got_leaves, init))
+    return got
+
+
+def split_blocks(jstate, jplan, n_inst, block):
+    """The state and plan cut into stream blocks of ``block`` lanes (a
+    leading block axis; the tick scalar repeated), with the block ids."""
+    blocks = n_inst // block
+
+    def cut(x):
+        x = np.asarray(x)
+        if x.ndim == 0:
+            return np.stack([x] * blocks)
+        return np.stack([x[..., b * block:(b + 1) * block] for b in range(blocks)])
+
+    return (
+        jax.tree.map(cut, jstate), jax.tree.map(cut, jplan), np.arange(blocks, dtype=np.int32)
+    )
+
+
+def merge_blocks(tree):
+    """Leaves of a block-split state, joined back along the lane axis."""
+    out = []
+    for x in jax.tree.leaves(tree):
+        x = np.asarray(x)
+        out.append(x[0] if x.ndim == 1 else np.concatenate(list(x), axis=-1))
+    return out
+
+
+def jax_path_blocks(path, jcfg, blocks, block, limit):
+    """Stream blocks ``blocks`` (of ``block`` lanes) of main path ``path``
+    at full width, seed 0, by the JAX package: its own ``reference_chunk``
+    over the path's ticks straight, one vmapped run over the blocks, each at
+    its block id on its slice of chip_smoke's numpy plan; the main path's
+    chunk clamps are the identity while ballots stay below the report
+    ``limit``, which this asserts, with no violation.  Returns {block:
+    (evicting lanes inside it, state digest)}."""
+    tcfg = chip_smoke.main_config(path)
+    assert dataclasses.asdict(jcfg.fault) == dataclasses.asdict(tcfg.fault)
+    assert jcfg.fingerprint() == tcfg.fingerprint()
+    full = [x.numpy() for x in chip_smoke.config_plan(tcfg, 0, "cpu").leaves()]
+    small = dataclasses.replace(jcfg, n_inst=block)
+    with jax.threefry_partitionable(False):
+        tree = jax.tree.structure(j_init_plan(small))
+    plans = jax.tree.unflatten(
+        tree, [np.stack([x[..., b * block:(b + 1) * block] for b in blocks]) for x in full]
+    )
+    apply_fn, mask_fn, _ = fused_fns(tcfg.protocol)
+    ticks = chip_smoke.MAIN_PATHS[path].ticks
+    out = jax.jit(jax.vmap(
+        lambda st, plan, blk: j_reference_chunk(
+            st, 0, plan, jcfg.fault, ticks, apply_fn, mask_fn, blk_id=blk
+        ),
+        in_axes=(None, 0, 0),
+    ))(j_init_state(small), plans, np.array(blocks, np.int32))
+    leaves = [np.asarray(x) for x in jax.tree.leaves(out)]
+    assert int(np.asarray(out.proposer.bal).max()) < limit  # the chunk clamps were the identity
+    assert int(np.asarray(out.learner.violations).sum()) == 0
+    got = {}
+    for b, blk in enumerate(blocks):
+        h = hashlib.sha256()
+        for leaf in leaves:
+            h.update(np.ascontiguousarray(leaf[b]).tobytes())
+        got[blk] = (np.nonzero(np.asarray(out.learner.evictions)[b])[0].tolist(), h.hexdigest()[:16])
     return got
 
 

@@ -18,8 +18,8 @@ them with the JAX package: the mask share with ``counter_masks``
 the slot share from the census of the same config at twice the window,
 since the census is linear in the window length, and the stamp share from
 the census of the same config with p_delay 0, net of both mask shares
-(every path whose config delays: SynchPaxos and Paxos on
-config_delay_chaos).  A case ``ROOFLINE.json`` lacks (config_delay_chaos,
+(every path whose config delays: the five protocols with
+config_delay_chaos's fault config).  A case ``ROOFLINE.json`` lacks (config_delay_chaos,
 the gray-chaos cells) is recorded in ``chip_smoke.CENSUS_CASES`` and
 recomputed here with
 ``tick_census``.  All at the fused block the census is taken at, the protocol's
@@ -115,7 +115,13 @@ def test_census_cases_are_recorded():
     assert sorted(chip_smoke.STAMP_CENSUS) == sorted(
         c for c in CASES if _census_config(c).fault.p_delay > 0
     )
-    assert chip_smoke.TOUCH_CENSUS == {**chip_smoke.SLOT_CENSUS, **chip_smoke.STAMP_CENSUS}
+    touch = {**chip_smoke.SLOT_CENSUS, **chip_smoke.STAMP_CENSUS}
+    for case in set(chip_smoke.SLOT_CENSUS) & set(chip_smoke.STAMP_CENSUS):  # K5 with delay
+        (slot_ops, slot_elems), (stamp_ops, stamp_elems) = (
+            chip_smoke.SLOT_CENSUS[case], chip_smoke.STAMP_CENSUS[case]
+        )
+        touch[case] = (slot_ops + stamp_ops, slot_elems + stamp_elems)
+    assert chip_smoke.TOUCH_CENSUS == touch
     for case in CASES:
         assert cases[case]["block"] == _block(case)
         mask_ops, _ = chip_smoke.MASK_CENSUS[case]
@@ -206,13 +212,16 @@ def test_chip_smoke_census_case_matches_jax_tick_census(case):
 def test_stamp_census_matches_jax_delay_off(case):
     """The stamp share is what turning the delay on adds to the census
     beyond the mask share of the delay draws, over the stamp elements the
-    state gains; the same in both delay regimes."""
+    state gains; on config_delay_chaos's own cells the same in both delay
+    regimes (Multi-Paxos: config3's cell with its fault config)."""
     block = _block(case)
-    protocol = _census_config(case).protocol
-    for violate in (False, True):
-        on = dataclasses.replace(
-            JC.config_delay_chaos(block, violate_delta=violate), protocol=protocol
-        )
+    config = _census_config(case)
+    regimes = [config]
+    if chip_smoke.MAIN_PATHS[CASES[case]].config == "config_delay_chaos":
+        regimes.append(dataclasses.replace(
+            JC.config_delay_chaos(block, violate_delta=True), protocol=config.protocol
+        ))
+    for on in regimes:
         off = dataclasses.replace(on, fault=dataclasses.replace(on.fault, p_delay=0.0))
         net = {}
         for name, cfg in (("on", on), ("off", off)):

@@ -33,15 +33,16 @@ partition knob alone and on the configs that set them
 stamps), and give the gray-chaos main paths' block-0 digests; so is K5's,
 on config3's cell, on every knob at once and on the JAX package's own two
 cases, and K5 on the knobs its main paths leave at their defaults (p_dup,
-q1/q2, a ballot stride).  K1's stamped instantiations (its bounded-delay
-channel) are held so on ``delay_knob_configs`` and give the
-delaychaos-paxos block-0 digest.  A plan without ``link_delay`` under
-``p_delay > 0`` is refused by K1 and K4, a stamped state on an unstamped
-instantiation and p_delay on an unstamped one by K1, and the other
-kernels refuse ``p_delay``; K1 to K5 refuse a gray knob that reaches an
-instantiation without its arms, an arms instantiation without a knob, and
-stale_k on a state without snapshot shadows; K5 a gray config at a shape
-without its arms (config_gray_chaos's own 8-row learner table).
+q1/q2, a ballot stride).  The stamped instantiations of K1, K2, K3 and
+K5 (their bounded-delay channel) are held so on ``delay_knob_configs`` and
+give the delay-chaos main paths' block-0 digests.  A plan without
+``link_delay`` under ``p_delay > 0``, a stamped state on an unstamped
+instantiation and p_delay on an unstamped one are refused by K1 to K5
+(K4: the first), and K5 refuses a stamped state at a shape other than
+(2,5,8,4); K1 to K5 refuse a gray knob that reaches an instantiation
+without its arms, an arms instantiation without a knob, and stale_k on a
+state without snapshot shadows; K5 a gray config at a shape without its
+arms (config_gray_chaos's own 8-row learner table).
 """
 
 import dataclasses
@@ -179,8 +180,12 @@ def test_multipaxos_kernel_matches_plain_on_cuda():
 def _mp_shape_config(shape, n, seed):
     """A Multi-Paxos config of K5's instantiation ``shape``: config3, three
     acceptors with equivocators, a long log through a 4- or 16-slot
-    window, or (the arms) the gray-chaos main path's config."""
-    n_prop, n_acc, log_len, _, arms = shape
+    window, (the arms) the gray-chaos main path's config, or (the stamps)
+    the delay-chaos one's, with the arms delay across a cut."""
+    n_prop, n_acc, log_len, _, stamped, arms = shape
+    if stamped:
+        name = "delay across a cut" if arms else "config_delay_chaos"
+        return delay_knob_configs(n, seed, "multipaxos")[name]
     if arms:
         return main_config("graychaos-multipaxos", n, seed)
     if log_len == 8:
@@ -228,7 +233,7 @@ def test_multipaxos_refused_launch_raises(monkeypatch):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     cfg = main_config("config3", 1024, 3)
     plan = config_plan(cfg, 3)
-    shape = (2, 5, 8, 4, 0)
+    shape = (2, 5, 8, 4, 0, 0)
     staging = tfused.MP_STAGING[shape]
     state = trun.init_state(cfg, "cuda")
     # advance once so that the refused launches would have something to change
@@ -257,13 +262,16 @@ def test_multipaxos_geometry_fits_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", PROTOCOLS + ["config3", "config3long", "delaychaos-paxos"])
+@pytest.mark.parametrize("path", PROTOCOLS + [
+    "config3", "config3long", "delaychaos-paxos", "delaychaos-fastpaxos", "delaychaos-raftcore",
+    "delaychaos-multipaxos",
+])
 def test_draw_census_build_follows_the_kernel(path):
     """The draw-counting build advances the state as the kernel does, counts
     no launch, draws at most every mask element of every tick, and touches
     slot arrays (Multi-Paxos) at most as often as the census rewrites them
-    and delay stamps (K1's stamped instantiation) at most 4 * 2PA a
-    lane-tick."""
+    and delay stamps (the stamped instantiations) at most 4 * 2PA a
+    lane-tick, the two summed on K5 with stamps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     mp = MAIN_PATHS[path]
@@ -280,10 +288,11 @@ def test_draw_census_build_follows_the_kernel(path):
         assert torch.equal(a, b)
     lane_ticks = cfg.n_inst * ticks
     assert 0 < draws <= MASK_CENSUS[mp.census][1] * lane_ticks
+    stamp_touches = 4 * 2 * cfg.n_prop * cfg.n_acc if mp.census in STAMP_CENSUS else 0
     if mp.protocol == "multipaxos":
-        assert 0 < touches <= SLOT_CENSUS[mp.census][1] * lane_ticks
-    elif mp.census in STAMP_CENSUS:
-        assert 0 < touches <= 4 * 2 * cfg.n_prop * cfg.n_acc * lane_ticks
+        assert 0 < touches <= (SLOT_CENSUS[mp.census][1] + stamp_touches) * lane_ticks
+    elif stamp_touches:
+        assert 0 < touches <= stamp_touches * lane_ticks
     else:
         assert touches == 0  # the single-decree state sits in registers
     again = tfused.draw_census(mp.protocol, trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
@@ -412,53 +421,57 @@ def test_synchpaxos_phase_clocks_follow_the_kernel():
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_model():
-    """K4 and K1 refuse a plan without link_delay under p_delay > 0, in the
-    wrapper and in their C entry points; K1's C entry refuses p_delay on an
-    unstamped instantiation and a stamped state on one; K2, K3 and K5
-    refuse p_delay."""
+    """K1 to K5 refuse a plan without link_delay under p_delay > 0, in the
+    wrapper and in their C entry points (K4 and K1 on their main paths, K2,
+    K3 and K5 on theirs); the C entries of K1, K2, K3 and K5 refuse p_delay
+    on an unstamped instantiation and a stamped state on one; K5 a stamped
+    state at a shape other than (2,5,8,4), in the wrapper.  No refused
+    launch changes the state."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
-    bare = tfused.FaultPlan.none(1024, 5, 2, device="cuda")
-    for path in ("synchpaxos", "delaychaos-paxos"):
+    for path in ("synchpaxos", "delaychaos-paxos", "delaychaos-fastpaxos", "delaychaos-raftcore",
+                 "delaychaos-multipaxos"):
         cfg = main_config(path, 1024, 1)
         protocol = MAIN_PATHS[path].protocol
+        block = tfused.BINDINGS[protocol].block
+        bare = tfused.FaultPlan.none(1024, 5, 2, device="cuda")
         with pytest.raises(ValueError, match="link_delay"):
             tfused.FUSED_WRAPPERS[protocol](trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8)
         with pytest.raises(RuntimeError, match="cudaError"):
-            tfused._launch(protocol, trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8, 1024, 0, False)
-    cfg = main_config("delaychaos-paxos", 1024, 1)
-    plan = main_plan(cfg)
-    unstamped = trun.init_state(main_config("paxos", 1024, 1), "cuda")
-    before = unstamped.clone()
-    with pytest.raises(RuntimeError, match="cudaError"):
-        tfused._launch("paxos", unstamped, 1, plan, cfg.fault, 8, 1024, 0, False)
-    _assert_same(unstamped, before)
-    binding = tfused.BINDINGS["paxos"]
-    # A binding that keys a stamped state to the unstamped instantiation.
-    tfused.BINDINGS["paxos"] = dataclasses.replace(
-        binding, shape_fields=("n_prop", "n_acc", "k_slots", "snapshots")
-    )
-    try:
-        stamped = trun.init_state(cfg, "cuda")
-        before = stamped.clone()
-        assert tfused.BINDINGS["paxos"].kernel_shape(stamped, cfg.fault) == (2, 5, 8, 0, 0)
-        nodelay = dataclasses.replace(cfg.fault, p_delay=0.0)
-        with pytest.raises(RuntimeError, match="cudaError"):
-            tfused._launch("paxos", stamped, 1, plan, nodelay, 8, 1024, 0, False)
-        _assert_same(stamped, before)
-    finally:
-        tfused.BINDINGS["paxos"] = binding
-    for path in ["fastpaxos", "raftcore", "config3"]:
-        c = main_config(path, 1024, 1)
-        delayed = dataclasses.replace(c.fault, p_delay=0.3)
+            tfused._launch(protocol, trun.init_state(cfg, "cuda"), 1, bare, cfg.fault, 8, block, 0, False)
+    for path, plain_path in (("delaychaos-paxos", "paxos"), ("delaychaos-fastpaxos", "fastpaxos"),
+                             ("delaychaos-raftcore", "raftcore"),
+                             ("delaychaos-multipaxos", "config3")):
+        cfg = main_config(path, 1024, 1)
         protocol = MAIN_PATHS[path].protocol
-        plan = main_plan(c) or trun.init_plan(c, "cuda")
-        plan.link_delay = torch.ones((c.n_prop, c.n_acc, c.n_inst), dtype=torch.int32, device="cuda")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfused.FUSED_WRAPPERS[protocol](trun.init_state(c, "cuda"), 1, plan, delayed, 8)
         block = tfused.BINDINGS[protocol].block
+        plan = main_plan(cfg)
+        unstamped = trun.init_state(main_config(plain_path, 1024, 1), "cuda")
+        assert unstamped.stamped == 0
+        before = unstamped.clone()
         with pytest.raises(RuntimeError, match="cudaError"):
-            tfused._launch(protocol, trun.init_state(c, "cuda"), 1, plan, delayed, 8, block, 0, False)
+            tfused._launch(protocol, unstamped, 1, plan, cfg.fault, 8, block, 0, False)
+        _assert_same(unstamped, before)
+        binding = tfused.BINDINGS[protocol]
+        # A binding that keys a stamped state to the unstamped instantiation.
+        fields = tuple("snapshots" if f == "stamped" else f for f in binding.shape_fields)
+        tfused.BINDINGS[protocol] = dataclasses.replace(binding, shape_fields=fields)
+        try:
+            stamped = trun.init_state(cfg, "cuda")
+            before = stamped.clone()
+            assert tfused.BINDINGS[protocol].kernel_shape(stamped, cfg.fault)[-2:] == (0, 0)
+            nodelay = dataclasses.replace(cfg.fault, p_delay=0.0)
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tfused._launch(protocol, stamped, 1, plan, nodelay, 8, block, 0, False)
+            _assert_same(stamped, before)
+        finally:
+            tfused.BINDINGS[protocol] = binding
+    for other in (dict(n_acc=3), dict(log_len=16)):
+        cfg = dataclasses.replace(main_config("delaychaos-multipaxos", 1024, 1), **other)
+        state = trun.init_state(cfg, "cuda")
+        assert state.stamped == 1
+        with pytest.raises(ValueError, match="instantiated"):
+            tfused.fused_multipaxos_chunk(state, 1, config_plan(cfg, 1), cfg.fault, 8)
 
 
 @pytest.mark.cuda
@@ -520,10 +533,10 @@ def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
     assert n % tfused.FR_STAGING[protocol][shape].threads != 0
     n_prop, n_acc = shape[:2]
     cfg = dataclasses.replace(main_config(protocol, n, 9), n_prop=n_prop, n_acc=n_acc)
-    stamped = protocol == "paxos" and shape[3] == 1  # K1's key: (P, A, K, stamped, arms)
-    if stamped:  # K1's channel: config_delay_chaos, or every gray knob with p_delay
+    stamped = shape[3] == 1  # the key: (P, A, K, stamped, arms)
+    if stamped:  # the channel: config_delay_chaos, or every gray knob with p_delay
         name = "every gray knob, p_delay 0.4" if shape[-1] else "config_delay_chaos"
-        cfg = dataclasses.replace(cfg, fault=delay_knob_configs(n, 9)[name].fault)
+        cfg = dataclasses.replace(cfg, fault=delay_knob_configs(n, 9, protocol)[name].fault)
     elif shape[-1] == 1:  # the arms: config_gray_chaos's knobs on this plan
         gray = gray_knob_configs(n, 9)["config_gray_chaos"].fault
         cfg = dataclasses.replace(cfg, fault=gray)
@@ -574,13 +587,15 @@ def test_fr_refused_launch_raises(protocol, monkeypatch):
 @pytest.mark.cuda
 def test_fr_geometry_fits_the_card():
     """Every geometry of K1, K2 and K3 lets an SM hold the blocks its
-    registers are capped for: 12 warps or more."""
+    registers are capped for: 12 warps or more, 11 for K3's stamped
+    column (11 blocks of 32 lanes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for protocol in FR:
         for shape, staging in tfused.FR_STAGING[protocol].items():
             blocks = tfused.blocks_per_sm(protocol, shape)
-            assert blocks >= staging.min_blocks and blocks * staging.threads // 32 >= 12
+            warps = 11 if protocol == "raftcore" and shape[3] else 12
+            assert blocks >= staging.min_blocks and blocks * staging.threads // 32 >= warps
 
 
 @pytest.mark.cuda
@@ -715,7 +730,7 @@ def test_fr_gray_arms_match_plain_on_cuda(protocol):
     for name, cfg in gray_knob_configs(4096, 12, protocol).items():
         plan = config_plan(cfg, 12)
         plain = trun.init_state(cfg, "cuda")
-        assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == (2, 5, 8, 1), name
+        assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == (2, 5, 8, 0, 1), name
         kern = plain.clone()
         for _ in range(2):
             plain = plain_chunk(cfg, plain, plan, 96, 1024)
@@ -778,7 +793,7 @@ def test_fr_arms_refuse_mismatched_launches(protocol):
     with pytest.raises(ValueError, match="instantiated"):
         wrapper(trun.init_state(small, "cuda"), 1, config_plan(small, 1), small.fault, 8)
     assert wrapper.launches == launches
-    arms_shape = (2, 5, 8, 0, 1) if protocol == "paxos" else (2, 5, 8, 1)
+    arms_shape = (2, 5, 8, 0, 1)
     staging = tfused.FR_STAGING[protocol][arms_shape]
     assert staging.min_blocks == 3
     assert tfused.blocks_per_sm(protocol, arms_shape) >= 3
@@ -809,7 +824,7 @@ def test_mp_gray_arms_match_plain_on_cuda():
     for cfg, ticks, chunks, block in cases:
         plan = config_plan(cfg, cfg.seed)
         plain = trun.init_state(cfg, "cuda")
-        assert tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault) == (2, 5, 8, 4, 1)
+        assert tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault) == (2, 5, 8, 4, 0, 1)
         kern = plain.clone()
         for _ in range(chunks):
             plain = plain_chunk(cfg, plain, plan, ticks, block)
@@ -876,7 +891,7 @@ def test_mp_arms_refuse_mismatched_launches():
             wrapper(state, 1, config_plan(small, 1), small.fault, 8)
         _assert_same(state, before)
     assert wrapper.launches == launches
-    assert tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 1)) >= 2
+    assert tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 0, 1)) >= 2
 
 
 @pytest.mark.cuda
@@ -915,10 +930,11 @@ def _block0_digest(path, n, chunks=64):
     return _digest(st)
 
 
-def _match_over_chunks(protocol, cases, ticks=96, chunks=2):
+def _match_over_chunks(protocol, cases, ticks=96, chunks=2, block=1024):
     """Each config of ``cases`` (name: config) on ``protocol``'s kernel
     against the plain tick over ``chunks`` chunks on chip_smoke's numpy
-    plan, one launch counted a chunk; returns the instantiations run."""
+    plan, ``block`` lanes a stream block, one launch counted a chunk;
+    returns the instantiations run."""
     wrapper = tfused.FUSED_WRAPPERS[protocol]
     shapes = set()
     for name, cfg in cases.items():
@@ -927,9 +943,9 @@ def _match_over_chunks(protocol, cases, ticks=96, chunks=2):
         shapes.add(tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault))
         kern = plain.clone()
         for _ in range(chunks):
-            plain = plain_chunk(cfg, plain, plan, ticks, 1024)
+            plain = plain_chunk(cfg, plain, plan, ticks, block)
             before = wrapper.launches
-            kern = wrapper(kern, cfg.seed, plan, cfg.fault, ticks)
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, ticks, block=block)
             assert wrapper.launches == before + 1, name
         torch.cuda.synchronize()
         _assert_same(kern, plain)
@@ -973,3 +989,63 @@ def test_paxos_delay_matches_plain_on_cuda():
     torch.cuda.synchronize()
     _assert_same(kern, plain)
     assert _block0_digest("delaychaos-paxos", 1024) == BLOCK0_DIGESTS["delaychaos-paxos"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
+def test_fr_delay_matches_plain_on_cuda(protocol):
+    """K2's and K3's stamped instantiations (their bounded-delay channel)
+    against the plain tick on config_delay_chaos in both delay regimes,
+    delay with drops and duplicates, delay across a cut in every lane and
+    every gray knob with p_delay 0.4 (the last two on the arms), over two
+    chunks; the per-tick clamp with a block offset from near-limit ballots;
+    and the delay-chaos main path's block-0 digest after a whole campaign.
+    The stamped geometry holds the blocks its registers are capped for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    shapes = _match_over_chunks(protocol, delay_knob_configs(4096, 14, protocol))
+    assert shapes == {(2, 5, 8, 1, 0), (2, 5, 8, 1, 1)}
+    path = f"delaychaos-{protocol}"
+    cfg = main_config(path, 4096, 13)
+    plan = main_plan(cfg)
+    init = near_limit_state(cfg, 4094)
+    assert init.stamped == 1
+    plain = plain_chunk(cfg, init, plan, 96, 1024, blk0=5, clamp_per_tick=True)
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    kern = wrapper(init.clone(), cfg.seed, plan, cfg.fault, 96, blk0=5, clamp_per_tick=True)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    assert _block0_digest(path, 1024) == BLOCK0_DIGESTS[path]
+    for shape in ((2, 5, 8, 1, 0), (2, 5, 8, 1, 1)):
+        staging = tfused.FR_STAGING[protocol][shape]
+        assert tfused.blocks_per_sm(protocol, shape) >= staging.min_blocks
+
+
+@pytest.mark.cuda
+def test_mp_delay_matches_plain_on_cuda():
+    """K5's stamped instantiations against the plain tick on
+    ``delay_knob_configs(n, seed, "multipaxos")`` (config3's cell with each
+    case's fault config; the last two on the arms, every gray knob with the
+    snapshot shadows too) over two chunks in stream blocks of 256; the
+    per-tick clamp (2047) with a block offset from near-limit ballots; and
+    the delaychaos-multipaxos main path's block-0 digest after a whole
+    campaign.  Its geometry holds 2 blocks of 128 lanes an SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cases = delay_knob_configs(4096, 14, "multipaxos")
+    shapes = _match_over_chunks("multipaxos", cases, block=256)
+    assert shapes == {(2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1)}
+    cfg = main_config("delaychaos-multipaxos", 4096, 13)
+    plan = main_plan(cfg)
+    init = near_limit_state_mp(cfg, 254)
+    assert init.stamped == 1
+    plain = plain_chunk(cfg, init, plan, 96, 256, blk0=5, clamp_per_tick=True)
+    kern = tfused.fused_multipaxos_chunk(
+        init.clone(), cfg.seed, plan, cfg.fault, 96, blk0=5, clamp_per_tick=True
+    )
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    assert int(kern.proposer.bal.max()) == (1 << 11) - 1
+    assert _block0_digest("delaychaos-multipaxos", 256) == BLOCK0_DIGESTS["delaychaos-multipaxos"]
+    for shape in ((2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1)):
+        assert tfused.blocks_per_sm("multipaxos", shape) >= 2

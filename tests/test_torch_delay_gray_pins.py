@@ -90,7 +90,8 @@ def test_path_blocks_match_jax_package(path):
 
 def test_main_config_protocol_replace_changes_no_earlier_path():
     """``main_config`` runs a config function of another protocol on the
-    path's protocol (config_delay_chaos on Paxos); on every other path the
+    path's protocol (config_delay_chaos on Paxos, Fast Paxos and
+    Raft-core); on every other path the
     config function already gives the path's protocol, so its config is as
     it was: the config function's own, with the path's fault config."""
     from paxos_tpu_torch.harness import config as C
@@ -101,8 +102,8 @@ def test_main_config_protocol_replace_changes_no_earlier_path():
         if mp.fault is not None:
             cfg = dataclasses.replace(cfg, fault=getattr(C, mp.fault)(256, 3).fault)
         got = chip_smoke.main_config(path, 256, 3)
-        if path == "delaychaos-paxos":
-            assert cfg.protocol == "synchpaxos" and got == dataclasses.replace(cfg, protocol="paxos")
+        if mp.config == "config_delay_chaos" and mp.protocol != "synchpaxos":  # delaychaos-*
+            assert cfg.protocol == "synchpaxos" and got == dataclasses.replace(cfg, protocol=mp.protocol)
         else:
             assert got == cfg, path
         assert got.protocol == mp.protocol

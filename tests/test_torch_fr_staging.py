@@ -18,11 +18,12 @@ where ``best_bal`` is not negative: the plain tick keeps it so.  K1
 applies a chunk to a settled lane at once: the plain tick leaves such a
 lane as it is, but for its acceptors' restores and snapshots under
 stale-snapshot recovery or amnesia, which K1's arms instantiation applies
-to a settled lane tick by tick.  K1's instantiations are keyed by shape,
-stamps and arms flag, ``(n_prop, n_acc, k_slots, stamped, arms)``: an
-arms instantiation keeps its default's column and caps its registers for
-3 blocks, and a stamped one stages both buffers' delay stamps too (144
-words at ``(2,5,8)``, 3 blocks).
+to a settled lane tick by tick.  The instantiations of the three are
+keyed by shape, stamps and arms flag, ``(n_prop, n_acc, k_slots, stamped,
+arms)``: an arms instantiation keeps its default's column and caps its
+registers for 3 blocks, and a stamped one stages both buffers' delay
+stamps too (at ``(2,5,8)``: K1 and K2 144 words, 3 blocks of 128 lanes;
+K3 154 words, 11 blocks of 32).
 """
 
 import dataclasses
@@ -61,13 +62,13 @@ def _leaf(state, path):
 
 
 def _stamped(protocol, shape):
-    """Whether instantiation ``shape`` stages the delay stamps: K1's key is
-    (P, A, K, stamped, arms), K2's and K3's (P, A, K, arms)."""
-    return protocol == "paxos" and shape[3] == 1
+    """Whether instantiation ``shape`` (P, A, K, stamped, arms) stages the
+    delay stamps."""
+    return shape[3] == 1
 
 
 def _state(protocol, shape):
-    n_prop, n_acc, k_slots = shape[:3]  # then the stamps (K1) and the arms flag
+    n_prop, n_acc, k_slots = shape[:3]  # then the stamps and the arms flag
     kw = {"delay": True} if _stamped(protocol, shape) else {}
     return STATES[protocol].init(3, n_prop, n_acc, k_slots, **kw)
 
@@ -99,10 +100,17 @@ def test_staged_rows_match_the_state_leaves(protocol, shape, staging):
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX == 232_448
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
-    # The SM holds the blocks the registers are capped for: 12 warps or more.
+    # The SM holds the blocks the registers are capped for: 12 warps or
+    # more, but 11 for K3's stamped column, of which three blocks of 128
+    # lanes overrun the SM's shared memory: 11 blocks of 32 lanes, the most
+    # that fit.
     assert staging.min_blocks * (staging.smem_bytes + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
     assert staging.min_blocks * staging.threads <= SM_THREADS_MAX
-    assert staging.min_blocks * staging.threads // 32 >= 12
+    stamped_k3 = protocol == "raftcore" and _stamped(protocol, shape)
+    assert staging.min_blocks * staging.threads // 32 >= (11 if stamped_k3 else 12)
+    if stamped_k3:
+        assert 3 * (staging.rows * 4 * 128 + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
+        assert (staging.min_blocks + 1) * (staging.smem_bytes + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
     for path, _ in staged:
         assert _leaf(state, path).dtype == torch.int32
     assert 2 * shape[0] * shape[1] <= 32  # a buffer's presence fits one bitmask
@@ -165,18 +173,16 @@ def test_every_instantiation_has_a_geometry(protocol):
 
 def _instances(protocol):
     """``K1_INSTANCES`` / ``K2_INSTANCES`` / ``K3_INSTANCES`` of the .cu,
-    in order: (P, A, K, ARMS, B, MIN) each, K1's (P, A, K, STAMPED, ARMS, B,
-    MIN)."""
+    in order: (P, A, K, STAMPED, ARMS, B, MIN) each."""
     listed = re.search(rf"#define {INSTANCES[protocol]}\(X\)(.*?)\n\n", SOURCES[protocol], re.S).group(1)
     return [tuple(map(int, x.split(", "))) for x in re.findall(r"X\(([\d, ]+)\)", listed)]
 
 
 @pytest.mark.parametrize("protocol", FR)
 def test_source_instantiates_the_table(protocol):
-    """The .cu lists exactly the table's geometries, one per shape and arms
-    flag (K1: and stamps flag), and the C entry points take the shape, the
-    stamps flag (K1), the arms flag and the shared bytes (5 ``dims``, K1's
-    6)."""
+    """The .cu lists exactly the table's geometries, one per shape, stamps
+    flag and arms flag, and the C entry points take the shape, the stamps
+    flag, the arms flag and the shared bytes (6 ``dims``)."""
     want = [shape + (st.threads, st.min_blocks) for shape, st in tfused.FR_STAGING[protocol].items()]
     got = _instances(protocol)
     assert sorted(got) == sorted(want)
@@ -184,17 +190,12 @@ def test_source_instantiates_the_table(protocol):
     shapes = [inst[:n_key] for inst in got]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES[protocol])
     src = SOURCES[protocol]
-    if protocol == "paxos":
-        assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in src
-        assert src.count("n_dims != 6") == 2 and src.count("const int smem = dims[5];") == 2
-        assert "using G = SdStaged<P, A, K, false, STAMPED>;" in src
-        assert "SdStaged<P, A, K, false, STAMPED>::kRows * B * 4" in src
-        return
-    assert "if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == R_)" in src
-    assert src.count("n_dims != 5") == 2 and src.count("const int smem = dims[4];") == 2
+    assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in src
+    assert src.count("n_dims != 6") == 2 and src.count("const int smem = dims[5];") == 2
     rv_v1 = "true" if protocol == "raftcore" else "false"
-    assert f"using G = SdStaged<P, A, K, {rv_v1}>;" in src
-    assert f"SdStaged<P, A, K, {rv_v1}>::kRows * B * 4" in src
+    assert f"using G = SdStaged<P, A, K, {rv_v1}, STAMPED>;" in src
+    assert f"SdStaged<P, A, K, {rv_v1}, STAMPED>::kRows * B * 4" in src
+    assert "sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;" in src
 
 
 @pytest.mark.parametrize("protocol", FR)
@@ -355,6 +356,30 @@ def test_k1_arms_geometry_is_pinned():
         assert binding.kernel_shape(stamped, cfg.fault) == (2, 5, 8, 1, arms_on), name
     assert tfused._launch_dims(binding, (2, 5, 8, 0, 1)) == (2, 5, 8, 0, 1, 53248)
     assert tfused._launch_dims(binding, (2, 5, 8, 1, 0)) == (2, 5, 8, 1, 0, 73728)
+
+
+@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
+def test_k2_k3_stamped_geometry_is_pinned(protocol):
+    """K2's and K3's stamped instantiations (their bounded-delay channel)
+    stage both buffers' stamps at ``(2,5,8)``: K2 144 words, 72 KiB a block
+    of 128 lanes, 3 blocks; K3, which stages every request's v1, 154 words,
+    in blocks of 32 lanes (19 KiB), 11 an SM; the arms' keeps its default's
+    column.  The wrapper picks them by the state's stamps and the config's
+    gray knobs."""
+    table = tfused.FR_STAGING[protocol]
+    threads, rows, smem, blocks = (
+        (128, 144, 73728, 3) if protocol == "fastpaxos" else (32, 154, 19712, 11)
+    )
+    for key in ((2, 5, 8, 1, 0), (2, 5, 8, 1, 1)):
+        st = table[key]
+        assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (threads, rows, smem, blocks)
+    assert table[(2, 5, 8, 0, 1)].rows == table[(2, 5, 8, 0, 0)].rows == rows - 40
+    binding = tfused.BINDINGS[protocol]
+    stamped = STATES[protocol].init(4, 2, 5, 8, delay=True)
+    for name, cfg in chip_smoke.delay_knob_configs(64, 1, protocol).items():
+        arms_on = int(name in ("delay across a cut", "every gray knob, p_delay 0.4"))
+        assert binding.kernel_shape(stamped, cfg.fault) == (2, 5, 8, 1, arms_on), name
+    assert tfused._launch_dims(binding, (2, 5, 8, 1, 0)) == (2, 5, 8, 1, 0, smem)
 
 
 @pytest.mark.parametrize("name", ["config_stale", "amnesia"])

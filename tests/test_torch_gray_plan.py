@@ -129,8 +129,8 @@ def test_plan_leaves_round_trip_every_optional_subset(subset):
 def test_check_supported_takes_the_gray_knobs_on_paxos_only(protocol):
     """Each gray-failure and partition knob is legal on every tick: the
     Paxos, Fast Paxos, Raft-core, Multi-Paxos and, since ROADMAP item 12b,
-    SynchPaxos ones; ``run`` takes it on each, and the one knob that
-    stays refused on some ticks, p_delay, is no gray knob."""
+    SynchPaxos ones; ``run`` takes it on each, and the bounded delay,
+    p_delay, which every tick takes too, is no gray knob."""
     assert tpaxos.GRAY_PROTOCOLS == ("paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos")
     assert "p_delay" not in tpaxos.GRAY_KNOBS
     for knob in tpaxos.GRAY_KNOBS:

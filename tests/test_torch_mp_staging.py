@@ -7,9 +7,11 @@ rows, shared bytes).  The rows are held against the port's own
 ``MultiPaxosState`` leaf shapes, the geometry against the card's limits,
 and the table against the instantiations and the column order of
 ``csrc/fused_multipaxos_tick.cu``.  A table key is (n_prop, n_acc,
-log_len, k_slots, arms): the gray-failure and partition arms are an
-instantiation of their own at config3's shape, with its default's
-column.
+log_len, k_slots, stamped, arms): the gray-failure and partition arms are
+an instantiation of their own at config3's shape, with its default's
+column, and so is the bounded-delay channel, whose 40 stamp words a lane
+join the column while the PROMISE payloads go to global memory, so that
+an SM still holds 2 blocks of 128 lanes.
 """
 
 import dataclasses
@@ -45,11 +47,14 @@ def _rows(state, path):
 
 @pytest.mark.parametrize("shape,staging", TABLES, ids=IDS)
 def test_staged_rows_match_the_state_leaves(shape, staging):
-    n_prop, n_acc, log_len, k_slots, _ = shape
-    state = MultiPaxosState.init(3, n_prop, n_acc, log_len, k_slots)
-    leaves = tfused.MP_STAGED_LEAVES + ((tfused.MP_PROM_LEAF,) if staging.stage_prom else ())
+    n_prop, n_acc, log_len, k_slots, stamped, _ = shape
+    state = MultiPaxosState.init(3, n_prop, n_acc, log_len, k_slots, delay=bool(stamped))
+    leaves = (
+        tfused.MP_STAGED_LEAVES + (tfused.MP_STAMP_LEAVES if stamped else ())
+        + ((tfused.MP_PROM_LEAF,) if staging.stage_prom else ())
+    )
     rows = sum(_rows(state, path) for path in leaves)
-    assert staging.rows == rows == tfused.mp_staged_rows(*shape[:4], staging.stage_prom)
+    assert staging.rows == rows == tfused.mp_staged_rows(*shape[:5], staging.stage_prom)
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -60,19 +65,38 @@ def test_staged_rows_match_the_state_leaves(shape, staging):
 
 def test_every_instantiation_has_a_geometry():
     assert tuple(tfused.MP_STAGING) == tfused.KERNEL_SHAPES["multipaxos"]
-    # The arms instantiation: config3's shape, its default's column.
-    assert [k for k in tfused.MP_STAGING if k[-1]] == [(2, 5, 8, 4, 1)]
-    assert tfused.MP_STAGING[(2, 5, 8, 4, 1)] == tfused.MP_STAGING[(2, 5, 8, 4, 0)]
+    # The arms and the stamps: config3's shape only, each arms
+    # instantiation with its default's column.
+    assert [k for k in tfused.MP_STAGING if k[-1]] == [(2, 5, 8, 4, 0, 1), (2, 5, 8, 4, 1, 1)]
+    assert [k for k in tfused.MP_STAGING if k[-2]] == [(2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1)]
+    for stamped in (0, 1):
+        assert tfused.MP_STAGING[(2, 5, 8, 4, stamped, 1)] == tfused.MP_STAGING[(2, 5, 8, 4, stamped, 0)]
+
+
+def test_stamped_geometry_keeps_two_blocks_an_sm():
+    """The stamped column (152 words: 112 of slot arrays and 40 stamps, the
+    PROMISE payloads in global memory) takes 2 blocks of 128 lanes an SM,
+    as the default does; with the payloads staged too (232 words) 2 blocks
+    of 128 would not fit."""
+    sm_shared, reserved = 233_472, 1024
+    for key in ((2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1)):
+        st = tfused.MP_STAGING[key]
+        assert (st.threads, st.stage_prom, st.rows, st.smem_bytes) == (128, False, 152, 77824)
+        assert 2 * (st.smem_bytes + reserved) <= sm_shared
+    staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 1, True)
+    assert staged_all == 232 and 2 * (staged_all * 4 * 128 + reserved) > sm_shared
+    default = tfused.MP_STAGING[(2, 5, 8, 4, 0, 0)]
+    assert 2 * (default.smem_bytes + reserved) <= sm_shared
 
 
 def _instances():
-    """``K5_INSTANCES`` of the .cu, in order: (P, A, L, K, ARMS, B, PROM)
-    each."""
+    """``K5_INSTANCES`` of the .cu, in order: (P, A, L, K, STAMPED, ARMS, B,
+    PROM) each."""
     listed = re.search(r"#define K5_INSTANCES\(X\)(.*?)\n\n", SOURCE, re.S).group(1)
     return [
-        (int(p), int(a), int(l), int(k), int(r), int(b), s == "true")
-        for p, a, l, k, r, b, s in re.findall(
-            r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (true|false)\)", listed
+        (int(p), int(a), int(l), int(k), int(st), int(r), int(b), s == "true")
+        for p, a, l, k, st, r, b, s in re.findall(
+            r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (true|false)\)", listed
         )
     ]
 
@@ -84,26 +108,30 @@ def test_source_instantiates_the_table():
 
 
 def test_source_instantiates_each_shape_once():
-    """The C entry point picks the instantiation by the shape and the arms
-    flag alone, so no shape may have two geometries."""
-    shapes = [inst[:5] for inst in _instances()]
+    """The C entry point picks the instantiation by the shape and the stamps
+    and arms flags alone, so no shape may have two geometries."""
+    shapes = [inst[:6] for inst in _instances()]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES["multipaxos"])
     assert (
-        "dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_ && dims[4] == R_)"
+        "dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_ && dims[4] == S_ &&"
         in SOURCE
     )
-    assert "n_dims != 6" in SOURCE and "const int smem = dims[5];" in SOURCE
+    assert "dims[5] == R_)" in SOURCE
+    assert "n_dims != 7" in SOURCE and "const int smem = dims[6];" in SOURCE
 
 
 def test_source_column_order_matches_the_leaves():
     """``load_column`` and ``store_column`` stage the leaves in the table's
-    order, each with the row count its leaf has a lane."""
+    order (the stamps of a stamped state after the slot arrays), each with
+    the row count its leaf has a lane."""
     names = {
         "kLog": "acceptor.log", "kRecov": "proposer.recov_bv", "kLtBv": "learner.lt_bv",
         "kLtMask": "learner.lt_mask", "kChosenVal": "learner.chosen_val",
-        "kChosenTick": "learner.chosen_tick", "kPromBv": tfused.MP_PROM_LEAF,
+        "kChosenTick": "learner.chosen_tick", "kRqUntil": "requests.until",
+        "kPromUntil": "promises.until", "kAccdUntil": "accepted.until",
+        "kPromBv": tfused.MP_PROM_LEAF,
     }
-    want = list(tfused.MP_STAGED_LEAVES) + [tfused.MP_PROM_LEAF]
+    want = list(tfused.MP_STAGED_LEAVES) + list(tfused.MP_STAMP_LEAVES) + [tfused.MP_PROM_LEAF]
     for fn, op in (("load_column", "load"), ("store_column", "store")):
         body = re.search(rf"void {fn}\(.*?\n}}\n", SOURCE, re.S).group(0)
         calls = re.findall(rf"{op}_(rows|masks)<([^>]+), G::(\w+)>\(col, L, Mp::(\w+), n, i\)", body)
@@ -111,10 +139,12 @@ def test_source_column_order_matches_the_leaves():
         assert [off for _, _, off, _ in calls] == [leaf for _, _, _, leaf in calls]
         assert [kind for kind, _, _, leaf in calls if names[leaf] == tfused.MP_PACKED_LEAF] == ["masks"]
         for shape, _ in TABLES:
-            n_prop, n_acc, log_len, k_slots, _ = shape
-            state = MultiPaxosState.init(3, n_prop, n_acc, log_len, k_slots)
+            n_prop, n_acc, log_len, k_slots, stamped, _ = shape
+            state = MultiPaxosState.init(3, n_prop, n_acc, log_len, k_slots, delay=bool(stamped))
             env = {"P": n_prop, "A": n_acc, "LOG": log_len, "K": k_slots}
             for kind, args, _, leaf in calls:
+                if names[leaf] in tfused.MP_STAMP_LEAVES and not stamped:
+                    continue  # the stamps of a stamped state only
                 # load_rows<ROWS>: ROWS words; load_masks<LOG, K>: a word a slot
                 words = eval(args.split(",")[0], {}, env)  # noqa: S307
                 assert words == _rows(state, names[leaf])
@@ -140,4 +170,4 @@ def test_occupancy_query_needs_the_kernel_build(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 0))
+        tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 0, 0))

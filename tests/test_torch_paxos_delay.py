@@ -14,7 +14,7 @@ instantiations to the plain tick on.  Also the 31-leaf exchange of a
 stamped Paxos state (34 with snapshot shadows), ``check_supported``'s
 delay knob per protocol, and tests/test_delay.py's conservation property
 (every message delivered in the end, so every lane decides) on the port's
-``run`` for Paxos and SynchPaxos.
+``run`` for all five protocols.
 """
 
 import dataclasses
@@ -86,7 +86,10 @@ def test_stamped_state_exchange_holds_the_jax_leaf_order(stale):
     for w, g in zip(leaves, interop.state_to_numpy(state), strict=True):
         assert w.dtype == g.dtype
         np.testing.assert_array_equal(w, g)
-    with pytest.raises(NotImplementedError, match="12c"):
+    # The layout is SynchPaxos' too; a Fast Paxos state's recovery masks
+    # (P, P, I) do not fit a Paxos proposer's best_val (P, I).
+    assert interop.state_from_numpy(leaves, protocol="synchpaxos").stamped == 1
+    with pytest.raises(ValueError, match="leaf"):
         interop.state_from_numpy(leaves, protocol="fastpaxos")
 
 
@@ -102,20 +105,23 @@ def test_init_state_stamps_paxos_with_delay():
 
 @pytest.mark.parametrize("protocol", ["paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos"])
 def test_check_supported_takes_delay_on_paxos_and_synchpaxos(protocol):
-    """p_delay is ported to the Paxos and SynchPaxos ticks; the others
-    still refuse it, naming queue A item 12c."""
+    """p_delay is ported to every tick, Paxos and SynchPaxos first; the
+    planted SynchPaxos bug stays refused on the others (queue A item 10)."""
     cfg = FaultConfig(p_delay=0.4, delay_max=2)
-    if protocol in ("paxos", "synchpaxos"):
-        tpaxos.check_supported(cfg, protocol)
+    tpaxos.check_supported(cfg, protocol)
+    bug = FaultConfig(p_delay=0.4, sp_unsafe_fast=True)
+    if protocol == "synchpaxos":
+        tpaxos.check_supported(bug, protocol)
     else:
-        with pytest.raises(NotImplementedError, match="item 12c"):
-            tpaxos.check_supported(cfg, protocol)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tpaxos.check_supported(bug, protocol)
 
 
 def _conservation_report(protocol):
     """tests/test_delay.py's fused conservation case (64 lanes, seed 3,
     p_delay 0.6, delay_max 3, a partition in every lane, timeout 6, loss
-    off) on the port's ``run`` on the plan the JAX package samples."""
+    off; Multi-Paxos with that test's own k_slots 8, on the CPU) on the
+    port's ``run`` on the plan the JAX package samples."""
     tcfg = chip_smoke.delay_cut_config(protocol, 64, 3)
     jcfg = dataclasses.replace(
         JC.config2_dueling_drop(64, 3), protocol=protocol, n_prop=2, n_acc=5, k_slots=8,
@@ -128,7 +134,7 @@ def _conservation_report(protocol):
     return trun.run(tcfg, until_all_chosen=True, max_ticks=384, chunk=64, plan=plan, device="cpu")
 
 
-@pytest.mark.parametrize("protocol", ["paxos", "synchpaxos"])
+@pytest.mark.parametrize("protocol", ["paxos", "synchpaxos", "fastpaxos", "raftcore", "multipaxos"])
 def test_delay_conserves_messages_across_cut_and_heal(protocol):
     """Delay and a cut lose nothing: every lane decides, safely."""
     report = _conservation_report(protocol)

@@ -118,10 +118,10 @@ def test_config_acceptance_matches_reference():
         trun.init_state(bad, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun.run(TC.config2_dueling_drop(64), engine="xla", device="cpu")
-    cfg = TC.config5_sweep(64, 1)[1]  # bounded delay: Paxos and SynchPaxos only so far
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = TC.config5_sweep(64, 1)[1]  # every tick takes the delay (Fast Paxos here) ...
+    with pytest.raises(ValueError, match="sampled fault plan"):
         trun.run(dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_delay=0.2)), device="cpu")
-    cfg = TC.config2_dueling_drop(64)  # Paxos takes the delay, on the plan the reference samples
+    cfg = TC.config2_dueling_drop(64)  # ... on the plan the reference samples
     with pytest.raises(ValueError, match="sampled fault plan"):
         trun.run(dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_delay=0.2)), device="cpu")
 

@@ -377,12 +377,14 @@ def test_chip_smoke_golden_and_checker_pins_match_jax_package():
 
 
 def test_other_ticks_refuse_delay():
-    """The SynchPaxos and Paxos ticks model the bounded delay; the Fast
-    Paxos and Raft-core ticks raise on p_delay and on a state with stamps,
-    naming ROADMAP item 12c, and every tick but SynchPaxos' raises on
-    sp_unsafe_fast.  The Paxos tick takes a stamped state and p_delay: a
-    stamped slot waits as in the SynchPaxos tick, and ``run`` asks for the
-    sampled plan the delay needs."""
+    """Every tick models the bounded delay as the SynchPaxos tick does, and
+    every tick but SynchPaxos' raises on sp_unsafe_fast.  The Paxos tick
+    takes a stamped state and p_delay: a stamped slot waits as in the
+    SynchPaxos tick, and ``run`` asks for the sampled plan the delay needs;
+    so do the Fast Paxos and Raft-core ticks, whose opening broadcast,
+    stamped for a later tick, waits, and whose sends are stamped."""
+    from paxos_tpu_torch.core.fp_state import FastPaxosState
+    from paxos_tpu_torch.core.raft_state import RaftState
     from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
     from paxos_tpu_torch.protocols.raftcore import apply_tick_raft
 
@@ -396,12 +398,18 @@ def test_other_ticks_refuse_delay():
     bug = dataclasses.replace(TC.config2_dueling_drop(64).fault, sp_unsafe_fast=True)
     with pytest.raises(NotImplementedError, match="ROADMAP .*item 10"):
         tpaxos.apply_tick(paxos, masks, plan, bug)
-    delayed = dataclasses.replace(TC.config2_dueling_drop(64).fault, p_delay=0.2)
-    for apply_fn in (apply_tick_fast, apply_tick_raft):
-        with pytest.raises(NotImplementedError, match="ROADMAP .*item 12c"):
-            apply_fn(paxos, masks, plan, delayed)
-        with pytest.raises(NotImplementedError, match="until"):
-            apply_fn(paxos, masks, plan, TC.config2_dueling_drop(64).fault)
+    chaos = TC.config_delay_chaos(64, 2)
+    delay_plan = chip_smoke.config_plan(chaos, 2, "cpu")
+    for cls, apply_fn in ((FastPaxosState, apply_tick_fast), (RaftState, apply_tick_raft)):
+        st = cls.init(64, 2, 5, 8, delay=True)
+        st.requests.until.copy_(torch.where(st.requests.present, 2, 0))  # arriving at tick 2
+        delay_masks = tpaxos.counter_masks(chaos.fault, 1, st)
+        out = apply_fn(st, delay_masks, delay_plan, chaos.fault)  # tick 0: nothing has arrived
+        assert torch.equal(out.requests.present, st.requests.present)
+        assert not out.replies.present.any()
+        for _ in range(4):
+            out = apply_fn(out, tpaxos.counter_masks(chaos.fault, 1, out), delay_plan, chaos.fault)
+        assert out.replies.present.any() and (out.replies.until > 2).any()  # stamped replies
     # A stamped Paxos state: slots whose stamp is ahead of the tick wait.
     out = tpaxos.apply_tick(paxos, masks, plan, TC.config2_dueling_drop(64).fault)
     waiting = paxos.requests.present & (paxos.requests.until > paxos.tick)
@@ -410,5 +418,5 @@ def test_other_ticks_refuse_delay():
     with pytest.raises(ValueError, match="sampled fault plan"):
         trun.run(dataclasses.replace(cfg, fault=dataclasses.replace(cfg.fault, p_delay=0.3)), device="cpu")
     fp = TC.config5_sweep(64, 1)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP .*item 12c"):
+    with pytest.raises(ValueError, match="sampled fault plan"):
         trun.run(dataclasses.replace(fp, fault=dataclasses.replace(fp.fault, p_delay=0.3)), device="cpu")

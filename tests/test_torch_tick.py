@@ -243,9 +243,9 @@ def test_interop_round_trip_and_init_state_match():
 def test_unported_knobs_raise():
     """Every tick that shares the single-decree mask sampler (Paxos, Fast
     Paxos, Raft-core, SynchPaxos) models the gray-failure and partition
-    knobs, and the Paxos and SynchPaxos ticks the bounded delay; the delay
-    still raises on Fast Paxos and Raft-core, naming ROADMAP item 12c, and
-    so does the planted SynchPaxos bug on every other tick (item 10)."""
+    knobs and the bounded delay (its draws made where p_delay > 0, on a
+    state with stamps or without); the planted SynchPaxos bug still raises
+    on every other tick (ROADMAP item 10)."""
     import dataclasses
 
     from paxos_tpu_torch.core.fp_state import FastPaxosState
@@ -255,18 +255,14 @@ def test_unported_knobs_raise():
     cfg = TC.config2_dueling_drop(64)
     state = interop.state_from_numpy(random_state_leaves(np.random.default_rng(1), 2, 5, 8, 64))
     delayed = [state, SynchPaxosState.init(64, 2, 5, 8)]
-    undelayed = [cls.init(64, 2, 5, 8) for cls in (FastPaxosState, RaftState)]
+    undelayed = [cls.init(64, 2, 5, 8, delay=True) for cls in (FastPaxosState, RaftState)]
     for knob, value in (("p_part", 0.5), ("p_flaky", 0.1), ("stale_k", 8), ("amnesia", True),
                         ("p_delay", 0.2), ("timeout_skew", 3), ("p_corrupt", 0.1)):
         bad = dataclasses.replace(cfg.fault, **{knob: value})
-        for ported in delayed:
-            tpaxos.counter_masks(bad, 1, ported)
-        for other in undelayed:
-            if knob == "p_delay":
-                with pytest.raises(NotImplementedError, match="ROADMAP .*item 12c"):
-                    tpaxos.counter_masks(bad, 1, other)
-            else:
-                tpaxos.counter_masks(bad, 1, other)
+        for ported in delayed + undelayed:
+            masks = tpaxos.counter_masks(bad, 1, ported)
+            assert (masks.delay_bits is not None) == (knob == "p_delay")
+            assert (masks.lat_bits is not None) == (knob == "p_delay")
     bug = dataclasses.replace(cfg.fault, sp_unsafe_fast=True)
     for other in [state] + undelayed:
         with pytest.raises(NotImplementedError, match="ROADMAP .*item 10"):
