@@ -29,7 +29,8 @@ launched without them; sources from before the gray-failure and partition
 arms get the parameters and plan leaves their ``fused_common.cuh`` reads
 (``kParams``, ``kPlanLeaves``), a kernel without its arms its default
 instantiations only, and a kernel without its bounded-delay channel its
-unstamped ones only.  A source whose instantiation table
+unstamped ones only, and a K1 without its observed instantiations its
+other ones, keyed without the flag.  A source whose instantiation table
 (``K1_INSTANCES`` to ``K3_INSTANCES``, ``K5_INSTANCES``) lists another
 geometry than the wrapper's (lanes a block, blocks an SM, PROMISE payloads
 staged or not) is launched at its own (:func:`table_staging`), so that two
@@ -61,8 +62,9 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
     """``staging`` (the wrapper's geometry of ``protocol``'s kernel) with
     each instantiation at the lanes a block, blocks an SM (K1 to K3) or
     PROMISE staging (K5) that the source's table lists, where the table has
-    this commit's fields: ``X(P, A, K, STAMPED, ARMS, B, MIN_BLOCKS)``,
-    K5's ``X(P, A, L, K, STAMPED, ARMS, B, PROM)``."""
+    this commit's fields: ``X(P, A, K, STAMPED, ARMS, B, MIN_BLOCKS)``
+    (K1's with OBSERVED after ARMS), K5's ``X(P, A, L, K, STAMPED, ARMS, B,
+    PROM)``."""
     from paxos_tpu_torch.kernels import fused_tick as tf
 
     found = re.search(rf"#define {_TABLES[protocol]}_INSTANCES\(X\)(.*?)\n\n", src, re.S)
@@ -76,10 +78,11 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
             key, threads, prom = tuple(map(int, fields[:6])), int(fields[6]), fields[7] == "true"
             if key in out:
                 out[key] = tf._mp_staging(key[:5], threads, prom)
-        elif protocol != "multipaxos" and len(fields) == 7:
-            key, threads, blocks = tuple(map(int, fields[:5])), int(fields[5]), int(fields[6])
+        elif protocol != "multipaxos" and len(fields) in (7, 8):  # K1's keys end in `observed`
+            n_key = len(fields) - 2
+            key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])
             if key in out:
-                out[key] = tf._fr_staging(protocol, key, threads, blocks)
+                out[key] = tf._fr_staging(protocol, key, threads, int(fields[n_key + 1]))
     return out
 
 
@@ -111,6 +114,15 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
         src = (csrc / f"{binding.kernel}.cu").read_text()
         staged = "const int smem = dims[" in src
         staging = binding.staging if staged else None
+        if binding.observed and not re.search(r"dims\[\d\] == O_", src):
+            # A kernel without its observed instantiations (K1 before the
+            # observer planes): keyed without the flag, its C entry without
+            # the observer arguments.
+            staging = staging and {k[:-1]: v for k, v in staging.items() if k[-1] == 0}
+            tf.KERNEL_SHAPES[protocol] = tuple(
+                k[:-1] for k in tf.KERNEL_SHAPES[protocol] if k[-1] == 0
+            )
+            binding = dataclasses.replace(binding, observed=False)
         if "stamped" in binding.shape_fields and not re.search(r"dims\[\d\]( != 0\))? == S_", src):
             # A kernel without the stamps flag (K1 before its bounded-delay
             # channel): its unstamped instantiations, keyed without the flag.
@@ -119,7 +131,7 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
                 k[:at] + k[at + 1:]: v for k, v in staging.items() if k[at] == 0
             }
             tf.KERNEL_SHAPES[protocol] = tuple(
-                k[:at] + k[at + 1:] for k in _WRAPPER["shapes"][protocol] if k[at] == 0
+                k[:at] + k[at + 1:] for k in tf.KERNEL_SHAPES[protocol] if k[at] == 0
             )
             binding = dataclasses.replace(
                 binding, shape_fields=tuple(f for f in binding.shape_fields if f != "stamped")

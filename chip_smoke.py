@@ -21,7 +21,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    7, 32 ticks through their kernels must give the recorded state digests,
    and config3 (Multi-Paxos) and config_delay_chaos (SynchPaxos) the
    digests the JAX package gives on this script's numpy plans
-   (``MP_GOLDEN``, ``SP_GOLDEN``);
+   (``MP_GOLDEN``, ``SP_GOLDEN``); config2 with every observer plane on,
+   through K1's observed instantiation, the golden in all but the planes;
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
    with a block offset, config4's equivocators with and without crash
@@ -38,7 +39,11 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    bounded-delay channel of K1, K2, K3 and K5 on config_delay_chaos (K5:
    its fault config on config3's cell) in both regimes, with drops and
    duplicates, across a cut, and with every gray knob
-   (:func:`delay_knob_configs`), and at full width
+   (:func:`delay_knob_configs`), K1's observed instantiations (every
+   observer plane on) on config_gray_chaos, config_corrupt, config_stale
+   and config_delay_chaos at 1<<16 lanes and under the per-tick clamp,
+   each also against the planes-off kernel (the planes move no schedule),
+   and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
    draws of the timed ticks counted by each kernel's measuring build for
@@ -61,7 +66,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    blocks printed), and config_delay_chaos on Paxos, Fast Paxos and
    Raft-core and its fault config on config3's Multi-Paxos cell (the
    stamped instantiations of K1, K2, K3 and K5; the last through
-   ``run(..., liveness=True)``), at
+   ``run(..., liveness=True)``), and config2 with every observer plane on
+   (``observed-paxos``: K1's observed instantiation; its telemetry,
+   coverage, exposure, margin and slo blocks printed and checked against
+   each other, its protocol state pinned as config2's), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -157,6 +165,32 @@ class MainPath:
     compare_chunks: int = 1
     fault: "str | None" = None
     liveness: bool = False
+    # The observer planes on (OBS_PLANES): the path runs K1's observed
+    # instantiation and prints the report's plane blocks.
+    planes: bool = False
+
+
+# The observer planes of the observed-paxos path, at the settings the JAX
+# package's users take: the flight recorder with counters, a 16-word ring
+# and 8 histogram bins (its tests/test_telemetry.py), 64 coverage words
+# (its CLI's and fleet worker's default), the exposure and margin counters
+# (which its guided fuzzer turns on), and the "mixed" client workload at
+# WorkloadConfig's defaults.
+def obs_planes() -> dict:
+    from paxos_tpu_torch.core.telemetry import TelemetryConfig
+    from paxos_tpu_torch.obs.coverage import CoverageConfig
+    from paxos_tpu_torch.obs.exposure import ExposureConfig
+    from paxos_tpu_torch.obs.margin import MarginConfig
+    from paxos_tpu_torch.workload.generator import WorkloadConfig
+
+    return dict(
+        telemetry=TelemetryConfig(counters=True, ring_depth=16, hist_bins=8),
+        coverage=CoverageConfig(words=64), exposure=ExposureConfig(counters=True),
+        margin=MarginConfig(counters=True), workload=WorkloadConfig(mix="mixed"),
+    )
+
+
+PLANE_BLOCKS = ("telemetry", "coverage", "exposure", "margin", "slo")
 
 
 MAIN_PATHS = {
@@ -202,6 +236,10 @@ MAIN_PATHS = {
         "multipaxos", MAIN_TICKS, "config3_multipaxos", "delaychaos-multipaxos",
         compare_chunks=2, fault="config_delay_chaos", liveness=True,
     ),
+    "observed-paxos": MainPath(
+        "paxos", MAIN_TICKS, "config2_dueling_drop", "config2-paxos", compare_chunks=2,
+        planes=True,
+    ),
 }
 # The report keys of the liveness block (harness.run.summarize(liveness=)).
 LIVENESS_KEYS = ("decided_by_curve", "chosen_tick_hist", "hist_bin_width", "stuck_lanes")
@@ -235,6 +273,9 @@ EVICTION_PINS = {
     ),
     "delaychaos-raftcore": (0, {}),
     "delaychaos-multipaxos": (0, {}),
+    # The flagship with every observer plane on: its schedule is config2's,
+    # so its protocol state (the digest leaves out the planes) is too.
+    "observed-paxos": (1, {963: ([838], "8c8a818261f3d84c")}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
 # SynchPaxos ones, the gray-chaos ones and the delay-chaos ones, as the JAX
@@ -453,6 +494,10 @@ REPLACES = {
 }
 
 
+# The observer arms of the tick that the observed instantiations compute.
+OBSERVER_ARMS = "; its observer arms, paxos_tpu/protocols/paxos.py:592-600, :652-771"
+
+
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
@@ -530,7 +575,48 @@ def main_config(path: str, n_inst: int = FULL_LANES, seed: int = 0):
         cfg = dataclasses.replace(cfg, protocol=mp.protocol)
     if mp.fault is not None:
         cfg = dataclasses.replace(cfg, fault=getattr(C, mp.fault)(n_inst, seed).fault)
+    if mp.planes:
+        cfg = dataclasses.replace(cfg, **obs_planes())
     return cfg
+
+
+def wload_plan(cfg, seed: int, device="cuda"):
+    """The client workload's plan of ``cfg`` (mode, phase; (P, I) int32
+    each) from the JAX package's distribution, drawn from numpy: a class
+    uniform over the three where the mix is "mixed" (else the mix's), a
+    phase uniform over [0, period); None when the plane is off."""
+    from paxos_tpu_torch.core.streams import ROOT_WLOAD
+    from paxos_tpu_torch.workload.generator import CLASSES
+
+    w = cfg.workload
+    if not w.enabled():
+        return None
+    rng = np.random.default_rng([seed, ROOT_WLOAD])
+    shape = (cfg.n_prop, cfg.n_inst)
+    if w.mix == "mixed":
+        mode = rng.integers(0, len(CLASSES), shape, dtype=np.int32)
+    else:
+        mode = np.full(shape, CLASSES.index(w.mix), np.int32)
+    phase = rng.integers(0, w.period, shape, dtype=np.int32)
+    return torch.from_numpy(mode).to(device), torch.from_numpy(phase).to(device)
+
+
+def path_state(cfg, device="cuda"):
+    """``cfg``'s initial state, its observer planes included (the workload
+    on :func:`wload_plan`'s plan)."""
+    from paxos_tpu_torch.harness.run import init_state
+
+    return init_state(cfg, device, wload_plan(cfg, cfg.seed, device))
+
+
+def without_planes(state):
+    """``state`` without its observer planes (the same tensors otherwise)."""
+    return dataclasses.replace(state, **{name: None for name in state.planes}) if state.planes else state
+
+
+def with_planes(cfg):
+    """``cfg`` with every observer plane on (:func:`obs_planes`)."""
+    return dataclasses.replace(cfg, **obs_planes())
 
 
 def reset_launches() -> None:
@@ -668,6 +754,18 @@ def phase_golden() -> None:
         log(f"golden: {protocol} 256 lanes seed 7 32 ticks digest {got} (want {want})")
         if got != want:
             raise AssertionError(f"{protocol} golden digest {got} != {want}")
+    # The observer planes draw nothing but the client arrivals: with every
+    # plane on, K1's observed instantiation leaves the protocol state as
+    # the golden has it.
+    cfg = with_planes(main_config("paxos", 256, 7))
+    state = FUSED_WRAPPERS["paxos"](
+        path_state(cfg), cfg.seed, init_plan(cfg, "cuda"), cfg.fault, 32, block=256
+    )
+    got = digest(without_planes(state).leaves())
+    log(f"golden: paxos with every observer plane on, the state but the planes: digest {got} "
+        f"(want {GOLDENS['paxos']})")
+    if got != GOLDENS["paxos"]:
+        raise AssertionError(f"observed paxos golden digest {got} != {GOLDENS['paxos']}")
     cfg = main_config("config3", 256, 7)
     state = FUSED_WRAPPERS["multipaxos"](
         init_state(cfg, "cuda"), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
@@ -806,9 +904,7 @@ def main_plan(cfg, device="cuda"):
 def near_limit_state(cfg, rnd: int, device="cuda"):
     """``cfg``'s initial state with every proposer in phase 1 at ballot
     round ``rnd`` and its PREPARE (REQVOTE) broadcast in flight."""
-    from paxos_tpu_torch.harness.run import init_state
-
-    st = init_state(cfg, device)
+    st = path_state(cfg, device)
     pid = torch.arange(cfg.n_prop, dtype=torch.int32, device=device)[:, None]
     st.proposer.bal.copy_((rnd * 8 + pid + 1).expand_as(st.proposer.bal))
     st.proposer.phase.zero_()
@@ -874,8 +970,11 @@ def compare(
     wrapper = FUSED_WRAPPERS[cfg.protocol]
     block = BINDINGS[cfg.protocol].block if block is None else block
     plan = init_plan(cfg, "cuda") if plan is None else plan
-    init = init_state(cfg, "cuda") if init is None else init
+    init = path_state(cfg, "cuda") if init is None else init
     start = init.clone() if from_init else None
+    # With the observer planes on, the planes-off kernel from the same state
+    # must give the same protocol state (the planes move no schedule).
+    bare = without_planes(init.clone()) if init.planes else None
     plain, kern, plain_ms, kern_ms = init, init.clone(), 0.0, 0.0
     for _ in range(chunks):
         plain, t_plain = timed(lambda: plain_chunk(cfg, plain, plan, n_ticks, block, **kw))
@@ -883,8 +982,12 @@ def compare(
         kern, t_kern = timed(
             lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw)
         )
+        if bare is not None:
+            bare = wrapper(bare, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw)
         plain, kern = after(plain), after(kern)
         plain_ms, kern_ms = plain_ms + t_plain, kern_ms + t_kern
+    if bare is not None and max_abs_err(without_planes(kern).leaves(), bare.leaves()) != 0:
+        raise AssertionError(f"{name}: the observer planes moved the schedule")
     err = max_abs_err(kern.leaves(), plain.leaves())
     compacted = (
         f", compacted after each (mean base {plain.base.float().mean().item():.2f} of "
@@ -958,12 +1061,14 @@ def compare(
         plan_bytes = sum(getattr(plan, n).element_size() * getattr(plan, n).numel() for n in read)
         # Each lane's state read and written once, its plan read once; but a
         # lane K1 settles at the timed chunks' entry (counted on their last
-        # state, where the most are) needs only settled_lane_bytes read.
+        # state, where the most are) needs only settled_lane_bytes read, and
+        # its observer planes read and written once.
         settled = 0
         if cfg.protocol == "paxos":
             settled = int(settled_lanes(start if from_init else kern).sum())
         lane_bytes = 2 * state_bytes_per_lane(init) + plan_bytes / cfg.n_inst
-        n_bytes = (cfg.n_inst - settled) * lane_bytes + settled * settled_lane_bytes(init)
+        settled_bytes = settled_lane_bytes(init) + 2 * obs_lane_bytes(init)
+        n_bytes = (cfg.n_inst - settled) * lane_bytes + settled * settled_bytes
         lane_ticks = cfg.n_inst * timed_ticks
         draws_per_lane_tick, touches_per_lane_tick = draws / lane_ticks, touches / lane_ticks
         ops_per_lane_tick = draws_per_lane_tick * DRAW_OPS
@@ -1032,6 +1137,11 @@ def resending_lanes(state) -> torch.Tensor:
     full)."""
     prop = state.proposer
     return state.learner.chosen.all(0) & ((prop.phase == 2) & (prop.commit_idx < state.log_len)).any(0)
+
+
+def obs_lane_bytes(state) -> int:
+    """Bytes of observer-plane state a lane carries (0 without planes)."""
+    return sum(leaf.element_size() * (leaf.numel() // state.n_inst) for leaf in state.obs_leaves())
 
 
 def settled_lane_bytes(state) -> int:
@@ -1133,6 +1243,19 @@ def phase_compare(ceiling: float) -> dict:
         zero.fault, p_drop=0.0, p_dup=0.0, p_flaky=0.5, flaky_drop=0.0, flaky_dup=0.0))
     compare("multipaxos (2,5,8,4,1) test_gray zero-rate flaky links", zero, config_plan(zero, 9),
             64, block=128)
+    # K1's observed instantiations (every observer plane on) on the configs
+    # that light every exposure class between them (drop, dup, corrupt,
+    # partition, timeout, stale, delay) at 1<<16 lanes over two chunks; and
+    # from near-limit ballots under the per-tick clamp with a block offset.
+    for name in ("config_gray_chaos", "config_corrupt", "config_stale", "config_delay_chaos"):
+        cfgo = with_planes(dataclasses.replace(getattr(C, name)(1 << 16, 16), protocol="paxos"))
+        shape = ",".join(map(str, BINDINGS["paxos"].kernel_shape(path_state(cfgo, "cpu"), cfgo.fault)))
+        compare(f"paxos ({shape}) observed, {name}", cfgo, config_plan(cfgo, 16), 64, chunks=2)
+    cfgo = with_planes(main_config("paxos", 4096, 13))
+    compare(
+        "paxos observed per-tick clamp, blk0=5", cfgo, init_plan(cfgo, "cuda"), 96,
+        init=near_limit_state(cfgo, 4094), blk0=5, clamp_per_tick=True,
+    )
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
@@ -1197,13 +1320,13 @@ def time_load_store(path: str, reps: int = 5) -> float:
     store; K1 no column of a lane it settles) and runs no tick, so the
     state must come back byte for byte.  The
     launches go around the wrapper and so are not counted."""
-    from paxos_tpu_torch.harness.run import init_plan, init_state
+    from paxos_tpu_torch.harness.run import init_plan
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, _launch
 
     cfg = main_config(path, FULL_LANES, 7)
     protocol = MAIN_PATHS[path].protocol
     block, plan = BINDINGS[protocol].block, main_plan(cfg) or init_plan(cfg, "cuda")
-    state = init_state(cfg, "cuda")
+    state = path_state(cfg, "cuda")
     _launch(protocol, state, cfg.seed, plan, cfg.fault, MAIN_CHUNK, block, 0, False)
     state.tick.add_(MAIN_CHUNK)
     before = state.clone()
@@ -1227,6 +1350,7 @@ def check_evictions(path: str, report: dict, state) -> dict:
 
     block = BINDINGS[MAIN_PATHS[path].protocol].block
     total, pinned = EVICTION_PINS[path]
+    state = without_planes(state)  # the pins hold the protocol state
     lanes = torch.nonzero(state.learner.evictions).flatten().tolist()
     blocks = sorted({lane // block for lane in lanes})[:2]
     found = {
@@ -1244,7 +1368,7 @@ def check_evictions(path: str, report: dict, state) -> dict:
         raise AssertionError(
             f"{path} evictions {report['evictions']} {found}, pinned {total} {pinned}"
         )
-    if path == "paxos" and lanes != MAIN_EVICTION_LANES:
+    if path in ("paxos", "observed-paxos") and lanes != MAIN_EVICTION_LANES:
         raise AssertionError(f"evictions on lanes {lanes}, recorded {MAIN_EVICTION_LANES}")
     out = {str(blk): d for blk, (_, d) in found.items()}
     if path in BLOCK0_DIGESTS:
@@ -1260,9 +1384,11 @@ def run_main_path(path: str, plan, **kw):
     """One campaign of main path ``path`` through ``run`` on ``plan``."""
     from paxos_tpu_torch.harness.run import run
 
+    cfg = main_config(path)
     return run(
-        main_config(path), engine="fused", total_ticks=MAIN_PATHS[path].ticks, chunk=MAIN_CHUNK,
-        pipeline_depth=MAIN_DEPTH, plan=plan, liveness=MAIN_PATHS[path].liveness, **kw,
+        cfg, engine="fused", total_ticks=MAIN_PATHS[path].ticks, chunk=MAIN_CHUNK,
+        pipeline_depth=MAIN_DEPTH, plan=plan, liveness=MAIN_PATHS[path].liveness,
+        wload_plan=wload_plan(cfg, cfg.seed), **kw,
     )
 
 
@@ -1310,12 +1436,42 @@ def phase_main_path(path: str) -> dict:
         log(f"{path} main path liveness: {json.dumps(out['liveness'])}")
         if report["stuck_lanes"] != report["chosen_tick_hist"][-1]:
             raise AssertionError(f"{path}: stuck lanes outside the histogram's last bin")
+    if MAIN_PATHS[path].planes:
+        out["planes"] = {k: report[k] for k in PLANE_BLOCKS}
+        for k in PLANE_BLOCKS:
+            log(f"{path} main path {k}: {json.dumps(report[k])}")
+        check_plane_report(path, report, cfg)
     if MAIN_PATHS[path].fast_path:
         from paxos_tpu_torch.protocols.synchpaxos import fast_path_rate
 
         out["fast_path_rate"] = fast_path_rate(state)
         log(f"{path} main path: fast-path rate {out['fast_path_rate']}")
     return out
+
+
+def check_plane_report(path: str, report: dict, cfg) -> None:
+    """The observer blocks of a campaign with every plane on must hold
+    together: every lane decided once (telemetry's decides and latency
+    histogram, the SLO's served requests), the drops counted (exposure's
+    effective drops are telemetry's), the coverage sketch filled, and no
+    agreement violation seen (no zero quorum slack)."""
+    n, ticks = cfg.n_inst, report["ticks"]
+    tel, cov, exp, mar, slo = (report[k] for k in PLANE_BLOCKS)
+    decided = round(report["chosen_frac"] * n)
+    problems = []
+    if tel["counters"]["decide"] != decided or sum(tel["hist"]) != decided:
+        problems.append(f"decides {tel['counters']['decide']}, hist {sum(tel['hist'])}, chosen {decided}")
+    if exp["classes"]["drop"]["effective"] != tel["counters"]["drop"]:
+        problems.append("exposure's effective drops are not telemetry's drops")
+    edges = 4 * cfg.n_prop * cfg.n_acc * ticks * n  # drop decisions drawn on every send edge
+    if not 0 < exp["classes"]["drop"]["injected"] < edges:
+        problems.append(f"drop decisions {exp['classes']['drop']['injected']} of {edges}")
+    if not 0 < cov["bits_set"] <= cov["bits_total"] or cov["new_bits"] < cov["bits_set"]:
+        problems.append(f"coverage {cov}")
+    if mar["zero_slack_lanes"] != 0 or slo["offered"] != slo["done"] + slo["shed"] + slo["queue_depth"]:
+        problems.append(f"margin {mar} / slo totals {slo['offered']} {slo['done']} {slo['shed']}")
+    if problems:
+        raise AssertionError(f"{path} plane blocks disagree: {problems}")
 
 
 def phase_main_path_profile(path: str) -> dict:
@@ -1699,13 +1855,20 @@ def mp_knob_configs(n_inst: int, seed: int) -> dict:
 def instantiation_ptxas(lines: list, protocol: str, shape: tuple) -> list:
     """The ``ptxas`` lines of the instantiation ``shape`` of K1 to K5
     (``(n_prop, n_acc, k_slots, stamped, arms)``, K5's with the log length
-    before k_slots): the entry function whose mangled template arguments
-    start with the shape and the stamps flag, with a ``Gray`` exactly where
-    ``arms``."""
+    before k_slots, K1's with ``observed`` last): the entry function whose
+    mangled template arguments start with the shape and the stamps flag,
+    with a ``Gray`` exactly where ``arms`` and an ``obs::Obs`` exactly
+    where ``observed``."""
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS
+
+    observed = 0
+    if BINDINGS[protocol].observed:
+        *shape, observed = shape
     *dims, stamped, arms = shape
     head = f"fused_{protocol}_kernelI" + "".join(f"Li{d}E" for d in dims) + f"Lb{stamped}E"
     for j, line in enumerate(lines):
-        if "entry function" in line and head in line and ("Gray" in line) == bool(arms):
+        if ("entry function" in line and head in line and ("Gray" in line) == bool(arms)
+                and ("Obs" in line) == bool(observed)):
             return lines[j:j + 3]
     raise AssertionError(f"no ptxas report of the {protocol} kernel's instantiation {shape}")
 
@@ -1734,7 +1897,6 @@ def main() -> int:
     main_paths = {p: phase_main_path(p) for p in MAIN_PATHS}
     profiles = {p: phase_main_path_profile(p) for p in main_paths}
     checker = phase_checker()
-    from paxos_tpu_torch.harness.run import init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS
 
     kernels = []
@@ -1746,14 +1908,14 @@ def main() -> int:
         binding = BINDINGS[mp.protocol]
         first = next(p for p, m in MAIN_PATHS.items() if m.protocol == mp.protocol) == path
         cfg = main_config(path, 256)
-        shape = binding.kernel_shape(init_state(cfg, "cpu"), cfg.fault)
+        shape = binding.kernel_shape(path_state(cfg, "cpu"), cfg.fault)
         measured = full[path]
         ptxas = built["ptxas"][binding.kernel]
         entry = {
             "name": binding.kernel if first else f"{binding.kernel}[{path}]",
             "route": "cuda",
             "source": KERNEL_SOURCE.format(binding.kernel),
-            "replaces": REPLACES[mp.protocol],
+            "replaces": REPLACES[mp.protocol] + (OBSERVER_ARMS if mp.planes else ""),
             "launches": main_paths[path]["launches"],
             "max_abs_err": measured["max_abs_err"],
             "tolerance": 0,  # int32/bool state: byte-identical to the plain version

@@ -116,6 +116,67 @@ def learner_observe(
     )
 
 
+def margin_observe(
+    margin,
+    pre: LearnerState,
+    post: LearnerState,
+    promised: torch.Tensor,  # (A, I) int32 promise fence (Raft: voted)
+    acc_bal: torch.Tensor,  # (A, I) int32 accepted ballot (Raft: ent_term)
+    honest: torch.Tensor,  # (A, I) bool
+    quorum: int,
+    fast_quorum: "int | None" = None,
+):
+    """Fold one tick's distance-to-violation signals into the margin
+    sketch (``obs.margin.MarginState``) from the post-:func:`learner_observe`
+    table ``post``, the pre-tick learner ``pre`` (for decide edges) and the
+    post-tick acceptor fence; draws nothing."""
+    from paxos_tpu_torch.obs.margin import SENTINEL
+
+    lt_bal, lt_val = post.lt_bal, post.lt_val
+    votes = popcount(post.lt_mask)  # (K, I)
+    if fast_quorum is None:
+        sq = torch.full_like(lt_bal, quorum)
+    else:
+        sq = torch.where(ballot_round(lt_bal) == 0, fast_quorum, quorum).to(torch.int32)
+    live = lt_bal > 0
+
+    # Quorum slack of the best competing row: a live pair on a decided
+    # instance whose value is not the chosen one (0: the violation fired).
+    competing = live & post.chosen[None] & (lt_val != post.chosen_val[None])
+    slack = torch.clamp(sq - votes, min=0)
+    tick_slack = torch.where(competing, slack, SENTINEL).amin(dim=0)
+    qslack_min = torch.minimum(margin.qslack_min, tick_slack)
+
+    # Near split: two live rows or more, of distinct values, each within
+    # one vote of quorum.
+    hot = live & (votes >= sq - 1)
+    vmin = torch.where(hot, lt_val, SENTINEL).amin(dim=0)
+    vmax = torch.where(hot, lt_val, 0).amax(dim=0)
+    near = (hot.sum(dim=0, dtype=torch.int32) >= 2) & (vmin != vmax)
+    near_split = margin.near_split + near.to(torch.int32)
+
+    # Ballot-race margin on the decide tick: the winning row's ballot over
+    # the best rival row's; an unopposed decide records nothing.
+    decided_now = post.chosen & ~pre.chosen
+    win_rows = (votes >= sq) & live & (lt_val == post.chosen_val[None])
+    win_bal = torch.where(win_rows, lt_bal, 0).amax(dim=0)
+    rival_bal = torch.where(live & ~win_rows, lt_bal, 0).amax(dim=0)
+    gap = torch.clamp(win_bal - rival_bal, min=0)
+    tick_gap = torch.where(decided_now & (rival_bal > 0), gap, SENTINEL)
+    bal_gap_min = torch.minimum(margin.bal_gap_min, tick_gap)
+
+    # Headroom on the acceptance bound over honest acceptors holding a pair.
+    pslack = torch.where(honest & (acc_bal > 0), promised - acc_bal, SENTINEL).amin(dim=0)
+    promise_slack_min = torch.minimum(margin.promise_slack_min, pslack)
+    return dataclasses.replace(
+        margin,
+        qslack_min=qslack_min.to(torch.int32),
+        near_split=near_split,
+        bal_gap_min=bal_gap_min.to(torch.int32),
+        promise_slack_min=promise_slack_min.to(torch.int32),
+    )
+
+
 def acceptor_invariants(
     old: AcceptorState, new: AcceptorState, honest: torch.Tensor
 ) -> torch.Tensor:

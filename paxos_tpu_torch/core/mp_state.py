@@ -251,7 +251,7 @@ class MultiPaxosState(LaneState):
             + [self.tick, self.base]
         )
 
-    def lane_leaves(self) -> list:
+    def protocol_leaves(self) -> list:
         """Every per-instance tensor (all but the tick), in flatten order."""
         leaves = self.leaves()
         return leaves[:-2] + leaves[-1:]

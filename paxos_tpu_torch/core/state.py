@@ -9,8 +9,9 @@ field order, absent optional fields dropped), so a sha256 over the leaf
 bytes equals the reference's state digest.  A Paxos, Fast Paxos,
 Raft-core or SynchPaxos state run with ``stale_k > 0`` carries the
 acceptors' snapshot shadows, and one run with ``p_delay > 0`` its buffers'
-delay stamps, as the reference's does; the observer planes of the
-reference are not ported yet.
+delay stamps, as the reference's does.  A Paxos state carries the observer
+planes a run turns on (``OBSERVERS``: telemetry, coverage, exposure, margin,
+the client workload), each None when off, after the tick in flatten order.
 """
 
 from __future__ import annotations
@@ -169,10 +170,16 @@ def check_leaves(leaves: list, want: tuple) -> None:
             )
 
 
+# The observer planes, in the reference's field (flatten) order after the
+# tick; a state type that carries them has these fields, None when off.
+OBSERVERS = ("telemetry", "coverage", "exposure", "margin", "wload")
+
+
 class LaneState:
     """What every protocol's full state shares: the five sub-states
     ``acceptor``, ``proposer``, ``learner``, ``requests``, ``replies`` and
-    the ``tick`` scalar, flattened in that order.  ``protocol`` names the
+    the ``tick`` scalar, flattened in that order, then the observer planes
+    that are on (a Paxos state's).  ``protocol`` names the
     tick that advances it; ``takes_stamps`` says whether its ``init``
     allocates delay stamps (``delay=True``), ``takes_snapshots`` whether
     it allocates the acceptors' snapshot shadows (``stale=True``)."""
@@ -180,28 +187,49 @@ class LaneState:
     protocol = ""
     takes_stamps = False
     takes_snapshots = False
+    takes_planes = False
 
-    def leaves(self) -> list:
-        """Tensors in the reference's flatten order (tick last)."""
+    def protocol_leaves(self) -> list:
+        """The protocol's per-instance tensors (tick and observers
+        excluded), in flatten order: the leaves a fused kernel's state
+        argument holds."""
         return (
             self.acceptor.leaves()
             + self.proposer.leaves()
             + self.learner.leaves()
             + self.requests.leaves()
             + self.replies.leaves()
-            + [self.tick]
         )
 
+    def obs_leaves(self) -> list:
+        """The observer planes' tensors, in flatten order ([] when none is on)."""
+        out = []
+        for name in OBSERVERS:
+            plane = getattr(self, name, None)
+            if plane is not None:
+                out += plane.leaves()
+        return out
+
+    @property
+    def planes(self) -> tuple:
+        """The names of the observer planes the state carries."""
+        return tuple(n for n in OBSERVERS if getattr(self, n, None) is not None)
+
+    def leaves(self) -> list:
+        """Tensors in the reference's flatten order (the tick after the
+        protocol's leaves, the observers after it)."""
+        return self.protocol_leaves() + [self.tick] + self.obs_leaves()
+
     def lane_leaves(self) -> list:
-        """Every per-instance tensor (all but the tick), in flatten order:
-        the leaves a fused kernel reads and writes."""
-        return self.leaves()[:-1]
+        """Every per-instance tensor (all but the tick), in flatten order."""
+        return self.protocol_leaves() + self.obs_leaves()
 
     def check_layout(self) -> None:
-        """Raise unless every leaf has the shape and dtype ``init`` gives
-        for this state's (n_inst, n_prop, n_acc, k_slots), with delay stamps
-        where the request buffer carries them and snapshot shadows where
-        the acceptors carry them."""
+        """Raise unless every protocol leaf has the shape and dtype ``init``
+        gives for this state's (n_inst, n_prop, n_acc, k_slots), with delay
+        stamps where the request buffer carries them and snapshot shadows
+        where the acceptors carry them, and every observer leaf the shape
+        its plane's sizes give (:func:`check_planes`)."""
         kw = {"delay": True} if self.requests.until is not None else {}
         if kw and not self.takes_stamps:
             raise ValueError(
@@ -212,9 +240,10 @@ class LaneState:
                 raise ValueError(f"a {type(self).__name__} carries no snapshot shadows")
             kw["stale"] = True
         check_leaves(
-            self.leaves(),
+            self.protocol_leaves() + [self.tick],
             init_layout(type(self), self.n_inst, self.n_prop, self.n_acc, self.k_slots, **kw),
         )
+        check_planes(self)
 
     def clone(self):
         """A deep copy on the same device (the fused kernels update the
@@ -260,6 +289,7 @@ class PaxosState(LaneState):
     protocol = "paxos"
     takes_stamps = True
     takes_snapshots = True
+    takes_planes = True
 
     acceptor: AcceptorState
     proposer: ProposerState
@@ -267,6 +297,12 @@ class PaxosState(LaneState):
     requests: MsgBuf  # proposer -> acceptor (PREPARE / ACCEPT)
     replies: MsgBuf  # acceptor -> proposer (PROMISE / ACCEPTED)
     tick: torch.Tensor  # () int32 global tick counter
+    # The observer planes (OBSERVERS), None when off.
+    telemetry: "TelemetryState | None" = None
+    coverage: "CoverageState | None" = None
+    exposure: "FaultExposure | None" = None
+    margin: "MarginState | None" = None
+    wload: "WloadState | None" = None
 
     @classmethod
     def init(
@@ -291,6 +327,54 @@ class PaxosState(LaneState):
             replies=MsgBuf.empty(n_inst, n_prop, n_acc, device, delay=delay),
             tick=torch.zeros((), dtype=torch.int32, device=device),
         )
+
+
+def plane_layout(state: LaneState) -> list:
+    """(shape, dtype) of every observer leaf of ``state``, from the sizes
+    its planes were made with (ring depth, histogram bins, coverage words,
+    the workload's queue and bins)."""
+    n, p = state.n_inst, state.n_prop
+    i32 = torch.int32
+    want = []
+    tel = getattr(state, "telemetry", None)
+    if tel is not None:
+        from paxos_tpu_torch.core.telemetry import N_EVENTS
+
+        want.append(((N_EVENTS, n), i32))
+        if tel.ring is not None:
+            want += [((tel.ring.shape[0], n), i32), ((n,), i32), ((n,), i32)]
+        if tel.hist is not None:
+            want.append(((tel.hist.shape[0], n), i32))
+    cov = getattr(state, "coverage", None)
+    if cov is not None:
+        words = cov.bitmap.shape[0]
+        if words < 1 or words & (words - 1):
+            raise ValueError(f"coverage bitmap of {words} words: a power of two is needed")
+        want += [((words, n), i32), ((n,), i32)]
+    if getattr(state, "exposure", None) is not None:
+        from paxos_tpu_torch.obs.exposure import CLASSES
+
+        want += [((len(CLASSES), n), i32)] * 2
+    if getattr(state, "margin", None) is not None:
+        want += [((n,), i32)] * 4
+    wl = getattr(state, "wload", None)
+    if wl is not None:
+        from paxos_tpu_torch.workload.generator import CLASSES as WCLASSES
+
+        cfg = wl.cfg
+        want += [((p, n), i32)] * 2 + [((cfg.queue_cap, p, n), i32)] + [((p, n), i32)] * 6
+        want.append(((len(WCLASSES) * cfg.hist_bins, n), i32))
+    return [(torch.Size(s), d) for s, d in want]
+
+
+def check_planes(state: LaneState) -> None:
+    """Raise unless the observer leaves have their planes' shapes, int32."""
+    leaves = state.obs_leaves()
+    if not leaves:
+        return
+    if not state.takes_planes:
+        raise ValueError(f"a {type(state).__name__} carries no observer planes")
+    check_leaves(leaves, plane_layout(state))
 
 
 # Bytes of state each instance carries (bool leaves 1 byte, tick excluded):

@@ -7,8 +7,9 @@ schedule, so they must equal the reference's.  The single-decree ticks
 has its own.  Of the gray-failure streams the per-link loss and
 duplication bits and the corruption mask (LINK_BITS, DUP_BITS, CORRUPT:
 ``p_flaky``, ``p_corrupt``) and the bounded-delay draws (DELAY_BITS,
-LAT_BITS: ``p_delay``) are ported for both allocations; the workload
-streams are not (their plane raises).
+LAT_BITS: ``p_delay``) are ported for both allocations, and so is the
+client workload's ARRIVAL stream; the ticks draw it only where the state
+carries the workload plane.
 """
 
 SINGLE_DECREE_STREAMS = dict(
@@ -27,6 +28,7 @@ SINGLE_DECREE_STREAMS = dict(
     CORRUPT=12,  # in-flight corruption mask (p_corrupt)
     DELAY_BITS=13,  # per-edge delay decision raw bits (p_delay)
     LAT_BITS=14,  # per-edge sampled latency raw bits (delay_max)
+    ARRIVAL=15,  # client-arrival raw bits (workload plane)
 )
 
 MULTI_PAXOS_STREAMS = dict(
@@ -46,4 +48,10 @@ MULTI_PAXOS_STREAMS = dict(
     CORRUPT=13,  # in-flight corruption mask (p_corrupt)
     DELAY_BITS=14,  # per-edge delay decision raw bits (p_delay)
     LAT_BITS=15,  # per-edge sampled latency raw bits (delay_max)
+    ARRIVAL=16,  # client-arrival raw bits (workload plane)
 )
+
+# The reference's root fold domain of the workload plan's ``jax.random``
+# keys (its lanes' mode and phase; the port takes them as given, ROADMAP
+# item 15, and chip_smoke draws them from numpy on a stream of this id).
+ROOT_WLOAD = 2

@@ -1,11 +1,11 @@
 """Typed run configs (counterpart of ``paxos_tpu/harness/config.py``).
 
-:class:`SimConfig` mirrors the reference's fields.  The observer planes
-(telemetry, coverage, exposure, margin, workload) are not ported: their
-fields exist so a config converts field for field, and default to None
-(off); :func:`paxos_tpu_torch.harness.run.run` rejects a config that sets
-one.  :meth:`SimConfig.fingerprint` equals the reference's for configs with
-every plane off.
+:class:`SimConfig` mirrors the reference's fields, the observer planes'
+configs included (telemetry, coverage, exposure, margin, workload; each
+off by default).  The planes are ported on Paxos;
+:func:`paxos_tpu_torch.harness.run.run` rejects a plane on another
+protocol.  :meth:`SimConfig.fingerprint` equals the reference's: a plane
+that is off drops out of it, as there.
 """
 
 from __future__ import annotations
@@ -13,9 +13,12 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Optional
-
+from paxos_tpu_torch.core.telemetry import TelemetryConfig
 from paxos_tpu_torch.faults.injector import FaultConfig
+from paxos_tpu_torch.obs.coverage import CoverageConfig
+from paxos_tpu_torch.obs.exposure import ExposureConfig
+from paxos_tpu_torch.obs.margin import MarginConfig
+from paxos_tpu_torch.workload.generator import WorkloadConfig
 
 # The reference's packed layout version per protocol: part of its config
 # fingerprint, kept so fingerprints agree across the packages.
@@ -42,16 +45,20 @@ class SimConfig:
     seed: int = 0
     protocol: str = "paxos"
     fault: FaultConfig = dataclasses.field(default_factory=FaultConfig)
-    telemetry: Optional[dict] = None
-    coverage: Optional[dict] = None
-    exposure: Optional[dict] = None
-    margin: Optional[dict] = None
-    workload: Optional[dict] = None
+    telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
+    coverage: CoverageConfig = dataclasses.field(default_factory=CoverageConfig)
+    exposure: ExposureConfig = dataclasses.field(default_factory=ExposureConfig)
+    margin: MarginConfig = dataclasses.field(default_factory=MarginConfig)
+    workload: WorkloadConfig = dataclasses.field(default_factory=WorkloadConfig)
+
+    def planes_on(self) -> tuple:
+        """The observer planes the config turns on (``OBSERVER_PLANES``)."""
+        return tuple(p for p in OBSERVER_PLANES if getattr(self, p).enabled())
 
     def fingerprint(self) -> str:
         d = dataclasses.asdict(self)
         for plane in OBSERVER_PLANES:
-            if d[plane] is None:
+            if d[plane] == dataclasses.asdict(type(getattr(self, plane))()):
                 del d[plane]
         if self.protocol not in LAYOUT_VERSIONS:
             raise NotImplementedError(

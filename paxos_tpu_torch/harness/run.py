@@ -12,6 +12,7 @@ its replication progress.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import numpy as np
@@ -25,16 +26,18 @@ from paxos_tpu_torch.core.mp_state import BV_SHIFT, MultiPaxosState
 from paxos_tpu_torch.core.raft_state import RaftState
 from paxos_tpu_torch.core.sp_state import SynchPaxosState
 from paxos_tpu_torch.core.state import DONE, LaneState, PaxosState
+from paxos_tpu_torch.core.telemetry import TelemetryState, telemetry_device, telemetry_host
 from paxos_tpu_torch.faults.injector import FaultPlan
-from paxos_tpu_torch.harness.config import (
-    OBSERVER_PLANES,
-    SimConfig,
-    validate_pipeline_depth,
-)
+from paxos_tpu_torch.harness.config import SimConfig, validate_pipeline_depth
 from paxos_tpu_torch.harness.pipeline import pipelined_run
 from paxos_tpu_torch.kernels.fused_tick import FUSED_CHUNKS, report_ballot_limit
+from paxos_tpu_torch.obs.coverage import CoverageState, coverage_device, coverage_host
+from paxos_tpu_torch.obs.exposure import FaultExposure, exposure_device, exposure_host
+from paxos_tpu_torch.obs.margin import MarginState, margin_device, margin_host
+from paxos_tpu_torch.obs.slo import slo_device, slo_host
 from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
 from paxos_tpu_torch.protocols.paxos import check_supported
+from paxos_tpu_torch.workload.generator import WloadState
 
 # Signed width of learner.chosen_tick in the reference's packed layouts:
 # the campaign tick budget both packages accept.
@@ -67,6 +70,11 @@ def sampled_plan_knobs(fault) -> list:
     return [k for k in _SAMPLED_PLAN_KNOBS if getattr(fault, k)]
 
 
+# The protocols whose ticks do not compute the observer planes yet, and the
+# ROADMAP item that ports them (Paxos has them: item 13a).
+_PLANE_ITEMS = {"fastpaxos": "13b", "raftcore": "13b", "multipaxos": "13c", "synchpaxos": "13d"}
+
+
 class MeasurementCorrupted(RuntimeError):
     """A campaign's measurements stopped being trustworthy (ballots reached
     the report-time limit)."""
@@ -78,11 +86,11 @@ def _check_ported(cfg: SimConfig) -> None:
             f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue A "
             "slice 4)"
         )
-    for plane in OBSERVER_PLANES:
-        if getattr(cfg, plane) is not None:
+    for plane in cfg.planes_on():
+        if cfg.protocol in _PLANE_ITEMS:
             raise NotImplementedError(
-                f"the {plane} plane is not ported yet (ROADMAP queue A slice 5 "
-                "item 13)"
+                f"the {plane} plane is not ported to {cfg.protocol} yet (ROADMAP queue A "
+                f"item {_PLANE_ITEMS[cfg.protocol]}); it runs on paxos"
             )
     check_supported(cfg.fault, cfg.protocol)
 
@@ -145,13 +153,48 @@ def check_tick_budget(protocol: str, ticks: int) -> None:
         )
 
 
-def init_state(cfg: SimConfig, device=None) -> LaneState:
+def init_state(cfg: SimConfig, device=None, wload_plan=None) -> LaneState:
     """The protocol's initial state, as the reference's ``init_state``
-    (with its buffers' delay stamps when ``p_delay > 0``, and the
-    acceptors' (voters') snapshot shadows when ``stale_k > 0``)."""
+    (with its buffers' delay stamps when ``p_delay > 0``, the acceptors'
+    (voters') snapshot shadows when ``stale_k > 0``, and the observer
+    planes the config turns on).  The workload plane needs its plan,
+    ``wload_plan`` = (mode, phase), (P, I) int32 each: the reference
+    samples it with ``jax.random``, which the port does not (ROADMAP item
+    15), so it is carried across or drawn from the same distribution."""
     _check_ported(cfg)
     _check_packed_layout_bounds(cfg)
     device = resolve_device(device)
+    if cfg.planes_on():
+        return _with_planes(_init_protocol_state(cfg, device), cfg, device, wload_plan)
+    return _init_protocol_state(cfg, device)
+
+
+def _with_planes(state: PaxosState, cfg: SimConfig, device, wload_plan) -> PaxosState:
+    """``state`` with the observer planes of ``cfg``, as the reference's
+    ``init_state`` adds them."""
+    n = cfg.n_inst
+    kw = {}
+    if cfg.telemetry.enabled():
+        kw["telemetry"] = TelemetryState.init(n, cfg.telemetry, device)
+    if cfg.coverage.enabled():
+        kw["coverage"] = CoverageState.init(n, cfg.coverage, device)
+    if cfg.exposure.enabled():
+        kw["exposure"] = FaultExposure.init(n, device)
+    if cfg.margin.enabled():
+        kw["margin"] = MarginState.init(n, device)
+    if cfg.workload.enabled():
+        if wload_plan is None:
+            raise ValueError(
+                "the workload plane needs its plan, wload_plan=(mode, phase), which the "
+                "port does not draw yet (ROADMAP queue A slice 6 item 15): carry the "
+                "reference's across or draw it from the same distribution"
+            )
+        mode, phase = wload_plan
+        kw["wload"] = WloadState.init(n, cfg.n_prop, cfg.workload, mode, phase, device)
+    return dataclasses.replace(state, **kw)
+
+
+def _init_protocol_state(cfg: SimConfig, device) -> LaneState:
     if cfg.protocol == "multipaxos":
         _check_value_budget(cfg)
         return MultiPaxosState.init(
@@ -314,12 +357,72 @@ def summarize_device(state: LaneState, liveness: bool = False, log_total: int = 
         "log_total": log_total if mp else 0,
         "liveness": liveness,
     }
+    parts = [stats]
     if liveness:
         block = liveness_device(
             lrn, state.tick, base=state.base if mp else None, log_total=log_total
         )
-        stats = torch.cat([stats, block])
-    return stats, meta
+        meta["liveness_len"] = block.numel()
+        parts.append(block)
+    # The observer planes' blocks, each reduced on the device, flattened
+    # after the rest: (block, key, count) per field in meta.
+    meta["plane_fields"] = []
+    for name, dev in _plane_blocks(state):
+        for key, x in dev.items():
+            x = x.reshape(-1).to(i64)
+            meta["plane_fields"].append((name, key, x.numel()))
+            parts.append(x)
+    if state.planes:
+        meta["coverage_words"] = state.coverage.bitmap.shape[0] if state.coverage is not None else 0
+    return torch.cat(parts) if len(parts) > 1 else stats, meta
+
+
+def _plane_blocks(state: LaneState) -> list:
+    """(report block, device dict) of each observer plane ``state``
+    carries, in the reference's report order."""
+    out = []
+    for name, field, device_fn in (
+        ("telemetry", "telemetry", telemetry_device), ("coverage", "coverage", coverage_device),
+        ("exposure", "exposure", exposure_device), ("margin", "margin", margin_device),
+        ("slo", "wload", slo_device),
+    ):
+        plane = getattr(state, field, None)
+        if plane is not None:
+            out.append((name, device_fn(plane)))
+    return out
+
+
+_PLANE_HOST = {
+    "telemetry": telemetry_host, "exposure": exposure_host, "margin": margin_host,
+    "slo": slo_host,
+}
+# The fields a report block reads as scalars (the others as lists).
+_SCALAR_FIELDS = {
+    "telemetry": ("seq",), "coverage": ("union_bits", "lane_bits", "new_bits"),
+    "margin": (
+        "min_quorum_slack", "near_miss_lanes", "zero_slack_lanes", "contested_lanes",
+        "near_split_ticks", "near_split_lanes", "min_ballot_gap", "min_promise_slack",
+    ),
+    "slo": ("queue_depth", "depth_peak"),
+}
+
+
+def _planes_host(host: list, meta: dict) -> dict:
+    """The observer planes' report blocks from their fetched counts."""
+    blocks, k = {}, 0
+    for name, key, count in meta["plane_fields"]:
+        vals = host[k:k + count]
+        k += count
+        blocks.setdefault(name, {})[key] = (
+            vals[0] if key in _SCALAR_FIELDS.get(name, ()) else vals
+        )
+    out = {}
+    for name, dev in blocks.items():
+        if name == "coverage":
+            out[name] = coverage_host(dev, meta["coverage_words"])
+        else:
+            out[name] = _PLANE_HOST[name](dev)
+    return out
 
 
 def summarize_host(host: list, meta: dict) -> dict[str, Any]:
@@ -362,8 +465,11 @@ def summarize_host(host: list, meta: dict) -> dict[str, Any]:
             "ballot compares are no longer trustworthy for this campaign; "
             "shorten the campaign"
         )
+    rest = host[len(_STATS):]
     if meta["liveness"]:
-        out.update(liveness_host(host[len(_STATS):], s["ticks"], log_total > 0))
+        out.update(liveness_host(rest[:meta["liveness_len"]], s["ticks"], log_total > 0))
+        rest = rest[meta["liveness_len"]:]
+    out.update(_planes_host(rest, meta))
     return out
 
 
@@ -393,6 +499,7 @@ def run(
     plan: "FaultPlan | None" = None,
     device=None,
     liveness: bool = False,
+    wload_plan=None,
 ):
     """Init, advance in pipelined chunks, return the report.
 
@@ -407,10 +514,13 @@ def run(
     long-log Multi-Paxos config compacts after every ``chunk`` ticks, and
     ``until_all_chosen`` then waits for the whole log to replicate.
     ``liveness`` adds the liveness block to the report (:func:`summarize`).
+    The observer planes the config turns on (Paxos) add their blocks
+    (``telemetry``, ``coverage``, ``exposure``, ``margin``, ``slo``); the
+    workload plane needs ``wload_plan`` (:func:`init_state`).
     """
     depth = validate_pipeline_depth(pipeline_depth)
     check_tick_budget(cfg.protocol, max_ticks if until_all_chosen else total_ticks)
-    state = init_state(cfg, device)
+    state = init_state(cfg, device, wload_plan)
     if plan is None:
         plan = init_plan(cfg, state.device)
     else:

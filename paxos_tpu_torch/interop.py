@@ -4,7 +4,8 @@ The reference's pytrees flatten to leaves in a fixed order (flax field
 order, absent optional fields dropped); the port's ``leaves()`` use the same
 order.  These functions take and return plain numpy arrays in that order,
 so the port needs nothing of the reference to read what it wrote.  This is
-how a sampled fault plan, or a state from a reference run, carries across.
+how a sampled fault plan, or a state from a reference run, observer planes
+included, carries across.
 """
 
 from __future__ import annotations
@@ -31,7 +32,12 @@ from paxos_tpu_torch.core.state import (
     PaxosState,
     ProposerState,
 )
+from paxos_tpu_torch.core.telemetry import TelemetryState
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan
+from paxos_tpu_torch.obs.coverage import CoverageState
+from paxos_tpu_torch.obs.exposure import FaultExposure
+from paxos_tpu_torch.obs.margin import MarginState
+from paxos_tpu_torch.workload.generator import WloadState
 
 # Per protocol: the state type, its sub-states with their leaf counts in
 # flatten order, and the trailing scalar and per-lane leaves (the tick, and
@@ -70,13 +76,23 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C", copy=True)).to(device)
 
 
-def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState:
+def state_from_numpy(leaves, device="cpu", protocol: str = "paxos", cfg=None) -> LaneState:
     """``protocol``'s state from the reference's flattened leaves, with or
     without delay stamps and snapshot shadows: a single-decree state (Paxos,
     Fast Paxos, Raft-core, SynchPaxos) of 29 leaves, 31 with stamps, 32 with
     shadows, 34 with both; a Multi-Paxos state of 30, 33 with stamps, 32
-    with shadows, 35 with both."""
+    with shadows, 35 with both.  A Paxos state's observer planes follow:
+    those the SimConfig ``cfg`` turns on (their leaf counts and sizes
+    come from it)."""
     leaves = list(leaves)
+    planes = {}
+    if cfg is not None and cfg.planes_on():
+        n_obs = sum(n for _, n, _ in _plane_groups(cfg))
+        obs, leaves = leaves[len(leaves) - n_obs:], leaves[:len(leaves) - n_obs]
+        k = 0
+        for name, n, make in _plane_groups(cfg):
+            planes[name] = make([_tensor(x, device) for x in obs[k:k + n]])
+            k += n
     if protocol not in _GROUPS:
         raise NotImplementedError(f"protocol {protocol!r} is not ported yet")
     state_cls, groups, tail = _GROUPS[protocol]
@@ -88,7 +104,7 @@ def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState
     if len(leaves) not in layouts:
         raise NotImplementedError(
             f"state has {len(leaves)} leaves; the port holds a {protocol} state of "
-            f"{sorted(layouts)} (observer planes: ROADMAP queue A slice 5)"
+            f"{sorted(layouts)} (a state with observer planes needs cfg=)"
         )
     s, t = layouts[len(leaves)]
     groups = ((acc_cls, n_acc_leaves + s),) + tuple(
@@ -99,9 +115,35 @@ def state_from_numpy(leaves, device="cpu", protocol: str = "paxos") -> LaneState
     for cls, n in groups:
         parts.append(cls(*tensors[k : k + n]))
         k += n
-    state = state_cls(*parts, **dict(zip(tail, tensors[k:])))
+    state = state_cls(*parts, **dict(zip(tail, tensors[k:])), **planes)
     state.check_layout()
     return state
+
+
+def _plane_groups(cfg) -> list:
+    """(field, leaf count, constructor from the leaves) of each observer
+    plane ``cfg`` turns on, in flatten order."""
+    out = []
+    tel = cfg.telemetry
+    if tel.enabled():
+        ring, hist = tel.ring_depth > 0, tel.hist_bins > 0
+
+        def make_tel(xs):
+            it = iter(xs)
+            counters = next(it)
+            ring_leaves = (next(it), next(it), next(it)) if ring else (None, None, None)
+            return TelemetryState(counters, *ring_leaves, next(it) if hist else None)
+
+        out.append(("telemetry", 1 + 3 * ring + hist, make_tel))
+    if cfg.coverage.enabled():
+        out.append(("coverage", 2, lambda xs: CoverageState(*xs)))
+    if cfg.exposure.enabled():
+        out.append(("exposure", 2, lambda xs: FaultExposure(*xs)))
+    if cfg.margin.enabled():
+        out.append(("margin", 4, lambda xs: MarginState(*xs)))
+    if cfg.workload.enabled():
+        out.append(("wload", 10, lambda xs: WloadState(*xs, cfg=cfg.workload)))
+    return out
 
 
 def state_to_numpy(state: LaneState) -> list:

@@ -32,6 +32,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -51,7 +52,7 @@ constexpr int kMaxProposers = 8;                 // core/ballot.py
 constexpr uint32_t kSel = 0, kBusy = 1, kDeliver = 2, kDupReq = 3,
                    kDupRep = 4, kKeepProm = 5, kKeepAccd = 6, kKeepP1 = 7,
                    kKeepP2 = 8, kBackoff = 9, kLinkBits = 10, kDupBits = 11,
-                   kCorrupt = 12, kDelayBits = 13, kLatBits = 14;
+                   kCorrupt = 12, kDelayBits = 13, kLatBits = 14, kArrival = 15;
 
 // The leaves every single-decree protocol shares, in flatten order after
 // its 12 role leaves (3 acceptor, 9 proposer): learner, requests, replies.
@@ -449,6 +450,24 @@ cudaError_t read_gray_args(bool arms, void** leaves, int n_leaves, void** plan,
   return cudaSuccess;
 }
 
+// Whether the trailing arguments of a kernel (its instantiation's pack:
+// none, a Gray, an obs::Obs, or both) hold one of type T, and that
+// argument (a zero T where there is none).
+template <typename T, typename... Ts>
+constexpr bool has_arg = (std::is_same_v<T, Ts> || ...);
+
+template <typename T, typename X>
+__device__ __forceinline__ void take_arg(T& out, const X& x) {
+  if constexpr (std::is_same_v<T, X>) out = x;
+}
+
+template <typename T, typename... Ts>
+__device__ __forceinline__ T pick_arg(const Ts&... xs) {
+  T out{};
+  (take_arg(out, xs), ...);
+  return out;
+}
+
 // Grid size for one thread per lane, `threads` lanes a block.
 inline unsigned grid_for(int64_t n_inst, int threads) {
   return static_cast<unsigned>((n_inst + threads - 1) / threads);
@@ -842,13 +861,17 @@ struct Channel {
   // where the link is slow and the delay draw fires, else 0; the latency is
   // 1 + (bits & 0x7FFFFFFF) % delay_max.  A link that never delays draws
   // nothing: its stamp is 0 whatever the draws.
+  // PRE: the delay draws of the tick were made already (an observed
+  // instantiation's exposure census), bit `pos` of `fired` each.
+  template <bool PRE = false>
   __device__ __forceinline__ int32_t stamp(const Params& prm, const Plan& plan,
                                            const TickStream& ts, int dir, int kind, int p, int a,
-                                           int64_t n, int64_t i, int32_t tick) const {
+                                           int64_t n, int64_t i, int32_t tick,
+                                           uint64_t fired = 0) const {
     const int e = p * A + a;
     if (prm.delay.mode == 0 || !((slow >> e) & 1u)) return 0;
     const int pos = (((dir == 0 ? REQ_KIND : 2 - REQ_KIND) + kind) * P + p) * A + a;
-    if (ts.bits(DELAY, pos) >= prm.delay.thr) return 0;
+    if (PRE ? !((fired >> pos) & 1u) : ts.bits(DELAY, pos) >= prm.delay.thr) return 0;
     const uint32_t lat =
         1u + (ts.bits(LAT, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
     const int32_t cap = plan.link_delay[e * n + i];
@@ -859,14 +882,17 @@ struct Channel {
   // G::kRqUntil or G::kRpUntil; waiting slots `wait`), written at `tick`:
   // each gets its stamp (0: deliverable at once).  The stamp draws are keyed
   // by the slot, so one rolled loop serves every send site of a buffer.
+  template <bool PRE = false>
   __device__ __forceinline__ void stamp_sends(const Column<B>& col, int row, uint32_t& wait,
                                               int dir, uint32_t sent, const Params& prm,
                                               const Plan& plan, const TickStream& ts, int64_t n,
-                                              int64_t i, int32_t tick, DrawCount* draws) {
+                                              int64_t i, int32_t tick, DrawCount* draws,
+                                              uint64_t fired = 0) {
     for (uint32_t m = sent; m != 0; m &= m - 1) {
       const int j = __ffs(m) - 1;
       const int e = j % G::E;
-      const int32_t u = stamp(prm, plan, ts, dir, j / G::E, e / A, e % A, n, i, tick);
+      const int32_t u =
+          stamp<PRE>(prm, plan, ts, dir, j / G::E, e / A, e % A, n, i, tick, fired);
       draws->touch(1);
       col[row + j] = u;
       if (u > tick) {
@@ -1043,6 +1069,343 @@ __device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32
 }
 
 }  // namespace sd
+
+// ---- The observer planes (core/telemetry.py, obs/coverage.py,
+// obs/exposure.py, obs/margin.py, workload/generator.py): what an observed
+// instantiation (K1's) computes beside the tick.  Every plane is switched
+// by whether its leaves were passed (Obs), a branch the whole warp takes
+// alike.  A lane's counters sit in its column from row R0 on (Rows), the
+// rest of a plane (the event ring and histogram, the coverage bitmap, the
+// client queue's stamps and histogram) in global memory at [row * n + i].
+// None of it draws but the client arrivals (ARRIVAL). ----
+namespace obs {
+
+constexpr int kEvents = 12;    // core/telemetry.py EVENTS
+constexpr int kClasses = 7;    // obs/exposure.py CLASSES
+constexpr int kWlClasses = 3;  // workload/generator.py CLASSES
+constexpr int kLeaves = 23;    // the observer leaves Obs takes
+constexpr int kParams = 13;    // and its sizes and flags
+constexpr int32_t kSentinel = 0x7FFFFFFF;  // obs/margin.py SENTINEL
+constexpr int kEventShift = 16;  // a ring word: events << 16 | (tick & 0xFFFF)
+
+enum Event {
+  kEvPromise, kEvAccept, kEvDecide, kEvConflict, kEvLeader, kEvTimeout, kEvDrop, kEvDup,
+  kEvCorrupt, kEvPartCut, kEvPartHeal, kEvRecover,
+};
+enum Class { kClDrop, kClDup, kClCorrupt, kClPartition, kClTimeout, kClStale, kClDelay };
+
+// The observer leaves in the state's flatten order, each null where its
+// plane (or the ring, the histogram) is off.
+enum Leaf {
+  kTelCounters, kTelRing, kTelCursor, kTelSeq, kTelHist, kCovBitmap, kCovNewBits,
+  kExpInjected, kExpEffective, kMarQslack, kMarNear, kMarGap, kMarPslack,
+  kWlMode, kWlPhase, kWlRing, kWlHead, kWlDepth, kWlPeak, kWlOffered, kWlDone, kWlShed,
+  kWlHist,
+};
+
+struct Obs {
+  int32_t* p[kLeaves];
+  int32_t ring_depth, tel_bins, cov_words;
+  int32_t wl_cap, wl_bins, wl_period, wl_burst_len;
+  uint32_t wl_t_lo, wl_t_hi;
+  int32_t wl_step;
+  int32_t rec_acc, rec_prop;  // telemetry's recover events: p_crash > 0, p_crash_prop > 0
+  int32_t snaps;              // the state carries snapshot shadows (the digest folds them)
+
+  __host__ __device__ bool tel() const { return p[kTelCounters] != nullptr; }
+  __host__ __device__ bool cov() const { return p[kCovBitmap] != nullptr; }
+  __host__ __device__ bool exp() const { return p[kExpInjected] != nullptr; }
+  __host__ __device__ bool mar() const { return p[kMarQslack] != nullptr; }
+  __host__ __device__ bool wl() const { return p[kWlMode] != nullptr; }
+};
+
+// Unpack the observer arguments: kLeaves leaf pointers (null where off)
+// and kParams integers (fused_tick._obs_args: ring depth, telemetry
+// histogram bins, coverage words, the workload's cap, bins, period, burst,
+// low and high thresholds and diurnal step, the two recover flags, and
+// whether the state carries snapshot shadows).  A wrong count, a plane
+// whose leaves are passed in part, a size that does not fit its leaves
+// or no plane at all is cudaErrorInvalidValue.
+inline cudaError_t read_obs_args(void** leaves, int n_leaves, const long long* params,
+                                 int n_params, Obs* o) {
+  if (leaves == nullptr || params == nullptr || n_leaves != kLeaves || n_params != kParams)
+    return cudaErrorInvalidValue;
+  for (int j = 0; j < kLeaves; ++j) o->p[j] = static_cast<int32_t*>(leaves[j]);
+  const auto v = [&](int k) { return static_cast<int32_t>(params[k]); };
+  o->ring_depth = v(0);
+  o->tel_bins = v(1);
+  o->cov_words = v(2);
+  o->wl_cap = v(3);
+  o->wl_bins = v(4);
+  o->wl_period = v(5);
+  o->wl_burst_len = v(6);
+  o->wl_t_lo = static_cast<uint32_t>(params[7]);
+  o->wl_t_hi = static_cast<uint32_t>(params[8]);
+  o->wl_step = v(9);
+  o->rec_acc = v(10);
+  o->rec_prop = v(11);
+  o->snaps = v(12);
+  const auto all = [&](int from, int to, bool on) {
+    for (int j = from; j < to; ++j)
+      if ((o->p[j] != nullptr) != on) return false;
+    return true;
+  };
+  const bool tel = o->tel(), ring = o->p[kTelRing] != nullptr, hist = o->p[kTelHist] != nullptr;
+  if (!(all(kTelCounters, kTelCounters + 1, tel) && all(kTelRing, kTelSeq + 1, ring) &&
+        (tel || (!ring && !hist)) && (ring == (o->ring_depth > 0)) &&
+        (hist == (o->tel_bins > 0)) && o->ring_depth >= 0 && o->tel_bins >= 0))
+    return cudaErrorInvalidValue;
+  if (!all(kCovBitmap, kCovNewBits + 1, o->cov()) ||
+      (o->cov() != (o->cov_words > 0)) || (o->cov_words & (o->cov_words - 1)) != 0)
+    return cudaErrorInvalidValue;
+  if (!all(kExpInjected, kExpEffective + 1, o->exp()) || !all(kMarQslack, kMarPslack + 1, o->mar()))
+    return cudaErrorInvalidValue;
+  if (!all(kWlMode, kWlHist + 1, o->wl())) return cudaErrorInvalidValue;
+  if (o->wl() && (o->wl_cap < 1 || o->wl_cap > 64 || o->wl_bins < 2 || o->wl_bins > 24 ||
+                  o->wl_period < 2 || o->wl_burst_len < 1 || o->wl_burst_len > o->wl_period))
+    return cudaErrorInvalidValue;
+  if (!(o->tel() || o->cov() || o->exp() || o->mar() || o->wl())) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// A lane's counters in its column, from row R0 on: the event counters,
+// the ring's cursor and word count, exposure's injected and effective
+// counts, the four margins, coverage's new bits, and the client queue's
+// eight fields a proposer (mode, phase, head, depth, depth_peak, offered,
+// done, shed; field f of proposer p at kWl + f * P + p).
+template <int P>
+struct Rows {
+  static constexpr int kTel = 0, kCursor = kEvents, kSeq = kCursor + 1, kInj = kSeq + 1,
+                       kEff = kInj + kClasses, kMar = kEff + kClasses, kNewBits = kMar + 4,
+                       kWl = kNewBits + 1, kRows = kWl + 8 * P;
+};
+// The leaf of the client queue's field f (the ring, leaf kWlRing, sits
+// between the phase and the head).
+__host__ __device__ constexpr int wl_column_leaf(int f) { return f < 2 ? kWlMode + f : kWlHead + f - 2; }
+
+// The counters of the planes that are on, between global memory and the
+// column (to_column: at the start of a chunk; else at its end).
+template <int P, int R0, int B>
+__device__ __forceinline__ void move_counters(const Column<B>& col, const Obs& o, int64_t n,
+                                              int64_t i, bool to_column) {
+  using Rw = Rows<P>;
+  const auto mv = [&](int row, int32_t* g) {
+    if (to_column) col[R0 + row] = g[i];
+    else g[i] = col[R0 + row];
+  };
+  if (o.tel()) {
+#pragma unroll 1
+    for (int e = 0; e < kEvents; ++e) mv(Rw::kTel + e, o.p[kTelCounters] + e * n);
+    if (o.ring_depth > 0) {
+      mv(Rw::kCursor, o.p[kTelCursor]);
+      mv(Rw::kSeq, o.p[kTelSeq]);
+    }
+  }
+  if (o.exp()) {
+#pragma unroll 1
+    for (int c = 0; c < kClasses; ++c) {
+      mv(Rw::kInj + c, o.p[kExpInjected] + c * n);
+      mv(Rw::kEff + c, o.p[kExpEffective] + c * n);
+    }
+  }
+  if (o.mar()) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mv(Rw::kMar + k, o.p[kMarQslack + k]);
+  }
+  if (o.cov()) mv(Rw::kNewBits, o.p[kCovNewBits]);
+  if (o.wl()) {  // unrolled: a leaf index known at compile time keeps Obs out of local memory
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+#pragma unroll
+      for (int p = 0; p < P; ++p) mv(Rw::kWl + f * P + p, o.p[wl_column_leaf(f)] + p * n);
+  }
+}
+
+// telemetry.record: the tick's event counts into the counters, one ring
+// word where any event happened (the OR of their bits with the tick), the
+// decides into the latency histogram.
+template <int P, int R0, int B>
+__device__ __forceinline__ void telemetry(const Column<B>& col, const Obs& o, int32_t tick,
+                                          const int (&c)[kEvents], int64_t n, int64_t i) {
+  using Rw = Rows<P>;
+  int32_t word_bits = 0;
+#pragma unroll
+  for (int e = 0; e < kEvents; ++e) {
+    if (c[e] != 0) col[R0 + Rw::kTel + e] = wrap_add(col[R0 + Rw::kTel + e], c[e]);
+    word_bits |= (c[e] > 0 ? 1 : 0) << e;
+  }
+  if (o.ring_depth > 0 && word_bits != 0) {
+    const int32_t cur = col[R0 + Rw::kCursor];
+    if (cur >= 0 && cur < o.ring_depth)
+      o.p[kTelRing][static_cast<int64_t>(cur) * n + i] =
+          (word_bits << kEventShift) | (tick & ((1 << kEventShift) - 1));
+    col[R0 + Rw::kCursor] = cur + 1 >= o.ring_depth ? 0 : cur + 1;
+    col[R0 + Rw::kSeq] = wrap_add(col[R0 + Rw::kSeq], 1);
+  }
+  if (o.tel_bins > 0 && c[kEvDecide] != 0) {
+    const int32_t b = min(tick >> 3, o.tel_bins - 1);  // tick // kHistTicksPerBin, floored
+    int32_t* h = o.p[kTelHist] + static_cast<int64_t>(b) * n + i;
+    *h = wrap_add(*h, c[kEvDecide]);
+  }
+}
+
+// exposure.record: the tick's injected and effective counts per class.
+template <int P, int R0, int B>
+__device__ __forceinline__ void exposure(const Column<B>& col, const int (&inj)[kClasses],
+                                         const int (&eff)[kClasses]) {
+  using Rw = Rows<P>;
+#pragma unroll
+  for (int c = 0; c < kClasses; ++c) {
+    if (inj[c] != 0) col[R0 + Rw::kInj + c] = wrap_add(col[R0 + Rw::kInj + c], inj[c]);
+    if (eff[c] != 0) col[R0 + Rw::kEff + c] = wrap_add(col[R0 + Rw::kEff + c], eff[c]);
+  }
+}
+
+// check.safety.margin_observe over a single-decree learner table of K
+// rows in the column from row LT (ballots, values, voter masks), a decide
+// edge `decided_now`, the chosen value, and the acceptors' post-tick fence
+// (honest acceptors: bit a of `honest`).  Returns `near`, whether this
+// tick is a near split (what a tick that changes none of it adds again).
+template <int P, int R0, int K, int A, int LT, int B>
+__device__ __forceinline__ bool margin(const Column<B>& col, int32_t quorum, bool chosen,
+                                       int32_t chosen_val, bool decided_now,
+                                       const int32_t (&promised)[A], const int32_t (&acc_bal)[A],
+                                       uint32_t honest) {
+  using Rw = Rows<P>;
+  int32_t tick_slack = kSentinel, vmin = kSentinel, vmax = 0, win_bal = 0, rival_bal = 0;
+  int hot = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int32_t bal = col[LT + k], val = col[LT + K + k];
+    const int votes = __popc(static_cast<uint32_t>(col[LT + 2 * K + k]));
+    const bool live = bal > 0;
+    if (live && chosen && val != chosen_val) tick_slack = min(tick_slack, max(quorum - votes, 0));
+    if (live && votes >= quorum - 1) {
+      ++hot;
+      vmin = min(vmin, val);
+      vmax = max(vmax, val);
+    }
+    const bool win = votes >= quorum && live && val == chosen_val;
+    if (win) win_bal = max(win_bal, bal);
+    if (live && !win) rival_bal = max(rival_bal, bal);
+  }
+  const bool near = hot >= 2 && vmin != vmax;
+  col[R0 + Rw::kMar] = min(col[R0 + Rw::kMar], tick_slack);
+  if (near) col[R0 + Rw::kMar + 1] = wrap_add(col[R0 + Rw::kMar + 1], 1);
+  if (decided_now && rival_bal > 0)
+    col[R0 + Rw::kMar + 2] = min(col[R0 + Rw::kMar + 2], max(wrap_add(win_bal, -rival_bal), 0));
+  int32_t pslack = kSentinel;
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+    if (((honest >> a) & 1u) && acc_bal[a] > 0) pslack = min(pslack, wrap_add(promised[a], -acc_bal[a]));
+  col[R0 + Rw::kMar + 3] = min(col[R0 + Rw::kMar + 3], pslack);
+  return near;
+}
+
+// workload.observe for each proposer p: serve first (bit p of `serve`, the
+// commit edge, pops the head stamp and banks its latency into the class's
+// log2 histogram), then this tick's arrival (one ARRIVAL draw against the
+// class's threshold) joins the queue or is shed.
+template <int P, int R0, int B>
+__device__ __forceinline__ void workload(const Column<B>& col, const Obs& o, const TickStream& ts,
+                                         int32_t tick, uint32_t serve, int64_t n, int64_t i) {
+  using Rw = Rows<P>;
+  const int cap = o.wl_cap;
+#pragma unroll 1
+  for (int p = 0; p < P; ++p) {
+    const auto f = [&](int field) -> int32_t& { return col[R0 + Rw::kWl + field * P + p]; };
+    const int32_t mode = f(0);
+    int32_t head = f(2), depth = f(3);
+    if (((serve >> p) & 1u) && depth > 0) {
+      const bool in_ring = head >= 0 && head < cap;
+      const int32_t stamp =
+          in_ring ? o.p[kWlRing][(static_cast<int64_t>(head) * P + p) * n + i] : 0;
+      const int32_t latency = wrap_add(tick, -stamp);
+      int32_t bucket = 0;
+      for (int k = 1; k < o.wl_bins; ++k) bucket += latency >= (1 << k) ? 1 : 0;
+      if (mode >= 0 && mode < kWlClasses) {
+        int32_t* h = o.p[kWlHist] + static_cast<int64_t>(mode * o.wl_bins + bucket) * n + i;
+        *h = wrap_add(*h, 1);
+      }
+      head = head + 1 >= cap ? head + 1 - cap : head + 1;
+      depth -= 1;
+      f(6) = wrap_add(f(6), 1);
+    }
+    // arrival_threshold: the class's uint32 threshold at this tick.
+    const int32_t pos = floor_mod(wrap_add(tick, f(1)), o.wl_period);
+    uint32_t thr = o.wl_t_lo;
+    if (mode == 1 && pos < o.wl_burst_len) thr = o.wl_t_hi;
+    if (mode == 2) {
+      const int32_t tri = min(pos, o.wl_period - pos);
+      thr = o.wl_t_lo + static_cast<uint32_t>(o.wl_step) * static_cast<uint32_t>(tri);
+    }
+    const bool arrival = ts.bits(kArrival, p) < thr;
+    if (arrival) {
+      f(5) = wrap_add(f(5), 1);
+      if (depth < cap) {
+        const int32_t slot = head + depth >= cap ? head + depth - cap : head + depth;
+        if (slot >= 0 && slot < cap) o.p[kWlRing][(static_cast<int64_t>(slot) * P + p) * n + i] = tick;
+        depth += 1;
+      } else {
+        f(7) = wrap_add(f(7), 1);
+      }
+    }
+    f(2) = head;
+    f(3) = depth;
+    f(4) = max(f(4), depth);
+  }
+}
+
+// The coverage digest (obs/coverage.py lane_digest): an FNV-1a-style fold
+// of the lane's state words in the reference's leaf order, then a
+// splitmix32 finalizer; Bloom hash j of it (_hash_pos).
+struct Digest {
+  uint32_t h = 0x811C9DC5u;
+  __device__ __forceinline__ void fold(int32_t x) {
+    h = (h ^ static_cast<uint32_t>(x)) * 0x01000193u;
+  }
+  __device__ __forceinline__ uint32_t value() const {
+    uint32_t x = h;
+    x ^= x >> 16;
+    x *= 0x7FEB352Du;
+    x ^= x >> 15;
+    x *= 0x846CA68Bu;
+    x ^= x >> 16;
+    return x;
+  }
+};
+
+__device__ __forceinline__ uint32_t hash_pos(uint32_t digest, int j, uint32_t m) {
+  uint32_t x = digest ^ (j == 0 ? 0x2545F491u : 0x8B7F1C35u);
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x & (m - 1u);
+}
+
+// coverage.observe of a digest: its two Bloom bits into the lane's bitmap
+// (global memory), the bits newly set into new_bits.
+template <int P, int R0, int B>
+__device__ __forceinline__ void coverage(const Column<B>& col, const Obs& o, uint32_t digest,
+                                         int64_t n, int64_t i) {
+  using Rw = Rows<P>;
+  const uint32_t m = 32u * static_cast<uint32_t>(o.cov_words);
+  int newly = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t pos = hash_pos(digest, j, m);
+    int32_t* w = o.p[kCovBitmap] + static_cast<int64_t>(pos >> 5) * n + i;
+    const uint32_t old = static_cast<uint32_t>(*w), now = old | (1u << (pos & 31u));
+    if (now != old) {
+      *w = static_cast<int32_t>(now);
+      newly += __popc(now ^ old);
+    }
+  }
+  if (newly != 0) col[R0 + Rw::kNewBits] = wrap_add(col[R0 + Rw::kNewBits], newly);
+}
+
+}  // namespace obs
 
 }  // namespace
 

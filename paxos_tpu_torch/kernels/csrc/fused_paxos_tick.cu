@@ -104,7 +104,7 @@ using sd::SdStaged;
 // The tick's phases in order, as the phase-clock build splits a lane's
 // cycles (fused_tick.PHASES["paxos"]).
 enum Phase {
-  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
+  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, kPhStore,
   kPhases,
 };
 
@@ -121,18 +121,34 @@ __device__ __forceinline__ bool breaks_alone(int32_t pr, int32_t ab, int32_t av)
   return ab > pr || (ab == 0 && av != 0);
 }
 
+// The exposure plane's draws of a tick, made at its start (an observed
+// instantiation with exposure on): the drop decisions of the four send
+// kinds (bit kind * E + e, LINK_BITS' kind order), the duplications of both
+// buffers (bit buf * S + j), the corruptions (bit a) and the delay draws
+// (bit axis * E + e of delay_stamps' kind axis, slow links only).  The
+// tick's own sites read these bits where they would draw.
+struct PreDraw {
+  uint64_t drop = 0, dup = 0, fire = 0;
+  uint32_t corrupt = 0;
+};
+
 // The kernel; `Arms` is empty for the default instantiations, whose
-// signature and code are those of K1 without the arms, and `Gray` for the
-// arms instantiations (ARMS), which take the arms' knobs and plan leaves.
+// signature and code are those of K1 without the arms, a `Gray` for the
+// arms instantiations (ARMS), which take the arms' knobs and plan leaves,
+// and an obs::Obs (after the Gray, if any) for the observed ones (OBS),
+// which compute the observer planes whose leaves it holds.
 // STAMPED: the state's buffers carry delay stamps.
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                    Arms... arms) {
-  constexpr bool ARMS = sizeof...(Arms) > 0;
-  const Gray gray{arms...};
+  constexpr bool ARMS = has_arg<Gray, Arms...>;
+  constexpr bool OBS = has_arg<obs::Obs, Arms...>;
+  const Gray gray = pick_arg<Gray>(arms...);
+  const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, false, STAMPED>;
+  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
@@ -176,9 +192,27 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   const Column<B> col{smem + threadIdx.x};
   // The bounded-delay channel's waiting slots (STAMPED), as the column.
   sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;
-  if (!settled()) {
+  // An observed lane loads its column settled or not: the planes read
+  // the learner table and the payloads.
+  if (OBS || !settled()) {
     sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>, B, STAMPED>(col, L, n, i);
     if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
+  }
+  // The planes' counters into the column, and the zero-only payload words
+  // (no row) that are not 0 in global memory, which the coverage digest
+  // folds where the chunk has not written their slot (bit j: a PREPARE's
+  // v1; E + j: a request's v2; E + S + j: an ACCEPTED's v2).
+  uint64_t zo_nz = 0;
+  if constexpr (OBS) {
+    obs::move_counters<P, R0>(col, ob, n, i, true);
+    if (ob.cov()) {
+#pragma unroll 1
+      for (int j = 0; j < S; ++j) {
+        if (j < E && load<int32_t>(L, kRqV1, j, n, i) != 0) zo_nz |= 1ull << j;
+        if (load<int32_t>(L, kRqV2, j, n, i) != 0) zo_nz |= 1ull << (E + j);
+        if (j >= E && load<int32_t>(L, kRpV2, j, n, i) != 0) zo_nz |= 1ull << (S + j);
+      }
+    }
   }
 
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
@@ -237,30 +271,276 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   clk.mark(kPhLoad);
 
   DrawCount draws;
+
+  // ---- The observer planes (OBS; the default instantiations compile none
+  //      of it).  A site that draws reads exposure's draws of the tick
+  //      instead where exposure made them (keep_at, dup_at, stamp_sends). ----
+  const auto keep_at = [&](const TickStream& ts, const PreDraw& pd, uint32_t stream, int kind,
+                           int e) {
+    if constexpr (OBS) {
+      if (ob.exp()) return ((pd.drop >> (kind * E + e)) & 1ull) == 0;
+    }
+    return sd::kept<ARMS, E>(ts, prm, gray, stream, kind, e, n, i);
+  };
+  const auto dup_at = [&](const TickStream& ts, const PreDraw& pd, int buf, int j,
+                          uint32_t stream) {
+    if constexpr (OBS) {
+      if (ob.exp()) return ((pd.dup >> (buf * S + j)) & 1ull) != 0;
+    }
+    return sd::duplicated<ARMS, S, E>(ts, prm, gray, stream, buf, j, n, i);
+  };
+  const auto stamp_sends = [&](const TickStream& ts, const PreDraw& pd, int row, uint32_t& wait,
+                               int dir, uint32_t sent, int32_t tick) {
+    if constexpr (OBS) {
+      if (ob.exp()) {
+        ch.template stamp_sends<true>(col, row, wait, dir, sent, prm, plan, ts, n, i, tick, &draws,
+                                      pd.fire);
+        return;
+      }
+    }
+    ch.stamp_sends(col, row, wait, dir, sent, prm, plan, ts, n, i, tick, &draws);
+  };
+  // Exposure's draws of a tick, each where its knob is on, and their
+  // injected counts (obs/exposure.py: every fault sampled this tick).
+  const auto predraw = [&](const TickStream& ts, int (&inj)[obs::kClasses]) {
+    PreDraw pd;
+    if constexpr (OBS) {
+      if (!ob.exp()) return pd;
+      const bool flaky = ARMS && gray.flaky;
+      if (flaky || prm.drop.mode != 0) {
+#pragma unroll 1
+        for (int e = 0; e < E; ++e) {
+          const int32_t thr = flaky ? gray.link_drop[e * n + i] : 0;
+#pragma unroll
+          for (int kind = 0; kind < 4; ++kind) {
+            const uint32_t stream = kind == 0 ? kKeepProm : kind == 1 ? kKeepAccd
+                                  : kind == 2 ? kKeepP1 : kKeepP2;
+            const bool dropped = flaky ? ts.below_at(thr, kLinkBits, kind * E + e)
+                                       : ts.fires_at(prm.drop, stream, e);
+            pd.drop |= (dropped ? 1ull : 0ull) << (kind * E + e);
+          }
+        }
+        inj[obs::kClDrop] = __popcll(pd.drop);
+      }
+      if (sd::dup_live<ARMS>(prm, gray)) {
+#pragma unroll 1
+        for (int j = 0; j < S; ++j) {
+          const int32_t thr = flaky ? gray.link_dup[(j % E) * n + i] : 0;
+#pragma unroll
+          for (int buf = 0; buf < 2; ++buf) {
+            const bool d = flaky ? ts.below_at(thr, kDupBits, buf * S + j)
+                                 : ts.fires_at(prm.dup, buf == 0 ? kDupReq : kDupRep, j);
+            pd.dup |= (d ? 1ull : 0ull) << (buf * S + j);
+          }
+        }
+        inj[obs::kClDup] = __popcll(pd.dup);
+      }
+      if (ARMS && gray.corrupt.mode != 0) {
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+          pd.corrupt |= (ts.fires_at(gray.corrupt, kCorrupt, a) ? 1u : 0u) << a;
+        inj[obs::kClCorrupt] = __popc(pd.corrupt);
+      }
+      if constexpr (STAMPED) {
+        if (prm.delay.mode != 0) {
+#pragma unroll 1
+          for (int x = 0; x < 4; ++x) {
+            for (uint32_t m = ch.slow; m != 0; m &= m - 1) {
+              const int e = __ffs(m) - 1;
+              if (ts.bits(kDelayBits, x * E + e) < prm.delay.thr) pd.fire |= 1ull << (x * E + e);
+            }
+          }
+          inj[obs::kClDelay] = __popcll(pd.fire);
+        }
+      }
+    }
+    return pd;
+  };
+  // The plan's events at `tick` (telemetry's part_cut, part_heal and
+  // recover; exposure's stale restores and skewed timers).
+  const auto fault_events = [&](int32_t tick, int (&ev)[obs::kEvents], int (&inj)[obs::kClasses],
+                                int (&eff)[obs::kClasses]) {
+    if constexpr (OBS) {
+      if (ARMS && gray.partition) {
+        ev[obs::kEvPartCut] = glane.part_start == tick ? 1 : 0;
+        ev[obs::kEvPartHeal] = glane.part_end == tick ? 1 : 0;
+      }
+      int rec = 0;
+#pragma unroll
+      for (int a = 0; a < A; ++a) rec += crash_end[a] == tick ? 1 : 0;
+      int recovered = ob.rec_acc ? rec : 0;
+      if (ob.rec_prop) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) recovered += plan.pcrash_end[p * n + i] == tick ? 1 : 0;
+      }
+      ev[obs::kEvRecover] = recovered;
+      if (ARMS && gray.stale_k > 0) inj[obs::kClStale] = eff[obs::kClStale] = rec;
+      if (ARMS && gray.timeout_skew) {
+        int skewed = 0;
+#pragma unroll
+        for (int p = 0; p < P; ++p) skewed += glane.ptimeout[p] != 0 ? 1 : 0;
+        inj[obs::kClTimeout] = skewed;
+      }
+    }
+  };
+  // The coverage digest of the lane's state (obs/coverage.py digest_tree:
+  // the acceptors with their shadows, the proposers, both buffers with
+  // their stamps), in the reference's leaf and row order.  A zero-only
+  // payload word is 0 where the chunk wrote its slot, else what global
+  // memory holds.
+  const auto digest = [&]() {
+    obs::Digest d;
+#pragma unroll
+    for (int a = 0; a < A; ++a) d.fold(promised[a]);
+#pragma unroll
+    for (int a = 0; a < A; ++a) d.fold(acc_bal[a]);
+#pragma unroll
+    for (int a = 0; a < A; ++a) d.fold(acc_val[a]);
+    if constexpr (OBS) {
+      if (ob.snaps) {
+#pragma unroll 1
+        for (int f = 0; f < 3; ++f)
+          for (int a = 0; a < A; ++a) d.fold(load<int32_t>(L, SNAP + f, a, n, i));
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(bal[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(phase[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(own_val[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(prop_val[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(heard[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(best_bal[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(best_val[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(timer[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
+    const auto zero_only = [&](int leaf, int j, uint32_t written, int bit) {
+      return ((written >> j) & 1u) || !((zo_nz >> bit) & 1ull) ? 0 : load<int32_t>(L, leaf, j, n, i);
+    };
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold(col[G::kRqBal + j]);
+#pragma unroll 1
+    for (int j = 0; j < S; ++j)
+      d.fold(j < G::kRqV1From ? zero_only(kRqV1, j, rq_written, j) : col[G::rq_v1(j)]);
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold(zero_only(kRqV2, j, rq_written, E + j));
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold((rq_present >> j) & 1u);
+    if constexpr (STAMPED) {
+#pragma unroll 1
+      for (int j = 0; j < S; ++j) d.fold(col[G::kRqUntil + j]);
+    }
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold(col[G::kRpBal + j]);
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold(col[G::kRpV1 + j]);
+#pragma unroll 1
+    for (int j = 0; j < S; ++j)
+      d.fold(j < E ? col[G::kRpV2 + j] : zero_only(kRpV2, j, rp_written, S + j));
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold((rp_present >> j) & 1u);
+    if constexpr (STAMPED) {
+#pragma unroll 1
+      for (int j = 0; j < S; ++j) d.fold(col[G::kRpUntil + j]);
+    }
+    return d.value();
+  };
+  // The planes' update of a tick: its events (ev), exposure's counts, the
+  // commit edges (serve) and the decide edge; the margin in full where
+  // `full_margin` (else the near split again: what a tick that changed
+  // neither the learner nor the acceptors adds), the digest of the
+  // post-tick state where `digest_due`.
+  bool near = false;
+  const auto planes = [&](const TickStream& ts, int32_t tick, const int (&ev)[obs::kEvents],
+                          const int (&inj)[obs::kClasses], const int (&eff)[obs::kClasses],
+                          uint32_t serve, bool decided_now, bool full_margin, bool digest_due) {
+    if constexpr (OBS) {
+      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
+      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.mar()) {
+        if (full_margin) {
+          near = obs::margin<P, R0, K, A, G::kLtBal>(col, prm.q2, lrn.chosen, lrn.chosen_val,
+                                                     decided_now, promised, acc_bal,
+                                                     ~equiv & kAccs);
+        } else if (near) {
+          col[R0 + obs::Rows<P>::kMar + 1] = wrap_add(col[R0 + obs::Rows<P>::kMar + 1], 1);
+        }
+      }
+      if (ob.wl()) obs::workload<P, R0>(col, ob, ts, tick, serve, n, i);
+      if (ob.cov() && digest_due) obs::coverage<P, R0>(col, ob, digest(), n, i);
+    }
+    clk.mark(kPhObs);
+  };
+
   for (int t = 0; t < prm.n_ticks; ++t) {
     // ---- A settled lane: the rest of the chunk at once (under stale
     //      recovery or amnesia, one tick at a time: its acceptors still
     //      restore and snapshot). ----
     if (settled()) {
-      if constexpr (ARMS) {
-        if (gray.stale_k > 0 || gray.amnesia) {
-          for (; t < prm.n_ticks; ++t) {
-            recover(wrap_add(tick0, t));
-            lrn.quiet(__popc(bad_alone));
+      if constexpr (OBS) {
+        // An observed settled lane: the planes still draw and count every
+        // tick; its digest changes only where a restore, a snapshot or the
+        // clamp changed the state, so it is folded again only then.
+        const bool restores = ARMS && (gray.stale_k > 0 || gray.amnesia);
+        bool due = true;
+        for (; t < prm.n_ticks; ++t) {
+          const int32_t tick = wrap_add(tick0, t);
+          const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
+                              static_cast<uint32_t>(prm.block), lane, &draws};
+          recover(tick);
+          const int viol = __popc(bad_alone);
+          lrn.quiet(viol);
+          int ev[obs::kEvents] = {}, inj[obs::kClasses] = {}, eff[obs::kClasses] = {};
+          ev[obs::kEvConflict] = viol;
+          predraw(ts, inj);
+          if constexpr (ARMS) {
+            uint32_t cut_req = 0, cut_rep = 0;
+            glane.cuts(tick, cut_req, cut_rep);
+            if (gray.partition) inj[obs::kClPartition] = __popc(cut_req) + __popc(cut_rep);
+          }
+          fault_events(tick, ev, inj, eff);
+          planes(ts, tick, ev, inj, eff, 0u, false, due || restores, due || restores);
+          due = false;
+          if (prm.clamp_per_tick) {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              due = due || bal[p] > kBallotLimit;
+              bal[p] = min(bal[p], kBallotLimit);
+            }
           }
         }
-      }
-      const uint32_t rest = static_cast<uint32_t>(prm.n_ticks - t);
-      lrn.quiet(static_cast<int>(rest * static_cast<uint32_t>(__popc(bad_alone))));
-      if (prm.clamp_per_tick) {
+      } else {
+        if constexpr (ARMS) {
+          if (gray.stale_k > 0 || gray.amnesia) {
+            for (; t < prm.n_ticks; ++t) {
+              recover(wrap_add(tick0, t));
+              lrn.quiet(__popc(bad_alone));
+            }
+          }
+        }
+        const uint32_t rest = static_cast<uint32_t>(prm.n_ticks - t);
+        lrn.quiet(static_cast<int>(rest * static_cast<uint32_t>(__popc(bad_alone))));
+        if (prm.clamp_per_tick) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+          for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+        }
       }
       break;
     }
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // What the planes read of the pre-tick state (OBS).
+    const uint32_t rq_p0 = rq_present, rp_p0 = rp_present;
+    const bool chosen0 = lrn.chosen;
+    const int32_t viol0 = lrn.violations;
     recover(tick);
     // The slots whose stamp has come (STAMPED): a slot waiting for its
     // stamp is neither delivered nor selected.
@@ -270,6 +550,24 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
+
+    // The planes' counts of the tick (OBS), exposure's draws, and what the
+    // cuts and the stamps hold back of the pre-tick buffers.
+    int ev[obs::kEvents] = {}, inj[obs::kClasses] = {}, eff[obs::kClasses] = {};
+    const PreDraw pd = predraw(ts, inj);
+    int n_drop = 0, n_dup = 0;
+    uint32_t prom_m = 0, corrupt_m = 0, p2_m = 0, plain_exp = 0;
+    if constexpr (OBS) {
+      if (ARMS && gray.partition) {
+        inj[obs::kClPartition] = __popc(cut_req) + __popc(cut_rep);
+        eff[obs::kClPartition] = __popc(rq_p0 & (cut_req | (cut_req << E))) +
+                                 __popc(rp_p0 & (cut_rep | (cut_rep << E)));
+      }
+      if constexpr (STAMPED) {
+        if (prm.delay.mode != 0)
+          eff[obs::kClDelay] = __popc(rq_p0 & ch.rq_wait) + __popc(rp_p0 & ch.rp_wait);
+      }
+    }
 
     // ---- Reply delivery (pre-tick buffer): the replies that have arrived,
     //      on a link not cut and not held this tick; consumed unless
@@ -286,8 +584,9 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     if (sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        if (sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i)) taken &= ~(1u << j);
+        if (dup_at(ts, pd, 1, j, kDupRep)) taken &= ~(1u << j);
       }
+      if constexpr (OBS) n_dup += __popc(delivered & ~taken);
     }
     const uint32_t rp_next = rp_present & ~taken;
     clk.mark(kPhDeliver);
@@ -371,6 +670,10 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
       const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
       const bool exp = phase[p] != kDone && !p1 && !p2 && tm > timeout;
+      if constexpr (OBS) {  // the commit edge, and the expiry without the skew
+        p2_m |= (p2 ? 1u : 0u) << p;
+        plain_exp |= (phase[p] != kDone && !p1 && !p2 && tm > prm.timeout ? 1u : 0u) << p;
+      }
 
       int32_t ph = phase[p];
       if (p1) ph = kP2;
@@ -438,7 +741,19 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       const bool is_acc = !is_prep;
       int32_t mb = col[G::kRqBal + sel * A + a];
       int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
-      sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
+      if constexpr (OBS) {
+        if (ARMS && gray.corrupt.mode != 0) {
+          const bool fired = ob.exp() ? ((pd.corrupt >> a) & 1u) != 0
+                                      : ts.fires_at(gray.corrupt, kCorrupt, a);
+          if (fired) {
+            if (is_acc) mv ^= 64;
+            else mb = wrap_add(mb, 1);
+            corrupt_m |= 1u << a;
+          }
+        }
+      } else {
+        sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
+      }
       const bool eq = (equiv >> a) & 1u;
       const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
       const bool ok_prep_h = is_prep && !eq && mb > pr_old;
@@ -455,22 +770,28 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
       // link drops it against its own threshold.
       const int jr = sel * A + a;
-      if (ok_prep && sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, jr, n, i)) {
+      const bool prom_kept = ok_prep && keep_at(ts, pd, kKeepProm, 0, jr);
+      if (prom_kept) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_acc && sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, jr - E, n, i)) {
+      const bool accd_kept = ok_acc && keep_at(ts, pd, kKeepAccd, 1, jr - E);
+      if (accd_kept) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
         rp_sent |= 1u << jr;
       }
       // Consume the selected request unless it is duplicated (on a flaky
       // link, against its own threshold).
-      if (!(sd::dup_live<ARMS>(prm, gray) &&
-            sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, jr, n, i)))
-        rq_next &= ~(1u << jr);
+      const bool dup_req = sd::dup_live<ARMS>(prm, gray) && dup_at(ts, pd, 0, jr, kDupReq);
+      if (!dup_req) rq_next &= ~(1u << jr);
+      if constexpr (OBS) {
+        prom_m |= (ok_prep ? 1u : 0u) << a;
+        n_drop += (ok_prep && !prom_kept ? 1 : 0) + (ok_acc && !accd_kept ? 1 : 0);
+        n_dup += dup_req ? 1 : 0;
+      }
 
       // Acceptor-local invariants (honest acceptors only).
       if (!eq && (pr < pr_old || breaks_alone(pr, ab, av))) ++inv_viol;
@@ -485,8 +806,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     inv_viol += __popc(bad_alone & ~acted);
     // The replies' delay stamps (the stamp draws are keyed by the slot, so
     // one rolled loop serves every reply site).
-    if constexpr (STAMPED)
-      ch.stamp_sends(col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
+    if constexpr (STAMPED) stamp_sends(ts, pd, G::kRpUntil, ch.rp_wait, 1, rp_sent, tick);
     rp_present = rp_next | rp_sent;
     rp_written |= rp_sent;
     rq_present = rq_next;
@@ -506,29 +826,61 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
           const int e = p * A + a;
-          if (((p1_done >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, e, n, i)) {
+          const bool acc_sent = ((p1_done >> p) & 1u) && keep_at(ts, pd, kKeepP2, 3, e);
+          if (acc_sent) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
             col[G::kRqBal + j] = old_bal[p];
             col[G::rq_v1(j)] = prop_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, e, n, i)) {
+          const bool prep_sent = ((expired >> p) & 1u) && keep_at(ts, pd, kKeepP1, 2, e);
+          if (prep_sent) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
             rq_sent |= 1u << j;
           }
+          if constexpr (OBS) {
+            n_drop += (((p1_done >> p) & 1u) && !acc_sent ? 1 : 0) +
+                      (((expired >> p) & 1u) && !prep_sent ? 1 : 0);
+          }
         }
       }
-      if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
+      // (An observed tick clamps after the planes: the digest reads the
+      // ballots as the tick left them.)
+      if (!OBS && prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
-    if constexpr (STAMPED)
-      ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
+    if constexpr (STAMPED) stamp_sends(ts, pd, G::kRqUntil, ch.rq_wait, 0, rq_sent, tick);
     rq_present |= rq_sent;
     rq_written |= rq_sent;
     clk.mark(kPhSends);
+
+    // ---- The observer planes (OBS), from the tick's events. ----
+    if constexpr (OBS) {
+      const bool decided_now = lrn.chosen && !chosen0;
+      ev[obs::kEvPromise] = __popc(prom_m);
+      ev[obs::kEvAccept] = __popc(ev_flag);
+      ev[obs::kEvDecide] = decided_now ? 1 : 0;
+      ev[obs::kEvConflict] = wrap_add(lrn.violations, -viol0);
+      ev[obs::kEvLeader] = __popc(p1_done);
+      ev[obs::kEvTimeout] = __popc(expired);
+      ev[obs::kEvDrop] = n_drop;
+      ev[obs::kEvDup] = n_dup;
+      ev[obs::kEvCorrupt] = __popc(corrupt_m);
+      eff[obs::kClDrop] = n_drop;
+      eff[obs::kClDup] = n_dup;
+      eff[obs::kClCorrupt] = __popc(corrupt_m);
+      if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
+      fault_events(tick, ev, inj, eff);
+      planes(ts, tick, ev, inj, eff, p2_m, decided_now, true, true);
+      if (prm.clamp_per_tick) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+      }
+    }
   }
 
   draws.flush();
+  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
 
   // ---- Store the lane's state once. ----
 #pragma unroll
@@ -560,39 +912,58 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 }
 
 // One instantiation, ready to launch (SmemInst in fused_common.cuh): an
-// arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+// arms instantiation's kernel takes a Gray after Params, an observed one an
+// obs::Obs after that, and its column holds the planes' counters
+// (obs::Rows) after the staged rows.
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
+using InstWith = SmemInst<
+    fused_paxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Arms...>, B,
+    (SdStaged<P, A, K, false, STAMPED>::kRows +
+     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
 struct InstOf {
-  using type = SmemInst<fused_paxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
-                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS>;
 };
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
-struct InstOf<P, A, K, STAMPED, true, B, MIN_BLOCKS> {
-  using type = SmemInst<fused_paxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>, B,
-                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+struct InstOf<P, A, K, STAMPED, true, false, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>;
 };
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
-using Inst = typename InstOf<P, A, K, STAMPED, ARMS, B, MIN_BLOCKS>::type;
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, false, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, true, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, B,
-// MIN_BLOCKS): one per shape, stamps and arms flag, at the geometry
-// fused_tick.FR_STAGING["paxos"] gives it; MIN_BLOCKS, the blocks an SM is
-// to hold, caps a thread's registers.
-#define K1_INSTANCES(X)      \
-  X(2, 5, 8, 0, 0, 128, 4)   \
-  X(1, 3, 8, 0, 0, 128, 4)   \
-  X(2, 5, 8, 0, 1, 128, 3)   \
-  X(2, 5, 8, 1, 0, 128, 3)   \
-  X(2, 5, 8, 1, 1, 128, 3)
+// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, OBS, B,
+// MIN_BLOCKS): one per shape, stamps, arms and observer flag, at the
+// geometry fused_tick.FR_STAGING["paxos"] gives it; MIN_BLOCKS, the blocks
+// an SM is to hold, caps a thread's registers.
+#define K1_INSTANCES(X)         \
+  X(2, 5, 8, 0, 0, 0, 128, 4)   \
+  X(1, 3, 8, 0, 0, 0, 128, 4)   \
+  X(2, 5, 8, 0, 1, 0, 128, 3)   \
+  X(2, 5, 8, 1, 0, 0, 128, 3)   \
+  X(2, 5, 8, 1, 1, 0, 128, 3)   \
+  X(2, 5, 8, 0, 0, 1, 128, 2)   \
+  X(2, 5, 8, 0, 1, 1, 128, 2)   \
+  X(2, 5, 8, 1, 0, 1, 128, 2)   \
+  X(2, 5, 8, 1, 1, 1, 128, 2)
 
-// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, k_slots, stamped, arms), or
-// returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`
+// for the instantiation `dims` names (n_prop, n_acc, k_slots, stamped,
+// arms, observed), or returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K1_MATCH(P_, A_, K_, S_, R_, B_, M_)                                                \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_) \
-    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
+#define K1_MATCH(P_, A_, K_, S_, R_, O_, B_, M_)                                              \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_ && \
+      dims[5] == O_)                                                                       \
+    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, O_ != 0, B_, M_>{},                       \
+              std::bool_constant<R_ != 0>{}, std::bool_constant<O_ != 0>{});
   K1_INSTANCES(K1_MATCH)
 #undef K1_MATCH
   return cudaErrorInvalidValue;
@@ -604,33 +975,51 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 // fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped (1: the
 // state's buffers carry delay stamps, which p_delay > 0 needs), arms (1:
 // the instantiation with the gray-failure and partition arms, which a knob
-// of theirs needs), then the dynamic shared bytes a block,
-// fused_tick.FR_STAGING's); the state's leaves are 28, 30 with the stamps,
-// and 3 more with snapshot shadows, which stale_k > 0 needs; `tick` is the
-// device int32 tick scalar, read by the kernel and advanced by the caller.
-// Returns cudaSuccess or the first error: an unknown instantiation, a leaf
-// count that is not its state's (a stamped state on an unstamped one), a
-// knob on without its arms, p_delay without the stamps or the plan's
-// link_delay, or too few shared bytes (cudaErrorInvalidValue), a
-// shared-memory request the card refuses, or the launch's
-// cudaGetLastError().
+// of theirs needs), observed (1: the instantiation with the observer
+// planes, which a state carrying one needs), then the dynamic shared bytes
+// a block, fused_tick.FR_STAGING's); the state's leaves are 28, 30 with
+// the stamps, and 3 more with snapshot shadows, which stale_k > 0 needs;
+// `tick` is the device int32 tick scalar, read by the kernel and advanced
+// by the caller; the observer leaves and their sizes
+// (obs::read_obs_args) come last, none for an instantiation that is not
+// observed.  Returns cudaSuccess or the first error: an unknown
+// instantiation, a leaf count that is not its state's (a stamped state on
+// an unstamped one), a knob on without its arms, p_delay without the
+// stamps or the plan's link_delay, observer arguments that do not fit the
+// instantiation or each other, or too few shared bytes
+// (cudaErrorInvalidValue), a shared-memory request the card refuses, or
+// the launch's cudaGetLastError().
 extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                   void** plan, void* tick, const long long* params, int n_params,
-                                  void* stream) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
+                                  void* stream, void** obs_leaves, int n_obs,
+                                  const long long* obs_params, int n_obs_params) {
+  if (n_dims != 7) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
-  const cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params,
-                                         &L, &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
+  cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params, &L,
+                                   &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
   if (bad != cudaSuccess) return bad;
+  obs::Obs ob{};
+  if (dims[5] != 0) {
+    bad = obs::read_obs_args(obs_leaves, n_obs, obs_params, n_obs_params, &ob);
+    if (bad != cudaSuccess) return bad;
+    const bool snaps = n_leaves == kLeaves + (dims[3] != 0 ? 2 : 0) + 3;
+    if ((ob.snaps != 0) != snaps) return cudaErrorInvalidValue;
+  } else if (n_obs != 0 || n_obs_params != 0) {
+    return cudaErrorInvalidValue;
+  }
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto with_arms) {
-    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
-    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto with_arms, auto with_obs) {
+    constexpr bool R = decltype(with_arms)::value, O = decltype(with_obs)::value;
+    using I = decltype(inst);
+    if constexpr (R && O) return I::launch(L, pl, t, prm, smem, s, gray, ob);
+    else if constexpr (R) return I::launch(L, pl, t, prm, smem, s, gray);
+    else if constexpr (O) return I::launch(L, pl, t, prm, smem, s, ob);
+    else return I::launch(L, pl, t, prm, smem, s);
   });
 }
 
@@ -638,7 +1027,9 @@ extern "C" int fused_paxos_launch(const int* dims, int n_dims, void** leaves, in
 // SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_paxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 7) return cudaErrorInvalidValue;
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto, auto) {
+    return decltype(inst)::occupancy(smem, blocks_per_sm);
+  });
 }

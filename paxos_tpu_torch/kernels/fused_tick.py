@@ -38,6 +38,12 @@ shared bytes) is ``MP_STAGING``, ``SP_STAGING`` and ``FR_STAGING``, which
 the kernels' instantiations mirror; the wrapper passes them the shared
 bytes.  :func:`phase_clocks` runs the phase-clock build of K1 to K4, which
 splits a lane's cycles by phase of the tick.
+
+K1 also computes the observer planes a Paxos state carries (telemetry,
+coverage, exposure, margin, the client workload), in observed
+instantiations of its own (the last field of its keys, ``observed``),
+which take the planes' leaves as a separate argument (:func:`_obs_args`)
+and keep their counters in the lane's column (:func:`obs_rows`).
 """
 
 from __future__ import annotations
@@ -88,7 +94,12 @@ BALLOT_GROWTH_PER_TICK = 16
 # three acceptors, with the arms and the stamps at config3's (2, 5, 8, 4).
 _SD_SHAPES = ((2, 5, 8, 0, 0), (2, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1))
 KERNEL_SHAPES = {
-    "paxos": ((2, 5, 8, 0, 0), (1, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1)),
+    # Paxos' keys end in ``observed`` (1: the observer planes, OBSERVED_SHAPES).
+    "paxos": (
+        (2, 5, 8, 0, 0, 0), (1, 3, 8, 0, 0, 0), (2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 0, 0),
+        (2, 5, 8, 1, 1, 0), (2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1),
+        (2, 5, 8, 1, 1, 1),
+    ),
     "fastpaxos": _SD_SHAPES,
     "raftcore": _SD_SHAPES,
     "synchpaxos": ((2, 5, 8, 1, 0), (2, 5, 8, 0, 0), (2, 3, 8, 1, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 1)),
@@ -267,8 +278,20 @@ def fr_staged_rows(
     return (9 if protocol == "raftcore" else 8) * e + (4 * e if stamped else 0) + 3 * k_slots
 
 
+def obs_rows(n_prop: int) -> int:
+    """Words of a lane's column that an observed instantiation of K1 adds
+    for the planes' counters (``obs::Rows`` in csrc/fused_common.cuh): the
+    12 event counters, the ring's cursor and word count, the 7 injected
+    and 7 effective exposure counts, the 4 margins, coverage's new bits,
+    and the client queue's 8 fields a proposer."""
+    return 12 + 2 + 7 + 7 + 4 + 1 + 8 * n_prop
+
+
 def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
-    rows = fr_staged_rows(protocol, *shape[:4])  # the key: (P, A, K, stamped, arms)
+    # The key: (P, A, K, stamped, arms), Paxos' with ``observed`` last.
+    rows = fr_staged_rows(protocol, *shape[:4])
+    if protocol == "paxos" and len(shape) > 5 and shape[5]:
+        rows += obs_rows(shape[0])
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
@@ -277,7 +300,9 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # thread at 168 registers; K2's (2, 5, 8) column (104 words) leaves room
 # for a fourth block (16 warps, 128 registers), which made its main path
 # 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's unstamped
-# columns (104 and 48 words) take 4 blocks at both shapes.  The stamped
+# columns (104 and 48 words) take 4 blocks at both shapes; its observed
+# instantiations add the planes' counters (``obs_rows``: 49 words at two
+# proposers), 153 words (193 stamped), which leave room for 2 blocks.  The stamped
 # (2, 5, 8) columns of K1 and K2 (144 words, 72 KiB a block) leave room for
 # 3.  K3's (154 words) leaves room for 2 blocks of 128 lanes (8 warps) or
 # 11 of 32 (11 warps, 184 registers a thread at most): on
@@ -288,11 +313,8 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # are capped for its default's blocks (the unstamped arms: 3).
 FR_STAGING = {
     "paxos": {
-        (2, 5, 8, 0, 0): _fr_staging("paxos", (2, 5, 8, 0, 0), 128, 4),
-        (1, 3, 8, 0, 0): _fr_staging("paxos", (1, 3, 8, 0, 0), 128, 4),
-        (2, 5, 8, 0, 1): _fr_staging("paxos", (2, 5, 8, 0, 1), 128, 3),
-        (2, 5, 8, 1, 0): _fr_staging("paxos", (2, 5, 8, 1, 0), 128, 3),
-        (2, 5, 8, 1, 1): _fr_staging("paxos", (2, 5, 8, 1, 1), 128, 3),
+        shape: _fr_staging("paxos", shape, 128, 2 if shape[5] else 4 if shape[3:5] == (0, 0) else 3)
+        for shape in KERNEL_SHAPES["paxos"]
     },
     "fastpaxos": {
         (2, 5, 8, 0, 0): _fr_staging("fastpaxos", (2, 5, 8, 0, 0), 128, 4),
@@ -391,12 +413,18 @@ class Binding:
     # are passed after the shape; None: the kernel's own fixed geometry.
     staging: "dict | None" = None
     arms: "Callable | None" = None
+    # Whether the kernel has observed instantiations (the key's last field:
+    # 1 where the state carries an observer plane), and its C entry takes
+    # the observer arguments (_obs_args).
+    observed: bool = False
 
     def kernel_shape(self, state: LaneState, cfg: "FaultConfig | None" = None) -> tuple:
         shape = tuple(getattr(state, f) for f in self.shape_fields)
-        if self.arms is None:
-            return shape
-        return shape + (self.arms(cfg or FaultConfig()),)
+        if self.arms is not None:
+            shape += (self.arms(cfg or FaultConfig()),)
+        if self.observed:
+            shape += (int(bool(state.planes)),)
+        return shape
 
 
 def _gray_params(cfg: FaultConfig) -> list:
@@ -423,7 +451,7 @@ BINDINGS = {
     "paxos": Binding(
         apply_tick, counter_masks, PaxosState, "fused_paxos_tick", "fused_paxos_launch",
         shape_fields=("n_prop", "n_acc", "k_slots", "stamped"), staging=FR_STAGING["paxos"],
-        arms=gray_arms,
+        arms=gray_arms, observed=True,
     ),
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
@@ -480,7 +508,7 @@ PHASE_SLOTS = 8
 PHASES = {
     "paxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
-        "learner", "proposer sends", "column store",
+        "learner", "proposer sends", "observers", "column store",
     ),
     "fastpaxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
@@ -510,7 +538,10 @@ def _entry(protocol: str, defines: tuple = ()):
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
             ctypes.c_void_p,
-        ]
+        ] + ([
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ] if binding.observed else [])
         fn.restype = ctypes.c_int
         _entries[protocol, defines] = fn
     return _entries[protocol, defines]
@@ -645,7 +676,7 @@ def _launch(
     raises if the launch fails or is refused."""
     binding = BINDINGS[protocol]
     fn = _entry(protocol, defines)
-    leaves = state.lane_leaves()
+    leaves = state.protocol_leaves()
     ptrs = (ctypes.c_void_p * len(leaves))(*(t.data_ptr() for t in leaves))
     plan_ptrs = (ctypes.c_void_p * len(_PLAN_LEAVES))(*(
         None if getattr(plan, name) is None else getattr(plan, name).data_ptr()
@@ -659,13 +690,60 @@ def _launch(
     stream = torch.cuda.current_stream(state.device).cuda_stream
     shape = _launch_dims(binding, binding.kernel_shape(state, cfg))
     dims = (ctypes.c_int * len(shape))(*shape)
+    extra = _obs_args(state, cfg) if binding.observed else ()
     with torch.cuda.device(state.device):
         rc = fn(
             dims, len(shape), ptrs, len(leaves), plan_ptrs,
-            state.tick.data_ptr(), arr, len(params), stream,
+            state.tick.data_ptr(), arr, len(params), stream, *extra,
         )
     if rc != 0:
         raise RuntimeError(f"{binding.kernel} launch failed: cudaError {rc}")
+
+
+# The observer leaves an observed instantiation takes (``obs::Leaf`` in
+# csrc/fused_common.cuh), in flatten order: (plane, field) each.
+OBS_LEAVES = (
+    ("telemetry", "counters"), ("telemetry", "ring"), ("telemetry", "cursor"),
+    ("telemetry", "seq"), ("telemetry", "hist"), ("coverage", "bitmap"),
+    ("coverage", "new_bits"), ("exposure", "injected"), ("exposure", "effective"),
+    ("margin", "qslack_min"), ("margin", "near_split"), ("margin", "bal_gap_min"),
+    ("margin", "promise_slack_min"), ("wload", "mode"), ("wload", "phase"), ("wload", "ring"),
+    ("wload", "head"), ("wload", "depth"), ("wload", "depth_peak"), ("wload", "offered"),
+    ("wload", "done"), ("wload", "shed"), ("wload", "hist"),
+)
+
+
+def _obs_args(state: LaneState, cfg: FaultConfig) -> tuple:
+    """The observer arguments of a C entry with observed instantiations:
+    the ``OBS_LEAVES`` pointers (null where a plane or part of it is off)
+    and the sizes and flags ``obs::read_obs_args`` reads (ring depth,
+    histogram bins, coverage words, the workload's cap, bins, period,
+    burst, thresholds and diurnal step, telemetry's recover flags, the
+    snapshot shadows); none for a state without planes."""
+    if not state.planes:
+        return None, 0, None, 0
+    from paxos_tpu_torch.workload.generator import threshold_terms
+
+    def leaf(plane, field):
+        part = getattr(state, plane)
+        x = None if part is None else getattr(part, field)
+        return None if x is None else x.data_ptr()
+
+    ptrs = (ctypes.c_void_p * len(OBS_LEAVES))(*(leaf(*pf) for pf in OBS_LEAVES))
+    tel, cov, wl = state.telemetry, state.coverage, state.wload
+    sizes = [
+        0 if tel is None or tel.ring is None else tel.ring.shape[0],
+        0 if tel is None or tel.hist is None else tel.hist.shape[0],
+        0 if cov is None else cov.bitmap.shape[0],
+    ]
+    if wl is None:
+        sizes += [0] * 7
+    else:
+        w = wl.cfg
+        sizes += [w.queue_cap, w.hist_bins, w.period, w.burst_len, *threshold_terms(w)]
+    sizes += [int(cfg.p_crash > 0.0), int(cfg.p_crash_prop > 0.0), int(state.snapshots)]
+    params = (ctypes.c_longlong * len(sizes))(*sizes)
+    return ptrs, len(OBS_LEAVES), params, len(sizes)
 
 
 def _launch_dims(binding: Binding, shape: tuple) -> tuple:
@@ -795,7 +873,8 @@ def fused_paxos_chunk(
     leaves its knobs need; so do Fast Paxos, Raft-core, SynchPaxos and
     Multi-Paxos.  A state with delay stamps runs a stamped instantiation,
     and ``p_delay > 0`` needs a plan with ``link_delay``; so do the other
-    four.
+    four.  A state that carries an observer plane runs an observed
+    instantiation, which computes every plane the state carries.
     CPU: the plain :func:`reference_chunk`.  There is no fallback between
     the two: the device of the state decides."""
     return _fused_chunk(

@@ -19,6 +19,12 @@ two and the last two); for every tick the bounded delay (``p_delay``,
 :func:`deliver` and :func:`select`; Multi-Paxos takes :func:`send_stamps`
 over its own buffers), for SynchPaxos ``sp_unsafe_fast``.  Any other knob raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+The Paxos tick computes the observer planes its state carries (telemetry,
+exposure, margin, the client workload, coverage last on the post-tick
+state) at the reference's sites and in its order; they draw nothing but
+the workload's arrivals (the ``ARRIVAL`` stream, drawn only where the
+state carries the workload), so the schedule is the same with them on.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from typing import Optional
 
 import torch
 
-from paxos_tpu_torch.check.safety import acceptor_invariants, learner_observe
+from paxos_tpu_torch.check.safety import acceptor_invariants, learner_observe, margin_observe
+from paxos_tpu_torch.core import telemetry as tel_mod
 from paxos_tpu_torch.core.ballot import ballot_round, make_ballot
 from paxos_tpu_torch.core.messages import ACCEPT, ACCEPTED, PREPARE, PROMISE
 from paxos_tpu_torch.core.state import DONE, P1, P2, PaxosState
@@ -42,7 +49,10 @@ from paxos_tpu_torch.faults.injector import (
 )
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
+from paxos_tpu_torch.obs import coverage as cov_mod
+from paxos_tpu_torch.obs import exposure as exp_mod
 from paxos_tpu_torch.transport import inmemory as net
+from paxos_tpu_torch.workload import generator as wload_mod
 
 # The gray-failure and partition knobs, which every tick (and each of K1 to
 # K5, in an arms instantiation) models.  A knob counts as on when it
@@ -97,6 +107,7 @@ class TickMasks:
     corrupt: Optional[torch.Tensor] = None  # (A, I) bool payload perturbed
     delay_bits: Optional[torch.Tensor] = None  # (2, 2, P, A, I) int32 (p_delay)
     lat_bits: Optional[torch.Tensor] = None  # (2, 2, P, A, I) int32 latency draw
+    arrival_bits: Optional[torch.Tensor] = None  # (P, I) int32 client arrivals (workload)
 
 
 def counter_masks(
@@ -109,7 +120,8 @@ def counter_masks(
     with ``block`` lanes per stream block.  It refuses the knobs that the
     tick of ``state``'s protocol does not model.  With ``p_flaky > 0`` the
     uniform drop and duplication masks are not drawn: the per-link raw bits
-    take their place.
+    take their place.  The client arrivals are drawn where the state
+    carries the workload plane.
     """
     check_supported(cfg, state.protocol)
     _, n_prop, n_acc, n_inst = state.requests.present.shape
@@ -153,6 +165,10 @@ def counter_masks(
             cp.counter_bits(tick_seed, S["LAT_BITS"], (2,) + slot, **kw)
             if cfg.p_delay > 0.0 else None
         ),
+        arrival_bits=(
+            cp.counter_bits(tick_seed, S["ARRIVAL"], (n_prop, n_inst), **kw)
+            if getattr(state, "wload", None) is not None else None
+        ),
     )
 
 
@@ -166,14 +182,19 @@ def send_stamps(delay_bits, lat_bits, plan: FaultPlan, cfg: FaultConfig, tick) -
     earliest delivery tick of a send on that edge, 0 where it is
     deliverable at once (int32, the draws' shape).
     """
+    ext = send_delays(delay_bits, lat_bits, plan, cfg)
+    return torch.where(ext > 0, tick + 1 + ext, 0).to(torch.int32)
+
+
+def send_delays(delay_bits, lat_bits, plan: FaultPlan, cfg: FaultConfig) -> torch.Tensor:
+    """The extra latency :func:`send_stamps` gives each send edge (0: none)."""
     if plan.link_delay is None:
         raise ValueError("p_delay > 0 needs a plan with link_delay (the per-link latency caps)")
     # The sign bit is masked before the modulo, so the latency is in [1, delay_max].
     lat = 1 + (lat_bits & 0x7FFFFFFF) % max(cfg.delay_max, 1)
-    ext = torch.where(
+    return torch.where(
         bits_below(delay_bits, rate_threshold(cfg.p_delay)), torch.minimum(lat, plan.link_delay), 0
     ).to(torch.int32)
-    return torch.where(ext > 0, tick + 1 + ext, 0).to(torch.int32)
 
 
 def delay_stamps(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, tick) -> tuple:
@@ -448,6 +469,13 @@ def apply_tick(
     timer = torch.where(prop.phase == DONE, prop.timer, prop.timer + 1)
     timeout, backoff = skewed_timers(masks, plan, cfg)
     expired = (prop.phase != DONE) & ~p1_done & ~p2_done & (timer > timeout)
+    # Exposure: a skewed timeout is effective where the expiry decision
+    # differs from the unskewed timer's (taken before the timer rebases).
+    exp_timeout_delta = None
+    if state.exposure is not None and cfg.timeout_skew > 0:
+        exp_timeout_delta = expired ^ (
+            (prop.phase != DONE) & ~p1_done & ~p2_done & (timer > cfg.timeout)
+        )
     pid = torch.arange(n_prop, dtype=torch.int32, device=state.device)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
 
@@ -489,11 +517,92 @@ def apply_tick(
         timer=timer,
         decided_val=decided_val,
     )
-    return PaxosState(
+    # ---- Observers: from signals the tick already produced. ----
+    tel, exp = state.telemetry, state.exposure
+    if tel is not None or exp is not None:
+        lc = tel_mod.lane_count
+        dropped = dups = None
+        if links.keep_prom is not None:
+            dropped = (
+                lc(sel[PREPARE] & ok_prep[None] & ~links.keep_prom)
+                + lc(sel[ACCEPT] & ok_acc[None] & ~links.keep_accd)
+                + lc(p1_done[:, None] & ~links.keep_p2)
+                + lc(expired[:, None] & ~links.keep_p1)
+            )
+        if links.dup_rep is not None:
+            dups = lc(delivered & links.dup_rep) + lc(sel & links.dup_req)
+    if tel is not None:
+        tel = tel_mod.record(
+            tel, state.tick,
+            promise=ok_prep, accept=ok_acc, decide=learner.chosen & ~state.learner.chosen,
+            conflict=learner.violations - state.learner.violations, leader=p1_done,
+            timeout=expired, drop=dropped, dup=dups,
+            corrupt=masks.corrupt & (is_prep | is_acc) if cfg.p_corrupt > 0.0 else None,
+            **tel_mod.fault_lane_events(plan, cfg, state.tick),
+        )
+    if exp is not None:
+        exp = exp_mod.record(exp, **_exposure_events(
+            state, masks, plan, cfg, links, is_prep, is_acc, dropped, dups, exp_timeout_delta,
+        ))
+    mar = state.margin
+    if mar is not None:
+        mar = margin_observe(mar, state.learner, learner, acc_new.promised, acc_new.acc_bal,
+                             ~equiv, q2)
+    wl = state.wload
+    if wl is not None:  # a proposer's commit edge serves one queued request
+        wl = wload_mod.observe(wl, state.tick, serve=p2_done, arrival_bits=masks.arrival_bits)
+    out = PaxosState(
         acceptor=acc_new,
         proposer=prop,
         learner=learner,
         requests=requests,
         replies=replies,
         tick=state.tick + 1,
+        telemetry=tel,
+        coverage=state.coverage,
+        exposure=exp,
+        margin=mar,
+        wload=wl,
     )
+    if out.coverage is not None:  # the post-tick state's digest
+        out.coverage = cov_mod.observe(out.coverage, out)
+    return out
+
+
+def _exposure_events(
+    state, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, links: Links, is_prep, is_acc,
+    dropped, dups, timeout_delta,
+) -> dict:
+    """The exposure classes' (injected, effective) pairs of a tick, each
+    class only where its knob is on: every fault sampled this tick against
+    those that changed something the protocol did or saw."""
+    lc = tel_mod.lane_count
+    events = {}
+    if links.keep_prom is not None:
+        events["drop"] = (
+            lc(~links.keep_prom) + lc(~links.keep_accd) + lc(~links.keep_p1) + lc(~links.keep_p2),
+            dropped,
+        )
+    if links.dup_rep is not None:
+        events["dup"] = (lc(links.dup_req) + lc(links.dup_rep), dups)
+    if cfg.p_corrupt > 0.0:
+        events["corrupt"] = (masks.corrupt, masks.corrupt & (is_prep | is_acc))
+    if links.link_req is not None:  # the cut stalled what was in flight
+        events["partition"] = (
+            lc(~links.link_req) + lc(~links.link_rep),
+            lc(state.requests.present & ~links.link_req[None])
+            + lc(state.replies.present & ~links.link_rep[None]),
+        )
+    if timeout_delta is not None:
+        events["timeout"] = (plan.ptimeout != 0, timeout_delta)
+    if cfg.stale_k > 0:  # every restore rewrites durable state
+        rec = plan.recovering(state.tick)
+        events["stale"] = (rec, rec)
+    if cfg.p_delay > 0.0:  # delays drawn; messages stalled behind their stamp
+        ext = send_delays(masks.delay_bits, masks.lat_bits, plan, cfg)
+        events["delay"] = (
+            lc(ext > 0),
+            lc(state.requests.present & ~net.ready(state.requests, state.tick))
+            + lc(state.replies.present & ~net.ready(state.replies, state.tick)),
+        )
+    return events

@@ -42,7 +42,12 @@ instantiation and p_delay on an unstamped one are refused by K1 to K5
 (2,5,8,4); K1 to K5 refuse a gray knob that reaches an instantiation
 without its arms, an arms instantiation without a knob, and stale_k on a
 state without snapshot shadows; K5 a gray config at a shape without its
-arms (config_gray_chaos's own 8-row learner table).
+arms (config_gray_chaos's own 8-row learner table).  K1's observed
+instantiations (every observer plane on) are held so, observer leaves
+included, on config2, config_gray_chaos, config_corrupt,
+config_delay_chaos and every gray knob with p_delay, and leave the
+protocol state as the planes-off kernel does; K1 refuses observer
+arguments that do not fit.
 """
 
 import dataclasses
@@ -71,10 +76,13 @@ from chip_smoke import (
     mp_knob_configs,
     near_limit_state,
     near_limit_state_mp,
+    path_state,
     plain_chunk,
     sp_checker_config,
     sp_delay_off_config,
     sp_knob_configs,
+    with_planes,
+    without_planes,
 )
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
@@ -533,19 +541,22 @@ def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
     assert n % tfused.FR_STAGING[protocol][shape].threads != 0
     n_prop, n_acc = shape[:2]
     cfg = dataclasses.replace(main_config(protocol, n, 9), n_prop=n_prop, n_acc=n_acc)
-    stamped = shape[3] == 1  # the key: (P, A, K, stamped, arms)
+    stamped = shape[3] == 1  # the key: (P, A, K, stamped, arms), K1's with observed last
+    arms = shape[4] == 1
     if stamped:  # the channel: config_delay_chaos, or every gray knob with p_delay
-        name = "every gray knob, p_delay 0.4" if shape[-1] else "config_delay_chaos"
+        name = "every gray knob, p_delay 0.4" if arms else "config_delay_chaos"
         cfg = dataclasses.replace(cfg, fault=delay_knob_configs(n, 9, protocol)[name].fault)
-    elif shape[-1] == 1:  # the arms: config_gray_chaos's knobs on this plan
+    elif arms:  # the arms: config_gray_chaos's knobs on this plan
         gray = gray_knob_configs(n, 9)["config_gray_chaos"].fault
         cfg = dataclasses.replace(cfg, fault=gray)
+    if len(shape) > 5 and shape[5]:  # K1's observed instantiations: every plane on
+        cfg = with_planes(cfg)
     block = tfused.fit_block(1024, n)
     plan = fault_plan(
         n, n_acc, n_prop, 0.2, 9, p_crash=0.2, p_delay=cfg.fault.p_delay,
         delay_max=cfg.fault.delay_max, gray=cfg.fault,
     )
-    plain = trun.init_state(cfg, "cuda")
+    plain = path_state(cfg, "cuda")
     assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == shape
     kern = plain.clone()
     for _ in range(3):
@@ -588,13 +599,15 @@ def test_fr_refused_launch_raises(protocol, monkeypatch):
 def test_fr_geometry_fits_the_card():
     """Every geometry of K1, K2 and K3 lets an SM hold the blocks its
     registers are capped for: 12 warps or more, 11 for K3's stamped
-    column (11 blocks of 32 lanes)."""
+    column (11 blocks of 32 lanes), 8 for K1's observed ones (2 blocks of
+    128 lanes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for protocol in FR:
         for shape, staging in tfused.FR_STAGING[protocol].items():
             blocks = tfused.blocks_per_sm(protocol, shape)
-            warps = 11 if protocol == "raftcore" and shape[3] else 12
+            observed = protocol == "paxos" and shape[5]
+            warps = 11 if protocol == "raftcore" and shape[3] else 8 if observed else 12
             assert blocks >= staging.min_blocks and blocks * staging.threads // 32 >= warps
 
 
@@ -615,7 +628,8 @@ def test_fr_phase_clocks_follow_the_kernel(protocol):
     assert wrapper.launches == before
     _assert_same(clocked, kern)
     assert tuple(cycles) == tfused.PHASES[protocol]
-    assert all(c > 0 for c in cycles.values())
+    # K1's observers phase runs in its observed instantiations only.
+    assert all((c == 0) if phase == "observers" else (c > 0) for phase, c in cycles.items())
 
 
 @pytest.mark.cuda
@@ -793,7 +807,7 @@ def test_fr_arms_refuse_mismatched_launches(protocol):
     with pytest.raises(ValueError, match="instantiated"):
         wrapper(trun.init_state(small, "cuda"), 1, config_plan(small, 1), small.fault, 8)
     assert wrapper.launches == launches
-    arms_shape = (2, 5, 8, 0, 1)
+    arms_shape = (2, 5, 8, 0, 1) + ((0,) if protocol == "paxos" else ())  # K1's: observed last
     staging = tfused.FR_STAGING[protocol][arms_shape]
     assert staging.min_blocks == 3
     assert tfused.blocks_per_sm(protocol, arms_shape) >= 3
@@ -979,7 +993,7 @@ def test_paxos_delay_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     shapes = _match_over_chunks("paxos", delay_knob_configs(4096, 14))
-    assert shapes == {(2, 5, 8, 1, 0), (2, 5, 8, 1, 1)}
+    assert shapes == {(2, 5, 8, 1, 0, 0), (2, 5, 8, 1, 1, 0)}
     cfg = main_config("delaychaos-paxos", 4096, 13)
     plan = main_plan(cfg)
     init = near_limit_state(cfg, 4094)
@@ -1049,3 +1063,108 @@ def test_mp_delay_matches_plain_on_cuda():
     assert _block0_digest("delaychaos-multipaxos", 256) == BLOCK0_DIGESTS["delaychaos-multipaxos"]
     for shape in ((2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1)):
         assert tfused.blocks_per_sm("multipaxos", shape) >= 2
+
+
+@pytest.mark.cuda
+def test_observed_paxos_matches_plain_on_cuda():
+    """K1's observed instantiations (every observer plane on) against the
+    plain tick, observer leaves included, over two chunks: config2
+    (2,5,8,0,0,1), config_gray_chaos and config_corrupt (2,5,8,0,1,1),
+    config_delay_chaos (2,5,8,1,0,1) and every gray knob with p_delay
+    (2,5,8,1,1,1); the planes-off kernel from the same state gives the same
+    protocol state; the observers phase of the phase-clock build runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n = 4096
+    cases = {
+        "config2": main_config("paxos", n, 21),
+        "config_gray_chaos": gray_knob_configs(n, 21)["config_gray_chaos"],
+        "config_corrupt": gray_knob_configs(n, 21)["config_corrupt"],
+        "config_delay_chaos": delay_knob_configs(n, 21)["config_delay_chaos"],
+        "every gray knob, p_delay 0.4": delay_knob_configs(n, 21)["every gray knob, p_delay 0.4"],
+    }
+    shapes = set()
+    for name, cfg in cases.items():
+        cfg = with_planes(cfg)
+        plan = config_plan(cfg, 21)
+        plain = path_state(cfg, "cuda")
+        shapes.add(tfused.BINDINGS["paxos"].kernel_shape(plain, cfg.fault))
+        kern, bare = plain.clone(), without_planes(plain.clone())
+        for _ in range(2):
+            plain = plain_chunk(cfg, plain, plan, 64, 1024)
+            kern = tfused.fused_paxos_chunk(kern, cfg.seed, plan, cfg.fault, 64)
+            bare = tfused.fused_paxos_chunk(bare, cfg.seed, plan, cfg.fault, 64)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+        _assert_same(without_planes(kern), bare)
+        assert int(kern.exposure.injected.sum()) > 0 and int(kern.coverage.new_bits.sum()) > 0, name
+    assert shapes == {(2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1), (2, 5, 8, 1, 1, 1)}
+    cfg = with_planes(main_config("paxos", 8192, 5))
+    plan = trun.init_plan(cfg, "cuda")
+    kern = tfused.fused_paxos_chunk(path_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 48)
+    clocked = path_state(cfg, "cuda")
+    cycles = tfused.phase_clocks("paxos", clocked, cfg.seed, plan, cfg.fault, 48)
+    _assert_same(clocked, kern)
+    assert all(c > 0 for c in cycles.values())
+
+
+@pytest.mark.cuda
+def test_observed_paxos_refuses_mismatched_observer_arguments(monkeypatch):
+    """K1's C entry refuses, with the state left as it was: an observer
+    argument count or size that does not fit (22 leaves, a ring depth
+    without the ring or the ring without a depth, coverage words not a
+    power of two, a plane passed in part, snapshot shadows the state does
+    not carry), observer arguments to an instantiation that is not
+    observed, and an observed instantiation without them; there is no
+    fallback to another instantiation.  A plane leaf of the wrong dtype
+    the wrapper refuses before the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    import ctypes
+
+    cfg = with_planes(main_config("paxos", 1024, 2))
+    plan = trun.init_plan(cfg, "cuda")
+    real = tfused._obs_args
+
+    def launch_with(obs_args, state=None):
+        state = path_state(cfg, "cuda") if state is None else state
+        before = state.clone()
+        monkeypatch.setattr(tfused, "_obs_args", lambda st, f: obs_args(st, f))
+        try:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tfused._launch("paxos", state, 1, plan, cfg.fault, 8, 1024, 0, False)
+        finally:
+            monkeypatch.setattr(tfused, "_obs_args", real)
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+
+    def edit(leaf_at=None, size_at=None, size=0, count=None):
+        def args(st, f):
+            ptrs, n, params, n_params = real(st, f)
+            leaves = list(ptrs)
+            if leaf_at is not None:
+                leaves[leaf_at] = None
+            sizes = list(params)
+            if size_at is not None:
+                sizes[size_at] = size
+            n = len(leaves) if count is None else count
+            return ((ctypes.c_void_p * len(leaves))(*leaves), n,
+                    (ctypes.c_longlong * len(sizes))(*sizes), len(sizes))
+        return args
+
+    launch_with(edit(count=22))  # a wrong count
+    launch_with(edit(leaf_at=1))  # a ring depth without the ring
+    launch_with(edit(size_at=0, size=0))  # the ring without its depth
+    launch_with(edit(size_at=2, size=48))  # coverage words not a power of two
+    launch_with(edit(leaf_at=2))  # the ring's cursor missing: a plane in part
+    launch_with(edit(leaf_at=14))  # the workload without its phase
+    launch_with(edit(size_at=12, size=1))  # snapshot shadows the state does not carry
+    launch_with(lambda st, f: (None, 0, None, 0))  # an observed launch without them
+    bare = trun.init_state(main_config("paxos", 1024, 2), "cuda")
+    launch_with(lambda st, f: real(path_state(cfg, "cuda"), f), state=bare)  # not observed
+    # A plane leaf whose dtype or shape is not its plane's: the wrapper
+    # refuses it before any launch (the C entry sees pointers, not shapes).
+    state = path_state(cfg, "cuda")
+    state.telemetry.cursor = state.telemetry.cursor.to(torch.int64)
+    with pytest.raises(ValueError, match="leaf"):
+        tfused.fused_paxos_chunk(state, 1, plan, cfg.fault, 8)

@@ -101,6 +101,8 @@ def test_main_config_protocol_replace_changes_no_earlier_path():
         cfg = cfg if mp.sweep_index is None else cfg[mp.sweep_index]
         if mp.fault is not None:
             cfg = dataclasses.replace(cfg, fault=getattr(C, mp.fault)(256, 3).fault)
+        if mp.planes:  # observed-paxos: every observer plane on the config's own
+            cfg = chip_smoke.with_planes(cfg)
         got = chip_smoke.main_config(path, 256, 3)
         if mp.config == "config_delay_chaos" and mp.protocol != "synchpaxos":  # delaychaos-*
             assert cfg.protocol == "synchpaxos" and got == dataclasses.replace(cfg, protocol=mp.protocol)

@@ -62,9 +62,15 @@ def _leaf(state, path):
 
 
 def _stamped(protocol, shape):
-    """Whether instantiation ``shape`` (P, A, K, stamped, arms) stages the
-    delay stamps."""
+    """Whether instantiation ``shape`` (P, A, K, stamped, arms; K1's with
+    ``observed`` last) stages the delay stamps."""
     return shape[3] == 1
+
+
+def _obs(protocol, shape):
+    """The words K1's observed instantiation ``shape`` adds to the column
+    for the observer planes' counters (0 for any other)."""
+    return tfused.obs_rows(shape[0]) if protocol == "paxos" and shape[5] else 0
 
 
 def _state(protocol, shape):
@@ -94,20 +100,24 @@ def test_staged_rows_match_the_state_leaves(protocol, shape, staging):
     state = _state(protocol, shape)
     staged = _staged(protocol, shape)
     rows = sum(_rows(state, path, kinds) for path, kinds in staged)
-    assert staging.rows == rows == tfused.fr_staged_rows(
+    assert staging.rows - _obs(protocol, shape) == rows == tfused.fr_staged_rows(
         protocol, *shape[:3], _stamped(protocol, shape)
     )
-    assert staging.smem_bytes == rows * 4 * staging.threads
+    assert staging.smem_bytes == staging.rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX == 232_448
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
     # The SM holds the blocks the registers are capped for: 12 warps or
     # more, but 11 for K3's stamped column, of which three blocks of 128
     # lanes overrun the SM's shared memory: 11 blocks of 32 lanes, the most
-    # that fit.
+    # that fit; and 8 for K1's observed columns, of which three blocks of
+    # 128 lanes overrun it too.
     assert staging.min_blocks * (staging.smem_bytes + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
     assert staging.min_blocks * staging.threads <= SM_THREADS_MAX
     stamped_k3 = protocol == "raftcore" and _stamped(protocol, shape)
-    assert staging.min_blocks * staging.threads // 32 >= (11 if stamped_k3 else 12)
+    observed = _obs(protocol, shape) > 0
+    assert staging.min_blocks * staging.threads // 32 >= (11 if stamped_k3 else 8 if observed else 12)
+    if observed:
+        assert (staging.min_blocks + 1) * (staging.smem_bytes + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
     if stamped_k3:
         assert 3 * (staging.rows * 4 * 128 + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
         assert (staging.min_blocks + 1) * (staging.smem_bytes + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
@@ -190,11 +200,18 @@ def test_source_instantiates_the_table(protocol):
     shapes = [inst[:n_key] for inst in got]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES[protocol])
     src = SOURCES[protocol]
-    assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in src
-    assert src.count("n_dims != 6") == 2 and src.count("const int smem = dims[5];") == 2
+    if protocol == "paxos":  # K1's keys end in the observed flag
+        assert "dims[3] == S_ && dims[4] == R_ && \\\n      dims[5] == O_)" in src
+        assert src.count("n_dims != 7") == 2 and src.count("const int smem = dims[6];") == 2
+    else:
+        assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in src
+        assert src.count("n_dims != 6") == 2 and src.count("const int smem = dims[5];") == 2
     rv_v1 = "true" if protocol == "raftcore" else "false"
     assert f"using G = SdStaged<P, A, K, {rv_v1}, STAMPED>;" in src
-    assert f"SdStaged<P, A, K, {rv_v1}, STAMPED>::kRows * B * 4" in src
+    if protocol == "paxos":  # the observed columns add the planes' counters
+        assert "(SdStaged<P, A, K, false, STAMPED>::kRows +\n     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4" in src
+    else:
+        assert f"SdStaged<P, A, K, {rv_v1}, STAMPED>::kRows * B * 4" in src
     assert "sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;" in src
 
 
@@ -234,7 +251,7 @@ def test_source_column_order_matches_the_leaves(protocol):
             start = 0 if kinds[path] is None else kinds[path][0] * e
             assert env[first] == start
             offset += env[rows]
-        assert offset == tfused.FR_STAGING[protocol][shape].rows
+        assert offset + _obs(protocol, shape) == tfused.FR_STAGING[protocol][shape].rows
 
 
 @pytest.mark.parametrize("protocol", FR)
@@ -335,27 +352,28 @@ def test_k1_arms_geometry_is_pinned():
     channel) stage the stamps too: 144 words, 72 KiB a block, 3 blocks, with
     and without the arms."""
     table = tfused.FR_STAGING["paxos"]
-    assert tuple(table) == (
-        (2, 5, 8, 0, 0), (1, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1)
+    assert tuple(table)[:5] == (
+        (2, 5, 8, 0, 0, 0), (1, 3, 8, 0, 0, 0), (2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 0, 0),
+        (2, 5, 8, 1, 1, 0),
     )
-    arms, default = table[(2, 5, 8, 0, 1)], table[(2, 5, 8, 0, 0)]
+    arms, default = table[(2, 5, 8, 0, 1, 0)], table[(2, 5, 8, 0, 0, 0)]
     assert (arms.threads, arms.rows, arms.smem_bytes, arms.min_blocks) == (128, 104, 53248, 3)
-    assert (default.rows, default.min_blocks, table[(1, 3, 8, 0, 0)].min_blocks) == (104, 4, 4)
-    for key in ((2, 5, 8, 1, 0), (2, 5, 8, 1, 1)):
+    assert (default.rows, default.min_blocks, table[(1, 3, 8, 0, 0, 0)].min_blocks) == (104, 4, 4)
+    for key in ((2, 5, 8, 1, 0, 0), (2, 5, 8, 1, 1, 0)):
         st = table[key]
         assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (128, 144, 73728, 3)
     binding = tfused.BINDINGS["paxos"]
     state = PaxosState.init(4, 2, 5, 8)
-    assert binding.kernel_shape(state) == (2, 5, 8, 0, 0)
+    assert binding.kernel_shape(state) == (2, 5, 8, 0, 0, 0)
     for name, cfg in chip_smoke.gray_knob_configs(64, 1).items():
         arms_on = int(name != "config_flex(4, 2)")
-        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, 0, arms_on), name
+        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, 0, arms_on, 0), name
     stamped = PaxosState.init(4, 2, 5, 8, delay=True)
     for name, cfg in chip_smoke.delay_knob_configs(64, 1).items():
         arms_on = int(name in ("delay across a cut", "every gray knob, p_delay 0.4"))
-        assert binding.kernel_shape(stamped, cfg.fault) == (2, 5, 8, 1, arms_on), name
-    assert tfused._launch_dims(binding, (2, 5, 8, 0, 1)) == (2, 5, 8, 0, 1, 53248)
-    assert tfused._launch_dims(binding, (2, 5, 8, 1, 0)) == (2, 5, 8, 1, 0, 73728)
+        assert binding.kernel_shape(stamped, cfg.fault) == (2, 5, 8, 1, arms_on, 0), name
+    assert tfused._launch_dims(binding, (2, 5, 8, 0, 1, 0)) == (2, 5, 8, 0, 1, 0, 53248)
+    assert tfused._launch_dims(binding, (2, 5, 8, 1, 0, 0)) == (2, 5, 8, 1, 0, 0, 73728)
 
 
 @pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])

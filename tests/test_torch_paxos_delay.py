@@ -98,7 +98,7 @@ def test_init_state_stamps_paxos_with_delay():
     state = trun.init_state(cfg, "cpu")
     assert PaxosState.takes_stamps and state.stamped == 1 and len(state.leaves()) == 31
     assert state.requests.present[0].all() and not state.requests.until.any()
-    assert tfused.BINDINGS["paxos"].kernel_shape(state, cfg.fault) == (2, 5, 8, 1, 0)
+    assert tfused.BINDINGS["paxos"].kernel_shape(state, cfg.fault) == (2, 5, 8, 1, 0, 0)
     nodelay = trun.init_state(chip_smoke.main_config("paxos", 16), "cpu")
     assert nodelay.stamped == 0 and len(nodelay.leaves()) == 29
 
