@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
     python3 chip_ab.py parent=DIR new=paxos_tpu_torch/kernels/csrc \\
-        [--paths fastpaxos raftcore] [--rounds 1]
+        [--paths fastpaxos raftcore] [--rounds 1] [--planes]
 
 Each ``NAME=DIR`` names a directory laid out as
 ``paxos_tpu_torch/kernels/csrc``: another commit's (``git archive``) or a
@@ -23,14 +23,19 @@ config (``chip_smoke.MAIN_PATHS``) through ``chip_smoke``'s own functions:
   (``phase_main_path``);
 - each variant's ``ptxas -v`` lines.
 
-The path ``ceiling`` times K6 (``phase_ceiling``) instead.  A source whose
+The path ``ceiling`` times K6 (``phase_ceiling``) instead.  With
+``--planes`` each path runs with every observer plane on
+(``chip_smoke.obs_planes``), as a path ``observed-<path>`` (its kernel's
+observed instantiation; the planes move no schedule, so its eviction pins
+are the path's own).  A source whose
 C entry takes no shared bytes (a kernel before its column redesign) is
 launched without them; sources from before the gray-failure and partition
 arms get the parameters and plan leaves their ``fused_common.cuh`` reads
 (``kParams``, ``kPlanLeaves``), a kernel without its arms its default
 instantiations only, and a kernel without its bounded-delay channel its
-unstamped ones only, and a K1 without its observed instantiations its
-other ones, keyed without the flag.  A source whose instantiation table
+unstamped ones only, and a K1, K2 or K3 without its observed
+instantiations its other ones, keyed without the flag (and its phase list
+without the observers phase).  A source whose instantiation table
 (``K1_INSTANCES`` to ``K3_INSTANCES``, ``K5_INSTANCES``) lists another
 geometry than the wrapper's (lanes a block, blocks an SM, PROMISE payloads
 staged or not) is launched at its own (:func:`table_staging`), so that two
@@ -63,8 +68,8 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
     each instantiation at the lanes a block, blocks an SM (K1 to K3) or
     PROMISE staging (K5) that the source's table lists, where the table has
     this commit's fields: ``X(P, A, K, STAMPED, ARMS, B, MIN_BLOCKS)``
-    (K1's with OBSERVED after ARMS), K5's ``X(P, A, L, K, STAMPED, ARMS, B,
-    PROM)``."""
+    (with OBSERVED after ARMS where the source has observed
+    instantiations), K5's ``X(P, A, L, K, STAMPED, ARMS, B, PROM)``."""
     from paxos_tpu_torch.kernels import fused_tick as tf
 
     found = re.search(rf"#define {_TABLES[protocol]}_INSTANCES\(X\)(.*?)\n\n", src, re.S)
@@ -78,7 +83,7 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
             key, threads, prom = tuple(map(int, fields[:6])), int(fields[6]), fields[7] == "true"
             if key in out:
                 out[key] = tf._mp_staging(key[:5], threads, prom)
-        elif protocol != "multipaxos" and len(fields) in (7, 8):  # K1's keys end in `observed`
+        elif protocol != "multipaxos" and len(fields) in (7, 8):  # keys may end in `observed`
             n_key = len(fields) - 2
             key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])
             if key in out:
@@ -115,9 +120,9 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
         staged = "const int smem = dims[" in src
         staging = binding.staging if staged else None
         if binding.observed and not re.search(r"dims\[\d\] == O_", src):
-            # A kernel without its observed instantiations (K1 before the
-            # observer planes): keyed without the flag, its C entry without
-            # the observer arguments.
+            # A kernel without its observed instantiations (an older K1, K2
+            # or K3): keyed without the flag, its C entry without the
+            # observer arguments.
             staging = staging and {k[:-1]: v for k, v in staging.items() if k[-1] == 0}
             tf.KERNEL_SHAPES[protocol] = tuple(
                 k[:-1] for k in tf.KERNEL_SHAPES[protocol] if k[-1] == 0
@@ -148,9 +153,24 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
             staging = table_staging(protocol, src, staging)
         tf.BINDINGS[protocol] = dataclasses.replace(binding, staging=staging)
         if protocol in phases and "clk.mark(" in src:
-            tf.PHASES[protocol] = phases[protocol]
+            tf.PHASES[protocol] = tuple(
+                ph for ph in phases[protocol] if ph != "observers" or "kPhObs" in src
+            )
         else:
             tf.PHASES.pop(protocol, None)
+
+
+def observed_path(path: str) -> str:
+    """Main path ``path`` with every observer plane on, registered in
+    ``chip_smoke.MAIN_PATHS`` as ``observed-<path>`` (where it is not one
+    already) with the path's own eviction pins."""
+    name = path if path.startswith("observed-") else f"observed-{path}"
+    if name not in cs.MAIN_PATHS:
+        cs.MAIN_PATHS[name] = dataclasses.replace(cs.MAIN_PATHS[path], planes=True)
+        cs.EVICTION_PINS[name] = cs.EVICTION_PINS[path]
+        if path in cs.BLOCK0_DIGESTS:
+            cs.BLOCK0_DIGESTS[name] = cs.BLOCK0_DIGESTS[path]
+    return name
 
 
 def prebuild(paths: list) -> None:
@@ -216,7 +236,11 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", nargs="+", default=["fastpaxos", "raftcore"],
                     help=f"main paths ({', '.join(cs.MAIN_PATHS)}) or 'ceiling'")
     ap.add_argument("--rounds", type=int, default=1, help="A B B A rounds")
+    ap.add_argument("--planes", action="store_true",
+                    help="every observer plane on, each path run as observed-<path>")
     args = ap.parse_args(argv)
+    if args.planes:
+        args.paths = [observed_path(p) if p != "ceiling" else p for p in args.paths]
     if not torch.cuda.is_available():
         cs.log("no CUDA device: torch.cuda.is_available() is False")
         return 1

@@ -21,8 +21,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    7, 32 ticks through their kernels must give the recorded state digests,
    and config3 (Multi-Paxos) and config_delay_chaos (SynchPaxos) the
    digests the JAX package gives on this script's numpy plans
-   (``MP_GOLDEN``, ``SP_GOLDEN``); config2 with every observer plane on,
-   through K1's observed instantiation, the golden in all but the planes;
+   (``MP_GOLDEN``, ``SP_GOLDEN``); config2 and config5's Fast Paxos and
+   Raft-core cells with every observer plane on, through K1's, K2's and
+   K3's observed instantiations, the goldens in all but the planes;
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
    with a block offset, config4's equivocators with and without crash
@@ -39,10 +40,11 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    bounded-delay channel of K1, K2, K3 and K5 on config_delay_chaos (K5:
    its fault config on config3's cell) in both regimes, with drops and
    duplicates, across a cut, and with every gray knob
-   (:func:`delay_knob_configs`), K1's observed instantiations (every
-   observer plane on) on config_gray_chaos, config_corrupt, config_stale
-   and config_delay_chaos at 1<<16 lanes and under the per-tick clamp,
-   each also against the planes-off kernel (the planes move no schedule),
+   (:func:`delay_knob_configs`), K1's, K2's and K3's observed
+   instantiations (every observer plane on) on config_gray_chaos,
+   config_corrupt, config_stale and config_delay_chaos (K2 and K3 also on
+   config5's cell) at 1<<16 lanes and under the per-tick clamp, each also
+   against the planes-off kernel (the planes move no schedule),
    and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
@@ -66,10 +68,12 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    blocks printed), and config_delay_chaos on Paxos, Fast Paxos and
    Raft-core and its fault config on config3's Multi-Paxos cell (the
    stamped instantiations of K1, K2, K3 and K5; the last through
-   ``run(..., liveness=True)``), and config2 with every observer plane on
-   (``observed-paxos``: K1's observed instantiation; its telemetry,
-   coverage, exposure, margin and slo blocks printed and checked against
-   each other, its protocol state pinned as config2's), at
+   ``run(..., liveness=True)``), and config2 and config5's Fast Paxos and
+   Raft-core cells with every observer plane on (``observed-paxos``,
+   ``observed-fastpaxos``, ``observed-raftcore``: K1's, K2's and K3's
+   observed instantiations; their telemetry, coverage, exposure, margin
+   and slo blocks printed and checked against each other, their protocol
+   state pinned as their planes-off path's), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -165,12 +169,12 @@ class MainPath:
     compare_chunks: int = 1
     fault: "str | None" = None
     liveness: bool = False
-    # The observer planes on (OBS_PLANES): the path runs K1's observed
-    # instantiation and prints the report's plane blocks.
+    # The observer planes on (obs_planes): the path runs its kernel's
+    # observed instantiation and prints the report's plane blocks.
     planes: bool = False
 
 
-# The observer planes of the observed-paxos path, at the settings the JAX
+# The observer planes of the observed paths, at the settings the JAX
 # package's users take: the flight recorder with counters, a 16-word ring
 # and 8 histogram bins (its tests/test_telemetry.py), 64 coverage words
 # (its CLI's and fleet worker's default), the exposure and margin counters
@@ -240,6 +244,14 @@ MAIN_PATHS = {
         "paxos", MAIN_TICKS, "config2_dueling_drop", "config2-paxos", compare_chunks=2,
         planes=True,
     ),
+    "observed-fastpaxos": MainPath(
+        "fastpaxos", MAIN_TICKS, "config5_sweep", "config5-fastpaxos", 1, compare_chunks=2,
+        planes=True,
+    ),
+    "observed-raftcore": MainPath(
+        "raftcore", MAIN_TICKS, "config5_sweep", "config5-raftcore", 2, compare_chunks=2,
+        planes=True,
+    ),
 }
 # The report keys of the liveness block (harness.run.summarize(liveness=)).
 LIVENESS_KEYS = ("decided_by_curve", "chosen_tick_hist", "hist_bin_width", "stuck_lanes")
@@ -273,9 +285,12 @@ EVICTION_PINS = {
     ),
     "delaychaos-raftcore": (0, {}),
     "delaychaos-multipaxos": (0, {}),
-    # The flagship with every observer plane on: its schedule is config2's,
-    # so its protocol state (the digest leaves out the planes) is too.
+    # The observed paths: the planes move no schedule, so each path's
+    # protocol state (the digest leaves out the planes) is its planes-off
+    # path's.
     "observed-paxos": (1, {963: ([838], "8c8a818261f3d84c")}),
+    "observed-fastpaxos": (138, {5: ([862], "659e8267fff0c143"), 17: ([213], "0727753391be6bf5")}),
+    "observed-raftcore": (0, {}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
 # SynchPaxos ones, the gray-chaos ones and the delay-chaos ones, as the JAX
@@ -494,8 +509,12 @@ REPLACES = {
 }
 
 
-# The observer arms of the tick that the observed instantiations compute.
-OBSERVER_ARMS = "; its observer arms, paxos_tpu/protocols/paxos.py:592-600, :652-771"
+# The observer arms of each tick that the observed instantiations compute.
+OBSERVER_ARMS = {
+    "paxos": "; its observer arms, paxos_tpu/protocols/paxos.py:592-600, :652-771",
+    "fastpaxos": "; its observer arms, paxos_tpu/protocols/fastpaxos.py:332-341, :393-505",
+    "raftcore": "; its observer arms, paxos_tpu/protocols/raftcore.py:283-290, :346-460",
+}
 
 
 def log(msg: str) -> None:
@@ -755,17 +774,18 @@ def phase_golden() -> None:
         if got != want:
             raise AssertionError(f"{protocol} golden digest {got} != {want}")
     # The observer planes draw nothing but the client arrivals: with every
-    # plane on, K1's observed instantiation leaves the protocol state as
-    # the golden has it.
-    cfg = with_planes(main_config("paxos", 256, 7))
-    state = FUSED_WRAPPERS["paxos"](
-        path_state(cfg), cfg.seed, init_plan(cfg, "cuda"), cfg.fault, 32, block=256
-    )
-    got = digest(without_planes(state).leaves())
-    log(f"golden: paxos with every observer plane on, the state but the planes: digest {got} "
-        f"(want {GOLDENS['paxos']})")
-    if got != GOLDENS["paxos"]:
-        raise AssertionError(f"observed paxos golden digest {got} != {GOLDENS['paxos']}")
+    # plane on, K1's, K2's and K3's observed instantiations leave the
+    # protocol state as the golden has it.
+    for protocol, want in GOLDENS.items():
+        cfg = with_planes(main_config(protocol, 256, 7))
+        state = FUSED_WRAPPERS[protocol](
+            path_state(cfg), cfg.seed, init_plan(cfg, "cuda"), cfg.fault, 32, block=256
+        )
+        got = digest(without_planes(state).leaves())
+        log(f"golden: {protocol} with every observer plane on, the state but the planes: "
+            f"digest {got} (want {want})")
+        if got != want:
+            raise AssertionError(f"observed {protocol} golden digest {got} != {want}")
     cfg = main_config("config3", 256, 7)
     state = FUSED_WRAPPERS["multipaxos"](
         init_state(cfg, "cuda"), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
@@ -1243,19 +1263,25 @@ def phase_compare(ceiling: float) -> dict:
         zero.fault, p_drop=0.0, p_dup=0.0, p_flaky=0.5, flaky_drop=0.0, flaky_dup=0.0))
     compare("multipaxos (2,5,8,4,1) test_gray zero-rate flaky links", zero, config_plan(zero, 9),
             64, block=128)
-    # K1's observed instantiations (every observer plane on) on the configs
-    # that light every exposure class between them (drop, dup, corrupt,
-    # partition, timeout, stale, delay) at 1<<16 lanes over two chunks; and
-    # from near-limit ballots under the per-tick clamp with a block offset.
-    for name in ("config_gray_chaos", "config_corrupt", "config_stale", "config_delay_chaos"):
-        cfgo = with_planes(dataclasses.replace(getattr(C, name)(1 << 16, 16), protocol="paxos"))
-        shape = ",".join(map(str, BINDINGS["paxos"].kernel_shape(path_state(cfgo, "cpu"), cfgo.fault)))
-        compare(f"paxos ({shape}) observed, {name}", cfgo, config_plan(cfgo, 16), 64, chunks=2)
-    cfgo = with_planes(main_config("paxos", 4096, 13))
-    compare(
-        "paxos observed per-tick clamp, blk0=5", cfgo, init_plan(cfgo, "cuda"), 96,
-        init=near_limit_state(cfgo, 4094), blk0=5, clamp_per_tick=True,
-    )
+    # K1's, K2's and K3's observed instantiations (every observer plane on)
+    # on the configs that light every exposure class between them (drop,
+    # dup, corrupt, partition, timeout, stale, delay), K2's and K3's also on
+    # their config5 cell, at 1<<16 lanes over two chunks; and from
+    # near-limit ballots under the per-tick clamp with a block offset.
+    for protocol in OBSERVER_ARMS:
+        names = ("config_gray_chaos", "config_corrupt", "config_stale", "config_delay_chaos")
+        for name in names if protocol == "paxos" else ("config5",) + names:
+            if name == "config5":
+                cfgo = with_planes(main_config(protocol, 1 << 16, 16))
+            else:
+                cfgo = with_planes(dataclasses.replace(getattr(C, name)(1 << 16, 16), protocol=protocol))
+            shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(path_state(cfgo, "cpu"), cfgo.fault)))
+            compare(f"{protocol} ({shape}) observed, {name}", cfgo, config_plan(cfgo, 16), 64, chunks=2)
+        cfgo = with_planes(main_config(protocol, 4096, 13))
+        compare(
+            f"{protocol} observed per-tick clamp, blk0=5", cfgo, init_plan(cfgo, "cuda"), 96,
+            init=near_limit_state(cfgo, 4094), blk0=5, clamp_per_tick=True,
+        )
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
@@ -1855,7 +1881,8 @@ def mp_knob_configs(n_inst: int, seed: int) -> dict:
 def instantiation_ptxas(lines: list, protocol: str, shape: tuple) -> list:
     """The ``ptxas`` lines of the instantiation ``shape`` of K1 to K5
     (``(n_prop, n_acc, k_slots, stamped, arms)``, K5's with the log length
-    before k_slots, K1's with ``observed`` last): the entry function whose
+    before k_slots, K1's, K2's and K3's with ``observed`` last): the entry
+    function whose
     mangled template arguments start with the shape and the stamps flag,
     with a ``Gray`` exactly where ``arms`` and an ``obs::Obs`` exactly
     where ``observed``."""
@@ -1915,7 +1942,7 @@ def main() -> int:
             "name": binding.kernel if first else f"{binding.kernel}[{path}]",
             "route": "cuda",
             "source": KERNEL_SOURCE.format(binding.kernel),
-            "replaces": REPLACES[mp.protocol] + (OBSERVER_ARMS if mp.planes else ""),
+            "replaces": REPLACES[mp.protocol] + (OBSERVER_ARMS[mp.protocol] if mp.planes else ""),
             "launches": main_paths[path]["launches"],
             "max_abs_err": measured["max_abs_err"],
             "tolerance": 0,  # int32/bool state: byte-identical to the plain version

@@ -8,7 +8,8 @@ highest accepted ballot seen in recovery, in place of Paxos' single
 ``make_ballot(0, 0)`` and its ``Accept(fast_bal, own_val)`` broadcast is in
 flight at tick 0.  A state run with ``stale_k > 0`` carries the acceptors'
 snapshot shadows, and one run with ``p_delay > 0`` its buffers' delay
-stamps, as the reference's does.
+stamps, as the reference's does; the observer planes a run turns on follow
+the tick, as a Paxos state's (``core.state.OBSERVERS``).
 """
 
 from __future__ import annotations
@@ -84,6 +85,7 @@ class FastPaxosState(LaneState):
     protocol = "fastpaxos"
     takes_stamps = True
     takes_snapshots = True
+    takes_planes = True
 
     acceptor: AcceptorState
     proposer: FastProposerState
@@ -91,6 +93,12 @@ class FastPaxosState(LaneState):
     requests: MsgBuf  # proposer -> acceptor (PREPARE / ACCEPT)
     replies: MsgBuf  # acceptor -> proposer (PROMISE / ACCEPTED)
     tick: torch.Tensor  # () int32
+    # The observer planes (core.state.OBSERVERS), None when off.
+    telemetry: "TelemetryState | None" = None
+    coverage: "CoverageState | None" = None
+    exposure: "FaultExposure | None" = None
+    margin: "MarginState | None" = None
+    wload: "WloadState | None" = None
 
     @classmethod
     def init(

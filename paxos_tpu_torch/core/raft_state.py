@@ -7,7 +7,8 @@ replicated entry.  Terms are packed ballots, so "one vote per term" is
 "grant only terms strictly above the last granted one", and the election
 restriction is an integer compare.  A state run with ``stale_k > 0``
 carries the voters' snapshot shadows, and one run with ``p_delay > 0`` its
-buffers' delay stamps, as the reference's does.
+buffers' delay stamps, as the reference's does; the observer planes a run
+turns on follow the tick, as a Paxos state's (``core.state.OBSERVERS``).
 """
 
 from __future__ import annotations
@@ -111,6 +112,7 @@ class RaftState(LaneState):
     protocol = "raftcore"
     takes_stamps = True
     takes_snapshots = True
+    takes_planes = True
 
     acceptor: VoterState  # named `acceptor` so summaries are uniform
     proposer: CandidateState  # likewise
@@ -118,6 +120,12 @@ class RaftState(LaneState):
     requests: MsgBuf  # candidate -> voter (REQVOTE / APPEND)
     replies: MsgBuf  # voter -> candidate (VOTE / ACK)
     tick: torch.Tensor  # () int32
+    # The observer planes (core.state.OBSERVERS), None when off.
+    telemetry: "TelemetryState | None" = None
+    coverage: "CoverageState | None" = None
+    exposure: "FaultExposure | None" = None
+    margin: "MarginState | None" = None
+    wload: "WloadState | None" = None
 
     @classmethod
     def init(

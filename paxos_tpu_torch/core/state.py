@@ -9,9 +9,10 @@ field order, absent optional fields dropped), so a sha256 over the leaf
 bytes equals the reference's state digest.  A Paxos, Fast Paxos,
 Raft-core or SynchPaxos state run with ``stale_k > 0`` carries the
 acceptors' snapshot shadows, and one run with ``p_delay > 0`` its buffers'
-delay stamps, as the reference's does.  A Paxos state carries the observer
-planes a run turns on (``OBSERVERS``: telemetry, coverage, exposure, margin,
-the client workload), each None when off, after the tick in flatten order.
+delay stamps, as the reference's does.  A Paxos, Fast Paxos or Raft-core
+state carries the observer planes a run turns on (``OBSERVERS``: telemetry,
+coverage, exposure, margin, the client workload), each None when off, after
+the tick in flatten order.
 """
 
 from __future__ import annotations
@@ -179,7 +180,7 @@ class LaneState:
     """What every protocol's full state shares: the five sub-states
     ``acceptor``, ``proposer``, ``learner``, ``requests``, ``replies`` and
     the ``tick`` scalar, flattened in that order, then the observer planes
-    that are on (a Paxos state's).  ``protocol`` names the
+    that are on (where ``takes_planes``).  ``protocol`` names the
     tick that advances it; ``takes_stamps`` says whether its ``init``
     allocates delay stamps (``delay=True``), ``takes_snapshots`` whether
     it allocates the acceptors' snapshot shadows (``stale=True``)."""

@@ -71,8 +71,9 @@ def sampled_plan_knobs(fault) -> list:
 
 
 # The protocols whose ticks do not compute the observer planes yet, and the
-# ROADMAP item that ports them (Paxos has them: item 13a).
-_PLANE_ITEMS = {"fastpaxos": "13b", "raftcore": "13b", "multipaxos": "13c", "synchpaxos": "13d"}
+# ROADMAP item that ports them (Paxos has them: item 13a; Fast Paxos and
+# Raft-core: item 13b).
+_PLANE_ITEMS = {"multipaxos": "13c", "synchpaxos": "13d"}
 
 
 class MeasurementCorrupted(RuntimeError):
@@ -90,7 +91,7 @@ def _check_ported(cfg: SimConfig) -> None:
         if cfg.protocol in _PLANE_ITEMS:
             raise NotImplementedError(
                 f"the {plane} plane is not ported to {cfg.protocol} yet (ROADMAP queue A "
-                f"item {_PLANE_ITEMS[cfg.protocol]}); it runs on paxos"
+                f"item {_PLANE_ITEMS[cfg.protocol]}); it runs on paxos, fastpaxos and raftcore"
             )
     check_supported(cfg.fault, cfg.protocol)
 
@@ -169,8 +170,9 @@ def init_state(cfg: SimConfig, device=None, wload_plan=None) -> LaneState:
     return _init_protocol_state(cfg, device)
 
 
-def _with_planes(state: PaxosState, cfg: SimConfig, device, wload_plan) -> PaxosState:
-    """``state`` with the observer planes of ``cfg``, as the reference's
+def _with_planes(state: LaneState, cfg: SimConfig, device, wload_plan) -> LaneState:
+    """``state`` (a type that ``takes_planes``: Paxos, Fast Paxos,
+    Raft-core) with the observer planes of ``cfg``, as the reference's
     ``init_state`` adds them."""
     n = cfg.n_inst
     kw = {}
@@ -514,7 +516,8 @@ def run(
     long-log Multi-Paxos config compacts after every ``chunk`` ticks, and
     ``until_all_chosen`` then waits for the whole log to replicate.
     ``liveness`` adds the liveness block to the report (:func:`summarize`).
-    The observer planes the config turns on (Paxos) add their blocks
+    The observer planes the config turns on (Paxos, Fast Paxos, Raft-core)
+    add their blocks
     (``telemetry``, ``coverage``, ``exposure``, ``margin``, ``slo``); the
     workload plane needs ``wload_plan`` (:func:`init_state`).
     """

@@ -46,7 +46,8 @@ from paxos_tpu_torch.workload.generator import WloadState
 # ACCEPTEDs) carries one more leaf, its delay stamps, when the config
 # delays sends; the acceptors of every protocol carry their snapshot
 # shadows (one more leaf per durable field, ``SNAPSHOT``) when its config
-# has stale_k > 0.
+# has stale_k > 0.  The observer planes a config turns on follow the tail
+# (``_plane_groups``) on the state types that take them.
 _BUFFERS = (MsgBuf, PromiseBuf, AcceptedBuf)
 _SHARED = ((LearnerState, 8), (MsgBuf, 4), (MsgBuf, 4))
 _GROUPS = {
@@ -81,9 +82,9 @@ def state_from_numpy(leaves, device="cpu", protocol: str = "paxos", cfg=None) ->
     without delay stamps and snapshot shadows: a single-decree state (Paxos,
     Fast Paxos, Raft-core, SynchPaxos) of 29 leaves, 31 with stamps, 32 with
     shadows, 34 with both; a Multi-Paxos state of 30, 33 with stamps, 32
-    with shadows, 35 with both.  A Paxos state's observer planes follow:
-    those the SimConfig ``cfg`` turns on (their leaf counts and sizes
-    come from it)."""
+    with shadows, 35 with both.  A Paxos, Fast Paxos or Raft-core state's
+    observer planes follow: those the SimConfig ``cfg`` turns on (their
+    leaf counts and sizes come from it)."""
     leaves = list(leaves)
     planes = {}
     if cfg is not None and cfg.planes_on():

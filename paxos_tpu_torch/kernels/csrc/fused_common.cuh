@@ -1072,7 +1072,7 @@ __device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32
 
 // ---- The observer planes (core/telemetry.py, obs/coverage.py,
 // obs/exposure.py, obs/margin.py, workload/generator.py): what an observed
-// instantiation (K1's) computes beside the tick.  Every plane is switched
+// instantiation (K1's, K2's, K3's) computes beside the tick.  Every plane is switched
 // by whether its leaves were passed (Obs), a branch the whole warp takes
 // alike.  A lane's counters sit in its column from row R0 on (Rows), the
 // rest of a plane (the event ring and histogram, the coverage bitmap, the
@@ -1262,12 +1262,14 @@ __device__ __forceinline__ void exposure(const Column<B>& col, const int (&inj)[
 }
 
 // check.safety.margin_observe over a single-decree learner table of K
-// rows in the column from row LT (ballots, values, voter masks), a decide
-// edge `decided_now`, the chosen value, and the acceptors' post-tick fence
-// (honest acceptors: bit a of `honest`).  Returns `near`, whether this
-// tick is a near split (what a tick that changes none of it adds again).
-template <int P, int R0, int K, int A, int LT, int B>
-__device__ __forceinline__ bool margin(const Column<B>& col, int32_t quorum, bool chosen,
+// rows in the column from row LT (ballots, values, voter masks), each row
+// at the quorum quorum_of(its ballot) (the learner's: Fast Paxos' fast
+// quorum on a round-0 ballot), a decide edge `decided_now`, the chosen
+// value, and the acceptors' (voters') post-tick fence (honest acceptors:
+// bit a of `honest`).  Returns `near`, whether this tick is a near split
+// (what a tick that changes none of it adds again).
+template <int P, int R0, int K, int A, int LT, int B, typename QuorumOf>
+__device__ __forceinline__ bool margin(const Column<B>& col, QuorumOf quorum_of, bool chosen,
                                        int32_t chosen_val, bool decided_now,
                                        const int32_t (&promised)[A], const int32_t (&acc_bal)[A],
                                        uint32_t honest) {
@@ -1278,6 +1280,7 @@ __device__ __forceinline__ bool margin(const Column<B>& col, int32_t quorum, boo
   for (int k = 0; k < K; ++k) {
     const int32_t bal = col[LT + k], val = col[LT + K + k];
     const int votes = __popc(static_cast<uint32_t>(col[LT + 2 * K + k]));
+    const int32_t quorum = quorum_of(bal);
     const bool live = bal > 0;
     if (live && chosen && val != chosen_val) tick_slack = min(tick_slack, max(quorum - votes, 0));
     if (live && votes >= quorum - 1) {
@@ -1403,6 +1406,247 @@ __device__ __forceinline__ void coverage(const Column<B>& col, const Obs& o, uin
     }
   }
   if (newly != 0) col[R0 + Rw::kNewBits] = wrap_add(col[R0 + Rw::kNewBits], newly);
+}
+
+
+// The exposure plane's draws of a tick, made at its start where `on` (an
+// observed instantiation with exposure on): the drop decisions of the four
+// send kinds (bit kind * E + e, LINK_BITS' kind order), the duplications of
+// both buffers (bit buf * S + j), the corruptions (bit a) and the delay
+// draws (bit axis * E + e of delay_stamps' kind axis, slow links only).
+// The tick's own sites read these bits where they would draw (keep_at,
+// dup_at, stamp_sends, corrupt_fires), which take it by value: a kernel
+// that is not observed passes its empty one, which adds nothing to its
+// code.
+struct PreDraw {
+  bool on = false;
+  uint64_t drop = 0, dup = 0, fire = 0;
+  uint32_t corrupt = 0;
+};
+
+// The stream ids a kernel's exposure draws come from (core/streams.py):
+// the single-decree ones.
+struct SdStreams {
+  // The uniform drop mask of send kind `kind` (LINK_BITS' kind order).
+  __host__ __device__ static constexpr uint32_t keep(int kind) {
+    return kind == 0 ? kKeepProm : kind == 1 ? kKeepAccd : kind == 2 ? kKeepP1 : kKeepP2;
+  }
+  static constexpr uint32_t link = kLinkBits, dup_req = kDupReq, dup_rep = kDupRep,
+                            dup = kDupBits, corrupt = kCorrupt, delay = kDelayBits;
+};
+
+// sd::kept, read from exposure's draws of the tick where it made them.
+template <bool OBS, bool ARMS, int E, typename ST = SdStreams>
+__device__ __forceinline__ bool keep_at(PreDraw pd, const TickStream& ts, const Params& prm,
+                                        const Gray& gray, uint32_t stream, int kind, int e,
+                                        int64_t n, int64_t i) {
+  if constexpr (OBS) {
+    if (pd.on) return ((pd.drop >> (kind * E + e)) & 1ull) == 0;
+  }
+  return sd::kept<ARMS, E, ST::link>(ts, prm, gray, stream, kind, e, n, i);
+}
+
+// sd::duplicated (slot j of buffer `buf`), read from exposure's draws of
+// the tick where it made them.
+template <bool OBS, bool ARMS, int S, int E, typename ST = SdStreams>
+__device__ __forceinline__ bool dup_at(PreDraw pd, const TickStream& ts, const Params& prm,
+                                       const Gray& gray, int buf, int j, uint32_t stream,
+                                       int64_t n, int64_t i) {
+  if constexpr (OBS) {
+    if (pd.on) return ((pd.dup >> (buf * S + j)) & 1ull) != 0;
+  }
+  return sd::duplicated<ARMS, S, E, ST::dup>(ts, prm, gray, stream, buf, j, n, i);
+}
+
+// The delay stamps of the slots `sent` (sd::Channel::stamp_sends), their
+// delay draws read from exposure's draws of the tick where it made them.
+template <bool OBS, typename Ch, int B>
+__device__ __forceinline__ void stamp_sends(Ch& ch, PreDraw pd, const Column<B>& col, int row,
+                                            uint32_t& wait, int dir, uint32_t sent,
+                                            const Params& prm, const Plan& plan,
+                                            const TickStream& ts, int64_t n, int64_t i,
+                                            int32_t tick, DrawCount* draws) {
+  if constexpr (OBS) {
+    if (pd.on) {
+      ch.template stamp_sends<true>(col, row, wait, dir, sent, prm, plan, ts, n, i, tick, draws,
+                                    pd.fire);
+      return;
+    }
+  }
+  ch.stamp_sends(col, row, wait, dir, sent, prm, plan, ts, n, i, tick, draws);
+}
+
+// Exposure's draws of a tick (PreDraw), each where its knob is on, and
+// their injected counts into `inj` (obs/exposure.py: every fault sampled
+// this tick); `slow`: the stamped channel's links that delay (STAMPED).
+template <bool OBS, bool ARMS, bool STAMPED, int P, int A, typename ST = SdStreams>
+__device__ __forceinline__ PreDraw predraw(const Obs& ob, const TickStream& ts, const Params& prm,
+                                           const Gray& gray, uint32_t slow, int64_t n, int64_t i,
+                                           int (&inj)[kClasses]) {
+  constexpr int E = P * A, S = 2 * E;
+  PreDraw pd;
+  if constexpr (OBS) {
+    if (!ob.exp()) return pd;
+    pd.on = true;
+    const bool flaky = ARMS && gray.flaky;
+    if (flaky || prm.drop.mode != 0) {
+#pragma unroll 1
+      for (int e = 0; e < E; ++e) {
+        const int32_t thr = flaky ? gray.link_drop[e * n + i] : 0;
+#pragma unroll
+        for (int kind = 0; kind < 4; ++kind) {
+          const bool dropped = flaky ? ts.below_at(thr, ST::link, kind * E + e)
+                                     : ts.fires_at(prm.drop, ST::keep(kind), e);
+          pd.drop |= (dropped ? 1ull : 0ull) << (kind * E + e);
+        }
+      }
+      inj[kClDrop] = __popcll(pd.drop);
+    }
+    if (sd::dup_live<ARMS>(prm, gray)) {
+#pragma unroll 1
+      for (int j = 0; j < S; ++j) {
+        const int32_t thr = flaky ? gray.link_dup[(j % E) * n + i] : 0;
+#pragma unroll
+        for (int buf = 0; buf < 2; ++buf) {
+          const bool d = flaky ? ts.below_at(thr, ST::dup, buf * S + j)
+                               : ts.fires_at(prm.dup, buf == 0 ? ST::dup_req : ST::dup_rep, j);
+          pd.dup |= (d ? 1ull : 0ull) << (buf * S + j);
+        }
+      }
+      inj[kClDup] = __popcll(pd.dup);
+    }
+    if (ARMS && gray.corrupt.mode != 0) {
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+        pd.corrupt |= (ts.fires_at(gray.corrupt, ST::corrupt, a) ? 1u : 0u) << a;
+      inj[kClCorrupt] = __popc(pd.corrupt);
+    }
+    if constexpr (STAMPED) {
+      if (prm.delay.mode != 0) {
+#pragma unroll 1
+        for (int x = 0; x < 4; ++x) {
+          for (uint32_t m = slow; m != 0; m &= m - 1) {
+            const int e = __ffs(m) - 1;
+            if (ts.bits(ST::delay, x * E + e) < prm.delay.thr) pd.fire |= 1ull << (x * E + e);
+          }
+        }
+        inj[kClDelay] = __popcll(pd.fire);
+      }
+    }
+  }
+  return pd;
+}
+
+// A corruption of acceptor a's request this tick (p_corrupt, the arms):
+// exposure's draw where it made them, else drawn here.
+template <bool ARMS, typename ST = SdStreams>
+__device__ __forceinline__ bool corrupt_fires(PreDraw pd, const TickStream& ts, const Gray& gray,
+                                              int a) {
+  if (!(ARMS && gray.corrupt.mode != 0)) return false;
+  return pd.on ? ((pd.corrupt >> a) & 1u) != 0 : ts.fires_at(gray.corrupt, ST::corrupt, a);
+}
+
+// The plan's events at `tick` (telemetry's part_cut, part_heal and
+// recover; exposure's stale restores and skewed timers).
+template <bool OBS, bool ARMS, int P, int A>
+__device__ __forceinline__ void fault_events(const Obs& ob, const Gray& gray,
+                                             const sd::GrayLane<P, A>& glane,
+                                             const int32_t (&crash_end)[A], const Plan& plan,
+                                             int32_t tick, int64_t n, int64_t i,
+                                             int (&ev)[kEvents], int (&inj)[kClasses],
+                                             int (&eff)[kClasses]) {
+  if constexpr (OBS) {
+    if (ARMS && gray.partition) {
+      ev[kEvPartCut] = glane.part_start == tick ? 1 : 0;
+      ev[kEvPartHeal] = glane.part_end == tick ? 1 : 0;
+    }
+    int rec = 0;
+#pragma unroll
+    for (int a = 0; a < A; ++a) rec += crash_end[a] == tick ? 1 : 0;
+    int recovered = ob.rec_acc ? rec : 0;
+    if (ob.rec_prop) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) recovered += plan.pcrash_end[p * n + i] == tick ? 1 : 0;
+    }
+    ev[kEvRecover] = recovered;
+    if (ARMS && gray.stale_k > 0) inj[kClStale] = eff[kClStale] = rec;
+    if (ARMS && gray.timeout_skew) {
+      int skewed = 0;
+#pragma unroll
+      for (int p = 0; p < P; ++p) skewed += glane.ptimeout[p] != 0 ? 1 : 0;
+      inj[kClTimeout] = skewed;
+    }
+  }
+}
+
+// The zero-only payload words of a single-decree lane (no column row,
+// SdStaged G) that are not 0 in global memory, which the coverage digest
+// folds where the chunk has not written their slot: bit j a request's v1
+// (j < G::kRqV1From), E + j a request's v2, S + j a reply's v2 (j >= E).
+template <typename G>
+__device__ __forceinline__ uint64_t zero_words(const Leaves& L, int64_t n, int64_t i) {
+  uint64_t zo = 0;
+#pragma unroll 1
+  for (int j = 0; j < G::S; ++j) {
+    if (j < G::kRqV1From && load<int32_t>(L, kRqV1, j, n, i) != 0) zo |= 1ull << j;
+    if (load<int32_t>(L, kRqV2, j, n, i) != 0) zo |= 1ull << (G::E + j);
+    if (j >= G::E && load<int32_t>(L, kRpV2, j, n, i) != 0) zo |= 1ull << (G::S + j);
+  }
+  return zo;
+}
+
+// The digest's fold of an acceptor's (voter's) three snapshot shadows, at
+// leaves SNAP + 0..2, where the state carries them.
+template <int A, int SNAP>
+__device__ __forceinline__ void fold_shadows(Digest& d, const Obs& ob, const Leaves& L, int64_t n,
+                                             int64_t i) {
+  if (ob.snaps) {
+#pragma unroll 1
+    for (int f = 0; f < 3; ++f)
+      for (int a = 0; a < A; ++a) d.fold(load<int32_t>(L, SNAP + f, a, n, i));
+  }
+}
+
+// The digest's fold of a single-decree lane's two message buffers
+// (requests, then replies: ballots, first and second payloads, presence,
+// the stamps where STAMPED), in the reference's leaf and row order, from
+// the column (SdStaged G) and the presence masks; a zero-only payload word
+// is 0 where the chunk wrote its slot (`rq_written`, `rp_written`), else
+// what global memory holds (zero_words' mask `zo_nz`).
+template <typename G, bool STAMPED, int B>
+__device__ __forceinline__ void fold_buffers(Digest& d, const Column<B>& col, const Leaves& L,
+                                             int64_t n, int64_t i, uint64_t zo_nz,
+                                             uint32_t rq_written, uint32_t rp_written,
+                                             uint32_t rq_present, uint32_t rp_present) {
+  constexpr int S = G::S, E = G::E;
+  const auto zero_only = [&](int leaf, int j, uint32_t written, int bit) {
+    return ((written >> j) & 1u) || !((zo_nz >> bit) & 1ull) ? 0 : load<int32_t>(L, leaf, j, n, i);
+  };
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) d.fold(col[G::kRqBal + j]);
+#pragma unroll 1
+  for (int j = 0; j < S; ++j)
+    d.fold(j < G::kRqV1From ? zero_only(kRqV1, j, rq_written, j) : col[G::rq_v1(j)]);
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) d.fold(zero_only(kRqV2, j, rq_written, E + j));
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) d.fold((rq_present >> j) & 1u);
+  if constexpr (STAMPED) {
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold(col[G::kRqUntil + j]);
+  }
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) d.fold(col[G::kRpBal + j]);
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) d.fold(col[G::kRpV1 + j]);
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) d.fold(j < E ? col[G::kRpV2 + j] : zero_only(kRpV2, j, rp_written, S + j));
+#pragma unroll 1
+  for (int j = 0; j < S; ++j) d.fold((rp_present >> j) & 1u);
+  if constexpr (STAMPED) {
+#pragma unroll 1
+    for (int j = 0; j < S; ++j) d.fold(col[G::kRpUntil + j]);
+  }
 }
 
 }  // namespace obs

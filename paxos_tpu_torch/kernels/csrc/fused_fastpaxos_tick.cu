@@ -71,6 +71,23 @@
 // the slots that have arrived only.  A cut (ARMS) masks after the readiness
 // gate and never touches a stamp.
 //
+// The observer planes (telemetry, coverage, exposure, margin, the client
+// workload) compile into the observed instantiations (OBS, at (2,5,8), each
+// without and with the stamps and the arms), for a state that carries a
+// plane, as K1's (fused_paxos_tick.cu), through the pieces the three
+// kernels share (obs:: in fused_common.cuh): the planes' counters join the
+// column after the staged rows (obs::Rows, 49 words at two proposers: 153
+// words, 193 stamped, which leave room for 2 blocks of 128 lanes); with
+// exposure on, the tick's drop, dup, corrupt and delay decisions are drawn
+// at its start (obs::predraw) and the lazy sites read those bits, so no
+// position is drawn twice and the schedule is the planes-off one; every
+// tick then runs the planes in the plain tick's order (there is no settled
+// lane to skip), coverage last, on the post-tick state (195 words a tick
+// at (2,5,8): the proposers' P x P recovery masks in place of Paxos'
+// best values), before the per-tick ballot clamp.  The margin takes a
+// round-0 slot's threshold from the fast quorum, as the learner does, and
+// a fast or classic decide serves a client request.
+//
 // What differs from the Paxos tick (protocols/fastpaxos.py):
 //  - acceptors vote at most once per ballot (the revote rule);
 //  - the learner's threshold is per slot: q_fast for a fast-round ballot
@@ -99,7 +116,7 @@ using sd::SdStaged;
 // The tick's phases in order, as the phase-clock build splits a lane's
 // cycles (fused_tick.PHASES["fastpaxos"]).
 enum Phase {
-  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
+  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, kPhStore,
   kPhases,
 };
 
@@ -112,24 +129,28 @@ enum Leaf {
 };
 
 // The kernel; `Arms` is empty for the default instantiations, whose
-// signature and code are those of the kernel without the arms, and `Gray`
-// for the arms instantiation (ARMS), which takes the arms' knobs and plan
-// leaves.
+// signature and code are those of the kernel without the arms, a `Gray`
+// for the arms instantiations (ARMS), which take the arms' knobs and plan
+// leaves, and an obs::Obs (after the Gray, if any) for the observed ones
+// (OBS), which compute the observer planes whose leaves it holds.
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                        Arms... arms) {
-  constexpr bool ARMS = sizeof...(Arms) > 0;
-  const Gray gray{arms...};
+  constexpr bool ARMS = has_arg<Gray, Arms...>;
+  constexpr bool OBS = has_arg<obs::Obs, Arms...>;
+  const Gray gray = pick_arg<Gray>(arms...);
+  const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, false, STAMPED>;
+  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
   constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr uint32_t kAccs = (1u << A) - 1;
-  extern __shared__ int32_t smem[];  // G::kRows * B words
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and the counters)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
@@ -140,6 +161,14 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
   // The bounded-delay channel's waiting slots (STAMPED), as the column.
   sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;
   if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
+  // The planes' counters into the column, and the zero-only payload words
+  // that are not 0 in global memory (obs::zero_words), which the coverage
+  // digest folds where the chunk has not written their slot.
+  uint64_t zo_nz = 0;
+  if constexpr (OBS) {
+    obs::move_counters<P, R0>(col, ob, n, i, true);
+    if (ob.cov()) zo_nz = obs::zero_words<G>(L, n, i);
+  }
 
   // ---- Load the lane's register-resident state once. ----
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
@@ -194,6 +223,10 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // What the planes read of the pre-tick state (OBS).
+    const uint32_t rq_p0 = rq_present, rp_p0 = rp_present;
+    const bool chosen0 = lrn.chosen;
+    const int32_t viol0 = lrn.violations;
     // Stale-snapshot recovery or amnesia (the arms), before the acceptor
     // half-tick and its invariant check.
     sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [](int) {});
@@ -204,6 +237,30 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
+
+    // The planes' counts of the tick (OBS), exposure's draws (an observed
+    // instantiation's sites that draw read them instead where exposure made
+    // them: obs::keep_at, obs::dup_at, obs::stamp_sends, the corruption
+    // site; the other instantiations call sd:: at those sites, as before the
+    // planes, since even a forwarding layer there slowed K2's arms by 2.8%,
+    // PERF.md section 6), and what the cuts and the stamps hold back of the
+    // pre-tick buffers.
+    int ev[obs::kEvents] = {}, inj[obs::kClasses] = {}, eff[obs::kClasses] = {};
+    const obs::PreDraw pd =
+        obs::predraw<OBS, ARMS, STAMPED, P, A>(ob, ts, prm, gray, ch.slow, n, i, inj);
+    int n_drop = 0, n_dup = 0;
+    uint32_t prom_m = 0, corrupt_m = 0, serve_m = 0, plain_exp = 0;
+    if constexpr (OBS) {
+      if (ARMS && gray.partition) {
+        inj[obs::kClPartition] = __popc(cut_req) + __popc(cut_rep);
+        eff[obs::kClPartition] = __popc(rp_p0 & (cut_rep | (cut_rep << E))) +
+                                 __popc(rq_p0 & (cut_req | (cut_req << E)));
+      }
+      if constexpr (STAMPED) {
+        if (prm.delay.mode != 0)
+          eff[obs::kClDelay] = __popc(rq_p0 & ch.rq_wait) + __popc(rp_p0 & ch.rp_wait);
+      }
+    }
 
     // ---- Reply delivery (pre-tick buffer): the replies on a link not cut
     //      and not held this tick; consumed unless duplicated. ----
@@ -219,8 +276,11 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     if (sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        if (sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i)) taken &= ~(1u << j);
+        if (OBS ? obs::dup_at<OBS, ARMS, S, E>(pd, ts, prm, gray, 1, j, kDupRep, n, i)
+                : sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i))
+          taken &= ~(1u << j);
       }
+      if constexpr (OBS) n_dup += __popc(delivered & ~taken);
     }
     uint32_t rp_next = rp_present & ~taken;
     clk.mark(kPhDeliver);
@@ -292,6 +352,11 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
       const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
       const bool exp = phase[p] != kDone && !p1 && !p2 && !fast_done && tm > timeout;
+      if constexpr (OBS) {  // the decide edges, and the expiry without the skew
+        serve_m |= (p2 || fast_done ? 1u : 0u) << p;
+        plain_exp |= (phase[p] != kDone && !p1 && !p2 && !fast_done && tm > prm.timeout ? 1u : 0u)
+                     << p;
+      }
 
       int32_t ph = phase[p];
       if (p1) ph = kP2;
@@ -345,7 +410,15 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       const bool is_acc = sel >= P;
       int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
       int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
-      if (sel >= 0) sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
+      if constexpr (OBS) {
+        if (sel >= 0 && obs::corrupt_fires<ARMS>(pd, ts, gray, a)) {
+          if (is_acc) mv ^= 64;
+          else mb = wrap_add(mb, 1);
+          corrupt_m |= 1u << a;
+        }
+      } else if (sel >= 0) {
+        sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
+      }
       const bool eq = (equiv >> a) & 1u;
       const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
       const bool ok_prep_h = is_prep && !eq && mb > pr_old;
@@ -363,14 +436,18 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       // The reply into the selected sender's slot (post-consume buffer):
       // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
       // link drops it against its own threshold.
-      if (ok_prep && sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, sel * A + a, n, i)) {
+      if (ok_prep &&
+          (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepProm, 0, sel * A + a, n, i)
+               : sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, sel * A + a, n, i))) {
         const int jr = sel * A + a;
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_acc && sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, (sel - P) * A + a, n, i)) {
+      if (ok_acc &&
+          (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepAccd, 1, (sel - P) * A + a, n, i)
+               : sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, (sel - P) * A + a, n, i))) {
         const int jr = sel * A + a;
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
@@ -381,8 +458,17 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       if (sel >= 0) {
         const int j = sel * A + a;
         if (!(sd::dup_live<ARMS>(prm, gray) &&
-              sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, j, n, i)))
+              (OBS ? obs::dup_at<OBS, ARMS, S, E>(pd, ts, prm, gray, 0, j, kDupReq, n, i)
+                   : sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, j, n, i))))
           rq_next &= ~(1u << j);
+      }
+      if constexpr (OBS) {
+        prom_m |= (ok_prep ? 1u : 0u) << a;
+        if (sel >= 0) {
+          const int j = sel * A + a;
+          n_drop += (ok_prep || ok_acc) && !((rp_sent >> j) & 1u) ? 1 : 0;
+          n_dup += (rq_next >> j) & 1u;
+        }
       }
 
       // Acceptor-local invariants (honest acceptors only).
@@ -397,8 +483,12 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
     }
     // The replies' delay stamps (the stamp draws are keyed by the slot, so
     // one rolled loop serves every reply site).
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i,
+                            tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
+    }
     rp_present = rp_next | rp_sent;
     rp_written |= rp_sent;
     rq_present = rq_next;
@@ -416,29 +506,115 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
       if ((p1_done | expired) >> p & 1u) {
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
-          if (((p1_done >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, p * A + a, n, i)) {
+          if (((p1_done >> p) & 1u) &&
+              (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepP2, 3, p * A + a, n, i)
+                   : sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, p * A + a, n, i))) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, recovery value)
             col[G::kRqBal + j] = old_bal[p];
             col[G::rq_v1(j)] = prop_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, p * A + a, n, i)) {
+          if (((expired >> p) & 1u) &&
+              (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepP1, 2, p * A + a, n, i)
+                   : sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, p * A + a, n, i))) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
             rq_sent |= 1u << j;
           }
         }
+        if constexpr (OBS) {  // the broadcasts' dropped sends: the slots not written
+          const uint32_t acc = (rq_sent >> ((1 * P + p) * A)) & kAccs;
+          const uint32_t prep = (rq_sent >> ((0 * P + p) * A)) & kAccs;
+          n_drop += ((p1_done >> p) & 1u ? A - __popc(acc) : 0) +
+                    ((expired >> p) & 1u ? A - __popc(prep) : 0);
+        }
       }
-      if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
+      // (An observed tick clamps after the planes: the digest reads the
+      // ballots as the tick left them.)
+      if (!OBS && prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i,
+                            tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
+    }
     rq_present |= rq_sent;
     rq_written |= rq_sent;
     clk.mark(kPhSends);
+
+    // ---- The observer planes (OBS), from the tick's events, in the plain
+    //      tick's order: telemetry, exposure, margin, workload, coverage. ----
+    if constexpr (OBS) {
+      const bool decided_now = lrn.chosen && !chosen0;
+      ev[obs::kEvPromise] = __popc(prom_m);
+      ev[obs::kEvAccept] = __popc(ev_flag);
+      ev[obs::kEvDecide] = decided_now ? 1 : 0;
+      ev[obs::kEvConflict] = wrap_add(lrn.violations, -viol0);
+      ev[obs::kEvLeader] = __popc(p1_done);
+      ev[obs::kEvTimeout] = __popc(expired);
+      ev[obs::kEvDrop] = n_drop;
+      ev[obs::kEvDup] = n_dup;
+      ev[obs::kEvCorrupt] = __popc(corrupt_m);
+      eff[obs::kClDrop] = n_drop;
+      eff[obs::kClDup] = n_dup;
+      eff[obs::kClCorrupt] = __popc(corrupt_m);
+      if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
+      obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
+      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
+      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.mar()) {
+        obs::margin<P, R0, K, A, G::kLtBal>(col, quorum_of, lrn.chosen, lrn.chosen_val,
+                                            decided_now, promised, acc_bal, ~equiv & kAccs);
+      }
+      if (ob.wl()) obs::workload<P, R0>(col, ob, ts, tick, serve_m, n, i);
+      if (ob.cov()) {
+        // The coverage digest of the lane's state (obs/coverage.py digest_tree:
+        // the acceptors with their shadows, the proposers with their recovery
+        // masks, both buffers with their stamps), in the reference's leaf and
+        // row order.
+        obs::Digest d;
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(promised[a]);
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(acc_bal[a]);
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(acc_val[a]);
+        obs::fold_shadows<A, SNAP>(d, ob, L, n, i);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(bal[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(phase[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(own_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(prop_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(heard[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(best_bal[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int v = 0; v < P; ++v) d.fold(rep_mask[p][v]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(timer[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
+        obs::fold_buffers<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written, rq_present,
+                                      rp_present);
+        obs::coverage<P, R0>(col, ob, d.value(), n, i);
+      }
+      if (prm.clamp_per_tick) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+      }
+      clk.mark(kPhObs);
+    }
   }
 
   draws.flush();
+  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
 
   // ---- Store the lane's state once. ----
 #pragma unroll
@@ -470,42 +646,62 @@ fused_fastpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr
   clk.flush();
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh): the
-// arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): an
+// arms instantiation's kernel takes a Gray after Params, an observed one an
+// obs::Obs after that, and its column holds the planes' counters
+// (obs::Rows) after the staged rows.
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
+using InstWith = SmemInst<
+    fused_fastpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Arms...>, B,
+    (SdStaged<P, A, K, false, STAMPED>::kRows +
+     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
 struct InstOf {
-  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
-                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS>;
 };
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
-struct InstOf<P, A, K, STAMPED, true, B, MIN_BLOCKS> {
-  using type = SmemInst<fused_fastpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>, B,
-                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+struct InstOf<P, A, K, STAMPED, true, false, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>;
 };
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
-using Inst = typename InstOf<P, A, K, STAMPED, ARMS, B, MIN_BLOCKS>::type;
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, false, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, true, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, B,
-// MIN_BLOCKS): one per shape, stamps and arms flag, at the geometry
-// fused_tick.FR_STAGING["fastpaxos"] gives it; MIN_BLOCKS, the blocks an SM
-// is to hold, caps a thread's registers.  The arms and the stamps run at
-// (2,5,8), the shape of every config that sets them; the stamped column
-// (144 words) leaves room for 3 blocks.
-#define K2_INSTANCES(X)      \
-  X(2, 5, 8, 0, 0, 128, 4)   \
-  X(2, 3, 8, 0, 0, 128, 3)   \
-  X(2, 5, 8, 0, 1, 128, 3)   \
-  X(2, 5, 8, 1, 0, 128, 3)   \
-  X(2, 5, 8, 1, 1, 128, 3)
+// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, OBS, B,
+// MIN_BLOCKS): one per shape, stamps, arms and observer flag, at the
+// geometry fused_tick.FR_STAGING["fastpaxos"] gives it; MIN_BLOCKS, the
+// blocks an SM is to hold, caps a thread's registers.  The arms, the stamps
+// and the planes run at (2,5,8), the shape of every config that sets them;
+// the stamped column (144 words) leaves room for 3 blocks, the observed
+// ones (153 and 193 words) for 2.
+#define K2_INSTANCES(X)         \
+  X(2, 5, 8, 0, 0, 0, 128, 4)   \
+  X(2, 3, 8, 0, 0, 0, 128, 3)   \
+  X(2, 5, 8, 0, 1, 0, 128, 3)   \
+  X(2, 5, 8, 1, 0, 0, 128, 3)   \
+  X(2, 5, 8, 1, 1, 0, 128, 3)   \
+  X(2, 5, 8, 0, 0, 1, 128, 2)   \
+  X(2, 5, 8, 0, 1, 1, 128, 2)   \
+  X(2, 5, 8, 1, 0, 1, 128, 2)   \
+  X(2, 5, 8, 1, 1, 1, 128, 2)
 
-// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, k_slots, stamped, arms), or
-// returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`
+// for the instantiation `dims` names (n_prop, n_acc, k_slots, stamped,
+// arms, observed), or returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K2_MATCH(P_, A_, K_, S_, R_, B_, M_)                                                \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_) \
-    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
+#define K2_MATCH(P_, A_, K_, S_, R_, O_, B_, M_)                                              \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_ && \
+      dims[5] == O_)                                                                       \
+    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, O_ != 0, B_, M_>{},                       \
+              std::bool_constant<R_ != 0>{}, std::bool_constant<O_ != 0>{});
   K2_INSTANCES(K2_MATCH)
 #undef K2_MATCH
   return cudaErrorInvalidValue;
@@ -517,34 +713,51 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 // fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped (1: the
 // state's buffers carry delay stamps, which p_delay > 0 needs), arms (1:
 // the instantiation with the gray-failure and partition arms, which a knob
-// of theirs needs), then the dynamic shared bytes a block,
-// fused_tick.FR_STAGING's); the state's leaves are 28, 30 with the stamps,
-// and 3 more with snapshot shadows, which stale_k > 0 needs; `tick` is the
-// device int32 tick scalar, read by the kernel and advanced by the caller.
-// Returns cudaSuccess or the first error: an unknown instantiation, a leaf
-// count that is not its state's (a stamped state on an unstamped one), a
-// knob on without its arms or its arms without a knob, stale_k without
-// snapshots, p_delay without the stamps or the plan's link_delay, or too
-// few shared bytes (cudaErrorInvalidValue), a shared-memory request the
-// card refuses, or the launch's cudaGetLastError().
+// of theirs needs), observed (1: the instantiation with the observer
+// planes, which a state carrying one needs), then the dynamic shared bytes
+// a block, fused_tick.FR_STAGING's); the state's leaves are 28, 30 with the
+// stamps, and 3 more with snapshot shadows, which stale_k > 0 needs; `tick`
+// is the device int32 tick scalar, read by the kernel and advanced by the
+// caller; the observer leaves and their sizes (obs::read_obs_args) come
+// last, none for an instantiation that is not observed.  Returns
+// cudaSuccess or the first error: an unknown instantiation, a leaf count
+// that is not its state's (a stamped state on an unstamped one), a knob on
+// without its arms or its arms without a knob, stale_k without snapshots,
+// p_delay without the stamps or the plan's link_delay, observer arguments
+// that do not fit the instantiation or each other, or too few shared bytes
+// (cudaErrorInvalidValue), a shared-memory request the card refuses, or the
+// launch's cudaGetLastError().
 extern "C" int fused_fastpaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                       void** plan, void* tick, const long long* params, int n_params,
-                                      void* stream) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
+                                      void* stream, void** obs_leaves, int n_obs,
+                                      const long long* obs_params, int n_obs_params) {
+  if (n_dims != 7) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
-  const cudaError_t bad =
-      read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray,
-                     kLeaves, 3, 3, dims[3] != 0);
+  cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params, &L,
+                                   &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
   if (bad != cudaSuccess) return bad;
+  obs::Obs ob{};
+  if (dims[5] != 0) {
+    bad = obs::read_obs_args(obs_leaves, n_obs, obs_params, n_obs_params, &ob);
+    if (bad != cudaSuccess) return bad;
+    const bool snaps = n_leaves == kLeaves + (dims[3] != 0 ? 2 : 0) + 3;
+    if ((ob.snaps != 0) != snaps) return cudaErrorInvalidValue;
+  } else if (n_obs != 0 || n_obs_params != 0) {
+    return cudaErrorInvalidValue;
+  }
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto with_arms) {
-    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
-    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto with_arms, auto with_obs) {
+    constexpr bool R = decltype(with_arms)::value, O = decltype(with_obs)::value;
+    using I = decltype(inst);
+    if constexpr (R && O) return I::launch(L, pl, t, prm, smem, s, gray, ob);
+    else if constexpr (R) return I::launch(L, pl, t, prm, smem, s, gray);
+    else if constexpr (O) return I::launch(L, pl, t, prm, smem, s, ob);
+    else return I::launch(L, pl, t, prm, smem, s);
   });
 }
 
@@ -552,7 +765,9 @@ extern "C" int fused_fastpaxos_launch(const int* dims, int n_dims, void** leaves
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_fastpaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 7) return cudaErrorInvalidValue;
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto, auto) {
+    return decltype(inst)::occupancy(smem, blocks_per_sm);
+  });
 }

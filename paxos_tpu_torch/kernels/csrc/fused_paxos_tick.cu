@@ -121,17 +121,6 @@ __device__ __forceinline__ bool breaks_alone(int32_t pr, int32_t ab, int32_t av)
   return ab > pr || (ab == 0 && av != 0);
 }
 
-// The exposure plane's draws of a tick, made at its start (an observed
-// instantiation with exposure on): the drop decisions of the four send
-// kinds (bit kind * E + e, LINK_BITS' kind order), the duplications of both
-// buffers (bit buf * S + j), the corruptions (bit a) and the delay draws
-// (bit axis * E + e of delay_stamps' kind axis, slow links only).  The
-// tick's own sites read these bits where they would draw.
-struct PreDraw {
-  uint64_t drop = 0, dup = 0, fire = 0;
-  uint32_t corrupt = 0;
-};
-
 // The kernel; `Arms` is empty for the default instantiations, whose
 // signature and code are those of K1 without the arms, a `Gray` for the
 // arms instantiations (ARMS), which take the arms' knobs and plan leaves,
@@ -205,14 +194,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   uint64_t zo_nz = 0;
   if constexpr (OBS) {
     obs::move_counters<P, R0>(col, ob, n, i, true);
-    if (ob.cov()) {
-#pragma unroll 1
-      for (int j = 0; j < S; ++j) {
-        if (j < E && load<int32_t>(L, kRqV1, j, n, i) != 0) zo_nz |= 1ull << j;
-        if (load<int32_t>(L, kRqV2, j, n, i) != 0) zo_nz |= 1ull << (E + j);
-        if (j >= E && load<int32_t>(L, kRpV2, j, n, i) != 0) zo_nz |= 1ull << (S + j);
-      }
-    }
+    if (ob.cov()) zo_nz = obs::zero_words<G>(L, n, i);
   }
 
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
@@ -273,115 +255,28 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   DrawCount draws;
 
   // ---- The observer planes (OBS; the default instantiations compile none
-  //      of it).  A site that draws reads exposure's draws of the tick
-  //      instead where exposure made them (keep_at, dup_at, stamp_sends). ----
-  const auto keep_at = [&](const TickStream& ts, const PreDraw& pd, uint32_t stream, int kind,
+  //      of it), through the pieces K1, K2 and K3 share (obs:: in
+  //      fused_common.cuh).  A site that draws reads exposure's draws of the
+  //      tick instead where exposure made them (keep_at, dup_at,
+  //      stamp_sends). ----
+  const auto keep_at = [&](const TickStream& ts, const obs::PreDraw& pd, uint32_t stream, int kind,
                            int e) {
-    if constexpr (OBS) {
-      if (ob.exp()) return ((pd.drop >> (kind * E + e)) & 1ull) == 0;
-    }
-    return sd::kept<ARMS, E>(ts, prm, gray, stream, kind, e, n, i);
+    return obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, stream, kind, e, n, i);
   };
-  const auto dup_at = [&](const TickStream& ts, const PreDraw& pd, int buf, int j,
+  const auto dup_at = [&](const TickStream& ts, const obs::PreDraw& pd, int buf, int j,
                           uint32_t stream) {
-    if constexpr (OBS) {
-      if (ob.exp()) return ((pd.dup >> (buf * S + j)) & 1ull) != 0;
-    }
-    return sd::duplicated<ARMS, S, E>(ts, prm, gray, stream, buf, j, n, i);
+    return obs::dup_at<OBS, ARMS, S, E>(pd, ts, prm, gray, buf, j, stream, n, i);
   };
-  const auto stamp_sends = [&](const TickStream& ts, const PreDraw& pd, int row, uint32_t& wait,
+  const auto stamp_sends = [&](const TickStream& ts, const obs::PreDraw& pd, int row, uint32_t& wait,
                                int dir, uint32_t sent, int32_t tick) {
-    if constexpr (OBS) {
-      if (ob.exp()) {
-        ch.template stamp_sends<true>(col, row, wait, dir, sent, prm, plan, ts, n, i, tick, &draws,
-                                      pd.fire);
-        return;
-      }
-    }
-    ch.stamp_sends(col, row, wait, dir, sent, prm, plan, ts, n, i, tick, &draws);
+    obs::stamp_sends<OBS>(ch, pd, col, row, wait, dir, sent, prm, plan, ts, n, i, tick, &draws);
   };
-  // Exposure's draws of a tick, each where its knob is on, and their
-  // injected counts (obs/exposure.py: every fault sampled this tick).
   const auto predraw = [&](const TickStream& ts, int (&inj)[obs::kClasses]) {
-    PreDraw pd;
-    if constexpr (OBS) {
-      if (!ob.exp()) return pd;
-      const bool flaky = ARMS && gray.flaky;
-      if (flaky || prm.drop.mode != 0) {
-#pragma unroll 1
-        for (int e = 0; e < E; ++e) {
-          const int32_t thr = flaky ? gray.link_drop[e * n + i] : 0;
-#pragma unroll
-          for (int kind = 0; kind < 4; ++kind) {
-            const uint32_t stream = kind == 0 ? kKeepProm : kind == 1 ? kKeepAccd
-                                  : kind == 2 ? kKeepP1 : kKeepP2;
-            const bool dropped = flaky ? ts.below_at(thr, kLinkBits, kind * E + e)
-                                       : ts.fires_at(prm.drop, stream, e);
-            pd.drop |= (dropped ? 1ull : 0ull) << (kind * E + e);
-          }
-        }
-        inj[obs::kClDrop] = __popcll(pd.drop);
-      }
-      if (sd::dup_live<ARMS>(prm, gray)) {
-#pragma unroll 1
-        for (int j = 0; j < S; ++j) {
-          const int32_t thr = flaky ? gray.link_dup[(j % E) * n + i] : 0;
-#pragma unroll
-          for (int buf = 0; buf < 2; ++buf) {
-            const bool d = flaky ? ts.below_at(thr, kDupBits, buf * S + j)
-                                 : ts.fires_at(prm.dup, buf == 0 ? kDupReq : kDupRep, j);
-            pd.dup |= (d ? 1ull : 0ull) << (buf * S + j);
-          }
-        }
-        inj[obs::kClDup] = __popcll(pd.dup);
-      }
-      if (ARMS && gray.corrupt.mode != 0) {
-#pragma unroll
-        for (int a = 0; a < A; ++a)
-          pd.corrupt |= (ts.fires_at(gray.corrupt, kCorrupt, a) ? 1u : 0u) << a;
-        inj[obs::kClCorrupt] = __popc(pd.corrupt);
-      }
-      if constexpr (STAMPED) {
-        if (prm.delay.mode != 0) {
-#pragma unroll 1
-          for (int x = 0; x < 4; ++x) {
-            for (uint32_t m = ch.slow; m != 0; m &= m - 1) {
-              const int e = __ffs(m) - 1;
-              if (ts.bits(kDelayBits, x * E + e) < prm.delay.thr) pd.fire |= 1ull << (x * E + e);
-            }
-          }
-          inj[obs::kClDelay] = __popcll(pd.fire);
-        }
-      }
-    }
-    return pd;
+    return obs::predraw<OBS, ARMS, STAMPED, P, A>(ob, ts, prm, gray, ch.slow, n, i, inj);
   };
-  // The plan's events at `tick` (telemetry's part_cut, part_heal and
-  // recover; exposure's stale restores and skewed timers).
   const auto fault_events = [&](int32_t tick, int (&ev)[obs::kEvents], int (&inj)[obs::kClasses],
                                 int (&eff)[obs::kClasses]) {
-    if constexpr (OBS) {
-      if (ARMS && gray.partition) {
-        ev[obs::kEvPartCut] = glane.part_start == tick ? 1 : 0;
-        ev[obs::kEvPartHeal] = glane.part_end == tick ? 1 : 0;
-      }
-      int rec = 0;
-#pragma unroll
-      for (int a = 0; a < A; ++a) rec += crash_end[a] == tick ? 1 : 0;
-      int recovered = ob.rec_acc ? rec : 0;
-      if (ob.rec_prop) {
-#pragma unroll
-        for (int p = 0; p < P; ++p) recovered += plan.pcrash_end[p * n + i] == tick ? 1 : 0;
-      }
-      ev[obs::kEvRecover] = recovered;
-      if (ARMS && gray.stale_k > 0) inj[obs::kClStale] = eff[obs::kClStale] = rec;
-      if (ARMS && gray.timeout_skew) {
-        int skewed = 0;
-#pragma unroll
-        for (int p = 0; p < P; ++p) skewed += glane.ptimeout[p] != 0 ? 1 : 0;
-        inj[obs::kClTimeout] = skewed;
-      }
-    }
+    obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
   };
   // The coverage digest of the lane's state (obs/coverage.py digest_tree:
   // the acceptors with their shadows, the proposers, both buffers with
@@ -396,13 +291,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     for (int a = 0; a < A; ++a) d.fold(acc_bal[a]);
 #pragma unroll
     for (int a = 0; a < A; ++a) d.fold(acc_val[a]);
-    if constexpr (OBS) {
-      if (ob.snaps) {
-#pragma unroll 1
-        for (int f = 0; f < 3; ++f)
-          for (int a = 0; a < A; ++a) d.fold(load<int32_t>(L, SNAP + f, a, n, i));
-      }
-    }
+    if constexpr (OBS) obs::fold_shadows<A, SNAP>(d, ob, L, n, i);
 #pragma unroll
     for (int p = 0; p < P; ++p) d.fold(bal[p]);
 #pragma unroll
@@ -421,35 +310,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     for (int p = 0; p < P; ++p) d.fold(timer[p]);
 #pragma unroll
     for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
-    const auto zero_only = [&](int leaf, int j, uint32_t written, int bit) {
-      return ((written >> j) & 1u) || !((zo_nz >> bit) & 1ull) ? 0 : load<int32_t>(L, leaf, j, n, i);
-    };
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold(col[G::kRqBal + j]);
-#pragma unroll 1
-    for (int j = 0; j < S; ++j)
-      d.fold(j < G::kRqV1From ? zero_only(kRqV1, j, rq_written, j) : col[G::rq_v1(j)]);
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold(zero_only(kRqV2, j, rq_written, E + j));
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold((rq_present >> j) & 1u);
-    if constexpr (STAMPED) {
-#pragma unroll 1
-      for (int j = 0; j < S; ++j) d.fold(col[G::kRqUntil + j]);
-    }
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold(col[G::kRpBal + j]);
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold(col[G::kRpV1 + j]);
-#pragma unroll 1
-    for (int j = 0; j < S; ++j)
-      d.fold(j < E ? col[G::kRpV2 + j] : zero_only(kRpV2, j, rp_written, S + j));
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold((rp_present >> j) & 1u);
-    if constexpr (STAMPED) {
-#pragma unroll 1
-      for (int j = 0; j < S; ++j) d.fold(col[G::kRpUntil + j]);
-    }
+    obs::fold_buffers<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written, rq_present,
+                                  rp_present);
     return d.value();
   };
   // The planes' update of a tick: its events (ev), exposure's counts, the
@@ -466,7 +328,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
       if (ob.mar()) {
         if (full_margin) {
-          near = obs::margin<P, R0, K, A, G::kLtBal>(col, prm.q2, lrn.chosen, lrn.chosen_val,
+          near = obs::margin<P, R0, K, A, G::kLtBal>(col, quorum_of, lrn.chosen, lrn.chosen_val,
                                                      decided_now, promised, acc_bal,
                                                      ~equiv & kAccs);
         } else if (near) {
@@ -554,7 +416,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     // The planes' counts of the tick (OBS), exposure's draws, and what the
     // cuts and the stamps hold back of the pre-tick buffers.
     int ev[obs::kEvents] = {}, inj[obs::kClasses] = {}, eff[obs::kClasses] = {};
-    const PreDraw pd = predraw(ts, inj);
+    const obs::PreDraw pd = predraw(ts, inj);
     int n_drop = 0, n_dup = 0;
     uint32_t prom_m = 0, corrupt_m = 0, p2_m = 0, plain_exp = 0;
     if constexpr (OBS) {
@@ -742,14 +604,10 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       int32_t mb = col[G::kRqBal + sel * A + a];
       int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
       if constexpr (OBS) {
-        if (ARMS && gray.corrupt.mode != 0) {
-          const bool fired = ob.exp() ? ((pd.corrupt >> a) & 1u) != 0
-                                      : ts.fires_at(gray.corrupt, kCorrupt, a);
-          if (fired) {
-            if (is_acc) mv ^= 64;
-            else mb = wrap_add(mb, 1);
-            corrupt_m |= 1u << a;
-          }
+        if (obs::corrupt_fires<ARMS>(pd, ts, gray, a)) {
+          if (is_acc) mv ^= 64;
+          else mb = wrap_add(mb, 1);
+          corrupt_m |= 1u << a;
         }
       } else {
         sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);

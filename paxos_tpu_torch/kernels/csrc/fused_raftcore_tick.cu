@@ -61,6 +61,25 @@
 // read on a recovery tick and written on a snapshot tick, the restore
 // coming before the tick's invariant check.
 //
+// The observer planes (telemetry, coverage, exposure, margin, the client
+// workload) compile into the observed instantiations (OBS, at (2,5,8), each
+// without and with the stamps and the arms), for a state that carries a
+// plane, as K1's and K2's, through the pieces the three kernels share
+// (obs:: in fused_common.cuh): the planes' counters join the column after
+// the staged rows (obs::Rows, 49 words at two proposers: 163 words, 203
+// stamped, which leave room for 2 blocks of 128 lanes); with exposure on,
+// the tick's drop, dup, corrupt and delay decisions are drawn at its start
+// (obs::predraw) and the lazy sites read those bits, so no position is
+// drawn twice and the schedule is the planes-off one; every tick then runs
+// the planes in the plain tick's order (there is no settled lane to skip),
+// coverage last, on the post-tick state (193 words a tick at (2,5,8)),
+// before the per-tick ballot clamp.  Raft-core's signals: grants are
+// telemetry's promises, acks its accepts, elections its leaders; a VOTE
+// dropped counts wherever a REQVOTE was selected (every one is answered),
+// an APPEND dropped for every leader (it re-sends every tick); a commit
+// serves a client request; the margin reads the vote fence and the entry's
+// term against the majority.
+//
 // What differs from the Paxos tick (protocols/raftcore.py), with the
 // message roles REQVOTE/APPEND (requests) and VOTE/ACK (replies):
 //  - voters grant a vote only to a term above their vote fence and to a
@@ -104,7 +123,7 @@ using sd::SdStaged;
 // The tick's phases in order, as the phase-clock build splits a lane's
 // cycles (fused_tick.PHASES["raftcore"]).
 enum Phase {
-  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
+  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, kPhStore,
   kPhases,
 };
 
@@ -117,17 +136,21 @@ enum Leaf {
 };
 
 // The kernel; `Arms` is empty for the default instantiations, whose
-// signature and code are those of the kernel without the arms, and `Gray`
-// for the arms instantiation (ARMS), which takes the arms' knobs and plan
-// leaves.
+// signature and code are those of the kernel without the arms, a `Gray`
+// for the arms instantiations (ARMS), which take the arms' knobs and plan
+// leaves, and an obs::Obs (after the Gray, if any) for the observed ones
+// (OBS), which compute the observer planes whose leaves it holds.
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                       Arms... arms) {
-  constexpr bool ARMS = sizeof...(Arms) > 0;
-  const Gray gray{arms...};
+  constexpr bool ARMS = has_arg<Gray, Arms...>;
+  constexpr bool OBS = has_arg<obs::Obs, Arms...>;
+  const Gray gray = pick_arg<Gray>(arms...);
+  const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, true, STAMPED>;
+  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
@@ -135,7 +158,7 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr int kQuorum = A / 2 + 1;
   constexpr uint32_t kVoters = (1u << A) - 1;
-  extern __shared__ int32_t smem[];  // G::kRows * B words
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and the counters)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
@@ -146,6 +169,14 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   // The bounded-delay channel's waiting slots (STAMPED), as the column.
   sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;
   if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
+  // The planes' counters into the column, and the zero-only payload words
+  // that are not 0 in global memory (obs::zero_words), which the coverage
+  // digest folds where the chunk has not written their slot.
+  uint64_t zo_nz = 0;
+  if constexpr (OBS) {
+    obs::move_counters<P, R0>(col, ob, n, i, true);
+    if (ob.cov()) zo_nz = obs::zero_words<G>(L, n, i);
+  }
 
   // ---- Load the lane's register-resident state once. ----
   int32_t voted[A], ent_term[A], ent_val[A], crash_start[A], crash_end[A];
@@ -199,6 +230,10 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // What the planes read of the pre-tick state (OBS).
+    const uint32_t rq_p0 = rq_present, rp_p0 = rp_present;
+    const bool chosen0 = lrn.chosen;
+    const int32_t viol0 = lrn.violations;
     // Stale-snapshot recovery or amnesia (the arms), before the voter
     // half-tick and its invariant check.
     sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, voted, ent_term, ent_val, n, i, [](int) {});
@@ -209,6 +244,30 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
+
+    // The planes' counts of the tick (OBS), exposure's draws (an observed
+    // instantiation's sites that draw read them instead where exposure made
+    // them: obs::keep_at, obs::dup_at, obs::stamp_sends, the corruption
+    // site; the other instantiations call sd:: at those sites, as before the
+    // planes, since even a forwarding layer there slowed K2's arms by 2.8%,
+    // PERF.md section 6), and what the cuts and the stamps hold back of the
+    // pre-tick buffers.
+    int ev[obs::kEvents] = {}, inj[obs::kClasses] = {}, eff[obs::kClasses] = {};
+    const obs::PreDraw pd =
+        obs::predraw<OBS, ARMS, STAMPED, P, A>(ob, ts, prm, gray, ch.slow, n, i, inj);
+    int n_drop = 0, n_dup = 0;
+    uint32_t grant_m = 0, corrupt_m = 0, elected_m = 0, serve_m = 0, plain_exp = 0;
+    if constexpr (OBS) {
+      if (ARMS && gray.partition) {
+        inj[obs::kClPartition] = __popc(cut_req) + __popc(cut_rep);
+        eff[obs::kClPartition] = __popc(rq_p0 & (cut_req | (cut_req << E))) +
+                                 __popc(rp_p0 & (cut_rep | (cut_rep << E)));
+      }
+      if constexpr (STAMPED) {
+        if (prm.delay.mode != 0)
+          eff[obs::kClDelay] = __popc(rq_p0 & ch.rq_wait) + __popc(rp_p0 & ch.rp_wait);
+      }
+    }
 
     // ---- Reply delivery (pre-tick buffer): the replies on a link not cut
     //      and not held this tick; consumed unless duplicated. ----
@@ -224,8 +283,11 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     if (sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        if (sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i)) taken &= ~(1u << j);
+        if (OBS ? obs::dup_at<OBS, ARMS, S, E>(pd, ts, prm, gray, 1, j, kDupRep, n, i)
+                : sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i))
+          taken &= ~(1u << j);
       }
+      if constexpr (OBS) n_dup += __popc(delivered & ~taken);
     }
     uint32_t rp_next = rp_present & ~taken;
     clk.mark(kPhDeliver);
@@ -286,6 +348,12 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
       const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
       const bool exp = phase[p] != kDone && !elected && !committed && tm > timeout;
+      if constexpr (OBS) {  // the elections, commits, and the expiry without the skew
+        elected_m |= (elected ? 1u : 0u) << p;
+        serve_m |= (committed ? 1u : 0u) << p;
+        plain_exp |= (phase[p] != kDone && !elected && !committed && tm > prm.timeout ? 1u : 0u)
+                     << p;
+      }
 
       // A new leader proposes its adopted entry if it has one, else its
       // own value, and records it as its own entry at its term.
@@ -339,7 +407,15 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       const bool is_ap = sel >= P;
       int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
       int32_t mv = sel >= 0 ? col[G::rq_v1(sel * A + a)] : 0;
-      if (sel >= 0) sd::corrupt<ARMS>(ts, gray, a, is_ap, mb, mv);
+      if constexpr (OBS) {
+        if (sel >= 0 && obs::corrupt_fires<ARMS>(pd, ts, gray, a)) {
+          if (is_ap) mv ^= 64;
+          else mb = wrap_add(mb, 1);
+          corrupt_m |= 1u << a;
+        }
+      } else if (sel >= 0) {
+        sd::corrupt<ARMS>(ts, gray, a, is_ap, mb, mv);
+      }
       const bool eq = (equiv >> a) & 1u;
       const int32_t vo_old = voted[a], et_old = ent_term[a], ev_old = ent_val[a];
       // One vote per term plus the election restriction; equivocators
@@ -359,7 +435,9 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       // every REQVOTE is answered with the pre-update entry (VOTE for
       // candidate sel); accepted APPENDs are acknowledged (ACK for leader
       // sel - P); a flaky link drops either against its own threshold.
-      if (is_rv && sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, sel * A + a, n, i)) {
+      if (is_rv &&
+          (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepProm, 0, sel * A + a, n, i)
+               : sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, sel * A + a, n, i))) {
         const int jr = sel * A + a;
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = wrap_add(
@@ -367,7 +445,9 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
         col[G::kRpV2 + jr] = eq ? 0 : ev_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_ap && sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, (sel - P) * A + a, n, i)) {
+      if (ok_ap &&
+          (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepAccd, 1, (sel - P) * A + a, n, i)
+               : sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, (sel - P) * A + a, n, i))) {
         const int jr = sel * A + a;
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
@@ -378,8 +458,20 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       if (sel >= 0) {
         const int j = sel * A + a;
         if (!(sd::dup_live<ARMS>(prm, gray) &&
-              sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, j, n, i)))
+              (OBS ? obs::dup_at<OBS, ARMS, S, E>(pd, ts, prm, gray, 0, j, kDupReq, n, i)
+                   : sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, j, n, i))))
           rq_next &= ~(1u << j);
+      }
+      // The planes' counts (OBS): a voter that answers and whose reply slot
+      // was not written dropped its reply; a selected request that stays
+      // was duplicated.
+      if constexpr (OBS) {
+        grant_m |= (grant ? 1u : 0u) << a;
+        if (sel >= 0) {
+          const int j = sel * A + a;
+          n_drop += (is_rv || ok_ap) && !((rp_sent >> j) & 1u) ? 1 : 0;
+          n_dup += (rq_next >> j) & 1u;
+        }
       }
 
       // Voter-local invariants (honest voters only).
@@ -394,8 +486,12 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     }
     // The replies' delay stamps (the stamp draws are keyed by the slot, so
     // one rolled loop serves every reply site).
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i,
+                            tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
+    }
     rp_present = rp_next | rp_sent;
     rp_written |= rp_sent;
     rq_present = rq_next;
@@ -413,30 +509,113 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       if ((leading | expired) >> p & 1u) {
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
-          if (((leading >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, p * A + a, n, i)) {
+          if (((leading >> p) & 1u) &&
+              (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepP2, 3, p * A + a, n, i)
+                   : sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, p * A + a, n, i))) {
             const int j = (kAppend * P + p) * A + a;  // APPEND(term, value), every tick
             col[G::kRqBal + j] = bal[p];
             col[G::rq_v1(j)] = prop_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, p * A + a, n, i)) {
+          if (((expired >> p) & 1u) &&
+              (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepP1, 2, p * A + a, n, i)
+                   : sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, p * A + a, n, i))) {
             const int j = (kReqVote * P + p) * A + a;  // REQVOTE(next term, entry term)
             col[G::kRqBal + j] = bal[p];
             col[G::rq_v1(j)] = c_term[p];
             rq_sent |= 1u << j;
           }
         }
+        if constexpr (OBS) {  // the broadcasts' dropped sends: the slots not written
+          const uint32_t app = (rq_sent >> ((kAppend * P + p) * A)) & kVoters;
+          const uint32_t rv = (rq_sent >> ((kReqVote * P + p) * A)) & kVoters;
+          n_drop += ((leading >> p) & 1u ? A - __popc(app) : 0) +
+                    ((expired >> p) & 1u ? A - __popc(rv) : 0);
+        }
       }
-      if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
+      // (An observed tick clamps after the planes: the digest reads the
+      // terms as the tick left them.)
+      if (!OBS && prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i,
+                            tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
+    }
     rq_present |= rq_sent;
     rq_written |= rq_sent;
     clk.mark(kPhSends);
+
+    // ---- The observer planes (OBS), from the tick's events, in the plain
+    //      tick's order: telemetry, exposure, margin, workload, coverage. ----
+    if constexpr (OBS) {
+      const bool decided_now = lrn.chosen && !chosen0;
+      ev[obs::kEvPromise] = __popc(grant_m);
+      ev[obs::kEvAccept] = __popc(ev_flag);
+      ev[obs::kEvDecide] = decided_now ? 1 : 0;
+      ev[obs::kEvConflict] = wrap_add(lrn.violations, -viol0);
+      ev[obs::kEvLeader] = __popc(elected_m);
+      ev[obs::kEvTimeout] = __popc(expired);
+      ev[obs::kEvDrop] = n_drop;
+      ev[obs::kEvDup] = n_dup;
+      ev[obs::kEvCorrupt] = __popc(corrupt_m);
+      eff[obs::kClDrop] = n_drop;
+      eff[obs::kClDup] = n_dup;
+      eff[obs::kClCorrupt] = __popc(corrupt_m);
+      if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
+      obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
+      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
+      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.mar()) {
+        obs::margin<P, R0, K, A, G::kLtBal>(col, quorum_of, lrn.chosen, lrn.chosen_val,
+                                            decided_now, voted, ent_term, ~equiv & kVoters);
+      }
+      if (ob.wl()) obs::workload<P, R0>(col, ob, ts, tick, serve_m, n, i);
+      if (ob.cov()) {
+        // The coverage digest of the lane's state (obs/coverage.py digest_tree:
+        // the voters with their shadows, the candidates, both buffers with their
+        // stamps), in the reference's leaf and row order.
+        obs::Digest d;
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(voted[a]);
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(ent_term[a]);
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(ent_val[a]);
+        obs::fold_shadows<A, SNAP>(d, ob, L, n, i);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(bal[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(phase[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(own_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(prop_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(heard[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(c_term[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(c_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(timer[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
+        obs::fold_buffers<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written, rq_present,
+                                      rp_present);
+        obs::coverage<P, R0>(col, ob, d.value(), n, i);
+      }
+      if (prm.clamp_per_tick) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+      }
+      clk.mark(kPhObs);
+    }
   }
 
   draws.flush();
+  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
 
   // ---- Store the lane's state once. ----
 #pragma unroll
@@ -467,43 +646,63 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   clk.flush();
 }
 
-// One instantiation, ready to launch (SmemInst in fused_common.cuh): the
-// arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+// One instantiation, ready to launch (SmemInst in fused_common.cuh): an
+// arms instantiation's kernel takes a Gray after Params, an observed one an
+// obs::Obs after that, and its column holds the planes' counters
+// (obs::Rows) after the staged rows.
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
+using InstWith = SmemInst<
+    fused_raftcore_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Arms...>, B,
+    (SdStaged<P, A, K, true, STAMPED>::kRows +
+     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
 struct InstOf {
-  using type = SmemInst<fused_raftcore_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
-                        SdStaged<P, A, K, true, STAMPED>::kRows * B * 4>;
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS>;
 };
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
-struct InstOf<P, A, K, STAMPED, true, B, MIN_BLOCKS> {
-  using type = SmemInst<fused_raftcore_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>, B,
-                        SdStaged<P, A, K, true, STAMPED>::kRows * B * 4>;
+struct InstOf<P, A, K, STAMPED, true, false, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>;
 };
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
-using Inst = typename InstOf<P, A, K, STAMPED, ARMS, B, MIN_BLOCKS>::type;
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, false, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, true, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, B,
-// MIN_BLOCKS): one per shape, stamps and arms flag, at the geometry
-// fused_tick.FR_STAGING["raftcore"] gives it; MIN_BLOCKS, the blocks an SM
-// is to hold, caps a thread's registers.  The arms and the stamps run at
-// (2,5,8), the shape of every config that sets them; the stamped column
-// (154 words) leaves room for 2 blocks of 128 lanes or 11 of 32, which
-// hold 11 warps and ran faster (fused_tick.FR_STAGING).
-#define K3_INSTANCES(X)      \
-  X(2, 5, 8, 0, 0, 128, 3)   \
-  X(2, 3, 8, 0, 0, 128, 3)   \
-  X(2, 5, 8, 0, 1, 128, 3)   \
-  X(2, 5, 8, 1, 0, 32, 11)   \
-  X(2, 5, 8, 1, 1, 32, 11)
+// The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, OBS, B,
+// MIN_BLOCKS): one per shape, stamps, arms and observer flag, at the
+// geometry fused_tick.FR_STAGING["raftcore"] gives it; MIN_BLOCKS, the
+// blocks an SM is to hold, caps a thread's registers.  The arms, the stamps
+// and the planes run at (2,5,8), the shape of every config that sets them;
+// the stamped column (154 words) leaves room for 2 blocks of 128 lanes or
+// 11 of 32, which hold 11 warps and ran faster (fused_tick.FR_STAGING);
+// the observed columns (163 and 203 words) for 2 blocks of 128.
+#define K3_INSTANCES(X)         \
+  X(2, 5, 8, 0, 0, 0, 128, 3)   \
+  X(2, 3, 8, 0, 0, 0, 128, 3)   \
+  X(2, 5, 8, 0, 1, 0, 128, 3)   \
+  X(2, 5, 8, 1, 0, 0, 32, 11)   \
+  X(2, 5, 8, 1, 1, 0, 32, 11)   \
+  X(2, 5, 8, 0, 0, 1, 128, 2)   \
+  X(2, 5, 8, 0, 1, 1, 128, 2)   \
+  X(2, 5, 8, 1, 0, 1, 128, 2)   \
+  X(2, 5, 8, 1, 1, 1, 128, 2)
 
-// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, k_slots, stamped, arms), or
-// returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`
+// for the instantiation `dims` names (n_prop, n_acc, k_slots, stamped,
+// arms, observed), or returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K3_MATCH(P_, A_, K_, S_, R_, B_, M_)                                                \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_) \
-    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
+#define K3_MATCH(P_, A_, K_, S_, R_, O_, B_, M_)                                              \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_ && \
+      dims[5] == O_)                                                                       \
+    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, O_ != 0, B_, M_>{},                       \
+              std::bool_constant<R_ != 0>{}, std::bool_constant<O_ != 0>{});
   K3_INSTANCES(K3_MATCH)
 #undef K3_MATCH
   return cudaErrorInvalidValue;
@@ -515,34 +714,51 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 // fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped (1: the
 // state's buffers carry delay stamps, which p_delay > 0 needs), arms (1:
 // the instantiation with the gray-failure and partition arms, which a knob
-// of theirs needs), then the dynamic shared bytes a block,
-// fused_tick.FR_STAGING's); the state's leaves are 28, 30 with the stamps,
-// and 3 more with snapshot shadows, which stale_k > 0 needs; `tick` is the
-// device int32 tick scalar, read by the kernel and advanced by the caller.
-// Returns cudaSuccess or the first error: an unknown instantiation, a leaf
-// count that is not its state's (a stamped state on an unstamped one), a
-// knob on without its arms or its arms without a knob, stale_k without
-// snapshots, p_delay without the stamps or the plan's link_delay, or too
-// few shared bytes (cudaErrorInvalidValue), a shared-memory request the
-// card refuses, or the launch's cudaGetLastError().
+// of theirs needs), observed (1: the instantiation with the observer
+// planes, which a state carrying one needs), then the dynamic shared bytes
+// a block, fused_tick.FR_STAGING's); the state's leaves are 28, 30 with the
+// stamps, and 3 more with snapshot shadows, which stale_k > 0 needs; `tick`
+// is the device int32 tick scalar, read by the kernel and advanced by the
+// caller; the observer leaves and their sizes (obs::read_obs_args) come
+// last, none for an instantiation that is not observed.  Returns
+// cudaSuccess or the first error: an unknown instantiation, a leaf count
+// that is not its state's (a stamped state on an unstamped one), a knob on
+// without its arms or its arms without a knob, stale_k without snapshots,
+// p_delay without the stamps or the plan's link_delay, observer arguments
+// that do not fit the instantiation or each other, or too few shared bytes
+// (cudaErrorInvalidValue), a shared-memory request the card refuses, or the
+// launch's cudaGetLastError().
 extern "C" int fused_raftcore_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                      void** plan, void* tick, const long long* params, int n_params,
-                                     void* stream) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
+                                     void* stream, void** obs_leaves, int n_obs,
+                                     const long long* obs_params, int n_obs_params) {
+  if (n_dims != 7) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
-  const cudaError_t bad =
-      read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray,
-                     kLeaves, 3, 3, dims[3] != 0);
+  cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params, &L,
+                                   &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
   if (bad != cudaSuccess) return bad;
+  obs::Obs ob{};
+  if (dims[5] != 0) {
+    bad = obs::read_obs_args(obs_leaves, n_obs, obs_params, n_obs_params, &ob);
+    if (bad != cudaSuccess) return bad;
+    const bool snaps = n_leaves == kLeaves + (dims[3] != 0 ? 2 : 0) + 3;
+    if ((ob.snaps != 0) != snaps) return cudaErrorInvalidValue;
+  } else if (n_obs != 0 || n_obs_params != 0) {
+    return cudaErrorInvalidValue;
+  }
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto with_arms) {
-    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
-    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto with_arms, auto with_obs) {
+    constexpr bool R = decltype(with_arms)::value, O = decltype(with_obs)::value;
+    using I = decltype(inst);
+    if constexpr (R && O) return I::launch(L, pl, t, prm, smem, s, gray, ob);
+    else if constexpr (R) return I::launch(L, pl, t, prm, smem, s, gray);
+    else if constexpr (O) return I::launch(L, pl, t, prm, smem, s, ob);
+    else return I::launch(L, pl, t, prm, smem, s);
   });
 }
 
@@ -550,7 +766,9 @@ extern "C" int fused_raftcore_launch(const int* dims, int n_dims, void** leaves,
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_raftcore_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 7) return cudaErrorInvalidValue;
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto, auto) {
+    return decltype(inst)::occupancy(smem, blocks_per_sm);
+  });
 }

@@ -39,11 +39,12 @@ the kernels' instantiations mirror; the wrapper passes them the shared
 bytes.  :func:`phase_clocks` runs the phase-clock build of K1 to K4, which
 splits a lane's cycles by phase of the tick.
 
-K1 also computes the observer planes a Paxos state carries (telemetry,
-coverage, exposure, margin, the client workload), in observed
-instantiations of its own (the last field of its keys, ``observed``),
-which take the planes' leaves as a separate argument (:func:`_obs_args`)
-and keep their counters in the lane's column (:func:`obs_rows`).
+K1, K2 and K3 also compute the observer planes a Paxos, Fast Paxos or
+Raft-core state carries (telemetry, coverage, exposure, margin, the client
+workload), in observed instantiations of their own (the last field of
+their keys, ``observed``), which take the planes' leaves as a separate
+argument (:func:`_obs_args`) and keep their counters in the lane's column
+(:func:`obs_rows`).
 """
 
 from __future__ import annotations
@@ -81,8 +82,10 @@ BALLOT_GROWTH_PER_TICK = 16
 
 # Shapes each CUDA kernel is instantiated for, the last two fields of each
 # ``stamped`` (1: delay stamps, p_delay > 0) and ``arms`` (1: the
-# gray-failure and partition arms): Paxos, Fast Paxos and Raft-core
-# (n_prop, n_acc, k_slots, stamped, arms) of config2/config4 or config5,
+# gray-failure and partition arms), K1's, K2's and K3's followed by
+# ``observed`` (1: the observer planes, at (2, 5, 8) with and without the
+# stamps and the arms): Paxos, Fast Paxos and Raft-core (n_prop, n_acc,
+# k_slots, stamped, arms, observed) of config2/config4 or config5,
 # and config1 (Paxos) or (2, 3, 8), the three-acceptor shape the
 # reference's own kernel tests run (tests/test_fused.py), with the arms
 # and the stamps at (2, 5, 8), the shape of every config that sets them,
@@ -92,16 +95,18 @@ BALLOT_GROWTH_PER_TICK = 16
 # and with them; Multi-Paxos (n_prop, n_acc, log_len, k_slots, stamped,
 # arms) of config3, config3-long, the reference tests' 4-slot window, and
 # three acceptors, with the arms and the stamps at config3's (2, 5, 8, 4).
-_SD_SHAPES = ((2, 5, 8, 0, 0), (2, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1))
+_OBSERVED_SHAPES = ((2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1), (2, 5, 8, 1, 1, 1))
+_FR_SHAPES = (
+    (2, 5, 8, 0, 0, 0), (2, 3, 8, 0, 0, 0), (2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 0, 0),
+    (2, 5, 8, 1, 1, 0),
+) + _OBSERVED_SHAPES
 KERNEL_SHAPES = {
-    # Paxos' keys end in ``observed`` (1: the observer planes, OBSERVED_SHAPES).
     "paxos": (
         (2, 5, 8, 0, 0, 0), (1, 3, 8, 0, 0, 0), (2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 0, 0),
-        (2, 5, 8, 1, 1, 0), (2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1),
-        (2, 5, 8, 1, 1, 1),
-    ),
-    "fastpaxos": _SD_SHAPES,
-    "raftcore": _SD_SHAPES,
+        (2, 5, 8, 1, 1, 0),
+    ) + _OBSERVED_SHAPES,
+    "fastpaxos": _FR_SHAPES,
+    "raftcore": _FR_SHAPES,
     "synchpaxos": ((2, 5, 8, 1, 0), (2, 5, 8, 0, 0), (2, 3, 8, 1, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 1)),
     "multipaxos": (
         (2, 5, 8, 4, 0, 0), (2, 5, 16, 4, 0, 0), (2, 5, 4, 4, 0, 0), (2, 3, 8, 4, 0, 0),
@@ -279,7 +284,8 @@ def fr_staged_rows(
 
 
 def obs_rows(n_prop: int) -> int:
-    """Words of a lane's column that an observed instantiation of K1 adds
+    """Words of a lane's column that an observed instantiation of K1, K2
+    or K3 adds
     for the planes' counters (``obs::Rows`` in csrc/fused_common.cuh): the
     12 event counters, the ring's cursor and word count, the 7 injected
     and 7 effective exposure counts, the 4 margins, coverage's new bits,
@@ -288,9 +294,10 @@ def obs_rows(n_prop: int) -> int:
 
 
 def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
-    # The key: (P, A, K, stamped, arms), Paxos' with ``observed`` last.
+    # The key: (P, A, K, stamped, arms, observed); an older source's, which
+    # chip_ab.py launches, may lack the observed flag.
     rows = fr_staged_rows(protocol, *shape[:4])
-    if protocol == "paxos" and len(shape) > 5 and shape[5]:
+    if len(shape) > 5 and shape[5]:
         rows += obs_rows(shape[0])
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
@@ -310,25 +317,35 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # 3 3.791 and 3.746, 32 x 11 3.448 and 3.473 (one call, PERF.md §6), so K3
 # stamped takes 32 x 11.  Each arms instantiation keeps its default's
 # column (the snapshot shadows stay in global memory), and its registers
-# are capped for its default's blocks (the unstamped arms: 3).
+# are capped for its default's blocks (the unstamped arms: 3).  The
+# observed instantiations of K2 (153 words, 193 stamped) and K3 (163, 203)
+# take K1's 2 blocks of 128 lanes (8 warps).  K3's stamped observed column
+# would also fit 8 blocks of 32 (8 warps too), where its planes-off
+# stamped column takes 11 of 32; on delaychaos-raftcore with every plane
+# on, 128 x 2 ran its steady chunk in 28.482 and 28.501 ms, 32 x 8 in
+# 28.863 and 28.811, its first chunk 40.099 / 40.132 against 42.240 /
+# 42.092, its column load and store 1.210 against 1.426 ms (one call of
+# chip_ab.py --planes, PERF.md section 6): it keeps 128 x 2.
 FR_STAGING = {
     "paxos": {
         shape: _fr_staging("paxos", shape, 128, 2 if shape[5] else 4 if shape[3:5] == (0, 0) else 3)
         for shape in KERNEL_SHAPES["paxos"]
     },
     "fastpaxos": {
-        (2, 5, 8, 0, 0): _fr_staging("fastpaxos", (2, 5, 8, 0, 0), 128, 4),
-        (2, 3, 8, 0, 0): _fr_staging("fastpaxos", (2, 3, 8, 0, 0), 128, 3),
-        (2, 5, 8, 0, 1): _fr_staging("fastpaxos", (2, 5, 8, 0, 1), 128, 3),
-        (2, 5, 8, 1, 0): _fr_staging("fastpaxos", (2, 5, 8, 1, 0), 128, 3),
-        (2, 5, 8, 1, 1): _fr_staging("fastpaxos", (2, 5, 8, 1, 1), 128, 3),
+        (2, 5, 8, 0, 0, 0): _fr_staging("fastpaxos", (2, 5, 8, 0, 0, 0), 128, 4),
+        (2, 3, 8, 0, 0, 0): _fr_staging("fastpaxos", (2, 3, 8, 0, 0, 0), 128, 3),
+        (2, 5, 8, 0, 1, 0): _fr_staging("fastpaxos", (2, 5, 8, 0, 1, 0), 128, 3),
+        (2, 5, 8, 1, 0, 0): _fr_staging("fastpaxos", (2, 5, 8, 1, 0, 0), 128, 3),
+        (2, 5, 8, 1, 1, 0): _fr_staging("fastpaxos", (2, 5, 8, 1, 1, 0), 128, 3),
+        **{shape: _fr_staging("fastpaxos", shape, 128, 2) for shape in _OBSERVED_SHAPES},
     },
     "raftcore": {
-        (2, 5, 8, 0, 0): _fr_staging("raftcore", (2, 5, 8, 0, 0), 128, 3),
-        (2, 3, 8, 0, 0): _fr_staging("raftcore", (2, 3, 8, 0, 0), 128, 3),
-        (2, 5, 8, 0, 1): _fr_staging("raftcore", (2, 5, 8, 0, 1), 128, 3),
-        (2, 5, 8, 1, 0): _fr_staging("raftcore", (2, 5, 8, 1, 0), 32, 11),
-        (2, 5, 8, 1, 1): _fr_staging("raftcore", (2, 5, 8, 1, 1), 32, 11),
+        (2, 5, 8, 0, 0, 0): _fr_staging("raftcore", (2, 5, 8, 0, 0, 0), 128, 3),
+        (2, 3, 8, 0, 0, 0): _fr_staging("raftcore", (2, 3, 8, 0, 0, 0), 128, 3),
+        (2, 5, 8, 0, 1, 0): _fr_staging("raftcore", (2, 5, 8, 0, 1, 0), 128, 3),
+        (2, 5, 8, 1, 0, 0): _fr_staging("raftcore", (2, 5, 8, 1, 0, 0), 32, 11),
+        (2, 5, 8, 1, 1, 0): _fr_staging("raftcore", (2, 5, 8, 1, 1, 0), 32, 11),
+        **{shape: _fr_staging("raftcore", shape, 128, 2) for shape in _OBSERVED_SHAPES},
     },
 }
 
@@ -456,12 +473,12 @@ BINDINGS = {
     "fastpaxos": Binding(
         apply_tick_fast, counter_masks, FastPaxosState, "fused_fastpaxos_tick",
         "fused_fastpaxos_launch", shape_fields=("n_prop", "n_acc", "k_slots", "stamped"),
-        staging=FR_STAGING["fastpaxos"], arms=gray_arms,
+        staging=FR_STAGING["fastpaxos"], arms=gray_arms, observed=True,
     ),
     "raftcore": Binding(
         apply_tick_raft, counter_masks, RaftState, "fused_raftcore_tick", "fused_raftcore_launch",
         shape_fields=("n_prop", "n_acc", "k_slots", "stamped"), staging=FR_STAGING["raftcore"],
-        arms=gray_arms,
+        arms=gray_arms, observed=True,
     ),
     # core/sp_state.py SP_LAYOUT: the single-decree widths; as Paxos.
     "synchpaxos": Binding(
@@ -512,11 +529,11 @@ PHASES = {
     ),
     "fastpaxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
-        "learner", "proposer sends", "column store",
+        "learner", "proposer sends", "observers", "column store",
     ),
     "raftcore": (
         "column load", "reply delivery", "candidate fold", "voter half-tick",
-        "learner", "candidate sends", "column store",
+        "learner", "candidate sends", "observers", "column store",
     ),
     "synchpaxos": (
         "column load", "stamp refresh", "reply delivery", "proposer fold",
@@ -874,7 +891,8 @@ def fused_paxos_chunk(
     Multi-Paxos.  A state with delay stamps runs a stamped instantiation,
     and ``p_delay > 0`` needs a plan with ``link_delay``; so do the other
     four.  A state that carries an observer plane runs an observed
-    instantiation, which computes every plane the state carries.
+    instantiation, which computes every plane the state carries; so do
+    Fast Paxos and Raft-core.
     CPU: the plain :func:`reference_chunk`.  There is no fallback between
     the two: the device of the state decides."""
     return _fused_chunk(

@@ -16,7 +16,11 @@ transport and fault machinery as single-decree Paxos; what differs:
 The gray-failure and partition arms are the Paxos tick's (stale-snapshot
 restore and amnesia, cuts, flaky links, corruption, timer skew), and so is
 the bounded delay (stamped sends, readiness gates), through the pieces the
-three ticks share.  Observer planes are absent, as in the Paxos tick.
+three ticks share.  So are the observer planes (telemetry, exposure,
+margin, the client workload, coverage last on the post-tick state), through
+:func:`~paxos_tpu_torch.protocols.paxos.observer_planes`, with Fast Paxos'
+signals: a fast or classic decide serves a client request, and the margin
+takes a round-0 slot's threshold from the fast quorum, as the learner does.
 """
 
 from __future__ import annotations
@@ -40,9 +44,12 @@ from paxos_tpu_torch.protocols.paxos import (
     deliver,
     gray_links,
     kind_until,
+    observer_planes,
     recover,
     select,
+    skew_delta,
     skewed_timers,
+    with_coverage,
 )
 from paxos_tpu_torch.transport import inmemory as net
 from paxos_tpu_torch.utils.bitops import popcount
@@ -172,7 +179,9 @@ def apply_tick_fast(
 
     timer = torch.where(prop.phase == DONE, prop.timer, prop.timer + 1)
     timeout, backoff = skewed_timers(masks, plan, cfg)
-    expired = (prop.phase != DONE) & ~p1_done & ~p2_done & ~fast_done & (timer > timeout)
+    pending = (prop.phase != DONE) & ~p1_done & ~p2_done & ~fast_done
+    expired = pending & (timer > timeout)
+    exp_timeout_delta = skew_delta(state, cfg, expired, pending, timer)
     pid = torch.arange(n_prop, dtype=torch.int32, device=dev)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
 
@@ -214,11 +223,22 @@ def apply_tick_fast(
         timer=timer,
         decided_val=decided_val,
     )
-    return FastPaxosState(
+    # ---- Observers: from signals the tick already produced. ----
+    planes = observer_planes(
+        state, masks, plan, cfg, links, learner, delivered=delivered, sel=sel,
+        sends=(sel[PREPARE] & ok_prep[None], sel[ACCEPT] & ok_acc[None], p1_done, expired),
+        kinds=(is_prep, is_acc), promise=ok_prep, accept=ok_acc, leader=p1_done,
+        timeout=expired, serve=p2_done | fast_done,
+        fence=(acc_new.promised, acc_new.acc_bal, ~equiv), quorum=q2, fast_quorum=fquorum,
+        timeout_delta=exp_timeout_delta,
+    )
+    return with_coverage(FastPaxosState(
         acceptor=acc_new,
         proposer=prop,
         learner=learner,
         requests=requests,
         replies=replies,
         tick=state.tick + 1,
-    )
+        coverage=state.coverage,
+        **planes,
+    ))

@@ -22,9 +22,11 @@ over its own buffers), for SynchPaxos ``sp_unsafe_fast``.  Any other knob raises
 
 The Paxos tick computes the observer planes its state carries (telemetry,
 exposure, margin, the client workload, coverage last on the post-tick
-state) at the reference's sites and in its order; they draw nothing but
-the workload's arrivals (the ``ARRIVAL`` stream, drawn only where the
-state carries the workload), so the schedule is the same with them on.
+state) at the reference's sites and in its order, through pieces the Fast
+Paxos and Raft-core ticks share (:func:`skew_delta`,
+:func:`observer_planes`, :func:`with_coverage`); they draw nothing but the
+workload's arrivals (the ``ARRIVAL`` stream, drawn only where the state
+carries the workload), so the schedule is the same with them on.
 """
 
 from __future__ import annotations
@@ -468,14 +470,9 @@ def apply_tick(
 
     timer = torch.where(prop.phase == DONE, prop.timer, prop.timer + 1)
     timeout, backoff = skewed_timers(masks, plan, cfg)
-    expired = (prop.phase != DONE) & ~p1_done & ~p2_done & (timer > timeout)
-    # Exposure: a skewed timeout is effective where the expiry decision
-    # differs from the unskewed timer's (taken before the timer rebases).
-    exp_timeout_delta = None
-    if state.exposure is not None and cfg.timeout_skew > 0:
-        exp_timeout_delta = expired ^ (
-            (prop.phase != DONE) & ~p1_done & ~p2_done & (timer > cfg.timeout)
-        )
+    pending = (prop.phase != DONE) & ~p1_done & ~p2_done
+    expired = pending & (timer > timeout)
+    exp_timeout_delta = skew_delta(state, cfg, expired, pending, timer)
     pid = torch.arange(n_prop, dtype=torch.int32, device=state.device)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
 
@@ -518,64 +515,106 @@ def apply_tick(
         decided_val=decided_val,
     )
     # ---- Observers: from signals the tick already produced. ----
-    tel, exp = state.telemetry, state.exposure
-    if tel is not None or exp is not None:
-        lc = tel_mod.lane_count
-        dropped = dups = None
-        if links.keep_prom is not None:
-            dropped = (
-                lc(sel[PREPARE] & ok_prep[None] & ~links.keep_prom)
-                + lc(sel[ACCEPT] & ok_acc[None] & ~links.keep_accd)
-                + lc(p1_done[:, None] & ~links.keep_p2)
-                + lc(expired[:, None] & ~links.keep_p1)
-            )
-        if links.dup_rep is not None:
-            dups = lc(delivered & links.dup_rep) + lc(sel & links.dup_req)
-    if tel is not None:
-        tel = tel_mod.record(
-            tel, state.tick,
-            promise=ok_prep, accept=ok_acc, decide=learner.chosen & ~state.learner.chosen,
-            conflict=learner.violations - state.learner.violations, leader=p1_done,
-            timeout=expired, drop=dropped, dup=dups,
-            corrupt=masks.corrupt & (is_prep | is_acc) if cfg.p_corrupt > 0.0 else None,
-            **tel_mod.fault_lane_events(plan, cfg, state.tick),
-        )
-    if exp is not None:
-        exp = exp_mod.record(exp, **_exposure_events(
-            state, masks, plan, cfg, links, is_prep, is_acc, dropped, dups, exp_timeout_delta,
-        ))
-    mar = state.margin
-    if mar is not None:
-        mar = margin_observe(mar, state.learner, learner, acc_new.promised, acc_new.acc_bal,
-                             ~equiv, q2)
-    wl = state.wload
-    if wl is not None:  # a proposer's commit edge serves one queued request
-        wl = wload_mod.observe(wl, state.tick, serve=p2_done, arrival_bits=masks.arrival_bits)
-    out = PaxosState(
+    planes = observer_planes(
+        state, masks, plan, cfg, links, learner, delivered=delivered, sel=sel,
+        sends=(sel[PREPARE] & ok_prep[None], sel[ACCEPT] & ok_acc[None], p1_done, expired),
+        kinds=(is_prep, is_acc), promise=ok_prep, accept=ok_acc, leader=p1_done,
+        timeout=expired, serve=p2_done, fence=(acc_new.promised, acc_new.acc_bal, ~equiv),
+        quorum=q2, timeout_delta=exp_timeout_delta,
+    )
+    return with_coverage(PaxosState(
         acceptor=acc_new,
         proposer=prop,
         learner=learner,
         requests=requests,
         replies=replies,
         tick=state.tick + 1,
-        telemetry=tel,
         coverage=state.coverage,
-        exposure=exp,
-        margin=mar,
-        wload=wl,
-    )
-    if out.coverage is not None:  # the post-tick state's digest
+        **planes,
+    ))
+
+
+def skew_delta(state, cfg: FaultConfig, expired, pending, timer) -> "torch.Tensor | None":
+    """Exposure's effective skewed timeouts (``timeout_skew``): where the
+    expiry decision of the proposers still ``pending`` (not done and not
+    advancing this tick) differs from the unskewed timer's; taken before
+    the timer rebases, and None where exposure or the skew is off."""
+    if state.exposure is None or cfg.timeout_skew <= 0:
+        return None
+    return expired ^ (pending & (timer > cfg.timeout))
+
+
+def observer_planes(
+    state, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, links: Links, learner, *,
+    delivered, sel, sends: tuple, kinds: tuple, promise, accept, leader, timeout, serve,
+    fence: tuple, quorum: int, fast_quorum: "int | None" = None, timeout_delta=None,
+) -> dict:
+    """The observer planes of the single-decree ticks after one tick (all
+    but coverage, which hashes the post-tick state: :func:`with_coverage`),
+    each None where the state carries none, from the tick's own signals:
+    the replies ``delivered`` and the requests selected (``sel``), whose
+    duplicates telemetry and exposure count; ``sends``, the send masks of
+    the tick's four kinds (the kind-0 and kind-1 replies, (P, A, I), then
+    the kind-1 and kind-0 requests, (P, I) proposers that broadcast them;
+    ``links``' keep_prom, keep_accd, keep_p2 and keep_p1 decide them),
+    whose dropped sends telemetry and exposure count; ``kinds``, the acceptors that selected a kind-0 and a kind-1
+    request (corruption's effective mask); telemetry's promise, accept,
+    leader and timeout events; the proposers whose commit edge serves a
+    queued client request (``serve``); the post-tick acceptor ``fence``
+    (promise fence, accepted ballot, honest acceptors) and the ``quorum``
+    (with ``fast_quorum``, a round-0 slot's) that the margin reads; and
+    exposure's skewed-timeout delta (:func:`skew_delta`).  They draw
+    nothing but the workload's arrivals (``masks.arrival_bits``)."""
+    tel, exp = state.telemetry, state.exposure
+    dropped = dups = None
+    if tel is not None or exp is not None:
+        lc = tel_mod.lane_count
+        if links.keep_prom is not None:
+            rep0, rep1, req1, req0 = sends
+            dropped = (
+                lc(rep0 & ~links.keep_prom) + lc(rep1 & ~links.keep_accd)
+                + lc(req1[:, None] & ~links.keep_p2) + lc(req0[:, None] & ~links.keep_p1)
+            )
+        if links.dup_rep is not None:
+            dups = lc(delivered & links.dup_rep) + lc(sel & links.dup_req)
+    effective_corrupt = masks.corrupt & (kinds[0] | kinds[1]) if cfg.p_corrupt > 0.0 else None
+    if tel is not None:
+        tel = tel_mod.record(
+            tel, state.tick,
+            promise=promise, accept=accept, decide=learner.chosen & ~state.learner.chosen,
+            conflict=learner.violations - state.learner.violations, leader=leader,
+            timeout=timeout, drop=dropped, dup=dups, corrupt=effective_corrupt,
+            **tel_mod.fault_lane_events(plan, cfg, state.tick),
+        )
+    if exp is not None:
+        exp = exp_mod.record(exp, **_exposure_events(
+            state, masks, plan, cfg, links, effective_corrupt, dropped, dups, timeout_delta,
+        ))
+    mar = state.margin
+    if mar is not None:
+        mar = margin_observe(mar, state.learner, learner, *fence, quorum, fast_quorum=fast_quorum)
+    wl = state.wload
+    if wl is not None:  # a proposer's commit edge serves one queued request
+        wl = wload_mod.observe(wl, state.tick, serve=serve, arrival_bits=masks.arrival_bits)
+    return dict(telemetry=tel, exposure=exp, margin=mar, wload=wl)
+
+
+def with_coverage(out):
+    """``out``, a post-tick state, with its coverage sketch folding its
+    own digest (where it carries the plane)."""
+    if out.coverage is not None:
         out.coverage = cov_mod.observe(out.coverage, out)
     return out
 
 
 def _exposure_events(
-    state, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, links: Links, is_prep, is_acc,
+    state, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig, links: Links, effective_corrupt,
     dropped, dups, timeout_delta,
 ) -> dict:
     """The exposure classes' (injected, effective) pairs of a tick, each
     class only where its knob is on: every fault sampled this tick against
-    those that changed something the protocol did or saw."""
+    those that changed something the protocol did or saw (a corruption:
+    where its acceptor processed a request, ``effective_corrupt``)."""
     lc = tel_mod.lane_count
     events = {}
     if links.keep_prom is not None:
@@ -586,7 +625,7 @@ def _exposure_events(
     if links.dup_rep is not None:
         events["dup"] = (lc(links.dup_req) + lc(links.dup_rep), dups)
     if cfg.p_corrupt > 0.0:
-        events["corrupt"] = (masks.corrupt, masks.corrupt & (is_prep | is_acc))
+        events["corrupt"] = (masks.corrupt, effective_corrupt)
     if links.link_req is not None:  # the cut stalled what was in flight
         events["partition"] = (
             lc(~links.link_req) + lc(~links.link_rep),

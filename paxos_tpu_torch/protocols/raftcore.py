@@ -9,8 +9,14 @@ not apply).  The gray-failure and partition arms are the Paxos tick's,
 through the pieces the three ticks share: stale recovery restores the
 voters' (voted, entry term, entry value), and corruption flips an APPEND's
 value and moves a REQVOTE's term up one.  The bounded delay is the Paxos
-tick's too (stamped sends, readiness gates).  Observer planes are absent,
-as in the Paxos tick.
+tick's too (stamped sends, readiness gates), and so are the observer
+planes, through :func:`~paxos_tpu_torch.protocols.paxos.observer_planes`,
+with Raft-core's signals: grants are telemetry's promises, acks its
+accepts, elections its leaders; every REQVOTE is answered, so a dropped
+VOTE counts wherever one was selected, and a leader re-sends APPEND every
+tick, so a dropped APPEND counts for every leader; a commit serves a
+client request; the margin reads the vote fence and the entry's term
+against the majority.
 """
 
 from __future__ import annotations
@@ -41,9 +47,12 @@ from paxos_tpu_torch.protocols.paxos import (
     deliver,
     gray_links,
     kind_until,
+    observer_planes,
     recover,
     select,
+    skew_delta,
     skewed_timers,
+    with_coverage,
 )
 from paxos_tpu_torch.transport import inmemory as net
 
@@ -153,7 +162,9 @@ def apply_tick_raft(
 
     timer = torch.where(cand.phase == DONE, cand.timer, cand.timer + 1)
     timeout, backoff = skewed_timers(masks, plan, cfg)
-    expired = (cand.phase != DONE) & ~elected & ~committed & (timer > timeout)
+    pending = (cand.phase != DONE) & ~elected & ~committed
+    expired = pending & (timer > timeout)
+    exp_timeout_delta = skew_delta(state, cfg, expired, pending, timer)
     pid = torch.arange(n_prop, dtype=torch.int32, device=dev)[:, None]
     new_bal = make_ballot(ballot_round(cand.bal) + cfg.ballot_stride, pid)
 
@@ -175,9 +186,10 @@ def apply_tick_raft(
     # Emit: leaders re-broadcast AppendEntries every tick; expired
     # candidates broadcast RequestVote at the next term with their entry term.
     zeros = torch.zeros((n_prop, 1, n_inst), dtype=torch.int32, device=dev)
+    is_lead = phase == LEAD
     requests = net.send(
         requests, APPEND,
-        send_mask=(phase == LEAD)[:, None].expand(n_prop, n_acc, n_inst),
+        send_mask=is_lead[:, None].expand(n_prop, n_acc, n_inst),
         bal=bal_next[:, None], v1=prop_val[:, None], v2=zeros,
         keep=links.keep_p2, until=kind_until(until_req, APPEND),
     )
@@ -198,11 +210,22 @@ def apply_tick_raft(
         timer=timer,
         decided_val=decided_val,
     )
-    return RaftState(
+    # ---- Observers: from signals the tick already produced. ----
+    planes = observer_planes(
+        state, masks, plan, cfg, links, learner, delivered=delivered, sel=sel,
+        sends=(sel[REQVOTE], sel[APPEND] & ok_ap[None], is_lead, expired),
+        kinds=(is_rv, is_ap), promise=grant, accept=ok_ap, leader=elected,
+        timeout=expired, serve=committed,
+        fence=(voter_new.voted, voter_new.ent_term, ~equiv), quorum=quorum,
+        timeout_delta=exp_timeout_delta,
+    )
+    return with_coverage(RaftState(
         acceptor=voter_new,
         proposer=cand,
         learner=learner,
         requests=requests,
         replies=replies,
         tick=state.tick + 1,
-    )
+        coverage=state.coverage,
+        **planes,
+    ))

@@ -200,6 +200,124 @@ def jax_path_blocks(path, jcfg, blocks, block, limit):
     return got
 
 
+
+def observed_config(protocol, make, n=256, seed=7):
+    """The SimConfig ``make(n, seed)`` on ``protocol`` with every observer
+    plane on at chip_smoke's settings (``obs_planes``)."""
+    return chip_smoke.with_planes(dataclasses.replace(make(n, seed), protocol=protocol))
+
+
+def check_observed_golden(protocol, make, golden, ticks=32):
+    """``protocol``'s plain tick with every observer plane on (config
+    ``make`` at 256 lanes, seed 7) over ``ticks`` ticks on the fault-free
+    plan: the state but the planes must have the digest ``golden``, as the
+    planes-off state has."""
+    tcfg = observed_config(protocol, make)
+    plan = trun.init_plan(tcfg, "cpu")
+    got = tfused.FUSED_CHUNKS[protocol](chip_smoke.path_state(tcfg, "cpu"), tcfg.seed, plan,
+                                        tcfg.fault, ticks)
+    assert got.planes == ("telemetry", "coverage", "exposure", "margin", "wload")
+    assert chip_smoke.digest(chip_smoke.without_planes(got).leaves()) == golden
+    bare = trun.init_state(make(tcfg.n_inst, tcfg.seed), "cpu")
+    bare = tfused.FUSED_CHUNKS[protocol](bare, tcfg.seed, plan, tcfg.fault, ticks)
+    assert chip_smoke.digest(bare.leaves()) == chip_smoke.GOLDENS[protocol] == golden
+
+
+def check_observed_against_jax(protocol, make, lit, ticks=32):
+    """``protocol``'s plain tick with every observer plane on (config
+    ``make`` at 256 lanes, seed 7) against the JAX package's
+    ``reference_chunk`` with ``fused_fns(protocol)`` over ``ticks`` ticks
+    from the same initial state (the JAX package's workload plan carried
+    across), on chip_smoke's numpy plan: the whole state leaf for leaf, the
+    exposure classes ``lit`` lit (injected and effective), and every plane
+    moved."""
+    from test_torch_obs_paxos import FAST_COMPILE, both_initial_states, jax_config
+
+    from paxos_tpu_torch.obs.exposure import CLASSES
+
+    tcfg = observed_config(protocol, make)
+    binding = tfused.BINDINGS[protocol]
+    jcfg = jax_config(tcfg)
+    jstate, state = both_initial_states(tcfg)
+    plan = chip_smoke.config_plan(tcfg, tcfg.seed, "cpu")
+    apply_fn, mask_fn, _ = fused_fns(protocol)
+    want = jax.jit(
+        lambda st, pl: j_reference_chunk(st, tcfg.seed, pl, jcfg.fault, ticks, apply_fn, mask_fn),
+        compiler_options=FAST_COMPILE,
+    )(jstate, jax_plan_of(plan))
+    got = tfused.reference_chunk(
+        state, tcfg.seed, plan, tcfg.fault, ticks, apply_fn=binding.apply_fn
+    )
+    want = _np_leaves(want)
+    got_leaves = interop.state_to_numpy(got)
+    f = tcfg.fault
+    assert len(want) == len(got_leaves) == 52 + 3 * (f.stale_k > 0) + 2 * (f.p_delay > 0)
+    for i, (w, g) in enumerate(zip(want, got_leaves, strict=True)):
+        assert w.dtype == g.dtype and w.shape == g.shape, i
+        np.testing.assert_array_equal(w, g, err_msg=f"leaf {i}")
+    inj, eff = got.exposure.injected.sum(1).tolist(), got.exposure.effective.sum(1).tolist()
+    seen = {c for c, i, e in zip(CLASSES, inj, eff) if i and e}
+    assert lit <= seen, seen
+    assert int(got.telemetry.seq.sum()) > 0 and int(got.coverage.new_bits.sum()) > 0
+    assert int(got.wload.offered.sum()) > 0 and int((got.margin.promise_slack_min < 1 << 30).sum()) > 0
+    return got
+
+
+def check_observed_replay(protocol, make, ticks=48):
+    """``protocol``'s plain tick with the margin and workload planes on,
+    tick by tick on config ``make`` at 256 lanes, seed 5 (one whose checker
+    fires, so a quorum slack of 0 occurs): its margin leaves equal the JAX
+    package's ``np_margin_tick`` folded over its own learner and acceptor
+    (voter) trajectory, at the quorum its learner applies (Fast Paxos: the
+    fast quorum on a round-0 slot), and its queue leaves ``np_replay_queue``
+    over its own arrivals and commit edges."""
+    from paxos_tpu.obs import margin as jmar
+    from paxos_tpu.workload import generator as jgen
+    from paxos_tpu_torch.kernels.quorum import fast_quorum, majority
+    from paxos_tpu_torch.obs.margin import MarginConfig
+    from paxos_tpu_torch.workload.generator import WorkloadConfig
+
+    wl_cfg = WorkloadConfig(mix="mixed", queue_cap=4, rate=0.2, burst_rate=0.5)
+    base = make(256, 5)
+    tcfg = dataclasses.replace(base, protocol=protocol, margin=MarginConfig(True), workload=wl_cfg)
+    plan = chip_smoke.config_plan(tcfg, 5, "cpu")
+    state = chip_smoke.path_state(tcfg, "cpu")
+    apply_fn = tfused.BINDINGS[protocol].apply_fn
+    honest = ~plan.equivocate.numpy()
+    counters = jmar.np_margin_init(tcfg.n_inst)
+    mode = state.wload.mode.numpy()
+    quorum = (tcfg.fault.q2 or majority(tcfg.n_acc)) if protocol == "fastpaxos" else majority(tcfg.n_acc)
+    fast = dict(fast_quorum=tcfg.fault.q_fast or fast_quorum(tcfg.n_acc)) if protocol == "fastpaxos" else {}
+    fence = ("voted", "ent_term") if protocol == "raftcore" else ("promised", "acc_bal")
+    arrivals, serves = [], []
+
+    def learner(st):
+        return {f.name: getattr(st.learner, f.name).numpy().copy()
+                for f in dataclasses.fields(st.learner)}
+
+    for _ in range(ticks):
+        nxt = tfused.reference_chunk(state, tcfg.seed, plan, tcfg.fault, 1, apply_fn=apply_fn)
+        post = learner(nxt)
+        if fast:
+            fast["fast_round"] = ((post["lt_bal"] - 1) >> 3) == 0
+        counters = jmar.np_margin_tick(
+            counters, learner(state), post, getattr(nxt.acceptor, fence[0]).numpy(),
+            getattr(nxt.acceptor, fence[1]).numpy(), honest, quorum, **fast,
+        )
+        arrivals.append((nxt.wload.offered - state.wload.offered).numpy().astype(bool))
+        serves.append((nxt.wload.done - state.wload.done).numpy().astype(bool))
+        state = nxt
+    for name, want in counters.items():
+        np.testing.assert_array_equal(want, getattr(state.margin, name).numpy(), err_msg=name)
+    assert int(state.learner.violations.sum()) > 0 and int((state.margin.qslack_min == 0).sum()) > 0
+    replay = jgen.np_replay_queue(
+        jgen.WorkloadConfig(**dataclasses.asdict(wl_cfg)), mode, np.stack(arrivals), np.stack(serves)
+    )
+    for name in ("head", "depth", "depth_peak", "offered", "done", "shed", "hist"):
+        np.testing.assert_array_equal(replay[name], getattr(state.wload, name).numpy(), err_msg=name)
+    assert replay["done"].sum() > 0 and replay["shed"].sum() > 0
+    assert torch.equal(state.wload.mode, torch.from_numpy(mode))
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """One intra-op thread for the plain PyTorch versions of a test module

@@ -541,7 +541,7 @@ def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
     assert n % tfused.FR_STAGING[protocol][shape].threads != 0
     n_prop, n_acc = shape[:2]
     cfg = dataclasses.replace(main_config(protocol, n, 9), n_prop=n_prop, n_acc=n_acc)
-    stamped = shape[3] == 1  # the key: (P, A, K, stamped, arms), K1's with observed last
+    stamped = shape[3] == 1  # the key: (P, A, K, stamped, arms, observed)
     arms = shape[4] == 1
     if stamped:  # the channel: config_delay_chaos, or every gray knob with p_delay
         name = "every gray knob, p_delay 0.4" if arms else "config_delay_chaos"
@@ -549,7 +549,7 @@ def test_fr_kernel_ragged_grid_on_cuda(protocol, shape):
     elif arms:  # the arms: config_gray_chaos's knobs on this plan
         gray = gray_knob_configs(n, 9)["config_gray_chaos"].fault
         cfg = dataclasses.replace(cfg, fault=gray)
-    if len(shape) > 5 and shape[5]:  # K1's observed instantiations: every plane on
+    if shape[5]:  # the observed instantiations: every plane on
         cfg = with_planes(cfg)
     block = tfused.fit_block(1024, n)
     plan = fault_plan(
@@ -599,15 +599,14 @@ def test_fr_refused_launch_raises(protocol, monkeypatch):
 def test_fr_geometry_fits_the_card():
     """Every geometry of K1, K2 and K3 lets an SM hold the blocks its
     registers are capped for: 12 warps or more, 11 for K3's stamped
-    column (11 blocks of 32 lanes), 8 for K1's observed ones (2 blocks of
+    column (11 blocks of 32 lanes), 8 for the observed ones (2 blocks of
     128 lanes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for protocol in FR:
         for shape, staging in tfused.FR_STAGING[protocol].items():
             blocks = tfused.blocks_per_sm(protocol, shape)
-            observed = protocol == "paxos" and shape[5]
-            warps = 11 if protocol == "raftcore" and shape[3] else 8 if observed else 12
+            warps = 8 if shape[5] else 11 if protocol == "raftcore" and shape[3] else 12
             assert blocks >= staging.min_blocks and blocks * staging.threads // 32 >= warps
 
 
@@ -628,7 +627,7 @@ def test_fr_phase_clocks_follow_the_kernel(protocol):
     assert wrapper.launches == before
     _assert_same(clocked, kern)
     assert tuple(cycles) == tfused.PHASES[protocol]
-    # K1's observers phase runs in its observed instantiations only.
+    # The observers phase runs in the observed instantiations only.
     assert all((c == 0) if phase == "observers" else (c > 0) for phase, c in cycles.items())
 
 
@@ -744,7 +743,7 @@ def test_fr_gray_arms_match_plain_on_cuda(protocol):
     for name, cfg in gray_knob_configs(4096, 12, protocol).items():
         plan = config_plan(cfg, 12)
         plain = trun.init_state(cfg, "cuda")
-        assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == (2, 5, 8, 0, 1), name
+        assert tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault) == (2, 5, 8, 0, 1, 0), name
         kern = plain.clone()
         for _ in range(2):
             plain = plain_chunk(cfg, plain, plan, 96, 1024)
@@ -807,7 +806,7 @@ def test_fr_arms_refuse_mismatched_launches(protocol):
     with pytest.raises(ValueError, match="instantiated"):
         wrapper(trun.init_state(small, "cuda"), 1, config_plan(small, 1), small.fault, 8)
     assert wrapper.launches == launches
-    arms_shape = (2, 5, 8, 0, 1) + ((0,) if protocol == "paxos" else ())  # K1's: observed last
+    arms_shape = (2, 5, 8, 0, 1, 0)
     staging = tfused.FR_STAGING[protocol][arms_shape]
     assert staging.min_blocks == 3
     assert tfused.blocks_per_sm(protocol, arms_shape) >= 3
@@ -1018,7 +1017,7 @@ def test_fr_delay_matches_plain_on_cuda(protocol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     shapes = _match_over_chunks(protocol, delay_knob_configs(4096, 14, protocol))
-    assert shapes == {(2, 5, 8, 1, 0), (2, 5, 8, 1, 1)}
+    assert shapes == {(2, 5, 8, 1, 0, 0), (2, 5, 8, 1, 1, 0)}
     path = f"delaychaos-{protocol}"
     cfg = main_config(path, 4096, 13)
     plan = main_plan(cfg)
@@ -1030,7 +1029,7 @@ def test_fr_delay_matches_plain_on_cuda(protocol):
     torch.cuda.synchronize()
     _assert_same(kern, plain)
     assert _block0_digest(path, 1024) == BLOCK0_DIGESTS[path]
-    for shape in ((2, 5, 8, 1, 0), (2, 5, 8, 1, 1)):
+    for shape in ((2, 5, 8, 1, 0, 0), (2, 5, 8, 1, 1, 0)):
         staging = tfused.FR_STAGING[protocol][shape]
         assert tfused.blocks_per_sm(protocol, shape) >= staging.min_blocks
 
@@ -1168,3 +1167,74 @@ def test_observed_paxos_refuses_mismatched_observer_arguments(monkeypatch):
     state.telemetry.cursor = state.telemetry.cursor.to(torch.int64)
     with pytest.raises(ValueError, match="leaf"):
         tfused.fused_paxos_chunk(state, 1, plan, cfg.fault, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
+def test_observed_fr_matches_plain_on_cuda(protocol):
+    """K2's and K3's observed instantiations (every observer plane on)
+    against the plain tick, observer leaves included, over two chunks:
+    config5's cell (2,5,8,0,0,1), config_gray_chaos and config_corrupt
+    (2,5,8,0,1,1), config_stale (its snapshot shadows), config_delay_chaos
+    (2,5,8,1,0,1) and every gray knob with p_delay (2,5,8,1,1,1); the
+    planes-off kernel from the same state gives the same protocol state;
+    the per-tick clamp with a block offset from near-limit ballots; the
+    observers phase of the phase-clock build runs; and the C entry refuses
+    observer arguments to an instantiation that is not observed and an
+    observed launch without them, the state left as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n = 4096
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    cases = {
+        "config5": main_config(protocol, n, 21),
+        "config_gray_chaos": gray_knob_configs(n, 21, protocol)["config_gray_chaos"],
+        "config_corrupt": gray_knob_configs(n, 21, protocol)["config_corrupt"],
+        "config_stale": gray_knob_configs(n, 21, protocol)["config_stale"],
+        "config_delay_chaos": delay_knob_configs(n, 21, protocol)["config_delay_chaos"],
+        "every gray knob, p_delay 0.4": delay_knob_configs(n, 21, protocol)["every gray knob, p_delay 0.4"],
+    }
+    shapes = set()
+    for name, cfg in cases.items():
+        cfg = with_planes(cfg)
+        plan = config_plan(cfg, 21)
+        plain = path_state(cfg, "cuda")
+        shapes.add(tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault))
+        kern, bare = plain.clone(), without_planes(plain.clone())
+        for _ in range(2):
+            plain = plain_chunk(cfg, plain, plan, 64, 1024)
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, 64)
+            bare = wrapper(bare, cfg.seed, plan, cfg.fault, 64)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+        _assert_same(without_planes(kern), bare)
+        assert int(kern.exposure.injected.sum()) > 0 and int(kern.coverage.new_bits.sum()) > 0, name
+    assert shapes == {(2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1), (2, 5, 8, 1, 1, 1)}
+    cfg = with_planes(main_config(protocol, n, 13))
+    plan = trun.init_plan(cfg, "cuda")
+    init = near_limit_state(cfg, 4094)
+    plain = plain_chunk(cfg, init, plan, 96, 1024, blk0=5, clamp_per_tick=True)
+    kern = wrapper(init.clone(), cfg.seed, plan, cfg.fault, 96, blk0=5, clamp_per_tick=True)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    cfg = with_planes(main_config(protocol, 8192, 5))
+    plan = trun.init_plan(cfg, "cuda")
+    kern = wrapper(path_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 48)
+    clocked = path_state(cfg, "cuda")
+    cycles = tfused.phase_clocks(protocol, clocked, cfg.seed, plan, cfg.fault, 48)
+    _assert_same(clocked, kern)
+    assert all(c > 0 for c in cycles.values())
+    real = tfused._obs_args
+    observed = path_state(cfg, "cuda")
+    for state, args in ((observed, lambda st, f: (None, 0, None, 0)),
+                        (trun.init_state(main_config(protocol, 8192, 5), "cuda"),
+                         lambda st, f: real(observed, f))):
+        before = state.clone()
+        tfused._obs_args = args
+        try:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tfused._launch(protocol, state, 1, plan, cfg.fault, 8, 1024, 0, False)
+        finally:
+            tfused._obs_args = real
+        torch.cuda.synchronize()
+        _assert_same(state, before)

@@ -104,7 +104,7 @@ def test_init_state_stamps_with_delay(protocol):
     assert tfused.BINDINGS[protocol].state_cls.takes_stamps
     assert state.stamped == 1 and len(state.leaves()) == 31
     assert state.requests.present.any() and not state.requests.until.any()
-    assert tfused.BINDINGS[protocol].kernel_shape(state, cfg.fault) == (2, 5, 8, 1, 0)
+    assert tfused.BINDINGS[protocol].kernel_shape(state, cfg.fault) == (2, 5, 8, 1, 0, 0)
     nodelay = trun.init_state(chip_smoke.main_config(protocol, 16), "cpu")
     assert nodelay.stamped == 0 and len(nodelay.leaves()) == 29
-    assert tfused.BINDINGS[protocol].kernel_shape(nodelay) == (2, 5, 8, 0, 0)
+    assert tfused.BINDINGS[protocol].kernel_shape(nodelay) == (2, 5, 8, 0, 0, 0)

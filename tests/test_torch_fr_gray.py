@@ -123,17 +123,19 @@ def test_arms_geometry_is_pinned(protocol, rows):
     ``(2,5,8)`` (the snapshot shadows stay in global memory), 128 lanes,
     registers capped for 3 blocks (12 warps).  The wrapper picks one
     exactly when a gray-failure or partition knob is on (the keys carry
-    the stamps flag, 0 on an unstamped state)."""
+    the stamps flag, 0 on an unstamped state, and the observed flag, 0 on
+    a state without observer planes)."""
     table = tfused.FR_STAGING[protocol]
-    assert tuple(table) == tfused.KERNEL_SHAPES[protocol] == (
-        (2, 5, 8, 0, 0), (2, 3, 8, 0, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 0), (2, 5, 8, 1, 1)
+    assert tuple(table)[:5] == tfused.KERNEL_SHAPES[protocol][:5] == (
+        (2, 5, 8, 0, 0, 0), (2, 3, 8, 0, 0, 0), (2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 0, 0),
+        (2, 5, 8, 1, 1, 0),
     )
-    arms, default = table[(2, 5, 8, 0, 1)], table[(2, 5, 8, 0, 0)]
+    arms, default = table[(2, 5, 8, 0, 1, 0)], table[(2, 5, 8, 0, 0, 0)]
     assert (arms.threads, arms.rows, arms.smem_bytes, arms.min_blocks) == (128, rows, rows * 512, 3)
     assert default.rows == rows
     binding = tfused.BINDINGS[protocol]
     state = trun.init_state(chip_smoke.main_config(protocol, 4), "cpu")
-    assert binding.kernel_shape(state) == (2, 5, 8, 0, 0)
+    assert binding.kernel_shape(state) == (2, 5, 8, 0, 0, 0)
     for name, cfg in chip_smoke.gray_knob_configs(4, 1, protocol).items():
-        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, 0, 1), name
-    assert tfused._launch_dims(binding, (2, 5, 8, 0, 1)) == (2, 5, 8, 0, 1, rows * 512)
+        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, 0, 1, 0), name
+    assert tfused._launch_dims(binding, (2, 5, 8, 0, 1, 0)) == (2, 5, 8, 0, 1, 0, rows * 512)

@@ -19,11 +19,12 @@ applies a chunk to a settled lane at once: the plain tick leaves such a
 lane as it is, but for its acceptors' restores and snapshots under
 stale-snapshot recovery or amnesia, which K1's arms instantiation applies
 to a settled lane tick by tick.  The instantiations of the three are
-keyed by shape, stamps and arms flag, ``(n_prop, n_acc, k_slots, stamped,
-arms)``: an arms instantiation keeps its default's column and caps its
-registers for 3 blocks, and a stamped one stages both buffers' delay
-stamps too (at ``(2,5,8)``: K1 and K2 144 words, 3 blocks of 128 lanes;
-K3 154 words, 11 blocks of 32).
+keyed by shape, stamps, arms and observed flag, ``(n_prop, n_acc,
+k_slots, stamped, arms, observed)``: an arms instantiation keeps its
+default's column and caps its registers for 3 blocks, a stamped one
+stages both buffers' delay stamps too (at ``(2,5,8)``: K1 and K2 144
+words, 3 blocks of 128 lanes; K3 154 words, 11 blocks of 32), and an
+observed one adds the planes' counters (``obs_rows``; 2 blocks of 128).
 """
 
 import dataclasses
@@ -62,15 +63,15 @@ def _leaf(state, path):
 
 
 def _stamped(protocol, shape):
-    """Whether instantiation ``shape`` (P, A, K, stamped, arms; K1's with
-    ``observed`` last) stages the delay stamps."""
+    """Whether instantiation ``shape`` (P, A, K, stamped, arms, observed)
+    stages the delay stamps."""
     return shape[3] == 1
 
 
 def _obs(protocol, shape):
-    """The words K1's observed instantiation ``shape`` adds to the column
-    for the observer planes' counters (0 for any other)."""
-    return tfused.obs_rows(shape[0]) if protocol == "paxos" and shape[5] else 0
+    """The words observed instantiation ``shape`` adds to the column for
+    the observer planes' counters (0 for any other)."""
+    return tfused.obs_rows(shape[0]) if shape[5] else 0
 
 
 def _state(protocol, shape):
@@ -109,12 +110,12 @@ def test_staged_rows_match_the_state_leaves(protocol, shape, staging):
     # The SM holds the blocks the registers are capped for: 12 warps or
     # more, but 11 for K3's stamped column, of which three blocks of 128
     # lanes overrun the SM's shared memory: 11 blocks of 32 lanes, the most
-    # that fit; and 8 for K1's observed columns, of which three blocks of
+    # that fit; and 8 for the observed columns, of which three blocks of
     # 128 lanes overrun it too.
     assert staging.min_blocks * (staging.smem_bytes + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
     assert staging.min_blocks * staging.threads <= SM_THREADS_MAX
-    stamped_k3 = protocol == "raftcore" and _stamped(protocol, shape)
     observed = _obs(protocol, shape) > 0
+    stamped_k3 = protocol == "raftcore" and _stamped(protocol, shape) and not observed
     assert staging.min_blocks * staging.threads // 32 >= (11 if stamped_k3 else 8 if observed else 12)
     if observed:
         assert (staging.min_blocks + 1) * (staging.smem_bytes + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
@@ -191,27 +192,22 @@ def _instances(protocol):
 @pytest.mark.parametrize("protocol", FR)
 def test_source_instantiates_the_table(protocol):
     """The .cu lists exactly the table's geometries, one per shape, stamps
-    flag and arms flag, and the C entry points take the shape, the stamps
-    flag, the arms flag and the shared bytes (6 ``dims``)."""
+    flag, arms flag and observed flag, and the C entry points take the
+    shape, the three flags and the shared bytes (7 ``dims``); an observed
+    column adds the planes' counters."""
     want = [shape + (st.threads, st.min_blocks) for shape, st in tfused.FR_STAGING[protocol].items()]
     got = _instances(protocol)
     assert sorted(got) == sorted(want)
-    n_key = len(tfused.KERNEL_SHAPES[protocol][0])  # the shape and its arms flag
+    n_key = len(tfused.KERNEL_SHAPES[protocol][0])  # the shape and its three flags
     shapes = [inst[:n_key] for inst in got]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES[protocol])
     src = SOURCES[protocol]
-    if protocol == "paxos":  # K1's keys end in the observed flag
-        assert "dims[3] == S_ && dims[4] == R_ && \\\n      dims[5] == O_)" in src
-        assert src.count("n_dims != 7") == 2 and src.count("const int smem = dims[6];") == 2
-    else:
-        assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in src
-        assert src.count("n_dims != 6") == 2 and src.count("const int smem = dims[5];") == 2
+    assert "dims[3] == S_ && dims[4] == R_ && \\\n      dims[5] == O_)" in src
+    assert src.count("n_dims != 7") == 2 and src.count("const int smem = dims[6];") == 2
     rv_v1 = "true" if protocol == "raftcore" else "false"
     assert f"using G = SdStaged<P, A, K, {rv_v1}, STAMPED>;" in src
-    if protocol == "paxos":  # the observed columns add the planes' counters
-        assert "(SdStaged<P, A, K, false, STAMPED>::kRows +\n     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4" in src
-    else:
-        assert f"SdStaged<P, A, K, {rv_v1}, STAMPED>::kRows * B * 4" in src
+    assert (f"(SdStaged<P, A, K, {rv_v1}, STAMPED>::kRows +\n     (has_arg<obs::Obs, Arms...> ? "
+            "obs::Rows<P>::kRows : 0)) * B * 4") in src
     assert "sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;" in src
 
 
@@ -388,16 +384,16 @@ def test_k2_k3_stamped_geometry_is_pinned(protocol):
     threads, rows, smem, blocks = (
         (128, 144, 73728, 3) if protocol == "fastpaxos" else (32, 154, 19712, 11)
     )
-    for key in ((2, 5, 8, 1, 0), (2, 5, 8, 1, 1)):
+    for key in ((2, 5, 8, 1, 0, 0), (2, 5, 8, 1, 1, 0)):
         st = table[key]
         assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (threads, rows, smem, blocks)
-    assert table[(2, 5, 8, 0, 1)].rows == table[(2, 5, 8, 0, 0)].rows == rows - 40
+    assert table[(2, 5, 8, 0, 1, 0)].rows == table[(2, 5, 8, 0, 0, 0)].rows == rows - 40
     binding = tfused.BINDINGS[protocol]
     stamped = STATES[protocol].init(4, 2, 5, 8, delay=True)
     for name, cfg in chip_smoke.delay_knob_configs(64, 1, protocol).items():
         arms_on = int(name in ("delay across a cut", "every gray knob, p_delay 0.4"))
-        assert binding.kernel_shape(stamped, cfg.fault) == (2, 5, 8, 1, arms_on), name
-    assert tfused._launch_dims(binding, (2, 5, 8, 1, 0)) == (2, 5, 8, 1, 0, smem)
+        assert binding.kernel_shape(stamped, cfg.fault) == (2, 5, 8, 1, arms_on, 0), name
+    assert tfused._launch_dims(binding, (2, 5, 8, 1, 0, 0)) == (2, 5, 8, 1, 0, 0, smem)
 
 
 @pytest.mark.parametrize("name", ["config_stale", "amnesia"])

@@ -7,7 +7,8 @@ JAX package's report on the same leaves.  Tolerance 0: every plane is
 int32.  The coverage digest is checked on a stamped state with snapshot
 shadows, whose leaves it folds.  Also the column rows K1's observed
 instantiations keep for the planes' counters (``obs_rows``) against the
-kernel source."""
+kernel source, and the observed instantiations of K1, K2 and K3 against
+``FR_STAGING`` and the wrapper's keys."""
 
 import dataclasses
 import re
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from _torch_jax import one_core, one_torch_thread  # noqa: F401
 from paxos_tpu.check import safety as jsafety
 from paxos_tpu.core import telemetry as jtel
@@ -298,3 +300,37 @@ def test_observed_column_rows_match_the_kernel():
     assert (n, n_params) == (23, 13)
     assert list(params) == [16, 8, 0] + [0] * 7 + [1, 0, 0]
     assert [p is not None for p in ptrs][:7] == [True] * 5 + [False] * 2
+
+
+@pytest.mark.parametrize("protocol,rows", [("paxos", 104), ("fastpaxos", 104), ("raftcore", 114)])
+def test_observed_geometry_of_k1_k2_k3(protocol, rows):
+    """The observed instantiations of K1, K2 and K3 (keys ending in
+    ``observed``, at (2,5,8) with and without the stamps and the arms):
+    the staged rows plus ``obs_rows`` (K1 and K2 153 words, 193 stamped;
+    K3 163 and 203), 2 blocks of 128 lanes; the wrapper keys a state with a
+    plane to them, and one at a shape without an observed instantiation
+    (three acceptors) is refused before any launch."""
+    table = tfused.FR_STAGING[protocol]
+    observed = [k for k in tfused.KERNEL_SHAPES[protocol] if k[5]]
+    assert observed == [(2, 5, 8, s, r, 1) for s in (0, 1) for r in (0, 1)]
+    for key in observed:
+        st = table[key]
+        want = rows + 40 * key[3] + tfused.obs_rows(2)
+        assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (128, want, want * 512, 2)
+        assert tfused._launch_dims(tfused.BINDINGS[protocol], key) == key + (want * 512,)
+    assert [table[k].rows for k in observed] == (
+        [163, 163, 203, 203] if protocol == "raftcore" else [153, 153, 193, 193]
+    )
+    binding = tfused.BINDINGS[protocol]
+    assert binding.observed
+    cfg = dataclasses.replace(
+        chip_smoke.with_planes(chip_smoke.main_config(protocol, 8, 1)), protocol=protocol
+    )
+    state = chip_smoke.path_state(cfg, "cpu")
+    assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, 0, 0, 1)
+    assert binding.kernel_shape(chip_smoke.without_planes(state), cfg.fault) == (2, 5, 8, 0, 0, 0)
+    small = dataclasses.replace(cfg, n_acc=3)
+    with pytest.raises(ValueError, match="instantiated"):
+        tfused._check_cuda_inputs(
+            protocol, chip_smoke.path_state(small, "cpu"), chip_smoke.main_plan(small, "cpu"), small.fault
+        )

@@ -7,10 +7,12 @@ clamps the identity) against the JAX package's ``summarize`` of its own
 ``reference_chunk`` over the same 64 ticks from the same state (the JAX
 package's workload plan carried across): the telemetry, coverage,
 exposure, margin and slo blocks and the rest of the report must be equal.
-The four other protocols refuse a plane, naming the ROADMAP item that
-ports it (13b, 13c, 13d); a workload plane without its plan raises,
-naming item 15; a state with planes crosses from the JAX package's leaves
-with the config that made it."""
+The same for config5's Fast Paxos and Raft-core cells, whose ticks
+compute the planes too.  Multi-Paxos and SynchPaxos refuse a plane, naming
+the ROADMAP item that ports it (13c, 13d); a workload plane without its
+plan raises, naming item 15; a state with planes crosses from the JAX
+package's leaves with the config that made it, and a Fast Paxos or
+Raft-core state with planes crosses both ways."""
 
 import dataclasses
 
@@ -35,19 +37,23 @@ from test_torch_obs_paxos import FAST_COMPILE, jax_config
 N, TICKS = 256, 64
 
 
-def test_run_reports_the_planes_as_the_jax_package():
-    tcfg = chip_smoke.with_planes(C.config2_dueling_drop(N, 3))
+def run_against_jax(tcfg, seed):
+    """The port's ``run`` of ``tcfg`` (every plane on; two 32-tick chunks)
+    against the JAX package's ``summarize`` of its own ``reference_chunk``
+    over the same ticks from the same state: the final states leaf for
+    leaf, then the plane blocks and the rest of the report; returns the
+    report and the port's state."""
     jcfg = jax_config(tcfg)
     jstate = j_init_state(jcfg)
     wl = (np.asarray(jstate.wload.mode), np.asarray(jstate.wload.phase))
-    plan = chip_smoke.config_plan(tcfg, 3, "cpu")
+    plan = chip_smoke.config_plan(tcfg, seed, "cpu")
     report, state = trun.run(
         tcfg, total_ticks=TICKS, chunk=32, device="cpu", plan=plan, wload_plan=wl,
         return_state=True,
     )
-    apply_fn, mask_fn, _ = fused_fns("paxos")
+    apply_fn, mask_fn, _ = fused_fns(tcfg.protocol)
     jend = jax.jit(
-        lambda st, pl: j_reference_chunk(st, 3, pl, jcfg.fault, TICKS, apply_fn, mask_fn),
+        lambda st, pl: j_reference_chunk(st, seed, pl, jcfg.fault, TICKS, apply_fn, mask_fn),
         compiler_options=FAST_COMPILE,
     )(jstate, jax_plan_of(plan))
     for w, g in zip(jax.tree.leaves(jend), interop.state_to_numpy(state), strict=True):
@@ -69,14 +75,29 @@ def test_run_reports_the_planes_as_the_jax_package():
     )
     lit = annotate_lit(report["exposure"], tcfg.fault)
     assert lit["lit"] == ["drop"] and lit["vacuous"] == []
+    return report, state
+
+
+def test_run_reports_the_planes_as_the_jax_package():
+    report, state = run_against_jax(chip_smoke.with_planes(C.config2_dueling_drop(N, 3)), 3)
     # The same blocks with the liveness block beside them, from one transfer.
     again = trun.summarize(state, liveness=True)
     assert all(again[b] == report[b] for b in chip_smoke.PLANE_BLOCKS) and "stuck_lanes" in again
 
 
-@pytest.mark.parametrize("protocol,item", [
-    ("fastpaxos", "13b"), ("raftcore", "13b"), ("multipaxos", "13c"), ("synchpaxos", "13d"),
-])
+@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
+def test_run_reports_the_planes_of_fastpaxos_and_raftcore_as_the_jax_package(protocol):
+    """config5's cell of ``protocol`` at 256 lanes, seed 3, every plane on."""
+    tcfg = chip_smoke.with_planes(chip_smoke.main_config(protocol, N, 3))
+    report, state = run_against_jax(tcfg, 3)
+    assert state.protocol == protocol and state.planes == (
+        "telemetry", "coverage", "exposure", "margin", "wload"
+    )
+    again = trun.summarize(state, liveness=True)
+    assert all(again[b] == report[b] for b in chip_smoke.PLANE_BLOCKS) and "stuck_lanes" in again
+
+
+@pytest.mark.parametrize("protocol,item", [("multipaxos", "13c"), ("synchpaxos", "13d")])
 def test_other_protocols_refuse_the_planes(protocol, item):
     path = {"multipaxos": "config3"}.get(protocol, protocol)
     cfg = dataclasses.replace(chip_smoke.main_config(path, 16), telemetry=TelemetryConfig(counters=True))
@@ -110,3 +131,28 @@ def test_state_with_planes_crosses_from_the_jax_package():
             np.testing.assert_array_equal(w, g)
         with pytest.raises(NotImplementedError, match="leaves"):
             interop.state_from_numpy(leaves, protocol="paxos")
+
+
+@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
+def test_fastpaxos_and_raftcore_states_with_planes_cross_both_ways(protocol):
+    """A Fast Paxos or Raft-core state with every plane on, its snapshot
+    shadows and delay stamps, after 16 ticks: its leaves read back from
+    numpy as the same state (the config tells the planes apart), and the
+    JAX package's initial state of the same config reads as the port's."""
+    tcfg = chip_smoke.with_planes(dataclasses.replace(C.config_stale(32, 4), protocol=protocol))
+    tcfg = dataclasses.replace(tcfg, fault=dataclasses.replace(tcfg.fault, p_delay=0.4, delay_max=2))
+    plan = chip_smoke.config_plan(tcfg, 4, "cpu")
+    state = chip_smoke.path_state(tcfg, "cpu")
+    assert state.snapshots and state.stamped and len(state.leaves()) == 52 + 3 + 2
+    state = trun.make_advance(tcfg, plan)(state, 16)
+    leaves = interop.state_to_numpy(state)
+    back = interop.state_from_numpy(leaves, protocol=protocol, cfg=tcfg)
+    assert type(back) is type(state) and back.planes == state.planes
+    for w, g in zip(leaves, interop.state_to_numpy(back), strict=True):
+        np.testing.assert_array_equal(w, g)
+    with pytest.raises(NotImplementedError, match="leaves"):
+        interop.state_from_numpy(leaves, protocol=protocol)
+    jleaves = [np.asarray(x) for x in jax.tree.leaves(j_init_state(jax_config(tcfg)))]
+    jstate = interop.state_from_numpy(jleaves, protocol=protocol, cfg=tcfg)
+    assert jstate.planes == ("telemetry", "coverage", "exposure", "margin", "wload")
+    assert jstate.wload.cfg == tcfg.workload
