@@ -33,9 +33,10 @@ launched without them; sources from before the gray-failure and partition
 arms get the parameters and plan leaves their ``fused_common.cuh`` reads
 (``kParams``, ``kPlanLeaves``), a kernel without its arms its default
 instantiations only, and a kernel without its bounded-delay channel its
-unstamped ones only, and a K1, K2 or K3 without its observed
-instantiations its other ones, keyed without the flag (and its phase list
-without the observers phase).  A source whose instantiation table
+unstamped ones only, and a kernel without its observed instantiations its
+other ones, keyed without the flag (and its phase list without the
+observers phase; a kernel without a phase-clock build, K5 before it had
+one, no phase split).  A source whose instantiation table
 (``K1_INSTANCES`` to ``K3_INSTANCES``, ``K5_INSTANCES``) lists another
 geometry than the wrapper's (lanes a block, blocks an SM, PROMISE payloads
 staged or not) is launched at its own (:func:`table_staging`), so that two
@@ -67,9 +68,9 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
     """``staging`` (the wrapper's geometry of ``protocol``'s kernel) with
     each instantiation at the lanes a block, blocks an SM (K1 to K3) or
     PROMISE staging (K5) that the source's table lists, where the table has
-    this commit's fields: ``X(P, A, K, STAMPED, ARMS, B, MIN_BLOCKS)``
-    (with OBSERVED after ARMS where the source has observed
-    instantiations), K5's ``X(P, A, L, K, STAMPED, ARMS, B, PROM)``."""
+    this commit's fields: ``X(P, A, K, STAMPED, ARMS, B, MIN_BLOCKS)``,
+    K5's ``X(P, A, L, K, STAMPED, ARMS, B, PROM)`` (each with OBSERVED
+    after ARMS where the source has observed instantiations)."""
     from paxos_tpu_torch.kernels import fused_tick as tf
 
     found = re.search(rf"#define {_TABLES[protocol]}_INSTANCES\(X\)(.*?)\n\n", src, re.S)
@@ -79,10 +80,11 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
     out = dict(staging)
     for row in rows:
         fields = [f.strip() for f in row.split(",")]
-        if protocol == "multipaxos" and len(fields) == 8:
-            key, threads, prom = tuple(map(int, fields[:6])), int(fields[6]), fields[7] == "true"
+        if protocol == "multipaxos" and len(fields) in (8, 9):  # keys may end in `observed`
+            n_key = len(fields) - 2
+            key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])
             if key in out:
-                out[key] = tf._mp_staging(key[:5], threads, prom)
+                out[key] = tf._mp_staging(key, threads, fields[n_key + 1] == "true")
         elif protocol != "multipaxos" and len(fields) in (7, 8):  # keys may end in `observed`
             n_key = len(fields) - 2
             key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])

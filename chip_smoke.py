@@ -9,7 +9,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 
 1. build: the six kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
-   together, and the phase-clock builds of K1 to K4; each kernel's
+   together, and the phase-clock builds of K1 to K5; each kernel's
    ``ptxas -v`` registers and spills, and the launch geometry per
    instantiation of the kernels, each of which stages a column per lane
    in shared memory (K1 to K5: lanes a CUDA block, staged rows, shared
@@ -23,7 +23,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    digests the JAX package gives on this script's numpy plans
    (``MP_GOLDEN``, ``SP_GOLDEN``); config2 and config5's Fast Paxos and
    Raft-core cells with every observer plane on, through K1's, K2's and
-   K3's observed instantiations, the goldens in all but the planes;
+   K3's observed instantiations, the goldens in all but the planes, and
+   config3 and config_delay_chaos so through K5's and K4's, the goldens in
+   all but the planes and the observed goldens in full (``MP_OBS_GOLDEN``,
+   ``SP_OBS_GOLDEN``);
 4. kernel vs plain: every kernel instantiation against the plain PyTorch
    version on the card, byte for byte, including a per-tick ballot clamp
    with a block offset, config4's equivocators with and without crash
@@ -40,11 +43,12 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    bounded-delay channel of K1, K2, K3 and K5 on config_delay_chaos (K5:
    its fault config on config3's cell) in both regimes, with drops and
    duplicates, across a cut, and with every gray knob
-   (:func:`delay_knob_configs`), K1's, K2's and K3's observed
-   instantiations (every observer plane on) on config_gray_chaos,
-   config_corrupt, config_stale and config_delay_chaos (K2 and K3 also on
-   config5's cell) at 1<<16 lanes and under the per-tick clamp, each also
-   against the planes-off kernel (the planes move no schedule),
+   (:func:`delay_knob_configs`), the observed instantiations of K1 to K5
+   (every observer plane on) on config_gray_chaos, config_corrupt,
+   config_stale and config_delay_chaos (K2, K3 and K5 also on their cell,
+   K5 on config3's with each fault config) at 1<<16 lanes and under the
+   per-tick clamp, each also against the planes-off kernel (the planes
+   move no schedule),
    and at full width
    (1<<20 lanes x 64 ticks) on each main path's config, config3-long
    compacted after every chunk, timed, with the counter-PRNG
@@ -52,7 +56,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    its operation floor (``DRAW_OPS``; no kernel may beat its bound), and
    its slot-array (delay-stamp) touches for the census estimate; timed so
    in the steady state and on the first chunk, where the lanes still
-   send (for K4 in the delta-violating regime too), K1 to K4 with the
+   send (for K4 in the delta-violating regime too), K1 to K5 with the
    split of a lane's cycles by phase of the tick from their phase-clock
    builds; the column load and store alone (a launch of 0 ticks) of K1 to
    K4, and K5 on config3 and config3-long;
@@ -69,11 +73,13 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    Raft-core and its fault config on config3's Multi-Paxos cell (the
    stamped instantiations of K1, K2, K3 and K5; the last through
    ``run(..., liveness=True)``), and config2 and config5's Fast Paxos and
-   Raft-core cells with every observer plane on (``observed-paxos``,
-   ``observed-fastpaxos``, ``observed-raftcore``: K1's, K2's and K3's
-   observed instantiations; their telemetry, coverage, exposure, margin
-   and slo blocks printed and checked against each other, their protocol
-   state pinned as their planes-off path's), at
+   Raft-core cells, config3's Multi-Paxos cell and config_delay_chaos's
+   SynchPaxos cell with every observer plane on (``observed-paxos``,
+   ``observed-fastpaxos``, ``observed-raftcore``, ``observed-multipaxos``,
+   ``observed-synchpaxos``: the observed instantiations of K1, K2, K3, K5
+   and K4; their telemetry, coverage, exposure, margin and slo blocks
+   printed and checked against each other, their protocol state pinned as
+   their planes-off path's), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -137,6 +143,12 @@ MP_GOLDEN = "3e755a68b483cd90"
 # config_plan(cfg, 7) (tests/test_torch_synchpaxos.py computes it with the
 # JAX package).
 SP_GOLDEN = "01e6b169dab4d6cb"
+# The same two runs with every observer plane on (obs_planes; the workload
+# on wload_plan's numpy plan): the state but the planes gives MP_GOLDEN and
+# SP_GOLDEN, the whole state these (tests/test_torch_obs_multipaxos.py and
+# tests/test_torch_obs_synchpaxos.py compute them with the JAX package).
+MP_OBS_GOLDEN = "57133b49a36ccfad"
+SP_OBS_GOLDEN = "7f2e470acbe52f3c"
 FULL_LANES = 1 << 20
 MAIN_PATH_REPEATS = 3
 MAIN_TICKS, MAIN_CHUNK, MAIN_DEPTH = 4096, 64, 16
@@ -252,6 +264,14 @@ MAIN_PATHS = {
         "raftcore", MAIN_TICKS, "config5_sweep", "config5-raftcore", 2, compare_chunks=2,
         planes=True,
     ),
+    "observed-multipaxos": MainPath(
+        "multipaxos", MAIN_TICKS, "config3_multipaxos", "config3-multipaxos", compare_chunks=2,
+        planes=True,
+    ),
+    "observed-synchpaxos": MainPath(
+        "synchpaxos", MAIN_TICKS, "config_delay_chaos", "delaychaos-synchpaxos", fast_path=True,
+        compare_chunks=2, planes=True,
+    ),
 }
 # The report keys of the liveness block (harness.run.summarize(liveness=)).
 LIVENESS_KEYS = ("decided_by_curve", "chosen_tick_hist", "hist_bin_width", "stuck_lanes")
@@ -291,6 +311,8 @@ EVICTION_PINS = {
     "observed-paxos": (1, {963: ([838], "8c8a818261f3d84c")}),
     "observed-fastpaxos": (138, {5: ([862], "659e8267fff0c143"), 17: ([213], "0727753391be6bf5")}),
     "observed-raftcore": (0, {}),
+    "observed-multipaxos": (0, {}),
+    "observed-synchpaxos": (4, {595: ([129], "3da7a9c3d5cad789"), 821: ([636], "f9da58d7938887dd")}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
 # SynchPaxos ones, the gray-chaos ones and the delay-chaos ones, as the JAX
@@ -305,6 +327,9 @@ BLOCK0_DIGESTS = {
     "graychaos-multipaxos": "3488379663f97567", "graychaos-synchpaxos": "ec7f809a37d50f00",
     "delaychaos-paxos": "7b1972db532f308e", "delaychaos-fastpaxos": "2c4b187ef8be3555",
     "delaychaos-raftcore": "dc97be812c0ca2bb", "delaychaos-multipaxos": "a87821b69a0cc584",
+    # The observed paths: their planes-off path's block (the digest leaves
+    # out the planes).
+    "observed-multipaxos": "883d8be41b65a537", "observed-synchpaxos": "77bdd097d024b69b",
 }
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
@@ -514,11 +539,19 @@ OBSERVER_ARMS = {
     "paxos": "; its observer arms, paxos_tpu/protocols/paxos.py:592-600, :652-771",
     "fastpaxos": "; its observer arms, paxos_tpu/protocols/fastpaxos.py:332-341, :393-505",
     "raftcore": "; its observer arms, paxos_tpu/protocols/raftcore.py:283-290, :346-460",
+    "multipaxos": (
+        "; its observer arms, paxos_tpu/protocols/multipaxos.py:244-248, :568-580, :658-774 "
+        "(mp_margin_observe, paxos_tpu/check/mp_safety.py:139-200)"
+    ),
+    "synchpaxos": "; its observer arms, paxos_tpu/protocols/synchpaxos.py:280-292, :363-468",
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke +{time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def digest(leaves) -> str:
@@ -786,23 +819,31 @@ def phase_golden() -> None:
             f"digest {got} (want {want})")
         if got != want:
             raise AssertionError(f"observed {protocol} golden digest {got} != {want}")
-    cfg = main_config("config3", 256, 7)
-    state = FUSED_WRAPPERS["multipaxos"](
-        init_state(cfg, "cuda"), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
-    )
-    got = digest(state.leaves())
-    log(f"golden: multipaxos config3 256 lanes seed 7 32 ticks digest {got} (want {MP_GOLDEN})")
-    if got != MP_GOLDEN:
-        raise AssertionError(f"multipaxos golden digest {got} != {MP_GOLDEN}")
-    cfg = main_config("synchpaxos", 256, 7)
-    state = FUSED_WRAPPERS["synchpaxos"](
-        init_state(cfg, "cuda"), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
-    )
-    got = digest(state.leaves())
-    log(f"golden: synchpaxos config_delay_chaos 256 lanes seed 7 32 ticks digest {got} "
-        f"(want {SP_GOLDEN})")
-    if got != SP_GOLDEN:
-        raise AssertionError(f"synchpaxos golden digest {got} != {SP_GOLDEN}")
+    # K5 and K4 on chip_smoke's numpy plans, planes off and (their observed
+    # instantiations) every plane on: the state but the planes is the
+    # planes-off golden, the whole state the observed one.
+    for path, protocol, want, want_obs in (
+        ("config3", "multipaxos", MP_GOLDEN, MP_OBS_GOLDEN),
+        ("synchpaxos", "synchpaxos", SP_GOLDEN, SP_OBS_GOLDEN),
+    ):
+        cfg = main_config(path, 256, 7)
+        state = FUSED_WRAPPERS[protocol](
+            init_state(cfg, "cuda"), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
+        )
+        got = digest(state.leaves())
+        log(f"golden: {protocol} {path} 256 lanes seed 7 32 ticks digest {got} "
+            f"(want {want})")
+        if got != want:
+            raise AssertionError(f"{protocol} golden digest {got} != {want}")
+        cfg = with_planes(cfg)
+        state = FUSED_WRAPPERS[protocol](
+            path_state(cfg), cfg.seed, config_plan(cfg, 7), cfg.fault, 32, block=256
+        )
+        got, got_obs = digest(without_planes(state).leaves()), digest(state.leaves())
+        log(f"golden: {protocol} {path} with every observer plane on: the state but the planes "
+            f"{got} (want {want}), the whole state {got_obs} (want {want_obs})")
+        if got != want or got_obs != want_obs:
+            raise AssertionError(f"observed {protocol} golden digests {got} {got_obs}")
 
 
 def fault_plan(
@@ -937,9 +978,7 @@ def near_limit_state_mp(cfg, rnd: int, device="cuda"):
     """``cfg``'s initial Multi-Paxos state with every proposer at ballot
     round ``rnd`` and a lease timer past every election threshold, so
     elections start at once and push ballots over the report limit."""
-    from paxos_tpu_torch.harness.run import init_state
-
-    st = init_state(cfg, device)
+    st = path_state(cfg, device)
     pid = torch.arange(cfg.n_prop, dtype=torch.int32, device=device)[:, None]
     st.proposer.bal.copy_((rnd * 8 + pid + 1).expand_as(st.proposer.bal))
     st.proposer.lease_timer.fill_(cfg.fault.lease_len + 3 * cfg.n_prop + cfg.fault.backoff_max)
@@ -1019,13 +1058,13 @@ def compare(
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
     out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
     if reps:
-        # Where a lane's cycles go over the timed chunks (K1 to K4): the
-        # phase-clock build from a copy of their first state, launch for
-        # launch, which must end where they end.
+        # Where a lane's cycles go over the timed chunks: the phase-clock
+        # build from a copy of their first state, launch for launch (a long
+        # log compacted after each), which must end where they end.
         if cfg.protocol in PHASES:
-            clocked = (start if from_init else kern).clone()
-            out["phase_split"] = phase_split(
-                name, cfg, clocked, plan, n_ticks, 1 if from_init else reps, block
+            out["phase_split"], clocked = phase_split(
+                name, cfg, (start if from_init else kern).clone(), plan, n_ticks,
+                1 if from_init else reps, block, after,
             )
         # The draws and touches of the timed chunks: the measuring build
         # over the same ticks from a copy of the compared state (of the
@@ -1173,17 +1212,19 @@ def settled_lane_bytes(state) -> int:
     return 4 * 2 * p + 2 * (2 * p * a) + 4 * 3 * a + a + 1
 
 
-def phase_split(name, cfg, state, plan, n_ticks, launches, block) -> dict:
+def phase_split(name, cfg, state, plan, n_ticks, launches, block, after=lambda st: st) -> tuple:
     """Where a lane's cycles go: the kernel's phase-clock build over
-    ``launches`` chunks of ``n_ticks`` from ``state`` (advanced in place),
-    as cycles a lane-tick (the column load and store spread over the
-    chunk's ticks) and each phase's share of them."""
+    ``launches`` chunks of ``n_ticks`` from ``state``, each followed by
+    ``after`` (a long log's compaction), as cycles a lane-tick (the column
+    load and store spread over the chunk's ticks) and each phase's share
+    of them; and the state the chunks end in."""
     from paxos_tpu_torch.kernels.fused_tick import phase_clocks
 
     total = {}
     for _ in range(launches):
         clocks = phase_clocks(cfg.protocol, state, cfg.seed, plan, cfg.fault, n_ticks, block=block)
         total = {k: total.get(k, 0) + v for k, v in clocks.items()}
+        state = after(state)
     cycles = sum(total.values())
     out = {
         "cycles_per_lane_tick": cycles / (cfg.n_inst * n_ticks * launches),
@@ -1191,7 +1232,7 @@ def phase_split(name, cfg, state, plan, n_ticks, launches, block) -> dict:
     }
     log(f"{name}: phase clocks {out['cycles_per_lane_tick']:.1f} cycles a lane-tick: "
         + ", ".join(f"{k} {v:.1%}" for k, v in out["share"].items()))
-    return out
+    return out, state
 
 
 def phase_compare(ceiling: float) -> dict:
@@ -1263,24 +1304,46 @@ def phase_compare(ceiling: float) -> dict:
         zero.fault, p_drop=0.0, p_dup=0.0, p_flaky=0.5, flaky_drop=0.0, flaky_dup=0.0))
     compare("multipaxos (2,5,8,4,1) test_gray zero-rate flaky links", zero, config_plan(zero, 9),
             64, block=128)
-    # K1's, K2's and K3's observed instantiations (every observer plane on)
-    # on the configs that light every exposure class between them (drop,
-    # dup, corrupt, partition, timeout, stale, delay), K2's and K3's also on
-    # their config5 cell, at 1<<16 lanes over two chunks; and from
-    # near-limit ballots under the per-tick clamp with a block offset.
+    # The observed instantiations of K1 to K5 (every observer plane on) on
+    # the configs that light every exposure class between them (drop, dup,
+    # corrupt, partition, timeout, stale, delay), K2's, K3's and K5's also on
+    # their cell (K5 takes each fault config on config3's cell), at 1<<16
+    # lanes over two chunks; and from near-limit ballots under the per-tick
+    # clamp with a block offset.
     for protocol in OBSERVER_ARMS:
         names = ("config_gray_chaos", "config_corrupt", "config_stale", "config_delay_chaos")
-        for name in names if protocol == "paxos" else ("config5",) + names:
-            if name == "config5":
-                cfgo = with_planes(main_config(protocol, 1 << 16, 16))
+        cell = {"fastpaxos": "fastpaxos", "raftcore": "raftcore", "multipaxos": "config3"}.get(protocol)
+        for name in names if cell is None else ("cell",) + names:
+            if name == "cell":
+                cfgo = with_planes(main_config(cell, 1 << 16, 16))
+            elif protocol == "multipaxos":
+                cfgo = with_planes(dataclasses.replace(
+                    main_config("config3", 1 << 16, 16), fault=getattr(C, name)(1 << 16, 16).fault
+                ))
             else:
                 cfgo = with_planes(dataclasses.replace(getattr(C, name)(1 << 16, 16), protocol=protocol))
             shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(path_state(cfgo, "cpu"), cfgo.fault)))
             compare(f"{protocol} ({shape}) observed, {name}", cfgo, config_plan(cfgo, 16), 64, chunks=2)
-        cfgo = with_planes(main_config(protocol, 4096, 13))
+        # K5's and K4's stamped arms with the planes (K1's to K3's the card
+        # tests hold): every gray knob with the delay.
+        every = {
+            "multipaxos": lambda: delay_knob_configs(1 << 16, 16, "multipaxos")["every gray knob, p_delay 0.4"],
+            "synchpaxos": lambda: gray_knob_configs(1 << 16, 16, "synchpaxos")["every gray knob, stamped"],
+        }.get(protocol)
+        if every is not None:
+            cfgo = with_planes(every())
+            shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(path_state(cfgo, "cpu"), cfgo.fault)))
+            compare(f"{protocol} ({shape}) observed, every gray knob, stamped", cfgo,
+                    config_plan(cfgo, 16), 64, chunks=2)
+        if protocol == "multipaxos":
+            cfgo = with_planes(main_config("config3", 4096, 13))
+            plan, init = config_plan(cfgo, 13), near_limit_state_mp(cfgo, 254)
+        else:
+            cfgo = with_planes(main_config(protocol, 4096, 13))
+            plan, init = main_plan(cfgo) or init_plan(cfgo, "cuda"), near_limit_state(cfgo, 4094)
         compare(
-            f"{protocol} observed per-tick clamp, blk0=5", cfgo, init_plan(cfgo, "cuda"), 96,
-            init=near_limit_state(cfgo, 4094), blk0=5, clamp_per_tick=True,
+            f"{protocol} observed per-tick clamp, blk0=5", cfgo, plan, 96,
+            init=init, blk0=5, clamp_per_tick=True,
         )
     # The per-tick ballot clamp (chunks over 6144 ticks) and a nonzero block
     # offset, which the main paths do not take, from near-limit ballots.
@@ -1466,7 +1529,7 @@ def phase_main_path(path: str) -> dict:
         out["planes"] = {k: report[k] for k in PLANE_BLOCKS}
         for k in PLANE_BLOCKS:
             log(f"{path} main path {k}: {json.dumps(report[k])}")
-        check_plane_report(path, report, cfg)
+        check_plane_report(path, report, cfg, state)
     if MAIN_PATHS[path].fast_path:
         from paxos_tpu_torch.protocols.synchpaxos import fast_path_rate
 
@@ -1475,15 +1538,16 @@ def phase_main_path(path: str) -> dict:
     return out
 
 
-def check_plane_report(path: str, report: dict, cfg) -> None:
+def check_plane_report(path: str, report: dict, cfg, state) -> None:
     """The observer blocks of a campaign with every plane on must hold
-    together: every lane decided once (telemetry's decides and latency
-    histogram, the SLO's served requests), the drops counted (exposure's
-    effective drops are telemetry's), the coverage sketch filled, and no
-    agreement violation seen (no zero quorum slack)."""
+    together: every lane (every Multi-Paxos slot) decided once
+    (telemetry's decides and latency histogram against the learner's
+    chosen count), the drops counted (exposure's effective drops are
+    telemetry's), the coverage sketch filled, and no agreement violation
+    seen (no zero quorum slack)."""
     n, ticks = cfg.n_inst, report["ticks"]
     tel, cov, exp, mar, slo = (report[k] for k in PLANE_BLOCKS)
-    decided = round(report["chosen_frac"] * n)
+    decided = int(state.learner.chosen.sum())
     problems = []
     if tel["counters"]["decide"] != decided or sum(tel["hist"]) != decided:
         problems.append(f"decides {tel['counters']['decide']}, hist {sum(tel['hist'])}, chosen {decided}")

@@ -106,3 +106,57 @@ def mp_learner_observe(
         violations=learner.violations + viol,
         evictions=evictions,
     )
+
+
+def mp_margin_observe(
+    margin,
+    pre: MPLearnerState,
+    post: MPLearnerState,
+    promised: torch.Tensor,  # (A, I) int32 promise fence
+    acc_bal: torch.Tensor,  # (A, I) int32 highest accepted ballot over the log
+    honest: torch.Tensor,  # (A, I) bool
+    quorum: int,
+):
+    """The margin fold (``check.safety.margin_observe``) lifted to the
+    (L, K, I) table: rivals and decide edges per slot, running minima per
+    lane (``obs.margin``); draws nothing."""
+    from paxos_tpu_torch.obs.margin import SENTINEL
+
+    bal = bv_bal(post.lt_bv)  # (L, K, I)
+    val = bv_val(post.lt_bv)
+    votes = popcount(post.lt_mask)
+    live = post.lt_bv > 0
+
+    # Quorum slack of the best competing row over every decided slot.
+    competing = live & post.chosen[:, None] & (val != post.chosen_val[:, None])
+    slack = torch.clamp(quorum - votes, min=0)
+    tick_slack = torch.where(competing, slack, SENTINEL).amin(dim=(0, 1))  # (I,)
+    qslack_min = torch.minimum(margin.qslack_min, tick_slack)
+
+    # Near split: a slot with two hot rows or more of distinct values.
+    hot = live & (votes >= quorum - 1)
+    vmin = torch.where(hot, val, SENTINEL).amin(dim=1)  # (L, I)
+    vmax = torch.where(hot, val, 0).amax(dim=1)
+    near = ((hot.sum(dim=1, dtype=torch.int32) >= 2) & (vmin != vmax)).any(dim=0)
+    near_split = margin.near_split + near.to(torch.int32)
+
+    # Ballot-race margin on the slots deciding this tick.
+    decided_now = post.chosen & ~pre.chosen  # (L, I)
+    win_rows = (votes >= quorum) & live & (val == post.chosen_val[:, None])
+    win_bal = torch.where(win_rows, bal, 0).amax(dim=1)  # (L, I)
+    rival_bal = torch.where(live & ~win_rows, bal, 0).amax(dim=1)
+    gap = torch.clamp(win_bal - rival_bal, min=0)
+    tick_gap = torch.where(decided_now & (rival_bal > 0), gap, SENTINEL).amin(dim=0)
+    bal_gap_min = torch.minimum(margin.bal_gap_min, tick_gap)
+
+    # Checker headroom: one promise fence covers the whole log, so its slack
+    # partner is the acceptor's highest accepted ballot.
+    pslack = torch.where(honest & (acc_bal > 0), promised - acc_bal, SENTINEL).amin(dim=0)
+    promise_slack_min = torch.minimum(margin.promise_slack_min, pslack)
+    return dataclasses.replace(
+        margin,
+        qslack_min=qslack_min.to(torch.int32),
+        near_split=near_split,
+        bal_gap_min=bal_gap_min.to(torch.int32),
+        promise_slack_min=promise_slack_min.to(torch.int32),
+    )

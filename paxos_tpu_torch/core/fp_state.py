@@ -85,7 +85,6 @@ class FastPaxosState(LaneState):
     protocol = "fastpaxos"
     takes_stamps = True
     takes_snapshots = True
-    takes_planes = True
 
     acceptor: AcceptorState
     proposer: FastProposerState

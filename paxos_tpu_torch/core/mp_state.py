@@ -13,8 +13,9 @@ learner, requests, promises, accepted, tick, base), so a sha256 over the
 leaf bytes equals the reference's state digest.  A state run with
 ``stale_k > 0`` carries the acceptors' snapshot shadows of ``promised``
 and the slot log, and one run with ``p_delay > 0`` the delay stamps of its
-three buffers (``until``), as the reference's does; the observer planes
-are not ported.
+three buffers (``until``), as the reference's does; the observer planes a
+run turns on follow ``base``, as a Paxos state's follow its tick
+(``core.state.OBSERVERS``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,13 @@ import dataclasses
 import torch
 
 from paxos_tpu_torch.core.messages import MsgBuf
-from paxos_tpu_torch.core.state import LaneState, check_leaves, check_topology, init_layout
+from paxos_tpu_torch.core.state import (
+    LaneState,
+    check_leaves,
+    check_planes,
+    check_topology,
+    init_layout,
+)
 
 # Proposer phases
 FOLLOW = 0  # passive: watching progress, lease ticking
@@ -218,6 +225,12 @@ class MultiPaxosState(LaneState):
     # (I,) int32: global log index of window slot 0, the count of decided
     # slots compacted out so far (0 unless the log is long).
     base: torch.Tensor
+    # The observer planes (core.state.OBSERVERS), None when off.
+    telemetry: "TelemetryState | None" = None
+    coverage: "CoverageState | None" = None
+    exposure: "FaultExposure | None" = None
+    margin: "MarginState | None" = None
+    wload: "WloadState | None" = None
 
     @classmethod
     def init(
@@ -239,8 +252,7 @@ class MultiPaxosState(LaneState):
             base=_zeros((n_inst,), device),
         )
 
-    def leaves(self) -> list:
-        """Tensors in the reference's flatten order (tick before base)."""
+    def _role_leaves(self) -> list:
         return (
             self.acceptor.leaves()
             + self.proposer.leaves()
@@ -248,29 +260,35 @@ class MultiPaxosState(LaneState):
             + self.requests.leaves()
             + self.promises.leaves()
             + self.accepted.leaves()
-            + [self.tick, self.base]
         )
 
+    def leaves(self) -> list:
+        """Tensors in the reference's flatten order (tick before base, the
+        observers after it)."""
+        return self._role_leaves() + [self.tick, self.base] + self.obs_leaves()
+
     def protocol_leaves(self) -> list:
-        """Every per-instance tensor (all but the tick), in flatten order."""
-        leaves = self.leaves()
-        return leaves[:-2] + leaves[-1:]
+        """The protocol's per-instance tensors (tick and observers
+        excluded), in flatten order: the leaves K5's state argument holds."""
+        return self._role_leaves() + [self.base]
 
     def check_layout(self) -> None:
         """Raise unless every leaf has the shape and dtype ``init`` gives
         for this state's (n_inst, n_prop, n_acc, log_len, k_slots), with
         delay stamps where the request buffer carries them and snapshot
-        shadows where the acceptors carry them."""
+        shadows where the acceptors carry them, and every observer leaf the
+        shape its plane's sizes give (``check_planes``)."""
         kw = {"stale": True} if self.snapshots else {}
         if self.stamped:
             kw["delay"] = True
         check_leaves(
-            self.leaves(),
+            self._role_leaves() + [self.tick, self.base],
             init_layout(
                 type(self), self.n_inst, self.n_prop, self.n_acc, self.log_len, self.k_slots,
                 **kw,
             ),
         )
+        check_planes(self)
 
     @property
     def log_len(self) -> int:

@@ -112,7 +112,6 @@ class RaftState(LaneState):
     protocol = "raftcore"
     takes_stamps = True
     takes_snapshots = True
-    takes_planes = True
 
     acceptor: VoterState  # named `acceptor` so summaries are uniform
     proposer: CandidateState  # likewise

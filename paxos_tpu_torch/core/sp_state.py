@@ -11,7 +11,8 @@ The state reuses the classic role dataclasses and the :class:`MsgBuf` wire
 format; only the init differs.  With ``delay=True`` (``p_delay > 0``) both
 buffers carry ``until`` stamps, and with ``stale=True`` (``stale_k > 0``)
 the acceptors their snapshot shadows, so the state has 30, 31 or 33
-per-lane leaves instead of 28.
+per-lane leaves instead of 28; the observer planes a run turns on follow
+the tick, as a Paxos state's (``core.state.OBSERVERS``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ class SynchPaxosState(LaneState):
     requests: MsgBuf  # proposer -> acceptor (PREPARE / ACCEPT)
     replies: MsgBuf  # acceptor -> proposer (PROMISE / ACCEPTED)
     tick: torch.Tensor  # () int32
+    # The observer planes (core.state.OBSERVERS), None when off.
+    telemetry: "TelemetryState | None" = None
+    coverage: "CoverageState | None" = None
+    exposure: "FaultExposure | None" = None
+    margin: "MarginState | None" = None
+    wload: "WloadState | None" = None
 
     @classmethod
     def init(

@@ -9,10 +9,10 @@ field order, absent optional fields dropped), so a sha256 over the leaf
 bytes equals the reference's state digest.  A Paxos, Fast Paxos,
 Raft-core or SynchPaxos state run with ``stale_k > 0`` carries the
 acceptors' snapshot shadows, and one run with ``p_delay > 0`` its buffers'
-delay stamps, as the reference's does.  A Paxos, Fast Paxos or Raft-core
-state carries the observer planes a run turns on (``OBSERVERS``: telemetry,
-coverage, exposure, margin, the client workload), each None when off, after
-the tick in flatten order.
+delay stamps, as the reference's does.  Every protocol's state carries
+the observer planes a run turns on (``OBSERVERS``: telemetry, coverage,
+exposure, margin, the client workload), each None when off, after the
+tick (a Multi-Paxos state's after its ``base``) in flatten order.
 """
 
 from __future__ import annotations
@@ -180,15 +180,14 @@ class LaneState:
     """What every protocol's full state shares: the five sub-states
     ``acceptor``, ``proposer``, ``learner``, ``requests``, ``replies`` and
     the ``tick`` scalar, flattened in that order, then the observer planes
-    that are on (where ``takes_planes``).  ``protocol`` names the
-    tick that advances it; ``takes_stamps`` says whether its ``init``
+    that are on (``OBSERVERS``, fields of every state type).  ``protocol``
+    names the tick that advances it; ``takes_stamps`` says whether its ``init``
     allocates delay stamps (``delay=True``), ``takes_snapshots`` whether
     it allocates the acceptors' snapshot shadows (``stale=True``)."""
 
     protocol = ""
     takes_stamps = False
     takes_snapshots = False
-    takes_planes = False
 
     def protocol_leaves(self) -> list:
         """The protocol's per-instance tensors (tick and observers
@@ -290,7 +289,6 @@ class PaxosState(LaneState):
     protocol = "paxos"
     takes_stamps = True
     takes_snapshots = True
-    takes_planes = True
 
     acceptor: AcceptorState
     proposer: ProposerState
@@ -371,11 +369,8 @@ def plane_layout(state: LaneState) -> list:
 def check_planes(state: LaneState) -> None:
     """Raise unless the observer leaves have their planes' shapes, int32."""
     leaves = state.obs_leaves()
-    if not leaves:
-        return
-    if not state.takes_planes:
-        raise ValueError(f"a {type(state).__name__} carries no observer planes")
-    check_leaves(leaves, plane_layout(state))
+    if leaves:
+        check_leaves(leaves, plane_layout(state))
 
 
 # Bytes of state each instance carries (bool leaves 1 byte, tick excluded):

@@ -70,12 +70,6 @@ def sampled_plan_knobs(fault) -> list:
     return [k for k in _SAMPLED_PLAN_KNOBS if getattr(fault, k)]
 
 
-# The protocols whose ticks do not compute the observer planes yet, and the
-# ROADMAP item that ports them (Paxos has them: item 13a; Fast Paxos and
-# Raft-core: item 13b).
-_PLANE_ITEMS = {"multipaxos": "13c", "synchpaxos": "13d"}
-
-
 class MeasurementCorrupted(RuntimeError):
     """A campaign's measurements stopped being trustworthy (ballots reached
     the report-time limit)."""
@@ -87,12 +81,6 @@ def _check_ported(cfg: SimConfig) -> None:
             f"protocol {cfg.protocol!r} is not ported yet (ROADMAP queue A "
             "slice 4)"
         )
-    for plane in cfg.planes_on():
-        if cfg.protocol in _PLANE_ITEMS:
-            raise NotImplementedError(
-                f"the {plane} plane is not ported to {cfg.protocol} yet (ROADMAP queue A "
-                f"item {_PLANE_ITEMS[cfg.protocol]}); it runs on paxos, fastpaxos and raftcore"
-            )
     check_supported(cfg.fault, cfg.protocol)
 
 
@@ -171,8 +159,7 @@ def init_state(cfg: SimConfig, device=None, wload_plan=None) -> LaneState:
 
 
 def _with_planes(state: LaneState, cfg: SimConfig, device, wload_plan) -> LaneState:
-    """``state`` (a type that ``takes_planes``: Paxos, Fast Paxos,
-    Raft-core) with the observer planes of ``cfg``, as the reference's
+    """``state`` with the observer planes of ``cfg``, as the reference's
     ``init_state`` adds them."""
     n = cfg.n_inst
     kw = {}
@@ -516,8 +503,7 @@ def run(
     long-log Multi-Paxos config compacts after every ``chunk`` ticks, and
     ``until_all_chosen`` then waits for the whole log to replicate.
     ``liveness`` adds the liveness block to the report (:func:`summarize`).
-    The observer planes the config turns on (Paxos, Fast Paxos, Raft-core)
-    add their blocks
+    The observer planes the config turns on (any protocol) add their blocks
     (``telemetry``, ``coverage``, ``exposure``, ``margin``, ``slo``); the
     workload plane needs ``wload_plan`` (:func:`init_state`).
     """

@@ -82,9 +82,9 @@ def state_from_numpy(leaves, device="cpu", protocol: str = "paxos", cfg=None) ->
     without delay stamps and snapshot shadows: a single-decree state (Paxos,
     Fast Paxos, Raft-core, SynchPaxos) of 29 leaves, 31 with stamps, 32 with
     shadows, 34 with both; a Multi-Paxos state of 30, 33 with stamps, 32
-    with shadows, 35 with both.  A Paxos, Fast Paxos or Raft-core state's
-    observer planes follow: those the SimConfig ``cfg`` turns on (their
-    leaf counts and sizes come from it)."""
+    with shadows, 35 with both.  The state's observer planes follow (a
+    Multi-Paxos state's after ``base``): those the SimConfig ``cfg`` turns
+    on (their leaf counts and sizes come from it)."""
     leaves = list(leaves)
     planes = {}
     if cfg is not None and cfg.planes_on():

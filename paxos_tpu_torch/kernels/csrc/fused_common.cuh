@@ -542,7 +542,7 @@ struct SmemInst {
 // between consecutive phase boundaries (its own cycles, which include the
 // time other warps hold the SM) and adds them to g_phase at the end; empty
 // in every other build.
-constexpr int kMaxPhases = 8;  // fused_tick.PHASE_SLOTS
+constexpr int kMaxPhases = 9;  // fused_tick.PHASE_SLOTS
 
 #ifdef FUSED_PHASE_CLOCKS
 // Read and cleared by fused_phase_clocks(): clock64() cycles per phase,
@@ -1072,7 +1072,7 @@ __device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32
 
 // ---- The observer planes (core/telemetry.py, obs/coverage.py,
 // obs/exposure.py, obs/margin.py, workload/generator.py): what an observed
-// instantiation (K1's, K2's, K3's) computes beside the tick.  Every plane is switched
+// instantiation (of any of K1 to K5) computes beside the tick.  Every plane is switched
 // by whether its leaves were passed (Obs), a branch the whole warp takes
 // alike.  A lane's counters sit in its column from row R0 on (Rows), the
 // rest of a plane (the event ring and histogram, the coverage bitmap, the
@@ -1305,11 +1305,68 @@ __device__ __forceinline__ bool margin(const Column<B>& col, QuorumOf quorum_of,
   return near;
 }
 
+// check.mp_safety.mp_margin_observe: the margin lifted to a Multi-Paxos
+// lane's (LOG, K) learner table in the column (packed (ballot, value)
+// pairs from row LT_BV, a slot's K voter masks packed in one word from row
+// LT_MASK, the chosen values from row CHOSEN_VAL), the chosen slots before
+// (`chosen0`) and after (`chosen`) the tick, the acceptors' post-tick
+// promise fence and, as its slack partner, each acceptor's highest
+// accepted ballot over its log (from row LOG_ROW, (A, LOG)); honest
+// acceptors: bit a of `honest`.
+template <int P, int R0, int LOG, int K, int A, int LT_BV, int LT_MASK, int CHOSEN_VAL,
+          int LOG_ROW, int B>
+__device__ __forceinline__ void mp_margin(const Column<B>& col, uint32_t chosen, uint32_t chosen0,
+                                          const int32_t (&promised)[A], uint32_t honest,
+                                          int quorum) {
+  using Rw = Rows<P>;
+  int32_t tick_slack = kSentinel, tick_gap = kSentinel;
+  bool near = false;
+#pragma unroll 1
+  for (int l = 0; l < LOG; ++l) {
+    const bool ch = (chosen >> l) & 1u;
+    const int32_t cv = col[CHOSEN_VAL + l];
+    const uint32_t masks = static_cast<uint32_t>(col[LT_MASK + l]);
+    int32_t vmin = kSentinel, vmax = 0, win_bal = 0, rival_bal = 0;
+    int hot = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int32_t bv = col[LT_BV + l * K + k];
+      const int32_t bal = bv >> 16, val = bv & 0xFFFF;
+      const int votes = __popc((masks >> (8 * k)) & 0xFFu);
+      const bool live = bv > 0;
+      if (live && ch && val != cv) tick_slack = min(tick_slack, max(quorum - votes, 0));
+      if (live && votes >= quorum - 1) {
+        ++hot;
+        vmin = min(vmin, val);
+        vmax = max(vmax, val);
+      }
+      const bool win = votes >= quorum && live && val == cv;
+      if (win) win_bal = max(win_bal, bal);
+      if (live && !win) rival_bal = max(rival_bal, bal);
+    }
+    near = near || (hot >= 2 && vmin != vmax);
+    if (ch && !((chosen0 >> l) & 1u) && rival_bal > 0)
+      tick_gap = min(tick_gap, max(wrap_add(win_bal, -rival_bal), 0));
+  }
+  col[R0 + Rw::kMar] = min(col[R0 + Rw::kMar], tick_slack);
+  if (near) col[R0 + Rw::kMar + 1] = wrap_add(col[R0 + Rw::kMar + 1], 1);
+  col[R0 + Rw::kMar + 2] = min(col[R0 + Rw::kMar + 2], tick_gap);
+  int32_t pslack = kSentinel;
+#pragma unroll 1
+  for (int a = 0; a < A; ++a) {
+    int32_t top = kInt32Min;
+    for (int l = 0; l < LOG; ++l) top = max(top, col[LOG_ROW + a * LOG + l] >> 16);
+    if (((honest >> a) & 1u) && top > 0) pslack = min(pslack, wrap_add(promised[a], -top));
+  }
+  col[R0 + Rw::kMar + 3] = min(col[R0 + Rw::kMar + 3], pslack);
+}
+
 // workload.observe for each proposer p: serve first (bit p of `serve`, the
 // commit edge, pops the head stamp and banks its latency into the class's
-// log2 histogram), then this tick's arrival (one ARRIVAL draw against the
-// class's threshold) joins the queue or is shed.
-template <int P, int R0, int B>
+// log2 histogram), then this tick's arrival (one draw of stream ARRIVAL,
+// the protocol's, against the class's threshold) joins the queue or is
+// shed.
+template <int P, int R0, uint32_t ARRIVAL = kArrival, int B>
 __device__ __forceinline__ void workload(const Column<B>& col, const Obs& o, const TickStream& ts,
                                          int32_t tick, uint32_t serve, int64_t n, int64_t i) {
   using Rw = Rows<P>;
@@ -1342,7 +1399,7 @@ __device__ __forceinline__ void workload(const Column<B>& col, const Obs& o, con
       const int32_t tri = min(pos, o.wl_period - pos);
       thr = o.wl_t_lo + static_cast<uint32_t>(o.wl_step) * static_cast<uint32_t>(tri);
     }
-    const bool arrival = ts.bits(kArrival, p) < thr;
+    const bool arrival = ts.bits(ARRIVAL, p) < thr;
     if (arrival) {
       f(5) = wrap_add(f(5), 1);
       if (depth < cap) {
@@ -1425,7 +1482,8 @@ struct PreDraw {
 };
 
 // The stream ids a kernel's exposure draws come from (core/streams.py):
-// the single-decree ones.
+// the single-decree ones (K5 passes Multi-Paxos', whose duplications hit
+// the requests only).
 struct SdStreams {
   // The uniform drop mask of send kind `kind` (LINK_BITS' kind order).
   __host__ __device__ static constexpr uint32_t keep(int kind) {
@@ -1433,6 +1491,7 @@ struct SdStreams {
   }
   static constexpr uint32_t link = kLinkBits, dup_req = kDupReq, dup_rep = kDupRep,
                             dup = kDupBits, corrupt = kCorrupt, delay = kDelayBits;
+  static constexpr int dup_bufs = 2;  // both buffers' slots are duplicated
 };
 
 // sd::kept, read from exposure's draws of the tick where it made them.
@@ -1507,7 +1566,7 @@ __device__ __forceinline__ PreDraw predraw(const Obs& ob, const TickStream& ts, 
       for (int j = 0; j < S; ++j) {
         const int32_t thr = flaky ? gray.link_dup[(j % E) * n + i] : 0;
 #pragma unroll
-        for (int buf = 0; buf < 2; ++buf) {
+        for (int buf = 0; buf < ST::dup_bufs; ++buf) {
           const bool d = flaky ? ts.below_at(thr, ST::dup, buf * S + j)
                                : ts.fires_at(prm.dup, buf == 0 ? ST::dup_req : ST::dup_rep, j);
           pd.dup |= (d ? 1ull : 0ull) << (buf * S + j);

@@ -105,6 +105,24 @@
 // re-sent every tick, takes a new stamp every tick.  To keep 2 blocks of
 // 128 lanes an SM with the stamps in the column, the stamped
 // instantiations leave the PROMISE payloads in global memory (Staged).
+//
+// The observer planes (telemetry, coverage, exposure, margin, the client
+// workload) compile into observed instantiations of their own (OBS, at
+// (2,5,8,4), without and with the stamps and the arms), as K1's to K4's:
+// the kernel takes an obs::Obs after the Gray (if any), keeps the planes'
+// counters in the lane's column after the staged rows (obs::Rows; with
+// the PROMISE payloads staged, 241 words, 281 stamped, 2 blocks of 96 lanes
+// an SM: fused_tick.MP_STAGING), draws
+// exposure's whole masks at the tick's start with Multi-Paxos' stream ids
+// (obs::predraw over MpStreams: four send kinds, requests-only
+// duplication) and reads them at the lazy sites.  What is Multi-Paxos' own:
+// the margin runs over the (L, K) learner table (obs::mp_margin) with each
+// acceptor's highest accepted ballot over its log as the promise fence's
+// partner; a timeout is a candidacy failure; a committed log slot serves a
+// client request; and the coverage digest folds the whole lane (the log,
+// the recovery rows, three buffers with the PROMISE payloads, `base`) in the
+// reference's leaf order, 296 words a tick (336 stamped).  The other
+// instantiations call the sd:: sites directly, as before the planes.
 
 #include <type_traits>
 
@@ -124,7 +142,25 @@ constexpr int32_t kValMask = 0xFFFF;               // bv_val of a packed pair
 constexpr uint32_t kMpDupReq = 2, kPromDeliver = 3, kAccdDeliver = 4, kMpKeepProm = 5,
                    kMpKeepAccd = 6, kKeepPrep = 7, kKeepAcc = 8, kJitter = 9, kMpBackoff = 10,
                    kMpLinkBits = 11, kMpDupBits = 12, kMpCorrupt = 13, kMpDelayBits = 14,
-                   kMpLatBits = 15;
+                   kMpLatBits = 15, kMpArrival = 16;
+
+// The stream ids exposure's draws come from (obs::predraw): the four send
+// kinds in LINK_BITS' order, and the requests' duplication only.
+struct MpStreams {
+  __host__ __device__ static constexpr uint32_t keep(int kind) {
+    return kind == 0 ? kMpKeepProm : kind == 1 ? kMpKeepAccd : kind == 2 ? kKeepPrep : kKeepAcc;
+  }
+  static constexpr uint32_t link = kMpLinkBits, dup_req = kMpDupReq, dup_rep = kMpDupReq,
+                            dup = kMpDupBits, corrupt = kMpCorrupt, delay = kMpDelayBits;
+  static constexpr int dup_bufs = 1;
+};
+
+// The tick's phases in order, as the phase-clock build splits a lane's
+// cycles (fused_tick.PHASES["multipaxos"]).
+enum Phase {
+  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhProposer, kPhObs, kPhStore,
+  kPhases,
+};
 
 // The state leaves in the reference's flatten order, tick excluded; a
 // state with delay stamps has each buffer's `until` after its own leaves
@@ -348,30 +384,39 @@ __device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves
 }
 
 // The kernel; `Arms` is empty for the default instantiations, whose
-// signature and code are those of K5 without the arms, and `Gray` for the
-// arms instantiations (ARMS), which take the arms' knobs and plan leaves.
+// signature and code are those of K5 without the arms, a `Gray` for the
+// arms instantiations (ARMS), which take the arms' knobs and plan leaves,
+// and an obs::Obs (after the Gray, if any) for the observed ones (OBS),
+// which compute the observer planes whose leaves it holds.
 // STAMPED: the state's buffers carry delay stamps.
 template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM, typename... Arms>
 __global__ void __launch_bounds__(B)
 fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                         Arms... arms) {
-  constexpr bool ARMS = sizeof...(Arms) > 0;
-  const Gray gray{arms...};
+  constexpr bool ARMS = has_arg<Gray, Arms...>;
+  constexpr bool OBS = has_arg<obs::Obs, Arms...>;
+  const Gray gray = pick_arg<Gray>(arms...);
+  const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = Staged<P, A, LOG, K, STAMPED, PROM>;
+  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kMpStampedLeaves : kMpLeaves;
   constexpr int S = 2 * P * A;  // request slots, index (kind * P + p) * A + a
   constexpr int E = P * A;      // reply slots, index p * A + a
   constexpr int kQuorum = A / 2 + 1;
   static_assert(S <= 32 && LOG <= 32 && K <= 32, "bitmasks must fit 32 bits");
-  extern __shared__ int32_t smem[];  // G::kRows * B words
+  static_assert(!OBS || 4 * E <= 64, "exposure's drop draws fit 64 bits");
+  constexpr uint32_t kAccs = (1u << A) - 1;
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and the counters)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
+  PhaseClock<kPhases> clk;
   const Column<B> col{smem + threadIdx.x};
   load_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
+  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, true);
   auto prom_bv = [&](int row) -> int32_t& {
     return prom_word<P, A, LOG, K, B, STAMPED, PROM>(col, L, row, n, i);
   };
@@ -438,12 +483,17 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const int32_t tick0 = *tick_ptr;
   const uint32_t blk = static_cast<uint32_t>(prm.blk0) + static_cast<uint32_t>(i / prm.block);
   const uint32_t lane = static_cast<uint32_t>(i % prm.block);
+  clk.mark(kPhLoad);
 
   DrawCount draws;
   for (int t = 0; t < prm.n_ticks; ++t) {
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // What the planes read of the pre-tick state (OBS).
+    const uint32_t rq_p0 = rq_present, rp_p0 = prom_present | (accd_present << E);
+    const uint32_t chosen0 = chosen;
+    const int32_t viol0 = violations;
     // The slots whose stamp has come (STAMPED): a slot waiting for its
     // stamp is neither delivered nor selected.
     if constexpr (STAMPED) ch.refresh(col, tick, &draws);
@@ -452,6 +502,27 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
+
+    // The planes' counts of the tick (OBS), exposure's draws (an observed
+    // instantiation's sites that draw read them instead where exposure made
+    // them), and what the cuts and the stamps hold back of the pre-tick
+    // buffers.
+    int ev[obs::kEvents] = {}, inj[obs::kClasses] = {}, eff[obs::kClasses] = {};
+    const obs::PreDraw pd =
+        obs::predraw<OBS, ARMS, STAMPED, P, A, MpStreams>(ob, ts, prm, gray, ch.slow, n, i, inj);
+    int n_drop = 0, n_dup = 0;
+    uint32_t prom_m = 0, corrupt_m = 0, serve_m = 0, leader_m = 0, fail_m = 0, plain_fail = 0;
+    if constexpr (OBS) {
+      if (ARMS && gray.partition) {
+        inj[obs::kClPartition] = __popc(cut_req) + __popc(cut_rep);
+        eff[obs::kClPartition] = __popc(rq_p0 & (cut_req | (cut_req << E))) +
+                                 __popc(rp_p0 & (cut_rep | (cut_rep << E)));
+      }
+      if constexpr (STAMPED) {
+        if (prm.delay.mode != 0)
+          eff[obs::kClDelay] = __popc(rq_p0 & ch.rq_wait) + __popc(rp_p0 & ch.rp_wait);
+      }
+    }
 
     // ---- Reply delivery decided and cleared before any new send; a reply
     //      still delayed, or on a cut link, stays in flight. ----
@@ -470,6 +541,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     }
     prom_present &= ~prom_del;
     accd_present &= ~accd_del;
+    clk.mark(kPhDeliver);
 
     // ---- Proposer folds over the pre-tick replies: voter bits, and the
     //      candidates' per-slot max over the PROMISE payloads. ----
@@ -523,6 +595,8 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
           for (int l = 0; l < LOG; ++l) col[G::kLog + a * LOG + l] = 0;
         });
 
+    clk.mark(kPhFold);
+
     // ---- Acceptor half-tick: at most one request per acceptor. ----
     uint32_t rq_next = rq_present, ev_flag = 0, alive = 0;
     uint32_t rp_sent = 0;  // the reply slots written this tick (PROMISE j, ACCEPTED E + j)
@@ -553,7 +627,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const bool is_acc = sel >= P;
       // A corrupted ACCEPT's value flips a bit, a corrupted PREPARE's
       // ballot moves up one.
-      if constexpr (ARMS) {
+      if constexpr (OBS) {
+        if (sel >= 0 && obs::corrupt_fires<ARMS, MpStreams>(pd, ts, gray, a)) {
+          if (is_acc) mv ^= 64;
+          else mb = wrap_add(mb, 1);
+          corrupt_m |= 1u << a;
+        }
+      } else if constexpr (ARMS) {
         if (sel >= 0) sd::corrupt<ARMS, kMpCorrupt>(ts, gray, a, is_acc, mb, mv);
       }
       const bool eq = (equiv >> a) & 1u;
@@ -571,9 +651,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       // no log slot.
       const int rj = (is_prep ? sel : sel - P) * A + a;
       const bool keep_prom =
-          ok_prep && sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepProm, 0, rj, n, i);
+          ok_prep &&
+          (OBS ? obs::keep_at<OBS, ARMS, E, MpStreams>(pd, ts, prm, gray, kMpKeepProm, 0, rj, n, i)
+               : sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepProm, 0, rj, n, i));
       const bool keep_accd =
-          ok_acc && sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepAccd, 1, rj, n, i);
+          ok_acc &&
+          (OBS ? obs::keep_at<OBS, ARMS, E, MpStreams>(pd, ts, prm, gray, kMpKeepAccd, 1, rj, n, i)
+               : sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepAccd, 1, rj, n, i));
       if constexpr (STAMPED) {
         if (keep_prom) rp_sent |= 1u << rj;
         if (keep_accd) rp_sent |= 1u << (E + rj);
@@ -605,10 +689,17 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       // link, against its own threshold).
       if (sel >= 0) {
         const int j = sel * A + a;
-        if (!(sd::dup_live<ARMS>(prm, gray) &&
-              sd::duplicated<ARMS, S, E, kMpDupBits>(ts, prm, gray, kMpDupReq, 0, j, n, i)))
-          rq_next &= ~(1u << j);
+        const bool dup =
+            sd::dup_live<ARMS>(prm, gray) &&
+            (OBS ? obs::dup_at<OBS, ARMS, S, E, MpStreams>(pd, ts, prm, gray, 0, j, kMpDupReq, n, i)
+                 : sd::duplicated<ARMS, S, E, kMpDupBits>(ts, prm, gray, kMpDupReq, 0, j, n, i));
+        if (!dup) rq_next &= ~(1u << j);
+        if constexpr (OBS) {
+          n_dup += dup ? 1 : 0;
+          n_drop += (ok_prep && !keep_prom ? 1 : 0) + (ok_acc && !keep_accd ? 1 : 0);
+        }
       }
+      if constexpr (OBS) prom_m |= (ok_prep ? 1u : 0u) << a;
       promised[a] = pr;
       ev_flag |= (ok_acc ? 1u : 0u) << a;
       ev_bal[a] = mb;
@@ -618,8 +709,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     rq_present = rq_next;
     // The replies' delay stamps (the stamp draws are keyed by the slot, so
     // one rolled loop serves both reply sites).
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kPromUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n,
+                            i, tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kPromUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
+    }
+    clk.mark(kPhAcceptor);
 
     // ---- Learner: fold the accept events into the per-slot tables. ----
     // The events that reach the fold: in the window, with a ballot, and
@@ -716,6 +812,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     }
     violations = wrap_add(violations, viol);
     const int32_t chosen_count = __popc(chosen);
+    clk.mark(kPhLearner);
 
     // ---- Proposer half-tick. ----
     uint32_t rq_sent = 0;  // the request slots written this tick
@@ -748,6 +845,12 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
       const bool cand_fail = ph == kCandidate && ct > timeout && !p1_done;
       const bool demote = ph == kLead && lease_out && !slot_done && !log_full;
+      if constexpr (OBS) {  // the commit and leader edges, and the failure under the unskewed timeout
+        serve_m |= (slot_done ? 1u : 0u) << p;
+        leader_m |= (p1_done || demote ? 1u : 0u) << p;
+        fail_m |= (cand_fail ? 1u : 0u) << p;
+        plain_fail |= (ph == kCandidate && ct > prm.timeout && !p1_done ? 1u : 0u) << p;
+      }
 
       // Phase writes in precedence order: the last one wins.
       int32_t nph = ph;
@@ -776,7 +879,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 
       // New candidates broadcast Prepare(b) once.
       if (start_elec) {
-        const uint32_t kept = sends_kept<ARMS, P, A>(ts, prm, gray, kKeepPrep, 2, p, n, i);
+        const uint32_t kept =
+            OBS && pd.on ? ~static_cast<uint32_t>(pd.drop >> (2 * E + p * A)) & kAccs
+                         : sends_kept<ARMS, P, A>(ts, prm, gray, kKeepPrep, 2, p, n, i);
+        if constexpr (OBS) n_drop += A - __popc(kept);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
           if ((kept >> a) & 1u) {
@@ -799,7 +905,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         draws.touch(slot >= 0 ? 1 : 0);
         // Commands are keyed by global slot: own_slot_value(pid, base + slot).
         const int32_t pval = rbv > 0 ? (rbv & kValMask) : (p + 1) * 1000 + wrap_add(base, slot);
-        const uint32_t kept = sends_kept<ARMS, P, A>(ts, prm, gray, kKeepAcc, 3, p, n, i);
+        const uint32_t kept =
+            OBS && pd.on ? ~static_cast<uint32_t>(pd.drop >> (3 * E + p * A)) & kAccs
+                         : sends_kept<ARMS, P, A>(ts, prm, gray, kKeepAcc, 3, p, n, i);
+        if constexpr (OBS) n_drop += A - __popc(kept);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
           if ((kept >> a) & 1u) {
@@ -812,18 +921,126 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
           }
         }
       }
-      bal[p] = prm.clamp_per_tick ? min(bal_next, kMpBallotLimit) : bal_next;
+      // (An observed tick clamps after the planes: the digest reads the
+      // ballots as the tick left them.)
+      bal[p] = !OBS && prm.clamp_per_tick ? min(bal_next, kMpBallotLimit) : bal_next;
       phase[p] = nph;
       commit_idx[p] = ci;
       lease_timer[p] = lt;
       cand_timer[p] = start_elec ? 0 : ct;
     }
     // The requests' delay stamps.
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i,
+                            tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
+    }
+    clk.mark(kPhProposer);
+
+    // ---- The observer planes (OBS), from the tick's events, in the plain
+    //      tick's order: telemetry, exposure, margin, workload, coverage. ----
+    if constexpr (OBS) {
+      ev[obs::kEvPromise] = __popc(prom_m);
+      ev[obs::kEvAccept] = __popc(ev_flag);
+      ev[obs::kEvDecide] = __popc(chosen & ~chosen0);
+      ev[obs::kEvConflict] = wrap_add(violations, -viol0);
+      ev[obs::kEvLeader] = __popc(leader_m);
+      ev[obs::kEvTimeout] = __popc(fail_m);
+      ev[obs::kEvDrop] = n_drop;
+      ev[obs::kEvDup] = n_dup;
+      ev[obs::kEvCorrupt] = __popc(corrupt_m);
+      eff[obs::kClDrop] = n_drop;
+      eff[obs::kClDup] = n_dup;
+      eff[obs::kClCorrupt] = __popc(corrupt_m);
+      if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(fail_m ^ plain_fail);
+      obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
+      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
+      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.mar()) {
+        obs::mp_margin<P, R0, LOG, K, A, G::kLtBv, G::kLtMask, G::kChosenVal, G::kLog>(
+            col, chosen, chosen0, promised, ~equiv & kAccs, kQuorum);
+      }
+      if (ob.wl()) obs::workload<P, R0, kMpArrival>(col, ob, ts, tick, serve_m, n, i);
+      if (ob.cov()) {
+        // The coverage digest of the lane's state (obs/coverage.py
+        // digest_tree: the acceptors with their shadows, the proposers with
+        // their recovery rows, the three buffers with their stamps, base),
+        // in the reference's leaf and row order.
+        obs::Digest d;
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(promised[a]);
+#pragma unroll 1
+        for (int r = 0; r < A * LOG; ++r) d.fold(col[G::kLog + r]);
+        if (ob.snaps) {
+#pragma unroll 1
+          for (int a = 0; a < A; ++a) d.fold(at<int32_t>(L, SNAP, a, n, i));
+#pragma unroll 1
+          for (int r = 0; r < A * LOG; ++r) d.fold(at<int32_t>(L, SNAP + 1, r, n, i));
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(bal[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(phase[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(heard[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(commit_idx[p]);
+#pragma unroll 1
+        for (int r = 0; r < P * LOG; ++r) d.fold(col[G::kRecov + r]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(lease_timer[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(last_count[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(cand_timer[p]);
+#pragma unroll
+        for (int j = 0; j < S; ++j) d.fold(rq_bal[j]);
+#pragma unroll
+        for (int j = 0; j < S; ++j) d.fold(rq_v1[j]);
+#pragma unroll
+        for (int j = 0; j < S; ++j) d.fold(rq_v2[j]);
+#pragma unroll 1
+        for (int j = 0; j < S; ++j) d.fold((rq_present >> j) & 1u);
+        if constexpr (STAMPED) {
+#pragma unroll 1
+          for (int j = 0; j < S; ++j) d.fold(col[G::kRqUntil + j]);
+        }
+#pragma unroll 1
+        for (int j = 0; j < E; ++j) d.fold((prom_present >> j) & 1u);
+#pragma unroll
+        for (int j = 0; j < E; ++j) d.fold(prom_bal[j]);
+#pragma unroll 1
+        for (int r = 0; r < E * LOG; ++r) d.fold(prom_bv(r));
+        if constexpr (STAMPED) {
+#pragma unroll 1
+          for (int j = 0; j < E; ++j) d.fold(col[G::kPromUntil + j]);
+        }
+#pragma unroll 1
+        for (int j = 0; j < E; ++j) d.fold((accd_present >> j) & 1u);
+#pragma unroll
+        for (int j = 0; j < E; ++j) d.fold(accd_bal[j]);
+#pragma unroll
+        for (int j = 0; j < E; ++j) d.fold(accd_slot[j]);
+#pragma unroll
+        for (int j = 0; j < E; ++j) d.fold(accd_val[j]);
+        if constexpr (STAMPED) {
+#pragma unroll 1
+          for (int j = 0; j < E; ++j) d.fold(col[G::kAccdUntil + j]);
+        }
+        d.fold(base);
+        obs::coverage<P, R0>(col, ob, d.value(), n, i);
+      }
+      if (prm.clamp_per_tick) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kMpBallotLimit);
+      }
+      clk.mark(kPhObs);
+    }
   }
 
   draws.flush();
+  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
 
   // ---- Store the register-resident state once. ----
 #pragma unroll
@@ -859,44 +1076,64 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     at<int32_t>(L, Mp::kAccdVal, j, n, i) = accd_val[j];
   }
   store_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
+  clk.mark(kPhStore);
+  clk.flush();
 }
 
 // One instantiation, ready to launch (SmemInst in fused_common.cuh): an
-// arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, int B, bool PROM>
+// arms instantiation's kernel takes a Gray after Params, an observed one an
+// obs::Obs after that, and its column holds the planes' counters
+// (obs::Rows) after the staged rows.
+template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM, typename... Arms>
+using InstWith = SmemInst<
+    fused_multipaxos_kernel<P, A, LOG, K, STAMPED, B, PROM, Arms...>, B,
+    (Staged<P, A, LOG, K, STAMPED, PROM>::kRows +
+     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, bool OBS, int B, bool PROM>
 struct InstOf {
-  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, STAMPED, B, PROM>, B,
-                        Staged<P, A, LOG, K, STAMPED, PROM>::kRows * B * 4>;
+  using type = InstWith<P, A, LOG, K, STAMPED, B, PROM>;
 };
 template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM>
-struct InstOf<P, A, LOG, K, STAMPED, true, B, PROM> {
-  using type = SmemInst<fused_multipaxos_kernel<P, A, LOG, K, STAMPED, B, PROM, Gray>, B,
-                        Staged<P, A, LOG, K, STAMPED, PROM>::kRows * B * 4>;
+struct InstOf<P, A, LOG, K, STAMPED, true, false, B, PROM> {
+  using type = InstWith<P, A, LOG, K, STAMPED, B, PROM, Gray>;
 };
-template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, int B, bool PROM>
-using Inst = typename InstOf<P, A, LOG, K, STAMPED, ARMS, B, PROM>::type;
+template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM>
+struct InstOf<P, A, LOG, K, STAMPED, false, true, B, PROM> {
+  using type = InstWith<P, A, LOG, K, STAMPED, B, PROM, obs::Obs>;
+};
+template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM>
+struct InstOf<P, A, LOG, K, STAMPED, true, true, B, PROM> {
+  using type = InstWith<P, A, LOG, K, STAMPED, B, PROM, Gray, obs::Obs>;
+};
+template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, bool OBS, int B, bool PROM>
+using Inst = typename InstOf<P, A, LOG, K, STAMPED, ARMS, OBS, B, PROM>::type;
 
-// The instantiations, (n_prop, n_acc, log_len, k_slots, STAMPED, ARMS, B,
-// PROM): one per shape, stamps and arms flag, at the geometry
+// The instantiations, (n_prop, n_acc, log_len, k_slots, STAMPED, ARMS, OBS,
+// B, PROM): one per shape, stamps, arms and observer flag, at the geometry
 // fused_tick.MP_STAGING gives it.
-#define K5_INSTANCES(X)             \
-  X(2, 5, 8, 4, 0, 0, 128, true)    \
-  X(2, 5, 16, 4, 0, 0, 128, false)  \
-  X(2, 5, 4, 4, 0, 0, 128, true)    \
-  X(2, 3, 8, 4, 0, 0, 128, true)    \
-  X(2, 5, 8, 4, 0, 1, 128, true)    \
-  X(2, 5, 8, 4, 1, 0, 128, false)   \
-  X(2, 5, 8, 4, 1, 1, 128, false)
+#define K5_INSTANCES(X)                \
+  X(2, 5, 8, 4, 0, 0, 0, 128, true)    \
+  X(2, 5, 16, 4, 0, 0, 0, 128, false)  \
+  X(2, 5, 4, 4, 0, 0, 0, 128, true)    \
+  X(2, 3, 8, 4, 0, 0, 0, 128, true)    \
+  X(2, 5, 8, 4, 0, 1, 0, 128, true)    \
+  X(2, 5, 8, 4, 1, 0, 0, 128, false)   \
+  X(2, 5, 8, 4, 1, 1, 0, 128, false)   \
+  X(2, 5, 8, 4, 0, 0, 1, 96, true)     \
+  X(2, 5, 8, 4, 0, 1, 1, 96, true)     \
+  X(2, 5, 8, 4, 1, 0, 1, 96, true)     \
+  X(2, 5, 8, 4, 1, 1, 1, 96, true)
 
-// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, log_len, k_slots, stamped,
-// arms), or returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`
+// for the instantiation `dims` names (n_prop, n_acc, log_len, k_slots,
+// stamped, arms, observed), or returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K5_MATCH(P_, A_, L_, K_, S_, R_, B_, G_)                                        \
+#define K5_MATCH(P_, A_, L_, K_, S_, R_, O_, B_, G_)                                     \
   if (dims[0] == P_ && dims[1] == A_ && dims[2] == L_ && dims[3] == K_ && dims[4] == S_ && \
-      dims[5] == R_)                                                                     \
-    return fn(Inst<P_, A_, L_, K_, S_ != 0, R_ != 0, B_, G_>{}, std::bool_constant<R_ != 0>{});
+      dims[5] == R_ && dims[6] == O_)                                                    \
+    return fn(Inst<P_, A_, L_, K_, S_ != 0, R_ != 0, O_ != 0, B_, G_>{},                 \
+              std::bool_constant<R_ != 0>{}, std::bool_constant<O_ != 0>{});
   K5_INSTANCES(K5_MATCH)
 #undef K5_MATCH
   return cudaErrorInvalidValue;
@@ -908,35 +1145,52 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 // fused_common.cuh; `dims` = n_prop, n_acc, log_len, k_slots, stamped (1:
 // the state's buffers carry delay stamps, which p_delay > 0 needs), arms
 // (1: the instantiation with the gray-failure and partition arms, which a
-// knob of theirs needs), then the dynamic shared bytes a block,
-// fused_tick.MP_STAGING's); the state's leaves are 29, 32 with the stamps,
-// and 2 more with snapshot shadows, which stale_k > 0 needs; `tick` is the
-// device int32 tick scalar, read by the kernel and advanced by the caller.
-// Returns cudaSuccess or the first error: an unknown instantiation (a
-// stamped state at a shape other than (2,5,8,4)), a leaf count that is not
+// knob of theirs needs), observed (1: the instantiation with the observer
+// planes, which a state carrying one needs), then the dynamic shared bytes
+// a block, fused_tick.MP_STAGING's); the state's leaves are 29, 32 with the
+// stamps, and 2 more with snapshot shadows, which stale_k > 0 needs; `tick`
+// is the device int32 tick scalar, read by the kernel and advanced by the
+// caller; the observer leaves and their sizes (obs::read_obs_args) come
+// last, none for an instantiation that is not observed.  Returns
+// cudaSuccess or the first error: an unknown instantiation (a stamped or
+// observed state at a shape other than (2,5,8,4)), a leaf count that is not
 // its state's (a stamped state on an unstamped one), a knob on without its
 // arms, stale_k without snapshots, p_delay without the stamps or the plan's
-// link_delay, or too few shared bytes (cudaErrorInvalidValue), a
-// shared-memory request the card refuses, or the launch's
-// cudaGetLastError().
+// link_delay, observer arguments that do not fit the instantiation or each
+// other, or too few shared bytes (cudaErrorInvalidValue), a shared-memory
+// request the card refuses, or the launch's cudaGetLastError().
 extern "C" int fused_multipaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                        void** plan, void* tick, const long long* params,
-                                       int n_params, void* stream) {
-  if (n_dims != 7) return cudaErrorInvalidValue;
+                                       int n_params, void* stream, void** obs_leaves, int n_obs,
+                                       const long long* obs_params, int n_obs_params) {
+  if (n_dims != 8) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
-  const cudaError_t bad =
+  cudaError_t bad =
       read_gray_args(dims[5] != 0, leaves, n_leaves, plan, params, n_params, &L, &pl, &prm, &gray,
                      kMpLeaves, kMpSnapAt, kMpSnaps, dims[4] != 0, kMpStampAt);
   if (bad != cudaSuccess) return bad;
+  obs::Obs ob{};
+  if (dims[6] != 0) {
+    bad = obs::read_obs_args(obs_leaves, n_obs, obs_params, n_obs_params, &ob);
+    if (bad != cudaSuccess) return bad;
+    const bool snaps = n_leaves == kMpLeaves + (dims[4] != 0 ? 3 : 0) + kMpSnaps;
+    if ((ob.snaps != 0) != snaps) return cudaErrorInvalidValue;
+  } else if (n_obs != 0 || n_obs_params != 0) {
+    return cudaErrorInvalidValue;
+  }
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[6];
-  return dispatch(dims, [&](auto inst, auto with_arms) {
-    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
-    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  const int smem = dims[7];
+  return dispatch(dims, [&](auto inst, auto with_arms, auto with_obs) {
+    constexpr bool R = decltype(with_arms)::value, O = decltype(with_obs)::value;
+    using I = decltype(inst);
+    if constexpr (R && O) return I::launch(L, pl, t, prm, smem, s, gray, ob);
+    else if constexpr (R) return I::launch(L, pl, t, prm, smem, s, gray);
+    else if constexpr (O) return I::launch(L, pl, t, prm, smem, s, ob);
+    else return I::launch(L, pl, t, prm, smem, s);
   });
 }
 
@@ -944,7 +1198,9 @@ extern "C" int fused_multipaxos_launch(const int* dims, int n_dims, void** leave
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_multipaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 7) return cudaErrorInvalidValue;
-  const int smem = dims[6];
-  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 8) return cudaErrorInvalidValue;
+  const int smem = dims[7];
+  return dispatch(dims, [&](auto inst, auto, auto) {
+    return decltype(inst)::occupancy(smem, blocks_per_sm);
+  });
 }

@@ -81,6 +81,21 @@
 // the snapshot shadows stay in global memory; the timeout skew moves the
 // classic deadline only (FAST's stays delta), the backoff skew scales the
 // expiry backoff.
+//
+// The observer planes (telemetry, coverage, exposure, margin, the client
+// workload) compile into observed instantiations of their own (OBS, at
+// (2,5,8), without and with the stamps and the arms), as K1's to K3's: the
+// kernel takes an obs::Obs after the Gray (if any), keeps the planes'
+// counters in the lane's column after the staged rows (obs::Rows), draws
+// exposure's whole masks at the tick's start and reads them at the lazy
+// sites (obs::predraw), and folds the coverage digest from registers, the
+// column and global memory (obs::fold_shadows, obs::fold_buffers).  What
+// is SynchPaxos' own: a fast decide is a leader event and serves a client
+// request as a classic one does; the FAST round's kick sends ACCEPTs that
+// telemetry does not count as dropped sends (as the reference's tick); and
+// a skewed timeout is effective where the expiry differs from that under
+// the unskewed deadline, FAST's delta in the fast round.  The other
+// instantiations call the sd:: sites directly, as before the planes.
 
 #include <type_traits>
 
@@ -98,8 +113,8 @@ using sd::select_present;
 // The tick's phases in order, as the phase-clock build splits a lane's
 // cycles (fused_tick.PHASES["synchpaxos"]).
 enum Phase {
-  kPhLoad, kPhRefresh, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhStore,
-  kPhases,
+  kPhLoad, kPhRefresh, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs,
+  kPhStore, kPhases,
 };
 
 // The role leaves in the reference's flatten order; the learner and the
@@ -111,22 +126,28 @@ enum Leaf {
 };
 
 // The kernel; `Arms` is empty for the default instantiations, whose
-// signature and code are those of K4 without the arms, and `Gray` for the
-// arms instantiations (ARMS), which take the arms' knobs and plan leaves.
+// signature and code are those of K4 without the arms, a `Gray` for the
+// arms instantiations (ARMS), which take the arms' knobs and plan leaves,
+// and an obs::Obs (after the Gray, if any) for the observed ones (OBS),
+// which compute the observer planes whose leaves it holds.
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 __global__ void __launch_bounds__(B, MIN_BLOCKS)
 fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Params prm,
                         Arms... arms) {
-  constexpr bool ARMS = sizeof...(Arms) > 0;
-  const Gray gray{arms...};
+  constexpr bool ARMS = has_arg<Gray, Arms...>;
+  constexpr bool OBS = has_arg<obs::Obs, Arms...>;
+  const Gray gray = pick_arg<Gray>(arms...);
+  const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, false, STAMPED>;
+  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
   constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
-  extern __shared__ int32_t smem[];  // G::kRows * B words
+  constexpr uint32_t kAccs = (1u << A) - 1;
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and the counters)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
@@ -134,6 +155,14 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   PhaseClock<kPhases> clk;
   const Column<B> col{smem + threadIdx.x};
   sd::load_column<P, A, K, false, 0, B, STAMPED>(col, L, n, i);
+  // The planes' counters into the column, and the zero-only payload words
+  // that are not 0 in global memory (obs::zero_words), which the coverage
+  // digest folds where the chunk has not written their slot.
+  uint64_t zo_nz = 0;
+  if constexpr (OBS) {
+    obs::move_counters<P, R0>(col, ob, n, i, true);
+    if (ob.cov()) zo_nz = obs::zero_words<G>(L, n, i);
+  }
 
   // ---- Load the lane's register-resident state once. ----
   int32_t promised[A], acc_bal[A], acc_val[A], crash_start[A], crash_end[A];
@@ -191,6 +220,10 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // What the planes read of the pre-tick state (OBS).
+    const uint32_t rq_p0 = rq_present, rp_p0 = rp_present;
+    const bool chosen0 = lrn.chosen;
+    const int32_t viol0 = lrn.violations;
     // Stale-snapshot recovery or amnesia, before the acceptor half-tick
     // (the restored state is the one the invariant check starts from).
     sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i,
@@ -200,6 +233,28 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     // The links cut this tick, per direction (bit e: edge e).
     uint32_t cut_req = 0, cut_rep = 0;
     if constexpr (ARMS) glane.cuts(tick, cut_req, cut_rep);
+
+    // The planes' counts of the tick (OBS), exposure's draws (an observed
+    // instantiation's sites that draw read them instead where exposure made
+    // them: obs::keep_at, obs::dup_at, obs::stamp_sends, the corruption
+    // site), and what the cuts and the stamps hold back of the pre-tick
+    // buffers.
+    int ev[obs::kEvents] = {}, inj[obs::kClasses] = {}, eff[obs::kClasses] = {};
+    const obs::PreDraw pd =
+        obs::predraw<OBS, ARMS, STAMPED, P, A>(ob, ts, prm, gray, ch.slow, n, i, inj);
+    int n_drop = 0, n_dup = 0;
+    uint32_t prom_m = 0, corrupt_m = 0, serve_m = 0, leader_m = 0, plain_exp = 0;
+    if constexpr (OBS) {
+      if (ARMS && gray.partition) {
+        inj[obs::kClPartition] = __popc(cut_req) + __popc(cut_rep);
+        eff[obs::kClPartition] = __popc(rq_p0 & (cut_req | (cut_req << E))) +
+                                 __popc(rp_p0 & (cut_rep | (cut_rep << E)));
+      }
+      if constexpr (STAMPED) {
+        if (prm.delay.mode != 0)
+          eff[obs::kClDelay] = __popc(rq_p0 & ch.rq_wait) + __popc(rp_p0 & ch.rp_wait);
+      }
+    }
     clk.mark(kPhRefresh);
 
     // ---- Reply delivery (pre-tick buffer): the replies that have arrived,
@@ -217,14 +272,18 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     if (sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
-        if (sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i)) taken &= ~(1u << j);
+        if (OBS ? obs::dup_at<OBS, ARMS, S, E>(pd, ts, prm, gray, 1, j, kDupRep, n, i)
+                : sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupRep, 1, j, n, i))
+          taken &= ~(1u << j);
       }
+      if constexpr (OBS) n_dup += __popc(delivered & ~taken);
     }
     uint32_t rp_next = rp_present & ~taken;
     clk.mark(kPhDeliver);
 
     // ---- Proposer fold over the pre-tick replies. ----
     uint32_t accept = 0, expired = 0;  // proposers that send ACCEPT / PREPARE
+    uint32_t p1_done = 0;              // of them, the classic ACCEPTs (OBS)
     int32_t old_bal[P], accept_val[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
@@ -271,6 +330,14 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const bool exp = phase[p] != kDone && !p1 && !p2 && !fast_done && tm > deadline;
       // The round-0 broadcast: FAST at the pre-tick timer 0 (never with p1).
       const bool kick = fast && timer[p] == 0;
+      if constexpr (OBS) {  // the decide edges, and the expiry under the unskewed deadline
+        serve_m |= (p2 || fast_done ? 1u : 0u) << p;
+        leader_m |= (p1 || fast_done ? 1u : 0u) << p;
+        plain_exp |= (phase[p] != kDone && !p1 && !p2 && !fast_done &&
+                              tm > (fast ? prm.delta : prm.timeout)
+                          ? 1u : 0u)
+                     << p;
+      }
 
       int32_t ph = phase[p];
       if (p1) ph = kP2;
@@ -298,6 +365,7 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       best_val[p] = bv;
       timer[p] = tm;
       accept |= (p1 || kick ? 1u : 0u) << p;
+      p1_done |= (p1 ? 1u : 0u) << p;
       expired |= (exp ? 1u : 0u) << p;
     }
     clk.mark(kPhFold);
@@ -325,7 +393,15 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const bool is_acc = sel >= P;
       int32_t mb = sel >= 0 ? col[G::kRqBal + sel * A + a] : 0;
       int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
-      if (sel >= 0) sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
+      if constexpr (OBS) {
+        if (sel >= 0 && obs::corrupt_fires<ARMS>(pd, ts, gray, a)) {
+          if (is_acc) mv ^= 64;
+          else mb = wrap_add(mb, 1);
+          corrupt_m |= 1u << a;
+        }
+      } else if (sel >= 0) {
+        sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
+      }
       const bool eq = (equiv >> a) & 1u;
       const bool ok_prep_h = is_prep && !eq && mb > promised[a];
       const bool ok_prep = ok_prep_h || (is_prep && eq);
@@ -342,22 +418,35 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
       // link drops it against its own threshold.
       const int jr = sel * A + a;
-      if (ok_prep && sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, jr, n, i)) {
+      if (ok_prep &&
+          (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepProm, 0, jr, n, i)
+               : sd::kept<ARMS, E>(ts, prm, gray, kKeepProm, 0, jr, n, i))) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      if (ok_acc && sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, jr - E, n, i)) {
+      if (ok_acc &&
+          (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepAccd, 1, jr - E, n, i)
+               : sd::kept<ARMS, E>(ts, prm, gray, kKeepAccd, 1, jr - E, n, i))) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
         rp_sent |= 1u << jr;
       }
       // Consume the selected request unless it is duplicated (on a flaky
       // link, against its own threshold).
-      if (sel >= 0 && !(sd::dup_live<ARMS>(prm, gray) &&
-                        sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, jr, n, i)))
+      if (sel >= 0 &&
+          !(sd::dup_live<ARMS>(prm, gray) &&
+            (OBS ? obs::dup_at<OBS, ARMS, S, E>(pd, ts, prm, gray, 0, jr, kDupReq, n, i)
+                 : sd::duplicated<ARMS, S, E>(ts, prm, gray, kDupReq, 0, jr, n, i))))
         rq_next &= ~(1u << jr);
+      if constexpr (OBS) {
+        prom_m |= (ok_prep ? 1u : 0u) << a;
+        if (sel >= 0) {
+          n_drop += (ok_prep || ok_acc) && !((rp_sent >> jr) & 1u) ? 1 : 0;
+          n_dup += (rq_next >> jr) & 1u;
+        }
+      }
 
       // Acceptor-local invariants (honest acceptors only).
       const bool bad = pr < pr_old || ab > pr || (ab == 0 && av != 0);
@@ -371,8 +460,12 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     }
     // The replies' delay stamps (the stamp draws are keyed by the slot, so
     // one rolled loop serves every reply site).
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i,
+                            tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kRpUntil, ch.rp_wait, 1, rp_sent, prm, plan, ts, n, i, tick, &draws);
+    }
     rp_present = rp_next | rp_sent;
     rp_written |= rp_sent;
     rq_present = rq_next;
@@ -392,29 +485,112 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
           const int e = p * A + a;
-          if (((accept >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, e, n, i)) {
+          if (((accept >> p) & 1u) &&
+              (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepP2, 3, e, n, i)
+                   : sd::kept<ARMS, E>(ts, prm, gray, kKeepP2, 3, e, n, i))) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, own or phase-1 value)
             col[G::kRqBal + j] = old_bal[p];
             col[G::rq_v1(j)] = accept_val[p];
             rq_sent |= 1u << j;
           }
-          if (((expired >> p) & 1u) && sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, e, n, i)) {
+          if (((expired >> p) & 1u) &&
+              (OBS ? obs::keep_at<OBS, ARMS, E>(pd, ts, prm, gray, kKeepP1, 2, e, n, i)
+                   : sd::kept<ARMS, E>(ts, prm, gray, kKeepP1, 2, e, n, i))) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
             rq_sent |= 1u << j;
           }
         }
+        if constexpr (OBS) {  // the dropped sends: the classic ACCEPTs' and PREPAREs' slots not written
+          const uint32_t acc = (rq_sent >> ((1 * P + p) * A)) & kAccs;
+          const uint32_t prep = (rq_sent >> ((0 * P + p) * A)) & kAccs;
+          n_drop += ((p1_done >> p) & 1u ? A - __popc(acc) : 0) +
+                    ((expired >> p) & 1u ? A - __popc(prep) : 0);
+        }
       }
-      if (prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
+      // (An observed tick clamps after the planes: the digest reads the
+      // ballots as the tick left them.)
+      if (!OBS && prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
     }
-    if constexpr (STAMPED)
+    if constexpr (STAMPED && OBS) {
+      obs::stamp_sends<OBS>(ch, pd, col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i,
+                            tick, &draws);
+    } else if constexpr (STAMPED) {
       ch.stamp_sends(col, G::kRqUntil, ch.rq_wait, 0, rq_sent, prm, plan, ts, n, i, tick, &draws);
+    }
     rq_present |= rq_sent;
     rq_written |= rq_sent;
     clk.mark(kPhSends);
+
+    // ---- The observer planes (OBS), from the tick's events, in the plain
+    //      tick's order: telemetry, exposure, margin, workload, coverage. ----
+    if constexpr (OBS) {
+      const bool decided_now = lrn.chosen && !chosen0;
+      ev[obs::kEvPromise] = __popc(prom_m);
+      ev[obs::kEvAccept] = __popc(ev_flag);
+      ev[obs::kEvDecide] = decided_now ? 1 : 0;
+      ev[obs::kEvConflict] = wrap_add(lrn.violations, -viol0);
+      ev[obs::kEvLeader] = __popc(leader_m);
+      ev[obs::kEvTimeout] = __popc(expired);
+      ev[obs::kEvDrop] = n_drop;
+      ev[obs::kEvDup] = n_dup;
+      ev[obs::kEvCorrupt] = __popc(corrupt_m);
+      eff[obs::kClDrop] = n_drop;
+      eff[obs::kClDup] = n_dup;
+      eff[obs::kClCorrupt] = __popc(corrupt_m);
+      if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
+      obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
+      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
+      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.mar()) {
+        obs::margin<P, R0, K, A, G::kLtBal>(col, quorum_of, lrn.chosen, lrn.chosen_val,
+                                            decided_now, promised, acc_bal, ~equiv & kAccs);
+      }
+      if (ob.wl()) obs::workload<P, R0>(col, ob, ts, tick, serve_m, n, i);
+      if (ob.cov()) {
+        // The coverage digest of the lane's state (obs/coverage.py digest_tree:
+        // the acceptors with their shadows, the proposers, both buffers with
+        // their stamps), in the reference's leaf and row order.
+        obs::Digest d;
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(promised[a]);
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(acc_bal[a]);
+#pragma unroll
+        for (int a = 0; a < A; ++a) d.fold(acc_val[a]);
+        obs::fold_shadows<A, SNAP>(d, ob, L, n, i);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(bal[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(phase[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(own_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(prop_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(heard[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(best_bal[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(best_val[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(timer[p]);
+#pragma unroll
+        for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
+        obs::fold_buffers<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written, rq_present,
+                                      rp_present);
+        obs::coverage<P, R0>(col, ob, d.value(), n, i);
+      }
+      if (prm.clamp_per_tick) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+      }
+      clk.mark(kPhObs);
+    }
   }
 
   draws.flush();
+  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
 
   // ---- Store the lane's state once. ----
 #pragma unroll
@@ -446,39 +622,59 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 }
 
 // One instantiation, ready to launch (SmemInst in fused_common.cuh): an
-// arms instantiation's kernel takes a Gray after Params.
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
+// arms instantiation's kernel takes a Gray after Params, an observed one an
+// obs::Obs after that, and its column holds the planes' counters
+// (obs::Rows) after the staged rows.
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
+using InstWith = SmemInst<
+    fused_synchpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Arms...>, B,
+    (SdStaged<P, A, K, false, STAMPED>::kRows +
+     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
 struct InstOf {
-  using type = SmemInst<fused_synchpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS>, B,
-                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS>;
 };
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
-struct InstOf<P, A, K, STAMPED, true, B, MIN_BLOCKS> {
-  using type = SmemInst<fused_synchpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>, B,
-                        SdStaged<P, A, K, false, STAMPED>::kRows * B * 4>;
+struct InstOf<P, A, K, STAMPED, true, false, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray>;
 };
-template <int P, int A, int K, bool STAMPED, bool ARMS, int B, int MIN_BLOCKS>
-using Inst = typename InstOf<P, A, K, STAMPED, ARMS, B, MIN_BLOCKS>::type;
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, false, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS>
+struct InstOf<P, A, K, STAMPED, true, true, B, MIN_BLOCKS> {
+  using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS, Gray, obs::Obs>;
+};
+template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
+using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 
-// The instantiations, (n_prop, n_acc, k_slots, stamped, arms, B,
-// MIN_BLOCKS): one per shape, stamps and arms flag, at the geometry
-// fused_tick.SP_STAGING gives it; MIN_BLOCKS, the blocks an SM is to hold,
-// caps a thread's registers.
-#define K4_INSTANCES(X)          \
-  X(2, 5, 8, 1, 0, 128, 3)       \
-  X(2, 5, 8, 0, 0, 128, 3)       \
-  X(2, 3, 8, 1, 0, 128, 3)       \
-  X(2, 5, 8, 0, 1, 128, 3)       \
-  X(2, 5, 8, 1, 1, 128, 3)
+// The instantiations, (n_prop, n_acc, k_slots, stamped, arms, observed, B,
+// MIN_BLOCKS): one per shape, stamps, arms and observer flag, at the
+// geometry fused_tick.SP_STAGING gives it; MIN_BLOCKS, the blocks an SM is
+// to hold, caps a thread's registers.  The observed columns (153 and 193
+// words) leave room for 2 blocks.
+#define K4_INSTANCES(X)            \
+  X(2, 5, 8, 1, 0, 0, 128, 3)      \
+  X(2, 5, 8, 0, 0, 0, 128, 3)      \
+  X(2, 3, 8, 1, 0, 0, 128, 3)      \
+  X(2, 5, 8, 0, 1, 0, 128, 3)      \
+  X(2, 5, 8, 1, 1, 0, 128, 3)      \
+  X(2, 5, 8, 0, 0, 1, 128, 2)      \
+  X(2, 5, 8, 0, 1, 1, 128, 2)      \
+  X(2, 5, 8, 1, 0, 1, 128, 2)      \
+  X(2, 5, 8, 1, 1, 1, 128, 2)
 
-// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{})` for the
-// instantiation `dims` names (n_prop, n_acc, k_slots, stamped, arms), or
-// returns cudaErrorInvalidValue.
+// Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`
+// for the instantiation `dims` names (n_prop, n_acc, k_slots, stamped,
+// arms, observed), or returns cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t dispatch(const int* dims, Fn&& fn) {
-#define K4_MATCH(P_, A_, K_, S_, R_, B_, M_)                                                \
-  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_) \
-    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, B_, M_>{}, std::bool_constant<R_ != 0>{});
+#define K4_MATCH(P_, A_, K_, S_, R_, O_, B_, M_)                                              \
+  if (dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_ && \
+      dims[5] == O_)                                                                       \
+    return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, O_ != 0, B_, M_>{},                       \
+              std::bool_constant<R_ != 0>{}, std::bool_constant<O_ != 0>{});
   K4_INSTANCES(K4_MATCH)
 #undef K4_MATCH
   return cudaErrorInvalidValue;
@@ -487,35 +683,52 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 }  // namespace
 
 // C entry point, loaded with ctypes (arguments: read_gray_args in
-// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped, arms, where
-// stamped is 1 when the state's buffers carry delay stamps (30 leaves, else
-// 28; 3 more with snapshot shadows, which stale_k > 0 needs) and arms 1 for
-// the instantiation with the gray-failure and partition arms, which a knob
-// of theirs needs, then the dynamic shared bytes a block,
+// fused_common.cuh; `dims` = n_prop, n_acc, k_slots, stamped (1: the
+// state's buffers carry delay stamps, 30 leaves, else 28; 3 more with
+// snapshot shadows, which stale_k > 0 needs), arms (1: the instantiation
+// with the gray-failure and partition arms, which a knob of theirs needs),
+// observed (1: the instantiation with the observer planes, which a state
+// carrying one needs), then the dynamic shared bytes a block,
 // fused_tick.SP_STAGING's); `tick` is the device int32 tick scalar, read by
-// the kernel and advanced by the caller.  p_delay > 0 needs a stamped
-// instantiation and the plan's link_delay.  Returns cudaSuccess or the
-// first error: an unknown instantiation, a leaf count that is not its
-// state's, a knob on without its arms or too few shared bytes
-// (cudaErrorInvalidValue), a shared-memory request the card refuses, or
-// the launch's cudaGetLastError().
+// the kernel and advanced by the caller; the observer leaves and their
+// sizes (obs::read_obs_args) come last, none for an instantiation that is
+// not observed.  p_delay > 0 needs a stamped instantiation and the plan's
+// link_delay.  Returns cudaSuccess or the first error: an unknown
+// instantiation, a leaf count that is not its state's, a knob on without
+// its arms, observer arguments that do not fit the instantiation or each
+// other, or too few shared bytes (cudaErrorInvalidValue), a shared-memory
+// request the card refuses, or the launch's cudaGetLastError().
 extern "C" int fused_synchpaxos_launch(const int* dims, int n_dims, void** leaves, int n_leaves,
                                        void** plan, void* tick, const long long* params,
-                                       int n_params, void* stream) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
+                                       int n_params, void* stream, void** obs_leaves, int n_obs,
+                                       const long long* obs_params, int n_obs_params) {
+  if (n_dims != 7) return cudaErrorInvalidValue;
   Leaves L;
   Plan pl;
   Params prm;
   Gray gray;
-  const cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params,
-                                         &L, &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
+  cudaError_t bad = read_gray_args(dims[4] != 0, leaves, n_leaves, plan, params, n_params, &L,
+                                   &pl, &prm, &gray, kLeaves, 3, 3, dims[3] != 0);
   if (bad != cudaSuccess) return bad;
+  obs::Obs ob{};
+  if (dims[5] != 0) {
+    bad = obs::read_obs_args(obs_leaves, n_obs, obs_params, n_obs_params, &ob);
+    if (bad != cudaSuccess) return bad;
+    const bool snaps = n_leaves == kLeaves + (dims[3] != 0 ? 2 : 0) + 3;
+    if ((ob.snaps != 0) != snaps) return cudaErrorInvalidValue;
+  } else if (n_obs != 0 || n_obs_params != 0) {
+    return cudaErrorInvalidValue;
+  }
   const auto* t = static_cast<const int32_t*>(tick);
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto with_arms) {
-    if constexpr (decltype(with_arms)::value) return decltype(inst)::launch(L, pl, t, prm, smem, s, gray);
-    else return decltype(inst)::launch(L, pl, t, prm, smem, s);
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto with_arms, auto with_obs) {
+    constexpr bool R = decltype(with_arms)::value, O = decltype(with_obs)::value;
+    using I = decltype(inst);
+    if constexpr (R && O) return I::launch(L, pl, t, prm, smem, s, gray, ob);
+    else if constexpr (R) return I::launch(L, pl, t, prm, smem, s, gray);
+    else if constexpr (O) return I::launch(L, pl, t, prm, smem, s, ob);
+    else return I::launch(L, pl, t, prm, smem, s);
   });
 }
 
@@ -523,7 +736,9 @@ extern "C" int fused_synchpaxos_launch(const int* dims, int n_dims, void** leave
 // one SM of the current device holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
 extern "C" int fused_synchpaxos_occupancy(const int* dims, int n_dims, int* blocks_per_sm) {
-  if (n_dims != 6) return cudaErrorInvalidValue;
-  const int smem = dims[5];
-  return dispatch(dims, [&](auto inst, auto) { return decltype(inst)::occupancy(smem, blocks_per_sm); });
+  if (n_dims != 7) return cudaErrorInvalidValue;
+  const int smem = dims[6];
+  return dispatch(dims, [&](auto inst, auto, auto) {
+    return decltype(inst)::occupancy(smem, blocks_per_sm);
+  });
 }

@@ -39,12 +39,11 @@ the kernels' instantiations mirror; the wrapper passes them the shared
 bytes.  :func:`phase_clocks` runs the phase-clock build of K1 to K4, which
 splits a lane's cycles by phase of the tick.
 
-K1, K2 and K3 also compute the observer planes a Paxos, Fast Paxos or
-Raft-core state carries (telemetry, coverage, exposure, margin, the client
-workload), in observed instantiations of their own (the last field of
-their keys, ``observed``), which take the planes' leaves as a separate
-argument (:func:`_obs_args`) and keep their counters in the lane's column
-(:func:`obs_rows`).
+Every fused kernel also computes the observer planes a state carries
+(telemetry, coverage, exposure, margin, the client workload), in observed
+instantiations of its own (the last field of its keys, ``observed``),
+which take the planes' leaves as a separate argument (:func:`_obs_args`)
+and keep their counters in the lane's column (:func:`obs_rows`).
 """
 
 from __future__ import annotations
@@ -80,10 +79,10 @@ DEFAULT_BLOCK = 1024
 # a ballot by less than 2 * MAX_PROPOSERS.
 BALLOT_GROWTH_PER_TICK = 16
 
-# Shapes each CUDA kernel is instantiated for, the last two fields of each
-# ``stamped`` (1: delay stamps, p_delay > 0) and ``arms`` (1: the
-# gray-failure and partition arms), K1's, K2's and K3's followed by
-# ``observed`` (1: the observer planes, at (2, 5, 8) with and without the
+# Shapes each CUDA kernel is instantiated for, the last three fields of each
+# ``stamped`` (1: delay stamps, p_delay > 0), ``arms`` (1: the
+# gray-failure and partition arms) and ``observed`` (1: the observer
+# planes, at (2, 5, 8) or Multi-Paxos' (2, 5, 8, 4) with and without the
 # stamps and the arms): Paxos, Fast Paxos and Raft-core (n_prop, n_acc,
 # k_slots, stamped, arms, observed) of config2/config4 or config5,
 # and config1 (Paxos) or (2, 3, 8), the three-acceptor shape the
@@ -93,8 +92,9 @@ BALLOT_GROWTH_PER_TICK = 16
 # config_delay_chaos (with delay stamps) and of its delay-free runs, three
 # acceptors, and the arms at (2, 5, 8) without stamps (config_gray_chaos)
 # and with them; Multi-Paxos (n_prop, n_acc, log_len, k_slots, stamped,
-# arms) of config3, config3-long, the reference tests' 4-slot window, and
-# three acceptors, with the arms and the stamps at config3's (2, 5, 8, 4).
+# arms, observed) of config3, config3-long, the reference tests' 4-slot
+# window, and three acceptors, with the arms, the stamps and the planes at
+# config3's (2, 5, 8, 4).
 _OBSERVED_SHAPES = ((2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1), (2, 5, 8, 1, 1, 1))
 _FR_SHAPES = (
     (2, 5, 8, 0, 0, 0), (2, 3, 8, 0, 0, 0), (2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 0, 0),
@@ -107,11 +107,14 @@ KERNEL_SHAPES = {
     ) + _OBSERVED_SHAPES,
     "fastpaxos": _FR_SHAPES,
     "raftcore": _FR_SHAPES,
-    "synchpaxos": ((2, 5, 8, 1, 0), (2, 5, 8, 0, 0), (2, 3, 8, 1, 0), (2, 5, 8, 0, 1), (2, 5, 8, 1, 1)),
+    "synchpaxos": (
+        (2, 5, 8, 1, 0, 0), (2, 5, 8, 0, 0, 0), (2, 3, 8, 1, 0, 0), (2, 5, 8, 0, 1, 0),
+        (2, 5, 8, 1, 1, 0),
+    ) + _OBSERVED_SHAPES,
     "multipaxos": (
-        (2, 5, 8, 4, 0, 0), (2, 5, 16, 4, 0, 0), (2, 5, 4, 4, 0, 0), (2, 3, 8, 4, 0, 0),
-        (2, 5, 8, 4, 0, 1), (2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1),
-    ),
+        (2, 5, 8, 4, 0, 0, 0), (2, 5, 16, 4, 0, 0, 0), (2, 5, 4, 4, 0, 0, 0), (2, 3, 8, 4, 0, 0, 0),
+        (2, 5, 8, 4, 0, 1, 0), (2, 5, 8, 4, 1, 0, 0), (2, 5, 8, 4, 1, 1, 0),
+    ) + tuple((2, 5, 8, 4) + key[3:] for key in _OBSERVED_SHAPES),
 }
 
 # The report-time ``max_ballot >= limit`` threshold of single-decree Paxos.
@@ -132,6 +135,15 @@ MP_STAMP_LEAVES = ("requests.until", "promises.until", "accepted.until")
 MP_PROM_LEAF = "promises.p_bv"
 MP_PACKED_LEAF = "learner.lt_mask"
 MP_MASKS_PER_WORD = 4
+
+
+def obs_rows(n_prop: int) -> int:
+    """Words of a lane's column that an observed instantiation adds for
+    the planes' counters (``obs::Rows`` in csrc/fused_common.cuh): the
+    12 event counters, the ring's cursor and word count, the 7 injected
+    and 7 effective exposure counts, the 4 margins, coverage's new bits,
+    and the client queue's 8 fields a proposer."""
+    return 12 + 2 + 7 + 7 + 4 + 1 + 8 * n_prop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,12 +175,17 @@ def mp_staged_rows(
 
 
 def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
-    rows = mp_staged_rows(*shape[:5], stage_prom)  # the arms (the key's last field) add no row
+    # The key: (P, A, L, K, stamped, arms, observed); the arms add no row,
+    # the planes their counters (an older source's key, which chip_ab.py
+    # launches, may lack the observed flag).
+    rows = mp_staged_rows(*shape[:5], stage_prom)
+    if len(shape) > 6 and shape[6]:
+        rows += obs_rows(shape[0])
     return MpStaging(threads, stage_prom, rows, rows * 4 * threads)
 
 
 # K5's geometry per instantiation (n_prop, n_acc, log_len, k_slots,
-# stamped, arms), which the wrapper passes to the kernel.  The tick is a
+# stamped, arms, observed), which the wrapper passes to the kernel.  The tick is a
 # long dependent chain a lane, so the warps an SM holds set the pace; at
 # 255 registers a thread it holds at most 8 (2 blocks of 128).  The
 # payloads are staged where the SM still holds 8 warps; at (2, 5, 16, 4)
@@ -178,15 +195,25 @@ def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
 # memory as at (2, 5, 16, 4): the 152 words left take 2 blocks of 128 (8
 # warps), where staging everything (232 words) allows 2 blocks of 96 (6
 # warps; PERF.md §6 times both).  The arms instantiations keep their
-# default's column (the snapshot shadows stay in global memory).
+# default's column (the snapshot shadows stay in global memory).  The
+# observed instantiations add the planes' counters (obs_rows, 49 words): a
+# column with the payloads staged (241 words, 281 stamped) takes 1 block of
+# 128 or 2 of 96 (6 warps); without them (161, 201) 2 of 128 (8 warps), but
+# the digest then reads the 80 payload words from global memory every tick.
+# Staged at 96 x 2 the steady chunk ran 38.958 and 39.056 ms on
+# observed-multipaxos against 54.446 and 59.490 (128 x 2), and 52.901 and
+# 52.942 on observed-delaychaos-multipaxos against 70.212 and 71.975 (two
+# calls of chip_ab.py --planes, PERF.md section 6): every observed key
+# takes 96 x 2 staged.
 MP_STAGING = {
-    (2, 5, 8, 4, 0, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
-    (2, 5, 16, 4, 0, 0): _mp_staging((2, 5, 16, 4, 0), 128, False),
-    (2, 5, 4, 4, 0, 0): _mp_staging((2, 5, 4, 4, 0), 128, True),
-    (2, 3, 8, 4, 0, 0): _mp_staging((2, 3, 8, 4, 0), 128, True),
-    (2, 5, 8, 4, 0, 1): _mp_staging((2, 5, 8, 4, 0), 128, True),
-    (2, 5, 8, 4, 1, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
-    (2, 5, 8, 4, 1, 1): _mp_staging((2, 5, 8, 4, 1), 128, False),
+    (2, 5, 8, 4, 0, 0, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
+    (2, 5, 16, 4, 0, 0, 0): _mp_staging((2, 5, 16, 4, 0), 128, False),
+    (2, 5, 4, 4, 0, 0, 0): _mp_staging((2, 5, 4, 4, 0), 128, True),
+    (2, 3, 8, 4, 0, 0, 0): _mp_staging((2, 3, 8, 4, 0), 128, True),
+    (2, 5, 8, 4, 0, 1, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
+    (2, 5, 8, 4, 1, 0, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
+    (2, 5, 8, 4, 1, 1, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
+    **{key: _mp_staging(key, 96, True) for key in KERNEL_SHAPES["multipaxos"] if key[6]},
 }
 
 
@@ -230,7 +257,12 @@ def sp_staged_rows(n_prop: int, n_acc: int, k_slots: int, stamped: int) -> int:
 
 
 def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
-    rows = sp_staged_rows(*shape[:4])  # the arms (the key's fifth field) add no row
+    # The key: (P, A, K, stamped, arms, observed); the arms add no row, the
+    # planes their counters (an older source's key, which chip_ab.py
+    # launches, may lack the observed flag).
+    rows = sp_staged_rows(*shape[:4])
+    if len(shape) > 5 and shape[5]:
+        rows += obs_rows(shape[0])
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
@@ -240,8 +272,11 @@ def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
 # thread at 168 registers; the stamped (2, 5, 8) column (144 words, the
 # learner table included) leaves room for no fourth block.  The arms
 # instantiations keep their default's column (the snapshot shadows stay in
-# global memory).
-SP_STAGING = {shape: _sp_staging(shape, 128, 3) for shape in KERNEL_SHAPES["synchpaxos"]}
+# global memory).  The observed instantiations add the planes' counters
+# (obs_rows): 153 words, 193 stamped, 2 blocks of 128, as K1's.
+SP_STAGING = {
+    shape: _sp_staging(shape, 128, 2 if shape[5] else 3) for shape in KERNEL_SHAPES["synchpaxos"]
+}
 
 
 # The Paxos, Fast Paxos and Raft-core state leaves K1, K2 and K3 keep in
@@ -281,16 +316,6 @@ def fr_staged_rows(
     (2PA each) where stamped, and the learner table (3K)."""
     e = n_prop * n_acc
     return (9 if protocol == "raftcore" else 8) * e + (4 * e if stamped else 0) + 3 * k_slots
-
-
-def obs_rows(n_prop: int) -> int:
-    """Words of a lane's column that an observed instantiation of K1, K2
-    or K3 adds
-    for the planes' counters (``obs::Rows`` in csrc/fused_common.cuh): the
-    12 event counters, the ring's cursor and word count, the 7 injected
-    and 7 effective exposure counts, the 4 margins, coverage's new bits,
-    and the client queue's 8 fields a proposer."""
-    return 12 + 2 + 7 + 7 + 4 + 1 + 8 * n_prop
 
 
 def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
@@ -484,14 +509,14 @@ BINDINGS = {
     "synchpaxos": Binding(
         apply_tick_sp, counter_masks, SynchPaxosState, "fused_synchpaxos_tick",
         "fused_synchpaxos_launch", shape_fields=("n_prop", "n_acc", "k_slots", "stamped"),
-        staging=SP_STAGING, arms=gray_arms,
+        staging=SP_STAGING, arms=gray_arms, observed=True,
     ),
     # core/mp_state.py MP_LAYOUT: an 11-bit report limit in a 12-bit field.
     "multipaxos": Binding(
         apply_tick_mp, mp_counter_masks, MultiPaxosState, "fused_multipaxos_tick",
         "fused_multipaxos_launch", block=256, ballot_limit=(1 << 11) - 1,
         proposer_bal_bits=12, shape_fields=("n_prop", "n_acc", "log_len", "k_slots", "stamped"),
-        staging=MP_STAGING, arms=gray_arms,
+        staging=MP_STAGING, arms=gray_arms, observed=True,
     ),
 }
 _entries: dict = {}
@@ -516,12 +541,12 @@ def ballot_hoist_safe_ticks(protocol: str = "paxos") -> int:
 # also counts the counter-PRNG draws the kernel makes and the slot-array
 # elements it touches.
 COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
-# The phase-clock build (K1 to K4): clock64() cycles per phase of the
-# tick, in the order of the kernel's ``Phase`` enum; its reader returns
-# PHASE_SLOTS counters (``kMaxPhases`` in csrc/fused_common.cuh), those past
-# a kernel's phases 0.
+# The phase-clock build: clock64() cycles per phase of the tick, in the
+# order of the kernel's ``Phase`` enum; its reader returns PHASE_SLOTS
+# counters (``kMaxPhases`` in csrc/fused_common.cuh), those past a kernel's
+# phases 0.
 PHASE_CLOCKS = ("FUSED_PHASE_CLOCKS",)
-PHASE_SLOTS = 8
+PHASE_SLOTS = 9
 PHASES = {
     "paxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
@@ -537,7 +562,11 @@ PHASES = {
     ),
     "synchpaxos": (
         "column load", "stamp refresh", "reply delivery", "proposer fold",
-        "acceptor half-tick", "learner", "proposer sends", "column store",
+        "acceptor half-tick", "learner", "proposer sends", "observers", "column store",
+    ),
+    "multipaxos": (
+        "column load", "reply delivery", "proposer fold", "acceptor half-tick", "learner",
+        "proposer half-tick", "observers", "column store",
     ),
 }
 
@@ -618,6 +647,12 @@ _PLAN_LEAVES = (
 
 def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan, cfg: FaultConfig) -> None:
     shape = BINDINGS[protocol].kernel_shape(state, cfg)
+    if protocol == "multipaxos" and shape[-1] and shape not in KERNEL_SHAPES[protocol]:
+        raise NotImplementedError(
+            f"K5 computes the observer planes at (2, 5, 8, 4) only, not {shape[:4]} "
+            f"(key {shape}): the observed long-log instantiation is ROADMAP item 22; "
+            "the plain tick computes them on the CPU"
+        )
     if shape not in KERNEL_SHAPES[protocol]:
         raise ValueError(
             f"the {protocol} CUDA kernel is instantiated for the shapes "
@@ -891,8 +926,8 @@ def fused_paxos_chunk(
     Multi-Paxos.  A state with delay stamps runs a stamped instantiation,
     and ``p_delay > 0`` needs a plan with ``link_delay``; so do the other
     four.  A state that carries an observer plane runs an observed
-    instantiation, which computes every plane the state carries; so do
-    Fast Paxos and Raft-core.
+    instantiation, which computes every plane the state carries; so do the
+    other four.
     CPU: the plain :func:`reference_chunk`.  There is no fallback between
     the two: the device of the state decides."""
     return _fused_chunk(
@@ -947,9 +982,10 @@ def fused_multipaxos_chunk(
     (``csrc/fused_multipaxos_tick.cu``, at the geometry ``MP_STAGING``
     gives the state's shape; a launch the card refuses raises); the
     default stream block is the reference's 256, and the per-tick clamp
-    pins ballots at 2047.  A gray-failure or partition knob, or a state
-    with delay stamps, runs its instantiation at config3's shape only; any
-    other shape raises."""
+    pins ballots at 2047.  A gray-failure or partition knob, a state
+    with delay stamps, or one with an observer plane runs its instantiation
+    at config3's shape only; any other shape raises (the observed long-log
+    instantiation is ROADMAP item 22)."""
     return _fused_chunk(
         "multipaxos", fused_multipaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,
@@ -969,7 +1005,8 @@ def fused_synchpaxos_chunk(
     gives the state's shape; a launch the card refuses raises), on a state
     with or without delay stamps; ``p_delay > 0`` needs a plan with
     ``link_delay``.  A gray-failure or partition knob runs an arms
-    instantiation at ``(2, 5, 8)``, stamped or not."""
+    instantiation at ``(2, 5, 8)``, stamped or not, and so does an observer
+    plane its observed one."""
     return _fused_chunk(
         "synchpaxos", fused_synchpaxos_chunk, state, seed, plan, cfg, n_ticks,
         block, blk0, clamp_per_tick,

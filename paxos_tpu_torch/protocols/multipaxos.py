@@ -25,9 +25,12 @@ The gray-failure and partition knobs (``protocols.paxos.GRAY_KNOBS``) are
 ported, with the pieces the single-decree ticks share, and so is the
 bounded delay (``p_delay``: ``protocols.paxos.send_stamps`` on the four
 sends, the readiness gates on PROMISE and ACCEPTED delivery and on the
-request selection, over the ``until`` stamps of the three buffers); the
-observer planes are not
-(:func:`paxos_tpu_torch.protocols.paxos.check_supported`).
+request selection, over the ``until`` stamps of the three buffers), and
+so are the observer planes (telemetry, exposure, the margin over the
+per-slot tables, :func:`paxos_tpu_torch.check.mp_safety.mp_margin_observe`,
+the client workload, coverage last on the post-tick state), with
+Multi-Paxos' signals: four send kinds over three buffers, a candidacy
+failure for a timeout, and a committed log slot to serve a client request.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from typing import Optional
 
 import torch
 
-from paxos_tpu_torch.check.mp_safety import mp_learner_observe
+from paxos_tpu_torch.check.mp_safety import mp_learner_observe, mp_margin_observe
+from paxos_tpu_torch.core import telemetry as tel_mod
 from paxos_tpu_torch.core.ballot import ballot_round, make_ballot
 from paxos_tpu_torch.core.messages import ACCEPT, PREPARE, MsgBuf
 from paxos_tpu_torch.core.mp_state import (
@@ -49,6 +53,7 @@ from paxos_tpu_torch.core.mp_state import (
     MPProposerState,
     MultiPaxosState,
     PromiseBuf,
+    bv_bal,
     bv_val,
     pack_bv,
 )
@@ -56,6 +61,7 @@ from paxos_tpu_torch.core.streams import MULTI_PAXOS_STREAMS as S
 from paxos_tpu_torch.faults.injector import FaultConfig, FaultPlan, bits_below, links_dup
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.kernels.quorum import majority, quorum_reached
+from paxos_tpu_torch.obs import exposure as exp_mod
 from paxos_tpu_torch.protocols.paxos import (
     check_supported,
     corrupt,
@@ -63,8 +69,10 @@ from paxos_tpu_torch.protocols.paxos import (
     recover,
     send_stamps,
     skewed_timers,
+    with_coverage,
 )
 from paxos_tpu_torch.transport import inmemory as net
+from paxos_tpu_torch.workload import generator as wload_mod
 
 
 def own_slot_value(pid, slot):
@@ -97,13 +105,15 @@ class MPTickMasks:
     # Bounded delay (None unless p_delay > 0), link_bits' kind axis.
     delay_bits: Optional[torch.Tensor] = None  # (4, P, A, I) int32 delay draw
     lat_bits: Optional[torch.Tensor] = None  # (4, P, A, I) int32 latency draw
+    arrival_bits: Optional[torch.Tensor] = None  # (P, I) int32 client arrivals (workload)
 
 
 def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=None) -> MPTickMasks:
     """Draw a tick's masks from the counter PRNG (``tick_seed`` and
     ``block`` as in :func:`paxos_tpu_torch.protocols.paxos.counter_masks`).
     With ``p_flaky > 0`` the uniform drop and duplication masks are not
-    drawn: the per-link raw bits take their place."""
+    drawn: the per-link raw bits take their place.  The client arrivals
+    are drawn where the state carries the workload plane."""
     check_supported(cfg, "multipaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
@@ -140,6 +150,10 @@ def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=
         lat_bits=(
             cp.counter_bits(tick_seed, S["LAT_BITS"], (4,) + edge, **kw)
             if cfg.p_delay > 0.0 else None
+        ),
+        arrival_bits=(
+            cp.counter_bits(tick_seed, S["ARRIVAL"], (n_prop, n_inst), **kw)
+            if state.wload is not None else None
         ),
     )
 
@@ -306,6 +320,13 @@ def apply_tick_mp(
     timeout, backoff = skewed_timers(masks, plan, cfg)
     candidate_timer = torch.where(prop.phase == CANDIDATE, prop.candidate_timer + 1, 0)
     cand_fail = (prop.phase == CANDIDATE) & (candidate_timer > timeout) & ~p1_done
+    # Exposure: a skewed timeout is effective where the candidacy-failure
+    # decision differs from the unskewed deadline's (before the timer resets).
+    timeout_delta = None
+    if state.exposure is not None and cfg.timeout_skew > 0:
+        timeout_delta = cand_fail ^ (
+            (prop.phase == CANDIDATE) & (candidate_timer > cfg.timeout) & ~p1_done
+        )
     demote = (prop.phase == LEAD) & lease_out & ~slot_done & ~log_full
 
     # Phase writes in precedence order: the last one wins.
@@ -328,9 +349,10 @@ def apply_tick_mp(
     # ---- Emit: new candidates broadcast Prepare(b) once ----
     edge = (n_prop, n_acc, n_inst)
     zeros = torch.zeros((n_prop, 1, n_inst), dtype=i32, device=dev)
+    prep_mask = (start_elec & p_alive)[:, None].expand(edge)
     requests = net.send(
         requests, PREPARE,
-        send_mask=(start_elec & p_alive)[:, None].expand(edge),
+        send_mask=prep_mask,
         bal=bal_next[:, None], v1=zeros, v2=zeros, keep=keep_prep, until=kind(2),
     )
     # Leaders re-broadcast the current slot's Accept every tick.
@@ -359,7 +381,17 @@ def apply_tick_mp(
         last_chosen_count=last_chosen_count,
         candidate_timer=candidate_timer,
     )
-    return MultiPaxosState(
+    # ---- Observers: from signals the tick already produced. ----
+    planes = _observer_planes(
+        state, masks, plan, cfg, learner, acc, ~equiv, quorum,
+        sel=sel, kinds=(is_prep, is_acc), promise=ok_prep, accept=ok_acc,
+        sends=(sel[PREPARE] & ok_prep[None], sel[ACCEPT] & ok_acc[None], prep_mask,
+               is_lead[:, None].expand(edge)),
+        keeps=(keep_prom, keep_accd, keep_prep, keep_acc), dup_req=dup_req,
+        links=(link_req, link_rep), leader=p1_done | demote, timeout=cand_fail,
+        serve=slot_done, timeout_delta=timeout_delta, stamps=stamps,
+    )
+    return with_coverage(MultiPaxosState(
         acceptor=acc,
         proposer=prop,
         learner=learner,
@@ -368,7 +400,83 @@ def apply_tick_mp(
         accepted=accepted,
         tick=state.tick + 1,
         base=state.base,
-    )
+        coverage=state.coverage,
+        **planes,
+    ))
+
+
+def _observer_planes(
+    state: MultiPaxosState, masks: MPTickMasks, plan: FaultPlan, cfg: FaultConfig, learner,
+    acc, honest, quorum: int, *, sel, kinds: tuple, promise, accept, sends: tuple, keeps: tuple,
+    dup_req, links: tuple, leader, timeout, serve, timeout_delta, stamps,
+) -> dict:
+    """The observer planes of a Multi-Paxos tick (all but coverage, which
+    hashes the post-tick state: ``with_coverage``), each None where the
+    state carries none, from the tick's own signals: ``sends``, the four
+    send kinds' masks (P, A, I), PROMISE, ACCEPTED, PREPARE and ACCEPT,
+    which ``keeps`` (keep_prom, keep_accd, keep_prep, keep_acc) decide; the
+    requests selected (``sel``), the only kind that ``dup_req`` duplicates;
+    the partition's per-direction ``links``; telemetry's events; the
+    proposers whose committed slot serves a queued client request
+    (``serve``); the post-tick acceptors ``acc``, whose highest accepted
+    ballot over the log partners the promise fence in the margin; exposure's
+    skewed-timeout delta; this tick's send ``stamps`` (None without
+    delay).  They draw nothing but the workload's arrivals."""
+    tel, exp = state.telemetry, state.exposure
+    lc = tel_mod.lane_count
+    dropped = dups = None
+    if keeps[0] is not None:
+        dropped = sum(lc(m & ~k) for m, k in zip(sends, keeps))
+    if dup_req is not None:
+        dups = lc(sel & dup_req)
+    effective_corrupt = masks.corrupt & (kinds[0] | kinds[1]) if cfg.p_corrupt > 0.0 else None
+    if tel is not None:
+        tel = tel_mod.record(
+            tel, state.tick,
+            promise=promise, accept=accept, decide=learner.chosen & ~state.learner.chosen,
+            conflict=learner.violations - state.learner.violations, leader=leader,
+            timeout=timeout, drop=dropped, dup=dups, corrupt=effective_corrupt,
+            **tel_mod.fault_lane_events(plan, cfg, state.tick),
+        )
+    if exp is not None:
+        events = {}
+        if keeps[0] is not None:
+            events["drop"] = (sum(lc(~k) for k in keeps), dropped)
+        if dup_req is not None:
+            events["dup"] = (lc(dup_req), dups)
+        if cfg.p_corrupt > 0.0:
+            events["corrupt"] = (masks.corrupt, effective_corrupt)
+        link_req, link_rep = links
+        if link_req is not None:  # the cut stalled what was in flight
+            events["partition"] = (
+                lc(~link_req) + lc(~link_rep),
+                lc(state.requests.present & ~link_req[None])
+                + lc(state.promises.present & ~link_rep)
+                + lc(state.accepted.present & ~link_rep),
+            )
+        if timeout_delta is not None:
+            events["timeout"] = (plan.ptimeout != 0, timeout_delta)
+        if cfg.stale_k > 0:  # every restore rewrites durable state
+            rec = plan.recovering(state.tick)
+            events["stale"] = (rec, rec)
+        if stamps is not None:  # delays drawn; messages stalled behind their stamp
+            events["delay"] = (
+                lc(stamps > 0),
+                sum(
+                    lc(buf.present & ~net.ready(buf, state.tick))
+                    for buf in (state.requests, state.promises, state.accepted)
+                ),
+            )
+        exp = exp_mod.record(exp, **events)
+    mar = state.margin
+    if mar is not None:
+        mar = mp_margin_observe(
+            mar, state.learner, learner, acc.promised, bv_bal(acc.log).amax(dim=1), honest, quorum,
+        )
+    wl = state.wload
+    if wl is not None:  # a leader's committed slot serves one queued request
+        wl = wload_mod.observe(wl, state.tick, serve=serve, arrival_bits=masks.arrival_bits)
+    return dict(telemetry=tel, exposure=exp, margin=mar, wload=wl)
 
 
 # ---- Decided-prefix compaction (long-log mode) ----
@@ -413,7 +521,9 @@ def compact_mp_body(state: MultiPaxosState):
     present[ACCEPT] = req.present[ACCEPT] & (acc_slot >= 0)
     accd_slot = state.accepted.slot - shift[None, None]
 
-    out = MultiPaxosState(
+    # The observer planes pass through unchanged.
+    out = dataclasses.replace(
+        state,
         acceptor=dataclasses.replace(acc, log=_shift_slots(acc.log, shift, 1)),
         proposer=dataclasses.replace(
             prop,
@@ -440,7 +550,6 @@ def compact_mp_body(state: MultiPaxosState):
         accepted=dataclasses.replace(
             state.accepted, slot=accd_slot, present=state.accepted.present & (accd_slot >= 0)
         ),
-        tick=state.tick,
         base=state.base + shift,
     )
     return out, shift, evicted

@@ -534,14 +534,17 @@ def apply_tick(
     ))
 
 
-def skew_delta(state, cfg: FaultConfig, expired, pending, timer) -> "torch.Tensor | None":
+def skew_delta(
+    state, cfg: FaultConfig, expired, pending, timer, deadline=None
+) -> "torch.Tensor | None":
     """Exposure's effective skewed timeouts (``timeout_skew``): where the
     expiry decision of the proposers still ``pending`` (not done and not
-    advancing this tick) differs from the unskewed timer's; taken before
-    the timer rebases, and None where exposure or the skew is off."""
+    advancing this tick) differs from the unskewed deadline's
+    (``deadline``, default ``cfg.timeout``); taken before the timer
+    rebases, and None where exposure or the skew is off."""
     if state.exposure is None or cfg.timeout_skew <= 0:
         return None
-    return expired ^ (pending & (timer > cfg.timeout))
+    return expired ^ (pending & (timer > (cfg.timeout if deadline is None else deadline)))
 
 
 def observer_planes(

@@ -21,7 +21,10 @@ pieces (:func:`recover`, :func:`gray_links`, :func:`deliver`,
 message, stamped or not, and the timeout skew moves the classic deadline
 only (FAST's stays ``delta``).  Masks come from
 :func:`paxos_tpu_torch.protocols.paxos.counter_masks`.  The observer planes
-are absent, as in the Paxos tick.
+are the Paxos tick's too (:func:`observer_planes`), with SynchPaxos'
+signals: a fast or classic decide serves a client request, a fast decide
+elects as phase 1 does, and the unskewed deadline of a skewed timeout is
+FAST's ``delta`` in the fast round.
 """
 
 from __future__ import annotations
@@ -45,9 +48,12 @@ from paxos_tpu_torch.protocols.paxos import (
     deliver,
     gray_links,
     kind_until,
+    observer_planes,
     recover,
     select,
+    skew_delta,
     skewed_timers,
+    with_coverage,
 )
 from paxos_tpu_torch.transport import inmemory as net
 from paxos_tpu_torch.utils.bitops import popcount
@@ -162,7 +168,12 @@ def apply_tick_sp(
     # FAST's deadline is the window delta, not the (skewed) classic timeout.
     timeout, backoff = skewed_timers(masks, plan, cfg)
     deadline = torch.where(prop.phase == FAST, delta, timeout)
-    expired = (prop.phase != DONE) & ~p1_done & ~p2_done & ~fast_done & (timer > deadline)
+    pending = (prop.phase != DONE) & ~p1_done & ~p2_done & ~fast_done
+    expired = pending & (timer > deadline)
+    exp_timeout_delta = skew_delta(
+        state, cfg, expired, pending, timer,
+        deadline=torch.where(prop.phase == FAST, delta, cfg.timeout),
+    )
     pid = torch.arange(n_prop, dtype=torch.int32, device=dev)[:, None]
     new_bal = make_ballot(ballot_round(prop.bal) + cfg.ballot_stride, pid)
 
@@ -215,14 +226,26 @@ def apply_tick_sp(
         timer=timer,
         decided_val=decided_val,
     )
-    return SynchPaxosState(
+    # ---- Observers: from signals the tick already produced (the FAST
+    #      round's kick is not a counted send, as in the reference). ----
+    planes = observer_planes(
+        state, masks, plan, cfg, links, learner, delivered=delivered, sel=sel,
+        sends=(sel[PREPARE] & ok_prep[None], sel[ACCEPT] & ok_acc[None], p1_done, expired),
+        kinds=(is_prep, is_acc), promise=ok_prep, accept=ok_acc, leader=p1_done | fast_done,
+        timeout=expired, serve=p2_done | fast_done,
+        fence=(acc_new.promised, acc_new.acc_bal, ~equiv), quorum=q2,
+        timeout_delta=exp_timeout_delta,
+    )
+    return with_coverage(SynchPaxosState(
         acceptor=acc_new,
         proposer=prop,
         learner=learner,
         requests=requests,
         replies=replies,
         tick=state.tick + 1,
-    )
+        coverage=state.coverage,
+        **planes,
+    ))
 
 
 def fast_path_rate(state: SynchPaxosState) -> float:

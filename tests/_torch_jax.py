@@ -246,12 +246,17 @@ def check_observed_against_jax(protocol, make, lit, ticks=32):
         compiler_options=FAST_COMPILE,
     )(jstate, jax_plan_of(plan))
     got = tfused.reference_chunk(
-        state, tcfg.seed, plan, tcfg.fault, ticks, apply_fn=binding.apply_fn
+        state, tcfg.seed, plan, tcfg.fault, ticks, apply_fn=binding.apply_fn,
+        mask_fn=binding.mask_fn,
     )
     want = _np_leaves(want)
     got_leaves = interop.state_to_numpy(got)
     f = tcfg.fault
-    assert len(want) == len(got_leaves) == 52 + 3 * (f.stale_k > 0) + 2 * (f.p_delay > 0)
+    if protocol == "multipaxos":  # 30 protocol leaves, 2 shadows, 3 stamps
+        n_leaves = 53 + 2 * (f.stale_k > 0) + 3 * (f.p_delay > 0)
+    else:
+        n_leaves = 52 + 3 * (f.stale_k > 0) + 2 * (f.p_delay > 0)
+    assert len(want) == len(got_leaves) == n_leaves
     for i, (w, g) in enumerate(zip(want, got_leaves, strict=True)):
         assert w.dtype == g.dtype and w.shape == g.shape, i
         np.testing.assert_array_equal(w, g, err_msg=f"leaf {i}")

@@ -190,7 +190,9 @@ def _mp_shape_config(shape, n, seed):
     acceptors with equivocators, a long log through a 4- or 16-slot
     window, (the arms) the gray-chaos main path's config, or (the stamps)
     the delay-chaos one's, with the arms delay across a cut."""
-    n_prop, n_acc, log_len, _, stamped, arms = shape
+    n_prop, n_acc, log_len, _, stamped, arms, observed = shape
+    if observed:  # the same key's config with every observer plane on
+        return with_planes(_mp_shape_config(shape[:6] + (0,), n, seed))
     if stamped:
         name = "delay across a cut" if arms else "config_delay_chaos"
         return delay_knob_configs(n, seed, "multipaxos")[name]
@@ -217,7 +219,8 @@ def test_multipaxos_kernel_ragged_grid_on_cuda(shape):
     cfg = _mp_shape_config(shape, n, 9)
     block = tfused.fit_block(256, n)
     plan = config_plan(cfg, 9)
-    plain = trun.init_state(cfg, "cuda")
+    plain = path_state(cfg, "cuda")
+    assert tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault) == shape
     kern = plain.clone()
     long_log = cfg.fault.log_total > 0
     for _ in range(3):
@@ -241,7 +244,7 @@ def test_multipaxos_refused_launch_raises(monkeypatch):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     cfg = main_config("config3", 1024, 3)
     plan = config_plan(cfg, 3)
-    shape = (2, 5, 8, 4, 0, 0)
+    shape = (2, 5, 8, 4, 0, 0, 0)
     staging = tfused.MP_STAGING[shape]
     state = trun.init_state(cfg, "cuda")
     # advance once so that the refused launches would have something to change
@@ -261,12 +264,13 @@ def test_multipaxos_refused_launch_raises(monkeypatch):
 
 @pytest.mark.cuda
 def test_multipaxos_geometry_fits_the_card():
-    """Every geometry of K5 lets an SM hold 8 warps, the most 255 registers
-    a thread allow."""
+    """Every geometry of K5 lets an SM hold 2 blocks: 8 warps (the most 255
+    registers a thread allow) at 128 lanes a block, 6 at 96 (the observed
+    columns, 241 and 281 words)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for shape, staging in tfused.MP_STAGING.items():
-        assert tfused.blocks_per_sm("multipaxos", shape) * staging.threads // 32 >= 8
+        assert tfused.blocks_per_sm("multipaxos", shape) >= 2
 
 
 @pytest.mark.cuda
@@ -351,16 +355,18 @@ def test_synchpaxos_kernel_ragged_grid_on_cuda(shape):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     n = 1000
     assert n % tfused.SP_STAGING[shape].threads != 0
-    n_prop, n_acc, _, stamped, arms = shape
+    n_prop, n_acc, _, stamped, arms, observed = shape
     if arms:  # K4's arms: every knob at once with the stamps, else config_gray_chaos's
         name = "every gray knob, stamped" if stamped else "config_gray_chaos"
         cfg = gray_knob_configs(n, 9, "synchpaxos")[name]
     else:
         cfg = TC.config_delay_chaos(n, 9, violate_delta=True) if stamped else sp_delay_off_config(n, 9)
     cfg = dataclasses.replace(cfg, n_acc=n_acc)
+    if observed:
+        cfg = with_planes(cfg)
     block = tfused.fit_block(1024, n)
     plan = main_plan(cfg) or trun.init_plan(cfg, "cuda")
-    plain = trun.init_state(cfg, "cuda")
+    plain = path_state(cfg, "cuda")
     assert tfused.BINDINGS["synchpaxos"].kernel_shape(plain, cfg.fault) == shape
     kern = plain.clone()
     for _ in range(3):
@@ -380,7 +386,7 @@ def test_synchpaxos_refused_launch_raises(monkeypatch):
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     cfg = main_config("synchpaxos", 1024, 3)
     plan = main_plan(cfg)
-    shape = (2, 5, 8, 1, 0)
+    shape = (2, 5, 8, 1, 0, 0)
     staging = tfused.SP_STAGING[shape]
     state = tfused.fused_synchpaxos_chunk(trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 16)
     before, launches = state.clone(), tfused.fused_synchpaxos_chunk.launches
@@ -399,12 +405,13 @@ def test_synchpaxos_refused_launch_raises(monkeypatch):
 @pytest.mark.cuda
 def test_synchpaxos_geometry_fits_the_card():
     """Every geometry of K4 lets an SM hold the blocks its registers are
-    capped for: 12 warps."""
+    capped for: 12 warps, 8 for the observed instantiations."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for shape, staging in tfused.SP_STAGING.items():
         blocks = tfused.blocks_per_sm("synchpaxos", shape)
-        assert blocks >= staging.min_blocks and blocks * staging.threads // 32 >= 12
+        assert blocks >= staging.min_blocks
+        assert blocks * staging.threads // 32 >= staging.min_blocks * staging.threads // 32
 
 
 @pytest.mark.cuda
@@ -422,7 +429,8 @@ def test_synchpaxos_phase_clocks_follow_the_kernel():
     assert tfused.fused_synchpaxos_chunk.launches == before
     _assert_same(clocked, kern)
     assert tuple(cycles) == tfused.PHASES["synchpaxos"]
-    assert all(c > 0 for c in cycles.values())
+    # The observers phase runs in the observed instantiations only.
+    assert all((c == 0) if phase == "observers" else (c > 0) for phase, c in cycles.items())
     again = tfused.phase_clocks("synchpaxos", trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
     assert sum(again.values()) < 2 * sum(cycles.values())  # cleared after every read
 
@@ -837,7 +845,7 @@ def test_mp_gray_arms_match_plain_on_cuda():
     for cfg, ticks, chunks, block in cases:
         plan = config_plan(cfg, cfg.seed)
         plain = trun.init_state(cfg, "cuda")
-        assert tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault) == (2, 5, 8, 4, 0, 1)
+        assert tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault) == (2, 5, 8, 4, 0, 1, 0)
         kern = plain.clone()
         for _ in range(chunks):
             plain = plain_chunk(cfg, plain, plan, ticks, block)
@@ -904,7 +912,7 @@ def test_mp_arms_refuse_mismatched_launches():
             wrapper(state, 1, config_plan(small, 1), small.fault, 8)
         _assert_same(state, before)
     assert wrapper.launches == launches
-    assert tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 0, 1)) >= 2
+    assert tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 0, 1, 0)) >= 2
 
 
 @pytest.mark.cuda
@@ -977,7 +985,7 @@ def test_sp_gray_arms_match_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     shapes = _match_over_chunks("synchpaxos", gray_knob_configs(4096, 12, "synchpaxos"))
-    assert shapes == {(2, 5, 8, 0, 1), (2, 5, 8, 1, 1)}
+    assert shapes == {(2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 1, 0)}
     assert _block0_digest("graychaos-synchpaxos", 1024) == BLOCK0_DIGESTS["graychaos-synchpaxos"]
 
 
@@ -1047,7 +1055,7 @@ def test_mp_delay_matches_plain_on_cuda():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     cases = delay_knob_configs(4096, 14, "multipaxos")
     shapes = _match_over_chunks("multipaxos", cases, block=256)
-    assert shapes == {(2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1)}
+    assert shapes == {(2, 5, 8, 4, 1, 0, 0), (2, 5, 8, 4, 1, 1, 0)}
     cfg = main_config("delaychaos-multipaxos", 4096, 13)
     plan = main_plan(cfg)
     init = near_limit_state_mp(cfg, 254)
@@ -1060,7 +1068,7 @@ def test_mp_delay_matches_plain_on_cuda():
     _assert_same(kern, plain)
     assert int(kern.proposer.bal.max()) == (1 << 11) - 1
     assert _block0_digest("delaychaos-multipaxos", 256) == BLOCK0_DIGESTS["delaychaos-multipaxos"]
-    for shape in ((2, 5, 8, 4, 1, 0), (2, 5, 8, 4, 1, 1)):
+    for shape in ((2, 5, 8, 4, 1, 0, 0), (2, 5, 8, 4, 1, 1, 0)):
         assert tfused.blocks_per_sm("multipaxos", shape) >= 2
 
 
@@ -1238,3 +1246,117 @@ def test_observed_fr_matches_plain_on_cuda(protocol):
             tfused._obs_args = real
         torch.cuda.synchronize()
         _assert_same(state, before)
+
+
+def _observed_cases(protocol, n, seed):
+    """Each of K4's and K5's observed instantiations' cases: the protocol's
+    cell, config_gray_chaos, config_corrupt and config_stale (its shadows)
+    on its arms, config_delay_chaos on its stamps (SynchPaxos' cell), and
+    every gray knob with the stamps."""
+    gray = gray_knob_configs(n, seed, protocol)
+    if protocol == "multipaxos":
+        delay = delay_knob_configs(n, seed, protocol)
+        cell, stamped = main_config("config3", n, seed), delay["config_delay_chaos"]
+        every = delay["every gray knob, p_delay 0.4"]
+    else:
+        cell, stamped = sp_delay_off_config(n, seed), main_config("synchpaxos", n, seed)
+        every = gray["every gray knob, stamped"]
+    return {
+        "cell": cell, "config_gray_chaos": gray["config_gray_chaos"],
+        "config_corrupt": gray["config_corrupt"], "config_stale": gray["config_stale"],
+        "config_delay_chaos": stamped, "every gray knob, stamped": every,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["multipaxos", "synchpaxos"])
+def test_observed_mp_sp_match_plain_on_cuda(protocol):
+    """K5's and K4's observed instantiations (every observer plane on)
+    against the plain tick, observer leaves included, over two chunks, at
+    their four keys (``_observed_cases``); the planes-off kernel from the
+    same state gives the same protocol state; the per-tick clamp with a
+    block offset from near-limit ballots; the observers phase of the
+    phase-clock build runs; and the C entry refuses a wrong observer
+    argument count, observer arguments to an instantiation that is not
+    observed and an observed launch without them, the state left as it
+    was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n = 4096
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    block = tfused.BINDINGS[protocol].block
+    shapes = set()
+    for name, cfg in _observed_cases(protocol, n, 21).items():
+        cfg = with_planes(cfg)
+        plan = config_plan(cfg, 21)
+        plain = path_state(cfg, "cuda")
+        shapes.add(tfused.BINDINGS[protocol].kernel_shape(plain, cfg.fault))
+        kern, bare = plain.clone(), without_planes(plain.clone())
+        for _ in range(2):
+            plain = plain_chunk(cfg, plain, plan, 64, block)
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, 64, block=block)
+            bare = wrapper(bare, cfg.seed, plan, cfg.fault, 64, block=block)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+        _assert_same(without_planes(kern), bare)
+        assert int(kern.exposure.injected.sum()) > 0 and int(kern.coverage.new_bits.sum()) > 0, name
+    head = (2, 5, 8, 4) if protocol == "multipaxos" else (2, 5, 8)
+    assert shapes == {head + (s, r, 1) for s in (0, 1) for r in (0, 1)}
+    if protocol == "multipaxos":
+        cfg = with_planes(main_config("config3", n, 13))
+        init, limit = near_limit_state_mp(cfg, 254), (1 << 11) - 1
+    else:
+        cfg = with_planes(main_config("synchpaxos", n, 13))
+        init, limit = near_limit_state(cfg, 4094), LIMIT
+    plan = config_plan(cfg, 13)
+    plain = plain_chunk(cfg, init, plan, 96, block, blk0=5, clamp_per_tick=True)
+    kern = wrapper(init.clone(), cfg.seed, plan, cfg.fault, 96, blk0=5, clamp_per_tick=True)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    assert int(kern.proposer.bal.max()) == limit
+    cfg = with_planes(main_config("config3" if protocol == "multipaxos" else "synchpaxos", 8192, 5))
+    plan = config_plan(cfg, 5)
+    kern = wrapper(path_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 48)
+    clocked = path_state(cfg, "cuda")
+    cycles = tfused.phase_clocks(protocol, clocked, cfg.seed, plan, cfg.fault, 48)
+    _assert_same(clocked, kern)
+    assert all(c > 0 for c in cycles.values())
+    real = tfused._obs_args
+    observed = path_state(cfg, "cuda")
+
+    def short(st, f):
+        ptrs, _, params, n_params = real(st, f)
+        return ptrs, 22, params, n_params
+
+    bare = trun.init_state(main_config("config3" if protocol == "multipaxos" else "synchpaxos", 8192, 5), "cuda")
+    for state, args in ((observed, lambda st, f: (None, 0, None, 0)), (observed, short),
+                        (bare, lambda st, f: real(observed, f))):
+        before = state.clone()
+        tfused._obs_args = args
+        try:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tfused._launch(protocol, state, 1, plan, cfg.fault, 8, block, 0, False)
+        finally:
+            tfused._obs_args = real
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+
+
+@pytest.mark.cuda
+def test_observed_multipaxos_elsewhere_raises_naming_item_22():
+    """A Multi-Paxos state with an observer plane at a shape without an
+    observed instantiation of K5 (the long log's 16-slot window, three
+    acceptors) raises on the card, naming ROADMAP item 22, and runs no
+    plain tick: the state is as it was and no launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    wrapper = tfused.fused_multipaxos_chunk
+    launches = wrapper.launches
+    for cfg in (with_planes(TC.config3_long(1024, 1)),
+                with_planes(dataclasses.replace(main_config("config3", 1024, 1), n_acc=3))):
+        state = path_state(cfg, "cuda")
+        before = state.clone()
+        with pytest.raises(NotImplementedError, match="item 22"):
+            wrapper(state, 1, config_plan(cfg, 1), cfg.fault, 8)
+        _assert_same(state, before)
+    assert wrapper.launches == launches

@@ -206,6 +206,6 @@ def test_init_state_stamps_the_three_buffers():
     assert MultiPaxosState.takes_stamps and state.stamped == 1 and len(state.leaves()) == 33
     for buf in (state.requests, state.promises, state.accepted):
         assert buf.until is not None and not buf.until.any()
-    assert tfused.BINDINGS["multipaxos"].kernel_shape(state, cfg.fault) == (2, 5, 8, 4, 1, 0)
+    assert tfused.BINDINGS["multipaxos"].kernel_shape(state, cfg.fault) == (2, 5, 8, 4, 1, 0, 0)
     plain = trun.init_state(chip_smoke.main_config("config3", 16), "cpu")
     assert plain.stamped == 0 and len(plain.leaves()) == 30

@@ -59,7 +59,7 @@ def jax_config(tcfg):
     jcfg = dataclasses.replace(
         JC.config2_dueling_drop(tcfg.n_inst, tcfg.seed),
         protocol=tcfg.protocol, n_prop=tcfg.n_prop, n_acc=tcfg.n_acc, k_slots=tcfg.k_slots,
-        fault=JC.FaultConfig(**dataclasses.asdict(tcfg.fault)),
+        log_len=tcfg.log_len, fault=JC.FaultConfig(**dataclasses.asdict(tcfg.fault)),
         telemetry=JTel(**dataclasses.asdict(tcfg.telemetry)),
         coverage=JCov(**dataclasses.asdict(tcfg.coverage)),
         exposure=JExp(**dataclasses.asdict(tcfg.exposure)),

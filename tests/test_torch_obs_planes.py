@@ -334,3 +334,52 @@ def test_observed_geometry_of_k1_k2_k3(protocol, rows):
         tfused._check_cuda_inputs(
             protocol, chip_smoke.path_state(small, "cpu"), chip_smoke.main_plan(small, "cpu"), small.fault
         )
+
+
+@pytest.mark.parametrize("protocol,head,rows,threads", [
+    ("synchpaxos", (2, 5, 8), (153, 153, 193, 193), (128,) * 4),
+    ("multipaxos", (2, 5, 8, 4), (241, 241, 281, 281), (96,) * 4),
+])
+def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
+    """The observed instantiations of K4 and K5 (keys ending in
+    ``observed``, at their (2,5,8) and (2,5,8,4) with and without the
+    stamps and the arms): their planes-off column plus ``obs_rows`` (K4 153
+    words, 193 stamped, as K1's, 2 blocks of 128; K5 241 and 281, the
+    PROMISE payloads staged, 2 blocks of 96); the wrapper keys a state with
+    a plane to them and one without to the planes-off keys."""
+    binding = tfused.BINDINGS[protocol]
+    table = binding.staging
+    observed = [k for k in tfused.KERNEL_SHAPES[protocol] if k[-1]]
+    assert observed == [head + (s, r, 1) for s in (0, 1) for r in (0, 1)]
+    assert [table[k].rows for k in observed] == list(rows)
+    assert [table[k].threads for k in observed] == list(threads)
+    for key in observed:
+        st = table[key]
+        assert st.smem_bytes == st.rows * 4 * st.threads
+        assert st.rows == table[key[:-1] + (0,)].rows + tfused.obs_rows(2) + (
+            80 if protocol == "multipaxos" and key[-3] else 0  # the payloads K5 stamped leaves global
+        )
+        assert tfused._launch_dims(binding, key) == key + (st.smem_bytes,)
+    assert binding.observed
+    path = "config3" if protocol == "multipaxos" else "synchpaxos"
+    cfg = chip_smoke.with_planes(chip_smoke.main_config(path, 8, 1))
+    state = chip_smoke.path_state(cfg, "cpu")
+    assert binding.kernel_shape(state, cfg.fault) == head + (state.stamped, 0, 1)
+    assert binding.kernel_shape(chip_smoke.without_planes(state), cfg.fault) == head + (state.stamped, 0, 0)
+    assert len(tfused._obs_args(state, cfg.fault)) == 4
+
+
+@pytest.mark.parametrize("other", [dict(log_len=16), dict(log_len=4), dict(n_acc=3)])
+def test_observed_multipaxos_elsewhere_names_item_22(other):
+    """A Multi-Paxos state with a plane at a shape K5 has no observed
+    instantiation for (the long log's 16-slot window, the 4-slot one, three
+    acceptors) is refused by the wrapper's instantiation lookup, host code
+    that runs before any launch, with an error naming the shape and ROADMAP
+    item 22; on the CPU the plain tick runs it."""
+    cfg = dataclasses.replace(chip_smoke.with_planes(chip_smoke.main_config("config3", 8, 1)), **other)
+    state = chip_smoke.path_state(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match=r"item 22") as err:
+        tfused._check_cuda_inputs("multipaxos", state, chip_smoke.main_plan(cfg, "cpu"), cfg.fault)
+    assert str((cfg.n_prop, cfg.n_acc, cfg.log_len, cfg.k_slots)) in str(err.value)
+    plain = tfused.FUSED_CHUNKS["multipaxos"](state, 1, chip_smoke.main_plan(cfg, "cpu"), cfg.fault, 4)
+    assert int(plain.tick) == 4 and plain.planes == state.planes

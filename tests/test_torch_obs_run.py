@@ -7,12 +7,12 @@ clamps the identity) against the JAX package's ``summarize`` of its own
 ``reference_chunk`` over the same 64 ticks from the same state (the JAX
 package's workload plan carried across): the telemetry, coverage,
 exposure, margin and slo blocks and the rest of the report must be equal.
-The same for config5's Fast Paxos and Raft-core cells, whose ticks
-compute the planes too.  Multi-Paxos and SynchPaxos refuse a plane, naming
-the ROADMAP item that ports it (13c, 13d); a workload plane without its
-plan raises, naming item 15; a state with planes crosses from the JAX
-package's leaves with the config that made it, and a Fast Paxos or
-Raft-core state with planes crosses both ways."""
+The same for config5's Fast Paxos and Raft-core cells, config3's
+Multi-Paxos cell and config_delay_chaos's SynchPaxos cell, whose ticks
+compute the planes too.  A workload plane without its plan raises, naming
+item 15; a state with planes crosses from the JAX package's leaves with the
+config that made it, and a Fast Paxos, Raft-core, Multi-Paxos or
+SynchPaxos state with planes crosses both ways."""
 
 import dataclasses
 
@@ -37,12 +37,13 @@ from test_torch_obs_paxos import FAST_COMPILE, jax_config
 N, TICKS = 256, 64
 
 
-def run_against_jax(tcfg, seed):
+def run_against_jax(tcfg, seed, lit=("drop",)):
     """The port's ``run`` of ``tcfg`` (every plane on; two 32-tick chunks)
     against the JAX package's ``summarize`` of its own ``reference_chunk``
     over the same ticks from the same state: the final states leaf for
-    leaf, then the plane blocks and the rest of the report; returns the
-    report and the port's state."""
+    leaf, then the plane blocks and the rest of the report, whose exposure
+    block lights the classes ``lit``; returns the report and the port's
+    state."""
     jcfg = jax_config(tcfg)
     jstate = j_init_state(jcfg)
     wl = (np.asarray(jstate.wload.mode), np.asarray(jstate.wload.phase))
@@ -73,8 +74,8 @@ def run_against_jax(tcfg, seed):
     assert report["slo"]["done"] > 0 and report["slo"]["offered"] == (
         report["slo"]["done"] + report["slo"]["shed"] + report["slo"]["queue_depth"]
     )
-    lit = annotate_lit(report["exposure"], tcfg.fault)
-    assert lit["lit"] == ["drop"] and lit["vacuous"] == []
+    annotated = annotate_lit(report["exposure"], tcfg.fault)
+    assert sorted(annotated["lit"]) == sorted(lit) and annotated["vacuous"] == []
     return report, state
 
 
@@ -97,14 +98,16 @@ def test_run_reports_the_planes_of_fastpaxos_and_raftcore_as_the_jax_package(pro
     assert all(again[b] == report[b] for b in chip_smoke.PLANE_BLOCKS) and "stuck_lanes" in again
 
 
-@pytest.mark.parametrize("protocol,item", [("multipaxos", "13c"), ("synchpaxos", "13d")])
-def test_other_protocols_refuse_the_planes(protocol, item):
-    path = {"multipaxos": "config3"}.get(protocol, protocol)
-    cfg = dataclasses.replace(chip_smoke.main_config(path, 16), telemetry=TelemetryConfig(counters=True))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        trun.init_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        trun.run(cfg, total_ticks=8, device="cpu", plan=chip_smoke.main_plan(cfg, "cpu"))
+@pytest.mark.parametrize("path,lit", [("config3", ("drop",)), ("synchpaxos", ("drop", "delay"))])
+def test_run_reports_the_planes_of_multipaxos_and_synchpaxos_as_the_jax_package(path, lit):
+    """config3's Multi-Paxos cell and config_delay_chaos's SynchPaxos cell
+    at 256 lanes, seed 3, every plane on, whose ticks compute the planes
+    since the port's plane refusal went: as Fast Paxos' and Raft-core's."""
+    tcfg = chip_smoke.with_planes(chip_smoke.main_config(path, N, 3))
+    report, state = run_against_jax(tcfg, 3, lit)
+    assert state.planes == ("telemetry", "coverage", "exposure", "margin", "wload")
+    again = trun.summarize(state, liveness=True)
+    assert all(again[b] == report[b] for b in chip_smoke.PLANE_BLOCKS) and "stuck_lanes" in again
 
 
 def test_workload_plane_needs_its_plan():
@@ -133,17 +136,24 @@ def test_state_with_planes_crosses_from_the_jax_package():
             interop.state_from_numpy(leaves, protocol="paxos")
 
 
-@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
-def test_fastpaxos_and_raftcore_states_with_planes_cross_both_ways(protocol):
-    """A Fast Paxos or Raft-core state with every plane on, its snapshot
-    shadows and delay stamps, after 16 ticks: its leaves read back from
-    numpy as the same state (the config tells the planes apart), and the
-    JAX package's initial state of the same config reads as the port's."""
-    tcfg = chip_smoke.with_planes(dataclasses.replace(C.config_stale(32, 4), protocol=protocol))
+@pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore", "multipaxos", "synchpaxos"])
+def test_states_with_planes_cross_both_ways(protocol):
+    """A Fast Paxos, Raft-core, Multi-Paxos (config3's cell) or SynchPaxos
+    state with every plane on, its snapshot shadows and delay stamps, after
+    16 ticks: its leaves read back from numpy as the same state (the config
+    tells the planes apart), and the JAX package's initial state of the
+    same config reads as the port's."""
+    if protocol == "multipaxos":
+        tcfg = dataclasses.replace(C.config3_multipaxos(32, 4), fault=C.config_stale(32, 4).fault)
+        n_leaves = 53 + 2 + 3  # 30 protocol leaves and 23 planes', 2 shadows, 3 stamps
+    else:
+        tcfg = dataclasses.replace(C.config_stale(32, 4), protocol=protocol)
+        n_leaves = 52 + 3 + 2  # 29 and 23, 3 shadows, 2 stamps
+    tcfg = chip_smoke.with_planes(tcfg)
     tcfg = dataclasses.replace(tcfg, fault=dataclasses.replace(tcfg.fault, p_delay=0.4, delay_max=2))
     plan = chip_smoke.config_plan(tcfg, 4, "cpu")
     state = chip_smoke.path_state(tcfg, "cpu")
-    assert state.snapshots and state.stamped and len(state.leaves()) == 52 + 3 + 2
+    assert state.snapshots and state.stamped and len(state.leaves()) == n_leaves
     state = trun.make_advance(tcfg, plan)(state, 16)
     leaves = interop.state_to_numpy(state)
     back = interop.state_from_numpy(leaves, protocol=protocol, cfg=tcfg)

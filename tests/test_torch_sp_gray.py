@@ -135,16 +135,16 @@ def test_arms_geometry_is_pinned():
     table = tfused.SP_STAGING
     assert tuple(table) == tfused.KERNEL_SHAPES["synchpaxos"]
     for stamped, rows in ((0, 104), (1, 144)):
-        arms, default = table[(2, 5, 8, stamped, 1)], table[(2, 5, 8, stamped, 0)]
+        arms, default = table[(2, 5, 8, stamped, 1, 0)], table[(2, 5, 8, stamped, 0, 0)]
         assert (arms.threads, arms.rows, arms.smem_bytes, arms.min_blocks) == (128, rows, rows * 512, 3)
         assert default.rows == rows
     binding = tfused.BINDINGS["synchpaxos"]
     for name, cfg in chip_smoke.gray_knob_configs(4, 1, "synchpaxos").items():
         state = trun.init_state(cfg, "cpu")
-        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, state.stamped, 1), name
+        assert binding.kernel_shape(state, cfg.fault) == (2, 5, 8, state.stamped, 1, 0), name
     plain = chip_smoke.main_config("synchpaxos", 4)
-    assert binding.kernel_shape(trun.init_state(plain, "cpu"), plain.fault) == (2, 5, 8, 1, 0)
-    assert tfused._launch_dims(binding, (2, 5, 8, 0, 1)) == (2, 5, 8, 0, 1, 104 * 512)
+    assert binding.kernel_shape(trun.init_state(plain, "cpu"), plain.fault) == (2, 5, 8, 1, 0, 0)
+    assert tfused._launch_dims(binding, (2, 5, 8, 0, 1, 0)) == (2, 5, 8, 0, 1, 0, 104 * 512)
 
 
 @pytest.mark.parametrize("name", ["config_corrupt", "config_stale"])

@@ -9,9 +9,10 @@ the blocks an SM is to hold).  The rows are held against the port's own
 and the table against the instantiations and the phase list of
 ``csrc/fused_synchpaxos_tick.cu`` and the column order of
 ``sd::load_column`` in ``csrc/fused_common.cuh``, which K1's stamped
-instantiations share.  The instantiations are keyed by shape, stamps and
-arms flag, ``(n_prop, n_acc, k_slots, stamped, arms)``; an arms
-instantiation keeps its default's column.
+instantiations share.  The instantiations are keyed by shape, stamps,
+arms and observer flag, ``(n_prop, n_acc, k_slots, stamped, arms,
+observed)``; an arms instantiation keeps its default's column, an observed
+one adds the planes' counters (``obs_rows``) after it.
 """
 
 import dataclasses
@@ -44,7 +45,7 @@ def _leaf(state, path):
 
 
 def _state(shape):
-    n_prop, n_acc, k_slots, stamped, _ = shape  # the fifth field is the arms flag
+    n_prop, n_acc, k_slots, stamped, _, _ = shape  # then the arms and observer flags
     return SynchPaxosState.init(3, n_prop, n_acc, k_slots, delay=bool(stamped))
 
 
@@ -67,7 +68,8 @@ def _rows(state, path, kinds):
 def test_staged_rows_match_the_state_leaves(shape, staging):
     state = _state(shape)
     rows = sum(_rows(state, path, kinds) for path, kinds in _staged(shape))
-    assert staging.rows == rows == tfused.sp_staged_rows(*shape[:4])
+    rows += tfused.obs_rows(shape[0]) if shape[5] else 0
+    assert staging.rows == rows == tfused.sp_staged_rows(*shape[:4]) + shape[5] * tfused.obs_rows(2)
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -94,9 +96,22 @@ def test_every_instantiation_has_a_geometry():
     assert tfused.BINDINGS["synchpaxos"].staging is tfused.SP_STAGING
 
 
+def test_observed_geometry_is_k1s():
+    """The observed instantiations, at (2,5,8) with and without the stamps
+    and the arms: 153 words (193 stamped), 2 blocks of 128 lanes, as K1's;
+    the others keep their planes-off geometry (3 blocks)."""
+    observed = [k for k in tfused.SP_STAGING if k[5]]
+    assert observed == [(2, 5, 8, s, r, 1) for s in (0, 1) for r in (0, 1)]
+    for key in observed:
+        st = tfused.SP_STAGING[key]
+        assert st == tfused.FR_STAGING["paxos"][key]
+        assert (st.threads, st.rows, st.min_blocks) == (128, 153 + 40 * key[3], 2)
+    assert all(st.min_blocks == 3 for k, st in tfused.SP_STAGING.items() if not k[5])
+
+
 def _instances():
-    """``K4_INSTANCES`` of the .cu, in order: (P, A, K, stamped, arms, B,
-    MIN) each."""
+    """``K4_INSTANCES`` of the .cu, in order: (P, A, K, stamped, arms,
+    observed, B, MIN) each."""
     listed = re.search(r"#define K4_INSTANCES\(X\)(.*?)\n\n", SOURCE, re.S).group(1)
     return [tuple(map(int, x.split(", "))) for x in re.findall(r"X\(([\d, ]+)\)", listed)]
 
@@ -108,14 +123,16 @@ def test_source_instantiates_the_table():
 
 
 def test_source_instantiates_each_shape_once():
-    """The C entry point picks the instantiation by the shape, stamps and
-    arms flag alone, so none may have two geometries."""
-    shapes = [inst[:5] for inst in _instances()]
+    """The C entry point picks the instantiation by the shape, stamps, arms
+    and observer flags alone, so none may have two geometries."""
+    shapes = [inst[:6] for inst in _instances()]
     assert len(shapes) == len(set(shapes)) == len(tfused.KERNEL_SHAPES["synchpaxos"])
-    assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_)" in SOURCE
-    assert SOURCE.count("n_dims != 6") == 2 and SOURCE.count("const int smem = dims[5];") == 2
+    assert "dims[0] == P_ && dims[1] == A_ && dims[2] == K_ && dims[3] == S_ && dims[4] == R_ &&" in SOURCE
+    assert "dims[5] == O_)" in SOURCE
+    assert SOURCE.count("n_dims != 7") == 2 and SOURCE.count("const int smem = dims[6];") == 2
     assert "using G = SdStaged<P, A, K, false, STAMPED>;" in SOURCE
-    assert "SdStaged<P, A, K, false, STAMPED>::kRows * B * 4" in SOURCE
+    assert "(SdStaged<P, A, K, false, STAMPED>::kRows +" in SOURCE
+    assert "(has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4" in SOURCE
 
 
 def test_source_column_order_matches_the_leaves():
@@ -169,8 +186,8 @@ def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
     """The occupancy query builds and asks the kernel's own library:
     without nvcc it raises, with no estimate to fall back on, and a binding
     without a geometry (chip_ab.py's, for a kernel source whose C entry
-    takes no shared bytes) has none to ask for; the phase clocks exist for
-    K1 to K4 only and count on the card only."""
+    takes no shared bytes) has none to ask for; every fused kernel has a
+    phase-clock build, which counts on the card only."""
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -178,7 +195,7 @@ def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tfused.blocks_per_sm("synchpaxos", (2, 5, 8, 1, 0))
+        tfused.blocks_per_sm("synchpaxos", (2, 5, 8, 1, 0, 0))
     monkeypatch.setitem(
         tfused.BINDINGS, "paxos", dataclasses.replace(tfused.BINDINGS["paxos"], staging=None)
     )
@@ -186,7 +203,11 @@ def test_measuring_builds_need_the_card_and_the_kernel(monkeypatch, tmp_path):
         tfused.blocks_per_sm("paxos", (2, 5, 8))
     cfg = TC.config_delay_chaos(64, 1)
     state = trun.init_state(cfg, "cpu")
+    assert set(tfused.PHASES) == set(tfused.BINDINGS)
     with pytest.raises(ValueError, match="phase-clock"):
-        tfused.phase_clocks("multipaxos", state, 1, None, cfg.fault, 8)
+        tfused.phase_clocks("int32_ceiling", state, 1, None, cfg.fault, 8)
+    mp_cfg = TC.config3_multipaxos(64, 1)
+    with pytest.raises(ValueError, match="CUDA state"):
+        tfused.phase_clocks("multipaxos", trun.init_state(mp_cfg, "cpu"), 1, None, mp_cfg.fault, 8)
     with pytest.raises(ValueError, match="CUDA state"):
         tfused.phase_clocks("synchpaxos", state, 1, None, cfg.fault, 8)
