@@ -24,6 +24,11 @@ config (``chip_smoke.MAIN_PATHS``) through ``chip_smoke``'s own functions:
 - each variant's ``ptxas -v`` lines.
 
 The path ``ceiling`` times K6 (``phase_ceiling``) instead.  With
+``--ptxas`` it times nothing: it builds every kernel (default build) of
+each variant, all in parallel, and prints whether each instantiation's
+``ptxas -v`` lines (registers, stack, spills) are the first variant's,
+the instantiations matched by their mangled names without the
+anonymous namespace's per-build hash.  With
 ``--planes`` each path runs with every observer plane on
 (``chip_smoke.obs_planes``), as a path ``observed-<path>`` (its kernel's
 observed instantiation; the planes move no schedule, so its eviction pins
@@ -51,6 +56,7 @@ import concurrent.futures
 import dataclasses
 import json
 import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -194,6 +200,39 @@ def prebuild(paths: list) -> None:
         list(pool.map(lambda nd: build.build(*nd), sorted(set(builds))))
 
 
+def ptxas_tables(variants: list) -> dict:
+    """{variant: {kernel: {instantiation: ptxas lines}}}: every kernel's
+    default build from each variant's sources, all built in parallel."""
+    from paxos_tpu_torch.kernels import build
+
+    kernels = sorted(p.stem for p in Path(build.CSRC).glob("*.cu"))
+
+    def report(job):
+        (name, csrc), kernel = job
+        out = subprocess.run(
+            [build.nvcc_path(), *build._flags(()), "-o",
+             str(build.BUILD_DIR / f"ab_{name}_{kernel}.so"), str(csrc / f"{kernel}.cu")],
+            capture_output=True, text=True, check=True,
+        )
+        table, cur = {}, None
+        for line in (out.stdout + out.stderr).splitlines():
+            found = re.search(r"entry function '(\S+)'", line)
+            if found:
+                cur = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "", found.group(1))
+                table[cur] = []
+            elif cur and ("registers" in line or "spill" in line):
+                table[cur].append(line.strip())
+        return name, kernel, table
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = [(v, k) for v in variants for k in kernels]
+    out = {name: {} for name, _ in variants}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        for name, kernel, table in pool.map(report, jobs):
+            out[name][kernel] = table
+    return out
+
+
 def measure(variant: str, path: str) -> dict:
     from paxos_tpu_torch.kernels import build
     from paxos_tpu_torch.kernels import fused_tick as tf
@@ -205,7 +244,9 @@ def measure(variant: str, path: str) -> dict:
     kernel = tf.BINDINGS[mp.protocol].kernel
     cfg = cs.main_config(path, cs.FULL_LANES, 7)
     kw = dict(reps=5, ceiling=cs.INT32_OPS_PER_S, census=mp.census, compact=mp.compact)
-    steady = cs.compare(f"{variant} {path} steady", cfg, cs.main_plan(cfg), 64, **kw)
+    steady = cs.compare(
+        f"{variant} {path} steady", cfg, cs.main_plan(cfg), 64, first_chunk=not mp.compact, **kw
+    )
     out = {
         "ms": steady["ms"],
         "draws_per_lane_tick": steady["draws_per_lane_tick"],
@@ -213,9 +254,7 @@ def measure(variant: str, path: str) -> dict:
         "bound_ms": steady["bound_ms"],
     }
     if not mp.compact:
-        first = cs.compare(
-            f"{variant} {path} first chunk", cfg, cs.main_plan(cfg), 64, from_init=True, **kw
-        )
+        first = steady["first_chunk"]
         out.update(
             first_ms=first["ms"], first_draws_per_lane_tick=first["draws_per_lane_tick"],
             first_phase_split=first.get("phase_split"),
@@ -240,6 +279,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1, help="A B B A rounds")
     ap.add_argument("--planes", action="store_true",
                     help="every observer plane on, each path run as observed-<path>")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="compare every instantiation's ptxas lines with the first variant's")
     args = ap.parse_args(argv)
     if args.planes:
         args.paths = [observed_path(p) if p != "ceiling" else p for p in args.paths]
@@ -249,6 +290,20 @@ def main(argv=None) -> int:
     from paxos_tpu_torch.kernels import fused_tick as tf
 
     variants = [(v.split("=", 1)[0], Path(v.split("=", 1)[1]).resolve()) for v in args.variants]
+    if args.ptxas:
+        tables = ptxas_tables(variants)
+        first, same = variants[0][0], True
+        for name, _ in variants[1:]:
+            for kernel, table in tables[first].items():
+                for inst, lines in table.items():
+                    got = tables[name].get(kernel, {}).get(inst)
+                    same = same and got == lines
+                    cs.log(f"ab ptxas: {kernel} {inst}: {name} {got} {first} {lines} same {got == lines}")
+                for inst in tables[name].get(kernel, {}).keys() - table.keys():
+                    cs.log(f"ab ptxas: {kernel} {inst}: only in {name}: {tables[name][kernel][inst]}")
+        cs.log(f"ab ptxas: every instantiation of {first} the same in every variant: {same}")
+        print(json.dumps({"ptxas": tables, "same": same}))
+        return 0
     bindings, phases = dict(tf.BINDINGS), dict(tf.PHASES)
     order = (variants + variants[::-1]) * args.rounds
     results = []

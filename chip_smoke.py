@@ -9,7 +9,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 
 1. build: the six kernels of ``paxos_tpu_torch/kernels/csrc`` and the
    fused kernels' draw-counting builds, one nvcc each, all started
-   together, and the phase-clock builds of K1 to K5; each kernel's
+   together, the phase-clock builds of K1 to K5, and the ablated builds of
+   K1 and K5 (``-DFUSED_ABLATE``, one per component of the tick, each
+   with its draw-counting build); each kernel's
    ``ptxas -v`` registers and spills, and the launch geometry per
    instantiation of the kernels, each of which stages a column per lane
    in shared memory (K1 to K5: lanes a CUDA block, staged rows, shared
@@ -59,8 +61,18 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    send (for K4 in the delta-violating regime too), K1 to K5 with the
    split of a lane's cycles by phase of the tick from their phase-clock
    builds; the column load and store alone (a launch of 0 ticks) of K1 to
-   K4, and K5 on config3 and config3-long;
-5. main paths: the flagship campaign (config2), the config5 sweep's Fast
+   K4, and K5 on config3 and config3-long; a path's first chunk is
+   compared once, then timed from copies of its initial state in the same
+   call;
+5. ablation: each ablated build of K1 (config2) and K5 (config3) against
+   the plain tick without the same component, byte for byte, at 1<<16
+   lanes over two 64-tick chunks from stream block 5, then timed with its
+   bound (the build without the PRNG must draw nothing); and the ablation
+   entry point's table (``python -m paxos_tpu_torch.scripts.ablate_fused``,
+   ``time_variant``) for both at full width, the first chunk and the
+   steady state, printed as one ``{"ablation": ...}`` line, each ablated
+   build's launches counted from 0 around it (none may be 0);
+6. main paths: the flagship campaign (config2), the config5 sweep's Fast
    Paxos and Raft-core campaigns, config3 (Multi-Paxos, leader lease and
    leader crash), config3-long (a 256-slot log through a 16-slot
    window, compacted after every chunk), SynchPaxos on
@@ -79,7 +91,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    ``observed-synchpaxos``: the observed instantiations of K1, K2, K3, K5
    and K4; their telemetry, coverage, exposure, margin and slo blocks
    printed and checked against each other, their protocol state pinned as
-   their planes-off path's), at
+   their planes-off path's), and config3-long so (``observed-multipaxos-long``,
+   K5's observed long-log instantiation, compacted after every chunk), at
    1<<20 lanes, chunk 64, pipeline depth 16 and 4096 ticks (config3-long
    1024), through ``run``,
    each with every launch count set to 0 before and read after; reports
@@ -89,7 +102,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    tests/test_torch_evictions.py and the files named there), and so must
    stream block 0 of most paths (``BLOCK0_DIGESTS``); then once more under torch.profiler
    for the device's busy and idle time;
-6. checker: config4's equivocation, an unsafe Fast Flexible Paxos quorum
+7. checker: config4's equivocation, an unsafe Fast Flexible Paxos quorum
    triple, Raft-core equivocation and Multi-Paxos equivocation must each
    report violations (Multi-Paxos: the count the JAX package gives,
    ``MP_CHECKER_VIOLATIONS``), and SynchPaxos' planted ``sp_unsafe_fast``
@@ -109,25 +122,28 @@ gray-failure plan fields run on plans drawn here from numpy
 (:func:`config_plan`): the config's own distribution, from another stream
 than the JAX package's ``FaultPlan.sample``.
 
-Prints one ``{"kernels": [...]}`` line (an entry per main path: its
-kernel's instantiation on the path's config), the card's name and power
-limit, and last the ``{"ok": true, "device": ...}`` line.  Imports nothing
-of JAX.
+Prints the ``{"ablation": ...}`` line, one ``{"kernels": [...]}`` line (an
+entry per main path: its kernel's instantiation on the path's config; an
+entry per ablated build, with the ablation table's launches), the card's name and power limit, and last the
+``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import hashlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from paxos_tpu_torch.core.device import card_line
+from paxos_tpu_torch.harness.np_plan import config_plan, fault_plan, gray_plan_fields  # noqa: F401
 
 # Recorded state digests: 256 lanes, seed 7, 32 ticks (the JAX package's
 # tests/test_gray.py _GOLDEN_CTR).
@@ -272,6 +288,10 @@ MAIN_PATHS = {
         "synchpaxos", MAIN_TICKS, "config_delay_chaos", "delaychaos-synchpaxos", fast_path=True,
         compare_chunks=2, planes=True,
     ),
+    "observed-multipaxos-long": MainPath(
+        "multipaxos", LONG_TICKS, "config3_long", "config3long-multipaxos", compact=True,
+        compare_chunks=2, planes=True,
+    ),
 }
 # The report keys of the liveness block (harness.run.summarize(liveness=)).
 LIVENESS_KEYS = ("decided_by_curve", "chosen_tick_hist", "hist_bin_width", "stuck_lanes")
@@ -313,6 +333,7 @@ EVICTION_PINS = {
     "observed-raftcore": (0, {}),
     "observed-multipaxos": (0, {}),
     "observed-synchpaxos": (4, {595: ([129], "3da7a9c3d5cad789"), 821: ([636], "f9da58d7938887dd")}),
+    "observed-multipaxos-long": (0, {}),
 }
 # The state digest of stream block 0 after each Multi-Paxos main path, the
 # SynchPaxos ones, the gray-chaos ones and the delay-chaos ones, as the JAX
@@ -330,6 +351,7 @@ BLOCK0_DIGESTS = {
     # The observed paths: their planes-off path's block (the digest leaves
     # out the planes).
     "observed-multipaxos": "883d8be41b65a537", "observed-synchpaxos": "77bdd097d024b69b",
+    "observed-multipaxos-long": "42961f14b71b0d5d",
 }
 # Violations of config3 at 1024 lanes, seed 3, with p_equiv 0.4 over 300
 # ticks on config_plan(cfg, 3) (tests/test_torch_multipaxos.py computes
@@ -534,6 +556,26 @@ REPLACES = {
 }
 
 
+# The ablation variants of the JAX package's fused engine (fused_fns(p,
+# ablate)) and the flags in its ticks, which the ablated builds of K1 and K5
+# port.
+ABLATED_REPLACES = {
+    "paxos": FUSED_PALLAS_CALL + (
+        " (_kernel :201, fused_fns('paxos', ablate) :623-687; the flags, "
+        "paxos_tpu/protocols/paxos.py:170-215, :305-330, :421-432, :486, :505-535, :621)"
+    ),
+    "multipaxos": FUSED_PALLAS_CALL + (
+        " (_kernel :201, fused_fns('multipaxos', ablate) :623-687; the flags, "
+        "paxos_tpu/protocols/multipaxos.py:158-180, :252-262, :357-380, :421, :461-490, :611, :636)"
+    ),
+}
+# The main path whose config each ablated kernel runs on (the JAX
+# package's scripts/ablate_fused.py defaults: config2, config3), and the
+# lanes of its comparison.
+ABLATION_PATHS = {"paxos": "paxos", "multipaxos": "config3"}
+ABLATION_LANES = 1 << 16
+
+
 # The observer arms of each tick that the observed instantiations compute.
 OBSERVER_ARMS = {
     "paxos": "; its observer arms, paxos_tpu/protocols/paxos.py:592-600, :652-771",
@@ -677,6 +719,8 @@ def reset_launches() -> None:
 
     for wrapper in FUSED_WRAPPERS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "ablated_launches"):
+            wrapper.ablated_launches.clear()
     int32_ceiling.launches = 0
 
 
@@ -689,30 +733,51 @@ def read_launches() -> dict:
     return out
 
 
+def ablated_builds() -> list:
+    """(protocol, ablate) of every ablated build: each flag of
+    ``ABLATE_FLAGS`` alone, on K1 and K5."""
+    from paxos_tpu_torch.kernels.fused_tick import ABLATE_KEYS
+    from paxos_tpu_torch.protocols.paxos import ABLATE_FLAGS
+
+    return [(p, frozenset({flag})) for p in ABLATE_KEYS for flag in ABLATE_FLAGS]
+
+
 def phase_build() -> dict:
-    """Build every kernel, one nvcc each, all started together."""
+    """Build every kernel, one nvcc each, all started together: the six
+    kernels, the fused kernels' draw-counting and phase-clock builds, and
+    the ablated builds of K1 and K5 with their draw-counting builds."""
     from paxos_tpu_torch.kernels import build
-    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, COUNT_DRAWS, PHASE_CLOCKS, PHASES
+    from paxos_tpu_torch.kernels.fused_tick import (
+        BINDINGS,
+        COUNT_DRAWS,
+        PHASE_CLOCKS,
+        PHASES,
+        ablate_defines,
+    )
 
     names = [b.kernel for b in BINDINGS.values()] + ["int32_ceiling"]
+    ablated = [(BINDINGS[p].kernel, ablate_defines(a)) for p, a in ablated_builds()]
     builds = (
         [(name, ()) for name in names]
         + [(b.kernel, COUNT_DRAWS) for b in BINDINGS.values()]
         + [(BINDINGS[p].kernel, PHASE_CLOCKS) for p in PHASES]
+        + ablated + [(kernel, defines + COUNT_DRAWS) for kernel, defines in ablated]
     )
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda nd: build.build(*nd), builds))
     secs = time.perf_counter() - t0
-    log(f"build: {len(names)} kernels, {len(BINDINGS)} draw-counting and {len(PHASES)} "
-        f"phase-clock builds in {secs:.1f} s (nvcc, sm_90a, in parallel)")
+    log(f"build: {len(names)} kernels, {len(BINDINGS)} draw-counting, {len(PHASES)} "
+        f"phase-clock and {len(ablated)} ablated builds (each with its draw-counting build) in "
+        f"{secs:.1f} s (nvcc, sm_90a, in parallel)")
     keys = ("entry function", "registers", "spill")
     ptxas = {}
-    for name in names:
-        report = build.ptxas_report(name)
-        ptxas[name] = [ln.strip() for ln in report.splitlines() if any(k in ln for k in keys)]
-        for ln in ptxas[name]:
-            log(f"ptxas {name}: {ln}")
+    for name, defines in [(name, ()) for name in names] + ablated:
+        report = build.ptxas_report(name, defines)
+        tag = name + "".join(f" -D{d}" for d in defines)
+        ptxas[tag] = [ln.strip() for ln in report.splitlines() if any(k in ln for k in keys)]
+        for ln in ptxas[tag]:
+            log(f"ptxas {tag}: {ln}")
     return {"build_s": secs, "ptxas": ptxas}
 
 
@@ -846,109 +911,6 @@ def phase_golden() -> None:
             raise AssertionError(f"observed {protocol} golden digests {got} {got_obs}")
 
 
-def fault_plan(
-    n_inst: int, n_acc: int, n_prop: int, p_equiv: float, seed: int, p_crash: float = 0.0,
-    p_crash_prop: float = 0.0, max_start: int = 32, max_len: int = 16, device="cuda",
-    p_delay: float = 0.0, delay_max: int = 4, gray=None,
-):
-    """A plan from a fixed numpy seed: equivocators with probability
-    ``p_equiv``; with probability ``p_crash`` per (acceptor, lane) and
-    ``p_crash_prop`` per (proposer, lane) a crash window starting in
-    U[0, max_start) and lasting U[1, max_len] ticks; with ``p_delay`` > 0,
-    each (proposer, acceptor, lane) link slow with probability ``p_delay``,
-    its latency cap drawn from U[1, delay_max], every other link's cap 0
-    (drawn last, so plans without delay are unchanged); and with ``gray``
-    (a FaultConfig) the partition and gray-failure fields its knobs need,
-    drawn after all of those (:func:`gray_plan_fields`)."""
-    from paxos_tpu_torch.faults.injector import NEVER, FaultPlan
-
-    plan = FaultPlan.none(n_inst, n_acc, n_prop, device=device)
-    rng = np.random.default_rng(seed)
-
-    def windows(shape, p):
-        crash = rng.random(shape) < p
-        start = rng.integers(0, max_start, shape)
-        end = start + rng.integers(1, max_len + 1, shape)
-        return (
-            torch.from_numpy(np.where(crash, start, NEVER).astype(np.int32)).to(device),
-            torch.from_numpy(np.where(crash, end, NEVER).astype(np.int32)).to(device),
-        )
-
-    plan.equivocate = torch.from_numpy(rng.random((n_acc, n_inst)) < p_equiv).to(device)
-    plan.crash_start, plan.crash_end = windows((n_acc, n_inst), p_crash)
-    if p_crash_prop > 0.0:
-        plan.pcrash_start, plan.pcrash_end = windows((n_prop, n_inst), p_crash_prop)
-    if p_delay > 0.0:
-        edge = (n_prop, n_acc, n_inst)
-        slow = rng.random(edge) < p_delay
-        cap = rng.integers(1, max(delay_max, 1) + 1, edge)
-        plan.link_delay = torch.from_numpy(np.where(slow, cap, 0).astype(np.int32)).to(device)
-    if gray is not None:
-        for name, value in gray_plan_fields(rng, gray, n_inst, n_acc, n_prop).items():
-            setattr(plan, name, torch.from_numpy(value).to(device))
-    return plan
-
-
-def gray_plan_fields(rng, f, n_inst: int, n_acc: int, n_prop: int) -> dict:
-    """The partition and gray-failure plan fields that the knobs of
-    FaultConfig ``f`` need, drawn from ``rng`` with the JAX package's
-    ``FaultPlan.sample`` distribution: with ``p_part`` a partition window
-    per lane with probability ``p_part`` (start U[0, part_max_start),
-    length U[1, part_max_len]) and a fair side for every acceptor and
-    proposer; with ``p_asym`` the cut one-way with probability ``p_asym``,
-    cutting requests or replies alike (``part_dir`` 1 or 2, else 0); with
-    ``p_flaky`` each link flaky with probability ``p_flaky``, its drop rate
-    U[0, 1) * ``flaky_drop`` and, where duplication is live, its dup rate
-    U[0, 1) * ``flaky_dup`` (healthy links: ``p_drop``, ``p_dup``), as
-    thresholds through the port's ``rate_threshold``; with ``timeout_skew``
-    an extra timeout U[0, timeout_skew] per proposer and lane, with
-    ``backoff_skew`` a backoff multiplier U[1, backoff_skew]."""
-    from paxos_tpu_torch.faults.injector import NEVER, links_dup, rate_threshold
-
-    out = {}
-    lane, edge, prop = (n_inst,), (n_prop, n_acc, n_inst), (n_prop, n_inst)
-    if f.p_part > 0.0:
-        parts = rng.random(lane) < f.p_part
-        start = rng.integers(0, max(f.part_max_start, 1), lane)
-        end = np.minimum(start + rng.integers(1, max(f.part_max_len, 1) + 1, lane), NEVER - 1)
-        out["part_start"] = np.where(parts, start, NEVER).astype(np.int32)
-        out["part_end"] = np.where(parts, end, NEVER).astype(np.int32)
-        out["aside"] = rng.random((n_acc, n_inst)) < 0.5
-        out["pside"] = rng.random(prop) < 0.5
-    if f.p_asym > 0.0:
-        one_way = rng.random(lane) < f.p_asym
-        cut_req = rng.random(lane) < 0.5
-        out["part_dir"] = np.where(one_way, np.where(cut_req, 1, 2), 0).astype(np.int32)
-    if f.p_flaky > 0.0:
-        flaky = rng.random(edge) < f.p_flaky
-
-        def thresholds(top, base):
-            rate = np.where(flaky, rng.random(edge, dtype=np.float32) * np.float32(top), np.float32(base))
-            return rate_threshold(torch.from_numpy(rate.astype(np.float32))).numpy()
-
-        out["link_drop"] = thresholds(f.flaky_drop, f.p_drop)
-        if links_dup(f):
-            out["link_dup"] = thresholds(f.flaky_dup, f.p_dup)
-    if f.timeout_skew > 0:
-        out["ptimeout"] = rng.integers(0, f.timeout_skew + 1, prop).astype(np.int32)
-    if f.backoff_skew > 1:
-        out["pboff"] = rng.integers(1, f.backoff_skew + 1, prop).astype(np.int32)
-    return out
-
-
-def config_plan(cfg, seed: int, device="cuda"):
-    """``cfg``'s own plan distribution (the JAX package's
-    ``FaultPlan.sample``: crash starts U[0, crash_max_start), lengths
-    U[1, crash_max_len]; slow links with p ``p_delay``, caps
-    U[1, delay_max]; the partition and gray-failure fields of
-    :func:`gray_plan_fields`) drawn from a numpy stream."""
-    f = cfg.fault
-    return fault_plan(
-        cfg.n_inst, cfg.n_acc, cfg.n_prop, f.p_equiv, seed, f.p_crash, f.p_crash_prop,
-        f.crash_max_start, f.crash_max_len, device, f.p_delay, f.delay_max, gray=f,
-    )
-
-
 def main_plan(cfg, device="cuda"):
     """A main path's plan: :func:`config_plan` at the config's seed where
     the config has a knob whose plan is sampled (crashes, equivocators,
@@ -985,30 +947,35 @@ def near_limit_state_mp(cfg, rnd: int, device="cuda"):
     return st
 
 
-def plain_chunk(cfg, state, plan, n_ticks, block, blk0=0, clamp_per_tick=False):
-    """The plain version of ``cfg.protocol``'s kernel."""
-    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, reference_chunk
+def plain_chunk(cfg, state, plan, n_ticks, block, blk0=0, clamp_per_tick=False, ablate=frozenset()):
+    """The plain version of ``cfg.protocol``'s kernel (without the
+    components ``ablate`` names)."""
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, fused_fns, reference_chunk
 
-    b = BINDINGS[cfg.protocol]
+    apply_fn, mask_fn, _ = fused_fns(cfg.protocol, frozenset(ablate))
     return reference_chunk(
         state, cfg.seed, plan, cfg.fault, n_ticks, blk_id=blk0, block=block,
-        clamp_per_tick=clamp_per_tick, apply_fn=b.apply_fn, mask_fn=b.mask_fn,
-        ballot_limit=b.ballot_limit,
+        clamp_per_tick=clamp_per_tick, apply_fn=apply_fn, mask_fn=mask_fn,
+        ballot_limit=BINDINGS[cfg.protocol].ballot_limit,
     )
 
 
 def compare(
     name, cfg, plan, n_ticks, block=None, reps=0, init=None, ceiling=None, census=None,
-    compact=False, chunks=1, from_init=False, **kw,
+    compact=False, chunks=1, from_init=False, first_chunk=False, ablate=frozenset(), **kw,
 ) -> dict:
     """Kernel vs plain on the card from the same initial state over
-    ``chunks`` chunks of ``n_ticks``; ``kw`` are the wrapper's ``blk0``
-    and ``clamp_per_tick``; ``block`` defaults to the protocol's, ``plan``
-    (None) to the fault-free one.  ``compact``: the decided-prefix
+    ``chunks`` chunks of ``n_ticks``, each chunk checked; ``kw`` are the
+    wrapper's ``blk0`` and ``clamp_per_tick``; ``block`` defaults to the
+    protocol's, ``plan`` (None) to the fault-free one; ``ablate``: the
+    kernel's ablated build against the plain tick without the same
+    components.  ``compact``: the decided-prefix
     compaction follows every chunk, as on a long log.  Times are of the
-    chunks alone.  With ``reps``, also the kernel's steady-state time over ``reps``
-    further chunks (``from_init``: the compared chunk again, ``reps``
-    times from copies of the initial state, where the lanes still send)
+    chunks alone.  With ``reps``, also the
+    kernel's steady-state time over ``reps``
+    further chunks (``from_init``: the compared first chunk again, ``reps``
+    times from copies of the initial state, where the lanes still send;
+    ``first_chunk``: both, the first chunk's under ``first_chunk``)
     and their bound: the larger of the bytes those chunks need (but for a
     lane K1 settles, :func:`settled_lanes`, each lane's state read and
     written once) and the draws they make at ``DRAW_OPS`` each over the
@@ -1016,38 +983,48 @@ def compare(
     ``ceiling`` beside it), which the timed chunks must not beat; the
     operations of census ``census``, with the draws and slot-array
     (delay-stamp) touches counted, beside it; for a kernel with a
-    phase-clock build (K1 to K4), where a lane's cycles go over those
+    phase-clock build (K1 to K5), where a lane's cycles go over those
     chunks (:func:`phase_split`)."""
     from paxos_tpu_torch.core.state import state_bytes_per_lane
-    from paxos_tpu_torch.harness.run import init_plan, init_state
+    from paxos_tpu_torch.harness.run import init_plan
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_WRAPPERS, PHASES, draw_census
     from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
 
     def after(st):
         return compact_mp_body(st)[0] if compact else st
 
+    ablate = frozenset(ablate)
     wrapper = FUSED_WRAPPERS[cfg.protocol]
+    if ablate:
+        wrapper = functools.partial(wrapper, ablate=ablate)
     block = BINDINGS[cfg.protocol].block if block is None else block
     plan = init_plan(cfg, "cuda") if plan is None else plan
     init = path_state(cfg, "cuda") if init is None else init
-    start = init.clone() if from_init else None
+    from_start = from_init or first_chunk
+    start = init.clone() if from_start else None
     # With the observer planes on, the planes-off kernel from the same state
     # must give the same protocol state (the planes move no schedule).
     bare = without_planes(init.clone()) if init.planes else None
-    plain, kern, plain_ms, kern_ms = init, init.clone(), 0.0, 0.0
-    for _ in range(chunks):
-        plain, t_plain = timed(lambda: plain_chunk(cfg, plain, plan, n_ticks, block, **kw))
+    plain, kern, plain_ms, kern_ms, err = init, init.clone(), 0.0, 0.0, 0
+    first_state, first_plain_ms, first_kern_ms = None, 0.0, 0.0
+    for c in range(chunks):
+        plain, t_plain = timed(
+            lambda: plain_chunk(cfg, plain, plan, n_ticks, block, ablate=ablate, **kw)
+        )
         torch.cuda.synchronize()
         kern, t_kern = timed(
             lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw)
         )
         if bare is not None:
-            bare = wrapper(bare, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw)
+            bare = after(wrapper(bare, cfg.seed, plan, cfg.fault, n_ticks, block=block, **kw))
+        err = max(err, max_abs_err(kern.leaves(), plain.leaves()))
+        if c == 0 and from_start:  # what the chunks timed from the initial state must end in
+            first_state, first_plain_ms, first_kern_ms = kern.clone(), t_plain, t_kern
         plain, kern = after(plain), after(kern)
         plain_ms, kern_ms = plain_ms + t_plain, kern_ms + t_kern
     if bare is not None and max_abs_err(without_planes(kern).leaves(), bare.leaves()) != 0:
         raise AssertionError(f"{name}: the observer planes moved the schedule")
-    err = max_abs_err(kern.leaves(), plain.leaves())
+    err = max(err, max_abs_err(kern.leaves(), plain.leaves()))
     compacted = (
         f", compacted after each (mean base {plain.base.float().mean().item():.2f} of "
         f"{cfg.fault.log_total})" if compact else ""
@@ -1056,14 +1033,19 @@ def compare(
         f"kernel vs plain max_abs_err {err}")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with the plain version")
-    out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
-    if reps:
+
+    def measure(from_init: bool, label: str, plain_ms: float, kern_ms: float) -> dict:
+        """The timed chunks' time and bound (``from_init``: the compared
+        first chunk from copies of the initial state, else the steady
+        state, further chunks continuing from the compared state)."""
+        end = first_state if from_init else kern
+        out = {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
         # Where a lane's cycles go over the timed chunks: the phase-clock
         # build from a copy of their first state, launch for launch (a long
         # log compacted after each), which must end where they end.
-        if cfg.protocol in PHASES:
+        if cfg.protocol in PHASES and not ablate:
             out["phase_split"], clocked = phase_split(
-                name, cfg, (start if from_init else kern).clone(), plan, n_ticks,
+                label, cfg, (start if from_init else end).clone(), plan, n_ticks,
                 1 if from_init else reps, block, after,
             )
         # The draws and touches of the timed chunks: the measuring build
@@ -1073,14 +1055,15 @@ def compare(
         if from_init:
             counted, timed_ticks = start.clone(), n_ticks
             draws, touches = draw_census(
-                cfg.protocol, counted, cfg.seed, plan, cfg.fault, n_ticks, block=block
+                cfg.protocol, counted, cfg.seed, plan, cfg.fault, n_ticks, block=block,
+                ablate=ablate,
             )
         else:
-            counted, draws, touches, timed_ticks = kern.clone(), 0, 0, reps * n_ticks
+            counted, draws, touches, timed_ticks = end.clone(), 0, 0, reps * n_ticks
             for _ in range(reps if compact else 1):
                 d, t = draw_census(
                     cfg.protocol, counted, cfg.seed, plan, cfg.fault,
-                    (1 if compact else reps) * n_ticks, block=block,
+                    (1 if compact else reps) * n_ticks, block=block, ablate=ablate,
                 )
                 draws, touches, counted = draws + d, touches + t, after(counted)
         # The timed chunks: the compared chunk again from copies of its
@@ -1098,19 +1081,19 @@ def compare(
         elif compact:
             chunk_ms, compact_ms = [], []
             for _ in range(reps):
-                _, t = timed(lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block))
-                kern, c = timed(lambda: after(kern))
+                _, t = timed(lambda: wrapper(end, cfg.seed, plan, cfg.fault, n_ticks, block=block))
+                end, c = timed(lambda: after(end))
                 chunk_ms.append(t)
                 compact_ms.append(c)
             out["ms"], out["compact_ms"] = sum(chunk_ms) / reps, sum(compact_ms) / reps
         else:
             _, out["ms"] = timed(
-                lambda: wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block), reps
+                lambda: wrapper(end, cfg.seed, plan, cfg.fault, n_ticks, block=block), reps
             )
-        if max_abs_err(counted.leaves(), kern.leaves()) != 0:
-            raise AssertionError(f"{name}: the draw-counting build took another path")
-        if cfg.protocol in PHASES and max_abs_err(clocked.leaves(), kern.leaves()) != 0:
-            raise AssertionError(f"{name}: the phase-clock build took another path")
+        if max_abs_err(counted.leaves(), end.leaves()) != 0:
+            raise AssertionError(f"{label}: the draw-counting build took another path")
+        if cfg.protocol in PHASES and not ablate and max_abs_err(clocked.leaves(), end.leaves()) != 0:
+            raise AssertionError(f"{label}: the phase-clock build took another path")
         read = ["crash_start", "crash_end", "equivocate"]
         if cfg.protocol == "multipaxos":
             read += ["pcrash_start", "pcrash_end"]
@@ -1124,7 +1107,7 @@ def compare(
         # its observer planes read and written once.
         settled = 0
         if cfg.protocol == "paxos":
-            settled = int(settled_lanes(start if from_init else kern).sum())
+            settled = int(settled_lanes(start if from_init else end).sum())
         lane_bytes = 2 * state_bytes_per_lane(init) + plan_bytes / cfg.n_inst
         settled_bytes = settled_lane_bytes(init) + 2 * obs_lane_bytes(init)
         n_bytes = (cfg.n_inst - settled) * lane_bytes + settled * settled_bytes
@@ -1149,7 +1132,7 @@ def compare(
             state_bytes_per_lane=state_bytes_per_lane(init), settled_lanes=settled,
         )
         log(
-            f"{name}: kernel {out['ms']:.3f} ms/chunk (first {kern_ms:.3f}), plain "
+            f"{label}: kernel {out['ms']:.3f} ms/chunk (first {kern_ms:.3f}), plain "
             f"{plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}; bytes "
             f"{bytes_ms:.3f} ms with {settled} lanes settled, draw ops {ops_ms:.3f} ms at "
             f"the published peak, {measured_ops_ms:.3f} ms at the measured rate); "
@@ -1162,7 +1145,16 @@ def compare(
             + (f"; compaction {out['compact_ms']:.3f} ms/chunk" if compact else "")
         )
         if out["ms"] < out["bound_ms"]:
-            raise AssertionError(f"{name}: {out['ms']:.3f} ms beats its bound, which is no floor")
+            raise AssertionError(f"{label}: {out['ms']:.3f} ms beats its bound, which is no floor")
+        return out
+
+    if not reps:
+        return {"max_abs_err": err, "plain_ms": plain_ms, "first_ms": kern_ms}
+    if from_init:
+        return measure(True, name, plain_ms, kern_ms)
+    out = measure(False, name, plain_ms, kern_ms)
+    if first_chunk:
+        out["first_chunk"] = measure(True, f"{name}, first chunk", first_plain_ms, first_kern_ms)
     return out
 
 
@@ -1379,17 +1371,13 @@ def phase_compare(ceiling: float) -> dict:
     full = {}
     for path, mp in MAIN_PATHS.items():
         cfg = main_config(path, FULL_LANES, 7)
+        # Also the first chunk, where the lanes still send (on a long log
+        # every chunk does, so the steady state is that chunk already).
         full[path] = compare(
             f"{path} full width", cfg, main_plan(cfg), 64, reps=5, ceiling=ceiling,
             census=mp.census, compact=mp.compact, chunks=mp.compare_chunks,
+            first_chunk=not mp.compact,
         )
-        # The first chunk, where the lanes still send (on a long log every
-        # chunk does, so the steady state above is that chunk already).
-        if not mp.compact:
-            full[path]["first_chunk"] = compare(
-                f"{path} full width, first chunk", cfg, main_plan(cfg), 64, reps=5,
-                ceiling=ceiling, census=mp.census, from_init=True,
-            )
     for path in MAIN_PATHS:
         full[path]["load_store_ms"] = time_load_store(path)
     # K4's busiest chunk: the first of the delta-violating regime, where the
@@ -1400,6 +1388,57 @@ def phase_compare(ceiling: float) -> dict:
         reps=5, ceiling=ceiling, census=MAIN_PATHS["synchpaxos"].census, from_init=True,
     )
     return full
+
+
+def phase_ablation(ceiling: float) -> tuple:
+    """Each ablated build of K1 and K5 (``ablated_builds``) against the
+    plain tick without the same component, byte for byte, at
+    ``ABLATION_LANES`` lanes of its path's config, seed 7, over two 64-tick
+    chunks from stream block 5, then timed over 5 steady chunks with its
+    bound (the draws of its own draw-counting build; the build without the
+    PRNG draws none); and the ablation entry point's table
+    (``paxos_tpu_torch.scripts.ablate_fused``) at full width for both
+    kernels, the first chunk and the steady state, which must launch every
+    ablated build (its launches, counted from 0 around the table, are
+    returned beside its comparison)."""
+    from paxos_tpu_torch.kernels.fused_tick import ABLATE_KEYS, FUSED_WRAPPERS
+    from paxos_tpu_torch.scripts.ablate_fused import ablation_table
+
+    out = {}
+    for protocol, ablate in ablated_builds():
+        path = ABLATION_PATHS[protocol]
+        cfg = main_config(path, ABLATION_LANES, 7)
+        (flag,) = ablate
+        out[protocol, flag] = got = compare(
+            f"{protocol} ablated no-{flag}", cfg, main_plan(cfg), 64, reps=5, ceiling=ceiling,
+            census=MAIN_PATHS[path].census, chunks=2, ablate=ablate, blk0=5,
+        )
+        if flag == "prng" and got["draws_per_lane_tick"] != 0:
+            raise AssertionError(f"{protocol} without the PRNG still draws: {got['draws_per_lane_tick']}")
+    tables = {}
+    reset_launches()
+    for protocol in ABLATE_KEYS:
+        name = "config2" if protocol == "paxos" else "config3"
+        tables[protocol] = ablation_table(protocol, name, FULL_LANES, 256, 3, torch.device("cuda"))
+    for protocol, ablate in ablated_builds():
+        (flag,) = ablate
+        launches = FUSED_WRAPPERS[protocol].ablated_launches.get(ablate, 0)
+        if launches == 0:
+            raise AssertionError(f"the ablation table never launched {protocol}'s build without {flag}")
+        row = next(r for r in tables[protocol]["rows"] if r["variant"] == f"no-{flag}")
+        out[protocol, flag].update(
+            launches=launches, main_path_us_per_tick=row["us_per_tick"],
+            main_path_first_us_per_tick=row["first_us_per_tick"],
+        )
+    for protocol, table in tables.items():
+        for row in table["rows"]:
+            log(f"ablation {protocol} {table['config']} {FULL_LANES} lanes x 256 ticks: "
+                f"{row['variant']} {row['us_per_tick']:.3f} us/tick share {row['share']:.4f}; "
+                f"first chunk {row['first_us_per_tick']:.3f} us/tick share "
+                f"{row['first_share']:.4f}"
+                + (f"; launches {out[protocol, row['variant'][3:]]['launches']}"
+                   if row["variant"] != "full" else ""))
+    return out, tables
 
 
 def time_load_store(path: str, reps: int = 5) -> float:
@@ -1542,12 +1581,15 @@ def check_plane_report(path: str, report: dict, cfg, state) -> None:
     """The observer blocks of a campaign with every plane on must hold
     together: every lane (every Multi-Paxos slot) decided once
     (telemetry's decides and latency histogram against the learner's
-    chosen count), the drops counted (exposure's effective drops are
+    chosen count, on a long log with the slots compacted out of the
+    window), the drops counted (exposure's effective drops are
     telemetry's), the coverage sketch filled, and no agreement violation
     seen (no zero quorum slack)."""
     n, ticks = cfg.n_inst, report["ticks"]
     tel, cov, exp, mar, slo = (report[k] for k in PLANE_BLOCKS)
     decided = int(state.learner.chosen.sum())
+    if getattr(state, "base", None) is not None:  # a long log's compacted, decided prefix
+        decided += int(state.base.sum())
     problems = []
     if tel["counters"]["decide"] != decided or sum(tel["hist"]) != decided:
         problems.append(f"decides {tel['counters']['decide']}, hist {sum(tel['hist'])}, chosen {decided}")
@@ -1964,14 +2006,6 @@ def instantiation_ptxas(lines: list, protocol: str, shape: tuple) -> list:
     raise AssertionError(f"no ptxas report of the {protocol} kernel's instantiation {shape}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
@@ -1985,10 +2019,11 @@ def main() -> int:
     ceiling = phase_ceiling()
     phase_golden()
     full = phase_compare(ceiling["ops_per_s"])
+    ablated, ablation = phase_ablation(ceiling["ops_per_s"])
     main_paths = {p: phase_main_path(p) for p in MAIN_PATHS}
     profiles = {p: phase_main_path_profile(p) for p in main_paths}
     checker = phase_checker()
-    from paxos_tpu_torch.kernels.fused_tick import BINDINGS
+    from paxos_tpu_torch.kernels.fused_tick import ABLATE_KEYS, BINDINGS, ablate_defines
 
     kernels = []
     # One entry per main path: its kernel's instantiation on the path's
@@ -2033,6 +2068,34 @@ def main() -> int:
         if first and mp.protocol in geometry:
             entry["instantiations"] = geometry[mp.protocol]  # threads, smem_bytes, blocks_per_sm each
         kernels.append(entry)
+    # One entry per ablated build: its launches are the ablation table's
+    # (no main path launches one, each path's check above); its comparison
+    # and timing at ABLATION_LANES lanes from stream block 5.
+    for (protocol, flag), measured in ablated.items():
+        binding = BINDINGS[protocol]
+        path = ABLATION_PATHS[protocol]
+        tag = binding.kernel + "".join(f" -D{d}" for d in ablate_defines(frozenset({flag})))
+        kernels.append({
+            "name": f"{binding.kernel}[no-{flag}]",
+            "route": "cuda",
+            "source": KERNEL_SOURCE.format(binding.kernel),
+            "replaces": ABLATED_REPLACES[protocol],
+            "launches": measured["launches"],
+            "max_abs_err": measured["max_abs_err"],
+            "tolerance": 0,
+            "ms": measured["ms"],
+            "plain_ms": measured["plain_ms"],
+            "bound_ms": measured["bound_ms"],
+            "bound_by": measured["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a tick
+            **measured,
+            "ablate": [flag],
+            "instantiation": list(ABLATE_KEYS[protocol]),
+            "shape": f"{path} {ABLATION_LANES} lanes x 2 x 64 ticks from stream block 5 "
+            f"(plain_ms), then 5 steady 64-tick chunks (ms), block {binding.block}; launches "
+            f"and main_path_*: the ablation table, {FULL_LANES} lanes x (1 + 3) x 256 ticks",
+            "ptxas": built["ptxas"][tag],
+        })
     # K6 measures the card; no main path launches it (each path's check
     # above), so its count is read from the last main path's run.
     k6_launches = main_paths["config3long"]["all_launches"]["int32_ceiling"]
@@ -2056,6 +2119,7 @@ def main() -> int:
     })
     log(f"summary: checker {checker}; build {built['build_s']:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated()} B; total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ablation": ablation}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     device = {

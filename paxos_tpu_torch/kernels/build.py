@@ -6,8 +6,9 @@ a hash of the source and of the headers it includes (``#include "..."``,
 followed recursively), so an edited source or header rebuilds.  Nothing is built when a
 module is imported: only a kernel launch asks for its library.  The
 ``ptxas -v`` report (registers, spills) is kept beside the library.
-``defines`` build a variant of a source (``-D<NAME>``) into its own
-library, such as the fused kernels' draw-counting build.
+``defines`` build a variant of a source (``-D<NAME>`` or
+``-D<NAME>=<value>``) into its own library, such as the fused kernels'
+draw-counting build or their ablated builds.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def library_path(name: str, defines: tuple = ()) -> Path:
     for path in sources(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(_flags(defines)).encode())
-    variant = "".join(f"_{d.lower()}" for d in defines)
+    variant = "".join("_" + re.sub(r"\W", "_", d.lower()) for d in defines)
     return BUILD_DIR / f"{name}{variant}_{digest.hexdigest()[:12]}.so"
 
 

@@ -48,6 +48,26 @@ constexpr int32_t kInt32Min = -2147483647 - 1;
 constexpr int32_t kBallotLimit = (1 << 15) - 1;  // report-time ballot limit
 constexpr int kMaxProposers = 8;                 // core/ballot.py
 
+// The ablated builds of K1 and K5 (nvcc -DFUSED_ABLATE=<bitmask>,
+// fused_tick.ablate_defines): the tick without the components whose bits
+// are set, in fused_tick.ABLATE_FLAGS' order, each removed at compile
+// time (`if constexpr`, or a condition that folds to a constant): the
+// counter-PRNG draws (constant masks: every score the lane's in-block
+// index, no idling, hold, duplication or drop, a 0 backoff and jitter),
+// the acceptors' selection, every send, the consume of delivered and
+// selected messages, the learner with the acceptor invariants, the
+// proposers.  Such a build instantiates config2's or config3's key only
+// and is not the protocol.  Every other build sets no bit, and compiles
+// none of it.
+#ifdef FUSED_ABLATE
+constexpr int kAblate = FUSED_ABLATE;
+#else
+constexpr int kAblate = 0;
+#endif
+constexpr int kNoPrng = 1, kNoSelect = 2, kNoSends = 4, kNoConsume = 8, kNoLearner = 16,
+              kNoProposer = 32;
+__host__ __device__ constexpr bool ablated(int flag) { return (kAblate & flag) != 0; }
+
 // Stream ids (core/streams.py).
 constexpr uint32_t kSel = 0, kBusy = 1, kDeliver = 2, kDupReq = 3,
                    kDupRep = 4, kKeepProm = 5, kKeepAccd = 6, kKeepP1 = 7,
@@ -584,6 +604,19 @@ struct PhaseClock {
 // of which keeps a column per lane (K1 to K4); K5 keeps its own copies
 // (fused_multipaxos_tick.cu).
 namespace sd {
+
+// The request acceptor a selects where every score is the same (a tick
+// ablated of its PRNG draws, every score the lane's in-block index): the
+// plain select_from_scores puts the slot id kp in a score's low bits, so
+// the present slot with the highest kp wins, or -1 where none is present.
+template <int P, int A>
+__device__ __forceinline__ int select_last(uint32_t present, int a) {
+  int win = -1;
+#pragma unroll
+  for (int kp = 0; kp < 2 * P; ++kp)
+    if ((present >> (kp * A + a)) & 1u) win = kp;
+  return win;
+}
 
 // Request selection for acceptor a over a (2, P, A) request buffer whose
 // presence is the bitmask `present` (slot j = kp * A + a, kp = kind * P +

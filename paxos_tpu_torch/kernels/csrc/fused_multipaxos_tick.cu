@@ -122,7 +122,24 @@
 // client request; and the coverage digest folds the whole lane (the log,
 // the recovery rows, three buffers with the PROMISE payloads, `base`) in the
 // reference's leaf order, 296 words a tick (336 stamped).  The other
-// instantiations call the sd:: sites directly, as before the planes.
+// instantiations call the sd:: sites directly, as before the planes.  The
+// long log's observed instantiation (at (2,5,16,4), no arms or stamps)
+// is the same code at LOG 16: its column (433 words with the counters and
+// the PROMISE payloads; fused_tick.MP_STAGING) takes 2 blocks of 64 lanes,
+// 4 warps an SM (leaving the payloads in global memory, 273 words at 96
+// lanes, ran the chunk 1.5 times as long: the digest folds 432 words a
+// tick, 160 of them payloads).  Every plane
+// value is loaded at a launch's start and stored at its end, so the
+// compaction between chunks (which shifts the window) sees them all.
+//
+// The ablated builds (-DFUSED_ABLATE, fused_common.cuh) instantiate
+// config3's key only and remove their components where the tick runs
+// them: no draw, the highest present slot selected and no jitter or
+// backoff (prng), no acceptor awake (select), no PROMISE, ACCEPTED,
+// PREPARE or ACCEPT written (sends), delivered replies and selected
+// requests left present (consume), no learner fold, and a chosen count of
+// 0 for the proposers, as the plain ablated tick gives them (learner), no
+// proposer fold or half-tick but the per-tick clamp (proposer).
 
 #include <type_traits>
 
@@ -414,6 +431,8 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
   PhaseClock<kPhases> clk;
+  // A build ablated of the PRNG draws: every mask off.
+  if constexpr (ablated(kNoPrng)) prm.idle.mode = prm.hold.mode = prm.dup.mode = prm.drop.mode = 0;
   const Column<B> col{smem + threadIdx.x};
   load_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
   if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, true);
@@ -539,14 +558,17 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       prom_del &= ~firing(ts, prm.hold, kPromDeliver, prom_del);
       accd_del &= ~firing(ts, prm.hold, kAccdDeliver, accd_del);
     }
-    prom_present &= ~prom_del;
-    accd_present &= ~accd_del;
+    if constexpr (!ablated(kNoConsume)) {
+      prom_present &= ~prom_del;
+      accd_present &= ~accd_del;
+    }
     clk.mark(kPhDeliver);
 
     // ---- Proposer folds over the pre-tick replies: voter bits, and the
     //      candidates' per-slot max over the PROMISE payloads. ----
 #pragma unroll
     for (int p = 0; p < P; ++p) {
+      if (ablated(kNoProposer)) break;
       uint32_t pv = 0;
 #pragma unroll
       for (int a = 0; a < A; ++a) {
@@ -604,11 +626,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 #pragma unroll
     for (int a = 0; a < A; ++a) alive |= (!(crash_start[a] <= tick && tick < crash_end[a]) ? 1u : 0u) << a;
     // The acceptors that take a request this tick: alive and not idle.
-    const uint32_t awake = survivors<A>(ts, prm.idle, kBusy, 0, alive);
+    const uint32_t awake = ablated(kNoSelect) ? 0u : survivors<A>(ts, prm.idle, kBusy, 0, alive);
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       int sel = -1;
-      if ((awake >> a) & 1u) sel = select_present<P, A>(ts, rq_ready, a);  // an arrived request
+      if ((awake >> a) & 1u)  // an arrived request
+        sel = ablated(kNoPrng) ? sd::select_last<P, A>(rq_ready, a)
+                               : select_present<P, A>(ts, rq_ready, a);
       // A request on a cut link stays in flight: the acceptor processes
       // nothing this tick.
       if constexpr (ARMS) {
@@ -651,11 +675,11 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       // no log slot.
       const int rj = (is_prep ? sel : sel - P) * A + a;
       const bool keep_prom =
-          ok_prep &&
+          !ablated(kNoSends) && ok_prep &&
           (OBS ? obs::keep_at<OBS, ARMS, E, MpStreams>(pd, ts, prm, gray, kMpKeepProm, 0, rj, n, i)
                : sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepProm, 0, rj, n, i));
       const bool keep_accd =
-          ok_acc &&
+          !ablated(kNoSends) && ok_acc &&
           (OBS ? obs::keep_at<OBS, ARMS, E, MpStreams>(pd, ts, prm, gray, kMpKeepAccd, 1, rj, n, i)
                : sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepAccd, 1, rj, n, i));
       if constexpr (STAMPED) {
@@ -690,10 +714,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       if (sel >= 0) {
         const int j = sel * A + a;
         const bool dup =
-            sd::dup_live<ARMS>(prm, gray) &&
+            !ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray) &&
             (OBS ? obs::dup_at<OBS, ARMS, S, E, MpStreams>(pd, ts, prm, gray, 0, j, kMpDupReq, n, i)
                  : sd::duplicated<ARMS, S, E, kMpDupBits>(ts, prm, gray, kMpDupReq, 0, j, n, i));
-        if (!dup) rq_next &= ~(1u << j);
+        if (!ablated(kNoConsume) && !dup) rq_next &= ~(1u << j);
         if constexpr (OBS) {
           n_dup += dup ? 1 : 0;
           n_drop += (ok_prep && !keep_prom ? 1 : 0) + (ok_acc && !keep_accd ? 1 : 0);
@@ -724,7 +748,8 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       const int32_t s = ev_slot[a];
-      if (!(((ev_flag >> a) & 1u) && ev_bal[a] > 0 && s >= 0 && s < LOG)) continue;
+      if (ablated(kNoLearner) || !(((ev_flag >> a) & 1u) && ev_bal[a] > 0 && s >= 0 && s < LOG))
+        continue;
       if ((chosen >> s) & 1u) {
         draws.touch(1);
         if (ev_val[a] == col[G::kChosenVal + s]) continue;
@@ -811,7 +836,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       }
     }
     violations = wrap_add(violations, viol);
-    const int32_t chosen_count = __popc(chosen);
+    const int32_t chosen_count = ablated(kNoLearner) ? 0 : __popc(chosen);
     clk.mark(kPhLearner);
 
     // ---- Proposer half-tick. ----
@@ -820,6 +845,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
                           (prm.log_total != 0 && wrap_add(base, chosen_count) >= prm.log_total);
 #pragma unroll
     for (int p = 0; p < P; ++p) {
+      if (ablated(kNoProposer)) {
+        if (prm.clamp_per_tick) bal[p] = min(bal[p], kMpBallotLimit);
+        continue;
+      }
       const int32_t ph = phase[p];
       const int votes = __popc(static_cast<uint32_t>(heard[p]));
       const bool p1_done = ph == kCandidate && votes >= kQuorum;
@@ -837,7 +866,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         if (lt > thr + prm.backoff_n - 1) {
           start_elec = true;
         } else if (lt > thr) {
-          const uint32_t r = ts.bits(kJitter, p) & 0x7FFFFFFFu;
+          const uint32_t r = ablated(kNoPrng) ? 0u : ts.bits(kJitter, p) & 0x7FFFFFFFu;
           start_elec = lt > thr + static_cast<int32_t>(r % static_cast<uint32_t>(prm.backoff_n));
         }
       }
@@ -872,13 +901,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       if (cand_fail || demote) {
         // Retreat below the election threshold (the timer may go negative),
         // stretched by the backoff skew.
-        const uint32_t r = ts.bits(kMpBackoff, p) & 0x7FFFFFFFu;
+        const uint32_t r = ablated(kNoPrng) ? 0u : ts.bits(kMpBackoff, p) & 0x7FFFFFFFu;
         lt = prm.lease_len - static_cast<int32_t>(sd::skewed_backoff<ARMS>(
                                  r % static_cast<uint32_t>(2 * prm.backoff_n), gray, p, n, i));
       }
 
       // New candidates broadcast Prepare(b) once.
-      if (start_elec) {
+      if (!ablated(kNoSends) && start_elec) {
         const uint32_t kept =
             OBS && pd.on ? ~static_cast<uint32_t>(pd.drop >> (2 * E + p * A)) & kAccs
                          : sends_kept<ARMS, P, A>(ts, prm, gray, kKeepPrep, 2, p, n, i);
@@ -899,7 +928,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       // past the global log end.
       const bool is_lead = nph == kLead && p_alive && ci < LOG &&
                            (prm.log_total == 0 || wrap_add(base, ci) < prm.log_total);
-      if (is_lead) {
+      if (!ablated(kNoSends) && is_lead) {
         const int32_t slot = min(ci, LOG - 1);
         const int32_t rbv = slot >= 0 ? col[G::kRecov + p * LOG + slot] : 0;
         draws.touch(slot >= 0 ? 1 : 0);
@@ -1110,7 +1139,8 @@ using Inst = typename InstOf<P, A, LOG, K, STAMPED, ARMS, OBS, B, PROM>::type;
 
 // The instantiations, (n_prop, n_acc, log_len, k_slots, STAMPED, ARMS, OBS,
 // B, PROM): one per shape, stamps, arms and observer flag, at the geometry
-// fused_tick.MP_STAGING gives it.
+// fused_tick.MP_STAGING gives it.  An ablated build instantiates config3's
+// only (fused_tick.ABLATE_KEYS).
 #define K5_INSTANCES(X)                \
   X(2, 5, 8, 4, 0, 0, 0, 128, true)    \
   X(2, 5, 16, 4, 0, 0, 0, 128, false)  \
@@ -1122,7 +1152,11 @@ using Inst = typename InstOf<P, A, LOG, K, STAMPED, ARMS, OBS, B, PROM>::type;
   X(2, 5, 8, 4, 0, 0, 1, 96, true)     \
   X(2, 5, 8, 4, 0, 1, 1, 96, true)     \
   X(2, 5, 8, 4, 1, 0, 1, 96, true)     \
-  X(2, 5, 8, 4, 1, 1, 1, 96, true)
+  X(2, 5, 8, 4, 1, 1, 1, 96, true)     \
+  X(2, 5, 16, 4, 0, 0, 1, 64, true)
+
+// The ablated builds' one instantiation, a row of the table above.
+#define K5_ABLATED_INSTANCES(X) X(2, 5, 8, 4, 0, 0, 0, 128, true)
 
 // Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`
 // for the instantiation `dims` names (n_prop, n_acc, log_len, k_slots,
@@ -1134,7 +1168,11 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
       dims[5] == R_ && dims[6] == O_)                                                    \
     return fn(Inst<P_, A_, L_, K_, S_ != 0, R_ != 0, O_ != 0, B_, G_>{},                 \
               std::bool_constant<R_ != 0>{}, std::bool_constant<O_ != 0>{});
+#ifdef FUSED_ABLATE
+  K5_ABLATED_INSTANCES(K5_MATCH)
+#else
   K5_INSTANCES(K5_MATCH)
+#endif
 #undef K5_MATCH
   return cudaErrorInvalidValue;
 }
@@ -1152,8 +1190,9 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
 // is the device int32 tick scalar, read by the kernel and advanced by the
 // caller; the observer leaves and their sizes (obs::read_obs_args) come
 // last, none for an instantiation that is not observed.  Returns
-// cudaSuccess or the first error: an unknown instantiation (a stamped or
-// observed state at a shape other than (2,5,8,4)), a leaf count that is not
+// cudaSuccess or the first error: an unknown instantiation (a stamped
+// state at a shape other than (2,5,8,4), an observed one at a shape other
+// than (2,5,8,4) or (2,5,16,4)), a leaf count that is not
 // its state's (a stamped state on an unstamped one), a knob on without its
 // arms, stale_k without snapshots, p_delay without the stamps or the plan's
 // link_delay, observer arguments that do not fit the instantiation or each

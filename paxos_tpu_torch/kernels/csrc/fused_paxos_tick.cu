@@ -81,6 +81,16 @@
 // arrived only.  A cut (ARMS) masks after the readiness gate and never
 // touches a stamp.
 //
+// The ablated builds (-DFUSED_ABLATE, fused_common.cuh) instantiate
+// config2's key only and remove their components where the tick runs
+// them: no draw and the highest present slot selected (prng), no acceptor
+// visited (select), no reply or request written (sends), delivered and
+// selected slots left present (consume), no learner fold and no invariant
+// count, settled lanes' included (learner), no proposer fold or send
+// (proposer).  The settled-lane skip stays exact in each: a settled lane
+// has nothing in flight and every proposer done, so no removed component
+// moves it.
+//
 // Semantics follow the plain PyTorch version (protocols/paxos.py) exactly;
 // the PRNG, stream positions and argument layout are in fused_common.cuh.
 //  - reply delivery and consume precede the acceptor's new replies;
@@ -150,6 +160,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
   if (i >= n) return;
   PhaseClock<kPhases> clk;
+  // A build ablated of the PRNG draws: every mask off.
+  if constexpr (ablated(kNoPrng)) prm.idle.mode = prm.hold.mode = prm.dup.mode = prm.drop.mode = 0;
 
   // ---- Load the lane's register-resident state once: first what says
   //      whether the lane is settled (below), whose column no tick reads,
@@ -388,7 +400,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
           }
         }
         const uint32_t rest = static_cast<uint32_t>(prm.n_ticks - t);
-        lrn.quiet(static_cast<int>(rest * static_cast<uint32_t>(__popc(bad_alone))));
+        if constexpr (!ablated(kNoLearner))
+          lrn.quiet(static_cast<int>(rest * static_cast<uint32_t>(__popc(bad_alone))));
         if (prm.clamp_per_tick) {
 #pragma unroll
           for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
@@ -442,8 +455,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
         if (ts.fires_at(prm.hold, kDeliver, j)) delivered &= ~(1u << j);
       }
     }
-    uint32_t taken = delivered;
-    if (sd::dup_live<ARMS>(prm, gray)) {
+    uint32_t taken = ablated(kNoConsume) ? 0u : delivered;
+    if (!ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray)) {
       for (uint32_t m = delivered; m != 0; m &= m - 1) {
         const int j = __ffs(m) - 1;
         if (dup_at(ts, pd, 1, j, kDupRep)) taken &= ~(1u << j);
@@ -458,6 +471,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     int32_t old_bal[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
+      if (ablated(kNoProposer)) break;
       const int32_t cur = bal[p];
       int32_t h = heard[p];
       int32_t bb = best_bal[p], bv = best_val[p];
@@ -550,7 +564,9 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
       if (p1) tm = 0;
       if (exp) {
-        tm = sd::backoff_of<ARMS>(ts.bits(kBackoff, p) & 0x7FFFFFFFu, prm, gray, p, n, i);
+        tm = ablated(kNoPrng)
+                 ? 0
+                 : sd::backoff_of<ARMS>(ts.bits(kBackoff, p) & 0x7FFFFFFFu, prm, gray, p, n, i);
       }
       old_bal[p] = cur;
       bal[p] = exp ? next_ballot(cur, prm.stride, p) : cur;
@@ -578,7 +594,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 #pragma unroll
     for (int a = 0; a < A; ++a)
       visit |= (crash_start[a] <= tick && tick < crash_end[a] ? 0u : 1u) << a;
-    visit &= asked;
+    visit &= ablated(kNoSelect) ? 0u : asked;
     uint32_t rq_next = rq_present;
     uint32_t rp_sent = 0;  // the reply slots written this tick
     uint32_t ev_flag = 0;
@@ -590,7 +606,8 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       ev_bal[a] = 0;
       ev_val[a] = 0;
       if (!((visit >> a) & 1u) || !ts.survives_at(prm.idle, kBusy, a)) continue;
-      const int sel = select_present<P, A>(ts, rq_ready, a);  // a request has arrived
+      const int sel = ablated(kNoPrng) ? sd::select_last<P, A>(rq_ready, a)
+                                       : select_present<P, A>(ts, rq_ready, a);  // one has arrived
       // A request on a cut link stays in flight: the acceptor processes
       // nothing this tick.
       if (ARMS && ((cut_req >> ((sel * A + a) % E)) & 1u)) continue;
@@ -628,14 +645,15 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
       // link drops it against its own threshold.
       const int jr = sel * A + a;
-      const bool prom_kept = ok_prep && keep_at(ts, pd, kKeepProm, 0, jr);
+      const bool prom_kept = !ablated(kNoSends) && ok_prep && keep_at(ts, pd, kKeepProm, 0, jr);
       if (prom_kept) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = eq ? 0 : ab_old;
         col[G::kRpV2 + jr] = eq ? 0 : av_old;
         rp_sent |= 1u << jr;
       }
-      const bool accd_kept = ok_acc && keep_at(ts, pd, kKeepAccd, 1, jr - E);
+      const bool accd_kept =
+          !ablated(kNoSends) && ok_acc && keep_at(ts, pd, kKeepAccd, 1, jr - E);
       if (accd_kept) {
         col[G::kRpBal + jr] = mb;
         col[G::kRpV1 + jr] = mv;
@@ -643,8 +661,9 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
       // Consume the selected request unless it is duplicated (on a flaky
       // link, against its own threshold).
-      const bool dup_req = sd::dup_live<ARMS>(prm, gray) && dup_at(ts, pd, 0, jr, kDupReq);
-      if (!dup_req) rq_next &= ~(1u << jr);
+      const bool dup_req = !ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray) &&
+                           dup_at(ts, pd, 0, jr, kDupReq);
+      if (!ablated(kNoConsume) && !dup_req) rq_next &= ~(1u << jr);
       if constexpr (OBS) {
         prom_m |= (ok_prep ? 1u : 0u) << a;
         n_drop += (ok_prep && !prom_kept ? 1 : 0) + (ok_acc && !accd_kept ? 1 : 0);
@@ -671,8 +690,10 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     clk.mark(kPhAcceptor);
 
     // ---- Learner: fold accept events into the (ballot, value) table. ----
-    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
-      lt_written = true;
+    if constexpr (!ablated(kNoLearner)) {
+      if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
+        lt_written = true;
+    }
     clk.mark(kPhLearner);
 
     // ---- Proposer sends into the consumed request buffer, then their
@@ -684,14 +705,16 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 #pragma unroll 1
         for (int a = 0; a < A; ++a) {
           const int e = p * A + a;
-          const bool acc_sent = ((p1_done >> p) & 1u) && keep_at(ts, pd, kKeepP2, 3, e);
+          const bool acc_sent =
+              !ablated(kNoSends) && ((p1_done >> p) & 1u) && keep_at(ts, pd, kKeepP2, 3, e);
           if (acc_sent) {
             const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
             col[G::kRqBal + j] = old_bal[p];
             col[G::rq_v1(j)] = prop_val[p];
             rq_sent |= 1u << j;
           }
-          const bool prep_sent = ((expired >> p) & 1u) && keep_at(ts, pd, kKeepP1, 2, e);
+          const bool prep_sent =
+              !ablated(kNoSends) && ((expired >> p) & 1u) && keep_at(ts, pd, kKeepP1, 2, e);
           if (prep_sent) {
             const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
             col[G::kRqBal + j] = bal[p];
@@ -800,7 +823,8 @@ using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 // The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, OBS, B,
 // MIN_BLOCKS): one per shape, stamps, arms and observer flag, at the
 // geometry fused_tick.FR_STAGING["paxos"] gives it; MIN_BLOCKS, the blocks
-// an SM is to hold, caps a thread's registers.
+// an SM is to hold, caps a thread's registers.  An ablated build
+// instantiates config2's only (fused_tick.ABLATE_KEYS).
 #define K1_INSTANCES(X)         \
   X(2, 5, 8, 0, 0, 0, 128, 4)   \
   X(1, 3, 8, 0, 0, 0, 128, 4)   \
@@ -812,6 +836,9 @@ using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
   X(2, 5, 8, 1, 0, 1, 128, 2)   \
   X(2, 5, 8, 1, 1, 1, 128, 2)
 
+// The ablated builds' one instantiation, a row of the table above.
+#define K1_ABLATED_INSTANCES(X) X(2, 5, 8, 0, 0, 0, 128, 4)
+
 // Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`
 // for the instantiation `dims` names (n_prop, n_acc, k_slots, stamped,
 // arms, observed), or returns cudaErrorInvalidValue.
@@ -822,7 +849,11 @@ cudaError_t dispatch(const int* dims, Fn&& fn) {
       dims[5] == O_)                                                                       \
     return fn(Inst<P_, A_, K_, S_ != 0, R_ != 0, O_ != 0, B_, M_>{},                       \
               std::bool_constant<R_ != 0>{}, std::bool_constant<O_ != 0>{});
+#ifdef FUSED_ABLATE
+  K1_ABLATED_INSTANCES(K1_MATCH)
+#else
   K1_INSTANCES(K1_MATCH)
+#endif
 #undef K1_MATCH
   return cudaErrorInvalidValue;
 }

@@ -44,12 +44,19 @@ Every fused kernel also computes the observer planes a state carries
 instantiations of its own (the last field of its keys, ``observed``),
 which take the planes' leaves as a separate argument (:func:`_obs_args`)
 and keep their counters in the lane's column (:func:`obs_rows`).
+
+:func:`fused_fns` binds a protocol's tick with components removed
+(``ABLATE_FLAGS``), the reference's ablation variants: the Paxos and
+Multi-Paxos wrappers take ``ablate``, which on a CUDA tensor launches the
+kernel's ablated build (``-DFUSED_ABLATE=<bitmask>``, config2's or
+config3's key only) and on a CPU tensor the ablated plain tick.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -69,7 +76,12 @@ from paxos_tpu_torch.faults.injector import (
 from paxos_tpu_torch.kernels import counter_prng as cp
 from paxos_tpu_torch.protocols.fastpaxos import apply_tick_fast
 from paxos_tpu_torch.protocols.multipaxos import apply_tick_mp, mp_counter_masks
-from paxos_tpu_torch.protocols.paxos import apply_tick, check_supported, counter_masks
+from paxos_tpu_torch.protocols.paxos import (
+    ABLATE_FLAGS,
+    apply_tick,
+    check_supported,
+    counter_masks,
+)
 from paxos_tpu_torch.protocols.raftcore import apply_tick_raft
 from paxos_tpu_torch.protocols.synchpaxos import apply_tick_sp
 
@@ -94,7 +106,8 @@ BALLOT_GROWTH_PER_TICK = 16
 # and with them; Multi-Paxos (n_prop, n_acc, log_len, k_slots, stamped,
 # arms, observed) of config3, config3-long, the reference tests' 4-slot
 # window, and three acceptors, with the arms, the stamps and the planes at
-# config3's (2, 5, 8, 4).
+# config3's (2, 5, 8, 4), and the planes alone at config3-long's
+# (2, 5, 16, 4).
 _OBSERVED_SHAPES = ((2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1), (2, 5, 8, 1, 1, 1))
 _FR_SHAPES = (
     (2, 5, 8, 0, 0, 0), (2, 3, 8, 0, 0, 0), (2, 5, 8, 0, 1, 0), (2, 5, 8, 1, 0, 0),
@@ -114,8 +127,11 @@ KERNEL_SHAPES = {
     "multipaxos": (
         (2, 5, 8, 4, 0, 0, 0), (2, 5, 16, 4, 0, 0, 0), (2, 5, 4, 4, 0, 0, 0), (2, 3, 8, 4, 0, 0, 0),
         (2, 5, 8, 4, 0, 1, 0), (2, 5, 8, 4, 1, 0, 0), (2, 5, 8, 4, 1, 1, 0),
-    ) + tuple((2, 5, 8, 4) + key[3:] for key in _OBSERVED_SHAPES),
+    ) + tuple((2, 5, 8, 4) + key[3:] for key in _OBSERVED_SHAPES) + ((2, 5, 16, 4, 0, 0, 1),),
 }
+# The one key of each kernel that its ablated builds are instantiated for:
+# config2's (K1) and config3's (K5), the reference's ablation targets.
+ABLATE_KEYS = {"paxos": (2, 5, 8, 0, 0, 0), "multipaxos": (2, 5, 8, 4, 0, 0, 0)}
 
 # The report-time ``max_ballot >= limit`` threshold of single-decree Paxos.
 REPORT_BALLOT_LIMIT = (1 << 15) - 1
@@ -203,8 +219,13 @@ def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
 # Staged at 96 x 2 the steady chunk ran 38.958 and 39.056 ms on
 # observed-multipaxos against 54.446 and 59.490 (128 x 2), and 52.901 and
 # 52.942 on observed-delaychaos-multipaxos against 70.212 and 71.975 (two
-# calls of chip_ab.py --planes, PERF.md section 6): every observed key
-# takes 96 x 2 staged.
+# calls of chip_ab.py --planes, PERF.md section 6): every observed key at
+# (2, 5, 8, 4) takes 96 x 2 staged.  The long log's observed column is 273
+# words without the payloads (2 blocks of 96, 6 warps) and 433 with them
+# (2 blocks of 64, 4 warps); staged, observed-multipaxos-long's steady
+# chunk ran 92.261 and 92.313 ms against 146.798 and 140.030 unstaged
+# (one call of chip_ab.py --planes, PERF.md section 6): the digest's 160
+# payload reads a tick outweigh two warps, so it takes 64 x 2 staged.
 MP_STAGING = {
     (2, 5, 8, 4, 0, 0, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
     (2, 5, 16, 4, 0, 0, 0): _mp_staging((2, 5, 16, 4, 0), 128, False),
@@ -213,7 +234,8 @@ MP_STAGING = {
     (2, 5, 8, 4, 0, 1, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
     (2, 5, 8, 4, 1, 0, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
     (2, 5, 8, 4, 1, 1, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
-    **{key: _mp_staging(key, 96, True) for key in KERNEL_SHAPES["multipaxos"] if key[6]},
+    **{key: _mp_staging(key, 96, True) for key in KERNEL_SHAPES["multipaxos"] if key[6] and key[2] == 8},
+    (2, 5, 16, 4, 0, 0, 1): _mp_staging((2, 5, 16, 4, 0, 0, 1), 64, True),
 }
 
 
@@ -522,6 +544,37 @@ BINDINGS = {
 _entries: dict = {}
 
 
+@functools.lru_cache(maxsize=None)
+def fused_fns(protocol: str, ablate: frozenset = frozenset()) -> tuple:
+    """(apply_fn, mask_fn, default_block) of ``protocol`` on the fused
+    engine (the reference's ``fused_fns``): its tick and mask sampler with
+    the components ``ablate`` names removed (``ABLATE_FLAGS``; Paxos and
+    Multi-Paxos only, the reference's ablation targets), and its default
+    stream block.  Cached, so each variant is one pair of partials."""
+    if ablate and protocol not in ABLATE_KEYS:
+        raise ValueError(f"ablation flags unsupported for {protocol!r}")
+    unknown = set(ablate) - set(ABLATE_FLAGS)
+    if unknown:
+        raise ValueError(f"unknown ablate flags: {sorted(unknown)}")
+    if protocol not in BINDINGS:
+        raise ValueError(f"unknown protocol: {protocol!r}")
+    b = BINDINGS[protocol]
+    if not ablate:
+        return b.apply_fn, b.mask_fn, b.block
+    return (
+        functools.partial(b.apply_fn, ablate=ablate), functools.partial(b.mask_fn, ablate=ablate),
+        b.block,
+    )
+
+
+def ablate_defines(ablate: frozenset) -> tuple:
+    """The build of a kernel without the components ``ablate`` names:
+    ``FUSED_ABLATE`` set to their bitmask (bit i: ``ABLATE_FLAGS[i]``), or
+    the default build (no define) for the empty set."""
+    mask = sum(1 << ABLATE_FLAGS.index(flag) for flag in ablate)
+    return (f"FUSED_ABLATE={mask}",) if mask else ()
+
+
 def report_ballot_limit(protocol: str) -> int:
     """The report-time ``max_ballot >= limit`` threshold of ``protocol``."""
     return BINDINGS[protocol].ballot_limit
@@ -645,13 +698,27 @@ _PLAN_LEAVES = (
 )
 
 
-def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan, cfg: FaultConfig) -> None:
+def _check_cuda_inputs(
+    protocol: str, state: LaneState, plan: FaultPlan, cfg: FaultConfig,
+    ablate: frozenset = frozenset(),
+) -> None:
     shape = BINDINGS[protocol].kernel_shape(state, cfg)
+    if ablate and shape != ABLATE_KEYS.get(protocol):
+        raise NotImplementedError(
+            f"the ablated builds of the {protocol} kernel are instantiated at "
+            f"{ABLATE_KEYS.get(protocol)} only, not {shape} (another shape, or the arms, the "
+            "stamps or the planes): ROADMAP item 23; the plain tick runs them on the CPU"
+        )
     if protocol == "multipaxos" and shape[-1] and shape not in KERNEL_SHAPES[protocol]:
         raise NotImplementedError(
-            f"K5 computes the observer planes at (2, 5, 8, 4) only, not {shape[:4]} "
-            f"(key {shape}): the observed long-log instantiation is ROADMAP item 22; "
-            "the plain tick computes them on the CPU"
+            f"K5 computes the observer planes at (2, 5, 8, 4) and (2, 5, 16, 4) only, not "
+            f"{shape[:4]} (key {shape}): ROADMAP item 23, the rest of item 22; the plain tick "
+            "computes them on the CPU"
+        )
+    if protocol == "multipaxos" and shape[:4] == (2, 5, 16, 4) and shape not in KERNEL_SHAPES[protocol]:
+        raise NotImplementedError(
+            f"K5 runs the long log's (2, 5, 16, 4) without the stamps and the arms only, not "
+            f"key {shape}: ROADMAP item 23; the plain tick runs it on the CPU"
         )
     if shape not in KERNEL_SHAPES[protocol]:
         raise ValueError(
@@ -688,14 +755,33 @@ def _check_cuda_inputs(protocol: str, state: LaneState, plan: FaultPlan, cfg: Fa
             raise ValueError("state and plan must be contiguous on one CUDA device")
 
 
+def warm_kernel(
+    protocol: str, state: LaneState, seed: int, plan: FaultPlan, cfg: FaultConfig, block: int,
+    ablate: frozenset = frozenset(),
+) -> None:
+    """Build (first use only), load and launch ``protocol``'s kernel (its
+    ablated build where ``ablate`` names components) for 0 ticks on
+    ``state``, which comes back as it was, so that a timed launch pays for
+    none of it (the card loads a kernel's module at its first launch).
+    CUDA tensors only; the wrapper's ``.launches`` is left as it is."""
+    ablate = frozenset(ablate)
+    fused_fns(protocol, ablate)  # the flags' checks
+    _check_cuda_inputs(protocol, state, plan, cfg, ablate)
+    _launch(protocol, state, seed, plan, cfg, 0, block, 0, False, ablate_defines(ablate))
+
+
 def _fused_chunk(
     protocol: str, wrapper: Callable, state: LaneState, seed: int,
     plan: FaultPlan, cfg: FaultConfig, n_ticks: int, block: int, blk0: int,
-    clamp_per_tick: bool,
+    clamp_per_tick: bool, ablate: frozenset = frozenset(),
 ) -> LaneState:
-    """One chunk of ``protocol``'s engine; a launch adds one to
-    ``wrapper.launches``."""
+    """One chunk of ``protocol``'s engine (without the components
+    ``ablate`` names); a launch of the kernel adds one to
+    ``wrapper.launches``, of an ablated build to
+    ``wrapper.ablated_launches[ablate]``."""
     binding = BINDINGS[protocol]
+    ablate = frozenset(ablate)
+    apply_fn, mask_fn, _ = fused_fns(protocol, ablate)
     if not isinstance(state, binding.state_cls):
         raise TypeError(f"the {protocol} engine takes a {binding.state_cls.__name__}")
     check_supported(cfg, protocol)
@@ -704,16 +790,22 @@ def _fused_chunk(
     if state.device.type == "cpu":
         return reference_chunk(
             state, seed, plan, cfg, n_ticks, blk_id=blk0, block=block,
-            clamp_per_tick=clamp_per_tick, apply_fn=binding.apply_fn,
-            mask_fn=binding.mask_fn, ballot_limit=binding.ballot_limit,
+            clamp_per_tick=clamp_per_tick, apply_fn=apply_fn,
+            mask_fn=mask_fn, ballot_limit=binding.ballot_limit,
         )
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    _check_cuda_inputs(protocol, state, plan, cfg)
+    _check_cuda_inputs(protocol, state, plan, cfg, ablate)
     if n_ticks == 0:
         return state
-    _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick)
-    wrapper.launches += 1
+    _launch(
+        protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick,
+        ablate_defines(ablate),
+    )
+    if ablate:
+        wrapper.ablated_launches[ablate] = wrapper.ablated_launches.get(ablate, 0) + 1
+    else:
+        wrapper.launches += 1
     state.tick.add_(n_ticks)  # every lane advanced by the same tick count
     return state
 
@@ -832,19 +924,22 @@ def blocks_per_sm(protocol: str, shape: tuple) -> int:
 def _measure(
     protocol: str, defines: tuple, reader: str, n_out: int, state: LaneState, seed: int,
     plan: FaultPlan, cfg: FaultConfig, n_ticks: int, block: "int | None", blk0: int,
-    clamp_per_tick: bool,
+    clamp_per_tick: bool, ablate: frozenset = frozenset(),
 ) -> list:
-    """One launch of ``protocol``'s measuring build ``defines``, which
-    advances ``state`` in place exactly as the wrapper would, then its
-    ``n_out`` counters as its C ``reader`` returns (and clears) them.  CUDA
-    tensors only; the wrapper's ``.launches`` is left as it is."""
+    """One launch of ``protocol``'s measuring build ``defines`` (of its
+    ablated build where ``ablate`` names components), which advances
+    ``state`` in place exactly as the wrapper would, then its ``n_out``
+    counters as its C ``reader`` returns (and clears) them.  CUDA tensors
+    only; the wrapper's ``.launches`` is left as it is."""
     block = BINDINGS[protocol].block if block is None else block
     if state.device.type != "cuda":
         raise ValueError("a measuring build counts on the card: it needs a CUDA state")
     if not isinstance(state, BINDINGS[protocol].state_cls):
         raise TypeError(f"the {protocol} engine takes a {BINDINGS[protocol].state_cls.__name__}")
+    fused_fns(protocol, frozenset(ablate))  # the flags' checks
     check_supported(cfg, protocol)
-    _check_cuda_inputs(protocol, state, plan, cfg)
+    _check_cuda_inputs(protocol, state, plan, cfg, ablate)
+    defines = ablate_defines(frozenset(ablate)) + defines
     _launch(protocol, state, seed, plan, cfg, n_ticks, block, blk0, clamp_per_tick, defines)
     state.tick.add_(n_ticks)
     torch.cuda.synchronize(state.device)
@@ -864,7 +959,7 @@ def _measure(
 def draw_census(
     protocol: str, state: LaneState, seed: int, plan: FaultPlan,
     cfg: FaultConfig, n_ticks: int, block: "int | None" = None, blk0: int = 0,
-    clamp_per_tick: bool = False,
+    clamp_per_tick: bool = False, ablate: frozenset = frozenset(),
 ) -> tuple:
     """(draws, slot touches): the counter-PRNG draws ``protocol``'s kernel
     makes over ``n_ticks`` ticks from ``state`` (the gray draws of K1 to
@@ -877,10 +972,12 @@ def draw_census(
     summed over lanes and ticks: one launch of its measuring build
     (``_measure``).  The kernels draw a mask, and touch a slot, only where
     the outcome depends on it, so these are the PRNG and slot work the data
-    needs.  ``block`` defaults to the protocol's."""
+    needs.  ``block`` defaults to the protocol's; ``ablate``: the counts of
+    the kernel's ablated build (its measuring build with the same
+    components removed)."""
     draws, touches = _measure(
         protocol, COUNT_DRAWS, "fused_draws", 2, state, seed, plan, cfg, n_ticks, block, blk0,
-        clamp_per_tick,
+        clamp_per_tick, ablate,
     )
     return draws, touches
 
@@ -911,7 +1008,7 @@ def phase_clocks(
 def fused_paxos_chunk(
     state: PaxosState, seed: int, plan: FaultPlan, cfg: FaultConfig,
     n_ticks: int, block: int = DEFAULT_BLOCK, blk0: int = 0,
-    clamp_per_tick: bool = False,
+    clamp_per_tick: bool = False, ablate: frozenset = frozenset(),
 ) -> PaxosState:
     """Advance ``n_ticks`` ticks of Paxos; ``block`` is the stream block and
     ``blk0`` the id of the first.
@@ -919,7 +1016,8 @@ def fused_paxos_chunk(
     CUDA: launches ``csrc/fused_paxos_tick.cu`` on the current stream, at
     the geometry ``FR_STAGING["paxos"]`` gives the state's shape, updating
     the state's tensors in place (the input state is consumed) and
-    returning it; ``.launches`` counts the launches; a launch the card
+    returning it; ``.launches`` counts the launches (``.ablated_launches``
+    those of each ablated build); a launch the card
     refuses raises.  A config with a gray-failure or partition knob on runs
     the kernel's arms instantiation (:func:`gray_arms`), on a plan with the
     leaves its knobs need; so do Fast Paxos, Raft-core, SynchPaxos and
@@ -927,16 +1025,21 @@ def fused_paxos_chunk(
     and ``p_delay > 0`` needs a plan with ``link_delay``; so do the other
     four.  A state that carries an observer plane runs an observed
     instantiation, which computes every plane the state carries; so do the
-    other four.
-    CPU: the plain :func:`reference_chunk`.  There is no fallback between
-    the two: the device of the state decides."""
+    other four.  ``ablate`` (``ABLATE_FLAGS``) runs the kernel's ablated
+    build, which removes those components of the tick, at config2's key
+    only (``ABLATE_KEYS``; any other raises): it is not the protocol, and
+    is for timing against the full kernel (``scripts/ablate_fused.py``).
+    CPU: the plain :func:`reference_chunk` (ablated: :func:`fused_fns`'
+    tick).  There is no fallback between the two: the device of the state
+    decides."""
     return _fused_chunk(
         "paxos", fused_paxos_chunk, state, seed, plan, cfg, n_ticks, block,
-        blk0, clamp_per_tick,
+        blk0, clamp_per_tick, ablate,
     )
 
 
 fused_paxos_chunk.launches = 0
+fused_paxos_chunk.ablated_launches = {}  # frozenset of flags: launches of that build
 
 
 def fused_fastpaxos_chunk(
@@ -976,23 +1079,25 @@ fused_raftcore_chunk.launches = 0
 def fused_multipaxos_chunk(
     state: MultiPaxosState, seed: int, plan: FaultPlan, cfg: FaultConfig,
     n_ticks: int, block: int = BINDINGS["multipaxos"].block, blk0: int = 0,
-    clamp_per_tick: bool = False,
+    clamp_per_tick: bool = False, ablate: frozenset = frozenset(),
 ) -> MultiPaxosState:
     """:func:`fused_paxos_chunk` for Multi-Paxos
     (``csrc/fused_multipaxos_tick.cu``, at the geometry ``MP_STAGING``
     gives the state's shape; a launch the card refuses raises); the
     default stream block is the reference's 256, and the per-tick clamp
-    pins ballots at 2047.  A gray-failure or partition knob, a state
-    with delay stamps, or one with an observer plane runs its instantiation
-    at config3's shape only; any other shape raises (the observed long-log
-    instantiation is ROADMAP item 22)."""
+    pins ballots at 2047.  A gray-failure or partition knob, or a state
+    with delay stamps, runs its instantiation at config3's shape only, and
+    a state with an observer plane at config3's or config3-long's; any
+    other shape raises (ROADMAP item 23).  ``ablate`` runs the ablated
+    build at config3's key only."""
     return _fused_chunk(
         "multipaxos", fused_multipaxos_chunk, state, seed, plan, cfg, n_ticks,
-        block, blk0, clamp_per_tick,
+        block, blk0, clamp_per_tick, ablate,
     )
 
 
 fused_multipaxos_chunk.launches = 0
+fused_multipaxos_chunk.ablated_launches = {}
 
 
 def fused_synchpaxos_chunk(

@@ -31,6 +31,8 @@ per-slot tables, :func:`paxos_tpu_torch.check.mp_safety.mp_margin_observe`,
 the client workload, coverage last on the post-tick state), with
 Multi-Paxos' signals: four send kinds over three buffers, a candidacy
 failure for a timeout, and a committed log slot to serve a client request.
+Both tick functions take ``ablate`` (``protocols.paxos.ABLATE_FLAGS``), as
+the single-decree ones do.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from paxos_tpu_torch.obs import exposure as exp_mod
 from paxos_tpu_torch.protocols.paxos import (
     check_supported,
     corrupt,
+    in_block_iota,
     partition_cuts,
     recover,
     send_stamps,
@@ -108,17 +111,29 @@ class MPTickMasks:
     arrival_bits: Optional[torch.Tensor] = None  # (P, I) int32 client arrivals (workload)
 
 
-def mp_counter_masks(cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=None) -> MPTickMasks:
-    """Draw a tick's masks from the counter PRNG (``tick_seed`` and
-    ``block`` as in :func:`paxos_tpu_torch.protocols.paxos.counter_masks`).
-    With ``p_flaky > 0`` the uniform drop and duplication masks are not
-    drawn: the per-link raw bits take their place.  The client arrivals
-    are drawn where the state carries the workload plane."""
+def mp_counter_masks(
+    cfg: FaultConfig, tick_seed, state: MultiPaxosState, block=None,
+    ablate: frozenset = frozenset(),
+) -> MPTickMasks:
+    """Draw a tick's masks from the counter PRNG (``tick_seed``, ``block``
+    and ``ablate`` as in
+    :func:`paxos_tpu_torch.protocols.paxos.counter_masks`; "prng" also
+    zeroes the election jitter).  With ``p_flaky > 0`` the uniform drop and
+    duplication masks are not drawn: the per-link raw bits take their
+    place.  The client arrivals are drawn where the state carries the
+    workload plane."""
     check_supported(cfg, "multipaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
     slot = (2, n_prop, n_acc, n_inst)
     edge = (n_prop, n_acc, n_inst)
+    if "prng" in ablate:
+        zeros = torch.zeros((n_prop, n_inst), dtype=torch.int32, device=state.device)
+        return MPTickMasks(
+            sel_score=in_block_iota(n_inst, block, state.device).expand(slot), busy=None,
+            dup_req=None, prom_deliver=None, accd_deliver=None, keep_prom=None,
+            keep_accd=None, keep_prep=None, keep_acc=None, jitter=zeros, backoff=zeros,
+        )
     kw = dict(block=block, device=state.device)
     n_jitter = max(cfg.backoff_max, 1)
     flaky = cfg.p_flaky > 0.0
@@ -172,9 +187,15 @@ def _and(mask: torch.Tensor, other: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def apply_tick_mp(
-    state: MultiPaxosState, masks: MPTickMasks, plan: FaultPlan, cfg: FaultConfig
+    state: MultiPaxosState, masks: MPTickMasks, plan: FaultPlan, cfg: FaultConfig,
+    ablate: frozenset = frozenset(),
 ) -> MultiPaxosState:
-    """The Multi-Paxos transition for one tick over pre-sampled masks."""
+    """The Multi-Paxos transition for one tick over pre-sampled masks.
+
+    ``ablate`` removes components as in
+    :func:`paxos_tpu_torch.protocols.paxos.apply_tick`; without the learner
+    the proposers read a chosen count of 0, as the reference's ablated tick
+    gives them."""
     check_supported(cfg, "multipaxos")
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
@@ -219,16 +240,22 @@ def apply_tick_mp(
     prom_del = _and(_and(state.promises.present, masks.prom_deliver), net.ready(state.promises, state.tick))
     accd_del = _and(_and(state.accepted.present, masks.accd_deliver), net.ready(state.accepted, state.tick))
     prom_del, accd_del = _and(prom_del, link_rep), _and(accd_del, link_rep)
-    promises = dataclasses.replace(state.promises, present=state.promises.present & ~prom_del)
-    accepted = dataclasses.replace(state.accepted, present=state.accepted.present & ~accd_del)
+    if "consume" in ablate:
+        promises, accepted = state.promises, state.accepted
+    else:
+        promises = dataclasses.replace(state.promises, present=state.promises.present & ~prom_del)
+        accepted = dataclasses.replace(state.accepted, present=state.accepted.present & ~accd_del)
 
     # ---- Acceptor half-tick over the requests that have arrived; a cut
     #      link's requests stay in flight ----
-    req_present = _and(state.requests.present, net.ready(state.requests, state.tick))
-    sel = net.select_from_scores(req_present, masks.sel_score, masks.busy)
-    sel = sel & alive[None, None]
-    if link_req is not None:
-        sel = sel & link_req[None]
+    if "select" in ablate:
+        sel = torch.zeros_like(state.requests.present)
+    else:
+        req_present = _and(state.requests.present, net.ready(state.requests, state.tick))
+        sel = net.select_from_scores(req_present, masks.sel_score, masks.busy)
+        sel = sel & alive[None, None]
+        if link_req is not None:
+            sel = sel & link_req[None]
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=i32)
@@ -253,30 +280,43 @@ def apply_tick_mp(
 
     # PROMISE carries the log as it stood before this tick's accept write;
     # equivocators send a zeroed payload.
-    prom_send = _and(sel[PREPARE] & ok_prep[None], keep_prom)  # (P, A, I)
-    payload_bv = torch.where(equiv[:, None], 0, acc.log)  # (A, L, I)
-    promises = PromiseBuf(
-        present=promises.present | prom_send,
-        bal=torch.where(prom_send, msg_bal[None], promises.bal),
-        p_bv=torch.where(prom_send[:, :, None], payload_bv[None], promises.p_bv),
-        until=_stamped(promises.until, prom_send, kind(0)),
-    )
-    accd_send = _and(sel[ACCEPT] & ok_acc[None], keep_accd)
-    accepted = AcceptedBuf(
-        present=accepted.present | accd_send,
-        bal=torch.where(accd_send, msg_bal[None], accepted.bal),
-        slot=torch.where(accd_send, msg_slot[None], accepted.slot),
-        val=torch.where(accd_send, msg_val[None], accepted.val),
-        until=_stamped(accepted.until, accd_send, kind(1)),
-    )
-    requests = net.consume(state.requests, sel, stay=dup_req)
+    if "sends" not in ablate:
+        prom_send = _and(sel[PREPARE] & ok_prep[None], keep_prom)  # (P, A, I)
+        payload_bv = torch.where(equiv[:, None], 0, acc.log)  # (A, L, I)
+        promises = PromiseBuf(
+            present=promises.present | prom_send,
+            bal=torch.where(prom_send, msg_bal[None], promises.bal),
+            p_bv=torch.where(prom_send[:, :, None], payload_bv[None], promises.p_bv),
+            until=_stamped(promises.until, prom_send, kind(0)),
+        )
+        accd_send = _and(sel[ACCEPT] & ok_acc[None], keep_accd)
+        accepted = AcceptedBuf(
+            present=accepted.present | accd_send,
+            bal=torch.where(accd_send, msg_bal[None], accepted.bal),
+            slot=torch.where(accd_send, msg_slot[None], accepted.slot),
+            val=torch.where(accd_send, msg_val[None], accepted.val),
+            until=_stamped(accepted.until, accd_send, kind(1)),
+        )
+    if "consume" in ablate:
+        requests = state.requests
+    else:
+        requests = net.consume(state.requests, sel, stay=dup_req)
     acc = dataclasses.replace(acc, promised=promised, log=log)
 
     # ---- Learner / checker ----
-    learner = mp_learner_observe(
-        state.learner, ok_acc, msg_bal, msg_slot, msg_val, state.tick, quorum
-    )
-    chosen_count = learner.chosen.sum(dim=0, dtype=i32)  # (I,), of the new learner
+    if "learner" in ablate:
+        learner = state.learner
+        chosen_count = torch.zeros((n_inst,), dtype=i32, device=dev)
+    else:
+        learner = mp_learner_observe(
+            state.learner, ok_acc, msg_bal, msg_slot, msg_val, state.tick, quorum
+        )
+        chosen_count = learner.chosen.sum(dim=0, dtype=i32)  # (I,), of the new learner
+    if "proposer" in ablate:
+        return dataclasses.replace(
+            state, acceptor=acc, learner=learner, requests=requests, promises=promises,
+            accepted=accepted, tick=state.tick + 1,
+        )
 
     # ---- Proposer half-tick ----
     bits = (1 << torch.arange(n_acc, dtype=i32, device=dev)).view(1, n_acc, 1)
@@ -350,11 +390,12 @@ def apply_tick_mp(
     edge = (n_prop, n_acc, n_inst)
     zeros = torch.zeros((n_prop, 1, n_inst), dtype=i32, device=dev)
     prep_mask = (start_elec & p_alive)[:, None].expand(edge)
-    requests = net.send(
-        requests, PREPARE,
-        send_mask=prep_mask,
-        bal=bal_next[:, None], v1=zeros, v2=zeros, keep=keep_prep, until=kind(2),
-    )
+    if "sends" not in ablate:
+        requests = net.send(
+            requests, PREPARE,
+            send_mask=prep_mask,
+            bal=bal_next[:, None], v1=zeros, v2=zeros, keep=keep_prep, until=kind(2),
+        )
     # Leaders re-broadcast the current slot's Accept every tick.
     is_lead = (phase == LEAD) & p_alive & (commit_idx < n_slots)
     if cfg.log_total:
@@ -365,11 +406,13 @@ def apply_tick_mp(
     rbv = torch.where(ci_hot, recov_bv, 0).sum(dim=1, dtype=i32)  # (P, I) packed
     # Commands are keyed by global slot (base + window index).
     pval = torch.where(rbv > 0, bv_val(rbv), own_slot_value(pid, state.base[None] + ci))
-    requests = net.send(
-        requests, ACCEPT,
-        send_mask=is_lead[:, None].expand(edge),
-        bal=bal_next[:, None], v1=pval[:, None], v2=ci[:, None], keep=keep_acc, until=kind(3),
-    )
+    if "sends" not in ablate:
+        requests = net.send(
+            requests, ACCEPT,
+            send_mask=is_lead[:, None].expand(edge),
+            bal=bal_next[:, None], v1=pval[:, None], v2=ci[:, None], keep=keep_acc,
+            until=kind(3),
+        )
 
     prop = MPProposerState(
         bal=bal_next,

@@ -27,6 +27,12 @@ Paxos and Raft-core ticks share (:func:`skew_delta`,
 :func:`observer_planes`, :func:`with_coverage`); they draw nothing but the
 workload's arrivals (the ``ARRIVAL`` stream, drawn only where the state
 carries the workload), so the schedule is the same with them on.
+
+Both :func:`counter_masks` and :func:`apply_tick` take ``ablate``, a set of
+``ABLATE_FLAGS`` that removes a component of the tick (the reference's
+``fused_fns(protocol, ablate)``, for timing the fused kernel without it):
+an ablated tick is not the protocol, and is held only against the
+reference's ablated tick and the kernel's ablated builds.
 """
 
 from __future__ import annotations
@@ -64,6 +70,12 @@ GRAY_KNOBS = (
     "amnesia",
 )
 GRAY_PROTOCOLS = ("paxos", "fastpaxos", "raftcore", "synchpaxos", "multipaxos")
+# The components an ablated tick removes (the reference's
+# scripts/ablate_fused.py FLAGS, in its order): the counter-PRNG draws
+# (constant masks instead), the acceptors' request selection, every send,
+# the consume of delivered and selected messages, the learner with the
+# acceptor invariants, and the proposer half-tick.
+ABLATE_FLAGS = ("prng", "select", "sends", "consume", "learner", "proposer")
 # Knobs only some ticks model: the ticks that do, and the ROADMAP item that
 # speaks for the others.
 _PARTIAL_KNOBS = {
@@ -113,7 +125,7 @@ class TickMasks:
 
 
 def counter_masks(
-    cfg: FaultConfig, tick_seed, state: PaxosState, block=None
+    cfg: FaultConfig, tick_seed, state: PaxosState, block=None, ablate: frozenset = frozenset()
 ) -> TickMasks:
     """Draw a tick's masks from the counter PRNG.
 
@@ -124,11 +136,22 @@ def counter_masks(
     uniform drop and duplication masks are not drawn: the per-link raw bits
     take their place.  The client arrivals are drawn where the state
     carries the workload plane.
+
+    ``ablate`` with "prng" draws nothing: every selection score is the
+    lane's index within its stream block, and every other mask is off (no
+    idling, hold, duplication or drop, a backoff of 0).
     """
     check_supported(cfg, state.protocol)
     _, n_prop, n_acc, n_inst = state.requests.present.shape
     slot = (2, n_prop, n_acc, n_inst)
     edge = (n_prop, n_acc, n_inst)
+    if "prng" in ablate:
+        return TickMasks(
+            sel_score=in_block_iota(n_inst, block, state.device).expand(slot), busy=None,
+            deliver=None, dup_req=None, dup_rep=None, keep_prom=None, keep_accd=None,
+            keep_p1=None, keep_p2=None,
+            backoff=torch.zeros((n_prop, n_inst), dtype=torch.int32, device=state.device),
+        )
     kw = dict(block=block, device=state.device)
     flaky = cfg.p_flaky > 0.0
 
@@ -172,6 +195,15 @@ def counter_masks(
             if getattr(state, "wload", None) is not None else None
         ),
     )
+
+
+def in_block_iota(n_inst: int, block, device) -> torch.Tensor:
+    """(I,) int32: each lane's index within its stream block of ``block``
+    lanes (one block where None), the reference's
+    ``broadcasted_iota(..., 3)`` over a block of lanes: the selection score
+    of a tick ablated of its PRNG."""
+    lanes = torch.arange(n_inst, dtype=torch.int32, device=device)
+    return lanes if block is None else lanes % block
 
 
 def send_stamps(delay_bits, lat_bits, plan: FaultPlan, cfg: FaultConfig, tick) -> torch.Tensor:
@@ -361,9 +393,17 @@ def skewed_timers(masks: TickMasks, plan: FaultPlan, cfg: FaultConfig) -> tuple:
 
 
 def apply_tick(
-    state: PaxosState, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig
+    state: PaxosState, masks: TickMasks, plan: FaultPlan, cfg: FaultConfig,
+    ablate: frozenset = frozenset(),
 ) -> PaxosState:
-    """The pure protocol transition for one tick over pre-sampled masks."""
+    """The pure protocol transition for one tick over pre-sampled masks.
+
+    ``ablate`` removes components (``ABLATE_FLAGS``): "select", the
+    acceptors select no request; "sends", no message is sent (replies and
+    requests); "consume", delivered replies and selected requests stay
+    present; "learner", neither the learner nor the acceptor invariants
+    run; "proposer", the tick ends after the learner, the proposers as they
+    were.  An ablated tick is not the protocol."""
     check_supported(cfg)
     n_acc, n_inst = state.acceptor.promised.shape
     n_prop = state.proposer.bal.shape[0]
@@ -377,9 +417,14 @@ def apply_tick(
     links = gray_links(masks, plan, cfg, state.tick)
     until_req, until_rep = delay_stamps(masks, plan, cfg, state.tick)
     delivered, replies = deliver(state, masks, links)
+    if "consume" in ablate:
+        replies = state.replies
 
     # ---- Acceptor half-tick: select one request per (instance, acceptor) ----
-    sel = select(state, masks, plan, links)
+    if "select" in ablate:
+        sel = torch.zeros_like(state.requests.present)
+    else:
+        sel = select(state, masks, plan, links)
 
     def gather(x):
         return torch.where(sel, x, 0).sum(dim=(0, 1), dtype=torch.int32)
@@ -405,31 +450,43 @@ def apply_tick(
 
     prom_payload_bal = torch.where(equiv, 0, acc.acc_bal)  # pre-update
     prom_payload_val = torch.where(equiv, 0, acc.acc_val)
-    replies = net.send(
-        replies, PROMISE,
-        send_mask=sel[PREPARE] & ok_prep[None],
-        bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
-        keep=links.keep_prom, until=kind_until(until_rep, PROMISE),
-    )
-    replies = net.send(
-        replies, ACCEPTED,
-        send_mask=sel[ACCEPT] & ok_acc[None],
-        bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
-        keep=links.keep_accd, until=kind_until(until_rep, ACCEPTED),
-    )
-    requests = net.consume(state.requests, sel, stay=links.dup_req)
+    if "sends" not in ablate:
+        replies = net.send(
+            replies, PROMISE,
+            send_mask=sel[PREPARE] & ok_prep[None],
+            bal=msg_bal[None], v1=prom_payload_bal[None], v2=prom_payload_val[None],
+            keep=links.keep_prom, until=kind_until(until_rep, PROMISE),
+        )
+        replies = net.send(
+            replies, ACCEPTED,
+            send_mask=sel[ACCEPT] & ok_acc[None],
+            bal=msg_bal[None], v1=msg_val[None], v2=torch.zeros_like(msg_val)[None],
+            keep=links.keep_accd, until=kind_until(until_rep, ACCEPTED),
+        )
+    if "consume" in ablate:
+        requests = state.requests
+    else:
+        requests = net.consume(state.requests, sel, stay=links.dup_req)
     acc_new = dataclasses.replace(
         acc, promised=promised, acc_bal=acc_bal, acc_val=acc_val
     )
 
     # ---- Learner / safety checker ----
-    learner = learner_observe(
-        state.learner, ok_acc, msg_bal, msg_val, state.tick, q2
-    )
-    inv_viol = acceptor_invariants(acc_pre, acc_new, honest=~equiv)
-    learner = dataclasses.replace(
-        learner, violations=learner.violations + inv_viol
-    )
+    if "learner" in ablate:
+        learner = state.learner
+    else:
+        learner = learner_observe(
+            state.learner, ok_acc, msg_bal, msg_val, state.tick, q2
+        )
+        inv_viol = acceptor_invariants(acc_pre, acc_new, honest=~equiv)
+        learner = dataclasses.replace(
+            learner, violations=learner.violations + inv_viol
+        )
+    if "proposer" in ablate:
+        return dataclasses.replace(
+            state, acceptor=acc_new, learner=learner, requests=requests, replies=replies,
+            tick=state.tick + 1,
+        )
 
     # ---- Proposer half-tick: fold all delivered replies ----
     prop = state.proposer
@@ -491,18 +548,19 @@ def apply_tick(
     # Emit: ACCEPT broadcast on phase-1 completion (old ballot), PREPARE
     # broadcast on retry (next ballot).
     zeros = torch.zeros((n_prop, 1, n_inst), dtype=torch.int32, device=state.device)
-    requests = net.send(
-        requests, ACCEPT,
-        send_mask=p1_done[:, None].expand(n_prop, n_acc, n_inst),
-        bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
-        keep=links.keep_p2, until=kind_until(until_req, ACCEPT),
-    )
-    requests = net.send(
-        requests, PREPARE,
-        send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
-        bal=bal_next[:, None], v1=zeros, v2=zeros,
-        keep=links.keep_p1, until=kind_until(until_req, PREPARE),
-    )
+    if "sends" not in ablate:
+        requests = net.send(
+            requests, ACCEPT,
+            send_mask=p1_done[:, None].expand(n_prop, n_acc, n_inst),
+            bal=prop.bal[:, None], v1=prop_val[:, None], v2=zeros,
+            keep=links.keep_p2, until=kind_until(until_req, ACCEPT),
+        )
+        requests = net.send(
+            requests, PREPARE,
+            send_mask=expired[:, None].expand(n_prop, n_acc, n_inst),
+            bal=bal_next[:, None], v1=zeros, v2=zeros,
+            keep=links.keep_p1, until=kind_until(until_req, PREPARE),
+        )
     prop = dataclasses.replace(
         prop,
         bal=bal_next,

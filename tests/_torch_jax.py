@@ -23,6 +23,11 @@ from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
 
 
+# XLA's lowest backend optimization level: a case compiles its loop once and
+# runs it once, in about half the time and with the same integer results.
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
 def jax_plan_of(tplan):
     """The JAX package's plan holding the leaves of the port's ``tplan``
     (no sampling)."""
@@ -231,7 +236,7 @@ def check_observed_against_jax(protocol, make, lit, ticks=32):
     across), on chip_smoke's numpy plan: the whole state leaf for leaf, the
     exposure classes ``lit`` lit (injected and effective), and every plane
     moved."""
-    from test_torch_obs_paxos import FAST_COMPILE, both_initial_states, jax_config
+    from test_torch_obs_paxos import both_initial_states, jax_config
 
     from paxos_tpu_torch.obs.exposure import CLASSES
 
@@ -367,3 +372,38 @@ def one_core():
         yield
     finally:
         _pin_threads(allowed)
+
+
+def check_ablated_against_jax(tcfg, ablate, ticks, block, blk0, plan):
+    """``tcfg``'s plain tick with the components ``ablate`` names removed
+    (the port's ``fused_fns``) against the JAX package's ablated tick
+    (its ``fused_fns``), leaf for leaf (tolerance 0), over ``ticks`` ticks
+    from the same initial state on ``plan`` (a port plan, carried across
+    leaf for leaf), in stream blocks of ``block`` lanes from block id
+    ``blk0`` on; returns the final state's leaves."""
+    ablate = frozenset(ablate)
+    jcfg = mp_jax_config(tcfg) if tcfg.protocol == "multipaxos" else jax_config(tcfg)
+    assert jcfg.fingerprint() == tcfg.fingerprint()
+    state = trun.init_state(tcfg, "cpu")
+    jstate = j_init_state(jcfg)
+    init = _np_leaves(jstate)
+    for w, g in zip(init, interop.state_to_numpy(state), strict=True):
+        np.testing.assert_array_equal(w, g)
+    apply_fn, mask_fn, _ = fused_fns(tcfg.protocol, ablate)
+    jstates, jplans, blks = split_blocks(jstate, jax_plan_of(plan), tcfg.n_inst, block)
+    want = jax.jit(jax.vmap(
+        lambda st, pl, blk: j_reference_chunk(
+            st, tcfg.seed, pl, jcfg.fault, ticks, apply_fn, mask_fn, blk_id=blk
+        ),
+    ), compiler_options=FAST_COMPILE)(jstates, jplans, blks + blk0)
+    t_apply, t_mask, _ = tfused.fused_fns(tcfg.protocol, ablate)
+    got = tfused.reference_chunk(
+        state, tcfg.seed, plan, tcfg.fault, ticks, blk_id=blk0, block=block,
+        apply_fn=t_apply, mask_fn=t_mask,
+    )
+    want, got = merge_blocks(want), interop.state_to_numpy(got)
+    assert len(want) == len(got) == len(init)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert w.dtype == g.dtype and w.shape == g.shape, i
+        np.testing.assert_array_equal(w, g, err_msg=f"leaf {i}")
+    return got

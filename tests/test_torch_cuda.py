@@ -88,6 +88,7 @@ from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
 from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
+from paxos_tpu_torch.protocols.paxos import ABLATE_FLAGS
 
 LIMIT = (1 << 15) - 1
 PROTOCOLS = ["paxos", "fastpaxos", "raftcore"]
@@ -441,8 +442,8 @@ def test_kernels_refuse_what_they_do_not_model():
     wrapper and in their C entry points (K4 and K1 on their main paths, K2,
     K3 and K5 on theirs); the C entries of K1, K2, K3 and K5 refuse p_delay
     on an unstamped instantiation and a stamped state on one; K5 a stamped
-    state at a shape other than (2,5,8,4), in the wrapper.  No refused
-    launch changes the state."""
+    state at a shape other than (2,5,8,4), in the wrapper (the long log's,
+    naming ROADMAP item 23).  No refused launch changes the state."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for path in ("synchpaxos", "delaychaos-paxos", "delaychaos-fastpaxos", "delaychaos-raftcore",
@@ -482,11 +483,13 @@ def test_kernels_refuse_what_they_do_not_model():
             _assert_same(stamped, before)
         finally:
             tfused.BINDINGS[protocol] = binding
-    for other in (dict(n_acc=3), dict(log_len=16)):
+    # (The long log's stamped key is one ROADMAP item 23 lists.)
+    for other, error, match in ((dict(n_acc=3), ValueError, "instantiated"),
+                                (dict(log_len=16), NotImplementedError, "item 23")):
         cfg = dataclasses.replace(main_config("delaychaos-multipaxos", 1024, 1), **other)
         state = trun.init_state(cfg, "cuda")
         assert state.stamped == 1
-        with pytest.raises(ValueError, match="instantiated"):
+        with pytest.raises(error, match=match):
             tfused.fused_multipaxos_chunk(state, 1, config_plan(cfg, 1), cfg.fault, 8)
 
 
@@ -1345,14 +1348,15 @@ def test_observed_mp_sp_match_plain_on_cuda(protocol):
 @pytest.mark.cuda
 def test_observed_multipaxos_elsewhere_raises_naming_item_22():
     """A Multi-Paxos state with an observer plane at a shape without an
-    observed instantiation of K5 (the long log's 16-slot window, three
-    acceptors) raises on the card, naming ROADMAP item 22, and runs no
-    plain tick: the state is as it was and no launch is counted."""
+    observed instantiation of K5 (a 4-slot window, three acceptors; the
+    long log's 16-slot window has one) raises on the card, naming what is
+    left of ROADMAP item 22, and runs no plain tick: the state is as it
+    was and no launch is counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     wrapper = tfused.fused_multipaxos_chunk
     launches = wrapper.launches
-    for cfg in (with_planes(TC.config3_long(1024, 1)),
+    for cfg in (with_planes(TC.config3_long(1024, 1, log_total=64, window=4)),
                 with_planes(dataclasses.replace(main_config("config3", 1024, 1), n_acc=3))):
         state = path_state(cfg, "cuda")
         before = state.clone()
@@ -1360,3 +1364,149 @@ def test_observed_multipaxos_elsewhere_raises_naming_item_22():
             wrapper(state, 1, config_plan(cfg, 1), cfg.fault, 8)
         _assert_same(state, before)
     assert wrapper.launches == launches
+
+
+ABLATED = [(p, f) for p in ("paxos", "multipaxos") for f in ABLATE_FLAGS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol,flag", ABLATED, ids=[f"{p}-no-{f}" for p, f in ABLATED])
+def test_ablated_builds_match_plain_on_cuda(protocol, flag):
+    """Each ablated build of K1 (config2's key) and K5 (config3's, with its
+    crash windows) against the plain tick without the same component, byte
+    for byte, over two 64-tick chunks from stream block 5 on 4096 lanes;
+    each launch counted as that build's; its draw-counting build advances
+    the state as it does, and without the PRNG draws nothing; without the
+    proposers the per-tick clamp still pins the ballots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    ablate = frozenset({flag})
+    cfg = main_config("paxos" if protocol == "paxos" else "config3", 4096, 23)
+    plan = main_plan(cfg) or trun.init_plan(cfg, "cuda")
+    block = tfused.BINDINGS[protocol].block
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    launches, ablated = wrapper.launches, wrapper.ablated_launches.get(ablate, 0)
+    plain = path_state(cfg, "cuda")
+    kern = plain.clone()
+    for _ in range(2):
+        plain = plain_chunk(cfg, plain, plan, 64, block, blk0=5, ablate=ablate)
+        kern = wrapper(kern, cfg.seed, plan, cfg.fault, 64, block=block, blk0=5, ablate=ablate)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    assert wrapper.ablated_launches[ablate] == ablated + 2
+    assert wrapper.launches == launches
+    counted = path_state(cfg, "cuda")
+    draws, _ = tfused.draw_census(protocol, counted, cfg.seed, plan, cfg.fault, 64, ablate=ablate)
+    once = wrapper(path_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 64, block=block, ablate=ablate)
+    torch.cuda.synchronize()
+    _assert_same(counted, once)
+    assert (draws == 0) == (flag == "prng")
+    if flag == "proposer":
+        init = near_limit_state(cfg, 4094) if protocol == "paxos" else near_limit_state_mp(cfg, 255)
+        limit = (1 << 15) - 1 if protocol == "paxos" else (1 << 11) - 1
+        init.proposer.bal.add_(20)  # over the limit: only the clamp moves a ballot
+        plain = plain_chunk(cfg, init, plan, 32, block, blk0=5, clamp_per_tick=True, ablate=ablate)
+        kern = wrapper(init.clone(), cfg.seed, plan, cfg.fault, 32, block=block, blk0=5,
+                       clamp_per_tick=True, ablate=ablate)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+        assert int(kern.proposer.bal.max()) == limit
+
+
+@pytest.mark.cuda
+def test_ablated_builds_refuse_other_keys():
+    """An ablated launch at any key but config2's (K1) and config3's (K5)
+    (another shape, the arms, the stamps, the planes) raises, naming ROADMAP
+    item 23, before any launch: the state is as it was and no launch is
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cases = [("paxos", TC.config1_no_faults(1024, 1))] + [
+        (main_config(path, 1024, 1).protocol, main_config(path, 1024, 1)) for path in (
+            "graychaos", "delaychaos-paxos", "observed-paxos", "config3long",
+            "graychaos-multipaxos", "delaychaos-multipaxos", "observed-multipaxos",
+        )
+    ]
+    for protocol, cfg in cases:
+        wrapper = tfused.FUSED_WRAPPERS[protocol]
+        launches, ablated = wrapper.launches, dict(wrapper.ablated_launches)
+        state = path_state(cfg, "cuda")
+        before = state.clone()
+        plan = main_plan(cfg) or trun.init_plan(cfg, "cuda")
+        with pytest.raises(NotImplementedError, match="item 23"):
+            wrapper(state, 1, plan, cfg.fault, 8, ablate=frozenset({"sends"}))
+        _assert_same(state, before)
+        assert wrapper.launches == launches and wrapper.ablated_launches == ablated
+
+
+@pytest.mark.cuda
+def test_observed_multipaxos_long_matches_plain_on_cuda():
+    """K5's observed long-log instantiation (2,5,16,4,0,0,1) against the
+    plain tick, observer leaves included, over three 64-tick chunks
+    compacted after each, on 16384 lanes; the planes-off kernel from the
+    same state gives the same protocol state; the per-tick clamp with a
+    block offset from near-limit ballots; the observers phase of the
+    phase-clock build runs; 2 blocks of 64 lanes an SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    key = (2, 5, 16, 4, 0, 0, 1)
+    assert tfused.blocks_per_sm("multipaxos", key) == 2
+    wrapper = tfused.fused_multipaxos_chunk
+    cfg = main_config("observed-multipaxos-long", 1 << 14, 24)
+    plan = config_plan(cfg, 24)
+    plain = path_state(cfg, "cuda")
+    assert tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault) == key
+    kern, bare = plain.clone(), without_planes(plain.clone())
+    for _ in range(3):
+        plain = compact_mp_body(plain_chunk(cfg, plain, plan, 64, 256))[0]
+        kern = compact_mp_body(wrapper(kern, cfg.seed, plan, cfg.fault, 64))[0]
+        bare = compact_mp_body(wrapper(bare, cfg.seed, plan, cfg.fault, 64))[0]
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    _assert_same(without_planes(kern), bare)
+    assert int(kern.base.max()) > 0 and int(kern.coverage.new_bits.sum()) > 0
+    cfgc = main_config("observed-multipaxos-long", 4096, 13)
+    plan = config_plan(cfgc, 13)
+    init = near_limit_state_mp(cfgc, 254)
+    plain = plain_chunk(cfgc, init, plan, 96, 256, blk0=5, clamp_per_tick=True)
+    kern = wrapper(init.clone(), cfgc.seed, plan, cfgc.fault, 96, blk0=5, clamp_per_tick=True)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    assert int(kern.proposer.bal.max()) == (1 << 11) - 1
+    clocked = path_state(cfgc, "cuda")
+    cycles = tfused.phase_clocks("multipaxos", clocked, cfgc.seed, plan, cfgc.fault, 48)
+    once = wrapper(path_state(cfgc, "cuda"), cfgc.seed, plan, cfgc.fault, 48)
+    torch.cuda.synchronize()
+    _assert_same(clocked, once)
+    assert all(c > 0 for c in cycles.values())
+
+
+@pytest.mark.cuda
+def test_ablation_entry_point_runs_on_cuda():
+    """The ablation tool on the card at a small size: every variant's row
+    for both kernels, the card's name and power limit beside them; a
+    variant's first chunk is timed after its kernel was loaded (a 0-tick
+    launch, which leaves the state as it was and counts no launch); each
+    ablated build counts its own launches, the first chunk and the timed
+    ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    from paxos_tpu_torch.scripts import ablate_fused
+
+    for protocol, name in (("paxos", "config2"), ("multipaxos", "config3")):
+        wrapper = tfused.FUSED_WRAPPERS[protocol]
+        cfg = main_config("paxos" if protocol == "paxos" else "config3", 4096, 2)
+        state, plan = path_state(cfg, "cuda"), main_plan(cfg) or trun.init_plan(cfg, "cuda")
+        before, launches, ablated = state.clone(), wrapper.launches, dict(wrapper.ablated_launches)
+        tfused.warm_kernel(protocol, state, cfg.seed, plan, cfg.fault, tfused.BINDINGS[protocol].block,
+                           frozenset({"sends"}))
+        torch.cuda.synchronize()
+        _assert_same(state, before)
+        assert wrapper.launches == launches and wrapper.ablated_launches == ablated
+        table = ablate_fused.ablation_table(protocol, name, 1 << 14, 32, 1, torch.device("cuda"))
+        for flag in ABLATE_FLAGS:
+            key = frozenset({flag})
+            assert wrapper.ablated_launches[key] == ablated.get(key, 0) + 2, flag
+        assert table["platform"] == "cuda" and table["card"].startswith(table["device"])
+        assert [r["variant"] for r in table["rows"]] == ["full"] + [f"no-{f}" for f in ABLATE_FLAGS]
+        assert all(r["us_per_tick"] > 0 and r["first_us_per_tick"] > 0 for r in table["rows"])

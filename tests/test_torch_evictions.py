@@ -68,9 +68,11 @@ def test_chip_smoke_pins_these_blocks():
     paths = chip_smoke.MAIN_PATHS
     assert (paths["config3"].protocol, paths["config3"].ticks) == ("multipaxos", TICKS)
     assert (paths["config3long"].protocol, paths["config3long"].ticks) == ("multipaxos", 1024)
-    assert [p for p, mp in paths.items() if mp.compact] == ["config3long"]
+    # config3-long, and the same with every observer plane on (its protocol
+    # state pinned as config3-long's).
+    assert [p for p, mp in paths.items() if mp.compact] == ["config3long", "observed-multipaxos-long"]
     # BASELINE.md's config3 soaks report no evictions at k_slots 4.
-    assert PINS["config3"] == PINS["config3long"] == (0, {})
+    assert PINS["config3"] == PINS["config3long"] == PINS["observed-multipaxos-long"] == (0, {})
 
 
 def _mp_block_digest(path: str, blk: int):

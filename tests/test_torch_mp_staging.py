@@ -12,8 +12,8 @@ arms are an instantiation of their own at config3's shape, with its
 default's column, and so is the bounded-delay channel, whose 40 stamp
 words a lane join the column while the PROMISE payloads go to global
 memory, so that an SM still holds 2 blocks of 128 lanes; so are the
-observer planes, whose counters (``obs_rows``, 49 words) join the column
-with the payloads in global memory.
+observer planes, whose counters (``obs_rows``, 49 words) join the column,
+and at config3-long's shape too.
 """
 
 import dataclasses
@@ -70,10 +70,12 @@ def test_staged_rows_match_the_state_leaves(shape, staging):
 def test_every_instantiation_has_a_geometry():
     assert tuple(tfused.MP_STAGING) == tfused.KERNEL_SHAPES["multipaxos"]
     # The arms, the stamps and the planes: config3's shape only, each arms
-    # instantiation with its default's column.
+    # instantiation with its default's column; and the planes alone at
+    # config3-long's.
     keys = [(s, r, o) for s in (0, 1) for r in (0, 1) for o in (0, 1)]
     assert [k for k in tfused.MP_STAGING if k[:4] != (2, 5, 8, 4)] == [
-        (2, 5, 16, 4, 0, 0, 0), (2, 5, 4, 4, 0, 0, 0), (2, 3, 8, 4, 0, 0, 0)
+        (2, 5, 16, 4, 0, 0, 0), (2, 5, 4, 4, 0, 0, 0), (2, 3, 8, 4, 0, 0, 0),
+        (2, 5, 16, 4, 0, 0, 1),
     ]
     assert sorted(k[4:] for k in tfused.MP_STAGING if k[:4] == (2, 5, 8, 4)) == keys
     for stamped in (0, 1):

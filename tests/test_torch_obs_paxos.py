@@ -24,7 +24,7 @@ import pytest
 import torch
 
 import chip_smoke
-from _torch_jax import jax_plan_of, one_core, one_torch_thread  # noqa: F401
+from _torch_jax import FAST_COMPILE, jax_plan_of, one_core, one_torch_thread  # noqa: F401
 from paxos_tpu.core.telemetry import TelemetryConfig as JTel
 from paxos_tpu.harness import config as JC
 from paxos_tpu.harness.run import init_state as j_init_state
@@ -42,9 +42,6 @@ from paxos_tpu_torch.kernels import fused_tick as tfused
 from paxos_tpu_torch.obs.exposure import CLASSES
 
 N, TICKS = 256, 32
-# XLA compiles each case's 32-tick loop in about half the time at the
-# lowest backend optimization level (the same integer results).
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 CASES = {
     "config2": lambda n, s: C.config2_dueling_drop(n, s),
     "config_gray_chaos": lambda n, s: C.config_gray_chaos(n, s),

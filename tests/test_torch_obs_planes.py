@@ -346,10 +346,12 @@ def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
     stamps and the arms): their planes-off column plus ``obs_rows`` (K4 153
     words, 193 stamped, as K1's, 2 blocks of 128; K5 241 and 281, the
     PROMISE payloads staged, 2 blocks of 96); the wrapper keys a state with
-    a plane to them and one without to the planes-off keys."""
+    a plane to them and one without to the planes-off keys.  (K5's observed
+    long-log key, the planes alone at (2,5,16,4), is
+    tests/test_torch_obs_mp_long.py's.)"""
     binding = tfused.BINDINGS[protocol]
     table = binding.staging
-    observed = [k for k in tfused.KERNEL_SHAPES[protocol] if k[-1]]
+    observed = [k for k in tfused.KERNEL_SHAPES[protocol] if k[-1] and k[:len(head)] == head]
     assert observed == [head + (s, r, 1) for s in (0, 1) for r in (0, 1)]
     assert [table[k].rows for k in observed] == list(rows)
     assert [table[k].threads for k in observed] == list(threads)
@@ -372,14 +374,20 @@ def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
 @pytest.mark.parametrize("other", [dict(log_len=16), dict(log_len=4), dict(n_acc=3)])
 def test_observed_multipaxos_elsewhere_names_item_22(other):
     """A Multi-Paxos state with a plane at a shape K5 has no observed
-    instantiation for (the long log's 16-slot window, the 4-slot one, three
-    acceptors) is refused by the wrapper's instantiation lookup, host code
-    that runs before any launch, with an error naming the shape and ROADMAP
-    item 22; on the CPU the plain tick runs it."""
+    instantiation for (the 4-slot window, three acceptors) is refused by the
+    wrapper's instantiation lookup, host code that runs before any launch,
+    with an error naming the shape and what is left of ROADMAP item 22;
+    the long log's 16-slot window, item 22's own key, passes the lookup
+    now; on the CPU the plain tick runs each."""
     cfg = dataclasses.replace(chip_smoke.with_planes(chip_smoke.main_config("config3", 8, 1)), **other)
     state = chip_smoke.path_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match=r"item 22") as err:
-        tfused._check_cuda_inputs("multipaxos", state, chip_smoke.main_plan(cfg, "cpu"), cfg.fault)
-    assert str((cfg.n_prop, cfg.n_acc, cfg.log_len, cfg.k_slots)) in str(err.value)
+    plan = chip_smoke.main_plan(cfg, "cpu")
+    if cfg.log_len == 16:
+        tfused._check_cuda_inputs("multipaxos", state, plan, cfg.fault)
+        assert tfused.BINDINGS["multipaxos"].kernel_shape(state, cfg.fault) == (2, 5, 16, 4, 0, 0, 1)
+    else:
+        with pytest.raises(NotImplementedError, match=r"item 22") as err:
+            tfused._check_cuda_inputs("multipaxos", state, plan, cfg.fault)
+        assert str((cfg.n_prop, cfg.n_acc, cfg.log_len, cfg.k_slots)) in str(err.value)
     plain = tfused.FUSED_CHUNKS["multipaxos"](state, 1, chip_smoke.main_plan(cfg, "cpu"), cfg.fault, 4)
     assert int(plain.tick) == 4 and plain.planes == state.planes
