@@ -83,6 +83,9 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
     if found is None:
         return staging
     rows = re.findall(r"X\(([\w, ]+)\)", found.group(1))
+    # K5's observed column held every plane counter before it kept most of
+    # them in registers (obs::MpRows).
+    counter_rows = tf.mp_obs_rows if "obs::MpRows" in src else lambda key: tf.obs_rows(key[0])
     out = dict(staging)
     for row in rows:
         fields = [f.strip() for f in row.split(",")]
@@ -90,7 +93,7 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
             n_key = len(fields) - 2
             key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])
             if key in out:
-                out[key] = tf._mp_staging(key, threads, fields[n_key + 1] == "true")
+                out[key] = tf._mp_staging(key, threads, fields[n_key + 1] == "true", counter_rows)
         elif protocol != "multipaxos" and len(fields) in (7, 8):  # keys may end in `observed`
             n_key = len(fields) - 2
             key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])
@@ -161,11 +164,30 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
             staging = table_staging(protocol, src, staging)
         tf.BINDINGS[protocol] = dataclasses.replace(binding, staging=staging)
         if protocol in phases and "clk.mark(" in src:
-            tf.PHASES[protocol] = tuple(
-                ph for ph in phases[protocol] if ph != "observers" or "kPhObs" in src
-            )
+            tf.PHASES[protocol] = source_phases(src, phases[protocol])
         else:
             tf.PHASES.pop(protocol, None)
+
+
+# K5's observers phase as its phase-clock build splits it.
+_OBSERVER_SPLIT = ("observer counters", "margin", "digest", "coverage insert")
+
+
+def source_phases(src: str, phases: tuple) -> tuple:
+    """The phases a kernel source clocks: the names its ``Phase`` enum
+    gives them (one comment an entry), or, where it names none, ``phases``
+    as it marks them (K5's observers phase whole where it had not split it;
+    no observers phase where it has none)."""
+    body = re.search(r"enum Phase \{(.*?)\};", src, re.S)
+    names = re.findall(r"kPh\w+,\s*// (.+)", body.group(1)) if body else []
+    if names:
+        return tuple(name.strip() for name in names)
+    out = []
+    for ph in phases:
+        ph = "observers" if ph in _OBSERVER_SPLIT else ph
+        if (ph != "observers" or "kPhObs" in src) and ph not in out:
+            out.append(ph)
+    return tuple(out)
 
 
 def observed_path(path: str) -> str:

@@ -558,11 +558,11 @@ struct SmemInst {
 };
 
 // The phase-clock measuring build (nvcc -DFUSED_PHASE_CLOCKS) of a kernel
-// whose tick has N phases (K1 to K4): a lane sums the clock64() cycles
+// whose tick has N phases (K1 to K5): a lane sums the clock64() cycles
 // between consecutive phase boundaries (its own cycles, which include the
 // time other warps hold the SM) and adds them to g_phase at the end; empty
 // in every other build.
-constexpr int kMaxPhases = 9;  // fused_tick.PHASE_SLOTS
+constexpr int kMaxPhases = 11;  // fused_tick.PHASE_SLOTS
 
 #ifdef FUSED_PHASE_CLOCKS
 // Read and cleared by fused_phase_clocks(): clock64() cycles per phase,
@@ -1216,6 +1216,15 @@ struct Rows {
 // between the phase and the head).
 __host__ __device__ constexpr int wl_column_leaf(int f) { return f < 2 ? kWlMode + f : kWlHead + f - 2; }
 
+// The counter rows K5's observed instantiations without the arms keep in
+// a lane's column (from R0): the 4 margins and the client queue's 8 fields
+// a proposer (field f of proposer p at kWl + f * P + p); their telemetry,
+// exposure and coverage counters live in registers (Tally).
+template <int P>
+struct MpRows {
+  static constexpr int kMar = 0, kWl = 4, kRows = kWl + 8 * P;
+};
+
 // The counters of the planes that are on, between global memory and the
 // column (to_column: at the start of a chunk; else at its end).
 template <int P, int R0, int B>
@@ -1253,6 +1262,107 @@ __device__ __forceinline__ void move_counters(const Column<B>& col, const Obs& o
       for (int p = 0; p < P; ++p) mv(Rw::kWl + f * P + p, o.p[wl_column_leaf(f)] + p * n);
   }
 }
+
+// move_counters for the column rows of MpRows: the margins and the client
+// queue's fields.
+template <int P, int R0, int B>
+__device__ __forceinline__ void move_mp_rows(const Column<B>& col, const Obs& o, int64_t n,
+                                             int64_t i, bool to_column) {
+  using Rw = MpRows<P>;
+  const auto mv = [&](int row, int32_t* g) {
+    if (to_column) col[R0 + row] = g[i];
+    else g[i] = col[R0 + row];
+  };
+  if (o.mar()) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mv(Rw::kMar + k, o.p[kMarQslack + k]);
+  }
+  if (o.wl()) {
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+#pragma unroll
+      for (int p = 0; p < P; ++p) mv(Rw::kWl + f * P + p, o.p[wl_column_leaf(f)] + p * n);
+  }
+}
+
+// The counters K5's observed instantiations without the arms keep in
+// registers for a launch (with the arms, registers run out: they keep all
+// in the column, Rows): loaded at its start, added to every tick and
+// stored at its end, each where its plane is on, and only those such an
+// instantiation can change (no corruption, partition, timeout or stale
+// class, no delay class unless STAMPED; the others keep their values in
+// global memory): telemetry's event counters, ring cursor and word count,
+// exposure's injected and effective counts, coverage's new bits.  A tick's
+// decides go into the latency histogram by an add the tick does not wait
+// for (atomicAdd with the old value unused: nothing else in a launch reads
+// the histogram, so the sum is the plain read-modify-write's).
+template <bool STAMPED>
+struct Tally {
+  static constexpr uint32_t kLiveEvents =
+      ((1u << kEvents) - 1) & ~((1u << kEvCorrupt) | (1u << kEvPartCut) | (1u << kEvPartHeal));
+  static constexpr uint32_t kLiveClasses =
+      (1u << kClDrop) | (1u << kClDup) | (STAMPED ? 1u << kClDelay : 0u);
+  int32_t ev[kEvents] = {}, cursor = 0, seq = 0, inj[kClasses] = {}, eff[kClasses] = {},
+          new_bits = 0;
+
+  // Between the registers and global memory (load: at the launch's start).
+  __device__ __forceinline__ void move(const Obs& o, int64_t n, int64_t i, bool load) {
+    const auto mv = [&](int32_t& r, int32_t* g) {
+      if (load) r = g[i];
+      else g[i] = r;
+    };
+    if (o.tel()) {
+#pragma unroll
+      for (int e = 0; e < kEvents; ++e)
+        if ((kLiveEvents >> e) & 1u) mv(ev[e], o.p[kTelCounters] + e * n);
+      if (o.ring_depth > 0) {
+        mv(cursor, o.p[kTelCursor]);
+        mv(seq, o.p[kTelSeq]);
+      }
+    }
+    if (o.exp()) {
+#pragma unroll
+      for (int c = 0; c < kClasses; ++c) {
+        if (!((kLiveClasses >> c) & 1u)) continue;
+        mv(inj[c], o.p[kExpInjected] + c * n);
+        mv(eff[c], o.p[kExpEffective] + c * n);
+      }
+    }
+    if (o.cov()) mv(new_bits, o.p[kCovNewBits]);
+  }
+
+  // telemetry.record (telemetry below) into the registers.
+  __device__ __forceinline__ void telemetry(const Obs& o, int32_t tick, const int (&c)[kEvents],
+                                            int64_t n, int64_t i) {
+    int32_t word_bits = 0;
+#pragma unroll
+    for (int e = 0; e < kEvents; ++e) {
+      if ((kLiveEvents >> e) & 1u) ev[e] = wrap_add(ev[e], c[e]);
+      word_bits |= (c[e] > 0 ? 1 : 0) << e;
+    }
+    if (o.ring_depth > 0 && word_bits != 0) {
+      if (cursor >= 0 && cursor < o.ring_depth)
+        o.p[kTelRing][static_cast<int64_t>(cursor) * n + i] =
+            (word_bits << kEventShift) | (tick & ((1 << kEventShift) - 1));
+      cursor = cursor + 1 >= o.ring_depth ? 0 : cursor + 1;
+      seq = wrap_add(seq, 1);
+    }
+    if (o.tel_bins > 0 && c[kEvDecide] != 0) {
+      const int32_t b = min(tick >> 3, o.tel_bins - 1);  // tick // kHistTicksPerBin, floored
+      atomicAdd(o.p[kTelHist] + static_cast<int64_t>(b) * n + i, c[kEvDecide]);
+    }
+  }
+
+  // exposure.record into the registers.
+  __device__ __forceinline__ void exposure(const int (&in)[kClasses], const int (&ef)[kClasses]) {
+#pragma unroll
+    for (int c = 0; c < kClasses; ++c) {
+      if (!((kLiveClasses >> c) & 1u)) continue;
+      inj[c] = wrap_add(inj[c], in[c]);
+      eff[c] = wrap_add(eff[c], ef[c]);
+    }
+  }
+};
 
 // telemetry.record: the tick's event counts into the counters, one ring
 // word where any event happened (the OR of their bits with the tick), the
@@ -1345,53 +1455,65 @@ __device__ __forceinline__ bool margin(const Column<B>& col, QuorumOf quorum_of,
 // (`chosen0`) and after (`chosen`) the tick, the acceptors' post-tick
 // promise fence and, as its slack partner, each acceptor's highest
 // accepted ballot over its log (from row LOG_ROW, (A, LOG)); honest
-// acceptors: bit a of `honest`.
-template <int P, int R0, int LOG, int K, int A, int LT_BV, int LT_MASK, int CHOSEN_VAL,
-          int LOG_ROW, int B>
+// acceptors: bit a of `honest`; the four minima at rows MAR to MAR + 3.
+// A minimum takes a value it has taken before at no change, so the walk
+// visits only the slots whose table rows or chosen bit the tick changed
+// (bit l of `slots`; every slot at a launch's start): the others' quorum
+// slack went into the minimum when they last changed, and only a changed
+// slot can be newly chosen; the near split, counted every tick, is kept a
+// bit a slot (`near_slots`).  The promise slack is taken over the
+// acceptors whose promise or log the tick changed (bit a of `dirty`) only.
+template <int LOG, int K, int A, int LT_BV, int LT_MASK, int CHOSEN_VAL, int LOG_ROW, int MAR, int B>
 __device__ __forceinline__ void mp_margin(const Column<B>& col, uint32_t chosen, uint32_t chosen0,
                                           const int32_t (&promised)[A], uint32_t honest,
-                                          int quorum) {
-  using Rw = Rows<P>;
-  int32_t tick_slack = kSentinel, tick_gap = kSentinel;
-  bool near = false;
-#pragma unroll 1
-  for (int l = 0; l < LOG; ++l) {
-    const bool ch = (chosen >> l) & 1u;
-    const int32_t cv = col[CHOSEN_VAL + l];
-    const uint32_t masks = static_cast<uint32_t>(col[LT_MASK + l]);
-    int32_t vmin = kSentinel, vmax = 0, win_bal = 0, rival_bal = 0;
-    int hot = 0;
+                                          int quorum, uint32_t slots, uint32_t& near_slots,
+                                          uint32_t dirty) {
+  if (slots != 0) {
+    int32_t tick_slack = kSentinel, tick_gap = kSentinel;
+    for (uint32_t m = slots; m != 0; m &= m - 1) {
+      const int l = __ffs(m) - 1;
+      const bool ch = (chosen >> l) & 1u;
+      const int32_t cv = col[CHOSEN_VAL + l];
+      const uint32_t masks = static_cast<uint32_t>(col[LT_MASK + l]);
+      int32_t vmin = kSentinel, vmax = 0, win_bal = 0, rival_bal = 0;
+      int hot = 0;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int32_t bv = col[LT_BV + l * K + k];
-      const int32_t bal = bv >> 16, val = bv & 0xFFFF;
-      const int votes = __popc((masks >> (8 * k)) & 0xFFu);
-      const bool live = bv > 0;
-      if (live && ch && val != cv) tick_slack = min(tick_slack, max(quorum - votes, 0));
-      if (live && votes >= quorum - 1) {
-        ++hot;
-        vmin = min(vmin, val);
-        vmax = max(vmax, val);
+      for (int k = 0; k < K; ++k) {
+        const int32_t bv = col[LT_BV + l * K + k];
+        const int32_t bal = bv >> 16, val = bv & 0xFFFF;
+        const int votes = __popc((masks >> (8 * k)) & 0xFFu);
+        const bool live = bv > 0;
+        if (live && ch && val != cv) tick_slack = min(tick_slack, max(quorum - votes, 0));
+        if (live && votes >= quorum - 1) {
+          ++hot;
+          vmin = min(vmin, val);
+          vmax = max(vmax, val);
+        }
+        const bool win = votes >= quorum && live && val == cv;
+        if (win) win_bal = max(win_bal, bal);
+        if (live && !win) rival_bal = max(rival_bal, bal);
       }
-      const bool win = votes >= quorum && live && val == cv;
-      if (win) win_bal = max(win_bal, bal);
-      if (live && !win) rival_bal = max(rival_bal, bal);
+      near_slots = (near_slots & ~(1u << l)) | ((hot >= 2 && vmin != vmax ? 1u : 0u) << l);
+      if (ch && !((chosen0 >> l) & 1u) && rival_bal > 0)
+        tick_gap = min(tick_gap, max(wrap_add(win_bal, -rival_bal), 0));
     }
-    near = near || (hot >= 2 && vmin != vmax);
-    if (ch && !((chosen0 >> l) & 1u) && rival_bal > 0)
-      tick_gap = min(tick_gap, max(wrap_add(win_bal, -rival_bal), 0));
+    col[MAR] = min(col[MAR], tick_slack);
+    col[MAR + 2] = min(col[MAR + 2], tick_gap);
   }
-  col[R0 + Rw::kMar] = min(col[R0 + Rw::kMar], tick_slack);
-  if (near) col[R0 + Rw::kMar + 1] = wrap_add(col[R0 + Rw::kMar + 1], 1);
-  col[R0 + Rw::kMar + 2] = min(col[R0 + Rw::kMar + 2], tick_gap);
+  if (near_slots != 0) col[MAR + 1] = wrap_add(col[MAR + 1], 1);
+  dirty &= honest;
+  if (dirty == 0) return;
   int32_t pslack = kSentinel;
-#pragma unroll 1
+  // (Unrolled: a runtime index into `promised` would move it to local memory.)
+#pragma unroll
   for (int a = 0; a < A; ++a) {
+    if (!((dirty >> a) & 1u)) continue;
     int32_t top = kInt32Min;
+#pragma unroll
     for (int l = 0; l < LOG; ++l) top = max(top, col[LOG_ROW + a * LOG + l] >> 16);
-    if (((honest >> a) & 1u) && top > 0) pslack = min(pslack, wrap_add(promised[a], -top));
+    if (top > 0) pslack = min(pslack, wrap_add(promised[a], -top));
   }
-  col[R0 + Rw::kMar + 3] = min(col[R0 + Rw::kMar + 3], pslack);
+  col[MAR + 3] = min(col[MAR + 3], pslack);
 }
 
 // workload.observe for each proposer p: serve first (bit p of `serve`, the
@@ -1438,6 +1560,71 @@ __device__ __forceinline__ void workload(const Column<B>& col, const Obs& o, con
       if (depth < cap) {
         const int32_t slot = head + depth >= cap ? head + depth - cap : head + depth;
         if (slot >= 0 && slot < cap) o.p[kWlRing][(static_cast<int64_t>(slot) * P + p) * n + i] = tick;
+        depth += 1;
+      } else {
+        f(7) = wrap_add(f(7), 1);
+      }
+    }
+    f(2) = head;
+    f(3) = depth;
+    f(4) = max(f(4), depth);
+  }
+}
+
+// A hint that brings the line holding `p` into L2, taking no register and
+// waiting for nothing (a no-op outside device code).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+#endif
+}
+
+// workload in K5's observed tick, its global-memory reads off the tick's
+// chain: a served request's latency bin takes an add whose result the tick
+// does not wait for (atomicAdd with the old value unused: nothing else in a
+// launch reads the histogram, so the sum is the plain read-modify-write's),
+// the next head's stamp is asked of L2 as the head passes a served one, and
+// the bin is a leading-zero count.  The queue's fields sit in the column
+// from row WL_ROW (field f of proposer p at WL_ROW + f * P + p).
+template <int P, int WL_ROW, uint32_t ARRIVAL, int B>
+__device__ __forceinline__ void mp_workload(const Column<B>& col, const Obs& o,
+                                            const TickStream& ts, int32_t tick, uint32_t serve,
+                                            int64_t n, int64_t i) {
+  const int cap = o.wl_cap;
+#pragma unroll 1
+  for (int p = 0; p < P; ++p) {
+    const auto f = [&](int field) -> int32_t& { return col[WL_ROW + field * P + p]; };
+    const auto ring = [&](int32_t slot) {
+      return o.p[kWlRing] + (static_cast<int64_t>(slot) * P + p) * n + i;
+    };
+    const int32_t mode = f(0);
+    int32_t head = f(2), depth = f(3);
+    if (((serve >> p) & 1u) && depth > 0) {
+      const int32_t stamp = head >= 0 && head < cap ? *ring(head) : 0;
+      const int32_t latency = wrap_add(tick, -stamp);
+      // #{k in [1, bins): latency >= 2^k}
+      const int32_t bucket = latency > 0 ? min(31 - __clz(latency), o.wl_bins - 1) : 0;
+      if (mode >= 0 && mode < kWlClasses)
+        atomicAdd(o.p[kWlHist] + static_cast<int64_t>(mode * o.wl_bins + bucket) * n + i, 1);
+      head = head + 1 >= cap ? head + 1 - cap : head + 1;
+      depth -= 1;
+      f(6) = wrap_add(f(6), 1);
+      if (depth > 0 && head >= 0 && head < cap) prefetch_l2(ring(head));
+    }
+    // arrival_threshold: the class's uint32 threshold at this tick.
+    const int32_t pos = floor_mod(wrap_add(tick, f(1)), o.wl_period);
+    uint32_t thr = o.wl_t_lo;
+    if (mode == 1 && pos < o.wl_burst_len) thr = o.wl_t_hi;
+    if (mode == 2) {
+      const int32_t tri = min(pos, o.wl_period - pos);
+      thr = o.wl_t_lo + static_cast<uint32_t>(o.wl_step) * static_cast<uint32_t>(tri);
+    }
+    const bool arrival = ts.bits(ARRIVAL, p) < thr;
+    if (arrival) {
+      f(5) = wrap_add(f(5), 1);
+      if (depth < cap) {
+        const int32_t slot = head + depth >= cap ? head + depth - cap : head + depth;
+        if (slot >= 0 && slot < cap) *ring(slot) = tick;
         depth += 1;
       } else {
         f(7) = wrap_add(f(7), 1);
@@ -1497,6 +1684,52 @@ __device__ __forceinline__ void coverage(const Column<B>& col, const Obs& o, uin
   }
   if (newly != 0) col[R0 + Rw::kNewBits] = wrap_add(col[R0 + Rw::kNewBits], newly);
 }
+
+// coverage.observe with the bitmap's read-modify-write off the tick's chain
+// (K5; K1 to K4 call coverage above): `start` computes a tick's two Bloom
+// positions and asks L2 for their words, `load` (at the next tick's start)
+// loads them, and `finish` (at the next tick's insert, or after a launch's
+// last tick) ors the bits in, writing each changed word once, both
+// positions' bits at once where they share a word, and returns the bits
+// newly set, each counted once, as the plain tick's or of both bits counts
+// them.  Exact: nothing else in a launch reads or writes a lane's bitmap,
+// and a tick's words are loaded after the previous insert's stores.
+struct DeferredCoverage {
+  uint32_t pos[2], old[2];
+  bool pending = false;
+
+  __device__ __forceinline__ int32_t* word(const Obs& o, int j, int64_t n, int64_t i) const {
+    return o.p[kCovBitmap] + static_cast<int64_t>(pos[j] >> 5) * n + i;
+  }
+  __device__ __forceinline__ void start(const Obs& o, uint32_t digest, int64_t n, int64_t i) {
+    const uint32_t m = 32u * static_cast<uint32_t>(o.cov_words);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      pos[j] = hash_pos(digest, j, m);
+      prefetch_l2(word(o, j, n, i));
+    }
+    pending = true;
+  }
+  __device__ __forceinline__ void load(const Obs& o, int64_t n, int64_t i) {
+    if (!pending) return;
+    old[0] = static_cast<uint32_t>(*word(o, 0, n, i));
+    old[1] = static_cast<uint32_t>(*word(o, 1, n, i));
+  }
+  __device__ __forceinline__ int finish(const Obs& o, int64_t n, int64_t i) {
+    if (!pending) return 0;
+    pending = false;
+    const uint32_t bit0 = 1u << (pos[0] & 31u), bit1 = 1u << (pos[1] & 31u);
+    if ((pos[0] >> 5) == (pos[1] >> 5)) {
+      const uint32_t now = old[0] | bit0 | bit1;
+      if (now != old[0]) *word(o, 0, n, i) = static_cast<int32_t>(now);
+      return __popc(now ^ old[0]);
+    }
+    const uint32_t now0 = old[0] | bit0, now1 = old[1] | bit1;
+    if (now0 != old[0]) *word(o, 0, n, i) = static_cast<int32_t>(now0);
+    if (now1 != old[1]) *word(o, 1, n, i) = static_cast<int32_t>(now1);
+    return (now0 != old[0] ? 1 : 0) + (now1 != old[1] ? 1 : 0);
+  }
+};
 
 
 // The exposure plane's draws of a tick, made at its start where `on` (an

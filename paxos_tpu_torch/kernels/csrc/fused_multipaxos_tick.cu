@@ -109,11 +109,8 @@
 // The observer planes (telemetry, coverage, exposure, margin, the client
 // workload) compile into observed instantiations of their own (OBS, at
 // (2,5,8,4), without and with the stamps and the arms), as K1's to K4's:
-// the kernel takes an obs::Obs after the Gray (if any), keeps the planes'
-// counters in the lane's column after the staged rows (obs::Rows; with
-// the PROMISE payloads staged, 241 words, 281 stamped, 2 blocks of 96 lanes
-// an SM: fused_tick.MP_STAGING), draws
-// exposure's whole masks at the tick's start with Multi-Paxos' stream ids
+// the kernel takes an obs::Obs after the Gray (if any), draws exposure's
+// whole masks at the tick's start with Multi-Paxos' stream ids
 // (obs::predraw over MpStreams: four send kinds, requests-only
 // duplication) and reads them at the lazy sites.  What is Multi-Paxos' own:
 // the margin runs over the (L, K) learner table (obs::mp_margin) with each
@@ -121,16 +118,36 @@
 // partner; a timeout is a candidacy failure; a committed log slot serves a
 // client request; and the coverage digest folds the whole lane (the log,
 // the recovery rows, three buffers with the PROMISE payloads, `base`) in the
-// reference's leaf order, 296 words a tick (336 stamped).  The other
-// instantiations call the sd:: sites directly, as before the planes.  The
-// long log's observed instantiation (at (2,5,16,4), no arms or stamps)
-// is the same code at LOG 16: its column (433 words with the counters and
-// the PROMISE payloads; fused_tick.MP_STAGING) takes 2 blocks of 64 lanes,
-// 4 warps an SM (leaving the payloads in global memory, 273 words at 96
-// lanes, ran the chunk 1.5 times as long: the digest folds 432 words a
-// tick, 160 of them payloads).  Every plane
-// value is loaded at a launch's start and stored at its end, so the
-// compaction between chunks (which shifts the window) sees them all.
+// reference's leaf order, 296 words a tick (336 stamped, 432 at LOG 16).  The
+// other instantiations call the sd:: sites directly, as before the planes.
+// The long log's observed instantiation (at (2,5,16,4), no arms or stamps)
+// is the same code at LOG 16.
+//
+// An observed tick runs at the occupancy its column allows (2 blocks of 64
+// to 128 lanes an SM, one to two warps a scheduler), where nothing hides a
+// latency, so its planes keep off the tick's chain what they can, each
+// exactly as the plain tick computes it:
+//  - the digest folds batches of column words loaded ahead (fold_words),
+//    so the FNV chain, which cannot be split, waits on its multiplies only;
+//  - the coverage insert completes a tick late (obs::DeferredCoverage): a
+//    tick asks L2 for its two bitmap words, the next one loads them at its
+//    start and ors its bits in at its own insert, one write where both
+//    fall in one word, the launch's last after its loop;
+//  - the counters stay in registers for the launch (obs::Tally; with the
+//    arms, which leave no registers for them, in the column, obs::Rows),
+//    the margins and the client queue in the column (obs::MpRows), and
+//    the client queue's histogram and ring reads wait for no DRAM round
+//    trip on a serve (obs::mp_workload);
+//  - the margin visits only the slots of the learner table that the tick
+//    changed (those an event of the fold hit), and takes the promise slack
+//    over the acceptors whose promise or log changed.
+// The PROMISE payloads are staged, since the digest reads them every tick:
+// config3's key (212 words) takes 2 blocks of 128 lanes, with the arms or
+// the stamps (241 to 281 words) 2 of 96, the long log's (404) 2 of 64
+// (fused_tick.MP_STAGING).  Every plane value is loaded at a launch's start
+// and stored at its end, so the compaction between chunks (which shifts
+// the window) sees them all; the phase-clock build splits the planes into
+// their counters, the margin, the digest and the insert.
 //
 // The ablated builds (-DFUSED_ABLATE, fused_common.cuh) instantiate
 // config3's key only and remove their components where the tick runs
@@ -172,10 +189,21 @@ struct MpStreams {
   static constexpr int dup_bufs = 1;
 };
 
-// The tick's phases in order, as the phase-clock build splits a lane's
-// cycles (fused_tick.PHASES["multipaxos"]).
+// The tick's phases in order, each with its name in the phase-clock build's
+// split of a lane's cycles (fused_tick.PHASES["multipaxos"]): an observed
+// tick's planes take the four before the store.
 enum Phase {
-  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhProposer, kPhObs, kPhStore,
+  kPhLoad,      // column load
+  kPhDeliver,   // reply delivery
+  kPhFold,      // proposer fold
+  kPhAcceptor,  // acceptor half-tick
+  kPhLearner,   // learner
+  kPhProposer,  // proposer half-tick
+  kPhCounters,  // observer counters
+  kPhMargin,    // margin
+  kPhDigest,    // digest
+  kPhCoverage,  // coverage insert
+  kPhStore,     // column store
   kPhases,
 };
 
@@ -400,6 +428,32 @@ __device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves
   }
 }
 
+// The coverage digest's fold of N consecutive words, word(0) to word(N - 1)
+// (column rows, or a leaf's rows in global memory), in order: each batch of
+// words is loaded while the one before it folds, so the FNV chain waits on
+// its own multiplies and not on a load a word (one warp a scheduler hides
+// no latency at the observed instantiations' occupancy).
+template <int N, typename Word>
+__device__ __forceinline__ void fold_words(obs::Digest& d, Word word) {
+  constexpr int kBatch = N % 16 == 0 ? 16 : N % 10 == 0 ? 10 : N % 8 == 0 ? 8 : 1;
+  int32_t w[kBatch];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) w[k] = word(k);
+#pragma unroll 1
+  for (int r = kBatch; r < N; r += kBatch) {
+    int32_t next[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) next[k] = word(r + k);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      d.fold(w[k]);
+      w[k] = next[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) d.fold(w[k]);
+}
+
 // The kernel; `Arms` is empty for the default instantiations, whose
 // signature and code are those of K5 without the arms, a `Gray` for the
 // arms instantiations (ARMS), which take the arms' knobs and plan leaves,
@@ -416,7 +470,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = Staged<P, A, LOG, K, STAMPED, PROM>;
-  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
+  // The planes' counters (OBS): in registers for the launch (obs::Tally),
+  // the margins and the client queue in the column (obs::MpRows), but with
+  // the arms, which leave no registers for them, all in the column
+  // (obs::Rows), from row R0.
+  constexpr bool TALLY = !ARMS;
+  using CR = std::conditional_t<TALLY, obs::MpRows<P>, obs::Rows<P>>;
+  constexpr int R0 = G::kRows;
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kMpStampedLeaves : kMpLeaves;
   constexpr int S = 2 * P * A;  // request slots, index (kind * P + p) * A + a
@@ -425,7 +485,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   static_assert(S <= 32 && LOG <= 32 && K <= 32, "bitmasks must fit 32 bits");
   static_assert(!OBS || 4 * E <= 64, "exposure's drop draws fit 64 bits");
   constexpr uint32_t kAccs = (1u << A) - 1;
-  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and the counters)
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and CR::kRows)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
@@ -435,7 +495,21 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   if constexpr (ablated(kNoPrng)) prm.idle.mode = prm.hold.mode = prm.dup.mode = prm.drop.mode = 0;
   const Column<B> col{smem + threadIdx.x};
   load_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
-  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, true);
+  obs::Tally<STAMPED> tally;
+  if constexpr (OBS && TALLY) {
+    obs::move_mp_rows<P, R0>(col, ob, n, i, true);
+    tally.move(ob, n, i, true);
+  } else if constexpr (OBS) {
+    obs::move_counters<P, R0>(col, ob, n, i, true);
+  }
+  // Coverage's new bits, into the register or the column row.
+  const auto add_new_bits = [&](int newly) {
+    if constexpr (TALLY) {
+      tally.new_bits = wrap_add(tally.new_bits, newly);
+    } else if (newly != 0) {
+      col[R0 + CR::kNewBits] = wrap_add(col[R0 + CR::kNewBits], newly);
+    }
+  };
   auto prom_bv = [&](int row) -> int32_t& {
     return prom_word<P, A, LOG, K, B, STAMPED, PROM>(col, L, row, n, i);
   };
@@ -505,8 +579,12 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   clk.mark(kPhLoad);
 
   DrawCount draws;
+  obs::DeferredCoverage cov;  // the coverage insert in flight (OBS)
+  uint32_t near_slots = 0;    // bit l: slot l is a near split (OBS, obs::mp_margin)
   for (int t = 0; t < prm.n_ticks; ++t) {
     const int32_t tick = wrap_add(tick0, t);
+    // The words of the previous tick's insert, loaded while this tick runs.
+    if constexpr (OBS) cov.load(ob, n, i);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
     // What the planes read of the pre-tick state (OBS).
@@ -592,12 +670,17 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       }
     }
 
+    // The acceptors whose promise or log this tick changes, for the
+    // margin's promise slack (OBS; all at a launch's first tick).
+    uint32_t acc_dirty = t == 0 ? kAccs : 0u;
+
     // ---- Stale-snapshot recovery or amnesia of promised and the slot log
     //      (the column's rows), before the acceptor half-tick. ----
     sd::recover_with<ARMS, A>(
         gray, tick, crash_end,
         [&](int a) {
           draws.touch(2 * LOG);  // the log's shadow, read into the log
+          if constexpr (OBS) acc_dirty |= 1u << a;
           promised[a] = at<int32_t>(L, SNAP, a, n, i);
 #pragma unroll 1
           for (int l = 0; l < LOG; ++l)
@@ -612,6 +695,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         },
         [&](int a) {
           draws.touch(LOG);
+          if constexpr (OBS) acc_dirty |= 1u << a;
           promised[a] = 0;
 #pragma unroll 1
           for (int l = 0; l < LOG; ++l) col[G::kLog + a * LOG + l] = 0;
@@ -706,7 +790,9 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         }
       }
       if (ok_acc && ms >= 0 && ms < LOG) {
-        col[G::kLog + a * LOG + ms] = pack_bv(mb, mv);
+        const int32_t bv = pack_bv(mb, mv);
+        if constexpr (OBS) acc_dirty |= (col[G::kLog + a * LOG + ms] != bv ? 1u : 0u) << a;
+        col[G::kLog + a * LOG + ms] = bv;
         draws.touch(1);
       }
       // Consume the selected request unless it is duplicated (on a flaky
@@ -723,7 +809,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
           n_drop += (ok_prep && !keep_prom ? 1 : 0) + (ok_acc && !keep_accd ? 1 : 0);
         }
       }
-      if constexpr (OBS) prom_m |= (ok_prep ? 1u : 0u) << a;
+      if constexpr (OBS) {
+        prom_m |= (ok_prep ? 1u : 0u) << a;
+        acc_dirty |= (pr != promised[a] ? 1u : 0u) << a;
+      }
       promised[a] = pr;
       ev_flag |= (ok_acc ? 1u : 0u) << a;
       ev_bal[a] = mb;
@@ -967,8 +1056,9 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     }
     clk.mark(kPhProposer);
 
-    // ---- The observer planes (OBS), from the tick's events, in the plain
-    //      tick's order: telemetry, exposure, margin, workload, coverage. ----
+    // ---- The observer planes (OBS), from the tick's events: the counters
+    //      (telemetry, exposure, the client workload), the margin, the
+    //      coverage digest and its insert, each plane's writes its own. ----
     if constexpr (OBS) {
       ev[obs::kEvPromise] = __popc(prom_m);
       ev[obs::kEvAccept] = __popc(ev_flag);
@@ -984,28 +1074,38 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       eff[obs::kClCorrupt] = __popc(corrupt_m);
       if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(fail_m ^ plain_fail);
       obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
-      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
-      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
-      if (ob.mar()) {
-        obs::mp_margin<P, R0, LOG, K, A, G::kLtBv, G::kLtMask, G::kChosenVal, G::kLog>(
-            col, chosen, chosen0, promised, ~equiv & kAccs, kQuorum);
+      if constexpr (TALLY) {
+        if (ob.tel()) tally.telemetry(ob, tick, ev, n, i);
+        if (ob.exp()) tally.exposure(inj, eff);
+      } else {
+        if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
+        if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
       }
-      if (ob.wl()) obs::workload<P, R0, kMpArrival>(col, ob, ts, tick, serve_m, n, i);
+      if (ob.wl()) obs::mp_workload<P, R0 + CR::kWl, kMpArrival>(col, ob, ts, tick, serve_m, n, i);
+      clk.mark(kPhCounters);
+      // The learner table and the chosen slots change only at the slots an
+      // event of the fold hit.
+      if (ob.mar()) {
+        uint32_t slots = t == 0 ? (LOG == 32 ? ~0u : (1u << LOG) - 1) : 0u;
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+          if ((fold >> a) & 1u) slots |= 1u << ev_slot[a];
+        obs::mp_margin<LOG, K, A, G::kLtBv, G::kLtMask, G::kChosenVal, G::kLog, R0 + CR::kMar>(
+            col, chosen, chosen0, promised, ~equiv & kAccs, kQuorum, slots, near_slots, acc_dirty);
+      }
+      clk.mark(kPhMargin);
+      obs::Digest d;
       if (ob.cov()) {
         // The coverage digest of the lane's state (obs/coverage.py
         // digest_tree: the acceptors with their shadows, the proposers with
         // their recovery rows, the three buffers with their stamps, base),
         // in the reference's leaf and row order.
-        obs::Digest d;
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(promised[a]);
-#pragma unroll 1
-        for (int r = 0; r < A * LOG; ++r) d.fold(col[G::kLog + r]);
+        fold_words<A * LOG>(d, [&](int r) { return col[G::kLog + r]; });
         if (ob.snaps) {
-#pragma unroll 1
-          for (int a = 0; a < A; ++a) d.fold(at<int32_t>(L, SNAP, a, n, i));
-#pragma unroll 1
-          for (int r = 0; r < A * LOG; ++r) d.fold(at<int32_t>(L, SNAP + 1, r, n, i));
+          fold_words<A>(d, [&](int a) { return at<int32_t>(L, SNAP, a, n, i); });
+          fold_words<A * LOG>(d, [&](int r) { return at<int32_t>(L, SNAP + 1, r, n, i); });
         }
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(bal[p]);
@@ -1015,8 +1115,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         for (int p = 0; p < P; ++p) d.fold(heard[p]);
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(commit_idx[p]);
-#pragma unroll 1
-        for (int r = 0; r < P * LOG; ++r) d.fold(col[G::kRecov + r]);
+        fold_words<P * LOG>(d, [&](int r) { return col[G::kRecov + r]; });
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(lease_timer[p]);
 #pragma unroll
@@ -1031,20 +1130,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         for (int j = 0; j < S; ++j) d.fold(rq_v2[j]);
 #pragma unroll 1
         for (int j = 0; j < S; ++j) d.fold((rq_present >> j) & 1u);
-        if constexpr (STAMPED) {
-#pragma unroll 1
-          for (int j = 0; j < S; ++j) d.fold(col[G::kRqUntil + j]);
-        }
+        if constexpr (STAMPED) fold_words<S>(d, [&](int j) { return col[G::kRqUntil + j]; });
 #pragma unroll 1
         for (int j = 0; j < E; ++j) d.fold((prom_present >> j) & 1u);
 #pragma unroll
         for (int j = 0; j < E; ++j) d.fold(prom_bal[j]);
-#pragma unroll 1
-        for (int r = 0; r < E * LOG; ++r) d.fold(prom_bv(r));
-        if constexpr (STAMPED) {
-#pragma unroll 1
-          for (int j = 0; j < E; ++j) d.fold(col[G::kPromUntil + j]);
-        }
+        fold_words<E * LOG>(d, prom_bv);
+        if constexpr (STAMPED) fold_words<E>(d, [&](int j) { return col[G::kPromUntil + j]; });
 #pragma unroll 1
         for (int j = 0; j < E; ++j) d.fold((accd_present >> j) & 1u);
 #pragma unroll
@@ -1053,23 +1145,35 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         for (int j = 0; j < E; ++j) d.fold(accd_slot[j]);
 #pragma unroll
         for (int j = 0; j < E; ++j) d.fold(accd_val[j]);
-        if constexpr (STAMPED) {
-#pragma unroll 1
-          for (int j = 0; j < E; ++j) d.fold(col[G::kAccdUntil + j]);
-        }
+        if constexpr (STAMPED) fold_words<E>(d, [&](int j) { return col[G::kAccdUntil + j]; });
         d.fold(base);
-        obs::coverage<P, R0>(col, ob, d.value(), n, i);
+      }
+      clk.mark(kPhDigest);
+      // The previous tick's insert completes, this tick's starts.
+      if (ob.cov()) {
+        add_new_bits(cov.finish(ob, n, i));
+        cov.start(ob, d.value(), n, i);
       }
       if (prm.clamp_per_tick) {
 #pragma unroll
         for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kMpBallotLimit);
       }
-      clk.mark(kPhObs);
+      clk.mark(kPhCoverage);
     }
   }
 
   draws.flush();
-  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
+  if constexpr (OBS) {
+    // The last tick's insert.
+    cov.load(ob, n, i);
+    add_new_bits(cov.finish(ob, n, i));
+    if constexpr (TALLY) {
+      tally.move(ob, n, i, false);
+      obs::move_mp_rows<P, R0>(col, ob, n, i, false);
+    } else {
+      obs::move_counters<P, R0>(col, ob, n, i, false);
+    }
+  }
 
   // ---- Store the register-resident state once. ----
 #pragma unroll
@@ -1117,7 +1221,9 @@ template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM, typename
 using InstWith = SmemInst<
     fused_multipaxos_kernel<P, A, LOG, K, STAMPED, B, PROM, Arms...>, B,
     (Staged<P, A, LOG, K, STAMPED, PROM>::kRows +
-     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+     (!has_arg<obs::Obs, Arms...> ? 0
+      : has_arg<Gray, Arms...>    ? obs::Rows<P>::kRows
+                                  : obs::MpRows<P>::kRows)) * B * 4>;
 template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, bool OBS, int B, bool PROM>
 struct InstOf {
   using type = InstWith<P, A, LOG, K, STAMPED, B, PROM>;
@@ -1149,7 +1255,7 @@ using Inst = typename InstOf<P, A, LOG, K, STAMPED, ARMS, OBS, B, PROM>::type;
   X(2, 5, 8, 4, 0, 1, 0, 128, true)    \
   X(2, 5, 8, 4, 1, 0, 0, 128, false)   \
   X(2, 5, 8, 4, 1, 1, 0, 128, false)   \
-  X(2, 5, 8, 4, 0, 0, 1, 96, true)     \
+  X(2, 5, 8, 4, 0, 0, 1, 128, true)    \
   X(2, 5, 8, 4, 0, 1, 1, 96, true)     \
   X(2, 5, 8, 4, 1, 0, 1, 96, true)     \
   X(2, 5, 8, 4, 1, 1, 1, 96, true)     \

@@ -36,14 +36,15 @@ delay stamps where the state carries them;
 their launch geometry per instantiation (lanes a CUDA block, staged rows,
 shared bytes) is ``MP_STAGING``, ``SP_STAGING`` and ``FR_STAGING``, which
 the kernels' instantiations mirror; the wrapper passes them the shared
-bytes.  :func:`phase_clocks` runs the phase-clock build of K1 to K4, which
+bytes.  :func:`phase_clocks` runs the phase-clock build of K1 to K5, which
 splits a lane's cycles by phase of the tick.
 
 Every fused kernel also computes the observer planes a state carries
 (telemetry, coverage, exposure, margin, the client workload), in observed
 instantiations of its own (the last field of its keys, ``observed``),
 which take the planes' leaves as a separate argument (:func:`_obs_args`)
-and keep their counters in the lane's column (:func:`obs_rows`).
+and keep their counters in the lane's column (:func:`obs_rows`; K5 keeps
+most of them in registers, :func:`mp_obs_rows`).
 
 :func:`fused_fns` binds a protocol's tick with components removed
 (``ABLATE_FLAGS``), the reference's ablation variants: the Paxos and
@@ -162,6 +163,16 @@ def obs_rows(n_prop: int) -> int:
     return 12 + 2 + 7 + 7 + 4 + 1 + 8 * n_prop
 
 
+def mp_obs_rows(shape: tuple) -> int:
+    """Words of a lane's column that K5's observed instantiation ``shape``
+    adds: without the arms the 4 margins and the client queue's 8 fields a
+    proposer (``obs::MpRows``), the other counters of :func:`obs_rows` in
+    registers for a launch (``obs::Tally``); with the arms, which leave no
+    registers for them, every one (:func:`obs_rows`)."""
+    n_prop, arms = shape[0], shape[5]
+    return obs_rows(n_prop) if arms else 4 + 8 * n_prop
+
+
 @dataclasses.dataclass(frozen=True)
 class MpStaging:
     """K5's launch geometry at one instantiation: ``threads`` lanes a CUDA
@@ -190,13 +201,16 @@ def mp_staged_rows(
     return rows + (n_prop * n_acc * log_len if stage_prom else 0)
 
 
-def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
+def _mp_staging(
+    shape: tuple, threads: int, stage_prom: bool, counter_rows: Callable = mp_obs_rows
+) -> MpStaging:
     # The key: (P, A, L, K, stamped, arms, observed); the arms add no row,
-    # the planes their counters (an older source's key, which chip_ab.py
-    # launches, may lack the observed flag).
+    # the planes their counter rows (an older source's key, which chip_ab.py
+    # launches, may lack the observed flag, and its column may hold every
+    # counter: counter_rows gives them for the key).
     rows = mp_staged_rows(*shape[:5], stage_prom)
     if len(shape) > 6 and shape[6]:
-        rows += obs_rows(shape[0])
+        rows += counter_rows(shape)
     return MpStaging(threads, stage_prom, rows, rows * 4 * threads)
 
 
@@ -212,20 +226,18 @@ def _mp_staging(shape: tuple, threads: int, stage_prom: bool) -> MpStaging:
 # warps), where staging everything (232 words) allows 2 blocks of 96 (6
 # warps; PERF.md §6 times both).  The arms instantiations keep their
 # default's column (the snapshot shadows stay in global memory).  The
-# observed instantiations add the planes' counters (obs_rows, 49 words): a
-# column with the payloads staged (241 words, 281 stamped) takes 1 block of
-# 128 or 2 of 96 (6 warps); without them (161, 201) 2 of 128 (8 warps), but
-# the digest then reads the 80 payload words from global memory every tick.
-# Staged at 96 x 2 the steady chunk ran 38.958 and 39.056 ms on
-# observed-multipaxos against 54.446 and 59.490 (128 x 2), and 52.901 and
-# 52.942 on observed-delaychaos-multipaxos against 70.212 and 71.975 (two
-# calls of chip_ab.py --planes, PERF.md section 6): every observed key at
-# (2, 5, 8, 4) takes 96 x 2 staged.  The long log's observed column is 273
-# words without the payloads (2 blocks of 96, 6 warps) and 433 with them
-# (2 blocks of 64, 4 warps); staged, observed-multipaxos-long's steady
-# chunk ran 92.261 and 92.313 ms against 146.798 and 140.030 unstaged
-# (one call of chip_ab.py --planes, PERF.md section 6): the digest's 160
-# payload reads a tick outweigh two warps, so it takes 64 x 2 staged.
+# observed instantiations add the planes' counter rows (mp_obs_rows: 20
+# words, the rest in registers; 49 with the arms) and stage the PROMISE
+# payloads, which the coverage digest folds every tick: config3's observed
+# key (212 words) takes 2 blocks of 128 (8 warps), whose steady chunk on
+# observed-multipaxos ran 22.573 and 22.511 ms against 29.985 and 29.737
+# at 96 x 2 and 25.265 and 26.171 at 128 x 2 with the payloads in global
+# memory (132 words; one call of chip_ab.py --planes, PERF.md section 6);
+# the others at (2, 5, 8, 4) (241 words with the arms, 252 stamped, 281
+# both) fit 2 blocks of 96 only.  The long log's observed column is 404
+# words (2 blocks of 64 lanes, 4 warps); without the payloads 244 words
+# (2 blocks of 96) ran 71.236 and 71.278 ms against 69.153 and 69.164
+# staged (the same call): it stays at 64 x 2 staged.
 MP_STAGING = {
     (2, 5, 8, 4, 0, 0, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
     (2, 5, 16, 4, 0, 0, 0): _mp_staging((2, 5, 16, 4, 0), 128, False),
@@ -235,6 +247,7 @@ MP_STAGING = {
     (2, 5, 8, 4, 1, 0, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
     (2, 5, 8, 4, 1, 1, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
     **{key: _mp_staging(key, 96, True) for key in KERNEL_SHAPES["multipaxos"] if key[6] and key[2] == 8},
+    (2, 5, 8, 4, 0, 0, 1): _mp_staging((2, 5, 8, 4, 0, 0, 1), 128, True),
     (2, 5, 16, 4, 0, 0, 1): _mp_staging((2, 5, 16, 4, 0, 0, 1), 64, True),
 }
 
@@ -595,11 +608,14 @@ def ballot_hoist_safe_ticks(protocol: str = "paxos") -> int:
 # elements it touches.
 COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
 # The phase-clock build: clock64() cycles per phase of the tick, in the
-# order of the kernel's ``Phase`` enum; its reader returns PHASE_SLOTS
-# counters (``kMaxPhases`` in csrc/fused_common.cuh), those past a kernel's
-# phases 0.
+# order of the kernel's ``Phase`` enum (K5's enum names each phase as
+# here); its reader returns PHASE_SLOTS counters (``kMaxPhases`` in
+# csrc/fused_common.cuh), those past a kernel's phases 0.  K5's observed
+# tick splits its planes into the counters (fault events, telemetry,
+# exposure, the client workload), the margin, the coverage digest and its
+# insert; K1 to K4 clock theirs as one phase.
 PHASE_CLOCKS = ("FUSED_PHASE_CLOCKS",)
-PHASE_SLOTS = 9
+PHASE_SLOTS = 11
 PHASES = {
     "paxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
@@ -619,7 +635,8 @@ PHASES = {
     ),
     "multipaxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick", "learner",
-        "proposer half-tick", "observers", "column store",
+        "proposer half-tick", "observer counters", "margin", "digest", "coverage insert",
+        "column store",
     ),
 }
 

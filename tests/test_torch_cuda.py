@@ -87,6 +87,7 @@ from chip_smoke import (
 from paxos_tpu_torch.harness import config as TC
 from paxos_tpu_torch.harness import run as trun
 from paxos_tpu_torch.kernels import fused_tick as tfused
+from paxos_tpu_torch.obs.coverage import CoverageConfig, _hash_pos, digest_tree, lane_digest
 from paxos_tpu_torch.protocols.multipaxos import compact_mp_body
 from paxos_tpu_torch.protocols.paxos import ABLATE_FLAGS
 
@@ -266,8 +267,9 @@ def test_multipaxos_refused_launch_raises(monkeypatch):
 @pytest.mark.cuda
 def test_multipaxos_geometry_fits_the_card():
     """Every geometry of K5 lets an SM hold 2 blocks: 8 warps (the most 255
-    registers a thread allow) at 128 lanes a block, 6 at 96 (the observed
-    columns, 241 and 281 words)."""
+    registers a thread allow) at 128 lanes a block (config3's observed
+    column too, 212 words), 6 at 96 (the other observed columns, 241 to 281
+    words), 4 at 64 (the long log's observed column, 404 words)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     for shape, staging in tfused.MP_STAGING.items():
@@ -1442,11 +1444,13 @@ def test_ablated_builds_refuse_other_keys():
 @pytest.mark.cuda
 def test_observed_multipaxos_long_matches_plain_on_cuda():
     """K5's observed long-log instantiation (2,5,16,4,0,0,1) against the
-    plain tick, observer leaves included, over three 64-tick chunks
-    compacted after each, on 16384 lanes; the planes-off kernel from the
-    same state gives the same protocol state; the per-tick clamp with a
-    block offset from near-limit ballots; the observers phase of the
-    phase-clock build runs; 2 blocks of 64 lanes an SM."""
+    plain tick, observer leaves included, after each of three 64-tick
+    chunks compacted after each (a launch's last coverage insert completes
+    at its end, before the compaction shifts the window), on 16384 lanes;
+    the planes-off kernel from the same state gives the same protocol
+    state; the per-tick clamp with a block offset from near-limit ballots;
+    every observer phase of the phase-clock build runs; 2 blocks of 64
+    lanes an SM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     key = (2, 5, 16, 4, 0, 0, 1)
@@ -1461,9 +1465,9 @@ def test_observed_multipaxos_long_matches_plain_on_cuda():
         plain = compact_mp_body(plain_chunk(cfg, plain, plan, 64, 256))[0]
         kern = compact_mp_body(wrapper(kern, cfg.seed, plan, cfg.fault, 64))[0]
         bare = compact_mp_body(wrapper(bare, cfg.seed, plan, cfg.fault, 64))[0]
-    torch.cuda.synchronize()
-    _assert_same(kern, plain)
-    _assert_same(without_planes(kern), bare)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+        _assert_same(without_planes(kern), bare)
     assert int(kern.base.max()) > 0 and int(kern.coverage.new_bits.sum()) > 0
     cfgc = main_config("observed-multipaxos-long", 4096, 13)
     plan = config_plan(cfgc, 13)
@@ -1479,6 +1483,76 @@ def test_observed_multipaxos_long_matches_plain_on_cuda():
     torch.cuda.synchronize()
     _assert_same(clocked, once)
     assert all(c > 0 for c in cycles.values())
+
+
+def _shared_word_lanes(state, words: int) -> int:
+    """Lanes whose coverage digest of ``state`` puts both Bloom bits in one
+    bitmap word of ``words``: K5 merges such an insert into one write."""
+    digest = lane_digest(digest_tree(state))
+    pos0, pos1 = (_hash_pos(digest, j, 32 * words) for j in range(2))
+    return int(((pos0 >> 5) == (pos1 >> 5)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [1, 64])
+def test_observed_multipaxos_shared_bloom_word_on_cuda(words):
+    """K5's coverage insert where a tick's two Bloom positions share a
+    bitmap word: on observed-multipaxos's config (every plane on) with 64
+    coverage words, its own, and with 1, where every insert shares one,
+    the plain ticks one at a time count the lane-ticks whose digest does
+    so (about one in 64 at 64 words, on 4096 lanes and 32 ticks), and the
+    kernel over the same ticks equals them byte for byte, the bitmap and
+    its new-bit count included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n, ticks = 4096, 32
+    wrapper, block = tfused.fused_multipaxos_chunk, tfused.BINDINGS["multipaxos"].block
+    cfg = dataclasses.replace(
+        main_config("observed-multipaxos", n, 29), coverage=CoverageConfig(words=words)
+    )
+    plan = config_plan(cfg, 29)
+    plain = path_state(cfg, "cuda")
+    kern = wrapper(plain.clone(), cfg.seed, plan, cfg.fault, ticks)
+    shared = 0
+    for _ in range(ticks):
+        plain = plain_chunk(cfg, plain, plan, 1, block)
+        shared += _shared_word_lanes(plain, words)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    assert shared == n * ticks if words == 1 else shared >= n * ticks // 128
+    assert int(kern.coverage.new_bits.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["observed-multipaxos", "observed-multipaxos-long"])
+def test_observed_multipaxos_deferred_insert_on_cuda(path):
+    """K5's coverage insert completes a tick late (the launch's last tick's
+    at its end): on 1000 lanes (a lane count no multiple of the 96 or 64
+    lanes a block), 24 one-tick launches, each followed by a 0-tick launch
+    that leaves the state as it was, and one 24-tick launch equal the plain
+    tick byte for byte, observer leaves included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    n, block, ticks = 1000, 200, 24
+    wrapper = tfused.fused_multipaxos_chunk
+    cfg = main_config(path, n, 17)
+    plan = config_plan(cfg, 17)
+    plain = path_state(cfg, "cuda")
+    assert n % tfused.BINDINGS["multipaxos"].staging[
+        tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault)].threads
+    once = wrapper(plain.clone(), cfg.seed, plan, cfg.fault, ticks, block=block)
+    ticked = plain.clone()
+    for _ in range(ticks):
+        ticked = wrapper(ticked, cfg.seed, plan, cfg.fault, 1, block=block)
+        before = ticked.clone()
+        tfused._launch("multipaxos", ticked, cfg.seed, plan, cfg.fault, 0, block, 0, False)
+        torch.cuda.synchronize()
+        _assert_same(ticked, before)
+    plain = plain_chunk(cfg, plain, plan, ticks, block)
+    torch.cuda.synchronize()
+    _assert_same(once, plain)
+    _assert_same(ticked, plain)
+    assert int(plain.coverage.new_bits.sum()) > 0
 
 
 @pytest.mark.cuda

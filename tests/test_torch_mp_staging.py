@@ -12,8 +12,9 @@ arms are an instantiation of their own at config3's shape, with its
 default's column, and so is the bounded-delay channel, whose 40 stamp
 words a lane join the column while the PROMISE payloads go to global
 memory, so that an SM still holds 2 blocks of 128 lanes; so are the
-observer planes, whose counters (``obs_rows``, 49 words) join the column,
-and at config3-long's shape too.
+observer planes, whose counter rows (``mp_obs_rows``: the margins and the
+client queue, 20 words, the other counters in registers; with the arms all
+49 of ``obs_rows``) join the column, and at config3-long's shape too.
 """
 
 import dataclasses
@@ -55,10 +56,10 @@ def test_staged_rows_match_the_state_leaves(shape, staging):
         tfused.MP_STAGED_LEAVES + (tfused.MP_STAMP_LEAVES if stamped else ())
         + ((tfused.MP_PROM_LEAF,) if staging.stage_prom else ())
     )
-    rows = sum(_rows(state, path) for path in leaves) + (tfused.obs_rows(n_prop) if observed else 0)
-    assert staging.rows == rows == (
-        tfused.mp_staged_rows(*shape[:5], staging.stage_prom) + observed * tfused.obs_rows(n_prop)
-    )
+    counters = tfused.mp_obs_rows(shape) if observed else 0
+    assert counters in (0, 4 + 8 * n_prop if not shape[5] else tfused.obs_rows(n_prop))
+    rows = sum(_rows(state, path) for path in leaves) + counters
+    assert staging.rows == rows == tfused.mp_staged_rows(*shape[:5], staging.stage_prom) + counters
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -70,7 +71,8 @@ def test_staged_rows_match_the_state_leaves(shape, staging):
 def test_every_instantiation_has_a_geometry():
     assert tuple(tfused.MP_STAGING) == tfused.KERNEL_SHAPES["multipaxos"]
     # The arms, the stamps and the planes: config3's shape only, each arms
-    # instantiation with its default's column; and the planes alone at
+    # instantiation with its default's column (observed, with every plane
+    # counter in it: no register is left for them); and the planes alone at
     # config3-long's.
     keys = [(s, r, o) for s in (0, 1) for r in (0, 1) for o in (0, 1)]
     assert [k for k in tfused.MP_STAGING if k[:4] != (2, 5, 8, 4)] == [
@@ -79,11 +81,10 @@ def test_every_instantiation_has_a_geometry():
     ]
     assert sorted(k[4:] for k in tfused.MP_STAGING if k[:4] == (2, 5, 8, 4)) == keys
     for stamped in (0, 1):
-        for observed in (0, 1):
-            assert (
-                tfused.MP_STAGING[(2, 5, 8, 4, stamped, 1, observed)]
-                == tfused.MP_STAGING[(2, 5, 8, 4, stamped, 0, observed)]
-            )
+        assert tfused.MP_STAGING[(2, 5, 8, 4, stamped, 1, 0)] == tfused.MP_STAGING[(2, 5, 8, 4, stamped, 0, 0)]
+        arms, bare = (tfused.MP_STAGING[(2, 5, 8, 4, stamped, r, 1)] for r in (1, 0))
+        assert arms.rows - bare.rows == tfused.obs_rows(2) - 20 == 29
+        assert arms.stage_prom and bare.stage_prom
 
 
 def test_stamped_geometry_keeps_two_blocks_an_sm():
@@ -103,20 +104,27 @@ def test_stamped_geometry_keeps_two_blocks_an_sm():
 
 
 def test_observed_geometry_keeps_two_blocks_an_sm():
-    """The observed columns add the planes' counters (49 words) to a column
-    with the PROMISE payloads staged: 241 words, 281 stamped, which 2 blocks
-    of 96 lanes an SM hold (2 of 128 would not fit)."""
+    """The observed columns add the planes' counter rows to a column with
+    the PROMISE payloads staged (which the coverage digest folds every
+    tick): config3's key 20 words, 212 in all, which 2 blocks of 128 lanes
+    an SM hold (8 warps: its chunk ran a quarter faster than at 2 blocks of
+    96, and faster than 2 of 128 with the payloads in global memory,
+    PERF.md section 6); with the arms every counter, 241 words, and
+    stamped 252 and 281 words, which 2 blocks of 96 hold and 2 of 128
+    would not."""
     sm_shared, reserved = 233_472, 1024
     for (stamped, arms), want in {
-        (0, 0): (96, True, 241), (0, 1): (96, True, 241),
-        (1, 0): (96, True, 281), (1, 1): (96, True, 281),
+        (0, 0): (128, True, 212), (0, 1): (96, True, 241),
+        (1, 0): (96, True, 252), (1, 1): (96, True, 281),
     }.items():
         st = tfused.MP_STAGING[(2, 5, 8, 4, stamped, arms, 1)]
         assert (st.threads, st.stage_prom, st.rows) == want
         assert st.smem_bytes == st.rows * 4 * st.threads
         assert 2 * (st.smem_bytes + reserved) <= sm_shared
-    staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 0, True) + tfused.obs_rows(2)
-    assert staged_all == 241 and 2 * (staged_all * 4 * 128 + reserved) > sm_shared
+        if st.threads == 96:
+            assert 2 * (st.rows * 4 * 128 + reserved) > sm_shared
+    staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 0, True) + tfused.mp_obs_rows((2, 5, 8, 4, 0, 0, 1))
+    assert staged_all == 212
 
 
 def _instances():

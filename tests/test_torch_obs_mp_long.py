@@ -37,12 +37,14 @@ SM_SHARED, RESERVED = 233_472, 1024  # an H100 SM's shared memory, a block's res
 
 
 def test_observed_long_log_geometry():
-    """433 words a lane: the log (80), the recovery rows (32), the learner
+    """404 words a lane: the log (80), the recovery rows (32), the learner
     table (64) and its packed voter masks (16), the chosen values and ticks
-    (32), the 160 PROMISE payload words and the planes' 49 counter words;
-    2 blocks of 64 lanes an SM (4 warps), where 96 lanes would fit one
-    block only.  Without the payloads (273 words) 2 blocks of 96 fit, the
-    geometry the card measured slower (PERF.md section 6)."""
+    (32), the 160 PROMISE payload words and the planes' 20 counter rows
+    (the margins and the client queue; the other counters live in
+    registers); 2 blocks of 64 lanes an SM (4 warps), where 96 lanes would
+    fit one block only.  Without the payloads (244 words) 2 blocks of 96
+    fit, but the digest then reads them from global memory every tick: the
+    card ran that geometry slower (PERF.md section 6)."""
     st = tfused.MP_STAGING[KEY]
     assert KEY in tfused.KERNEL_SHAPES["multipaxos"]
     state = MultiPaxosState.init(3, 2, 5, 16, 4)
@@ -57,15 +59,15 @@ def test_observed_long_log_geometry():
         "acceptor.log": 80, "proposer.recov_bv": 32, "learner.lt_bv": 64, "learner.lt_mask": 16,
         "learner.chosen_val": 16, "learner.chosen_tick": 16, "promises.p_bv": 160,
     }
-    staged = sum(words.values()) + tfused.obs_rows(2)
-    assert (st.threads, st.stage_prom, st.rows) == (64, True, staged) == (64, True, 433)
-    assert st.smem_bytes == 433 * 4 * 64 == 110_848 <= tfused.SMEM_PER_BLOCK_MAX
+    staged = sum(words.values()) + tfused.mp_obs_rows(KEY)
+    assert (st.threads, st.stage_prom, st.rows) == (64, True, staged) == (64, True, 404)
+    assert st.smem_bytes == 404 * 4 * 64 == 103_424 <= tfused.SMEM_PER_BLOCK_MAX
     assert 2 * (st.smem_bytes + RESERVED) <= SM_SHARED < 3 * (st.smem_bytes + RESERVED)
-    assert 2 * (433 * 4 * 96 + RESERVED) > SM_SHARED
+    assert 2 * (404 * 4 * 96 + RESERVED) > SM_SHARED
     unstaged = tfused._mp_staging(KEY, 96, False)
-    assert unstaged.rows == 273 and unstaged.smem_bytes == 104_832
+    assert unstaged.rows == 244 and unstaged.smem_bytes == 93_696
     assert 2 * (unstaged.smem_bytes + RESERVED) <= SM_SHARED
-    assert tfused._launch_dims(tfused.BINDINGS["multipaxos"], KEY) == KEY + (110_848,)
+    assert tfused._launch_dims(tfused.BINDINGS["multipaxos"], KEY) == KEY + (103_424,)
 
 
 def test_observed_long_log_path_keys_its_instantiation():

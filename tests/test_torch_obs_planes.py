@@ -288,6 +288,12 @@ def test_observed_column_rows_match_the_kernel():
     assert env["kEvents"] == len(ttel.EVENTS)
     rows = env["kEvents"] + 2 + 2 * env["kClasses"] + 4 + 1 + 8 * P
     assert tfused.obs_rows(P) == rows == 49
+    # K5 keeps the margins and the client queue in the column (obs::MpRows),
+    # the other counters in registers, but with the arms all of them.
+    mp_rows = re.search(r"struct MpRows \{(.*?)\};", common, re.S).group(1)
+    assert "kMar = 0, kWl = 4, kRows = kWl + 8 * P;" in mp_rows
+    assert tfused.mp_obs_rows((P, A, 8, 4, 0, 0, 1)) == 4 + 8 * P == 20
+    assert tfused.mp_obs_rows((P, A, 8, 4, 0, 1, 1)) == tfused.obs_rows(P)
     assert f"constexpr int kLeaves = {len(tfused.OBS_LEAVES)};" in common
     assert "constexpr int kParams = 13;" in common
     leaf_enum = re.search(r"enum Leaf \{(.*?)\};", common[common.index("namespace obs"):], re.S).group(1)
@@ -338,14 +344,16 @@ def test_observed_geometry_of_k1_k2_k3(protocol, rows):
 
 @pytest.mark.parametrize("protocol,head,rows,threads", [
     ("synchpaxos", (2, 5, 8), (153, 153, 193, 193), (128,) * 4),
-    ("multipaxos", (2, 5, 8, 4), (241, 241, 281, 281), (96,) * 4),
+    ("multipaxos", (2, 5, 8, 4), (212, 241, 252, 281), (128, 96, 96, 96)),
 ])
 def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
     """The observed instantiations of K4 and K5 (keys ending in
     ``observed``, at their (2,5,8) and (2,5,8,4) with and without the
-    stamps and the arms): their planes-off column plus ``obs_rows`` (K4 153
-    words, 193 stamped, as K1's, 2 blocks of 128; K5 241 and 281, the
-    PROMISE payloads staged, 2 blocks of 96); the wrapper keys a state with
+    stamps and the arms): their planes-off column plus the counter rows
+    (K4 ``obs_rows``: 153 words, 193 stamped, as K1's, 2 blocks of 128; K5
+    ``mp_obs_rows``, the PROMISE payloads staged: 212 words at 2 blocks of
+    128, 241 with the arms, 252 stamped and 281 with both at 2 blocks of
+    96); the wrapper keys a state with
     a plane to them and one without to the planes-off keys.  (K5's observed
     long-log key, the planes alone at (2,5,16,4), is
     tests/test_torch_obs_mp_long.py's.)"""
@@ -358,7 +366,8 @@ def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
     for key in observed:
         st = table[key]
         assert st.smem_bytes == st.rows * 4 * st.threads
-        assert st.rows == table[key[:-1] + (0,)].rows + tfused.obs_rows(2) + (
+        counters = tfused.mp_obs_rows(key) if protocol == "multipaxos" else tfused.obs_rows(2)
+        assert st.rows == table[key[:-1] + (0,)].rows + counters + (
             80 if protocol == "multipaxos" and key[-3] else 0  # the payloads K5 stamped leaves global
         )
         assert tfused._launch_dims(binding, key) == key + (st.smem_bytes,)
