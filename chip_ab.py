@@ -41,11 +41,14 @@ instantiations only, and a kernel without its bounded-delay channel its
 unstamped ones only, and a kernel without its observed instantiations its
 other ones, keyed without the flag (and its phase list without the
 observers phase; a kernel without a phase-clock build, K5 before it had
-one, no phase split).  A source whose instantiation table
-(``K1_INSTANCES`` to ``K3_INSTANCES``, ``K5_INSTANCES``) lists another
+one, no phase split; an observers phase that the source clocks whole, as
+K2, K4 and K5 did before they split it, whole).  A source whose
+instantiation table (``K1_INSTANCES`` to ``K5_INSTANCES``) lists another
 geometry than the wrapper's (lanes a block, blocks an SM, PROMISE payloads
-staged or not) is launched at its own (:func:`table_staging`), so that two
-geometries of one kernel compare in one call.  Prints the card's name and
+staged or not), or whose observed columns hold another count of counter
+rows (K2, K4 and K5 before they kept most counters in registers: 49), is
+launched at its own (:func:`table_staging`), so that two geometries of one
+kernel, or a parent and its redesign, compare in one call.  Prints the card's name and
 power limit, then as its last line one JSON object of every measurement.
 """
 
@@ -67,25 +70,29 @@ import chip_smoke as cs
 # which use_sources cuts down to what an older source reads.
 _WRAPPER = {}
 # The instantiation table of each kernel whose geometry a source may change.
-_TABLES = {"paxos": "K1", "fastpaxos": "K2", "raftcore": "K3", "multipaxos": "K5"}
+_TABLES = {"paxos": "K1", "fastpaxos": "K2", "raftcore": "K3", "synchpaxos": "K4", "multipaxos": "K5"}
 
 
 def table_staging(protocol: str, src: str, staging: dict) -> dict:
     """``staging`` (the wrapper's geometry of ``protocol``'s kernel) with
-    each instantiation at the lanes a block, blocks an SM (K1 to K3) or
+    each instantiation at the lanes a block, blocks an SM (K1 to K4) or
     PROMISE staging (K5) that the source's table lists, where the table has
     this commit's fields: ``X(P, A, K, STAMPED, ARMS, B, MIN_BLOCKS)``,
     K5's ``X(P, A, L, K, STAMPED, ARMS, B, PROM)`` (each with OBSERVED
-    after ARMS where the source has observed instantiations)."""
+    after ARMS where the source has observed instantiations), and the
+    counter rows of the source's observed columns."""
     from paxos_tpu_torch.kernels import fused_tick as tf
 
     found = re.search(rf"#define {_TABLES[protocol]}_INSTANCES\(X\)(.*?)\n\n", src, re.S)
     if found is None:
         return staging
     rows = re.findall(r"X\(([\w, ]+)\)", found.group(1))
-    # K5's observed column held every plane counter before it kept most of
-    # them in registers (obs::MpRows).
-    counter_rows = tf.mp_obs_rows if "obs::MpRows" in src else lambda key: tf.obs_rows(key[0])
+    # An observed column holds every plane counter unless the source keeps
+    # most of them in registers (obs::Tally: K5, K4 and K2 do).
+    if "obs::Tally" in src:
+        counter_rows = tf.tally_obs_rows
+    else:
+        counter_rows = lambda n_prop, arms=False: tf.obs_rows(n_prop)  # noqa: E731
     out = dict(staging)
     for row in rows:
         fields = [f.strip() for f in row.split(",")]
@@ -97,8 +104,10 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
         elif protocol != "multipaxos" and len(fields) in (7, 8):  # keys may end in `observed`
             n_key = len(fields) - 2
             key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])
-            if key in out:
-                out[key] = tf._fr_staging(protocol, key, threads, int(fields[n_key + 1]))
+            if key in out and protocol == "synchpaxos":
+                out[key] = tf._sp_staging(key, threads, int(fields[n_key + 1]), counter_rows)
+            elif key in out:
+                out[key] = tf._fr_staging(protocol, key, threads, int(fields[n_key + 1]), counter_rows)
     return out
 
 
@@ -169,22 +178,21 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
             tf.PHASES.pop(protocol, None)
 
 
-# K5's observers phase as its phase-clock build splits it.
-_OBSERVER_SPLIT = ("observer counters", "margin", "digest", "coverage insert")
-
-
 def source_phases(src: str, phases: tuple) -> tuple:
     """The phases a kernel source clocks: the names its ``Phase`` enum
     gives them (one comment an entry), or, where it names none, ``phases``
-    as it marks them (K5's observers phase whole where it had not split it;
-    no observers phase where it has none)."""
+    as it marks them (the observers phase of K2, K4 or K5 whole where the
+    source had not split it, ``fused_tick.OBSERVER_SPLIT``; no observers
+    phase where it has none)."""
+    from paxos_tpu_torch.kernels import fused_tick as tf
+
     body = re.search(r"enum Phase \{(.*?)\};", src, re.S)
     names = re.findall(r"kPh\w+,\s*// (.+)", body.group(1)) if body else []
     if names:
         return tuple(name.strip() for name in names)
     out = []
     for ph in phases:
-        ph = "observers" if ph in _OBSERVER_SPLIT else ph
+        ph = "observers" if ph in tf.OBSERVER_SPLIT else ph
         if (ph != "observers" or "kPhObs" in src) and ph not in out:
             out.append(ph)
     return tuple(out)

@@ -562,7 +562,7 @@ struct SmemInst {
 // between consecutive phase boundaries (its own cycles, which include the
 // time other warps hold the SM) and adds them to g_phase at the end; empty
 // in every other build.
-constexpr int kMaxPhases = 11;  // fused_tick.PHASE_SLOTS
+constexpr int kMaxPhases = 12;  // fused_tick.PHASE_SLOTS
 
 #ifdef FUSED_PHASE_CLOCKS
 // Read and cleared by fused_phase_clocks(): clock64() cycles per phase,
@@ -1216,12 +1216,13 @@ struct Rows {
 // between the phase and the head).
 __host__ __device__ constexpr int wl_column_leaf(int f) { return f < 2 ? kWlMode + f : kWlHead + f - 2; }
 
-// The counter rows K5's observed instantiations without the arms keep in
-// a lane's column (from R0): the 4 margins and the client queue's 8 fields
-// a proposer (field f of proposer p at kWl + f * P + p); their telemetry,
-// exposure and coverage counters live in registers (Tally).
+// The counter rows the observed instantiations of K4 and K2, and K5's
+// without the arms, keep in a lane's column (from R0;
+// fused_tick.tally_obs_rows): the 4 margins and the client queue's 8
+// fields a proposer (field f of proposer p at kWl + f * P + p); their
+// telemetry, exposure and coverage counters live in registers (Tally).
 template <int P>
-struct MpRows {
+struct TallyRows {
   static constexpr int kMar = 0, kWl = 4, kRows = kWl + 8 * P;
 };
 
@@ -1263,12 +1264,12 @@ __device__ __forceinline__ void move_counters(const Column<B>& col, const Obs& o
   }
 }
 
-// move_counters for the column rows of MpRows: the margins and the client
-// queue's fields.
+// move_counters for the column rows of TallyRows: the margins and the
+// client queue's fields.
 template <int P, int R0, int B>
-__device__ __forceinline__ void move_mp_rows(const Column<B>& col, const Obs& o, int64_t n,
-                                             int64_t i, bool to_column) {
-  using Rw = MpRows<P>;
+__device__ __forceinline__ void move_tally_rows(const Column<B>& col, const Obs& o, int64_t n,
+                                                int64_t i, bool to_column) {
+  using Rw = TallyRows<P>;
   const auto mv = [&](int row, int32_t* g) {
     if (to_column) col[R0 + row] = g[i];
     else g[i] = col[R0 + row];
@@ -1285,23 +1286,27 @@ __device__ __forceinline__ void move_mp_rows(const Column<B>& col, const Obs& o,
   }
 }
 
-// The counters K5's observed instantiations without the arms keep in
-// registers for a launch (with the arms, registers run out: they keep all
-// in the column, Rows): loaded at its start, added to every tick and
-// stored at its end, each where its plane is on, and only those such an
-// instantiation can change (no corruption, partition, timeout or stale
-// class, no delay class unless STAMPED; the others keep their values in
-// global memory): telemetry's event counters, ring cursor and word count,
-// exposure's injected and effective counts, coverage's new bits.  A tick's
-// decides go into the latency histogram by an add the tick does not wait
-// for (atomicAdd with the old value unused: nothing else in a launch reads
-// the histogram, so the sum is the plain read-modify-write's).
-template <bool STAMPED>
+// The counters an observed instantiation keeps in registers for a launch
+// (K2's and K4's, and K5's without the arms; K5's arms keys spilled with
+// them, and keep all in the column, Rows): loaded at its start, added to
+// every tick and stored at its end, each where its plane is on, and only
+// those such an instantiation can change (without the arms, ARMS false: no
+// corruption, partition, timeout or stale class, no delay class unless
+// STAMPED; the others keep their values in global memory): telemetry's
+// event counters, ring cursor and word count, exposure's injected and
+// effective counts, coverage's new bits.  A tick's decides go into the
+// latency histogram by an add the tick does not wait for (atomicAdd with
+// the old value unused: nothing else in a launch reads the histogram, so
+// the sum is the plain read-modify-write's).
+template <bool STAMPED, bool ARMS = false>
 struct Tally {
   static constexpr uint32_t kLiveEvents =
-      ((1u << kEvents) - 1) & ~((1u << kEvCorrupt) | (1u << kEvPartCut) | (1u << kEvPartHeal));
+      ARMS ? (1u << kEvents) - 1
+           : ((1u << kEvents) - 1) &
+                 ~((1u << kEvCorrupt) | (1u << kEvPartCut) | (1u << kEvPartHeal));
   static constexpr uint32_t kLiveClasses =
-      (1u << kClDrop) | (1u << kClDup) | (STAMPED ? 1u << kClDelay : 0u);
+      ARMS ? (1u << kClasses) - 1
+           : (1u << kClDrop) | (1u << kClDup) | (STAMPED ? 1u << kClDelay : 0u);
   int32_t ev[kEvents] = {}, cursor = 0, seq = 0, inj[kClasses] = {}, eff[kClasses] = {},
           new_bits = 0;
 
@@ -1448,6 +1453,53 @@ __device__ __forceinline__ bool margin(const Column<B>& col, QuorumOf quorum_of,
   return near;
 }
 
+// margin (above) where the tick may have changed only part of what it
+// reads (K2 and K4): a minimum takes a value it has taken before at no
+// change, so the learner table is walked only where `walk` (the table or
+// the chosen bit may have changed: an accept event folded, or a launch's
+// first tick), the near split of the last walk (`near`) counted again
+// otherwise, and the promise slack is taken over the acceptors whose
+// promise or accepted ballot changed (bit a of `dirty`, honest ones only).
+// The four minima and the near count sit at rows MAR to MAR + 3.
+template <int K, int A, int LT, int MAR, int B, typename QuorumOf>
+__device__ __forceinline__ void sd_margin(const Column<B>& col, QuorumOf quorum_of, bool walk,
+                                          bool chosen, int32_t chosen_val, bool decided_now,
+                                          const int32_t (&promised)[A],
+                                          const int32_t (&acc_bal)[A], uint32_t dirty,
+                                          bool& near) {
+  if (walk) {
+    int32_t tick_slack = kSentinel, vmin = kSentinel, vmax = 0, win_bal = 0, rival_bal = 0;
+    int hot = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int32_t bal = col[LT + k], val = col[LT + K + k];
+      const int votes = __popc(static_cast<uint32_t>(col[LT + 2 * K + k]));
+      const int32_t quorum = quorum_of(bal);
+      const bool live = bal > 0;
+      if (live && chosen && val != chosen_val) tick_slack = min(tick_slack, max(quorum - votes, 0));
+      if (live && votes >= quorum - 1) {
+        ++hot;
+        vmin = min(vmin, val);
+        vmax = max(vmax, val);
+      }
+      const bool win = votes >= quorum && live && val == chosen_val;
+      if (win) win_bal = max(win_bal, bal);
+      if (live && !win) rival_bal = max(rival_bal, bal);
+    }
+    near = hot >= 2 && vmin != vmax;
+    col[MAR] = min(col[MAR], tick_slack);
+    if (decided_now && rival_bal > 0)
+      col[MAR + 2] = min(col[MAR + 2], max(wrap_add(win_bal, -rival_bal), 0));
+  }
+  if (near) col[MAR + 1] = wrap_add(col[MAR + 1], 1);
+  if (dirty == 0) return;
+  int32_t pslack = kSentinel;
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+    if (((dirty >> a) & 1u) && acc_bal[a] > 0) pslack = min(pslack, wrap_add(promised[a], -acc_bal[a]));
+  col[MAR + 3] = min(col[MAR + 3], pslack);
+}
+
 // check.mp_safety.mp_margin_observe: the margin lifted to a Multi-Paxos
 // lane's (LOG, K) learner table in the column (packed (ballot, value)
 // pairs from row LT_BV, a slot's K voter masks packed in one word from row
@@ -1579,8 +1631,8 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 #endif
 }
 
-// workload in K5's observed tick, its global-memory reads off the tick's
-// chain: a served request's latency bin takes an add whose result the tick
+// workload in K5's, K4's and K2's observed ticks, its global-memory reads
+// off the tick's chain: a served request's latency bin takes an add whose result the tick
 // does not wait for (atomicAdd with the old value unused: nothing else in a
 // launch reads the histogram, so the sum is the plain read-modify-write's),
 // the next head's stamp is asked of L2 as the head passes a served one, and
@@ -1686,8 +1738,8 @@ __device__ __forceinline__ void coverage(const Column<B>& col, const Obs& o, uin
 }
 
 // coverage.observe with the bitmap's read-modify-write off the tick's chain
-// (K5; K1 to K4 call coverage above): `start` computes a tick's two Bloom
-// positions and asks L2 for their words, `load` (at the next tick's start)
+// (K5, K4 and K2; K1 and K3 call coverage above): `start` computes a
+// tick's two Bloom positions and asks L2 for their words, `load` (at the next tick's start)
 // loads them, and `finish` (at the next tick's insert, or after a launch's
 // last tick) ors the bits in, writing each changed word once, both
 // positions' bits at once where they share a word, and returns the bits
@@ -1972,6 +2024,100 @@ __device__ __forceinline__ void fold_buffers(Digest& d, const Column<B>& col, co
 #pragma unroll 1
     for (int j = 0; j < S; ++j) d.fold(col[G::kRpUntil + j]);
   }
+}
+
+// The digest's fold of N consecutive words, word(0) to word(N - 1) (column
+// rows, or a leaf's rows in global memory), in order: each batch of words
+// is loaded while the one before it folds, so the FNV chain, which cannot
+// be split (its value is the reference's), waits on its own multiplies and
+// not on a load a word (K5, K4 and K2: one warp a scheduler hides no
+// latency at their observed instantiations' occupancy).
+template <int N, typename Word>
+__device__ __forceinline__ void fold_ahead(Digest& d, Word word) {
+  constexpr int kBatch = N % 16 == 0 ? 16 : N % 10 == 0 ? 10 : N % 8 == 0 ? 8 : 1;
+  int32_t w[kBatch];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) w[k] = word(k);
+#pragma unroll 1
+  for (int r = kBatch; r < N; r += kBatch) {
+    int32_t next[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) next[k] = word(r + k);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      d.fold(w[k]);
+      w[k] = next[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) d.fold(w[k]);
+}
+
+// The FNV prime to the n-th power (mod 2^32): folding a 0 multiplies the
+// chain by the prime, so n of them in a row are one multiply.
+__host__ __device__ constexpr uint32_t fnv_pow(int n) {
+  return n == 0 ? 1u : 0x01000193u * fnv_pow(n - 1);
+}
+
+// The fold of N zero-only payload words (no column row): word(j) where bit
+// j of `live` is set (not 0 in global memory, and its slot not written this
+// chunk), else 0; none live, as almost always, is one multiply.
+template <int N, typename Word>
+__device__ __forceinline__ void fold_zero_only(Digest& d, uint32_t live, Word word) {
+  if (live == 0) {
+    d.h *= fnv_pow(N);
+    return;
+  }
+#pragma unroll 1
+  for (int j = 0; j < N; ++j) d.fold((live >> j) & 1u ? word(j) : 0);
+}
+
+// fold_shadows with the 3 * A shadows (global memory) loaded at once.
+template <int A, int SNAP>
+__device__ __forceinline__ void fold_shadows_ahead(Digest& d, const Obs& ob, const Leaves& L,
+                                                   int64_t n, int64_t i) {
+  if (!ob.snaps) return;
+  int32_t w[3 * A];
+#pragma unroll
+  for (int k = 0; k < 3 * A; ++k) w[k] = load<int32_t>(L, SNAP + k / A, k % A, n, i);
+#pragma unroll
+  for (int k = 0; k < 3 * A; ++k) d.fold(w[k]);
+}
+
+// fold_buffers (the same words in the same order) for K4 and K2: each run
+// of column rows in batches loaded ahead (fold_ahead; the replies'
+// ballots, first payloads and kind-0 second payloads are one run of
+// consecutive rows), each run of zero-only words as fold_zero_only, the
+// presence bits unrolled.
+template <typename G, bool STAMPED, int B>
+__device__ __forceinline__ void fold_buffers_ahead(Digest& d, const Column<B>& col,
+                                                   const Leaves& L, int64_t n, int64_t i,
+                                                   uint64_t zo_nz, uint32_t rq_written,
+                                                   uint32_t rp_written, uint32_t rq_present,
+                                                   uint32_t rp_present) {
+  constexpr int S = G::S, E = G::E, V1 = G::kRqV1From;
+  constexpr uint32_t kSlots = S == 32 ? ~0u : (1u << S) - 1;
+  const auto global = [&](int leaf, int j) { return load<int32_t>(L, leaf, j, n, i); };
+  const auto bits = [&](uint32_t present) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) d.fold((present >> j) & 1u);
+  };
+  fold_ahead<S>(d, [&](int j) { return col[G::kRqBal + j]; });
+  if constexpr (V1 > 0) {
+    fold_zero_only<V1>(d, static_cast<uint32_t>(zo_nz) & ~rq_written & ((1u << V1) - 1),
+                       [&](int j) { return global(kRqV1, j); });
+  }
+  fold_ahead<S - V1>(d, [&](int j) { return col[G::rq_v1(V1 + j)]; });
+  fold_zero_only<S>(d, static_cast<uint32_t>(zo_nz >> E) & ~rq_written & kSlots,
+                    [&](int j) { return global(kRqV2, j); });
+  bits(rq_present);
+  if constexpr (STAMPED) fold_ahead<S>(d, [&](int j) { return col[G::kRqUntil + j]; });
+  fold_ahead<2 * S + E>(d, [&](int r) { return col[G::kRpBal + r]; });
+  fold_zero_only<S - E>(d, static_cast<uint32_t>(zo_nz >> (S + E)) & ~(rp_written >> E) &
+                               ((1u << (S - E)) - 1),
+                        [&](int j) { return global(kRpV2, E + j); });
+  bits(rp_present);
+  if constexpr (STAMPED) fold_ahead<S>(d, [&](int j) { return col[G::kRpUntil + j]; });
 }
 
 }  // namespace obs

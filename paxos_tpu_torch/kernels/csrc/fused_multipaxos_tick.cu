@@ -127,7 +127,7 @@
 // to 128 lanes an SM, one to two warps a scheduler), where nothing hides a
 // latency, so its planes keep off the tick's chain what they can, each
 // exactly as the plain tick computes it:
-//  - the digest folds batches of column words loaded ahead (fold_words),
+//  - the digest folds batches of column words loaded ahead (obs::fold_ahead),
 //    so the FNV chain, which cannot be split, waits on its multiplies only;
 //  - the coverage insert completes a tick late (obs::DeferredCoverage): a
 //    tick asks L2 for its two bitmap words, the next one loads them at its
@@ -135,7 +135,7 @@
 //    fall in one word, the launch's last after its loop;
 //  - the counters stay in registers for the launch (obs::Tally; with the
 //    arms, which leave no registers for them, in the column, obs::Rows),
-//    the margins and the client queue in the column (obs::MpRows), and
+//    the margins and the client queue in the column (obs::TallyRows), and
 //    the client queue's histogram and ring reads wait for no DRAM round
 //    trip on a serve (obs::mp_workload);
 //  - the margin visits only the slots of the learner table that the tick
@@ -428,32 +428,6 @@ __device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves
   }
 }
 
-// The coverage digest's fold of N consecutive words, word(0) to word(N - 1)
-// (column rows, or a leaf's rows in global memory), in order: each batch of
-// words is loaded while the one before it folds, so the FNV chain waits on
-// its own multiplies and not on a load a word (one warp a scheduler hides
-// no latency at the observed instantiations' occupancy).
-template <int N, typename Word>
-__device__ __forceinline__ void fold_words(obs::Digest& d, Word word) {
-  constexpr int kBatch = N % 16 == 0 ? 16 : N % 10 == 0 ? 10 : N % 8 == 0 ? 8 : 1;
-  int32_t w[kBatch];
-#pragma unroll
-  for (int k = 0; k < kBatch; ++k) w[k] = word(k);
-#pragma unroll 1
-  for (int r = kBatch; r < N; r += kBatch) {
-    int32_t next[kBatch];
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) next[k] = word(r + k);
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      d.fold(w[k]);
-      w[k] = next[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kBatch; ++k) d.fold(w[k]);
-}
-
 // The kernel; `Arms` is empty for the default instantiations, whose
 // signature and code are those of K5 without the arms, a `Gray` for the
 // arms instantiations (ARMS), which take the arms' knobs and plan leaves,
@@ -471,11 +445,11 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = Staged<P, A, LOG, K, STAMPED, PROM>;
   // The planes' counters (OBS): in registers for the launch (obs::Tally),
-  // the margins and the client queue in the column (obs::MpRows), but with
+  // the margins and the client queue in the column (obs::TallyRows), but with
   // the arms, which leave no registers for them, all in the column
   // (obs::Rows), from row R0.
   constexpr bool TALLY = !ARMS;
-  using CR = std::conditional_t<TALLY, obs::MpRows<P>, obs::Rows<P>>;
+  using CR = std::conditional_t<TALLY, obs::TallyRows<P>, obs::Rows<P>>;
   constexpr int R0 = G::kRows;
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kMpStampedLeaves : kMpLeaves;
@@ -497,7 +471,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   load_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
   obs::Tally<STAMPED> tally;
   if constexpr (OBS && TALLY) {
-    obs::move_mp_rows<P, R0>(col, ob, n, i, true);
+    obs::move_tally_rows<P, R0>(col, ob, n, i, true);
     tally.move(ob, n, i, true);
   } else if constexpr (OBS) {
     obs::move_counters<P, R0>(col, ob, n, i, true);
@@ -1102,10 +1076,10 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         // in the reference's leaf and row order.
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(promised[a]);
-        fold_words<A * LOG>(d, [&](int r) { return col[G::kLog + r]; });
+        obs::fold_ahead<A * LOG>(d, [&](int r) { return col[G::kLog + r]; });
         if (ob.snaps) {
-          fold_words<A>(d, [&](int a) { return at<int32_t>(L, SNAP, a, n, i); });
-          fold_words<A * LOG>(d, [&](int r) { return at<int32_t>(L, SNAP + 1, r, n, i); });
+          obs::fold_ahead<A>(d, [&](int a) { return at<int32_t>(L, SNAP, a, n, i); });
+          obs::fold_ahead<A * LOG>(d, [&](int r) { return at<int32_t>(L, SNAP + 1, r, n, i); });
         }
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(bal[p]);
@@ -1115,7 +1089,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         for (int p = 0; p < P; ++p) d.fold(heard[p]);
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(commit_idx[p]);
-        fold_words<P * LOG>(d, [&](int r) { return col[G::kRecov + r]; });
+        obs::fold_ahead<P * LOG>(d, [&](int r) { return col[G::kRecov + r]; });
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(lease_timer[p]);
 #pragma unroll
@@ -1130,13 +1104,13 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         for (int j = 0; j < S; ++j) d.fold(rq_v2[j]);
 #pragma unroll 1
         for (int j = 0; j < S; ++j) d.fold((rq_present >> j) & 1u);
-        if constexpr (STAMPED) fold_words<S>(d, [&](int j) { return col[G::kRqUntil + j]; });
+        if constexpr (STAMPED) obs::fold_ahead<S>(d, [&](int j) { return col[G::kRqUntil + j]; });
 #pragma unroll 1
         for (int j = 0; j < E; ++j) d.fold((prom_present >> j) & 1u);
 #pragma unroll
         for (int j = 0; j < E; ++j) d.fold(prom_bal[j]);
-        fold_words<E * LOG>(d, prom_bv);
-        if constexpr (STAMPED) fold_words<E>(d, [&](int j) { return col[G::kPromUntil + j]; });
+        obs::fold_ahead<E * LOG>(d, prom_bv);
+        if constexpr (STAMPED) obs::fold_ahead<E>(d, [&](int j) { return col[G::kPromUntil + j]; });
 #pragma unroll 1
         for (int j = 0; j < E; ++j) d.fold((accd_present >> j) & 1u);
 #pragma unroll
@@ -1145,7 +1119,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         for (int j = 0; j < E; ++j) d.fold(accd_slot[j]);
 #pragma unroll
         for (int j = 0; j < E; ++j) d.fold(accd_val[j]);
-        if constexpr (STAMPED) fold_words<E>(d, [&](int j) { return col[G::kAccdUntil + j]; });
+        if constexpr (STAMPED) obs::fold_ahead<E>(d, [&](int j) { return col[G::kAccdUntil + j]; });
         d.fold(base);
       }
       clk.mark(kPhDigest);
@@ -1169,7 +1143,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     add_new_bits(cov.finish(ob, n, i));
     if constexpr (TALLY) {
       tally.move(ob, n, i, false);
-      obs::move_mp_rows<P, R0>(col, ob, n, i, false);
+      obs::move_tally_rows<P, R0>(col, ob, n, i, false);
     } else {
       obs::move_counters<P, R0>(col, ob, n, i, false);
     }
@@ -1223,7 +1197,7 @@ using InstWith = SmemInst<
     (Staged<P, A, LOG, K, STAMPED, PROM>::kRows +
      (!has_arg<obs::Obs, Arms...> ? 0
       : has_arg<Gray, Arms...>    ? obs::Rows<P>::kRows
-                                  : obs::MpRows<P>::kRows)) * B * 4>;
+                                  : obs::TallyRows<P>::kRows)) * B * 4>;
 template <int P, int A, int LOG, int K, bool STAMPED, bool ARMS, bool OBS, int B, bool PROM>
 struct InstOf {
   using type = InstWith<P, A, LOG, K, STAMPED, B, PROM>;

@@ -85,12 +85,19 @@
 // The observer planes (telemetry, coverage, exposure, margin, the client
 // workload) compile into observed instantiations of their own (OBS, at
 // (2,5,8), without and with the stamps and the arms), as K1's to K3's: the
-// kernel takes an obs::Obs after the Gray (if any), keeps the planes'
-// counters in the lane's column after the staged rows (obs::Rows), draws
-// exposure's whole masks at the tick's start and reads them at the lazy
-// sites (obs::predraw), and folds the coverage digest from registers, the
-// column and global memory (obs::fold_shadows, obs::fold_buffers).  What
-// is SynchPaxos' own: a fast decide is a leader event and serves a client
+// kernel takes an obs::Obs after the Gray (if any) and draws exposure's
+// whole masks at the tick's start, where the lazy sites read them
+// (obs::predraw).  As K2's and K5's, an observed
+// tick keeps its planes off the tick's chain where it can, each exactly as
+// the plain tick computes it: the coverage digest folds batches of column
+// words loaded ahead (obs::fold_buffers_ahead; a run of zero-only words
+// with none nonzero is one multiply), its insert completes a tick late
+// (obs::DeferredCoverage), the counters stay in registers for a launch
+// (obs::Tally) with the margins and the client queue in the column
+// (obs::TallyRows: 124 words, 164 stamped, at 3 blocks of 128 and of 96
+// lanes; the arms keys at 2 blocks of 128), and the margin walks the learner
+// table only where an accept event folded (obs::sd_margin).  What is
+// SynchPaxos' own: a fast decide is a leader event and serves a client
 // request as a classic one does; the FAST round's kick sends ACCEPTs that
 // telemetry does not count as dropped sends (as the reference's tick); and
 // a skewed timeout is effective where the expiry differs from that under
@@ -110,11 +117,23 @@ using sd::ColumnLearner;
 using sd::SdStaged;
 using sd::select_present;
 
-// The tick's phases in order, as the phase-clock build splits a lane's
-// cycles (fused_tick.PHASES["synchpaxos"]).
+// The tick's phases in order, each with its name in the phase-clock build's
+// split of a lane's cycles (fused_tick.PHASES["synchpaxos"]): an observed
+// tick's planes take the four before the store.
 enum Phase {
-  kPhLoad, kPhRefresh, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs,
-  kPhStore, kPhases,
+  kPhLoad,      // column load
+  kPhRefresh,   // stamp refresh
+  kPhDeliver,   // reply delivery
+  kPhFold,      // proposer fold
+  kPhAcceptor,  // acceptor half-tick
+  kPhLearner,   // learner
+  kPhSends,     // proposer sends
+  kPhCounters,  // observer counters
+  kPhMargin,    // margin
+  kPhDigest,    // digest
+  kPhCoverage,  // coverage insert
+  kPhStore,     // column store
+  kPhases,
 };
 
 // The role leaves in the reference's flatten order; the learner and the
@@ -140,14 +159,18 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, false, STAMPED>;
-  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
+  // The planes' counters (OBS): in registers for the launch (obs::Tally,
+  // with the arms every one), the margins and the client queue in the
+  // column (obs::TallyRows), from row R0.
+  using CR = obs::TallyRows<P>;
+  constexpr int R0 = G::kRows;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
   constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr uint32_t kAccs = (1u << A) - 1;
-  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and the counters)
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and CR::kRows)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
@@ -155,12 +178,15 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   PhaseClock<kPhases> clk;
   const Column<B> col{smem + threadIdx.x};
   sd::load_column<P, A, K, false, 0, B, STAMPED>(col, L, n, i);
-  // The planes' counters into the column, and the zero-only payload words
-  // that are not 0 in global memory (obs::zero_words), which the coverage
-  // digest folds where the chunk has not written their slot.
+  obs::Tally<STAMPED, ARMS> tally;
+  // The planes' counters into the registers and the column, and the
+  // zero-only payload words that are not 0 in global memory
+  // (obs::zero_words), which the coverage digest folds where the chunk has
+  // not written their slot.
   uint64_t zo_nz = 0;
   if constexpr (OBS) {
-    obs::move_counters<P, R0>(col, ob, n, i, true);
+    obs::move_tally_rows<P, R0>(col, ob, n, i, true);
+    tally.move(ob, n, i, true);
     if (ob.cov()) zo_nz = obs::zero_words<G>(L, n, i);
   }
 
@@ -216,8 +242,12 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const auto quorum_of = [&](int32_t) { return prm.q2; };
 
   DrawCount draws;
+  obs::DeferredCoverage cov;  // the coverage insert in flight (OBS)
+  bool near = false;          // the last margin walk's near split (OBS, obs::sd_margin)
   for (int t = 0; t < prm.n_ticks; ++t) {
     const int32_t tick = wrap_add(tick0, t);
+    // The words of the previous tick's insert, loaded while this tick runs.
+    if constexpr (OBS) cov.load(ob, n, i);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
     // What the planes read of the pre-tick state (OBS).
@@ -226,8 +256,16 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     const int32_t viol0 = lrn.violations;
     // Stale-snapshot recovery or amnesia, before the acceptor half-tick
     // (the restored state is the one the invariant check starts from).
-    sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i,
-                               [](int) {});
+    // The acceptors whose promise or accepted ballot the tick changes
+    // (OBS: the margin's promise slack; every one at a launch's first tick).
+    uint32_t acc_dirty = t == 0 ? kAccs : 0u;
+    if constexpr (OBS) {
+      sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i,
+                                 [&](int a) { acc_dirty |= 1u << a; });
+    } else {
+      sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i,
+                                 [](int) {});
+    }
     if constexpr (STAMPED) ch.refresh(col, tick, &draws);
     const uint32_t rq_ready = rq_present & (STAMPED ? ~ch.rq_wait : ~0u);
     // The links cut this tick, per direction (bit e: edge e).
@@ -455,6 +493,7 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       acc_bal[a] = ab;
       acc_val[a] = av;
       ev_flag |= (ok_acc ? 1u : 0u) << a;
+      if constexpr (OBS) acc_dirty |= (pr != pr_old || ab != ab_old ? 1u : 0u) << a;
       ev_bal[a] = mb;
       ev_val[a] = mv;
     }
@@ -472,8 +511,11 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     clk.mark(kPhAcceptor);
 
     // ---- Learner: fold accept events into the (ballot, value) table. ----
-    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
+    bool lt_tick = false;  // the table changed this tick (OBS: the margin walks it)
+    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of)) {
       lt_written = true;
+      lt_tick = true;
+    }
     clk.mark(kPhLearner);
 
     // ---- Proposer sends into the consumed request buffer, then their
@@ -522,8 +564,9 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     rq_written |= rq_sent;
     clk.mark(kPhSends);
 
-    // ---- The observer planes (OBS), from the tick's events, in the plain
-    //      tick's order: telemetry, exposure, margin, workload, coverage. ----
+    // ---- The observer planes (OBS), from the tick's events: the counters
+    //      (telemetry, exposure, the client workload), the margin, the
+    //      coverage digest and its insert, each plane's writes its own. ----
     if constexpr (OBS) {
       const bool decided_now = lrn.chosen && !chosen0;
       ev[obs::kEvPromise] = __popc(prom_m);
@@ -540,25 +583,30 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       eff[obs::kClCorrupt] = __popc(corrupt_m);
       if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
       obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
-      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
-      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.tel()) tally.telemetry(ob, tick, ev, n, i);
+      if (ob.exp()) tally.exposure(inj, eff);
+      if (ob.wl()) obs::mp_workload<P, R0 + CR::kWl, kArrival>(col, ob, ts, tick, serve_m, n, i);
+      clk.mark(kPhCounters);
+      // The learner table and the chosen bit change only where an accept
+      // event folds.
       if (ob.mar()) {
-        obs::margin<P, R0, K, A, G::kLtBal>(col, quorum_of, lrn.chosen, lrn.chosen_val,
-                                            decided_now, promised, acc_bal, ~equiv & kAccs);
+        obs::sd_margin<K, A, G::kLtBal, R0 + CR::kMar>(
+            col, quorum_of, t == 0 || lt_tick, lrn.chosen, lrn.chosen_val, decided_now, promised,
+            acc_bal, acc_dirty & ~equiv & kAccs, near);
       }
-      if (ob.wl()) obs::workload<P, R0>(col, ob, ts, tick, serve_m, n, i);
+      clk.mark(kPhMargin);
+      obs::Digest d;
       if (ob.cov()) {
         // The coverage digest of the lane's state (obs/coverage.py digest_tree:
         // the acceptors with their shadows, the proposers, both buffers with
         // their stamps), in the reference's leaf and row order.
-        obs::Digest d;
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(promised[a]);
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(acc_bal[a]);
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(acc_val[a]);
-        obs::fold_shadows<A, SNAP>(d, ob, L, n, i);
+        obs::fold_shadows_ahead<A, SNAP>(d, ob, L, n, i);
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(bal[p]);
 #pragma unroll
@@ -577,20 +625,31 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         for (int p = 0; p < P; ++p) d.fold(timer[p]);
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
-        obs::fold_buffers<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written, rq_present,
-                                      rp_present);
-        obs::coverage<P, R0>(col, ob, d.value(), n, i);
+        obs::fold_buffers_ahead<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written,
+                                            rq_present, rp_present);
+      }
+      clk.mark(kPhDigest);
+      // The previous tick's insert completes, this tick's starts.
+      if (ob.cov()) {
+        tally.new_bits = wrap_add(tally.new_bits, cov.finish(ob, n, i));
+        cov.start(ob, d.value(), n, i);
       }
       if (prm.clamp_per_tick) {
 #pragma unroll
         for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
       }
-      clk.mark(kPhObs);
+      clk.mark(kPhCoverage);
     }
   }
 
   draws.flush();
-  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
+  if constexpr (OBS) {
+    // The last tick's insert.
+    cov.load(ob, n, i);
+    tally.new_bits = wrap_add(tally.new_bits, cov.finish(ob, n, i));
+    tally.move(ob, n, i, false);
+    obs::move_tally_rows<P, R0>(col, ob, n, i, false);
+  }
 
   // ---- Store the lane's state once. ----
 #pragma unroll
@@ -623,13 +682,13 @@ fused_synchpaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 
 // One instantiation, ready to launch (SmemInst in fused_common.cuh): an
 // arms instantiation's kernel takes a Gray after Params, an observed one an
-// obs::Obs after that, and its column holds the planes' counters
-// (obs::Rows) after the staged rows.
+// obs::Obs after that, and its column holds the planes' counter rows after
+// the staged rows (obs::TallyRows).
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 using InstWith = SmemInst<
     fused_synchpaxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Arms...>, B,
     (SdStaged<P, A, K, false, STAMPED>::kRows +
-     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+     (has_arg<obs::Obs, Arms...> ? obs::TallyRows<P>::kRows : 0)) * B * 4>;
 template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
 struct InstOf {
   using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS>;
@@ -652,17 +711,18 @@ using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 // The instantiations, (n_prop, n_acc, k_slots, stamped, arms, observed, B,
 // MIN_BLOCKS): one per shape, stamps, arms and observer flag, at the
 // geometry fused_tick.SP_STAGING gives it; MIN_BLOCKS, the blocks an SM is
-// to hold, caps a thread's registers.  The observed columns (153 and 193
-// words) leave room for 2 blocks.
+// to hold, caps a thread's registers.  The observed columns (124 and 164
+// words, obs::TallyRows) take 3 blocks, of 128 and of 96 lanes, but with
+// the arms, whose registers exceed the 168 that 3 blocks leave, 2 of 128.
 #define K4_INSTANCES(X)            \
   X(2, 5, 8, 1, 0, 0, 128, 3)      \
   X(2, 5, 8, 0, 0, 0, 128, 3)      \
   X(2, 3, 8, 1, 0, 0, 128, 3)      \
   X(2, 5, 8, 0, 1, 0, 128, 3)      \
   X(2, 5, 8, 1, 1, 0, 128, 3)      \
-  X(2, 5, 8, 0, 0, 1, 128, 2)      \
+  X(2, 5, 8, 0, 0, 1, 128, 3)      \
   X(2, 5, 8, 0, 1, 1, 128, 2)      \
-  X(2, 5, 8, 1, 0, 1, 128, 2)      \
+  X(2, 5, 8, 1, 0, 1, 96, 3)       \
   X(2, 5, 8, 1, 1, 1, 128, 2)
 
 // Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`

@@ -43,8 +43,8 @@ Every fused kernel also computes the observer planes a state carries
 (telemetry, coverage, exposure, margin, the client workload), in observed
 instantiations of its own (the last field of its keys, ``observed``),
 which take the planes' leaves as a separate argument (:func:`_obs_args`)
-and keep their counters in the lane's column (:func:`obs_rows`; K5 keeps
-most of them in registers, :func:`mp_obs_rows`).
+and keep their counters in the lane's column (:func:`obs_rows`; K5, K4 and
+K2 keep most of them in registers, :func:`tally_obs_rows`).
 
 :func:`fused_fns` binds a protocol's tick with components removed
 (``ABLATE_FLAGS``), the reference's ablation variants: the Paxos and
@@ -163,13 +163,13 @@ def obs_rows(n_prop: int) -> int:
     return 12 + 2 + 7 + 7 + 4 + 1 + 8 * n_prop
 
 
-def mp_obs_rows(shape: tuple) -> int:
-    """Words of a lane's column that K5's observed instantiation ``shape``
-    adds: without the arms the 4 margins and the client queue's 8 fields a
-    proposer (``obs::MpRows``), the other counters of :func:`obs_rows` in
-    registers for a launch (``obs::Tally``); with the arms, which leave no
-    registers for them, every one (:func:`obs_rows`)."""
-    n_prop, arms = shape[0], shape[5]
+def tally_obs_rows(n_prop: int, arms: bool = False) -> int:
+    """Words of a lane's column that an observed instantiation of K4 or K2,
+    or of K5 without the arms, adds: the 4 margins and the client queue's 8
+    fields a proposer (``obs::TallyRows``), the other counters of
+    :func:`obs_rows` in registers for a launch (``obs::Tally``); K5's with
+    the arms (``arms``), which spilled with them in registers, every one
+    (:func:`obs_rows`)."""
     return obs_rows(n_prop) if arms else 4 + 8 * n_prop
 
 
@@ -202,15 +202,15 @@ def mp_staged_rows(
 
 
 def _mp_staging(
-    shape: tuple, threads: int, stage_prom: bool, counter_rows: Callable = mp_obs_rows
+    shape: tuple, threads: int, stage_prom: bool, counter_rows: Callable = tally_obs_rows
 ) -> MpStaging:
     # The key: (P, A, L, K, stamped, arms, observed); the arms add no row,
     # the planes their counter rows (an older source's key, which chip_ab.py
     # launches, may lack the observed flag, and its column may hold every
-    # counter: counter_rows gives them for the key).
+    # counter: counter_rows gives them for n_prop and the arms flag).
     rows = mp_staged_rows(*shape[:5], stage_prom)
     if len(shape) > 6 and shape[6]:
-        rows += counter_rows(shape)
+        rows += counter_rows(shape[0], shape[5])
     return MpStaging(threads, stage_prom, rows, rows * 4 * threads)
 
 
@@ -226,7 +226,7 @@ def _mp_staging(
 # warps), where staging everything (232 words) allows 2 blocks of 96 (6
 # warps; PERF.md §6 times both).  The arms instantiations keep their
 # default's column (the snapshot shadows stay in global memory).  The
-# observed instantiations add the planes' counter rows (mp_obs_rows: 20
+# observed instantiations add the planes' counter rows (tally_obs_rows: 20
 # words, the rest in registers; 49 with the arms) and stage the PROMISE
 # payloads, which the coverage digest folds every tick: config3's observed
 # key (212 words) takes 2 blocks of 128 (8 warps), whose steady chunk on
@@ -291,14 +291,33 @@ def sp_staged_rows(n_prop: int, n_acc: int, k_slots: int, stamped: int) -> int:
     return 8 * e + (4 * e if stamped else 0) + 3 * k_slots
 
 
-def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
+def _sp_staging(
+    shape: tuple, threads: int, min_blocks: int, counter_rows: Callable = tally_obs_rows
+) -> ColumnStaging:
     # The key: (P, A, K, stamped, arms, observed); the arms add no row, the
     # planes their counters (an older source's key, which chip_ab.py
-    # launches, may lack the observed flag).
+    # launches, may lack the observed flag, and its column may hold every
+    # counter: counter_rows gives them for n_prop).
     rows = sp_staged_rows(*shape[:4])
     if len(shape) > 5 and shape[5]:
-        rows += obs_rows(shape[0])
+        rows += counter_rows(shape[0])
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
+
+
+def _sd_observed_geometry(protocol: str, shape: tuple) -> tuple:
+    """(lanes a block, blocks an SM) of K2's and K4's observed
+    instantiation ``shape`` (tally_obs_rows: 124 words, 164 stamped): with
+    the arms, whose counters take their registers to 228 to 255, 2 of
+    128; without them 3 of 128, stamped 3 of 96 on K4 and 2 of 128 on K2
+    (whose stamped key spilled 28 B at 3 of 96: 9 warps leave a thread
+    168 registers, as 12 do, since each of an SM's four schedulers holds
+    the registers of its own warps).  On the main paths the committed code
+    at 3 blocks ran the steady chunk in 9.095 / 9.118 ms (K2) and 16.552 /
+    16.646 ms (K4) against 11.410 / 11.322 and 17.795 / 17.754 at 2 of 128
+    (one call of chip_ab.py --planes, PERF.md section 6)."""
+    if shape[4] or (shape[3] and protocol == "fastpaxos"):
+        return 128, 2
+    return (96, 3) if shape[3] else (128, 3)
 
 
 # K4's geometry per instantiation, which the wrapper passes to the kernel.
@@ -308,9 +327,10 @@ def _sp_staging(shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
 # learner table included) leaves room for no fourth block.  The arms
 # instantiations keep their default's column (the snapshot shadows stay in
 # global memory).  The observed instantiations add the planes' counters
-# (obs_rows): 153 words, 193 stamped, 2 blocks of 128, as K1's.
+# (tally_obs_rows) at _sd_observed_geometry's blocks.
 SP_STAGING = {
-    shape: _sp_staging(shape, 128, 2 if shape[5] else 3) for shape in KERNEL_SHAPES["synchpaxos"]
+    shape: _sp_staging(shape, *(_sd_observed_geometry("synchpaxos", shape) if shape[5] else (128, 3)))
+    for shape in KERNEL_SHAPES["synchpaxos"]
 }
 
 
@@ -353,12 +373,18 @@ def fr_staged_rows(
     return (9 if protocol == "raftcore" else 8) * e + (4 * e if stamped else 0) + 3 * k_slots
 
 
-def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> ColumnStaging:
+def _fr_staging(
+    protocol: str, shape: tuple, threads: int, min_blocks: int, counter_rows: "Callable | None" = None
+) -> ColumnStaging:
     # The key: (P, A, K, stamped, arms, observed); an older source's, which
-    # chip_ab.py launches, may lack the observed flag.
+    # chip_ab.py launches, may lack the observed flag.  The planes add their
+    # counter rows (K2 keeps most of them in registers, tally_obs_rows; an
+    # older K2 source every one in its column: counter_rows gives them).
+    if counter_rows is None:
+        counter_rows = tally_obs_rows if protocol == "fastpaxos" else obs_rows
     rows = fr_staged_rows(protocol, *shape[:4])
     if len(shape) > 5 and shape[5]:
-        rows += obs_rows(shape[0])
+        rows += counter_rows(shape[0])
     return ColumnStaging(threads, rows, rows * 4 * threads, min_blocks)
 
 
@@ -378,8 +404,9 @@ def _fr_staging(protocol: str, shape: tuple, threads: int, min_blocks: int) -> C
 # stamped takes 32 x 11.  Each arms instantiation keeps its default's
 # column (the snapshot shadows stay in global memory), and its registers
 # are capped for its default's blocks (the unstamped arms: 3).  The
-# observed instantiations of K2 (153 words, 193 stamped) and K3 (163, 203)
-# take K1's 2 blocks of 128 lanes (8 warps).  K3's stamped observed column
+# observed instantiations of K3 (163 words, 203 stamped) take K1's 2
+# blocks of 128 lanes (8 warps), K2's (tally_obs_rows) those of
+# _sd_observed_geometry.  K3's stamped observed column
 # would also fit 8 blocks of 32 (8 warps too), where its planes-off
 # stamped column takes 11 of 32; on delaychaos-raftcore with every plane
 # on, 128 x 2 ran its steady chunk in 28.482 and 28.501 ms, 32 x 8 in
@@ -397,7 +424,10 @@ FR_STAGING = {
         (2, 5, 8, 0, 1, 0): _fr_staging("fastpaxos", (2, 5, 8, 0, 1, 0), 128, 3),
         (2, 5, 8, 1, 0, 0): _fr_staging("fastpaxos", (2, 5, 8, 1, 0, 0), 128, 3),
         (2, 5, 8, 1, 1, 0): _fr_staging("fastpaxos", (2, 5, 8, 1, 1, 0), 128, 3),
-        **{shape: _fr_staging("fastpaxos", shape, 128, 2) for shape in _OBSERVED_SHAPES},
+        **{
+            shape: _fr_staging("fastpaxos", shape, *_sd_observed_geometry("fastpaxos", shape))
+            for shape in _OBSERVED_SHAPES
+        },
     },
     "raftcore": {
         (2, 5, 8, 0, 0, 0): _fr_staging("raftcore", (2, 5, 8, 0, 0, 0), 128, 3),
@@ -610,12 +640,14 @@ COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
 # The phase-clock build: clock64() cycles per phase of the tick, in the
 # order of the kernel's ``Phase`` enum (K5's enum names each phase as
 # here); its reader returns PHASE_SLOTS counters (``kMaxPhases`` in
-# csrc/fused_common.cuh), those past a kernel's phases 0.  K5's observed
-# tick splits its planes into the counters (fault events, telemetry,
-# exposure, the client workload), the margin, the coverage digest and its
-# insert; K1 to K4 clock theirs as one phase.
+# csrc/fused_common.cuh), those past a kernel's phases 0.  The observed
+# ticks of K2, K4 and K5 split their planes into the counters (fault
+# events, telemetry, exposure, the client workload), the margin, the
+# coverage digest and its insert (``OBSERVER_SPLIT``); K1 and K3 clock
+# theirs as one phase.
 PHASE_CLOCKS = ("FUSED_PHASE_CLOCKS",)
-PHASE_SLOTS = 11
+PHASE_SLOTS = 12
+OBSERVER_SPLIT = ("observer counters", "margin", "digest", "coverage insert")
 PHASES = {
     "paxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
@@ -623,7 +655,7 @@ PHASES = {
     ),
     "fastpaxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
-        "learner", "proposer sends", "observers", "column store",
+        "learner", "proposer sends", *OBSERVER_SPLIT, "column store",
     ),
     "raftcore": (
         "column load", "reply delivery", "candidate fold", "voter half-tick",
@@ -631,12 +663,11 @@ PHASES = {
     ),
     "synchpaxos": (
         "column load", "stamp refresh", "reply delivery", "proposer fold",
-        "acceptor half-tick", "learner", "proposer sends", "observers", "column store",
+        "acceptor half-tick", "learner", "proposer sends", *OBSERVER_SPLIT, "column store",
     ),
     "multipaxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick", "learner",
-        "proposer half-tick", "observer counters", "margin", "digest", "coverage insert",
-        "column store",
+        "proposer half-tick", *OBSERVER_SPLIT, "column store",
     ),
 }
 

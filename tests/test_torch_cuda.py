@@ -432,8 +432,10 @@ def test_synchpaxos_phase_clocks_follow_the_kernel():
     assert tfused.fused_synchpaxos_chunk.launches == before
     _assert_same(clocked, kern)
     assert tuple(cycles) == tfused.PHASES["synchpaxos"]
-    # The observers phase runs in the observed instantiations only.
-    assert all((c == 0) if phase == "observers" else (c > 0) for phase, c in cycles.items())
+    # The observers phase (K2's and K4's four: tfused.OBSERVER_SPLIT) runs in
+    # the observed instantiations only.
+    planes = ("observers",) + tfused.OBSERVER_SPLIT
+    assert all((c == 0) if phase in planes else (c > 0) for phase, c in cycles.items())
     again = tfused.phase_clocks("synchpaxos", trun.init_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, ticks)
     assert sum(again.values()) < 2 * sum(cycles.values())  # cleared after every read
 
@@ -640,8 +642,10 @@ def test_fr_phase_clocks_follow_the_kernel(protocol):
     assert wrapper.launches == before
     _assert_same(clocked, kern)
     assert tuple(cycles) == tfused.PHASES[protocol]
-    # The observers phase runs in the observed instantiations only.
-    assert all((c == 0) if phase == "observers" else (c > 0) for phase, c in cycles.items())
+    # The observers phase (K2's and K4's four: tfused.OBSERVER_SPLIT) runs in
+    # the observed instantiations only.
+    planes = ("observers",) + tfused.OBSERVER_SPLIT
+    assert all((c == 0) if phase in planes else (c > 0) for phase, c in cycles.items())
 
 
 @pytest.mark.cuda
@@ -1182,15 +1186,31 @@ def test_observed_paxos_refuses_mismatched_observer_arguments(monkeypatch):
         tfused.fused_paxos_chunk(state, 1, plan, cfg.fault, 8)
 
 
+def _one_and_zero_ticks(protocol, cfg, plan, kern, plain, block):
+    """A 1-tick launch from the compared states ``kern`` and ``plain``
+    equals the plain tick, and a 0-tick launch after it leaves the state
+    as it was (an observed instantiation that completes its coverage
+    insert a tick late completes a launch's last insert after its loop)."""
+    wrapper = tfused.FUSED_WRAPPERS[protocol]
+    plain = plain_chunk(cfg, plain, plan, 1, block)
+    kern = wrapper(kern, cfg.seed, plan, cfg.fault, 1, block=block)
+    before = kern.clone()
+    tfused._launch(protocol, kern, cfg.seed, plan, cfg.fault, 0, block, 0, False)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+    _assert_same(kern, before)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("protocol", ["fastpaxos", "raftcore"])
 def test_observed_fr_matches_plain_on_cuda(protocol):
     """K2's and K3's observed instantiations (every observer plane on)
-    against the plain tick, observer leaves included, over two chunks:
-    config5's cell (2,5,8,0,0,1), config_gray_chaos and config_corrupt
-    (2,5,8,0,1,1), config_stale (its snapshot shadows), config_delay_chaos
-    (2,5,8,1,0,1) and every gray knob with p_delay (2,5,8,1,1,1); the
-    planes-off kernel from the same state gives the same protocol state;
+    against the plain tick, observer leaves included, over two chunks, then
+    a 1-tick and a 0-tick launch: config5's cell (2,5,8,0,0,1),
+    config_gray_chaos and config_corrupt (2,5,8,0,1,1), config_stale (its
+    snapshot shadows), config_delay_chaos (2,5,8,1,0,1) and every gray knob
+    with p_delay (2,5,8,1,1,1); the planes-off kernel from the same state
+    gives the same protocol state;
     the per-tick clamp with a block offset from near-limit ballots; the
     observers phase of the phase-clock build runs; and the C entry refuses
     observer arguments to an instantiation that is not observed and an
@@ -1222,6 +1242,7 @@ def test_observed_fr_matches_plain_on_cuda(protocol):
         _assert_same(kern, plain)
         _assert_same(without_planes(kern), bare)
         assert int(kern.exposure.injected.sum()) > 0 and int(kern.coverage.new_bits.sum()) > 0, name
+        _one_and_zero_ticks(protocol, cfg, plan, kern, plain, 1024)
     assert shapes == {(2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1), (2, 5, 8, 1, 1, 1)}
     cfg = with_planes(main_config(protocol, n, 13))
     plan = trun.init_plan(cfg, "cuda")
@@ -1277,8 +1298,9 @@ def _observed_cases(protocol, n, seed):
 @pytest.mark.parametrize("protocol", ["multipaxos", "synchpaxos"])
 def test_observed_mp_sp_match_plain_on_cuda(protocol):
     """K5's and K4's observed instantiations (every observer plane on)
-    against the plain tick, observer leaves included, over two chunks, at
-    their four keys (``_observed_cases``); the planes-off kernel from the
+    against the plain tick, observer leaves included, over two chunks, then
+    a 1-tick and a 0-tick launch, at their four keys (``_observed_cases``);
+    the planes-off kernel from the
     same state gives the same protocol state; the per-tick clamp with a
     block offset from near-limit ballots; the observers phase of the
     phase-clock build runs; and the C entry refuses a wrong observer
@@ -1305,6 +1327,7 @@ def test_observed_mp_sp_match_plain_on_cuda(protocol):
         _assert_same(kern, plain)
         _assert_same(without_planes(kern), bare)
         assert int(kern.exposure.injected.sum()) > 0 and int(kern.coverage.new_bits.sum()) > 0, name
+        _one_and_zero_ticks(protocol, cfg, plan, kern, plain, block)
     head = (2, 5, 8, 4) if protocol == "multipaxos" else (2, 5, 8)
     assert shapes == {head + (s, r, 1) for s in (0, 1) for r in (0, 1)}
     if protocol == "multipaxos":
@@ -1495,21 +1518,21 @@ def _shared_word_lanes(state, words: int) -> int:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("words", [1, 64])
-def test_observed_multipaxos_shared_bloom_word_on_cuda(words):
-    """K5's coverage insert where a tick's two Bloom positions share a
-    bitmap word: on observed-multipaxos's config (every plane on) with 64
-    coverage words, its own, and with 1, where every insert shares one,
-    the plain ticks one at a time count the lane-ticks whose digest does
-    so (about one in 64 at 64 words, on 4096 lanes and 32 ticks), and the
-    kernel over the same ticks equals them byte for byte, the bitmap and
-    its new-bit count included."""
+@pytest.mark.parametrize("path", ["observed-multipaxos", "observed-synchpaxos", "observed-fastpaxos"])
+def test_observed_shared_bloom_word_on_cuda(path, words):
+    """The coverage insert of K5, K4 and K2 (a tick late) where a tick's
+    two Bloom positions share a bitmap word: on each observed path's config
+    (every plane on) with 64 coverage words, its own, and with 1, where
+    every insert shares one, the plain ticks one at a time count the
+    lane-ticks whose digest does so (about one in 64 at 64 words, on 4096
+    lanes and 32 ticks), and the kernel over the same ticks equals them
+    byte for byte, the bitmap and its new-bit count included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     n, ticks = 4096, 32
-    wrapper, block = tfused.fused_multipaxos_chunk, tfused.BINDINGS["multipaxos"].block
-    cfg = dataclasses.replace(
-        main_config("observed-multipaxos", n, 29), coverage=CoverageConfig(words=words)
-    )
+    cfg = dataclasses.replace(main_config(path, n, 29), coverage=CoverageConfig(words=words))
+    wrapper = tfused.FUSED_WRAPPERS[cfg.protocol]
+    block = tfused.BINDINGS[cfg.protocol].block
     plan = config_plan(cfg, 29)
     plain = path_state(cfg, "cuda")
     kern = wrapper(plain.clone(), cfg.seed, plan, cfg.fault, ticks)
@@ -1524,28 +1547,30 @@ def test_observed_multipaxos_shared_bloom_word_on_cuda(words):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["observed-multipaxos", "observed-multipaxos-long"])
-def test_observed_multipaxos_deferred_insert_on_cuda(path):
-    """K5's coverage insert completes a tick late (the launch's last tick's
-    at its end): on 1000 lanes (a lane count no multiple of the 96 or 64
-    lanes a block), 24 one-tick launches, each followed by a 0-tick launch
-    that leaves the state as it was, and one 24-tick launch equal the plain
-    tick byte for byte, observer leaves included."""
+@pytest.mark.parametrize(
+    "path", ["observed-multipaxos", "observed-multipaxos-long", "observed-synchpaxos", "observed-fastpaxos"]
+)
+def test_observed_deferred_insert_on_cuda(path):
+    """The coverage insert of K5, K4 and K2 completes a tick late (the
+    launch's last tick's at its end): on 1000 lanes (a lane count no
+    multiple of the 128, 96 or 64 lanes a block), 24 one-tick launches,
+    each followed by a 0-tick launch that leaves the state as it was, and
+    one 24-tick launch equal the plain tick byte for byte, observer leaves
+    included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     n, block, ticks = 1000, 200, 24
-    wrapper = tfused.fused_multipaxos_chunk
     cfg = main_config(path, n, 17)
+    wrapper, binding = tfused.FUSED_WRAPPERS[cfg.protocol], tfused.BINDINGS[cfg.protocol]
     plan = config_plan(cfg, 17)
     plain = path_state(cfg, "cuda")
-    assert n % tfused.BINDINGS["multipaxos"].staging[
-        tfused.BINDINGS["multipaxos"].kernel_shape(plain, cfg.fault)].threads
+    assert n % binding.staging[binding.kernel_shape(plain, cfg.fault)].threads
     once = wrapper(plain.clone(), cfg.seed, plan, cfg.fault, ticks, block=block)
     ticked = plain.clone()
     for _ in range(ticks):
         ticked = wrapper(ticked, cfg.seed, plan, cfg.fault, 1, block=block)
         before = ticked.clone()
-        tfused._launch("multipaxos", ticked, cfg.seed, plan, cfg.fault, 0, block, 0, False)
+        tfused._launch(cfg.protocol, ticked, cfg.seed, plan, cfg.fault, 0, block, 0, False)
         torch.cuda.synchronize()
         _assert_same(ticked, before)
     plain = plain_chunk(cfg, plain, plan, ticks, block)

@@ -12,7 +12,7 @@ arms are an instantiation of their own at config3's shape, with its
 default's column, and so is the bounded-delay channel, whose 40 stamp
 words a lane join the column while the PROMISE payloads go to global
 memory, so that an SM still holds 2 blocks of 128 lanes; so are the
-observer planes, whose counter rows (``mp_obs_rows``: the margins and the
+observer planes, whose counter rows (``tally_obs_rows``: the margins and the
 client queue, 20 words, the other counters in registers; with the arms all
 49 of ``obs_rows``) join the column, and at config3-long's shape too.
 """
@@ -56,7 +56,7 @@ def test_staged_rows_match_the_state_leaves(shape, staging):
         tfused.MP_STAGED_LEAVES + (tfused.MP_STAMP_LEAVES if stamped else ())
         + ((tfused.MP_PROM_LEAF,) if staging.stage_prom else ())
     )
-    counters = tfused.mp_obs_rows(shape) if observed else 0
+    counters = tfused.tally_obs_rows(n_prop, shape[5]) if observed else 0
     assert counters in (0, 4 + 8 * n_prop if not shape[5] else tfused.obs_rows(n_prop))
     rows = sum(_rows(state, path) for path in leaves) + counters
     assert staging.rows == rows == tfused.mp_staged_rows(*shape[:5], staging.stage_prom) + counters
@@ -123,7 +123,7 @@ def test_observed_geometry_keeps_two_blocks_an_sm():
         assert 2 * (st.smem_bytes + reserved) <= sm_shared
         if st.threads == 96:
             assert 2 * (st.rows * 4 * 128 + reserved) > sm_shared
-    staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 0, True) + tfused.mp_obs_rows((2, 5, 8, 4, 0, 0, 1))
+    staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 0, True) + tfused.tally_obs_rows(2, False)
     assert staged_all == 212
 
 

@@ -59,7 +59,7 @@ def test_observed_long_log_geometry():
         "acceptor.log": 80, "proposer.recov_bv": 32, "learner.lt_bv": 64, "learner.lt_mask": 16,
         "learner.chosen_val": 16, "learner.chosen_tick": 16, "promises.p_bv": 160,
     }
-    staged = sum(words.values()) + tfused.mp_obs_rows(KEY)
+    staged = sum(words.values()) + tfused.tally_obs_rows(KEY[0], KEY[5])
     assert (st.threads, st.stage_prom, st.rows) == (64, True, staged) == (64, True, 404)
     assert st.smem_bytes == 404 * 4 * 64 == 103_424 <= tfused.SMEM_PER_BLOCK_MAX
     assert 2 * (st.smem_bytes + RESERVED) <= SM_SHARED < 3 * (st.smem_bytes + RESERVED)

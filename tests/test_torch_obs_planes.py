@@ -279,8 +279,10 @@ def test_coverage_digest_and_observe_match_jax():
 
 def test_observed_column_rows_match_the_kernel():
     """``obs_rows`` (the words an observed instantiation adds to a lane's
-    column) is ``obs::Rows<P>::kRows`` of fused_common.cuh, and the plane
-    sizes its C entry reads are ``_obs_args``'."""
+    column) is ``obs::Rows<P>::kRows`` of fused_common.cuh,
+    ``tally_obs_rows`` (K4's and K2's, and K5's without the arms)
+    ``obs::TallyRows``, and the plane sizes its C entry reads are
+    ``_obs_args``'."""
     common = (build.CSRC / "fused_common.cuh").read_text()
     body = re.search(r"struct Rows \{(.*?)\};", common, re.S).group(1)
     assert "kWl = kNewBits + 1, kRows = kWl + 8 * P;" in body
@@ -288,12 +290,21 @@ def test_observed_column_rows_match_the_kernel():
     assert env["kEvents"] == len(ttel.EVENTS)
     rows = env["kEvents"] + 2 + 2 * env["kClasses"] + 4 + 1 + 8 * P
     assert tfused.obs_rows(P) == rows == 49
-    # K5 keeps the margins and the client queue in the column (obs::MpRows),
-    # the other counters in registers, but with the arms all of them.
-    mp_rows = re.search(r"struct MpRows \{(.*?)\};", common, re.S).group(1)
-    assert "kMar = 0, kWl = 4, kRows = kWl + 8 * P;" in mp_rows
-    assert tfused.mp_obs_rows((P, A, 8, 4, 0, 0, 1)) == 4 + 8 * P == 20
-    assert tfused.mp_obs_rows((P, A, 8, 4, 0, 1, 1)) == tfused.obs_rows(P)
+    # K5 keeps the margins and the client queue in the column
+    # (obs::TallyRows), the other counters in registers, but with the arms
+    # all of them; K4 and K2 keep them in registers at every key, with the
+    # arms every counter.
+    tally_rows = re.search(r"struct TallyRows \{(.*?)\};", common, re.S).group(1)
+    assert "kMar = 0, kWl = 4, kRows = kWl + 8 * P;" in tally_rows
+    assert tfused.tally_obs_rows(P) == 4 + 8 * P == 20
+    assert tfused.tally_obs_rows(P, True) == tfused.obs_rows(P)
+    src = (build.CSRC / "fused_multipaxos_tick.cu").read_text()
+    assert "using CR = std::conditional_t<TALLY, obs::TallyRows<P>, obs::Rows<P>>;" in src
+    assert "constexpr bool TALLY = !ARMS;" in src
+    for kernel in ("fused_fastpaxos_tick", "fused_synchpaxos_tick"):
+        src = (build.CSRC / f"{kernel}.cu").read_text()
+        assert "using CR = obs::TallyRows<P>;" in src
+        assert "obs::Tally<STAMPED, ARMS> tally;" in src
     assert f"constexpr int kLeaves = {len(tfused.OBS_LEAVES)};" in common
     assert "constexpr int kParams = 13;" in common
     leaf_enum = re.search(r"enum Leaf \{(.*?)\};", common[common.index("namespace obs"):], re.S).group(1)
@@ -312,21 +323,27 @@ def test_observed_column_rows_match_the_kernel():
 def test_observed_geometry_of_k1_k2_k3(protocol, rows):
     """The observed instantiations of K1, K2 and K3 (keys ending in
     ``observed``, at (2,5,8) with and without the stamps and the arms):
-    the staged rows plus ``obs_rows`` (K1 and K2 153 words, 193 stamped;
-    K3 163 and 203), 2 blocks of 128 lanes; the wrapper keys a state with a
-    plane to them, and one at a shape without an observed instantiation
-    (three acceptors) is refused before any launch."""
+    the staged rows plus the counter rows, ``obs_rows`` (K1 153 words, 193
+    stamped; K3 163 and 203; 2 blocks of 128 lanes), K2's ``tally_obs_rows``
+    (124 words at 3 blocks of 128, stamped 164 at 2 of 128; with the arms
+    124 and 164 at 2 of 128); the wrapper keys
+    a state with a plane to them, and one at a shape without an observed
+    instantiation (three acceptors) is refused before any launch."""
     table = tfused.FR_STAGING[protocol]
     observed = [k for k in tfused.KERNEL_SHAPES[protocol] if k[5]]
     assert observed == [(2, 5, 8, s, r, 1) for s in (0, 1) for r in (0, 1)]
     for key in observed:
         st = table[key]
-        want = rows + 40 * key[3] + tfused.obs_rows(2)
-        assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (128, want, want * 512, 2)
-        assert tfused._launch_dims(tfused.BINDINGS[protocol], key) == key + (want * 512,)
-    assert [table[k].rows for k in observed] == (
-        [163, 163, 203, 203] if protocol == "raftcore" else [153, 153, 193, 193]
-    )
+        tally = protocol == "fastpaxos"  # most counters in registers
+        want = rows + 40 * key[3] + (tfused.tally_obs_rows(2) if tally else tfused.obs_rows(2))
+        threads, blocks = (128, 3) if tally and not key[3] and not key[4] else (128, 2)
+        assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (
+            threads, want, want * 4 * threads, blocks
+        )
+        assert tfused._launch_dims(tfused.BINDINGS[protocol], key) == key + (want * 4 * threads,)
+    assert [table[k].rows for k in observed] == {
+        "paxos": [153, 153, 193, 193], "fastpaxos": [124, 124, 164, 164], "raftcore": [163, 163, 203, 203],
+    }[protocol]
     binding = tfused.BINDINGS[protocol]
     assert binding.observed
     cfg = dataclasses.replace(
@@ -343,15 +360,16 @@ def test_observed_geometry_of_k1_k2_k3(protocol, rows):
 
 
 @pytest.mark.parametrize("protocol,head,rows,threads", [
-    ("synchpaxos", (2, 5, 8), (153, 153, 193, 193), (128,) * 4),
+    ("synchpaxos", (2, 5, 8), (124, 124, 164, 164), (128, 128, 96, 128)),
     ("multipaxos", (2, 5, 8, 4), (212, 241, 252, 281), (128, 96, 96, 96)),
 ])
 def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
     """The observed instantiations of K4 and K5 (keys ending in
     ``observed``, at their (2,5,8) and (2,5,8,4) with and without the
     stamps and the arms): their planes-off column plus the counter rows
-    (K4 ``obs_rows``: 153 words, 193 stamped, as K1's, 2 blocks of 128; K5
-    ``mp_obs_rows``, the PROMISE payloads staged: 212 words at 2 blocks of
+    (K4 ``tally_obs_rows``: 124 words at 3 blocks of 128, 164 stamped at 3 of
+    96, with the arms 124 and 164 at 2 of 128, as K2's; K5
+    ``tally_obs_rows``, the PROMISE payloads staged: 212 words at 2 blocks of
     128, 241 with the arms, 252 stamped and 281 with both at 2 blocks of
     96); the wrapper keys a state with
     a plane to them and one without to the planes-off keys.  (K5's observed
@@ -366,7 +384,7 @@ def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
     for key in observed:
         st = table[key]
         assert st.smem_bytes == st.rows * 4 * st.threads
-        counters = tfused.mp_obs_rows(key) if protocol == "multipaxos" else tfused.obs_rows(2)
+        counters = tfused.tally_obs_rows(key[0], protocol == "multipaxos" and key[-2])
         assert st.rows == table[key[:-1] + (0,)].rows + counters + (
             80 if protocol == "multipaxos" and key[-3] else 0  # the payloads K5 stamped leaves global
         )

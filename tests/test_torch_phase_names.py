@@ -5,10 +5,11 @@ needed, no JAX).
 into, in the order of the ``Phase`` enum of the protocol's kernel source
 (``csrc/fused_<protocol>_tick.cu``), each marked once by the tick;
 ``fused_tick.PHASE_SLOTS`` is the reader's count, ``kMaxPhases`` in
-``csrc/fused_common.cuh``.  K5's enum names each of its phases (one
-comment an entry), its observed tick's planes split into four;
-``chip_ab.source_phases`` reads those names, so that sources timed
-against each other are split by their own phases.
+``csrc/fused_common.cuh``.  The enums of K2, K4 and K5 name each of
+their phases (one comment an entry), their observed ticks' planes split
+into four (``OBSERVER_SPLIT``); ``chip_ab.source_phases`` reads those
+names, so that sources timed against each other are split by their own
+phases.
 """
 
 import re
@@ -55,26 +56,33 @@ def test_phases_follow_the_enum(protocol):
     assert chip_ab.source_phases(src, tfused.PHASES[protocol]) == tfused.PHASES[protocol]
 
 
-def test_multipaxos_names_its_observer_split():
-    """K5's enum names every phase, and its observed tick's planes are the
-    four phases before the column store."""
-    entries = _enum(_source("multipaxos"))[:-1]
+@pytest.mark.parametrize("protocol", ["multipaxos", "synchpaxos", "fastpaxos"])
+def test_names_its_observer_split(protocol):
+    """The enums of K5, K4 and K2 name every phase, and their observed
+    ticks' planes are the four phases before the column store, each marked
+    once, in that order."""
+    src = _source(protocol)
+    entries = _enum(src)[:-1]
     assert all(name is not None for _, name in entries)
-    assert tfused.PHASES["multipaxos"][-5:] == (
-        "observer counters", "margin", "digest", "coverage insert", "column store",
-    )
-    assert "observers" not in tfused.PHASES["multipaxos"]
+    assert tfused.OBSERVER_SPLIT == ("observer counters", "margin", "digest", "coverage insert")
+    assert tfused.PHASES[protocol][-5:] == tfused.OBSERVER_SPLIT + ("column store",)
+    assert "observers" not in tfused.PHASES[protocol]
+    marks = [src.index(f"clk.mark({ident});") for ident, _ in entries[-5:]]
+    assert marks == sorted(marks)
 
 
 def test_phase_slots_hold_every_kernel():
+    """``PHASE_SLOTS`` (12, K4's phases with its observers split) is
+    ``kMaxPhases`` and holds the longest list."""
     assert f"constexpr int kMaxPhases = {tfused.PHASE_SLOTS};" in COMMON
-    assert max(len(p) for p in tfused.PHASES.values()) == tfused.PHASE_SLOTS
+    assert max(len(p) for p in tfused.PHASES.values()) == tfused.PHASE_SLOTS == 12
+    assert len(tfused.PHASES["synchpaxos"]) == 12 and len(tfused.PHASES["fastpaxos"]) == 11
 
 
 def test_an_unnamed_enum_keeps_its_observers_phase_whole():
     """A K5 source from before the split (one ``kPhObs``, no names) is
-    split by its own eight phases; a kernel without an observers phase
-    clocks none."""
+    split by its own eight phases, a K4 or K2 one (PR 18's) by its own nine
+    or eight; a kernel without an observers phase clocks none."""
     older = re.sub(
         r"enum Phase \{.*?\};",
         "enum Phase {\n  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhProposer, "
@@ -87,3 +95,34 @@ def test_an_unnamed_enum_keeps_its_observers_phase_whole():
     assert chip_ab.source_phases(bare, tfused.PHASES["multipaxos"]) == (
         tfused.PHASES["multipaxos"][:6] + ("column store",)
     )
+    for protocol, before in (
+        ("synchpaxos", "kPhLoad, kPhRefresh, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, "
+                       "kPhObs,\n  kPhStore, kPhases,"),
+        ("fastpaxos", "kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, "
+                      "kPhStore,\n  kPhases,"),
+    ):
+        older = re.sub(r"enum Phase \{.*?\};", "enum Phase {\n  " + before + "\n};", _source(protocol),
+                       flags=re.S)
+        split = len(tfused.OBSERVER_SPLIT)
+        assert chip_ab.source_phases(older, tfused.PHASES[protocol]) == (
+            tfused.PHASES[protocol][:-split - 1] + ("observers", "column store")
+        )
+
+
+@pytest.mark.parametrize("protocol", ["synchpaxos", "fastpaxos"])
+def test_table_staging_reads_each_sources_counter_rows(protocol):
+    """``chip_ab.table_staging`` launches a K4 or K2 source at its own
+    table's geometry and counter rows: this source's as the wrapper's, and
+    a parent's (every observed key at 2 blocks of 128, no ``obs::Tally``)
+    with all 49 counters in its observed columns."""
+    src = _source(protocol)
+    staging = tfused.BINDINGS[protocol].staging
+    assert chip_ab.table_staging(protocol, src, staging) == staging
+    older = re.sub(r"X\((2, 5, 8, [01], [01], 1), \d+, \d\)", r"X(\1, 128, 2)", src)
+    got = chip_ab.table_staging(protocol, older.replace("obs::Tally", "obs::Rows"), staging)
+    for key, st in got.items():
+        if key[5]:
+            rows = tfused.sp_staged_rows(*key[:4]) + tfused.obs_rows(2)
+            assert (st.threads, st.min_blocks, st.rows) == (128, 2, rows)
+        else:
+            assert st == staging[key]

@@ -12,7 +12,7 @@ and the table against the instantiations and the phase list of
 instantiations share.  The instantiations are keyed by shape, stamps,
 arms and observer flag, ``(n_prop, n_acc, k_slots, stamped, arms,
 observed)``; an arms instantiation keeps its default's column, an observed
-one adds the planes' counters (``obs_rows``) after it.
+one adds the planes' counters (``tally_obs_rows``) after it.
 """
 
 import dataclasses
@@ -68,8 +68,10 @@ def _rows(state, path, kinds):
 def test_staged_rows_match_the_state_leaves(shape, staging):
     state = _state(shape)
     rows = sum(_rows(state, path, kinds) for path, kinds in _staged(shape))
-    rows += tfused.obs_rows(shape[0]) if shape[5] else 0
-    assert staging.rows == rows == tfused.sp_staged_rows(*shape[:4]) + shape[5] * tfused.obs_rows(2)
+    counters = tfused.tally_obs_rows(shape[0]) if shape[5] else 0
+    rows += counters
+    assert staging.rows == rows == tfused.sp_staged_rows(*shape[:4]) + counters
+    assert counters in (0, 4 + 8 * shape[0])
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -98,14 +100,20 @@ def test_every_instantiation_has_a_geometry():
 
 def test_observed_geometry_is_k1s():
     """The observed instantiations, at (2,5,8) with and without the stamps
-    and the arms: 153 words (193 stamped), 2 blocks of 128 lanes, as K1's;
-    the others keep their planes-off geometry (3 blocks)."""
+    and the arms, most counters in registers: 124 words (164 stamped), as
+    K2's; without the arms 3 blocks of 128 lanes, stamped 3 of 96 (K2's at
+    2 of 128); with the arms 2 blocks of 128, as K1's; the others keep their
+    planes-off geometry (3 blocks)."""
     observed = [k for k in tfused.SP_STAGING if k[5]]
     assert observed == [(2, 5, 8, s, r, 1) for s in (0, 1) for r in (0, 1)]
     for key in observed:
         st = tfused.SP_STAGING[key]
-        assert st == tfused.FR_STAGING["paxos"][key]
-        assert (st.threads, st.rows, st.min_blocks) == (128, 153 + 40 * key[3], 2)
+        assert (st == tfused.FR_STAGING["fastpaxos"][key]) == (key != (2, 5, 8, 1, 0, 1))
+        if key[4]:
+            assert (st.threads, st.min_blocks) == (tfused.FR_STAGING["paxos"][key].threads, 2)
+            assert (st.threads, st.rows, st.min_blocks) == (128, 124 + 40 * key[3], 2)
+        else:
+            assert (st.threads, st.rows, st.min_blocks) == ((96, 164, 3) if key[3] else (128, 124, 3))
     assert all(st.min_blocks == 3 for k, st in tfused.SP_STAGING.items() if not k[5])
 
 
@@ -132,7 +140,7 @@ def test_source_instantiates_each_shape_once():
     assert SOURCE.count("n_dims != 7") == 2 and SOURCE.count("const int smem = dims[6];") == 2
     assert "using G = SdStaged<P, A, K, false, STAMPED>;" in SOURCE
     assert "(SdStaged<P, A, K, false, STAMPED>::kRows +" in SOURCE
-    assert "(has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4" in SOURCE
+    assert "(has_arg<obs::Obs, Arms...> ? obs::TallyRows<P>::kRows : 0)) * B * 4>;" in SOURCE
 
 
 def test_source_column_order_matches_the_leaves():
@@ -168,7 +176,7 @@ def test_source_column_order_matches_the_leaves():
 def test_phase_names_match_the_kernel():
     """``PHASES['synchpaxos']`` names the .cu's ``Phase`` enum, in order,
     and the tick marks every phase once."""
-    body = re.search(r"enum Phase \{(.*?)\};", SOURCE, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", re.search(r"enum Phase \{(.*?)\};", SOURCE, re.S).group(1))
     phases = [p.strip() for p in body.replace("\n", " ").split(",") if p.strip()]
     assert phases[-1] == "kPhases"
     assert len(phases[:-1]) == len(tfused.PHASES["synchpaxos"])
