@@ -42,11 +42,11 @@ unstamped ones only, and a kernel without its observed instantiations its
 other ones, keyed without the flag (and its phase list without the
 observers phase; a kernel without a phase-clock build, K5 before it had
 one, no phase split; an observers phase that the source clocks whole, as
-K2, K4 and K5 did before they split it, whole).  A source whose
+each kernel did before it split it, whole).  A source whose
 instantiation table (``K1_INSTANCES`` to ``K5_INSTANCES``) lists another
 geometry than the wrapper's (lanes a block, blocks an SM, PROMISE payloads
 staged or not), or whose observed columns hold another count of counter
-rows (K2, K4 and K5 before they kept most counters in registers: 49), is
+rows (every kernel before it kept most counters in registers: 49), is
 launched at its own (:func:`table_staging`), so that two geometries of one
 kernel, or a parent and its redesign, compare in one call.  Prints the card's name and
 power limit, then as its last line one JSON object of every measurement.
@@ -88,7 +88,7 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
         return staging
     rows = re.findall(r"X\(([\w, ]+)\)", found.group(1))
     # An observed column holds every plane counter unless the source keeps
-    # most of them in registers (obs::Tally: K5, K4 and K2 do).
+    # most of them in registers (obs::Tally: K1 to K5 do).
     if "obs::Tally" in src:
         counter_rows = tf.tally_obs_rows
     else:
@@ -181,7 +181,7 @@ def use_sources(csrc: Path, bindings: dict, phases: dict) -> None:
 def source_phases(src: str, phases: tuple) -> tuple:
     """The phases a kernel source clocks: the names its ``Phase`` enum
     gives them (one comment an entry), or, where it names none, ``phases``
-    as it marks them (the observers phase of K2, K4 or K5 whole where the
+    as it marks them (the observers phase of K1 to K5 whole where the
     source had not split it, ``fused_tick.OBSERVER_SPLIT``; no observers
     phase where it has none)."""
     from paxos_tpu_torch.kernels import fused_tick as tf

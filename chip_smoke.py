@@ -1574,6 +1574,56 @@ def phase_main_path(path: str) -> dict:
 
         out["fast_path_rate"] = fast_path_rate(state)
         log(f"{path} main path: fast-path rate {out['fast_path_rate']}")
+    if path in LAUNCH_PROFILE_PATHS:
+        out["launch_profile"] = launch_profile(path)
+    return out
+
+
+# The paths whose fused-kernel time phase_main_path also splits launch by
+# launch (launch_profile): observed-paxos, whose lanes settle at different
+# ticks, so that a warp runs a lane's whole tick while the others of its
+# warp run the settled ticks.
+LAUNCH_PROFILE_PATHS = ("observed-paxos",)
+
+
+def launch_profile(path: str, reps: int = 3, first_chunks: int = 16) -> dict:
+    """Where main path ``path``'s fused-kernel time goes: each of its
+    launches (``MAIN_CHUNK * MAIN_DEPTH`` ticks, from the states the path
+    reaches at full width, seed 0), and its first ``first_chunks`` chunks
+    of ``MAIN_CHUNK`` ticks from the initial state, each timed alone (CUDA
+    events, the mean of ``reps`` launches from copies of its state), with
+    the lanes not settled at its start (:func:`settled_lanes`) and the
+    warps (32 consecutive lanes) that hold one.  The launches go through
+    the path's chunk function, as ``run`` calls it."""
+    from paxos_tpu_torch.harness.run import init_plan
+    from paxos_tpu_torch.kernels.fused_tick import BINDINGS, FUSED_CHUNKS, warm_kernel
+
+    cfg = main_config(path)
+    protocol, ticks = MAIN_PATHS[path].protocol, MAIN_PATHS[path].ticks
+    plan = main_plan(cfg) or init_plan(cfg, "cuda")
+    chunk = FUSED_CHUNKS[protocol]
+    per_launch = MAIN_CHUNK * MAIN_DEPTH
+    out = {}
+    for name, n_ticks, count in (
+        ("launches", per_launch, ticks // per_launch), ("first_chunks", MAIN_CHUNK, first_chunks),
+    ):
+        state = path_state(cfg)
+        warm_kernel(protocol, state, cfg.seed, plan, cfg.fault, BINDINGS[protocol].block)
+        rows = []
+        for k in range(count):
+            busy = ~settled_lanes(state)
+            copies = iter([state.clone() for _ in range(reps)])
+            _, ms = timed(lambda: chunk(next(copies), cfg.seed, plan, cfg.fault, n_ticks), reps)
+            row = {"ticks": [k * n_ticks, (k + 1) * n_ticks], "ms": ms,
+                   "unsettled_lanes": int(busy.sum()),
+                   "warps_with_unsettled_lane": int(busy.view(-1, 32).any(1).sum())}
+            rows.append(row)
+            log(f"{path} {name} {k}: ticks {row['ticks'][0]} to {row['ticks'][1]}: {ms:.3f} ms "
+                f"alone (mean of {reps}); at its start {row['unsettled_lanes']} lanes not settled, "
+                f"{row['warps_with_unsettled_lane']} of {cfg.n_inst // 32} warps holding one")
+            state = chunk(state, cfg.seed, plan, cfg.fault, n_ticks)
+        out[name] = rows
+        log(f"{path} {name}: {sum(r['ms'] for r in rows):.3f} ms in all")
     return out
 
 

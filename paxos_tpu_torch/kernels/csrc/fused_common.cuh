@@ -1107,7 +1107,8 @@ __device__ __forceinline__ void recover(const Gray& gray, const Leaves& L, int32
 // obs/exposure.py, obs/margin.py, workload/generator.py): what an observed
 // instantiation (of any of K1 to K5) computes beside the tick.  Every plane is switched
 // by whether its leaves were passed (Obs), a branch the whole warp takes
-// alike.  A lane's counters sit in its column from row R0 on (Rows), the
+// alike.  A lane's counters sit in registers (Tally) and in its column
+// from row R0 on (TallyRows; K5's arms keys all in the column, Rows), the
 // rest of a plane (the event ring and histogram, the coverage bitmap, the
 // client queue's stamps and histogram) in global memory at [row * n + i].
 // None of it draws but the client arrivals (ARRIVAL). ----
@@ -1201,7 +1202,8 @@ inline cudaError_t read_obs_args(void** leaves, int n_leaves, const long long* p
   return cudaSuccess;
 }
 
-// A lane's counters in its column, from row R0 on: the event counters,
+// A lane's counters in its column (K5's arms keys), from row R0 on: the
+// event counters,
 // the ring's cursor and word count, exposure's injected and effective
 // counts, the four margins, coverage's new bits, and the client queue's
 // eight fields a proposer (mode, phase, head, depth, depth_peak, offered,
@@ -1216,7 +1218,7 @@ struct Rows {
 // between the phase and the head).
 __host__ __device__ constexpr int wl_column_leaf(int f) { return f < 2 ? kWlMode + f : kWlHead + f - 2; }
 
-// The counter rows the observed instantiations of K4 and K2, and K5's
+// The counter rows the observed instantiations of K1 to K4, and K5's
 // without the arms, keep in a lane's column (from R0;
 // fused_tick.tally_obs_rows): the 4 margins and the client queue's 8
 // fields a proposer (field f of proposer p at kWl + f * P + p); their
@@ -1287,7 +1289,7 @@ __device__ __forceinline__ void move_tally_rows(const Column<B>& col, const Obs&
 }
 
 // The counters an observed instantiation keeps in registers for a launch
-// (K2's and K4's, and K5's without the arms; K5's arms keys spilled with
+// (K1's to K4's, and K5's without the arms; K5's arms keys spilled with
 // them, and keep all in the column, Rows): loaded at its start, added to
 // every tick and stored at its end, each where its plane is on, and only
 // those such an instantiation can change (without the arms, ARMS false: no
@@ -1413,54 +1415,16 @@ __device__ __forceinline__ void exposure(const Column<B>& col, const int (&inj)[
 // rows in the column from row LT (ballots, values, voter masks), each row
 // at the quorum quorum_of(its ballot) (the learner's: Fast Paxos' fast
 // quorum on a round-0 ballot), a decide edge `decided_now`, the chosen
-// value, and the acceptors' (voters') post-tick fence (honest acceptors:
-// bit a of `honest`).  Returns `near`, whether this tick is a near split
-// (what a tick that changes none of it adds again).
-template <int P, int R0, int K, int A, int LT, int B, typename QuorumOf>
-__device__ __forceinline__ bool margin(const Column<B>& col, QuorumOf quorum_of, bool chosen,
-                                       int32_t chosen_val, bool decided_now,
-                                       const int32_t (&promised)[A], const int32_t (&acc_bal)[A],
-                                       uint32_t honest) {
-  using Rw = Rows<P>;
-  int32_t tick_slack = kSentinel, vmin = kSentinel, vmax = 0, win_bal = 0, rival_bal = 0;
-  int hot = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int32_t bal = col[LT + k], val = col[LT + K + k];
-    const int votes = __popc(static_cast<uint32_t>(col[LT + 2 * K + k]));
-    const int32_t quorum = quorum_of(bal);
-    const bool live = bal > 0;
-    if (live && chosen && val != chosen_val) tick_slack = min(tick_slack, max(quorum - votes, 0));
-    if (live && votes >= quorum - 1) {
-      ++hot;
-      vmin = min(vmin, val);
-      vmax = max(vmax, val);
-    }
-    const bool win = votes >= quorum && live && val == chosen_val;
-    if (win) win_bal = max(win_bal, bal);
-    if (live && !win) rival_bal = max(rival_bal, bal);
-  }
-  const bool near = hot >= 2 && vmin != vmax;
-  col[R0 + Rw::kMar] = min(col[R0 + Rw::kMar], tick_slack);
-  if (near) col[R0 + Rw::kMar + 1] = wrap_add(col[R0 + Rw::kMar + 1], 1);
-  if (decided_now && rival_bal > 0)
-    col[R0 + Rw::kMar + 2] = min(col[R0 + Rw::kMar + 2], max(wrap_add(win_bal, -rival_bal), 0));
-  int32_t pslack = kSentinel;
-#pragma unroll
-  for (int a = 0; a < A; ++a)
-    if (((honest >> a) & 1u) && acc_bal[a] > 0) pslack = min(pslack, wrap_add(promised[a], -acc_bal[a]));
-  col[R0 + Rw::kMar + 3] = min(col[R0 + Rw::kMar + 3], pslack);
-  return near;
-}
-
-// margin (above) where the tick may have changed only part of what it
-// reads (K2 and K4): a minimum takes a value it has taken before at no
-// change, so the learner table is walked only where `walk` (the table or
-// the chosen bit may have changed: an accept event folded, or a launch's
-// first tick), the near split of the last walk (`near`) counted again
-// otherwise, and the promise slack is taken over the acceptors whose
-// promise or accepted ballot changed (bit a of `dirty`, honest ones only).
-// The four minima and the near count sit at rows MAR to MAR + 3.
+// value, and the acceptors' (voters') post-tick fence `promised` against
+// their accepted ballot (entry term) `acc_bal`, for a tick that may have
+// changed only part of what it reads (K1 to K4): a minimum takes a value
+// it has taken before at no change, so the learner table is walked only
+// where `walk` (the table or the chosen bit may have changed: an accept
+// event folded, or a launch's first tick), the near split of the last
+// walk (`near`) counted again otherwise, and the promise slack is taken
+// over the acceptors whose promise or accepted ballot changed (bit a of
+// `dirty`, honest ones only).  The four minima and the near count sit at
+// rows MAR to MAR + 3.
 template <int K, int A, int LT, int MAR, int B, typename QuorumOf>
 __device__ __forceinline__ void sd_margin(const Column<B>& col, QuorumOf quorum_of, bool walk,
                                           bool chosen, int32_t chosen_val, bool decided_now,
@@ -1568,61 +1532,6 @@ __device__ __forceinline__ void mp_margin(const Column<B>& col, uint32_t chosen,
   col[MAR + 3] = min(col[MAR + 3], pslack);
 }
 
-// workload.observe for each proposer p: serve first (bit p of `serve`, the
-// commit edge, pops the head stamp and banks its latency into the class's
-// log2 histogram), then this tick's arrival (one draw of stream ARRIVAL,
-// the protocol's, against the class's threshold) joins the queue or is
-// shed.
-template <int P, int R0, uint32_t ARRIVAL = kArrival, int B>
-__device__ __forceinline__ void workload(const Column<B>& col, const Obs& o, const TickStream& ts,
-                                         int32_t tick, uint32_t serve, int64_t n, int64_t i) {
-  using Rw = Rows<P>;
-  const int cap = o.wl_cap;
-#pragma unroll 1
-  for (int p = 0; p < P; ++p) {
-    const auto f = [&](int field) -> int32_t& { return col[R0 + Rw::kWl + field * P + p]; };
-    const int32_t mode = f(0);
-    int32_t head = f(2), depth = f(3);
-    if (((serve >> p) & 1u) && depth > 0) {
-      const bool in_ring = head >= 0 && head < cap;
-      const int32_t stamp =
-          in_ring ? o.p[kWlRing][(static_cast<int64_t>(head) * P + p) * n + i] : 0;
-      const int32_t latency = wrap_add(tick, -stamp);
-      int32_t bucket = 0;
-      for (int k = 1; k < o.wl_bins; ++k) bucket += latency >= (1 << k) ? 1 : 0;
-      if (mode >= 0 && mode < kWlClasses) {
-        int32_t* h = o.p[kWlHist] + static_cast<int64_t>(mode * o.wl_bins + bucket) * n + i;
-        *h = wrap_add(*h, 1);
-      }
-      head = head + 1 >= cap ? head + 1 - cap : head + 1;
-      depth -= 1;
-      f(6) = wrap_add(f(6), 1);
-    }
-    // arrival_threshold: the class's uint32 threshold at this tick.
-    const int32_t pos = floor_mod(wrap_add(tick, f(1)), o.wl_period);
-    uint32_t thr = o.wl_t_lo;
-    if (mode == 1 && pos < o.wl_burst_len) thr = o.wl_t_hi;
-    if (mode == 2) {
-      const int32_t tri = min(pos, o.wl_period - pos);
-      thr = o.wl_t_lo + static_cast<uint32_t>(o.wl_step) * static_cast<uint32_t>(tri);
-    }
-    const bool arrival = ts.bits(ARRIVAL, p) < thr;
-    if (arrival) {
-      f(5) = wrap_add(f(5), 1);
-      if (depth < cap) {
-        const int32_t slot = head + depth >= cap ? head + depth - cap : head + depth;
-        if (slot >= 0 && slot < cap) o.p[kWlRing][(static_cast<int64_t>(slot) * P + p) * n + i] = tick;
-        depth += 1;
-      } else {
-        f(7) = wrap_add(f(7), 1);
-      }
-    }
-    f(2) = head;
-    f(3) = depth;
-    f(4) = max(f(4), depth);
-  }
-}
-
 // A hint that brings the line holding `p` into L2, taking no register and
 // waiting for nothing (a no-op outside device code).
 __device__ __forceinline__ void prefetch_l2(const void* p) {
@@ -1631,9 +1540,13 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 #endif
 }
 
-// workload in K5's, K4's and K2's observed ticks, its global-memory reads
-// off the tick's chain: a served request's latency bin takes an add whose result the tick
-// does not wait for (atomicAdd with the old value unused: nothing else in a
+// workload.observe for each proposer p in an observed tick (K1 to K5):
+// serve first (bit p of `serve`, the commit edge, pops the head stamp and
+// banks its latency into the class's log2 histogram), then this tick's
+// arrival (one draw of stream ARRIVAL, the protocol's, against the class's
+// threshold) joins the queue or is shed.  Its global-memory reads are off
+// the tick's chain: a served request's latency bin takes an add whose
+// result the tick does not wait for (atomicAdd with the old value unused: nothing else in a
 // launch reads the histogram, so the sum is the plain read-modify-write's),
 // the next head's stamp is asked of L2 as the head passes a served one, and
 // the bin is a leading-zero count.  The queue's fields sit in the column
@@ -1716,31 +1629,11 @@ __device__ __forceinline__ uint32_t hash_pos(uint32_t digest, int j, uint32_t m)
   return x & (m - 1u);
 }
 
-// coverage.observe of a digest: its two Bloom bits into the lane's bitmap
-// (global memory), the bits newly set into new_bits.
-template <int P, int R0, int B>
-__device__ __forceinline__ void coverage(const Column<B>& col, const Obs& o, uint32_t digest,
-                                         int64_t n, int64_t i) {
-  using Rw = Rows<P>;
-  const uint32_t m = 32u * static_cast<uint32_t>(o.cov_words);
-  int newly = 0;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const uint32_t pos = hash_pos(digest, j, m);
-    int32_t* w = o.p[kCovBitmap] + static_cast<int64_t>(pos >> 5) * n + i;
-    const uint32_t old = static_cast<uint32_t>(*w), now = old | (1u << (pos & 31u));
-    if (now != old) {
-      *w = static_cast<int32_t>(now);
-      newly += __popc(now ^ old);
-    }
-  }
-  if (newly != 0) col[R0 + Rw::kNewBits] = wrap_add(col[R0 + Rw::kNewBits], newly);
-}
-
-// coverage.observe with the bitmap's read-modify-write off the tick's chain
-// (K5, K4 and K2; K1 and K3 call coverage above): `start` computes a
-// tick's two Bloom positions and asks L2 for their words, `load` (at the next tick's start)
-// loads them, and `finish` (at the next tick's insert, or after a launch's
+// coverage.observe of a digest (its two Bloom bits into the lane's bitmap
+// in global memory, the bits newly set into the coverage counter) with the
+// bitmap's read-modify-write off the tick's chain (K1 to K5): `start`
+// computes a tick's two Bloom positions and asks L2 for their words, `load`
+// (at the next tick's start) loads them, and `finish` (at the next tick's insert, or after a launch's
 // last tick) ors the bits in, writing each changed word once, both
 // positions' bits at once where they share a word, and returns the bits
 // newly set, each counted once, as the plain tick's or of both bits counts
@@ -1972,66 +1865,12 @@ __device__ __forceinline__ uint64_t zero_words(const Leaves& L, int64_t n, int64
   return zo;
 }
 
-// The digest's fold of an acceptor's (voter's) three snapshot shadows, at
-// leaves SNAP + 0..2, where the state carries them.
-template <int A, int SNAP>
-__device__ __forceinline__ void fold_shadows(Digest& d, const Obs& ob, const Leaves& L, int64_t n,
-                                             int64_t i) {
-  if (ob.snaps) {
-#pragma unroll 1
-    for (int f = 0; f < 3; ++f)
-      for (int a = 0; a < A; ++a) d.fold(load<int32_t>(L, SNAP + f, a, n, i));
-  }
-}
-
-// The digest's fold of a single-decree lane's two message buffers
-// (requests, then replies: ballots, first and second payloads, presence,
-// the stamps where STAMPED), in the reference's leaf and row order, from
-// the column (SdStaged G) and the presence masks; a zero-only payload word
-// is 0 where the chunk wrote its slot (`rq_written`, `rp_written`), else
-// what global memory holds (zero_words' mask `zo_nz`).
-template <typename G, bool STAMPED, int B>
-__device__ __forceinline__ void fold_buffers(Digest& d, const Column<B>& col, const Leaves& L,
-                                             int64_t n, int64_t i, uint64_t zo_nz,
-                                             uint32_t rq_written, uint32_t rp_written,
-                                             uint32_t rq_present, uint32_t rp_present) {
-  constexpr int S = G::S, E = G::E;
-  const auto zero_only = [&](int leaf, int j, uint32_t written, int bit) {
-    return ((written >> j) & 1u) || !((zo_nz >> bit) & 1ull) ? 0 : load<int32_t>(L, leaf, j, n, i);
-  };
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) d.fold(col[G::kRqBal + j]);
-#pragma unroll 1
-  for (int j = 0; j < S; ++j)
-    d.fold(j < G::kRqV1From ? zero_only(kRqV1, j, rq_written, j) : col[G::rq_v1(j)]);
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) d.fold(zero_only(kRqV2, j, rq_written, E + j));
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) d.fold((rq_present >> j) & 1u);
-  if constexpr (STAMPED) {
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold(col[G::kRqUntil + j]);
-  }
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) d.fold(col[G::kRpBal + j]);
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) d.fold(col[G::kRpV1 + j]);
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) d.fold(j < E ? col[G::kRpV2 + j] : zero_only(kRpV2, j, rp_written, S + j));
-#pragma unroll 1
-  for (int j = 0; j < S; ++j) d.fold((rp_present >> j) & 1u);
-  if constexpr (STAMPED) {
-#pragma unroll 1
-    for (int j = 0; j < S; ++j) d.fold(col[G::kRpUntil + j]);
-  }
-}
-
 // The digest's fold of N consecutive words, word(0) to word(N - 1) (column
 // rows, or a leaf's rows in global memory), in order: each batch of words
 // is loaded while the one before it folds, so the FNV chain, which cannot
 // be split (its value is the reference's), waits on its own multiplies and
-// not on a load a word (K5, K4 and K2: one warp a scheduler hides no
-// latency at their observed instantiations' occupancy).
+// not on a load a word (K1 to K5: one warp a scheduler hides no latency at
+// their observed instantiations' occupancy).
 template <int N, typename Word>
 __device__ __forceinline__ void fold_ahead(Digest& d, Word word) {
   constexpr int kBatch = N % 16 == 0 ? 16 : N % 10 == 0 ? 10 : N % 8 == 0 ? 8 : 1;
@@ -2072,7 +1911,9 @@ __device__ __forceinline__ void fold_zero_only(Digest& d, uint32_t live, Word wo
   for (int j = 0; j < N; ++j) d.fold((live >> j) & 1u ? word(j) : 0);
 }
 
-// fold_shadows with the 3 * A shadows (global memory) loaded at once.
+// The digest's fold of an acceptor's (voter's) three snapshot shadows, at
+// leaves SNAP + 0..2 in global memory, where the state carries them, all
+// 3 * A loaded at once.
 template <int A, int SNAP>
 __device__ __forceinline__ void fold_shadows_ahead(Digest& d, const Obs& ob, const Leaves& L,
                                                    int64_t n, int64_t i) {
@@ -2084,11 +1925,16 @@ __device__ __forceinline__ void fold_shadows_ahead(Digest& d, const Obs& ob, con
   for (int k = 0; k < 3 * A; ++k) d.fold(w[k]);
 }
 
-// fold_buffers (the same words in the same order) for K4 and K2: each run
-// of column rows in batches loaded ahead (fold_ahead; the replies'
-// ballots, first payloads and kind-0 second payloads are one run of
-// consecutive rows), each run of zero-only words as fold_zero_only, the
-// presence bits unrolled.
+// The digest's fold of a single-decree lane's two message buffers
+// (requests, then replies: ballots, first and second payloads, presence,
+// the stamps where STAMPED), in the reference's leaf and row order, from
+// the column (SdStaged G) and the presence masks; a zero-only payload word
+// is 0 where the chunk wrote its slot (`rq_written`, `rp_written`), else
+// what global memory holds (zero_words' mask `zo_nz`).  Each run of column
+// rows folds in batches loaded ahead (fold_ahead; the replies' ballots,
+// first payloads and kind-0 second payloads are one run of consecutive
+// rows), each run of zero-only words as fold_zero_only, the presence bits
+// unrolled.
 template <typename G, bool STAMPED, int B>
 __device__ __forceinline__ void fold_buffers_ahead(Digest& d, const Column<B>& col,
                                                    const Leaves& L, int64_t n, int64_t i,

@@ -81,6 +81,31 @@
 // arrived only.  A cut (ARMS) masks after the readiness gate and never
 // touches a stamp.
 //
+// The observer planes (telemetry, coverage, exposure, margin, the client
+// workload) compile into the observed instantiations (OBS, at (2,5,8), each
+// without and with the stamps and the arms), for a state that carries a
+// plane, through the pieces in obs:: (fused_common.cuh) that K2 to K5
+// share: with exposure on, the tick's drop, dup, corrupt and delay
+// decisions are drawn at its start (obs::predraw) and the lazy sites read
+// those bits, so the schedule is the planes-off one; the planes run on the
+// post-tick state, before the per-tick ballot clamp, each exactly as the
+// plain tick computes it and off the tick's chain where it can: the
+// coverage digest from batches of column words loaded ahead
+// (obs::fold_buffers_ahead), its insert a tick late (obs::DeferredCoverage),
+// the counters in registers (obs::Tally; obs::TallyRows in the column: 124
+// words at 3 blocks of 128 without the arms or the stamps, 164 stamped,
+// either with the arms at 2), the margin's walk of the learner table only
+// where an accept event folded (obs::sd_margin).  A settled lane's planes
+// still draw and count every tick, so it cannot take the rest of its chunk
+// at once: its digest is folded again only where a restore, a snapshot or
+// the clamp changed its state, and until every lane of its warp is settled
+// it ticks in step with them (quiet: the tick's own work skipped), since
+// lanes of one warp that left the tick loop at different ticks would run
+// the settled ticks apart, one group after another (a first 1024-tick
+// launch of observed-paxos ran 5.6 times as long as the same ticks in
+// 64-tick launches, PERF.md section 6); then the warp runs a loop of the
+// settled ticks alone.
+//
 // The ablated builds (-DFUSED_ABLATE, fused_common.cuh) instantiate
 // config2's key only and remove their components where the tick runs
 // them: no draw and the highest present slot selected (prng), no acceptor
@@ -111,10 +136,21 @@ using sd::ColumnLearner;
 using sd::select_present;
 using sd::SdStaged;
 
-// The tick's phases in order, as the phase-clock build splits a lane's
-// cycles (fused_tick.PHASES["paxos"]).
+// The tick's phases in order, each with its name in the phase-clock build's
+// split of a lane's cycles (fused_tick.PHASES["paxos"]): an observed tick's
+// planes take the four before the store.
 enum Phase {
-  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, kPhStore,
+  kPhLoad,      // column load
+  kPhDeliver,   // reply delivery
+  kPhFold,      // proposer fold
+  kPhAcceptor,  // acceptor half-tick
+  kPhLearner,   // learner
+  kPhSends,     // proposer sends
+  kPhCounters,  // observer counters
+  kPhMargin,    // margin
+  kPhDigest,    // digest
+  kPhCoverage,  // coverage insert
+  kPhStore,     // column store
   kPhases,
 };
 
@@ -147,14 +183,18 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, false, STAMPED>;
-  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
+  // The planes' counters (OBS): in registers for the launch (obs::Tally,
+  // with the arms every one), the margins and the client queue in the
+  // column (obs::TallyRows), from row R0.
+  using CR = obs::TallyRows<P>;
+  constexpr int R0 = G::kRows;
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
   constexpr int E = G::E;  // links (edges), index p * A + a; slot j is on edge j % E
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr uint32_t kAccs = (1u << A) - 1;
-  extern __shared__ int32_t smem[];  // G::kRows * B words
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and CR::kRows)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
@@ -199,13 +239,16 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     sd::load_column<P, A, K, false, sd::kCopyUnroll<MIN_BLOCKS>, B, STAMPED>(col, L, n, i);
     if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
   }
-  // The planes' counters into the column, and the zero-only payload words
-  // (no row) that are not 0 in global memory, which the coverage digest
-  // folds where the chunk has not written their slot (bit j: a PREPARE's
-  // v1; E + j: a request's v2; E + S + j: an ACCEPTED's v2).
+  obs::Tally<STAMPED, ARMS> tally;
+  // The planes' counters into the registers and the column, and the
+  // zero-only payload words (no row) that are not 0 in global memory, which
+  // the coverage digest folds where the chunk has not written their slot
+  // (bit j: a PREPARE's v1; E + j: a request's v2; E + S + j: an
+  // ACCEPTED's v2).
   uint64_t zo_nz = 0;
   if constexpr (OBS) {
-    obs::move_counters<P, R0>(col, ob, n, i, true);
+    obs::move_tally_rows<P, R0>(col, ob, n, i, true);
+    tally.move(ob, n, i, true);
     if (ob.cov()) zo_nz = obs::zero_words<G>(L, n, i);
   }
 
@@ -251,6 +294,9 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
   const uint32_t lane = static_cast<uint32_t>(i % prm.block);
   const auto quorum_of = [&](int32_t) { return prm.q2; };
 
+  // The acceptors whose promise or accepted ballot the tick changes (OBS:
+  // the margin's promise slack; every one at a launch's first tick).
+  uint32_t acc_dirty = 0;
   // Stale-snapshot recovery (stale_k) or amnesia at `tick`, before the
   // acceptor half-tick: an acceptor recovering this tick restores its
   // snapshot (is wiped), and on a snapshot tick every acceptor's snapshot
@@ -260,6 +306,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, promised, acc_bal, acc_val, n, i, [&](int a) {
       const bool bad = !((equiv >> a) & 1u) && breaks_alone(promised[a], acc_bal[a], acc_val[a]);
       bad_alone = (bad_alone & ~(1u << a)) | ((bad ? 1u : 0u) << a);
+      if constexpr (OBS) acc_dirty |= 1u << a;
     });
   };
   clk.mark(kPhLoad);
@@ -303,7 +350,7 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     for (int a = 0; a < A; ++a) d.fold(acc_bal[a]);
 #pragma unroll
     for (int a = 0; a < A; ++a) d.fold(acc_val[a]);
-    if constexpr (OBS) obs::fold_shadows<A, SNAP>(d, ob, L, n, i);
+    if constexpr (OBS) obs::fold_shadows_ahead<A, SNAP>(d, ob, L, n, i);
 #pragma unroll
     for (int p = 0; p < P; ++p) d.fold(bal[p]);
 #pragma unroll
@@ -322,52 +369,67 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
     for (int p = 0; p < P; ++p) d.fold(timer[p]);
 #pragma unroll
     for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
-    obs::fold_buffers<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written, rq_present,
-                                  rp_present);
+    obs::fold_buffers_ahead<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written,
+                                        rq_present, rp_present);
     return d.value();
   };
   // The planes' update of a tick: its events (ev), exposure's counts, the
-  // commit edges (serve) and the decide edge; the margin in full where
-  // `full_margin` (else the near split again: what a tick that changed
-  // neither the learner nor the acceptors adds), the digest of the
-  // post-tick state where `digest_due`.
-  bool near = false;
+  // commit edges (serve) and the decide edge; the margin's walk of the
+  // learner table where `walk` (else the last walk's near split again) and
+  // its promise slack over the acceptors in acc_dirty; the digest of the
+  // post-tick state where `digest_due`, its insert completed a tick late
+  // (the insert of the tick before completes here, due or not).
+  bool near = false;          // the last margin walk's near split (obs::sd_margin)
+  obs::DeferredCoverage cov;  // the coverage insert in flight
   const auto planes = [&](const TickStream& ts, int32_t tick, const int (&ev)[obs::kEvents],
                           const int (&inj)[obs::kClasses], const int (&eff)[obs::kClasses],
-                          uint32_t serve, bool decided_now, bool full_margin, bool digest_due) {
+                          uint32_t serve, bool decided_now, bool walk, bool digest_due) {
     if constexpr (OBS) {
-      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
-      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.tel()) tally.telemetry(ob, tick, ev, n, i);
+      if (ob.exp()) tally.exposure(inj, eff);
+      if (ob.wl()) obs::mp_workload<P, R0 + CR::kWl, kArrival>(col, ob, ts, tick, serve, n, i);
+      clk.mark(kPhCounters);
       if (ob.mar()) {
-        if (full_margin) {
-          near = obs::margin<P, R0, K, A, G::kLtBal>(col, quorum_of, lrn.chosen, lrn.chosen_val,
-                                                     decided_now, promised, acc_bal,
-                                                     ~equiv & kAccs);
-        } else if (near) {
-          col[R0 + obs::Rows<P>::kMar + 1] = wrap_add(col[R0 + obs::Rows<P>::kMar + 1], 1);
-        }
+        obs::sd_margin<K, A, G::kLtBal, R0 + CR::kMar>(col, quorum_of, walk, lrn.chosen,
+                                                       lrn.chosen_val, decided_now, promised,
+                                                       acc_bal, acc_dirty & ~equiv & kAccs, near);
       }
-      if (ob.wl()) obs::workload<P, R0>(col, ob, ts, tick, serve, n, i);
-      if (ob.cov() && digest_due) obs::coverage<P, R0>(col, ob, digest(), n, i);
+      clk.mark(kPhMargin);
+      const uint32_t dg = ob.cov() && digest_due ? digest() : 0u;
+      clk.mark(kPhDigest);
+      if (ob.cov()) {
+        tally.new_bits = wrap_add(tally.new_bits, cov.finish(ob, n, i));
+        if (digest_due) cov.start(ob, dg, n, i);
+      }
     }
-    clk.mark(kPhObs);
+    clk.mark(kPhCoverage);
   };
 
+  // OBS: a settled lane's digest is due (its first settled tick; after a
+  // clamp) and restores or snapshots may change its acceptors every tick.
+  bool quiet_due = true;
+  // OBS: every lane of the warp that is still running is settled (a vote of
+  // the lanes that reach it together; one that votes alone decides for
+  // itself, which is exact all the same).
+  const auto warp_settled = [&] { return __all_sync(__activemask(), settled()) != 0; };
+  const bool restores = ARMS && (gray.stale_k > 0 || gray.amnesia);
   for (int t = 0; t < prm.n_ticks; ++t) {
     // ---- A settled lane: the rest of the chunk at once (under stale
     //      recovery or amnesia, one tick at a time: its acceptors still
-    //      restore and snapshot). ----
-    if (settled()) {
+    //      restore and snapshot).  An observed one ticks on, its planes
+    //      drawing and counting every tick: in a loop of its own once every
+    //      lane of its warp is settled, else in step with its warp below
+    //      (quiet), since lanes of one warp that left the tick loop at
+    //      different ticks would run that loop apart, one group after
+    //      another. ----
+    if (OBS ? warp_settled() : settled()) {
       if constexpr (OBS) {
-        // An observed settled lane: the planes still draw and count every
-        // tick; its digest changes only where a restore, a snapshot or the
-        // clamp changed the state, so it is folded again only then.
-        const bool restores = ARMS && (gray.stale_k > 0 || gray.amnesia);
-        bool due = true;
         for (; t < prm.n_ticks; ++t) {
           const int32_t tick = wrap_add(tick0, t);
           const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                               static_cast<uint32_t>(prm.block), lane, &draws};
+          cov.load(ob, n, i);
+          acc_dirty = t == 0 ? kAccs : 0u;
           recover(tick);
           const int viol = __popc(bad_alone);
           lrn.quiet(viol);
@@ -380,12 +442,12 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
             if (gray.partition) inj[obs::kClPartition] = __popc(cut_req) + __popc(cut_rep);
           }
           fault_events(tick, ev, inj, eff);
-          planes(ts, tick, ev, inj, eff, 0u, false, due || restores, due || restores);
-          due = false;
+          planes(ts, tick, ev, inj, eff, 0u, false, t == 0, quiet_due || restores);
+          quiet_due = false;
           if (prm.clamp_per_tick) {
 #pragma unroll
             for (int p = 0; p < P; ++p) {
-              due = due || bal[p] > kBallotLimit;
+              quiet_due = quiet_due || bal[p] > kBallotLimit;
               bal[p] = min(bal[p], kBallotLimit);
             }
           }
@@ -409,17 +471,28 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
       break;
     }
+    // A quiet lane (OBS, settled) skips only the tick's own work (delivery
+    // to the sends), which changes nothing but the learner's scalars.  Its
+    // digest changes only where a restore, a snapshot or the clamp changed
+    // the state, so it is folded again only then, and the learner table and
+    // the chosen bit not at all.
+    const bool quiet = OBS && settled();
     const int32_t tick = wrap_add(tick0, t);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
+    // The words of the previous tick's insert, loaded while this tick runs.
+    if constexpr (OBS) cov.load(ob, n, i);
     // What the planes read of the pre-tick state (OBS).
     const uint32_t rq_p0 = rq_present, rp_p0 = rp_present;
     const bool chosen0 = lrn.chosen;
     const int32_t viol0 = lrn.violations;
+    if constexpr (OBS) acc_dirty = t == 0 ? kAccs : 0u;
     recover(tick);
     // The slots whose stamp has come (STAMPED): a slot waiting for its
     // stamp is neither delivered nor selected.
-    if constexpr (STAMPED) ch.refresh(col, tick, &draws);
+    if constexpr (STAMPED) {
+      if (!quiet) ch.refresh(col, tick, &draws);
+    }
     const uint32_t rq_ready = rq_present & (STAMPED ? ~ch.rq_wait : ~0u);
 
     // The links cut this tick, per direction (bit e: edge e).
@@ -444,324 +517,352 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
       }
     }
 
-    // ---- Reply delivery (pre-tick buffer): the replies that have arrived,
-    //      on a link not cut and not held this tick; consumed unless
-    //      duplicated. ----
-    uint32_t delivered = rp_present & (STAMPED ? ~ch.rp_wait : ~0u);
-    if constexpr (ARMS) delivered &= ~(cut_rep | (cut_rep << E));
-    if (prm.hold.mode != 0) {
-      for (uint32_t m = delivered; m != 0; m &= m - 1) {
-        const int j = __ffs(m) - 1;
-        if (ts.fires_at(prm.hold, kDeliver, j)) delivered &= ~(1u << j);
-      }
-    }
-    uint32_t taken = ablated(kNoConsume) ? 0u : delivered;
-    if (!ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray)) {
-      for (uint32_t m = delivered; m != 0; m &= m - 1) {
-        const int j = __ffs(m) - 1;
-        if (dup_at(ts, pd, 1, j, kDupRep)) taken &= ~(1u << j);
-      }
-      if constexpr (OBS) n_dup += __popc(delivered & ~taken);
-    }
-    const uint32_t rp_next = rp_present & ~taken;
-    clk.mark(kPhDeliver);
-
-    // ---- Proposer fold over the pre-tick replies. ----
-    uint32_t p1_done = 0, expired = 0;  // proposers that send ACCEPT / PREPARE
-    int32_t old_bal[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if (ablated(kNoProposer)) break;
-      const int32_t cur = bal[p];
-      int32_t h = heard[p];
-      int32_t bb = best_bal[p], bv = best_val[p];
-      // ACCEPTED in P2 at the current ballot.
-      if (phase[p] == kP2) {
-        for (uint32_t m = (delivered >> ((P + p) * A)) & kAccs; m != 0; m &= m - 1) {
-          const int a = __ffs(m) - 1;
-          if (col[G::kRpBal + (P + p) * A + a] == cur) h |= 1 << a;
+    bool lt_tick = false;  // the learner table changed this tick (OBS: the margin walks it)
+    if (quiet) {
+      lrn.quiet(__popc(bad_alone));
+    } else {
+      // ---- Reply delivery (pre-tick buffer): the replies that have arrived,
+      //      on a link not cut and not held this tick; consumed unless
+      //      duplicated. ----
+      uint32_t delivered = rp_present & (STAMPED ? ~ch.rp_wait : ~0u);
+      if constexpr (ARMS) delivered &= ~(cut_rep | (cut_rep << E));
+      if (prm.hold.mode != 0) {
+        for (uint32_t m = delivered; m != 0; m &= m - 1) {
+          const int j = __ffs(m) - 1;
+          if (ts.fires_at(prm.hold, kDeliver, j)) delivered &= ~(1u << j);
         }
       }
-      // PROMISE in P1 at the current ballot (a valid promise): the highest
-      // previously-accepted ballot cb among them, the largest value
-      // reported with it, and how many report it.
-      int32_t cb = kInt32Min, cv = kInt32Min;
-      int n_cb = 0;
-      if (phase[p] == kP1) {
-        for (uint32_t m = (delivered >> (p * A)) & kAccs; m != 0; m &= m - 1) {
-          const int a = __ffs(m) - 1;
-          const int j0 = p * A + a;
-          if (col[G::kRpBal + j0] != cur) continue;
-          h |= 1 << a;
-          const int32_t pb = col[G::kRpV1 + j0];
-          if (pb >= cb) {
-            const int32_t pv = col[G::kRpV2 + j0];
-            cv = pb > cb ? pv : max(cv, pv);
-            n_cb = pb > cb ? 1 : n_cb + 1;
-            cb = pb;
+      uint32_t taken = ablated(kNoConsume) ? 0u : delivered;
+      if (!ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray)) {
+        for (uint32_t m = delivered; m != 0; m &= m - 1) {
+          const int j = __ffs(m) - 1;
+          if (dup_at(ts, pd, 1, j, kDupRep)) taken &= ~(1u << j);
+        }
+        if constexpr (OBS) n_dup += __popc(delivered & ~taken);
+      }
+      const uint32_t rp_next = rp_present & ~taken;
+      clk.mark(kPhDeliver);
+
+      // ---- Proposer fold over the pre-tick replies. ----
+      uint32_t p1_done = 0, expired = 0;  // proposers that send ACCEPT / PREPARE
+      int32_t old_bal[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (ablated(kNoProposer)) break;
+        const int32_t cur = bal[p];
+        int32_t h = heard[p];
+        int32_t bb = best_bal[p], bv = best_val[p];
+        // ACCEPTED in P2 at the current ballot.
+        if (phase[p] == kP2) {
+          for (uint32_t m = (delivered >> ((P + p) * A)) & kAccs; m != 0; m &= m - 1) {
+            const int a = __ffs(m) - 1;
+            if (col[G::kRpBal + (P + p) * A + a] == cur) h |= 1 << a;
           }
         }
-      }
-      // The plain fold takes its max over every acceptor, in every phase,
-      // with 0 for a slot that holds no valid promise (stale payloads
-      // included): the candidate ballot is max(cb, 0 if a slot is not
-      // valid), its value the max of the values of the slots at it, and 0
-      // where a slot is not at it.  Where cb > 0 that is cb, and cv with a
-      // 0 unless all A valid promises report cb: the delivered slots
-      // suffice.  Otherwise the candidate is at most 0 and can upgrade only
-      // a negative best_bal, which no state the ticks reach holds (it starts
-      // at 0 and takes only a candidate above it, or 0 on expiry); for such
-      // a state the fold runs over every slot, as the plain one does.
-      if (cb > 0) {
-        if (cb > bb) {
-          bb = cb;
-          bv = n_cb == A ? cv : max(cv, 0);
+        // PROMISE in P1 at the current ballot (a valid promise): the highest
+        // previously-accepted ballot cb among them, the largest value
+        // reported with it, and how many report it.
+        int32_t cb = kInt32Min, cv = kInt32Min;
+        int n_cb = 0;
+        if (phase[p] == kP1) {
+          for (uint32_t m = (delivered >> (p * A)) & kAccs; m != 0; m &= m - 1) {
+            const int a = __ffs(m) - 1;
+            const int j0 = p * A + a;
+            if (col[G::kRpBal + j0] != cur) continue;
+            h |= 1 << a;
+            const int32_t pb = col[G::kRpV1 + j0];
+            if (pb >= cb) {
+              const int32_t pv = col[G::kRpV2 + j0];
+              cv = pb > cb ? pv : max(cv, pv);
+              n_cb = pb > cb ? 1 : n_cb + 1;
+              cb = pb;
+            }
+          }
         }
-      } else if (bb < 0) {
-        int32_t fb = kInt32Min;
-#pragma unroll 1
-        for (int a = 0; a < A; ++a) {
-          const int j0 = p * A + a;
-          const bool ok = phase[p] == kP1 && ((delivered >> j0) & 1u) && col[G::kRpBal + j0] == cur;
-          fb = max(fb, ok ? col[G::kRpV1 + j0] : 0);
-        }
-        if (fb > bb) {
-          int32_t fv = kInt32Min;
+        // The plain fold takes its max over every acceptor, in every phase,
+        // with 0 for a slot that holds no valid promise (stale payloads
+        // included): the candidate ballot is max(cb, 0 if a slot is not
+        // valid), its value the max of the values of the slots at it, and 0
+        // where a slot is not at it.  Where cb > 0 that is cb, and cv with a
+        // 0 unless all A valid promises report cb: the delivered slots
+        // suffice.  Otherwise the candidate is at most 0 and can upgrade only
+        // a negative best_bal, which no state the ticks reach holds (it starts
+        // at 0 and takes only a candidate above it, or 0 on expiry); for such
+        // a state the fold runs over every slot, as the plain one does.
+        if (cb > 0) {
+          if (cb > bb) {
+            bb = cb;
+            bv = n_cb == A ? cv : max(cv, 0);
+          }
+        } else if (bb < 0) {
+          int32_t fb = kInt32Min;
 #pragma unroll 1
           for (int a = 0; a < A; ++a) {
             const int j0 = p * A + a;
             const bool ok =
                 phase[p] == kP1 && ((delivered >> j0) & 1u) && col[G::kRpBal + j0] == cur;
-            fv = max(fv, (ok ? col[G::kRpV1 + j0] : 0) == fb ? col[G::kRpV2 + j0] : 0);
+            fb = max(fb, ok ? col[G::kRpV1 + j0] : 0);
           }
-          bb = fb;
-          bv = fv;
-        }
-      }
-
-      const int votes = __popc(static_cast<uint32_t>(h));
-      const bool p1 = phase[p] == kP1 && votes >= prm.q1;
-      const bool p2 = phase[p] == kP2 && votes >= prm.q2;
-      const int32_t v_by_p1 = bb > 0 ? bv : own_val[p];
-      int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
-      const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
-      const bool exp = phase[p] != kDone && !p1 && !p2 && tm > timeout;
-      if constexpr (OBS) {  // the commit edge, and the expiry without the skew
-        p2_m |= (p2 ? 1u : 0u) << p;
-        plain_exp |= (phase[p] != kDone && !p1 && !p2 && tm > prm.timeout ? 1u : 0u) << p;
-      }
-
-      int32_t ph = phase[p];
-      if (p1) ph = kP2;
-      if (p2) ph = kDone;
-      if (exp) ph = kP1;
-      if (p2) decided_val[p] = prop_val[p];
-      const int32_t pv = p1 ? v_by_p1 : prop_val[p];
-      if (p1 || exp) h = 0;
-      if (exp) {
-        bb = 0;
-        bv = 0;
-      }
-      if (p1) tm = 0;
-      if (exp) {
-        tm = ablated(kNoPrng)
-                 ? 0
-                 : sd::backoff_of<ARMS>(ts.bits(kBackoff, p) & 0x7FFFFFFFu, prm, gray, p, n, i);
-      }
-      old_bal[p] = cur;
-      bal[p] = exp ? next_ballot(cur, prm.stride, p) : cur;
-      phase[p] = ph;
-      prop_val[p] = pv;
-      heard[p] = h;
-      best_bal[p] = bb;
-      best_val[p] = bv;
-      timer[p] = tm;
-      p1_done |= (p1 ? 1u : 0u) << p;
-      expired |= (exp ? 1u : 0u) << p;
-    }
-    clk.mark(kPhFold);
-
-    // ---- Acceptor half-tick: select at most one request per acceptor. ----
-    // Only an acceptor alive this tick with a request present (and arrived)
-    // can select one; the others are skipped before their idle mask is
-    // drawn, and contribute what the plain tick gives them: no reply, no
-    // consume, no accept event, their state as it is, and its invariant
-    // check (bad_alone).
-    uint32_t asked = 0;
-#pragma unroll
-    for (int kp = 0; kp < 2 * P; ++kp) asked |= (rq_ready >> (kp * A)) & kAccs;
-    uint32_t visit = 0;
-#pragma unroll
-    for (int a = 0; a < A; ++a)
-      visit |= (crash_start[a] <= tick && tick < crash_end[a] ? 0u : 1u) << a;
-    visit &= ablated(kNoSelect) ? 0u : asked;
-    uint32_t rq_next = rq_present;
-    uint32_t rp_sent = 0;  // the reply slots written this tick
-    uint32_t ev_flag = 0;
-    uint32_t acted = 0;    // the acceptors that selected a request
-    int32_t ev_bal[A], ev_val[A];
-    int inv_viol = 0;
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      ev_bal[a] = 0;
-      ev_val[a] = 0;
-      if (!((visit >> a) & 1u) || !ts.survives_at(prm.idle, kBusy, a)) continue;
-      const int sel = ablated(kNoPrng) ? sd::select_last<P, A>(rq_ready, a)
-                                       : select_present<P, A>(ts, rq_ready, a);  // one has arrived
-      // A request on a cut link stays in flight: the acceptor processes
-      // nothing this tick.
-      if (ARMS && ((cut_req >> ((sel * A + a) % E)) & 1u)) continue;
-      acted |= 1u << a;
-
-      // The selected request's ballot, and an ACCEPT's value (a PREPARE's
-      // v1 is 0, and only an accepting acceptor reads it); a corrupted
-      // ACCEPT's value flips a bit, a corrupted PREPARE's ballot moves up.
-      const bool is_prep = sel < P;
-      const bool is_acc = !is_prep;
-      int32_t mb = col[G::kRqBal + sel * A + a];
-      int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
-      if constexpr (OBS) {
-        if (obs::corrupt_fires<ARMS>(pd, ts, gray, a)) {
-          if (is_acc) mv ^= 64;
-          else mb = wrap_add(mb, 1);
-          corrupt_m |= 1u << a;
-        }
-      } else {
-        sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
-      }
-      const bool eq = (equiv >> a) & 1u;
-      const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
-      const bool ok_prep_h = is_prep && !eq && mb > pr_old;
-      const bool ok_prep = ok_prep_h || (is_prep && eq);
-      const bool ok_acc_h = is_acc && !eq && mb >= pr_old;
-      const bool ok_acc = ok_acc_h || (is_acc && eq);
-
-      int32_t pr = ok_prep_h ? mb : pr_old;
-      if (ok_acc_h) pr = max(pr, mb);
-      const int32_t ab = ok_acc ? mb : ab_old;
-      const int32_t av = ok_acc ? mv : av_old;
-
-      // The reply into the selected sender's slot (post-consume buffer):
-      // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
-      // link drops it against its own threshold.
-      const int jr = sel * A + a;
-      const bool prom_kept = !ablated(kNoSends) && ok_prep && keep_at(ts, pd, kKeepProm, 0, jr);
-      if (prom_kept) {
-        col[G::kRpBal + jr] = mb;
-        col[G::kRpV1 + jr] = eq ? 0 : ab_old;
-        col[G::kRpV2 + jr] = eq ? 0 : av_old;
-        rp_sent |= 1u << jr;
-      }
-      const bool accd_kept =
-          !ablated(kNoSends) && ok_acc && keep_at(ts, pd, kKeepAccd, 1, jr - E);
-      if (accd_kept) {
-        col[G::kRpBal + jr] = mb;
-        col[G::kRpV1 + jr] = mv;
-        rp_sent |= 1u << jr;
-      }
-      // Consume the selected request unless it is duplicated (on a flaky
-      // link, against its own threshold).
-      const bool dup_req = !ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray) &&
-                           dup_at(ts, pd, 0, jr, kDupReq);
-      if (!ablated(kNoConsume) && !dup_req) rq_next &= ~(1u << jr);
-      if constexpr (OBS) {
-        prom_m |= (ok_prep ? 1u : 0u) << a;
-        n_drop += (ok_prep && !prom_kept ? 1 : 0) + (ok_acc && !accd_kept ? 1 : 0);
-        n_dup += dup_req ? 1 : 0;
-      }
-
-      // Acceptor-local invariants (honest acceptors only).
-      if (!eq && (pr < pr_old || breaks_alone(pr, ab, av))) ++inv_viol;
-      bad_alone = (bad_alone & ~(1u << a)) | ((!eq && breaks_alone(pr, ab, av) ? 1u : 0u) << a);
-      promised[a] = pr;
-      acc_bal[a] = ab;
-      acc_val[a] = av;
-      ev_flag |= (ok_acc ? 1u : 0u) << a;
-      ev_bal[a] = mb;
-      ev_val[a] = mv;
-    }
-    inv_viol += __popc(bad_alone & ~acted);
-    // The replies' delay stamps (the stamp draws are keyed by the slot, so
-    // one rolled loop serves every reply site).
-    if constexpr (STAMPED) stamp_sends(ts, pd, G::kRpUntil, ch.rp_wait, 1, rp_sent, tick);
-    rp_present = rp_next | rp_sent;
-    rp_written |= rp_sent;
-    rq_present = rq_next;
-    clk.mark(kPhAcceptor);
-
-    // ---- Learner: fold accept events into the (ballot, value) table. ----
-    if constexpr (!ablated(kNoLearner)) {
-      if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
-        lt_written = true;
-    }
-    clk.mark(kPhLearner);
-
-    // ---- Proposer sends into the consumed request buffer, then their
-    //      delay stamps (STAMPED). ----
-    uint32_t rq_sent = 0;  // the request slots written this tick
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if ((p1_done | expired) >> p & 1u) {
+          if (fb > bb) {
+            int32_t fv = kInt32Min;
 #pragma unroll 1
-        for (int a = 0; a < A; ++a) {
-          const int e = p * A + a;
-          const bool acc_sent =
-              !ablated(kNoSends) && ((p1_done >> p) & 1u) && keep_at(ts, pd, kKeepP2, 3, e);
-          if (acc_sent) {
-            const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
-            col[G::kRqBal + j] = old_bal[p];
-            col[G::rq_v1(j)] = prop_val[p];
-            rq_sent |= 1u << j;
-          }
-          const bool prep_sent =
-              !ablated(kNoSends) && ((expired >> p) & 1u) && keep_at(ts, pd, kKeepP1, 2, e);
-          if (prep_sent) {
-            const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
-            col[G::kRqBal + j] = bal[p];
-            rq_sent |= 1u << j;
-          }
-          if constexpr (OBS) {
-            n_drop += (((p1_done >> p) & 1u) && !acc_sent ? 1 : 0) +
-                      (((expired >> p) & 1u) && !prep_sent ? 1 : 0);
+            for (int a = 0; a < A; ++a) {
+              const int j0 = p * A + a;
+              const bool ok =
+                  phase[p] == kP1 && ((delivered >> j0) & 1u) && col[G::kRpBal + j0] == cur;
+              fv = max(fv, (ok ? col[G::kRpV1 + j0] : 0) == fb ? col[G::kRpV2 + j0] : 0);
+            }
+            bb = fb;
+            bv = fv;
           }
         }
-      }
-      // (An observed tick clamps after the planes: the digest reads the
-      // ballots as the tick left them.)
-      if (!OBS && prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
-    }
-    if constexpr (STAMPED) stamp_sends(ts, pd, G::kRqUntil, ch.rq_wait, 0, rq_sent, tick);
-    rq_present |= rq_sent;
-    rq_written |= rq_sent;
-    clk.mark(kPhSends);
 
-    // ---- The observer planes (OBS), from the tick's events. ----
+        const int votes = __popc(static_cast<uint32_t>(h));
+        const bool p1 = phase[p] == kP1 && votes >= prm.q1;
+        const bool p2 = phase[p] == kP2 && votes >= prm.q2;
+        const int32_t v_by_p1 = bb > 0 ? bv : own_val[p];
+        int32_t tm = phase[p] == kDone ? timer[p] : wrap_add(timer[p], 1);
+        const int32_t timeout = ARMS ? glane.timeout(prm.timeout, p) : prm.timeout;
+        const bool exp = phase[p] != kDone && !p1 && !p2 && tm > timeout;
+        if constexpr (OBS) {  // the commit edge, and the expiry without the skew
+          p2_m |= (p2 ? 1u : 0u) << p;
+          plain_exp |= (phase[p] != kDone && !p1 && !p2 && tm > prm.timeout ? 1u : 0u) << p;
+        }
+
+        int32_t ph = phase[p];
+        if (p1) ph = kP2;
+        if (p2) ph = kDone;
+        if (exp) ph = kP1;
+        if (p2) decided_val[p] = prop_val[p];
+        const int32_t pv = p1 ? v_by_p1 : prop_val[p];
+        if (p1 || exp) h = 0;
+        if (exp) {
+          bb = 0;
+          bv = 0;
+        }
+        if (p1) tm = 0;
+        if (exp) {
+          tm = ablated(kNoPrng)
+                   ? 0
+                   : sd::backoff_of<ARMS>(ts.bits(kBackoff, p) & 0x7FFFFFFFu, prm, gray, p, n, i);
+        }
+        old_bal[p] = cur;
+        bal[p] = exp ? next_ballot(cur, prm.stride, p) : cur;
+        phase[p] = ph;
+        prop_val[p] = pv;
+        heard[p] = h;
+        best_bal[p] = bb;
+        best_val[p] = bv;
+        timer[p] = tm;
+        p1_done |= (p1 ? 1u : 0u) << p;
+        expired |= (exp ? 1u : 0u) << p;
+      }
+      clk.mark(kPhFold);
+
+      // ---- Acceptor half-tick: select at most one request per acceptor. ----
+      // Only an acceptor alive this tick with a request present (and arrived)
+      // can select one; the others are skipped before their idle mask is
+      // drawn, and contribute what the plain tick gives them: no reply, no
+      // consume, no accept event, their state as it is, and its invariant
+      // check (bad_alone).
+      uint32_t asked = 0;
+#pragma unroll
+      for (int kp = 0; kp < 2 * P; ++kp) asked |= (rq_ready >> (kp * A)) & kAccs;
+      uint32_t visit = 0;
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+        visit |= (crash_start[a] <= tick && tick < crash_end[a] ? 0u : 1u) << a;
+      visit &= ablated(kNoSelect) ? 0u : asked;
+      uint32_t rq_next = rq_present;
+      uint32_t rp_sent = 0;  // the reply slots written this tick
+      uint32_t ev_flag = 0;
+      uint32_t acted = 0;    // the acceptors that selected a request
+      int32_t ev_bal[A], ev_val[A];
+      int inv_viol = 0;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        ev_bal[a] = 0;
+        ev_val[a] = 0;
+        if (!((visit >> a) & 1u) || !ts.survives_at(prm.idle, kBusy, a)) continue;
+        // (One has arrived.)
+        const int sel = ablated(kNoPrng) ? sd::select_last<P, A>(rq_ready, a)
+                                         : select_present<P, A>(ts, rq_ready, a);
+        // A request on a cut link stays in flight: the acceptor processes
+        // nothing this tick.
+        if (ARMS && ((cut_req >> ((sel * A + a) % E)) & 1u)) continue;
+        acted |= 1u << a;
+
+        // The selected request's ballot, and an ACCEPT's value (a PREPARE's
+        // v1 is 0, and only an accepting acceptor reads it); a corrupted
+        // ACCEPT's value flips a bit, a corrupted PREPARE's ballot moves up.
+        const bool is_prep = sel < P;
+        const bool is_acc = !is_prep;
+        int32_t mb = col[G::kRqBal + sel * A + a];
+        int32_t mv = is_acc ? col[G::rq_v1(sel * A + a)] : 0;
+        if constexpr (OBS) {
+          if (obs::corrupt_fires<ARMS>(pd, ts, gray, a)) {
+            if (is_acc) mv ^= 64;
+            else mb = wrap_add(mb, 1);
+            corrupt_m |= 1u << a;
+          }
+        } else {
+          sd::corrupt<ARMS>(ts, gray, a, is_acc, mb, mv);
+        }
+        const bool eq = (equiv >> a) & 1u;
+        const int32_t pr_old = promised[a], ab_old = acc_bal[a], av_old = acc_val[a];
+        const bool ok_prep_h = is_prep && !eq && mb > pr_old;
+        const bool ok_prep = ok_prep_h || (is_prep && eq);
+        const bool ok_acc_h = is_acc && !eq && mb >= pr_old;
+        const bool ok_acc = ok_acc_h || (is_acc && eq);
+
+        int32_t pr = ok_prep_h ? mb : pr_old;
+        if (ok_acc_h) pr = max(pr, mb);
+        const int32_t ab = ok_acc ? mb : ab_old;
+        const int32_t av = ok_acc ? mv : av_old;
+
+        // The reply into the selected sender's slot (post-consume buffer):
+        // PROMISE for proposer sel, ACCEPTED for proposer sel - P; a flaky
+        // link drops it against its own threshold.
+        const int jr = sel * A + a;
+        const bool prom_kept = !ablated(kNoSends) && ok_prep && keep_at(ts, pd, kKeepProm, 0, jr);
+        if (prom_kept) {
+          col[G::kRpBal + jr] = mb;
+          col[G::kRpV1 + jr] = eq ? 0 : ab_old;
+          col[G::kRpV2 + jr] = eq ? 0 : av_old;
+          rp_sent |= 1u << jr;
+        }
+        const bool accd_kept =
+            !ablated(kNoSends) && ok_acc && keep_at(ts, pd, kKeepAccd, 1, jr - E);
+        if (accd_kept) {
+          col[G::kRpBal + jr] = mb;
+          col[G::kRpV1 + jr] = mv;
+          rp_sent |= 1u << jr;
+        }
+        // Consume the selected request unless it is duplicated (on a flaky
+        // link, against its own threshold).
+        const bool dup_req = !ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray) &&
+                             dup_at(ts, pd, 0, jr, kDupReq);
+        if (!ablated(kNoConsume) && !dup_req) rq_next &= ~(1u << jr);
+        if constexpr (OBS) {
+          prom_m |= (ok_prep ? 1u : 0u) << a;
+          n_drop += (ok_prep && !prom_kept ? 1 : 0) + (ok_acc && !accd_kept ? 1 : 0);
+          n_dup += dup_req ? 1 : 0;
+        }
+
+        // Acceptor-local invariants (honest acceptors only).
+        if (!eq && (pr < pr_old || breaks_alone(pr, ab, av))) ++inv_viol;
+        bad_alone = (bad_alone & ~(1u << a)) | ((!eq && breaks_alone(pr, ab, av) ? 1u : 0u) << a);
+        if constexpr (OBS) acc_dirty |= (pr != pr_old || ab != ab_old ? 1u : 0u) << a;
+        promised[a] = pr;
+        acc_bal[a] = ab;
+        acc_val[a] = av;
+        ev_flag |= (ok_acc ? 1u : 0u) << a;
+        ev_bal[a] = mb;
+        ev_val[a] = mv;
+      }
+      inv_viol += __popc(bad_alone & ~acted);
+      // The replies' delay stamps (the stamp draws are keyed by the slot, so
+      // one rolled loop serves every reply site).
+      if constexpr (STAMPED) stamp_sends(ts, pd, G::kRpUntil, ch.rp_wait, 1, rp_sent, tick);
+      rp_present = rp_next | rp_sent;
+      rp_written |= rp_sent;
+      rq_present = rq_next;
+      clk.mark(kPhAcceptor);
+
+      // ---- Learner: fold accept events into the (ballot, value) table. ----
+      if constexpr (!ablated(kNoLearner)) {
+        if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of)) {
+          lt_written = true;
+          lt_tick = true;
+        }
+      }
+      clk.mark(kPhLearner);
+
+      // ---- Proposer sends into the consumed request buffer, then their
+      //      delay stamps (STAMPED). ----
+      uint32_t rq_sent = 0;  // the request slots written this tick
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if ((p1_done | expired) >> p & 1u) {
+#pragma unroll 1
+          for (int a = 0; a < A; ++a) {
+            const int e = p * A + a;
+            const bool acc_sent =
+                !ablated(kNoSends) && ((p1_done >> p) & 1u) && keep_at(ts, pd, kKeepP2, 3, e);
+            if (acc_sent) {
+              const int j = (1 * P + p) * A + a;  // ACCEPT(old ballot, value)
+              col[G::kRqBal + j] = old_bal[p];
+              col[G::rq_v1(j)] = prop_val[p];
+              rq_sent |= 1u << j;
+            }
+            const bool prep_sent =
+                !ablated(kNoSends) && ((expired >> p) & 1u) && keep_at(ts, pd, kKeepP1, 2, e);
+            if (prep_sent) {
+              const int j = (0 * P + p) * A + a;  // PREPARE(next ballot)
+              col[G::kRqBal + j] = bal[p];
+              rq_sent |= 1u << j;
+            }
+            if constexpr (OBS) {
+              n_drop += (((p1_done >> p) & 1u) && !acc_sent ? 1 : 0) +
+                        (((expired >> p) & 1u) && !prep_sent ? 1 : 0);
+            }
+          }
+        }
+        // (An observed tick clamps after the planes: the digest reads the
+        // ballots as the tick left them.)
+        if (!OBS && prm.clamp_per_tick) bal[p] = min(bal[p], kBallotLimit);
+      }
+      if constexpr (STAMPED) stamp_sends(ts, pd, G::kRqUntil, ch.rq_wait, 0, rq_sent, tick);
+      rq_present |= rq_sent;
+      rq_written |= rq_sent;
+      clk.mark(kPhSends);
+
+      // The tick's events (OBS).
+      if constexpr (OBS) {
+        ev[obs::kEvPromise] = __popc(prom_m);
+        ev[obs::kEvAccept] = __popc(ev_flag);
+        ev[obs::kEvLeader] = __popc(p1_done);
+        ev[obs::kEvTimeout] = __popc(expired);
+        ev[obs::kEvDrop] = n_drop;
+        ev[obs::kEvDup] = n_dup;
+        ev[obs::kEvCorrupt] = __popc(corrupt_m);
+        eff[obs::kClDrop] = n_drop;
+        eff[obs::kClDup] = n_dup;
+        eff[obs::kClCorrupt] = __popc(corrupt_m);
+        if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
+      }
+    }
+
+    // ---- The observer planes (OBS), from the tick's events, every lane of
+    //      a warp together. ----
     if constexpr (OBS) {
       const bool decided_now = lrn.chosen && !chosen0;
-      ev[obs::kEvPromise] = __popc(prom_m);
-      ev[obs::kEvAccept] = __popc(ev_flag);
       ev[obs::kEvDecide] = decided_now ? 1 : 0;
       ev[obs::kEvConflict] = wrap_add(lrn.violations, -viol0);
-      ev[obs::kEvLeader] = __popc(p1_done);
-      ev[obs::kEvTimeout] = __popc(expired);
-      ev[obs::kEvDrop] = n_drop;
-      ev[obs::kEvDup] = n_dup;
-      ev[obs::kEvCorrupt] = __popc(corrupt_m);
-      eff[obs::kClDrop] = n_drop;
-      eff[obs::kClDup] = n_dup;
-      eff[obs::kClCorrupt] = __popc(corrupt_m);
-      if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
       fault_events(tick, ev, inj, eff);
-      planes(ts, tick, ev, inj, eff, p2_m, decided_now, true, true);
+      planes(ts, tick, ev, inj, eff, p2_m, decided_now, t == 0 || lt_tick,
+             !quiet || quiet_due || restores);
+      // A quiet tick's digest is due again after a tick that was not quiet
+      // or where the clamp changed a ballot.
+      quiet_due = !quiet;
       if (prm.clamp_per_tick) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
+        for (int p = 0; p < P; ++p) {
+          quiet_due = quiet_due || bal[p] > kBallotLimit;
+          bal[p] = min(bal[p], kBallotLimit);
+        }
       }
     }
   }
 
   draws.flush();
-  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
+  if constexpr (OBS) {
+    // The last tick's insert.
+    cov.load(ob, n, i);
+    tally.new_bits = wrap_add(tally.new_bits, cov.finish(ob, n, i));
+    tally.move(ob, n, i, false);
+    obs::move_tally_rows<P, R0>(col, ob, n, i, false);
+  }
 
   // ---- Store the lane's state once. ----
 #pragma unroll
@@ -794,13 +895,13 @@ fused_paxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr, Pa
 
 // One instantiation, ready to launch (SmemInst in fused_common.cuh): an
 // arms instantiation's kernel takes a Gray after Params, an observed one an
-// obs::Obs after that, and its column holds the planes' counters
-// (obs::Rows) after the staged rows.
+// obs::Obs after that, and its column holds the planes' counter rows after
+// the staged rows (obs::TallyRows).
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 using InstWith = SmemInst<
     fused_paxos_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Arms...>, B,
     (SdStaged<P, A, K, false, STAMPED>::kRows +
-     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+     (has_arg<obs::Obs, Arms...> ? obs::TallyRows<P>::kRows : 0)) * B * 4>;
 template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
 struct InstOf {
   using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS>;
@@ -823,7 +924,9 @@ using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 // The instantiations, (n_prop, n_acc, k_slots, STAMPED, ARMS, OBS, B,
 // MIN_BLOCKS): one per shape, stamps, arms and observer flag, at the
 // geometry fused_tick.FR_STAGING["paxos"] gives it; MIN_BLOCKS, the blocks
-// an SM is to hold, caps a thread's registers.  An ablated build
+// an SM is to hold, caps a thread's registers.  The observed one without
+// the arms or the stamps (124 words) takes 3 blocks of 128, the others 2
+// (the stamped one spilled 44 B at 3 of 96).  An ablated build
 // instantiates config2's only (fused_tick.ABLATE_KEYS).
 #define K1_INSTANCES(X)         \
   X(2, 5, 8, 0, 0, 0, 128, 4)   \
@@ -831,7 +934,7 @@ using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
   X(2, 5, 8, 0, 1, 0, 128, 3)   \
   X(2, 5, 8, 1, 0, 0, 128, 3)   \
   X(2, 5, 8, 1, 1, 0, 128, 3)   \
-  X(2, 5, 8, 0, 0, 1, 128, 2)   \
+  X(2, 5, 8, 0, 0, 1, 128, 3)   \
   X(2, 5, 8, 0, 1, 1, 128, 2)   \
   X(2, 5, 8, 1, 0, 1, 128, 2)   \
   X(2, 5, 8, 1, 1, 1, 128, 2)

@@ -64,16 +64,29 @@
 // The observer planes (telemetry, coverage, exposure, margin, the client
 // workload) compile into the observed instantiations (OBS, at (2,5,8), each
 // without and with the stamps and the arms), for a state that carries a
-// plane, as K1's and K2's, through the pieces the three kernels share
-// (obs:: in fused_common.cuh): the planes' counters join the column after
-// the staged rows (obs::Rows, 49 words at two proposers: 163 words, 203
-// stamped, which leave room for 2 blocks of 128 lanes); with exposure on,
-// the tick's drop, dup, corrupt and delay decisions are drawn at its start
-// (obs::predraw) and the lazy sites read those bits, so no position is
-// drawn twice and the schedule is the planes-off one; every tick then runs
-// the planes in the plain tick's order (there is no settled lane to skip),
-// coverage last, on the post-tick state (193 words a tick at (2,5,8)),
-// before the per-tick ballot clamp.  Raft-core's signals: grants are
+// plane, through the pieces in obs:: (fused_common.cuh), as K2's
+// (fused_fastpaxos_tick.cu); with exposure on, the tick's drop, dup,
+// corrupt and delay decisions are drawn at its start (obs::predraw) and
+// the lazy sites read those bits, so no position is drawn twice and the
+// schedule is the planes-off one; every tick then runs the planes (there
+// is no settled lane to skip) on the post-tick state, before the per-tick
+// ballot clamp.  An observed tick runs at the occupancy its column allows,
+// where little hides a latency, so its planes keep off the tick's chain
+// what they can, each exactly as the plain tick computes it:
+//  - the coverage digest (193 words a tick at (2,5,8)) folds batches of
+//    column words loaded ahead (obs::fold_buffers_ahead), so the FNV chain,
+//    which cannot be split, waits on its multiplies only; a run of
+//    zero-only words that holds no nonzero word is one multiply;
+//  - the coverage insert completes a tick late (obs::DeferredCoverage),
+//    the launch's last after its loop;
+//  - the counters stay in registers for the launch (obs::Tally), the
+//    margins and the client queue in the column (obs::TallyRows: 134 words
+//    at 3 blocks of 128 without the arms or the stamps, 174 stamped, and
+//    either with the arms, at 2);
+//  - the margin walks the learner table only where an append reached it
+//    (obs::sd_margin), else counts the last walk's near split again, and
+//    takes the fence slack over the voters the tick changed.
+// Raft-core's signals: grants are
 // telemetry's promises, acks its accepts, elections its leaders; a VOTE
 // dropped counts wherever a REQVOTE was selected (every one is answered),
 // an APPEND dropped for every leader (it re-sends every tick); a commit
@@ -120,10 +133,21 @@ using sd::ColumnLearner;
 using sd::select_present;
 using sd::SdStaged;
 
-// The tick's phases in order, as the phase-clock build splits a lane's
-// cycles (fused_tick.PHASES["raftcore"]).
+// The tick's phases in order, each with its name in the phase-clock build's
+// split of a lane's cycles (fused_tick.PHASES["raftcore"]): an observed
+// tick's planes take the four before the store.
 enum Phase {
-  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, kPhStore,
+  kPhLoad,      // column load
+  kPhDeliver,   // reply delivery
+  kPhFold,      // candidate fold
+  kPhAcceptor,  // voter half-tick
+  kPhLearner,   // learner
+  kPhSends,     // candidate sends
+  kPhCounters,  // observer counters
+  kPhMargin,    // margin
+  kPhDigest,    // digest
+  kPhCoverage,  // coverage insert
+  kPhStore,     // column store
   kPhases,
 };
 
@@ -150,7 +174,11 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
   using G = SdStaged<P, A, K, true, STAMPED>;
-  constexpr int R0 = G::kRows;  // the observer counters' first row (OBS)
+  // The planes' counters (OBS): in registers for the launch (obs::Tally,
+  // with the arms every one), the margins and the client queue in the
+  // column (obs::TallyRows), from row R0.
+  using CR = obs::TallyRows<P>;
+  constexpr int R0 = G::kRows;
   // The snapshot shadows' first leaf (after the stamps in a stamped state).
   constexpr int SNAP = STAMPED ? kStampedLeaves : kSnap0;
   constexpr int S = G::S;  // message slots per buffer, index (kind * P + p) * A + a
@@ -158,7 +186,7 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   static_assert(S <= 32, "slot presence must fit one 32-bit mask");
   constexpr int kQuorum = A / 2 + 1;
   constexpr uint32_t kVoters = (1u << A) - 1;
-  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and the counters)
+  extern __shared__ int32_t smem[];  // G::kRows * B words (OBS: and CR::kRows)
 
   const int64_t n = prm.n_inst;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * B + threadIdx.x;
@@ -169,12 +197,15 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   // The bounded-delay channel's waiting slots (STAMPED), as the column.
   sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;
   if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
-  // The planes' counters into the column, and the zero-only payload words
-  // that are not 0 in global memory (obs::zero_words), which the coverage
-  // digest folds where the chunk has not written their slot.
+  obs::Tally<STAMPED, ARMS> tally;
+  // The planes' counters into the registers and the column, and the
+  // zero-only payload words that are not 0 in global memory
+  // (obs::zero_words), which the coverage digest folds where the chunk has
+  // not written their slot.
   uint64_t zo_nz = 0;
   if constexpr (OBS) {
-    obs::move_counters<P, R0>(col, ob, n, i, true);
+    obs::move_tally_rows<P, R0>(col, ob, n, i, true);
+    tally.move(ob, n, i, true);
     if (ob.cov()) zo_nz = obs::zero_words<G>(L, n, i);
   }
 
@@ -226,8 +257,12 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
   clk.mark(kPhLoad);
 
   DrawCount draws;
+  obs::DeferredCoverage cov;  // the coverage insert in flight (OBS)
+  bool near = false;          // the last margin walk's near split (OBS, obs::sd_margin)
   for (int t = 0; t < prm.n_ticks; ++t) {
     const int32_t tick = wrap_add(tick0, t);
+    // The words of the previous tick's insert, loaded while this tick runs.
+    if constexpr (OBS) cov.load(ob, n, i);
     const TickStream ts{mix32(prm.seed, static_cast<uint32_t>(tick), blk),
                         static_cast<uint32_t>(prm.block), lane, &draws};
     // What the planes read of the pre-tick state (OBS).
@@ -236,7 +271,16 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     const int32_t viol0 = lrn.violations;
     // Stale-snapshot recovery or amnesia (the arms), before the voter
     // half-tick and its invariant check.
-    sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, voted, ent_term, ent_val, n, i, [](int) {});
+    // The voters whose fence or entry term the tick changes (OBS: the
+    // margin's fence slack; every one at a launch's first tick).
+    uint32_t acc_dirty = t == 0 ? kVoters : 0u;
+    if constexpr (OBS) {
+      sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, voted, ent_term, ent_val, n, i,
+                                 [&](int a) { acc_dirty |= 1u << a; });
+    } else {
+      sd::recover<ARMS, A, SNAP>(gray, L, tick, crash_end, voted, ent_term, ent_val, n, i,
+                                 [](int) {});
+    }
     // The slots whose stamp has come (STAMPED): a slot waiting for its
     // stamp is neither delivered nor selected.
     if constexpr (STAMPED) ch.refresh(col, tick, &draws);
@@ -481,6 +525,7 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       ent_term[a] = et;
       ent_val[a] = ev;
       ev_flag |= (ok_ap ? 1u : 0u) << a;
+      if constexpr (OBS) acc_dirty |= (vo != vo_old || et != et_old ? 1u : 0u) << a;
       ev_bal[a] = mb;
       ev_val[a] = mv;
     }
@@ -498,8 +543,11 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     clk.mark(kPhAcceptor);
 
     // ---- Learner: append-accept events, majority commit. ----
-    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of))
+    bool lt_tick = false;  // the table changed this tick (OBS: the margin walks it)
+    if (lrn.template observe<A>(col, ev_flag, ev_bal, ev_val, tick, inv_viol, quorum_of)) {
       lt_written = true;
+      lt_tick = true;
+    }
     clk.mark(kPhLearner);
 
     // ---- Candidate sends into the consumed request buffer. ----
@@ -547,8 +595,9 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
     rq_written |= rq_sent;
     clk.mark(kPhSends);
 
-    // ---- The observer planes (OBS), from the tick's events, in the plain
-    //      tick's order: telemetry, exposure, margin, workload, coverage. ----
+    // ---- The observer planes (OBS), from the tick's events: the counters
+    //      (telemetry, exposure, the client workload), the margin, the
+    //      coverage digest and its insert, each plane's writes its own. ----
     if constexpr (OBS) {
       const bool decided_now = lrn.chosen && !chosen0;
       ev[obs::kEvPromise] = __popc(grant_m);
@@ -565,25 +614,31 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
       eff[obs::kClCorrupt] = __popc(corrupt_m);
       if (ARMS && gray.timeout_skew) eff[obs::kClTimeout] = __popc(expired ^ plain_exp);
       obs::fault_events<OBS, ARMS, P, A>(ob, gray, glane, crash_end, plan, tick, n, i, ev, inj, eff);
-      if (ob.tel()) obs::telemetry<P, R0>(col, ob, tick, ev, n, i);
-      if (ob.exp()) obs::exposure<P, R0>(col, inj, eff);
+      if (ob.tel()) tally.telemetry(ob, tick, ev, n, i);
+      if (ob.exp()) tally.exposure(inj, eff);
+      if (ob.wl()) obs::mp_workload<P, R0 + CR::kWl, kArrival>(col, ob, ts, tick, serve_m, n, i);
+      clk.mark(kPhCounters);
+      // The learner table and the chosen bit change only where an append
+      // reaches the table; the margin reads the fence against the entry's
+      // term at the majority.
       if (ob.mar()) {
-        obs::margin<P, R0, K, A, G::kLtBal>(col, quorum_of, lrn.chosen, lrn.chosen_val,
-                                            decided_now, voted, ent_term, ~equiv & kVoters);
+        obs::sd_margin<K, A, G::kLtBal, R0 + CR::kMar>(
+            col, quorum_of, t == 0 || lt_tick, lrn.chosen, lrn.chosen_val, decided_now, voted,
+            ent_term, acc_dirty & ~equiv & kVoters, near);
       }
-      if (ob.wl()) obs::workload<P, R0>(col, ob, ts, tick, serve_m, n, i);
+      clk.mark(kPhMargin);
+      obs::Digest d;
       if (ob.cov()) {
         // The coverage digest of the lane's state (obs/coverage.py digest_tree:
         // the voters with their shadows, the candidates, both buffers with their
         // stamps), in the reference's leaf and row order.
-        obs::Digest d;
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(voted[a]);
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(ent_term[a]);
 #pragma unroll
         for (int a = 0; a < A; ++a) d.fold(ent_val[a]);
-        obs::fold_shadows<A, SNAP>(d, ob, L, n, i);
+        obs::fold_shadows_ahead<A, SNAP>(d, ob, L, n, i);
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(bal[p]);
 #pragma unroll
@@ -602,20 +657,31 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
         for (int p = 0; p < P; ++p) d.fold(timer[p]);
 #pragma unroll
         for (int p = 0; p < P; ++p) d.fold(decided_val[p]);
-        obs::fold_buffers<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written, rq_present,
-                                      rp_present);
-        obs::coverage<P, R0>(col, ob, d.value(), n, i);
+        obs::fold_buffers_ahead<G, STAMPED>(d, col, L, n, i, zo_nz, rq_written, rp_written,
+                                            rq_present, rp_present);
+      }
+      clk.mark(kPhDigest);
+      // The previous tick's insert completes, this tick's starts.
+      if (ob.cov()) {
+        tally.new_bits = wrap_add(tally.new_bits, cov.finish(ob, n, i));
+        cov.start(ob, d.value(), n, i);
       }
       if (prm.clamp_per_tick) {
 #pragma unroll
         for (int p = 0; p < P; ++p) bal[p] = min(bal[p], kBallotLimit);
       }
-      clk.mark(kPhObs);
+      clk.mark(kPhCoverage);
     }
   }
 
   draws.flush();
-  if constexpr (OBS) obs::move_counters<P, R0>(col, ob, n, i, false);
+  if constexpr (OBS) {
+    // The last tick's insert.
+    cov.load(ob, n, i);
+    tally.new_bits = wrap_add(tally.new_bits, cov.finish(ob, n, i));
+    tally.move(ob, n, i, false);
+    obs::move_tally_rows<P, R0>(col, ob, n, i, false);
+  }
 
   // ---- Store the lane's state once. ----
 #pragma unroll
@@ -648,13 +714,13 @@ fused_raftcore_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_ptr,
 
 // One instantiation, ready to launch (SmemInst in fused_common.cuh): an
 // arms instantiation's kernel takes a Gray after Params, an observed one an
-// obs::Obs after that, and its column holds the planes' counters
-// (obs::Rows) after the staged rows.
+// obs::Obs after that, and its column holds the planes' counter rows after
+// the staged rows (obs::TallyRows).
 template <int P, int A, int K, bool STAMPED, int B, int MIN_BLOCKS, typename... Arms>
 using InstWith = SmemInst<
     fused_raftcore_kernel<P, A, K, STAMPED, B, MIN_BLOCKS, Arms...>, B,
     (SdStaged<P, A, K, true, STAMPED>::kRows +
-     (has_arg<obs::Obs, Arms...> ? obs::Rows<P>::kRows : 0)) * B * 4>;
+     (has_arg<obs::Obs, Arms...> ? obs::TallyRows<P>::kRows : 0)) * B * 4>;
 template <int P, int A, int K, bool STAMPED, bool ARMS, bool OBS, int B, int MIN_BLOCKS>
 struct InstOf {
   using type = InstWith<P, A, K, STAMPED, B, MIN_BLOCKS>;
@@ -681,16 +747,20 @@ using Inst = typename InstOf<P, A, K, STAMPED, ARMS, OBS, B, MIN_BLOCKS>::type;
 // and the planes run at (2,5,8), the shape of every config that sets them;
 // the stamped column (154 words) leaves room for 2 blocks of 128 lanes or
 // 11 of 32, which hold 11 warps and ran faster (fused_tick.FR_STAGING);
-// the observed columns (163 and 203 words) for 2 blocks of 128.
+// the observed one without the arms or the stamps (134 words,
+// obs::TallyRows) takes 3 blocks of 128, the stamped one (174 words) 3 of
+// 96, which ran faster than 2 of 128 at the 168 registers 9 warps leave a
+// thread, the arms keys 2 of 128 (their counters need more registers than
+// 3 blocks leave).
 #define K3_INSTANCES(X)         \
   X(2, 5, 8, 0, 0, 0, 128, 3)   \
   X(2, 3, 8, 0, 0, 0, 128, 3)   \
   X(2, 5, 8, 0, 1, 0, 128, 3)   \
   X(2, 5, 8, 1, 0, 0, 32, 11)   \
   X(2, 5, 8, 1, 1, 0, 32, 11)   \
-  X(2, 5, 8, 0, 0, 1, 128, 2)   \
+  X(2, 5, 8, 0, 0, 1, 128, 3)   \
   X(2, 5, 8, 0, 1, 1, 128, 2)   \
-  X(2, 5, 8, 1, 0, 1, 128, 2)   \
+  X(2, 5, 8, 1, 0, 1, 96, 3)    \
   X(2, 5, 8, 1, 1, 1, 128, 2)
 
 // Calls `fn(Inst<...>{}, std::bool_constant<ARMS>{}, std::bool_constant<OBS>{})`

@@ -155,16 +155,17 @@ MP_MASKS_PER_WORD = 4
 
 
 def obs_rows(n_prop: int) -> int:
-    """Words of a lane's column that an observed instantiation adds for
-    the planes' counters (``obs::Rows`` in csrc/fused_common.cuh): the
-    12 event counters, the ring's cursor and word count, the 7 injected
+    """Words of a lane's column that K5's observed arms instantiations add
+    for the planes' counters (``obs::Rows`` in csrc/fused_common.cuh),
+    and an older source's observed columns of any kernel: the 12 event
+    counters, the ring's cursor and word count, the 7 injected
     and 7 effective exposure counts, the 4 margins, coverage's new bits,
     and the client queue's 8 fields a proposer."""
     return 12 + 2 + 7 + 7 + 4 + 1 + 8 * n_prop
 
 
 def tally_obs_rows(n_prop: int, arms: bool = False) -> int:
-    """Words of a lane's column that an observed instantiation of K4 or K2,
+    """Words of a lane's column that an observed instantiation of K1 to K4,
     or of K5 without the arms, adds: the 4 margins and the client queue's 8
     fields a proposer (``obs::TallyRows``), the other counters of
     :func:`obs_rows` in registers for a launch (``obs::Tally``); K5's with
@@ -305,17 +306,19 @@ def _sp_staging(
 
 
 def _sd_observed_geometry(protocol: str, shape: tuple) -> tuple:
-    """(lanes a block, blocks an SM) of K2's and K4's observed
-    instantiation ``shape`` (tally_obs_rows: 124 words, 164 stamped): with
-    the arms, whose counters take their registers to 228 to 255, 2 of
-    128; without them 3 of 128, stamped 3 of 96 on K4 and 2 of 128 on K2
-    (whose stamped key spilled 28 B at 3 of 96: 9 warps leave a thread
-    168 registers, as 12 do, since each of an SM's four schedulers holds
-    the registers of its own warps).  On the main paths the committed code
-    at 3 blocks ran the steady chunk in 9.095 / 9.118 ms (K2) and 16.552 /
-    16.646 ms (K4) against 11.410 / 11.322 and 17.795 / 17.754 at 2 of 128
-    (one call of chip_ab.py --planes, PERF.md section 6)."""
-    if shape[4] or (shape[3] and protocol == "fastpaxos"):
+    """(lanes a block, blocks an SM) of the observed instantiation
+    ``shape`` of K1 to K4 (tally_obs_rows: 124 words, 164 stamped; K3 134
+    and 174): with the arms, whose counters take their registers to 228 to
+    255, 2 of 128; without them 3 of 128, stamped 3 of 96 on K4 and K3 and
+    2 of 128 on K2 and K1 (whose stamped keys spilled 28 and 44 B at 3 of
+    96: 9 warps leave a thread 168 registers, as 12 do, since each of an
+    SM's four schedulers holds the registers of its own warps).  On the
+    main paths the committed code at 3 blocks ran the steady chunk in 9.095
+    / 9.118 ms (K2), 16.552 / 16.646 ms (K4) and 9.200 / 9.168 ms (K3)
+    against 11.410 / 11.322, 17.795 / 17.754 and 11.867 / 11.837 at 2 of
+    128, K3's stamped key 15.938 / 15.956 ms at 3 of 96 against 16.792 /
+    16.782 (chip_ab.py --planes, PERF.md section 6)."""
+    if shape[4] or (shape[3] and protocol in ("fastpaxos", "paxos")):
         return 128, 2
     return (96, 3) if shape[3] else (128, 3)
 
@@ -374,14 +377,12 @@ def fr_staged_rows(
 
 
 def _fr_staging(
-    protocol: str, shape: tuple, threads: int, min_blocks: int, counter_rows: "Callable | None" = None
+    protocol: str, shape: tuple, threads: int, min_blocks: int, counter_rows: Callable = tally_obs_rows
 ) -> ColumnStaging:
     # The key: (P, A, K, stamped, arms, observed); an older source's, which
     # chip_ab.py launches, may lack the observed flag.  The planes add their
-    # counter rows (K2 keeps most of them in registers, tally_obs_rows; an
-    # older K2 source every one in its column: counter_rows gives them).
-    if counter_rows is None:
-        counter_rows = tally_obs_rows if protocol == "fastpaxos" else obs_rows
+    # counter rows (most of them in registers, tally_obs_rows; an older
+    # source every one in its column: counter_rows gives them).
     rows = fr_staged_rows(protocol, *shape[:4])
     if len(shape) > 5 and shape[5]:
         rows += counter_rows(shape[0])
@@ -393,9 +394,7 @@ def _fr_staging(
 # thread at 168 registers; K2's (2, 5, 8) column (104 words) leaves room
 # for a fourth block (16 warps, 128 registers), which made its main path
 # 12% faster (PERF.md §6).  K3's (114 words) does not.  K1's unstamped
-# columns (104 and 48 words) take 4 blocks at both shapes; its observed
-# instantiations add the planes' counters (``obs_rows``: 49 words at two
-# proposers), 153 words (193 stamped), which leave room for 2 blocks.  The stamped
+# columns (104 and 48 words) take 4 blocks at both shapes.  The stamped
 # (2, 5, 8) columns of K1 and K2 (144 words, 72 KiB a block) leave room for
 # 3.  K3's (154 words) leaves room for 2 blocks of 128 lanes (8 warps) or
 # 11 of 32 (11 warps, 184 registers a thread at most): on
@@ -404,18 +403,14 @@ def _fr_staging(
 # stamped takes 32 x 11.  Each arms instantiation keeps its default's
 # column (the snapshot shadows stay in global memory), and its registers
 # are capped for its default's blocks (the unstamped arms: 3).  The
-# observed instantiations of K3 (163 words, 203 stamped) take K1's 2
-# blocks of 128 lanes (8 warps), K2's (tally_obs_rows) those of
-# _sd_observed_geometry.  K3's stamped observed column
-# would also fit 8 blocks of 32 (8 warps too), where its planes-off
-# stamped column takes 11 of 32; on delaychaos-raftcore with every plane
-# on, 128 x 2 ran its steady chunk in 28.482 and 28.501 ms, 32 x 8 in
-# 28.863 and 28.811, its first chunk 40.099 / 40.132 against 42.240 /
-# 42.092, its column load and store 1.210 against 1.426 ms (one call of
-# chip_ab.py --planes, PERF.md section 6): it keeps 128 x 2.
+# observed instantiations add the planes' counter rows (tally_obs_rows) and
+# take _sd_observed_geometry's blocks.
 FR_STAGING = {
     "paxos": {
-        shape: _fr_staging("paxos", shape, 128, 2 if shape[5] else 4 if shape[3:5] == (0, 0) else 3)
+        shape: _fr_staging(
+            "paxos", shape,
+            *(_sd_observed_geometry("paxos", shape) if shape[5] else (128, 4 if shape[3:5] == (0, 0) else 3)),
+        )
         for shape in KERNEL_SHAPES["paxos"]
     },
     "fastpaxos": {
@@ -435,7 +430,10 @@ FR_STAGING = {
         (2, 5, 8, 0, 1, 0): _fr_staging("raftcore", (2, 5, 8, 0, 1, 0), 128, 3),
         (2, 5, 8, 1, 0, 0): _fr_staging("raftcore", (2, 5, 8, 1, 0, 0), 32, 11),
         (2, 5, 8, 1, 1, 0): _fr_staging("raftcore", (2, 5, 8, 1, 1, 0), 32, 11),
-        **{shape: _fr_staging("raftcore", shape, 128, 2) for shape in _OBSERVED_SHAPES},
+        **{
+            shape: _fr_staging("raftcore", shape, *_sd_observed_geometry("raftcore", shape))
+            for shape in _OBSERVED_SHAPES
+        },
     },
 }
 
@@ -641,17 +639,16 @@ COUNT_DRAWS = ("FUSED_COUNT_DRAWS",)
 # order of the kernel's ``Phase`` enum (K5's enum names each phase as
 # here); its reader returns PHASE_SLOTS counters (``kMaxPhases`` in
 # csrc/fused_common.cuh), those past a kernel's phases 0.  The observed
-# ticks of K2, K4 and K5 split their planes into the counters (fault
-# events, telemetry, exposure, the client workload), the margin, the
-# coverage digest and its insert (``OBSERVER_SPLIT``); K1 and K3 clock
-# theirs as one phase.
+# ticks of K1 to K5 split their planes into the counters (fault events,
+# telemetry, exposure, the client workload), the margin, the coverage
+# digest and its insert (``OBSERVER_SPLIT``).
 PHASE_CLOCKS = ("FUSED_PHASE_CLOCKS",)
 PHASE_SLOTS = 12
 OBSERVER_SPLIT = ("observer counters", "margin", "digest", "coverage insert")
 PHASES = {
     "paxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
-        "learner", "proposer sends", "observers", "column store",
+        "learner", "proposer sends", *OBSERVER_SPLIT, "column store",
     ),
     "fastpaxos": (
         "column load", "reply delivery", "proposer fold", "acceptor half-tick",
@@ -659,7 +656,7 @@ PHASES = {
     ),
     "raftcore": (
         "column load", "reply delivery", "candidate fold", "voter half-tick",
-        "learner", "candidate sends", "observers", "column store",
+        "learner", "candidate sends", *OBSERVER_SPLIT, "column store",
     ),
     "synchpaxos": (
         "column load", "stamp refresh", "reply delivery", "proposer fold",

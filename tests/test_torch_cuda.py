@@ -78,6 +78,7 @@ from chip_smoke import (
     near_limit_state_mp,
     path_state,
     plain_chunk,
+    settled_lanes,
     sp_checker_config,
     sp_delay_off_config,
     sp_knob_configs,
@@ -1088,7 +1089,10 @@ def test_observed_paxos_matches_plain_on_cuda():
     (2,5,8,0,0,1), config_gray_chaos and config_corrupt (2,5,8,0,1,1),
     config_delay_chaos (2,5,8,1,0,1) and every gray knob with p_delay
     (2,5,8,1,1,1); the planes-off kernel from the same state gives the same
-    protocol state; the observers phase of the phase-clock build runs."""
+    protocol state; 1-tick launches, 0-tick launches that leave the state
+    as it was, and launches in which lanes settle partway (the coverage
+    insert in flight across the switch to the settled ticks) equal the
+    plain tick on config2; each phase of the phase-clock build runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
     n = 4096
@@ -1115,6 +1119,24 @@ def test_observed_paxos_matches_plain_on_cuda():
         _assert_same(without_planes(kern), bare)
         assert int(kern.exposure.injected.sum()) > 0 and int(kern.coverage.new_bits.sum()) > 0, name
     assert shapes == {(2, 5, 8, 0, 0, 1), (2, 5, 8, 0, 1, 1), (2, 5, 8, 1, 0, 1), (2, 5, 8, 1, 1, 1)}
+    cfg = with_planes(main_config("paxos", n, 21))
+    plan = config_plan(cfg, 21)
+    plain = path_state(cfg, "cuda")
+    kern, settled_partway = plain.clone(), 0
+    for ticks in (1, 0, 1, 30, 0, 1, 40, 1):
+        if ticks == 0:
+            before = kern.clone()
+            tfused._launch("paxos", kern, cfg.seed, plan, cfg.fault, 0, 1024, 0, False)
+            torch.cuda.synchronize()
+            _assert_same(kern, before)
+            continue
+        was = settled_lanes(kern)
+        plain = plain_chunk(cfg, plain, plan, ticks, 1024)
+        kern = tfused.fused_paxos_chunk(kern, cfg.seed, plan, cfg.fault, ticks)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+        settled_partway += int((~was & settled_lanes(kern)).sum())
+    assert settled_partway > 0
     cfg = with_planes(main_config("paxos", 8192, 5))
     plan = trun.init_plan(cfg, "cuda")
     kern = tfused.fused_paxos_chunk(path_state(cfg, "cuda"), cfg.seed, plan, cfg.fault, 48)
@@ -1518,9 +1540,12 @@ def _shared_word_lanes(state, words: int) -> int:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("words", [1, 64])
-@pytest.mark.parametrize("path", ["observed-multipaxos", "observed-synchpaxos", "observed-fastpaxos"])
+@pytest.mark.parametrize("path", [
+    "observed-multipaxos", "observed-synchpaxos", "observed-fastpaxos", "observed-raftcore",
+    "observed-paxos",
+])
 def test_observed_shared_bloom_word_on_cuda(path, words):
-    """The coverage insert of K5, K4 and K2 (a tick late) where a tick's
+    """The coverage insert of K1 to K5 (a tick late) where a tick's
     two Bloom positions share a bitmap word: on each observed path's config
     (every plane on) with 64 coverage words, its own, and with 1, where
     every insert shares one, the plain ticks one at a time count the
@@ -1547,11 +1572,12 @@ def test_observed_shared_bloom_word_on_cuda(path, words):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "path", ["observed-multipaxos", "observed-multipaxos-long", "observed-synchpaxos", "observed-fastpaxos"]
-)
+@pytest.mark.parametrize("path", [
+    "observed-multipaxos", "observed-multipaxos-long", "observed-synchpaxos", "observed-fastpaxos",
+    "observed-raftcore", "observed-paxos",
+])
 def test_observed_deferred_insert_on_cuda(path):
-    """The coverage insert of K5, K4 and K2 completes a tick late (the
+    """The coverage insert of K1 to K5 completes a tick late (the
     launch's last tick's at its end): on 1000 lanes (a lane count no
     multiple of the 128, 96 or 64 lanes a block), 24 one-tick launches,
     each followed by a 0-tick launch that leaves the state as it was, and

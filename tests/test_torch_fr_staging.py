@@ -24,7 +24,8 @@ k_slots, stamped, arms, observed)``: an arms instantiation keeps its
 default's column and caps its registers for 3 blocks, a stamped one
 stages both buffers' delay stamps too (at ``(2,5,8)``: K1 and K2 144
 words, 3 blocks of 128 lanes; K3 154 words, 11 blocks of 32), and an
-observed one adds the planes' counters (``obs_rows``; 2 blocks of 128).
+observed one adds the planes' counter rows (``tally_obs_rows``; 3 blocks
+of 128 without the stamps and the arms, else 2).
 """
 
 import dataclasses
@@ -70,11 +71,11 @@ def _stamped(protocol, shape):
 
 def _obs(protocol, shape):
     """The words observed instantiation ``shape`` adds to the column for
-    the observer planes' counters (0 for any other): K2's ``tally_obs_rows``
-    (most counters in registers), K1's and K3's every one."""
+    the observer planes' counters (0 for any other): ``tally_obs_rows``
+    (most counters in registers) of K1, K2 and K3 alike."""
     if not shape[5]:
         return 0
-    return tfused.tally_obs_rows(shape[0]) if protocol == "fastpaxos" else tfused.obs_rows(shape[0])
+    return tfused.tally_obs_rows(shape[0])
 
 
 def _state(protocol, shape):
@@ -114,16 +115,16 @@ def test_staged_rows_match_the_state_leaves(protocol, shape, staging):
     # more, but 11 for K3's stamped column, of which three blocks of 128
     # lanes overrun the SM's shared memory: 11 blocks of 32 lanes, the most
     # that fit; and 8 for the observed columns, of which one block more
-    # overruns it too (K2's without the arms: 3 of 128 lanes, stamped 3
-    # of 96; the others 2 of 128), but for K2's unstamped arms key (124
-    # words), whose registers (more than the 168 that 3 blocks leave) hold
-    # it to 2 of 128.
+    # overruns it too (without the stamps and the arms: 3 of 128 lanes; the
+    # others 2 of 128), but for the unstamped arms keys (124 words, K3's
+    # 134), whose registers (more than the 168 that 3 blocks leave) hold
+    # them to 2 of 128.
     assert staging.min_blocks * (staging.smem_bytes + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
     assert staging.min_blocks * staging.threads <= SM_THREADS_MAX
     observed = _obs(protocol, shape) > 0
     stamped_k3 = protocol == "raftcore" and _stamped(protocol, shape) and not observed
     assert staging.min_blocks * staging.threads // 32 >= (11 if stamped_k3 else 8 if observed else 12)
-    register_bound = protocol == "fastpaxos" and shape == (2, 5, 8, 0, 1, 1)
+    register_bound = shape == (2, 5, 8, 0, 1, 1)
     if observed and not register_bound:
         assert (staging.min_blocks + 1) * (staging.smem_bytes + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
     if stamped_k3:
@@ -213,9 +214,9 @@ def test_source_instantiates_the_table(protocol):
     assert src.count("n_dims != 7") == 2 and src.count("const int smem = dims[6];") == 2
     rv_v1 = "true" if protocol == "raftcore" else "false"
     assert f"using G = SdStaged<P, A, K, {rv_v1}, STAMPED>;" in src
-    rows = "TallyRows" if protocol == "fastpaxos" else "Rows"  # K2: most counters in registers
+    # the counter rows of an observed column: most counters in registers
     assert (f"(SdStaged<P, A, K, {rv_v1}, STAMPED>::kRows +\n     (has_arg<obs::Obs, Arms...> ? "
-            f"obs::{rows}<P>::kRows : 0)) * B * 4") in src
+            f"obs::TallyRows<P>::kRows : 0)) * B * 4") in src
     assert "sd::Channel<P, A, B, G::kRqUntil, G::kRpUntil> ch;" in src
 
 

@@ -280,7 +280,7 @@ def test_coverage_digest_and_observe_match_jax():
 def test_observed_column_rows_match_the_kernel():
     """``obs_rows`` (the words an observed instantiation adds to a lane's
     column) is ``obs::Rows<P>::kRows`` of fused_common.cuh,
-    ``tally_obs_rows`` (K4's and K2's, and K5's without the arms)
+    ``tally_obs_rows`` (K1's to K4's, and K5's without the arms)
     ``obs::TallyRows``, and the plane sizes its C entry reads are
     ``_obs_args``'."""
     common = (build.CSRC / "fused_common.cuh").read_text()
@@ -292,7 +292,7 @@ def test_observed_column_rows_match_the_kernel():
     assert tfused.obs_rows(P) == rows == 49
     # K5 keeps the margins and the client queue in the column
     # (obs::TallyRows), the other counters in registers, but with the arms
-    # all of them; K4 and K2 keep them in registers at every key, with the
+    # all of them; K1 to K4 keep them in registers at every key, with the
     # arms every counter.
     tally_rows = re.search(r"struct TallyRows \{(.*?)\};", common, re.S).group(1)
     assert "kMar = 0, kWl = 4, kRows = kWl + 8 * P;" in tally_rows
@@ -301,7 +301,7 @@ def test_observed_column_rows_match_the_kernel():
     src = (build.CSRC / "fused_multipaxos_tick.cu").read_text()
     assert "using CR = std::conditional_t<TALLY, obs::TallyRows<P>, obs::Rows<P>>;" in src
     assert "constexpr bool TALLY = !ARMS;" in src
-    for kernel in ("fused_fastpaxos_tick", "fused_synchpaxos_tick"):
+    for kernel in ("fused_paxos_tick", "fused_fastpaxos_tick", "fused_raftcore_tick", "fused_synchpaxos_tick"):
         src = (build.CSRC / f"{kernel}.cu").read_text()
         assert "using CR = obs::TallyRows<P>;" in src
         assert "obs::Tally<STAMPED, ARMS> tally;" in src
@@ -323,10 +323,10 @@ def test_observed_column_rows_match_the_kernel():
 def test_observed_geometry_of_k1_k2_k3(protocol, rows):
     """The observed instantiations of K1, K2 and K3 (keys ending in
     ``observed``, at (2,5,8) with and without the stamps and the arms):
-    the staged rows plus the counter rows, ``obs_rows`` (K1 153 words, 193
-    stamped; K3 163 and 203; 2 blocks of 128 lanes), K2's ``tally_obs_rows``
-    (124 words at 3 blocks of 128, stamped 164 at 2 of 128; with the arms
-    124 and 164 at 2 of 128); the wrapper keys
+    the staged rows plus the counter rows, ``tally_obs_rows`` (K1 and K2
+    124 words at 3 blocks of 128, stamped 164 at 2 of 128, with the arms
+    124 and 164 at 2 of 128; K3 134 and 174 likewise, but its stamped key
+    at 3 blocks of 96); the wrapper keys
     a state with a plane to them, and one at a shape without an observed
     instantiation (three acceptors) is refused before any launch."""
     table = tfused.FR_STAGING[protocol]
@@ -334,15 +334,17 @@ def test_observed_geometry_of_k1_k2_k3(protocol, rows):
     assert observed == [(2, 5, 8, s, r, 1) for s in (0, 1) for r in (0, 1)]
     for key in observed:
         st = table[key]
-        tally = protocol == "fastpaxos"  # most counters in registers
-        want = rows + 40 * key[3] + (tfused.tally_obs_rows(2) if tally else tfused.obs_rows(2))
-        threads, blocks = (128, 3) if tally and not key[3] and not key[4] else (128, 2)
+        want = rows + 40 * key[3] + tfused.tally_obs_rows(2)  # most counters in registers
+        threads, blocks = (
+            (128, 3) if not key[3] and not key[4]
+            else (96, 3) if key[3:5] == (1, 0) and protocol == "raftcore" else (128, 2)
+        )
         assert (st.threads, st.rows, st.smem_bytes, st.min_blocks) == (
             threads, want, want * 4 * threads, blocks
         )
         assert tfused._launch_dims(tfused.BINDINGS[protocol], key) == key + (want * 4 * threads,)
     assert [table[k].rows for k in observed] == {
-        "paxos": [153, 153, 193, 193], "fastpaxos": [124, 124, 164, 164], "raftcore": [163, 163, 203, 203],
+        "paxos": [124, 124, 164, 164], "fastpaxos": [124, 124, 164, 164], "raftcore": [134, 134, 174, 174],
     }[protocol]
     binding = tfused.BINDINGS[protocol]
     assert binding.observed

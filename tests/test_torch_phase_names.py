@@ -5,11 +5,10 @@ needed, no JAX).
 into, in the order of the ``Phase`` enum of the protocol's kernel source
 (``csrc/fused_<protocol>_tick.cu``), each marked once by the tick;
 ``fused_tick.PHASE_SLOTS`` is the reader's count, ``kMaxPhases`` in
-``csrc/fused_common.cuh``.  The enums of K2, K4 and K5 name each of
-their phases (one comment an entry), their observed ticks' planes split
-into four (``OBSERVER_SPLIT``); ``chip_ab.source_phases`` reads those
-names, so that sources timed against each other are split by their own
-phases.
+``csrc/fused_common.cuh``.  The enums of K1 to K5 name each of their
+phases (one comment an entry), their observed ticks' planes split into
+four (``OBSERVER_SPLIT``); ``chip_ab.source_phases`` reads those names, so
+that sources timed against each other are split by their own phases.
 """
 
 import re
@@ -56,11 +55,11 @@ def test_phases_follow_the_enum(protocol):
     assert chip_ab.source_phases(src, tfused.PHASES[protocol]) == tfused.PHASES[protocol]
 
 
-@pytest.mark.parametrize("protocol", ["multipaxos", "synchpaxos", "fastpaxos"])
+@pytest.mark.parametrize("protocol", ["multipaxos", "synchpaxos", "fastpaxos", "raftcore", "paxos"])
 def test_names_its_observer_split(protocol):
-    """The enums of K5, K4 and K2 name every phase, and their observed
-    ticks' planes are the four phases before the column store, each marked
-    once, in that order."""
+    """The enums of K1 to K5 name every phase, and their observed ticks'
+    planes are the four phases before the column store, each marked once,
+    in that order."""
     src = _source(protocol)
     entries = _enum(src)[:-1]
     assert all(name is not None for _, name in entries)
@@ -76,13 +75,15 @@ def test_phase_slots_hold_every_kernel():
     ``kMaxPhases`` and holds the longest list."""
     assert f"constexpr int kMaxPhases = {tfused.PHASE_SLOTS};" in COMMON
     assert max(len(p) for p in tfused.PHASES.values()) == tfused.PHASE_SLOTS == 12
-    assert len(tfused.PHASES["synchpaxos"]) == 12 and len(tfused.PHASES["fastpaxos"]) == 11
+    assert len(tfused.PHASES["synchpaxos"]) == 12
+    assert [len(tfused.PHASES[p]) for p in ("fastpaxos", "raftcore", "paxos")] == [11, 11, 11]
 
 
 def test_an_unnamed_enum_keeps_its_observers_phase_whole():
     """A K5 source from before the split (one ``kPhObs``, no names) is
-    split by its own eight phases, a K4 or K2 one (PR 18's) by its own nine
-    or eight; a kernel without an observers phase clocks none."""
+    split by its own eight phases, a K4 one by its own nine, a K2, K3 or K1
+    one by its own eight; a kernel without an observers phase clocks
+    none."""
     older = re.sub(
         r"enum Phase \{.*?\};",
         "enum Phase {\n  kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhProposer, "
@@ -100,6 +101,10 @@ def test_an_unnamed_enum_keeps_its_observers_phase_whole():
                        "kPhObs,\n  kPhStore, kPhases,"),
         ("fastpaxos", "kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, "
                       "kPhStore,\n  kPhases,"),
+        ("raftcore", "kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, "
+                     "kPhStore,\n  kPhases,"),
+        ("paxos", "kPhLoad, kPhDeliver, kPhFold, kPhAcceptor, kPhLearner, kPhSends, kPhObs, "
+                  "kPhStore,\n  kPhases,"),
     ):
         older = re.sub(r"enum Phase \{.*?\};", "enum Phase {\n  " + before + "\n};", _source(protocol),
                        flags=re.S)
@@ -109,12 +114,12 @@ def test_an_unnamed_enum_keeps_its_observers_phase_whole():
         )
 
 
-@pytest.mark.parametrize("protocol", ["synchpaxos", "fastpaxos"])
+@pytest.mark.parametrize("protocol", ["synchpaxos", "fastpaxos", "raftcore", "paxos"])
 def test_table_staging_reads_each_sources_counter_rows(protocol):
-    """``chip_ab.table_staging`` launches a K4 or K2 source at its own
-    table's geometry and counter rows: this source's as the wrapper's, and
-    a parent's (every observed key at 2 blocks of 128, no ``obs::Tally``)
-    with all 49 counters in its observed columns."""
+    """``chip_ab.table_staging`` launches a K4, K2, K3 or K1 source at its
+    own table's geometry and counter rows: this source's as the wrapper's,
+    and a parent's (every observed key at 2 blocks of 128, no
+    ``obs::Tally``) with all 49 counters in its observed columns."""
     src = _source(protocol)
     staging = tfused.BINDINGS[protocol].staging
     assert chip_ab.table_staging(protocol, src, staging) == staging
@@ -122,7 +127,11 @@ def test_table_staging_reads_each_sources_counter_rows(protocol):
     got = chip_ab.table_staging(protocol, older.replace("obs::Tally", "obs::Rows"), staging)
     for key, st in got.items():
         if key[5]:
-            rows = tfused.sp_staged_rows(*key[:4]) + tfused.obs_rows(2)
+            staged = (
+                tfused.sp_staged_rows(*key[:4]) if protocol == "synchpaxos"
+                else tfused.fr_staged_rows(protocol, *key[:4])
+            )
+            rows = staged + tfused.obs_rows(2)
             assert (st.threads, st.min_blocks, st.rows) == (128, 2, rows)
         else:
             assert st == staging[key]
