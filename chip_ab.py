@@ -46,9 +46,12 @@ each kernel did before it split it, whole).  A source whose
 instantiation table (``K1_INSTANCES`` to ``K5_INSTANCES``) lists another
 geometry than the wrapper's (lanes a block, blocks an SM, PROMISE payloads
 staged or not), or whose observed columns hold another count of counter
-rows (every kernel before it kept most counters in registers: 49), is
-launched at its own (:func:`table_staging`), so that two geometries of one
-kernel, or a parent and its redesign, compare in one call.  Prints the card's name and
+rows (every kernel before it kept most counters in registers: 49), or
+whose K5 column holds other lane rows (the arms' link rows, the caps:
+every K5 before its arms' and channel's redesign has neither), is
+launched at its own (:func:`table_staging`), so that two
+geometries of one kernel, or a parent and its redesign, compare in one
+call.  Prints the card's name and
 power limit, then as its last line one JSON object of every measurement.
 """
 
@@ -93,6 +96,10 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
         counter_rows = tf.tally_obs_rows
     else:
         counter_rows = lambda n_prop, arms=False: tf.obs_rows(n_prop)  # noqa: E731
+    # K5's column stages the arms' per-link thresholds where its kernel has
+    # LINKS and the links' caps where its column has a kCaps row (an older
+    # source does neither).
+    lanes = dict(links="bool LINKS" in src, caps="kCaps" in src)
     out = dict(staging)
     for row in rows:
         fields = [f.strip() for f in row.split(",")]
@@ -100,7 +107,9 @@ def table_staging(protocol: str, src: str, staging: dict) -> dict:
             n_key = len(fields) - 2
             key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])
             if key in out:
-                out[key] = tf._mp_staging(key, threads, fields[n_key + 1] == "true", counter_rows)
+                out[key] = tf._mp_staging(
+                    key, threads, fields[n_key + 1] == "true", counter_rows, **lanes
+                )
         elif protocol != "multipaxos" and len(fields) in (7, 8):  # keys may end in `observed`
             n_key = len(fields) - 2
             key, threads = tuple(map(int, fields[:n_key])), int(fields[n_key])

@@ -63,7 +63,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    builds; the column load and store alone (a launch of 0 ticks) of K1 to
    K4, and K5 on config3 and config3-long; a path's first chunk is
    compared once, then timed from copies of its initial state in the same
-   call;
+   call.  The untimed comparisons (all but the full-width ones) run in
+   ``COMPARE_SHARDS`` processes at once (``--compare-shard i n``: every
+   n-th comparison from the i-th, :func:`compare_cases`), since the plain
+   ticks are host-bound; the timed ones run after them, alone on the card;
 5. ablation: each ablated build of K1 (config2) and K5 (config3) against
    the plain tick without the same component, byte for byte, at 1<<16
    lanes over two 64-tick chunks from stream block 5, then timed with its
@@ -122,7 +125,9 @@ gray-failure plan fields run on plans drawn here from numpy
 (:func:`config_plan`): the config's own distribution, from another stream
 than the JAX package's ``FaultPlan.sample``.
 
-Prints the ``{"ablation": ...}`` line, one ``{"kernels": [...]}`` line (an
+Each top-level phase's seconds and each comparison's are printed on a line
+of their own (``seconds: ...``).  Prints the ``{"ablation": ...}`` line, one
+``{"kernels": [...]}`` line (an
 entry per main path: its kernel's instantiation on the path's config; an
 entry per ablated build, with the ablation table's launches), the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -960,7 +965,17 @@ def plain_chunk(cfg, state, plan, n_ticks, block, blk0=0, clamp_per_tick=False, 
     )
 
 
-def compare(
+def compare(name, *args, **kw) -> dict:
+    """:func:`compare_chunks`, its seconds on the host's clock logged on a
+    line of their own (the plain chunks' share beside them)."""
+    t0 = time.perf_counter()
+    out = compare_chunks(name, *args, **kw)
+    log(f"seconds: compare {name}: {time.perf_counter() - t0:.1f} s "
+        f"(plain chunks {out['plain_ms'] / 1e3:.1f} s)")
+    return out
+
+
+def compare_chunks(
     name, cfg, plan, n_ticks, block=None, reps=0, init=None, ceiling=None, census=None,
     compact=False, chunks=1, from_init=False, first_chunk=False, ablate=frozenset(), **kw,
 ) -> dict:
@@ -1227,26 +1242,76 @@ def phase_split(name, cfg, state, plan, n_ticks, launches, block, after=lambda s
     return out, state
 
 
-def phase_compare(ceiling: float) -> dict:
-    """Every instantiation against the plain version; the full-width
-    comparison of each main path's kernel on its config, timed, is
-    returned per path."""
+def shard_of(k: int, n: int):
+    """:func:`compare` for shard ``k`` of ``n``: the comparisons from the
+    k-th on, every n-th, in compare_cases' order (which does not depend on
+    any result); None in place of any other's."""
+    seq = iter(range(1 << 30))
+
+    def run(name, *args, **kw):
+        return compare(name, *args, **kw) if next(seq) % n == k else None
+
+    return run
+
+
+# The processes the untimed comparisons run in at once (compare_shards):
+# their plain ticks are host-bound, one CPU core each.
+COMPARE_SHARDS = 6
+
+
+def compare_shards(n: int = COMPARE_SHARDS) -> None:
+    """:func:`compare_cases` in ``n`` processes at once (this script with
+    ``--compare-shard i n``), each on the card, its log printed when it
+    ends; raises if one fails, and stops every one still running."""
+    import subprocess
+
+    from paxos_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs = [build.BUILD_DIR / f"compare_shard_{k}.log" for k in range(n)]
+    procs = []
+    try:
+        for k, path in enumerate(logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--compare-shard", str(k), str(n)],
+                    stdout=out, stderr=subprocess.STDOUT,
+                ))
+        failed = []
+        for k, proc in enumerate(procs):
+            rc = proc.wait()
+            print(logs[k].read_text(), end="", flush=True)
+            if rc != 0:
+                failed.append((k, rc))
+        if failed:
+            raise AssertionError(f"comparison shards failed (shard, exit code): {failed}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def compare_cases(run=compare) -> None:
+    """Every instantiation against the plain version, untimed, each through
+    ``run`` (:func:`compare`, or a shard's :func:`shard_of`): all of
+    phase_compare's comparisons but the full-width ones."""
     from paxos_tpu_torch.harness import config as C
     from paxos_tpu_torch.harness.run import init_plan, init_state
     from paxos_tpu_torch.kernels.fused_tick import BINDINGS
     from paxos_tpu_torch.protocols.paxos import GRAY_PROTOCOLS
 
     cfg1 = C.config1_no_faults(4096, 3)
-    compare("paxos config1 (1,3,8)", cfg1, init_plan(cfg1, "cuda"), 64)
+    run("paxos config1 (1,3,8)", cfg1, init_plan(cfg1, "cuda"), 64)
     cfg4 = C.config4_byzantine(4096, 5)
-    compare("paxos config4 (2,5,8)", cfg4, fault_plan(4096, 5, 2, 0.25, 4), 300)
-    compare(
+    run("paxos config4 (2,5,8)", cfg4, fault_plan(4096, 5, 2, 0.25, 4), 300)
+    run(
         "paxos config4 (2,5,8) with crashes", cfg4,
         fault_plan(4096, 5, 2, 0.25, 4, p_crash=0.3), 300,
     )
     for protocol in ("fastpaxos", "raftcore"):
         small = dataclasses.replace(main_config(protocol, 4096, 11), n_acc=3)
-        compare(
+        run(
             f"{protocol} (2,3,8) with crashes and equivocators", small,
             fault_plan(4096, 3, 2, 0.25, 5, p_crash=0.3), 128,
         )
@@ -1255,33 +1320,33 @@ def phase_compare(ceiling: float) -> dict:
     # and three acceptors with stamps.
     for seed, violate in ((5, False), (6, True)):
         cfgd = C.config_delay_chaos(4096, seed, violate_delta=violate)
-        compare(f"synchpaxos (2,5,8) stamped, violate_delta={violate}", cfgd,
+        run(f"synchpaxos (2,5,8) stamped, violate_delta={violate}", cfgd,
                 config_plan(cfgd, seed), 200)
     cfgu = sp_checker_config(4096)
-    compare("synchpaxos (2,5,8) sp_unsafe_fast", cfgu, config_plan(cfgu, 7), 200)
+    run("synchpaxos (2,5,8) sp_unsafe_fast", cfgu, config_plan(cfgu, 7), 200)
     cfgo = sp_delay_off_config(4096, 8)
-    compare("synchpaxos (2,5,8) delay off, unstamped", cfgo, init_plan(cfgo, "cuda"), 200)
+    run("synchpaxos (2,5,8) delay off, unstamped", cfgo, init_plan(cfgo, "cuda"), 200)
     cfg3 = dataclasses.replace(C.config_delay_chaos(4096, 9), n_acc=3)
-    compare("synchpaxos (2,3,8) stamped", cfg3, config_plan(cfg3, 9), 200)
+    run("synchpaxos (2,3,8) stamped", cfg3, config_plan(cfg3, 9), 200)
     # The knobs no main path sets: duplicated requests and replies, uneven
     # quorums, and a ballot stride with a longer backoff.
     for name, cfgk in sp_knob_configs(4096, 10).items():
-        compare(f"synchpaxos (2,5,8) stamped, {name}", cfgk, config_plan(cfgk, 10), 200)
+        run(f"synchpaxos (2,5,8) stamped, {name}", cfgk, config_plan(cfgk, 10), 200)
     for protocol in ("paxos", "fastpaxos", "raftcore"):
         for name, cfgk in fr_knob_configs(protocol, 4096, 10).items():
-            compare(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
+            run(f"{protocol} (2,5,8) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
     # The gray-failure and partition arms of K1 to K5: each knob alone and
     # the configs that set them, over two chunks.
     for protocol in GRAY_PROTOCOLS:
         for name, cfgk in gray_knob_configs(4096, 12, protocol).items():
             shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
-            compare(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
+            run(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, 12), 96, chunks=2)
     # The bounded-delay channel of K1, K2, K3 and K5 (their stamped
     # instantiations), over two chunks.
     for protocol in ("paxos", "fastpaxos", "raftcore", "multipaxos"):
         for name, cfgk in delay_knob_configs(4096, 14, protocol).items():
             shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(init_state(cfgk, "cpu"), cfgk.fault)))
-            compare(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, cfgk.seed), 96, chunks=2)
+            run(f"{protocol} ({shape}) {name}", cfgk, config_plan(cfgk, cfgk.seed), 96, chunks=2)
     # K5's arms on the JAX package's own fused-kernel cases
     # (tests/test_gray.py): every gray knob with crash windows on config3 at
     # 64 lanes, seed 5, 24 ticks in one stream block, and flaky links at
@@ -1289,12 +1354,12 @@ def phase_compare(ceiling: float) -> dict:
     # seed 9.
     every = main_config("config3", 64, 5)
     every = dataclasses.replace(every, fault=dataclasses.replace(every.fault, **GRAY_ALL))
-    compare("multipaxos (2,5,8,4,1) test_gray every gray knob", every, config_plan(every, 5), 24,
+    run("multipaxos (2,5,8,4,1) test_gray every gray knob", every, config_plan(every, 5), 24,
             block=64)
     zero = main_config("config3", 128, 9)
     zero = dataclasses.replace(zero, fault=dataclasses.replace(
         zero.fault, p_drop=0.0, p_dup=0.0, p_flaky=0.5, flaky_drop=0.0, flaky_dup=0.0))
-    compare("multipaxos (2,5,8,4,1) test_gray zero-rate flaky links", zero, config_plan(zero, 9),
+    run("multipaxos (2,5,8,4,1) test_gray zero-rate flaky links", zero, config_plan(zero, 9),
             64, block=128)
     # The observed instantiations of K1 to K5 (every observer plane on) on
     # the configs that light every exposure class between them (drop, dup,
@@ -1315,7 +1380,7 @@ def phase_compare(ceiling: float) -> dict:
             else:
                 cfgo = with_planes(dataclasses.replace(getattr(C, name)(1 << 16, 16), protocol=protocol))
             shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(path_state(cfgo, "cpu"), cfgo.fault)))
-            compare(f"{protocol} ({shape}) observed, {name}", cfgo, config_plan(cfgo, 16), 64, chunks=2)
+            run(f"{protocol} ({shape}) observed, {name}", cfgo, config_plan(cfgo, 16), 64, chunks=2)
         # K5's and K4's stamped arms with the planes (K1's to K3's the card
         # tests hold): every gray knob with the delay.
         every = {
@@ -1325,7 +1390,7 @@ def phase_compare(ceiling: float) -> dict:
         if every is not None:
             cfgo = with_planes(every())
             shape = ",".join(map(str, BINDINGS[protocol].kernel_shape(path_state(cfgo, "cpu"), cfgo.fault)))
-            compare(f"{protocol} ({shape}) observed, every gray knob, stamped", cfgo,
+            run(f"{protocol} ({shape}) observed, every gray knob, stamped", cfgo,
                     config_plan(cfgo, 16), 64, chunks=2)
         if protocol == "multipaxos":
             cfgo = with_planes(main_config("config3", 4096, 13))
@@ -1333,7 +1398,7 @@ def phase_compare(ceiling: float) -> dict:
         else:
             cfgo = with_planes(main_config(protocol, 4096, 13))
             plan, init = main_plan(cfgo) or init_plan(cfgo, "cuda"), near_limit_state(cfgo, 4094)
-        compare(
+        run(
             f"{protocol} observed per-tick clamp, blk0=5", cfgo, plan, 96,
             init=init, blk0=5, clamp_per_tick=True,
         )
@@ -1341,7 +1406,7 @@ def phase_compare(ceiling: float) -> dict:
     # offset, which the main paths do not take, from near-limit ballots.
     for protocol in ("paxos", "fastpaxos", "raftcore", "synchpaxos"):
         cfgc = main_config(protocol, 4096, 13)
-        compare(
+        run(
             f"{protocol} per-tick clamp, blk0=5", cfgc,
             main_plan(cfgc) or init_plan(cfgc, "cuda"), 96,
             init=near_limit_state(cfgc, 4094), blk0=5, clamp_per_tick=True,
@@ -1350,24 +1415,34 @@ def phase_compare(ceiling: float) -> dict:
     # long-log windows (2,5,4,4) and (2,5,16,4) compacted between chunks,
     # and near-limit ballots under the per-tick clamp (2047).
     cfg3 = main_config("config3", 4096, 5)
-    compare("multipaxos config3 (2,5,8,4)", cfg3, config_plan(cfg3, 5), 300)
+    run("multipaxos config3 (2,5,8,4)", cfg3, config_plan(cfg3, 5), 300)
     eq3 = dataclasses.replace(cfg3, n_acc=3, fault=dataclasses.replace(cfg3.fault, p_equiv=0.3))
-    compare("multipaxos (2,3,8,4) with equivocators", eq3, config_plan(eq3, 6), 200)
+    run("multipaxos (2,3,8,4) with equivocators", eq3, config_plan(eq3, 6), 200)
     for window, log_total in ((4, 64), (16, 256)):
         cfgl = C.config3_long(4096, 6, log_total=log_total, window=window)
-        compare(
+        run(
             f"multipaxos long log (2,5,{window},4)", cfgl, config_plan(cfgl, 6), 64,
             compact=True, chunks=6,
         )
     cfgc = main_config("config3", 4096, 13)
-    compare(
+    run(
         "multipaxos per-tick clamp, blk0=5", cfgc, config_plan(cfgc, 13), 96,
         init=near_limit_state_mp(cfgc, 254), blk0=5, clamp_per_tick=True,
     )
     # The knobs no main path sets (duplicated requests, uneven quorums, a
     # ballot stride with a shorter backoff and timeout), crash windows off.
     for name, cfgk in mp_knob_configs(4096, 10).items():
-        compare(f"multipaxos (2,5,8,4) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
+        run(f"multipaxos (2,5,8,4) {name}", cfgk, init_plan(cfgk, "cuda"), 200)
+
+
+def phase_compare(ceiling: float) -> dict:
+    """Every instantiation against the plain version (compare_cases, in
+    COMPARE_SHARDS processes at once); then, alone on the card, the
+    full-width comparison of each main path's kernel on its config, timed,
+    returned per path."""
+    from paxos_tpu_torch.harness import config as C
+
+    seconds("untimed comparisons", compare_shards)
     full = {}
     for path, mp in MAIN_PATHS.items():
         cfg = main_config(path, FULL_LANES, 7)
@@ -2056,23 +2131,38 @@ def instantiation_ptxas(lines: list, protocol: str, shape: tuple) -> list:
     raise AssertionError(f"no ptxas report of the {protocol} kernel's instantiation {shape}")
 
 
-def main() -> int:
+def seconds(name: str, fn, *args):
+    """``fn(*args)``, its seconds on the host's clock logged on a line of
+    their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"seconds: phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is False")
         return 1
     if not Path("paxos_tpu_torch").is_dir():
         log("run from the repository root: paxos_tpu_torch/ not found")
         return 1
+    if argv[:1] == ["--compare-shard"]:
+        k, n = int(argv[1]), int(argv[2])
+        log(f"comparison shard {k} of {n}")
+        compare_cases(shard_of(k, n))
+        return 0
     t0 = time.perf_counter()
-    built = phase_build()
-    geometry = phase_geometry()
-    ceiling = phase_ceiling()
-    phase_golden()
-    full = phase_compare(ceiling["ops_per_s"])
-    ablated, ablation = phase_ablation(ceiling["ops_per_s"])
-    main_paths = {p: phase_main_path(p) for p in MAIN_PATHS}
-    profiles = {p: phase_main_path_profile(p) for p in main_paths}
-    checker = phase_checker()
+    built = seconds("build", phase_build)
+    geometry = seconds("geometry", phase_geometry)
+    ceiling = seconds("ceiling", phase_ceiling)
+    seconds("golden", phase_golden)
+    full = seconds("compare", phase_compare, ceiling["ops_per_s"])
+    ablated, ablation = seconds("ablation", phase_ablation, ceiling["ops_per_s"])
+    main_paths = seconds("main paths", lambda: {p: seconds(f"main path {p}", phase_main_path, p) for p in MAIN_PATHS})
+    profiles = seconds("profiles", lambda: {p: seconds(f"profile {p}", phase_main_path_profile, p) for p in main_paths})
+    checker = seconds("checker", phase_checker)
     from paxos_tpu_torch.kernels.fused_tick import ABLATE_KEYS, BINDINGS, ablate_defines
 
     kernels = []

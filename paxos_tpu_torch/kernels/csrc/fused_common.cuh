@@ -832,15 +832,21 @@ struct ColumnLearner {
 // column, whose reply stamps are its PROMISEs' then its ACCEPTEDs'): per
 // buffer a bitmask of the slots whose stamp is still ahead of the tick, and
 // the earliest such stamp; a slot is ready (deliverable, selectable) where
-// its bit is clear.  The plan's latency caps are read once as the links
-// whose cap is above 0 (`slow`, the only links a send can be delayed on),
-// and a cap again only where a send on its link is delayed.  Every stamp
-// read or written counts as a touch.  The stamp draws of a request of kind
-// k sit at kind REQ_KIND + k of the draws' kind axis, those of a reply at
-// 2 - REQ_KIND + k (the single-decree ticks: requests first; Multi-Paxos:
-// replies first), on the streams DELAY and LAT.
+// its bit is clear.  Between wraps of the int32 tick the tick only grows,
+// so a slot once ready stays ready and a waiting slot is looked at again
+// where the earliest waiting stamp comes; at the one tick at which it falls
+// (kInt32Min) every slot's readiness is taken anew (the plain tick's `tick
+// >= until` holds a slot stamped before the wrap).  The plan's latency caps
+// are read once as the links whose cap is above 0 (`slow`, the only links a
+// send can be delayed on), and a cap again only where a send on its link is
+// delayed: from the plan, or where CAP_ROW >= 0 from the PA column rows
+// from CAP_ROW, which the launch fills once.  Every stamp read or written
+// counts as a touch.  The stamp draws of a request of kind k sit at kind
+// REQ_KIND + k of the draws' kind axis, those of a reply at 2 - REQ_KIND + k
+// (the single-decree ticks: requests first; Multi-Paxos: replies first), on
+// the streams DELAY and LAT.
 template <int P, int A, int B, int RQ_ROW, int RP_ROW, uint32_t DELAY = kDelayBits,
-          uint32_t LAT = kLatBits, int REQ_KIND = 0>
+          uint32_t LAT = kLatBits, int REQ_KIND = 0, int CAP_ROW = -1>
 struct Channel {
   struct G {
     static constexpr int S = 2 * P * A, E = P * A, kRqUntil = RQ_ROW, kRpUntil = RP_ROW;
@@ -865,12 +871,22 @@ struct Channel {
     }
     if (prm.delay.mode == 0) return;
 #pragma unroll
-    for (int e = 0; e < G::E; ++e) slow |= (plan.link_delay[e * n + i] > 0 ? 1u : 0u) << e;
+    for (int e = 0; e < G::E; ++e) {
+      const int32_t cap = plan.link_delay[e * n + i];
+      slow |= (cap > 0 ? 1u : 0u) << e;
+      if constexpr (CAP_ROW >= 0) col[CAP_ROW + e] = cap;
+    }
   }
 
   // At the start of tick `tick` (readiness is tick >= until): release the
-  // waiting slots whose stamp has come.
+  // waiting slots whose stamp has come; at kInt32Min every slot is looked
+  // at as if waiting.
   __device__ __forceinline__ void refresh(const Column<B>& col, int32_t tick, DrawCount* draws) {
+    static_assert(G::S < 32, "a buffer's slots fit one mask");
+    if (tick == kInt32Min) {
+      rq_wait = rp_wait = (1u << G::S) - 1;
+      next_due = kInt32Min;
+    }
     if (tick < next_due) return;
     next_due = kInt32Max;
     for (uint32_t m = rq_wait; m != 0; m &= m - 1) {
@@ -893,21 +909,22 @@ struct Channel {
   // request, 2 - REQ_KIND + kind for a reply).  tick + 1 + min(latency, cap)
   // where the link is slow and the delay draw fires, else 0; the latency is
   // 1 + (bits & 0x7FFFFFFF) % delay_max.  A link that never delays draws
-  // nothing: its stamp is 0 whatever the draws.
+  // nothing: its stamp is 0 whatever the draws.  The cap from the column
+  // where CAP_ROW >= 0, else from the plan.
   // PRE: the delay draws of the tick were made already (an observed
   // instantiation's exposure census), bit `pos` of `fired` each.
   template <bool PRE = false>
-  __device__ __forceinline__ int32_t stamp(const Params& prm, const Plan& plan,
-                                           const TickStream& ts, int dir, int kind, int p, int a,
-                                           int64_t n, int64_t i, int32_t tick,
-                                           uint64_t fired = 0) const {
+  __device__ __forceinline__ int32_t stamp(const Column<B>& col, const Params& prm,
+                                           const Plan& plan, const TickStream& ts, int dir,
+                                           int kind, int p, int a, int64_t n, int64_t i,
+                                           int32_t tick, uint64_t fired = 0) const {
     const int e = p * A + a;
     if (prm.delay.mode == 0 || !((slow >> e) & 1u)) return 0;
     const int pos = (((dir == 0 ? REQ_KIND : 2 - REQ_KIND) + kind) * P + p) * A + a;
     if (PRE ? !((fired >> pos) & 1u) : ts.bits(DELAY, pos) >= prm.delay.thr) return 0;
     const uint32_t lat =
         1u + (ts.bits(LAT, pos) & 0x7FFFFFFFu) % static_cast<uint32_t>(prm.delay_max);
-    const int32_t cap = plan.link_delay[e * n + i];
+    const int32_t cap = CAP_ROW >= 0 ? col[CAP_ROW + e] : plan.link_delay[e * n + i];
     return wrap_add(wrap_add(tick, 1), min(static_cast<int32_t>(lat), cap));
   }
 
@@ -925,7 +942,7 @@ struct Channel {
       const int j = __ffs(m) - 1;
       const int e = j % G::E;
       const int32_t u =
-          stamp<PRE>(prm, plan, ts, dir, j / G::E, e / A, e % A, n, i, tick, fired);
+          stamp<PRE>(col, prm, plan, ts, dir, j / G::E, e / A, e % A, n, i, tick, fired);
       draws->touch(1);
       col[row + j] = u;
       if (u > tick) {

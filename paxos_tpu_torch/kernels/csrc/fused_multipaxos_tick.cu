@@ -86,10 +86,12 @@
 // position, so they are made as before; LINK_BITS (where a message is
 // sent), DUP_BITS (where a request is selected) and CORRUPT (where an
 // acceptor processes a request) are drawn only at the site that reads
-// them, each per-link threshold read from the plan there; the snapshot
-// shadows of promised and the slot log stay in global memory, read on a
-// recovery tick and written on a snapshot tick, the log's from and to the
-// lane's column.
+// them, each per-link threshold read from the lane's column, where the
+// launch loaded it with each proposer's backoff multiplier (Staged,
+// LINKS: an observed instantiation reads them from the plan at the site);
+// the snapshot shadows of promised and the slot log stay in global
+// memory, read on a recovery tick and written on a snapshot tick, the
+// log's from and to the lane's column.
 //
 // The bounded-delay channel (p_delay: delay stamps on every send, readiness
 // gates on PROMISE and ACCEPTED delivery and on the request selection)
@@ -102,9 +104,13 @@
 // sit in a bitmask per direction (the replies' PROMISEs first), refreshed
 // at the tick's start, and a tick's sends are stamped by one rolled loop a
 // direction, at exactly the plain tick's send sites: a leader's ACCEPT,
-// re-sent every tick, takes a new stamp every tick.  To keep 2 blocks of
-// 128 lanes an SM with the stamps in the column, the stamped
-// instantiations leave the PROMISE payloads in global memory (Staged).
+// re-sent every tick, takes a new stamp every tick.  The stamped
+// instantiations without the planes read the links' latency caps from the
+// column (CAPS), where the launch loads them.  To keep 2 blocks of 128
+// lanes an SM with the stamps in the column, the stamped instantiations
+// leave the PROMISE payloads in global memory (Staged): staged, their
+// column's load and store cost more than the steady tick, which seldom
+// touches them, saves.
 //
 // The observer planes (telemetry, coverage, exposure, margin, the client
 // workload) compile into observed instantiations of their own (OBS, at
@@ -243,15 +249,19 @@ __device__ __forceinline__ int32_t pack_bv(int32_t bal, int32_t val) {
 
 // A lane's staged rows, in column order: each leaf's rows in the leaf's own
 // row order (the slot index minor), the three buffers' delay stamps where
-// STAMPED, the PROMISE payloads last where PROM.
+// STAMPED, the latency caps of the lane's links where CAPS, the arms'
+// per-link drop and dup thresholds and the proposers' backoff multipliers
+// where LINKS, the PROMISE payloads last where PROM.
 // The learner's voter masks are acceptor bitmasks, below 2^A <= 2^8 in
 // every state the engine reaches, so the K <= 4 masks of a slot share one
 // word, mask k in bits [8k, 8k + 8): a slot's masks are read and written
 // at once, and the column is L * (K - 1) words shorter.  Mirrored by
 // fused_tick.mp_staged_rows.
-template <int P, int A, int LOG, int K, bool STAMPED, bool PROM>
+template <int P, int A, int LOG, int K, bool STAMPED, bool PROM, bool CAPS = false,
+          bool LINKS = false>
 struct Staged {
   static_assert(K <= 4 && A <= 8, "a slot's voter masks must fit one word");
+  static_assert(!CAPS || STAMPED, "the caps are the stamped instantiations'");
   static constexpr int kLog = 0;                        // acceptor.log (A, L)
   static constexpr int kRecov = kLog + A * LOG;         // proposer.recov_bv (P, L)
   static constexpr int kLtBv = kRecov + P * LOG;        // learner.lt_bv (L, K)
@@ -261,7 +271,11 @@ struct Staged {
   static constexpr int kRqUntil = kChosenTick + LOG;    // requests.until (2, P, A), if STAMPED
   static constexpr int kPromUntil = kRqUntil + (STAMPED ? 2 * P * A : 0);  // promises.until (P, A)
   static constexpr int kAccdUntil = kPromUntil + (STAMPED ? P * A : 0);    // accepted.until (P, A)
-  static constexpr int kPromBv = kAccdUntil + (STAMPED ? P * A : 0);  // promises.p_bv (P, A, L), if PROM
+  static constexpr int kCaps = kAccdUntil + (STAMPED ? P * A : 0);  // plan.link_delay (P, A), if CAPS
+  static constexpr int kDrop = kCaps + (CAPS ? P * A : 0);            // plan.link_drop (P, A), if LINKS
+  static constexpr int kDup = kDrop + (LINKS ? P * A : 0);            // plan.link_dup (P, A)
+  static constexpr int kPboff = kDup + (LINKS ? P * A : 0);           // plan.pboff (P)
+  static constexpr int kPromBv = kPboff + (LINKS ? P : 0);  // promises.p_bv (P, A, L), if PROM
   static constexpr int kRows = kPromBv + (PROM ? P * A * LOG : 0);
 };
 
@@ -295,18 +309,49 @@ __device__ __forceinline__ uint32_t firing(const TickStream& ts, const Knob& k, 
   return out;
 }
 
+// sd::kept (whether a message of kind `kind` on edge e is kept) and
+// sd::duplicated (whether request slot j is duplicated), with Multi-Paxos'
+// stream ids; where LINKS, each flaky link's threshold read from the
+// lane's column (Staged::kDrop and kDup, loaded once a launch) instead of
+// the plan.
+template <bool ARMS, bool LINKS, int E, int DROP_ROW, int B>
+__device__ __forceinline__ bool link_kept(const TickStream& ts, const Params& prm,
+                                          const Gray& gray, const Column<B>& col, uint32_t stream,
+                                          int kind, int e, int64_t n, int64_t i) {
+  if constexpr (LINKS) {
+    if (gray.flaky) return !ts.below_at(col[DROP_ROW + e], kMpLinkBits, kind * E + e);
+    return ts.survives_at(prm.drop, stream, e);
+  } else {
+    return sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, stream, kind, e, n, i);
+  }
+}
+
+template <bool ARMS, bool LINKS, int S, int E, int DUP_ROW, int B>
+__device__ __forceinline__ bool link_dup(const TickStream& ts, const Params& prm, const Gray& gray,
+                                         const Column<B>& col, uint32_t stream, int j, int64_t n,
+                                         int64_t i) {
+  if constexpr (LINKS) {
+    if (gray.flaky) return ts.below_at(col[DUP_ROW + j % E], kMpDupBits, j);
+    return ts.fires_at(prm.dup, stream, j);
+  } else {
+    return sd::duplicated<ARMS, S, E, kMpDupBits>(ts, prm, gray, stream, 0, j, n, i);
+  }
+}
+
 // The acceptors that keep proposer p's broadcast of kind `kind` (2
 // PREPARE, 3 ACCEPT: LINK_BITS' axis): on flaky links each against its own
 // drop threshold, else the uniform p_drop mask of `stream`.
-template <bool ARMS, int P, int A>
+template <bool ARMS, bool LINKS, int P, int A, int DROP_ROW, int B>
 __device__ __forceinline__ uint32_t sends_kept(const TickStream& ts, const Params& prm,
-                                               const Gray& gray, uint32_t stream, int kind, int p,
-                                               int64_t n, int64_t i) {
+                                               const Gray& gray, const Column<B>& col,
+                                               uint32_t stream, int kind, int p, int64_t n,
+                                               int64_t i) {
   if (ARMS && gray.flaky) {
     uint32_t out = 0;
 #pragma unroll
     for (int a = 0; a < A; ++a)
-      out |= (sd::kept<ARMS, P * A, kMpLinkBits>(ts, prm, gray, stream, kind, p * A + a, n, i)
+      out |= (link_kept<ARMS, LINKS, P * A, DROP_ROW>(ts, prm, gray, col, stream, kind, p * A + a,
+                                                      n, i)
                   ? 1u : 0u) << a;
     return out;
   }
@@ -380,10 +425,9 @@ __device__ __forceinline__ void store_masks(const Column<B>& col, const Leaves& 
   }
 }
 
-template <int P, int A, int LOG, int K, int B, bool STAMPED, bool PROM>
+template <int P, int A, int LOG, int K, bool STAMPED, bool PROM, typename G, int B>
 __device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& L, int64_t n,
                                             int64_t i) {
-  using G = Staged<P, A, LOG, K, STAMPED, PROM>;
   load_rows<A * LOG, G::kLog>(col, L, Mp::kLog, n, i);
   load_rows<P * LOG, G::kRecov>(col, L, Mp::kRecov, n, i);
   load_rows<LOG * K, G::kLtBv>(col, L, Mp::kLtBv, n, i);
@@ -398,10 +442,9 @@ __device__ __forceinline__ void load_column(const Column<B>& col, const Leaves& 
   if constexpr (PROM) load_rows<P * A * LOG, G::kPromBv>(col, L, Mp::kPromBv, n, i);
 }
 
-template <int P, int A, int LOG, int K, int B, bool STAMPED, bool PROM>
+template <int P, int A, int LOG, int K, bool STAMPED, bool PROM, typename G, int B>
 __device__ __forceinline__ void store_column(const Column<B>& col, const Leaves& L, int64_t n,
                                              int64_t i) {
-  using G = Staged<P, A, LOG, K, STAMPED, PROM>;
   store_rows<A * LOG, G::kLog>(col, L, Mp::kLog, n, i);
   store_rows<P * LOG, G::kRecov>(col, L, Mp::kRecov, n, i);
   store_rows<LOG * K, G::kLtBv>(col, L, Mp::kLtBv, n, i);
@@ -418,15 +461,22 @@ __device__ __forceinline__ void store_column(const Column<B>& col, const Leaves&
 
 // Row `row` (= j * LOG + l) of the PROMISE payloads: in the column where
 // staged, else in place in global memory.
-template <int P, int A, int LOG, int K, int B, bool STAMPED, bool PROM>
+template <bool PROM, typename G, int B>
 __device__ __forceinline__ int32_t& prom_word(const Column<B>& col, const Leaves& L, int row,
                                               int64_t n, int64_t i) {
   if constexpr (PROM) {
-    return col[Staged<P, A, LOG, K, STAMPED, PROM>::kPromBv + row];
+    return col[G::kPromBv + row];
   } else {
     return at<int32_t>(L, Mp::kPromBv, row, n, i);
   }
 }
+
+// The column layout of an instantiation: the caps where stamped and the
+// per-link thresholds where the arms are on, each unless observed (an
+// observed instantiation reads them from the plan: its column has no room
+// for them at its geometry).
+template <int P, int A, int LOG, int K, bool STAMPED, bool PROM, bool ARMS, bool OBS>
+using Layout = Staged<P, A, LOG, K, STAMPED, PROM, STAMPED && !OBS, ARMS && !OBS>;
 
 // The kernel; `Arms` is empty for the default instantiations, whose
 // signature and code are those of K5 without the arms, a `Gray` for the
@@ -443,7 +493,9 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   const Gray gray = pick_arg<Gray>(arms...);
   const obs::Obs ob = pick_arg<obs::Obs>(arms...);
   static_assert(B % 32 == 0, "a block is whole warps");
-  using G = Staged<P, A, LOG, K, STAMPED, PROM>;
+  // The caps and the per-link thresholds in the column (Layout).
+  constexpr bool CAPS = STAMPED && !OBS, LINKS = ARMS && !OBS;
+  using G = Layout<P, A, LOG, K, STAMPED, PROM, ARMS, OBS>;
   // The planes' counters (OBS): in registers for the launch (obs::Tally),
   // the margins and the client queue in the column (obs::TallyRows), but with
   // the arms, which leave no registers for them, all in the column
@@ -468,7 +520,17 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
   // A build ablated of the PRNG draws: every mask off.
   if constexpr (ablated(kNoPrng)) prm.idle.mode = prm.hold.mode = prm.dup.mode = prm.drop.mode = 0;
   const Column<B> col{smem + threadIdx.x};
-  load_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
+  load_column<P, A, LOG, K, STAMPED, PROM, G>(col, L, n, i);
+  if constexpr (LINKS) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (gray.flaky) col[G::kDrop + e] = gray.link_drop[e * n + i];
+      if (gray.flaky_dup) col[G::kDup + e] = gray.link_dup[e * n + i];
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (gray.backoff_skew) col[G::kPboff + p] = gray.pboff[p * n + i];
+  }
   obs::Tally<STAMPED> tally;
   if constexpr (OBS && TALLY) {
     obs::move_tally_rows<P, R0>(col, ob, n, i, true);
@@ -485,11 +547,14 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     }
   };
   auto prom_bv = [&](int row) -> int32_t& {
-    return prom_word<P, A, LOG, K, B, STAMPED, PROM>(col, L, row, n, i);
+    return prom_word<PROM, G>(col, L, row, n, i);
   };
   // The bounded-delay channel's waiting slots (STAMPED), as the column: the
-  // replies' slot j < E is PROMISE j, E + j ACCEPTED j.
-  sd::Channel<P, A, B, G::kRqUntil, G::kPromUntil, kMpDelayBits, kMpLatBits, 2> ch;
+  // replies' slot j < E is PROMISE j, E + j ACCEPTED j; the caps from the
+  // column where CAPS.
+  sd::Channel<P, A, B, G::kRqUntil, G::kPromUntil, kMpDelayBits, kMpLatBits, 2,
+              CAPS ? G::kCaps : -1>
+      ch;
   if constexpr (STAMPED) ch.load(col, prm, plan, n, i, *tick_ptr);
 
   // ---- Load the lane's register-resident state once. ----
@@ -735,11 +800,11 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
       const bool keep_prom =
           !ablated(kNoSends) && ok_prep &&
           (OBS ? obs::keep_at<OBS, ARMS, E, MpStreams>(pd, ts, prm, gray, kMpKeepProm, 0, rj, n, i)
-               : sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepProm, 0, rj, n, i));
+               : link_kept<ARMS, LINKS, E, G::kDrop>(ts, prm, gray, col, kMpKeepProm, 0, rj, n, i));
       const bool keep_accd =
           !ablated(kNoSends) && ok_acc &&
           (OBS ? obs::keep_at<OBS, ARMS, E, MpStreams>(pd, ts, prm, gray, kMpKeepAccd, 1, rj, n, i)
-               : sd::kept<ARMS, E, kMpLinkBits>(ts, prm, gray, kMpKeepAccd, 1, rj, n, i));
+               : link_kept<ARMS, LINKS, E, G::kDrop>(ts, prm, gray, col, kMpKeepAccd, 1, rj, n, i));
       if constexpr (STAMPED) {
         if (keep_prom) rp_sent |= 1u << rj;
         if (keep_accd) rp_sent |= 1u << (E + rj);
@@ -776,7 +841,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         const bool dup =
             !ablated(kNoConsume) && sd::dup_live<ARMS>(prm, gray) &&
             (OBS ? obs::dup_at<OBS, ARMS, S, E, MpStreams>(pd, ts, prm, gray, 0, j, kMpDupReq, n, i)
-                 : sd::duplicated<ARMS, S, E, kMpDupBits>(ts, prm, gray, kMpDupReq, 0, j, n, i));
+                 : link_dup<ARMS, LINKS, S, E, G::kDup>(ts, prm, gray, col, kMpDupReq, j, n, i));
         if (!ablated(kNoConsume) && !dup) rq_next &= ~(1u << j);
         if constexpr (OBS) {
           n_dup += dup ? 1 : 0;
@@ -965,15 +1030,21 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         // Retreat below the election threshold (the timer may go negative),
         // stretched by the backoff skew.
         const uint32_t r = ablated(kNoPrng) ? 0u : ts.bits(kMpBackoff, p) & 0x7FFFFFFFu;
-        lt = prm.lease_len - static_cast<int32_t>(sd::skewed_backoff<ARMS>(
-                                 r % static_cast<uint32_t>(2 * prm.backoff_n), gray, p, n, i));
+        uint32_t backoff = r % static_cast<uint32_t>(2 * prm.backoff_n);
+        if constexpr (LINKS) {
+          if (gray.backoff_skew) backoff *= static_cast<uint32_t>(col[G::kPboff + p]);
+        } else {
+          backoff = sd::skewed_backoff<ARMS>(backoff, gray, p, n, i);
+        }
+        lt = prm.lease_len - static_cast<int32_t>(backoff);
       }
 
       // New candidates broadcast Prepare(b) once.
       if (!ablated(kNoSends) && start_elec) {
         const uint32_t kept =
             OBS && pd.on ? ~static_cast<uint32_t>(pd.drop >> (2 * E + p * A)) & kAccs
-                         : sends_kept<ARMS, P, A>(ts, prm, gray, kKeepPrep, 2, p, n, i);
+                         : sends_kept<ARMS, LINKS, P, A, G::kDrop>(ts, prm, gray, col, kKeepPrep, 2,
+                                                                   p, n, i);
         if constexpr (OBS) n_drop += A - __popc(kept);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
@@ -999,7 +1070,8 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
         const int32_t pval = rbv > 0 ? (rbv & kValMask) : (p + 1) * 1000 + wrap_add(base, slot);
         const uint32_t kept =
             OBS && pd.on ? ~static_cast<uint32_t>(pd.drop >> (3 * E + p * A)) & kAccs
-                         : sends_kept<ARMS, P, A>(ts, prm, gray, kKeepAcc, 3, p, n, i);
+                         : sends_kept<ARMS, LINKS, P, A, G::kDrop>(ts, prm, gray, col, kKeepAcc, 3,
+                                                                   p, n, i);
         if constexpr (OBS) n_drop += A - __popc(kept);
 #pragma unroll
         for (int a = 0; a < A; ++a) {
@@ -1182,7 +1254,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
     at<int32_t>(L, Mp::kAccdSlot, j, n, i) = accd_slot[j];
     at<int32_t>(L, Mp::kAccdVal, j, n, i) = accd_val[j];
   }
-  store_column<P, A, LOG, K, B, STAMPED, PROM>(col, L, n, i);
+  store_column<P, A, LOG, K, STAMPED, PROM, G>(col, L, n, i);
   clk.mark(kPhStore);
   clk.flush();
 }
@@ -1194,7 +1266,7 @@ fused_multipaxos_kernel(Leaves L, Plan plan, const int32_t* __restrict__ tick_pt
 template <int P, int A, int LOG, int K, bool STAMPED, int B, bool PROM, typename... Arms>
 using InstWith = SmemInst<
     fused_multipaxos_kernel<P, A, LOG, K, STAMPED, B, PROM, Arms...>, B,
-    (Staged<P, A, LOG, K, STAMPED, PROM>::kRows +
+    (Layout<P, A, LOG, K, STAMPED, PROM, has_arg<Gray, Arms...>, has_arg<obs::Obs, Arms...>>::kRows +
      (!has_arg<obs::Obs, Arms...> ? 0
       : has_arg<Gray, Arms...>    ? obs::Rows<P>::kRows
                                   : obs::TallyRows<P>::kRows)) * B * 4>;

@@ -189,28 +189,45 @@ class MpStaging:
 
 
 def mp_staged_rows(
-    n_prop: int, n_acc: int, log_len: int, k_slots: int, stamped: int, stage_prom: bool
+    n_prop: int, n_acc: int, log_len: int, k_slots: int, stamped: int, stage_prom: bool,
+    caps: bool = False, links: bool = False,
 ) -> int:
     """Words of a lane's column: the log (A*L), the recovery rows (P*L), the
     learner table's (ballot, value) pairs (L*K) and voter masks (L, a
     slot's K <= 4 masks in one word), the chosen values and ticks (L
     each), the stamps of the three buffers (2PA + PA + PA) where stamped,
-    and the PROMISE payloads (P*A*L) where staged."""
+    the links' latency caps (PA) where ``caps``, the arms'
+    per-link drop and dup thresholds (PA each) and the proposers' backoff
+    multipliers (P) where ``links``, and the PROMISE payloads (P*A*L)
+    where staged."""
     if k_slots > MP_MASKS_PER_WORD:
-        raise ValueError(f"K5 packs at most {MP_MASKS_PER_WORD} voter masks a slot, not {k_slots}")
-    rows = (n_acc + n_prop + k_slots + 3) * log_len + (4 * n_prop * n_acc if stamped else 0)
-    return rows + (n_prop * n_acc * log_len if stage_prom else 0)
+        raise ValueError(
+            f"K5 packs at most {MP_MASKS_PER_WORD} voter masks a slot, not {k_slots}: ROADMAP "
+            "item 23 (K5 at k_slots above 4); the plain tick runs it on the CPU"
+        )
+    edges = n_prop * n_acc
+    rows = (n_acc + n_prop + k_slots + 3) * log_len + (4 * edges if stamped else 0)
+    rows += edges if caps else 0
+    rows += 2 * edges + n_prop if links else 0
+    return rows + (edges * log_len if stage_prom else 0)
 
 
 def _mp_staging(
-    shape: tuple, threads: int, stage_prom: bool, counter_rows: Callable = tally_obs_rows
+    shape: tuple, threads: int, stage_prom: bool, counter_rows: Callable = tally_obs_rows,
+    links: bool = True, caps: bool = True,
 ) -> MpStaging:
-    # The key: (P, A, L, K, stamped, arms, observed); the arms add no row,
-    # the planes their counter rows (an older source's key, which chip_ab.py
-    # launches, may lack the observed flag, and its column may hold every
-    # counter: counter_rows gives them for n_prop and the arms flag).
-    rows = mp_staged_rows(*shape[:5], stage_prom)
-    if len(shape) > 6 and shape[6]:
+    # The key: (P, A, L, K, stamped, arms, observed); an instantiation
+    # without the planes stages the arms' per-link thresholds where the arms
+    # are on (``links``) and its links' caps where stamped (``caps``; an
+    # older source's column, which chip_ab.py launches, holds neither), the
+    # planes add their counter rows (an older source's key may lack the
+    # observed flag, and its column may hold every counter: counter_rows
+    # gives them for n_prop and the arms flag).
+    observed = len(shape) > 6 and bool(shape[6])
+    caps = caps and not observed and bool(shape[4])
+    links = links and not observed and len(shape) > 5 and bool(shape[5])
+    rows = mp_staged_rows(*shape[:5], stage_prom, caps, links)
+    if observed:
         rows += counter_rows(shape[0], shape[5])
     return MpStaging(threads, stage_prom, rows, rows * 4 * threads)
 
@@ -225,8 +242,13 @@ def _mp_staging(
 # the column; at (2, 5, 8, 4) with them, the payloads move to global
 # memory as at (2, 5, 16, 4): the 152 words left take 2 blocks of 128 (8
 # warps), where staging everything (232 words) allows 2 blocks of 96 (6
-# warps; PERF.md §6 times both).  The arms instantiations keep their
-# default's column (the snapshot shadows stay in global memory).  The
+# warps; PERF.md §6 times both); with the links' caps 162 words (184 with
+# the arms).  Staging the payloads beside stamps packed as 16-bit codes (217
+# words at 2 x 128) ran the steady chunk 7% slower on delaychaos-multipaxos:
+# the column moves 80 more words a lane a launch than the steady tick
+# touches.  The arms instantiations add the links' drop and dup thresholds
+# and the backoff multipliers to their default's column (214 words; the
+# snapshot shadows stay in global memory).  The
 # observed instantiations add the planes' counter rows (tally_obs_rows: 20
 # words, the rest in registers; 49 with the arms) and stage the PROMISE
 # payloads, which the coverage digest folds every tick: config3's observed
@@ -240,13 +262,13 @@ def _mp_staging(
 # (2 blocks of 96) ran 71.236 and 71.278 ms against 69.153 and 69.164
 # staged (the same call): it stays at 64 x 2 staged.
 MP_STAGING = {
-    (2, 5, 8, 4, 0, 0, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
-    (2, 5, 16, 4, 0, 0, 0): _mp_staging((2, 5, 16, 4, 0), 128, False),
-    (2, 5, 4, 4, 0, 0, 0): _mp_staging((2, 5, 4, 4, 0), 128, True),
-    (2, 3, 8, 4, 0, 0, 0): _mp_staging((2, 3, 8, 4, 0), 128, True),
-    (2, 5, 8, 4, 0, 1, 0): _mp_staging((2, 5, 8, 4, 0), 128, True),
-    (2, 5, 8, 4, 1, 0, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
-    (2, 5, 8, 4, 1, 1, 0): _mp_staging((2, 5, 8, 4, 1), 128, False),
+    (2, 5, 8, 4, 0, 0, 0): _mp_staging((2, 5, 8, 4, 0, 0, 0), 128, True),
+    (2, 5, 16, 4, 0, 0, 0): _mp_staging((2, 5, 16, 4, 0, 0, 0), 128, False),
+    (2, 5, 4, 4, 0, 0, 0): _mp_staging((2, 5, 4, 4, 0, 0, 0), 128, True),
+    (2, 3, 8, 4, 0, 0, 0): _mp_staging((2, 3, 8, 4, 0, 0, 0), 128, True),
+    (2, 5, 8, 4, 0, 1, 0): _mp_staging((2, 5, 8, 4, 0, 1, 0), 128, True),
+    (2, 5, 8, 4, 1, 0, 0): _mp_staging((2, 5, 8, 4, 1, 0, 0), 128, False),
+    (2, 5, 8, 4, 1, 1, 0): _mp_staging((2, 5, 8, 4, 1, 1, 0), 128, False),
     **{key: _mp_staging(key, 96, True) for key in KERNEL_SHAPES["multipaxos"] if key[6] and key[2] == 8},
     (2, 5, 8, 4, 0, 0, 1): _mp_staging((2, 5, 8, 4, 0, 0, 1), 128, True),
     (2, 5, 16, 4, 0, 0, 1): _mp_staging((2, 5, 16, 4, 0, 0, 1), 64, True),
@@ -768,7 +790,8 @@ def _check_cuda_inputs(
     if shape not in KERNEL_SHAPES[protocol]:
         raise ValueError(
             f"the {protocol} CUDA kernel is instantiated for the shapes "
-            f"{KERNEL_SHAPES[protocol]}, not {shape}"
+            f"{KERNEL_SHAPES[protocol]}, not {shape}: ROADMAP item 23 (the keys the card "
+            "does not instantiate); the plain tick runs it on the CPU"
         )
     state.check_layout()
     n_inst = state.n_inst

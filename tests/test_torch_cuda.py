@@ -53,6 +53,7 @@ arguments that do not fit.
 import dataclasses
 import hashlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -830,6 +831,54 @@ def test_fr_arms_refuse_mismatched_launches(protocol):
     assert tfused.blocks_per_sm(protocol, arms_shape) >= 3
 
 
+def _waiting_stamps(state, seed):
+    """``state`` at tick 1000 with random presence and stamps around it in
+    its three buffers: some already passed, most a few ticks ahead, some
+    more than 2^16 ticks ahead, some at the int32 limit."""
+    rng = np.random.default_rng(seed)
+    state.tick.fill_(1000)
+    for buf in (state.requests, state.promises, state.accepted):
+        shape = tuple(buf.until.shape)
+        near = 1000 + rng.integers(-5, 12, shape)
+        far = 1000 + rng.integers(1 << 16, 1 << 20, shape)
+        until = np.where(rng.random(shape) < 0.05, far, near)
+        until = np.where(rng.random(shape) < 0.02, (1 << 31) - 1, until)
+        buf.until.copy_(torch.from_numpy(until.astype(np.int32)))
+        buf.present.copy_(torch.from_numpy(rng.random(shape) < 0.5))
+    return state
+
+
+def _mp_launch_cases(cfg, key, waiting=False, block=256):
+    """K5's instantiation ``key`` on ``cfg`` against the plain tick where a
+    launch is short: three 1-tick launches, then a 0-tick launch that must
+    leave the state as it was, from the initial state and after a 64-tick
+    chunk; with ``waiting`` (a stamped key) also from a state whose stamps
+    wait (:func:`_waiting_stamps`: the launch reads them, writes others and
+    stores only those it wrote), over 64 ticks, one tick and 0 ticks, and
+    over 64 ticks across the int32 wrap of the tick."""
+    wrapper = tfused.fused_multipaxos_chunk
+    plan = config_plan(cfg, cfg.seed)
+    starts = [("init", trun.init_state(cfg, "cuda"))]
+    starts.append(("after a chunk", wrapper(starts[0][1].clone(), cfg.seed, plan, cfg.fault, 64, block=block)))
+    if waiting:
+        starts.append(("waiting stamps", _waiting_stamps(trun.init_state(cfg, "cuda"), cfg.seed)))
+        wrap = trun.init_state(cfg, "cuda")
+        wrap.tick.fill_((1 << 31) - 40)
+        starts.append(("across the int32 wrap", wrap))
+    for name, start in starts:
+        assert tfused.BINDINGS["multipaxos"].kernel_shape(start, cfg.fault) == key, name
+        kern, plain = start.clone(), start.clone()
+        for n_ticks in ((64, 1, 1) if waiting and name != "after a chunk" else (1, 1, 1)):
+            plain = plain_chunk(cfg, plain, plan, n_ticks, block)
+            kern = wrapper(kern, cfg.seed, plan, cfg.fault, n_ticks, block=block)
+            torch.cuda.synchronize()
+            _assert_same(kern, plain)
+        before = kern.clone()
+        tfused._launch("multipaxos", kern, cfg.seed, plan, cfg.fault, 0, block, 0, False)
+        torch.cuda.synchronize()
+        _assert_same(kern, before)
+
+
 @pytest.mark.cuda
 def test_mp_gray_arms_match_plain_on_cuda():
     """K5's arms instantiation against the plain tick on every gray-failure
@@ -840,10 +889,15 @@ def test_mp_gray_arms_match_plain_on_cuda():
     knob at once, over two chunks on chip_smoke's numpy plans; on the JAX
     package's own cases (tests/test_gray.py: every knob with crash windows
     at 64 lanes, seed 5, 24 ticks in one stream block; flaky links at zero
-    rates, 128 lanes, seed 9); and the gray-chaos main path's block-0
-    digest after a whole campaign."""
+    rates, 128 lanes, seed 9); 1-tick launches and a 0-tick launch, which
+    must leave the state as it was, on the gray-chaos cell, and the arms
+    with the stamps from a state whose stamps wait (_mp_launch_cases); and
+    the gray-chaos main path's block-0 digest after a whole campaign."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    _mp_launch_cases(main_config("graychaos-multipaxos", 4096, 17), (2, 5, 8, 4, 0, 1, 0))
+    every = delay_knob_configs(4096, 17, "multipaxos")["every gray knob, p_delay 0.4"]
+    _mp_launch_cases(every, (2, 5, 8, 4, 1, 1, 0), waiting=True)
     wrapper = tfused.fused_multipaxos_chunk
     cases = [(cfg, 96, 2, 256) for cfg in gray_knob_configs(4096, 12, "multipaxos").values()]
     every = main_config("config3", 64, 5)
@@ -1053,16 +1107,45 @@ def test_fr_delay_matches_plain_on_cuda(protocol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["delaychaos-paxos", "delaychaos-fastpaxos", "delaychaos-raftcore", "synchpaxos"])
+def test_stamped_kernels_match_plain_across_int32_wrap(path):
+    """K1's to K4's stamped instantiations against the plain tick over two
+    64-tick chunks from tick 2^31 - 40: at the tick where the int32 tick
+    wraps to its least value, the plain tick's ``tick >= until`` turns
+    every slot stamped before the wrap back to waiting, and the channel
+    (sd::Channel) takes every slot's readiness anew there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    cfg = main_config(path, 4096, 7)
+    plan = main_plan(cfg) or config_plan(cfg, cfg.seed)
+    wrapper = tfused.FUSED_WRAPPERS[MAIN_PATHS[path].protocol]
+    kern = path_state(cfg, "cuda")
+    assert kern.stamped == 1
+    kern.tick.fill_((1 << 31) - 40)
+    plain = kern.clone()
+    for _ in range(2):
+        plain = plain_chunk(cfg, plain, plan, 64, 1024)
+        kern = wrapper(kern, cfg.seed, plan, cfg.fault, 64, block=1024)
+        torch.cuda.synchronize()
+        _assert_same(kern, plain)
+
+
+@pytest.mark.cuda
 def test_mp_delay_matches_plain_on_cuda():
     """K5's stamped instantiations against the plain tick on
     ``delay_knob_configs(n, seed, "multipaxos")`` (config3's cell with each
     case's fault config; the last two on the arms, every gray knob with the
     snapshot shadows too) over two chunks in stream blocks of 256; the
-    per-tick clamp (2047) with a block offset from near-limit ballots; and
-    the delaychaos-multipaxos main path's block-0 digest after a whole
-    campaign.  Its geometry holds 2 blocks of 128 lanes an SM."""
+    per-tick clamp (2047) with a block offset from near-limit ballots;
+    1-tick launches, a 0-tick launch that leaves the state as it was, a
+    state whose stamps wait (some more than 2^16 ticks ahead) and ticks
+    across the int32 wrap (_mp_launch_cases); and the delaychaos-multipaxos
+    main path's block-0 digest after a whole campaign.  Its geometry holds
+    2 blocks of 128 lanes an SM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the fused kernels have no CPU mode")
+    _mp_launch_cases(main_config("delaychaos-multipaxos", 4096, 17), (2, 5, 8, 4, 1, 0, 0),
+                     waiting=True)
     cases = delay_knob_configs(4096, 14, "multipaxos")
     shapes = _match_over_chunks("multipaxos", cases, block=256)
     assert shapes == {(2, 5, 8, 4, 1, 0, 0), (2, 5, 8, 4, 1, 1, 0)}

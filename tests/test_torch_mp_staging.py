@@ -8,13 +8,16 @@ rows, shared bytes).  The rows are held against the port's own
 and the table against the instantiations and the column order of
 ``csrc/fused_multipaxos_tick.cu``.  A table key is (n_prop, n_acc,
 log_len, k_slots, stamped, arms, observed): the gray-failure and partition
-arms are an instantiation of their own at config3's shape, with its
-default's column, and so is the bounded-delay channel, whose 40 stamp
-words a lane join the column while the PROMISE payloads go to global
-memory, so that an SM still holds 2 blocks of 128 lanes; so are the
-observer planes, whose counter rows (``tally_obs_rows``: the margins and the
-client queue, 20 words, the other counters in registers; with the arms all
-49 of ``obs_rows``) join the column, and at config3-long's shape too.
+arms are an instantiation of their own at config3's shape, whose column
+adds the links' drop and dup thresholds and the proposers' backoff
+multipliers (22 words), and so is the bounded-delay channel, whose 40
+stamp words and the links' caps (10 words) join the column
+while the PROMISE payloads go to global memory, so that an SM still holds
+2 blocks of 128 lanes; so are the observer planes, whose counter rows
+(``tally_obs_rows``: the margins and the client queue, 20 words, the other
+counters in registers; with the arms all 49 of ``obs_rows``) join the
+column (their links' caps and thresholds read from the plan), and at
+config3-long's shape too.
 """
 
 import dataclasses
@@ -50,16 +53,24 @@ def _rows(state, path):
 
 @pytest.mark.parametrize("shape,staging", TABLES, ids=IDS)
 def test_staged_rows_match_the_state_leaves(shape, staging):
-    n_prop, n_acc, log_len, k_slots, stamped, _, observed = shape
+    n_prop, n_acc, log_len, k_slots, stamped, arms, observed = shape
     state = MultiPaxosState.init(3, n_prop, n_acc, log_len, k_slots, delay=bool(stamped))
     leaves = (
         tfused.MP_STAGED_LEAVES + (tfused.MP_STAMP_LEAVES if stamped else ())
         + ((tfused.MP_PROM_LEAF,) if staging.stage_prom else ())
     )
-    counters = tfused.tally_obs_rows(n_prop, shape[5]) if observed else 0
-    assert counters in (0, 4 + 8 * n_prop if not shape[5] else tfused.obs_rows(n_prop))
-    rows = sum(_rows(state, path) for path in leaves) + counters
-    assert staging.rows == rows == tfused.mp_staged_rows(*shape[:5], staging.stage_prom) + counters
+    counters = tfused.tally_obs_rows(n_prop, arms) if observed else 0
+    assert counters in (0, 4 + 8 * n_prop if not arms else tfused.obs_rows(n_prop))
+    # Where not observed, the links' caps beside the stamps and the arms'
+    # link rows (each link's drop and dup threshold, each
+    # proposer's backoff multiplier).
+    caps, links = bool(stamped) and not observed, bool(arms) and not observed
+    edges = n_prop * n_acc
+    lanes = (edges if caps else 0) + (2 * edges + n_prop if links else 0)
+    rows = sum(_rows(state, path) for path in leaves) + lanes + counters
+    assert staging.rows == rows == tfused.mp_staged_rows(
+        *shape[:5], staging.stage_prom, caps, links
+    ) + counters
     assert staging.smem_bytes == rows * 4 * staging.threads
     assert staging.smem_bytes <= tfused.SMEM_PER_BLOCK_MAX
     assert staging.threads % 32 == 0 and 32 <= staging.threads <= 1024
@@ -81,24 +92,31 @@ def test_every_instantiation_has_a_geometry():
     ]
     assert sorted(k[4:] for k in tfused.MP_STAGING if k[:4] == (2, 5, 8, 4)) == keys
     for stamped in (0, 1):
-        assert tfused.MP_STAGING[(2, 5, 8, 4, stamped, 1, 0)] == tfused.MP_STAGING[(2, 5, 8, 4, stamped, 0, 0)]
+        # The arms add their 22 link rows.
+        arms, bare = (tfused.MP_STAGING[(2, 5, 8, 4, stamped, r, 0)] for r in (1, 0))
+        assert arms.rows - bare.rows == 22
+        assert arms.threads == bare.threads == 128 and arms.stage_prom == bare.stage_prom
         arms, bare = (tfused.MP_STAGING[(2, 5, 8, 4, stamped, r, 1)] for r in (1, 0))
         assert arms.rows - bare.rows == tfused.obs_rows(2) - 20 == 29
         assert arms.stage_prom and bare.stage_prom
 
 
 def test_stamped_geometry_keeps_two_blocks_an_sm():
-    """The stamped column (152 words: 112 of slot arrays and 40 stamps, the
-    PROMISE payloads in global memory) takes 2 blocks of 128 lanes an SM,
-    as the default does; with the payloads staged too (232 words) 2 blocks
-    of 128 would not fit."""
+    """The stamped column (162 words: 112 of slot arrays, 40 stamps and the
+    links' 10 caps; the PROMISE payloads in global memory) takes 2 blocks
+    of 128 lanes an SM, as the default does, and with the arms (184 words)
+    too; with the payloads staged too (242 words) 2 blocks of 128 would not
+    fit."""
     sm_shared, reserved = 233_472, 1024
-    for key in ((2, 5, 8, 4, 1, 0, 0), (2, 5, 8, 4, 1, 1, 0)):
+    for key, want in {
+        (2, 5, 8, 4, 1, 0, 0): (128, False, 162, 82944),
+        (2, 5, 8, 4, 1, 1, 0): (128, False, 184, 94208),
+    }.items():
         st = tfused.MP_STAGING[key]
-        assert (st.threads, st.stage_prom, st.rows, st.smem_bytes) == (128, False, 152, 77824)
+        assert (st.threads, st.stage_prom, st.rows, st.smem_bytes) == want
         assert 2 * (st.smem_bytes + reserved) <= sm_shared
-    staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 1, True)
-    assert staged_all == 232 and 2 * (staged_all * 4 * 128 + reserved) > sm_shared
+    staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 1, True, caps=True)
+    assert staged_all == 242 and 2 * (staged_all * 4 * 128 + reserved) > sm_shared
     default = tfused.MP_STAGING[(2, 5, 8, 4, 0, 0, 0)]
     assert 2 * (default.smem_bytes + reserved) <= sm_shared
 
@@ -125,6 +143,18 @@ def test_observed_geometry_keeps_two_blocks_an_sm():
             assert 2 * (st.rows * 4 * 128 + reserved) > sm_shared
     staged_all = tfused.mp_staged_rows(2, 5, 8, 4, 0, True) + tfused.tally_obs_rows(2, False)
     assert staged_all == 212
+
+
+def test_arms_geometry_keeps_two_blocks_an_sm():
+    """The arms key's column (214 words: the default's 192 and the 22 link
+    rows) takes 2 blocks of 128 lanes an SM, as the observed key's 212 do;
+    3 blocks of 96, which its registers (over 168 a thread) could not
+    hold anyway, would not fit either."""
+    sm_shared, reserved = 233_472, 1024
+    st = tfused.MP_STAGING[(2, 5, 8, 4, 0, 1, 0)]
+    assert (st.threads, st.stage_prom, st.rows) == (128, True, 214)
+    assert 2 * (st.smem_bytes + reserved) <= sm_shared
+    assert 3 * (st.rows * 4 * 96 + reserved) > sm_shared
 
 
 def _instances():
@@ -209,3 +239,23 @@ def test_occupancy_query_needs_the_kernel_build(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
         tfused.blocks_per_sm("multipaxos", (2, 5, 8, 4, 0, 0, 0))
+
+
+def test_k_slots_above_four_names_item_23():
+    """K5 packs at most 4 voter masks a slot: its column refuses k_slots 8
+    (config_gray_chaos's own learner table, the reference's default), and
+    so does the wrapper's instantiation lookup, host code that runs before
+    any launch, each naming ROADMAP item 23; on the CPU the plain tick runs
+    it."""
+    from chip_smoke import main_config, main_plan, path_state
+
+    with pytest.raises(ValueError, match=r"item 23 \(K5 at k_slots above 4\)"):
+        tfused.mp_staged_rows(2, 5, 8, 8, 0, True)
+    cfg = dataclasses.replace(main_config("graychaos-multipaxos", 8, 1), k_slots=8)
+    state = path_state(cfg, "cpu")
+    plan = main_plan(cfg, "cpu")
+    assert tfused.BINDINGS["multipaxos"].kernel_shape(state, cfg.fault) == (2, 5, 8, 8, 0, 1, 0)
+    with pytest.raises(ValueError, match=r"not \(2, 5, 8, 8, 0, 1, 0\): ROADMAP item 23"):
+        tfused._check_cuda_inputs("multipaxos", state, plan, cfg.fault)
+    plain = tfused.FUSED_CHUNKS["multipaxos"](state, 1, plan, cfg.fault, 4)
+    assert int(plain.tick) == 4

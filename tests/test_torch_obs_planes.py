@@ -371,9 +371,10 @@ def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
     stamps and the arms): their planes-off column plus the counter rows
     (K4 ``tally_obs_rows``: 124 words at 3 blocks of 128, 164 stamped at 3 of
     96, with the arms 124 and 164 at 2 of 128, as K2's; K5
-    ``tally_obs_rows``, the PROMISE payloads staged: 212 words at 2 blocks of
-    128, 241 with the arms, 252 stamped and 281 with both at 2 blocks of
-    96); the wrapper keys a state with
+    ``tally_obs_rows`` on its slot arrays, stamps and PROMISE payloads,
+    without the planes-off column's caps and link rows:
+    212 words at 2 blocks of 128, 241 with the arms, 252 stamped and 281
+    with both at 2 blocks of 96); the wrapper keys a state with
     a plane to them and one without to the planes-off keys.  (K5's observed
     long-log key, the planes alone at (2,5,16,4), is
     tests/test_torch_obs_mp_long.py's.)"""
@@ -387,9 +388,18 @@ def test_observed_geometry_of_k4_k5(protocol, head, rows, threads):
         st = table[key]
         assert st.smem_bytes == st.rows * 4 * st.threads
         counters = tfused.tally_obs_rows(key[0], protocol == "multipaxos" and key[-2])
-        assert st.rows == table[key[:-1] + (0,)].rows + counters + (
-            80 if protocol == "multipaxos" and key[-3] else 0  # the payloads K5 stamped leaves global
-        )
+        bare = table[key[:-1] + (0,)]
+        if protocol == "multipaxos":
+            # K5's observed column stages the payloads and reads its links'
+            # caps and thresholds from the plan; its planes-off column stages
+            # the caps and the arms' link rows (fused_tick.mp_staged_rows).
+            _, _, _, _, stamped, arms, _ = key
+            assert st.rows == tfused.mp_staged_rows(*key[:5], True) + counters
+            assert bare.rows == tfused.mp_staged_rows(
+                *key[:5], bare.stage_prom, caps=bool(stamped), links=bool(arms)
+            )
+        else:
+            assert st.rows == bare.rows + counters
         assert tfused._launch_dims(binding, key) == key + (st.smem_bytes,)
     assert binding.observed
     path = "config3" if protocol == "multipaxos" else "synchpaxos"
@@ -419,4 +429,23 @@ def test_observed_multipaxos_elsewhere_names_item_22(other):
             tfused._check_cuda_inputs("multipaxos", state, plan, cfg.fault)
         assert str((cfg.n_prop, cfg.n_acc, cfg.log_len, cfg.k_slots)) in str(err.value)
     plain = tfused.FUSED_CHUNKS["multipaxos"](state, 1, chip_smoke.main_plan(cfg, "cpu"), cfg.fault, 4)
+    assert int(plain.tick) == 4 and plain.planes == state.planes
+
+
+def test_observed_paxos_at_config1_names_item_23():
+    """K1's observed keys are all at (2,5,8): a state with a plane at
+    config1's shape (1 proposer, 3 acceptors; the JAX CLI's ``run --config
+    config1`` with a plane) is refused by the wrapper's instantiation
+    lookup, host code that runs before any launch, with an error naming the
+    key and ROADMAP item 23; on the CPU the plain tick runs it."""
+    from paxos_tpu_torch.harness import config as TC
+    from paxos_tpu_torch.harness.run import init_plan
+
+    cfg = chip_smoke.with_planes(TC.config1_no_faults(8, 1))
+    state = chip_smoke.path_state(cfg, "cpu")
+    plan = init_plan(cfg, "cpu")
+    assert tfused.BINDINGS["paxos"].kernel_shape(state, cfg.fault) == (1, 3, 8, 0, 0, 1)
+    with pytest.raises(ValueError, match=r"not \(1, 3, 8, 0, 0, 1\): ROADMAP item 23"):
+        tfused._check_cuda_inputs("paxos", state, plan, cfg.fault)
+    plain = tfused.FUSED_CHUNKS["paxos"](state, 1, plan, cfg.fault, 4)
     assert int(plain.tick) == 4 and plain.planes == state.planes

@@ -135,3 +135,23 @@ def test_table_staging_reads_each_sources_counter_rows(protocol):
             assert (st.threads, st.min_blocks, st.rows) == (128, 2, rows)
         else:
             assert st == staging[key]
+
+
+def test_table_staging_reads_k5_lane_rows():
+    """``chip_ab.table_staging`` launches a K5 source at its own column: this
+    source's as the wrapper's (the arms' 22 link rows, the stamped keys'
+    10 rows of caps, none of them where observed), and a source from before
+    them (no ``LINKS``, no ``kCaps``) at its default's column for the
+    arms key and 152 words for the stamped keys."""
+    src = _source("multipaxos")
+    staging = tfused.BINDINGS["multipaxos"].staging
+    assert chip_ab.table_staging("multipaxos", src, staging) == staging
+    older = src.replace("bool LINKS", "bool GRAY").replace("kCaps", "kCapRow")
+    got = chip_ab.table_staging("multipaxos", older, staging)
+    want = {(2, 5, 8, 4, 0, 1, 0): 192, (2, 5, 8, 4, 1, 0, 0): 152, (2, 5, 8, 4, 1, 1, 0): 152}
+    for key, st in got.items():
+        if key in want:
+            assert (st.threads, st.stage_prom, st.rows) == (128, staging[key].stage_prom, want[key])
+            assert staging[key].rows - st.rows == {192: 22, 152: 10 if not key[5] else 32}[want[key]]
+        else:
+            assert st == staging[key]
